@@ -1,0 +1,301 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository, on a host with a CUDA device and
+``nvcc`` (the kernels are built from ``yask_tpu_torch/csrc`` and the
+emitted sources at first use).  Every phase raises on failure, so the
+script exits 0 only when all of them passed.  Phases:
+
+1. identify the card (``nvidia-smi`` name and power limit) and build every
+   kernel of the path, one ``nvcc`` per source, all started together;
+2. hold the fused kernel (``-mode fused``) against its plain version
+   (``-mode torch``) on a numpy-seeded random state: iso3dfd r=8 and 3axis
+   r=1 at 64³, K ∈ {1, 2}, 5 steps (so a remainder chunk runs), 0
+   mismatches at ``compare_data(field_epsilon=1e-4)``, the repo's
+   tolerance for a fused kernel against its unfused path (the build turns
+   FMA contraction off, so the two should in fact agree to the bit);
+3. validate ``fused`` against the numpy oracle (``-mode ref``) at 32³ for
+   2 steps with ``compare_data``'s defaults;
+4. the main path at full width: iso3dfd r=8 at 512³, fp32, ``-mode fused
+   -wf_steps 2`` through ``yk_factory → new_solution →
+   apply_command_line_options → prepare_solution → init vars →
+   run_solution``: a warm-up, then 3 trials of 20 steps, with the launch
+   counter zeroed just before and read just after; then, outside that
+   window, the kernel's time per launch and its plain version's on the
+   main path's shapes, and one chunk of each from the same state compared.
+
+It prints the measurements, the card line, one ``{"kernels": [...]}``
+line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
+the ``yask_tpu`` package is imported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+#: H100 SXM peaks (NVIDIA data sheet): device memory and fp32 non-tensor.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+FIELD_EPS = 1e-4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    if not out:
+        raise RuntimeError("nvidia-smi printed no card")
+    return out[0].strip()
+
+
+def make_ctx(fac, env, stencil, radius, g, mode, wf=1):
+    ctx = fac.new_solution(env, stencil=stencil, radius=radius)
+    ctx.apply_command_line_options(f"-g {g} -mode {mode} -wf_steps {wf}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def seed_random(ctx, seed: int) -> None:
+    """A numpy-seeded random interior state through the yk_var slice API:
+    written vars uniform in [0, 1), read-only coefficients 0.05 + 0.01·U
+    (a stable wave speed)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
+    for name in sorted(ctx.get_var_names()):
+        v = ctx.get_var(name)
+        dd = v.get_domain_dim_names()
+        sizes = [ctx.get_overall_domain_size(d) for d in dd]
+        steps = [None]
+        if v.get_step_dim_name():
+            steps = list(range(v.get_first_valid_step_index(),
+                               v.get_last_valid_step_index() + 1))
+        for t in steps:
+            vals = rng.rand(*sizes)
+            if name not in written:
+                vals = 0.05 + 0.01 * vals
+            first = ([t] if t is not None else []) + [0] * len(dd)
+            last = ([t] if t is not None else []) + [s - 1 for s in sizes]
+            v.set_elements_in_slice(vals.astype(np.float32), first, last)
+
+
+def max_abs_diff(a, b) -> float:
+    """Largest |Δ| over the interiors of two contexts' common vars."""
+    import numpy as np
+    from yask_tpu_torch.transfer import export_interiors
+    xa, xb = export_interiors(a), export_interiors(b)
+    return max(float(np.abs(x.astype(np.float64) - y).max())
+               for n in xa for x, y in zip(xa[n], xb[n]))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` calls (CUDA
+    events around the batch, after one warm call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from yask_tpu_torch import yk_factory
+    from yask_tpu_torch.ops import _build, fused_stencil
+    from yask_tpu_torch.ops.fused_stencil import fused_step, plain_chunk
+    from yask_tpu_torch.runtime.init_utils import init_solution_vars
+
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    card = card_line()
+    log(f"card: {card}")
+    fac = yk_factory()
+    env = fac.new_env()
+    dev_name = torch.cuda.get_device_name(0)
+
+    # ---- phase 1: build every kernel of the path ----------------------
+    t0 = time.perf_counter()
+    cases = {"iso3dfd": 8, "3axis": 1}
+    specs = {}
+    for st, r in cases.items():
+        ctx = make_ctx(fac, env, st, r, 64, "fused")
+        specs[st] = fused_stencil.FusedKernel(ctx._program).spec
+    _paths, logs = _build.build_many(
+        [(s.name, s.source) for s in specs.values()], ptxas_info=True)
+    build_secs = time.perf_counter() - t0
+    for st, s in specs.items():
+        info = [ln.strip() for ln in logs.get(s.name, "").splitlines()
+                if "registers" in ln or "spill" in ln]
+        log(f"phase 1: built {s.name} ({st}): tile {list(s.tile)}, "
+            f"smem {s.smem_bytes} B; ptxas: {' | '.join(info)}")
+    log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
+        "run(s) in parallel)")
+
+    # ---- phase 2: kernel against its plain version on the card --------
+    for st, r in cases.items():
+        for K in (1, 2):
+            steps = 5
+            plain = make_ctx(fac, env, st, r, 64, "torch", K)
+            fused = make_ctx(fac, env, st, r, 64, "fused", K)
+            seed_random(plain, 7)
+            seed_random(fused, 7)
+            plain.run_solution(0, steps - 1)
+            n0 = fused_step.launches
+            fused.run_solution(0, steps - 1)
+            launched = fused_step.launches - n0
+            bad = fused.compare_data(plain, field_epsilon=FIELD_EPS)
+            d = max_abs_diff(fused, plain)
+            log(f"phase 2: {st} r={r} g=64 K={K} {steps} steps: fused vs "
+                f"torch max|d|={d:.3e} mismatches={bad} "
+                f"(field_epsilon={FIELD_EPS}), launches={launched}")
+            if bad:
+                raise RuntimeError(f"phase 2: {st} K={K}: {bad} mismatches")
+            if launched != steps:
+                raise RuntimeError(
+                    f"phase 2: {st} K={K}: {launched} launches, expected "
+                    f"{steps}")
+
+    # ---- phase 3: validation against the numpy oracle ------------------
+    for st, r in cases.items():
+        fused = make_ctx(fac, env, st, r, 32, "fused")
+        ref = make_ctx(fac, env, st, r, 32, "ref")
+        init_solution_vars(fused)
+        init_solution_vars(ref)
+        fused.run_solution(0, 1)
+        ref.run_solution(0, 1)
+        bad = fused.compare_data(ref)
+        log(f"phase 3: {st} r={r} g=32 2 steps: fused vs ref "
+            f"max|d|={max_abs_diff(fused, ref):.3e} mismatches={bad} "
+            "(compare_data defaults)")
+        if bad:
+            raise RuntimeError(f"phase 3: {st}: {bad} mismatches vs ref")
+
+    # ---- phase 4: the main path at full width --------------------------
+    g, warm, trials, steps = 512, 2, 3, 20
+    npts = g ** 3
+    del plain, fused, ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_step.launches = 0
+    ctx = fac.new_solution(env, stencil="iso3dfd", radius=8)
+    ctx.apply_command_line_options(f"-g {g} -mode fused -wf_steps 2")
+    ctx.prepare_solution()
+    seed_random(ctx, 11)
+    t = 0
+    ctx.run_solution(t, t + warm - 1)
+    t += warm
+    rates = []
+    for _ in range(trials):
+        ctx.clear_stats()
+        ctx.run_solution(t, t + steps - 1)
+        t += steps
+        rates.append(ctx.get_stats().get_pts_per_sec())
+    torch.cuda.synchronize()
+    launches = fused_step.launches
+    peak_mem = torch.cuda.max_memory_allocated()
+    if launches != warm + trials * steps:
+        raise RuntimeError(f"phase 4: {launches} launches, expected "
+                           f"{warm + trials * steps}")
+    out = ctx.get_var("pressure").get_elements_in_slice(
+        [t, 0, 0, 0], [t, g - 1, g - 1, g - 1])
+    import numpy as np
+    if out.shape != (g, g, g) or not np.isfinite(out).all() \
+            or not np.abs(out).max() > 0:
+        raise RuntimeError("phase 4: pressure is not finite and nonzero")
+    rates.sort()
+    mid = rates[len(rates) // 2]
+    step_ms = npts / mid * 1e3
+    log(f"phase 4: iso3dfd r=8 g={g} fp32 -mode fused -wf_steps 2: "
+        f"{trials} trials x {steps} steps: mid {mid:.4e} points/s "
+        f"({mid / 1e9:.3f} GPts/s), {step_ms:.3f} ms/step "
+        f"(min {npts / rates[-1] * 1e3:.3f}, max "
+        f"{npts / rates[0] * 1e3:.3f})")
+    log(f"phase 4: fused_step launches on the main path: {launches} "
+        f"({warm} warm-up + {trials}x{steps} steps, 1 per step)")
+
+    # the bound: each input read once, each output written once, interior
+    ops_pp = ctx._ana.counters.num_ops
+    prog = ctx._program
+    kern = ctx._fused
+    bytes_step = 4 * npts * (len(kern.spec.inputs) + len(kern.spec.outputs))
+    bytes_ms = bytes_step / HBM_BYTES_PER_S * 1e3
+    flops_ms = ops_pp * npts / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    log(f"phase 4: bound {bound_ms:.3f} ms/step ({bound_by}: "
+        f"{bytes_step / npts:.0f} B/pt -> {bytes_ms:.3f} ms at 3.35 TB/s; "
+        f"{ops_pp} FLOP/pt -> {flops_ms:.3f} ms at 67 TFLOP/s fp32); "
+        f"share of bound {bound_ms / step_ms:.3f}")
+    log(f"phase 4: torch.cuda.max_memory_allocated() = "
+        f"{peak_mem / 2**30:.2f} GiB")
+
+    # outside the counted window: per-launch times on the main path's
+    # shapes, and one chunk of each version from the same state
+    state = ctx._state
+    ms = cuda_ms(lambda: fused_step(kern, state, t), 10)
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 2), 3) / 2
+    a = kern.chunk(dict(state), t, 2)
+    b = plain_chunk(prog, dict(state), t, 2)
+    err = max(float((x - y).abs().max()) for n in a
+              for x, y in zip(a[n], b[n]))
+    scale = max(float(x.abs().max()) for n in b for x in b[n])
+    log(f"phase 4: one 2-step chunk at 512^3, kernel vs plain: max|d|="
+        f"{err:.3e} (field max {scale:.3e}; tolerance field_epsilon "
+        f"{FIELD_EPS} x field max)")
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 4: kernel and plain version disagree")
+    log(f"phase 4: fused_step {ms:.3f} ms/launch (zero-filled output "
+        f"included); plain version {plain_ms:.3f} ms/step (torch mode, "
+        "not a yardstick)")
+
+    torch_ctx = fac.new_solution(env, stencil="iso3dfd", radius=8)
+    torch_ctx.apply_command_line_options(f"-g {g} -mode torch -wf_steps 2")
+    torch_ctx.prepare_solution()
+    seed_random(torch_ctx, 11)
+    torch_ctx.run_solution(0, warm - 1)
+    torch_ctx.clear_stats()
+    torch_ctx.run_solution(warm, warm + steps - 1)
+    tr = torch_ctx.get_stats().get_pts_per_sec()
+    log(f"phase 4: -mode torch (the plain version, not a yardstick): "
+        f"{tr:.4e} points/s, {npts / tr * 1e3:.3f} ms/step over {steps} "
+        "steps")
+
+    print(json.dumps({"kernels": [{
+        "name": "fused_step", "route": "cuda",
+        "source": "yask_tpu_torch/csrc/fused_step.cuh",
+        "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None}]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

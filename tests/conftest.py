@@ -25,3 +25,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: timed perf/integration test excluded from the "
         "tier-1 `-m 'not slow'` run")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc (the port's kernels "
+        "on the card); skips with a reason where there is none")

@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither ``jax`` nor any module of
+``yask_tpu``, and it never carries on silently on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+import yask_tpu_torch
+from yask_tpu_torch.utils.exceptions import YaskException
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(yask_tpu_torch.__file__))
+
+MAIN_PATH = r"""
+import json, sys
+from yask_tpu_torch import yk_factory
+from yask_tpu_torch.runtime.init_utils import init_solution_vars
+fac = yk_factory()
+env = fac.new_env(device="cpu")
+for mode in ("torch", "fused", "ref"):
+    ctx = fac.new_solution(env, stencil="iso3dfd", radius=2)
+    ctx.apply_command_line_options(f"-g 8 -mode {mode} -wf_steps 2")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 2)
+    ctx.get_stats()
+from yask_tpu_torch.main import run_harness
+import io
+assert run_harness(["-stencil", "3axis", "-g", "8", "-validate",
+                    "-device", "cpu"], out=io.StringIO()) == 0
+import yask_tpu_torch.transfer, yask_tpu_torch.ops._build
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith("jax.")
+                        or (m.startswith("yask_tpu")
+                            and m.split(".")[0] != "yask_tpu_torch"))))
+"""
+
+
+def test_main_path_loads_no_jax_and_no_yask_tpu():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", MAIN_PATH], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    assert json.loads(out.strip().splitlines()[-1]) == []
+
+
+def _imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+
+
+def _py_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    return files
+
+
+def test_no_jax_or_yask_tpu_import_in_the_port():
+    bad = []
+    for path in _py_files():
+        for mod in _imports(path):
+            top = mod.split(".")[0]
+            if top == "jax" or top == "yask_tpu":
+                bad.append((os.path.relpath(path, ROOT), mod))
+    assert bad == []
+    assert len(_py_files()) > 20
+
+
+def test_new_env_without_cuda_raises(monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fac = yask_tpu_torch.yk_factory()
+    with pytest.raises(YaskException, match='device="cpu"'):
+        fac.new_env()
+    with pytest.raises(YaskException, match="no CUDA device"):
+        fac.new_env(device="cuda:0")
+    env = fac.new_env(device="cpu")
+    assert env.get_device().type == "cpu" and env.get_platform() == "cpu"
+    ctx = fac.new_solution(env, stencil="3axis", radius=1)
+    ctx.apply_command_line_options("-g 8 -device cuda:0")
+    with pytest.raises(YaskException, match="-device cpu"):
+        ctx.prepare_solution()
+
+
+def test_harness_without_device_flag_refuses_a_cpu_only_host(monkeypatch):
+    import io
+    import torch
+    from yask_tpu_torch.main import run_harness
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(YaskException, match='device="cpu"'):
+        run_harness(["-stencil", "3axis", "-g", "8"], out=io.StringIO())

@@ -1,0 +1,294 @@
+// fused_step.cuh — tile machinery of K1 (one sub-step of a fused stencil
+// chunk) for NVIDIA Hopper, sm_90a.
+//
+// Replaces the inner `kernel` of build_pallas_chunk
+// (yask_tpu/ops/pallas_stencil.py) for one sub-step; the wrapper in
+// yask_tpu_torch/ops/fused_stencil.py launches it once per step and
+// rotates the step rings between launches.  ops/cuda_emit.py prints, per
+// solution, a `Spec` struct holding the per-point update (`Spec::point`)
+// and the compile-time tables used below, then instantiates
+// YT_FUSED_STEP_ENTRY.
+//
+// Design (a first cut that is simple and right):
+//   * a block owns T0 x T1 x T2 interior points (slot 2 = the contiguous
+//     minor dim, one thread per point in slots 1-2, a loop over slot 0);
+//   * every input of a full-dim var read at a spatial offset is staged,
+//     with its halo, in dynamic shared memory (coalesced rows of the
+//     minor dim; cells beyond the padded array are zero);
+//   * other inputs (same-point reads, partial-dim vars) are read from
+//     global memory; a var lacking a dim has stride 0 in it;
+//   * every interior point is computed and written; threads outside the
+//     interior (ragged edge) write nothing.  Outputs are fresh zeroed
+//     tensors, so pads stay zero and no launch writes what it reads.
+//
+// The same Spec compiles on the host (no __CUDACC__): host_step() runs
+// the point function over the interior with global reads only, which is
+// how the CPU tests check the emitted arithmetic with g++.
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define YT_HD __host__ __device__
+#else
+#define YT_HD
+#endif
+
+namespace yt {
+
+typedef long long idx_t;
+
+// ---- math, overloaded by type (the emitted code calls f_<name>) -------
+#define YT_MATH1(NAME, F32, F64)                                   \
+  YT_HD inline float f_##NAME(float x) { return F32(x); }          \
+  YT_HD inline double f_##NAME(double x) { return F64(x); }
+YT_MATH1(sqrt, sqrtf, sqrt)
+YT_MATH1(cbrt, cbrtf, cbrt)
+YT_MATH1(fabs, fabsf, fabs)
+YT_MATH1(erf, erff, erf)
+YT_MATH1(exp, expf, exp)
+YT_MATH1(log, logf, log)
+YT_MATH1(atan, atanf, atan)
+YT_MATH1(sin, sinf, sin)
+YT_MATH1(cos, cosf, cos)
+YT_MATH1(tan, tanf, tan)
+YT_MATH1(asin, asinf, asin)
+YT_MATH1(acos, acosf, acos)
+#undef YT_MATH1
+
+YT_HD inline float f_pow(float x, float y) { return powf(x, y); }
+YT_HD inline double f_pow(double x, double y) { return pow(x, y); }
+
+// torch.maximum/minimum: a NaN operand propagates
+template <typename T>
+YT_HD inline T f_max(T x, T y) { return (x != x || x > y) ? x : y; }
+template <typename T>
+YT_HD inline T f_min(T x, T y) { return (x != x || x < y) ? x : y; }
+
+// Python/torch `%`: the result takes the divisor's sign
+template <typename T>
+YT_HD inline T f_mod(T a, T b) {
+  T r = fmod(a, b);
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+YT_HD inline int i_mod(int a, int b) {
+  int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// ---- launch parameters -------------------------------------------------
+template <typename real_t, int NIN, int NOUT>
+struct Params {
+  const real_t* in[NIN > 0 ? NIN : 1];  // interior-origin pointers
+  idx_t in_s[NIN > 0 ? NIN : 1][3];     // element strides per slot (0: dim absent)
+  real_t* out[NOUT];                    // interior-origin pointers
+  idx_t out_s[NOUT][3];
+  int n[3];                             // interior extents (1: slot unused)
+  int t;                                // step index of the newest inputs
+};
+
+template <class S>
+using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT>;
+
+// Inputs are never written during a launch (outputs are fresh tensors), so
+// on the device they go through the read-only data path (__ldg), which
+// also lets the compiler hoist a point's loads above earlier stores.
+template <class S>
+YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a,
+                                          idx_t c0, idx_t c1, idx_t c2) {
+  const typename S::real_t* q =
+      p.in[a] + (c0 * p.in_s[a][0] + c1 * p.in_s[a][1] + c2 * p.in_s[a][2]);
+#ifdef __CUDA_ARCH__
+  return __ldg(q);
+#else
+  return *q;
+#endif
+}
+
+// Reads every input from global memory (the host path).
+template <class S>
+struct GlobalReader {
+  const ParamsOf<S>* p;
+  int g0, g1, g2;
+  template <int A>
+  YT_HD typename S::real_t at(int o0, int o1, int o2) const {
+    return global_at<S>(*p, A, g0 + o0, g1 + o1, g2 + o2);
+  }
+};
+
+// Reads staged inputs from the shared-memory tile, the rest from global.
+template <class S>
+struct TileReader {
+  const ParamsOf<S>* p;
+  const typename S::real_t* smem;
+  int l0, l1, l2;  // point within the block's tile
+  int g0, g1, g2;  // point in the interior
+  template <int A>
+  YT_HD typename S::real_t at(int o0, int o1, int o2) const {
+    constexpr int k = S::tile_of(A);
+    if constexpr (k >= 0) {
+      constexpr int E1 = S::T1 + S::halo_lo1(k) + S::halo_hi1(k);
+      constexpr int E2 = S::T2 + S::halo_lo2(k) + S::halo_hi2(k);
+      return smem[S::tile_offset(k)
+                  + ((l0 + S::halo_lo0(k) + o0) * E1
+                     + (l1 + S::halo_lo1(k) + o1)) * E2
+                  + (l2 + S::halo_lo2(k) + o2)];
+    } else {
+      return global_at<S>(*p, A, g0 + o0, g1 + o1, g2 + o2);
+    }
+  }
+};
+
+template <class S>
+void fill_params(ParamsOf<S>& p, void* in_ptrs, void* in_strides,
+                 void* out_ptrs, void* out_strides, void* sizes, int t) {
+  typedef typename S::real_t real_t;
+  void** ip = static_cast<void**>(in_ptrs);
+  const idx_t* is = static_cast<const idx_t*>(in_strides);
+  for (int a = 0; a < S::NIN; ++a) {
+    p.in[a] = static_cast<const real_t*>(ip[a]);
+    for (int s = 0; s < 3; ++s) p.in_s[a][s] = is[3 * a + s];
+  }
+  void** op = static_cast<void**>(out_ptrs);
+  const idx_t* os = static_cast<const idx_t*>(out_strides);
+  for (int o = 0; o < S::NOUT; ++o) {
+    p.out[o] = static_cast<real_t*>(op[o]);
+    for (int s = 0; s < 3; ++s) p.out_s[o][s] = os[3 * o + s];
+  }
+  const int* n = static_cast<const int*>(sizes);
+  for (int s = 0; s < 3; ++s) p.n[s] = n[s];
+  p.t = t;
+}
+
+template <class S>
+YT_HD inline void store(const ParamsOf<S>& p, int g0, int g1, int g2,
+                        const typename S::real_t* out) {
+  for (int o = 0; o < S::NOUT; ++o)
+    p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+             + g2 * p.out_s[o][2]] = out[o];
+}
+
+// ---- host path: the same point function over the whole interior -------
+template <class S>
+int host_step(const ParamsOf<S>& p) {
+  typedef typename S::real_t real_t;
+  for (int g0 = 0; g0 < p.n[0]; ++g0)
+    for (int g1 = 0; g1 < p.n[1]; ++g1)
+      for (int g2 = 0; g2 < p.n[2]; ++g2) {
+        const GlobalReader<S> rd{&p, g0, g1, g2};
+        const int g[3] = {g0, g1, g2};
+        real_t out[S::NOUT];
+        S::point(rd, g, p.n, p.t, out);
+        store<S>(p, g0, g1, g2, out);
+      }
+  return 0;
+}
+
+#ifdef __CUDACC__
+// ---- device path -------------------------------------------------------
+template <class S>
+__global__ void __launch_bounds__(S::T1 * S::T2)
+fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
+  typedef typename S::real_t real_t;
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
+  const int b0 = blockIdx.z * S::T0;
+  const int b1 = blockIdx.y * S::T1;
+  const int b2 = blockIdx.x * S::T2;
+  const int tid = threadIdx.y * S::T2 + threadIdx.x;
+
+  // 1) stage each tiled input's halo tile; cells outside [-halo, n+halo)
+  //    (the ragged edge of the last blocks) are never read and hold 0.
+  //    Each thread issues U independent loads before it stores any, so
+  //    that many device-memory requests are in flight per thread:
+  //    with one 512-thread block per SM (the tile fills shared memory) the
+  //    staging is otherwise bound by one load's latency per cell.
+  constexpr int NT = S::T1 * S::T2;
+  constexpr int U = 16;
+#pragma unroll
+  for (int k = 0; k < S::NTILED; ++k) {
+    const int a = S::tiled_input(k);
+    const int h0 = S::halo_lo0(k), h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
+    const int E1 = S::T1 + h1 + S::halo_hi1(k);
+    const int E2 = S::T2 + h2 + S::halo_hi2(k);
+    const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
+    const int lim0 = p.n[0] + S::halo_hi0(k);
+    const int lim1 = p.n[1] + S::halo_hi1(k);
+    const int lim2 = p.n[2] + S::halo_hi2(k);
+    real_t* dst = smem + S::tile_offset(k);
+    for (int base = tid; base < cells; base += NT * U) {
+      real_t v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * NT;
+        const int e2 = i % E2;
+        const int r = i / E2;
+        const int c0 = b0 - h0 + r / E1;
+        const int c1 = b1 - h1 + r % E1;
+        const int c2 = b2 - h2 + e2;
+        v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
+                   ? global_at<S>(p, a, c0, c1, c2) : real_t(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (base + u * NT < cells) dst[base + u * NT] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // 2) compute: one thread per (slot 1, slot 2) point, a loop over slot 0
+  const int l1 = threadIdx.y, l2 = threadIdx.x;
+  const int g1 = b1 + l1, g2 = b2 + l2;
+  if (g1 >= p.n[1] || g2 >= p.n[2]) return;
+#pragma unroll
+  for (int l0 = 0; l0 < S::T0; ++l0) {
+    const int g0 = b0 + l0;
+    if (g0 >= p.n[0]) break;
+    const TileReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
+    const int g[3] = {g0, g1, g2};
+    real_t out[S::NOUT];
+    S::point(rd, g, p.n, p.t, out);
+    store<S>(p, g0, g1, g2, out);
+  }
+}
+
+template <class S>
+int launch(const ParamsOf<S>& p, cudaStream_t stream) {
+  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_step_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 block(S::T2, S::T1, 1);
+  const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
+                  (p.n[0] + S::T0 - 1) / S::T0);
+  fused_step_kernel<S><<<grid, block, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+#endif
+
+template <class S>
+int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
+        void* sizes, int t, void* stream) {
+  ParamsOf<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+#ifdef __CUDACC__
+  return launch<S>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  return host_step<S>(p);
+#endif
+}
+
+}  // namespace yt
+
+// The C entry point of one emitted kernel: pointers arrive as addresses of
+// arrays (ctypes c_void_p); returns cudaGetLastError() (0 on the host).
+#define YT_FUSED_STEP_ENTRY(NAME, S)                                         \
+  extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
+                      void* out_strides, void* sizes, int t, void* stream) { \
+    return yt::run<S>(in_ptrs, in_strides, out_ptrs, out_strides, sizes, t,  \
+                      stream);                                               \
+  }

@@ -1,0 +1,235 @@
+"""K1 on Hopper: the fused stencil chunk as a hand-written CUDA kernel.
+
+Replaces ``build_pallas_chunk``'s Pallas kernel
+(``yask_tpu/ops/pallas_stencil.py:565``, its one ``pl.pallas_call`` at
+:2312): K fused steps of a whole solution per tile, with a global-domain
+mask, rotating rings and fresh padded outputs.  Its DMA pipelines (K2) and
+skewed-wavefront carry (K3) change only the TPU's schedule, so this
+function is what all three compute; the port records
+``pipeline_dmas: False`` and ``skew_dims: []``.
+
+What bounds it on an H100: bytes.  iso3dfd r=8 does about 61 FLOP per
+point and must move 16 B per point per step at fp32 (pressure t and t-1
+and vel read once, pressure t+1 written once): 0.64 ms per step at 512³
+against 3.35 TB/s, while the FLOPs take 0.12 ms at 67 TFLOP/s.  The
+design's answer in this first cut: each block stages the halo tile of
+every var read at a spatial offset in shared memory once (184 KB for
+8×8×64 points of r=8 pressure; 16 loads in flight per thread), so the 49
+reads of a point hit shared memory and the halo re-reads of neighbouring
+tiles go to the 50 MB L2; the other inputs go through the read-only path.
+One block per SM then alternates staging and compute, which is what keeps
+it far from the bound (PERF.md has the measured times).  A chunk of
+K steps is K launches of the one-sub-step kernel with the rings rotated
+between launches, so the K-fold temporal saving Pallas gets is not taken
+yet: at r=8 a 3-D tile with a 2·r·K margin does not fit 227 KB of shared
+memory.  In-launch temporal fusion is the first redesign on the roadmap.
+Each launch also zero-fills a fresh output (4 B per point), which keeps
+pads zero and never lets a launch write what it reads.
+
+Beside the kernel: :func:`plain_chunk`, the plain PyTorch version (K
+calls of ``StepProgram.step`` on tensors plus the pad re-zeroing), which
+the wrapper takes for CPU tensors only, and :func:`fused_step`'s plain
+integer launch counter ``fused_step.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List
+
+from yask_tpu_torch.utils.exceptions import YaskException
+from yask_tpu_torch.ops import cuda_emit
+
+
+def _zero_pads(program, name: str, a):
+    """Zero everything outside the interior of one padded state tensor
+    (the host-side lead-dim pad re-zeroing of the reference chunk,
+    pallas_stencil.py:2345-2366, applied to every domain dim)."""
+    g = program.geoms[name]
+    for dn, kind in g.axes:
+        if kind != "domain":
+            continue
+        ax = g.axis_of(dn)
+        o = g.origin[dn]
+        hi = o + program.sizes[dn]
+        if o > 0:
+            idx = [slice(None)] * a.ndim
+            idx[ax] = slice(0, o)
+            a[tuple(idx)] = 0
+        if hi < a.shape[ax]:
+            idx = [slice(None)] * a.ndim
+            idx[ax] = slice(hi, a.shape[ax])
+            a[tuple(idx)] = 0
+    return a
+
+
+def plain_chunk(program, state, t0: int, k: int):
+    """The plain PyTorch version of one fused chunk: ``k`` steps of
+    ``program.step`` (the port's ``torch`` mode) from step ``t0``, then
+    the pads of the ring slots the chunk produced re-zeroed."""
+    dirn = program.ana.step_dir
+    for i in range(k):
+        state = program.step(state, t0 + i * dirn)
+    for name in {eq.lhs.var_name() for eq in program.ana.eqs}:
+        ring = state[name]
+        for s in range(max(0, len(ring) - k), len(ring)):
+            _zero_pads(program, name, ring[s])
+    return state
+
+
+def _interior_ptr(t, g) -> int:
+    """Address of a state tensor's interior origin (pads skipped)."""
+    off = 0
+    for ax, (dn, kind) in enumerate(g.axes):
+        if kind == "domain":
+            off += g.origin[dn] * t.stride(ax)
+    return t.data_ptr() + off * t.element_size()
+
+
+def _slot_strides(t, g, dims) -> List[int]:
+    """Element strides of a state tensor per kernel slot (0 where the var
+    lacks the dim); the solution's dims occupy the last slots."""
+    out = [0, 0, 0]
+    for i, d in enumerate(dims):
+        if d in g.domain_dims:
+            out[3 - len(dims) + i] = t.stride(g.axis_of(d))
+    return out
+
+
+def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
+    """Call an emitted kernel's C entry point: interior-origin addresses
+    and per-slot strides of the input and output tensors, the interior
+    sizes, the step index and the stream.  Returns its error code."""
+    dims = list(program.ana.domain_dims)
+
+    def table(tensors, names):
+        ptrs = [_interior_ptr(a, program.geoms[n])
+                for a, n in zip(tensors, names)]
+        strides = [s for a, n in zip(tensors, names)
+                   for s in _slot_strides(a, program.geoms[n], dims)]
+        k = max(len(ptrs), 1)
+        return ((ctypes.c_void_p * k)(*ptrs),
+                (ctypes.c_longlong * (3 * k))(*strides))
+
+    in_ptrs, in_s = table(ins, [n for n, _s in spec.inputs])
+    out_ptrs, out_s = table(outs, spec.outputs)
+    sizes = [1, 1, 1]
+    for i, d in enumerate(dims):
+        sizes[3 - len(dims) + i] = program.sizes[d]
+    n3 = (ctypes.c_int * 3)(*sizes)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), int(t), stream)
+
+
+def fused_step(kernel: "FusedKernel", state, t: int):
+    """Launch one sub-step of K1 on the current CUDA stream; returns the
+    new state (rings rotated).  Counts each launch in
+    ``fused_step.launches``."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    dev = None
+    ins = []
+    for name, slot in spec.inputs:
+        a = state[name][slot]
+        g = prog.geoms[name]
+        if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+            raise YaskException(
+                f"fused_step: input '{name}' slot {slot} is not a CUDA "
+                "tensor")
+        if dev is None:
+            dev = a.device
+        if a.device != dev or a.dtype != kernel.dtype \
+                or tuple(a.shape) != tuple(g.shape) or not a.is_contiguous():
+            raise YaskException(
+                f"fused_step: input '{name}' slot {slot} has device "
+                f"{a.device}, dtype {a.dtype}, shape {tuple(a.shape)}, "
+                f"contiguous {a.is_contiguous()}; the kernel takes "
+                f"{dev}, {kernel.dtype}, {tuple(g.shape)}, contiguous")
+        ins.append(a)
+    if dev is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    outs = [torch.zeros(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
+                        device=dev) for n in spec.outputs]
+    with torch.cuda.device(dev):
+        rc = call_entry(kernel.fn, prog, spec, ins, outs, t,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise YaskException(
+            f"fused_step kernel '{spec.name}' launch failed: CUDA error "
+            f"{rc}")
+    fused_step.launches += 1
+    new_state = dict(state)
+    for name, o in zip(spec.outputs, outs):
+        g = prog.geoms[name]
+        ring = state[name]
+        new_state[name] = (list(ring[1:]) + [o]) if g.has_step else [o]
+    return new_state
+
+
+fused_step.launches = 0
+
+
+class FusedKernel:
+    """K1 for one planned solution: its emitted source and, after
+    :meth:`build`, the loaded library.  ``chunk`` is the wrapper: CPU
+    tensors take :func:`plain_chunk`, CUDA tensors launch the kernel."""
+
+    def __init__(self, program):
+        self.program = program
+        self.spec = cuda_emit.emit(program)
+        self.fn = None
+        self.build_secs = 0.0
+        self.dtype = None
+
+    def build(self) -> float:
+        """Build (nvcc at first use) and bind the kernel; returns the
+        seconds it took.  Raises on a missing nvcc or a failed build."""
+        if self.fn is not None:
+            return 0.0
+        from yask_tpu_torch.compiler.lowering import torch_dtype
+        from yask_tpu_torch.ops import _build
+        lib, secs = _build.build_and_load(self.spec.name, self.spec.source)
+        fn = getattr(lib, self.spec.name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self._lib = lib
+        self.fn = fn
+        self.dtype = torch_dtype(self.program.dtype)
+        self.build_secs += secs
+        return secs
+
+    def chunk(self, state, t0: int, k: int):
+        """Advance ``k`` steps from ``t0``: one kernel launch per step on
+        CUDA tensors; the plain version on CPU tensors; raises otherwise."""
+        dev = self._device_of(state)
+        if dev.type == "cpu":
+            return plain_chunk(self.program, state, t0, k)
+        if dev.type != "cuda":
+            raise YaskException(
+                f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
+        self.build()
+        dirn = self.program.ana.step_dir
+        for i in range(k):
+            state = fused_step(self, state, t0 + i * dirn)
+        return state
+
+    @staticmethod
+    def _device_of(state):
+        import torch
+        for ring in state.values():
+            for a in ring:
+                if isinstance(a, torch.Tensor):
+                    return a.device
+        raise YaskException("fused kernel: state holds no tensors")
+
+    def tiling(self, fuse_steps: int) -> Dict[str, object]:
+        """The tiling the kernel runs with (the port's ``chunk.tiling``)."""
+        s = self.spec
+        return {"kernel": "fused_step", "name": s.name,
+                "fuse_steps": fuse_steps, "launches_per_step": 1,
+                "tile": list(s.tile), "smem_bytes": s.smem_bytes,
+                "smem_inputs": [s.inputs[a] for a in s.tiled],
+                "pipeline_dmas": False, "skew_dims": []}
+

@@ -1,0 +1,676 @@
+"""The stencil context: ``yk_solution`` driving step programs on one device.
+
+Counterpart of ``yask_tpu/runtime/context.py`` (the reference's
+``StencilContext``, ``src/kernel/lib/context.hpp:231-786``), main path
+only: ``prepare_solution`` plans geometry and allocates the step rings on
+the context's ``torch.device``; ``run_solution`` advances steps on the
+selected mode; ``run_ref``/``compare_data`` implement the validation
+oracle; ``get_stats`` reports throughput.
+
+Execution modes (``-mode``):
+
+* ``torch`` — ``StepProgram.step`` on tensors, ``wf_steps`` steps per
+  chunk (the counterpart of ``jit``; ``auto`` resolves to it);
+* ``fused`` — the hand-written CUDA kernel of
+  :mod:`yask_tpu_torch.ops.fused_stencil`, one launch per step (the
+  counterpart of ``pallas``); on CPU tensors its plain version runs;
+* ``ref`` — the eager numpy oracle (the reference's ``run_ref``).
+
+Modes and settings of the reference package that this slice does not
+carry raise a :class:`YaskException` naming the ROADMAP.md item that
+brings them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from yask_tpu_torch.utils.exceptions import YaskException
+from yask_tpu_torch.utils.cli import CommandLineParser
+from yask_tpu_torch.runtime.env import yk_env
+from yask_tpu_torch.runtime.run_state import RunState
+from yask_tpu_torch.runtime.settings import KernelSettings
+from yask_tpu_torch.runtime.stats import yk_stats
+from yask_tpu_torch.runtime.var import yk_var, _to_numpy
+
+
+class _TorchXP:
+    """The two numpy calls the fill paths make, on a torch device."""
+
+    def __init__(self, device):
+        import torch
+        self._torch = torch
+        self._device = device
+        self.float64 = torch.float64
+
+    def arange(self, n, dtype):
+        return self._torch.arange(n, dtype=dtype, device=self._device)
+
+
+class StencilContext:
+    """One runnable instance of a compiled stencil solution."""
+
+    def __init__(self, env: yk_env, source, dtype=None):
+        self._env = env
+        from yask_tpu_torch.compiler.solution import yc_solution
+        from yask_tpu_torch.compiler.solution_base import yc_solution_base
+        from yask_tpu_torch.compiler.lowering import CompiledSolution
+        if isinstance(source, yc_solution_base):
+            source.run_define()
+            self._csol = source.get_soln().compile(dtype=dtype)
+        elif isinstance(source, yc_solution):
+            self._csol = source.compile(dtype=dtype)
+        elif isinstance(source, CompiledSolution):
+            self._csol = source
+        else:
+            raise YaskException(
+                f"cannot build a kernel solution from {type(source).__name__}")
+        self._soln = self._csol.soln
+        self._ana = self._csol.ana
+
+        self._opts = KernelSettings(self._ana.domain_dims)
+        self._program = None          # StepProgram (compute geometry)
+        self._run = RunState()
+        self._vars: Dict[str, yk_var] = {}
+        self._mode = None
+        self._device = None
+        self._fused = None            # FusedKernel, built at first use
+        self._compile_secs = 0.0
+        self._hooks: Dict[str, List[Callable]] = {
+            "before_prepare": [], "after_prepare": [],
+            "before_run": [], "after_run": []}
+
+        # yc_solution::call_after_new_solution hooks run now
+        for code in getattr(self._soln, "_after_new_solution", ()):
+            if callable(code):
+                code(self)
+            else:
+                exec(compile(str(code), "<call_after_new_solution>",
+                             "exec"), {"kernel_soln": self})
+
+    # ------------------------------------------------------------------
+    # per-run state delegation (RunState)
+    # ------------------------------------------------------------------
+
+    @property
+    def _state(self):
+        return self._run.state
+
+    @_state.setter
+    def _state(self, v):
+        self._run.state = v
+
+    @property
+    def _state_on_device(self):
+        return self._run.state_on_device
+
+    @_state_on_device.setter
+    def _state_on_device(self, v):
+        self._run.state_on_device = v
+
+    @property
+    def _cur_step(self):
+        return self._run.cur_step
+
+    @_cur_step.setter
+    def _cur_step(self, v):
+        self._run.cur_step = v
+
+    @property
+    def _steps_done(self):
+        return self._run.steps_done
+
+    @_steps_done.setter
+    def _steps_done(self, v):
+        self._run.steps_done = v
+
+    @property
+    def _run_timer(self):
+        return self._run.run_timer
+
+    @property
+    def _halo_timer(self):
+        return self._run.halo_timer
+
+    def get_run_state(self) -> RunState:
+        return self._run
+
+    def set_run_state(self, rs: RunState) -> RunState:
+        prev, self._run = self._run, rs
+        return prev
+
+    # ------------------------------------------------------------------
+    # identity / settings / vars
+    # ------------------------------------------------------------------
+
+    def get_name(self) -> str:
+        return self._soln.get_name()
+
+    def get_description(self) -> str:
+        return self._soln.get_description()
+
+    def get_env(self) -> yk_env:
+        return self._env
+
+    def get_settings(self) -> KernelSettings:
+        return self._opts
+
+    def get_device(self):
+        """The ``torch.device`` the state lives on (after prepare)."""
+        return self._device
+
+    def get_step_dim_name(self) -> str:
+        return self._ana.step_dim or ""
+
+    def get_domain_dim_names(self) -> List[str]:
+        return list(self._ana.domain_dims)
+
+    def set_overall_domain_size(self, dim: str, size: int) -> None:
+        self._opts.global_domain_sizes[dim] = size
+
+    def set_overall_domain_size_vec(self, sizes) -> None:
+        for d, v in (sizes.items() if hasattr(sizes, "items") else sizes):
+            self._opts.global_domain_sizes[d] = v
+
+    def get_overall_domain_size(self, dim: str) -> int:
+        return self._opts.global_domain_sizes[dim]
+
+    def set_rank_domain_size(self, dim: str, size: int) -> None:
+        self._opts.rank_domain_sizes[dim] = size
+
+    def get_rank_domain_size(self, dim: str) -> int:
+        return self._opts.rank_domain_sizes[dim]
+
+    def set_block_size(self, dim: str, size: int) -> None:
+        self._opts.block_sizes[dim] = size
+
+    def get_block_size(self, dim: str) -> int:
+        return self._opts.block_sizes[dim]
+
+    def get_element_bytes(self) -> int:
+        return int(np.dtype(self._csol.dtype).itemsize)
+
+    def set_num_ranks(self, dim: str, n: int) -> None:
+        self._opts.num_ranks[dim] = n
+
+    def get_num_ranks(self, dim: str) -> int:
+        return self._opts.num_ranks[dim]
+
+    def get_num_vars(self) -> int:
+        return len([v for v in self._soln.get_vars() if not v.is_scratch()])
+
+    def get_var_names(self) -> List[str]:
+        return [v.get_name() for v in self._soln.get_vars()
+                if not v.is_scratch()]
+
+    def get_var(self, name: str) -> yk_var:
+        if name not in self._vars:
+            raise YaskException(
+                f"no var '{name}' (or prepare_solution not called)")
+        return self._vars[name]
+
+    def get_vars(self) -> List[yk_var]:
+        return list(self._vars.values())
+
+    def first_domain_index(self, dim: str) -> int:
+        return 0
+
+    def last_domain_index(self, dim: str) -> int:
+        return self._opts.global_domain_sizes[dim] - 1
+
+    def get_first_rank_domain_index(self, dim: str) -> int:
+        return 0
+
+    def get_last_rank_domain_index(self, dim: str) -> int:
+        return self.get_overall_domain_size(dim) - 1
+
+    def get_num_domain_dims(self) -> int:
+        return len(self.get_domain_dim_names())
+
+    def get_overall_domain_size_vec(self):
+        return [self.get_overall_domain_size(d)
+                for d in self.get_domain_dim_names()]
+
+    def get_min_pad_size(self, dim: str) -> int:
+        return self._opts.min_pad_sizes[dim]
+
+    def set_min_pad_size(self, dim: str, size: int) -> None:
+        self._opts.min_pad_sizes[dim] = max(
+            self._opts.min_pad_sizes[dim], int(size))
+
+    def get_step_wrap(self) -> bool:
+        return getattr(self, "_step_wrap", False)
+
+    def set_step_wrap(self, wrap: bool) -> None:
+        """``yk_solution::set_step_wrap``: with wrapping on, var element
+        APIs accept any step index and map it onto the ring."""
+        self._step_wrap = bool(wrap)
+
+    def is_offloaded(self) -> bool:
+        return self._device is not None and self._device.type == "cuda"
+
+    def get_elapsed_run_secs(self) -> float:
+        return self._run_timer.get_elapsed_secs()
+
+    # ------------------------------------------------------------------
+    # hooks (yk_solution hook registration, soln_apis.cpp)
+    # ------------------------------------------------------------------
+
+    def call_before_prepare_solution(self, fn: Callable) -> None:
+        self._hooks["before_prepare"].append(fn)
+
+    def call_after_prepare_solution(self, fn: Callable) -> None:
+        self._hooks["after_prepare"].append(fn)
+
+    def call_before_run_solution(self, fn: Callable) -> None:
+        self._hooks["before_run"].append(fn)
+
+    def call_after_run_solution(self, fn: Callable) -> None:
+        self._hooks["after_run"].append(fn)
+
+    # ------------------------------------------------------------------
+    # prepare
+    # ------------------------------------------------------------------
+
+    def _check_carried(self) -> None:
+        """Raise for settings of the reference package whose paths this
+        slice does not carry, naming the ROADMAP.md item that brings
+        each."""
+        o = self._opts
+        pending = []
+        if o.do_auto_tune:
+            pending.append("-auto_tune: ROADMAP.md A6 (auto-tuner)")
+        if o.ckpt_every > 0 or o.watchdog_every > 0 \
+                or o.run_deadline_secs > 0:
+            pending.append("ckpt_every/watchdog_every/run_deadline: "
+                           "ROADMAP.md A10 (checkpoint and supervised "
+                           "runs)")
+        if o.trapezoid_tiling:
+            pending.append("-trapezoid: ROADMAP.md A12 (trapezoid "
+                           "tiling, K4)")
+        if o.push_memory not in ("auto", "off"):
+            pending.append(f"-push {o.push_memory}: ROADMAP.md A9 "
+                           "(pipeline fusion and push, K6)")
+        if o.ensemble > 1:
+            pending.append("-ensemble: ROADMAP.md A8 (ensemble batching, "
+                           "K7)")
+        if pending:
+            raise YaskException(
+                "not ported yet: " + "; ".join(pending))
+
+    def _resolve_device(self):
+        if not self._opts.device:
+            return self._env.get_device()
+        import torch
+        dev = torch.device(self._opts.device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise YaskException(
+                f"-device {dev}: no CUDA device on this host; use "
+                "-device cpu")
+        return dev
+
+    def _ops(self, mode: str):
+        from yask_tpu_torch.compiler.lowering import NumpyOps, TorchOps
+        return NumpyOps() if mode == "ref" else TorchOps(self._device)
+
+    def _plan_geometry(self):
+        """Settings adjustment → mode resolution → var-geometry planning,
+        without allocating state.  Sets ``self._mode``/``self._device``."""
+        self._opts.adjust_settings(1)
+        self._check_carried()
+        mode = self._opts.mode
+        if mode == "auto":
+            mode = "torch"
+        if self._opts.force_scalar:
+            mode = "ref"
+        self._mode = mode
+        self._device = self._resolve_device()
+        extra = {d: (self._opts.min_pad_sizes[d], self._opts.min_pad_sizes[d])
+                 for d in self._ana.domain_dims}
+        self._plan_kwargs = dict(extra_pad=extra)
+        prog = self._csol.plan(self._opts.global_domain_sizes,
+                               ops=self._ops(mode), **self._plan_kwargs)
+        if mode == "fused":
+            from yask_tpu_torch.ops.cuda_emit import fused_applicable
+            ok, why = fused_applicable(prog)
+            if not ok:
+                raise YaskException(
+                    f"solution '{self.get_name()}' cannot use the fused "
+                    f"kernel: {why}; use -mode torch")
+        return prog
+
+    def prepare_solution(self) -> None:
+        """Setup pipeline (reference ``prepare_solution``,
+        ``soln_apis.cpp:137-250``): settings → geometry → allocation."""
+        for h in self._hooks["before_prepare"]:
+            h(self)
+        self._ended = False
+        self._program = self._plan_geometry()
+        self._fused = None
+        self._state = self._program.alloc_state()
+        self._state_on_device = self._mode != "ref"
+        self._vars = {v.get_name(): yk_var(self, v.get_name())
+                      for v in self._soln.get_vars() if not v.is_scratch()}
+        self._cur_step = 0
+        for h in self._hooks["after_prepare"]:
+            h(self)
+
+    def is_prepared(self) -> bool:
+        return self._program is not None
+
+    # ------------------------------------------------------------------
+    # state plumbing
+    # ------------------------------------------------------------------
+
+    def _check_prepared(self):
+        if self._program is None:
+            if getattr(self, "_ended", False):
+                raise YaskException(
+                    "end_solution was called; call prepare_solution "
+                    "again to run")
+            raise YaskException("prepare_solution has not been called")
+
+    def _interior_idx(self, name: str):
+        g = self._program.geoms[name]
+        return tuple(
+            slice(g.origin[dn], g.origin[dn]
+                  + self._opts.global_domain_sizes[dn])
+            if kind == "domain" else slice(None)
+            for dn, kind in g.axes)
+
+    def _interior_shape(self, name: str):
+        a = self._state[name][0]
+        return tuple(a.shape[ax] if s.stop is None else s.stop - s.start
+                     for ax, s in enumerate(self._interior_idx(name)))
+
+    def _put(self, arr: np.ndarray):
+        """A host array as a state array of this context's kind."""
+        if not self._state_on_device:
+            return arr
+        from yask_tpu_torch.compiler.lowering import torch_dtype
+        import torch
+        return torch.as_tensor(arr).to(
+            device=self._device, dtype=torch_dtype(self._program.dtype))
+
+    def _update_state_array(self, name: str, slot: int, fn) -> None:
+        """Replace one ring slot by ``fn(host copy)``, pads re-zeroed
+        (physical-boundary ghost cells are zero in every mode)."""
+        self._check_prepared()
+        old = _to_numpy(self._state[name][slot])
+        new = np.asarray(fn(np.array(old)), dtype=old.dtype)
+        out = np.zeros_like(old)
+        idx = self._interior_idx(name)
+        out[idx] = new[idx]
+        self._state[name][slot] = self._put(out)
+
+    def _fill_interior(self, name: str, slot: int, values) -> None:
+        """Zero one ring slot and fill its interior, on the state's own
+        device: ``values`` is a float, a numpy array of the interior's
+        shape, or ``fn(xp, n)`` giving ``n`` float64 values laid out over
+        the interior shape (``xp`` is numpy or its torch counterpart)."""
+        self._check_prepared()
+        a = self._state[name][slot]
+        idx = self._interior_idx(name)
+        ishape = self._interior_shape(name)
+        if isinstance(a, np.ndarray):
+            xp, out = np, np.zeros_like(a)
+        else:
+            import torch
+            xp, out = _TorchXP(a.device), torch.zeros_like(a)
+        if callable(values):
+            n = int(np.prod(ishape)) if ishape else 1
+            values = values(xp, n).reshape(ishape)
+        if isinstance(values, np.ndarray) and xp is not np:
+            import torch
+            values = torch.as_tensor(values).to(a.device)
+        out[idx] = values
+        self._state[name][slot] = out
+
+    def _state_to_host(self) -> None:
+        if self._state_on_device:
+            self._state = {k: [np.array(_to_numpy(a)) for a in ring]
+                           for k, ring in self._state.items()}
+            self._state_on_device = False
+
+    def _state_to_device(self) -> None:
+        if not self._state_on_device:
+            self._state_on_device = True
+            self._state = {k: [self._put(a) for a in ring]
+                           for k, ring in self._state.items()}
+
+    def _sync(self) -> None:
+        if self._device is not None and self._device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(self._device)
+
+    # ------------------------------------------------------------------
+    # run
+    # ------------------------------------------------------------------
+
+    def _step_seq(self, first_t: int, last_t: int):
+        """Evaluation order for the step range (ascending for forward
+        stencils, descending for reverse-time)."""
+        if first_t > last_t:
+            first_t, last_t = last_t, first_t
+        n = last_t - first_t + 1
+        start = first_t if self._ana.step_dir > 0 else last_t
+        return start, n
+
+    def _chunks(self, n: int, k: int) -> List[int]:
+        k = max(1, min(k, n))
+        return [k] * (n // k) + ([n % k] if n % k else [])
+
+    def run_solution(self, first_step_index: int,
+                     last_step_index: Optional[int] = None) -> None:
+        """Apply the stencil for the given step indices (inclusive), the
+        reference's ``run_solution(first_t, last_t)`` hot path."""
+        self._check_prepared()
+        self._check_carried()
+        if last_step_index is None:
+            last_step_index = first_step_index
+        for h in self._hooks["before_run"]:
+            h(self)
+        start, n = self._step_seq(first_step_index, last_step_index)
+        if self._mode == "ref":
+            self._run_ref_steps(start, n)
+        elif self._mode == "fused":
+            self._run_fused_steps(start, n)
+        else:
+            self._run_torch_steps(start, n)
+        self._cur_step = start + n * self._ana.step_dir
+        self._steps_done += n
+        for h in self._hooks["after_run"]:
+            h(self)
+
+    def _run_ref_steps(self, start: int, n: int) -> None:
+        self._state_to_host()
+        prog = self._csol.plan(self._opts.global_domain_sizes,
+                               ops=self._ops("ref"), **self._plan_kwargs)
+        with self._run_timer:
+            t = start
+            for _ in range(n):
+                self._state = prog.step(self._state, t)
+                t += self._ana.step_dir
+
+    def _run_torch_steps(self, start: int, n: int) -> None:
+        """``wf_steps`` steps per chunk of ``StepProgram.step`` on tensors
+        (the counterpart of the reference's jit chunks)."""
+        self._state_to_device()
+        wf = self._opts.wf_steps if self._opts.wf_steps > 0 else n
+        dirn = self._ana.step_dir
+        prog = self._program
+        with self._run_timer:
+            st, t = self._state, start
+            for k in self._chunks(n, wf):
+                for _ in range(k):
+                    st = prog.step(st, t)
+                    t += dirn
+            self._sync()
+        self._state = st
+
+    def _fused_kernel(self):
+        """The fused kernel of this prepared solution; its build (nvcc at
+        first use on a CUDA device) counts as compile time."""
+        if self._fused is None:
+            from yask_tpu_torch.ops.fused_stencil import FusedKernel
+            self._fused = FusedKernel(self._program)
+        if self._device.type == "cuda":
+            self._compile_secs += self._fused.build()
+        return self._fused
+
+    def _run_fused_steps(self, start: int, n: int) -> None:
+        """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,
+        all through the fused kernel: one launch per step."""
+        self._state_to_device()
+        kern = self._fused_kernel()
+        K = max(self._opts.wf_steps, 1)
+        dirn = self._ana.step_dir
+        with self._run_timer:
+            st, t = self._state, start
+            for k in self._chunks(n, K):
+                st = kern.chunk(st, t, k)
+                t += k * dirn
+            self._sync()
+        self._state = st
+
+    def run_ref(self, first_step_index: int,
+                last_step_index: Optional[int] = None) -> None:
+        """Run the independent eager-numpy oracle over the same state
+        (reference ``run_ref``, ``context.cpp:46``)."""
+        self._check_prepared()
+        if last_step_index is None:
+            last_step_index = first_step_index
+        start, n = self._step_seq(first_step_index, last_step_index)
+        self._run_ref_steps(start, n)
+        self._cur_step = start + n * self._ana.step_dir
+        self._steps_done += n
+
+    def run_auto_tuner_now(self, candidates=None, min_trial_secs=None) -> int:
+        raise YaskException(
+            "the auto-tuner is not ported yet: ROADMAP.md A6 (auto-tuner)")
+
+    def reset_auto_tuner(self, enable: bool = True) -> None:
+        self._opts.do_auto_tune = enable
+
+    def is_auto_tuner_enabled(self) -> bool:
+        return self._opts.do_auto_tune
+
+    def set_trace_dir(self, path: Optional[str]) -> None:
+        if path:
+            raise YaskException(
+                "per-step trace dumps are not ported yet: ROADMAP.md A14 "
+                "(observability, perflab and checker)")
+
+    # ------------------------------------------------------------------
+    # validation (yask_main.cpp:564-616 -validate flow)
+    # ------------------------------------------------------------------
+
+    def compare_data(self, other: "StencilContext", epsilon: float = 1e-4,
+                     abs_epsilon: float = 1e-7,
+                     field_epsilon: float = 0.0) -> int:
+        """Element-wise compare of all common vars against another context;
+        returns #mismatches.  A point mismatches only if
+        |x−y| > abs_eps + eps·max(|x|,|y|) (+ field_eps·max(‖x‖∞, ‖y‖∞)
+        when ``field_epsilon`` is set — the tolerance for paths with
+        different FP association, such as a kernel whose compiler
+        contracts multiply-adds into FMAs).  Interiors only: pad geometry
+        differs per mode and per package."""
+        self._check_prepared()
+        other._check_prepared()
+
+        def interior(ctx, name, arr):
+            return _to_numpy(arr[ctx._interior_idx(name)]).astype(np.float64)
+
+        bad = 0
+        for name, ring in self._state.items():
+            if name not in other._state:
+                continue
+            oring = other._state[name]
+            for a, b in zip(ring[::-1], oring[::-1]):
+                x = interior(self, name, a)
+                y = interior(other, name, b)
+                if x.shape != y.shape:
+                    bad += x.size
+                    continue
+                tol = abs_epsilon + epsilon * np.maximum(np.abs(x), np.abs(y))
+                if field_epsilon > 0.0 and x.size:
+                    scale = max(np.abs(x).max(), np.abs(y).max())
+                    tol = tol + field_epsilon * scale
+                bad += int((np.abs(x - y) > tol).sum())
+        return bad
+
+    # ------------------------------------------------------------------
+    # stats (yk_stats)
+    # ------------------------------------------------------------------
+
+    def hbm_model_bytes_pp(self):
+        """(read, write) device-memory bytes per point per step of the
+        configured path: every mode of this slice moves each live ring
+        slot once per step (the fused kernel is one launch per step)."""
+        if self._program is None:
+            return (0.0, 0.0)
+        return self._program.hbm_bytes_per_point()
+
+    def get_stats(self) -> yk_stats:
+        c = self._ana.counters
+        rb_pp, wb_pp = self.hbm_model_bytes_pp()
+        tiling = None
+        if self._mode == "fused" and self._fused is not None:
+            tiling = self._fused.tiling(max(self._opts.wf_steps, 1))
+        return yk_stats(
+            npts=self._opts.global_domain_sizes.product(),
+            nsteps=self._steps_done,
+            nreads_pp=c.num_reads, nwrites_pp=c.num_writes,
+            nfpops_pp=c.num_ops,
+            elapsed=self._run_timer.get_elapsed_secs(),
+            halo_secs=self._halo_timer.get_elapsed_secs(),
+            compile_secs=self._compile_secs,
+            read_bytes_pp=rb_pp, write_bytes_pp=wb_pp,
+            hbm_peak=(self._env.get_hbm_peak_bytes_per_sec()
+                      if self.is_offloaded() else 0.0),
+            tiling=tiling)
+
+    def clear_stats(self) -> None:
+        self._run_timer.clear()
+        self._halo_timer.clear()
+        self._steps_done = 0
+
+    # ------------------------------------------------------------------
+    # CLI parity
+    # ------------------------------------------------------------------
+
+    def get_command_line_values(self) -> str:
+        o = self._opts
+        dd = self.get_domain_dim_names()
+        parts = [f"-g_{d} {o.global_domain_sizes[d]}" for d in dd]
+        parts += [f"-b_{d} {o.block_sizes[d]}" for d in dd]
+        parts += [f"-wf_steps {o.wf_steps}", f"-mode {o.mode}"]
+        if o.device:
+            parts.append(f"-device {o.device}")
+        return " ".join(parts)
+
+    def end_solution(self) -> None:
+        """Release run resources (reference ``end_solution``); re-prepare
+        to run again."""
+        self._state = None
+        self._program = None
+        self._fused = None
+        self._ended = True
+
+    def apply_command_line_options(self, args) -> List[str]:
+        if isinstance(args, str):
+            args = args.split()
+        p = CommandLineParser()
+        self._opts.add_options(p)
+        return p.parse_args(list(args))
+
+    def get_command_line_help(self) -> str:
+        p = CommandLineParser()
+        self._opts.add_options(p)
+        return p.print_help()
+
+    def __repr__(self):
+        return (f"<StencilContext '{self.get_name()}' mode={self._mode} "
+                f"prepared={self.is_prepared()}>")

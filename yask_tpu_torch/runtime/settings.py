@@ -1,0 +1,185 @@
+"""Runtime settings: every knob the port's kernel runtime accepts.
+
+Counterpart of ``yask_tpu/runtime/settings.py`` (the reference's
+``KernelSettings``, ``src/kernel/lib/settings.hpp:200-327``) with the
+port's execution modes and a ``-device`` option.  It keeps the domain
+geometry, tiling and decomposition knobs, the parity no-ops, and the knobs
+of paths still to port (auto-tuner, supervised runs, trapezoid, push,
+ensembles): those are parsed so reference command lines keep working, and
+the context raises when one is set (``StencilContext._check_carried``).
+The TPU-only knobs of the reference (VMEM budgets, skew, exchange
+scheduling, checker preflight, serving) come with the ROADMAP.md items
+that port their paths.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from yask_tpu_torch.utils.exceptions import YaskException
+from yask_tpu_torch.utils.idx_tuple import IdxTuple
+from yask_tpu_torch.utils.cli import CommandLineParser
+
+
+#: Execution modes for run_solution.
+MODES = ("auto",       # resolves to "torch" (as "auto" resolves to "jit")
+         "torch",      # StepProgram.step on tensors, K steps per chunk
+         #               (the counterpart of yask_tpu's "jit")
+         "fused",      # the hand-written CUDA kernel, one launch per
+         #               sub-step (the counterpart of "pallas")
+         "ref",        # eager numpy oracle (the reference's run_ref)
+         )
+
+#: yask_tpu's modes this port does not carry yet, with the ROADMAP.md item
+#: that brings each.
+PENDING_MODES = {
+    "sharded": "A11 (distributed: K5 and the shard modes)",
+    "shard_map": "A11 (distributed: K5 and the shard modes)",
+    "shard_pallas": "A11 (distributed: K5 and the shard modes)",
+}
+
+
+class KernelSettings:
+    """All runtime knobs for one solution instance."""
+
+    def __init__(self, domain_dims: List[str]):
+        self.domain_dims = list(domain_dims)
+        z = {d: 0 for d in domain_dims}
+        # Geometry (reference -g / -d / -b … options).
+        self.global_domain_sizes = IdxTuple(z)   # -g* (0 = derive from rank)
+        self.rank_domain_sizes = IdxTuple(z)     # -d* (0 = derive from global)
+        self.block_sizes = IdxTuple(z)           # -b* tile hints (0 = auto)
+        self.min_pad_sizes = IdxTuple(z)         # -mp* extra pad per dim
+        self.num_ranks = IdxTuple(z)             # -nr* rank grid (0 = auto)
+        # Steps per chunk (reference wave-front option, context.hpp:331).
+        self.wf_steps = 0          # 0 = the whole run in one chunk
+        self.mode = "auto"
+        self.device = ""           # torch device ("" = the env's device)
+        self.force_scalar = False  # run the numpy oracle path
+        # Accepted for reference parity; no effect on one device.
+        self.overlap_comms = True
+        self.use_shm = True
+        self.use_device_mpi = True
+        self.max_threads = 0
+        self.numa_pref = -1
+        # Paths still to port: setting any of these raises at prepare/run.
+        self.do_auto_tune = False        # ROADMAP.md A6
+        self.ensemble = 1                # A8
+        self.push_memory = "auto"        # A9 ("auto"/"off" = no push)
+        self.ckpt_every = 0              # A10 (supervised runs)
+        self.ckpt_dir = ""
+        self.watchdog_every = 0
+        self.run_deadline_secs = 0
+        self.trapezoid_tiling = False    # A12
+
+    # ------------------------------------------------------------------
+
+    def add_options(self, parser: CommandLineParser) -> None:
+        """Register every option (reference ``KernelSettings::add_options``).
+        Option names follow the reference CLI (``-g``, ``-d``, ``-b``,
+        ``-nr``, ``-wf_steps``…), with per-dim forms like ``-d_x``."""
+        dd = self.domain_dims
+        parser.add_idx_option(
+            "g", "Global (overall) domain size in each dim.", self,
+            "global_domain_sizes", dd)
+        parser.add_idx_option(
+            "d", "Per-rank domain size in each dim.", self,
+            "rank_domain_sizes", dd)
+        parser.add_idx_option(
+            "b", "Block (tile) size hint in each dim.", self,
+            "block_sizes", dd)
+        parser.add_idx_option(
+            "mp", "Minimum extra pad in each dim.", self,
+            "min_pad_sizes", dd)
+        parser.add_idx_option(
+            "nr", "Number of ranks in each dim (one device: 1).", self,
+            "num_ranks", dd)
+        parser.add_int_option(
+            "wf_steps", "Steps per chunk (K of the fused kernel's "
+            "chunks).", self, "wf_steps")
+        parser.add_string_option(
+            "mode", f"Execution mode, one of {MODES}.", self, "mode")
+        parser.add_string_option(
+            "device", "torch device to run on, e.g. 'cuda:0' or 'cpu' "
+            "(empty = the env's device).", self, "device")
+        parser.add_bool_option(
+            "force_scalar", "Use the eager numpy oracle instead of the "
+            "compiled path.", self, "force_scalar")
+        for name, attr in (("overlap_comms", "overlap_comms"),
+                           ("use_shm", "use_shm"),
+                           ("use_device_mpi", "use_device_mpi")):
+            parser.add_bool_option(
+                name, "Accepted for reference parity (no effect).", self,
+                attr)
+        parser.add_int_option(
+            "max_threads", "Accepted for reference parity.", self,
+            "max_threads")
+        parser.add_bool_option(
+            "auto_tune", "Auto-tune tile sizes (not ported yet: "
+            "ROADMAP.md A6).", self, "do_auto_tune")
+        parser.add_int_option(
+            "ensemble", "Batch N solution instances (not ported yet: "
+            "ROADMAP.md A8).", self, "ensemble")
+        parser.add_string_option(
+            "push", "Push-memory fusion: auto|on|force|off (on/force not "
+            "ported yet: ROADMAP.md A9).", self, "push_memory")
+        parser.add_int_option(
+            "ckpt_every", "Checkpoint every N steps (not ported yet: "
+            "ROADMAP.md A10).", self, "ckpt_every")
+        parser.add_string_option(
+            "ckpt_dir", "Directory for checkpoints (ROADMAP.md A10).", self,
+            "ckpt_dir")
+        parser.add_int_option(
+            "watchdog_every", "Scan written state every M steps (not "
+            "ported yet: ROADMAP.md A10).", self, "watchdog_every")
+        parser.add_int_option(
+            "run_deadline", "Per-chunk deadline in seconds (not ported "
+            "yet: ROADMAP.md A10).", self, "run_deadline_secs")
+        parser.add_bool_option(
+            "trapezoid", "Trapezoid/diamond temporal tiling (not ported "
+            "yet: ROADMAP.md A12).", self, "trapezoid_tiling")
+
+    # ------------------------------------------------------------------
+
+    def adjust_settings(self, num_devices: int = 1) -> None:
+        """Derive unset values (reference ``adjust_settings``,
+        ``settings.cpp``): rank grid and global↔rank domain sizes."""
+        if self.mode in PENDING_MODES:
+            raise YaskException(
+                f"mode '{self.mode}' is not ported yet: it comes with "
+                f"ROADMAP.md {PENDING_MODES[self.mode]}; one of {MODES}")
+        if self.mode not in MODES:
+            raise YaskException(f"unknown mode '{self.mode}'; one of {MODES}")
+
+        # Rank grid: one rank, as in the reference unless the user asks for
+        # decomposition; the port runs one device (num_devices is 1).
+        nr = self.num_ranks
+        if any(v < 0 for v in nr.get_vals()):
+            raise YaskException(
+                "an automatic rank grid (-nr -1) comes with ROADMAP.md A11 "
+                "(distributed: K5 and the shard modes)")
+        for d in self.domain_dims:
+            if nr[d] == 0:
+                nr[d] = 1
+        if nr.product() > max(num_devices, 1):
+            raise YaskException(
+                f"rank grid {nr} needs {nr.product()} devices, "
+                f"only {num_devices} available")
+
+        # Domain sizes: global ⇄ rank.
+        for d in self.domain_dims:
+            g, r, n = self.global_domain_sizes[d], self.rank_domain_sizes[d], nr[d]
+            if g == 0 and r == 0:
+                raise YaskException(f"domain size for dim '{d}' not set")
+            if g == 0:
+                self.global_domain_sizes[d] = r * n
+            elif r == 0:
+                if g % n != 0:
+                    raise YaskException(
+                        f"global size {g} in dim '{d}' not divisible by "
+                        f"{n} ranks")
+                self.rank_domain_sizes[d] = g // n
+            elif r * n != g:
+                raise YaskException(
+                    f"inconsistent sizes in dim '{d}': global {g} != "
+                    f"rank {r} × {n} ranks")

@@ -24,7 +24,21 @@ script exits 0 only when all of them passed.  Phases:
    run_solution``: a warm-up, then 3 trials of 20 steps, with the launch
    counter zeroed just before and read just after; then, outside that
    window, the kernel's time per launch and its plain version's on the
-   main path's shapes, and one chunk of each from the same state compared.
+   main path's shapes, and one chunk of each from the same state compared;
+5. the serving path: a ``StencilServer`` with 8 ``-mode fused`` sessions
+   of iso3dfd r=8 at 256³ (the same points as phase 4's 512³), each
+   seeded through ``set_var_slice``; one warm-up request per session,
+   then 8 requests of 20 steps submitted before waiting, which the
+   scheduler batches into one ``EnsembleRun``: one launch of K7 (the
+   member-batched kernel) per step.  Every response must be ``ok`` at
+   occupancy 8, batched, not degraded; K7 must launch exactly 20 times
+   in that window; two members must be bit-identical to solo ``-mode
+   fused`` contexts from the same seeds; one batched chunk must agree
+   with its plain version; ``run_resident`` over 8 items must be
+   bit-identical to per-request dispatch.  It prints the latency split,
+   the aggregate rate, K7's time against its bound, and the share of a
+   request spent in the per-chunk ``extract_snapshot`` host copies (from
+   the span trace, ``YT_TRACE``).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -35,6 +49,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -66,10 +81,10 @@ def make_ctx(fac, env, stencil, radius, g, mode, wf=1):
     return ctx
 
 
-def seed_random(ctx, seed: int) -> None:
-    """A numpy-seeded random interior state through the yk_var slice API:
-    written vars uniform in [0, 1), read-only coefficients 0.05 + 0.01·U
-    (a stable wave speed)."""
+def seed_slices(ctx, seed: int):
+    """The numpy-seeded random interior state of :func:`seed_random`, as
+    ``(var, values, first, last)`` slices: written vars uniform in
+    [0, 1), read-only coefficients 0.05 + 0.01·U (a stable wave speed)."""
     import numpy as np
     rng = np.random.RandomState(seed)
     written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
@@ -87,7 +102,14 @@ def seed_random(ctx, seed: int) -> None:
                 vals = 0.05 + 0.01 * vals
             first = ([t] if t is not None else []) + [0] * len(dd)
             last = ([t] if t is not None else []) + [s - 1 for s in sizes]
-            v.set_elements_in_slice(vals.astype(np.float32), first, last)
+            yield name, vals.astype(np.float32), first, last
+
+
+def seed_random(ctx, seed: int) -> None:
+    """A numpy-seeded random interior state through the yk_var slice
+    API."""
+    for name, vals, first, last in list(seed_slices(ctx, seed)):
+        ctx.get_var(name).set_elements_in_slice(vals, first, last)
 
 
 def max_abs_diff(a, b) -> float:
@@ -113,6 +135,193 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
+    """The serving path at full width (see the module docstring); returns
+    K7's entry of the ``kernels`` line."""
+    import tempfile
+    import numpy as np
+    import torch
+    from yask_tpu_torch.obs.tracer import read_spans
+    from yask_tpu_torch.ops.fused_stencil import (batched_step, fused_step,
+                                                  plain_batched_chunk)
+    from yask_tpu_torch.serve import StencilServer
+    from yask_tpu_torch.serve.resident import run_per_request
+    from yask_tpu_torch.serve.scheduler import extract_outputs
+
+    nses, steps, warm = 8, 20, 2
+    npts = g ** 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="yt_chip_smoke_")
+    trace_path = os.path.join(tmp, "TRACE_EVENTS.jsonl")
+    os.environ["YT_TRACE"] = "1"
+    os.environ["YT_TRACE_EVENTS"] = trace_path
+    srv = StencilServer(env, journal_path=os.path.join(tmp, "SERVE.jsonl"),
+                        window_secs=0.05, max_batch=nses)
+    try:
+        t0 = time.perf_counter()
+        sids = [srv.open_session(stencil="iso3dfd", radius=8, g=g,
+                                 mode="fused", wf=2, bucket=False)
+                for _ in range(nses)]
+        for i, sid in enumerate(sids):
+            with srv.scheduler.session_ctx(sid) as c:
+                slices = list(seed_slices(c, 100 + i))
+            for name, vals, first, last in slices:
+                srv.set_var_slice(sid, name, vals, first, last)
+        log(f"phase 5: opened and seeded {nses} fused sessions of iso3dfd "
+            f"r=8 at {g}^3 in {time.perf_counter() - t0:.1f} s")
+        warm_rs = [srv.wait(h, timeout=600) for h in
+                   [srv.submit_run(sid, 0, warm - 1) for sid in sids]]
+        if not all(r.ok for r in warm_rs):
+            raise RuntimeError(f"phase 5: warm-up failed: "
+                               f"{[(r.status, r.error) for r in warm_rs]}")
+
+        # the counted window: 8 requests of 20 steps, submitted together
+        fused_step.launches = 0
+        batched_step.launches = 0
+        with open(trace_path, "a"):
+            pass
+        span0 = len(read_spans(trace_path))
+        t0 = time.perf_counter()
+        handles = [srv.submit_run(sid, warm, warm + steps - 1)
+                   for sid in sids]
+        resps = [srv.wait(h, timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        k7_launches = batched_step.launches
+        k1_launches = fused_step.launches
+        for r in resps:
+            if not (r.ok and r.batch == nses and r.batched
+                    and not r.degraded):
+                raise RuntimeError(
+                    f"phase 5: response {r.rid}: status {r.status}, batch "
+                    f"{r.batch}, batched {r.batched}, degraded "
+                    f"{r.degraded}, error {r.error!r}")
+        if k7_launches != steps or k1_launches != 0:
+            raise RuntimeError(
+                f"phase 5: {k7_launches} K7 launches and {k1_launches} K1 "
+                f"launches in the served window, expected {steps} and 0")
+        log(f"phase 5: {nses} requests of {steps} steps: all ok at "
+            f"occupancy {nses}, batched, none degraded; batched_step "
+            f"launches {k7_launches}, fused_step launches {k1_launches}")
+
+        spans = read_spans(trace_path)[span0:]
+
+        def dur(name):
+            return [sp["dur"] for sp in spans if sp["name"] == name]
+        snap_s, ens_s = sum(dur("serve.snapshot")), sum(dur("ensemble.run"))
+        q = sorted(r.queue_secs * 1e3 for r in resps)
+        rn = sorted(r.run_secs * 1e3 for r in resps)
+        tot = sorted((r.queue_secs + r.run_secs) * 1e3 for r in resps)
+
+        def p(xs, f):
+            return xs[min(len(xs) - 1, int(round(f * (len(xs) - 1))))]
+        log(f"phase 5: latency ms: total p50 {p(tot, .5):.1f} p99 "
+            f"{p(tot, .99):.1f}; queue p50 {p(q, .5):.1f} p99 "
+            f"{p(q, .99):.1f}; run p50 {p(rn, .5):.1f} p99 {p(rn, .99):.1f}")
+        rate = nses * npts * steps / wall
+        log(f"phase 5: aggregate {rate:.4e} points/s ({rate / 1e9:.3f} "
+            f"GPts/s) over the batch's wall time {wall:.3f} s (submit to "
+            f"last answer, release included)")
+        log(f"phase 5: ensemble run {ens_s * 1e3:.1f} ms = "
+            f"{ens_s * 1e3 / steps:.3f} ms per batched step (stacking, "
+            f"{steps} K7 launches, sync, unstacking) beside phase 4's "
+            f"{phase4_step_ms:.3f} ms per 512^3 step")
+        log(f"phase 5: per-chunk extract_snapshot host copies "
+            f"{snap_s * 1e3:.1f} ms = {snap_s * 1e3 / p(tot, .5):.3f} of "
+            f"the p50 request total, {snap_s * 1e3 / p(rn, .5):.3f} of the "
+            f"p50 run latency")
+
+        # two members against solo -mode fused contexts from the same seeds
+        for i in (0, nses - 1):
+            solo = fac.new_solution(env, stencil="iso3dfd", radius=8)
+            solo.apply_command_line_options(f"-g {g} -mode fused -wf_steps 2")
+            solo.prepare_solution()
+            seed_random(solo, 100 + i)
+            solo.run_solution(0, warm - 1)
+            solo.run_solution(warm, warm + steps - 1)
+            want = extract_outputs(solo)
+            d = max(float(np.abs(want[n].astype(np.float64)
+                                 - resps[i].outputs[n]).max())
+                    for n in want)
+            log(f"phase 5: member {i} vs solo -mode fused: max|d|={d:.3e}")
+            if d != 0.0:
+                raise RuntimeError(f"phase 5: member {i} is not "
+                                   "bit-identical to its solo run")
+            del solo
+
+        # one batched chunk against its plain version; K7's time
+        sess = [srv.registry.session(sid) for sid in sids]
+        ctx = sess[0].ctx
+        kern = ctx._fused_kernel()
+        prog = ctx._program
+        state = {n: [torch.stack([s.run_state.state[n][k] for s in sess])
+                     for k in range(len(sess[0].run_state.state[n]))]
+                 for n in sess[0].run_state.state}
+        t = warm + steps
+        a = kern.batched_chunk(dict(state), t, 2, nses)
+        b = plain_batched_chunk(prog, dict(state), t, 2, nses)
+        err = max(float((x - y).abs().max()) for n in a
+                  for x, y in zip(a[n], b[n]))
+        scale = max(float(x.abs().max()) for n in b for x in b[n])
+        log(f"phase 5: one 2-step K7 chunk over {nses} x {g}^3, kernel vs "
+            f"plain: max|d|={err:.3e} (field max {scale:.3e}; tolerance "
+            f"field_epsilon {FIELD_EPS} x field max)")
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError("phase 5: K7 and its plain version disagree")
+        del a, b
+        ms = cuda_ms(lambda: batched_step(kern, state, t, nses), 10)
+        plain_ms = cuda_ms(lambda: plain_batched_chunk(prog, state, t, 1,
+                                                       nses), 3)
+        spec = kern.spec
+        bytes_step = 4 * nses * npts * (len(spec.inputs) + len(spec.outputs))
+        bytes_ms = bytes_step / HBM_BYTES_PER_S * 1e3
+        flops_ms = ctx._ana.counters.num_ops * nses * npts \
+            / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+        log(f"phase 5: batched_step {ms:.3f} ms/launch over {nses} x {g}^3 "
+            f"(zero-filled outputs included) against its bound "
+            f"{bound_ms:.3f} ms ({bound_by}); share {bound_ms / ms:.3f}; "
+            f"plain version {plain_ms:.3f} ms/step (not a yardstick)")
+        del state
+
+        # run_resident against per-request dispatch, from one snapshot
+        snaps = {sid: srv.snapshot(sid) for sid in sids}
+        items = [(sid, t, t + 1) for sid in sids]
+        t0 = time.perf_counter()
+        res = srv.scheduler.run_resident(items)
+        res_s = time.perf_counter() - t0
+        for sid in sids:
+            if not srv.restore(sid, snaps[sid]):
+                raise RuntimeError("phase 5: snapshot restore failed")
+        t0 = time.perf_counter()
+        base = run_per_request(srv.scheduler, items, timeout=600)
+        per_s = time.perf_counter() - t0
+        for sid in sids:
+            for n, arr in res[sid]["outputs"].items():
+                if not np.array_equal(arr, base[sid]["outputs"][n]):
+                    raise RuntimeError(
+                        f"phase 5: run_resident differs from per-request "
+                        f"dispatch on {sid} var {n}")
+        log(f"phase 5: run_resident over {len(items)} items of 2 steps is "
+            f"bit-identical to per-request dispatch ({res_s:.3f} s vs "
+            f"{per_s:.3f} s)")
+        log(f"phase 5: torch.cuda.max_memory_allocated() = "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        srv.shutdown()
+        os.environ.pop("YT_TRACE", None)
+        os.environ.pop("YT_TRACE_EVENTS", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"name": "batched_step", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/runtime/ensemble.py:234-345 → "
+                        "yask_tpu/ops/pallas_stencil.py:2312",
+            "launches": k7_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def main() -> int:
@@ -149,8 +358,10 @@ def main() -> int:
     for st, s in specs.items():
         info = [ln.strip() for ln in logs.get(s.name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        log(f"phase 1: built {s.name} ({st}): tile {list(s.tile)}, "
-            f"smem {s.smem_bytes} B; ptxas: {' | '.join(info)}")
+        log(f"phase 1: built {s.name} ({st}): entries {s.name} (K1) and "
+            f"{s.name}_batched (K7), tile {list(s.tile)}, smem "
+            f"{s.smem_bytes} B; ptxas (K7 entry first): "
+            f"{' | '.join(info)}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
 
@@ -283,13 +494,16 @@ def main() -> int:
         f"{tr:.4e} points/s, {npts / tr * 1e3:.3f} ms/step over {steps} "
         "steps")
 
+    del ctx, torch_ctx, state, a, b, prog, kern
+    k7 = phase5(fac, env, step_ms)
+
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",
         "source": "yask_tpu_torch/csrc/fused_step.cuh",
         "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "library_ms": None}, k7]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

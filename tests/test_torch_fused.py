@@ -128,9 +128,10 @@ def test_fused_conditions_and_functions_match_yask_tpu(with_ly, tpu_mode):
 # ---------------------------------------------------------------------------
 
 
-def host_kernel(spec, tmp_path):
-    """Build the emitted source for the host with g++ (the entry point
-    then runs yt::host_step) and bind it like the CUDA library."""
+def host_kernel(spec, tmp_path, entry=None):
+    """Build the emitted source for the host with g++ (the entry points
+    then run yt::host_step) and bind one like the CUDA library: K1's
+    (``spec.name``, the default) or K7's (``spec.name + "_batched"``)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to test the emitted point function"
     src = tmp_path / f"{spec.name}.cpp"
@@ -139,8 +140,14 @@ def host_kernel(spec, tmp_path):
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
                     CSRC, "-o", str(so), str(src)], check=True,
                    capture_output=True, timeout=300)
-    fn = getattr(ctypes.CDLL(str(so)), spec.name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    entry = entry or spec.name
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    if entry.endswith("_batched"):
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                               ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -33,6 +33,17 @@ import io
 assert run_harness(["-stencil", "3axis", "-g", "8", "-validate",
                     "-device", "cpu"], out=io.StringIO()) == 0
 import yask_tpu_torch.transfer, yask_tpu_torch.ops._build
+import tempfile
+import yask_tpu_torch.obs, yask_tpu_torch.resilience
+import yask_tpu_torch.runtime.ensemble, yask_tpu_torch.serve.resident
+from yask_tpu_torch.serve import StencilServer
+srv = StencilServer(env, journal_path=tempfile.mkdtemp() + "/SERVE.jsonl",
+                    window_secs=0.0)
+sid = srv.open_session(stencil="iso3dfd", radius=2, g=8, mode="fused",
+                       wf=2, bucket=False)
+srv.init_vars(sid)
+assert srv.run(sid, 0, 1, timeout=120).ok
+srv.shutdown()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or (m.startswith("yask_tpu")

@@ -1,13 +1,25 @@
 // fused_step.cuh — tile machinery of K1 (one sub-step of a fused stencil
-// chunk) for NVIDIA Hopper, sm_90a.
+// chunk) and K7 (the same sub-step for N independent ensemble members in
+// one launch) for NVIDIA Hopper, sm_90a.
 //
-// Replaces the inner `kernel` of build_pallas_chunk
-// (yask_tpu/ops/pallas_stencil.py) for one sub-step; the wrapper in
-// yask_tpu_torch/ops/fused_stencil.py launches it once per step and
-// rotates the step rings between launches.  ops/cuda_emit.py prints, per
+// K1 replaces the inner `kernel` of build_pallas_chunk
+// (yask_tpu/ops/pallas_stencil.py) for one sub-step; K7 replaces the
+// jax.vmap of that chunk in EnsembleRun._batched_chunk_fn
+// (yask_tpu/runtime/ensemble.py).  The wrappers in
+// yask_tpu_torch/ops/fused_stencil.py launch one of them once per step and
+// rotate the step rings between launches.  ops/cuda_emit.py prints, per
 // solution, a `Spec` struct holding the per-point update (`Spec::point`)
 // and the compile-time tables used below, then instantiates
-// YT_FUSED_STEP_ENTRY.
+// YT_FUSED_STEP_ENTRY (K1) and YT_FUSED_BATCHED_ENTRY (K7).
+//
+// K7 is K1 with a member axis: every state array is a contiguous
+// (N, *shape) stack, each input and output carries a 64-bit member stride,
+// and the grid folds the member into blockIdx.z (z = member * ceil(n0/T0)
+// + slot-0 block).  A block stages and computes exactly what a K1 block
+// does, offset by its member, so each member gets the bits a solo K1
+// launch gives it.  It is bound by bytes as K1 is (N times K1's traffic);
+// its gain over N K1 launches is N-1 launch gaps and one grid that fills
+// the card when one member alone would not.
 //
 // Design (a first cut that is simple and right):
 //   * a block owns T0 x T1 x T2 interior points (slot 2 = the contiguous
@@ -81,12 +93,15 @@ YT_HD inline int i_mod(int a, int b) {
 // ---- launch parameters -------------------------------------------------
 template <typename real_t, int NIN, int NOUT>
 struct Params {
-  const real_t* in[NIN > 0 ? NIN : 1];  // interior-origin pointers
+  const real_t* in[NIN > 0 ? NIN : 1];  // interior-origin pointers (member 0)
   idx_t in_s[NIN > 0 ? NIN : 1][3];     // element strides per slot (0: dim absent)
-  real_t* out[NOUT];                    // interior-origin pointers
+  idx_t in_ms[NIN > 0 ? NIN : 1];       // element stride between members
+  real_t* out[NOUT];                    // interior-origin pointers (member 0)
   idx_t out_s[NOUT][3];
+  idx_t out_ms[NOUT];
   int n[3];                             // interior extents (1: slot unused)
   int t;                                // step index of the newest inputs
+  int nm;                               // members (1 for K1)
 };
 
 template <class S>
@@ -96,10 +111,11 @@ using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT>;
 // on the device they go through the read-only data path (__ldg), which
 // also lets the compiler hoist a point's loads above earlier stores.
 template <class S>
-YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a,
+YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a, int m,
                                           idx_t c0, idx_t c1, idx_t c2) {
   const typename S::real_t* q =
-      p.in[a] + (c0 * p.in_s[a][0] + c1 * p.in_s[a][1] + c2 * p.in_s[a][2]);
+      p.in[a] + (m * p.in_ms[a] + c0 * p.in_s[a][0] + c1 * p.in_s[a][1]
+                 + c2 * p.in_s[a][2]);
 #ifdef __CUDA_ARCH__
   return __ldg(q);
 #else
@@ -111,10 +127,11 @@ YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a,
 template <class S>
 struct GlobalReader {
   const ParamsOf<S>* p;
+  int m;           // member
   int g0, g1, g2;
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
-    return global_at<S>(*p, A, g0 + o0, g1 + o1, g2 + o2);
+    return global_at<S>(*p, A, m, g0 + o0, g1 + o1, g2 + o2);
   }
 };
 
@@ -123,6 +140,7 @@ template <class S>
 struct TileReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
+  int m;           // member
   int l0, l1, l2;  // point within the block's tile
   int g0, g1, g2;  // point in the interior
   template <int A>
@@ -136,7 +154,7 @@ struct TileReader {
                      + (l1 + S::halo_lo1(k) + o1)) * E2
                   + (l2 + S::halo_lo2(k) + o2)];
     } else {
-      return global_at<S>(*p, A, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, m, g0 + o0, g1 + o1, g2 + o2);
     }
   }
 };
@@ -160,41 +178,53 @@ void fill_params(ParamsOf<S>& p, void* in_ptrs, void* in_strides,
   const int* n = static_cast<const int*>(sizes);
   for (int s = 0; s < 3; ++s) p.n[s] = n[s];
   p.t = t;
+  for (int a = 0; a < (S::NIN > 0 ? S::NIN : 1); ++a) p.in_ms[a] = 0;
+  for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = 0;
+  p.nm = 1;
 }
 
 template <class S>
-YT_HD inline void store(const ParamsOf<S>& p, int g0, int g1, int g2,
+YT_HD inline void store(const ParamsOf<S>& p, int m, int g0, int g1, int g2,
                         const typename S::real_t* out) {
   for (int o = 0; o < S::NOUT; ++o)
-    p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+    p.out[o][m * p.out_ms[o] + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
              + g2 * p.out_s[o][2]] = out[o];
 }
 
-// ---- host path: the same point function over the whole interior -------
+// ---- host path: the same point function over every member's interior --
 template <class S>
 int host_step(const ParamsOf<S>& p) {
   typedef typename S::real_t real_t;
-  for (int g0 = 0; g0 < p.n[0]; ++g0)
-    for (int g1 = 0; g1 < p.n[1]; ++g1)
-      for (int g2 = 0; g2 < p.n[2]; ++g2) {
-        const GlobalReader<S> rd{&p, g0, g1, g2};
-        const int g[3] = {g0, g1, g2};
-        real_t out[S::NOUT];
-        S::point(rd, g, p.n, p.t, out);
-        store<S>(p, g0, g1, g2, out);
-      }
+  for (int m = 0; m < p.nm; ++m)
+    for (int g0 = 0; g0 < p.n[0]; ++g0)
+      for (int g1 = 0; g1 < p.n[1]; ++g1)
+        for (int g2 = 0; g2 < p.n[2]; ++g2) {
+          const GlobalReader<S> rd{&p, m, g0, g1, g2};
+          const int g[3] = {g0, g1, g2};
+          real_t out[S::NOUT];
+          S::point(rd, g, p.n, p.t, out);
+          store<S>(p, m, g0, g1, g2, out);
+        }
   return 0;
 }
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
-template <class S>
+// BATCH = false is K1 (one member, no member offsets); BATCH = true is K7,
+// whose blockIdx.z also selects the member.
+template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::T1 * S::T2)
 fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  const int b0 = blockIdx.z * S::T0;
+  int m = 0, bz = blockIdx.z;
+  if constexpr (BATCH) {
+    const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
+    m = bz / nb0;
+    bz -= m * nb0;
+  }
+  const int b0 = bz * S::T0;
   const int b1 = blockIdx.y * S::T1;
   const int b2 = blockIdx.x * S::T2;
   const int tid = threadIdx.y * S::T2 + threadIdx.x;
@@ -229,7 +259,7 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(p, a, c0, c1, c2) : real_t(0);
+                   ? global_at<S>(p, a, m, c0, c1, c2) : real_t(0);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -246,25 +276,28 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
   for (int l0 = 0; l0 < S::T0; ++l0) {
     const int g0 = b0 + l0;
     if (g0 >= p.n[0]) break;
-    const TileReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
+    const TileReader<S> rd{&p, smem, m, l0, l1, l2, g0, g1, g2};
     const int g[3] = {g0, g1, g2};
     real_t out[S::NOUT];
     S::point(rd, g, p.n, p.t, out);
-    store<S>(p, g0, g1, g2, out);
+    store<S>(p, m, g0, g1, g2, out);
   }
 }
 
-template <class S>
+template <class S, bool BATCH>
 int launch(const ParamsOf<S>& p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_step_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fused_step_kernel<S, BATCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
+  const long long nb0 = (p.n[0] + S::T0 - 1) / S::T0;
+  const long long gz = BATCH ? nb0 * p.nm : nb0;
+  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
   const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
-                  (p.n[0] + S::T0 - 1) / S::T0);
-  fused_step_kernel<S><<<grid, block, smem, stream>>>(p);
+                  unsigned(gz));
+  fused_step_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 #endif
@@ -275,7 +308,28 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
   ParamsOf<S> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
 #ifdef __CUDACC__
-  return launch<S>(p, static_cast<cudaStream_t>(stream));
+  return launch<S, false>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  return host_step<S>(p);
+#endif
+}
+
+// K7: as run(), over `nm` members whose arrays sit `in_mstrides[a]` /
+// `out_mstrides[o]` elements apart (arrays of idx_t).
+template <class S>
+int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
+                void* out_ptrs, void* out_strides, void* out_mstrides,
+                void* sizes, int nm, int t, void* stream) {
+  ParamsOf<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  const idx_t* ims = static_cast<const idx_t*>(in_mstrides);
+  const idx_t* oms = static_cast<const idx_t*>(out_mstrides);
+  for (int a = 0; a < S::NIN; ++a) p.in_ms[a] = ims[a];
+  for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = oms[o];
+  p.nm = nm;
+#ifdef __CUDACC__
+  return launch<S, true>(p, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
   return host_step<S>(p);
@@ -291,4 +345,14 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
                       void* out_strides, void* sizes, int t, void* stream) { \
     return yt::run<S>(in_ptrs, in_strides, out_ptrs, out_strides, sizes, t,  \
                       stream);                                               \
+  }
+
+// The C entry point of K7 for the same Spec (member strides and count).
+#define YT_FUSED_BATCHED_ENTRY(NAME, S)                                      \
+  extern "C" int NAME(void* in_ptrs, void* in_strides, void* in_mstrides,    \
+                      void* out_ptrs, void* out_strides, void* out_mstrides, \
+                      void* sizes, int nm, int t, void* stream) {            \
+    return yt::run_batched<S>(in_ptrs, in_strides, in_mstrides, out_ptrs,    \
+                              out_strides, out_mstrides, sizes, nm, t,       \
+                              stream);                                       \
   }

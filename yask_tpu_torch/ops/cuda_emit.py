@@ -99,7 +99,8 @@ def fused_applicable(program) -> Tuple[bool, str]:
 @dataclass
 class KernelSpec:
     """What the wrapper needs to call an emitted kernel."""
-    name: str                      # C entry point / library stem
+    name: str                      # C entry point of K1 / library stem;
+                                   # K7's is name + "_batched"
     source: str                    # the emitted .cu
     inputs: List[Tuple[str, int]]  # (var, ring slot) per input array
     outputs: List[str]             # written var per output array
@@ -370,7 +371,8 @@ def emit(program) -> KernelSpec:
         .encode()).hexdigest()[:12]
     name = f"fused_step_{stem}"
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
-// '{program.soln.get_name()}': one sub-step of K1 (see ops/fused_stencil.py).
+// '{program.soln.get_name()}': one sub-step of K1, and of K7 over N members
+// (see ops/fused_stencil.py).
 #include "fused_step.cuh"
 
 struct Spec {{
@@ -388,6 +390,7 @@ struct Spec {{
 }};
 
 YT_FUSED_STEP_ENTRY({name}, Spec)
+YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
 """
     return KernelSpec(name=name, source=src, inputs=list(pr.inputs), outputs=outputs, tiled=tiled,
                       tile=tile, smem_bytes=offs * esize, halos=halos)

@@ -30,6 +30,17 @@ Beside the kernel: :func:`plain_chunk`, the plain PyTorch version (K
 calls of ``StepProgram.step`` on tensors plus the pad re-zeroing), which
 the wrapper takes for CPU tensors only, and :func:`fused_step`'s plain
 integer launch counter ``fused_step.launches``.
+
+K7 on Hopper, the member-batched kernel: replaces the ``jax.vmap`` of
+``build_pallas_chunk`` in ``EnsembleRun._batched_chunk_fn``
+(``yask_tpu/runtime/ensemble.py:234-345``).  The same emitted source
+carries a second C entry point (``<name>_batched``) that runs K1's tile
+machinery over N members of one contiguous (N, *shape) stack per ring
+slot: one launch per step for all members, the member folded into the
+grid's z.  Bound by bytes like K1 (N × 16 B/pt per iso3dfd r=8 step).
+:func:`batched_step` is its wrapper with its own counter
+``batched_step.launches``; :func:`plain_batched_chunk` (``plain_chunk`` on
+each member's view) is its plain version.
 """
 
 from __future__ import annotations
@@ -96,10 +107,10 @@ def _slot_strides(t, g, dims) -> List[int]:
     return out
 
 
-def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
-    """Call an emitted kernel's C entry point: interior-origin addresses
-    and per-slot strides of the input and output tensors, the interior
-    sizes, the step index and the stream.  Returns its error code."""
+def _arg_tables(program, spec, ins, outs):
+    """The ctypes arguments both entry points share: interior-origin
+    addresses and per-slot strides of the inputs and outputs, and the
+    interior sizes per slot."""
     dims = list(program.ana.domain_dims)
 
     def table(tensors, names):
@@ -116,10 +127,75 @@ def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
     sizes = [1, 1, 1]
     for i, d in enumerate(dims):
         sizes[3 - len(dims) + i] = program.sizes[d]
-    n3 = (ctypes.c_int * 3)(*sizes)
+    return in_ptrs, in_s, out_ptrs, out_s, (ctypes.c_int * 3)(*sizes)
+
+
+def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
+    """Call an emitted kernel's C entry point: interior-origin addresses
+    and per-slot strides of the input and output tensors, the interior
+    sizes, the step index and the stream.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
               ctypes.addressof(n3), int(t), stream)
+
+
+def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
+                       stream) -> int:
+    """Call an emitted kernel's K7 entry point on (N, *shape) stacks:
+    member 0's tables (as :func:`call_entry` passes them), the member
+    strides, the member count, the step index and the stream."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
+        program, spec, [a[0] for a in ins], [o[0] for o in outs])
+
+    def member_strides(tensors):
+        return (ctypes.c_longlong * max(len(tensors), 1))(
+            *[a.stride(0) for a in tensors])
+    in_ms, out_ms = member_strides(ins), member_strides(outs)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
+              ctypes.addressof(out_s), ctypes.addressof(out_ms),
+              ctypes.addressof(n3), int(nm), int(t), stream)
+
+
+def _check_inputs(kernel: "FusedKernel", state, lead=()):
+    """The kernel's input tensors from ``state``, checked: CUDA, one
+    device, the kernel's dtype, shape ``lead + padded shape``,
+    contiguous.  Returns (tensors, device)."""
+    import torch
+    prog = kernel.program
+    dev = None
+    ins = []
+    for name, slot in kernel.spec.inputs:
+        a = state[name][slot]
+        want = tuple(lead) + tuple(prog.geoms[name].shape)
+        if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
+            raise YaskException(
+                f"fused kernel: input '{name}' slot {slot} is not a CUDA "
+                "tensor")
+        if dev is None:
+            dev = a.device
+        if a.device != dev or a.dtype != kernel.dtype \
+                or tuple(a.shape) != want or not a.is_contiguous():
+            raise YaskException(
+                f"fused kernel: input '{name}' slot {slot} has device "
+                f"{a.device}, dtype {a.dtype}, shape {tuple(a.shape)}, "
+                f"contiguous {a.is_contiguous()}; the kernel takes "
+                f"{dev}, {kernel.dtype}, {want}, contiguous")
+        ins.append(a)
+    if dev is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return ins, dev
+
+
+def _rotated(program, spec, state, outs):
+    new_state = dict(state)
+    for name, o in zip(spec.outputs, outs):
+        ring = state[name]
+        new_state[name] = (list(ring[1:]) + [o]) \
+            if program.geoms[name].has_step else [o]
+    return new_state
 
 
 def fused_step(kernel: "FusedKernel", state, t: int):
@@ -129,27 +205,7 @@ def fused_step(kernel: "FusedKernel", state, t: int):
     import torch
     prog = kernel.program
     spec = kernel.spec
-    dev = None
-    ins = []
-    for name, slot in spec.inputs:
-        a = state[name][slot]
-        g = prog.geoms[name]
-        if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
-            raise YaskException(
-                f"fused_step: input '{name}' slot {slot} is not a CUDA "
-                "tensor")
-        if dev is None:
-            dev = a.device
-        if a.device != dev or a.dtype != kernel.dtype \
-                or tuple(a.shape) != tuple(g.shape) or not a.is_contiguous():
-            raise YaskException(
-                f"fused_step: input '{name}' slot {slot} has device "
-                f"{a.device}, dtype {a.dtype}, shape {tuple(a.shape)}, "
-                f"contiguous {a.is_contiguous()}; the kernel takes "
-                f"{dev}, {kernel.dtype}, {tuple(g.shape)}, contiguous")
-        ins.append(a)
-    if dev is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    ins, dev = _check_inputs(kernel, state)
     outs = [torch.zeros(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
                         device=dev) for n in spec.outputs]
     with torch.cuda.device(dev):
@@ -160,15 +216,59 @@ def fused_step(kernel: "FusedKernel", state, t: int):
             f"fused_step kernel '{spec.name}' launch failed: CUDA error "
             f"{rc}")
     fused_step.launches += 1
-    new_state = dict(state)
-    for name, o in zip(spec.outputs, outs):
-        g = prog.geoms[name]
-        ring = state[name]
-        new_state[name] = (list(ring[1:]) + [o]) if g.has_step else [o]
-    return new_state
+    return _rotated(prog, spec, state, outs)
 
 
 fused_step.launches = 0
+
+#: CUDA's limit on gridDim.z, which K7 fills with members × slot-0 blocks.
+MAX_GRID_Z = 65535
+
+
+def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
+    """Launch one sub-step of K7 for ``nm`` members on the current CUDA
+    stream: ``state`` holds (nm, *shape) stacks per ring slot; returns
+    the new stacked state (rings rotated).  Counts each launch in
+    ``batched_step.launches``."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    nb0 = -(-prog.sizes[prog.ana.domain_dims[0]] // spec.tile[0]) \
+        if len(prog.ana.domain_dims) == 3 else 1
+    if nm * nb0 > MAX_GRID_Z:
+        raise YaskException(
+            f"batched_step: {nm} members x {nb0} slot-0 blocks = "
+            f"{nm * nb0} passes the grid's z limit {MAX_GRID_Z}; use "
+            "fewer members per batch")
+    ins, dev = _check_inputs(kernel, state, lead=(nm,))
+    outs = [torch.zeros((nm,) + tuple(prog.geoms[n].shape),
+                        dtype=kernel.dtype, device=dev)
+            for n in spec.outputs]
+    with torch.cuda.device(dev):
+        rc = call_batched_entry(kernel.batched_fn, prog, spec, ins, outs,
+                                nm, t,
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise YaskException(
+            f"batched_step kernel '{spec.name}_batched' launch failed: "
+            f"CUDA error {rc}")
+    batched_step.launches += 1
+    return _rotated(prog, spec, state, outs)
+
+
+batched_step.launches = 0
+
+
+def plain_batched_chunk(program, state, t0: int, k: int, nm: int):
+    """The plain version of one K7 chunk: :func:`plain_chunk` on each
+    member's view of the (nm, *shape) stacks, restacked."""
+    import torch
+    members = [plain_chunk(program, {name: [a[i] for a in ring]
+                                     for name, ring in state.items()},
+                           t0, k) for i in range(nm)]
+    return {name: [torch.stack([m[name][s] for m in members])
+                   for s in range(len(members[0][name]))]
+            for name in members[0]}
 
 
 class FusedKernel:
@@ -180,24 +280,39 @@ class FusedKernel:
         self.program = program
         self.spec = cuda_emit.emit(program)
         self.fn = None
+        self.batched_fn = None
         self.build_secs = 0.0
         self.dtype = None
+        #: where the last build() found the library: "memory" (already
+        #: loaded), "disk" (built by an earlier process), None (nvcc ran)
+        self.cache_hit = None
 
     def build(self) -> float:
-        """Build (nvcc at first use) and bind the kernel; returns the
-        seconds it took.  Raises on a missing nvcc or a failed build."""
+        """Build (nvcc at first use) and bind both entry points (K1 and
+        K7); returns the seconds it took.  Raises on a missing nvcc or a
+        failed build."""
         if self.fn is not None:
+            self.cache_hit = "memory"
             return 0.0
+        import os
         from yask_tpu_torch.compiler.lowering import torch_dtype
         from yask_tpu_torch.ops import _build
+        on_disk = os.path.exists(_build.library_path(self.spec.name,
+                                                     self.spec.source))
         lib, secs = _build.build_and_load(self.spec.name, self.spec.source)
         fn = getattr(lib, self.spec.name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bfn = getattr(lib, self.spec.name + "_batched")
+        bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p]
+        bfn.restype = ctypes.c_int
         self._lib = lib
         self.fn = fn
+        self.batched_fn = bfn
         self.dtype = torch_dtype(self.program.dtype)
         self.build_secs += secs
+        self.cache_hit = "disk" if on_disk else None
         return secs
 
     def chunk(self, state, t0: int, k: int):
@@ -213,6 +328,23 @@ class FusedKernel:
         dirn = self.program.ana.step_dir
         for i in range(k):
             state = fused_step(self, state, t0 + i * dirn)
+        return state
+
+    def batched_chunk(self, state, t0: int, k: int, nm: int):
+        """K7: advance ``nm`` members stacked as (nm, *shape) per ring
+        slot by ``k`` steps from ``t0``: one launch per step for all
+        members on CUDA tensors; the plain version on CPU tensors;
+        raises otherwise."""
+        dev = self._device_of(state)
+        if dev.type == "cpu":
+            return plain_batched_chunk(self.program, state, t0, k, nm)
+        if dev.type != "cuda":
+            raise YaskException(
+                f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
+        self.build()
+        dirn = self.program.ana.step_dir
+        for i in range(k):
+            state = batched_step(self, state, t0 + i * dirn, nm)
         return state
 
     @staticmethod

@@ -78,6 +78,7 @@ class StencilContext:
         self._device = None
         self._fused = None            # FusedKernel, built at first use
         self._compile_secs = 0.0
+        self._last_cache_hit = None   # where the latest kernel build came from
         self._hooks: Dict[str, List[Callable]] = {
             "before_prepare": [], "after_prepare": [],
             "before_run": [], "after_run": []}
@@ -138,8 +139,31 @@ class StencilContext:
         return self._run
 
     def set_run_state(self, rs: RunState) -> RunState:
+        """Swap in another run's state bundle; returns the previous one.
+        The solution side (program, fused kernel) is untouched: one
+        prepare, many runs."""
         prev, self._run = self._run, rs
         return prev
+
+    def new_run_state(self) -> RunState:
+        """A fresh zero-state run over the prepared geometry (the
+        ensemble-member and serving-session allocator), allocated as
+        ``prepare_solution`` allocates: zero-filled rings on the
+        context's device (host numpy for ``ref``)."""
+        self._check_prepared()
+        rs = RunState()
+        rs.state = self._program.alloc_state()
+        rs.state_on_device = self._mode != "ref"
+        return rs
+
+    def new_ensemble(self, n: Optional[int] = None):
+        """N members of this prepared solution run as a batch
+        (:mod:`yask_tpu_torch.runtime.ensemble`); ``n`` defaults to the
+        ``-ensemble`` setting.  Member 0 adopts the context's current
+        run state (initial conditions already set stay member 0's)."""
+        from yask_tpu_torch.runtime.ensemble import EnsembleRun
+        return EnsembleRun(self, n if n is not None
+                           else max(self._opts.ensemble, 1))
 
     # ------------------------------------------------------------------
     # identity / settings / vars
@@ -293,9 +317,6 @@ class StencilContext:
         if o.push_memory not in ("auto", "off"):
             pending.append(f"-push {o.push_memory}: ROADMAP.md A9 "
                            "(pipeline fusion and push, K6)")
-        if o.ensemble > 1:
-            pending.append("-ensemble: ROADMAP.md A8 (ensemble batching, "
-                           "K7)")
         if pending:
             raise YaskException(
                 "not ported yet: " + "; ".join(pending))
@@ -371,6 +392,17 @@ class StencilContext:
                     "end_solution was called; call prepare_solution "
                     "again to run")
             raise YaskException("prepare_solution has not been called")
+
+    def _materialize_state(self) -> None:
+        """The lazy sync point before host-visible state access.  The
+        port keeps no device-resident sharded interiors (one device), so
+        this only checks that the active run state still holds arrays."""
+        if self._state is None:
+            if getattr(self, "_ended", False):
+                raise YaskException(
+                    "end_solution was called; call prepare_solution "
+                    "again to access var data")
+            raise YaskException("the active run state holds no arrays")
 
     def _interior_idx(self, name: str):
         g = self._program.geoms[name]
@@ -498,6 +530,7 @@ class StencilContext:
         """``wf_steps`` steps per chunk of ``StepProgram.step`` on tensors
         (the counterpart of the reference's jit chunks)."""
         self._state_to_device()
+        self._last_cache_hit = "eager"
         wf = self._opts.wf_steps if self._opts.wf_steps > 0 else n
         dirn = self._ana.step_dir
         prog = self._program
@@ -510,15 +543,36 @@ class StencilContext:
             self._sync()
         self._state = st
 
-    def _fused_kernel(self):
-        """The fused kernel of this prepared solution; its build (nvcc at
-        first use on a CUDA device) counts as compile time."""
+    def _fused_spec_kernel(self):
+        """The fused kernel of this prepared solution, emitted but not
+        built."""
         if self._fused is None:
             from yask_tpu_torch.ops.fused_stencil import FusedKernel
             self._fused = FusedKernel(self._program)
-        if self._device.type == "cuda":
-            self._compile_secs += self._fused.build()
         return self._fused
+
+    def _fused_kernel(self):
+        """The fused kernel of this prepared solution; its build (nvcc at
+        first use on a CUDA device) counts as compile time, and where it
+        came from lands in ``_last_cache_hit``."""
+        kern = self._fused_spec_kernel()
+        if self._device.type == "cuda":
+            self._compile_secs += kern.build()
+            self._last_cache_hit = kern.cache_hit
+        else:
+            self._last_cache_hit = "plain"
+        return kern
+
+    def _fused_variant_key(self) -> tuple:
+        """The settings beyond (profile, mode) that change what a fused
+        chunk runs, so that requests are batched only onto one kernel:
+        the counterpart of ``yask_tpu``'s ``_pallas_variant_key``.  For
+        ``fused`` it is the chunk length and the emitted kernel's name
+        (a hash of its source); the other modes run no kernel."""
+        if self._mode != "fused":
+            return (self._mode,)
+        return ("fused", max(self._opts.wf_steps, 1),
+                self._fused_spec_kernel().spec.name)
 
     def _run_fused_steps(self, start: int, n: int) -> None:
         """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,

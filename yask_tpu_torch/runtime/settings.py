@@ -4,9 +4,10 @@ Counterpart of ``yask_tpu/runtime/settings.py`` (the reference's
 ``KernelSettings``, ``src/kernel/lib/settings.hpp:200-327``) with the
 port's execution modes and a ``-device`` option.  It keeps the domain
 geometry, tiling and decomposition knobs, the parity no-ops, and the knobs
-of paths still to port (auto-tuner, supervised runs, trapezoid, push,
-ensembles): those are parsed so reference command lines keep working, and
-the context raises when one is set (``StencilContext._check_carried``).
+of paths still to port (auto-tuner, supervised runs, trapezoid, push):
+those are parsed so reference command lines keep working, and the context
+raises when one is set (``StencilContext._check_carried``).  ``-ensemble``
+sets the default size of ``new_ensemble()``.
 The TPU-only knobs of the reference (VMEM budgets, skew, exchange
 scheduling, checker preflight, serving) come with the ROADMAP.md items
 that port their paths.
@@ -64,7 +65,7 @@ class KernelSettings:
         self.numa_pref = -1
         # Paths still to port: setting any of these raises at prepare/run.
         self.do_auto_tune = False        # ROADMAP.md A6
-        self.ensemble = 1                # A8
+        self.ensemble = 1                # new_ensemble()'s default size
         self.push_memory = "auto"        # A9 ("auto"/"off" = no push)
         self.ckpt_every = 0              # A10 (supervised runs)
         self.ckpt_dir = ""
@@ -118,8 +119,9 @@ class KernelSettings:
             "auto_tune", "Auto-tune tile sizes (not ported yet: "
             "ROADMAP.md A6).", self, "do_auto_tune")
         parser.add_int_option(
-            "ensemble", "Batch N solution instances (not ported yet: "
-            "ROADMAP.md A8).", self, "ensemble")
+            "ensemble", "Batch N independent solution instances "
+            "(the default size of new_ensemble(); modes torch and fused "
+            "batch).  1 = off.", self, "ensemble")
         parser.add_string_option(
             "push", "Push-memory fusion: auto|on|force|off (on/force not "
             "ported yet: ROADMAP.md A9).", self, "push_memory")

@@ -38,7 +38,23 @@ script exits 0 only when all of them passed.  Phases:
    bit-identical to per-request dispatch.  It prints the latency split,
    the aggregate rate, K7's time against its bound, and the share of a
    request spent in the per-chunk ``extract_snapshot`` host copies (from
-   the span trace, ``YT_TRACE``).
+   the span trace, ``YT_TRACE``);
+6. the pipeline path: the RTM chain (``rtm_chain``: forward step →
+   imaging condition → smoothing) merged by ``SolutionPipeline`` and run
+   ``-mode fused -wf_steps 1`` with ``prepare(fuse=True)``, one launch of
+   K6 (the multi-stage kernel, the image pushed: it never leaves shared
+   memory) per step.  (a) K6 against its plain version (``-mode torch``
+   on the same merged program) from one numpy-seeded state: the pure
+   (push) and accumulating chains at a ragged 67×45×131 and the pure r=8
+   chain at 64³ (the shared-memory ladder steps down), 4 steps, one
+   launch each; (b) the push and ``-push off`` fused arms against the
+   host-chained arm (one K1 per stage, bindings copied through the host)
+   at 96³, ``compare == 0``; (c) the path at full size: r=2, 512³ fp32,
+   ``fwd.pressure`` seeded in every ring slot from ``RandomState(7)``
+   (and ``fwd.vel``), 2 warm-up steps, then 3 trials of 20 steps with
+   the counters zeroed just before (60 K6 launches, no K1 or K7), for
+   the push arm and the ``-push off`` arm, each against its bound (20
+   and 24 B per point), then ``end()``.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -324,6 +340,220 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def rtm_pipe(env, cli: str, fuse, g, radius: int = 2,
+             accumulate: bool = False):
+    """The RTM chain (``rtm_chain``) as a prepared ``SolutionPipeline``
+    over ``g = (x, y, z)``."""
+    from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
+    pipe = SolutionPipeline(env, *rtm_chain(radius=radius,
+                                            accumulate=accumulate))
+    pipe.apply_command_line_options(
+        f"-g_x {g[0]} -g_y {g[1]} -g_z {g[2]} {cli}")
+    pipe.prepare(fuse=fuse)
+    return pipe
+
+
+def seed_chain(pipe, g, seed: int) -> None:
+    """``fwd.pressure`` in every ring slot from ``RandomState(seed)`` as
+    the reference's bench seeds it ((U − 0.5)·0.1), and ``fwd.vel`` =
+    0.05 + 0.01·U from the same generator (zero would hide the
+    Laplacian)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    arr = (rng.rand(*g).astype(np.float32) - 0.5) * 0.1
+    v = pipe.get_var("fwd", "pressure")
+    last = [n - 1 for n in g]
+    for t in range(v.get_first_valid_step_index(),
+                   v.get_last_valid_step_index() + 1):
+        v.set_elements_in_slice(arr, [t, 0, 0, 0], [t] + last)
+    del arr
+    vel = (0.05 + 0.01 * rng.rand(*g)).astype(np.float32)
+    pipe.get_var("fwd", "vel").set_elements_in_slice(vel, [0, 0, 0], last)
+
+
+def pipe_diff(a, b):
+    """(max |Δ|, field max) over every written var both pipelines expose
+    (pushed vars left out), at every step valid in both rings."""
+    import numpy as np
+    skip = a.pushed_vars() | b.pushed_vars()
+    err = scale = 0.0
+    for s in a.stage_names:
+        for vn in a.written_vars(s):
+            if f"{s}__{vn}" in skip:
+                continue
+            va, vb = a.get_var(s, vn), b.get_var(s, vn)
+            for t in range(max(va.get_first_valid_step_index(),
+                               vb.get_first_valid_step_index()),
+                           min(va.get_last_valid_step_index(),
+                               vb.get_last_valid_step_index()) + 1):
+                x = a._interior(s, vn, t).astype(np.float64)
+                y = b._interior(s, vn, t).astype(np.float64)
+                err = max(err, float(np.abs(x - y).max()))
+                scale = max(scale, float(np.abs(x).max()),
+                            float(np.abs(y).max()))
+    return err, scale
+
+
+def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
+           full: int = 512) -> dict:
+    """The pipeline path: the merged RTM chain through K6 (see the module
+    docstring; the sizes are its grids); returns K6's entry of the
+    ``kernels`` line."""
+    import numpy as np
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (batched_step, fused_step,
+                                                  plain_chunk, stages_step)
+
+    # (a) K6 against its plain version (-mode torch runs StepProgram.step
+    #     of the same merged program), ragged grid and the r=8 ladder
+    worst = 0.0
+    for acc, r, g in ((False, 2, ragged), (True, 2, ragged),
+                      (False, 8, (ladder,) * 3)):
+        fused = rtm_pipe(env, "-mode fused -wf_steps 1", True, g, r, acc)
+        plain = rtm_pipe(env, "-mode torch -wf_steps 1", True, g, r, acc)
+        want = set() if acc else {"img__img"}
+        if fused.pushed_vars() != want:
+            raise RuntimeError(f"phase 6: pushed {fused.pushed_vars()}, "
+                               f"expected {want}")
+        for p in (fused, plain):
+            seed_chain(p, g, 7)
+        n0 = stages_step.launches
+        fused.run(0, 3)
+        launched = stages_step.launches - n0
+        plain.run(0, 3)
+        err, scale = pipe_diff(fused, plain)
+        worst = max(worst, err)
+        spec = fused.fused_ctx._fused.spec
+        log(f"phase 6: rtm chain r={r} {'accumulating' if acc else 'pure'}"
+            f" {g[0]}x{g[1]}x{g[2]} 4 steps: K6 ({spec.name}, tile "
+            f"{list(spec.tile)}, smem {spec.smem_bytes} B, pushed "
+            f"{sorted(fused.pushed_vars())}) vs plain max|d|={err:.3e} "
+            f"(field max {scale:.3e}), launches={launched}")
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError("phase 6: K6 and its plain version disagree")
+        if launched != 4:
+            raise RuntimeError(f"phase 6: {launched} K6 launches for 4 "
+                               "steps")
+        fused.end()
+        plain.end()
+
+    # (b) fused (push and no push) against host-chained (K1 per stage)
+    g = (mid,) * 3
+    arms = {"push": rtm_pipe(env, "-mode fused -wf_steps 1", True, g),
+            "no push": rtm_pipe(env, "-mode fused -wf_steps 1 -push off",
+                                True, g),
+            "chained": rtm_pipe(env, "-mode fused -wf_steps 1", False, g)}
+    n1, n6 = fused_step.launches, stages_step.launches
+    for p in arms.values():
+        seed_chain(p, g, 7)
+        p.run(0, 3)
+    for name in ("push", "no push"):
+        bad = arms[name].compare(arms["chained"])
+        log(f"phase 6: fused ({name}) vs host-chained at {mid}^3, 4 "
+            f"steps: "
+            f"compare = {bad} (pushed {sorted(arms[name].pushed_vars())})")
+        if bad:
+            raise RuntimeError(f"phase 6: fused ({name}) differs from the "
+                               "host-chained arm")
+    if (fused_step.launches - n1, stages_step.launches - n6) != (12, 8):
+        raise RuntimeError("phase 6: the arms did not launch K1 12 times "
+                           "and K6 8 times")
+    for p in arms.values():
+        p.end()
+    del arms
+
+    # (c) the path at full size, push and -push off
+    g = (full,) * 3
+    npts = g[0] * g[1] * g[2]
+    warm, trials, steps = 2, 3, 20
+    entry = None
+    for name, cli, pushed in (("push", "", {"img__img"}),
+                              ("-push off", "-push off", set())):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g)
+        if pipe.pushed_vars() != pushed:
+            raise RuntimeError(f"phase 6: {name}: pushed "
+                               f"{pipe.pushed_vars()}")
+        seed_chain(pipe, g, 7)
+        pipe.run(0, warm - 1)
+        t = warm
+        fused_step.launches = batched_step.launches = 0
+        stages_step.launches = 0
+        secs = []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            pipe.run(t, t + steps - 1)      # ends in a synchronize
+            secs.append(time.perf_counter() - t0)
+            t += steps
+        launches = stages_step.launches
+        if (launches, fused_step.launches, batched_step.launches) \
+                != (trials * steps, 0, 0):
+            raise RuntimeError(
+                f"phase 6: {name}: {launches} K6, {fused_step.launches} "
+                f"K1, {batched_step.launches} K7 launches in the window")
+        peak = torch.cuda.max_memory_allocated()
+        secs.sort()
+        step_ms = secs[len(secs) // 2] / steps * 1e3
+        sv = pipe.get_var("smooth", "smooth")
+        ts = sv.get_last_valid_step_index()
+        out = sv.get_elements_in_slice([ts, 0, 0, 0],
+                                       [ts] + [n - 1 for n in g])
+        if out.shape != g or not np.isfinite(out).all() \
+                or not np.abs(out).max() > 0:
+            raise RuntimeError(f"phase 6: {name}: smooth is not finite "
+                               "and nonzero")
+        del out
+        ctx = pipe.fused_ctx
+        kern, prog, state = ctx._fused, ctx._program, ctx._state
+        spec = kern.spec
+        ms = cuda_ms(lambda: stages_step(kern, state, t), 10)
+        plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 3)
+        a = kern.chunk(dict(state), t, 1)
+        b = plain_chunk(prog, dict(state), t, 1)
+        err = max(float((a[n][-1] - b[n][-1]).abs().max())
+                  for n in spec.outputs)
+        scale = max(float(b[n][-1].abs().max()) for n in spec.outputs)
+        del a, b
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError(f"phase 6: {name}: K6 and its plain version "
+                               f"disagree at {full}^3")
+        bytes_pt = 4 * (len(spec.inputs) + len(spec.outputs))
+        bytes_ms = bytes_pt * npts / HBM_BYTES_PER_S * 1e3
+        flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+        log(f"phase 6: rtm chain r=2 pure {full}^3 fp32 -mode fused "
+            f"-wf_steps 1"
+            f" ({name}, pushed {sorted(pushed)}): {trials} trials x {steps}"
+            f" steps: {step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f},"
+            f" max {secs[-1] / steps * 1e3:.3f}), "
+            f"{npts / step_ms * 1e3:.4e} points/s; stages_step launches in "
+            f"the window {launches}")
+        log(f"phase 6: {name}: stages_step {ms:.3f} ms/launch (CUDA events, "
+            f"zero-filled outputs included) against its bound "
+            f"{bound_ms:.3f} ms ({bound_by}: {bytes_pt} B/pt -> "
+            f"{bytes_ms:.3f} ms; {ctx._ana.counters.num_ops} FLOP/pt -> "
+            f"{flops_ms:.3f} ms); share {bound_ms / ms:.3f} per launch, "
+            f"{bound_ms / step_ms:.3f} per step; plain version "
+            f"{plain_ms:.3f} ms/step (not a yardstick); one step kernel vs "
+            f"plain max|d|={err:.3e} (field max {scale:.3e}); "
+            f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB")
+        if entry is None:
+            entry = {"name": "stages_step", "route": "cuda",
+                     "source": "yask_tpu_torch/csrc/fused_step.cuh",
+                     "replaces": "yask_tpu/ops/pallas_stencil.py:2312 "
+                                 "(push= arm)",
+                     "launches": launches,
+                     "max_abs_err": max(err, worst), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        pipe.end()
+        del pipe, ctx, kern, prog, state
+        torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -352,15 +582,35 @@ def main() -> int:
     for st, r in cases.items():
         ctx = make_ctx(fac, env, st, r, 64, "fused")
         specs[st] = fused_stencil.FusedKernel(ctx._program).spec
+    # phase 6's: the merged RTM chains (K6) and the chained arm's stages
+    for label, r, acc, cli in (("rtm r=2 pure", 2, False, ""),
+                               ("rtm r=2 pure -push off", 2, False,
+                                "-push off"),
+                               ("rtm r=2 accumulating", 2, True, ""),
+                               ("rtm r=8 pure", 8, False, "")):
+        pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True,
+                        (16, 16, 16), r, acc)
+        specs[label] = pipe.fused_ctx._fused_spec_kernel().spec
+        pipe.end()
+    chained = rtm_pipe(env, "-mode fused -wf_steps 1", False, (16, 16, 16))
+    for s in chained.stage_names:
+        specs[f"rtm stage {s}"] = \
+            chained.stage_ctx(s)._fused_spec_kernel().spec
+    chained.end()
     _paths, logs = _build.build_many(
-        [(s.name, s.source) for s in specs.values()], ptxas_info=True)
+        list({s.name: s.source for s in specs.values()}.items()),
+        ptxas_info=True)
     build_secs = time.perf_counter() - t0
     for st, s in specs.items():
         info = [ln.strip() for ln in logs.get(s.name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        log(f"phase 1: built {s.name} ({st}): entries {s.name} (K1) and "
-            f"{s.name}_batched (K7), tile {list(s.tile)}, smem "
-            f"{s.smem_bytes} B; ptxas (K7 entry first): "
+        entries = (f"entries {s.name} (K1) and {s.name}_batched (K7)"
+                   if s.stages == 1 else
+                   f"entry {s.name} (K6, {s.stages} stages, pushed "
+                   f"{s.push_vars})")
+        log(f"phase 1: built {s.name} ({st}): {entries}, tile "
+            f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas"
+            f"{' (K7 entry first)' if s.stages == 1 else ''}: "
             f"{' | '.join(info)}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
@@ -496,6 +746,8 @@ def main() -> int:
 
     del ctx, torch_ctx, state, a, b, prog, kern
     k7 = phase5(fac, env, step_ms)
+    torch.cuda.empty_cache()
+    k6 = phase6(env)
 
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",
@@ -503,7 +755,7 @@ def main() -> int:
         "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, k7]}))
+        "library_ms": None}, k7, k6]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

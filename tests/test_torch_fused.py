@@ -165,11 +165,14 @@ def host_launch(fn, prog, spec, state, t):
 
 @pytest.mark.parametrize("name,r", [("iso3dfd", 2), ("iso3dfd_sponge", 1),
                                     ("3axis", 1), ("cube", 1),
-                                    ("3plane", 2), ("cond_funcs", 0)])
+                                    ("3plane", 2), ("cond_funcs", 0),
+                                    ("two_stage", 0)])
 def test_emitted_point_function_matches_plain_gxx(name, r, tmp_path):
     import torch
     if name == "cond_funcs":
         ctx = port_ctx(cond_funcs("yask_tpu_torch"), 10, "fused")
+    elif name == "two_stage":    # K6's entry: two stages per launch
+        ctx = port_ctx(_two_stage_chain(), 70, "fused")
     else:
         ctx = port_ctx(None, 10, "fused", stencil=name, radius=r)
     import_interiors(ctx, seeded_interiors(ctx, 13))
@@ -218,15 +221,29 @@ def test_emitter_shrinks_tiles_to_fit_shared_memory():
 # ---------------------------------------------------------------------------
 
 
-def _multi_stage():
-    from yask_tpu_torch.compiler.solution import yc_factory
-    s = yc_factory().new_solution("two_stage")
+def _two_stage_chain(pkg="yask_tpu_torch"):
+    """Two stages: b reads the a this step computes, one point over."""
+    s = importlib.import_module(
+        pkg + ".compiler.solution").yc_factory().new_solution("two_stage")
     t = s.new_step_index("t")
     x = s.new_domain_index("x")
     a = s.new_var("a", [t, x])
     b = s.new_var("b", [t, x])
     a(t + 1, x).EQUALS(a(t, x - 1) + b(t, x))
     b(t + 1, x).EQUALS(a(t + 1, x + 1) * 0.5)
+    return s
+
+
+def _multi_stage():
+    """A var written in two stages (a bulk update, then an override that
+    the write-after-write order puts in a later stage): still refused."""
+    from yask_tpu_torch.compiler.solution import yc_factory
+    s = yc_factory().new_solution("rewrite")
+    t = s.new_step_index("t")
+    x = s.new_domain_index("x")
+    a = s.new_var("a", [t, x])
+    a(t + 1, x).EQUALS(a(t, x - 1) * 0.5)
+    a(t + 1, x).EQUALS(a(t, x + 1)).IF_DOMAIN(x < 3)
     return s
 
 

@@ -44,6 +44,12 @@ sid = srv.open_session(stencil="iso3dfd", radius=2, g=8, mode="fused",
 srv.init_vars(sid)
 assert srv.run(sid, 0, 1, timeout=120).ok
 srv.shutdown()
+from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
+pipe = SolutionPipeline(env, *rtm_chain(radius=2, accumulate=False))
+pipe.apply_command_line_options("-g 8 -mode fused -wf_steps 1")
+pipe.prepare(fuse=True)
+assert pipe.pushed_vars() == {"img__img"}
+pipe.run(0, 1)
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or (m.startswith("yask_tpu")

@@ -1,0 +1,156 @@
+"""The device code of K1 and K6 run on the CPU, block by block.
+
+``csrc/fused_step.cuh``'s ``__global__`` kernels cannot run here (no
+card, no nvcc), and the g++ host path (``host_step``/``host_stages``)
+reads global memory only, so it checks the emitted arithmetic but not the
+shared-memory tiles: the staging bounds, the grown halos, the expanded
+stage regions and the zero ghost cells of K6's computed tiles.  This
+test compiles the kernels themselves with g++ against a small CUDA shim:
+each block runs with one ``std::thread`` per CUDA thread, ``__syncthreads``
+is a ``std::barrier``, and shared memory is a global array filled with
+NaN before every block, so a read of a cell no thread wrote shows.  The
+launch is the wrapper's own (``call_entry``) on CPU tensors.  Tolerance:
+none — the same operations in the same order as ``plain_chunk``.
+"""
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import pytest
+
+import yask_tpu_torch
+from yask_tpu_torch.ops import fused_stencil
+from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
+from yask_tpu_torch.transfer import import_interiors
+
+from test_torch_lowering import seeded_interiors
+
+CSRC = os.path.join(os.path.dirname(fused_stencil.__file__), "..", "csrc")
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __grid_constant__
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+inline uint3 blockIdx;
+inline thread_local uint3 threadIdx;
+inline std::barrier<>* yt_barrier = nullptr;
+alignas(16) inline unsigned char yt_smem_raw[232448];
+inline void __syncthreads() { yt_barrier->arrive_and_wait(); }
+template <class T> T __ldg(const T* p) { return *p; }
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+typedef struct CUstream_st* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
+  return bytes <= int(sizeof(yt_smem_raw)) ? 0 : 1;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        blockIdx = {bx, by, bz};
+        std::memset(yt_smem_raw, 0xFF, sizeof(yt_smem_raw));  // NaN
+        std::barrier<> bar(block.x * block.y);
+        yt_barrier = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned ty = 0; ty < block.y; ++ty)
+          for (unsigned tx = 0; tx < block.x; ++tx)
+            ts.emplace_back([&, tx, ty] { threadIdx = {tx, ty, 0}; kernel(); });
+        for (auto& t : ts) t.join();
+      }
+}
+"""
+
+
+def emulated_kernel(spec, tmp_path):
+    """The emitted source built with g++ as device code (``__CUDACC__``
+    and ``__CUDA_ARCH__`` defined) against the shim; returns its entry."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to emulate the kernels"
+    header = open(os.path.join(CSRC, "fused_step.cuh")).read()
+    header, n_decl = re.subn(
+        r"extern __shared__ __align__\(16\) unsigned char "
+        r"yt_smem_raw\[\];", "", header)
+    header, n_launch = re.subn(
+        r"(fused_\w+_kernel<S[^>]*>)<<<grid, block, smem, stream>>>\(p\);",
+        r"yt_emulate(grid, block, [&] { \1(p); });", header)
+    assert (n_decl, n_launch) == (2, 2), "the kernels' text moved"
+    (tmp_path / "fused_step.cuh").write_text(header)
+    (tmp_path / "cuda_runtime.h").write_text(SHIM)
+    src = tmp_path / f"{spec.name}.cpp"
+    so = tmp_path / f"{spec.name}.so"
+    src.write_text(spec.source)
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    "-pthread", "-D__CUDACC__", "-D__CUDA_ARCH__=900",
+                    "-Wno-unknown-pragmas", "-I", str(tmp_path), "-o",
+                    str(so), str(src)], check=True, capture_output=True,
+                   timeout=300)
+    fn = getattr(ctypes.CDLL(str(so)), spec.name)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rtm_ctx(radius, accumulate, cli=""):
+    pipe = SolutionPipeline(
+        yask_tpu_torch.yk_factory().new_env(device="cpu"),
+        *rtm_chain(radius=radius, accumulate=accumulate))
+    # ragged: two blocks in slot 0 (T0 = 8), three in slot 1, two in slot 2
+    pipe.apply_command_line_options(
+        f"-g_x 11 -g_y 19 -g_z 70 -mode fused -wf_steps 1 {cli}")
+    pipe.prepare(fuse=True)
+    return pipe.fused_ctx
+
+
+def iso_ctx():
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="iso3dfd",
+                           radius=2)
+    ctx.apply_command_line_options("-g_x 11 -g_y 19 -g_z 70 -mode fused")
+    ctx.prepare_solution()
+    return ctx
+
+
+@pytest.mark.parametrize("case", ["k6_pure_r2", "k6_accumulating_r2",
+                                  "k6_pure_r8", "k1_iso3dfd_r2"])
+def test_device_code_matches_plain_when_emulated(case, tmp_path):
+    import torch
+    ctx = {"k6_pure_r2": lambda: rtm_ctx(2, False),
+           "k6_accumulating_r2": lambda: rtm_ctx(2, True),
+           "k6_pure_r8": lambda: rtm_ctx(8, False),
+           "k1_iso3dfd_r2": iso_ctx}[case]()
+    import_interiors(ctx, seeded_interiors(ctx, 5))
+    prog = ctx._program
+    spec = ctx._fused_spec_kernel().spec
+    if case == "k6_pure_r8":
+        assert spec.tile == (2, 8, 64)      # the ladder stepped down
+    fn = emulated_kernel(spec, tmp_path)
+    state = ctx._state
+    for t in (0, 1):
+        ins = [state[n][s] for n, s in spec.inputs]
+        outs = [torch.zeros(tuple(prog.geoms[n].shape), dtype=torch.float32)
+                for n in spec.outputs]
+        assert fused_stencil.call_entry(fn, prog, spec, ins, outs, t,
+                                        None) == 0
+        want = fused_stencil.plain_chunk(prog, state, t, 1)
+        for n, a in zip(spec.outputs, outs):
+            torch.testing.assert_close(a, want[n][-1], rtol=0, atol=0)
+        state = want

@@ -132,7 +132,11 @@ def test_var_api_round_trip_and_pads():
     ("-mode shard_pallas", "A11"), ("-auto_tune", "A6"),
     ("-ckpt_every 2", "A10"), ("-watchdog_every 2", "A10"),
     ("-run_deadline 5", "A10"), ("-trapezoid", "A12"),
-    ("-push on", "A9"), ("-push force", "A9")])
+    # push is carried (K6); what stays of A9 is push in a member batch
+    pytest.param("-push on -mode fused -ensemble 2", "A9",
+                 id="-push on-A9"),
+    pytest.param("-push force -mode fused -ensemble 2", "A9",
+                 id="-push force-A9")])
 def test_settings_not_carried_raise_with_their_roadmap_item(opts, item):
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="3axis",

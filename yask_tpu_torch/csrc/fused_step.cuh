@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <vector>
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define YT_HD __host__ __device__
@@ -336,6 +338,269 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
 #endif
 }
 
+// ==== K6: several stages per launch =====================================
+// Replaces the push= arm of build_pallas_chunk with its stage loop
+// (pallas_stencil.py:495-563, :995-1058, :1859-1871, :2058-2188): one
+// launch does every stage of one sub-step of a multi-stage solution, such
+// as the merged RTM chain of ops/pipeline.py (forward step -> imaging
+// condition -> smoothing).  ops/cuda_emit.py prints Spec::stage<K> per
+// stage and the tables used below.
+//
+// What bounds it on an H100: bytes.  The merged pure RTM chain at r=2
+// does ~60 FLOP per point and must move 20 B per point per step at fp32
+// with the image pushed (pressure t, t-1 and vel read, pressure t+1 and
+// smooth written): 0.80 ms per step at 512^3 over 3.35 TB/s against
+// 0.13 ms of FLOPs.  What the design does about it: every intermediate a
+// later stage reads at the same step stays in shared memory, so the chain
+// moves what one stage would; a pushed var (read only that way) has no
+// device-memory input or output at all.
+//
+// Design (a first cut that is simple and right):
+//   * a block owns T0 x T1 x T2 interior points, as in K1; stage K is
+//     computed over the block expanded by expandS(K) per slot (the read
+//     widths of the later stages), so every input tile's halo grows by
+//     that much;
+//   * 1) stage the tiled inputs as K1 does, except that cells past an
+//     input's read reach of the domain (its pads) hold zero: the grown
+//     halo reaches beyond the padded array at the domain's edges;
+//   * 2) each stage loops its threads over the cells of its region (an
+//     expanded region does not map one thread per point); a cell outside
+//     the domain is not computed and holds zero, which is what the plain
+//     version's zero pads give a later stage's read there; results go to
+//     the stage's computed tile in shared memory and, for the block's own
+//     interior points, to the fresh zeroed outputs of the vars that are
+//     not pushed; __syncthreads between stages.
+//
+// The host path (no __CUDACC__) runs each stage over the whole domain
+// with global reads, keeping each computed var in a zeroed host buffer
+// over the domain expanded by its stage's expansion.
+
+// Reads of one stage point: staged inputs from their tile (others from
+// global memory) and earlier stages' results from their computed tiles.
+template <class S>
+struct StageReader {
+  const ParamsOf<S>* p;
+  const typename S::real_t* smem;
+  int l0, l1, l2;  // point relative to the block origin (may lie in the
+                   // expansion: < 0 or >= T)
+  int g0, g1, g2;  // point in the interior
+  template <int A>
+  YT_HD typename S::real_t at(int o0, int o1, int o2) const {
+    constexpr int k = S::tile_of(A);
+    if constexpr (k >= 0) {
+      constexpr int E1 = S::T1 + S::halo_lo1(k) + S::halo_hi1(k);
+      constexpr int E2 = S::T2 + S::halo_lo2(k) + S::halo_hi2(k);
+      return smem[S::tile_offset(k)
+                  + ((l0 + S::halo_lo0(k) + o0) * E1
+                     + (l1 + S::halo_lo1(k) + o1)) * E2
+                  + (l2 + S::halo_lo2(k) + o2)];
+    } else {
+      return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+    }
+  }
+  template <int B>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
+    constexpr int k = S::cmp_stage(B);
+    constexpr int e0 = S::expand0(k), e1 = S::expand1(k), e2 = S::expand2(k);
+    constexpr int R1 = S::T1 + 2 * e1, R2 = S::T2 + 2 * e2;
+    return smem[S::cmp_offset(B) + ((l0 + e0 + o0) * R1 + (l1 + e1 + o1)) * R2
+                + (l2 + e2 + o2)];
+  }
+};
+
+// The host path's reader: global inputs, whole-domain computed buffers.
+template <class S>
+struct HostStageReader {
+  const ParamsOf<S>* p;
+  typename S::real_t* const* bufs;
+  int g0, g1, g2;
+  template <int A>
+  YT_HD typename S::real_t at(int o0, int o1, int o2) const {
+    return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+  }
+  template <int B>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
+    constexpr int k = S::cmp_stage(B);
+    constexpr int e0 = S::expand0(k), e1 = S::expand1(k), e2 = S::expand2(k);
+    const idx_t R1 = p->n[1] + 2 * e1, R2 = p->n[2] + 2 * e2;
+    return bufs[B][((g0 + e0 + o0) * R1 + (g1 + e1 + o1)) * R2
+                   + (g2 + e2 + o2)];
+  }
+};
+
+template <class S, int K>
+void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs) {
+  typedef typename S::real_t real_t;
+  constexpr int e0 = S::expand0(K), e1 = S::expand1(K), e2 = S::expand2(K);
+  const idx_t R1 = p.n[1] + 2 * e1, R2 = p.n[2] + 2 * e2;
+  for (int g0 = 0; g0 < p.n[0]; ++g0)
+    for (int g1 = 0; g1 < p.n[1]; ++g1)
+      for (int g2 = 0; g2 < p.n[2]; ++g2) {
+        const HostStageReader<S> rd{&p, bufs, g0, g1, g2};
+        const int g[3] = {g0, g1, g2};
+        real_t v[S::MAXV];
+        S::template stage<K>(rd, g, p.n, p.t, v);
+        for (int j = 0; j < S::stage_nv(K); ++j) {
+          const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
+          if (o >= 0)
+            p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+                     + g2 * p.out_s[o][2]] = v[j];
+          if (b >= 0)
+            bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = v[j];
+        }
+      }
+  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs);
+}
+
+template <class S>
+int host_stages(const ParamsOf<S>& p) {
+  typedef typename S::real_t real_t;
+  std::vector<std::vector<real_t>> store(S::NCMP);
+  real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
+  for (int b = 0; b < S::NCMP; ++b) {
+    const int k = S::cmp_stage(b);
+    store[b].assign(size_t(p.n[0] + 2 * S::expand0(k))
+                        * size_t(p.n[1] + 2 * S::expand1(k))
+                        * size_t(p.n[2] + 2 * S::expand2(k)),
+                    real_t(0));
+    bufs[b] = store[b].data();
+  }
+  host_stage<S, 0>(p, bufs);
+  return 0;
+}
+
+#ifdef __CUDACC__
+// One stage over its region: a loop of the block's threads over its cells.
+template <class S, int K>
+__device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
+                                             typename S::real_t* smem,
+                                             int b0, int b1, int b2,
+                                             int tid) {
+  typedef typename S::real_t real_t;
+  constexpr int NT = S::T1 * S::T2;
+  constexpr int e0 = S::expand0(K), e1 = S::expand1(K), e2 = S::expand2(K);
+  constexpr int R0 = S::T0 + 2 * e0, R1 = S::T1 + 2 * e1;
+  constexpr int R2 = S::T2 + 2 * e2;
+  constexpr int cells = R0 * R1 * R2;
+  for (int i = tid; i < cells; i += NT) {
+    const int l2 = i % R2 - e2;
+    const int r = i / R2;
+    const int l1 = r % R1 - e1;
+    const int l0 = r / R1 - e0;
+    const int g0 = b0 + l0, g1 = b1 + l1, g2 = b2 + l2;
+    const bool inside = g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
+                        && g2 >= 0 && g2 < p.n[2];
+    real_t v[S::MAXV];
+    if (inside) {
+      const StageReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
+      const int g[3] = {g0, g1, g2};
+      S::template stage<K>(rd, g, p.n, p.t, v);
+    } else {
+#pragma unroll
+      for (int j = 0; j < S::MAXV; ++j) v[j] = real_t(0);
+    }
+    const bool own = inside && l0 >= 0 && l0 < S::T0 && l1 >= 0
+                     && l1 < S::T1 && l2 >= 0 && l2 < S::T2;
+#pragma unroll
+    for (int j = 0; j < S::MAXV; ++j) {
+      if (j >= S::stage_nv(K)) break;
+      const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
+      if (o >= 0 && own)
+        p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+                 + g2 * p.out_s[o][2]] = v[j];
+      if (b >= 0)
+        smem[S::cmp_offset(b) + ((l0 + e0) * R1 + (l1 + e1)) * R2
+             + (l2 + e2)] = v[j];
+    }
+  }
+  if constexpr (K + 1 < S::NSTAGES) {
+    __syncthreads();
+    device_stage<S, K + 1>(p, smem, b0, b1, b2, tid);
+  }
+}
+
+template <class S>
+__global__ void __launch_bounds__(S::T1 * S::T2)
+fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
+  typedef typename S::real_t real_t;
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
+  const int b0 = blockIdx.z * S::T0;
+  const int b1 = blockIdx.y * S::T1;
+  const int b2 = blockIdx.x * S::T2;
+  const int tid = threadIdx.y * S::T2 + threadIdx.x;
+
+  // 1) stage each tiled input's halo tile (U loads in flight per thread,
+  //    as K1); cells past the input's read reach of the domain hold 0
+  constexpr int NT = S::T1 * S::T2;
+  constexpr int U = 16;
+#pragma unroll
+  for (int k = 0; k < S::NTILED; ++k) {
+    const int a = S::tiled_input(k);
+    const int h0 = S::halo_lo0(k), h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
+    const int E1 = S::T1 + h1 + S::halo_hi1(k);
+    const int E2 = S::T2 + h2 + S::halo_hi2(k);
+    const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
+    const int lo0 = -S::reach_lo0(k), lim0 = p.n[0] + S::reach_hi0(k);
+    const int lo1 = -S::reach_lo1(k), lim1 = p.n[1] + S::reach_hi1(k);
+    const int lo2 = -S::reach_lo2(k), lim2 = p.n[2] + S::reach_hi2(k);
+    real_t* dst = smem + S::tile_offset(k);
+    for (int base = tid; base < cells; base += NT * U) {
+      real_t v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * NT;
+        const int e2 = i % E2;
+        const int r = i / E2;
+        const int c0 = b0 - h0 + r / E1;
+        const int c1 = b1 - h1 + r % E1;
+        const int c2 = b2 - h2 + e2;
+        v[u] = (i < cells && c0 >= lo0 && c0 < lim0 && c1 >= lo1
+                && c1 < lim1 && c2 >= lo2 && c2 < lim2)
+                   ? global_at<S>(p, a, 0, c0, c1, c2) : real_t(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (base + u * NT < cells) dst[base + u * NT] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // 2) the stages in order, each over its region
+  device_stage<S, 0>(p, smem, b0, b1, b2, tid);
+}
+
+template <class S>
+int launch_stages(const ParamsOf<S>& p, cudaStream_t stream) {
+  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_stages_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const long long gz = (p.n[0] + S::T0 - 1) / S::T0;
+  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
+  const dim3 block(S::T2, S::T1, 1);
+  const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
+                  unsigned(gz));
+  fused_stages_kernel<S><<<grid, block, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+#endif
+
+// K6: as run(), every stage of one sub-step.
+template <class S>
+int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
+               void* out_strides, void* sizes, int t, void* stream) {
+  ParamsOf<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+#ifdef __CUDACC__
+  return launch_stages<S>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  return host_stages<S>(p);
+#endif
+}
+
 }  // namespace yt
 
 // The C entry point of one emitted kernel: pointers arrive as addresses of
@@ -355,4 +620,12 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
     return yt::run_batched<S>(in_ptrs, in_strides, in_mstrides, out_ptrs,    \
                               out_strides, out_mstrides, sizes, nm, t,       \
                               stream);                                       \
+  }
+
+// The C entry point of K6 (K1's arguments) for a multi-stage Spec.
+#define YT_FUSED_STAGES_ENTRY(NAME, S)                                       \
+  extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
+                      void* out_strides, void* sizes, int t, void* stream) { \
+    return yt::run_stages<S>(in_ptrs, in_strides, out_ptrs, out_strides,     \
+                             sizes, t, stream);                              \
   }

@@ -41,6 +41,19 @@ grid's z.  Bound by bytes like K1 (N × 16 B/pt per iso3dfd r=8 step).
 :func:`batched_step` is its wrapper with its own counter
 ``batched_step.launches``; :func:`plain_batched_chunk` (``plain_chunk`` on
 each member's view) is its plain version.
+
+K6 on Hopper, the multi-stage push-memory kernel: replaces the ``push=``
+arm of ``build_pallas_chunk`` and its stage loop (pallas_stencil.py:495-563,
+:995-1058, :1859-1871, :2058-2188).  A solution with several stages (the
+merged RTM chain of :mod:`yask_tpu_torch.ops.pipeline`) gets one launch
+per step that computes every stage of a block, each over the block
+expanded by what the later stages read, keeping the intermediates in
+shared memory; a pushed var has no output, and its ring keeps its stale
+input tensors (pallas_stencil.py:2335-2371).  Bound by bytes: the pure RTM
+chain moves 20 B per point per step with the image pushed.
+:func:`stages_step` is its wrapper with its own counter
+``stages_step.launches``; the plain version is :func:`plain_chunk`, which
+evaluates every stage.  Multi-stage specs carry no K7 entry.
 """
 
 from __future__ import annotations
@@ -198,10 +211,11 @@ def _rotated(program, spec, state, outs):
     return new_state
 
 
-def fused_step(kernel: "FusedKernel", state, t: int):
-    """Launch one sub-step of K1 on the current CUDA stream; returns the
-    new state (rings rotated).  Counts each launch in
-    ``fused_step.launches``."""
+def _launch(kernel: "FusedKernel", state, t: int, what: str):
+    """Launch one sub-step of the kernel's C entry point (K1's or K6's:
+    they take the same arguments) on the current CUDA stream; returns the
+    new state (rings rotated; a pushed var has no output, so its ring
+    keeps its stale input tensors)."""
     import torch
     prog = kernel.program
     spec = kernel.spec
@@ -213,13 +227,32 @@ def fused_step(kernel: "FusedKernel", state, t: int):
                         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise YaskException(
-            f"fused_step kernel '{spec.name}' launch failed: CUDA error "
-            f"{rc}")
-    fused_step.launches += 1
+            f"{what} kernel '{spec.name}' launch failed: CUDA error {rc}")
     return _rotated(prog, spec, state, outs)
 
 
+def fused_step(kernel: "FusedKernel", state, t: int):
+    """Launch one sub-step of K1 on the current CUDA stream; returns the
+    new state (rings rotated).  Counts each launch in
+    ``fused_step.launches``."""
+    state = _launch(kernel, state, t, "fused_step")
+    fused_step.launches += 1
+    return state
+
+
 fused_step.launches = 0
+
+
+def stages_step(kernel: "FusedKernel", state, t: int):
+    """Launch one sub-step of K6 (every stage of a multi-stage solution,
+    pushed vars kept in shared memory) on the current CUDA stream; returns
+    the new state.  Counts each launch in ``stages_step.launches``."""
+    state = _launch(kernel, state, t, "stages_step")
+    stages_step.launches += 1
+    return state
+
+
+stages_step.launches = 0
 
 #: CUDA's limit on gridDim.z, which K7 fills with members × slot-0 blocks.
 MAX_GRID_Z = 65535
@@ -272,13 +305,15 @@ def plain_batched_chunk(program, state, t0: int, k: int, nm: int):
 
 
 class FusedKernel:
-    """K1 for one planned solution: its emitted source and, after
-    :meth:`build`, the loaded library.  ``chunk`` is the wrapper: CPU
-    tensors take :func:`plain_chunk`, CUDA tensors launch the kernel."""
+    """K1 (one stage) or K6 (several) for one planned solution: its
+    emitted source and, after :meth:`build`, the loaded library.
+    ``chunk`` is the wrapper: CPU tensors take :func:`plain_chunk`, CUDA
+    tensors launch the kernel.  ``push`` is the push-memory request
+    (:func:`~yask_tpu_torch.ops.cuda_emit.resolve_push`)."""
 
-    def __init__(self, program):
+    def __init__(self, program, push=False):
         self.program = program
-        self.spec = cuda_emit.emit(program)
+        self.spec = cuda_emit.emit(program, push)
         self.fn = None
         self.batched_fn = None
         self.build_secs = 0.0
@@ -288,9 +323,9 @@ class FusedKernel:
         self.cache_hit = None
 
     def build(self) -> float:
-        """Build (nvcc at first use) and bind both entry points (K1 and
-        K7); returns the seconds it took.  Raises on a missing nvcc or a
-        failed build."""
+        """Build (nvcc at first use) and bind the entry points (K1 and K7
+        for one stage, K6 for several); returns the seconds it took.
+        Raises on a missing nvcc or a failed build."""
         if self.fn is not None:
             self.cache_hit = "memory"
             return 0.0
@@ -303,10 +338,13 @@ class FusedKernel:
         fn = getattr(lib, self.spec.name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        bfn = getattr(lib, self.spec.name + "_batched")
-        bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_void_p]
-        bfn.restype = ctypes.c_int
+        bfn = None
+        if self.spec.stages == 1:
+            bfn = getattr(lib, self.spec.name + "_batched")
+            bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                    ctypes.c_int,
+                                                    ctypes.c_void_p]
+            bfn.restype = ctypes.c_int
         self._lib = lib
         self.fn = fn
         self.batched_fn = bfn
@@ -325,9 +363,10 @@ class FusedKernel:
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
         self.build()
+        step = fused_step if self.spec.stages == 1 else stages_step
         dirn = self.program.ana.step_dir
         for i in range(k):
-            state = fused_step(self, state, t0 + i * dirn)
+            state = step(self, state, t0 + i * dirn)
         return state
 
     def batched_chunk(self, state, t0: int, k: int, nm: int):
@@ -341,6 +380,11 @@ class FusedKernel:
         if dev.type != "cuda":
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
+        if self.spec.stages > 1:
+            raise YaskException(
+                f"fused kernel '{self.spec.name}': K7 takes single-stage "
+                f"solutions; this one has {self.spec.stages} stages "
+                "(multi-stage K7 is ROADMAP.md A9)")
         self.build()
         dirn = self.program.ana.step_dir
         for i in range(k):
@@ -359,9 +403,12 @@ class FusedKernel:
     def tiling(self, fuse_steps: int) -> Dict[str, object]:
         """The tiling the kernel runs with (the port's ``chunk.tiling``)."""
         s = self.spec
-        return {"kernel": "fused_step", "name": s.name,
-                "fuse_steps": fuse_steps, "launches_per_step": 1,
+        return {"kernel": "fused_step" if s.stages == 1 else "stages_step",
+                "name": s.name, "fuse_steps": fuse_steps,
+                "launches_per_step": 1, "stages": s.stages,
                 "tile": list(s.tile), "smem_bytes": s.smem_bytes,
                 "smem_inputs": [s.inputs[a] for a in s.tiled],
+                "push": bool(s.push_vars), "push_vars": list(s.push_vars),
+                "push_smem_bytes": s.push_smem_bytes,
                 "pipeline_dmas": False, "skew_dims": []}
 

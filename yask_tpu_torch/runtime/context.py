@@ -77,6 +77,11 @@ class StencilContext:
         self._mode = None
         self._device = None
         self._fused = None            # FusedKernel, built at first use
+        # set by SolutionPipeline on the context of a merged chain: the
+        # pipeline, its signature (part of the variant key) and its plan
+        self._pipeline = None
+        self._pipeline_sig = None
+        self._pipeline_plan = None
         self._compile_secs = 0.0
         self._last_cache_hit = None   # where the latest kernel build came from
         self._hooks: Dict[str, List[Callable]] = {
@@ -314,9 +319,12 @@ class StencilContext:
         if o.trapezoid_tiling:
             pending.append("-trapezoid: ROADMAP.md A12 (trapezoid "
                            "tiling, K4)")
-        if o.push_memory not in ("auto", "off"):
-            pending.append(f"-push {o.push_memory}: ROADMAP.md A9 "
-                           "(pipeline fusion and push, K6)")
+        self._push_arg()   # a bad -push value raises
+        if o.push_memory in ("on", "force") and o.ensemble > 1 \
+                and o.mode == "fused":
+            pending.append(f"-push {o.push_memory} with -ensemble "
+                           f"{o.ensemble}: ROADMAP.md A9 (K7 has no push "
+                           "arm: multi-stage K7)")
         if pending:
             raise YaskException(
                 "not ported yet: " + "; ".join(pending))
@@ -543,12 +551,32 @@ class StencilContext:
             self._sync()
         self._state = st
 
+    def _push_arg(self):
+        """The push-memory request (``FusedKernel(push=)``) the ``-push``
+        setting resolves to: ``auto`` engages only for the context of a
+        fused pipeline (a plain solution's user expects every written var
+        observable after ``run()``; a pipeline hides its pushed
+        intermediates behind ``SolutionPipeline.get_var``), ``on`` for any
+        fused context, ``force`` raises when nothing is eligible, ``off``
+        never engages."""
+        pm = self._opts.push_memory
+        if pm == "off":
+            return False
+        if pm == "on":
+            return None
+        if pm == "force":
+            return True
+        if pm != "auto":
+            raise YaskException(
+                f"bad -push value '{pm}': expected auto|on|force|off")
+        return None if self._pipeline is not None else False
+
     def _fused_spec_kernel(self):
         """The fused kernel of this prepared solution, emitted but not
         built."""
         if self._fused is None:
             from yask_tpu_torch.ops.fused_stencil import FusedKernel
-            self._fused = FusedKernel(self._program)
+            self._fused = FusedKernel(self._program, self._push_arg())
         return self._fused
 
     def _fused_kernel(self):
@@ -567,12 +595,16 @@ class StencilContext:
         """The settings beyond (profile, mode) that change what a fused
         chunk runs, so that requests are batched only onto one kernel:
         the counterpart of ``yask_tpu``'s ``_pallas_variant_key``.  For
-        ``fused`` it is the chunk length and the emitted kernel's name
-        (a hash of its source); the other modes run no kernel."""
+        ``fused`` it is the chunk length, the emitted kernel's name (a
+        hash of its source), the push request and the pipeline signature
+        (a push and a no-push build, or a merged chain and a solution of
+        the same equations, never share a kernel); the other modes run
+        no kernel."""
         if self._mode != "fused":
             return (self._mode,)
         return ("fused", max(self._opts.wf_steps, 1),
-                self._fused_spec_kernel().spec.name)
+                self._fused_spec_kernel().spec.name, self._push_arg(),
+                self._pipeline_sig or "")
 
     def _run_fused_steps(self, start: int, n: int) -> None:
         """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,

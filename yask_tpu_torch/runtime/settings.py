@@ -4,7 +4,7 @@ Counterpart of ``yask_tpu/runtime/settings.py`` (the reference's
 ``KernelSettings``, ``src/kernel/lib/settings.hpp:200-327``) with the
 port's execution modes and a ``-device`` option.  It keeps the domain
 geometry, tiling and decomposition knobs, the parity no-ops, and the knobs
-of paths still to port (auto-tuner, supervised runs, trapezoid, push):
+of paths still to port (auto-tuner, supervised runs, trapezoid):
 those are parsed so reference command lines keep working, and the context
 raises when one is set (``StencilContext._check_carried``).  ``-ensemble``
 sets the default size of ``new_ensemble()``.
@@ -66,7 +66,7 @@ class KernelSettings:
         # Paths still to port: setting any of these raises at prepare/run.
         self.do_auto_tune = False        # ROADMAP.md A6
         self.ensemble = 1                # new_ensemble()'s default size
-        self.push_memory = "auto"        # A9 ("auto"/"off" = no push)
+        self.push_memory = "auto"        # auto|on|force|off (K6's push)
         self.ckpt_every = 0              # A10 (supervised runs)
         self.ckpt_dir = ""
         self.watchdog_every = 0
@@ -123,8 +123,10 @@ class KernelSettings:
             "(the default size of new_ensemble(); modes torch and fused "
             "batch).  1 = off.", self, "ensemble")
         parser.add_string_option(
-            "push", "Push-memory fusion: auto|on|force|off (on/force not "
-            "ported yet: ROADMAP.md A9).", self, "push_memory")
+            "push", "Push-memory fusion of -mode fused (K6): auto (a "
+            "pipeline's fused chain only), on (any fused context), force "
+            "(raise when no var can be pushed) or off.", self,
+            "push_memory")
         parser.add_int_option(
             "ckpt_every", "Checkpoint every N steps (not ported yet: "
             "ROADMAP.md A10).", self, "ckpt_every")

@@ -54,7 +54,26 @@ script exits 0 only when all of them passed.  Phases:
    (and ``fwd.vel``), 2 warm-up steps, then 3 trials of 20 steps with
    the counters zeroed just before (60 K6 launches, no K1 or K7), for
    the push arm and the ``-push off`` arm, each against its bound (20
-   and 24 B per point), then ``end()``.
+   and 24 B per point), then ``end()``;
+7. the trapezoid path: ``-mode fused -wf_steps K -trapezoid``, where each
+   group of K steps is one launch of K4's phase 1 (K levels per tile in
+   one launch) plus one diamond launch per trapezoid dim, the remainder
+   steps on K1.  (a) Forced (``trap_ctx(force=True)``) on small ragged
+   grids,
+   each with at least three tile boundaries in every trapezoid dim and a
+   remainder group: iso3dfd r=2 K=4 and K=3, cube r=1 K=4,
+   iso3dfd_sponge r=2 K=2 and the 2-D wave2d r=8 K=2.  Each is held
+   against its plain version on CUDA tensors (``-mode torch``; max |Δ|
+   printed, 0 mismatches at ``field_epsilon``), bit-equal
+   (``compare_data(epsilon=0)``) against the K1 path (``-no-trapezoid``
+   at the same K), and its launch counts checked.  (b) The path at full
+   width: iso3dfd r=2, 512³ fp32, ``-mode fused -wf_steps 4 -trapezoid``
+   (forced where the gate rejects it; the line says which), 2 warm-up
+   groups, then 3 trials of 20 steps with the counters zeroed just before
+   (15 phase-1 and 30 diamond launches, no K1); ms/step, points/s and the
+   share of the 5 B/pt/step bound; each pass's time per launch with CUDA
+   events; one group against its plain version; the same run with
+   ``-no-trapezoid`` (K1, 4 launches per group) beside it.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -554,6 +573,228 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
     return entry
 
 
+#: Phase 7's small cases: (stencil, radius, sizes in solution-dim order,
+#: K, steps, options).  Each trapezoid dim's block divides its span with at
+#: least three tile boundaries; the ragged extent is the minor dim; steps %
+#: K != 0.
+TRAP_CASES = (("iso3dfd", 2, (48, 64, 131), 4, 10, ""),
+              ("iso3dfd", 2, (48, 64, 131), 3, 8, ""),
+              ("cube", 1, (40, 48, 67), 4, 9, ""),
+              ("iso3dfd_sponge", 2, (48, 64, 67), 2, 5, ""),
+              ("wave2d", 8, (96, 131), 2, 5, "-b_x 24"))
+
+
+def trap_ctx(fac, env, stencil, radius, g, mode, K, cli="", force=False):
+    """A prepared context over sizes ``g`` (solution-dim order).
+    ``force`` makes its trapezoid request True: K4 past the gate, raising
+    where it cannot run (``yask_tpu``'s ``build_pallas_chunk(trapezoid=
+    True)``, which its CLI does not reach either)."""
+    ctx = fac.new_solution(env, stencil=stencil, radius=radius)
+    if force:
+        ctx._trapezoid_arg = lambda: True
+    sizes = " ".join(f"-g_{d} {n}"
+                     for d, n in zip(ctx.get_domain_dim_names(), g))
+    ctx.apply_command_line_options(
+        f"{sizes} -mode {mode} -wf_steps {K} {cli}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def trap_specs(fac, env, full: int = 512) -> dict:
+    """Phase 7's kernel sources (K4 per case, K1 for the remainders), for
+    phase 1's parallel build."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    specs = {}
+    for st, r, g, K, _steps, cli in TRAP_CASES:
+        ctx = trap_ctx(fac, env, st, r, g, "fused", K, f"-trapezoid {cli}",
+                       force=True)
+        specs[f"K4 {st} r={r} K={K}"] = ctx._trapezoid_kernel().spec
+        specs[f"K1 {st} r={r}"] = FusedKernel(ctx._program).spec
+        del ctx
+    ctx = trap_ctx(fac, env, "iso3dfd", 2, (full,) * 3, "fused", 4,
+                   "-trapezoid", force=True)
+    specs[f"K4 iso3dfd r=2 K=4 {full}^3"] = ctx._trapezoid_kernel().spec
+    return specs
+
+
+def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
+           trials: int = 3, steps: int = 20) -> dict:
+    """The trapezoid path (see the module docstring); returns K4's entry
+    of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (
+        call_trapezoid_entry, fused_step, plain_chunk, trapezoid_chunk)
+
+    def counts():
+        return (trapezoid_chunk.phase1_launches,
+                trapezoid_chunk.diamond_launches, fused_step.launches)
+
+    # (a) small ragged grids, forced
+    worst = 0.0
+    for st, r, g, K, nsteps, cli in TRAP_CASES:
+        ctxs = {"plain": trap_ctx(fac, env, st, r, g, "torch", K, cli),
+                "k4": trap_ctx(fac, env, st, r, g, "fused", K,
+                               f"-trapezoid {cli}", force=True),
+                "k1": trap_ctx(fac, env, st, r, g, "fused", K,
+                               f"-no-trapezoid {cli}")}
+        for c in ctxs.values():
+            seed_random(c, 7)
+        c0 = counts()
+        ctxs["k4"].run_solution(0, nsteps - 1)
+        got = tuple(b - a for a, b in zip(c0, counts()))
+        ctxs["k1"].run_solution(0, nsteps - 1)
+        ctxs["plain"].run_solution(0, nsteps - 1)
+        til = ctxs["k4"].get_stats().get_tiling()
+        groups, rem = divmod(nsteps, K)
+        want = (groups, groups * len(til["trap_dims"]), rem)
+        d = max_abs_diff(ctxs["k4"], ctxs["plain"])
+        worst = max(worst, d)
+        bad_plain = ctxs["k4"].compare_data(ctxs["plain"],
+                                            field_epsilon=FIELD_EPS)
+        bad_k1 = ctxs["k4"].compare_data(ctxs["k1"], epsilon=0.0,
+                                         abs_epsilon=0.0)
+        log(f"phase 7: {st} r={r} {'x'.join(map(str, g))} K={K} {nsteps} "
+            f"steps: K4 trap_dims {til['trap_dims']} block {til['block']}, "
+            f"nbounds {[dd['nbounds'] for dd in til['diamond']]}; vs plain "
+            f"(-mode torch on the card) max|d|={d:.3e} mismatches="
+            f"{bad_plain} (field_epsilon={FIELD_EPS}); vs K1 (-no-trapezoid)"
+            f" compare_data(epsilon=0) = {bad_k1}; launches phase-1/"
+            f"diamond/K1 {got}")
+        if not til["trapezoid"] or rem == 0 \
+                or min(dd["nbounds"] for dd in til["diamond"]) < 3:
+            raise RuntimeError(f"phase 7: {st} K={K}: not a forced "
+                               "trapezoid case with 3 boundaries and a "
+                               "remainder")
+        if bad_plain or bad_k1:
+            raise RuntimeError(f"phase 7: {st} K={K}: K4 differs from its "
+                               "plain version or from the K1 path")
+        if got != want:
+            raise RuntimeError(f"phase 7: {st} K={K}: launches {got}, "
+                               f"expected {want}")
+        del ctxs
+
+    # (b) the path at full width, then the K1 arm beside it
+    g, K = full, 4
+    npts = g ** 3
+    out = {}
+    for arm, cli in (("K4", "-trapezoid"), ("K1", "-no-trapezoid")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = trap_ctx(fac, env, "iso3dfd", 2, (g,) * 3, "fused", K, cli)
+        how = "-"
+        if arm == "K4":
+            how = "auto"
+            if ctx._trapezoid_kernel() is None:
+                reasons = ctx._trap[1]
+                ctx._trapezoid_arg = lambda: True
+                ctx.prepare_solution()
+                how = f"forced (the gate: {reasons})"
+        seed_random(ctx, 11)
+        ctx.run_solution(0, warm_groups * K - 1)
+        t = warm_groups * K
+        c0 = counts()
+        rates = []
+        for _ in range(trials):
+            ctx.clear_stats()
+            ctx.run_solution(t, t + steps - 1)
+            t += steps
+            rates.append(ctx.get_stats().get_pts_per_sec())
+        got = tuple(b - a for a, b in zip(c0, counts()))
+        peak = torch.cuda.max_memory_allocated()
+        til = ctx.get_stats().get_tiling()
+        ngroups = trials * steps // K
+        want = ((ngroups, 2 * ngroups, 0) if arm == "K4"
+                else (0, 0, trials * steps))
+        if got != want:
+            raise RuntimeError(f"phase 7: {arm} at {g}^3: launches "
+                               f"phase-1/diamond/K1 {got}, expected {want}")
+        if arm == "K4" and not (til["trapezoid"] is True
+                                and til["trap_dims"] == ["x", "y"]):
+            raise RuntimeError(f"phase 7: tiling {til}")
+        p = ctx.get_var("pressure").get_elements_in_slice(
+            [t, 0, 0, 0], [t, g - 1, g - 1, g - 1])
+        if p.shape != (g, g, g) or not np.isfinite(p).all() \
+                or not np.abs(p).max() > 0:
+            raise RuntimeError(f"phase 7: {arm}: pressure is not finite "
+                               "and nonzero")
+        del p
+        rates.sort()
+        mid = rates[len(rates) // 2]
+        step_ms = npts / mid * 1e3
+        out[arm] = step_ms
+        log(f"phase 7: iso3dfd r=2 {g}^3 fp32 -mode fused -wf_steps {K} "
+            f"{cli} ({arm}{', ' + how if arm == 'K4' else ''}): {trials} "
+            f"trials x {steps} steps: {step_ms:.3f} ms/step (min "
+            f"{npts / rates[-1] * 1e3:.3f}, max {npts / rates[0] * 1e3:.3f})"
+            f", {mid:.4e} points/s; launches phase-1/diamond/K1 {got}; "
+            f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
+            f"[{card}]")
+        if arm == "K1":
+            del ctx
+            break
+        log(f"phase 7: K4 tiling: block {til['block']}, passes "
+            f"{til['passes']}, level buffers {til['level_buffers']}, "
+            f"{til['threads']} threads, reasons {til['reasons']}")
+        kern, prog, state = ctx._trap[0], ctx._program, ctx._state
+        spec = kern.spec
+        ins = [state[n][s] for n, s in spec.inputs]
+        outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kern.dtype,
+                            device=ins[0].device) for n in spec.outputs]
+        stream = torch.cuda.current_stream().cuda_stream
+        pass_ms = []
+        for pas in range(len(spec.trap["passes"])):
+            pass_ms.append(cuda_ms(lambda: call_trapezoid_entry(
+                kern.fn, prog, spec, ins, outs, pas, t, stream), 10))
+        del outs
+        ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, K), 10)
+        plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, K), 3)
+        a = kern.chunk(dict(state), t, K)
+        b = plain_chunk(prog, dict(state), t, K)
+        err = max(float((x - y).abs().max()) for n in a
+                  for x, y in zip(a[n], b[n]))
+        scale = max(float(x.abs().max()) for n in b for x in b[n])
+        del a, b
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError("phase 7: K4 and its plain version disagree "
+                               f"at {g}^3")
+        bytes_pt = 4 * (len(spec.inputs) + len(spec.outputs))
+        bytes_ms = bytes_pt * npts / HBM_BYTES_PER_S * 1e3
+        flops_ms = ctx._ana.counters.num_ops * npts * K \
+            / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+        cells = sum(pp["computed_cells"] for pp in til["passes"])
+        log(f"phase 7: K4 per group of {K} steps: {ms:.3f} ms (phase 1 "
+            f"{pass_ms[0]:.3f} ms/launch, diamonds "
+            f"{', '.join(f'{x:.3f}' for x in pass_ms[1:])} ms/launch; "
+            f"fresh outputs and pad re-zero included in the group) against "
+            f"its bound {bound_ms:.3f} ms ({bound_by}: {bytes_pt} B/pt per "
+            f"group = {bytes_pt / K:.1f} B/pt/step -> {bytes_ms:.3f} ms; "
+            f"{ctx._ana.counters.num_ops * K} FLOP/pt -> {flops_ms:.3f} ms);"
+            f" share {bound_ms / ms:.3f} per group, "
+            f"{bound_ms / K / step_ms:.3f} per step; computed cells "
+            f"{cells / (K * npts):.3f} x the useful; plain version "
+            f"{plain_ms:.3f} ms/group (not a yardstick); one group vs plain "
+            f"max|d|={err:.3e} (field max {scale:.3e}) [{card}]")
+        entry = {"name": "trapezoid_chunk", "route": "cuda",
+                 "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+                 "replaces": "yask_tpu/ops/pallas_stencil.py:2312 "
+                             "(trapezoid arm: :812-930, :1514-1553, "
+                             ":1725-1752, :2372-2416)",
+                 "launches": got[0] + got[1],
+                 "max_abs_err": max(err, worst), "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": None,
+                 "per": f"group of {K} steps ({len(pass_ms)} launches)",
+                 "phase1_ms": pass_ms[0], "diamond_ms": pass_ms[1:],
+                 "trapezoid": how}
+        del ctx, kern, prog, state, ins
+    log(f"phase 7: K4 {out['K4']:.3f} ms/step vs K1 {out['K1']:.3f} ms/step "
+        f"at {g}^3 [{card}]")
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -597,6 +838,7 @@ def main() -> int:
         specs[f"rtm stage {s}"] = \
             chained.stage_ctx(s)._fused_spec_kernel().spec
     chained.end()
+    specs.update(trap_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -604,14 +846,18 @@ def main() -> int:
     for st, s in specs.items():
         info = [ln.strip() for ln in logs.get(s.name, "").splitlines()
                 if "registers" in ln or "spill" in ln]
-        entries = (f"entries {s.name} (K1) and {s.name}_batched (K7)"
+        entries = (f"entry {s.name} (K4: trapezoid_kernel, then "
+                   f"diamond_kernel per dim; passes "
+                   f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
+                   if s.trap else
+                   f"entries {s.name} (K1) and {s.name}_batched (K7)"
                    if s.stages == 1 else
                    f"entry {s.name} (K6, {s.stages} stages, pushed "
                    f"{s.push_vars})")
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas"
-            f"{' (K7 entry first)' if s.stages == 1 else ''}: "
-            f"{' | '.join(info)}")
+            f"{' (K7 entry first)' if s.stages == 1 and not s.trap else ''}"
+            f": {' | '.join(info)}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
 
@@ -748,6 +994,8 @@ def main() -> int:
     k7 = phase5(fac, env, step_ms)
     torch.cuda.empty_cache()
     k6 = phase6(env)
+    torch.cuda.empty_cache()
+    k4 = phase7(fac, env, card)
 
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",
@@ -755,7 +1003,7 @@ def main() -> int:
         "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, k7, k6]}))
+        "library_ms": None}, k4, k6, k7]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

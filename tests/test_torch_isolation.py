@@ -50,6 +50,17 @@ pipe.apply_command_line_options("-g 8 -mode fused -wf_steps 1")
 pipe.prepare(fuse=True)
 assert pipe.pushed_vars() == {"img__img"}
 pipe.run(0, 1)
+for name, K, forced in (("iso3dfd", 4, True), ("wave2d", 2, False)):
+    ctx = fac.new_solution(env, stencil=name, radius=2)
+    if forced:   # K4 past its gate, as build_pallas_chunk(trapezoid=True)
+        ctx._trapezoid_arg = lambda: True
+    ctx.apply_command_line_options(f"-g 24 -wf_steps {K} -trapezoid "
+                                   "-mode fused")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 4)
+    assert ctx.get_stats().get_tiling()["reasons"]
+import yask_tpu_torch.ops.tile_planner, yask_tpu_torch.stencils.physics2d
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or (m.startswith("yask_tpu")

@@ -1,4 +1,4 @@
-"""The device code of K1 and K6 run on the CPU, block by block.
+"""The device code of K1, K6 and K4 run on the CPU, block by block.
 
 ``csrc/fused_step.cuh``'s ``__global__`` kernels cannot run here (no
 card, no nvcc), and the g++ host path (``host_step``/``host_stages``)
@@ -9,7 +9,9 @@ test compiles the kernels themselves with g++ against a small CUDA shim:
 each block runs with one ``std::thread`` per CUDA thread, ``__syncthreads``
 is a ``std::barrier``, and shared memory is a global array filled with
 NaN before every block, so a read of a cell no thread wrote shows.  The
-launch is the wrapper's own (``call_entry``) on CPU tensors.  Tolerance:
+launch is the wrapper's own (``call_entry``, ``call_trapezoid_entry``)
+on CPU tensors.  K4's fresh outputs are NaN-filled too, so a cell that
+neither phase 1's windows nor the diamond bands write shows.  Tolerance:
 none — the same operations in the same order as ``plain_chunk``.
 """
 
@@ -85,15 +87,16 @@ def emulated_kernel(spec, tmp_path):
     and ``__CUDA_ARCH__`` defined) against the shim; returns its entry."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to emulate the kernels"
-    header = open(os.path.join(CSRC, "fused_step.cuh")).read()
-    header, n_decl = re.subn(
-        r"extern __shared__ __align__\(16\) unsigned char "
-        r"yt_smem_raw\[\];", "", header)
-    header, n_launch = re.subn(
-        r"(fused_\w+_kernel<S[^>]*>)<<<grid, block, smem, stream>>>\(p\);",
-        r"yt_emulate(grid, block, [&] { \1(p); });", header)
-    assert (n_decl, n_launch) == (2, 2), "the kernels' text moved"
-    (tmp_path / "fused_step.cuh").write_text(header)
+    for fn in ("fused_step.cuh", "trapezoid.cuh"):
+        header = open(os.path.join(CSRC, fn)).read()
+        header, n_decl = re.subn(
+            r"extern __shared__ __align__\(16\) unsigned char "
+            r"yt_smem_raw\[\];", "", header)
+        header, n_launch = re.subn(
+            r"(\w+_kernel<S[^>]*>)<<<grid, block, smem, stream>>>\(p\);",
+            r"yt_emulate(grid, block, [&] { \1(p); });", header)
+        assert (n_decl, n_launch) == (2, 2), f"the kernels' text in {fn} moved"
+        (tmp_path / fn).write_text(header)
     (tmp_path / "cuda_runtime.h").write_text(SHIM)
     src = tmp_path / f"{spec.name}.cpp"
     so = tmp_path / f"{spec.name}.so"
@@ -104,7 +107,8 @@ def emulated_kernel(spec, tmp_path):
                     str(so), str(src)], check=True, capture_output=True,
                    timeout=300)
     fn = getattr(ctypes.CDLL(str(so)), spec.name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int] if spec.trap else []) \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -154,3 +158,87 @@ def test_device_code_matches_plain_when_emulated(case, tmp_path):
         for n, a in zip(spec.outputs, outs):
             torch.testing.assert_close(a, want[n][-1], rtol=0, atol=0)
         state = want
+
+
+# ---------------------------------------------------------------------------
+# K4: phase 1 and the diamonds, threads and NaN-filled shared memory
+# ---------------------------------------------------------------------------
+
+
+def trap_ctx(stencil, radius, g, K):
+    """A fused context on the CPU with its trapezoid request forced (as
+    tests/test_trapezoid.py forces ``build_pallas_chunk(trapezoid=True)``):
+    ``g`` (x, y, z) with every trapezoid dim at least three tile
+    boundaries wide and a ragged minor dim."""
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil=stencil,
+                           radius=radius)
+    ctx._trapezoid_arg = lambda: True
+    ctx.apply_command_line_options(
+        f"-g_x {g[0]} -g_y {g[1]} -g_z {g[2]} -mode fused -wf_steps {K} "
+        "-trapezoid")
+    ctx.prepare_solution()
+    import_interiors(ctx, seeded_interiors(ctx, 9))
+    return ctx
+
+
+def k4_group(fn, ctx, spec, t0, passes):
+    """One K-step group through the emulated entry: the given passes into
+    NaN-filled outputs, pads re-zeroed and rings rotated as
+    ``trapezoid_chunk`` does."""
+    import torch
+    prog = ctx._program
+    state = ctx._state
+    ins = [state[n][s] for n, s in spec.inputs]
+    outs = [torch.full(tuple(prog.geoms[n].shape), float("nan"))
+            for n in spec.outputs]
+    for p in passes:
+        assert fused_stencil.call_trapezoid_entry(fn, prog, spec, ins, outs,
+                                                  p, t0, None) == 0
+    for n, o in zip(spec.outputs, outs):
+        fused_stencil._zero_pads(prog, n, o)
+    return fused_stencil._rotated(prog, spec, state, outs)
+
+
+def same(got, want):
+    import torch
+    return all(torch.equal(a, b) for n in want
+               for a, b in zip(got[n], want[n]))
+
+
+@pytest.mark.parametrize("stencil,radius,g,K", [
+    ("iso3dfd", 2, (36, 36, 21), 4), ("iso3dfd", 2, (36, 36, 21), 3),
+    ("cube", 1, (24, 24, 11), 4), ("iso3dfd_sponge", 2, (24, 24, 13), 2)])
+def test_k4_device_code_matches_plain_when_emulated(stencil, radius, g, K,
+                                                    tmp_path):
+    ctx = trap_ctx(stencil, radius, g, K)
+    trap = ctx._trapezoid_kernel()
+    spec = trap.spec
+    assert [d["nbounds"] >= 3 for d in spec.trap["diamond"]] == [True, True]
+    fn = emulated_kernel(spec, tmp_path)
+    got = k4_group(fn, ctx, spec, 0, range(len(spec.trap["passes"])))
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, K)
+    assert same(got, want)
+
+
+def test_k4_emulation_fails_without_a_diamond_pass(tmp_path):
+    ctx = trap_ctx("iso3dfd", 2, (36, 36, 21), 4)
+    spec = ctx._trapezoid_kernel().spec
+    fn = emulated_kernel(spec, tmp_path)
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 4)
+    assert same(k4_group(fn, ctx, spec, 0, (0, 1, 2)), want)
+    assert not same(k4_group(fn, ctx, spec, 0, (0, 1)), want)
+
+
+def test_k4_emulation_fails_with_windows_one_level_deeper(tmp_path,
+                                                          monkeypatch):
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.tile_planner import TilePlan
+    ctx = trap_ctx("iso3dfd", 2, (36, 36, 21), 4)
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 4)
+    shrink = TilePlan.write_shrink
+    monkeypatch.setattr(TilePlan, "write_shrink",
+                        lambda self, d, lvl: shrink(self, d, lvl + 1))
+    spec = cuda_emit.resolve_trapezoid(ctx._program, 4, True)
+    fn = emulated_kernel(spec, tmp_path)
+    assert not same(k4_group(fn, ctx, spec, 0, (0, 1, 2)), want)

@@ -131,7 +131,10 @@ def test_var_api_round_trip_and_pads():
     ("-mode sharded", "A11"), ("-mode shard_map", "A11"),
     ("-mode shard_pallas", "A11"), ("-auto_tune", "A6"),
     ("-ckpt_every 2", "A10"), ("-watchdog_every 2", "A10"),
-    ("-run_deadline 5", "A10"), ("-trapezoid", "A12"),
+    ("-run_deadline 5", "A10"),
+    # -trapezoid is carried (K4); what stays of A12 is K4 in a member batch
+    pytest.param("-trapezoid -mode fused -ensemble 2", "A12",
+                 id="-trapezoid-A12"),
     # push is carried (K6); what stays of A9 is push in a member batch
     pytest.param("-push on -mode fused -ensemble 2", "A9",
                  id="-push on-A9"),
@@ -161,3 +164,37 @@ def test_auto_mode_resolves_to_torch_and_quick_run():
                                    device="cpu")
     assert ctx._mode == "torch"
     assert ctx.get_stats().get_num_steps_done() == 2
+
+
+@pytest.mark.parametrize("name,r", [("wave2d", 2), ("swe2d", None)])
+def test_physics2d_runs_in_torch_mode_and_matches_yask_tpu_jit(name, r):
+    """Every solution of physics2d (registered by the port) in torch mode
+    against yask_tpu's jit from the same seeded interiors.  Tolerance:
+    field_epsilon=1e-4, as the other compiled pairs (XLA contracts
+    multiply-adds)."""
+    from test_torch_lowering import seeded_interiors, tpu_import
+    from yask_tpu_torch.compiler.solution_base import \
+        get_registered_solutions
+    from yask_tpu_torch.transfer import import_interiors
+    assert name in get_registered_solutions()
+    fac = yask_tpu_torch.yk_factory()
+    mine = fac.new_solution(fac.new_env(device="cpu"), stencil=name,
+                            radius=r)
+    mine.apply_command_line_options("-g 16 -mode torch -wf_steps 2")
+    mine.prepare_solution()
+    tfac = yask_tpu.yk_factory()
+    theirs = tfac.new_solution(tfac.new_env(), stencil=name, radius=r)
+    theirs.apply_command_line_options("-g 16 -wf_steps 2")
+    theirs.get_settings().mode = "jit"
+    theirs.prepare_solution()
+    state = seeded_interiors(mine, 17)
+    if name == "swe2d":   # depth near 1, small momenta, lam and grav
+        state = {n: [0.5 + a if n == "h" else 0.01 * a for a in v]
+                 for n, v in state.items()}
+        state["lam"], state["grav"] = [np.full((), 0.1)], [np.full((), 9.8)]
+    import_interiors(mine, state)
+    tpu_import(theirs, state)
+    mine.run_solution(0, 3)
+    theirs.run_solution(0, 3)
+    assert mismatches(export_interiors(mine), tpu_export(theirs),
+                      field_epsilon=1e-4) == 0

@@ -177,6 +177,9 @@ def run_harness(argv: Optional[List[str]] = None, out=None) -> int:
                   f"{100.0 * mid * bpp / peak:.4g}\n")
     if st.get_tiling():
         out.write(f"  fused-tiling: {st.get_tiling()}\n")
+        if st.get_tiling().get("reasons"):
+            out.write(f"  trapezoid reasons: "
+                      f"{st.get_tiling()['reasons']}\n")
     return 0
 
 

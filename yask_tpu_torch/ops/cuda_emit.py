@@ -228,6 +228,9 @@ class KernelSpec:
     push_reasons: List[Dict] = field(default_factory=list)
     computed: List[str] = field(default_factory=list)  # K6's stage tiles
     push_smem_bytes: int = 0       # shared memory of the pushed tiles
+    #: K4 only: the trapezoid plan (K, trap_dims, block, the passes with
+    #: their tiles, grids and shared memory, the diamond geometry)
+    trap: Dict = field(default_factory=dict)
 
 
 def _hexf(v: float) -> str:
@@ -459,20 +462,34 @@ def _table2(fn, rows, default="-1"):
             f"{{ return {body + ' : ' if body else ''}{default}; }}")
 
 
-def emit(program, push=False) -> KernelSpec:
-    """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's)
-    entries for one stage, K6's for several.  ``push`` is the
-    :func:`resolve_push` request."""
-    import numpy as np
+@dataclass
+class _Printed:
+    """Every stage of a solution printed: the printer (inputs, reach),
+    the outputs, and per stage its statements and vars."""
+    pr: "_Printer"
+    slot_of: Dict[str, int]
+    outputs: List[str]
+    stage_lines: List[List[str]]
+    stage_vars: List[List[str]]
+    computed: List[str]
+    computed_stage: List[int]
+    expand: List[List[int]]
+
+
+def _check_applicable(program) -> None:
     ok, why = fused_applicable(program)
     if not ok:
         raise YaskException(
             f"solution '{program.soln.get_name()}' cannot use the fused "
             f"kernel: {why}; use -mode torch")
+
+
+def _print(program, pushed) -> _Printed:
+    """Print every stage's point function (see :func:`emit`)."""
+    _check_applicable(program)
     ana = program.ana
     dims = list(ana.domain_dims)
     slot_of = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
-    pushed, push_reasons = resolve_push(program, push)
     nst = len(ana.stages)
     expand = _stage_expansions(ana, slot_of)
     # vars some stage reads at +step_dir: their stage keeps a tile of them
@@ -540,7 +557,24 @@ def emit(program, push=False) -> KernelSpec:
                 pr.cmp_expand.append(list(expand[k]))
                 computed.append(name)
                 computed_stage.append(k)
+    return _Printed(pr, slot_of, outputs, stage_lines, stage_vars, computed,
+                    computed_stage, expand)
 
+
+def emit(program, push=False) -> KernelSpec:
+    """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's)
+    entries for one stage, K6's for several.  ``push`` is the
+    :func:`resolve_push` request."""
+    import numpy as np
+    _check_applicable(program)
+    pushed, push_reasons = resolve_push(program, push)
+    pt = _print(program, pushed)
+    pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
+    stage_lines, stage_vars = pt.stage_lines, pt.stage_vars
+    computed, computed_stage, expand = (pt.computed, pt.computed_stage,
+                                        pt.expand)
+    dims = list(program.ana.domain_dims)
+    nst = len(program.ana.stages)
     full = set(dims)
     esize = np.dtype(program.dtype).itemsize
     tiled = [a for a, (var, _s) in enumerate(pr.inputs)
@@ -687,3 +721,446 @@ YT_FUSED_STAGES_ENTRY({name}, Spec)
                       smem_bytes=offs * esize, halos=halos, stages=nst,
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize)
+
+
+# ==== K4: the trapezoid/diamond two-phase tiling =========================
+# The port's counterpart of the trapezoid arm of build_pallas_chunk
+# (pallas_stencil.py:445-470, :812-930, :1415-1432, :1514-1553): the
+# eligibility, the pad need, the resolution with its auto gate and its
+# fallbacks, and the emitted Spec that csrc/trapezoid.cuh runs.
+
+#: Threads of one K4 block: the level buffers fill shared memory, so one
+#: block runs per SM, and the most a block takes (32 warps) gives the
+#: level loops the most warps to hide their latency.
+TRAP_THREADS = 1024
+#: Minor-dim tile extents tried in order until the phase-1 buffers fit.
+_MINOR_LADDER = (64, 32, 16, 8, 4, 2, 1)
+
+
+def skew_eligible_dims(program, fuse_steps: int) -> List[str]:
+    """The lead dims a K-step tiling other than the uniform shrink can run
+    on: the eligibility test of ``yask_tpu``'s ``skew_eligible_dims``
+    (pallas_stencil.py:306).  Empty unless K ≥ 2 and every written var
+    spans all domain dims; then the two innermost lead dims with a fused
+    radius > 0.  The skew carry itself is K3, not ported (ROADMAP.md A4)."""
+    ana = program.ana
+    lead = ana.domain_dims[:-1]
+    if fuse_steps < 2 or not lead:
+        return []
+    for g in program.geoms.values():
+        if g.is_written and not g.is_scratch \
+                and list(g.domain_dims) != list(ana.domain_dims):
+            return []
+    rad = ana.fused_step_radius()
+    return [d for d in lead[-2:] if rad.get(d, 0) > 0]
+
+
+def trapezoid_eligible_dims(program, fuse_steps: int) -> List[str]:
+    """The lead dims the trapezoid/diamond tiling CAN run on (lead order),
+    feasibility only: the skew set's geometry (pallas_stencil.py:445)."""
+    return skew_eligible_dims(program, fuse_steps)
+
+
+def trapezoid_pad_need(rd: int, k: int, unit: int = 1) -> int:
+    """Per-side pad a trapezoid dim of fused radius ``rd`` needs at fuse
+    depth ``k``: the diamond windows reach ``cl(K) + K·r`` past the
+    outermost tile boundaries (the domain edges).  One definition for the
+    context's pad planning and the kernel plan.  The reference adds
+    ``2·sub_t`` of DMA slab rounding (pallas_stencil.py:458); the card
+    copies no slabs, so the port does not."""
+    if rd <= 0 or k < 2:
+        return rd * max(k, 1)
+    return k * rd + -(-((k - 1) * rd) // unit) * unit
+
+
+def _tab(fn: str, args: Tuple[str, ...], mapping: Dict[tuple, int],
+         default: int) -> str:
+    """A compile-time table of any arity as a constexpr function."""
+    conds = [" && ".join(f"{a} == {v}" for a, v in zip(args, key))
+             + f" ? {val}" for key, val in sorted(mapping.items())
+             if val != default]
+    sig = ", ".join(f"int {a}" for a in args)
+    body = " : ".join(conds)
+    return (f"    YT_HD static constexpr int {fn}({sig}) "
+            f"{{ return {body + ' : ' if conds else ''}{default}; }}")
+
+
+def _pass_smem(nbuf: int, geo, esize: int) -> int:
+    cells = 1
+    for s_ in range(3):
+        cells *= geo[s_]["tile"] + 2 * geo[s_]["marg"]
+    return nbuf * cells * esize
+
+
+def _uniform(T: int, r: int, K: int) -> Dict:
+    """A uniform dim: K·r margins, level L over the tile grown by
+    (K−L)·r, the whole tile written."""
+    return {"tile": T, "marg": K * r, "stride": T, "orig": 0,
+            "reg": [(-(K - L) * r, T + (K - L) * r) for L in range(1, K + 1)],
+            "wr": [(0, T)] * K}
+
+
+def emit_trapezoid(program, K: int, trap_dims: List[str],
+                   block: Dict[str, int]) -> KernelSpec:
+    """Print ``program`` as K4's source for one K-step group: phase 1 over
+    the lead ``block`` (trapezoid in ``trap_dims``) and one diamond pass
+    per trapezoid dim.  Raises when the state's pads do not hold the
+    diamond windows or the level buffers do not fit shared memory."""
+    import numpy as np
+    from yask_tpu_torch.ops.tile_planner import TilePlan
+    ana = program.ana
+    if len(ana.stages) != 1:
+        raise YaskException(
+            "K4 takes single-stage solutions (multi-stage K4 is ROADMAP.md "
+            "A12)")
+    pt = _print(program, [])
+    pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
+    dims = list(ana.domain_dims)
+    lead = dims[:-1]
+    dim_of = {s_: d for d, s_ in slot_of.items()}
+    geoms = program.geoms
+    tp = TilePlan(program, K, trap_dims=trap_dims)
+    rad = ana.fused_step_radius()
+    r = [rad.get(dim_of[s_], 0) if s_ in dim_of else 0 for s_ in range(3)]
+    n = [program.sizes[dim_of[s_]] if s_ in dim_of else 1 for s_ in range(3)]
+    esize = np.dtype(program.dtype).itemsize
+
+    # ---- level buffers: a ring per written var, one per staged read-only
+    inputs = list(pr.inputs)
+
+    def in_idx(key):
+        if key not in inputs:
+            inputs.append(key)
+        return inputs.index(key)
+
+    nbuf, base, nb = 0, {}, {}
+    for w in outputs:
+        g = geoms[w]
+        if not g.has_step:
+            raise YaskException(f"written var '{w}' has no step ring")
+        if not any(v == w for v, _s in pr.inputs):
+            nb[w] = 0
+            continue
+        a0 = pr.in_index.get((w, 0))
+        oldest_at_offset = a0 is not None and any(lo or hi
+                                                  for lo, hi in pr.raw[a0])
+        nb[w] = g.num_slots + (1 if oldest_at_offset else 0)
+        base[w] = nbuf
+        nbuf += nb[w]
+
+    def buf(w, lev):
+        return base[w] + lev % nb[w]
+
+    staged: Dict[int, int] = {}        # buffer → input index
+    lvl_src: Dict[tuple, int] = {}
+    for a, (v, idx) in enumerate(pr.inputs):
+        g = geoms[v]
+        if g.is_written:
+            for L in range(1, K + 1):
+                lev = L - g.num_slots + idx
+                lvl_src[(L, a)] = buf(v, lev)
+                if lev <= 0:
+                    staged[buf(v, lev)] = in_idx((v, g.num_slots - 1 + lev))
+        elif list(g.domain_dims) == dims \
+                and any(lo or hi for lo, hi in pr.raw[a]):
+            staged[nbuf] = a
+            for L in range(1, K + 1):
+                lvl_src[(L, a)] = nbuf
+            nbuf += 1
+    out_buf: Dict[tuple, int] = {}
+    out_of: Dict[tuple, int] = {}
+    k4_outputs: List[str] = []
+    for j, w in enumerate(outputs):
+        nback = min(K, geoms[w].num_slots)
+        for s in range(nback):
+            out_of[(j, K - nback + s + 1)] = len(k4_outputs)
+            k4_outputs.append(w)
+        if nb[w]:
+            for L in range(1, K + 1):
+                out_buf[(j, L)] = buf(w, L)
+
+    # ---- the pad contract: no bounds test in a trapezoid dim
+    for d in trap_dims:
+        need = trapezoid_pad_need(tp.rad[d], K)
+        for a in staged.values():
+            v = inputs[a][0]
+            if min(geoms[v].pads[d]) < need:
+                raise YaskException(
+                    f"pads of '{v}' in '{d}' are {geoms[v].pads[d]}; the "
+                    f"diamond windows need {need} per side (prepare with "
+                    "-trapezoid plans them)")
+
+    # ---- phase 1
+    df = tp.dataflow(block)
+    mL, _mR = tp.margins()
+
+    def phase1(zt):
+        geo = []
+        for s_ in range(3):
+            d = dim_of.get(s_)
+            if d is None:
+                geo.append(_uniform(1, 0, K))
+            elif d in trap_dims:
+                T, m = block[d], mL[d]
+                geo.append({
+                    "tile": T, "marg": m, "stride": T, "orig": 0,
+                    "reg": [(e["read"][d][0] + tp.rad[d] - m,
+                             e["read"][d][1] - tp.rad[d] - m) for e in df],
+                    "wr": [(e["write"][d][0] - m, e["write"][d][1] - m)
+                           for e in df]})
+            else:
+                geo.append(_uniform(block[d] if d in lead else zt, r[s_], K))
+        return geo
+
+    p1 = None
+    for zt in dict.fromkeys(min(z, n[2]) for z in _MINOR_LADDER):
+        p1 = phase1(zt)
+        if _pass_smem(nbuf, p1, esize) <= SMEM_LIMIT:
+            break
+    else:
+        raise YaskException(
+            f"the phase-1 level buffers ({nbuf} of them) do not fit "
+            f"{SMEM_LIMIT} bytes of shared memory at block {block} even "
+            "with a minor tile of 1")
+    passes = [p1]
+
+    # ---- one diamond pass per trapezoid dim, band-wide tiles centred on
+    #      every tile boundary, from level 0: uniform in the dims whose
+    #      gaps an earlier pass fills, still a trapezoid (phase 1's
+    #      geometry) in the trapezoid dims after it, whose own pass later
+    #      fills the band's cells in their gaps
+    diamonds = []
+    for i_D, D in enumerate(trap_dims):
+        sD = slot_of[D]
+        dia = tp.diamond(D)
+        half, band = dia["half"], dia["band"]
+        nbounds = n[sD] // block[D] + 1
+        cls = {L: tp.cl(D, L) for L in range(1, K + 1)}
+        tiles = [p1[s_]["tile"] for s_ in range(3)]
+        later = {slot_of[d] for d in trap_dims[i_D + 1:]}
+
+        def diamond(tiles):
+            geo = []
+            for s_ in range(3):
+                if s_ == sD:
+                    g_ = _uniform(band, r[s_], K)
+                    g_.update(stride=block[D], orig=-half,
+                              wr=[(half - cls[L], half + cls[L])
+                                  for L in range(1, K + 1)])
+                elif s_ in later:
+                    g_ = dict(p1[s_])
+                else:
+                    g_ = _uniform(tiles[s_], r[s_], K)
+                geo.append(g_)
+            return geo
+
+        geo = diamond(tiles)
+        while _pass_smem(nbuf, geo, esize) > SMEM_LIMIT:
+            # shrink the minor tile first, then the widest other uniform
+            # lead tile (to a divisor of the span in a trapezoid dim: no
+            # ragged tile there, which the pad contract relies on)
+            if tiles[2] > 8 and sD != 2:
+                tiles[2] = max(t for t in _MINOR_LADDER if t < tiles[2])
+            else:
+                cand = [s_ for s_ in (0, 1) if s_ != sD and s_ not in later
+                        and tiles[s_] > 1]
+                if not cand:
+                    cand = [2] if tiles[2] > 1 and sD != 2 else []
+                if not cand:
+                    raise YaskException(
+                        f"the diamond pass in '{D}' does not fit {SMEM_LIMIT}"
+                        " bytes of shared memory")
+                s_ = max(cand, key=lambda c: tiles[c])
+                if dim_of.get(s_) in trap_dims:
+                    tiles[s_] = max(b for b in range(1, tiles[s_])
+                                    if n[s_] % b == 0)
+                else:
+                    tiles[s_] = max(1, tiles[s_] // 2)
+            geo = diamond(tiles)
+        passes.append(geo)
+        diamonds.append({"dim": D, "stride": block[D], "nbounds": nbounds,
+                         "half": half, "band": band, "cls": cls})
+    for i, geo in enumerate(passes):
+        for s_ in range(3):
+            g_ = geo[s_]
+            g_["grid"] = (diamonds[i - 1]["nbounds"]
+                          if i and s_ == slot_of[diamonds[i - 1]["dim"]]
+                          else -(-n[s_] // g_["tile"]))
+
+    # ---- the Spec
+    real_t = "float" if esize == 4 else "double"
+    tabs = []
+    for key in ("tile", "marg", "stride", "orig", "grid"):
+        tabs.append(_tab(key, ("P", "s"), {
+            (i, s_): geo[s_][key] for i, geo in enumerate(passes)
+            for s_ in range(3)}, 0))
+    for key, part, k_ in (("reg_lo", "reg", 0), ("reg_hi", "reg", 1),
+                          ("wr_lo", "wr", 0), ("wr_hi", "wr", 1)):
+        tabs.append(_tab(key, ("P", "s", "L"), {
+            (i, s_, L): geo[s_][part][L - 1][k_]
+            for i, geo in enumerate(passes) for s_ in range(3)
+            for L in range(1, K + 1)}, 0))
+    tabs.append(_tab("trap_slot", ("s",), {(slot_of[d],): 1
+                                           for d in trap_dims}, 0))
+    tabs.append(_tab("lvl_src", ("L", "A"), lvl_src, -1))
+    tabs.append(_tab("out_buf", ("j", "L"), out_buf, -1))
+    tabs.append(_tab("out_of", ("j", "L"), out_of, -1))
+    st_bufs = sorted(staged)
+    tabs.append(_tab("staged_in", ("k",), {(k_,): staged[b]
+                                           for k_, b in enumerate(st_bufs)},
+                     -1))
+    tabs.append(_tab("staged_buf", ("k",), {(k_,): b
+                                            for k_, b in enumerate(st_bufs)},
+                     -1))
+    body = pt.stage_lines[0]
+    text = f"""struct Spec {{
+    typedef {real_t} real_t;
+    enum {{ NIN = {len(inputs)}, NOUT = {len(k4_outputs)}, NV = {len(outputs)}, K = {K},
+           STEP_DIR = {ana.step_dir}, NPASS = {len(passes)}, NBUF = {nbuf},
+           NSTAGED = {len(staged)}, NT = {TRAP_THREADS} }};
+{chr(10).join(tabs)}
+
+    template <class RD>
+    YT_HD static inline void point(const RD& rd, const int* g, const int* n,
+                                   const int t, real_t* out) {{
+        (void)g; (void)n; (void)t;
+{chr(10).join(body)}
+    }}
+}};
+"""
+    name = "trapezoid_" + hashlib.sha256(text.encode()).hexdigest()[:12]
+    src = (f"// Emitted by yask_tpu_torch.ops.cuda_emit for solution\n"
+           f"// '{program.soln.get_name()}': K4, one {K}-step group of the "
+           f"trapezoid/diamond\n// tiling over {', '.join(trap_dims)} "
+           f"(see ops/fused_stencil.py).\n#include \"trapezoid.cuh\"\n\n"
+           f"{text}\nYT_TRAPEZOID_ENTRY({name}, Spec)\n")
+
+    def report(i, geo):
+        cells = sum(np.prod([geo[s_]["reg"][L][1] - geo[s_]["reg"][L][0]
+                             for s_ in range(3)]) for L in range(K))
+        return {"pass": i,
+                "kernel": "trapezoid_kernel" if i == 0 else "diamond_kernel",
+                "dim": None if i == 0 else diamonds[i - 1]["dim"],
+                "tile": [geo[s_]["tile"] for s_ in range(3)],
+                "grid": [geo[s_]["grid"] for s_ in range(3)],
+                "smem_bytes": _pass_smem(nbuf, geo, esize),
+                "computed_cells": int(cells) * int(np.prod(
+                    [geo[s_]["grid"] for s_ in range(3)]))}
+    reports = [report(i, geo) for i, geo in enumerate(passes)]
+    trap = {"K": K, "trap_dims": list(trap_dims),
+            "block": {**{d: block[d] for d in lead},
+                      dims[-1]: p1[2]["tile"]},
+            "passes": reports, "threads": TRAP_THREADS, "buffers": nbuf,
+            "diamond": diamonds}
+    return KernelSpec(name=name, source=src, inputs=inputs,
+                      outputs=k4_outputs,
+                      tiled=[staged[b] for b in st_bufs],
+                      tile=tuple(p1[s_]["tile"] for s_ in range(3)),
+                      smem_bytes=reports[0]["smem_bytes"], trap=trap)
+
+
+def resolve_trapezoid(program, K: int, trapezoid=None,
+                      block: Dict[str, int] = None,
+                      reasons: List[Dict] = None):
+    """The trapezoid resolution of ``build_pallas_chunk``
+    (pallas_stencil.py:812-930, :1415-1432) for one K-step group of
+    ``program``: ``False`` = off, ``None`` = auto (the TilePlan gate),
+    ``True`` = force the eligible dims, a list = force exactly those.
+    Returns K4's :class:`KernelSpec`, or None when the group runs on K1;
+    appends the reason records (``trapezoid_forced``, ``_engaged``,
+    ``_gate_rejected``, ``_ineligible``, ``_fallback``, ``_diamond``).
+    Auto falls back and forced raises where the plan is infeasible: a
+    block that does not divide the span or lies under the band floor,
+    pads that do not hold the diamond windows, buffers that do not fit
+    shared memory, and (ROADMAP.md A12) multi-stage solutions."""
+    from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
+    if reasons is None:
+        reasons = []
+    if trapezoid is False or (isinstance(trapezoid, (list, tuple, set,
+                                                     frozenset))
+                              and not trapezoid):
+        return None
+    forced = trapezoid is not None
+    ana = program.ana
+    lead = list(ana.domain_dims[:-1])
+    sizes = program.sizes
+    elig = trapezoid_eligible_dims(program, K)
+
+    def infeasible(cause, dims):
+        if forced:
+            raise YaskException(f"trapezoid tiling infeasible: {cause}")
+        reasons.append({"code": "trapezoid_fallback", "cause": cause,
+                        "from_dims": list(dims)})
+        return None
+
+    if len(ana.stages) > 1:
+        return infeasible(
+            f"{len(ana.stages)}-stage solution: the port's K4 takes one "
+            "stage (ROADMAP.md A12 (multi-stage K4))", elig)
+    if forced:
+        want = (list(elig) if trapezoid is True
+                else [d for d in lead if d in set(trapezoid)])
+        bad = [d for d in want if d not in elig]
+        if trapezoid is not True and len(want) != len(set(trapezoid)):
+            bad += sorted(set(trapezoid) - set(want))
+        if bad or not want:
+            raise YaskException(
+                f"trapezoid tiling needs K >= 2, radius > 0 in each dim "
+                f"(only lead[-2:] can tile), and all written vars spanning "
+                f"every domain dim; got K={K}, "
+                f"requested={want or trapezoid}, eligible={elig}")
+        trap_dims = want
+        reasons.append({"code": "trapezoid_forced", "dims": list(trap_dims)})
+    elif elig:
+        def cost(tp):
+            mb = tp.min_block() or {}
+            blk = plan_blocks(program, K, min_block=mb,
+                              margin_override=tp.margin_override())
+            if any(blk.get(d, 0) < m for d, m in mb.items()):
+                return float("inf")
+            u, comp, fetch = tp.volumes(blk)
+            cores = TilePlan.PARALLEL_CORES if tp.trap_dims else 1
+            return (comp / cores + fetch) / max(u, 1)
+        c_uni = cost(TilePlan(program, K))
+        c_trp = cost(TilePlan(program, K, trap_dims=elig))
+        det = (f"trap {c_trp:.2f} vs uniform {c_uni:.2f}, skew inf (K3 not "
+               f"ported) (cells/useful cell, compute/"
+               f"{TilePlan.PARALLEL_CORES} + fetch, per-variant planned "
+               "blocks)")
+        code = ("trapezoid_engaged" if c_trp < c_uni
+                else "trapezoid_gate_rejected")
+        for d in elig:
+            reasons.append({"code": code, "dim": d, "detail": det})
+        if code != "trapezoid_engaged":
+            return None
+        trap_dims = list(elig)
+    else:
+        for d in lead:
+            reasons.append({"code": "trapezoid_ineligible", "dim": d,
+                            "detail": "ineligible (K<2, radius 0, or "
+                                      "partial-dim written vars)"})
+        return None
+
+    tp = TilePlan(program, K, trap_dims=trap_dims)
+    if block is None:
+        block = plan_blocks(program, K, min_block=tp.min_block(),
+                            margin_override=tp.margin_override())
+    else:
+        block = {d: min(block.get(d, 8), sizes[d]) for d in lead}
+    for d in trap_dims:
+        floor_b = tp.min_block()[d]
+        if sizes[d] % block[d]:
+            return infeasible(f"block {block[d]} does not divide span "
+                              f"{sizes[d]} in '{d}'", trap_dims)
+        if block[d] < floor_b:
+            return infeasible(f"block {block[d]} < band floor {floor_b} "
+                              f"in '{d}'", trap_dims)
+    try:
+        spec = emit_trapezoid(program, K, trap_dims, block)
+    except YaskException as e:
+        return infeasible(str(e), trap_dims)
+    for dia in spec.trap["diamond"]:
+        reasons.append({"code": "trapezoid_diamond", "dim": dia["dim"],
+                        "band": dia["band"], "nbounds": dia["nbounds"],
+                        "stride": dia["stride"]})
+    return spec

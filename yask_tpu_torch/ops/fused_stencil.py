@@ -54,6 +54,15 @@ chain moves 20 B per point per step with the image pushed.
 :func:`stages_step` is its wrapper with its own counter
 ``stages_step.launches``; the plain version is :func:`plain_chunk`, which
 evaluates every stage.  Multi-stage specs carry no K7 entry.
+
+K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
+(``-trapezoid``): the port's first kernel that advances K time levels
+inside one launch.  :class:`TrapezoidKernel` holds the spec
+``cuda_emit.resolve_trapezoid`` returns; :func:`trapezoid_chunk` is its
+wrapper (one phase-1 launch, then one diamond launch per trapezoid dim,
+counted in ``trapezoid_chunk.phase1_launches`` and
+``trapezoid_chunk.diamond_launches``); its plain version is
+:func:`plain_chunk` over the K steps.
 """
 
 from __future__ import annotations
@@ -203,9 +212,12 @@ def _check_inputs(kernel: "FusedKernel", state, lead=()):
 
 
 def _rotated(program, spec, state, outs):
+    """The state after a launch: each output, in order, rotated into its
+    var's ring (a var listed once per level it outputs, as K4's are,
+    rotates that many times)."""
     new_state = dict(state)
     for name, o in zip(spec.outputs, outs):
-        ring = state[name]
+        ring = new_state[name]
         new_state[name] = (list(ring[1:]) + [o]) \
             if program.geoms[name].has_step else [o]
     return new_state
@@ -322,6 +334,21 @@ class FusedKernel:
         #: loaded), "disk" (built by an earlier process), None (nvcc ran)
         self.cache_hit = None
 
+    def _load(self):
+        """Build (nvcc at first use) and load the library; returns it with
+        the seconds spent, and records where it came from."""
+        import os
+        from yask_tpu_torch.compiler.lowering import torch_dtype
+        from yask_tpu_torch.ops import _build
+        on_disk = os.path.exists(_build.library_path(self.spec.name,
+                                                     self.spec.source))
+        lib, secs = _build.build_and_load(self.spec.name, self.spec.source)
+        self._lib = lib
+        self.dtype = torch_dtype(self.program.dtype)
+        self.build_secs += secs
+        self.cache_hit = "disk" if on_disk else None
+        return lib, secs
+
     def build(self) -> float:
         """Build (nvcc at first use) and bind the entry points (K1 and K7
         for one stage, K6 for several); returns the seconds it took.
@@ -329,12 +356,7 @@ class FusedKernel:
         if self.fn is not None:
             self.cache_hit = "memory"
             return 0.0
-        import os
-        from yask_tpu_torch.compiler.lowering import torch_dtype
-        from yask_tpu_torch.ops import _build
-        on_disk = os.path.exists(_build.library_path(self.spec.name,
-                                                     self.spec.source))
-        lib, secs = _build.build_and_load(self.spec.name, self.spec.source)
+        lib, secs = self._load()
         fn = getattr(lib, self.spec.name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -345,12 +367,8 @@ class FusedKernel:
                                                     ctypes.c_int,
                                                     ctypes.c_void_p]
             bfn.restype = ctypes.c_int
-        self._lib = lib
         self.fn = fn
         self.batched_fn = bfn
-        self.dtype = torch_dtype(self.program.dtype)
-        self.build_secs += secs
-        self.cache_hit = "disk" if on_disk else None
         return secs
 
     def chunk(self, state, t0: int, k: int):
@@ -412,3 +430,126 @@ class FusedKernel:
                 "push_smem_bytes": s.push_smem_bytes,
                 "pipeline_dmas": False, "skew_dims": []}
 
+
+
+# ==== K4: the trapezoid/diamond two-phase tiling ==========================
+# Replaces the trapezoid arm of build_pallas_chunk (pallas_stencil.py:
+# :812-930 resolution, :1514-1553 diamond sub-builds, :2331-2416 host
+# stitch): one K-step group is one launch of phase 1 (trapezoid_kernel,
+# K levels per tile inside the launch) and one launch per trapezoid dim
+# of the diamonds (diamond_kernel), which write their bands straight into
+# phase 1's outputs.  Bound by bytes: iso3dfd r=2 at K=4 moves 5 B per
+# point per step (p(t), p(t-1), vel read once and two levels written per
+# group of 4) against K1's 16.  csrc/trapezoid.cuh has the design.
+
+
+def call_trapezoid_entry(fn, program, spec, ins, outs, pas: int, t: int,
+                         stream) -> int:
+    """Call pass ``pas`` of an emitted K4 entry point (0 = phase 1,
+    D = the diamonds of the D-th trapezoid dim): K1's arguments after the
+    pass index.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    return fn(int(pas), ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), int(t), stream)
+
+
+def trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int, K: int):
+    """K4: one K-step group from step ``t0`` on the current CUDA stream —
+    phase 1, then the diamonds of each trapezoid dim, into fresh output
+    tensors whose pad bands are then re-zeroed (pallas_stencil.py:
+    2347-2367); returns the new state (each ring: its surviving slots,
+    then the group's newest levels, pallas_stencil.py:2371).  Counts
+    phase-1 launches in ``trapezoid_chunk.phase1_launches`` and diamond
+    launches in ``trapezoid_chunk.diamond_launches``."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    if K != spec.trap["K"]:
+        raise YaskException(f"K4 kernel '{spec.name}' runs groups of "
+                            f"{spec.trap['K']} steps, not {K}")
+    ins, dev = _check_inputs(kernel, state)
+    outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
+                        device=dev) for n in spec.outputs]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for pas, rep in enumerate(spec.trap["passes"]):
+            rc = call_trapezoid_entry(kernel.fn, prog, spec, ins, outs, pas,
+                                      t0, stream)
+            if rc != 0:
+                raise YaskException(
+                    f"K4 kernel '{spec.name}' {rep['kernel']} launch "
+                    f"failed: CUDA error {rc}")
+            if pas == 0:
+                trapezoid_chunk.phase1_launches += 1
+            else:
+                trapezoid_chunk.diamond_launches += 1
+    for name, o in zip(spec.outputs, outs):
+        _zero_pads(prog, name, o)
+    return _rotated(prog, spec, state, outs)
+
+
+trapezoid_chunk.phase1_launches = 0
+trapezoid_chunk.diamond_launches = 0
+
+
+class TrapezoidKernel(FusedKernel):
+    """K4 for one planned solution and group depth: the spec
+    :func:`~yask_tpu_torch.ops.cuda_emit.resolve_trapezoid` returned and,
+    after :meth:`build`, the loaded library.  ``chunk`` is the wrapper:
+    CPU tensors take :func:`plain_chunk` over the K steps, CUDA tensors
+    launch the kernels."""
+
+    def __init__(self, program, spec):
+        self.program = program
+        self.spec = spec
+        self.K = spec.trap["K"]
+        self.fn = None
+        self.batched_fn = None
+        self.build_secs = 0.0
+        self.dtype = None
+        self.cache_hit = None
+
+    def build(self) -> float:
+        if self.fn is not None:
+            self.cache_hit = "memory"
+            return 0.0
+        lib, secs = self._load()
+        fn = getattr(lib, self.spec.name)
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+            ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        self.fn = fn
+        return secs
+
+    def chunk(self, state, t0: int, k: int):
+        """Advance one group of K steps from ``t0``."""
+        if k != self.K:
+            raise YaskException(f"K4 advances groups of {self.K} steps, "
+                                f"not {k}")
+        dev = self._device_of(state)
+        if dev.type == "cpu":
+            return plain_chunk(self.program, state, t0, k)
+        if dev.type != "cuda":
+            raise YaskException(
+                f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
+        self.build()
+        return trapezoid_chunk(self, state, t0, k)
+
+    def tiling(self, fuse_steps: int) -> Dict[str, object]:
+        """The tiling the K-step groups run with."""
+        tr = self.spec.trap
+        return {"kernel": "trapezoid_chunk", "name": self.spec.name,
+                "fuse_steps": fuse_steps,
+                "launches_per_group": len(tr["passes"]),
+                "trapezoid": True, "trap_dims": list(tr["trap_dims"]),
+                "block": dict(tr["block"]),
+                "passes": [dict(p) for p in tr["passes"]],
+                "diamond": [{k: d[k] for k in ("dim", "stride", "nbounds",
+                                               "half", "band")}
+                            for d in tr["diamond"]],
+                "smem_bytes": self.spec.smem_bytes,
+                "threads": tr["threads"], "level_buffers": tr["buffers"],
+                "push": False, "push_vars": [], "pipeline_dmas": False,
+                "skew_dims": []}

@@ -1,0 +1,306 @@
+"""Tile planner of the trapezoid/diamond temporal tiling (K4) on the card.
+
+The port's copy of ``yask_tpu/ops/tile_planner.py`` (``TilePlan``
+:42-333, ``plan_blocks`` :334-508), for the two tilings the port runs: the
+uniform shrink (K1's function, every level over the block expanded by the
+later levels' reach) and the two-phase trapezoid/diamond split of K4.
+The skewed wavefront (``skew_dims``, ``write_shift``) is K3, which the port
+does not carry (ROADMAP.md A4), so this copy has no skew mode.
+
+What changes for the card:
+
+* the TPU's sublane rounding unit (8 for fp32) is the constructor argument
+  ``unit``; the card needs no alignment of the trapezoid dims (x and y are
+  not the contiguous minor dim), so the port plans with ``unit=1``: write
+  windows and diamond bands are exact.  ``unit=8`` reproduces every
+  geometry answer of the reference's plan;
+* ``PARALLEL_CORES`` is 1: the TPU credits a parallel grid with its two
+  megacore TensorCores, while every CUDA grid is parallel, the uniform
+  one included, so neither variant gets a credit the other lacks;
+* :func:`plan_blocks` budgets the shared memory of one CUDA block
+  (``cuda_emit.SMEM_LIMIT``) instead of VMEM, and counts the live level
+  tiles of a K-step tile (the ring of each written var plus the staged
+  read-only vars) over a minor-dim tile of ``minor_block`` points.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m if m > 1 else x
+
+
+class TilePlan:
+    """Dataflow plan of one fused K-group's tiling, per lead dim
+    ``"uniform"`` or ``"trapezoid"``; the single source of the K4 margin
+    math (the emitter, the gate and the planner hints read it):
+
+    * :meth:`margins` — per-dim (left, right) fetch margins of a phase-1
+      tile;
+    * :meth:`min_block` / :meth:`margin_override` — the :func:`plan_blocks`
+      hints (trapezoid band floors and fetch margins);
+    * :meth:`write_shrink` — how far level ``lvl``'s output window shrinks
+      per side;
+    * :meth:`diamond` — the fill-pass geometry of a trapezoid dim;
+    * :meth:`halo` — the uniform fused halo radius×K;
+    * :meth:`dataflow` — per-level read/write intervals of one tile;
+    * :meth:`volumes` — (useful, computed, fetched) cells per K-group for
+      the profit gate.
+    """
+
+    #: Grid parallelism credited to the trapezoid's compute by the gate.
+    #: The TPU credits 2 (its parallel grid dims split over two megacore
+    #: TensorCores, while the uniform/skew grid is sequential); on the
+    #: card every grid, the uniform one too, is parallel, so 1.
+    PARALLEL_CORES = 1
+
+    def __init__(self, program, fuse_steps: int, trap_dims=(),
+                 unit: int = 1):
+        self.program = program
+        ana = program.ana
+        self.dims = ana.domain_dims
+        self.lead = self.dims[:-1]
+        self.minor = self.dims[-1]
+        self.K = fuse_steps
+        rad = ana.fused_step_radius()
+        self.rad = {d: rad.get(d, 0) for d in self.lead}
+        self.unit = unit
+        self.trap_dims = list(trap_dims)
+        self.mode = {d: ("trapezoid" if d in self.trap_dims else "uniform")
+                     for d in self.lead}
+
+    def _unit(self, d: str) -> int:
+        """The rounding unit of dim ``d``: ``unit`` on the written vars'
+        second-minor axis (the TPU's sublane axis, ``lead[-1]``), 1
+        elsewhere."""
+        return self.unit if (self.lead and d == self.lead[-1]) else 1
+
+    # -- geometry primitives ------------------------------------------
+
+    def cl(self, d: str, lvl: int) -> int:
+        """Trapezoid half-band at time level ``lvl``: (lvl−1)·r, rounded
+        UP to the unit."""
+        return _ceil_to((lvl - 1) * self.rad[d], self._unit(d))
+
+    def halo(self, d: str) -> int:
+        """Uniform fused halo radius×K."""
+        return self.rad[d] * self.K
+
+    def margins(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """Phase-1 per-dim (mL, mR) fetch margins: one step radius per
+        side in a trapezoid dim (the per-level shrink happens in the write
+        windows), radius×K in a uniform one."""
+        mL, mR = {}, {}
+        for d in self.lead:
+            if self.mode[d] == "trapezoid":
+                mL[d] = mR[d] = self.rad[d]
+            else:
+                mL[d] = mR[d] = self.halo(d)
+        return mL, mR
+
+    def write_shrink(self, d: str, lvl: int) -> int:
+        """Trapezoid: level ``lvl``'s write window shrinks per side by
+        (lvl−1)·r, rounded DOWN to the unit (the rest lies inside the
+        diamond band, which the fill pass writes)."""
+        if self.mode[d] != "trapezoid":
+            return 0
+        fl = (lvl - 1) * self.rad[d]
+        u = self._unit(d)
+        return (fl // u) * u
+
+    def diamond(self, d: str) -> Dict[str, int]:
+        """Fill-pass geometry of trapezoid dim ``d``: ``half`` = cl(K),
+        ``band`` = 2·half (the band written around each tile boundary),
+        ``margin`` = K·r per side (uniform telescoping from level 0)."""
+        half = self.cl(d, self.K)
+        return {"half": half, "band": 2 * half, "margin": self.halo(d)}
+
+    # -- planner hints -------------------------------------------------
+
+    def min_block(self) -> Optional[Dict[str, int]]:
+        """Per-dim block floors: a trapezoid tile covers at least its own
+        diamond band plus one unit."""
+        out = {d: 2 * self.cl(d, self.K) + self._unit(d)
+               for d in self.trap_dims}
+        return out or None
+
+    def margin_override(self) -> Optional[Dict[str, int]]:
+        """Per-dim TOTAL tile margin for :func:`plan_blocks` where the
+        tiling fetches less than the uniform 2·K·r."""
+        out = {d: 2 * self.rad[d] for d in self.trap_dims}
+        return out or None
+
+    # -- dataflow ------------------------------------------------------
+
+    def dataflow(self, block: Dict[str, int]) -> List[Dict]:
+        """Per-level interval sets of one interior tile in
+        tile-origin-relative coordinates (the tile spans
+        ``[0, mL + block + mR)`` per dim): ``{"level", "read": {d: (lo,
+        hi)}, "write": {d: (lo, hi)}}``.  ``write`` is the level's output
+        window in a trapezoid dim and its computed region in a uniform one;
+        ``read`` is the region the level consumes."""
+        mL, mR = self.margins()
+        steps = []
+        for k in range(self.K):
+            lvl = k + 1
+            entry = {"level": lvl, "read": {}, "write": {}}
+            for d in self.lead:
+                B, r = block[d], self.rad[d]
+                if self.mode[d] == "trapezoid":
+                    lo = mL[d] + (lvl - 1) * r - r
+                    hi = mL[d] + B - (lvl - 1) * r + r
+                    entry["write"][d] = (mL[d] + self.write_shrink(d, lvl),
+                                         mL[d] + B
+                                         - self.write_shrink(d, lvl))
+                else:
+                    lo = max(mL[d] - (self.K - lvl) * r - r, 0)
+                    hi = min(mL[d] + B + (self.K - lvl) * r + r,
+                             mL[d] + B + mR[d])
+                    entry["write"][d] = (mL[d] - (self.K - lvl) * r,
+                                         mL[d] + B + (self.K - lvl) * r)
+                entry["read"][d] = (lo, hi)
+            steps.append(entry)
+        return steps
+
+    # -- cost model ----------------------------------------------------
+
+    def volumes(self, block: Dict[str, int]) -> Tuple[int, int, int]:
+        """(useful, computed, fetched) cells per tile per K-group over the
+        lead dims, the diamond pass's recompute included."""
+        mL, mR = self.margins()
+        useful = computed = 0
+        fetched = 1
+        for d in self.lead:
+            fetched *= block[d] + mL[d] + mR[d]
+        for k in range(self.K):
+            lvl = k + 1
+            u = c = 1
+            for d in self.lead:
+                B, r = block[d], self.rad[d]
+                u *= B
+                if self.mode[d] == "trapezoid":
+                    c *= B - 2 * (lvl - 1) * r + 2 * r
+                else:
+                    c *= B + 2 * (self.K - lvl) * r
+            useful += u
+            computed += c
+        # diamond fill pass: per trapezoid dim, one inverted trapezoid per
+        # tile boundary recomputes ~(2·cl(K) + 2·K·r) width across the
+        # other dims' blocks, K levels deep
+        for d in self.trap_dims:
+            dia = self.diamond(d)
+            w = dia["band"] + 2 * dia["margin"]
+            other = 1
+            for d2 in self.lead:
+                if d2 != d:
+                    other *= block[d2]
+            computed += self.K * w * other
+            fetched += w * other
+        return useful, computed, fetched
+
+
+def live_tiles(program) -> int:
+    """Shared-memory tiles a K-step tile keeps live: one per ring slot of
+    each written var (its staged levels and the levels computed over
+    them) and one per staged read-only full-dim var."""
+    n = 0
+    for g in program.geoms.values():
+        if g.is_scratch:
+            continue
+        if g.is_written:
+            n += g.num_slots
+        elif g.domain_dims == list(program.ana.domain_dims):
+            n += 1
+    return max(n, 1)
+
+
+def plan_blocks(program, fuse_steps: int = 1,
+                smem_budget: Optional[int] = None,
+                min_block: Optional[Dict[str, int]] = None,
+                margin_override: Optional[Dict[str, int]] = None,
+                minor_block: int = 32) -> Dict[str, int]:
+    """Lead-dim block sizes of a K-step tile (the reference's algorithm:
+    fold hints or 8 to start, snapped to divisors of the domain, floored
+    at ``min_block``, then doubled in the dim whose halo overhead falls
+    most while the tile fits).
+
+    The tile model is the shared memory of one CUDA block: per lead dim
+    ``block + margin`` (margin ``2·K·r`` unless ``margin_override`` gives
+    the tiling's own), times ``minor_block + 2·K·r`` minor-dim cells,
+    times the element size and :func:`live_tiles`.  Floors may pass the
+    budget; the emitter's exact accounting then decides.  The budget
+    defaults to ``cuda_emit.SMEM_LIMIT``."""
+    import numpy as np
+    if smem_budget is None:
+        from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_budget
+    ana = program.ana
+    dims = ana.domain_dims
+    lead = dims[:-1]
+    minor = dims[-1]
+    sizes = {d: program.sizes[d] for d in dims}
+    rad = ana.fused_step_radius()
+    marg = {d: 2 * rad.get(d, 0) * fuse_steps for d in lead}
+    for d, m in (margin_override or {}).items():
+        if d in marg:
+            marg[d] = m
+    fold = program.soln.get_settings().fold
+
+    block: Dict[str, int] = {}
+    for d in lead:
+        if fold.has_dim(d) and fold[d] > 0:
+            block[d] = min(fold[d], sizes[d])
+        else:
+            block[d] = min(8, sizes[d])
+    for d in lead:
+        b = block[d]
+        while sizes[d] % b != 0:
+            b -= 1
+        block[d] = max(b, 1)
+
+    esize = np.dtype(program.dtype).itemsize
+    minor_ext = min(minor_block, sizes[minor]) \
+        + 2 * rad.get(minor, 0) * fuse_steps
+    nlive = live_tiles(program)
+
+    def tile_bytes(blk):
+        per = 1
+        for d in lead:
+            per *= blk[d] + marg[d]
+        return per * minor_ext * esize * nlive
+
+    for d, mn in (min_block or {}).items():
+        if d in block and block[d] < mn:
+            b = min(mn, sizes[d])
+            while sizes[d] % b != 0 and b < sizes[d]:
+                b += 1
+            block[d] = b
+
+    def overhead(blk):
+        interior = padded = 1
+        for d in lead:
+            interior *= blk[d]
+            padded *= blk[d] + marg[d]
+        return (padded - interior) / max(interior, 1)
+
+    improved = True
+    while improved:
+        improved = False
+        best = None
+        for d in lead:
+            nb = block[d] * 2
+            while nb <= sizes[d] and sizes[d] % nb != 0:
+                nb *= 2
+            if nb > sizes[d]:
+                continue
+            cand = dict(block)
+            cand[d] = nb
+            if tile_bytes(cand) > smem_budget:
+                continue
+            ov = overhead(cand)
+            if best is None or ov < best[0]:
+                best = (ov, cand)
+        if best is not None:
+            block = best[1]
+            improved = True
+    return block

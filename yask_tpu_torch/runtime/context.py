@@ -13,7 +13,9 @@ Execution modes (``-mode``):
   chunk (the counterpart of ``jit``; ``auto`` resolves to it);
 * ``fused`` — the hand-written CUDA kernel of
   :mod:`yask_tpu_torch.ops.fused_stencil`, one launch per step (the
-  counterpart of ``pallas``); on CPU tensors its plain version runs;
+  counterpart of ``pallas``); on CPU tensors its plain version runs.
+  With ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
+  instead (phase 1 and the diamond launches), the remainder on K1;
 * ``ref`` — the eager numpy oracle (the reference's ``run_ref``).
 
 Modes and settings of the reference package that this slice does not
@@ -77,6 +79,8 @@ class StencilContext:
         self._mode = None
         self._device = None
         self._fused = None            # FusedKernel, built at first use
+        # the -trapezoid resolution: (TrapezoidKernel or None, reasons)
+        self._trap = None
         # set by SolutionPipeline on the context of a merged chain: the
         # pipeline, its signature (part of the variant key) and its plan
         self._pipeline = None
@@ -316,9 +320,10 @@ class StencilContext:
             pending.append("ckpt_every/watchdog_every/run_deadline: "
                            "ROADMAP.md A10 (checkpoint and supervised "
                            "runs)")
-        if o.trapezoid_tiling:
-            pending.append("-trapezoid: ROADMAP.md A12 (trapezoid "
-                           "tiling, K4)")
+        if self._trapezoid_arg() is not False and o.ensemble > 1 \
+                and o.mode == "fused":
+            pending.append(f"-trapezoid with -ensemble {o.ensemble}: "
+                           "ROADMAP.md A12 (batched K4)")
         self._push_arg()   # a bad -push value raises
         if o.push_memory in ("on", "force") and o.ensemble > 1 \
                 and o.mode == "fused":
@@ -358,6 +363,16 @@ class StencilContext:
         self._device = self._resolve_device()
         extra = {d: (self._opts.min_pad_sizes[d], self._opts.min_pad_sizes[d])
                  for d in self._ana.domain_dims}
+        if mode == "fused" and self._trapezoid_arg() is not False:
+            # the diamond windows reach trapezoid_pad_need past the domain
+            # in each dim the trapezoid may take (lead[-2:], the
+            # reference's context.py:941-965)
+            from yask_tpu_torch.ops.cuda_emit import trapezoid_pad_need
+            K = max(self._opts.wf_steps, 1)
+            rad = self._ana.fused_step_radius()
+            for d in self._ana.domain_dims[:-1][-2:]:
+                need = trapezoid_pad_need(rad.get(d, 0), K)
+                extra[d] = tuple(max(e, need) for e in extra[d])
         self._plan_kwargs = dict(extra_pad=extra)
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
@@ -378,6 +393,7 @@ class StencilContext:
         self._ended = False
         self._program = self._plan_geometry()
         self._fused = None
+        self._trap = None
         self._state = self._program.alloc_state()
         self._state_on_device = self._mode != "ref"
         self._vars = {v.get_name(): yk_var(self, v.get_name())
@@ -571,6 +587,35 @@ class StencilContext:
                 f"bad -push value '{pm}': expected auto|on|force|off")
         return None if self._pipeline is not None else False
 
+    def _trapezoid_arg(self):
+        """The trapezoid request (``resolve_trapezoid(trapezoid=)``):
+        ``-trapezoid`` = None (auto), else False.  A caller forces K4 the
+        way the reference's tests force ``build_pallas_chunk(trapezoid=
+        True)``: by making this return True."""
+        return None if self._opts.trapezoid_tiling else False
+
+    def _trapezoid_kernel(self):
+        """K4 for this prepared solution's groups of K = ``wf_steps``
+        steps, or None when they run on K1; resolved once per prepare,
+        with its reason records."""
+        if self._trap is None:
+            from yask_tpu_torch.ops.cuda_emit import resolve_trapezoid
+            from yask_tpu_torch.ops.fused_stencil import TrapezoidKernel
+            reasons: List[Dict] = []
+            spec = None
+            arg = self._trapezoid_arg()
+            if arg is not False:
+                bs = self._opts.block_sizes
+                lead = self._ana.domain_dims[:-1]
+                block = ({d: bs[d] if bs[d] > 0 else 8 for d in lead}
+                         if any(bs[d] > 0 for d in lead) else None)
+                spec = resolve_trapezoid(self._program,
+                                         max(self._opts.wf_steps, 1), arg,
+                                         block=block, reasons=reasons)
+            self._trap = (TrapezoidKernel(self._program, spec)
+                          if spec is not None else None, reasons)
+        return self._trap[0]
+
     def _fused_spec_kernel(self):
         """The fused kernel of this prepared solution, emitted but not
         built."""
@@ -596,27 +641,37 @@ class StencilContext:
         chunk runs, so that requests are batched only onto one kernel:
         the counterpart of ``yask_tpu``'s ``_pallas_variant_key``.  For
         ``fused`` it is the chunk length, the emitted kernel's name (a
-        hash of its source), the push request and the pipeline signature
-        (a push and a no-push build, or a merged chain and a solution of
-        the same equations, never share a kernel); the other modes run
-        no kernel."""
+        hash of its source), the trapezoid request, the push request and
+        the pipeline signature (a push and a no-push build, a K4 and a K1
+        group, or a merged chain and a solution of the same equations,
+        never share a kernel); the other modes run no kernel."""
         if self._mode != "fused":
             return (self._mode,)
         return ("fused", max(self._opts.wf_steps, 1),
-                self._fused_spec_kernel().spec.name, self._push_arg(),
-                self._pipeline_sig or "")
+                self._fused_spec_kernel().spec.name, self._trapezoid_arg(),
+                self._push_arg(), self._pipeline_sig or "")
 
     def _run_fused_steps(self, start: int, n: int) -> None:
         """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,
-        all through the fused kernel: one launch per step."""
+        all through the fused kernel: one launch per step; or, where
+        ``-trapezoid`` resolved to K4, each K-step group through K4 and
+        the remainder through K1."""
         self._state_to_device()
-        kern = self._fused_kernel()
         K = max(self._opts.wf_steps, 1)
+        trap = self._trapezoid_kernel()
+        if trap is not None and self._device.type == "cuda":
+            self._compile_secs += trap.build()
+        chunks = self._chunks(n, K)
+        # K1 is emitted for the tiling report, built only where it runs
+        kern = (self._fused_kernel()
+                if trap is None or any(k != K for k in chunks)
+                else self._fused_spec_kernel())
         dirn = self._ana.step_dir
         with self._run_timer:
             st, t = self._state, start
-            for k in self._chunks(n, K):
-                st = kern.chunk(st, t, k)
+            for k in chunks:
+                st = (trap if trap is not None and k == K
+                      else kern).chunk(st, t, k)
                 t += k * dirn
             self._sync()
         self._state = st
@@ -693,10 +748,14 @@ class StencilContext:
 
     def hbm_model_bytes_pp(self):
         """(read, write) device-memory bytes per point per step of the
-        configured path: every mode of this slice moves each live ring
-        slot once per step (the fused kernel is one launch per step)."""
+        configured path: each live ring slot moves once per step (K1 is
+        one launch per step), or once per group of K steps where K4
+        runs the groups."""
         if self._program is None:
             return (0.0, 0.0)
+        if self._mode == "fused" and self._trap and self._trap[0]:
+            return self._program.hbm_bytes_per_point(
+                fuse_steps=self._trap[0].K)
         return self._program.hbm_bytes_per_point()
 
     def get_stats(self) -> yk_stats:
@@ -704,7 +763,15 @@ class StencilContext:
         rb_pp, wb_pp = self.hbm_model_bytes_pp()
         tiling = None
         if self._mode == "fused" and self._fused is not None:
-            tiling = self._fused.tiling(max(self._opts.wf_steps, 1))
+            K = max(self._opts.wf_steps, 1)
+            trap, reasons = self._trap or (None, [])
+            tiling = (trap or self._fused).tiling(K)
+            if trap is None:
+                tiling.update(trapezoid=False, trap_dims=[])
+            tiling["trapezoid_request"] = {
+                True: "forced", None: "auto", False: "off"}[
+                    self._trapezoid_arg()]
+            tiling["reasons"] = list(reasons)
         return yk_stats(
             npts=self._opts.global_domain_sizes.product(),
             nsteps=self._steps_done,
@@ -743,6 +810,7 @@ class StencilContext:
         self._state = None
         self._program = None
         self._fused = None
+        self._trap = None
         self._ended = True
 
     def apply_command_line_options(self, args) -> List[str]:

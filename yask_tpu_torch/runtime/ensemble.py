@@ -93,6 +93,9 @@ def ensemble_feasible(ctx) -> Tuple[bool, str]:
     mode = ctx._mode or ctx._opts.mode
     if mode == "auto":
         mode = "torch"
+    if mode == "fused" and ctx._trapezoid_arg() is not False:
+        return False, ("-trapezoid in fused mode has no member-batched "
+                       "kernel: ROADMAP.md A12 (batched K4)")
     if mode in BATCHED_MODES:
         return True, ""
     if mode == "ref":

@@ -4,7 +4,7 @@ Counterpart of ``yask_tpu/runtime/settings.py`` (the reference's
 ``KernelSettings``, ``src/kernel/lib/settings.hpp:200-327``) with the
 port's execution modes and a ``-device`` option.  It keeps the domain
 geometry, tiling and decomposition knobs, the parity no-ops, and the knobs
-of paths still to port (auto-tuner, supervised runs, trapezoid):
+of paths still to port (auto-tuner, supervised runs):
 those are parsed so reference command lines keep working, and the context
 raises when one is set (``StencilContext._check_carried``).  ``-ensemble``
 sets the default size of ``new_ensemble()``.
@@ -71,7 +71,10 @@ class KernelSettings:
         self.ckpt_dir = ""
         self.watchdog_every = 0
         self.run_deadline_secs = 0
-        self.trapezoid_tiling = False    # A12
+        # Trapezoid/diamond temporal tiling of -mode fused (K4): True =
+        # auto, engaged where the TilePlan gate picks it (the reference's
+        # -trapezoid).  The remainder steps of a run run on K1.
+        self.trapezoid_tiling = False
 
     # ------------------------------------------------------------------
 
@@ -140,8 +143,12 @@ class KernelSettings:
             "run_deadline", "Per-chunk deadline in seconds (not ported "
             "yet: ROADMAP.md A10).", self, "run_deadline_secs")
         parser.add_bool_option(
-            "trapezoid", "Trapezoid/diamond temporal tiling (not ported "
-            "yet: ROADMAP.md A12).", self, "trapezoid_tiling")
+            "trapezoid", "Trapezoid/diamond temporal tiling of -mode fused "
+            "(K4: K steps per phase-1 launch plus the diamond fill "
+            "launches), engaged where the TilePlan gate picks it; pads are "
+            "planned for it.  The gate costs the reference's TPU variants "
+            "and does not predict the card's speed: K4 is today about 3x "
+            "slower than K1 (ROADMAP.md C7).", self, "trapezoid_tiling")
 
     # ------------------------------------------------------------------
 

@@ -73,7 +73,37 @@ script exits 0 only when all of them passed.  Phases:
    (15 phase-1 and 30 diamond launches, no K1); ms/step, points/s and the
    share of the 5 B/pt/step bound; each pass's time per launch with CUDA
    events; one group against its plain version; the same run with
-   ``-no-trapezoid`` (K1, 4 launches per group) beside it.
+   ``-no-trapezoid`` (K1, 4 launches per group) beside it;
+8. the distributed path: ``-mode shard_pallas`` over an env of four (or
+   eight) shards on ``cuda:0`` (``new_env(devices=["cuda:0"] * 4)``), each
+   shard with tensors of its own: one exchange of ghost slabs between the
+   shards' tensors per group of K steps, then K sub-steps of K5 (the
+   per-shard region kernel) per shard.  (a) Small cases: iso3dfd r=8 at
+   96³ on x=2·y=2 with K=1 and K=2 (overlap off, on, and on with
+   ``-coalesce on``), iso3dfd_sponge r=2 on x=4 at K=2 (overlap auto,
+   which declines on one card, ``-coalesce off``) and cube r=1 on x=2·y=2·z=2 at K=1 (8 shards, the
+   minor dim sharded), 5 steps each.  Each is held against K5's plain
+   version (``plain_shard_step`` in place of the kernel on the same CUDA
+   tensors; max |Δ| printed, 0 mismatches at ``field_epsilon``), is
+   bit-equal (``compare_data(epsilon=0)``) to the single-domain ``-mode
+   fused`` run (K1) at the same K, overlap on and off and coalesce on and
+   off are bit-equal, and K5 launches exactly shards × sub-steps × (1, or
+   1 + shells in an overlapped group).  (b) The path at full width: iso3dfd
+   r=8, 512³ fp32, ``-mode shard_pallas -wf_steps 2 -nr_x 2 -nr_y 2``,
+   four 256×256×512 shards, phase 4's seed state, every auto gate (on one
+   card the overlap and the packed exchange decline); 2 warm-up groups,
+   then 3 trials of 20 steps with every counter zeroed just before (only
+   K5 may launch): ms/step, points/s, whether the overlap engaged and why,
+   K5's ms per launch (CUDA events) against its bound (each input once
+   over the box grown by its reach and clipped to the global domain, each
+   output once over the box) and its plain version's, the exchange's ms
+   per group (CUDA events around each ``exchange_newest`` of one more run,
+   outside the counted window), the share of the step's bound (16 B/pt
+   plus the exchanged bytes), and phase 4's K1 ms/step beside it; the same
+   runs with ``-overlap_x on`` and with ``-coalesce on`` from the same
+   seeded state, each bit-equal to the main path after the same steps
+   (compared on the card); one group against ``-mode shard_map`` (the
+   per-shard torch step) from the same state, compared on the card.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -795,6 +825,432 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
     return entry
 
 
+#: Phase 8 (a): label, stencil, radius, global size, mesh, K, options.
+SHARD_CASES = (
+    ("iso3dfd r=8 K=1", "iso3dfd", 8, 96, (("x", 2), ("y", 2)), 1, ""),
+    ("iso3dfd r=8 K=2 overlap off", "iso3dfd", 8, 96, (("x", 2), ("y", 2)),
+     2, "-overlap_x off"),
+    ("iso3dfd r=8 K=2 overlap on", "iso3dfd", 8, 96, (("x", 2), ("y", 2)),
+     2, "-overlap_x on -coalesce off"),
+    ("iso3dfd r=8 K=2 overlap on coalesce on", "iso3dfd", 8, 96,
+     (("x", 2), ("y", 2)), 2, "-overlap_x on -coalesce on"),
+    ("iso3dfd_sponge r=2 x=4 K=2", "iso3dfd_sponge", 2, 96, (("x", 4),), 2,
+     "-coalesce off"),
+    ("cube r=1 x=2 y=2 z=2 K=1", "cube", 1, 48,
+     (("x", 2), ("y", 2), ("z", 2)), 1, "-coalesce on"),
+)
+
+
+def shard_ctx(fac, devices, stencil, radius, g, mode, K, ranks=(), cli=""):
+    """A prepared context over ``devices`` (repeats allowed) with the
+    rank grid ``ranks``."""
+    ctx = fac.new_solution(fac.new_env(devices=devices), stencil=stencil,
+                           radius=radius)
+    nr = " ".join(f"-nr_{d} {n}" for d, n in ranks)
+    ctx.apply_command_line_options(
+        f"-g {g} -mode {mode} -wf_steps {K} {nr} {cli}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def shard_specs(fac, dev: str = "cuda:0") -> dict:
+    """Phase 8's kernel sources (K5 shares each solution's library with
+    K1 and K7), for phase 1's parallel build."""
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    specs = {}
+    for label, st, r, g, ranks, K, cli in SHARD_CASES + (
+            ("iso3dfd r=8 512^3", "iso3dfd", 8, 512, (("x", 2), ("y", 2)),
+             2, ""),):
+        n = 1
+        for _d, k in ranks:
+            n *= k
+        ctx = shard_ctx(fac, [dev] * n, st, r, g, "shard_pallas", K, ranks,
+                        cli)
+        specs[f"K5 {label}"] = shard_pallas_plan(ctx).kernel.spec
+        del ctx
+    return specs
+
+
+def k5_launches(shards: int, n: int, K: int, overlap: bool,
+                shells: int) -> int:
+    """K5 launches of one shard_pallas run of ``n`` steps: every shard,
+    every sub-step, and in an overlapped group after the first (of two
+    steps or more) the core and each shell chain."""
+    groups, rem = divmod(n, K)
+    total = 0
+    for gi in range(groups + (1 if rem else 0)):
+        gk = K if gi < groups else rem
+        split = overlap and gi > 0 and gk >= 2
+        total += shards * gk * (1 + shells if split else 1)
+    return total
+
+
+def box_bytes(kern, box, off) -> int:
+    """Bytes one K5 launch over ``box`` of the shard with global origin
+    ``off`` must move: each input read once over the box grown by its
+    reach and clipped to the global domain (outside it the pads hold
+    zeros that need no reading; inside it, past the shard's interior, lie
+    the cells exchanged from its neighbours), each output written once
+    over the box."""
+    import numpy as np
+    prog, spec = kern.program, kern.spec
+    dims = list(prog.ana.domain_dims)
+    slot = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
+    esize = np.dtype(prog.dtype).itemsize
+
+    def cells(name, reach):
+        c = 1
+        for d in prog.geoms[name].domain_dims:
+            lo, hi = reach[slot[d]]
+            a = max(box[d][0] - lo, -off[d])
+            b = min(box[d][1] + hi, prog.global_last[d] + 1 - off[d])
+            c *= max(b - a, 0)
+        return c
+
+    def whole(name):
+        c = 1
+        for d in prog.geoms[name].domain_dims:
+            c *= box[d][1] - box[d][0]
+        return c
+    total = sum(cells(n, spec.reach[a])
+                for a, (n, _s) in enumerate(spec.inputs))
+    total += sum(whole(n) for n in spec.outputs)
+    return esize * total
+
+
+def phase8a(fac, dev: str = "cuda:0", cases=SHARD_CASES) -> float:
+    """Phase 8 (a): the small cases (see the module docstring); returns
+    the largest |Δ| against K5's plain version."""
+    from yask_tpu_torch.ops import fused_stencil
+    from yask_tpu_torch.ops.fused_stencil import (plain_shard_step,
+                                                  shard_step)
+    nsteps = 5
+    worst = 0.0
+    arms = {}
+    for label, st, r, g, ranks, K, cli in cases:
+        S = 1
+        for _d, n in ranks:
+            S *= n
+        ctx = shard_ctx(fac, [dev] * S, st, r, g, "shard_pallas", K,
+                        ranks, cli)
+        plain = shard_ctx(fac, [dev] * S, st, r, g, "shard_pallas", K,
+                          ranks, cli)
+        k1 = shard_ctx(fac, [dev], st, r, g, "fused", K)
+        for c in (ctx, plain, k1):
+            seed_random(c, 7)
+        n0 = fused_stencil.shard_step.launches
+        ctx.run_solution(0, nsteps - 1)
+        got = fused_stencil.shard_step.launches - n0
+        fused_stencil.shard_step = plain_shard_step
+        try:
+            plain.run_solution(0, nsteps - 1)
+        finally:
+            fused_stencil.shard_step = shard_step
+        k1.run_solution(0, nsteps - 1)
+        til = ctx.get_stats().get_tiling()
+        ov = til["overlap_exchange"]
+        want = k5_launches(S, nsteps, K, ov, 2 * len(til.get(
+            "overlap_core", {})))
+        d = max_abs_diff(ctx, plain)
+        worst = max(worst, d)
+        bad_plain = ctx.compare_data(plain, field_epsilon=FIELD_EPS)
+        bad_k1 = ctx.compare_data(k1, epsilon=0.0, abs_epsilon=0.0)
+        log(f"phase 8: {label}, {g}^3, mesh {til['mesh']} ({S} shards on "
+            f"{dev}), {nsteps} steps: overlap {ov} "
+            f"{[rr['code'] for rr in til['overlap_reasons']]}, comm order "
+            f"{til['comm']['order']} coalesce {til['comm']['coalesce']}; "
+            f"vs plain (plain_shard_step on the card) max|d|={d:.3e} "
+            f"mismatches={bad_plain} (field_epsilon={FIELD_EPS}); vs "
+            f"single-domain K1 compare_data(epsilon=0) = {bad_k1}; K5 "
+            f"launches {got} (expected {want})")
+        if bad_plain or bad_k1:
+            raise RuntimeError(f"phase 8: {label}: {bad_plain} mismatches "
+                               f"vs plain, {bad_k1} vs K1")
+        if got != want:
+            raise RuntimeError(f"phase 8: {label}: {got} K5 launches, "
+                               f"expected {want}")
+        if "overlap on" in label and not ov:
+            raise RuntimeError(f"phase 8: {label}: the overlap did not "
+                               "engage")
+        arms[label] = ctx
+        del plain, k1
+    for a, b in (("iso3dfd r=8 K=2 overlap off",
+                  "iso3dfd r=8 K=2 overlap on"),
+                 ("iso3dfd r=8 K=2 overlap on",
+                  "iso3dfd r=8 K=2 overlap on coalesce on")):
+        if a in arms and b in arms:
+            bad = arms[a].compare_data(arms[b], epsilon=0.0,
+                                       abs_epsilon=0.0)
+            log(f"phase 8: '{a}' vs '{b}': compare_data(epsilon=0) = {bad}")
+            if bad:
+                raise RuntimeError(f"phase 8: '{a}' and '{b}' differ")
+    return worst
+
+
+def device_diff(a, b, exact=False):
+    """Largest |Δ| and the mismatches over the interiors of two contexts'
+    common vars, computed on the card (no host copy of a 512³ state):
+    under ``compare_data``'s rule with ``field_epsilon``, or, with
+    ``exact``, every cell whose bits differ."""
+    import torch
+    worst, bad = 0.0, 0
+    sa, sb = a._state, b._state
+    for name, ring in sa.items():
+        for x, y in zip(ring[::-1], sb[name][::-1]):
+            x = x[a._interior_idx(name)]
+            y = y[b._interior_idx(name)]
+            if exact:
+                worst = max(worst, float((x - y).abs().max()))
+                bad += int((x != y).sum())
+                continue
+            x, y = x.double(), y.double()
+            d = (x - y).abs()
+            tol = 1e-7 + 1e-4 * torch.maximum(x.abs(), y.abs()) \
+                + FIELD_EPS * max(float(x.abs().max()), float(y.abs().max()))
+            worst = max(worst, float(d.max()))
+            bad += int((d > tol).sum())
+    return worst, bad
+
+
+def k5_launch_times(ctx, t: int, g: int, r: int, card: str):
+    """K5 per launch on the main path's shapes, from the shards resident
+    in ``ctx`` at step ``t``: over the box grown by ``r`` (sub-step 0 of a
+    2-step group) and over the interior (sub-step 1), each against its
+    bound, and one launch against its plain version.  Returns (max |Δ|,
+    plain ms, mean ms, mean bound ms, bound_by, layout)."""
+    from yask_tpu_torch.ops.fused_stencil import (plain_shard_step,
+                                                  shard_step)
+    kern = ctx._shard.kernel
+    layout, shards = ctx._run.resident
+    n = g // 2
+    boxes = [{"x": (-r, n + r), "y": (-r, n + r), "z": (0, g)},
+             {"x": (0, n), "y": (0, n), "z": (0, g)}]
+    off = layout.offsets[0]
+    st0 = shards[0]
+    ms = [cuda_ms(lambda b=b: shard_step(kern, st0, t, b, off), 10)
+          for b in boxes]
+    k5_ms = sum(ms) / len(ms)
+    plain_ms = cuda_ms(lambda: plain_shard_step(kern, st0, t, boxes[0],
+                                                off), 3)
+    a = shard_step(kern, dict(st0), t, boxes[0], off)
+    b = plain_shard_step(kern, dict(st0), t, boxes[0], off)
+    err = max(float((x - y).abs().max()) for nm in a
+              for x, y in zip(a[nm], b[nm]))
+    scale = max(float(x.abs().max()) for nm in b for x in b[nm])
+    del a, b, st0, shards
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 8: K5 and its plain version disagree at "
+                           f"{g}^3")
+    bounds = [box_bytes(kern, bx, off) / HBM_BYTES_PER_S * 1e3
+              for bx in boxes]
+    flops = [ctx._ana.counters.num_ops * (bx["x"][1] - bx["x"][0])
+             * (bx["y"][1] - bx["y"][0]) * g / FP32_FLOP_PER_S * 1e3
+             for bx in boxes]
+    bound_ms = max(sum(bounds), sum(flops)) / len(boxes)
+    bound_by = "bytes" if sum(bounds) >= sum(flops) else "operations"
+    log(f"phase 8: K5 per launch at a {n}x{n}x{g} shard: {ms[0]:.3f} ms "
+        f"over the box grown by r (sub-step 0, {n + 2 * r}x{n + 2 * r}x{g}),"
+        f" bound {bounds[0]:.4f} ms; {ms[1]:.3f} ms over the interior "
+        f"(sub-step 1), bound {bounds[1]:.4f} ms (each input once over the "
+        f"box grown by its reach, clipped to the global domain; each output "
+        f"once over the box); mean {k5_ms:.3f} ms against {bound_ms:.4f} ms "
+        f"({bound_by}; share {bound_ms / k5_ms:.3f}); 4 shards x (sub-step "
+        f"0 + sub-step 1) = {4 * (ms[0] + ms[1]):.3f} ms of K5 per group; "
+        f"plain version {plain_ms:.3f} ms (not a yardstick); one launch vs "
+        f"plain max|d|={err:.3e} (field max {scale:.3e}) [{card}]")
+    return err, plain_ms, k5_ms, bound_ms, bound_by, layout
+
+
+def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
+           warm_groups: int = 2, trials: int = 3, steps: int = 20,
+           dev: str = "cuda:0", cases=SHARD_CASES) -> dict:
+    """The distributed path (see the module docstring); returns K5's
+    entry of the ``kernels`` line."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil
+    from yask_tpu_torch.parallel import shard_step as shard_mod
+    t_phase = time.perf_counter()
+
+    def counts():
+        return (fused_stencil.shard_step.launches,
+                fused_stencil.fused_step.launches,
+                fused_stencil.batched_step.launches,
+                fused_stencil.stages_step.launches,
+                fused_stencil.trapezoid_chunk.phase1_launches,
+                fused_stencil.trapezoid_chunk.diamond_launches)
+
+    worst = phase8a(fac, dev, cases)
+
+    # (b) the path at full width: the main path (every auto gate), then
+    # -overlap_x on and -coalesce on from the same seeded state, each
+    # held to the main path's bits after the same steps
+    g, K = full, 2
+    npts = g ** 3
+    ranks = (("x", 2), ("y", 2))
+    r, n = 8, g // 2
+    step_ms, xch_ms = {}, {}
+    seed = None
+    exchange_newest = shard_mod.exchange_newest
+    for arm, cli in (("auto", ""), ("overlap on", "-overlap_x on"),
+                     ("coalesce on", "-coalesce on")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = shard_ctx(fac, [dev] * 4, "iso3dfd", r, g, "shard_pallas", K,
+                        ranks, cli)
+        if seed is None:
+            seed_random(ctx, 11)
+            seed = {k: [a.clone() for a in ring]
+                    for k, ring in ctx._state.items()}
+        else:
+            ctx._state = {k: [a.clone() for a in ring]
+                          for k, ring in seed.items()}
+        ctx.run_solution(0, warm_groups * K - 1)
+        t = warm_groups * K
+        fused_stencil.shard_step.launches = 0
+        fused_stencil.fused_step.launches = 0
+        fused_stencil.batched_step.launches = 0
+        fused_stencil.stages_step.launches = 0
+        fused_stencil.trapezoid_chunk.phase1_launches = 0
+        fused_stencil.trapezoid_chunk.diamond_launches = 0
+        rates = []
+        for _ in range(trials):
+            ctx.clear_stats()
+            ctx.run_solution(t, t + steps - 1)
+            t += steps
+            rates.append(ctx.get_stats().get_pts_per_sec())
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        til = ctx.get_stats().get_tiling()
+        ov = til["overlap_exchange"]
+        want = trials * k5_launches(4, steps, K, ov, 2 * len(til.get(
+            "overlap_core", {})))
+        if got != (want, 0, 0, 0, 0, 0):
+            raise RuntimeError(f"phase 8: {arm} at {g}^3: launches "
+                               f"K5/K1/K7/K6/K4 {got}, expected {want} K5 "
+                               "and no other")
+        if (arm == "overlap on") is not ov or (
+                arm == "coalesce on") is not til["comm"]["coalesce"]:
+            raise RuntimeError(f"phase 8: {arm} at {g}^3: overlap {ov}, "
+                               f"coalesce {til['comm']['coalesce']}")
+        rates.sort()
+        mid = rates[len(rates) // 2]
+        step_ms[arm] = npts / mid * 1e3
+
+        # outside the counted window: one more trial with CUDA events
+        # around each group's exchange, on the stream it runs on
+        marks = []
+
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            exchange_newest(*a, **kw)
+            e1.record()
+            marks.append((e0, e1))
+        shard_mod.exchange_newest = timed
+        try:
+            ctx.run_solution(t, t + steps - 1)
+        finally:
+            shard_mod.exchange_newest = exchange_newest
+        t += steps
+        torch.cuda.synchronize()
+        xch_ms[arm] = sum(e0.elapsed_time(e1) for e0, e1 in marks) \
+            / len(marks)
+        where = ", on the side stream beside the core" if ov else ""
+        still = " (the main path's context still allocated)" if cli else ""
+        log(f"phase 8: iso3dfd r={r} {g}^3 fp32 -mode shard_pallas "
+            f"-wf_steps {K} -nr_x 2 -nr_y 2 {cli} (4 shards of {n}x{n}x{g} "
+            f"on {dev}): {trials} trials x {steps} steps: "
+            f"{step_ms[arm]:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, "
+            f"max {npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; K5 "
+            f"launches {got[0]}; overlap {ov}: {til['overlap_reasons']}; "
+            f"comm {til['comm']['order']} coalesce "
+            f"{til['comm']['coalesce']} ({til['comm']['reasons'][-1]}); "
+            f"exchange {xch_ms[arm]:.3f} ms per group (CUDA events around "
+            f"the {len(marks)} exchanges of one more {steps}-step "
+            f"run{where}); torch.cuda.max_memory_allocated() = "
+            f"{peak / 2**30:.2f} GiB{still} [{card}]")
+        if arm == "auto":
+            main_ctx, main_t = ctx, t
+            launches = got[0]
+            k5 = k5_launch_times(ctx, t, g, r, card)
+            continue
+        # the same steps from the same state: the same bits
+        d, bad = device_diff(main_ctx, ctx, exact=True)
+        log(f"phase 8: {g}^3 after {t} steps: {cli} vs the main path: "
+            f"max|d|={d:.3e}, {bad} cells differ (epsilon 0)")
+        if bad:
+            raise RuntimeError(f"phase 8: {cli} and the main path differ at "
+                               f"{g}^3")
+        del ctx
+    del seed
+    ctx, t = main_ctx, main_t
+    err, plain_ms, k5_ms, bound_ms, bound_by, layout = k5
+    # bytes the exchange moves per group: every slab read and written once
+    xbytes = 0
+    for name in layout.names:
+        gm = ctx._shard.kernel.program.geoms[name]
+        if not gm.is_written:
+            continue
+        for dim in ("x", "y"):
+            cross = 1
+            for ax, (dn, _k) in enumerate(gm.axes):
+                if dn != dim:
+                    cross *= gm.shape[ax]
+            slabs = 2 * len(layout.mesh.neighbour_pairs(dim))
+            xbytes += min(K, gm.num_slots) * slabs * r * K * cross * 4
+    step_bound = (16 * npts + 2 * xbytes / K) / HBM_BYTES_PER_S * 1e3
+    log(f"phase 8: exchange per group: {xbytes / 2**20:.1f} MiB of slabs "
+        f"({K} newest pressure slots, {r * K}-wide); step bound "
+        f"{step_bound:.3f} ms (16 B/pt + the exchange read and written "
+        f"once), share {step_bound / step_ms['auto']:.3f} (main path), "
+        f"{step_bound / step_ms['overlap on']:.3f} (-overlap_x on), "
+        f"{step_bound / step_ms['coalesce on']:.3f} (-coalesce on); phase "
+        f"4's K1 on the same {g}^3 domain: {k1_step_ms:.3f} ms/step; "
+        f"shard_pallas {step_ms['auto']:.3f} (main path: overlap and "
+        f"coalescing declined on one card), {step_ms['overlap on']:.3f} "
+        f"(-overlap_x on), {step_ms['coalesce on']:.3f} (-coalesce on) "
+        f"ms/step [{card}]")
+
+    # one group against the per-shard torch step from the same state
+    sm = shard_ctx(fac, [dev] * 4, "iso3dfd", 8, g, "shard_map", 1, ranks)
+    sm._state = {k: [x.clone() for x in ring]
+                 for k, ring in ctx._state.items()}
+    sm._cur_step = t
+    ctx.run_solution(t, t + K - 1)
+    sm.run_solution(t, t + K - 1)
+    p = ctx.get_var("pressure").get_elements_in_slice(
+        [t + K, 0, 0, 0], [t + K, g - 1, g - 1, g - 1])
+    import numpy as np
+    if p.shape != (g, g, g) or not np.isfinite(p).all() \
+            or not np.abs(p).max() > 0:
+        raise RuntimeError("phase 8: pressure is not finite and nonzero")
+    del p
+    d, bad = device_diff(ctx, sm)
+    log(f"phase 8: one group of {K} steps from the same {g}^3 state: "
+        f"shard_pallas vs -mode shard_map (per-shard torch step) max|d|="
+        f"{d:.3e} mismatches={bad} (field_epsilon={FIELD_EPS}); phase 8 "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise RuntimeError("phase 8: shard_pallas and shard_map disagree")
+    del sm, ctx, main_ctx, layout
+    return {"name": "shard_step", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
+                        "distributed=True arms: :736-811, :1948-1953; "
+                        "parallel/shard_step.py:1017)",
+            "launches": launches, "max_abs_err": max(err, worst),
+            "ms": k5_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": f"launch over a {n}x{n}x{g} shard (mean of the grown "
+                   "and the interior box)",
+            "exchange_ms_per_group": xch_ms["auto"],
+            "exchange_ms_per_group_coalesce_on": xch_ms["coalesce on"],
+            "step_ms": step_ms["auto"],
+            "step_ms_overlap_on": step_ms["overlap on"],
+            "step_ms_coalesce_on": step_ms["coalesce on"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -808,6 +1264,7 @@ def main() -> int:
     from yask_tpu_torch.ops.fused_stencil import fused_step, plain_chunk
     from yask_tpu_torch.runtime.init_utils import init_solution_vars
 
+    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     card = card_line()
@@ -839,6 +1296,7 @@ def main() -> int:
             chained.stage_ctx(s)._fused_spec_kernel().spec
     chained.end()
     specs.update(trap_specs(fac, env))
+    specs.update(shard_specs(fac))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -996,6 +1454,10 @@ def main() -> int:
     k6 = phase6(env)
     torch.cuda.empty_cache()
     k4 = phase7(fac, env, card)
+    torch.cuda.empty_cache()
+    k5 = phase8(fac, card, step_ms)
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_step", "route": "cuda",
@@ -1003,7 +1465,7 @@ def main() -> int:
         "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, k4, k6, k7]}))
+        "library_ms": None}, k4, k5, k6, k7]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -61,6 +61,17 @@ for name, K, forced in (("iso3dfd", 4, True), ("wave2d", 2, False)):
     ctx.run_solution(0, 4)
     assert ctx.get_stats().get_tiling()["reasons"]
 import yask_tpu_torch.ops.tile_planner, yask_tpu_torch.stencils.physics2d
+import yask_tpu_torch.parallel
+env4 = fac.new_env(devices=["cpu"] * 4)
+for mode in ("shard_map", "sharded", "shard_pallas"):
+    ctx = fac.new_solution(env4, stencil="iso3dfd", radius=2)
+    ctx.apply_command_line_options(f"-g 16 -mode {mode} -wf_steps 2 "
+                                   "-nr_x 2 -nr_y 2")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 2)
+    assert ctx.get_var("pressure").get_element([3, 8, 8, 8]) != 0
+    ctx.get_stats()
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or (m.startswith("yask_tpu")

@@ -1,4 +1,4 @@
-"""The device code of K1, K6 and K4 run on the CPU, block by block.
+"""The device code of K1, K6, K4 and K5 run on the CPU, block by block.
 
 ``csrc/fused_step.cuh``'s ``__global__`` kernels cannot run here (no
 card, no nvcc), and the g++ host path (``host_step``/``host_stages``)
@@ -12,7 +12,8 @@ NaN before every block, so a read of a cell no thread wrote shows.  The
 launch is the wrapper's own (``call_entry``, ``call_trapezoid_entry``)
 on CPU tensors.  K4's fresh outputs are NaN-filled too, so a cell that
 neither phase 1's windows nor the diamond bands write shows.  Tolerance:
-none — the same operations in the same order as ``plain_chunk``.
+none — the same operations in the same order as ``plain_chunk`` (K5:
+``plain_shard_chunk``).
 """
 
 import ctypes
@@ -27,6 +28,7 @@ import yask_tpu_torch
 from yask_tpu_torch.ops import fused_stencil
 from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
 from yask_tpu_torch.transfer import import_interiors
+from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_lowering import seeded_interiors
 
@@ -82,12 +84,18 @@ template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
 """
 
 
-def emulated_kernel(spec, tmp_path):
+#: The kernels each header declares and launches (K1/K7, K5 and K6 in
+#: fused_step.cuh; K4's two in trapezoid.cuh).
+KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2}
+
+
+def emulated_kernel(spec, tmp_path, entry=None):
     """The emitted source built with g++ as device code (``__CUDACC__``
-    and ``__CUDA_ARCH__`` defined) against the shim; returns its entry."""
+    and ``__CUDA_ARCH__`` defined) against the shim; returns its entry
+    (``spec.name``, or K5's ``spec.name + "_region"``)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to emulate the kernels"
-    for fn in ("fused_step.cuh", "trapezoid.cuh"):
+    for fn, nk in KERNELS.items():
         header = open(os.path.join(CSRC, fn)).read()
         header, n_decl = re.subn(
             r"extern __shared__ __align__\(16\) unsigned char "
@@ -95,7 +103,8 @@ def emulated_kernel(spec, tmp_path):
         header, n_launch = re.subn(
             r"(\w+_kernel<S[^>]*>)<<<grid, block, smem, stream>>>\(p\);",
             r"yt_emulate(grid, block, [&] { \1(p); });", header)
-        assert (n_decl, n_launch) == (2, 2), f"the kernels' text in {fn} moved"
+        assert (n_decl, n_launch) == (nk, nk), \
+            f"the kernels' text in {fn} moved"
         (tmp_path / fn).write_text(header)
     (tmp_path / "cuda_runtime.h").write_text(SHIM)
     src = tmp_path / f"{spec.name}.cpp"
@@ -106,11 +115,18 @@ def emulated_kernel(spec, tmp_path):
                     "-Wno-unknown-pragmas", "-I", str(tmp_path), "-o",
                     str(so), str(src)], check=True, capture_output=True,
                    timeout=300)
-    fn = getattr(ctypes.CDLL(str(so)), spec.name)
-    fn.argtypes = ([ctypes.c_int] if spec.trap else []) \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    entry = entry or spec.name
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = region_argtypes() if entry.endswith("_region") else (
+        ([ctypes.c_int] if spec.trap else [])
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def region_argtypes():
+    """K5's C entry: K1's tables, the box table, the step, the stream."""
+    return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def rtm_ctx(radius, accumulate, cli=""):
@@ -242,3 +258,77 @@ def test_k4_emulation_fails_with_windows_one_level_deeper(tmp_path,
     spec = cuda_emit.resolve_trapezoid(ctx._program, 4, True)
     fn = emulated_kernel(spec, tmp_path)
     assert not same(k4_group(fn, ctx, spec, 0, (0, 1, 2)), want)
+
+
+# ---------------------------------------------------------------------------
+# K5: one shard's sub-steps over boxes reaching into the ghosts
+# ---------------------------------------------------------------------------
+
+
+def k5_shard():
+    """A shard_pallas context on 4 CPU devices (iso3dfd r=2, K=3, shards
+    of 11×9×70) and the shard at mesh position x=1, y=0: its box reaches
+    past the global domain on the right in x and on the left in y."""
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4),
+                           stencil="iso3dfd", radius=2)
+    ctx.apply_command_line_options(
+        "-g_x 22 -g_y 18 -g_z 70 -mode shard_pallas -wf_steps 3 -nr_x 2 "
+        "-nr_y 2")
+    ctx.prepare_solution()
+    sp = shard_pallas_plan(ctx)
+    i = sp.layout.mesh.index({"x": 1, "y": 0, "z": 0})
+    return sp.kernel, sp.layout.offsets[i]
+
+
+@pytest.mark.parametrize("path", ["host", "device"])
+def test_k5_matches_plain_shard_chunk(path, tmp_path):
+    """Three sub-steps of one group, each box the interior grown by 4, 2,
+    0 in x and y (negative lo), from random inputs over the whole padded
+    arrays: the g++ host path and the emulated device code (NaN-filled
+    shared memory) against ``plain_shard_chunk``, to the bit; cells
+    outside the global domain come out zero."""
+    import numpy as np
+    import torch
+    from test_torch_fused import host_kernel
+    kern, off = k5_shard()
+    prog, spec = kern.program, kern.spec
+    assert off == {"x": 11, "y": 0, "z": 0}
+    if path == "host":
+        fn = host_kernel(spec, tmp_path, entry=spec.name + "_region")
+        fn.argtypes = region_argtypes()
+    else:
+        fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_region")
+    rng = np.random.RandomState(5)
+    state = {n: [torch.tensor(rng.rand(*g.shape).astype(np.float32))
+                 for _ in range(g.num_slots)]
+             for n, g in prog.geoms.items()}
+    got = want = state
+    shifted = fused_stencil._with_offset(prog, off, torch.device("cpu"))
+    for s, e in enumerate((4, 2, 0)):
+        box = {"x": (-e, 11 + e), "y": (-e, 9 + e), "z": (0, 70)}
+        fused_stencil.check_box(prog, spec, box)
+        ins = [got[n][k] for n, k in spec.inputs]
+        outs = [torch.zeros(tuple(prog.geoms[n].shape))
+                for n in spec.outputs]
+        assert fused_stencil.call_region_entry(fn, prog, spec, ins, outs,
+                                               box, off, s, None) == 0
+        got = fused_stencil._rotated(prog, spec, got, outs)
+        want = fused_stencil.plain_shard_chunk(shifted, want, s, box)
+        assert same(got, want)
+    p = got["pressure"][-1]
+    g = prog.geoms["pressure"]
+    ox, oy, oz = g.origin["x"], g.origin["y"], g.origin["z"]
+    assert not p[ox + 11:].any() and not p[:, :oy].any()   # x ≥ 22, y < 0
+    assert p[ox:ox + 11, oy:oy + 9, oz:oz + 70].abs().min() > 0
+
+
+def test_k5_box_check_refuses_reads_past_the_pads():
+    kern, _off = k5_shard()
+    with pytest.raises(YaskException, match="passes its pads"):
+        fused_stencil.check_box(kern.program, kern.spec,
+                                {"x": (-7, 11), "y": (0, 9), "z": (0, 70)})
+    with pytest.raises(YaskException, match="empty box"):
+        fused_stencil.check_box(kern.program, kern.spec,
+                                {"x": (3, 3), "y": (0, 9), "z": (0, 70)})

@@ -128,8 +128,15 @@ def test_var_api_round_trip_and_pads():
 
 
 @pytest.mark.parametrize("opts,item", [
-    ("-mode sharded", "A11"), ("-mode shard_map", "A11"),
-    ("-mode shard_pallas", "A11"), ("-auto_tune", "A6"),
+    # the shard modes are carried (K5); what stays of A11 for them is the
+    # halo calibration of -measure_halo
+    pytest.param("-mode sharded -measure_halo", "A11",
+                 id="-mode sharded-A11"),
+    pytest.param("-mode shard_map -measure_halo", "A11",
+                 id="-mode shard_map-A11"),
+    pytest.param("-mode shard_pallas -measure_halo", "A11",
+                 id="-mode shard_pallas-A11"),
+    ("-auto_tune", "A6"),
     ("-ckpt_every 2", "A10"), ("-watchdog_every 2", "A10"),
     ("-run_deadline 5", "A10"),
     # -trapezoid is carried (K4); what stays of A12 is K4 in a member batch

@@ -353,7 +353,9 @@ class StepProgram:
     def __init__(self, csol: "CompiledSolution", sizes: IdxTuple,
                  extra_pad: Optional[Dict[str, Tuple[int, int]]] = None,
                  ops: Optional[ArrayOps] = None,
-                 pad_multiple: Optional[Dict[str, int]] = None):
+                 pad_multiple: Optional[Dict[str, int]] = None,
+                 rank_offset: Optional[Dict[str, int]] = None,
+                 global_sizes: Optional[IdxTuple] = None):
         self.csol = csol
         ana = self.ana = csol.ana
         self.soln = csol.soln
@@ -361,10 +363,15 @@ class StepProgram:
         self.ops = ops or NumpyOps()
         self.dtype = csol.dtype
         extra_pad = extra_pad or {}
-        # one device: the local interior IS the global problem
-        self.rank_offset = {d: 0 for d in ana.domain_dims}
+        # Local-interior origin in global coordinates (0 on one device; a
+        # shard's offset in the shard modes, the reference's rank offsets,
+        # setup.cpp:169): index values and first/last-domain conditions
+        # are global.
+        self.rank_offset = dict(
+            rank_offset or {d: 0 for d in ana.domain_dims})
+        gsz = global_sizes if global_sizes is not None else sizes
         self.global_first = {d: 0 for d in ana.domain_dims}
-        self.global_last = {d: sizes[d] - 1 for d in ana.domain_dims}
+        self.global_last = {d: gsz[d] - 1 for d in ana.domain_dims}
 
         self.geoms: Dict[str, VarGeom] = {}
         for v in self.soln.get_vars():
@@ -626,9 +633,14 @@ class StepProgram:
             val = self.ops.permute(val, perm)
         return val
 
-    def _eval_part(self, part: Part, t, state, computed, scratch_vals):
+    def _eval_part(self, part: Part, t, state, computed, scratch_vals,
+                   over: Optional[Dict[str, Tuple[int, int]]] = None):
+        """Evaluate a part; ``over`` restricts evaluation to a sub-region
+        in interior coordinates (it may reach into the pads) — the core/
+        shell split of the shard modes (reference ``MpiSection``,
+        ``context.hpp:789-833``) and the box of K5's plain version."""
         ops = self.ops
-        base_region = self._interior_region()
+        base_region = over if over is not None else self._interior_region()
         if part.is_scratch:
             # Evaluate over the region expanded by the write-halo.
             for eq in part.eqs:
@@ -706,21 +718,17 @@ class StepProgram:
 
             computed[name] = ops.update(base_arr, tuple(idxs), val)
 
-    def eval_stage(self, stage_idx: int, t, state, computed, scratch_vals):
-        """Evaluate one stage in place on (computed, scratch_vals)."""
+    def eval_stage(self, stage_idx: int, t, state, computed, scratch_vals,
+                   over: Optional[Dict[str, Tuple[int, int]]] = None):
+        """Evaluate one stage in place on (computed, scratch_vals);
+        ``over`` restricts it to a sub-region."""
         for part in self.ana.stages[stage_idx].parts:
-            self._eval_part(part, t, state, computed, scratch_vals)
+            self._eval_part(part, t, state, computed, scratch_vals,
+                            over=over)
 
-    def step(self, state, t, halo_hook: Optional[Callable] = None):
-        """Advance the solution by one step; returns the new state.
-        ``halo_hook(stage_idx, state, computed)`` is called before each
-        stage (the seam a distributed runtime injects its exchange into)."""
-        computed: Dict[str, object] = {}
-        scratch_vals: Dict[str, Tuple[object, Dict[str, int]]] = {}
-        for si in range(len(self.ana.stages)):
-            if halo_hook is not None:
-                state, computed = halo_hook(si, state, computed)
-            self.eval_stage(si, t, state, computed, scratch_vals)
+    def rotate(self, state, computed):
+        """The state after a step: each computed var's value rotated into
+        its ring (a stepless var replaced)."""
         new_state: Dict[str, List[object]] = {}
         for name, ring in state.items():
             g = self.geoms[name]
@@ -732,6 +740,18 @@ class StepProgram:
             else:
                 new_state[name] = list(ring)
         return new_state
+
+    def step(self, state, t, halo_hook: Optional[Callable] = None):
+        """Advance the solution by one step; returns the new state.
+        ``halo_hook(stage_idx, state, computed)`` is called before each
+        stage (the seam a distributed runtime injects its exchange into)."""
+        computed: Dict[str, object] = {}
+        scratch_vals: Dict[str, Tuple[object, Dict[str, int]]] = {}
+        for si in range(len(self.ana.stages)):
+            if halo_hook is not None:
+                state, computed = halo_hook(si, state, computed)
+            self.eval_stage(si, t, state, computed, scratch_vals)
+        return self.rotate(state, computed)
 
 
 class CompiledSolution:
@@ -765,9 +785,16 @@ class CompiledSolution:
 
     def plan(self, sizes: IdxTuple, ops: Optional[ArrayOps] = None,
              extra_pad: Optional[Dict[str, Tuple[int, int]]] = None,
-             pad_multiple: Optional[Dict[str, int]] = None) -> StepProgram:
+             pad_multiple: Optional[Dict[str, int]] = None,
+             rank_offset: Optional[Dict[str, int]] = None,
+             global_sizes: Optional[IdxTuple] = None) -> StepProgram:
+        """A :class:`StepProgram` over local ``sizes``; a shard passes its
+        ``rank_offset`` and the ``global_sizes`` (the reference's
+        lowering.py:813-826)."""
         for d in self.ana.domain_dims:
             if not sizes.has_dim(d):
                 raise YaskException(f"domain size for dim '{d}' not given")
         return StepProgram(self, sizes, extra_pad=extra_pad, ops=ops,
-                           pad_multiple=pad_multiple)
+                           pad_multiple=pad_multiple,
+                           rank_offset=rank_offset,
+                           global_sizes=global_sizes)

@@ -2,6 +2,9 @@
 // chunk) and K7 (the same sub-step for N independent ensemble members in
 // one launch) for NVIDIA Hopper, sm_90a.
 //
+// (K5, one sub-step over a box of one shard, and K6, several stages per
+// launch, follow below with their own notes.)
+//
 // K1 replaces the inner `kernel` of build_pallas_chunk
 // (yask_tpu/ops/pallas_stencil.py) for one sub-step; K7 replaces the
 // jax.vmap of that chunk in EnsembleRun._batched_chunk_fn
@@ -338,6 +341,176 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
 #endif
 }
 
+// ==== K5: one sub-step over a box of one shard ==========================
+// Replaces the region= arm (pallas_stencil.py:736-780) and the
+// distributed=True arm (:781-811, the shard offsets added to the global
+// index base at :1948-1953) of build_pallas_chunk, which
+// parallel/shard_step.py's shard_pallas path runs per shard.  One launch
+// computes one sub-step of a single-stage solution over a compute box
+// [lo, hi) per slot in the shard's local interior coordinates: lo may be
+// negative and hi may pass n, reaching into the ghost pads by the
+// sub-step's expansion (the shard_pallas group grows the box by r per
+// later sub-step), or the box is a core or shell region inside [0, n).
+// The point function sees global coordinates: the shard's origin `off` is
+// added to every coordinate and the global extents `gn` drive the domain
+// conditions, so a cell outside the global domain is written as 0.
+// Outputs are fresh zeroed tensors; the wrapper (fused_stencil.shard_step)
+// keeps what the box writes in the ghosts for the later sub-steps of the
+// group.
+//
+// What bounds it on an H100: bytes, as K1 (the same 16 B/pt per iso3dfd
+// r=8 step over the box).  Design: K1's body with the box and the origin
+// as runtime parameters: the grid covers hi - lo, the staging limits come
+// from the box instead of [-halo, n + halo), and the point function is
+// K1's (`Spec::point`, built with --fmad=false), so a shard's cell gets
+// the bits a single-domain K1 launch gives it.
+template <class S>
+struct RegionParams {
+  ParamsOf<S> p;     // K1's tables (p.n: the shard's interior extents)
+  int lo[3], hi[3];  // the box, local interior coordinates
+  int off[3];        // the shard's global origin
+  int gn[3];         // the global domain extents
+};
+
+template <class S>
+YT_HD inline bool in_global(const RegionParams<S>& p, const int* gg) {
+  return gg[0] >= 0 && gg[0] < p.gn[0] && gg[1] >= 0 && gg[1] < p.gn[1]
+         && gg[2] >= 0 && gg[2] < p.gn[2];
+}
+
+// ---- host path: the box with global reads -------------------------------
+template <class S>
+int host_region(const RegionParams<S>& p) {
+  typedef typename S::real_t real_t;
+  for (int g0 = p.lo[0]; g0 < p.hi[0]; ++g0)
+    for (int g1 = p.lo[1]; g1 < p.hi[1]; ++g1)
+      for (int g2 = p.lo[2]; g2 < p.hi[2]; ++g2) {
+        const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
+        real_t out[S::NOUT];
+        if (in_global<S>(p, gg)) {
+          const GlobalReader<S> rd{&p.p, 0, g0, g1, g2};
+          S::point(rd, gg, p.gn, p.p.t, out);
+        } else {
+          for (int o = 0; o < S::NOUT; ++o) out[o] = real_t(0);
+        }
+        store<S>(p.p, 0, g0, g1, g2, out);
+      }
+  return 0;
+}
+
+#ifdef __CUDACC__
+template <class S>
+__global__ void __launch_bounds__(S::T1 * S::T2)
+fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
+  typedef typename S::real_t real_t;
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
+  const ParamsOf<S>& q = p.p;
+  const int b0 = p.lo[0] + int(blockIdx.z) * S::T0;
+  const int b1 = p.lo[1] + int(blockIdx.y) * S::T1;
+  const int b2 = p.lo[2] + int(blockIdx.x) * S::T2;
+  const int tid = threadIdx.y * S::T2 + threadIdx.x;
+
+  // 1) stage each tiled input's halo tile as K1 does; cells past the
+  //    box's read reach (the ragged edge of the last blocks) hold 0.  The
+  //    wrapper checks that [lo - halo, hi + halo) lies inside the pads.
+  constexpr int NT = S::T1 * S::T2;
+  constexpr int U = 16;
+#pragma unroll
+  for (int k = 0; k < S::NTILED; ++k) {
+    const int a = S::tiled_input(k);
+    const int h0 = S::halo_lo0(k), h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
+    const int E1 = S::T1 + h1 + S::halo_hi1(k);
+    const int E2 = S::T2 + h2 + S::halo_hi2(k);
+    const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
+    const int lim0 = p.hi[0] + S::halo_hi0(k);
+    const int lim1 = p.hi[1] + S::halo_hi1(k);
+    const int lim2 = p.hi[2] + S::halo_hi2(k);
+    real_t* dst = smem + S::tile_offset(k);
+    for (int base = tid; base < cells; base += NT * U) {
+      real_t v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * NT;
+        const int e2 = i % E2;
+        const int r = i / E2;
+        const int c0 = b0 - h0 + r / E1;
+        const int c1 = b1 - h1 + r % E1;
+        const int c2 = b2 - h2 + e2;
+        v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
+                   ? global_at<S>(q, a, 0, c0, c1, c2) : real_t(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (base + u * NT < cells) dst[base + u * NT] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // 2) compute the box's cells: the point function at global coordinates,
+  //    0 outside the global domain
+  const int l1 = threadIdx.y, l2 = threadIdx.x;
+  const int g1 = b1 + l1, g2 = b2 + l2;
+  if (g1 >= p.hi[1] || g2 >= p.hi[2]) return;
+#pragma unroll
+  for (int l0 = 0; l0 < S::T0; ++l0) {
+    const int g0 = b0 + l0;
+    if (g0 >= p.hi[0]) break;
+    const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
+    real_t out[S::NOUT];
+    if (in_global<S>(p, gg)) {
+      const TileReader<S> rd{&q, smem, 0, l0, l1, l2, g0, g1, g2};
+      S::point(rd, gg, p.gn, q.t, out);
+    } else {
+#pragma unroll
+      for (int o = 0; o < S::NOUT; ++o) out[o] = real_t(0);
+    }
+    store<S>(q, 0, g0, g1, g2, out);
+  }
+}
+
+template <class S>
+int launch_region(const RegionParams<S>& p, cudaStream_t stream) {
+  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
+  cudaError_t e = cudaFuncSetAttribute(
+      fused_region_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const long long gz = (p.hi[0] - p.lo[0] + S::T0 - 1) / S::T0;
+  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
+  const dim3 block(S::T2, S::T1, 1);
+  const dim3 grid((p.hi[2] - p.lo[2] + S::T2 - 1) / S::T2,
+                  (p.hi[1] - p.lo[1] + S::T1 - 1) / S::T1, unsigned(gz));
+  fused_region_kernel<S><<<grid, block, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+#endif
+
+// K5: as run(), over the box `region` = int[12]: lo[3], hi[3], off[3],
+// gn[3] per slot.
+template <class S>
+int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
+               void* out_strides, void* sizes, void* region, int t,
+               void* stream) {
+  RegionParams<S> p;
+  fill_params<S>(p.p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  const int* r = static_cast<const int*>(region);
+  for (int s = 0; s < 3; ++s) {
+    p.lo[s] = r[s];
+    p.hi[s] = r[3 + s];
+    p.off[s] = r[6 + s];
+    p.gn[s] = r[9 + s];
+  }
+  for (int s = 0; s < 3; ++s)
+    if (p.hi[s] <= p.lo[s]) return 0;  // an empty box computes nothing
+#ifdef __CUDACC__
+  return launch_region<S>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  return host_region<S>(p);
+#endif
+}
+
 // ==== K6: several stages per launch =====================================
 // Replaces the push= arm of build_pallas_chunk with its stage loop
 // (pallas_stencil.py:495-563, :995-1058, :1859-1871, :2058-2188): one
@@ -620,6 +793,16 @@ int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
     return yt::run_batched<S>(in_ptrs, in_strides, in_mstrides, out_ptrs,    \
                               out_strides, out_mstrides, sizes, nm, t,       \
                               stream);                                       \
+  }
+
+// The C entry point of K5 for the same Spec: K1's arguments, then the box,
+// origin and global extents (int[12]) before the step index.
+#define YT_FUSED_REGION_ENTRY(NAME, S)                                       \
+  extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
+                      void* out_strides, void* sizes, void* region, int t,   \
+                      void* stream) {                                        \
+    return yt::run_region<S>(in_ptrs, in_strides, out_ptrs, out_strides,     \
+                             sizes, region, t, stream);                      \
   }
 
 // The C entry point of K6 (K1's arguments) for a multi-stage Spec.

@@ -6,13 +6,18 @@ stencil, set sizes, warm up (builds the fused kernel — excluded from
 timing), run N timed trials, report best/mid/ave statistics in the
 reference's log-key format, or validate against the eager-numpy oracle
 (``-validate``).  ``-device`` picks the torch device (default
-``cuda:0``; ``-device cpu`` is the only way onto the CPU).
+``cuda:0``; ``-device cpu`` is the only way onto the CPU); ``-devices``
+gives the env a device list instead (repeats allowed), over which the
+shard modes decompose the domain by ``-nr_*``.
 
 Usage::
 
     python -m yask_tpu_torch.main -stencil iso3dfd -radius 8 -g 512 \
         -mode fused -wf_steps 2 -num_trials 3 -trial_steps 20
     python -m yask_tpu_torch.main -stencil 3axis -g 32 -validate
+    python -m yask_tpu_torch.main -stencil iso3dfd -radius 8 -g 512 \
+        -devices cuda:0,cuda:0,cuda:0,cuda:0 -nr_x 2 -nr_y 2 \
+        -mode shard_pallas -wf_steps 2
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ class HarnessSettings:
         self.validate_steps = 2   # short, like the reference's validation
         self.init_seed = 0.1
         self.device = ""          # "" → cuda:0
+        self.devices = ""         # comma list → the env's device list
         self.trace = False
         self.list_stencils = False
         self.help = False
@@ -63,6 +69,10 @@ class HarnessSettings:
                            self, "init_seed")
         p.add_string_option("device", "torch device (default cuda:0; "
                             "'cpu' runs on the CPU).", self, "device")
+        p.add_string_option("devices", "Comma-separated torch devices of "
+                            "the env, repeats allowed (e.g. cuda:0,cuda:0); "
+                            "the shard modes decompose over them.", self,
+                            "devices")
         p.add_bool_option("trace", "Enable trace messages.", self, "trace")
         p.add_bool_option("list", "List registered stencils.",
                           self, "list_stencils")
@@ -72,7 +82,8 @@ class HarnessSettings:
 def _build(opts: HarnessSettings, extra_args: List[str]):
     from yask_tpu_torch import yk_factory
     fac = yk_factory()
-    env = fac.new_env(device=opts.device or None)
+    devices = [d for d in opts.devices.split(",") if d] or None
+    env = fac.new_env(device=opts.device or None, devices=devices)
     env.set_trace_enabled(opts.trace)
     ctx = fac.new_solution(env, stencil=opts.stencil,
                            radius=opts.radius or None)
@@ -107,6 +118,10 @@ def run_harness(argv: Optional[List[str]] = None, out=None) -> int:
     out.write(f"YASK-TORCH harness: stencil '{opts.stencil}' on "
               f"{env.get_device()} ({env.get_device_name()})\n")
     ctx.prepare_solution()
+    if ctx._mesh is not None:
+        out.write(f"mode {ctx._mode}: mesh {ctx._mesh.shape} on "
+                  f"{env.get_num_ranks()} device(s), "
+                  f"{env.get_num_cards()} distinct\n")
     _init_vars(ctx, opts.init_seed)
     soln_ana = ctx._ana
     npts = ctx.get_settings().global_domain_sizes.product()

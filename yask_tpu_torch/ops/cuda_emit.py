@@ -7,7 +7,7 @@ into one ``Spec`` struct:
 
 * one stage: ``Spec::point(rd, g, n, t, out)`` — a ``__host__
   __device__`` inline function computing every written var at one point
-  (K1 and K7 run it).  It prints the same terms in the same order as
+  (K1, K7 and K5 run it).  It prints the same terms in the same order as
   ``StepProgram._eval`` (and ``_TileEval.eval``), one statement per
   distinct ``skey()``, which is the common-subexpression elimination their
   memos do.  Reads go through ``rd.template at<A>(o...)``; the tile
@@ -231,6 +231,10 @@ class KernelSpec:
     #: K4 only: the trapezoid plan (K, trap_dims, block, the passes with
     #: their tiles, grids and shared memory, the diamond geometry)
     trap: Dict = field(default_factory=dict)
+    #: every input → per-slot (lo, hi) read offsets (K5's wrapper checks
+    #: that a box's reads stay inside the pads)
+    reach: Dict[int, Tuple[Tuple[int, int], ...]] = field(
+        default_factory=dict)
 
 
 def _hexf(v: float) -> str:
@@ -562,7 +566,7 @@ def _print(program, pushed) -> _Printed:
 
 
 def emit(program, push=False) -> KernelSpec:
-    """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's)
+    """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
     entries for one stage, K6's for several.  ``push`` is the
     :func:`resolve_push` request."""
     import numpy as np
@@ -652,11 +656,14 @@ struct Spec {{
 
 YT_FUSED_STEP_ENTRY({name}, Spec)
 YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
+YT_FUSED_REGION_ENTRY({name}_region, Spec)
 """
+        reach = {a: tuple(tuple(x) for x in pr.raw[a])
+                 for a in range(len(pr.inputs))}
         return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                           outputs=outputs, tiled=tiled, tile=tile,
                           smem_bytes=offs * esize, halos=halos,
-                          push_reasons=push_reasons)
+                          push_reasons=push_reasons, reach=reach)
 
     # ---- K6: several stages per launch ---------------------------------
     in_elems = offs

@@ -55,6 +55,22 @@ chain moves 20 B per point per step with the image pushed.
 ``stages_step.launches``; the plain version is :func:`plain_chunk`, which
 evaluates every stage.  Multi-stage specs carry no K7 entry.
 
+K5 on Hopper, the per-shard region kernel of the ``shard_pallas`` path
+(``yask_tpu_torch/parallel/shard_step.py``): replaces the ``region=`` and
+``distributed=True`` arms of ``build_pallas_chunk`` (pallas_stencil.py:
+736-811, :1948-1953).  The same emitted source carries a third C entry
+point (``<name>_region``) that computes one sub-step of a single-stage
+solution over a compute box of one shard, in its local coordinates, with
+the shard's global origin added to every coordinate the point function
+sees, and writes 0 where a cell lies outside the global domain.
+:func:`shard_step` is its wrapper with its own counter
+``shard_step.launches``; :func:`plain_shard_chunk` (the shard's
+``StepProgram`` evaluated over the box, masked to the box and the global
+domain; per sub-step :func:`plain_shard_step`) is its plain version.
+Bound by bytes as K1: each input read once over the box grown by its
+reach and clipped to the global domain, each output written once over
+the box.
+
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's first kernel that advances K time levels
 inside one launch.  :class:`TrapezoidKernel` holds the spec
@@ -181,6 +197,58 @@ def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
               ctypes.addressof(n3), int(nm), int(t), stream)
 
 
+def _region_table(program, box, off) -> List[int]:
+    """K5's int[12]: the box's lo and hi, the shard's origin and the
+    global extents, per kernel slot (unused slots: [0, 1), 0, 1)."""
+    dims = list(program.ana.domain_dims)
+    lo, hi, o, gn = [0, 0, 0], [1, 1, 1], [0, 0, 0], [1, 1, 1]
+    for i, d in enumerate(dims):
+        s = 3 - len(dims) + i
+        lo[s], hi[s] = (int(x) for x in box[d])
+        o[s] = int(off.get(d, 0))
+        gn[s] = int(program.global_last[d]) + 1
+    return lo + hi + o + gn
+
+
+def call_region_entry(fn, program, spec, ins, outs, box, off, t: int,
+                      stream) -> int:
+    """Call an emitted kernel's K5 entry point: K1's tables, then the box
+    ``{dim: (lo, hi)}`` in local interior coordinates, the shard's global
+    origin ``{dim: offset}`` and the global extents (from ``program``'s
+    ``global_last``).  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    reg = (ctypes.c_int * 12)(*_region_table(program, box, off))
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), ctypes.addressof(reg), int(t), stream)
+
+
+def check_box(program, spec, box) -> None:
+    """Raise unless every read of a sub-step over ``box`` (each input's
+    read offsets around it) and every write stays inside the padded
+    arrays, and the box is not empty."""
+    dims = list(program.ana.domain_dims)
+    for d in dims:
+        lo, hi = box[d]
+        if hi <= lo:
+            raise YaskException(f"K5: empty box {box} in dim '{d}'")
+    slot = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
+    arrays = [(n, spec.reach.get(a, ((0, 0),) * 3))
+              for a, (n, _s) in enumerate(spec.inputs)]
+    arrays += [(n, ((0, 0),) * 3) for n in spec.outputs]
+    for name, reach in arrays:
+        g = program.geoms[name]
+        for d in g.domain_dims:
+            rlo, rhi = reach[slot[d]]
+            pl, pr = g.pads[d]
+            lo, hi = box[d]
+            if lo - rlo < -pl or hi + rhi > program.sizes[d] + pr:
+                raise YaskException(
+                    f"K5: box {box} with reads ({rlo}, {rhi}) of '{name}' "
+                    f"in dim '{d}' passes its pads {g.pads[d]}")
+
+
 def _check_inputs(kernel: "FusedKernel", state, lead=()):
     """The kernel's input tensors from ``state``, checked: CUDA, one
     device, the kernel's dtype, shape ``lead + padded shape``,
@@ -304,6 +372,117 @@ def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
 batched_step.launches = 0
 
 
+def _with_offset(program, off, device):
+    """``program`` seen from a shard at global origin ``off`` (a shallow
+    copy: the geometry is shared), its ops on ``device``."""
+    import copy
+    from yask_tpu_torch.compiler.lowering import TorchOps
+    p = copy.copy(program)
+    p.rank_offset = {d: int(off.get(d, 0)) for d in program.ana.domain_dims}
+    if getattr(p.ops, "device", None) != device:
+        p.ops = TorchOps(device)
+    return p
+
+
+def _box_idx(g, box):
+    """Index of ``box`` (interior coordinates) in a padded tensor of
+    geometry ``g``."""
+    return tuple(slice(g.origin[dn] + box[dn][0], g.origin[dn] + box[dn][1])
+                 if kind == "domain" else slice(None) for dn, kind in g.axes)
+
+
+def plain_shard_chunk(program, state, t: int, box):
+    """The plain version of K5: one sub-step from step ``t``, the shard's
+    ``StepProgram`` (``rank_offset`` = the shard's global origin, global
+    sizes) evaluated over ``box``, into a fresh zeroed tensor that keeps
+    the box's cells inside the global domain; rings rotated."""
+    import torch
+    computed: Dict = {}
+    scratch: Dict = {}
+    for si in range(len(program.ana.stages)):
+        program.eval_stage(si, t, state, computed, scratch, over=box)
+    inside = {}     # the box clipped to the global domain
+    for d, (lo, hi) in box.items():
+        o = program.rank_offset[d]
+        a = max(lo, -o)
+        inside[d] = (a, max(a, min(hi, program.global_last[d] + 1 - o)))
+    outs = {}
+    for name, val in computed.items():
+        idx = _box_idx(program.geoms[name], inside)
+        outs[name] = torch.zeros_like(val)
+        outs[name][idx] = val[idx]
+    return program.rotate(state, outs)
+
+
+def new_outputs(kernel: "FusedKernel", device):
+    """Fresh zeroed output tensors of one sub-step, one per output."""
+    import torch
+    from yask_tpu_torch.compiler.lowering import torch_dtype
+    prog = kernel.program
+    return [torch.zeros(tuple(prog.geoms[n].shape),
+                        dtype=torch_dtype(prog.dtype), device=device)
+            for n in kernel.spec.outputs]
+
+
+def plain_shard_step(kernel: "FusedKernel", state, t: int, box, off,
+                     outs=None):
+    """:func:`shard_step`'s plain version on the tensors' own device:
+    :func:`plain_shard_chunk` of the shard's program over ``box``, into
+    fresh outputs or the box of ``outs``."""
+    prog = kernel.program
+    new = plain_shard_chunk(
+        _with_offset(prog, off, kernel._device_of(state)), state, t, box)
+    if outs is None:
+        return new
+    for name, o in zip(kernel.spec.outputs, outs):
+        idx = _box_idx(prog.geoms[name], box)
+        o[idx] = new[name][-1][idx]
+    return _rotated(prog, kernel.spec, state, outs)
+
+
+def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
+    """K5: one sub-step of one shard over ``box`` (``{dim: (lo, hi)}``,
+    the shard's local interior coordinates, reaching into its pads where
+    the group needs it), the shard's global origin ``off``; returns the
+    shard's new state (rings rotated).  The outputs are fresh zeroed
+    tensors holding the box's cells, or the given ``outs``, of which only
+    the box is written (the core and the shells of an overlapped group
+    write disjoint boxes of one sub-step's outputs).  CPU tensors take
+    :func:`plain_shard_chunk`; CUDA tensors launch the kernel (counted in
+    ``shard_step.launches``) or raise."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    dev = kernel._device_of(state)
+    if spec.stages != 1:
+        raise YaskException(
+            f"K5 takes single-stage solutions; '{spec.name}' has "
+            f"{spec.stages} stages (ROADMAP.md A11 (multi-stage K5))")
+    check_box(prog, spec, box)
+    if dev.type == "cpu":
+        return plain_shard_step(kernel, state, t, box, off, outs)
+    if dev.type != "cuda":
+        raise YaskException(
+            f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
+    kernel.build()
+    ins, dev = _check_inputs(kernel, state)
+    if outs is None:
+        outs = new_outputs(kernel, dev)
+    with torch.cuda.device(dev):
+        rc = call_region_entry(kernel.region_fn, prog, spec, ins, outs, box,
+                               off, t,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise YaskException(
+            f"shard_step kernel '{spec.name}_region' launch failed: CUDA "
+            f"error {rc}")
+    shard_step.launches += 1
+    return _rotated(prog, spec, state, outs)
+
+
+shard_step.launches = 0
+
+
 def plain_batched_chunk(program, state, t0: int, k: int, nm: int):
     """The plain version of one K7 chunk: :func:`plain_chunk` on each
     member's view of the (nm, *shape) stacks, restacked."""
@@ -328,6 +507,7 @@ class FusedKernel:
         self.spec = cuda_emit.emit(program, push)
         self.fn = None
         self.batched_fn = None
+        self.region_fn = None
         self.build_secs = 0.0
         self.dtype = None
         #: where the last build() found the library: "memory" (already
@@ -350,9 +530,9 @@ class FusedKernel:
         return lib, secs
 
     def build(self) -> float:
-        """Build (nvcc at first use) and bind the entry points (K1 and K7
-        for one stage, K6 for several); returns the seconds it took.
-        Raises on a missing nvcc or a failed build."""
+        """Build (nvcc at first use) and bind the entry points (K1, K7
+        and K5 for one stage, K6 for several); returns the seconds it
+        took.  Raises on a missing nvcc or a failed build."""
         if self.fn is not None:
             self.cache_hit = "memory"
             return 0.0
@@ -360,15 +540,20 @@ class FusedKernel:
         fn = getattr(lib, self.spec.name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        bfn = None
+        bfn = rfn = None
         if self.spec.stages == 1:
             bfn = getattr(lib, self.spec.name + "_batched")
             bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                     ctypes.c_int,
                                                     ctypes.c_void_p]
             bfn.restype = ctypes.c_int
+            rfn = getattr(lib, self.spec.name + "_region")
+            rfn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
+                                                    ctypes.c_void_p]
+            rfn.restype = ctypes.c_int
         self.fn = fn
         self.batched_fn = bfn
+        self.region_fn = rfn
         return secs
 
     def chunk(self, state, t0: int, k: int):

@@ -6,7 +6,10 @@ a prepared solution, saved by INTERIOR coordinates.  Physical-boundary
 ghost cells are zero in every mode, so a snapshot taken under one
 mode/padding restores bit-identically into any other — which is what
 lets the server walk a faulted CPU session down the degradation ladder
-(``fused`` → ``torch``) from its last committed state.
+(``fused`` → ``torch``, ``shard_pallas`` → ``shard_map`` → ``torch``)
+from its last committed state; a shard-mode context is gathered first
+(``_materialize_state``), so a snapshot taken under ``torch`` restores
+under ``shard_pallas`` and the reverse.
 
 * in memory: :func:`extract_snapshot` / :func:`apply_snapshot` (the
   serving scheduler's rollback target);
@@ -37,10 +40,14 @@ __all__ = [
 
 CKPT_SCHEMA = "yask_tpu.checkpoint/1"
 
-#: On a classified fault, retry the run under a simpler mode.  ``torch``
-#: is the floor (and ``ref`` is an oracle, not a production mode — it
-#: never degrades).
+#: On a classified fault, retry the run under a simpler mode: the
+#: distributed-fused path first sheds K5, then the mesh; the single-device
+#: fused path sheds its kernel.  ``torch`` is the floor (and ``ref`` is an
+#: oracle, not a production mode — it never degrades).
 _LADDER = {
+    "shard_pallas": ("shard_map", "torch"),
+    "shard_map": ("torch",),
+    "sharded": ("torch",),
     "fused": ("torch",),
 }
 
@@ -51,8 +58,8 @@ def degradation_ladder(mode: str, on_card: bool = False) -> List[str]:
     A session whose tensors lie on the card has no ladder: a fused
     kernel that fails to build or launch there is a fault to report,
     never a cue to answer with the plain PyTorch version (ROADMAP.md
-    §C3).  On the CPU the fused mode already runs its plain version, so
-    stepping down to ``torch`` changes no kernel."""
+    §C3).  On the CPU the fused modes already run their plain versions,
+    so stepping down changes no kernel."""
     if on_card:
         return []
     return list(_LADDER.get(mode, ()))

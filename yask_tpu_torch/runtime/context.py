@@ -1,4 +1,4 @@
-"""The stencil context: ``yk_solution`` driving step programs on one device.
+"""The stencil context: ``yk_solution`` driving step programs on devices.
 
 Counterpart of ``yask_tpu/runtime/context.py`` (the reference's
 ``StencilContext``, ``src/kernel/lib/context.hpp:231-786``), main path
@@ -16,7 +16,15 @@ Execution modes (``-mode``):
   counterpart of ``pallas``); on CPU tensors its plain version runs.
   With ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
   instead (phase 1 and the diamond launches), the remainder on K1;
-* ``ref`` — the eager numpy oracle (the reference's ``run_ref``).
+* ``ref`` — the eager numpy oracle (the reference's ``run_ref``);
+* ``shard_map``, ``sharded``, ``shard_pallas`` — the domain decomposed
+  over the env's device list by ``-nr`` (:mod:`yask_tpu_torch.parallel`):
+  per-shard torch steps with a ghost exchange before each stage (``auto``
+  with more than one rank resolves to ``sharded``, which runs as
+  ``shard_map`` does, ROADMAP.md C9), or per-shard K5 sub-steps with one
+  exchange per group of ``wf_steps`` steps.  The shards stay resident
+  between runs; any host-visible access gathers them back
+  (:meth:`StencilContext._materialize_state`).
 
 Modes and settings of the reference package that this slice does not
 carry raise a :class:`YaskException` naming the ROADMAP.md item that
@@ -33,7 +41,7 @@ from yask_tpu_torch.utils.exceptions import YaskException
 from yask_tpu_torch.utils.cli import CommandLineParser
 from yask_tpu_torch.runtime.env import yk_env
 from yask_tpu_torch.runtime.run_state import RunState
-from yask_tpu_torch.runtime.settings import KernelSettings
+from yask_tpu_torch.runtime.settings import SHARD_MODES, KernelSettings
 from yask_tpu_torch.runtime.stats import yk_stats
 from yask_tpu_torch.runtime.var import yk_var, _to_numpy
 
@@ -79,6 +87,12 @@ class StencilContext:
         self._mode = None
         self._device = None
         self._fused = None            # FusedKernel, built at first use
+        # the shard modes: the device mesh, the per-(mode, K, knobs)
+        # CommPlans, and the per-shard layout (ShardLayout for shard_map/
+        # sharded, ShardPallasPlan for shard_pallas), made at first run
+        self._mesh = None
+        self._comm_plans: Dict[tuple, object] = {}
+        self._shard = None
         # the -trapezoid resolution: (TrapezoidKernel or None, reasons)
         self._trap = None
         # set by SolutionPipeline on the context of a merged chain: the
@@ -106,10 +120,15 @@ class StencilContext:
 
     @property
     def _state(self):
+        """The global padded state; a shard-resident state is gathered
+        back first (the lazy sync of every host-visible access)."""
+        if self._run.resident is not None:
+            self._materialize_state()
         return self._run.state
 
     @_state.setter
     def _state(self, v):
+        self._run.resident = None
         self._run.state = v
 
     @property
@@ -315,6 +334,9 @@ class StencilContext:
         pending = []
         if o.do_auto_tune:
             pending.append("-auto_tune: ROADMAP.md A6 (auto-tuner)")
+        if o.measure_halo_time:
+            pending.append("-measure_halo: ROADMAP.md A11 (halo "
+                           "calibration)")
         if o.ckpt_every > 0 or o.watchdog_every > 0 \
                 or o.run_deadline_secs > 0:
             pending.append("ckpt_every/watchdog_every/run_deadline: "
@@ -352,15 +374,22 @@ class StencilContext:
     def _plan_geometry(self):
         """Settings adjustment → mode resolution → var-geometry planning,
         without allocating state.  Sets ``self._mode``/``self._device``."""
-        self._opts.adjust_settings(1)
+        self._opts.adjust_settings(self._env.get_num_ranks())
         self._check_carried()
         mode = self._opts.mode
         if mode == "auto":
-            mode = "torch"
+            mode = ("torch" if self._opts.num_ranks.product() == 1
+                    else "sharded")
         if self._opts.force_scalar:
             mode = "ref"
         self._mode = mode
         self._device = self._resolve_device()
+        if mode in SHARD_MODES:
+            # the port's sharded mode runs the shard_map exchange, so it
+            # takes shard_map's geometry checks (ROADMAP.md C9)
+            from yask_tpu_torch.parallel.decomp import \
+                validate_shard_geometry
+            validate_shard_geometry(self._csol, self._opts)
         extra = {d: (self._opts.min_pad_sizes[d], self._opts.min_pad_sizes[d])
                  for d in self._ana.domain_dims}
         if mode == "fused" and self._trapezoid_arg() is not False:
@@ -376,13 +405,20 @@ class StencilContext:
         self._plan_kwargs = dict(extra_pad=extra)
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
-        if mode == "fused":
+        if mode in ("fused", "shard_pallas"):
             from yask_tpu_torch.ops.cuda_emit import fused_applicable
             ok, why = fused_applicable(prog)
             if not ok:
+                path, alt = (("fused kernel", "torch") if mode == "fused"
+                             else ("shard_pallas path", "shard_map"))
                 raise YaskException(
-                    f"solution '{self.get_name()}' cannot use the fused "
-                    f"kernel: {why}; use -mode torch")
+                    f"solution '{self.get_name()}' cannot use the {path}: "
+                    f"{why}; use -mode {alt}")
+        if mode == "shard_pallas" and len(self._ana.stages) > 1:
+            raise YaskException(
+                f"solution '{self.get_name()}' has {len(self._ana.stages)} "
+                "stages: K5 takes single-stage solutions (ROADMAP.md A11 "
+                "(multi-stage K5)); use -mode shard_map")
         return prog
 
     def prepare_solution(self) -> None:
@@ -394,6 +430,12 @@ class StencilContext:
         self._program = self._plan_geometry()
         self._fused = None
         self._trap = None
+        self._shard = None
+        self._comm_plans.clear()
+        self._mesh = None
+        if self._mode in SHARD_MODES:
+            from yask_tpu_torch.parallel.mesh import build_mesh
+            self._mesh = build_mesh(self._env, self._opts)
         self._state = self._program.alloc_state()
         self._state_on_device = self._mode != "ref"
         self._vars = {v.get_name(): yk_var(self, v.get_name())
@@ -418,10 +460,15 @@ class StencilContext:
             raise YaskException("prepare_solution has not been called")
 
     def _materialize_state(self) -> None:
-        """The lazy sync point before host-visible state access.  The
-        port keeps no device-resident sharded interiors (one device), so
-        this only checks that the active run state still holds arrays."""
-        if self._state is None:
+        """The lazy sync point before host-visible state access: a state
+        left resident on the shards by a shard-mode run is gathered back
+        into the global padded state, one var and ring slot at a time
+        (the reference's context.py:487-503)."""
+        rs = self._run
+        if rs.resident is not None:
+            from yask_tpu_torch.parallel.shard_step import gather_state
+            gather_state(self)
+        if rs.state is None:
             if getattr(self, "_ended", False):
                 raise YaskException(
                     "end_solution was called; call prepare_solution "
@@ -533,6 +580,12 @@ class StencilContext:
             self._run_ref_steps(start, n)
         elif self._mode == "fused":
             self._run_fused_steps(start, n)
+        elif self._mode == "shard_pallas":
+            from yask_tpu_torch.parallel.shard_step import run_shard_pallas
+            run_shard_pallas(self, start, n)
+        elif self._mode in ("shard_map", "sharded"):
+            from yask_tpu_torch.parallel.shard_step import run_shard_map
+            run_shard_map(self, start, n)
         else:
             self._run_torch_steps(start, n)
         self._cur_step = start + n * self._ana.step_dir
@@ -636,6 +689,20 @@ class StencilContext:
             self._last_cache_hit = "plain"
         return kern
 
+    def comm_plan(self, K: Optional[int] = None):
+        """The communication schedule (CommPlan) of the configured shard
+        mode, derived once per (mode, K, knobs) and cached; the exchange
+        paths and the tiling report consume this one instance."""
+        from yask_tpu_torch.parallel.comm_plan import build_comm_plan
+        mode = self._mode or self._opts.mode
+        if K is None:
+            K = max(self._opts.wf_steps, 1) if mode == "shard_pallas" \
+                else 1
+        key = (mode, int(K), self._opts.comm_order, self._opts.coalesce)
+        if key not in self._comm_plans:
+            self._comm_plans[key] = build_comm_plan(self, K=K)
+        return self._comm_plans[key]
+
     def _fused_variant_key(self) -> tuple:
         """The settings beyond (profile, mode) that change what a fused
         chunk runs, so that requests are batched only onto one kernel:
@@ -644,7 +711,20 @@ class StencilContext:
         hash of its source), the trapezoid request, the push request and
         the pipeline signature (a push and a no-push build, a K4 and a K1
         group, or a merged chain and a solution of the same equations,
-        never share a kernel); the other modes run no kernel."""
+        never share a kernel).  The shard modes add the mesh, the comm
+        plan's key and the overlap setting; ``torch`` and ``ref`` run no
+        kernel."""
+        if self._mode in SHARD_MODES:
+            mesh = (tuple(self._mesh.shape.items()),
+                    tuple(str(d) for d in self._mesh.devices.flat))
+            if self._mode != "shard_pallas":
+                return (self._mode, mesh, self.comm_plan().key(),
+                        self._opts.overlap_comms)
+            from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+            K = max(self._opts.wf_steps, 1)
+            return ("shard_pallas", K,
+                    shard_pallas_plan(self).kernel.spec.name, mesh,
+                    self.comm_plan(K).key(), self._opts.overlap_exchange)
         if self._mode != "fused":
             return (self._mode,)
         return ("fused", max(self._opts.wf_steps, 1),
@@ -762,6 +842,15 @@ class StencilContext:
         c = self._ana.counters
         rb_pp, wb_pp = self.hbm_model_bytes_pp()
         tiling = None
+        hbm_peak = (self._env.get_hbm_peak_bytes_per_sec()
+                    if self.is_offloaded() else 0.0)
+        if self._mode in SHARD_MODES:
+            # throughput is over the global domain, so the roofline
+            # denominator counts every card of the mesh (repeats of one
+            # card count once)
+            hbm_peak *= self._mesh.num_cards()
+            if self._mode == "shard_pallas" and self._shard is not None:
+                tiling = self._shard.tiling
         if self._mode == "fused" and self._fused is not None:
             K = max(self._opts.wf_steps, 1)
             trap, reasons = self._trap or (None, [])
@@ -781,9 +870,7 @@ class StencilContext:
             halo_secs=self._halo_timer.get_elapsed_secs(),
             compile_secs=self._compile_secs,
             read_bytes_pp=rb_pp, write_bytes_pp=wb_pp,
-            hbm_peak=(self._env.get_hbm_peak_bytes_per_sec()
-                      if self.is_offloaded() else 0.0),
-            tiling=tiling)
+            hbm_peak=hbm_peak, tiling=tiling)
 
     def clear_stats(self) -> None:
         self._run_timer.clear()
@@ -811,6 +898,7 @@ class StencilContext:
         self._program = None
         self._fused = None
         self._trap = None
+        self._shard = None
         self._ended = True
 
     def apply_command_line_options(self, args) -> List[str]:

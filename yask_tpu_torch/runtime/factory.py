@@ -1,7 +1,7 @@
 """Kernel factory: ``yk_factory``.
 
 Counterpart of ``yask_tpu/runtime/factory.py`` (reference ``yk_factory``,
-``src/kernel/lib/factory.cpp:36-107``): ``new_env`` picks the device,
+``src/kernel/lib/factory.cpp:36-107``): ``new_env`` picks the devices,
 ``new_solution`` instantiates a runnable context from a DSL solution
 object or a registered stencil name.
 """
@@ -20,10 +20,11 @@ class yk_factory:
         from yask_tpu_torch import __version__
         return __version__
 
-    def new_env(self, device=None) -> yk_env:
-        """An env on ``cuda:0``, or on ``device`` when given (``"cpu"``
-        is the only way onto the CPU)."""
-        return yk_env(device=device)
+    def new_env(self, device=None, devices=None) -> yk_env:
+        """An env over every visible CUDA device, or over ``device`` or
+        the list ``devices`` when given (repeats allowed; ``"cpu"`` is
+        the only way onto the CPU)."""
+        return yk_env(device=device, devices=devices)
 
     def new_solution(self, env: yk_env, source=None, *,
                      stencil: Optional[str] = None,

@@ -3,13 +3,14 @@
 Counterpart of ``yask_tpu/runtime/settings.py`` (the reference's
 ``KernelSettings``, ``src/kernel/lib/settings.hpp:200-327``) with the
 port's execution modes and a ``-device`` option.  It keeps the domain
-geometry, tiling and decomposition knobs, the parity no-ops, and the knobs
-of paths still to port (auto-tuner, supervised runs):
-those are parsed so reference command lines keep working, and the context
-raises when one is set (``StencilContext._check_carried``).  ``-ensemble``
-sets the default size of ``new_ensemble()``.
-The TPU-only knobs of the reference (VMEM budgets, skew, exchange
-scheduling, checker preflight, serving) come with the ROADMAP.md items
+geometry, tiling and decomposition knobs, the exchange scheduling of the
+shard modes (``-overlap_comms``, ``-overlap_x``, ``-comm_order``,
+``-coalesce``), the parity no-ops, and the knobs of paths still to port
+(auto-tuner, supervised runs, halo calibration): those are parsed so
+reference command lines keep working, and the context raises when one is
+set (``StencilContext._check_carried``).  ``-ensemble`` sets the default
+size of ``new_ensemble()``.  The TPU-only knobs of the reference (VMEM
+budgets, skew, checker preflight, serving) come with the ROADMAP.md items
 that port their paths.
 """
 
@@ -29,15 +30,17 @@ MODES = ("auto",       # resolves to "torch" (as "auto" resolves to "jit")
          "fused",      # the hand-written CUDA kernel, one launch per
          #               sub-step (the counterpart of "pallas")
          "ref",        # eager numpy oracle (the reference's run_ref)
+         "sharded",    # the per-shard torch step and exchange of
+         #               shard_map, the resting state kept per shard (the
+         #               reference's XLA-inserted collectives, ROADMAP.md C9)
+         "shard_map",  # per-shard torch step + ghost exchange before each
+         #               stage that reads at an offset
+         "shard_pallas",  # per-shard K5 sub-steps + one exchange per group
+         #                  of wf_steps steps (the scaling path)
          )
 
-#: yask_tpu's modes this port does not carry yet, with the ROADMAP.md item
-#: that brings each.
-PENDING_MODES = {
-    "sharded": "A11 (distributed: K5 and the shard modes)",
-    "shard_map": "A11 (distributed: K5 and the shard modes)",
-    "shard_pallas": "A11 (distributed: K5 and the shard modes)",
-}
+#: The modes that run over a mesh of devices.
+SHARD_MODES = ("sharded", "shard_map", "shard_pallas")
 
 
 class KernelSettings:
@@ -57,8 +60,19 @@ class KernelSettings:
         self.mode = "auto"
         self.device = ""           # torch device ("" = the env's device)
         self.force_scalar = False  # run the numpy oracle path
-        # Accepted for reference parity; no effect on one device.
+        # Shard modes: split each stage (shard_map, sharded) into a core
+        # on the pre-exchange state and shells on the post-exchange state.
         self.overlap_comms = True
+        # shard_pallas: the core/shell split of each K-group with the
+        # exchange on a second CUDA stream: auto|on|off (on raises where
+        # the split is infeasible).
+        self.overlap_exchange = "auto"
+        # Mesh-axis exchange order ("" = the CommPlan's cost model) and
+        # message coalescing (auto|on|off) of the shard modes.
+        self.comm_order = ""
+        self.coalesce = "auto"
+        # Halo-time calibration: not ported (ROADMAP.md A11); raises.
+        self.measure_halo_time = False
         self.use_shm = True
         self.use_device_mpi = True
         self.max_threads = 0
@@ -96,8 +110,8 @@ class KernelSettings:
             "mp", "Minimum extra pad in each dim.", self,
             "min_pad_sizes", dd)
         parser.add_idx_option(
-            "nr", "Number of ranks in each dim (one device: 1).", self,
-            "num_ranks", dd)
+            "nr", "Number of ranks (mesh extent) in each dim; -1 factors "
+            "the env's devices into a grid.", self, "num_ranks", dd)
         parser.add_int_option(
             "wf_steps", "Steps per chunk (K of the fused kernel's "
             "chunks).", self, "wf_steps")
@@ -109,8 +123,29 @@ class KernelSettings:
         parser.add_bool_option(
             "force_scalar", "Use the eager numpy oracle instead of the "
             "compiled path.", self, "force_scalar")
-        for name, attr in (("overlap_comms", "overlap_comms"),
-                           ("use_shm", "use_shm"),
+        parser.add_bool_option(
+            "overlap_comms", "Shard modes: compute each stage's core on the "
+            "pre-exchange state and its shells after the exchange.", self,
+            "overlap_comms")
+        parser.add_bool_option(
+            "measure_halo", "Measure halo-exchange time (not ported yet: "
+            "ROADMAP.md A11).", self, "measure_halo_time")
+        parser.add_string_option(
+            "overlap_x", "shard_pallas overlapped exchange: auto|on|off "
+            "(the core of each K-group runs while the exchange copies on a "
+            "second CUDA stream, then the shell slabs; auto declines it "
+            "when every shard sits on one card).", self,
+            "overlap_exchange")
+        parser.add_string_option(
+            "comm_order", "Mesh-axis ghost-exchange order for the shard "
+            "modes, e.g. 'y,x' (empty = the CommPlan's cost model).", self,
+            "comm_order")
+        parser.add_string_option(
+            "coalesce", "Ghost-exchange message coalescing: auto|on|off "
+            "(one packed copy per mesh axis, direction and neighbour pair "
+            "instead of one per buffer; auto declines it when every shard "
+            "sits on one card).", self, "coalesce")
+        for name, attr in (("use_shm", "use_shm"),
                            ("use_device_mpi", "use_device_mpi")):
             parser.add_bool_option(
                 name, "Accepted for reference parity (no effect).", self,
@@ -155,23 +190,29 @@ class KernelSettings:
     def adjust_settings(self, num_devices: int = 1) -> None:
         """Derive unset values (reference ``adjust_settings``,
         ``settings.cpp``): rank grid and global↔rank domain sizes."""
-        if self.mode in PENDING_MODES:
-            raise YaskException(
-                f"mode '{self.mode}' is not ported yet: it comes with "
-                f"ROADMAP.md {PENDING_MODES[self.mode]}; one of {MODES}")
         if self.mode not in MODES:
             raise YaskException(f"unknown mode '{self.mode}'; one of {MODES}")
 
-        # Rank grid: one rank, as in the reference unless the user asks for
-        # decomposition; the port runs one device (num_devices is 1).
+        # Rank grid: like the reference, one rank unless the user asks for
+        # decomposition (-nr, or a shard mode).  -1 in any dim factors all
+        # devices over the grid, keeping the minor-most dim whole.
         nr = self.num_ranks
         if any(v < 0 for v in nr.get_vals()):
-            raise YaskException(
-                "an automatic rank grid (-nr -1) comes with ROADMAP.md A11 "
-                "(distributed: K5 and the shard modes)")
-        for d in self.domain_dims:
-            if nr[d] == 0:
+            from yask_tpu_torch.parallel.decomp import factorize_rank_grid
+            auto = factorize_rank_grid(max(num_devices, 1), self.domain_dims)
+            for d in self.domain_dims:
+                nr[d] = auto[d]
+        elif all(v == 0 for v in nr.get_vals()) and num_devices > 1 \
+                and self.mode in SHARD_MODES:
+            # distribution requested by the mode but no grid given: split
+            # the outer-most dim
+            for d in self.domain_dims:
                 nr[d] = 1
+            nr[self.domain_dims[0]] = num_devices
+        else:
+            for d in self.domain_dims:
+                if nr[d] == 0:
+                    nr[d] = 1
         if nr.product() > max(num_devices, 1):
             raise YaskException(
                 f"rank grid {nr} needs {nr.product()} devices, "

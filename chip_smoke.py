@@ -10,21 +10,29 @@ script exits 0 only when all of them passed.  Phases:
 
 1. identify the card (``nvidia-smi`` name and power limit) and build every
    kernel of the path, one ``nvcc`` per source, all started together;
-2. hold the fused kernel (``-mode fused``) against its plain version
-   (``-mode torch``) on a numpy-seeded random state: iso3dfd r=8 and 3axis
-   r=1 at 64³, K ∈ {1, 2}, 5 steps (so a remainder chunk runs), 0
-   mismatches at ``compare_data(field_epsilon=1e-4)``, the repo's
-   tolerance for a fused kernel against its unfused path (the build turns
-   FMA contraction off, so the two should in fact agree to the bit);
-3. validate ``fused`` against the numpy oracle (``-mode ref``) at 32³ for
+2. hold each arm of K1 (``-mode fused``: the stream arm ``stream_step``
+   under ``-skew``, K1's 3-D tiles ``fused_step`` under ``-no-skew``)
+   against its plain version (``-mode torch``) on a numpy-seeded random
+   state: iso3dfd r=8 and 3axis r=1 at 64³, K ∈ {1, 2}, 5 steps (so a
+   remainder chunk runs), 0 mismatches at
+   ``compare_data(field_epsilon=1e-4)``, the repo's tolerance for a fused
+   kernel against its unfused path (the build turns FMA contraction off,
+   so the two should in fact agree to the bit), 5 launches of the arm and
+   of nothing else; and the two arms against each other to the bit
+   (``compare_data(epsilon=0)``);
+3. validate both arms against the numpy oracle (``-mode ref``) at 32³ for
    2 steps with ``compare_data``'s defaults;
 4. the main path at full width: iso3dfd r=8 at 512³, fp32, ``-mode fused
    -wf_steps 2`` through ``yk_factory → new_solution →
    apply_command_line_options → prepare_solution → init vars →
-   run_solution``: a warm-up, then 3 trials of 20 steps, with the launch
-   counter zeroed just before and read just after; then, outside that
-   window, the kernel's time per launch and its plain version's on the
-   main path's shapes, and one chunk of each from the same state compared;
+   run_solution``, with ``-skew``'s default (the stream arm), then the same
+   with ``-no-skew`` (K1) from the same seeded state: each a warm-up, then
+   3 trials of 20 steps, with every launch counter zeroed just before and
+   read just after (only the selected arm may launch); the two arms
+   bit-equal after the same steps (compared on the card); then, outside
+   those windows, each arm's time per launch (CUDA events) against the
+   16 B/pt bound, the plain version's time, and one chunk of each against
+   it from the same state; the same two arms at iso3dfd r=2 512³;
 5. the serving path: a ``StencilServer`` with 8 ``-mode fused`` sessions
    of iso3dfd r=8 at 256³ (the same points as phase 4's 512³), each
    seeded through ``set_var_slice``; one warm-up request per session,
@@ -48,19 +56,20 @@ script exits 0 only when all of them passed.  Phases:
    (push) and accumulating chains at a ragged 67×45×131 and the pure r=8
    chain at 64³ (the shared-memory ladder steps down), 4 steps, one
    launch each; (b) the push and ``-push off`` fused arms against the
-   host-chained arm (one K1 per stage, bindings copied through the host)
-   at 96³, ``compare == 0``; (c) the path at full size: r=2, 512³ fp32,
-   ``fwd.pressure`` seeded in every ring slot from ``RandomState(7)``
-   (and ``fwd.vel``), 2 warm-up steps, then 3 trials of 20 steps with
-   the counters zeroed just before (60 K6 launches, no K1 or K7), for
+   host-chained arm (one K1 per stage under ``-no-skew``, bindings copied
+   through the host) at 96³, ``compare == 0``; (c) the path at full size:
+   r=2, 512³ fp32, ``fwd.pressure`` seeded in every ring slot from
+   ``RandomState(7)`` (and ``fwd.vel``), 2 warm-up steps, then 3 trials
+   of 20 steps with the counters zeroed just before (60 K6 launches and
+   no other), for
    the push arm and the ``-push off`` arm, each against its bound (20
    and 24 B per point), then ``end()``;
 7. the trapezoid path: ``-mode fused -wf_steps K -trapezoid``, where each
    group of K steps is one launch of K4's phase 1 (K levels per tile in
    one launch) plus one diamond launch per trapezoid dim, the remainder
-   steps on K1.  (a) Forced (``trap_ctx(force=True)``) on small ragged
-   grids,
-   each with at least three tile boundaries in every trapezoid dim and a
+   steps on K1 (every context of the phase runs ``-no-skew``).  (a)
+   Forced (``trap_ctx(force=True)``) on small ragged grids, each with at
+   least three tile boundaries in every trapezoid dim and a
    remainder group: iso3dfd r=2 K=4 and K=3, cube r=1 K=4,
    iso3dfd_sponge r=2 K=2 and the 2-D wave2d r=8 K=2.  Each is held
    against its plain version on CUDA tensors (``-mode torch``; max |Δ|
@@ -139,11 +148,54 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def make_ctx(fac, env, stencil, radius, g, mode, wf=1):
+def make_ctx(fac, env, stencil, radius, g, mode, wf=1, cli=""):
     ctx = fac.new_solution(env, stencil=stencil, radius=radius)
-    ctx.apply_command_line_options(f"-g {g} -mode {mode} -wf_steps {wf}")
+    ctx.apply_command_line_options(
+        f"-g {g} -mode {mode} -wf_steps {wf} {cli}")
     ctx.prepare_solution()
     return ctx
+
+
+#: The two arms of K1: the stream arm (``-skew``, the default) and K1's
+#: 3-D tiles (``-no-skew``), with the counter each launch bumps.
+ARMS = (("stream_step", "-skew"), ("fused_step", "-no-skew"))
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch counter."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    return {"fused_step": fs.fused_step.launches,
+            "stream_step": fs.stream_step.launches,
+            "batched_step": fs.batched_step.launches,
+            "stages_step": fs.stages_step.launches,
+            "shard_step": fs.shard_step.launches,
+            "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
+            "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches}
+
+
+def zero_launch_counts() -> None:
+    from yask_tpu_torch.ops import fused_stencil as fs
+    for w in (fs.fused_step, fs.stream_step, fs.batched_step,
+              fs.stages_step, fs.shard_step):
+        w.launches = 0
+    fs.trapezoid_chunk.phase1_launches = 0
+    fs.trapezoid_chunk.diamond_launches = 0
+
+
+def ptxas_summary(log_text: str) -> str:
+    """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
+    names = (("stream_step_kernel", "stream arm"), ("fused_region_kernel",
+             "K5"), ("fused_step_kernelI4SpecLb1", "K7"),
+             ("fused_step_kernelI4SpecLb0", "K1"),
+             ("fused_stages_kernel", "K6"), ("trapezoid_kernel", "K4 phase 1"),
+             ("diamond_kernel", "K4 diamond"))
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = next((label for key, label in names if key in ln), "?")
+        elif cur and ("registers" in ln or "spill" in ln):
+            out.append(f"{cur}: {ln.split(':', 1)[-1].strip()}")
+    return " | ".join(out)
 
 
 def seed_slices(ctx, seed: int):
@@ -202,6 +254,247 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def phase2(fac, env, cases, g: int = 64) -> None:
+    """Each arm of K1 against its plain version, and the arms against each
+    other (see the module docstring)."""
+    for st, r in cases.items():
+        for K in (1, 2):
+            steps = 5
+            plain = make_ctx(fac, env, st, r, g, "torch", K)
+            seed_random(plain, 7)
+            plain.run_solution(0, steps - 1)
+            arms = {}
+            for arm, cli in ARMS:
+                fused = make_ctx(fac, env, st, r, g, "fused", K, cli)
+                seed_random(fused, 7)
+                c0 = launch_counts()
+                fused.run_solution(0, steps - 1)
+                got = {k: v - c0[k] for k, v in launch_counts().items()
+                       if v != c0[k]}
+                bad = fused.compare_data(plain, field_epsilon=FIELD_EPS)
+                d = max_abs_diff(fused, plain)
+                log(f"phase 2: {st} r={r} g={g} K={K} {steps} steps {cli}: "
+                    f"fused vs torch max|d|={d:.3e} mismatches={bad} "
+                    f"(field_epsilon={FIELD_EPS}), launches {got}")
+                if bad:
+                    raise RuntimeError(f"phase 2: {st} K={K} {cli}: {bad} "
+                                       "mismatches")
+                if got != {arm: steps}:
+                    raise RuntimeError(
+                        f"phase 2: {st} K={K} {cli}: launches {got}, "
+                        f"expected {{{arm!r}: {steps}}}")
+                arms[arm] = fused
+            bad = arms["stream_step"].compare_data(
+                arms["fused_step"], epsilon=0.0, abs_epsilon=0.0)
+            log(f"phase 2: {st} r={r} g={g} K={K}: stream arm vs K1 "
+                f"compare_data(epsilon=0) = {bad}")
+            if bad:
+                raise RuntimeError(f"phase 2: {st} K={K}: the stream arm is "
+                                   "not bit-equal to K1")
+            del arms
+
+
+def phase3(fac, env, cases, g: int = 32) -> None:
+    """Both arms of K1 against the numpy oracle (see the module
+    docstring)."""
+    from yask_tpu_torch.runtime.init_utils import init_solution_vars
+    for st, r in cases.items():
+        ref = make_ctx(fac, env, st, r, g, "ref")
+        init_solution_vars(ref)
+        ref.run_solution(0, 1)
+        for _arm, cli in ARMS:
+            fused = make_ctx(fac, env, st, r, g, "fused", 1, cli)
+            init_solution_vars(fused)
+            fused.run_solution(0, 1)
+            bad = fused.compare_data(ref)
+            log(f"phase 3: {st} r={r} g={g} 2 steps {cli}: fused vs ref "
+                f"max|d|={max_abs_diff(fused, ref):.3e} mismatches={bad} "
+                "(compare_data defaults)")
+            if bad:
+                raise RuntimeError(f"phase 3: {st} {cli}: {bad} mismatches "
+                                   "vs ref")
+
+
+def arm_run(fac, env, r: int, g: int, cli: str, warm: int, trials: int,
+            steps: int, seed: int = 11):
+    """One run of iso3dfd radius ``r`` at ``g``³ fp32, ``-mode fused
+    -wf_steps 2`` plus ``cli``, through the user's entry points, from a
+    numpy-seeded state: a warm-up, then ``trials`` runs of ``steps``
+    steps, every launch counter zeroed just before and read just after.
+    Returns the context, the next step, the sorted rates and the counts
+    that moved."""
+    import torch
+    zero_launch_counts()
+    ctx = fac.new_solution(env, stencil="iso3dfd", radius=r)
+    ctx.apply_command_line_options(f"-g {g} -mode fused -wf_steps 2 {cli}")
+    ctx.prepare_solution()
+    seed_random(ctx, seed)
+    ctx.run_solution(0, warm - 1)
+    t = warm
+    rates = []
+    for _ in range(trials):
+        ctx.clear_stats()
+        ctx.run_solution(t, t + steps - 1)
+        t += steps
+        rates.append(ctx.get_stats().get_pts_per_sec())
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    return ctx, t, sorted(rates), got
+
+
+def phase4(fac, env, card: str, g: int = 512, warm: int = 2,
+           trials: int = 3, steps: int = 20):
+    """The main path at full width and K1's other arm beside it (see the
+    module docstring); returns the main path's ms/step and the ``kernels``
+    entries of K1 and of its stream arm."""
+    import numpy as np
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (fused_step, plain_chunk,
+                                                  stream_step)
+    wrappers = {"fused_step": fused_step, "stream_step": stream_step}
+    npts = g ** 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    # the main path takes -skew's default; then -no-skew from the same seed
+    for arm, cli in (("stream_step", ""), ("fused_step", "-no-skew")):
+        ctx, t, rates, got = arm_run(fac, env, 8, g, cli, warm, trials,
+                                     steps)
+        til = ctx.get_stats().get_tiling()
+        if got != {arm: warm + trials * steps} or til["kernel"] != arm:
+            raise RuntimeError(f"phase 4 {cli or '(default)'}: launches "
+                               f"{got}, arm {til['kernel']}; expected "
+                               f"{warm + trials * steps} of {arm}")
+        out = ctx.get_var("pressure").get_elements_in_slice(
+            [t, 0, 0, 0], [t, g - 1, g - 1, g - 1])
+        if out.shape != (g, g, g) or not np.isfinite(out).all() \
+                or not np.abs(out).max() > 0:
+            raise RuntimeError("phase 4: pressure is not finite and "
+                               "nonzero")
+        del out
+        mid = rates[len(rates) // 2]
+        step_ms = npts / mid * 1e3
+        log(f"phase 4: iso3dfd r=8 g={g} fp32 -mode fused -wf_steps 2 "
+            f"{cli or '(the main path; -skew by default)'}: {trials} trials "
+            f"x {steps} steps: mid {mid:.4e} points/s ({mid / 1e9:.3f} "
+            f"GPts/s), {step_ms:.3f} ms/step (min "
+            f"{npts / rates[-1] * 1e3:.3f}, max {npts / rates[0] * 1e3:.3f})"
+            f"; launches in the window {got} ({warm} warm-up + "
+            f"{trials}x{steps} steps, 1 per step); tiling: kernel "
+            f"{til['kernel']}, tile {til['tile']}, smem {til['smem_bytes']} "
+            f"B, skew {til['skew_reasons'][0]}")
+        runs[arm] = {"ctx": ctx, "t": t, "step_ms": step_ms,
+                     "launches": got[arm]}
+    log(f"phase 4: torch.cuda.max_memory_allocated() = "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (both arms)")
+    d, bad = device_diff(runs["stream_step"]["ctx"], runs["fused_step"]["ctx"],
+                         exact=True)
+    log(f"phase 4: after {runs['fused_step']['t']} steps from the same seed: "
+        f"stream arm vs K1: {bad} cells differ (max|d|={d:.3e})")
+    if bad:
+        raise RuntimeError("phase 4: the stream arm and K1 differ at 512^3")
+
+    # the bound: each input read once, each output written once, interior
+    ctx = runs["fused_step"]["ctx"]
+    ops_pp = ctx._ana.counters.num_ops
+    prog = ctx._program
+    spec = ctx._fused.spec
+    bytes_step = 4 * npts * (len(spec.inputs) + len(spec.outputs))
+    bytes_ms = bytes_step / HBM_BYTES_PER_S * 1e3
+    flops_ms = ops_pp * npts / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    log(f"phase 4: bound {bound_ms:.3f} ms/step ({bound_by}: "
+        f"{bytes_step / npts:.0f} B/pt -> {bytes_ms:.3f} ms at 3.35 TB/s; "
+        f"{ops_pp} FLOP/pt -> {flops_ms:.3f} ms at 67 TFLOP/s fp32); share "
+        f"of bound: stream arm {bound_ms / runs['stream_step']['step_ms']:.3f}"
+        f", K1 {bound_ms / runs['fused_step']['step_ms']:.3f}")
+
+    # outside the counted windows: per-launch times on the main path's
+    # shapes, and one chunk of each arm against the plain version
+    state = ctx._state
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, runs["fused_step"]
+                                           ["t"], 2), 3) / 2
+    entries = {}
+    for arm, run in runs.items():
+        kern, state, t = run["ctx"]._fused, run["ctx"]._state, run["t"]
+        ms = cuda_ms(lambda: wrappers[arm](kern, state, t), 10)
+        a = kern.chunk(dict(state), t, 2)
+        b = plain_chunk(prog, dict(state), t, 2)
+        err = max(float((x - y).abs().max()) for n in a
+                  for x, y in zip(a[n], b[n]))
+        scale = max(float(x.abs().max()) for n in b for x in b[n])
+        del a, b
+        log(f"phase 4: {arm}: one 2-step chunk at {g}^3 vs plain: max|d|="
+            f"{err:.3e} (field max {scale:.3e}; tolerance field_epsilon "
+            f"{FIELD_EPS} x field max); {ms:.3f} ms/launch (CUDA events, "
+            f"{'the zero-filled' if arm == 'fused_step' else 'an empty'} "
+            f"output included), share of bound {bound_ms / ms:.3f}; plain "
+            f"version {plain_ms:.3f} ms/step [{card}]")
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError(f"phase 4: {arm} and its plain version "
+                               "disagree")
+        entries[arm] = {
+            "name": arm, "route": "cuda", "launches": run["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"launch, iso3dfd r=8 {g}^3 fp32",
+            "step_ms": run["step_ms"]}
+    entries["fused_step"].update(
+        source="yask_tpu_torch/csrc/fused_step.cuh",
+        replaces="yask_tpu/ops/pallas_stencil.py:2312",
+        path="phase 4, -no-skew")
+    entries["stream_step"].update(
+        source="yask_tpu_torch/csrc/stream_step.cuh",
+        replaces="yask_tpu/ops/pallas_stencil.py:1445 (K2: gate :1445-1502, "
+                 "in_dmas/out_dmas :1668-1813, prefetch/retire :1815-1854; "
+                 "K3: skew_* :306-441, carry_shape :1337, carry patch "
+                 ":1955-2056)",
+        path="phase 4, the main path")
+    main_ms = runs["stream_step"]["step_ms"]
+    del runs, ctx, state, kern
+
+    torch_ctx = fac.new_solution(env, stencil="iso3dfd", radius=8)
+    torch_ctx.apply_command_line_options(f"-g {g} -mode torch -wf_steps 2")
+    torch_ctx.prepare_solution()
+    seed_random(torch_ctx, 11)
+    torch_ctx.run_solution(0, warm - 1)
+    torch_ctx.clear_stats()
+    torch_ctx.run_solution(warm, warm + steps - 1)
+    tr = torch_ctx.get_stats().get_pts_per_sec()
+    log(f"phase 4: -mode torch (the plain version, not a yardstick): "
+        f"{tr:.4e} points/s, {npts / tr * 1e3:.3f} ms/step over {steps} "
+        "steps")
+    del torch_ctx
+    torch.cuda.empty_cache()
+
+    # iso3dfd r=2 at 512^3, both arms (the same 16 B/pt bound)
+    r2 = {}
+    for arm, cli in ARMS:
+        ctx, t, rates, got = arm_run(fac, env, 2, g, cli, warm, trials,
+                                     steps)
+        if got != {arm: warm + trials * steps}:
+            raise RuntimeError(f"phase 4: r=2 {cli}: launches {got}")
+        step_ms = npts / rates[len(rates) // 2] * 1e3
+        kern, state = ctx._fused, ctx._state
+        ms = cuda_ms(lambda: wrappers[arm](kern, state, t), 10)
+        log(f"phase 4: iso3dfd r=2 g={g} fp32 -mode fused -wf_steps 2 {cli}:"
+            f" {step_ms:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, max "
+            f"{npts / rates[0] * 1e3:.3f}), {arm} {ms:.3f} ms/launch, share "
+            f"of bound {bound_ms / ms:.3f}; launches {got} [{card}]")
+        entries[arm].update(r2_ms=ms, r2_step_ms=step_ms)
+        r2[arm] = ctx
+        del kern, state
+    d, bad = device_diff(r2["stream_step"], r2["fused_step"], exact=True)
+    log(f"phase 4: r=2 after {warm + trials * steps} steps: stream arm vs "
+        f"K1: {bad} cells differ (max|d|={d:.3e})")
+    if bad:
+        raise RuntimeError("phase 4: r=2: the stream arm and K1 differ")
+    del r2
+    torch.cuda.empty_cache()
+    return main_ms, entries["fused_step"], entries["stream_step"]
+
+
 def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
     """The serving path at full width (see the module docstring); returns
     K7's entry of the ``kernels`` line."""
@@ -209,7 +502,7 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
     import numpy as np
     import torch
     from yask_tpu_torch.obs.tracer import read_spans
-    from yask_tpu_torch.ops.fused_stencil import (batched_step, fused_step,
+    from yask_tpu_torch.ops.fused_stencil import (batched_step,
                                                   plain_batched_chunk)
     from yask_tpu_torch.serve import StencilServer
     from yask_tpu_torch.serve.resident import run_per_request
@@ -244,8 +537,7 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
                                f"{[(r.status, r.error) for r in warm_rs]}")
 
         # the counted window: 8 requests of 20 steps, submitted together
-        fused_step.launches = 0
-        batched_step.launches = 0
+        zero_launch_counts()
         with open(trace_path, "a"):
             pass
         span0 = len(read_spans(trace_path))
@@ -254,8 +546,8 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
                    for sid in sids]
         resps = [srv.wait(h, timeout=600) for h in handles]
         wall = time.perf_counter() - t0
-        k7_launches = batched_step.launches
-        k1_launches = fused_step.launches
+        moved = {k: v for k, v in launch_counts().items() if v}
+        k7_launches = moved.pop("batched_step", 0)
         for r in resps:
             if not (r.ok and r.batch == nses and r.batched
                     and not r.degraded):
@@ -263,13 +555,13 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
                     f"phase 5: response {r.rid}: status {r.status}, batch "
                     f"{r.batch}, batched {r.batched}, degraded "
                     f"{r.degraded}, error {r.error!r}")
-        if k7_launches != steps or k1_launches != 0:
+        if k7_launches != steps or moved:
             raise RuntimeError(
-                f"phase 5: {k7_launches} K7 launches and {k1_launches} K1 "
-                f"launches in the served window, expected {steps} and 0")
+                f"phase 5: {k7_launches} K7 launches and {moved} others in "
+                f"the served window, expected {steps} and none")
         log(f"phase 5: {nses} requests of {steps} steps: all ok at "
             f"occupancy {nses}, batched, none degraded; batched_step "
-            f"launches {k7_launches}, fused_step launches {k1_launches}")
+            f"launches {k7_launches}, no other kernel launched")
 
         spans = read_spans(trace_path)[span0:]
 
@@ -291,7 +583,7 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
             f"last answer, release included)")
         log(f"phase 5: ensemble run {ens_s * 1e3:.1f} ms = "
             f"{ens_s * 1e3 / steps:.3f} ms per batched step (stacking, "
-            f"{steps} K7 launches, sync, unstacking) beside phase 4's "
+            f"{steps} K7 launches, sync, unstacking) beside phase 4's K1 "
             f"{phase4_step_ms:.3f} ms per 512^3 step")
         log(f"phase 5: per-chunk extract_snapshot host copies "
             f"{snap_s * 1e3:.1f} ms = {snap_s * 1e3 / p(tot, .5):.3f} of "
@@ -450,8 +742,8 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
     ``kernels`` line."""
     import numpy as np
     import torch
-    from yask_tpu_torch.ops.fused_stencil import (batched_step, fused_step,
-                                                  plain_chunk, stages_step)
+    from yask_tpu_torch.ops.fused_stencil import (fused_step, plain_chunk,
+                                                  stages_step)
 
     # (a) K6 against its plain version (-mode torch runs StepProgram.step
     #     of the same merged program), ragged grid and the r=8 ladder
@@ -491,7 +783,8 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
     arms = {"push": rtm_pipe(env, "-mode fused -wf_steps 1", True, g),
             "no push": rtm_pipe(env, "-mode fused -wf_steps 1 -push off",
                                 True, g),
-            "chained": rtm_pipe(env, "-mode fused -wf_steps 1", False, g)}
+            "chained": rtm_pipe(env, "-mode fused -wf_steps 1 -no-skew",
+                                False, g)}
     n1, n6 = fused_step.launches, stages_step.launches
     for p in arms.values():
         seed_chain(p, g, 7)
@@ -527,20 +820,19 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
         seed_chain(pipe, g, 7)
         pipe.run(0, warm - 1)
         t = warm
-        fused_step.launches = batched_step.launches = 0
-        stages_step.launches = 0
+        zero_launch_counts()
         secs = []
         for _ in range(trials):
             t0 = time.perf_counter()
             pipe.run(t, t + steps - 1)      # ends in a synchronize
             secs.append(time.perf_counter() - t0)
             t += steps
-        launches = stages_step.launches
-        if (launches, fused_step.launches, batched_step.launches) \
-                != (trials * steps, 0, 0):
+        moved = {k: v for k, v in launch_counts().items() if v}
+        launches = moved.get("stages_step", 0)
+        if moved != {"stages_step": trials * steps}:
             raise RuntimeError(
-                f"phase 6: {name}: {launches} K6, {fused_step.launches} "
-                f"K1, {batched_step.launches} K7 launches in the window")
+                f"phase 6: {name}: launches {moved} in the window, expected "
+                f"{trials * steps} of K6 alone")
         peak = torch.cuda.max_memory_allocated()
         secs.sort()
         step_ms = secs[len(secs) // 2] / steps * 1e3
@@ -625,7 +917,7 @@ def trap_ctx(fac, env, stencil, radius, g, mode, K, cli="", force=False):
     sizes = " ".join(f"-g_{d} {n}"
                      for d, n in zip(ctx.get_domain_dim_names(), g))
     ctx.apply_command_line_options(
-        f"{sizes} -mode {mode} -wf_steps {K} {cli}")
+        f"{sizes} -mode {mode} -wf_steps {K} -no-skew {cli}")
     ctx.prepare_solution()
     return ctx
 
@@ -654,11 +946,15 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
     import numpy as np
     import torch
     from yask_tpu_torch.ops.fused_stencil import (
-        call_trapezoid_entry, fused_step, plain_chunk, trapezoid_chunk)
+        call_trapezoid_entry, fused_step, plain_chunk, stream_step,
+        trapezoid_chunk)
 
     def counts():
+        """K4's phase-1 and diamond launches, K1's, and the stream arm's
+        (the phase runs -no-skew: always 0)."""
         return (trapezoid_chunk.phase1_launches,
-                trapezoid_chunk.diamond_launches, fused_step.launches)
+                trapezoid_chunk.diamond_launches, fused_step.launches,
+                stream_step.launches)
 
     # (a) small ragged grids, forced
     worst = 0.0
@@ -677,7 +973,7 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
         ctxs["plain"].run_solution(0, nsteps - 1)
         til = ctxs["k4"].get_stats().get_tiling()
         groups, rem = divmod(nsteps, K)
-        want = (groups, groups * len(til["trap_dims"]), rem)
+        want = (groups, groups * len(til["trap_dims"]), rem, 0)
         d = max_abs_diff(ctxs["k4"], ctxs["plain"])
         worst = max(worst, d)
         bad_plain = ctxs["k4"].compare_data(ctxs["plain"],
@@ -690,7 +986,7 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
             f"(-mode torch on the card) max|d|={d:.3e} mismatches="
             f"{bad_plain} (field_epsilon={FIELD_EPS}); vs K1 (-no-trapezoid)"
             f" compare_data(epsilon=0) = {bad_k1}; launches phase-1/"
-            f"diamond/K1 {got}")
+            f"diamond/K1/stream {got}")
         if not til["trapezoid"] or rem == 0 \
                 or min(dd["nbounds"] for dd in til["diamond"]) < 3:
             raise RuntimeError(f"phase 7: {st} K={K}: not a forced "
@@ -734,11 +1030,12 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
         peak = torch.cuda.max_memory_allocated()
         til = ctx.get_stats().get_tiling()
         ngroups = trials * steps // K
-        want = ((ngroups, 2 * ngroups, 0) if arm == "K4"
-                else (0, 0, trials * steps))
+        want = ((ngroups, 2 * ngroups, 0, 0) if arm == "K4"
+                else (0, 0, trials * steps, 0))
         if got != want:
             raise RuntimeError(f"phase 7: {arm} at {g}^3: launches "
-                               f"phase-1/diamond/K1 {got}, expected {want}")
+                               f"phase-1/diamond/K1/stream {got}, expected "
+                               f"{want}")
         if arm == "K4" and not (til["trapezoid"] is True
                                 and til["trap_dims"] == ["x", "y"]):
             raise RuntimeError(f"phase 7: tiling {til}")
@@ -757,7 +1054,8 @@ def phase7(fac, env, card: str, full: int = 512, warm_groups: int = 2,
             f"{cli} ({arm}{', ' + how if arm == 'K4' else ''}): {trials} "
             f"trials x {steps} steps: {step_ms:.3f} ms/step (min "
             f"{npts / rates[-1] * 1e3:.3f}, max {npts / rates[0] * 1e3:.3f})"
-            f", {mid:.4e} points/s; launches phase-1/diamond/K1 {got}; "
+            f", {mid:.4e} points/s; launches phase-1/diamond/K1/stream "
+            f"{got}; "
             f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
             f"[{card}]")
         if arm == "K1":
@@ -1067,17 +1365,8 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
     """The distributed path (see the module docstring); returns K5's
     entry of the ``kernels`` line."""
     import torch
-    from yask_tpu_torch.ops import fused_stencil
     from yask_tpu_torch.parallel import shard_step as shard_mod
     t_phase = time.perf_counter()
-
-    def counts():
-        return (fused_stencil.shard_step.launches,
-                fused_stencil.fused_step.launches,
-                fused_stencil.batched_step.launches,
-                fused_stencil.stages_step.launches,
-                fused_stencil.trapezoid_chunk.phase1_launches,
-                fused_stencil.trapezoid_chunk.diamond_launches)
 
     worst = phase8a(fac, dev, cases)
 
@@ -1106,28 +1395,22 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
                           for k, ring in seed.items()}
         ctx.run_solution(0, warm_groups * K - 1)
         t = warm_groups * K
-        fused_stencil.shard_step.launches = 0
-        fused_stencil.fused_step.launches = 0
-        fused_stencil.batched_step.launches = 0
-        fused_stencil.stages_step.launches = 0
-        fused_stencil.trapezoid_chunk.phase1_launches = 0
-        fused_stencil.trapezoid_chunk.diamond_launches = 0
+        zero_launch_counts()
         rates = []
         for _ in range(trials):
             ctx.clear_stats()
             ctx.run_solution(t, t + steps - 1)
             t += steps
             rates.append(ctx.get_stats().get_pts_per_sec())
-        got = counts()
+        got = {k: v for k, v in launch_counts().items() if v}
         peak = torch.cuda.max_memory_allocated()
         til = ctx.get_stats().get_tiling()
         ov = til["overlap_exchange"]
         want = trials * k5_launches(4, steps, K, ov, 2 * len(til.get(
             "overlap_core", {})))
-        if got != (want, 0, 0, 0, 0, 0):
-            raise RuntimeError(f"phase 8: {arm} at {g}^3: launches "
-                               f"K5/K1/K7/K6/K4 {got}, expected {want} K5 "
-                               "and no other")
+        if got != {"shard_step": want}:
+            raise RuntimeError(f"phase 8: {arm} at {g}^3: launches {got}, "
+                               f"expected {want} K5 and no other")
         if (arm == "overlap on") is not ov or (
                 arm == "coalesce on") is not til["comm"]["coalesce"]:
             raise RuntimeError(f"phase 8: {arm} at {g}^3: overlap {ov}, "
@@ -1163,7 +1446,8 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
             f"on {dev}): {trials} trials x {steps} steps: "
             f"{step_ms[arm]:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, "
             f"max {npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; K5 "
-            f"launches {got[0]}; overlap {ov}: {til['overlap_reasons']}; "
+            f"launches {got['shard_step']}; overlap {ov}: "
+            f"{til['overlap_reasons']}; "
             f"comm {til['comm']['order']} coalesce "
             f"{til['comm']['coalesce']} ({til['comm']['reasons'][-1]}); "
             f"exchange {xch_ms[arm]:.3f} ms per group (CUDA events around "
@@ -1172,7 +1456,7 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
             f"{peak / 2**30:.2f} GiB{still} [{card}]")
         if arm == "auto":
             main_ctx, main_t = ctx, t
-            launches = got[0]
+            launches = got["shard_step"]
             k5 = k5_launch_times(ctx, t, g, r, card)
             continue
         # the same steps from the same state: the same bits
@@ -1261,8 +1545,6 @@ def main() -> int:
     sys.path.insert(0, here)
     from yask_tpu_torch import yk_factory
     from yask_tpu_torch.ops import _build, fused_stencil
-    from yask_tpu_torch.ops.fused_stencil import fused_step, plain_chunk
-    from yask_tpu_torch.runtime.init_utils import init_solution_vars
 
     t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1302,170 +1584,36 @@ def main() -> int:
         ptxas_info=True)
     build_secs = time.perf_counter() - t0
     for st, s in specs.items():
-        info = [ln.strip() for ln in logs.get(s.name, "").splitlines()
-                if "registers" in ln or "spill" in ln]
         entries = (f"entry {s.name} (K4: trapezoid_kernel, then "
                    f"diamond_kernel per dim; passes "
                    f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
                    if s.trap else
-                   f"entries {s.name} (K1) and {s.name}_batched (K7)"
+                   f"entries {s.name} (K1), _batched (K7), _region (K5)"
+                   + (f", _stream (stream arm: {s.stream.record()})"
+                      if s.stream is not None else "")
                    if s.stages == 1 else
                    f"entry {s.name} (K6, {s.stages} stages, pushed "
                    f"{s.push_vars})")
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
-            f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas"
-            f"{' (K7 entry first)' if s.stages == 1 and not s.trap else ''}"
-            f": {' | '.join(info)}")
+            f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
+            f"{ptxas_summary(logs.get(s.name, ''))}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
 
-    # ---- phase 2: kernel against its plain version on the card --------
-    for st, r in cases.items():
-        for K in (1, 2):
-            steps = 5
-            plain = make_ctx(fac, env, st, r, 64, "torch", K)
-            fused = make_ctx(fac, env, st, r, 64, "fused", K)
-            seed_random(plain, 7)
-            seed_random(fused, 7)
-            plain.run_solution(0, steps - 1)
-            n0 = fused_step.launches
-            fused.run_solution(0, steps - 1)
-            launched = fused_step.launches - n0
-            bad = fused.compare_data(plain, field_epsilon=FIELD_EPS)
-            d = max_abs_diff(fused, plain)
-            log(f"phase 2: {st} r={r} g=64 K={K} {steps} steps: fused vs "
-                f"torch max|d|={d:.3e} mismatches={bad} "
-                f"(field_epsilon={FIELD_EPS}), launches={launched}")
-            if bad:
-                raise RuntimeError(f"phase 2: {st} K={K}: {bad} mismatches")
-            if launched != steps:
-                raise RuntimeError(
-                    f"phase 2: {st} K={K}: {launched} launches, expected "
-                    f"{steps}")
-
-    # ---- phase 3: validation against the numpy oracle ------------------
-    for st, r in cases.items():
-        fused = make_ctx(fac, env, st, r, 32, "fused")
-        ref = make_ctx(fac, env, st, r, 32, "ref")
-        init_solution_vars(fused)
-        init_solution_vars(ref)
-        fused.run_solution(0, 1)
-        ref.run_solution(0, 1)
-        bad = fused.compare_data(ref)
-        log(f"phase 3: {st} r={r} g=32 2 steps: fused vs ref "
-            f"max|d|={max_abs_diff(fused, ref):.3e} mismatches={bad} "
-            "(compare_data defaults)")
-        if bad:
-            raise RuntimeError(f"phase 3: {st}: {bad} mismatches vs ref")
-
-    # ---- phase 4: the main path at full width --------------------------
-    g, warm, trials, steps = 512, 2, 3, 20
-    npts = g ** 3
-    del plain, fused, ref
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    fused_step.launches = 0
-    ctx = fac.new_solution(env, stencil="iso3dfd", radius=8)
-    ctx.apply_command_line_options(f"-g {g} -mode fused -wf_steps 2")
-    ctx.prepare_solution()
-    seed_random(ctx, 11)
-    t = 0
-    ctx.run_solution(t, t + warm - 1)
-    t += warm
-    rates = []
-    for _ in range(trials):
-        ctx.clear_stats()
-        ctx.run_solution(t, t + steps - 1)
-        t += steps
-        rates.append(ctx.get_stats().get_pts_per_sec())
-    torch.cuda.synchronize()
-    launches = fused_step.launches
-    peak_mem = torch.cuda.max_memory_allocated()
-    if launches != warm + trials * steps:
-        raise RuntimeError(f"phase 4: {launches} launches, expected "
-                           f"{warm + trials * steps}")
-    out = ctx.get_var("pressure").get_elements_in_slice(
-        [t, 0, 0, 0], [t, g - 1, g - 1, g - 1])
-    import numpy as np
-    if out.shape != (g, g, g) or not np.isfinite(out).all() \
-            or not np.abs(out).max() > 0:
-        raise RuntimeError("phase 4: pressure is not finite and nonzero")
-    rates.sort()
-    mid = rates[len(rates) // 2]
-    step_ms = npts / mid * 1e3
-    log(f"phase 4: iso3dfd r=8 g={g} fp32 -mode fused -wf_steps 2: "
-        f"{trials} trials x {steps} steps: mid {mid:.4e} points/s "
-        f"({mid / 1e9:.3f} GPts/s), {step_ms:.3f} ms/step "
-        f"(min {npts / rates[-1] * 1e3:.3f}, max "
-        f"{npts / rates[0] * 1e3:.3f})")
-    log(f"phase 4: fused_step launches on the main path: {launches} "
-        f"({warm} warm-up + {trials}x{steps} steps, 1 per step)")
-
-    # the bound: each input read once, each output written once, interior
-    ops_pp = ctx._ana.counters.num_ops
-    prog = ctx._program
-    kern = ctx._fused
-    bytes_step = 4 * npts * (len(kern.spec.inputs) + len(kern.spec.outputs))
-    bytes_ms = bytes_step / HBM_BYTES_PER_S * 1e3
-    flops_ms = ops_pp * npts / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-    log(f"phase 4: bound {bound_ms:.3f} ms/step ({bound_by}: "
-        f"{bytes_step / npts:.0f} B/pt -> {bytes_ms:.3f} ms at 3.35 TB/s; "
-        f"{ops_pp} FLOP/pt -> {flops_ms:.3f} ms at 67 TFLOP/s fp32); "
-        f"share of bound {bound_ms / step_ms:.3f}")
-    log(f"phase 4: torch.cuda.max_memory_allocated() = "
-        f"{peak_mem / 2**30:.2f} GiB")
-
-    # outside the counted window: per-launch times on the main path's
-    # shapes, and one chunk of each version from the same state
-    state = ctx._state
-    ms = cuda_ms(lambda: fused_step(kern, state, t), 10)
-    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 2), 3) / 2
-    a = kern.chunk(dict(state), t, 2)
-    b = plain_chunk(prog, dict(state), t, 2)
-    err = max(float((x - y).abs().max()) for n in a
-              for x, y in zip(a[n], b[n]))
-    scale = max(float(x.abs().max()) for n in b for x in b[n])
-    log(f"phase 4: one 2-step chunk at 512^3, kernel vs plain: max|d|="
-        f"{err:.3e} (field max {scale:.3e}; tolerance field_epsilon "
-        f"{FIELD_EPS} x field max)")
-    if not err <= FIELD_EPS * scale:
-        raise RuntimeError("phase 4: kernel and plain version disagree")
-    log(f"phase 4: fused_step {ms:.3f} ms/launch (zero-filled output "
-        f"included); plain version {plain_ms:.3f} ms/step (torch mode, "
-        "not a yardstick)")
-
-    torch_ctx = fac.new_solution(env, stencil="iso3dfd", radius=8)
-    torch_ctx.apply_command_line_options(f"-g {g} -mode torch -wf_steps 2")
-    torch_ctx.prepare_solution()
-    seed_random(torch_ctx, 11)
-    torch_ctx.run_solution(0, warm - 1)
-    torch_ctx.clear_stats()
-    torch_ctx.run_solution(warm, warm + steps - 1)
-    tr = torch_ctx.get_stats().get_pts_per_sec()
-    log(f"phase 4: -mode torch (the plain version, not a yardstick): "
-        f"{tr:.4e} points/s, {npts / tr * 1e3:.3f} ms/step over {steps} "
-        "steps")
-
-    del ctx, torch_ctx, state, a, b, prog, kern
-    k7 = phase5(fac, env, step_ms)
+    phase2(fac, env, cases)
+    phase3(fac, env, cases)
+    _step_ms, k1, k_stream = phase4(fac, env, card)
+    k7 = phase5(fac, env, k1["step_ms"])
     torch.cuda.empty_cache()
     k6 = phase6(env)
     torch.cuda.empty_cache()
     k4 = phase7(fac, env, card)
     torch.cuda.empty_cache()
-    k5 = phase8(fac, card, step_ms)
+    k5 = phase8(fac, card, k1["step_ms"])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_step", "route": "cuda",
-        "source": "yask_tpu_torch/csrc/fused_step.cuh",
-        "replaces": "yask_tpu/ops/pallas_stencil.py:2312",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, k4, k5, k6, k7]}))
+    print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -208,7 +208,7 @@ def test_shard_pallas_matches_yask_tpu_and_single_domain_fused(
     assert fused_stencil.shard_step.launches == n0   # plain on the CPU
     til = ctx.get_stats().get_tiling()
     assert til["distributed"] and til["skew"] is False
-    assert "ROADMAP.md A4" in til["skew_reasons"][0]["cause"]
+    assert "ROADMAP.md A5" in til["skew_reasons"][0]["cause"]
     assert til["comm"]["mesh"] == {d: n for d, n in ranks}
     fused = run(port_ctx(stencil, r, g, "fused", K), state, steps)
     assert bit_equal(mine, fused)

@@ -105,7 +105,9 @@ def test_fused_plain_matches_pallas_interpret(name, r, K, steps):
     assert mismatches(export_interiors(mine), tpu_export(theirs),
                       field_epsilon=1e-4) == 0
     tiling = mine.get_stats().get_tiling()
-    assert tiling["pipeline_dmas"] is False and tiling["skew_dims"] == []
+    # -skew's default: the stream arm (K2's prefetch, K3's slot-0 carry)
+    assert tiling["kernel"] == "stream_step"
+    assert tiling["pipeline_dmas"] is True and tiling["skew_dims"] == ["x"]
 
 
 @pytest.mark.parametrize("with_ly,tpu_mode", [(False, "pallas"),
@@ -337,7 +339,8 @@ def test_fused_kernel_matches_plain_on_card(cuda_device, name, r):
     ctxs = {}
     for mode in ("torch", "fused"):
         ctx = fac.new_solution(env, stencil=name, radius=r)
-        ctx.apply_command_line_options(f"-g 48 -mode {mode} -wf_steps 2")
+        ctx.apply_command_line_options(
+            f"-g 48 -mode {mode} -wf_steps 2 -no-skew")
         ctx.prepare_solution()
         ctxs[mode] = ctx
     state = seeded_interiors(ctxs["torch"], 4)

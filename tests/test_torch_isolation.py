@@ -61,6 +61,16 @@ for name, K, forced in (("iso3dfd", 4, True), ("wave2d", 2, False)):
     ctx.run_solution(0, 4)
     assert ctx.get_stats().get_tiling()["reasons"]
 import yask_tpu_torch.ops.tile_planner, yask_tpu_torch.stencils.physics2d
+for cli in ("-skew", "-no-skew", "-skew -skew_dims 0"):   # K1's two arms
+    ctx = fac.new_solution(env, stencil="iso3dfd", radius=2)
+    ctx.apply_command_line_options(f"-g 8 -mode fused -wf_steps 2 {cli}")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 2)
+    assert ctx.get_stats().get_tiling()["skew_reasons"]
+ens = ctx.new_ensemble(2)
+ens.run(0, 1)
+assert ens.tiling["kernel"] == "batched_step"
 import yask_tpu_torch.parallel
 env4 = fac.new_env(devices=["cpu"] * 4)
 for mode in ("shard_map", "sharded", "shard_pallas"):

@@ -6,9 +6,14 @@ reads global memory only, so it checks the emitted arithmetic but not the
 shared-memory tiles: the staging bounds, the grown halos, the expanded
 stage regions and the zero ghost cells of K6's computed tiles.  This
 test compiles the kernels themselves with g++ against a small CUDA shim:
-each block runs with one ``std::thread`` per CUDA thread, ``__syncthreads``
-is a ``std::barrier``, and shared memory is a global array filled with
-NaN before every block, so a read of a cell no thread wrote shows.  The
+each block runs with one ``std::thread`` per CUDA thread, the threads
+taking turns in the order of their id from one ``__syncthreads`` to the
+next (a deterministic schedule), and shared memory is a global array
+filled with NaN before every block, so a read of a cell no thread wrote
+shows.  ``cp.async`` (the stream arm's) leaves its destination NaN from
+its issue until the issuing thread's ``cp.async.wait_group`` completes
+it, so a read before the wait, or a copy into a plane still being read,
+shows too.  The
 launch is the wrapper's own (``call_entry``, ``call_trapezoid_entry``)
 on CPU tensors.  K4's fresh outputs are NaN-filled too, so a cell that
 neither phase 1's windows nor the diamond bands write shows.  Tolerance:
@@ -36,15 +41,16 @@ CSRC = os.path.join(os.path.dirname(fused_stencil.__file__), "..", "csrc")
 
 SHIM = r"""
 #pragma once
-#include <barrier>
 #include <cstring>
+#include <memory>
+#include <semaphore>
 #include <thread>
 #include <vector>
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __grid_constant__
 struct dim3 {
   unsigned x, y, z;
@@ -52,10 +58,24 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 inline uint3 blockIdx;
+inline dim3 gridDim;
 inline thread_local uint3 threadIdx;
-inline std::barrier<>* yt_barrier = nullptr;
 alignas(16) inline unsigned char yt_smem_raw[232448];
-inline void __syncthreads() { yt_barrier->arrive_and_wait(); }
+// The threads of a block run one at a time in the order of their linear
+// id: each runs to its next __syncthreads (or its end) and hands the turn
+// to the next; the last one's hand-off releases the barrier.  A valid
+// CUDA schedule, and a deterministic one: a read of a cell that another
+// thread writes later in the phase, or has overwritten earlier in it,
+// shows on every run.
+inline std::vector<std::binary_semaphore*> yt_turn;
+inline thread_local unsigned yt_tid;
+inline void yt_hand_off() {
+  yt_turn[(yt_tid + 1) % yt_turn.size()]->release();
+}
+inline void __syncthreads() {
+  yt_hand_off();
+  yt_turn[yt_tid]->acquire();
+}
 template <class T> T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
@@ -66,18 +86,53 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= int(sizeof(yt_smem_raw)) ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+// cp.async, deferred: a copy leaves its destination undefined (NaN) from
+// its issue until a wait_group of the issuing thread completes its group,
+// the weakest order the card guarantees.
+#define YT_CP_ASYNC_HOOKS
+#include <deque>
+struct YtCopy { void* dst; const void* src; int bytes; bool fill; };
+inline thread_local std::vector<YtCopy> yt_open;
+inline thread_local std::deque<std::vector<YtCopy>> yt_groups;
+template <int B> void cp_async(void* dst, const void* src, bool fill) {
+  std::memset(dst, 0xFF, B);
+  yt_open.push_back({dst, src, B, fill});
+}
+inline void cp_async_commit() {
+  yt_groups.push_back(std::move(yt_open));
+  yt_open.clear();
+}
+template <int N> void cp_async_wait() {
+  while (yt_groups.size() > N) {
+    for (auto& c : yt_groups.front())
+      if (c.fill) std::memcpy(c.dst, c.src, c.bytes);
+      else std::memset(c.dst, 0, c.bytes);
+    yt_groups.pop_front();
+  }
+}
 template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
+  gridDim = grid;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         blockIdx = {bx, by, bz};
         std::memset(yt_smem_raw, 0xFF, sizeof(yt_smem_raw));  // NaN
-        std::barrier<> bar(block.x * block.y);
-        yt_barrier = &bar;
+        std::vector<std::unique_ptr<std::binary_semaphore>> sems;
+        yt_turn.clear();
+        for (unsigned i = 0; i < block.x * block.y; ++i) {
+          sems.emplace_back(new std::binary_semaphore(i == 0 ? 1 : 0));
+          yt_turn.push_back(sems.back().get());
+        }
         std::vector<std::thread> ts;
         for (unsigned ty = 0; ty < block.y; ++ty)
           for (unsigned tx = 0; tx < block.x; ++tx)
-            ts.emplace_back([&, tx, ty] { threadIdx = {tx, ty, 0}; kernel(); });
+            ts.emplace_back([&, tx, ty] {
+              threadIdx = {tx, ty, 0};
+              yt_tid = ty * block.x + tx;
+              yt_turn[yt_tid]->acquire();
+              kernel();
+              yt_hand_off();
+            });
         for (auto& t : ts) t.join();
       }
 }
@@ -85,18 +140,23 @@ template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
 
 
 #: The kernels each header declares and launches (K1/K7, K5 and K6 in
-#: fused_step.cuh; K4's two in trapezoid.cuh).
-KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2}
+#: fused_step.cuh; K4's two in trapezoid.cuh; K1's stream arm in
+#: stream_step.cuh).
+KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2, "stream_step.cuh": 1}
 
 
-def emulated_kernel(spec, tmp_path, entry=None):
+def emulated_kernel(spec, tmp_path, entry=None, edit=None):
     """The emitted source built with g++ as device code (``__CUDACC__``
     and ``__CUDA_ARCH__`` defined) against the shim; returns its entry
-    (``spec.name``, or K5's ``spec.name + "_region"``)."""
+    (``spec.name``, K5's ``spec.name + "_region"`` or the stream arm's
+    ``spec.name + "_stream"``).  ``edit(file, text)`` may rewrite a
+    header first (a deliberately broken kernel)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to emulate the kernels"
     for fn, nk in KERNELS.items():
         header = open(os.path.join(CSRC, fn)).read()
+        if edit is not None:
+            header = edit(fn, header)
         header, n_decl = re.subn(
             r"extern __shared__ __align__\(16\) unsigned char "
             r"yt_smem_raw\[\];", "", header)
@@ -117,7 +177,9 @@ def emulated_kernel(spec, tmp_path, entry=None):
                    timeout=300)
     entry = entry or spec.name
     fn = getattr(ctypes.CDLL(str(so)), entry)
-    fn.argtypes = region_argtypes() if entry.endswith("_region") else (
+    fn.argtypes = (
+        region_argtypes() if entry.endswith("_region") else
+        fused_stencil.stream_argtypes() if entry.endswith("_stream") else
         ([ctypes.c_int] if spec.trap else [])
         + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -332,3 +394,95 @@ def test_k5_box_check_refuses_reads_past_the_pads():
     with pytest.raises(YaskException, match="empty box"):
         fused_stencil.check_box(kern.program, kern.spec,
                                 {"x": (3, 3), "y": (0, 9), "z": (0, 70)})
+
+
+# ---------------------------------------------------------------------------
+# K1's stream arm: a ring of planes per staged input, cp.async deferred
+# ---------------------------------------------------------------------------
+
+
+def stream_ctx(stencil, radius, g):
+    """A fused context on the CPU with ``-skew`` (the stream arm engaged)
+    at ``g`` = (x, y, z), seeded."""
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil=stencil,
+                           radius=radius)
+    ctx.apply_command_line_options(
+        f"-g_x {g[0]} -g_y {g[1]} -g_z {g[2]} -mode fused -skew")
+    ctx.prepare_solution()
+    import_interiors(ctx, seeded_interiors(ctx, 7))
+    assert ctx._fused_spec_kernel().skew_dims == ["x"]
+    return ctx
+
+
+def stream_steps(fn, ctx, spec, seg, steps):
+    """``steps`` sub-steps through the emulated stream entry, each into
+    NaN-filled outputs, rings rotated as ``stream_step`` does."""
+    import torch
+    prog = ctx._program
+    state = ctx._state
+    for t in range(steps):
+        ins = [state[n][s] for n, s in spec.inputs]
+        outs = [torch.full(tuple(prog.geoms[n].shape), float("nan"))
+                for n in spec.outputs]
+        assert fused_stencil.call_stream_entry(fn, prog, spec, ins, outs, t,
+                                               None, seg=seg) == 0
+        state = fused_stencil._rotated(prog, spec, state, outs)
+    return state
+
+
+@pytest.mark.parametrize("stencil,radius,g,seg", [
+    ("iso3dfd", 8, (67, 45, 131), 67),   # ragged plane tiles, one segment
+    ("iso3dfd", 2, (67, 45, 131), 40),   # a segment boundary at x = 40
+    ("cube", 1, (13, 20, 70), 5)])       # off-axis reads, three segments
+def test_stream_device_code_matches_plain_when_emulated(stencil, radius, g,
+                                                        seg, tmp_path):
+    """The stream arm's device code (threads, NaN-filled shared memory,
+    each cp.async leaving its destination NaN until its wait, NaN-filled
+    outputs) against ``plain_chunk`` over two sub-steps, to the bit: every
+    interior cell computed from the right planes, every pad cell 0."""
+    ctx = stream_ctx(stencil, radius, g)
+    spec = ctx._fused_spec_kernel().spec
+    fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream")
+    got = stream_steps(fn, ctx, spec, seg, 2)
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 2)
+    assert same(got, want)
+
+
+def test_stream_emulation_fails_with_a_ring_one_plane_short(tmp_path,
+                                                            monkeypatch):
+    """A ring of h0_lo + h0_hi + 1 + P planes lets the prefetch of output
+    plane z land in the oldest plane output plane z - 1 reads, which the
+    one barrier per plane does not keep apart."""
+    from yask_tpu_torch.ops import cuda_emit, tile_planner
+    ctx = stream_ctx("iso3dfd", 2, (13, 19, 70))
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 1)
+    depth = tile_planner.ring_depth
+    monkeypatch.setattr(tile_planner, "ring_depth",
+                        lambda lo, hi, pf: depth(lo, hi, pf) - 1)
+    spec = cuda_emit.emit(ctx._program)
+    assert spec.stream.depths == {spec.tiled[0]: 7}
+    fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream")
+    assert not same(stream_steps(fn, ctx, spec, 13, 1), want)
+
+
+def test_stream_emulation_fails_without_the_wait(tmp_path):
+    """Computing a plane before cp.async.wait_group reads planes still in
+    flight."""
+    import re as _re
+    ctx = stream_ctx("iso3dfd", 2, (13, 19, 70))
+    spec = ctx._fused_spec_kernel().spec
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 1)
+    fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream")
+    assert same(stream_steps(fn, ctx, spec, 13, 1), want)
+
+    def drop_wait(name, text):
+        if name != "stream_step.cuh":
+            return text
+        text, n = _re.subn(r"\n\s*cp_async_wait<S::SP>\(\);", "", text)
+        assert n == 1
+        return text
+    (tmp_path / "nowait").mkdir()
+    fn = emulated_kernel(spec, tmp_path / "nowait", entry=spec.name
+                         + "_stream", edit=drop_wait)
+    assert not same(stream_steps(fn, ctx, spec, 13, 1), want)

@@ -357,7 +357,7 @@ def test_ineligible_and_off_record_their_codes():
     assert codes(ctx._trap[1]) == ["trapezoid_ineligible"] * 2
     ctx.run_solution(0, 1)
     til = ctx.get_stats().get_tiling()
-    assert til["trapezoid"] is False and til["kernel"] == "fused_step"
+    assert til["trapezoid"] is False and til["kernel"] == "stream_step"
     off = port_ctx("iso3dfd", 2, 16, "fused", 4)
     off.run_solution(0, 3)
     assert off.get_stats().get_tiling()["trapezoid_request"] == "off"

@@ -24,7 +24,11 @@ into one ``Spec`` struct:
 * compile-time tables the machinery reads: which inputs ride shared memory
   (those of full-dim vars read at a spatial offset, or over an expanded
   region) and their halos, the tile extents, and for K6 the stage
-  expansions and the computed tiles.
+  expansions and the computed tiles.  A single-stage 3-D solution read at
+  a slot-0 offset also gets K1's stream arm (``csrc/stream_step.cuh``,
+  entry ``<name>_stream``): its plane tile, prefetch depth and rings
+  (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
+  into registers; :func:`skew_engaged_dims` says whether it runs.
 
 Value types follow the plain version's (PyTorch's) promotion, so the
 kernel rounds where the tensors do: a tensor op with a Python scalar runs
@@ -235,6 +239,11 @@ class KernelSpec:
     #: that a box's reads stay inside the pads)
     reach: Dict[int, Tuple[Tuple[int, int], ...]] = field(
         default_factory=dict)
+    #: the stream arm's plan (``tile_planner.StreamPlan``; its entry is
+    #: ``name + "_stream"``), or None with ``stream_cause``, the reason
+    #: code and detail of why not
+    stream: object = None
+    stream_cause: Tuple[str, str] = None
 
 
 def _hexf(v: float) -> str:
@@ -565,6 +574,90 @@ def _print(program, pushed) -> _Printed:
                     computed_stage, expand)
 
 
+def _stream_plan(program, tiled, halos, esize):
+    """The stream arm's plan for a single-stage solution, or None with
+    the reason code and detail.  It takes 3 domain dims and a staged input
+    (K1's ``tiled``) read at a slot-0 offset; its rings hold K1's staged
+    inputs with their halos and must fit :data:`SMEM_LIMIT`."""
+    from yask_tpu_torch.ops.tile_planner import stream_plan
+    dims = list(program.ana.domain_dims)
+    if len(dims) != 3:
+        return None, ("skew_ineligible", f"{len(dims)}-D solution: the "
+                      "stream arm walks slot 0 of a 3-D domain")
+    if not any(halos[a][0][0] or halos[a][0][1] for a in tiled):
+        return None, ("skew_ineligible", "no staged input is read at a "
+                      "slot-0 offset: there are no planes to carry")
+    plan = stream_plan({a: halos[a] for a in tiled},
+                       [program.sizes[d] for d in dims], esize, SMEM_LIMIT)
+    if plan is None:
+        return None, ("skew_fallback", f"the plane rings do not fit "
+                      f"{SMEM_LIMIT} bytes of shared memory even at the "
+                      "smallest plane tile")
+    return plan, None
+
+
+def skew_engaged_dims(program, skew=None, max_dims: int = 2,
+                      reasons: List[Dict] = None, spec: KernelSpec = None,
+                      batched: bool = False) -> List[str]:
+    """The dims the stream arm of K1 walks for a ``skew`` request: the
+    port's counterpart of ``yask_tpu``'s ``skew_engaged_dims`` and of the
+    skew resolution of ``build_pallas_chunk`` (pallas_stencil.py:366-441,
+    :940-990), with its reason codes.  ``False`` = off
+    (``skew_disabled``), ``None`` = auto (the ``-skew`` default: engaged
+    wherever the arm can run), ``True`` = forced (raises where it cannot).
+    The port streams one dim, slot 0 (the outermost domain dim), one level
+    per launch (ROADMAP.md C11); ``max_dims`` < 1 (``-skew_dims 0``)
+    leaves it out.  1-D and 2-D solutions, multi-stage ones (K6) and
+    member batches (K7, ``batched``) keep their kernels with a reason.
+    Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``."""
+    if reasons is None:
+        reasons = []
+    if batched:
+        reasons.append({"code": "skew_not_ported", "kernel": "batched_step",
+                        "cause": "K7 has no stream arm: ROADMAP.md A5"})
+        return []
+    if skew is False:
+        reasons.append({"code": "skew_disabled",
+                        "detail": "skew=False requested (-no-skew)"})
+        return []
+    dims = list(program.ana.domain_dims)
+    lead = dims[:-1]
+    nst = len(program.ana.stages)
+    cause = None   # (reason code, detail)
+    if nst > 1:
+        cause = ("skew_ineligible", f"{nst}-stage solution: K6 carries it "
+                 "(its stream arm is ROADMAP.md A5)")
+    elif max_dims < 1:
+        cause = ("skew_ineligible",
+                 f"outside the -skew_dims {max_dims} window")
+    else:
+        if spec is None:
+            spec = emit(program)
+        cause = spec.stream_cause
+    if cause is not None:
+        if skew is True:
+            raise YaskException(f"stream arm (skew) infeasible: {cause[1]}")
+        for d in lead or dims:
+            reasons.append({"code": cause[0], "dim": d, "detail": cause[1]})
+        return []
+    d0 = dims[0]
+    rec = spec.stream.record()
+    reasons.append({"code": "skew_forced" if skew is True
+                    else "skew_engaged", "dim": d0,
+                    "detail": f"slot-0 stream, one level per launch: plane "
+                              f"tile {rec['plane_tile']}, prefetch "
+                              f"{rec['prefetch']}, rings "
+                              f"{rec['ring_depths']} planes, "
+                              f"{rec['smem_bytes']} B, "
+                              f"{rec['segments']} segment(s) of "
+                              f"{rec['segment_planes']} planes"})
+    for d in lead[1:]:
+        reasons.append({"code": "skew_ineligible", "dim": d,
+                        "detail": "the port streams slot 0 only "
+                                  "(ROADMAP.md C11)"})
+    return [d0]
+
+
 def emit(program, push=False) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
     entries for one stage, K6's for several.  ``push`` is the
@@ -630,20 +723,49 @@ def emit(program, push=False) -> KernelSpec:
 
     if nst == 1:
         body = stage_lines[0]
+        plan, cause = _stream_plan(program, tiled, halos, esize)
+        stream_enum = ""
+        if plan is not None:
+            # a ring per staged input: K1's tables give its halos
+            ring_off, o = [], 0
+            for a in tiled:
+                ring_off.append(o)
+                o += plan.depths[a] * ((plan.tile[0] + sum(halos[a][1]))
+                                       * (plan.tile[1] + sum(halos[a][2])))
+            tabs.append(_table("ring_depth", [plan.depths[a] for a in tiled],
+                               "1"))
+            tabs.append(_table("ring_offset", ring_off, "0"))
+            # full-dim inputs read at the point alone: the register queue
+            pre = [a for a, (var, _s) in enumerate(pr.inputs)
+                   if a not in tiled and not any(lo or hi
+                                                 for lo, hi in pr.raw[a])
+                   and list(program.geoms[var].domain_dims) == dims]
+            tabs.append(_table("pre_input", pre, "0"))
+            tabs.append("    YT_HD static constexpr int pre_of(int a) { "
+                        "return " + "".join(f"a == {a} ? {j} : "
+                                            for j, a in enumerate(pre))
+                        + "-1; }")
+            stream_enum = (f",\n           ST1 = {plan.tile[0]}, ST2 = "
+                           f"{plan.tile[1]}, SP = {plan.prefetch}, "
+                           f"STREAM_ELEMS = {o}, NPRE = {len(pre)}, "
+                           f"SQ = {plan.queue}, SMIN = {plan.per_sm}")
         stem = hashlib.sha256(
             ("\n".join(body) + repr((tiled, halos, tile, real_t,
-                                     len(pr.inputs), len(outputs))))
+                                     len(pr.inputs), len(outputs)))
+             + "\n".join(tabs) + stream_enum)
             .encode()).hexdigest()[:12]
         name = f"fused_step_{stem}"
+        stream_entry = (f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n"
+                        if plan is not None else "")
         src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K1, and of K7 over N members
 // (see ops/fused_stencil.py).
 #include "fused_step.cuh"
-
+{'#include "stream_step.cuh"' + chr(10) if plan is not None else ''}
 struct Spec {{
     typedef {real_t} real_t;
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(outputs)}, NTILED = {len(tiled)},
-           T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs} }};
+           T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs}{stream_enum} }};
 {chr(10).join(tabs)}
 
     template <class RD>
@@ -657,13 +779,14 @@ struct Spec {{
 YT_FUSED_STEP_ENTRY({name}, Spec)
 YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
 YT_FUSED_REGION_ENTRY({name}_region, Spec)
-"""
+{stream_entry}"""
         reach = {a: tuple(tuple(x) for x in pr.raw[a])
                  for a in range(len(pr.inputs))}
         return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                           outputs=outputs, tiled=tiled, tile=tile,
                           smem_bytes=offs * esize, halos=halos,
-                          push_reasons=push_reasons, reach=reach)
+                          push_reasons=push_reasons, reach=reach,
+                          stream=plan, stream_cause=cause)
 
     # ---- K6: several stages per launch ---------------------------------
     in_elems = offs
@@ -749,7 +872,9 @@ def skew_eligible_dims(program, fuse_steps: int) -> List[str]:
     on: the eligibility test of ``yask_tpu``'s ``skew_eligible_dims``
     (pallas_stencil.py:306).  Empty unless K ≥ 2 and every written var
     spans all domain dims; then the two innermost lead dims with a fused
-    radius > 0.  The skew carry itself is K3, not ported (ROADMAP.md A4)."""
+    radius > 0.  The reference's K-level skew carry is not ported: the
+    port's stream arm (:func:`skew_engaged_dims`) carries one level per
+    launch (ROADMAP.md A4b)."""
     ana = program.ana
     lead = ana.domain_dims[:-1]
     if fuse_steps < 2 or not lead:
@@ -1130,8 +1255,9 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
             return (comp / cores + fetch) / max(u, 1)
         c_uni = cost(TilePlan(program, K))
         c_trp = cost(TilePlan(program, K, trap_dims=elig))
-        det = (f"trap {c_trp:.2f} vs uniform {c_uni:.2f}, skew inf (K3 not "
-               f"ported) (cells/useful cell, compute/"
+        det = (f"trap {c_trp:.2f} vs uniform {c_uni:.2f}, skew inf (K "
+               f"levels per launch are ROADMAP.md A4b) (cells/useful cell, "
+               f"compute/"
                f"{TilePlan.PARALLEL_CORES} + fetch, per-variant planned "
                "blocks)")
         code = ("trapezoid_engaged" if c_trp < c_uni

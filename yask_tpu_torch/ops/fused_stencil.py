@@ -5,7 +5,7 @@ Replaces ``build_pallas_chunk``'s Pallas kernel
 :2312): K fused steps of a whole solution per tile, with a global-domain
 mask, rotating rings and fresh padded outputs.  Its DMA pipelines (K2) and
 skewed-wavefront carry (K3) change only the TPU's schedule, so this
-function is what all three compute; the port records
+function is what all three compute; K1's arm (``fused_step``) records
 ``pipeline_dmas: False`` and ``skew_dims: []``.
 
 What bounds it on an H100: bytes.  iso3dfd r=8 does about 61 FLOP per
@@ -70,6 +70,18 @@ domain; per sub-step :func:`plain_shard_step`) is its plain version.
 Bound by bytes as K1: each input read once over the box grown by its
 reach and clipped to the global domain, each output written once over
 the box.
+
+K1's stream arm (``-skew``), the port's design for K2 and K3: the same
+emitted source carries a fourth C entry point (``<name>_stream``,
+``csrc/stream_step.cuh``) that computes K1's sub-step with each block
+walking slot 0 through a ring of staged planes: the planes already staged
+are carried to the next output plane (K3's carry, one level), and
+``cp.async`` fetches the plane ``P`` ahead under the current plane's
+compute (K2's prefetch).  It writes every cell of its outputs, pads
+included, so they come from ``torch.empty``.  :func:`stream_step` is its
+wrapper with its own counter ``stream_step.launches``; the plain version
+is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
+arm and says why; ``-no-skew`` keeps K1.
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's first kernel that advances K time levels
@@ -224,6 +236,40 @@ def call_region_entry(fn, program, spec, ins, outs, box, off, t: int,
               ctypes.addressof(n3), ctypes.addressof(reg), int(t), stream)
 
 
+def _stream_table(program, spec, seg: int) -> List[int]:
+    """The stream entry's int[1 + 6·NOUT]: the segment length, then each
+    output's pads (lo, hi) per kernel slot."""
+    dims = list(program.ana.domain_dims)
+    tab = [int(seg)]
+    for name in spec.outputs:
+        pads = [(0, 0)] * 3
+        for i, d in enumerate(dims):
+            pads[3 - len(dims) + i] = program.geoms[name].pads[d]
+        tab += [int(x) for lo_hi in pads for x in lo_hi]
+    return tab
+
+
+def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
+                      seg: int = None) -> int:
+    """Call an emitted kernel's stream entry point: K1's tables, then the
+    segment length (``seg``, the plan's by default) and the outputs' pads,
+    the step index and the stream.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    tab = _stream_table(program, spec,
+                        spec.stream.seg if seg is None else seg)
+    geo = (ctypes.c_int * len(tab))(*tab)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
+
+
+def stream_argtypes():
+    """The stream entry's C signature: K1's tables, the segment and pad
+    table, the step, the stream."""
+    return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
 def check_box(program, spec, box) -> None:
     """Raise unless every read of a sub-step over ``box`` (each input's
     read offsets around it) and every write stays inside the padded
@@ -333,6 +379,31 @@ def stages_step(kernel: "FusedKernel", state, t: int):
 
 
 stages_step.launches = 0
+
+
+def stream_step(kernel: "FusedKernel", state, t: int):
+    """Launch one sub-step of K1's stream arm on the current CUDA stream;
+    returns the new state (rings rotated).  The kernel writes every cell
+    of its outputs, so they come from ``torch.empty``.  Counts each launch
+    in ``stream_step.launches``."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    ins, dev = _check_inputs(kernel, state)
+    outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
+                        device=dev) for n in spec.outputs]
+    with torch.cuda.device(dev):
+        rc = call_stream_entry(kernel.stream_fn, prog, spec, ins, outs, t,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise YaskException(
+            f"stream_step kernel '{spec.name}_stream' launch failed: CUDA "
+            f"error {rc}")
+    stream_step.launches += 1
+    return _rotated(prog, spec, state, outs)
+
+
+stream_step.launches = 0
 
 #: CUDA's limit on gridDim.z, which K7 fills with members × slot-0 blocks.
 MAX_GRID_Z = 65535
@@ -500,14 +571,23 @@ class FusedKernel:
     emitted source and, after :meth:`build`, the loaded library.
     ``chunk`` is the wrapper: CPU tensors take :func:`plain_chunk`, CUDA
     tensors launch the kernel.  ``push`` is the push-memory request
-    (:func:`~yask_tpu_torch.ops.cuda_emit.resolve_push`)."""
+    (:func:`~yask_tpu_torch.ops.cuda_emit.resolve_push`); ``skew`` the
+    stream-arm request and ``max_skew_dims`` the ``-skew_dims`` window
+    (:func:`~yask_tpu_torch.ops.cuda_emit.skew_engaged_dims`, whose
+    reason records land in ``skew_reasons``): where it engages, ``chunk``
+    launches :func:`stream_step` in place of :func:`fused_step`."""
 
-    def __init__(self, program, push=False):
+    def __init__(self, program, push=False, skew=False,
+                 max_skew_dims: int = 2):
         self.program = program
         self.spec = cuda_emit.emit(program, push)
+        self.skew_reasons: List[Dict] = []
+        self.skew_dims = cuda_emit.skew_engaged_dims(
+            program, skew, max_skew_dims, self.skew_reasons, self.spec)
         self.fn = None
         self.batched_fn = None
         self.region_fn = None
+        self.stream_fn = None
         self.build_secs = 0.0
         self.dtype = None
         #: where the last build() found the library: "memory" (already
@@ -530,9 +610,9 @@ class FusedKernel:
         return lib, secs
 
     def build(self) -> float:
-        """Build (nvcc at first use) and bind the entry points (K1, K7
-        and K5 for one stage, K6 for several); returns the seconds it
-        took.  Raises on a missing nvcc or a failed build."""
+        """Build (nvcc at first use) and bind the entry points (K1, K7,
+        K5 and the stream arm for one stage, K6 for several); returns the
+        seconds it took.  Raises on a missing nvcc or a failed build."""
         if self.fn is not None:
             self.cache_hit = "memory"
             return 0.0
@@ -551,6 +631,11 @@ class FusedKernel:
             rfn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
                                                     ctypes.c_void_p]
             rfn.restype = ctypes.c_int
+        if self.spec.stream is not None:
+            sfn = getattr(lib, self.spec.name + "_stream")
+            sfn.argtypes = stream_argtypes()
+            sfn.restype = ctypes.c_int
+            self.stream_fn = sfn
         self.fn = fn
         self.batched_fn = bfn
         self.region_fn = rfn
@@ -566,7 +651,8 @@ class FusedKernel:
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
         self.build()
-        step = fused_step if self.spec.stages == 1 else stages_step
+        step = (stream_step if self.skew_dims else
+                fused_step if self.spec.stages == 1 else stages_step)
         dirn = self.program.ana.step_dir
         for i in range(k):
             state = step(self, state, t0 + i * dirn)
@@ -603,18 +689,36 @@ class FusedKernel:
                     return a.device
         raise YaskException("fused kernel: state holds no tensors")
 
-    def tiling(self, fuse_steps: int) -> Dict[str, object]:
-        """The tiling the kernel runs with (the port's ``chunk.tiling``)."""
+    def tiling(self, fuse_steps: int, members: int = 0) -> Dict[str, object]:
+        """The tiling the kernel runs with (the port's ``chunk.tiling``):
+        the arm, its tile and shared memory, and the skew decision; with
+        ``members``, that of K7's batches of that many members (K7 has no
+        stream arm)."""
         s = self.spec
-        return {"kernel": "fused_step" if s.stages == 1 else "stages_step",
-                "name": s.name, "fuse_steps": fuse_steps,
-                "launches_per_step": 1, "stages": s.stages,
-                "tile": list(s.tile), "smem_bytes": s.smem_bytes,
-                "smem_inputs": [s.inputs[a] for a in s.tiled],
-                "push": bool(s.push_vars), "push_vars": list(s.push_vars),
-                "push_smem_bytes": s.push_smem_bytes,
-                "pipeline_dmas": False, "skew_dims": []}
-
+        reasons = self.skew_reasons
+        if members:
+            reasons = []
+            cuda_emit.skew_engaged_dims(self.program, reasons=reasons,
+                                        spec=s, batched=True)
+        out = {"kernel": "fused_step" if s.stages == 1 else "stages_step",
+               "name": s.name, "fuse_steps": fuse_steps,
+               "launches_per_step": 1, "stages": s.stages,
+               "tile": list(s.tile), "smem_bytes": s.smem_bytes,
+               "smem_inputs": [s.inputs[a] for a in s.tiled],
+               "push": bool(s.push_vars), "push_vars": list(s.push_vars),
+               "push_smem_bytes": s.push_smem_bytes,
+               "pipeline_dmas": False, "skew": False, "skew_dims": [],
+               "skew_reasons": list(reasons)}
+        if members:
+            out.update(kernel="batched_step", name=s.name + "_batched",
+                       members=members)
+        elif self.skew_dims:
+            rec = s.stream.record()
+            out.update(rec)
+            out.update(kernel="stream_step", name=s.name + "_stream",
+                       tile=[1] + rec["plane_tile"], pipeline_dmas=True,
+                       skew=True, skew_dims=list(self.skew_dims))
+        return out
 
 
 # ==== K4: the trapezoid/diamond two-phase tiling ==========================

@@ -4,8 +4,12 @@ The port's copy of ``yask_tpu/ops/tile_planner.py`` (``TilePlan``
 :42-333, ``plan_blocks`` :334-508), for the two tilings the port runs: the
 uniform shrink (K1's function, every level over the block expanded by the
 later levels' reach) and the two-phase trapezoid/diamond split of K4.
-The skewed wavefront (``skew_dims``, ``write_shift``) is K3, which the port
-does not carry (ROADMAP.md A4), so this copy has no skew mode.
+The reference's skewed wavefront (``skew_dims``, ``write_shift``: K3's
+carry of K levels along ``lead[-1]``) has no counterpart here.  The port's
+answer to K2 and K3 on the card is the stream arm of K1, planned by
+:func:`stream_plan` at the end of this module (the counterpart of
+``skew_plan_hints`` / ``skew_engaged_dims``, pallas_stencil.py:366-441):
+one level per launch, streamed along slot 0 (ROADMAP.md A4a, C11).
 
 What changes for the card:
 
@@ -25,7 +29,9 @@ What changes for the card:
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
+
 
 def _ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m if m > 1 else x
@@ -304,3 +310,112 @@ def plan_blocks(program, fuse_steps: int = 1,
             block = best[1]
             improved = True
     return block
+
+
+# ==== the stream arm: K1 walking slot 0 through a ring of planes =========
+# A block owns a T1 x T2 column of the (slot 1, slot 2) plane and walks a
+# segment of slot 0 in order.  Each input staged in shared memory (a
+# full-dim var read at a spatial offset) has a ring of planes with their
+# in-plane halo: the h0_lo + h0_hi + 1 planes one output plane reads,
+# carried from plane to plane, P planes fetched ahead with cp.async, and
+# one more so that one barrier per plane suffices (ring_depth).
+
+#: Plane tiles (slot 1, slot 2) tried in order until the rings fit shared
+#: memory; slot 2 is the contiguous minor dim, one thread per point.
+STREAM_TILES = ((16, 64), (32, 32), (8, 64), (16, 32), (8, 32), (4, 32),
+                (2, 32), (1, 32))
+#: Prefetch depths tried at each plane tile, deepest first.
+STREAM_PREFETCH = (2, 1)
+#: Streaming multiprocessors of an H100 SXM, and the shared memory,
+#: resident threads and 32-bit registers one of them holds: the segment
+#: count fills them.
+SMS = 132
+SM_SMEM = 233472
+SM_THREADS = 2048
+SM_REGS = 65536
+
+
+def ring_depth(h0_lo: int, h0_hi: int, prefetch: int) -> int:
+    """Planes in one input's ring: the planes one output plane reads, the
+    ``prefetch`` planes in flight, and the oldest plane of the output
+    plane before, so that one barrier per plane keeps a copy from landing
+    in a plane still being read."""
+    return h0_lo + h0_hi + 2 + prefetch
+
+
+def register_queue(threads: int, per_sm: int) -> int:
+    """Depth of the register queue of same-point reads: values of the
+    planes z .. z + depth - 1, loaded depth - 1 planes ahead.  3 where a
+    thread may hold 64 registers (one 1024-thread block per SM), else 2
+    (a deeper queue spills at 32)."""
+    return 3 if SM_REGS // (threads * per_sm) >= 64 else 2
+
+
+@dataclass
+class StreamPlan:
+    """The stream arm's plan for one solution: its plane tile, prefetch
+    depth, the rings (input -> planes) and their shared memory, and the
+    segments of slot 0 the grid's z walks."""
+    tile: Tuple[int, int]
+    prefetch: int
+    depths: Dict[int, int]
+    smem_bytes: int
+    seg: int                 # planes of slot 0 per segment
+    segments: int
+    blocks: int              # the grid's blocks (columns x segments)
+    per_sm: int              # blocks one SM holds (threads, shared memory)
+    queue: int               # register queue of same-point reads
+    #: per ring, cells staged per interior point: the in-plane halo and
+    #: the h0 planes each segment stages again
+    staged_per_point: Dict[int, float]
+
+    def record(self) -> Dict[str, object]:
+        return {"plane_tile": list(self.tile), "prefetch": self.prefetch,
+                "ring_depths": dict(self.depths),
+                "smem_bytes": self.smem_bytes, "segment_planes": self.seg,
+                "segments": self.segments, "blocks": self.blocks,
+                "blocks_per_sm": self.per_sm, "register_queue": self.queue,
+                "staged_per_point": {a: round(v, 4) for a, v in
+                                     self.staged_per_point.items()}}
+
+
+def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
+                smem_limit: Optional[int] = None) -> Optional[StreamPlan]:
+    """Plan the stream arm for the staged inputs' ``halos`` (input ->
+    per-slot (lo, hi)) over interior extents ``n`` (slots 0, 1, 2): the
+    first (plane tile, prefetch) of the ladder whose rings fit
+    ``smem_limit`` (``cuda_emit.SMEM_LIMIT``), or None.  The segment
+    length minimises the planes the busiest SM walks, waves of resident
+    blocks times the segment's planes with its re-staged h0 planes."""
+    if smem_limit is None:
+        from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
+    n0, n1, n2 = (int(x) for x in n)
+    for t1, t2 in STREAM_TILES:
+        for pf in STREAM_PREFETCH:
+            depths = {a: ring_depth(h[0][0], h[0][1], pf)
+                      for a, h in halos.items()}
+            cells = sum(depths[a] * (t1 + h[1][0] + h[1][1])
+                        * (t2 + h[2][0] + h[2][1]) for a, h in halos.items())
+            if cells * esize > smem_limit:
+                continue
+            nt = t1 * t2
+            per_sm = max(1, min(SM_THREADS // nt,
+                                SM_SMEM // (cells * esize + 1024)))
+            cols = -(-n1 // t1) * -(-n2 // t2)
+            h0 = max((h[0][0] + h[0][1] for h in halos.values()), default=0)
+            best = None
+            for s in range(1, min(n0, 65535) + 1):
+                seg = -(-n0 // s)
+                segs = -(-n0 // seg)
+                waves = -(-cols * segs // (SMS * per_sm))
+                cost = waves * (seg + h0)
+                if best is None or cost < best[0]:
+                    best = (cost, segs, seg)
+            _cost, segs, seg = best
+            staged = {a: (t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
+                      * (n0 + segs * (h[0][0] + h[0][1])) / (nt * n0)
+                      for a, h in halos.items()}
+            return StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
+                              cols * segs, per_sm, register_queue(nt, per_sm),
+                              staged)
+    return None

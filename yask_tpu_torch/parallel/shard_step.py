@@ -36,8 +36,8 @@ share a device, peer to peer between cards otherwise.
 
 Not carried: the halo-time calibration (``timed_median``,
 ``_calibrate_halo_frac``, ``_build_exchange_only``; ``-measure_halo``
-raises, ROADMAP.md A11) and the skewed wavefront inside shards (K3,
-ROADMAP.md A4).
+raises, ROADMAP.md A11) and the skewed wavefront inside shards (K5 has
+no stream arm: ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -840,8 +840,8 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
                   overlap_exchange=bool(ov), overlap_reasons=list(reasons),
                   comm=plan.record(), skew=False,
                   skew_reasons=[{"code": "skew_not_ported",
-                                 "cause": "the skewed wavefront inside "
-                                          "shards is K3: ROADMAP.md A4"}])
+                                 "cause": "K5 has no stream arm inside "
+                                          "shards: ROADMAP.md A5"}])
     if ov:
         tiling["overlap_core"] = {d: list(v) for d, v in core.items()}
     sp.tiling = tiling

@@ -14,8 +14,11 @@ Execution modes (``-mode``):
 * ``fused`` — the hand-written CUDA kernel of
   :mod:`yask_tpu_torch.ops.fused_stencil`, one launch per step (the
   counterpart of ``pallas``); on CPU tensors its plain version runs.
-  With ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
-  instead (phase 1 and the diamond launches), the remainder on K1;
+  With ``-skew`` (on by default) a 3-D single-stage solution runs K1's
+  stream arm instead (``stream_step``; ``-no-skew`` keeps K1).  With
+  ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
+  instead (phase 1 and the diamond launches), the remainder on K1 or its
+  stream arm;
 * ``ref`` — the eager numpy oracle (the reference's ``run_ref``);
 * ``shard_map``, ``sharded``, ``shard_pallas`` — the domain decomposed
   over the env's device list by ``-nr`` (:mod:`yask_tpu_torch.parallel`):
@@ -669,12 +672,20 @@ class StencilContext:
                           if spec is not None else None, reasons)
         return self._trap[0]
 
+    def _skew_arg(self):
+        """The stream-arm request (``FusedKernel(skew=)``): ``-skew`` =
+        None (auto), ``-no-skew`` = False.  A caller forces the arm
+        (raising where it cannot run) by making this return True."""
+        return None if self._opts.skew_wavefront else False
+
     def _fused_spec_kernel(self):
         """The fused kernel of this prepared solution, emitted but not
-        built."""
+        built; its arm (K1 or the stream arm) is selected here."""
         if self._fused is None:
             from yask_tpu_torch.ops.fused_stencil import FusedKernel
-            self._fused = FusedKernel(self._program, self._push_arg())
+            self._fused = FusedKernel(self._program, self._push_arg(),
+                                      self._skew_arg(),
+                                      self._opts.skew_dims_max)
         return self._fused
 
     def _fused_kernel(self):
@@ -708,12 +719,12 @@ class StencilContext:
         chunk runs, so that requests are batched only onto one kernel:
         the counterpart of ``yask_tpu``'s ``_pallas_variant_key``.  For
         ``fused`` it is the chunk length, the emitted kernel's name (a
-        hash of its source), the trapezoid request, the push request and
-        the pipeline signature (a push and a no-push build, a K4 and a K1
-        group, or a merged chain and a solution of the same equations,
-        never share a kernel).  The shard modes add the mesh, the comm
-        plan's key and the overlap setting; ``torch`` and ``ref`` run no
-        kernel."""
+        hash of its source), the stream arm's dims, the trapezoid
+        request, the push request and the pipeline signature (a push and
+        a no-push build, a K4 and a K1 group, K1 and its stream arm, or a
+        merged chain and a solution of the same equations, never share a
+        kernel).  The shard modes add the mesh, the comm plan's key and
+        the overlap setting; ``torch`` and ``ref`` run no kernel."""
         if self._mode in SHARD_MODES:
             mesh = (tuple(self._mesh.shape.items()),
                     tuple(str(d) for d in self._mesh.devices.flat))
@@ -727,15 +738,17 @@ class StencilContext:
                     self.comm_plan(K).key(), self._opts.overlap_exchange)
         if self._mode != "fused":
             return (self._mode,)
-        return ("fused", max(self._opts.wf_steps, 1),
-                self._fused_spec_kernel().spec.name, self._trapezoid_arg(),
+        kern = self._fused_spec_kernel()
+        return ("fused", max(self._opts.wf_steps, 1), kern.spec.name,
+                tuple(kern.skew_dims), self._trapezoid_arg(),
                 self._push_arg(), self._pipeline_sig or "")
 
     def _run_fused_steps(self, start: int, n: int) -> None:
         """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,
-        all through the fused kernel: one launch per step; or, where
-        ``-trapezoid`` resolved to K4, each K-step group through K4 and
-        the remainder through K1."""
+        all through the fused kernel (K1, or its stream arm where ``-skew``
+        engaged it): one launch per step; or, where ``-trapezoid``
+        resolved to K4, each K-step group through K4 and the remainder
+        through the fused kernel."""
         self._state_to_device()
         K = max(self._opts.wf_steps, 1)
         trap = self._trapezoid_kernel()

@@ -154,6 +154,9 @@ class EnsembleRun:
         #: "" after a batched run; otherwise why the members ran one
         #: after another.
         self.batched_reason = ""
+        #: K7's tiling record after a batched run (no stream arm, and
+        #: why), else None
+        self.tiling = None
 
     @property
     def masked(self) -> bool:
@@ -243,6 +246,7 @@ class EnsembleRun:
                 t += k * dirn
             ctx._sync()
         self._unstack_states(st)
+        self.tiling = kern.tiling(K, members=self.n)
 
     def _mask_member_state(self, i: int, masks) -> None:
         """Zero member ``i``'s state outside its sub-domain (``masks``

@@ -9,9 +9,11 @@ shard modes (``-overlap_comms``, ``-overlap_x``, ``-comm_order``,
 (auto-tuner, supervised runs, halo calibration): those are parsed so
 reference command lines keep working, and the context raises when one is
 set (``StencilContext._check_carried``).  ``-ensemble`` sets the default
-size of ``new_ensemble()``.  The TPU-only knobs of the reference (VMEM
-budgets, skew, checker preflight, serving) come with the ROADMAP.md items
-that port their paths.
+size of ``new_ensemble()``.  ``-skew`` and ``-skew_dims`` keep the
+reference's names: they select K1's stream arm (the port's design for the
+skewed wavefront and the DMA prefetch, ROADMAP.md A4a and C11).  The
+TPU-only knobs of the reference (VMEM budgets, checker preflight,
+serving) come with the ROADMAP.md items that port their paths.
 """
 
 from __future__ import annotations
@@ -89,6 +91,15 @@ class KernelSettings:
         # auto, engaged where the TilePlan gate picks it (the reference's
         # -trapezoid).  The remainder steps of a run run on K1.
         self.trapezoid_tiling = False
+        # K1's stream arm of -mode fused (the reference's -skew): True =
+        # auto, engaged wherever it can run (a single-stage 3-D solution
+        # read at a slot-0 offset whose plane rings fit shared memory),
+        # False = K1's 3-D tiles.
+        self.skew_wavefront = True
+        # How many grid dims the skew may take (the reference's window):
+        # the port streams one dim, slot 0, so 0 leaves it out and any
+        # value >= 1 allows it.
+        self.skew_dims_max = 2
 
     # ------------------------------------------------------------------
 
@@ -184,6 +195,16 @@ class KernelSettings:
             "planned for it.  The gate costs the reference's TPU variants "
             "and does not predict the card's speed: K4 is today about 3x "
             "slower than K1 (ROADMAP.md C7).", self, "trapezoid_tiling")
+        parser.add_bool_option(
+            "skew", "K1's stream arm on -mode fused (auto-on where it can "
+            "run: each block walks slot 0 through a ring of planes carried "
+            "from plane to plane, the next planes fetched under the "
+            "current one's compute; the reference's skewed wavefront).",
+            self, "skew_wavefront")
+        parser.add_int_option(
+            "skew_dims", "Max grid dims the skew may engage (the port "
+            "streams slot 0 only: 0 = off, >= 1 = the stream dim).", self,
+            "skew_dims_max")
 
     # ------------------------------------------------------------------
 

@@ -112,7 +112,27 @@ script exits 0 only when all of them passed.  Phases:
    runs with ``-overlap_x on`` and with ``-coalesce on`` from the same
    seeded state, each bit-equal to the main path after the same steps
    (compared on the card); one group against ``-mode shard_map`` (the
-   per-shard torch step) from the same state, compared on the card.
+   per-shard torch step) from the same state, compared on the card;
+9. the families path: K6's scratch arm (scratch vars computed in
+   sub-stages over the block grown by their write halo, past the domain
+   too) and rewrite arm (a var a later stage rewrites, a tile per writing
+   stage).  (a) Each solution they open, and ssg and fsg, on a small
+   ragged grid (three tile boundaries per slot and a partial last tile),
+   K ∈ {1, 2}, 5 steps, ``-mode fused`` against ``-mode torch`` on CUDA
+   tensors from one state seeded in a physical range (``seed_physical``):
+   0 mismatches at ``field_epsilon``, the cells whose bits differ
+   counted, finite states, 5 K6 launches and no other; (b) tti r=2 and
+   awp against the numpy oracle at 32³ for 2 steps; (c) tti r=2 (the
+   scratch arm) and awp (the rewrite arm) at 512³ fp32 ``-mode fused
+   -wf_steps 2``: 2 warm-up steps, then 3 trials of 20 steps with the
+   counters zeroed just before (60 K6 launches and no other), ms/step,
+   points/s, K6's ms per launch (CUDA events) against the bound from the
+   program (each input whose values can reach an output read once, as
+   ``live_inputs`` finds them, each output written once, or its FLOP
+   count, whichever is larger), the staged and computed cells per point
+   of K6's block, the plain version's time, one 2-step chunk against it
+   from the same state, and K6 at the ladder's next two smaller tiles
+   (ms per launch and cells per point; the same bits required).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -1535,6 +1555,380 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
             "step_ms_coalesce_on": step_ms["coalesce on"]}
 
 
+# ---- phase 9: the families path (K6's scratch and rewrite arms) --------
+
+#: Phase 9 (a)'s solutions: those K6's scratch and rewrite arms open, and
+#: ssg and fsg (multi-stage, registered with the rest of the library).
+FAMILY_CASES = (("tti", 2), ("tti", 4), ("awp", None), ("awp_abc", None),
+                ("awp_elastic", None), ("awp_elastic_abc", None),
+                ("swe2d", None), ("ssg", 2), ("fsg", 2),
+                ("test_scratch_1d", None), ("test_scratch_2d", None),
+                ("test_scratch_3d", None), ("test_scratch_stages_1d", None),
+                ("test_scratch_boundary_1d", None),
+                ("test_boundary_3d", None))
+#: Phase 9 (c)'s solutions at 512³: K6's scratch arm and its rewrite arm.
+FULL_CASES = (("tti", 2), ("awp", None))
+#: Read-only coefficients in a physical range, uniform in [lo, hi): a
+#: positive slowness m, density and Lame parameters, attenuation and
+#: sponge factors, AWP's dt/h and the SWE's dt/dx and gravity (others:
+#: 0.05 + 0.01 U).  Written vars start small (0.01 U), the SWE's depth
+#: near 0.5.
+COEFF_RANGES = {"m": (0.2, 0.3), "damp": (0.0, 0.01), "epsilon": (0.0, 0.1),
+                "delta": (0.0, 0.1), "theta": (0.0, 3.14159),
+                "phi": (0.0, 3.14159), "rho": (1.0, 2.0),
+                "lambda_": (1.0, 2.0), "mu": (1.0, 2.0), "qp": (0.1, 0.3),
+                "sponge": (0.9, 1.0), "h": (0.05, 0.1), "lam": (0.1, 0.1),
+                "grav": (9.8, 9.8), **{f"c{i}{j}": (1.0, 2.0)
+                                       for i in "123456" for j in "123456"}}
+WRITTEN_RANGES = {("swe2d", "h"): (0.5, 0.51)}
+
+
+def seed_physical(ctx, seed: int) -> None:
+    """A numpy-seeded state in the ranges above, through the yk_var slice
+    API (``numpy.random.default_rng(seed)``, float32 draws)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
+    for name in sorted(ctx.get_var_names()):
+        v = ctx.get_var(name)
+        dd = v.get_domain_dim_names()
+        sizes = tuple(ctx.get_overall_domain_size(d) for d in dd)
+        lo, hi = (WRITTEN_RANGES.get((ctx.get_name(), name), (0.0, 0.01))
+                  if name in written else
+                  COEFF_RANGES.get(name, (0.05, 0.06)))
+        steps = [None]
+        if v.get_step_dim_name():
+            steps = list(range(v.get_first_valid_step_index(),
+                               v.get_last_valid_step_index() + 1))
+        for t in steps:
+            vals = (lo + (hi - lo) * rng.random(sizes, dtype=np.float32)
+                    ).astype(np.float32)
+            first = ([t] if t is not None else []) + [0] * len(dd)
+            last = ([t] if t is not None else []) + [n - 1 for n in sizes]
+            v.set_elements_in_slice(vals, first, last)
+
+
+def family_ctx(fac, env, stencil, radius, sizes, mode, K=1):
+    """A context of ``stencil`` over ``sizes`` (per slot 0-2; a solution
+    of fewer dims takes the last slots), ``-mode mode -wf_steps K``."""
+    ctx = fac.new_solution(env, stencil=stencil, radius=radius)
+    dims = list(ctx._ana.domain_dims)
+    g = " ".join(f"-g_{d} {sizes[3 - len(dims) + i]}"
+                 for i, d in enumerate(dims))
+    ctx.apply_command_line_options(f"{g} -mode {mode} -wf_steps {K}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def ragged_sizes(tile) -> tuple:
+    """At least three tile boundaries per slot, and a partial last
+    tile: 3 T + T/2 + 1 points (4 where T = 1)."""
+    return tuple(3 * t + t // 2 + 1 for t in tile)
+
+
+def family_specs(fac, env) -> dict:
+    """Phase 9's kernels (K6 per solution), for phase 1's parallel
+    build; the sources do not depend on the domain size."""
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for st, r in FAMILY_CASES:
+        ctx = family_ctx(fac, env, st, r, (16, 16, 16), "fused")
+        spec = fused_stencil.FusedKernel(ctx._program).spec
+        out[f"{st} r={r}"] = spec
+        if (st, r) in FULL_CASES:
+            for tile in ladder_below(spec.tile):
+                out[f"{st} r={r} tile {tile}"] = tile_kernel(
+                    ctx._program, ctx._push_arg(), tile).spec
+    return out
+
+
+def finite(ctx) -> bool:
+    import torch
+    return all(bool(torch.isfinite(a).all()) for ring in ctx._state.values()
+               for a in ring)
+
+
+def phase9a(fac, env, steps: int = 5) -> float:
+    """Phase 9 (a): each family solution's K6 against its plain version
+    on CUDA tensors; returns the largest |Δ|."""
+    from yask_tpu_torch.ops import cuda_emit
+    worst = 0.0
+    for st, r in FAMILY_CASES:
+        probe = family_ctx(fac, env, st, r, (16, 16, 16), "torch")
+        tile = cuda_emit.emit(probe._program).tile
+        sizes = ragged_sizes(tile)
+        del probe
+        for K in (1, 2):
+            fused = family_ctx(fac, env, st, r, sizes, "fused", K)
+            plain = family_ctx(fac, env, st, r, sizes, "torch", K)
+            for c in (fused, plain):
+                seed_physical(c, 5)
+            zero_launch_counts()
+            fused.run_solution(0, steps - 1)
+            got = {k: v for k, v in launch_counts().items() if v}
+            plain.run_solution(0, steps - 1)
+            til = fused.get_stats().get_tiling()
+            d, nbits = device_diff(fused, plain, exact=True)
+            bad = fused.compare_data(plain, field_epsilon=FIELD_EPS)
+            worst = max(worst, d)
+            log(f"phase 9: {st} r={r} {'x'.join(map(str, sizes))} K={K} "
+                f"{steps} steps: K6 ({til['stages']} sub-stages, "
+                f"{til['scratch_stages']} of scratch vars, tile "
+                f"{til['tile']}, smem {til['smem_bytes']} B) vs plain "
+                f"(-mode torch on the card): max|d|={d:.3e}, {nbits} cells "
+                f"differ in their bits, mismatches={bad} (field_epsilon="
+                f"{FIELD_EPS}); launches {got}")
+            if not (finite(fused) and finite(plain)):
+                raise RuntimeError(f"phase 9: {st} K={K}: the state is not "
+                                   "finite")
+            if bad:
+                raise RuntimeError(f"phase 9: {st} K={K}: {bad} mismatches "
+                                   "against the plain version")
+            if got != {"stages_step": steps}:
+                raise RuntimeError(f"phase 9: {st} K={K}: launches {got}, "
+                                   f"expected {steps} of stages_step")
+            del fused, plain
+    return worst
+
+
+def phase9b(fac, env, g: int = 32) -> None:
+    """Phase 9 (b): tti and awp against the numpy oracle."""
+    for st, r in (("tti", 2), ("awp", None)):
+        fused = family_ctx(fac, env, st, r, (g, g, g), "fused", 2)
+        ref = family_ctx(fac, env, st, r, (g, g, g), "ref")
+        for c in (fused, ref):
+            seed_physical(c, 9)
+        fused.run_solution(0, 1)
+        ref.run_solution(0, 1)
+        bad = fused.compare_data(ref)
+        log(f"phase 9: {st} r={r} g={g} 2 steps: fused vs ref (numpy "
+            f"oracle) max|d|={max_abs_diff(fused, ref):.3e}, compare_data "
+            f"mismatches={bad}")
+        if bad:
+            raise RuntimeError(f"phase 9: {st}: {bad} mismatches against "
+                               "the oracle")
+
+
+def live_inputs(fac, env, st: str, r, g: int = 20) -> list:
+    """The (var, ring slot) inputs of ``st``'s K6 whose values can reach
+    an output.  On a ``g``³ grid each input in turn takes other values
+    (+1 + U) and the plain version's step runs again: an input whose
+    change moves no output bit is dead, as awp's evicted stress slots are
+    (the base of a conditional write whose masked-out cells a later stage
+    rewrites)."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel, plain_chunk
+    ctx = family_ctx(fac, env, st, r, (g, g, g), "fused")
+    seed_physical(ctx, 13)
+    prog, spec = ctx._program, FusedKernel(ctx._program).spec
+
+    def step(state):
+        out = plain_chunk(prog, {n: list(v) for n, v in state.items()}, 0, 1)
+        return [out[n][-1] for n in spec.outputs]
+    base = step(ctx._state)
+    gen = torch.Generator(device=ctx._device).manual_seed(13)
+    live = []
+    for name, slot in spec.inputs:
+        state = {n: list(v) for n, v in ctx._state.items()}
+        a = state[name][slot]
+        state[name][slot] = a + 1.0 + torch.rand(
+            a.shape, generator=gen, dtype=a.dtype, device=a.device)
+        if not all(torch.equal(x, y) for x, y in zip(step(state), base)):
+            live.append((name, slot))
+    return live
+
+
+def io_bytes(ctx, live) -> int:
+    """Bytes one sub-step must move: each ``live`` input read once and
+    each output written once, over the interior."""
+    import numpy as np
+    prog, spec = ctx._program, ctx._fused.spec
+
+    def cells(name):
+        c = 1
+        for d in prog.geoms[name].domain_dims:
+            c *= prog.sizes[d]
+        return c
+    return np.dtype(prog.dtype).itemsize * (
+        sum(cells(n) for n, _s in live) + sum(cells(n) for n in spec.outputs))
+
+
+def cells_per_point(spec) -> tuple:
+    """K6's shared-memory work per point of its block: the staged input
+    cells, and the computed cells of each sub-stage."""
+    import math
+    pts = math.prod(spec.tile)
+
+    def box(lo, hi):
+        return math.prod(t + a + b for t, a, b in zip(spec.tile, lo, hi))
+    staged = sum(box(*zip(*spec.halos[a])) for a in spec.tiled) / pts
+    return staged, [box(lo, hi) / pts for lo, hi in spec.sub_regions]
+
+
+def ladder_below(tile, n: int = 2) -> list:
+    """The next ``n`` tiles of the emitter's ladder below ``tile``."""
+    from yask_tpu_torch.ops import cuda_emit
+    lad = list(cuda_emit._TILE_LADDER)
+    return lad[lad.index(tuple(tile)) + 1:][:n]
+
+
+def tile_kernel(program, push, tile):
+    """K6 for ``program`` emitted at ``tile`` in place of the ladder's."""
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    kern = FusedKernel(program, push)
+    kern.spec = cuda_emit.emit(program, push, ladder=(tile,))
+    return kern
+
+
+def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
+                warm: int = 2, trials: int = 3, steps: int = 20) -> dict:
+    """Phase 9 (c): ``st`` at ``g``³ fp32 ``-mode fused -wf_steps 2``
+    through the user's entry points; returns the arm's ``kernels``
+    entry."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
+    npts = g ** 3
+    live = live_inputs(fac, env, st, r)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = family_ctx(fac, env, st, r, (g, g, g), "fused", 2)
+    seed_physical(ctx, 11)
+    state_bytes = sum(a.numel() * a.element_size()
+                      for ring in ctx._state.values() for a in ring)
+    seed_s = time.perf_counter() - t0
+    ctx.run_solution(0, warm - 1)
+    t = warm
+    zero_launch_counts()
+    rates = []
+    for _ in range(trials):
+        ctx.clear_stats()
+        ctx.run_solution(t, t + steps - 1)
+        t += steps
+        rates.append(ctx.get_stats().get_pts_per_sec())
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    til = ctx.get_stats().get_tiling()
+    if got != {"stages_step": trials * steps}:
+        raise RuntimeError(f"phase 9: {st} at {g}^3: launches {got}, "
+                           f"expected {trials * steps} of stages_step")
+    if not finite(ctx):
+        raise RuntimeError(f"phase 9: {st} at {g}^3: the state is not "
+                           "finite")
+    rates.sort()
+    mid = rates[len(rates) // 2]
+    step_ms = npts / mid * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = io_bytes(ctx, live)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_pp = ctx._ana.counters.num_ops
+    flops_ms = ops_pp * npts / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    kern, state = ctx._fused, ctx._state
+    ms = cuda_ms(lambda: stages_step(kern, state, t), 5)
+    prog = ctx._program
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 2)
+    a = kern.chunk(dict(state), t, 2)
+    b = plain_chunk(prog, dict(state), t, 2)
+    err, nbits, scale = 0.0, 0, 0.0
+    for n in kern.spec.outputs:
+        for x, y in zip(a[n][-2:], b[n][-2:]):
+            err = max(err, float((x - y).abs().max()))
+            nbits += int((x != y).sum())
+            scale = max(scale, float(y.abs().max()))
+    del b
+    staged, computed = cells_per_point(kern.spec)
+    # the same sub-step at the ladder's smaller tiles: how the launch time
+    # follows the staged and computed cells per point; each gives K6's bits
+    sweep = []
+    for tile in ladder_below(kern.spec.tile):
+        var = tile_kernel(prog, ctx._push_arg(), tile)
+        c = var.chunk(dict(state), t, 2)
+        same = all(torch.equal(x, y) for n in kern.spec.outputs
+                   for x, y in zip(a[n][-2:], c[n][-2:]))
+        del c
+        if not same:
+            raise RuntimeError(f"phase 9: {st}: K6 at tile {list(tile)} "
+                               "gives other bits than at its own tile")
+        v_staged, v_computed = cells_per_point(var.spec)
+        sweep.append({"tile": list(tile),
+                      "ms": cuda_ms(lambda: stages_step(var, state, t), 5),
+                      "smem_bytes": var.spec.smem_bytes,
+                      "staged_cells_per_point": v_staged,
+                      "computed_cells_per_point": v_computed})
+        del var
+    del a
+    log(f"phase 9: {st} r={r} {g}^3 fp32 -mode fused -wf_steps 2 ({arm}): "
+        f"state {state_bytes / 2**30:.2f} GiB ({state_bytes} B, seeded in "
+        f"{seed_s:.1f} s); {trials} trials x {steps} steps: "
+        f"{step_ms:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, max "
+        f"{npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; launches "
+        f"{got}; K6 {ms:.3f} ms/launch (CUDA events, the zero-filled "
+        f"outputs included); bound {bound_ms:.3f} ms ({bound_by}: "
+        f"{nbytes / npts:.0f} B/pt -> {bytes_ms:.3f} ms at 3.35 TB/s; "
+        f"{ops_pp} FLOP/pt -> {flops_ms:.3f} ms at 67 TFLOP/s fp32), share "
+        f"{bound_ms / ms:.3f} per launch, {bound_ms / step_ms:.3f} per step;"
+        f" tiling: {til['stages']} sub-stages ({til['scratch_stages']} of "
+        f"scratch vars), tile {til['tile']}, smem {til['smem_bytes']} B; "
+        f"per point of the block: {staged:.2f} staged input cells "
+        f"({len(kern.spec.tiled)} inputs), computed cells per sub-stage "
+        f"{[round(x, 2) for x in computed]}; live inputs {len(live)} of "
+        f"{len(kern.spec.inputs)} (dead: "
+        f"{sorted(set(kern.spec.inputs) - set(live))}); "
+        f"plain version {plain_ms:.3f} ms/step (not a yardstick); one "
+        f"2-step chunk vs plain: max|d|={err:.3e} (field max {scale:.3e}), "
+        f"{nbits} cells differ in their bits; "
+        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+    for v in sweep:
+        log(f"phase 9: {st} r={r} {g}^3: K6 at tile {v['tile']} "
+            f"({v['smem_bytes']} B): {v['ms']:.3f} ms/launch (CUDA events; "
+            f"{ms:.3f} at its own tile {list(kern.spec.tile)}), "
+            f"{v['staged_cells_per_point']:.2f} staged cells per point, "
+            f"computed per sub-stage "
+            f"{[round(x, 2) for x in v['computed_cells_per_point']]}; the "
+            f"same bits [{card}]")
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 9: {st}: K6 and its plain version "
+                           f"disagree at {g}^3")
+    del ctx, kern, state
+    torch.cuda.empty_cache()
+    return {"name": f"stages_step ({arm})", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "launches": got["stages_step"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": f"launch, {st} r={r} {g}^3 fp32",
+            "step_ms": step_ms, "bytes_per_point": nbytes / npts,
+            "state_bytes": state_bytes, "staged_cells_per_point": staged,
+            "computed_cells_per_point": computed, "tile_sweep": sweep}
+
+
+def phase9(fac, env, card: str, full: int = 512) -> list:
+    """The families path (see the module docstring); returns the
+    ``kernels`` entries of K6's scratch arm (tti) and rewrite arm
+    (awp)."""
+    t_phase = time.perf_counter()
+    worst = phase9a(fac, env)
+    phase9b(fac, env)
+    scratch = family_full(fac, env, card, "tti", 2, "scratch arm", full)
+    scratch.update(replaces="yask_tpu/ops/pallas_stencil.py:175 (_TileEval."
+                            "read scratch :175-179, the stage loop's reset "
+                            ":2003 and scratch writes :2105-2147)",
+                   path="phase 9 (c), tti r=2")
+    rewrite = family_full(fac, env, card, "awp", None, "rewrite arm", full)
+    rewrite.update(replaces="yask_tpu/ops/pallas_stencil.py:2155 (the stage "
+                            "loop's rewrite on the earlier stage's tile "
+                            ":2155-2187)",
+                   path="phase 9 (c), awp")
+    for e in (scratch, rewrite):
+        e["max_abs_err"] = max(e["max_abs_err"], worst)
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return [scratch, rewrite]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1579,6 +1973,7 @@ def main() -> int:
     chained.end()
     specs.update(trap_specs(fac, env))
     specs.update(shard_specs(fac))
+    specs.update(family_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -1592,7 +1987,8 @@ def main() -> int:
                    + (f", _stream (stream arm: {s.stream.record()})"
                       if s.stream is not None else "")
                    if s.stages == 1 else
-                   f"entry {s.name} (K6, {s.stages} stages, pushed "
+                   f"entry {s.name} (K6, {s.stages} sub-stages, "
+                   f"{s.scratch_stages} of scratch vars, pushed "
                    f"{s.push_vars})")
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
@@ -1610,10 +2006,13 @@ def main() -> int:
     k4 = phase7(fac, env, card)
     torch.cuda.empty_cache()
     k5 = phase8(fac, card, k1["step_ms"])
+    torch.cuda.empty_cache()
+    k6_arms = phase9(fac, env, card)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]}))
+    print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
+                      + k6_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -237,15 +237,17 @@ def _two_stage_chain(pkg="yask_tpu_torch"):
 
 
 def _multi_stage():
-    """A var written in two stages (a bulk update, then an override that
-    the write-after-write order puts in a later stage): still refused."""
+    """A var written in two stages: a bulk update, then an override that
+    the write-after-write order puts in a later stage, reading this
+    step's values of its neighbours (K6's rewrite arm)."""
     from yask_tpu_torch.compiler.solution import yc_factory
     s = yc_factory().new_solution("rewrite")
     t = s.new_step_index("t")
     x = s.new_domain_index("x")
     a = s.new_var("a", [t, x])
     a(t + 1, x).EQUALS(a(t, x - 1) * 0.5)
-    a(t + 1, x).EQUALS(a(t, x + 1)).IF_DOMAIN(x < 3)
+    a(t + 1, x).EQUALS(a(t + 1, x - 1) * 0.25 + a(t, x + 1)).IF_DOMAIN(
+        x > 2)
     return s
 
 
@@ -273,19 +275,65 @@ def _misc():
     return s
 
 
-@pytest.mark.parametrize("build,why", [(_multi_stage, "stages"),
-                                       (_scratch, "scratch"),
-                                       (_misc, "misc")])
+def _four_d():
+    from yask_tpu_torch.compiler.solution import yc_factory
+    s = yc_factory().new_solution("four_d")
+    t = s.new_step_index("t")
+    w, x, y, z = (s.new_domain_index(d) for d in "wxyz")
+    a = s.new_var("a", [t, w, x, y, z])
+    a(t + 1, w, x, y, z).EQUALS(a(t, w - 1, x, y, z) * 0.5)
+    return s
+
+
+def _bf16():
+    s = _scratch()
+    s.set_element_bytes(2)
+    return s
+
+
+@pytest.mark.parametrize("build,why", [
+    (_misc, "misc.*ROADMAP.md A3"), (_four_d, "4-D.*ROADMAP.md A3"),
+    (_bf16, "bfloat16.*element size 2 is ROADMAP.md A3")])
 def test_fused_mode_refuses_what_the_emitter_does_not_take(build, why):
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), build())
-    ctx.apply_command_line_options("-g 16 -mode fused")
+    ctx.apply_command_line_options(
+        f"-g {6 if build is _four_d else 16} -mode fused")
     with pytest.raises(YaskException, match=why):
         ctx.prepare_solution()
     # the same solution still runs on the torch path
     ctx.get_settings().mode = "torch"
     ctx.prepare_solution()
     ctx.run_solution(0, 1)
+
+
+@pytest.mark.parametrize("build", [_multi_stage, _scratch])
+def test_fused_mode_runs_rewrites_and_scratch(build, tmp_path):
+    """What the emitter refused before its scratch and rewrite arms: K6
+    runs it, and its emitted sub-stages (g++'s host path) give the plain
+    version's bits; fused matches torch."""
+    import torch
+    fac = yask_tpu_torch.yk_factory()
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = fac.new_solution(fac.new_env(device="cpu"), build())
+        ctx.apply_command_line_options(f"-g 40 -mode {mode} -wf_steps 2")
+        ctx.prepare_solution()
+        import_interiors(ctx, seeded_interiors(ctx, 8))
+        ctxs[mode] = ctx
+    spec = cuda_emit.emit(ctxs["fused"]._program)
+    assert spec.stages > 1 and spec.name.startswith("fused_stages_")
+    fn = host_kernel(spec, tmp_path)
+    got = host_launch(fn, ctxs["fused"]._program, spec,
+                      ctxs["fused"]._state, 0)
+    want = ctxs["fused"]._program.step(ctxs["fused"]._state, 0)
+    torch.testing.assert_close(got["a"], want["a"][-1], rtol=0, atol=0)
+    for ctx in ctxs.values():
+        ctx.run_solution(0, 4)
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
+    til = ctxs["fused"].get_stats().get_tiling()
+    assert til["kernel"] == "stages_step"
 
 
 def test_wrapper_takes_plain_version_only_for_cpu_tensors():

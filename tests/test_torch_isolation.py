@@ -68,6 +68,16 @@ for cli in ("-skew", "-no-skew", "-skew -skew_dims 0"):   # K1's two arms
     init_solution_vars(ctx)
     ctx.run_solution(0, 2)
     assert ctx.get_stats().get_tiling()["skew_reasons"]
+for name, r in (("tti", 2), ("awp", None)):   # K6's scratch, rewrite arms
+    ctx = fac.new_solution(env, stencil=name, radius=r)
+    ctx.apply_command_line_options("-g 8 -mode fused -wf_steps 2")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 1)
+    assert ctx.get_stats().get_tiling()["kernel"] == "stages_step"
+ctx = fac.new_solution(env, stencil="iso3dfd", radius=2)
+ctx.apply_command_line_options("-g 8 -mode fused -wf_steps 2")
+ctx.prepare_solution()
 ens = ctx.new_ensemble(2)
 ens.run(0, 1)
 assert ens.tiling["kernel"] == "batched_step"
@@ -124,6 +134,11 @@ def test_no_jax_or_yask_tpu_import_in_the_port():
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert bad == []
     assert len(_py_files()) > 20
+    # the whole stencil library, A1's copies included
+    assert {f"stencils/{n}.py" for n in ("tti", "elastic", "awp", "filters",
+                                         "test_stencils")} \
+        <= {os.path.relpath(f, PKG).replace(os.sep, "/")
+            for f in _py_files()}
 
 
 def test_new_env_without_cuda_raises(monkeypatch):

@@ -406,24 +406,49 @@ def test_kernel_failure_raises_out_of_run_with_no_fallback(monkeypatch):
     assert pipe.fused_ctx._steps_done == 0
 
 
-def test_scratch_var_is_still_refused_naming_a3():
+def test_scratch_var_in_a_chain_runs_fused(tmp_path):
+    """A two-stage chain whose first stage reads a scratch var at an
+    offset: K6 computes the scratch var in a sub-stage over the stage's
+    region grown by its write halo, and fused matches torch (the emitted
+    sub-stages through g++ too)."""
+    import torch
     from yask_tpu_torch.compiler.solution import yc_factory
-    s = yc_factory().new_solution("stages_with_scratch")
-    t = s.new_step_index("t")
-    x = s.new_domain_index("x")
-    y = s.new_domain_index("y")
-    a = s.new_var("a", [t, x, y])
-    b = s.new_var("b", [t, x, y])
-    tmp = s.new_scratch_var("tmp", [x, y])
-    tmp(x, y).EQUALS(a(t, x - 1, y) + a(t, x + 1, y))
-    a(t + 1, x, y).EQUALS(tmp(x, y - 1) * 0.25)
-    b(t + 1, x, y).EQUALS(a(t + 1, x, y + 1))
+
+    def soln():
+        s = yc_factory().new_solution("stages_with_scratch")
+        t = s.new_step_index("t")
+        x = s.new_domain_index("x")
+        y = s.new_domain_index("y")
+        a = s.new_var("a", [t, x, y])
+        b = s.new_var("b", [t, x, y])
+        tmp = s.new_scratch_var("tmp", [x, y])
+        tmp(x, y).EQUALS(a(t, x - 1, y) + a(t, x + 1, y))
+        a(t + 1, x, y).EQUALS(tmp(x, y - 1) * 0.25)
+        b(t + 1, x, y).EQUALS(a(t + 1, x, y + 1))
+        return s
     fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(port_env(), s)
-    assert len(ctx._ana.stages) == 2
-    ctx.apply_command_line_options("-g 8 -mode fused")
-    with pytest.raises(YaskException, match="scratch.*ROADMAP.md A3"):
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = fac.new_solution(port_env(), soln())
+        assert len(ctx._ana.stages) == 2
+        ctx.apply_command_line_options(f"-g 19 -mode {mode}")
         ctx.prepare_solution()
+        import_interiors(ctx, seeded_interiors(ctx, 4))
+        ctxs[mode] = ctx
+    prog = ctxs["fused"]._program
+    spec = cuda_emit.emit(prog)
+    # tmp's sub-stage, a's stage grown by b's read, then b
+    assert spec.stages == 3 and spec.scratch_stages == 1
+    assert spec.computed == ["tmp", "a"]
+    got = host_launch(host_kernel(spec, tmp_path), prog, spec,
+                      ctxs["fused"]._state, 0)
+    want = prog.step(ctxs["fused"]._state, 0)
+    for n in ("a", "b"):
+        torch.testing.assert_close(got[n], want[n][-1], rtol=0, atol=0)
+    for ctx in ctxs.values():
+        ctx.run_solution(0, 2)
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
 
 
 # ---------------------------------------------------------------------------

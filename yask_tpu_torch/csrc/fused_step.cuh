@@ -513,11 +513,14 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 
 // ==== K6: several stages per launch =====================================
 // Replaces the push= arm of build_pallas_chunk with its stage loop
-// (pallas_stencil.py:495-563, :995-1058, :1859-1871, :2058-2188): one
-// launch does every stage of one sub-step of a multi-stage solution, such
-// as the merged RTM chain of ops/pipeline.py (forward step -> imaging
-// condition -> smoothing).  ops/cuda_emit.py prints Spec::stage<K> per
-// stage and the tables used below.
+// (pallas_stencil.py:495-563, :995-1058, :1859-1871, :2058-2188) and the
+// scratch chains its tile evaluator computes in-tile (_TileEval.read
+// :175-179, the stage loop's reset :2003 and scratch writes :2105-2147):
+// one launch does every stage of one sub-step of a multi-stage solution,
+// such as the merged RTM chain of ops/pipeline.py (forward step ->
+// imaging condition -> smoothing), AWP's velocity, stress and boundary
+// stages, or a solution with scratch vars such as TTI.  ops/cuda_emit.py
+// prints Spec::stage<K> per sub-stage and the tables used below.
 //
 // What bounds it on an H100: bytes.  The merged pure RTM chain at r=2
 // does ~60 FLOP per point and must move 20 B per point per step at fp32
@@ -526,37 +529,50 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 // 0.13 ms of FLOPs.  What the design does about it: every intermediate a
 // later stage reads at the same step stays in shared memory, so the chain
 // moves what one stage would; a pushed var (read only that way) has no
-// device-memory input or output at all.
+// device-memory input or output at all; a scratch var never leaves
+// shared memory.  The price is recomputation: a scratch tile covers the
+// block grown by its write halo (TTI r=2 at 2x8x64: 4.8 cells per point).
 //
 // Design (a first cut that is simple and right):
-//   * a block owns T0 x T1 x T2 interior points, as in K1; stage K is
-//     computed over the block expanded by expandS(K) per slot (the read
-//     widths of the later stages), so every input tile's halo grows by
-//     that much;
-//   * 1) stage the tiled inputs as K1 does, except that cells past an
-//     input's read reach of the domain (its pads) hold zero: the grown
-//     halo reaches beyond the padded array at the domain's edges;
-//   * 2) each stage loops its threads over the cells of its region (an
-//     expanded region does not map one thread per point); a cell outside
-//     the domain is not computed and holds zero, which is what the plain
-//     version's zero pads give a later stage's read there; results go to
-//     the stage's computed tile in shared memory and, for the block's own
-//     interior points, to the fresh zeroed outputs of the vars that are
-//     not pushed; __syncthreads between stages.
+//   * a block owns T0 x T1 x T2 interior points, as in K1.  The stages
+//     split into sub-stages: one per scratch write halo of a scratch part
+//     (its vars), then one for the stage's other parts.  Sub-stage K
+//     covers the block grown by sub_lo/sub_hi(K) per slot: the read
+//     widths of the later stages, plus a scratch var's write halo
+//     (asymmetric, as ana.scratch_write_halo), so every input tile's
+//     halo grows by that much;
+//   * 1) stage the tiled inputs as K1 does, except that each holds what
+//     its allocation holds (the pads included: a scratch var is computed
+//     past the domain and reads them there) and 0 past it;
+//   * 2) each sub-stage loops its threads over the cells of its region
+//     (a grown region does not map one thread per point).  A cell outside
+//     the plain version's region of the sub-stage -- the domain, grown by
+//     the write halo for scratch (clip_lo/clip_hi) -- is not computed and
+//     holds zero, which is what the plain version's zero pads give a later
+//     stage's read there; a scratch cell inside it is computed, index
+//     values < 0 or >= n included.  Results go to the sub-stage's
+//     computed tiles in shared memory (one per var and writing sub-stage:
+//     a var a later stage rewrites gets a second tile, so the rewrite
+//     never writes what its neighbours still read, and a conditional
+//     rewrite keeps the first tile's value as its base) and, for the
+//     block's own interior points, to the fresh zeroed outputs of the
+//     vars that are not pushed, by the last sub-stage that writes each;
+//     __syncthreads between sub-stages.
 //
-// The host path (no __CUDACC__) runs each stage over the whole domain
-// with global reads, keeping each computed var in a zeroed host buffer
-// over the domain expanded by its stage's expansion.
+// The host path (no __CUDACC__) runs each sub-stage over its plain region
+// of the whole domain with global reads, keeping each computed tile in a
+// zeroed host buffer over the domain grown by its sub-stage's region.
 
-// Reads of one stage point: staged inputs from their tile (others from
-// global memory) and earlier stages' results from their computed tiles.
+// Reads of one sub-stage point: staged inputs from their tile (others
+// from global memory) and earlier sub-stages' results from their computed
+// tiles.
 template <class S>
 struct StageReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
   int l0, l1, l2;  // point relative to the block origin (may lie in the
                    // expansion: < 0 or >= T)
-  int g0, g1, g2;  // point in the interior
+  int g0, g1, g2;  // point in the interior (may lie past the domain)
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
@@ -573,9 +589,10 @@ struct StageReader {
   }
   template <int B>
   YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
-    constexpr int k = S::cmp_stage(B);
-    constexpr int e0 = S::expand0(k), e1 = S::expand1(k), e2 = S::expand2(k);
-    constexpr int R1 = S::T1 + 2 * e1, R2 = S::T2 + 2 * e2;
+    constexpr int k = S::cmp_sub(B);
+    constexpr int e0 = S::sub_lo0(k), e1 = S::sub_lo1(k), e2 = S::sub_lo2(k);
+    constexpr int R1 = S::T1 + e1 + S::sub_hi1(k);
+    constexpr int R2 = S::T2 + e2 + S::sub_hi2(k);
     return smem[S::cmp_offset(B) + ((l0 + e0 + o0) * R1 + (l1 + e1 + o1)) * R2
                 + (l2 + e2 + o2)];
   }
@@ -593,9 +610,10 @@ struct HostStageReader {
   }
   template <int B>
   YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
-    constexpr int k = S::cmp_stage(B);
-    constexpr int e0 = S::expand0(k), e1 = S::expand1(k), e2 = S::expand2(k);
-    const idx_t R1 = p->n[1] + 2 * e1, R2 = p->n[2] + 2 * e2;
+    constexpr int k = S::cmp_sub(B);
+    constexpr int e0 = S::sub_lo0(k), e1 = S::sub_lo1(k), e2 = S::sub_lo2(k);
+    const idx_t R1 = p->n[1] + e1 + S::sub_hi1(k);
+    const idx_t R2 = p->n[2] + e2 + S::sub_hi2(k);
     return bufs[B][((g0 + e0 + o0) * R1 + (g1 + e1 + o1)) * R2
                    + (g2 + e2 + o2)];
   }
@@ -604,11 +622,12 @@ struct HostStageReader {
 template <class S, int K>
 void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs) {
   typedef typename S::real_t real_t;
-  constexpr int e0 = S::expand0(K), e1 = S::expand1(K), e2 = S::expand2(K);
-  const idx_t R1 = p.n[1] + 2 * e1, R2 = p.n[2] + 2 * e2;
-  for (int g0 = 0; g0 < p.n[0]; ++g0)
-    for (int g1 = 0; g1 < p.n[1]; ++g1)
-      for (int g2 = 0; g2 < p.n[2]; ++g2) {
+  constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
+  const idx_t R1 = p.n[1] + e1 + S::sub_hi1(K);
+  const idx_t R2 = p.n[2] + e2 + S::sub_hi2(K);
+  for (int g0 = -S::clip_lo0(K); g0 < p.n[0] + S::clip_hi0(K); ++g0)
+    for (int g1 = -S::clip_lo1(K); g1 < p.n[1] + S::clip_hi1(K); ++g1)
+      for (int g2 = -S::clip_lo2(K); g2 < p.n[2] + S::clip_hi2(K); ++g2) {
         const HostStageReader<S> rd{&p, bufs, g0, g1, g2};
         const int g[3] = {g0, g1, g2};
         real_t v[S::MAXV];
@@ -631,10 +650,10 @@ int host_stages(const ParamsOf<S>& p) {
   std::vector<std::vector<real_t>> store(S::NCMP);
   real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
   for (int b = 0; b < S::NCMP; ++b) {
-    const int k = S::cmp_stage(b);
-    store[b].assign(size_t(p.n[0] + 2 * S::expand0(k))
-                        * size_t(p.n[1] + 2 * S::expand1(k))
-                        * size_t(p.n[2] + 2 * S::expand2(k)),
+    const int k = S::cmp_sub(b);
+    store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
+                        * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
+                        * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
                     real_t(0));
     bufs[b] = store[b].data();
   }
@@ -643,7 +662,8 @@ int host_stages(const ParamsOf<S>& p) {
 }
 
 #ifdef __CUDACC__
-// One stage over its region: a loop of the block's threads over its cells.
+// One sub-stage over its region: a loop of the block's threads over its
+// cells.
 template <class S, int K>
 __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                                              typename S::real_t* smem,
@@ -651,9 +671,10 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                                              int tid) {
   typedef typename S::real_t real_t;
   constexpr int NT = S::T1 * S::T2;
-  constexpr int e0 = S::expand0(K), e1 = S::expand1(K), e2 = S::expand2(K);
-  constexpr int R0 = S::T0 + 2 * e0, R1 = S::T1 + 2 * e1;
-  constexpr int R2 = S::T2 + 2 * e2;
+  constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
+  constexpr int R0 = S::T0 + e0 + S::sub_hi0(K);
+  constexpr int R1 = S::T1 + e1 + S::sub_hi1(K);
+  constexpr int R2 = S::T2 + e2 + S::sub_hi2(K);
   constexpr int cells = R0 * R1 * R2;
   for (int i = tid; i < cells; i += NT) {
     const int l2 = i % R2 - e2;
@@ -661,8 +682,13 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
     const int l1 = r % R1 - e1;
     const int l0 = r / R1 - e0;
     const int g0 = b0 + l0, g1 = b1 + l1, g2 = b2 + l2;
-    const bool inside = g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
-                        && g2 >= 0 && g2 < p.n[2];
+    // the plain version's region: the domain, grown by a scratch var's
+    // write halo
+    const bool inside = g0 >= -S::clip_lo0(K) && g0 < p.n[0] + S::clip_hi0(K)
+                        && g1 >= -S::clip_lo1(K)
+                        && g1 < p.n[1] + S::clip_hi1(K)
+                        && g2 >= -S::clip_lo2(K)
+                        && g2 < p.n[2] + S::clip_hi2(K);
     real_t v[S::MAXV];
     if (inside) {
       const StageReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
@@ -672,8 +698,9 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
 #pragma unroll
       for (int j = 0; j < S::MAXV; ++j) v[j] = real_t(0);
     }
-    const bool own = inside && l0 >= 0 && l0 < S::T0 && l1 >= 0
-                     && l1 < S::T1 && l2 >= 0 && l2 < S::T2;
+    const bool own = l0 >= 0 && l0 < S::T0 && l1 >= 0 && l1 < S::T1
+                     && l2 >= 0 && l2 < S::T2 && g0 < p.n[0] && g1 < p.n[1]
+                     && g2 < p.n[2];
 #pragma unroll
     for (int j = 0; j < S::MAXV; ++j) {
       if (j >= S::stage_nv(K)) break;
@@ -704,7 +731,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   const int tid = threadIdx.y * S::T2 + threadIdx.x;
 
   // 1) stage each tiled input's halo tile (U loads in flight per thread,
-  //    as K1); cells past the input's read reach of the domain hold 0
+  //    as K1); cells past the input's allocation hold 0
   constexpr int NT = S::T1 * S::T2;
   constexpr int U = 16;
 #pragma unroll
@@ -714,9 +741,9 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
     const int E1 = S::T1 + h1 + S::halo_hi1(k);
     const int E2 = S::T2 + h2 + S::halo_hi2(k);
     const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
-    const int lo0 = -S::reach_lo0(k), lim0 = p.n[0] + S::reach_hi0(k);
-    const int lo1 = -S::reach_lo1(k), lim1 = p.n[1] + S::reach_hi1(k);
-    const int lo2 = -S::reach_lo2(k), lim2 = p.n[2] + S::reach_hi2(k);
+    const int lo0 = -S::alloc_lo0(k), lim0 = p.n[0] + S::alloc_hi0(k);
+    const int lo1 = -S::alloc_lo1(k), lim1 = p.n[1] + S::alloc_hi1(k);
+    const int lo2 = -S::alloc_lo2(k), lim2 = p.n[2] + S::alloc_hi2(k);
     real_t* dst = smem + S::tile_offset(k);
     for (int base = tid; base < cells; base += NT * U) {
       real_t v[U];
@@ -739,7 +766,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   }
   __syncthreads();
 
-  // 2) the stages in order, each over its region
+  // 2) the sub-stages in order, each over its region
   device_stage<S, 0>(p, smem, b0, b1, b2, tid);
 }
 
@@ -760,7 +787,7 @@ int launch_stages(const ParamsOf<S>& p, cudaStream_t stream) {
 }
 #endif
 
-// K6: as run(), every stage of one sub-step.
+// K6: as run(), every stage (and scratch sub-stage) of one sub-step.
 template <class S>
 int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
                void* out_strides, void* sizes, int t, void* stream) {

@@ -12,15 +12,20 @@ into one ``Spec`` struct:
   distinct ``skey()``, which is the common-subexpression elimination their
   memos do.  Reads go through ``rd.template at<A>(o...)``; the tile
   machinery in ``csrc/fused_step.cuh`` supplies ``rd``.
-* several stages (K6): ``Spec::stage<K>(rd, g, n, t, out)``, one point
-  function per stage with the same CSE and typing.  A read at step offset
-  ``+step_dir`` of a var an earlier stage wrote reads that stage's
-  computed tile (``rd.template cmp<B>(o...)``), not an input.  Stage K is
-  computed over the block expanded by the read widths of the stages after
-  it (``SolutionAnalysis.stage_read_widths``, as ``build_pallas_chunk``
-  shrinks its regions stage by stage), so the input halos grow to match.
-  A *pushed* var (:func:`push_eligible_vars`) lives only in its shared-
-  memory tile: no input, no output.
+* several stages, or scratch vars (K6): ``Spec::stage<K>(rd, g, n, t,
+  out)``, one point function per sub-stage with the same CSE and typing.
+  A stage's scratch parts become sub-stages of their own (one per write
+  halo), each computed over the stage's region grown by that halo, cells
+  past the domain included, into a tile with no output; the stage's
+  other parts follow in one sub-stage.  A read of a scratch var, or at
+  step offset ``+step_dir`` of a var an earlier stage wrote, reads the
+  tile of the newest earlier sub-stage that writes it (``rd.template
+  cmp<B>(o...)``), not an input; a var rewritten in a later stage gets a
+  tile per writing stage, and a conditional rewrite's base is the earlier
+  tile.  Stage K is computed over the block expanded by what the later
+  stages read of it (:func:`_stage_expansions`), so the input halos grow
+  to match.  A *pushed* var (:func:`push_eligible_vars`) lives only in
+  its shared-memory tile: no input, no output.
 * compile-time tables the machinery reads: which inputs ride shared memory
   (those of full-dim vars read at a spatial offset, or over an expanded
   region) and their halos, the tile extents, and for K6 the stage
@@ -84,20 +89,20 @@ _IND = " " * 8   # statement indent inside Spec::point
 
 def fused_applicable(program) -> Tuple[bool, str]:
     """Can the emitter print this solution?  1-3 domain dims, fp32/fp64,
-    no scratch vars, no misc dims or misc-index values, written vars over
-    every domain dim, each written in one stage.  Any number of stages."""
+    no misc dims or misc-index values, written vars (scratch ones too)
+    over every domain dim.  Any number of stages; scratch vars and vars
+    rewritten in a later stage run on K6 (:func:`emit`)."""
     import numpy as np
     ana = program.ana
     nd = len(ana.domain_dims)
     if not 1 <= nd <= 3:
-        return False, f"needs 1-3 domain dims, has {nd}"
+        return False, (f"needs 1-3 domain dims, has {nd} (4-D emission is "
+                       "ROADMAP.md A3)")
     if np.dtype(program.dtype).name not in ("float32", "float64"):
         return False, (f"dtype {np.dtype(program.dtype).name} (the kernel "
-                       "takes float32 and float64)")
+                       "takes float32 and float64; element size 2 is "
+                       "ROADMAP.md A3)")
     for v in program.soln.get_vars():
-        if v.is_scratch():
-            return False, (f"scratch var '{v.get_name()}' (scratch "
-                           "emission is ROADMAP.md A3)")
         if any(d.type == IndexType.MISC for d in v.get_dims()):
             return False, (f"misc-dim var '{v.get_name()}' (misc emission "
                            "is ROADMAP.md A3)")
@@ -108,17 +113,13 @@ def fused_applicable(program) -> Tuple[bool, str]:
     for eq in ana.eqs:
         if uses_misc_index(eq.rhs, eq.cond, eq.step_cond):
             return False, "misc index used as a value (ROADMAP.md A3)"
-    stages_of: Dict[str, set] = {}
-    for stage in ana.stages:
-        for part in stage.parts:
-            for eq in part.eqs:
-                stages_of.setdefault(eq.lhs.var_name(), set()).add(
-                    stage.index)
-    for name, ss in stages_of.items():
-        if len(ss) > 1:
-            return False, (f"var '{name}' is written in {len(ss)} stages "
-                           "(a rewrite in a later stage is ROADMAP.md A3)")
     return True, "ok"
+
+
+def has_scratch(program) -> bool:
+    """Does the solution hold scratch vars (so that K6 runs it, even with
+    one stage)?"""
+    return any(g.is_scratch for g in program.geoms.values())
 
 
 def push_eligible_vars(program) -> Dict[str, str]:
@@ -227,7 +228,8 @@ class KernelSpec:
     smem_bytes: int
     halos: Dict[int, Tuple[Tuple[int, int], ...]] = field(
         default_factory=dict)      # tiled input → per-slot (lo, hi)
-    stages: int = 1                # > 1: K6 (entry `name` runs them all)
+    stages: int = 1                # > 1: K6's sub-stages (entry `name`
+                                   # runs them all)
     push_vars: List[str] = field(default_factory=list)
     push_reasons: List[Dict] = field(default_factory=list)
     computed: List[str] = field(default_factory=list)  # K6's stage tiles
@@ -244,6 +246,12 @@ class KernelSpec:
     #: code and detail of why not
     stream: object = None
     stream_cause: Tuple[str, str] = None
+    #: K6 only: how many of its sub-stages compute scratch vars
+    scratch_stages: int = 0
+    #: K6 only: per sub-stage, how far its region reaches below and above
+    #: the block per slot ((lo0, lo1, lo2), (hi0, hi1, hi2))
+    sub_regions: List[Tuple[Tuple[int, ...], Tuple[int, ...]]] = field(
+        default_factory=list)
 
 
 def _hexf(v: float) -> str:
@@ -254,9 +262,9 @@ def _hexf(v: float) -> str:
 
 
 class _Printer:
-    """Post-order printer of one stage's equations with structural CSE;
-    the inputs, their reach and the computed tiles are shared by all the
-    stages of a solution."""
+    """Post-order printer of one sub-stage's equations with structural
+    CSE; the inputs, their reach and the computed tiles are shared by all
+    the sub-stages of a solution."""
 
     def __init__(self, program, slot_of: Dict[str, int]):
         self.prog = program
@@ -267,20 +275,41 @@ class _Printer:
         self.inputs: List[Tuple[str, int]] = []
         self.in_index: Dict[Tuple[str, int], int] = {}
         # (input index) → per-slot left/right reach of the tile: the read
-        # offsets plus the current stage's expansion
+        # offsets plus the current sub-stage's region
         self.reach: Dict[int, List[List[int]]] = {}
         # (input index) → per-slot left/right read offsets alone (what the
         # padded array holds around the domain)
         self.raw: Dict[int, List[List[int]]] = {}
-        self.expand = [0, 0, 0]         # the current stage's expansion
-        self.cmp_of: Dict[str, int] = {}      # var → computed tile
-        self.cmp_expand: List[List[int]] = []  # computed tile → expansion
+        # (input index) → does it need a shared-memory tile: read at a
+        # spatial offset, or at cells of a grown region that only a tile
+        # holds (a scratch sub-stage reads its same-point inputs in global
+        # memory: its cells lie inside the plain version's region, hence
+        # inside the allocation)
+        self.tile_need: Dict[int, bool] = {}
+        self.sub = 0                    # the current sub-stage
+        self.lo = [0, 0, 0]             # its region below the block
+        self.hi = [0, 0, 0]             # and above it
+        self.scratch = False
+        #: (var, writing sub-stage) → computed tile
+        self.cmp_of: Dict[Tuple[str, int], int] = {}
+        self.cmp_geom: List[Tuple[List[int], List[int]]] = []
+        #: var → the sub-stages that write it, in order
+        self.writers: Dict[str, List[int]] = {}
         self.nvals = 0
 
-    def begin_stage(self, expand: List[int]) -> None:
+    def begin_stage(self, sub: int, lo: List[int], hi: List[int],
+                    scratch: bool = False) -> None:
         self.lines = []
         self.memo = {}
-        self.expand = list(expand)
+        self.sub = sub
+        self.lo, self.hi = list(lo), list(hi)
+        self.scratch = scratch
+
+    def earlier_writer(self, name: str):
+        """The newest sub-stage before the current one that writes
+        ``name``, or None."""
+        w = [j for j in self.writers.get(name, []) if j < self.sub]
+        return w[-1] if w else None
 
     def input_of(self, var: str, ring_idx: int) -> int:
         key = (var, ring_idx)
@@ -289,21 +318,29 @@ class _Printer:
             self.inputs.append(key)
             self.reach[self.in_index[key]] = [[0, 0] for _ in range(3)]
             self.raw[self.in_index[key]] = [[0, 0] for _ in range(3)]
+            self.tile_need[self.in_index[key]] = False
         return self.in_index[key]
 
     def _note_reach(self, a: int, offs: List[int]) -> None:
         for s_, o in enumerate(offs):
-            e = self.expand[s_]
             lo_hi = self.reach[a][s_]
-            lo_hi[0] = max(lo_hi[0], e - o)
-            lo_hi[1] = max(lo_hi[1], e + o)
+            lo_hi[0] = max(lo_hi[0], self.lo[s_] - o)
+            lo_hi[1] = max(lo_hi[1], self.hi[s_] + o)
             raw = self.raw[a][s_]
             raw[0] = max(raw[0], -o)
             raw[1] = max(raw[1], o)
+            if o or (not self.scratch and (self.lo[s_] or self.hi[s_])):
+                self.tile_need[a] = True
 
     def base_read(self, name: str) -> str:
-        """The evicted slot's value at the current point (the base of a
-        conditional write)."""
+        """The base of a conditional write at the current point: the
+        value an earlier sub-stage computed (a rewrite, or an earlier
+        write of a scratch var), else the evicted slot's value (0 for a
+        scratch var), as the plain version's ``where`` takes it."""
+        if self.earlier_writer(name) is not None:
+            return self._computed_read(name, [0, 0, 0])[0]
+        if self.prog.geoms[name].is_scratch:
+            return "real_t(0)"
         a = self.input_of(name, 0)
         self._note_reach(a, [0, 0, 0])
         return f"rd.template at<{a}>(0, 0, 0)"
@@ -414,10 +451,12 @@ class _Printer:
         offs = [0, 0, 0]
         for d, o in p.domain_offsets().items():
             offs[self.slot_of[d]] = o
+        if g.is_scratch:
+            return self._new("R", self._computed_read(name, offs)[0])
         if g.has_step and g.is_written:
             s = so if so is not None else 0
             if s == self.ana.step_dir:
-                return self._computed_read(name, offs)
+                return self._new("R", self._computed_read(name, offs)[0])
             idx = g.num_slots - 1 + s * self.ana.step_dir
             if not 0 <= idx < g.num_slots:
                 raise YaskException(
@@ -431,32 +470,74 @@ class _Printer:
                               f"{offs[2]})")
 
     def _computed_read(self, name: str, offs: List[int]) -> Tuple[str, str]:
-        """A same-step read of an earlier stage's output: its tile."""
-        if name not in self.cmp_of:
+        """A read of this step's value of ``name`` (a scratch var, or a
+        written var at +step_dir): the tile of the newest earlier
+        sub-stage that writes it."""
+        w = self.earlier_writer(name)
+        if w is None or (name, w) not in self.cmp_of:
             raise YaskException(
                 f"same-step read of '{name}' before a stage computed it")
-        b = self.cmp_of[name]
+        b = self.cmp_of[(name, w)]
+        lo, hi = self.cmp_geom[b]
         for s_, o in enumerate(offs):
-            if self.expand[s_] + abs(o) > self.cmp_expand[b][s_]:
+            if self.lo[s_] - o > lo[s_] or self.hi[s_] + o > hi[s_]:
                 raise YaskException(
                     f"same-step read of '{name}' at offset {o} reaches past "
                     "its stage's computed region")
-        return self._new("R", f"rd.template cmp<{b}>({offs[0]}, {offs[1]}, "
-                              f"{offs[2]})")
+        return (f"rd.template cmp<{b}>({offs[0]}, {offs[1]}, {offs[2]})",
+                "R")
+
+
+def _masks(eq, scratch: bool) -> list:
+    """The conditions that mask a write, in the plain version's order (a
+    scratch write takes its domain condition alone)."""
+    conds = (eq.cond,) if scratch else (eq.cond, eq.step_cond)
+    return [c for c in conds if c is not None]
 
 
 def _stage_expansions(ana, slot_of) -> List[List[int]]:
-    """Per stage, per slot: how far past the block its region reaches —
-    the sum of the read widths of the stages after it."""
-    widths = []
-    for reads in ana.stage_read_widths():
-        w = [0, 0, 0]
-        for vv in reads.values():
-            for d, (lo, hi) in vv.items():
-                w[slot_of[d]] = max(w[slot_of[d]], lo, hi)
-        widths.append(w)
-    return [[sum(w[s_] for w in widths[k + 1:]) for s_ in range(3)]
-            for k in range(len(widths))]
+    """Per stage, per slot: how far past the block its region reaches so
+    that every later stage can read its values there: the most, over the
+    later stages' reads of this step's value of a var it writes (a read
+    resolves to the newest earlier writer), of the reader's own expansion
+    plus the read's width (a scratch eq's write halo included).  A chain
+    of stages sums its read widths, as ``build_pallas_chunk`` shrinks its
+    regions stage by stage; a stage that no later stage reads at an offset
+    is not grown (AWP's boundary stages read the stresses at the point)."""
+    writers: Dict[str, List[int]] = {}
+    for k, stage in enumerate(ana.stages):
+        for part in stage.parts:
+            for eq in part.eqs:
+                w = writers.setdefault(eq.lhs.var_name(), [])
+                if k not in w:
+                    w.append(k)
+    expand = [[0, 0, 0] for _ in ana.stages]
+    for j in reversed(range(len(ana.stages))):
+        for part in ana.stages[j].parts:
+            for eq in part.eqs:
+                wh = (ana.scratch_write_halo.get(eq.lhs.var_name(), {})
+                      if part.is_scratch else {})
+                conds = _masks(eq, part.is_scratch)
+                pv = PointVisitor()
+                for e in [eq.rhs] + conds:
+                    e.accept(pv)
+                reads = [(p.var_name(), p.domain_offsets(),
+                          p.get_var().is_scratch()
+                          or p.step_offset() == ana.step_dir)
+                         for p in pv.points]
+                if conds:   # the base of a conditional rewrite
+                    reads.append((eq.lhs.var_name(), {}, True))
+                for name, offs, same_step in reads:
+                    ks = [k for k in writers.get(name, []) if k < j]
+                    if not same_step or not ks:
+                        continue
+                    e = expand[ks[-1]]
+                    for d, s_ in slot_of.items():
+                        o = offs.get(d, 0)
+                        wl, wr = wh.get(d, (0, 0))
+                        e[s_] = max(e[s_], expand[j][s_]
+                                    + max(wl - min(o, 0), wr + max(o, 0)))
+    return expand
 
 
 def _table(fn, rows, default="-1"):
@@ -476,17 +557,63 @@ def _table2(fn, rows, default="-1"):
 
 
 @dataclass
+class _Sub:
+    """One sub-stage of K6: the scratch eqs of a part that share a write
+    halo, or every non-scratch part of a stage (independent of each other,
+    so one point function computes them together)."""
+    stage: int
+    scratch: bool
+    eqs: list
+    lo: List[int]        # per slot, how far its region reaches below the
+    hi: List[int]        # block and above it
+    clip_lo: List[int]   # the plain version's region, [-clip_lo, n +
+    clip_hi: List[int]   # clip_hi) per slot: cells outside hold 0
+
+
+def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
+    """The sub-stages of every stage, in order.  A scratch var is computed
+    where the plain version computes it (``StepProgram._eval_part``): over
+    the domain grown by its write halo (``ana.scratch_write_halo``),
+    inside the stage's region grown by the same halo."""
+    subs: List[_Sub] = []
+    for k, stage in enumerate(ana.stages):
+        e = expand[k]
+        plain = []
+        for part in stage.parts:
+            if not part.is_scratch:
+                plain += part.eqs
+                continue
+            groups: Dict[tuple, list] = {}
+            for eq in part.eqs:
+                wl, wr = [0, 0, 0], [0, 0, 0]
+                for d, (l, r) in ana.scratch_write_halo.get(
+                        eq.lhs.var_name(), {}).items():
+                    wl[slot_of[d]], wr[slot_of[d]] = l, r
+                groups.setdefault((tuple(wl), tuple(wr)), []).append(eq)
+            for (wl, wr), eqs in groups.items():
+                subs.append(_Sub(k, True, eqs,
+                                 [e[s_] + wl[s_] for s_ in range(3)],
+                                 [e[s_] + wr[s_] for s_ in range(3)],
+                                 list(wl), list(wr)))
+        if plain:
+            subs.append(_Sub(k, False, plain, list(e), list(e), [0, 0, 0],
+                             [0, 0, 0]))
+    return subs
+
+
+@dataclass
 class _Printed:
-    """Every stage of a solution printed: the printer (inputs, reach),
-    the outputs, and per stage its statements and vars."""
+    """Every sub-stage of a solution printed: the printer (inputs, reach),
+    the outputs, and per sub-stage its statements and vars."""
     pr: "_Printer"
     slot_of: Dict[str, int]
     outputs: List[str]
     stage_lines: List[List[str]]
     stage_vars: List[List[str]]
     computed: List[str]
-    computed_stage: List[int]
-    expand: List[List[int]]
+    computed_sub: List[int]
+    subs: List[_Sub]
+    last_writer: Dict[str, int]
 
 
 def _check_applicable(program) -> None:
@@ -498,80 +625,98 @@ def _check_applicable(program) -> None:
 
 
 def _print(program, pushed) -> _Printed:
-    """Print every stage's point function (see :func:`emit`)."""
+    """Print every sub-stage's point function (see :func:`emit`)."""
     _check_applicable(program)
     ana = program.ana
+    geoms = program.geoms
     dims = list(ana.domain_dims)
     slot_of = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
-    nst = len(ana.stages)
-    expand = _stage_expansions(ana, slot_of)
-    # vars some stage reads at +step_dir: their stage keeps a tile of them
-    computed_reads = set()
-    for eq in ana.eqs:
-        pv = PointVisitor()
-        for e in (eq.rhs, eq.cond, eq.step_cond):
-            if e is not None:
-                e.accept(pv)
-        for p in pv.points:
-            g = program.geoms[p.var_name()]
-            if g.has_step and g.is_written \
-                    and p.step_offset() == ana.step_dir:
-                computed_reads.add(p.var_name())
-
+    subs = _sub_stages(ana, slot_of, _stage_expansions(ana, slot_of))
+    single = len(subs) == 1     # K1's point function writes the outputs
     pr = _Printer(program, slot_of)
+    for i, sub in enumerate(subs):
+        for eq in sub.eqs:
+            w = pr.writers.setdefault(eq.lhs.var_name(), [])
+            if i not in w:
+                w.append(i)
+    # which (var, writing sub-stage) pairs a later sub-stage reads: this
+    # step's value of a written var at +step_dir, or a scratch var, reads
+    # the newest earlier writer's tile; so does a conditional rewrite's
+    # base.  Each pair gets a tile of its own, so a rewrite never writes
+    # the tile its own points still read at offsets.
+    need = set()
+    for i, sub in enumerate(subs):
+        pr.sub = i
+        for eq in sub.eqs:
+            pv = PointVisitor()
+            for e in [eq.rhs] + _masks(eq, sub.scratch):
+                e.accept(pv)
+            for p in pv.points:
+                g = geoms[p.var_name()]
+                if g.is_scratch or (g.has_step and g.is_written
+                                    and p.step_offset() == ana.step_dir):
+                    w = pr.earlier_writer(p.var_name())
+                    if w is None:
+                        raise YaskException(
+                            f"same-step read of '{p.var_name()}' before a "
+                            "stage computed it")
+                    need.add((p.var_name(), w))
+            w = pr.earlier_writer(eq.lhs.var_name())
+            if _masks(eq, sub.scratch) and w is not None:
+                need.add((eq.lhs.var_name(), w))
+    computed: List[str] = []
+    computed_sub: List[int] = []
+    for i, sub in enumerate(subs):
+        for name in dict.fromkeys(eq.lhs.var_name() for eq in sub.eqs):
+            if (name, i) in need:
+                pr.cmp_of[(name, i)] = len(computed)
+                pr.cmp_geom.append((sub.lo, sub.hi))
+                computed.append(name)
+                computed_sub.append(i)
+
     outputs: List[str] = []
     stage_lines: List[List[str]] = []
     stage_vars: List[List[str]] = []
-    computed: List[str] = []
-    computed_stage: List[int] = []
-    for k, stage in enumerate(ana.stages):
-        pr.begin_stage(expand[k])
+    for i, sub in enumerate(subs):
+        pr.begin_stage(i, sub.lo, sub.hi, sub.scratch)
         names: List[str] = []
-        for part in stage.parts:
-            for eq in part.eqs:
-                name = eq.lhs.var_name()
-                if name not in names:
-                    names.append(name)
-                    if name not in pushed:
-                        outputs.append(name)
-                # one stage writes its vars straight into the outputs
-                j = outputs.index(name) if nst == 1 else names.index(name)
-                val = pr.ev(eq.rhs)
-                sel = None
-                if eq.cond is not None:
-                    sel = pr.ev(eq.cond)
-                if eq.step_cond is not None:
-                    sc = pr.ev(eq.step_cond)
-                    sel = sc if sel is None else (f"({sel[0]} && {sc[0]})",
-                                                  "B")
-                v = pr._cast(val, "R")
-                if sel is None:
-                    pr.lines.append(f"{_IND}out[{j}] = {v};")
-                else:
-                    # unselected points keep the evicted slot's value, as
-                    # where(mask, val, base) does in the plain version
-                    if not any(ln.startswith(f"{_IND}out[{j}] = ")
-                               for ln in pr.lines):
-                        pr.lines.insert(0, f"{_IND}out[{j}] = "
-                                           f"{pr.base_read(name)};")
-                    pr.lines.append(f"{_IND}if ({sel[0]}) out[{j}] = {v};")
+        for eq in sub.eqs:
+            name = eq.lhs.var_name()
+            if name not in names:
+                names.append(name)
+                if not geoms[name].is_scratch and name not in pushed \
+                        and name not in outputs:
+                    outputs.append(name)
+            # one sub-stage writes its vars straight into the outputs
+            j = outputs.index(name) if single else names.index(name)
+            val = pr.ev(eq.rhs)
+            sel = None
+            for c in _masks(eq, sub.scratch):
+                sc = pr.ev(c)
+                sel = sc if sel is None else (f"({sel[0]} && {sc[0]})", "B")
+            v = pr._cast(val, "R")
+            if sel is None:
+                pr.lines.append(f"{_IND}out[{j}] = {v};")
+            else:
+                # unselected points keep the base, as where(mask, val,
+                # base) does in the plain version
+                if not any(ln.startswith(f"{_IND}out[{j}] = ")
+                           for ln in pr.lines):
+                    pr.lines.insert(0, f"{_IND}out[{j}] = "
+                                       f"{pr.base_read(name)};")
+                pr.lines.append(f"{_IND}if ({sel[0]}) out[{j}] = {v};")
         # every written var must be set at every point: an unconditional
         # eq or a base copy precedes any conditional one
         for name in names:
-            j = outputs.index(name) if nst == 1 else names.index(name)
+            j = outputs.index(name) if single else names.index(name)
             if not any(ln.startswith(f"{_IND}out[{j}] = ")
                        for ln in pr.lines):
                 raise YaskException(f"output '{name}' is never assigned")
         stage_lines.append(pr.lines)
         stage_vars.append(names)
-        for name in names:
-            if name in computed_reads:
-                pr.cmp_of[name] = len(computed)
-                pr.cmp_expand.append(list(expand[k]))
-                computed.append(name)
-                computed_stage.append(k)
+    last = {n: w[-1] for n, w in pr.writers.items()}
     return _Printed(pr, slot_of, outputs, stage_lines, stage_vars, computed,
-                    computed_stage, expand)
+                    computed_sub, subs, last)
 
 
 def _stream_plan(program, tiled, halos, esize):
@@ -607,8 +752,9 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     wherever the arm can run), ``True`` = forced (raises where it cannot).
     The port streams one dim, slot 0 (the outermost domain dim), one level
     per launch (ROADMAP.md C11); ``max_dims`` < 1 (``-skew_dims 0``)
-    leaves it out.  1-D and 2-D solutions, multi-stage ones (K6) and
-    member batches (K7, ``batched``) keep their kernels with a reason.
+    leaves it out.  1-D and 2-D solutions, multi-stage ones and ones with
+    scratch vars (K6) and member batches (K7, ``batched``) keep their
+    kernels with a reason.
     Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``."""
     if reasons is None:
         reasons = []
@@ -627,6 +773,10 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     if nst > 1:
         cause = ("skew_ineligible", f"{nst}-stage solution: K6 carries it "
                  "(its stream arm is ROADMAP.md A5)")
+    elif has_scratch(program):
+        cause = ("skew_ineligible", "scratch vars: K6 computes them in "
+                 "sub-stages (a stream arm with scratch sub-stages is "
+                 "ROADMAP.md A5)")
     elif max_dims < 1:
         cause = ("skew_ineligible",
                  f"outside the -skew_dims {max_dims} window")
@@ -658,25 +808,26 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     return [d0]
 
 
-def emit(program, push=False) -> KernelSpec:
+def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
-    entries for one stage, K6's for several.  ``push`` is the
-    :func:`resolve_push` request."""
+    entries for one stage, K6's for several stages or scratch vars (one
+    sub-stage per scratch write halo of a part, and one for the rest of
+    each stage).  ``push`` is the :func:`resolve_push` request; the tile
+    is the first of ``ladder`` whose shared-memory tiles fit."""
     import numpy as np
     _check_applicable(program)
     pushed, push_reasons = resolve_push(program, push)
     pt = _print(program, pushed)
     pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
     stage_lines, stage_vars = pt.stage_lines, pt.stage_vars
-    computed, computed_stage, expand = (pt.computed, pt.computed_stage,
-                                        pt.expand)
+    computed, computed_sub, subs = pt.computed, pt.computed_sub, pt.subs
     dims = list(program.ana.domain_dims)
-    nst = len(program.ana.stages)
+    nst = len(subs)
     full = set(dims)
     esize = np.dtype(program.dtype).itemsize
     tiled = [a for a, (var, _s) in enumerate(pr.inputs)
              if set(program.geoms[var].domain_dims) == full
-             and any(lo or hi for lo, hi in pr.reach[a])]
+             and pr.tile_need[a]]
     halos = {a: tuple(tuple(x) for x in pr.reach[a]) for a in tiled}
     used = [s_ in slot_of.values() for s_ in range(3)]
 
@@ -687,11 +838,11 @@ def emit(program, push=False) -> KernelSpec:
         return c
 
     def cmp_cells(t3, b):
-        e = expand[computed_stage[b]]
-        return cells(t3, [(e[s_], e[s_]) for s_ in range(3)])
+        sub = subs[computed_sub[b]]
+        return cells(t3, list(zip(sub.lo, sub.hi)))
 
     tile = None
-    for cand in _TILE_LADDER:
+    for cand in ladder:
         t3 = tuple(c if used[s_] else 1 for s_, c in enumerate(cand))
         smem = (sum(cells(t3, halos[a]) for a in tiled)
                 + sum(cmp_cells(t3, b) for b in range(len(computed))))
@@ -699,9 +850,15 @@ def emit(program, push=False) -> KernelSpec:
             tile = t3
             break
     if tile is None:
+        t3 = tuple(c if used[s_] else 1 for s_, c in enumerate(ladder[-1]))
+        smem = (sum(cells(t3, halos[a]) for a in tiled)
+                + sum(cmp_cells(t3, b) for b in range(len(computed))))
         raise YaskException(
-            f"the shared-memory tiles of '{program.soln.get_name()}' do "
-            f"not fit {SMEM_LIMIT} bytes even at the smallest tile")
+            f"the shared-memory tiles of '{program.soln.get_name()}' "
+            f"({len(tiled)} staged inputs, {len(computed)} computed tiles: "
+            f"{smem * esize} bytes at the smallest tile {t3}) do not fit "
+            f"{SMEM_LIMIT} bytes; a streamed arm that would fit is "
+            "ROADMAP.md A5")
 
     real_t = "float" if esize == 4 else "double"
     tabs = []
@@ -788,7 +945,7 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
                           push_reasons=push_reasons, reach=reach,
                           stream=plan, stream_cause=cause)
 
-    # ---- K6: several stages per launch ---------------------------------
+    # ---- K6: several sub-stages per launch ------------------------------
     in_elems = offs
     cmp_off = []
     for b in range(len(computed)):
@@ -796,39 +953,36 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
         offs += cmp_cells(tile, b)
     push_elems = sum(cmp_cells(tile, b) for b, n in enumerate(computed)
                      if n in pushed)
-    raw = {a: pr.raw[a] for a in tiled}
+    # a staged input holds what its allocation holds, 0 past it: a scratch
+    # sub-stage reads the pads, as the plain version does
+    dim_of = {s_: d for d, s_ in slot_of.items()}
     for s_ in range(3):
-        tabs.append(_table(f"reach_lo{s_}", [raw[a][s_][0] for a in tiled],
-                           "0"))
-        tabs.append(_table(f"reach_hi{s_}", [raw[a][s_][1] for a in tiled],
-                           "0"))
+        for side, fn in ((0, "alloc_lo"), (1, "alloc_hi")):
+            tabs.append(_table(f"{fn}{s_}", [
+                program.geoms[pr.inputs[a][0]].pads[dim_of[s_]][side]
+                if s_ in dim_of else 0 for a in tiled], "0"))
     for s_ in range(3):
-        tabs.append(_table(f"expand{s_}", [e[s_] for e in expand], "0"))
+        tabs.append(_table(f"sub_lo{s_}", [u.lo[s_] for u in subs], "0"))
+        tabs.append(_table(f"sub_hi{s_}", [u.hi[s_] for u in subs], "0"))
+        tabs.append(_table(f"clip_lo{s_}", [u.clip_lo[s_] for u in subs],
+                           "0"))
+        tabs.append(_table(f"clip_hi{s_}", [u.clip_hi[s_] for u in subs],
+                           "0"))
     tabs.append(_table("cmp_offset", cmp_off, "0"))
-    tabs.append(_table("cmp_stage", computed_stage, "0"))
+    tabs.append(_table("cmp_sub", computed_sub, "0"))
     tabs.append(_table("stage_nv", [len(n) for n in stage_vars], "0"))
     tabs.append(_table2("stage_out", [
-        [outputs.index(n) if n in outputs else -1 for n in names]
-        for names in stage_vars]))
+        [outputs.index(n) if n in outputs and pt.last_writer[n] == i
+         else -1 for n in names] for i, names in enumerate(stage_vars)]))
     tabs.append(_table2("stage_cmp", [
-        [computed.index(n) if n in computed else -1 for n in names]
-        for names in stage_vars]))
+        [pr.cmp_of.get((n, i), -1) for n in names]
+        for i, names in enumerate(stage_vars)]))
     stages_src = "\n".join(
         f"        if constexpr (K == {k}) {{\n"
         + "\n".join("    " + ln for ln in lines) + "\n        }"
         for k, lines in enumerate(stage_lines))
     maxv = max(len(n) for n in stage_vars)
-    stem = hashlib.sha256(
-        ("\n".join("\n".join(ln) for ln in stage_lines)
-         + repr((tiled, halos, raw, tile, real_t, len(pr.inputs), outputs,
-                 expand, computed, stage_vars))).encode()).hexdigest()[:12]
-    name = f"fused_stages_{stem}"
-    src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
-// '{program.soln.get_name()}': one sub-step of K6, {nst} stages per launch
-// (see ops/fused_stencil.py); pushed vars: {', '.join(pushed) or 'none'}.
-#include "fused_step.cuh"
-
-struct Spec {{
+    struct = f"""struct Spec {{
     typedef {real_t} real_t;
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(outputs)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
@@ -843,14 +997,25 @@ struct Spec {{
 {stages_src}
     }}
 }};
+"""
+    name = "fused_stages_" + hashlib.sha256(struct.encode()).hexdigest()[:12]
+    nscr = sum(u.scratch for u in subs)
+    src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
+// '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
+// ({len(program.ana.stages)} stage(s), {nscr} of scratch vars; see
+// ops/fused_stencil.py); pushed vars: {', '.join(pushed) or 'none'}.
+#include "fused_step.cuh"
 
+{struct}
 YT_FUSED_STAGES_ENTRY({name}, Spec)
 """
     return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                       outputs=outputs, tiled=tiled, tile=tile,
                       smem_bytes=offs * esize, halos=halos, stages=nst,
                       push_vars=list(pushed), push_reasons=push_reasons,
-                      computed=computed, push_smem_bytes=push_elems * esize)
+                      computed=computed, push_smem_bytes=push_elems * esize,
+                      scratch_stages=nscr,
+                      sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs])
 
 
 # ==== K4: the trapezoid/diamond two-phase tiling =========================
@@ -941,10 +1106,10 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     import numpy as np
     from yask_tpu_torch.ops.tile_planner import TilePlan
     ana = program.ana
-    if len(ana.stages) != 1:
+    if len(ana.stages) != 1 or has_scratch(program):
         raise YaskException(
-            "K4 takes single-stage solutions (multi-stage K4 is ROADMAP.md "
-            "A12)")
+            "K4 takes single-stage solutions without scratch vars "
+            "(multi-stage and scratch K4 are ROADMAP.md A12)")
     pt = _print(program, [])
     pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
     dims = list(ana.domain_dims)
@@ -1229,6 +1394,10 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
         return infeasible(
             f"{len(ana.stages)}-stage solution: the port's K4 takes one "
             "stage (ROADMAP.md A12 (multi-stage K4))", elig)
+    if has_scratch(program):
+        return infeasible(
+            "scratch vars: the port's K4 has no scratch sub-stages "
+            "(ROADMAP.md A12 (scratch K4)); K6 runs the group", elig)
     if forced:
         want = (list(elig) if trapezoid is True
                 else [d for d in lead if d in set(trapezoid)])

@@ -44,10 +44,13 @@ each member's view) is its plain version.
 
 K6 on Hopper, the multi-stage push-memory kernel: replaces the ``push=``
 arm of ``build_pallas_chunk`` and its stage loop (pallas_stencil.py:495-563,
-:995-1058, :1859-1871, :2058-2188).  A solution with several stages (the
-merged RTM chain of :mod:`yask_tpu_torch.ops.pipeline`) gets one launch
-per step that computes every stage of a block, each over the block
-expanded by what the later stages read, keeping the intermediates in
+:995-1058, :1859-1871, :2058-2188), with its scratch arm (``_TileEval``'s
+scratch chains, :175-179, :2003, :2105-2147) and its rewrite arm
+(:2155-2187).  A solution with several stages (the merged RTM chain of
+:mod:`yask_tpu_torch.ops.pipeline`, AWP, the SWE) or with scratch vars
+(TTI) gets one launch per step that computes every stage of a block,
+each over the block expanded by what the later stages read, a scratch
+var over the block grown by its write halo, keeping the intermediates in
 shared memory; a pushed var has no output, and its ring keeps its stale
 input tensors (pallas_stencil.py:2335-2371).  Bound by bytes: the pure RTM
 chain moves 20 B per point per step with the image pushed.
@@ -131,7 +134,8 @@ def plain_chunk(program, state, t0: int, k: int):
     dirn = program.ana.step_dir
     for i in range(k):
         state = program.step(state, t0 + i * dirn)
-    for name in {eq.lhs.var_name() for eq in program.ana.eqs}:
+    for name in {eq.lhs.var_name() for eq in program.ana.eqs} - {
+            n for n, g in program.geoms.items() if g.is_scratch}:
         ring = state[name]
         for s in range(max(0, len(ring) - k), len(ring)):
             _zero_pads(program, name, ring[s])
@@ -672,8 +676,9 @@ class FusedKernel:
         if self.spec.stages > 1:
             raise YaskException(
                 f"fused kernel '{self.spec.name}': K7 takes single-stage "
-                f"solutions; this one has {self.spec.stages} stages "
-                "(multi-stage K7 is ROADMAP.md A9)")
+                f"solutions without scratch vars; this one runs "
+                f"{self.spec.stages} sub-stages on K6 (multi-stage and "
+                "scratch K7 are ROADMAP.md A9)")
         self.build()
         dirn = self.program.ana.step_dir
         for i in range(k):
@@ -703,6 +708,7 @@ class FusedKernel:
         out = {"kernel": "fused_step" if s.stages == 1 else "stages_step",
                "name": s.name, "fuse_steps": fuse_steps,
                "launches_per_step": 1, "stages": s.stages,
+               "scratch_stages": s.scratch_stages,
                "tile": list(s.tile), "smem_bytes": s.smem_bytes,
                "smem_inputs": [s.inputs[a] for a in s.tiled],
                "push": bool(s.push_vars), "push_vars": list(s.push_vars),

@@ -409,7 +409,8 @@ class StencilContext:
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
         if mode in ("fused", "shard_pallas"):
-            from yask_tpu_torch.ops.cuda_emit import fused_applicable
+            from yask_tpu_torch.ops.cuda_emit import (fused_applicable,
+                                                      has_scratch)
             ok, why = fused_applicable(prog)
             if not ok:
                 path, alt = (("fused kernel", "torch") if mode == "fused"
@@ -422,6 +423,17 @@ class StencilContext:
                 f"solution '{self.get_name()}' has {len(self._ana.stages)} "
                 "stages: K5 takes single-stage solutions (ROADMAP.md A11 "
                 "(multi-stage K5)); use -mode shard_map")
+        if mode == "shard_pallas" and has_scratch(prog):
+            names = [n for n, g in prog.geoms.items() if g.is_scratch]
+            raise YaskException(
+                f"solution '{self.get_name()}' has scratch vars "
+                f"({', '.join(names)}): K5 has no scratch sub-stages "
+                "(ROADMAP.md A11 (scratch K5)); use -mode shard_map")
+        if mode == "fused" and self._opts.ensemble > 1 and has_scratch(prog):
+            raise YaskException(
+                f"not ported yet: scratch vars with -ensemble "
+                f"{self._opts.ensemble}: ROADMAP.md A9 (K7 has no scratch "
+                "sub-stages)")
         return prog
 
     def prepare_solution(self) -> None:

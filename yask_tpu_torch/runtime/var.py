@@ -573,9 +573,10 @@ class yk_var:
 
 
 def _to_numpy(a) -> np.ndarray:
-    """A host numpy view/copy of a state array (tensor or numpy)."""
-    if isinstance(a, np.ndarray):
-        return a
+    """A host numpy view/copy of a state array (tensor or numpy; a 0-dim
+    numpy array indexed by ``()`` is a numpy scalar)."""
+    if isinstance(a, (np.ndarray, np.generic)):
+        return np.asarray(a)
     return a.detach().cpu().numpy()
 
 

@@ -5,9 +5,9 @@ reference's ``wave2d`` (``Wave2dStencil.cpp:211``) and ``swe2d``
 (``SWE2dStencil.cpp:498``). The SWE uses conservative form with
 Lax–Friedrichs fluxes built in *scratch vars* — exercising the scratch-chain
 machinery the reference's SWE exercises.  ``wave2d`` runs in every mode
-(on a single lead dim, ``x``, under ``-trapezoid``); ``swe2d`` runs in
-``-mode torch`` only, since the fused kernels do not emit scratch vars
-(ROADMAP.md A3).
+(on a single lead dim, ``x``, under ``-trapezoid``); ``swe2d`` runs
+``-mode fused`` on K6, whose scratch arm computes its fluxes and whose
+rewrite arm applies its walls.
 """
 
 from __future__ import annotations

@@ -132,7 +132,37 @@ script exits 0 only when all of them passed.  Phases:
    count, whichever is larger), the staged and computed cells per point
    of K6's block, the plain version's time, one 2-step chunk against it
    from the same state, and K6 at the ladder's next two smaller tiles
-   (ms per launch and cells per point; the same bits required).
+   (ms per launch and cells per point; the same bits required);
+10. the misc, partial-dim and element-size-2 arms (ROADMAP.md A3): misc
+   axes (each misc slice an input or output of its own, misc indices as
+   per-equation constants, the unwritten slices of a var kept by a copy
+   of its evicted slot, ``copy_base``), written vars lacking a domain dim
+   (stride 0, the slab stored by the blocks at index 0), and bfloat16
+   storage (computed in float, each op rounded once; the stream arm fills
+   its rings with aligned pairs).  (a) On small ragged grids (three tile
+   boundaries per slot, a partial last tile) box r=1 and gaussian r=2 (3
+   channels, K6), test_misc_2d (K1), test_misc_value_2d and
+   test_step_cond_1d (K6), the partial-dim solutions of
+   ``tests/test_pallas.py`` built with the port's DSL (partial_written at
+   K ∈ {1, 2, 3}, partial_written_cond, scratch_partial), and iso3dfd
+   r=2, r=8 and 3axis r=1 at element size 2 under ``-skew`` and
+   ``-no-skew``: K ∈ {1, 2}, 5 steps, ``-mode fused`` against ``-mode
+   torch`` on CUDA tensors from one numpy-seeded state, 0 mismatches at
+   ``field_epsilon`` 1e-4 (1e-2 at element size 2, an ulp of bfloat16),
+   the cells whose bits differ counted, the expected launches and no
+   other, the two arms bit-equal at element size 2; (b) each against the
+   numpy oracle at 24x24x25 for 2 steps (``compare_data``'s defaults;
+   (3e-2, 3e-2) at element size 2); (c) at full width: gaussian r=2 on
+   one 8192x8192 image of 3 channels, fp32, ``-wf_steps 1`` (K6, 3
+   stages) with ``conv2d(groups=3)`` timed beside it as the yardstick and
+   held against it; iso3dfd r=8 at 512³ in bfloat16, ``-wf_steps 2``,
+   the stream arm and then ``-no-skew`` (K1) from the same seed, bit-equal;
+   each 2 warm-up steps, then 3 trials of 20 steps with the counters
+   zeroed just before, ms/step, points/s, the kernel's ms per launch
+   against its bound (each input slice read once, each output slice
+   written once), the plain version's time, one chunk against it and the
+   peak memory; and test_misc_2d at 2048² and partial_written at 512³
+   for one trial of 10 steps, timed the same way.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -190,13 +220,14 @@ def launch_counts() -> dict:
             "stages_step": fs.stages_step.launches,
             "shard_step": fs.shard_step.launches,
             "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
-            "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches}
+            "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches,
+            "copy_base": fs.copy_base.launches}
 
 
 def zero_launch_counts() -> None:
     from yask_tpu_torch.ops import fused_stencil as fs
     for w in (fs.fused_step, fs.stream_step, fs.batched_step,
-              fs.stages_step, fs.shard_step):
+              fs.stages_step, fs.shard_step, fs.copy_base):
         w.launches = 0
     fs.trapezoid_chunk.phase1_launches = 0
     fs.trapezoid_chunk.diamond_launches = 0
@@ -1929,6 +1960,434 @@ def phase9(fac, env, card: str, full: int = 512) -> list:
     return [scratch, rewrite]
 
 
+# ---- phase 10: the misc, partial-dim and element-size-2 arms (A3) ------
+
+#: Phase 10 (a) and (b): (stencil, radius, element bytes, the arm that
+#: runs it under -skew's default, its K values).  The partial-dim
+#: solutions are built with the port's DSL (:func:`partial_solution`).
+A3_CASES = (("box", 1, 4, "stages_step", (1, 2)),
+            ("gaussian", 2, 4, "stages_step", (1, 2)),
+            ("test_misc_2d", None, 4, "fused_step", (1, 2)),
+            ("test_misc_value_2d", None, 4, "stages_step", (1, 2)),
+            ("test_step_cond_1d", None, 4, "stages_step", (1, 2)),
+            ("partial_written", None, 4, "stages_step", (1, 2, 3)),
+            ("partial_written_cond", None, 4, "fused_step", (1, 2)),
+            ("scratch_partial", None, 4, "stages_step", (1, 2)),
+            ("iso3dfd", 2, 2, "stream_step", (1, 2)),
+            ("iso3dfd", 8, 2, "stream_step", (1, 2)),
+            ("3axis", 1, 2, "stream_step", (1, 2)))
+#: compare_data's field tolerance at element size 2: one bfloat16 ulp is
+#: 2^-8 of a value, so 1e-2 of the field scale passes an ulp and nothing
+#: coarser.
+BF16_FIELD_EPS = 1e-2
+#: The oracle's tolerance at element size 2 (tests/test_config_matrix.py:66)
+BF16_ORACLE_EPS = 3e-2
+
+
+def partial_solution(name: str):
+    """The partial-dim written solutions of ``tests/test_pallas.py``
+    (382-470) in the port's DSL: ``P`` lacks a domain dim and ``A`` reads
+    this step's ``P`` (``partial_written``), a conditional partial write
+    (``partial_written_cond``), a partial scratch var
+    (``scratch_partial``)."""
+    from yask_tpu_torch.compiler.solution import yc_factory
+    soln = yc_factory().new_solution(name)
+    t = soln.new_step_index("t")
+    x = soln.new_domain_index("x")
+    y = soln.new_domain_index("y")
+    if name == "partial_written":
+        z = soln.new_domain_index("z")
+        a = soln.new_var("A", [t, x, y, z])
+        p = soln.new_var("P", [t, y, z])
+        p(t + 1, y, z).EQUALS(p(t, y, z) * 0.7 + p(t, y + 1, z - 1) * 0.2
+                              + 0.05)
+        a(t + 1, x, y, z).EQUALS(a(t, x, y, z) * 0.6
+                                 + a(t, x + 1, y - 1, z) * 0.2
+                                 + p(t + 1, y, z) * 0.1)
+    elif name == "partial_written_cond":
+        a = soln.new_var("A", [t, x, y])
+        p = soln.new_var("P", [t, y])
+        p(t + 1, y).EQUALS(p(t, y) * 0.8 + 0.1).IF_DOMAIN(y >= 4)
+        a(t + 1, x, y).EQUALS(a(t, x, y) * 0.5 + p(t, y) * 0.3)
+    else:
+        a = soln.new_var("A", [t, x, y])
+        s = soln.new_scratch_var("s", [y])
+        s(y).EQUALS(3.0)
+        a(t + 1, x, y).EQUALS(a(t, x, y) * 0.5 + s(y + 1) * 0.1)
+    return soln
+
+
+def a3_ctx(fac, env, stencil, radius, eb, sizes, mode, K=1, cli=""):
+    """A context of a phase-10 case over ``sizes`` (per slot 0-2; fewer
+    dims take the last slots) at element size ``eb``."""
+    from yask_tpu_torch.compiler.solution_base import create_solution
+    if stencil.startswith(("partial_", "scratch_partial")):
+        src = partial_solution(stencil)
+        src.set_element_bytes(eb)
+    else:
+        src = create_solution(stencil, radius=radius)
+        src.get_soln().set_element_bytes(eb)
+    ctx = fac.new_solution(env, src)
+    dims = list(ctx._ana.domain_dims)
+    g = " ".join(f"-g_{d} {sizes[3 - len(dims) + i]}"
+                 for i, d in enumerate(dims))
+    ctx.apply_command_line_options(f"{g} -mode {mode} -wf_steps {K} {cli}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def seed_interiors(ctx, seed: int) -> None:
+    """A numpy-seeded interior state through ``transfer.import_interiors``
+    (misc axes at their full extent): written vars uniform in [0, 1),
+    read-only ones 0.05 + 0.01 U."""
+    import numpy as np
+    from yask_tpu_torch.transfer import export_interiors, import_interiors
+    rng = np.random.RandomState(seed)
+    written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
+    import_interiors(ctx, {
+        n: [rng.rand(*a.shape) if n in written
+            else 0.05 + 0.01 * rng.rand(*a.shape) for a in slots]
+        for n, slots in sorted(export_interiors(ctx).items())})
+
+
+def a3_specs(fac, env) -> dict:
+    """Phase 10's kernels, for phase 1's parallel build."""
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for st, r, eb, _arm, _ks in A3_CASES:
+        ctx = a3_ctx(fac, env, st, r, eb, (16, 16, 70), "fused")
+        out[f"{st} r={r} {eb} B"] = fused_stencil.FusedKernel(
+            ctx._program).spec
+    return out
+
+
+def expected_launches(ctx, arm: str, steps: int) -> dict:
+    """The launches ``steps`` steps of a phase-10 context must make: one
+    of ``arm`` per step, and a copy of the evicted slot per step and var
+    whose unwritten misc slices it keeps."""
+    want = {arm: steps}
+    nb = len(ctx._fused_spec_kernel().spec.base_outputs)
+    if nb:
+        want["copy_base"] = nb * steps
+    return want
+
+
+def phase10a(fac, env, steps: int = 5) -> dict:
+    """Phase 10 (a): each case against its plain version on CUDA tensors
+    from one numpy-seeded state; at element size 2 both arms of K1, which
+    must agree to the bit.  Returns the largest |Δ| per (arm, element
+    size 2)."""
+    from yask_tpu_torch.ops import cuda_emit
+    worst: dict = {}
+    for st, r, eb, arm0, ks in A3_CASES:
+        probe = a3_ctx(fac, env, st, r, eb, (16, 16, 70), "torch")
+        sizes = ragged_sizes(cuda_emit.emit(probe._program).tile)
+        del probe
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        arms = ARMS if eb == 2 else ((arm0, ""),)
+        for K in ks:
+            plain = a3_ctx(fac, env, st, r, eb, sizes, "torch", K)
+            seed_interiors(plain, 5)
+            plain.run_solution(0, steps - 1)
+            runs = {}
+            for arm, cli in arms:
+                fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", K, cli)
+                seed_interiors(fused, 5)
+                zero_launch_counts()
+                fused.run_solution(0, steps - 1)
+                got = {k: v for k, v in launch_counts().items() if v}
+                want = expected_launches(fused, arm, steps)
+                d, nbits = device_diff(fused, plain, exact=True)
+                bad = fused.compare_data(plain, field_epsilon=eps)
+                worst[arm, eb == 2] = max(worst.get((arm, eb == 2), 0.0), d)
+                log(f"phase 10: {st} r={r} {eb} B "
+                    f"{'x'.join(map(str, sizes))} K={K} {steps} steps "
+                    f"{cli}: {arm} vs plain (-mode torch on the card): "
+                    f"max|d|={d:.3e}, {nbits} cells differ in their bits, "
+                    f"mismatches={bad} (field_epsilon={eps}); launches "
+                    f"{got}")
+                if bad:
+                    raise RuntimeError(f"phase 10: {st} r={r} K={K} {cli}: "
+                                       f"{bad} mismatches")
+                if got != want:
+                    raise RuntimeError(f"phase 10: {st} r={r} K={K} {cli}: "
+                                       f"launches {got}, expected {want}")
+                runs[arm] = fused
+            if len(runs) == 2:
+                d, nbits = device_diff(runs["stream_step"],
+                                       runs["fused_step"], exact=True)
+                log(f"phase 10: {st} r={r} {eb} B K={K}: stream arm vs K1: "
+                    f"{nbits} cells differ (max|d|={d:.3e})")
+                if nbits:
+                    raise RuntimeError(f"phase 10: {st} r={r} K={K}: the "
+                                       "stream arm and K1 differ")
+            del runs, plain
+    return worst
+
+
+def phase10b(fac, env, g: int = 24) -> None:
+    """Phase 10 (b): each case against the numpy oracle for 2 steps."""
+    for st, r, eb, _arm, _ks in A3_CASES:
+        eps = ((BF16_ORACLE_EPS, BF16_ORACLE_EPS) if eb == 2
+               else (1e-4, 1e-7))
+        fused = a3_ctx(fac, env, st, r, eb, (g, g, g + 1), "fused", 2)
+        ref = a3_ctx(fac, env, st, r, eb, (g, g, g + 1), "ref")
+        for c in (fused, ref):
+            seed_interiors(c, 9)
+        fused.run_solution(0, 1)
+        ref.run_solution(0, 1)
+        bad = fused.compare_data(ref, *eps)
+        log(f"phase 10: {st} r={r} {eb} B g={g} 2 steps: fused vs ref "
+            f"(numpy oracle) max|d|={max_abs_diff(fused, ref):.3e}, "
+            f"mismatches={bad} (epsilon, abs_epsilon = {eps})")
+        if bad:
+            raise RuntimeError(f"phase 10: {st} r={r} {eb} B: {bad} "
+                               "mismatches against the oracle")
+
+
+def seed_device(ctx, seed: int) -> None:
+    """A seeded random interior state made on the card (a torch CUDA
+    generator, bulk): written vars uniform in [0, 1), read-only ones
+    0.05 + 0.01 U."""
+    import torch
+    gen = torch.Generator(device=ctx._device).manual_seed(seed)
+    written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
+    for name in sorted(ctx._state):
+        for slot in range(len(ctx._state[name])):
+            shape = ctx._interior_shape(name)
+            v = torch.rand(shape, generator=gen, device=ctx._device)
+            if name not in written:
+                v = 0.05 + 0.01 * v
+            ctx._fill_interior(name, slot,
+                               lambda xp, n, v=v: v.reshape(-1))
+
+
+def a3_bound(ctx) -> tuple:
+    """The least time of one sub-step of ``ctx``'s kernel: each input (a
+    var's ring slot and misc slice) read once and each output slice
+    written once over the interior, against 3.35 TB/s, or its FLOPs at
+    67 TFLOP/s fp32 (the kernel computes in float at every element
+    size), whichever is larger.  Returns (ms, "bytes"/"operations",
+    bytes)."""
+    import numpy as np
+    prog, spec = ctx._program, ctx._fused_spec_kernel().spec
+
+    def cells(name):
+        c = 1
+        for d in prog.geoms[name].domain_dims:
+            c *= prog.sizes[d]
+        return c
+    nslices = spec.out_slices or [(i, ()) for i in range(len(spec.outputs))]
+    nbytes = np.dtype(prog.dtype).itemsize * (
+        sum(cells(n) for n, _s in spec.inputs)
+        + sum(cells(spec.outputs[i]) for i, _m in nslices))
+    npts = 1
+    for d in prog.ana.domain_dims:
+        npts *= prog.sizes[d]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes)
+
+
+def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
+            K: int = 2, warm: int = 2, trials: int = 3, steps: int = 20,
+            cli: str = "") -> dict:
+    """Phase 10 (c): one case at full width through the user's entry
+    points (``-mode fused -wf_steps K``): warm-up, then ``trials`` runs of
+    ``steps`` steps with every counter zeroed just before; the arm's ms
+    per launch against its bound, its plain version's time and one chunk
+    against it, from :func:`seed_device`'s state.  Returns the ``kernels``
+    entry, with the context under ``ctx``."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused", K, cli)
+    seed_device(ctx, 11)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    npts = 1
+    for d in ctx._ana.domain_dims:
+        npts *= ctx._program.sizes[d]
+    ctx.run_solution(0, warm - 1)
+    t = warm
+    zero_launch_counts()
+    rates = []
+    for _ in range(trials):
+        ctx.clear_stats()
+        ctx.run_solution(t, t + steps - 1)
+        t += steps
+        rates.append(ctx.get_stats().get_pts_per_sec())
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    want = expected_launches(ctx, arm, trials * steps)
+    if got != want:
+        raise RuntimeError(f"phase 10: {label}: launches {got}, expected "
+                           f"{want}")
+    if not finite(ctx):
+        raise RuntimeError(f"phase 10: {label}: the state is not finite")
+    rates.sort()
+    mid = rates[len(rates) // 2]
+    step_ms = npts / mid * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms, bound_by, nbytes = a3_bound(ctx)
+    kern, prog, s0 = ctx._fused, ctx._program, dict(ctx._state)
+    wrapper = getattr(fs, arm)
+    ms = cuda_ms(lambda: wrapper(kern, s0, t), 5)
+    plain_ms = cuda_ms(lambda: fs.plain_chunk(prog, s0, t, 1), 2)
+    a = kern.chunk(dict(s0), t, K)
+    b = fs.plain_chunk(prog, dict(s0), t, K)
+    err, nbits, scale = 0.0, 0, 0.0
+    for n in kern.spec.outputs:
+        for x, y in zip(a[n][-K:], b[n][-K:]):
+            err = max(err, float((x.float() - y.float()).abs().max()))
+            nbits += int((x != y).sum())
+            scale = max(scale, float(y.float().abs().max()))
+    del a, b
+    eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+    log(f"phase 10: {label}: {'x'.join(map(str, sizes))} ({eb} B) -mode "
+        f"fused -wf_steps {K} {cli}: seeded on the card in {seed_s:.1f} s; "
+        f"{trials} trials x {steps} steps: {step_ms:.3f} ms/step (min "
+        f"{npts / rates[-1] * 1e3:.3f}, max {npts / rates[0] * 1e3:.3f}), "
+        f"{mid:.4e} points/s; launches {got}; {arm} {ms:.3f} ms/launch "
+        f"(CUDA events); bound {bound_ms:.3f} ms ({bound_by}: "
+        f"{nbytes / npts:.1f} B/pt -> {nbytes / HBM_BYTES_PER_S * 1e3:.3f} "
+        f"ms at 3.35 TB/s), share {bound_ms / ms:.3f} per launch, "
+        f"{bound_ms / step_ms:.3f} per step; plain version "
+        f"{plain_ms:.3f} ms/step (not a yardstick); one {K}-step chunk vs "
+        f"plain: max|d|={err:.3e} (field max {scale:.3e}), {nbits} cells "
+        f"differ in their bits; torch.cuda.max_memory_allocated() = "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if not err <= eps * scale:
+        raise RuntimeError(f"phase 10: {label}: {arm} and its plain "
+                           "version disagree")
+    return {"name": f"{arm} ({label.split(': ')[0]})", "route": "cuda",
+            "launches": got[arm], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": f"launch, {label.split(': ', 1)[-1]}",
+            "step_ms": step_ms, "bytes_per_point": nbytes / npts,
+            "peak_bytes": peak, "ctx": ctx}
+
+
+def gaussian_library(entry, card: str, r: int = 2) -> None:
+    """The one PyTorch call that computes the Gaussian filter's step
+    (off the port's path, a yardstick): ``conv2d(img, w, padding=r,
+    groups=3)`` with the weights ``w1[i] w1[j]`` and zero pads as the
+    ghost cells, in full float32 (cuDNN's TF32 off).  Its time is the
+    entry's ``library_ms``; its output is held against the kernel's."""
+    import math
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    ctx = entry["ctx"]
+    src = ctx._state["img"][-1][ctx._interior_idx("img")].unsqueeze(0) \
+        .contiguous()
+    sigma = max(r / 2.0, 0.5)
+    w1 = [math.exp(-(i * i) / (2 * sigma * sigma)) for i in range(-r, r + 1)]
+    w1 = [w / sum(w1) for w in w1]
+    w = torch.tensor([[a * b for b in w1] for a in w1], dtype=torch.float32,
+                     device=src.device).expand(3, 1, 2 * r + 1, 2 * r + 1) \
+        .contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+            src, w, padding=r, groups=3), 5)
+        lib = torch.nn.functional.conv2d(src, w, padding=r, groups=3)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    t = ctx._cur_step
+    out = fs.stages_step(ctx._fused, dict(ctx._state), t)["img"][-1]
+    mine = out[ctx._interior_idx("img")]
+    scale = float(mine.abs().max())
+    err = float((mine - lib).abs().max())
+    log(f"phase 10: gaussian r={r}: torch.nn.functional.conv2d(groups=3, "
+        f"padding={r}, TF32 off) {lib_ms:.3f} ms (CUDA events; the "
+        f"yardstick, off the port's path) against the kernel's "
+        f"{entry['ms']:.3f} ms/launch; kernel vs conv2d max|d|={err:.3e} "
+        f"(field max {scale:.3e}) [{card}]")
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 10: gaussian: the kernel and conv2d "
+                           "disagree")
+    entry["library_ms"] = lib_ms
+
+
+def phase10(fac, env, card: str, image: int = 8192, full: int = 512,
+            misc: int = 2048) -> list:
+    """The misc, partial-dim and element-size-2 arms (see the module
+    docstring); returns their ``kernels`` entries."""
+    import torch
+    t_phase = time.perf_counter()
+    worst = phase10a(fac, env)
+    phase10b(fac, env)
+    gauss = a3_full(fac, env, card, "gaussian", 2, 4, (1, image, image),
+                    "stages_step", f"misc arm of K6: gaussian r=2 "
+                    f"{image}^2x3 fp32", K=1)
+    gaussian_library(gauss, card)
+    gauss.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+                 replaces="yask_tpu/ops/pallas_stencil.py:199 (_TileEval "
+                          "misc reads :199-204, misc values :252-260, "
+                          "misc-pinned writes region_idxs :1879-1897, the "
+                          "stage loop's misc binding :2150-2165)",
+                 path="phase 10 (c), gaussian r=2")
+    del gauss["ctx"]
+    torch.cuda.empty_cache()
+    stream = a3_full(fac, env, card, "iso3dfd", 8, 2, (full,) * 3,
+                     "stream_step", "element size 2 of the stream arm: "
+                     f"iso3dfd r=8 {full}^3 bf16")
+    k1 = a3_full(fac, env, card, "iso3dfd", 8, 2, (full,) * 3,
+                 "fused_step", f"element size 2 of K1: iso3dfd r=8 {full}^3 "
+                 "bf16", cli="-no-skew")
+    d, nbits = device_diff(stream["ctx"], k1["ctx"], exact=True)
+    log(f"phase 10: iso3dfd r=8 {full}^3 bf16 after 62 steps from the same "
+        f"seed: stream arm vs K1: {nbits} cells differ (max|d|={d:.3e})")
+    if nbits:
+        raise RuntimeError("phase 10: at element size 2 the stream arm and "
+                           f"K1 differ at {full}^3")
+    for e, src, rep in ((stream, "stream_step.cuh", "yask_tpu/ops/"
+                         "pallas_stencil.py:734 (tpu_tile_dims in the "
+                         "program dtype :346, :734; VMEM in dtype "
+                         ":2264-2289), with K2/K3's DMA and carry arms"),
+                        (k1, "fused_step.cuh", "yask_tpu/ops/"
+                         "pallas_stencil.py:734 (tpu_tile_dims in the "
+                         "program dtype :346, :734; VMEM in dtype "
+                         ":2264-2289)")):
+        e.update(source=f"yask_tpu_torch/csrc/{src}", replaces=rep,
+                 path="phase 10 (c), iso3dfd r=8 bf16" + (
+                     ", -no-skew" if e is k1 else ""))
+        del e["ctx"]
+    torch.cuda.empty_cache()
+    misc1 = a3_full(fac, env, card, "test_misc_2d", None, 4,
+                    (1, misc, misc), "fused_step", "misc arm of K1: "
+                    f"test_misc_2d {misc}^2 fp32", trials=1, steps=10)
+    misc1.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+                 replaces="yask_tpu/ops/pallas_stencil.py:199 (_TileEval "
+                          "misc reads :199-204, misc-pinned writes "
+                          "region_idxs :1879-1897)",
+                 path="phase 10 (c), test_misc_2d (a copy of the evicted "
+                      "slot per step included in ms/step)")
+    del misc1["ctx"]
+    torch.cuda.empty_cache()
+    part = a3_full(fac, env, card, "partial_written", None, 4,
+                   (full,) * 3, "stages_step", "partial-dim arm of "
+                   f"K6: partial_written {full}^3 fp32", trials=1, steps=10)
+    part.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+                replaces="yask_tpu/ops/pallas_stencil.py:1899 "
+                         "(to_var_region :1899-1915, admitted by "
+                         "pallas_applicable :83-101)",
+                path="phase 10 (c), partial_written")
+    del part["ctx"]
+    torch.cuda.empty_cache()
+    entries = [gauss, misc1, part, k1, stream]
+    for e in entries:
+        key = (e["name"].split()[0], "element size 2" in e["name"])
+        e["max_abs_err"] = max(e["max_abs_err"], worst.get(key, 0.0))
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1974,6 +2433,7 @@ def main() -> int:
     specs.update(trap_specs(fac, env))
     specs.update(shard_specs(fac))
     specs.update(family_specs(fac, env))
+    specs.update(a3_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -2008,11 +2468,13 @@ def main() -> int:
     k5 = phase8(fac, card, k1["step_ms"])
     torch.cuda.empty_cache()
     k6_arms = phase9(fac, env, card)
+    torch.cuda.empty_cache()
+    a3_arms = phase10(fac, env, card)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
-                      + k6_arms}))
+                      + k6_arms + a3_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

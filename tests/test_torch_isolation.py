@@ -92,14 +92,33 @@ for mode in ("shard_map", "sharded", "shard_pallas"):
     ctx.run_solution(0, 2)
     assert ctx.get_var("pressure").get_element([3, 8, 8, 8]) != 0
     ctx.get_stats()
+from yask_tpu_torch.compiler.solution_base import create_solution
+for mode in ("torch", "fused", "ref"):   # element size 2, bfloat16
+    sb = create_solution("iso3dfd", radius=2)
+    sb.get_soln().set_element_bytes(2)
+    ctx = fac.new_solution(env, sb)
+    ctx.apply_command_line_options(f"-g 8 -mode {mode} -wf_steps 2")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 2)
+    assert ctx.get_var("pressure").get_element([3, 4, 4, 4]) != 0
+for name in ("gaussian", "test_misc_2d"):   # the misc arm
+    ctx = fac.new_solution(env, stencil=name)
+    ctx.apply_command_line_options("-g 8 -mode fused -wf_steps 2")
+    ctx.prepare_solution()
+    init_solution_vars(ctx)
+    ctx.run_solution(0, 1)
 print(json.dumps(sorted(m for m in sys.modules
-                        if m == "jax" or m.startswith("jax.")
+                        if m in ("jax", "ml_dtypes") or m.startswith("jax.")
+                        or m.startswith("ml_dtypes.")
                         or (m.startswith("yask_tpu")
                             and m.split(".")[0] != "yask_tpu_torch"))))
 """
 
 
 def test_main_path_loads_no_jax_and_no_yask_tpu():
+    """The main path, and its element-size-2 runs, load neither JAX, nor
+    ``yask_tpu``, nor ``ml_dtypes``."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", MAIN_PATH], cwd=ROOT,
                          env=env, capture_output=True, text=True,
@@ -130,7 +149,7 @@ def test_no_jax_or_yask_tpu_import_in_the_port():
     for path in _py_files():
         for mod in _imports(path):
             top = mod.split(".")[0]
-            if top == "jax" or top == "yask_tpu":
+            if top in ("jax", "yask_tpu", "ml_dtypes"):
                 bad.append((os.path.relpath(path, ROOT), mod))
     assert bad == []
     assert len(_py_files()) > 20

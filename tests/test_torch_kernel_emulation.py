@@ -77,6 +77,8 @@ inline void __syncthreads() {
   yt_turn[yt_tid]->acquire();
 }
 template <class T> T __ldg(const T* p) { return *p; }
+// bfloat16: the headers' own host bf16_t (no cuda_bf16.h here)
+#define YT_HOST_BF16
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
 typedef struct CUstream_st* cudaStream_t;
@@ -88,14 +90,20 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
 inline cudaError_t cudaGetLastError() { return 0; }
 // cp.async, deferred: a copy leaves its destination undefined (NaN) from
 // its issue until a wait_group of the issuing thread completes its group,
-// the weakest order the card guarantees.
+// the weakest order the card guarantees.  A copy whose source or
+// destination is not aligned to its size faults on the card: here it
+// never completes, so its destination stays NaN.
 #define YT_CP_ASYNC_HOOKS
+#include <cstdint>
 #include <deque>
 struct YtCopy { void* dst; const void* src; int bytes; bool fill; };
 inline thread_local std::vector<YtCopy> yt_open;
 inline thread_local std::deque<std::vector<YtCopy>> yt_groups;
 template <int B> void cp_async(void* dst, const void* src, bool fill) {
   std::memset(dst, 0xFF, B);
+  if (reinterpret_cast<std::uintptr_t>(dst) % B
+      || (fill && reinterpret_cast<std::uintptr_t>(src) % B))
+    return;
   yt_open.push_back({dst, src, B, fill});
 }
 inline void cp_async_commit() {

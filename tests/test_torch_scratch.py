@@ -299,23 +299,25 @@ def test_fused_matches_the_oracle_with_a_0_dim_var():
     assert ctxs["fused"].compare_data(ctxs["ref"]) == 0
 
 
+def _a3_ctx(fac, case):
+    """A context of ``case``: a registered stencil, or ``<stencil>_bf16``
+    at element size 2."""
+    from yask_tpu_torch.compiler.solution_base import create_solution
+    if case.endswith("_bf16"):
+        name = case[:-len("_bf16")]
+        sb = create_solution(name, radius=2)
+        sb.get_soln().set_element_bytes(2)
+        return fac.new_solution(fac.new_env(device="cpu"), sb)
+    return fac.new_solution(fac.new_env(device="cpu"), stencil=case)
+
+
 @pytest.mark.parametrize("case,why", [
-    ("test_misc_2d", "misc.*ROADMAP.md A3"),
-    ("test_misc_value_2d", "misc.*ROADMAP.md A3"),
-    ("test_step_cond_1d", "misc.*ROADMAP.md A3"),
-    ("box", "misc.*ROADMAP.md A3"),
-    ("gaussian", "misc.*ROADMAP.md A3"),
-    ("test_4d", "4-D.*ROADMAP.md A3"),
-    ("bf16", "element size 2 is ROADMAP.md A3")])
+    ("test_4d", "4-D.*ROADMAP.md A3 \\(4-D\\)"),
+    ("tti_bf16", "element size 2.*ROADMAP.md A3 \\(element size 2 on "
+                 "K6\\)")])
 def test_remaining_refusals_name_a3(case, why):
     fac = yask_tpu_torch.yk_factory()
-    if case == "bf16":
-        from yask_tpu_torch.compiler.solution_base import create_solution
-        sb = create_solution("iso3dfd", radius=2)
-        sb.get_soln().set_element_bytes(2)
-        ctx = fac.new_solution(fac.new_env(device="cpu"), sb)
-    else:
-        ctx = fac.new_solution(fac.new_env(device="cpu"), stencil=case)
+    ctx = _a3_ctx(fac, case)
     ctx.apply_command_line_options(f"-g {8 if case == 'test_4d' else 16} "
                                    "-mode fused")
     with pytest.raises(YaskException, match=why):
@@ -324,6 +326,28 @@ def test_remaining_refusals_name_a3(case, why):
     ctx.get_settings().mode = "torch"
     ctx.prepare_solution()
     ctx.run_solution(0, 0)
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("test_misc_2d", "fused_step"), ("test_misc_value_2d", "stages_step"),
+    ("test_step_cond_1d", "stages_step"), ("box", "stages_step"),
+    ("gaussian", "stages_step"), ("iso3dfd_bf16", "stream_step")])
+def test_opened_a3_arms_run_fused(case, kernel):
+    """The refusals the misc and element-size-2 arms removed: ``-mode
+    fused`` (the plain version on CPU tensors) runs each, bit-equal to
+    ``-mode torch`` from the same state."""
+    fac = yask_tpu_torch.yk_factory()
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = _a3_ctx(fac, case)
+        ctx.apply_command_line_options(f"-g 16 -mode {mode} -wf_steps 2")
+        ctx.prepare_solution()
+        import_interiors(ctx, seeded_interiors(ctx, 6))
+        ctx.run_solution(0, 2)
+        ctxs[mode] = ctx
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
+    assert ctxs["fused"].get_stats().get_tiling()["kernel"] == kernel
 
 
 # ---------------------------------------------------------------------------

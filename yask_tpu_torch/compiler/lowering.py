@@ -28,13 +28,35 @@ Mosaic lane/sublane round-up (there is no TPU tiling to satisfy), so the
 port's padded shapes differ from ``yask_tpu``'s and cross-package
 comparisons read interiors only; and the program dtype stays a numpy dtype
 (``np.dtype(torch.float32)`` raises) — :func:`torch_dtype` derives the
-tensor dtype where tensors are allocated.
+tensor dtype where tensors are allocated.  Numpy has no bfloat16 without
+the ``ml_dtypes`` package, which the port does not use: at element size 2
+the program dtype is :data:`BFLOAT16`, numpy's uint16 (the storage) tagged
+in its metadata.
+
+bfloat16 arithmetic follows ``yask_tpu``'s (JAX's weak scalars), the
+same on every device: an op on bfloat16 values runs in float and rounds
+its result once to bfloat16; a Python scalar (a constant, the step or a
+misc index) that meets a bfloat16 value is rounded to bfloat16 first,
+and an int32 domain index is converted to bfloat16; an op on indices and
+scalars alone gives float32, which wins over bfloat16.  PyTorch's own
+bf16 ops give no single rule for scalars (on the CPU a scalar added to a
+bf16 tensor is rounded to bf16 first, a multiplier stays float; on the
+card both stay float), so the evaluator rounds such a scalar itself
+(:meth:`StepProgram._bf16_op`).  On iso3dfd r=2 this gives ``yask_tpu``
+jit's bits; keeping the constants in float leaves 2613 cells outside
+(3e-2, 3e-2) of them after 2 steps from ``init_solution_vars``.  The
+fused kernel prints the same rule (``ops/cuda_emit.py``).  The numpy
+oracle holds bfloat16 values in float32 arrays and rounds each op's
+float32 result.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from yask_tpu_torch.utils.exceptions import YaskException
 from yask_tpu_torch.utils.idx_tuple import IdxTuple
@@ -99,6 +121,38 @@ class ArrayOps:
         raise NotImplementedError
 
 
+#: The program dtype at element size 2: numpy's uint16 (bfloat16's
+#: storage) tagged ``yt_dtype: bfloat16`` in its metadata.
+BFLOAT16 = np.dtype(np.uint16, metadata={"yt_dtype": "bfloat16"})
+
+
+def is_bfloat16(dtype) -> bool:
+    """Is ``dtype`` the port's bfloat16 program dtype?"""
+    md = np.dtype(dtype).metadata
+    return bool(md) and md.get("yt_dtype") == "bfloat16"
+
+
+def dtype_name(dtype) -> str:
+    """The program dtype's name: ``bfloat16`` for :data:`BFLOAT16`."""
+    return "bfloat16" if is_bfloat16(dtype) else np.dtype(dtype).name
+
+
+def round_bf16(a):
+    """The values of ``a`` rounded to the nearest bfloat16 (ties to
+    even), as float32: what ``torch.Tensor.to(torch.bfloat16)`` keeps of a
+    float32, without a bfloat16 numpy dtype.  NaN stays NaN."""
+    f = np.array(a, dtype=np.float32)
+    u = f.view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32)
+    return np.where(np.isnan(f), f, r.view(np.float32))
+
+
+def host_dtype(dtype):
+    """The numpy dtype of a host array of the program dtype: float32
+    holding bfloat16 values for :data:`BFLOAT16`."""
+    return np.float32 if is_bfloat16(dtype) else dtype
+
+
 class NumpyOps(ArrayOps):
     """Eager numpy execution — the independent validation oracle (the role
     of the reference's scalar ``run_ref`` context, ``context.cpp:46``)."""
@@ -135,7 +189,7 @@ class NumpyOps(ArrayOps):
         return self.np.broadcast_to(v, shape)
 
     def full(self, shape, val, dtype):
-        return self.np.full(shape, val, dtype=dtype)
+        return self.np.full(shape, val, dtype=host_dtype(dtype))
 
     def func(self, name, args):
         # numpy promotes float32 scalars/arrays to float64 in some funcs;
@@ -150,18 +204,27 @@ class NumpyOps(ArrayOps):
         return self.np.logical_not(a)
 
     def asdtype(self, v, dtype):
+        if is_bfloat16(dtype):
+            return round_bf16(v)
         return self.np.asarray(v, dtype=dtype)
 
     def permute(self, v, perm):
         return v.transpose(perm)
 
+    def is_bf16(self, v) -> bool:
+        """Does ``v`` hold bfloat16 values (a float32 array here)?"""
+        return isinstance(v, self.np.ndarray) and v.dtype == self.np.float32
+
+    def round_bf16(self, v):
+        """One bfloat16 op's result: a float32 array rounded."""
+        return round_bf16(v) if self.is_bf16(v) else v
+
 
 def torch_dtype(dtype):
     """The tensor dtype for a program's numpy dtype (float32/float64,
-    float16, and ml_dtypes' bfloat16 by name)."""
-    import numpy as np
+    float16, and :data:`BFLOAT16`)."""
     import torch
-    name = np.dtype(dtype).name
+    name = dtype_name(dtype)
     table = {"float32": torch.float32, "float64": torch.float64,
              "float16": torch.float16, "bfloat16": torch.bfloat16}
     if name not in table:
@@ -258,6 +321,15 @@ class TorchOps(ArrayOps):
 
     def permute(self, v, perm):
         return v.permute(*perm)
+
+    def is_bf16(self, v) -> bool:
+        return isinstance(v, self.torch.Tensor) \
+            and v.dtype == self.torch.bfloat16
+
+    def round_bf16(self, v):
+        """One bfloat16 op's result: PyTorch's bf16 ops already compute
+        in float and round once."""
+        return v
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +434,8 @@ class StepProgram:
         self.sizes = sizes.copy()
         self.ops = ops or NumpyOps()
         self.dtype = csol.dtype
+        # bfloat16 arithmetic (see the module docstring and _bf16_op)
+        self._bf16 = is_bfloat16(self.dtype)
         extra_pad = extra_pad or {}
         # Local-interior origin in global coordinates (0 on one device; a
         # shard's offset in the shard modes, the reference's rank offsets,
@@ -534,6 +608,20 @@ class StepProgram:
             out = self.ops.broadcast_to(out, tgt_shape)
         return out
 
+    def _bf16_scalars(self, args):
+        """``args`` of one op with each Python scalar rounded to bfloat16
+        where a bfloat16 value is among them (JAX's weak scalars)."""
+        if not any(self.ops.is_bf16(a) for a in args):
+            return args
+        return [float(round_bf16(a)) if _is_scalar(a) else a for a in args]
+
+    def _bf16_op(self, f, a, b):
+        """One binary op of bfloat16 arithmetic: its scalars rounded to
+        bfloat16 where they meet a bfloat16 value, the op in float, its
+        bfloat16 result rounded once."""
+        a, b = self._bf16_scalars([a, b])
+        return self.ops.round_bf16(f(a, b))
+
     def _eval(self, e: Expr, region, t, state, computed, scratch_vals, memo):
         # Structural memo key: common subexpressions are evaluated once per
         # part even across equations (the reference's CSE pass,
@@ -544,6 +632,7 @@ class StepProgram:
         ops = self.ops
         ev = lambda x: self._eval(x, region, t, state, computed,
                                   scratch_vals, memo)
+        op2 = self._bf16_op if self._bf16 else (lambda f, a, b: f(a, b))
         if isinstance(e, ConstExpr):
             r = e.value
         elif isinstance(e, IndexExpr):
@@ -578,23 +667,30 @@ class StepProgram:
         elif isinstance(e, AddExpr):
             r = ev(e.args[0])
             for a in e.args[1:]:
-                r = r + ev(a)
+                r = op2(operator.add, r, ev(a))
         elif isinstance(e, MultExpr):
             r = ev(e.args[0])
             for a in e.args[1:]:
-                r = r * ev(a)
+                r = op2(operator.mul, r, ev(a))
         elif isinstance(e, SubExpr):
-            r = ev(e.lhs) - ev(e.rhs)
+            r = op2(operator.sub, ev(e.lhs), ev(e.rhs))
         elif isinstance(e, DivExpr):
-            r = ev(e.lhs) / ev(e.rhs)
+            r = op2(operator.truediv, ev(e.lhs), ev(e.rhs))
         elif isinstance(e, ModExpr):
-            r = ev(e.lhs) % ev(e.rhs)
+            r = op2(operator.mod, ev(e.lhs), ev(e.rhs))
         elif isinstance(e, FuncExpr):
             from yask_tpu_torch.compiler.expr import paired_func_eval
-            r = paired_func_eval(ops.func, e, [ev(a) for a in e.args],
-                                 memo, getattr(self.ana, "sincos_args", ()))
+            args = [ev(a) for a in e.args]
+            func = ops.func
+            if self._bf16:
+                args = self._bf16_scalars(args)
+                func = lambda name, xs: ops.round_bf16(ops.func(name, xs))
+            r = paired_func_eval(func, e, args, memo,
+                                 getattr(self.ana, "sincos_args", ()))
         elif isinstance(e, CompExpr):
             a, b = ev(e.lhs), ev(e.rhs)
+            if self._bf16:
+                a, b = self._bf16_scalars([a, b])
             r = {"==": lambda: a == b, "!=": lambda: a != b,
                  "<": lambda: a < b, "<=": lambda: a <= b,
                  ">": lambda: a > b, ">=": lambda: a >= b}[e.op]()
@@ -769,19 +865,12 @@ class CompiledSolution:
         self.ana = analysis
         if dtype is None:
             eb = soln.get_settings().elem_bytes
-            if eb == 2:
-                try:
-                    import ml_dtypes
-                except ImportError:
-                    raise YaskException(
-                        "elem_bytes 2 needs the ml_dtypes package for a "
-                        "numpy bfloat16 dtype; pass dtype= explicitly")
-                dtype = ml_dtypes.bfloat16
-            elif eb in (4, 8):
-                dtype = {4: np.float32, 8: np.float64}[eb]
-            else:
+            if eb not in (2, 4, 8):
                 raise YaskException(f"unsupported elem_bytes {eb}")
-        self.dtype = np.dtype(dtype)
+            dtype = {2: BFLOAT16, 4: np.float32, 8: np.float64}[eb]
+        # a bfloat16 numpy dtype of another package counts as the port's
+        self.dtype = BFLOAT16 if dtype_name(dtype) == "bfloat16" \
+            else np.dtype(dtype)
 
     def plan(self, sizes: IdxTuple, ops: Optional[ArrayOps] = None,
              extra_pad: Optional[Dict[str, Tuple[int, int]]] = None,

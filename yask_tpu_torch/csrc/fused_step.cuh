@@ -39,11 +39,26 @@
 // The same Spec compiles on the host (no __CUDACC__): host_step() runs
 // the point function over the interior with global reads only, which is
 // how the CPU tests check the emitted arithmetic with g++.
+//
+// Element size 2: real_t is bf16_t (__nv_bfloat16 on the device), the
+// storage; the point function reads it widened (to_f) and computes in
+// float (Calc<real_t>::type), rounding each op on bfloat16 values once
+// (rbf), and a store rounds to bfloat16 (Calc<real_t>::store).  The host build has its own bf16_t with the same
+// round-to-nearest-even from float, so g++ checks the emitted arithmetic
+// at element size 2 too.
+//
+// Misc dims and partial-dim outputs need nothing here: a misc slice is an
+// input or output of its own (its own interior pointer, the var's domain
+// strides), a var lacking a slot has stride 0 in it, and out_slab (when
+// the Spec prints it) says which slots a partial-dim output lacks, so
+// that only the points at index 0 of those slots store it.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
+#include <type_traits>
 #include <vector>
 
 #ifdef __CUDACC__
@@ -52,10 +67,79 @@
 #else
 #define YT_HD
 #endif
+// A CUDA runtime header that defines YT_HOST_BF16 (the CPU emulation's)
+// takes the host bf16_t on the device path too.
+#if defined(__CUDACC__) && !defined(YT_HOST_BF16)
+#include <cuda_bf16.h>
+#endif
 
 namespace yt {
 
 typedef long long idx_t;
+
+// ---- bfloat16 storage ---------------------------------------------------
+#if defined(__CUDACC__) && !defined(YT_HOST_BF16)
+typedef __nv_bfloat16 bf16_t;
+YT_HD inline float to_f(bf16_t x) { return __bfloat162float(x); }
+YT_HD inline bf16_t to_bf16(float x) { return __float2bfloat16_rn(x); }
+#else
+// float -> bfloat16, round to nearest even (NaN -> the quiet NaN 0x7fc0),
+// as PyTorch's and the device's conversions do
+struct bf16_t {
+  uint16_t bits;
+  bf16_t() = default;
+  YT_HD explicit bf16_t(float f) {
+    uint32_t u;
+    memcpy(&u, &f, 4);
+    bits = (u & 0x7fffffffu) > 0x7f800000u
+               ? uint16_t(0x7fc0)
+               : uint16_t((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+  }
+};
+YT_HD inline float to_f(bf16_t x) {
+  const uint32_t u = uint32_t(x.bits) << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+YT_HD inline bf16_t to_bf16(float x) { return bf16_t(x); }
+#endif
+// an op's bfloat16 result: computed in float, rounded once
+YT_HD inline float rbf(float x) { return to_f(to_bf16(x)); }
+
+// What the point functions compute in, and a store back to real_t.
+template <typename R>
+struct Calc {
+  typedef R type;
+  YT_HD static R store(R v) { return v; }
+};
+template <>
+struct Calc<bf16_t> {
+  typedef float type;
+  YT_HD static bf16_t store(float v) { return to_bf16(v); }
+};
+template <class S>
+using CalcOf = typename Calc<typename S::real_t>::type;
+
+// The used slots output o's var lacks (a partial-dim written var): the
+// Spec's out_slab bitmask where it prints one, else 0.
+template <class S, class = void>
+struct SlabOf {
+  YT_HD static constexpr int get(int) { return 0; }
+};
+template <class S>
+struct SlabOf<S, std::void_t<decltype(S::out_slab(0))>> {
+  YT_HD static constexpr int get(int o) { return S::out_slab(o); }
+};
+
+// Does the point at interior (g0, g1, g2) store output o?  Every point,
+// except that a partial-dim output's slab is stored by the points at
+// index 0 of each slot its var lacks (every block computes the same slab).
+template <class S>
+YT_HD inline bool stores(int o, int g0, int g1, int g2) {
+  const int m = SlabOf<S>::get(o);
+  return !(((m & 1) && g0) || ((m & 2) && g1) || ((m & 4) && g2));
+}
 
 // ---- math, overloaded by type (the emitted code calls f_<name>) -------
 #define YT_MATH1(NAME, F32, F64)                                   \
@@ -190,23 +274,24 @@ void fill_params(ParamsOf<S>& p, void* in_ptrs, void* in_strides,
 
 template <class S>
 YT_HD inline void store(const ParamsOf<S>& p, int m, int g0, int g1, int g2,
-                        const typename S::real_t* out) {
+                        const CalcOf<S>* out) {
   for (int o = 0; o < S::NOUT; ++o)
-    p.out[o][m * p.out_ms[o] + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
-             + g2 * p.out_s[o][2]] = out[o];
+    if (stores<S>(o, g0, g1, g2))
+      p.out[o][m * p.out_ms[o] + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+               + g2 * p.out_s[o][2]] =
+          Calc<typename S::real_t>::store(out[o]);
 }
 
 // ---- host path: the same point function over every member's interior --
 template <class S>
 int host_step(const ParamsOf<S>& p) {
-  typedef typename S::real_t real_t;
   for (int m = 0; m < p.nm; ++m)
     for (int g0 = 0; g0 < p.n[0]; ++g0)
       for (int g1 = 0; g1 < p.n[1]; ++g1)
         for (int g2 = 0; g2 < p.n[2]; ++g2) {
           const GlobalReader<S> rd{&p, m, g0, g1, g2};
           const int g[3] = {g0, g1, g2};
-          real_t out[S::NOUT];
+          CalcOf<S> out[S::NOUT];
           S::point(rd, g, p.n, p.t, out);
           store<S>(p, m, g0, g1, g2, out);
         }
@@ -264,7 +349,7 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(p, a, m, c0, c1, c2) : real_t(0);
+                   ? global_at<S>(p, a, m, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -283,7 +368,7 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
     if (g0 >= p.n[0]) break;
     const TileReader<S> rd{&p, smem, m, l0, l1, l2, g0, g1, g2};
     const int g[3] = {g0, g1, g2};
-    real_t out[S::NOUT];
+    CalcOf<S> out[S::NOUT];
     S::point(rd, g, p.n, p.t, out);
     store<S>(p, m, g0, g1, g2, out);
   }
@@ -381,17 +466,16 @@ YT_HD inline bool in_global(const RegionParams<S>& p, const int* gg) {
 // ---- host path: the box with global reads -------------------------------
 template <class S>
 int host_region(const RegionParams<S>& p) {
-  typedef typename S::real_t real_t;
   for (int g0 = p.lo[0]; g0 < p.hi[0]; ++g0)
     for (int g1 = p.lo[1]; g1 < p.hi[1]; ++g1)
       for (int g2 = p.lo[2]; g2 < p.hi[2]; ++g2) {
         const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
-        real_t out[S::NOUT];
+        CalcOf<S> out[S::NOUT];
         if (in_global<S>(p, gg)) {
           const GlobalReader<S> rd{&p.p, 0, g0, g1, g2};
           S::point(rd, gg, p.gn, p.p.t, out);
         } else {
-          for (int o = 0; o < S::NOUT; ++o) out[o] = real_t(0);
+          for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
         }
         store<S>(p.p, 0, g0, g1, g2, out);
       }
@@ -438,7 +522,7 @@ fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(q, a, 0, c0, c1, c2) : real_t(0);
+                   ? global_at<S>(q, a, 0, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -457,13 +541,13 @@ fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
     const int g0 = b0 + l0;
     if (g0 >= p.hi[0]) break;
     const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
-    real_t out[S::NOUT];
+    CalcOf<S> out[S::NOUT];
     if (in_global<S>(p, gg)) {
       const TileReader<S> rd{&q, smem, 0, l0, l1, l2, g0, g1, g2};
       S::point(rd, gg, p.gn, q.t, out);
     } else {
 #pragma unroll
-      for (int o = 0; o < S::NOUT; ++o) out[o] = real_t(0);
+      for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
     }
     store<S>(q, 0, g0, g1, g2, out);
   }
@@ -630,15 +714,16 @@ void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs) {
       for (int g2 = -S::clip_lo2(K); g2 < p.n[2] + S::clip_hi2(K); ++g2) {
         const HostStageReader<S> rd{&p, bufs, g0, g1, g2};
         const int g[3] = {g0, g1, g2};
-        real_t v[S::MAXV];
+        CalcOf<S> v[S::MAXV];
         S::template stage<K>(rd, g, p.n, p.t, v);
         for (int j = 0; j < S::stage_nv(K); ++j) {
           const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
-          if (o >= 0)
+          const real_t w = Calc<real_t>::store(v[j]);
+          if (o >= 0 && stores<S>(o, g0, g1, g2))
             p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
-                     + g2 * p.out_s[o][2]] = v[j];
+                     + g2 * p.out_s[o][2]] = w;
           if (b >= 0)
-            bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = v[j];
+            bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = w;
         }
       }
   if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs);
@@ -654,7 +739,7 @@ int host_stages(const ParamsOf<S>& p) {
     store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
                         * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
                         * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
-                    real_t(0));
+                    real_t(0.0f));
     bufs[b] = store[b].data();
   }
   host_stage<S, 0>(p, bufs);
@@ -689,14 +774,14 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                         && g1 < p.n[1] + S::clip_hi1(K)
                         && g2 >= -S::clip_lo2(K)
                         && g2 < p.n[2] + S::clip_hi2(K);
-    real_t v[S::MAXV];
+    CalcOf<S> v[S::MAXV];
     if (inside) {
       const StageReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
       const int g[3] = {g0, g1, g2};
       S::template stage<K>(rd, g, p.n, p.t, v);
     } else {
 #pragma unroll
-      for (int j = 0; j < S::MAXV; ++j) v[j] = real_t(0);
+      for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
     }
     const bool own = l0 >= 0 && l0 < S::T0 && l1 >= 0 && l1 < S::T1
                      && l2 >= 0 && l2 < S::T2 && g0 < p.n[0] && g1 < p.n[1]
@@ -705,12 +790,13 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
     for (int j = 0; j < S::MAXV; ++j) {
       if (j >= S::stage_nv(K)) break;
       const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
-      if (o >= 0 && own)
+      const real_t w = Calc<real_t>::store(v[j]);
+      if (o >= 0 && own && stores<S>(o, g0, g1, g2))
         p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
-                 + g2 * p.out_s[o][2]] = v[j];
+                 + g2 * p.out_s[o][2]] = w;
       if (b >= 0)
         smem[S::cmp_offset(b) + ((l0 + e0) * R1 + (l1 + e1)) * R2
-             + (l2 + e2)] = v[j];
+             + (l2 + e2)] = w;
     }
   }
   if constexpr (K + 1 < S::NSTAGES) {
@@ -757,7 +843,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 >= lo0 && c0 < lim0 && c1 >= lo1
                 && c1 < lim1 && c2 >= lo2 && c2 < lim2)
-                   ? global_at<S>(p, a, 0, c0, c1, c2) : real_t(0);
+                   ? global_at<S>(p, a, 0, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)

@@ -44,6 +44,16 @@
 //     filled with zero by the copy's src-size-0 form (K1's lim rule);
 //     cp.async copies 4 (fp32) or 8 (fp64) bytes, since the halo plane's
 //     minor-dim origin b2 - h2 is not 16-byte aligned;
+//   * at element size 2 (bfloat16) cp.async cannot copy one element:
+//     each thread copies an aligned pair (4 bytes).  A ring row then
+//     starts at the pair that holds the row's first cell b2 - h2, one
+//     element early when that cell is the second of its pair
+//     (pair_shift), and holds stream_row(E2) elements (E2 + 1 rounded up
+//     to even).  The row strides are even (the wrapper checks), so the
+//     shift is the same for every row and plane of a block.  A pair with
+//     one cell inside the read reach (the shifted first pair, the ragged
+//     edge) is copied by plain loads and stores, which the barrier
+//     before its plane's compute orders like a copy;
 //   * every cell of each padded output is written exactly once: interior
 //     cells by the point function, pad cells with 0 by a grid-stride
 //     pass over the pad slabs at the end, so the wrapper allocates its
@@ -57,6 +67,24 @@
 #include "fused_step.cuh"
 
 namespace yt {
+
+// Elements of one ring row in shared memory for a plane row of e2 cells
+// (tile_planner.stream_row): e2, or at element size 2 one more rounded up
+// to even.
+template <typename R>
+YT_HD constexpr int stream_row(int e2) {
+  return sizeof(R) == 2 ? (e2 + 2) & ~1 : e2;
+}
+
+// At element size 2: 1 when cell x of input a's minor dim is the second
+// element of its 4-byte pair, else 0.
+template <class S>
+YT_HD inline int pair_shift(const ParamsOf<S>& p, int a, int x) {
+  if constexpr (sizeof(typename S::real_t) == 2)
+    return int((reinterpret_cast<unsigned long long>(p.in[a] + x) >> 1) & 1);
+  else
+    return 0;
+}
 
 template <class S>
 struct StreamParams {
@@ -106,7 +134,7 @@ YT_HD inline void zero_pads(const StreamParams<S>& q, long long first,
         const idx_t c0 = lo[0] + r / w1, c1 = lo[1] + r % w1,
                     c2 = lo[2] + i % w2;
         q.p.out[o][c0 * q.p.out_s[o][0] + c1 * q.p.out_s[o][1]
-                   + c2 * q.p.out_s[o][2]] = real_t(0);
+                   + c2 * q.p.out_s[o][2]] = real_t(0.0f);
       }
     }
 }
@@ -152,6 +180,7 @@ struct PlaneReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
   const int* zb;   // per ring input: the ring slot of plane z - h0_lo
+  const int* sh;   // per ring input: its rows' pair shift (element size 2)
   const typename S::real_t* pre;  // per same-point input: its value here
   int l1, l2;      // point within the block's plane tile
   int g0, g1, g2;  // point in the interior
@@ -162,14 +191,17 @@ struct PlaneReader {
     if constexpr (j >= 0) {
       return pre[j];  // read at offset (0, 0, 0) only
     } else if constexpr (k >= 0) {
+      typedef typename S::real_t real_t;
       constexpr int D = S::ring_depth(k);
       constexpr int E1 = S::ST1 + S::halo_lo1(k) + S::halo_hi1(k);
-      constexpr int E2 = S::ST2 + S::halo_lo2(k) + S::halo_hi2(k);
+      constexpr int E2 = stream_row<real_t>(S::ST2 + S::halo_lo2(k)
+                                            + S::halo_hi2(k));
       int s = zb[k] + S::halo_lo0(k) + o0;  // in [0, 2 D)
       if (s >= D) s -= D;
-      return smem[S::ring_offset(k) + (s * E1 + (l1 + S::halo_lo1(k) + o1))
-                                          * E2
-                  + (l2 + S::halo_lo2(k) + o2)];
+      int c = S::ring_offset(k) + (s * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
+              + (l2 + S::halo_lo2(k) + o2);
+      if constexpr (sizeof(real_t) == 2) c += sh[k];
+      return smem[c];
     } else {
       return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
     }
@@ -189,20 +221,42 @@ __device__ __forceinline__ void fetch_plane(const ParamsOf<S>& p,
   constexpr int h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
   constexpr int E1 = S::ST1 + h1 + S::halo_hi1(k);
   constexpr int E2 = S::ST2 + h2 + S::halo_hi2(k);
+  constexpr int R2 = stream_row<real_t>(E2);
   constexpr int D = S::ring_depth(k);
   real_t* dst = smem + S::ring_offset(k)
-                + ((c - zs + S::halo_lo0(k)) % D) * (E1 * E2);
+                + ((c - zs + S::halo_lo0(k)) % D) * (E1 * R2);
   const bool in0 = c < p.n[0] + S::halo_hi0(k);
   const int lim1 = p.n[1] + S::halo_hi1(k);
   const int lim2 = p.n[2] + S::halo_hi2(k);
   const real_t* base = p.in[a] + c * p.in_s[a][0];
-  for (int i = tid; i < E1 * E2; i += NT) {
-    const int c1 = b1 - h1 + i / E2;
-    const int c2 = b2 - h2 + i % E2;
-    const bool ok = in0 && c1 < lim1 && c2 < lim2;
-    cp_async<int(sizeof(real_t))>(
-        dst + i, ok ? base + c1 * p.in_s[a][1] + c2 * p.in_s[a][2] : p.in[a],
-        ok);
+  if constexpr (sizeof(real_t) != 2) {
+    for (int i = tid; i < E1 * E2; i += NT) {
+      const int c1 = b1 - h1 + i / E2;
+      const int c2 = b2 - h2 + i % E2;
+      const bool ok = in0 && c1 < lim1 && c2 < lim2;
+      cp_async<int(sizeof(real_t))>(
+          dst + i,
+          ok ? base + c1 * p.in_s[a][1] + c2 * p.in_s[a][2] : p.in[a], ok);
+    }
+  } else {
+    // aligned pairs from the pair holding cell b2 - h2
+    const int x0 = b2 - h2 - pair_shift<S>(p, a, b2 - h2);
+    constexpr int NP = R2 / 2;
+    for (int i = tid; i < E1 * NP; i += NT) {
+      const int c1 = b1 - h1 + i / NP;
+      const int c2 = x0 + 2 * (i % NP);
+      const bool row = in0 && c1 < lim1;
+      const bool ok0 = row && c2 >= b2 - h2 && c2 < lim2;
+      const bool ok1 = row && c2 + 1 < lim2;
+      real_t* d = dst + (i / NP) * R2 + 2 * (i % NP);
+      const real_t* q = base + c1 * p.in_s[a][1] + c2;
+      if (ok0 == ok1) {
+        cp_async<4>(d, ok0 ? q : p.in[a], ok0);
+      } else {
+        d[0] = ok0 ? q[0] : real_t(0.0f);
+        d[1] = ok1 ? q[1] : real_t(0.0f);
+      }
+    }
   }
 }
 
@@ -284,8 +338,12 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
     //    wait until at most SP groups are in flight, __syncthreads, then
     //    compute and store plane z.
     int zb[NK];  // per ring input: the ring slot of plane z - h0_lo
+    int sh[NK];  // per ring input: its rows' pair shift (element size 2)
 #pragma unroll
-    for (int k = 0; k < NK; ++k) zb[k] = 0;
+    for (int k = 0; k < NK; ++k) {
+      zb[k] = 0;
+      sh[k] = pair_shift<S>(p, S::tiled_input(k), b2 - S::halo_lo2(k));
+    }
     real_t qv[S::SQ][NJ];  // same-point values of planes z .. z + SQ - 1
 #pragma unroll
     for (int i = 0; i + 1 < S::SQ; ++i)
@@ -293,7 +351,7 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
       for (int j = 0; j < NJ; ++j)
         qv[i][j] = S::NPRE && active && (i == 0 || zs + i < ze)
                        ? global_at<S>(p, S::pre_input(j), 0, zs + i, g1, g2)
-                       : real_t(0);
+                       : real_t(0.0f);
     auto plane = [&](int z, real_t (&cur)[NJ], real_t (&ahead)[NJ]) {
       if (z + S::SP < ze)
         fetch_ahead<S>(p, smem, z - zs + S::SP, zs, b1, b2, tid);
@@ -303,13 +361,13 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
         ahead[j] = S::NPRE && active && z + S::SQ - 1 < ze
                        ? global_at<S>(p, S::pre_input(j), 0, z + S::SQ - 1,
                                       g1, g2)
-                       : real_t(0);
+                       : real_t(0.0f);
       cp_async_wait<S::SP>();
       __syncthreads();
       if (active) {
-        const PlaneReader<S> rd{&p, smem, zb, cur, l1, l2, z, g1, g2};
+        const PlaneReader<S> rd{&p, smem, zb, sh, cur, l1, l2, z, g1, g2};
         const int g[3] = {z, g1, g2};
-        real_t out[S::NOUT];
+        CalcOf<S> out[S::NOUT];
         S::point(rd, g, p.n, p.t, out);
         store<S>(p, 0, z, g1, g2, out);
       }

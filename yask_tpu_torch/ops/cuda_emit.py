@@ -38,9 +38,29 @@ into one ``Spec`` struct:
 Value types follow the plain version's (PyTorch's) promotion, so the
 kernel rounds where the tensors do: a tensor op with a Python scalar runs
 at the tensor's dtype, scalar-only subtrees run in double, a domain index
-is an ``int32`` tensor, and ``/`` on integers is true division.  Solution
-dims map onto the last of three slots (``x, y, z`` → slots 0, 1, 2; a 2-D
-``x, y`` → slots 1, 2), slot 2 being the contiguous minor dim.
+is an ``int32`` tensor, and ``/`` on integers is true division.  At
+element size 2 ``real_t`` is bfloat16 storage (``yt::bf16_t``) and the
+point function computes in float, with the bfloat16 arithmetic that
+``compiler/lowering.py`` defines for the plain version: a bfloat16 value
+(kind ``R``, a ``float`` holding a bfloat16 value) comes from a read
+(``yt::to_f``) or from an op rounded once (``yt::rbf``); a scalar or an
+index that meets one is rounded to bfloat16 first; an op on indices and
+scalars alone gives float32 (kind ``F``, unrounded), which wins over
+bfloat16; a store rounds.  Solution dims map onto the last of three slots (``x, y,
+z`` → slots 0, 1, 2; a 2-D ``x, y`` → slots 1, 2), slot 2 being the
+contiguous minor dim.
+
+Misc dims: each (var, ring slot, misc indices) a point reads is an input
+of its own, the var's slice at those misc indices (its domain strides,
+its own interior pointer); a var with misc axes alone has stride 0 in
+every slot.  A misc index used as a value is the current equation's LHS
+binding, an ``int`` constant.  Outputs are (var, LHS misc indices)
+slices of one output tensor per var (``KernelSpec.out_slices``); a var
+some of whose misc slices no equation writes starts from a copy of its
+evicted slot (``KernelSpec.base_outputs``).  A written var lacking a
+domain dim has stride 0 there: every block computes the same slab and
+only the blocks holding index 0 of each missing slot store it
+(``out_slab``).
 """
 
 from __future__ import annotations
@@ -50,6 +70,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 from yask_tpu_torch.utils.exceptions import YaskException
+from yask_tpu_torch.compiler.lowering import dtype_name, is_bfloat16
 from yask_tpu_torch.compiler.expr import (
     AddExpr,
     AndExpr,
@@ -84,36 +105,66 @@ _TILE_LADDER = ((8, 8, 64), (4, 8, 64), (2, 8, 64), (1, 8, 64),
 
 _C_TYPES = {"R": "real_t", "I": "int", "i": "int", "d": "double",
             "B": "bool", "b": "bool"}
+#: element size 2: bfloat16 values (R) and float32 ones (F) in float
+_C_TYPES_BF16 = dict(_C_TYPES, R="float", F="float")
 _IND = " " * 8   # statement indent inside Spec::point
 
 
 def fused_applicable(program) -> Tuple[bool, str]:
-    """Can the emitter print this solution?  1-3 domain dims, fp32/fp64,
-    no misc dims or misc-index values, written vars (scratch ones too)
-    over every domain dim.  Any number of stages; scratch vars and vars
-    rewritten in a later stage run on K6 (:func:`emit`)."""
-    import numpy as np
+    """Can the emitter print this solution?  1-3 domain dims; float32 and
+    float64, and bfloat16 (element size 2) for one stage without scratch
+    vars (K1 and its stream arm); misc dims and misc indices as values;
+    written vars (scratch ones too) over a subset of the domain dims that
+    keeps the minor dim, in solution order, as ``yask_tpu``'s
+    ``pallas_applicable`` admits them.  Any number of stages; scratch
+    vars and vars rewritten in a later stage run on K6 (:func:`emit`)."""
     ana = program.ana
     nd = len(ana.domain_dims)
     if not 1 <= nd <= 3:
         return False, (f"needs 1-3 domain dims, has {nd} (4-D emission is "
-                       "ROADMAP.md A3)")
-    if np.dtype(program.dtype).name not in ("float32", "float64"):
-        return False, (f"dtype {np.dtype(program.dtype).name} (the kernel "
-                       "takes float32 and float64; element size 2 is "
-                       "ROADMAP.md A3)")
+                       "ROADMAP.md A3 (4-D))")
+    name = dtype_name(program.dtype)
+    if name not in ("float32", "float64", "bfloat16"):
+        return False, (f"dtype {name} (the kernel takes float32, float64 "
+                       "and bfloat16)")
+    if name == "bfloat16" and (len(ana.stages) > 1 or has_scratch(program)):
+        return False, (f"element size 2 with {len(ana.stages)} stage(s)"
+                       f"{' and scratch vars' if has_scratch(program) else ''}"
+                       ": K6 in bfloat16 is ROADMAP.md A3 (element size 2 "
+                       "on K6)")
+    minor = ana.domain_dims[-1]
     for v in program.soln.get_vars():
-        if any(d.type == IndexType.MISC for d in v.get_dims()):
-            return False, (f"misc-dim var '{v.get_name()}' (misc emission "
-                           "is ROADMAP.md A3)")
-        if v.is_written and v.domain_dim_names() != list(ana.domain_dims):
-            return False, (f"written var '{v.get_name()}' does not span "
-                           "every domain dim in solution order (ROADMAP.md "
-                           "A3)")
-    for eq in ana.eqs:
-        if uses_misc_index(eq.rhs, eq.cond, eq.step_cond):
-            return False, "misc index used as a value (ROADMAP.md A3)"
+        if not v.is_written:
+            continue
+        dd = v.domain_dim_names()
+        if not dd:
+            return False, (f"written var '{v.get_name()}' has no domain "
+                           "dims")
+        if dd[-1] != minor:
+            return False, (f"written var '{v.get_name()}' lacks the minor "
+                           f"dim '{minor}' as its last domain dim")
+        if dd != [d for d in ana.domain_dims if d in dd]:
+            return False, (f"written var '{v.get_name()}' declares its "
+                           "domain dims out of solution order")
     return True, "ok"
+
+
+def a3_arms(program) -> List[str]:
+    """The ROADMAP.md A3 arms this solution takes: misc-dim vars, written
+    vars lacking a domain dim, element size 2.  K4, K5 and K7 have not
+    been held against them: ``-trapezoid`` falls back (A12), ``-mode
+    shard_pallas`` and member batches refuse (A11, A9)."""
+    arms = []
+    geoms = program.geoms
+    if any(kind == "misc" for g in geoms.values() for _d, kind in g.axes):
+        arms.append("misc-dim vars")
+    dims = list(program.ana.domain_dims)
+    if any(g.is_written and list(g.domain_dims) != dims
+           for g in geoms.values()):
+        arms.append("partial-dim written vars")
+    if is_bfloat16(program.dtype):
+        arms.append("element size 2")
+    return arms
 
 
 def has_scratch(program) -> bool:
@@ -222,7 +273,7 @@ class KernelSpec:
                                    # stem; K7's is name + "_batched"
     source: str                    # the emitted .cu
     inputs: List[Tuple[str, int]]  # (var, ring slot) per input array
-    outputs: List[str]             # written var per output array
+    outputs: List[str]             # written var per output tensor
     tiled: List[int]               # input indices staged in smem
     tile: Tuple[int, int, int]     # points per block in slots 0, 1, 2
     smem_bytes: int
@@ -252,6 +303,15 @@ class KernelSpec:
     #: the block per slot ((lo0, lo1, lo2), (hi0, hi1, hi2))
     sub_regions: List[Tuple[Tuple[int, ...], Tuple[int, ...]]] = field(
         default_factory=list)
+    #: per input: its misc indices, ((dim, index), ...) sorted (() for a
+    #: var without misc axes); empty for a solution without misc dims
+    in_misc: List[Tuple] = field(default_factory=list)
+    #: per kernel output: (index into ``outputs``, misc indices); empty
+    #: when each output tensor is one kernel output
+    out_slices: List[Tuple[int, Tuple]] = field(default_factory=list)
+    #: output vars whose unwritten misc slices keep the evicted slot's
+    #: values: the wrapper starts them from a copy of it
+    base_outputs: List[str] = field(default_factory=list)
 
 
 def _hexf(v: float) -> str:
@@ -261,19 +321,31 @@ def _hexf(v: float) -> str:
     return f"({float(v).hex()})"
 
 
+def _misc_key(p) -> Tuple:
+    """A var point's misc indices, ((dim, index), ...) sorted."""
+    return tuple(sorted(p.misc_vals().items()))
+
+
 class _Printer:
     """Post-order printer of one sub-stage's equations with structural
     CSE; the inputs, their reach and the computed tiles are shared by all
-    the sub-stages of a solution."""
+    the sub-stages of a solution.  Written values are keyed by slice:
+    (var, misc indices), ``(name, ())`` for a var without misc axes."""
 
     def __init__(self, program, slot_of: Dict[str, int]):
         self.prog = program
         self.ana = program.ana
         self.slot_of = slot_of          # solution dim → slot
+        # bfloat16 arithmetic (the module docstring)
+        self.bf16 = is_bfloat16(program.dtype)
+        self.ctypes = _C_TYPES_BF16 if self.bf16 else _C_TYPES
         self.lines: List[str] = []
         self.memo: Dict[tuple, Tuple[str, str]] = {}
         self.inputs: List[Tuple[str, int]] = []
-        self.in_index: Dict[Tuple[str, int], int] = {}
+        self.in_misc: List[Tuple] = []
+        self.in_index: Dict[Tuple[str, int, Tuple], int] = {}
+        #: the current equation's LHS misc binding (misc indices as values)
+        self.misc_env: Dict[str, int] = {}
         # (input index) → per-slot left/right reach of the tile: the read
         # offsets plus the current sub-stage's region
         self.reach: Dict[int, List[List[int]]] = {}
@@ -290,11 +362,11 @@ class _Printer:
         self.lo = [0, 0, 0]             # its region below the block
         self.hi = [0, 0, 0]             # and above it
         self.scratch = False
-        #: (var, writing sub-stage) → computed tile
-        self.cmp_of: Dict[Tuple[str, int], int] = {}
+        #: (slice, writing sub-stage) → computed tile
+        self.cmp_of: Dict[Tuple[Tuple, int], int] = {}
         self.cmp_geom: List[Tuple[List[int], List[int]]] = []
-        #: var → the sub-stages that write it, in order
-        self.writers: Dict[str, List[int]] = {}
+        #: slice → the sub-stages that write it, in order
+        self.writers: Dict[Tuple, List[int]] = {}
         self.nvals = 0
 
     def begin_stage(self, sub: int, lo: List[int], hi: List[int],
@@ -305,17 +377,18 @@ class _Printer:
         self.lo, self.hi = list(lo), list(hi)
         self.scratch = scratch
 
-    def earlier_writer(self, name: str):
-        """The newest sub-stage before the current one that writes
-        ``name``, or None."""
-        w = [j for j in self.writers.get(name, []) if j < self.sub]
+    def earlier_writer(self, sk: Tuple):
+        """The newest sub-stage before the current one that writes slice
+        ``sk``, or None."""
+        w = [j for j in self.writers.get(sk, []) if j < self.sub]
         return w[-1] if w else None
 
-    def input_of(self, var: str, ring_idx: int) -> int:
-        key = (var, ring_idx)
+    def input_of(self, var: str, ring_idx: int, misc: Tuple = ()) -> int:
+        key = (var, ring_idx, misc)
         if key not in self.in_index:
             self.in_index[key] = len(self.inputs)
-            self.inputs.append(key)
+            self.inputs.append((var, ring_idx))
+            self.in_misc.append(misc)
             self.reach[self.in_index[key]] = [[0, 0] for _ in range(3)]
             self.raw[self.in_index[key]] = [[0, 0] for _ in range(3)]
             self.tile_need[self.in_index[key]] = False
@@ -332,37 +405,65 @@ class _Printer:
             if o or (not self.scratch and (self.lo[s_] or self.hi[s_])):
                 self.tile_need[a] = True
 
-    def base_read(self, name: str) -> str:
-        """The base of a conditional write at the current point: the
-        value an earlier sub-stage computed (a rewrite, or an earlier
-        write of a scratch var), else the evicted slot's value (0 for a
-        scratch var), as the plain version's ``where`` takes it."""
-        if self.earlier_writer(name) is not None:
-            return self._computed_read(name, [0, 0, 0])[0]
+    def base_read(self, sk: Tuple) -> str:
+        """The base of a conditional write of slice ``sk`` at the current
+        point: the value an earlier sub-stage computed (a rewrite, or an
+        earlier write of a scratch var), else the evicted slot's value (0
+        for a scratch var), as the plain version's ``where`` takes it."""
+        name, misc = sk
+        if self.earlier_writer(sk) is not None:
+            return self._computed_read(sk, [0, 0, 0])[0]
         if self.prog.geoms[name].is_scratch:
             return "real_t(0)"
-        a = self.input_of(name, 0)
+        a = self.input_of(name, 0, misc)
         self._note_reach(a, [0, 0, 0])
-        return f"rd.template at<{a}>(0, 0, 0)"
+        return self._wide(f"rd.template at<{a}>(0, 0, 0)")
+
+    def _wide(self, text: str) -> str:
+        """A stored value as the point function computes it (bfloat16
+        widens to float)."""
+        return f"yt::to_f({text})" if self.bf16 else text
 
     def _new(self, kind: str, text: str) -> Tuple[str, str]:
         name = f"v{self.nvals}"
         self.nvals += 1
-        self.lines.append(f"{_IND}const {_C_TYPES[kind]} {name} = {text};")
+        self.lines.append(f"{_IND}const {self.ctypes[kind]} {name} = {text};")
         return name, kind
 
     # -- typing (PyTorch promotion with weak Python scalars) -------------
 
-    @staticmethod
-    def _cast(x: Tuple[str, str], kind: str) -> str:
+    def _cast(self, x: Tuple[str, str], kind: str) -> str:
         text, k = x
-        if k == kind or (k in "Ii" and kind in "Ii"):
+        if k == kind or (k in "Ii" and kind in "Ii") \
+                or (k in "RF" and kind in "RF"):
             return text
-        return f"({_C_TYPES[kind]})({text})"
+        if kind == "R" and self.bf16:
+            # a scalar or an index meeting a bfloat16 value
+            return f"yt::rbf((float)({text}))"
+        return f"({self.ctypes[kind]})({text})"
+
+    @staticmethod
+    def _kind_bf16(kinds, op: str) -> str:
+        """The kind of an op's result at element size 2: float32 wins,
+        then bfloat16; indices with a float scalar (or divided) give
+        float32, as PyTorch's and JAX's promotion do."""
+        if "F" in kinds:
+            return "F"
+        if "R" in kinds:
+            return "R"
+        if "I" in kinds:
+            return "F" if "d" in kinds or op == "/" else "I"
+        return "d" if "d" in kinds or op == "/" else "i"
+
+    def _rounded(self, kind: str, text: str) -> str:
+        """An op's bfloat16 result, rounded once."""
+        return f"yt::rbf({text})" if kind == "R" and self.bf16 else text
 
     def _arith(self, op: str, a, b) -> Tuple[str, str]:
         ka, kb = a[1], b[1]
-        if "R" in (ka, kb) or ("I" in (ka, kb) and "d" in (ka, kb)):
+        if self.bf16:
+            k = self._kind_bf16((ka, kb), op)
+        elif "R" in (ka, kb) or ("I" in (ka, kb) and "d" in (ka, kb)):
             k = "R"
         elif "I" in (ka, kb):
             k = "R" if op == "/" else "I"
@@ -373,8 +474,8 @@ class _Printer:
         x, y = self._cast(a, k), self._cast(b, k)
         if op == "%":
             fn = "yt::i_mod" if k in "Ii" else "yt::f_mod"
-            return self._new(k, f"{fn}({x}, {y})")
-        return self._new(k, f"{x} {op} {y}")
+            return self._new(k, self._rounded(k, f"{fn}({x}, {y})"))
+        return self._new(k, self._rounded(k, f"{x} {op} {y}"))
 
     # -- nodes ------------------------------------------------------------
 
@@ -391,9 +492,13 @@ class _Printer:
             elif e.type == IndexType.DOMAIN:
                 r = (f"g[{self.slot_of[e.name]}]", "I")
             else:
-                raise YaskException(
-                    f"misc index '{e.name}' as a value is not emitted yet "
-                    "(ROADMAP.md A3)")
+                # the current equation's LHS binding; never memoized (the
+                # node recurs in sibling eqs with other bindings)
+                if e.name not in self.misc_env:
+                    raise YaskException(
+                        f"misc index '{e.name}' used as a value outside an "
+                        "equation that pins it on the LHS")
+                return (str(int(self.misc_env[e.name])), "i")
         elif isinstance(e, FirstIndexExpr):
             r = ("0", "i")
         elif isinstance(e, LastIndexExpr):
@@ -414,20 +519,28 @@ class _Printer:
             r = self._arith(op, a, ev(e.rhs))
         elif isinstance(e, FuncExpr):
             args = [ev(a) for a in e.args]
-            k = "d" if all(a[1] in "di" for a in args) else "R"
-            r = self._new(k, f"yt::f_{e.name}("
-                          + ", ".join(self._cast(a, k) for a in args) + ")")
+            kinds = [a[1] for a in args]
+            if all(k_ in "di" for k_ in kinds):
+                k = "d"
+            elif self.bf16:
+                k = self._kind_bf16(kinds + ["d"], "f")
+            else:
+                k = "R"
+            r = self._new(k, self._rounded(k, f"yt::f_{e.name}(" + ", ".join(
+                self._cast(a, k) for a in args) + ")"))
         elif isinstance(e, CompExpr):
             a = ev(e.lhs)
             b = ev(e.rhs)
             kinds = (a[1], b[1])
-            if "R" in kinds or ("I" in kinds and "d" in kinds):
+            if self.bf16:
+                k = self._kind_bf16(kinds, "cmp")
+            elif "R" in kinds or ("I" in kinds and "d" in kinds):
                 k = "R"
             elif "d" in kinds:
                 k = "d"
             else:
                 k = "i"
-            tensor = "R" in kinds or "I" in kinds
+            tensor = any(k_ in "RIF" for k_ in kinds)
             r = self._new("B" if tensor else "b",
                           f"{self._cast(a, k)} {e.op} {self._cast(b, k)}")
         elif isinstance(e, (AndExpr, OrExpr)):
@@ -446,17 +559,20 @@ class _Printer:
 
     def _read(self, p: VarPoint) -> Tuple[str, str]:
         name = p.var_name()
+        misc = _misc_key(p)
         g = self.prog.geoms[name]
         so = p.step_offset()
         offs = [0, 0, 0]
         for d, o in p.domain_offsets().items():
             offs[self.slot_of[d]] = o
         if g.is_scratch:
-            return self._new("R", self._computed_read(name, offs)[0])
+            return self._new("R", self._computed_read((name, misc),
+                                                      offs)[0])
         if g.has_step and g.is_written:
             s = so if so is not None else 0
             if s == self.ana.step_dir:
-                return self._new("R", self._computed_read(name, offs)[0])
+                return self._new("R", self._computed_read((name, misc),
+                                                          offs)[0])
             idx = g.num_slots - 1 + s * self.ana.step_dir
             if not 0 <= idx < g.num_slots:
                 raise YaskException(
@@ -464,28 +580,29 @@ class _Printer:
                     f"{g.alloc}")
         else:
             idx = 0
-        a = self.input_of(name, idx)
+        a = self.input_of(name, idx, misc)
         self._note_reach(a, offs)
-        return self._new("R", f"rd.template at<{a}>({offs[0]}, {offs[1]}, "
-                              f"{offs[2]})")
+        return self._new("R", self._wide(
+            f"rd.template at<{a}>({offs[0]}, {offs[1]}, {offs[2]})"))
 
-    def _computed_read(self, name: str, offs: List[int]) -> Tuple[str, str]:
-        """A read of this step's value of ``name`` (a scratch var, or a
-        written var at +step_dir): the tile of the newest earlier
+    def _computed_read(self, sk: Tuple, offs: List[int]) -> Tuple[str, str]:
+        """A read of this step's value of slice ``sk`` (a scratch var, or
+        a written var at +step_dir): the tile of the newest earlier
         sub-stage that writes it."""
-        w = self.earlier_writer(name)
-        if w is None or (name, w) not in self.cmp_of:
+        name = sk[0]
+        w = self.earlier_writer(sk)
+        if w is None or (sk, w) not in self.cmp_of:
             raise YaskException(
                 f"same-step read of '{name}' before a stage computed it")
-        b = self.cmp_of[(name, w)]
+        b = self.cmp_of[(sk, w)]
         lo, hi = self.cmp_geom[b]
         for s_, o in enumerate(offs):
             if self.lo[s_] - o > lo[s_] or self.hi[s_] + o > hi[s_]:
                 raise YaskException(
                     f"same-step read of '{name}' at offset {o} reaches past "
                     "its stage's computed region")
-        return (f"rd.template cmp<{b}>({offs[0]}, {offs[1]}, {offs[2]})",
-                "R")
+        return (self._wide(f"rd.template cmp<{b}>({offs[0]}, {offs[1]}, "
+                           f"{offs[2]})"), "R")
 
 
 def _masks(eq, scratch: bool) -> list:
@@ -503,12 +620,14 @@ def _stage_expansions(ana, slot_of) -> List[List[int]]:
     plus the read's width (a scratch eq's write halo included).  A chain
     of stages sums its read widths, as ``build_pallas_chunk`` shrinks its
     regions stage by stage; a stage that no later stage reads at an offset
-    is not grown (AWP's boundary stages read the stresses at the point)."""
-    writers: Dict[str, List[int]] = {}
+    is not grown (AWP's boundary stages read the stresses at the point).
+    Writes and reads are matched per slice (var, misc indices)."""
+    writers: Dict[Tuple, List[int]] = {}
     for k, stage in enumerate(ana.stages):
         for part in stage.parts:
             for eq in part.eqs:
-                w = writers.setdefault(eq.lhs.var_name(), [])
+                w = writers.setdefault((eq.lhs.var_name(),
+                                        _misc_key(eq.lhs)), [])
                 if k not in w:
                     w.append(k)
     expand = [[0, 0, 0] for _ in ana.stages]
@@ -521,12 +640,13 @@ def _stage_expansions(ana, slot_of) -> List[List[int]]:
                 pv = PointVisitor()
                 for e in [eq.rhs] + conds:
                     e.accept(pv)
-                reads = [(p.var_name(), p.domain_offsets(),
+                reads = [((p.var_name(), _misc_key(p)), p.domain_offsets(),
                           p.get_var().is_scratch()
                           or p.step_offset() == ana.step_dir)
                          for p in pv.points]
                 if conds:   # the base of a conditional rewrite
-                    reads.append((eq.lhs.var_name(), {}, True))
+                    reads.append(((eq.lhs.var_name(), _misc_key(eq.lhs)),
+                                  {}, True))
                 for name, offs, same_step in reads:
                     ks = [k for k in writers.get(name, []) if k < j]
                     if not same_step or not ks:
@@ -604,16 +724,18 @@ def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
 @dataclass
 class _Printed:
     """Every sub-stage of a solution printed: the printer (inputs, reach),
-    the outputs, and per sub-stage its statements and vars."""
+    the output tensors and the slices the point functions write, and per
+    sub-stage its statements and the slices it writes."""
     pr: "_Printer"
     slot_of: Dict[str, int]
     outputs: List[str]
+    slices: List[Tuple]
     stage_lines: List[List[str]]
-    stage_vars: List[List[str]]
+    stage_vars: List[List[Tuple]]
     computed: List[str]
     computed_sub: List[int]
     subs: List[_Sub]
-    last_writer: Dict[str, int]
+    last_writer: Dict[Tuple, int]
 
 
 def _check_applicable(program) -> None:
@@ -634,9 +756,13 @@ def _print(program, pushed) -> _Printed:
     subs = _sub_stages(ana, slot_of, _stage_expansions(ana, slot_of))
     single = len(subs) == 1     # K1's point function writes the outputs
     pr = _Printer(program, slot_of)
+
+    def key(p):
+        return (p.var_name(), _misc_key(p))
+
     for i, sub in enumerate(subs):
         for eq in sub.eqs:
-            w = pr.writers.setdefault(eq.lhs.var_name(), [])
+            w = pr.writers.setdefault(key(eq.lhs), [])
             if i not in w:
                 w.append(i)
     # which (var, writing sub-stage) pairs a later sub-stage reads: this
@@ -655,40 +781,51 @@ def _print(program, pushed) -> _Printed:
                 g = geoms[p.var_name()]
                 if g.is_scratch or (g.has_step and g.is_written
                                     and p.step_offset() == ana.step_dir):
-                    w = pr.earlier_writer(p.var_name())
+                    w = pr.earlier_writer(key(p))
                     if w is None:
                         raise YaskException(
                             f"same-step read of '{p.var_name()}' before a "
                             "stage computed it")
-                    need.add((p.var_name(), w))
-            w = pr.earlier_writer(eq.lhs.var_name())
+                    need.add((key(p), w))
+            w = pr.earlier_writer(key(eq.lhs))
             if _masks(eq, sub.scratch) and w is not None:
-                need.add((eq.lhs.var_name(), w))
+                need.add((key(eq.lhs), w))
     computed: List[str] = []
     computed_sub: List[int] = []
     for i, sub in enumerate(subs):
-        for name in dict.fromkeys(eq.lhs.var_name() for eq in sub.eqs):
-            if (name, i) in need:
-                pr.cmp_of[(name, i)] = len(computed)
+        for sk in dict.fromkeys(key(eq.lhs) for eq in sub.eqs):
+            if (sk, i) in need:
+                pr.cmp_of[(sk, i)] = len(computed)
                 pr.cmp_geom.append((sub.lo, sub.hi))
-                computed.append(name)
+                computed.append(sk[0])
                 computed_sub.append(i)
 
     outputs: List[str] = []
+    slices: List[Tuple] = []
     stage_lines: List[List[str]] = []
-    stage_vars: List[List[str]] = []
+    stage_vars: List[List[Tuple]] = []
     for i, sub in enumerate(subs):
         pr.begin_stage(i, sub.lo, sub.hi, sub.scratch)
-        names: List[str] = []
+        # a misc index used as a value binds per equation: no CSE across
+        # the sub-stage's equations (lowering.py's per-eq memo)
+        misc_vals = any(uses_misc_index(eq.rhs, eq.cond, eq.step_cond)
+                        for eq in sub.eqs)
+        names: List[Tuple] = []
         for eq in sub.eqs:
-            name = eq.lhs.var_name()
-            if name not in names:
-                names.append(name)
+            sk = key(eq.lhs)
+            name = sk[0]
+            pr.misc_env = eq.lhs.misc_vals()
+            if misc_vals:
+                pr.memo = {}
+            if sk not in names:
+                names.append(sk)
                 if not geoms[name].is_scratch and name not in pushed \
-                        and name not in outputs:
-                    outputs.append(name)
-            # one sub-stage writes its vars straight into the outputs
-            j = outputs.index(name) if single else names.index(name)
+                        and sk not in slices:
+                    slices.append(sk)
+                    if name not in outputs:
+                        outputs.append(name)
+            # one sub-stage writes its slices straight into the outputs
+            j = slices.index(sk) if single else names.index(sk)
             val = pr.ev(eq.rhs)
             sel = None
             for c in _masks(eq, sub.scratch):
@@ -703,32 +840,39 @@ def _print(program, pushed) -> _Printed:
                 if not any(ln.startswith(f"{_IND}out[{j}] = ")
                            for ln in pr.lines):
                     pr.lines.insert(0, f"{_IND}out[{j}] = "
-                                       f"{pr.base_read(name)};")
+                                       f"{pr.base_read(sk)};")
                 pr.lines.append(f"{_IND}if ({sel[0]}) out[{j}] = {v};")
-        # every written var must be set at every point: an unconditional
-        # eq or a base copy precedes any conditional one
-        for name in names:
-            j = outputs.index(name) if single else names.index(name)
+        # every written slice must be set at every point: an
+        # unconditional eq or a base copy precedes any conditional one
+        for sk in names:
+            j = slices.index(sk) if single else names.index(sk)
             if not any(ln.startswith(f"{_IND}out[{j}] = ")
                        for ln in pr.lines):
-                raise YaskException(f"output '{name}' is never assigned")
+                raise YaskException(f"output '{sk[0]}' is never assigned")
         stage_lines.append(pr.lines)
         stage_vars.append(names)
-    last = {n: w[-1] for n, w in pr.writers.items()}
-    return _Printed(pr, slot_of, outputs, stage_lines, stage_vars, computed,
-                    computed_sub, subs, last)
+    last = {sk: w[-1] for sk, w in pr.writers.items()}
+    return _Printed(pr, slot_of, outputs, slices, stage_lines, stage_vars,
+                    computed, computed_sub, subs, last)
 
 
 def _stream_plan(program, tiled, halos, esize):
     """The stream arm's plan for a single-stage solution, or None with
-    the reason code and detail.  It takes 3 domain dims and a staged input
-    (K1's ``tiled``) read at a slot-0 offset; its rings hold K1's staged
-    inputs with their halos and must fit :data:`SMEM_LIMIT`."""
+    the reason code and detail.  It takes 3 domain dims, written vars over
+    all of them without misc axes, and a staged input (K1's ``tiled``)
+    read at a slot-0 offset; its rings hold K1's staged inputs with their
+    halos and must fit :data:`SMEM_LIMIT`."""
     from yask_tpu_torch.ops.tile_planner import stream_plan
     dims = list(program.ana.domain_dims)
     if len(dims) != 3:
         return None, ("skew_ineligible", f"{len(dims)}-D solution: the "
                       "stream arm walks slot 0 of a 3-D domain")
+    arms = [a for a in a3_arms(program) if a != "element size 2"]
+    if arms:
+        return None, ("skew_ineligible", f"{' and '.join(arms)}: the "
+                      "stream arm writes every cell of whole output "
+                      "tensors (misc and partial-dim outputs in it are "
+                      "ROADMAP.md A5)")
     if not any(halos[a][0][0] or halos[a][0][1] for a in tiled):
         return None, ("skew_ineligible", "no staged input is read at a "
                       "slot-0 offset: there are no planes to carry")
@@ -818,13 +962,25 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     _check_applicable(program)
     pushed, push_reasons = resolve_push(program, push)
     pt = _print(program, pushed)
-    pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
+    pr, slot_of, outputs, slices = pt.pr, pt.slot_of, pt.outputs, pt.slices
     stage_lines, stage_vars = pt.stage_lines, pt.stage_vars
     computed, computed_sub, subs = pt.computed, pt.computed_sub, pt.subs
     dims = list(program.ana.domain_dims)
     nst = len(subs)
     full = set(dims)
     esize = np.dtype(program.dtype).itemsize
+    geoms = program.geoms
+    # misc slices and partial-dim outputs
+    out_slices = [(outputs.index(n), m) for n, m in slices]
+    base_outputs = []
+    for n in outputs:
+        g = geoms[n]
+        every = int(np.prod([g.misc_ext[d] for d, k in g.axes
+                             if k == "misc"]))
+        if sum(1 for m, _mk in slices if m == n) < every:
+            base_outputs.append(n)
+    slab = [sum(1 << s_ for d, s_ in slot_of.items()
+                if d not in geoms[n].domain_dims) for n, _m in slices]
     tiled = [a for a, (var, _s) in enumerate(pr.inputs)
              if set(program.geoms[var].domain_dims) == full
              and pr.tile_need[a]]
@@ -860,13 +1016,19 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
             f"{SMEM_LIMIT} bytes; a streamed arm that would fit is "
             "ROADMAP.md A5")
 
-    real_t = "float" if esize == 4 else "double"
+    real_t = {2: "yt::bf16_t", 4: "float", 8: "double"}[esize]
+    # the point functions' results: float at bfloat16
+    out_t = "float" if esize == 2 else "real_t"
     tabs = []
     offs = 0
     tile_off = []
     for a in tiled:
         tile_off.append(offs)
         offs += cells(tile, halos[a])
+    if any(slab):
+        # a partial-dim output: the used slots it lacks (only the blocks
+        # holding index 0 of each store its slab)
+        tabs.append(_table("out_slab", slab, "0"))
     tabs.append(_table("tiled_input", tiled))
     tabs.append(_table("tile_offset", tile_off, "0"))
     for s_ in range(3):
@@ -884,11 +1046,14 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         stream_enum = ""
         if plan is not None:
             # a ring per staged input: K1's tables give its halos
+            from yask_tpu_torch.ops.tile_planner import stream_row
             ring_off, o = [], 0
             for a in tiled:
                 ring_off.append(o)
                 o += plan.depths[a] * ((plan.tile[0] + sum(halos[a][1]))
-                                       * (plan.tile[1] + sum(halos[a][2])))
+                                       * stream_row(plan.tile[1]
+                                                    + sum(halos[a][2]),
+                                                    esize))
             tabs.append(_table("ring_depth", [plan.depths[a] for a in tiled],
                                "1"))
             tabs.append(_table("ring_offset", ring_off, "0"))
@@ -908,7 +1073,7 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
                            f"SQ = {plan.queue}, SMIN = {plan.per_sm}")
         stem = hashlib.sha256(
             ("\n".join(body) + repr((tiled, halos, tile, real_t,
-                                     len(pr.inputs), len(outputs)))
+                                     len(pr.inputs), len(slices)))
              + "\n".join(tabs) + stream_enum)
             .encode()).hexdigest()[:12]
         name = f"fused_step_{stem}"
@@ -921,13 +1086,13 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
 {'#include "stream_step.cuh"' + chr(10) if plan is not None else ''}
 struct Spec {{
     typedef {real_t} real_t;
-    enum {{ NIN = {len(pr.inputs)}, NOUT = {len(outputs)}, NTILED = {len(tiled)},
+    enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs}{stream_enum} }};
 {chr(10).join(tabs)}
 
     template <class RD>
     YT_HD static inline void point(const RD& rd, const int* g, const int* n,
-                                   const int t, real_t* out) {{
+                                   const int t, {out_t}* out) {{
         (void)g; (void)n; (void)t;
 {chr(10).join(body)}
     }}
@@ -943,7 +1108,9 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
                           outputs=outputs, tiled=tiled, tile=tile,
                           smem_bytes=offs * esize, halos=halos,
                           push_reasons=push_reasons, reach=reach,
-                          stream=plan, stream_cause=cause)
+                          stream=plan, stream_cause=cause,
+                          in_misc=list(pr.in_misc), out_slices=out_slices,
+                          base_outputs=base_outputs)
 
     # ---- K6: several sub-stages per launch ------------------------------
     in_elems = offs
@@ -972,10 +1139,10 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
     tabs.append(_table("cmp_sub", computed_sub, "0"))
     tabs.append(_table("stage_nv", [len(n) for n in stage_vars], "0"))
     tabs.append(_table2("stage_out", [
-        [outputs.index(n) if n in outputs and pt.last_writer[n] == i
-         else -1 for n in names] for i, names in enumerate(stage_vars)]))
+        [slices.index(sk) if sk in slices and pt.last_writer[sk] == i
+         else -1 for sk in names] for i, names in enumerate(stage_vars)]))
     tabs.append(_table2("stage_cmp", [
-        [pr.cmp_of.get((n, i), -1) for n in names]
+        [pr.cmp_of.get((sk, i), -1) for sk in names]
         for i, names in enumerate(stage_vars)]))
     stages_src = "\n".join(
         f"        if constexpr (K == {k}) {{\n"
@@ -984,7 +1151,7 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
     maxv = max(len(n) for n in stage_vars)
     struct = f"""struct Spec {{
     typedef {real_t} real_t;
-    enum {{ NIN = {len(pr.inputs)}, NOUT = {len(outputs)}, NTILED = {len(tiled)},
+    enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
            IN_ELEMS = {in_elems}, NSTAGES = {nst}, NCMP = {len(computed)},
            MAXV = {maxv} }};
@@ -992,7 +1159,7 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
 
     template <int K, class RD>
     YT_HD static inline void stage(const RD& rd, const int* g, const int* n,
-                                   const int t, real_t* out) {{
+                                   const int t, {out_t}* out) {{
         (void)rd; (void)g; (void)n; (void)t; (void)out;
 {stages_src}
     }}
@@ -1015,7 +1182,9 @@ YT_FUSED_STAGES_ENTRY({name}, Spec)
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,
                       scratch_stages=nscr,
-                      sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs])
+                      sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs],
+                      in_misc=list(pr.in_misc), out_slices=out_slices,
+                      base_outputs=base_outputs)
 
 
 # ==== K4: the trapezoid/diamond two-phase tiling =========================
@@ -1138,7 +1307,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
         if not any(v == w for v, _s in pr.inputs):
             nb[w] = 0
             continue
-        a0 = pr.in_index.get((w, 0))
+        a0 = pr.in_index.get((w, 0, ()))
         oldest_at_offset = a0 is not None and any(lo or hi
                                                   for lo, hi in pr.raw[a0])
         nb[w] = g.num_slots + (1 if oldest_at_offset else 0)
@@ -1369,7 +1538,9 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     Auto falls back and forced raises where the plan is infeasible: a
     block that does not divide the span or lies under the band floor,
     pads that do not hold the diamond windows, buffers that do not fit
-    shared memory, and (ROADMAP.md A12) multi-stage solutions."""
+    shared memory, and (ROADMAP.md A12) multi-stage solutions, scratch
+    vars and the A3 arms (misc dims, partial-dim writes, element size
+    2)."""
     from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
     if reasons is None:
         reasons = []
@@ -1398,6 +1569,11 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
         return infeasible(
             "scratch vars: the port's K4 has no scratch sub-stages "
             "(ROADMAP.md A12 (scratch K4)); K6 runs the group", elig)
+    arms = a3_arms(program)
+    if arms:
+        return infeasible(
+            f"{' and '.join(arms)}: the port's K4 has not been held against "
+            "them (ROADMAP.md A12 (A3 arms on K4)); K1 runs the group", elig)
     if forced:
         want = (list(elig) if trapezoid is True
                 else [d for d in lead if d in set(trapezoid)])

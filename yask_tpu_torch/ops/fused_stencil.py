@@ -86,6 +86,15 @@ wrapper with its own counter ``stream_step.launches``; the plain version
 is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
 arm and says why; ``-no-skew`` keeps K1.
 
+The misc, partial-dim and element-size-2 arms (ROADMAP.md A3) live in
+the emitted ``Spec`` and the headers; here a misc slice of an input or
+output is a table entry of its own (``_arg_tables``), a var whose misc
+slices are not all written starts from a copy of its evicted slot
+(:func:`copy_base`, counted in ``copy_base.launches``), and at element
+size 2 the stream arm checks the strides its pair copies need
+(:func:`check_pair_strides`).  K4, K5 (:func:`shard_step`) and K7
+(``batched_chunk`` on the card) refuse these arms.
+
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's first kernel that advances K time levels
 inside one launch.  :class:`TrapezoidKernel` holds the spec
@@ -142,12 +151,16 @@ def plain_chunk(program, state, t0: int, k: int):
     return state
 
 
-def _interior_ptr(t, g) -> int:
-    """Address of a state tensor's interior origin (pads skipped)."""
+def _interior_ptr(t, g, misc=()) -> int:
+    """Address of a state tensor's interior origin (pads skipped), in
+    the misc slice ``misc`` (``((dim, index), ...)``) of a var with misc
+    axes."""
     off = 0
     for ax, (dn, kind) in enumerate(g.axes):
         if kind == "domain":
             off += g.origin[dn] * t.stride(ax)
+    for dn, v in misc:
+        off += (v - g.misc_lo[dn]) * t.stride(g.axis_of(dn))
     return t.data_ptr() + off * t.element_size()
 
 
@@ -164,20 +177,25 @@ def _slot_strides(t, g, dims) -> List[int]:
 def _arg_tables(program, spec, ins, outs):
     """The ctypes arguments both entry points share: interior-origin
     addresses and per-slot strides of the inputs and outputs, and the
-    interior sizes per slot."""
+    interior sizes per slot.  A misc slice (``spec.in_misc``,
+    ``spec.out_slices``) is its tensor's own table entry."""
     dims = list(program.ana.domain_dims)
 
-    def table(tensors, names):
-        ptrs = [_interior_ptr(a, program.geoms[n])
-                for a, n in zip(tensors, names)]
+    def table(tensors, names, miscs):
+        ptrs = [_interior_ptr(a, program.geoms[n], m)
+                for a, n, m in zip(tensors, names, miscs)]
         strides = [s for a, n in zip(tensors, names)
                    for s in _slot_strides(a, program.geoms[n], dims)]
         k = max(len(ptrs), 1)
         return ((ctypes.c_void_p * k)(*ptrs),
                 (ctypes.c_longlong * (3 * k))(*strides))
 
-    in_ptrs, in_s = table(ins, [n for n, _s in spec.inputs])
-    out_ptrs, out_s = table(outs, spec.outputs)
+    in_ptrs, in_s = table(ins, [n for n, _s in spec.inputs],
+                          spec.in_misc or [()] * len(spec.inputs))
+    slices = spec.out_slices or [(i, ()) for i in range(len(outs))]
+    out_ptrs, out_s = table([outs[i] for i, _m in slices],
+                            [spec.outputs[i] for i, _m in slices],
+                            [m for _i, m in slices])
     sizes = [1, 1, 1]
     for i, d in enumerate(dims):
         sizes[3 - len(dims) + i] = program.sizes[d]
@@ -341,6 +359,28 @@ def _rotated(program, spec, state, outs):
     return new_state
 
 
+def copy_base(kernel: "FusedKernel", state, dev):
+    """The fresh zeroed output tensors of one sub-step, except that a var
+    some of whose misc slices no equation writes (``spec.base_outputs``)
+    starts from a device copy of its evicted slot, as the plain version's
+    new slot is the evicted one with the written slices replaced.  Counts
+    each copy in ``copy_base.launches``."""
+    import torch
+    prog = kernel.program
+    outs = []
+    for n in kernel.spec.outputs:
+        if n in kernel.spec.base_outputs:
+            outs.append(state[n][0].clone())
+            copy_base.launches += 1
+        else:
+            outs.append(torch.zeros(tuple(prog.geoms[n].shape),
+                                    dtype=kernel.dtype, device=dev))
+    return outs
+
+
+copy_base.launches = 0
+
+
 def _launch(kernel: "FusedKernel", state, t: int, what: str):
     """Launch one sub-step of the kernel's C entry point (K1's or K6's:
     they take the same arguments) on the current CUDA stream; returns the
@@ -350,8 +390,7 @@ def _launch(kernel: "FusedKernel", state, t: int, what: str):
     prog = kernel.program
     spec = kernel.spec
     ins, dev = _check_inputs(kernel, state)
-    outs = [torch.zeros(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
-                        device=dev) for n in spec.outputs]
+    outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
         rc = call_entry(kernel.fn, prog, spec, ins, outs, t,
                         torch.cuda.current_stream(dev).cuda_stream)
@@ -385,6 +424,22 @@ def stages_step(kernel: "FusedKernel", state, t: int):
 stages_step.launches = 0
 
 
+def check_pair_strides(program, spec, ins) -> None:
+    """Raise unless each input the stream arm stages has a unit minor
+    stride and even row and plane strides: at element size 2 it fills its
+    rings with 4-byte pairs, aligned alike in every row of a block (the
+    context plans an even padded minor extent at element size 2)."""
+    dims = list(program.ana.domain_dims)
+    for a in spec.tiled:
+        name = spec.inputs[a][0]
+        s0, s1, s2 = _slot_strides(ins[a], program.geoms[name], dims)
+        if s2 != 1 or s1 % 2 or s0 % 2:
+            raise YaskException(
+                f"stream_step at element size 2: staged input '{name}' has "
+                f"slot strides ({s0}, {s1}, {s2}); the pair copies need a "
+                "unit minor stride and even row and plane strides")
+
+
 def stream_step(kernel: "FusedKernel", state, t: int):
     """Launch one sub-step of K1's stream arm on the current CUDA stream;
     returns the new state (rings rotated).  The kernel writes every cell
@@ -394,6 +449,8 @@ def stream_step(kernel: "FusedKernel", state, t: int):
     prog = kernel.program
     spec = kernel.spec
     ins, dev = _check_inputs(kernel, state)
+    if kernel.dtype == torch.bfloat16:
+        check_pair_strides(prog, spec, ins)
     outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
                         device=dev) for n in spec.outputs]
     with torch.cuda.device(dev):
@@ -533,6 +590,10 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
         raise YaskException(
             f"K5 takes single-stage solutions; '{spec.name}' has "
             f"{spec.stages} stages (ROADMAP.md A11 (multi-stage K5))")
+    if kernel.a3_arms:
+        raise YaskException(
+            f"K5 has not been held against {' and '.join(kernel.a3_arms)} "
+            "(ROADMAP.md A11 (A3 arms on K5))")
     check_box(prog, spec, box)
     if dev.type == "cpu":
         return plain_shard_step(kernel, state, t, box, off, outs)
@@ -585,6 +646,9 @@ class FusedKernel:
                  max_skew_dims: int = 2):
         self.program = program
         self.spec = cuda_emit.emit(program, push)
+        #: the ROADMAP.md A3 arms the solution takes (K5 and K7 refuse
+        #: them)
+        self.a3_arms = cuda_emit.a3_arms(program)
         self.skew_reasons: List[Dict] = []
         self.skew_dims = cuda_emit.skew_engaged_dims(
             program, skew, max_skew_dims, self.skew_reasons, self.spec)
@@ -679,6 +743,11 @@ class FusedKernel:
                 f"solutions without scratch vars; this one runs "
                 f"{self.spec.stages} sub-stages on K6 (multi-stage and "
                 "scratch K7 are ROADMAP.md A9)")
+        if self.a3_arms:
+            raise YaskException(
+                f"fused kernel '{self.spec.name}': K7 has not been held "
+                f"against {' and '.join(self.a3_arms)} (ROADMAP.md A9 (A3 "
+                "arms on K7))")
         self.build()
         dirn = self.program.ana.step_dir
         for i in range(k):

@@ -343,6 +343,15 @@ def ring_depth(h0_lo: int, h0_hi: int, prefetch: int) -> int:
     return h0_lo + h0_hi + 2 + prefetch
 
 
+def stream_row(e2: int, esize: int) -> int:
+    """Elements of one ring row in shared memory for a plane row of
+    ``e2`` cells: ``e2`` at 4 and 8 bytes; at 2 bytes one more, rounded up
+    to even, so that the row can start at the 4-byte-aligned pair holding
+    its first cell (``cp.async`` copies 4, 8 or 16 bytes, so a bfloat16
+    ring is filled pair by pair)."""
+    return (e2 + 2) & ~1 if esize == 2 else e2
+
+
 def register_queue(threads: int, per_sm: int) -> int:
     """Depth of the register queue of same-point reads: values of the
     planes z .. z + depth - 1, loaded depth - 1 planes ahead.  3 where a
@@ -395,7 +404,8 @@ def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
             depths = {a: ring_depth(h[0][0], h[0][1], pf)
                       for a, h in halos.items()}
             cells = sum(depths[a] * (t1 + h[1][0] + h[1][1])
-                        * (t2 + h[2][0] + h[2][1]) for a, h in halos.items())
+                        * stream_row(t2 + h[2][0] + h[2][1], esize)
+                        for a, h in halos.items())
             if cells * esize > smem_limit:
                 continue
             nt = t1 * t2

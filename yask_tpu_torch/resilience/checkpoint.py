@@ -29,6 +29,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from yask_tpu_torch.compiler.lowering import dtype_name, host_dtype
 from yask_tpu_torch.resilience.faults import fault_point
 from yask_tpu_torch.runtime.var import _to_numpy
 
@@ -85,7 +86,7 @@ def extract_snapshot(ctx) -> Dict:
     meta = {
         "schema": CKPT_SCHEMA,
         "solution": ctx.get_name(),
-        "dtype": str(np.dtype(ctx._program.dtype).name),
+        "dtype": dtype_name(ctx._program.dtype),
         "domain": {d: int(gsz[d]) for d in ctx.get_domain_dim_names()},
         "rings": {},
         "axes": {},
@@ -120,7 +121,7 @@ def apply_snapshot(ctx, snap: Dict) -> bool:
         if meta.get("solution") != ctx.get_name():
             return False
         dtype = ctx._program.dtype
-        if meta.get("dtype") != str(np.dtype(dtype).name):
+        if meta.get("dtype") != dtype_name(dtype):
             return False
         gsz = ctx._opts.global_domain_sizes
         dom = meta.get("domain", {})
@@ -142,7 +143,7 @@ def apply_snapshot(ctx, snap: Dict) -> bool:
             slots = []
             for i in range(len(ring)):
                 a = np.asarray(state[name][i])
-                dst = np.zeros(tuple(g.shape), dtype=dtype)
+                dst = np.zeros(tuple(g.shape), dtype=host_dtype(dtype))
                 if a.shape != dst[idx].shape:
                     return False
                 dst[idx] = a

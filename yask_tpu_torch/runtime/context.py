@@ -406,10 +406,16 @@ class StencilContext:
                 need = trapezoid_pad_need(rad.get(d, 0), K)
                 extra[d] = tuple(max(e, need) for e in extra[d])
         self._plan_kwargs = dict(extra_pad=extra)
+        from yask_tpu_torch.compiler.lowering import is_bfloat16
+        if is_bfloat16(self._csol.dtype) and mode not in SHARD_MODES:
+            # an even padded minor extent: the stream arm fills its rings
+            # with aligned bfloat16 pairs (fused_stencil.check_pair_strides)
+            self._plan_kwargs["pad_multiple"] = {self._ana.domain_dims[-1]: 2}
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
         if mode in ("fused", "shard_pallas"):
-            from yask_tpu_torch.ops.cuda_emit import (fused_applicable,
+            from yask_tpu_torch.ops.cuda_emit import (a3_arms,
+                                                      fused_applicable,
                                                       has_scratch)
             ok, why = fused_applicable(prog)
             if not ok:
@@ -418,6 +424,16 @@ class StencilContext:
                 raise YaskException(
                     f"solution '{self.get_name()}' cannot use the {path}: "
                     f"{why}; use -mode {alt}")
+            arms = " and ".join(a3_arms(prog))
+            if arms and mode == "shard_pallas":
+                raise YaskException(
+                    f"solution '{self.get_name()}' has {arms}: K5 has not "
+                    "been held against them (ROADMAP.md A11 (A3 arms on "
+                    "K5)); use -mode shard_map")
+            if arms and self._opts.ensemble > 1:
+                raise YaskException(
+                    f"not ported yet: {arms} with -ensemble "
+                    f"{self._opts.ensemble}: ROADMAP.md A9 (A3 arms on K7)")
         if mode == "shard_pallas" and len(self._ana.stages) > 1:
             raise YaskException(
                 f"solution '{self.get_name()}' has {len(self._ana.stages)} "
@@ -504,10 +520,14 @@ class StencilContext:
                      for ax, s in enumerate(self._interior_idx(name)))
 
     def _put(self, arr: np.ndarray):
-        """A host array as a state array of this context's kind."""
+        """A host array as a state array of this context's kind (on the
+        host, bfloat16 values in float32)."""
+        from yask_tpu_torch.compiler.lowering import (NumpyOps, is_bfloat16,
+                                                      torch_dtype)
         if not self._state_on_device:
+            if is_bfloat16(self._program.dtype):
+                return NumpyOps().asdtype(arr, self._program.dtype)
             return arr
-        from yask_tpu_torch.compiler.lowering import torch_dtype
         import torch
         return torch.as_tensor(arr).to(
             device=self._device, dtype=torch_dtype(self._program.dtype))
@@ -544,7 +564,7 @@ class StencilContext:
             import torch
             values = torch.as_tensor(values).to(a.device)
         out[idx] = values
-        self._state[name][slot] = out
+        self._state[name][slot] = self._put(out) if xp is np else out
 
     def _state_to_host(self) -> None:
         if self._state_on_device:

@@ -574,9 +574,13 @@ class yk_var:
 
 def _to_numpy(a) -> np.ndarray:
     """A host numpy view/copy of a state array (tensor or numpy; a 0-dim
-    numpy array indexed by ``()`` is a numpy scalar)."""
+    numpy array indexed by ``()`` is a numpy scalar).  A bfloat16 tensor
+    widens to float32, which holds its values exactly."""
     if isinstance(a, (np.ndarray, np.generic)):
         return np.asarray(a)
+    import torch
+    if a.dtype == torch.bfloat16:
+        a = a.float()
     return a.detach().cpu().numpy()
 
 

@@ -6,7 +6,14 @@ so state crosses as interiors: per var, the list of ring slots
 axes first, then domain axes) cut to the interior.  ``yask_tpu``'s
 contexts hold the same layout, so a caller that reads their interiors
 (``np.asarray(ctx._state[name][slot])[interior]``) can hand them here
-unchanged — this module itself imports nothing of ``yask_tpu``.
+unchanged — this module itself imports nothing of ``yask_tpu``.  Misc
+axes cross at their full extent.
+
+At element size 2 the interiors cross as float32 arrays: export widens
+the bfloat16 state exactly, and import rounds to bfloat16, which keeps a
+bfloat16 value exactly.  A bfloat16 numpy array of another package is
+widened on import through its own ``astype``, so the port needs no
+bfloat16 numpy dtype.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ def import_interiors(ctx, interiors: Dict[str, List[np.ndarray]]) -> None:
         shape = ctx._interior_shape(name)
         for s, vals in enumerate(slots):
             vals = np.asarray(vals)
+            if vals.dtype.name == "bfloat16":
+                vals = vals.astype(np.float32)
+            elif not vals.flags.writeable:    # torch wants its own copy
+                vals = vals.copy()
             if vals.shape != shape:
                 raise YaskException(
                     f"var '{name}' slot {s}: interior shape {vals.shape}, "

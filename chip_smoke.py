@@ -162,7 +162,32 @@ script exits 0 only when all of them passed.  Phases:
    against its bound (each input slice read once, each output slice
    written once), the plain version's time, one chunk against it and the
    peak memory; and test_misc_2d at 2048² and partial_written at 512³
-   for one trial of 10 steps, timed the same way.
+   for one trial of 10 steps, timed the same way;
+11. the last A3 arms (ROADMAP.md A3): more than three domain dims on K1
+   and K6 (the outer dim folded into the grid, a read at an outer offset
+   an input of its own, K6's outer copies of the sub-stages a later
+   stage reads at outer offsets) and K6 at element size 2 (its staged,
+   stage and scratch tiles in bfloat16).  (a) On small ragged grids (three
+   tile boundaries per slot and a partial last tile; 5 in the outer dim)
+   test_4d (K1), ``four_d_stages`` (K6: a scratch var read at outer
+   offsets, a domain condition on the outer dim, a second stage reading
+   the first at outer offsets; built with the port's DSL) and, at element
+   size 2, tti r=2 (scratch), ssg (2 stages), awp (4 stages, rewrites) and
+   gaussian r=2 (misc): K ∈ {1, 2}, 5 steps, ``-mode fused`` against
+   ``-mode torch`` on CUDA tensors from one state seeded in a physical
+   range, 0 mismatches at ``field_epsilon`` 1e-4 (1e-2 at element size
+   2), the cells whose bits differ counted, the expected launches and no
+   other; (b) each against the numpy oracle at 24x24x25 (the 4-D ones at
+   12⁴) for 2 steps (``compare_data``'s defaults, (3e-2, 3e-2) at
+   element size 2); (c) at full width, each through the user's entry
+   points with 2 warm-up steps and the counters zeroed just before the
+   trials: test_4d at 128⁴ fp32 ``-wf_steps 2`` (K1; the stream arm
+   ``skew_ineligible``), 3 trials of 20 steps; four_d_stages at 128⁴ fp32
+   (K6), one trial of 10; tti r=2 at 512³ in bfloat16 ``-wf_steps 2``
+   (K6 with scratch sub-stages), 3 trials of 20, beside phase 9 (c)'s
+   fp32 tti of the same run and seed: ms/step, points/s, the kernel's ms
+   per launch against its bound, the plain version's time, one chunk
+   against it and the peak memory.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -1639,18 +1664,6 @@ def seed_physical(ctx, seed: int) -> None:
             v.set_elements_in_slice(vals, first, last)
 
 
-def family_ctx(fac, env, stencil, radius, sizes, mode, K=1):
-    """A context of ``stencil`` over ``sizes`` (per slot 0-2; a solution
-    of fewer dims takes the last slots), ``-mode mode -wf_steps K``."""
-    ctx = fac.new_solution(env, stencil=stencil, radius=radius)
-    dims = list(ctx._ana.domain_dims)
-    g = " ".join(f"-g_{d} {sizes[3 - len(dims) + i]}"
-                 for i, d in enumerate(dims))
-    ctx.apply_command_line_options(f"{g} -mode {mode} -wf_steps {K}")
-    ctx.prepare_solution()
-    return ctx
-
-
 def ragged_sizes(tile) -> tuple:
     """At least three tile boundaries per slot, and a partial last
     tile: 3 T + T/2 + 1 points (4 where T = 1)."""
@@ -1663,7 +1676,7 @@ def family_specs(fac, env) -> dict:
     from yask_tpu_torch.ops import fused_stencil
     out = {}
     for st, r in FAMILY_CASES:
-        ctx = family_ctx(fac, env, st, r, (16, 16, 16), "fused")
+        ctx = a3_ctx(fac, env, st, r, 4, (16, 16, 16), "fused")
         spec = fused_stencil.FusedKernel(ctx._program).spec
         out[f"{st} r={r}"] = spec
         if (st, r) in FULL_CASES:
@@ -1685,13 +1698,13 @@ def phase9a(fac, env, steps: int = 5) -> float:
     from yask_tpu_torch.ops import cuda_emit
     worst = 0.0
     for st, r in FAMILY_CASES:
-        probe = family_ctx(fac, env, st, r, (16, 16, 16), "torch")
+        probe = a3_ctx(fac, env, st, r, 4, (16, 16, 16), "torch")
         tile = cuda_emit.emit(probe._program).tile
         sizes = ragged_sizes(tile)
         del probe
         for K in (1, 2):
-            fused = family_ctx(fac, env, st, r, sizes, "fused", K)
-            plain = family_ctx(fac, env, st, r, sizes, "torch", K)
+            fused = a3_ctx(fac, env, st, r, 4, sizes, "fused", K)
+            plain = a3_ctx(fac, env, st, r, 4, sizes, "torch", K)
             for c in (fused, plain):
                 seed_physical(c, 5)
             zero_launch_counts()
@@ -1725,8 +1738,8 @@ def phase9a(fac, env, steps: int = 5) -> float:
 def phase9b(fac, env, g: int = 32) -> None:
     """Phase 9 (b): tti and awp against the numpy oracle."""
     for st, r in (("tti", 2), ("awp", None)):
-        fused = family_ctx(fac, env, st, r, (g, g, g), "fused", 2)
-        ref = family_ctx(fac, env, st, r, (g, g, g), "ref")
+        fused = a3_ctx(fac, env, st, r, 4, (g, g, g), "fused", 2)
+        ref = a3_ctx(fac, env, st, r, 4, (g, g, g), "ref")
         for c in (fused, ref):
             seed_physical(c, 9)
         fused.run_solution(0, 1)
@@ -1749,7 +1762,7 @@ def live_inputs(fac, env, st: str, r, g: int = 20) -> list:
     rewrites)."""
     import torch
     from yask_tpu_torch.ops.fused_stencil import FusedKernel, plain_chunk
-    ctx = family_ctx(fac, env, st, r, (g, g, g), "fused")
+    ctx = a3_ctx(fac, env, st, r, 4, (g, g, g), "fused")
     seed_physical(ctx, 13)
     prog, spec = ctx._program, FusedKernel(ctx._program).spec
 
@@ -1813,10 +1826,12 @@ def tile_kernel(program, push, tile):
 
 
 def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
-                warm: int = 2, trials: int = 3, steps: int = 20) -> dict:
-    """Phase 9 (c): ``st`` at ``g``³ fp32 ``-mode fused -wf_steps 2``
-    through the user's entry points; returns the arm's ``kernels``
-    entry."""
+                warm: int = 2, trials: int = 3, steps: int = 20,
+                eb: int = 4, sweep: bool = True) -> dict:
+    """Phase 9 (c), and phase 11 (c) at element size ``eb`` = 2: ``st``
+    at ``g``³ ``-mode fused -wf_steps 2`` through the user's entry
+    points; with ``sweep``, K6 at the ladder's next smaller tiles too;
+    returns the arm's ``kernels`` entry."""
     import torch
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
     npts = g ** 3
@@ -1824,8 +1839,11 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ctx = family_ctx(fac, env, st, r, (g, g, g), "fused", 2)
+    ctx = a3_ctx(fac, env, st, r, eb, (g, g, g), "fused", 2)
     seed_physical(ctx, 11)
+    dt = "bf16" if eb == 2 else "fp32"
+    what = f"{st} r={r} {g}^3 {dt} ({arm})"
+    eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
     state_bytes = sum(a.numel() * a.element_size()
                       for ring in ctx._state.values() for a in ring)
     seed_s = time.perf_counter() - t0
@@ -1842,11 +1860,10 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     got = {k: v for k, v in launch_counts().items() if v}
     til = ctx.get_stats().get_tiling()
     if got != {"stages_step": trials * steps}:
-        raise RuntimeError(f"phase 9: {st} at {g}^3: launches {got}, "
-                           f"expected {trials * steps} of stages_step")
+        raise RuntimeError(f"{what}: launches {got}, expected "
+                           f"{trials * steps} of stages_step")
     if not finite(ctx):
-        raise RuntimeError(f"phase 9: {st} at {g}^3: the state is not "
-                           "finite")
+        raise RuntimeError(f"{what}: the state is not finite")
     rates.sort()
     mid = rates[len(rates) // 2]
     step_ms = npts / mid * 1e3
@@ -1866,33 +1883,32 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     err, nbits, scale = 0.0, 0, 0.0
     for n in kern.spec.outputs:
         for x, y in zip(a[n][-2:], b[n][-2:]):
-            err = max(err, float((x - y).abs().max()))
+            err = max(err, float((x.float() - y.float()).abs().max()))
             nbits += int((x != y).sum())
-            scale = max(scale, float(y.abs().max()))
+            scale = max(scale, float(y.float().abs().max()))
     del b
     staged, computed = cells_per_point(kern.spec)
     # the same sub-step at the ladder's smaller tiles: how the launch time
     # follows the staged and computed cells per point; each gives K6's bits
-    sweep = []
-    for tile in ladder_below(kern.spec.tile):
+    rows = []
+    for tile in ladder_below(kern.spec.tile) if sweep else []:
         var = tile_kernel(prog, ctx._push_arg(), tile)
         c = var.chunk(dict(state), t, 2)
         same = all(torch.equal(x, y) for n in kern.spec.outputs
                    for x, y in zip(a[n][-2:], c[n][-2:]))
         del c
         if not same:
-            raise RuntimeError(f"phase 9: {st}: K6 at tile {list(tile)} "
-                               "gives other bits than at its own tile")
+            raise RuntimeError(f"{what}: K6 at tile {list(tile)} gives "
+                               "other bits than at its own tile")
         v_staged, v_computed = cells_per_point(var.spec)
-        sweep.append({"tile": list(tile),
+        rows.append({"tile": list(tile),
                       "ms": cuda_ms(lambda: stages_step(var, state, t), 5),
                       "smem_bytes": var.spec.smem_bytes,
                       "staged_cells_per_point": v_staged,
                       "computed_cells_per_point": v_computed})
         del var
     del a
-    log(f"phase 9: {st} r={r} {g}^3 fp32 -mode fused -wf_steps 2 ({arm}): "
-        f"state {state_bytes / 2**30:.2f} GiB ({state_bytes} B, seeded in "
+    log(f"{what} -mode fused -wf_steps 2: state {state_bytes / 2**30:.2f} GiB ({state_bytes} B, seeded in "
         f"{seed_s:.1f} s); {trials} trials x {steps} steps: "
         f"{step_ms:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, max "
         f"{npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; launches "
@@ -1913,17 +1929,16 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
         f"{nbits} cells differ in their bits; "
         f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
         f"[{card}]")
-    for v in sweep:
-        log(f"phase 9: {st} r={r} {g}^3: K6 at tile {v['tile']} "
+    for v in rows:
+        log(f"{what}: K6 at tile {v['tile']} "
             f"({v['smem_bytes']} B): {v['ms']:.3f} ms/launch (CUDA events; "
             f"{ms:.3f} at its own tile {list(kern.spec.tile)}), "
             f"{v['staged_cells_per_point']:.2f} staged cells per point, "
             f"computed per sub-stage "
             f"{[round(x, 2) for x in v['computed_cells_per_point']]}; the "
             f"same bits [{card}]")
-    if not err <= FIELD_EPS * scale:
-        raise RuntimeError(f"phase 9: {st}: K6 and its plain version "
-                           f"disagree at {g}^3")
+    if not err <= eps * scale:
+        raise RuntimeError(f"{what}: K6 and its plain version disagree")
     del ctx, kern, state
     torch.cuda.empty_cache()
     return {"name": f"stages_step ({arm})", "route": "cuda",
@@ -1931,10 +1946,10 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
             "launches": got["stages_step"], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
-            "per": f"launch, {st} r={r} {g}^3 fp32",
+            "per": f"launch, {st} r={r} {g}^3 {dt}",
             "step_ms": step_ms, "bytes_per_point": nbytes / npts,
             "state_bytes": state_bytes, "staged_cells_per_point": staged,
-            "computed_cells_per_point": computed, "tile_sweep": sweep}
+            "computed_cells_per_point": computed, "tile_sweep": rows}
 
 
 def phase9(fac, env, card: str, full: int = 512) -> list:
@@ -2017,20 +2032,50 @@ def partial_solution(name: str):
     return soln
 
 
+def four_d_stages(name: str = "four_d_stages"):
+    """Phase 11's 4-D solution on K6 in the port's DSL (the one
+    ``tests/test_torch_4d.py`` holds against ``yask_tpu``): a scratch var
+    ``s`` read at outer offsets (w ± 1) by a conditional write of ``a``
+    whose domain condition takes the outer dim, and a second stage ``b``
+    reading this step's ``a`` at outer offsets."""
+    from yask_tpu_torch.compiler.solution import yc_factory
+    soln = yc_factory().new_solution(name)
+    t = soln.new_step_index("t")
+    w, x, y, z = (soln.new_domain_index(d) for d in "wxyz")
+    a = soln.new_var("a", [t, w, x, y, z])
+    b = soln.new_var("b", [t, w, x, y, z])
+    c = soln.new_var("c", [w, x, y, z])
+    s = soln.new_scratch_var("s", [w, x, y, z])
+    s(w, x, y, z).EQUALS(a(t, w, x, y, z) * c(w, x, y, z)
+                         + a(t, w - 1, x, y, z) * 0.25
+                         + a(t, w, x, y + 1, z) * 0.125)
+    a(t + 1, w, x, y, z).EQUALS(
+        a(t, w, x, y, z) * 0.5
+        + (s(w + 1, x, y, z) + s(w, x - 1, y, z) + s(w - 1, x, y, z + 1))
+        * 0.1).IF_DOMAIN((w > 1) | (x < 3))
+    b(t + 1, w, x, y, z).EQUALS(b(t, w, x, y, z) * 0.5
+                                + a(t + 1, w - 1, x, y + 1, z) * 0.2
+                                + a(t + 1, w + 1, x + 1, y, z) * 0.1)
+    return soln
+
+
 def a3_ctx(fac, env, stencil, radius, eb, sizes, mode, K=1, cli=""):
-    """A context of a phase-10 case over ``sizes`` (per slot 0-2; fewer
-    dims take the last slots) at element size ``eb``."""
+    """A context of ``stencil`` over ``sizes`` (per slot 0-2, fewer dims
+    taking the last slots; or one per domain dim in solution order) at
+    element size ``eb``, ``-mode mode -wf_steps K``."""
     from yask_tpu_torch.compiler.solution_base import create_solution
-    if stencil.startswith(("partial_", "scratch_partial")):
-        src = partial_solution(stencil)
+    if stencil.startswith(("partial_", "scratch_partial", "four_d_")):
+        src = (four_d_stages(stencil) if stencil.startswith("four_d_")
+               else partial_solution(stencil))
         src.set_element_bytes(eb)
     else:
         src = create_solution(stencil, radius=radius)
         src.get_soln().set_element_bytes(eb)
     ctx = fac.new_solution(env, src)
     dims = list(ctx._ana.domain_dims)
-    g = " ".join(f"-g_{d} {sizes[3 - len(dims) + i]}"
-                 for i, d in enumerate(dims))
+    if len(sizes) != len(dims):
+        sizes = sizes[3 - len(dims):]
+    g = " ".join(f"-g_{d} {n}" for d, n in zip(dims, sizes))
     ctx.apply_command_line_options(f"{g} -mode {mode} -wf_steps {K} {cli}")
     ctx.prepare_solution()
     return ctx
@@ -2178,8 +2223,11 @@ def a3_bound(ctx) -> tuple:
             c *= prog.sizes[d]
         return c
     nslices = spec.out_slices or [(i, ()) for i in range(len(spec.outputs))]
+    # an input read at an outer offset is the same array: counted once
+    arrays = {(n, s, m) for (n, s), m in
+              zip(spec.inputs, spec.in_misc or [()] * len(spec.inputs))}
     nbytes = np.dtype(prog.dtype).itemsize * (
-        sum(cells(n) for n, _s in spec.inputs)
+        sum(cells(n) for n, _s, _m in arrays)
         + sum(cells(spec.outputs[i]) for i, _m in nslices))
     npts = 1
     for d in prog.ana.domain_dims:
@@ -2193,12 +2241,13 @@ def a3_bound(ctx) -> tuple:
 def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
             K: int = 2, warm: int = 2, trials: int = 3, steps: int = 20,
             cli: str = "") -> dict:
-    """Phase 10 (c): one case at full width through the user's entry
-    points (``-mode fused -wf_steps K``): warm-up, then ``trials`` runs of
-    ``steps`` steps with every counter zeroed just before; the arm's ms
-    per launch against its bound, its plain version's time and one chunk
-    against it, from :func:`seed_device`'s state.  Returns the ``kernels``
-    entry, with the context under ``ctx``."""
+    """Phase 10 (c) and phase 11 (c): one case at full width through the
+    user's entry points (``-mode fused -wf_steps K``): warm-up, then
+    ``trials`` runs of ``steps`` steps with every counter zeroed just
+    before; the arm's ms per launch against its bound, its plain
+    version's time and one chunk against it, from :func:`seed_device`'s
+    state.  Returns the ``kernels`` entry, with the context under
+    ``ctx``."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     torch.cuda.empty_cache()
@@ -2224,10 +2273,9 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
     got = {k: v for k, v in launch_counts().items() if v}
     want = expected_launches(ctx, arm, trials * steps)
     if got != want:
-        raise RuntimeError(f"phase 10: {label}: launches {got}, expected "
-                           f"{want}")
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
     if not finite(ctx):
-        raise RuntimeError(f"phase 10: {label}: the state is not finite")
+        raise RuntimeError(f"{label}: the state is not finite")
     rates.sort()
     mid = rates[len(rates) // 2]
     step_ms = npts / mid * 1e3
@@ -2247,7 +2295,7 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
             scale = max(scale, float(y.float().abs().max()))
     del a, b
     eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
-    log(f"phase 10: {label}: {'x'.join(map(str, sizes))} ({eb} B) -mode "
+    log(f"{label}: {'x'.join(map(str, sizes))} ({eb} B) -mode "
         f"fused -wf_steps {K} {cli}: seeded on the card in {seed_s:.1f} s; "
         f"{trials} trials x {steps} steps: {step_ms:.3f} ms/step (min "
         f"{npts / rates[-1] * 1e3:.3f}, max {npts / rates[0] * 1e3:.3f}), "
@@ -2261,8 +2309,8 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
         f"differ in their bits; torch.cuda.max_memory_allocated() = "
         f"{peak / 2**30:.2f} GiB [{card}]")
     if not err <= eps * scale:
-        raise RuntimeError(f"phase 10: {label}: {arm} and its plain "
-                           "version disagree")
+        raise RuntimeError(f"{label}: {arm} and its plain version "
+                           "disagree")
     return {"name": f"{arm} ({label.split(': ')[0]})", "route": "cuda",
             "launches": got[arm], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2387,6 +2435,172 @@ def phase10(fac, env, card: str, image: int = 8192, full: int = 512,
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
+# ---- phase 11: the last A3 arms: 4-D on K1 and K6, K6 at element size 2
+
+#: Phase 11 (a) and (b): (case, radius, element bytes, the arm).  The 4-D
+#: K6 solution is built with the port's DSL (:func:`four_d_stages`).
+A3B_CASES = (("test_4d", None, 4, "fused_step"),
+             ("four_d_stages", None, 4, "stages_step"),
+             ("tti", 2, 2, "stages_step"),
+             ("ssg", 2, 2, "stages_step"),
+             ("awp", None, 2, "stages_step"),
+             ("gaussian", 2, 2, "stages_step"))
+#: the outer dim's extent in phase 11 (a)'s ragged 4-D grids
+OUTER_RAGGED = 5
+
+
+def a3b_sizes(fac, env, st, r, eb) -> tuple:
+    """Phase 11 (a)'s ragged grid for a case: :func:`ragged_sizes` of its
+    emitted tile in the three slots, the outer dim of a 4-D solution
+    :data:`OUTER_RAGGED` first."""
+    from yask_tpu_torch.ops import cuda_emit
+    nd = 4 if st in ("test_4d", "four_d_stages") else 3
+    probe = a3_ctx(fac, env, st, r, eb, (4, 16, 16, 70)[4 - nd:], "torch")
+    sizes = ragged_sizes(cuda_emit.emit(probe._program).tile)
+    return ((OUTER_RAGGED,) + sizes) if nd == 4 else sizes
+
+
+def a3b_specs(fac, env) -> dict:
+    """Phase 11's kernels, for phase 1's parallel build (the sources do
+    not depend on the domain size)."""
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for st, r, eb, _arm in A3B_CASES:
+        ctx = a3_ctx(fac, env, st, r, eb, (4, 16, 16, 70), "fused")
+        out[f"{st} r={r} {eb} B"] = fused_stencil.FusedKernel(
+            ctx._program).spec
+    return out
+
+
+def seed_case(ctx, seed: int) -> None:
+    """Phase 11's seeding: :func:`seed_physical`, or :func:`seed_interiors`
+    for a solution with misc axes (which ``seed_physical``'s slices of
+    the domain dims do not cover)."""
+    if any(k == "misc" for g in ctx._program.geoms.values()
+           for _d, k in g.axes):
+        seed_interiors(ctx, seed)
+    else:
+        seed_physical(ctx, seed)
+
+
+def phase11a(fac, env, steps: int = 5) -> dict:
+    """Phase 11 (a): each case against its plain version on CUDA tensors
+    from one state seeded in a physical range (:func:`seed_case`),
+    K ∈ {1, 2}; returns the largest |Δ| per case."""
+    worst: dict = {}
+    for st, r, eb, arm in A3B_CASES:
+        sizes = a3b_sizes(fac, env, st, r, eb)
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        for K in (1, 2):
+            plain = a3_ctx(fac, env, st, r, eb, sizes, "torch", K)
+            fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", K)
+            for c in (plain, fused):
+                seed_case(c, 5)
+            plain.run_solution(0, steps - 1)
+            zero_launch_counts()
+            fused.run_solution(0, steps - 1)
+            got = {k: v for k, v in launch_counts().items() if v}
+            want = expected_launches(fused, arm, steps)
+            til = fused.get_stats().get_tiling()
+            d, nbits = device_diff(fused, plain, exact=True)
+            bad = fused.compare_data(plain, field_epsilon=eps)
+            worst[st] = max(worst.get(st, 0.0), d)
+            log(f"phase 11: {st} r={r} {eb} B {'x'.join(map(str, sizes))} "
+                f"K={K} {steps} steps: {arm} ({til['stages']} sub-stages, "
+                f"tile {til['tile']}, smem {til['smem_bytes']} B) vs plain "
+                f"(-mode torch on the card): max|d|={d:.3e}, {nbits} cells "
+                f"differ in their bits, mismatches={bad} (field_epsilon="
+                f"{eps}); launches {got}")
+            if not (finite(fused) and finite(plain)):
+                raise RuntimeError(f"phase 11: {st} K={K}: the state is not "
+                                   "finite")
+            if bad:
+                raise RuntimeError(f"phase 11: {st} K={K}: {bad} mismatches")
+            if got != want:
+                raise RuntimeError(f"phase 11: {st} K={K}: launches {got}, "
+                                   f"expected {want}")
+            del plain, fused
+    return worst
+
+
+def phase11b(fac, env, g: int = 24, g4: int = 12) -> None:
+    """Phase 11 (b): each case against the numpy oracle for 2 steps, at
+    ``g``x``g``x``g + 1`` (4-D: ``g4`` in every dim)."""
+    for st, r, eb, _arm in A3B_CASES:
+        sizes = ((g4,) * 4 if st in ("test_4d", "four_d_stages")
+                 else (g, g, g + 1))
+        eps = ((BF16_ORACLE_EPS, BF16_ORACLE_EPS) if eb == 2
+               else (1e-4, 1e-7))
+        fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2)
+        ref = a3_ctx(fac, env, st, r, eb, sizes, "ref")
+        for c in (fused, ref):
+            seed_case(c, 9)
+        fused.run_solution(0, 1)
+        ref.run_solution(0, 1)
+        bad = fused.compare_data(ref, *eps)
+        log(f"phase 11: {st} r={r} {eb} B {'x'.join(map(str, sizes))} 2 "
+            f"steps: fused vs ref (numpy oracle) max|d|="
+            f"{max_abs_diff(fused, ref):.3e}, mismatches={bad} (epsilon, "
+            f"abs_epsilon = {eps})")
+        if bad:
+            raise RuntimeError(f"phase 11: {st} {eb} B: {bad} mismatches "
+                               "against the oracle")
+
+
+def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
+            full: int = 512) -> list:
+    """The 4-D arms of K1 and K6 and K6 at element size 2 (see the module
+    docstring); ``tti32`` is phase 9 (c)'s fp32 tti entry from the same
+    run, the yardstick of the bf16 one.  Returns the ``kernels``
+    entries."""
+    import torch
+    t_phase = time.perf_counter()
+    worst = phase11a(fac, env)
+    phase11b(fac, env)
+    k1 = a3_full(fac, env, card, "test_4d", None, 4, (full4,) * 4,
+                 "fused_step", f"4-D arm of K1: test_4d {full4}^4 fp32")
+    til = k1["ctx"].get_stats().get_tiling()
+    log(f"phase 11: test_4d {full4}^4: tiling {til['kernel']}, tile "
+        f"{til['tile']}, smem {til['smem_bytes']} B; the stream arm: "
+        f"{sorted({x['code'] for x in til['skew_reasons']})} "
+        f"({til['skew_reasons'][0]['detail']})")
+    if til["kernel"] != "fused_step" or any(
+            x["code"] != "skew_ineligible" for x in til["skew_reasons"]):
+        raise RuntimeError("phase 11: test_4d did not run on K1 with the "
+                           "stream arm ineligible")
+    k1.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+              replaces="yask_tpu/ops/pallas_stencil.py:1442 (the grid over "
+                       "every lead dim; test_4d in tests/test_pallas.py:"
+                       "135)", path="phase 11 (c), test_4d")
+    del k1["ctx"]
+    torch.cuda.empty_cache()
+    k6 = a3_full(fac, env, card, "four_d_stages", None, 4, (full4,) * 4,
+                 "stages_step", f"4-D arm of K6: four_d_stages {full4}^4 "
+                 "fp32", trials=1, steps=10)
+    k6.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+              replaces="yask_tpu/ops/pallas_stencil.py:1442 (the grid over "
+                       "every lead dim) with the stage loop :2058-2188",
+              path="phase 11 (c), four_d_stages (one trial of 10 steps)")
+    del k6["ctx"]
+    torch.cuda.empty_cache()
+    bf = family_full(fac, env, card, "tti", 2, "element size 2", full,
+                     eb=2, sweep=False)
+    log(f"phase 11: tti r=2 {full}^3: bf16 {bf['ms']:.3f} ms/launch, "
+        f"{bf['step_ms']:.3f} ms/step against fp32's {tti32['ms']:.3f} "
+        f"ms/launch, {tti32['step_ms']:.3f} ms/step (phase 9 (c) of this "
+        f"run, the same seed): {tti32['ms'] / bf['ms']:.3f}x; bound "
+        f"{bf['bound_ms']:.3f} against {tti32['bound_ms']:.3f} ms [{card}]")
+    bf.update(replaces="yask_tpu/ops/pallas_stencil.py:2058 (the stage "
+                       "loop :2058-2188 with its VMEM tiles in the program "
+                       "dtype :2264-2289)",
+              path="phase 11 (c), tti r=2 bf16",
+              fp32_ms=tti32["ms"], fp32_step_ms=tti32["step_ms"])
+    entries = [k1, k6, bf]
+    for e, st in zip(entries, ("test_4d", "four_d_stages", "tti")):
+        e["max_abs_err"] = max(e["max_abs_err"], worst.get(st, 0.0))
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
 
 def main() -> int:
     import torch
@@ -2434,6 +2648,7 @@ def main() -> int:
     specs.update(shard_specs(fac))
     specs.update(family_specs(fac, env))
     specs.update(a3_specs(fac, env))
+    specs.update(a3b_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -2443,7 +2658,8 @@ def main() -> int:
                    f"diamond_kernel per dim; passes "
                    f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
                    if s.trap else
-                   f"entries {s.name} (K1), _batched (K7), _region (K5)"
+                   f"entries {s.name} (K1)"
+                   + ("" if s.outer else ", _batched (K7), _region (K5)")
                    + (f", _stream (stream arm: {s.stream.record()})"
                       if s.stream is not None else "")
                    if s.stages == 1 else
@@ -2470,11 +2686,13 @@ def main() -> int:
     k6_arms = phase9(fac, env, card)
     torch.cuda.empty_cache()
     a3_arms = phase10(fac, env, card)
+    torch.cuda.empty_cache()
+    last_arms = phase11(fac, env, card, k6_arms[0])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
-                      + k6_arms + a3_arms}))
+                      + k6_arms + a3_arms + last_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

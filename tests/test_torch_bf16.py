@@ -336,15 +336,25 @@ def test_pair_copies_need_even_row_strides():
 
 
 def test_bf16_on_k6_refuses_naming_its_item():
+    """What K6 refused before its element-size-2 arm ("element size 2 on
+    K6", no longer raised anywhere): tti r=2 in bfloat16 prepares under
+    ``-mode fused`` and runs on K6 (its plain version on CPU tensors),
+    bit-equal to ``-mode torch`` from the same state."""
     fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(device="cpu"),
-                           bf16_source("yask_tpu_torch", "tti", 2))
-    ctx.apply_command_line_options("-g 12 -mode fused")
-    with pytest.raises(YaskException, match="element size 2 on K6"):
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = fac.new_solution(fac.new_env(device="cpu"),
+                               bf16_source("yask_tpu_torch", "tti", 2))
+        ctx.apply_command_line_options(f"-g 12 -mode {mode}")
         ctx.prepare_solution()
-    ctx.get_settings().mode = "torch"
-    ctx.prepare_solution()
-    ctx.run_solution(0, 0)
+        import_interiors(ctx, seeded_interiors(ctx, 4))
+        ctx.run_solution(0, 1)
+        ctxs[mode] = ctx
+    assert cuda_emit.fused_applicable(ctxs["fused"]._program) == (True, "ok")
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
+    til = ctxs["fused"].get_stats().get_tiling()
+    assert til["kernel"] == "stages_step" and til["scratch_stages"] > 0
 
 
 def test_bf16_refuses_k5_k7_and_falls_back_from_k4():

@@ -291,20 +291,43 @@ def _bf16():
     return s
 
 
-@pytest.mark.parametrize("build,why", [
+@pytest.mark.parametrize("build,refusal", [
     (_four_d, "4-D.*ROADMAP.md A3 \\(4-D\\)"),
     (_bf16, "element size 2.*ROADMAP.md A3 \\(element size 2 on K6\\)")])
-def test_fused_mode_refuses_what_the_emitter_does_not_take(build, why):
+def test_fused_mode_refuses_what_the_emitter_does_not_take(build, refusal,
+                                                           tmp_path):
+    """What the emitter refused before its 4-D arm and K6's element-size-2
+    arm (``refusal``, the message these cases pinned then): ``-mode
+    fused`` prepares and runs it (K1 for the 4-D solution, K6 for the
+    bfloat16 one with a scratch var), bit-equal to ``-mode torch`` from
+    the same state, and the emitted source built by g++ gives the plain
+    version's bits."""
+    import re
+    import torch
     fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(device="cpu"), build())
-    ctx.apply_command_line_options(
-        f"-g {6 if build is _four_d else 16} -mode fused")
-    with pytest.raises(YaskException, match=why):
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = fac.new_solution(fac.new_env(device="cpu"), build())
+        ctx.apply_command_line_options(
+            f"-g {6 if build is _four_d else 16} -mode {mode} -wf_steps 2")
         ctx.prepare_solution()
-    # the same solution still runs on the torch path
-    ctx.get_settings().mode = "torch"
-    ctx.prepare_solution()
-    ctx.run_solution(0, 1)
+        import_interiors(ctx, seeded_interiors(ctx, 8))
+        ctxs[mode] = ctx
+    prog = ctxs["fused"]._program
+    ok, why = cuda_emit.fused_applicable(prog)
+    assert ok and not re.search(refusal, why)
+    spec = cuda_emit.emit(prog)
+    fn = host_kernel(spec, tmp_path)
+    got = host_launch(fn, prog, spec, ctxs["fused"]._state, 0)
+    want = prog.step(ctxs["fused"]._state, 0)
+    assert torch.equal(got["a"], want["a"][-1])
+    for ctx in ctxs.values():
+        ctx.run_solution(0, 2)
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
+    til = ctxs["fused"].get_stats().get_tiling()
+    assert til["kernel"] == ("fused_step" if build is _four_d
+                             else "stages_step")
 
 
 def test_fused_mode_runs_a_misc_only_var(tmp_path):

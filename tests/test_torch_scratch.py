@@ -316,16 +316,30 @@ def _a3_ctx(fac, case):
     ("tti_bf16", "element size 2.*ROADMAP.md A3 \\(element size 2 on "
                  "K6\\)")])
 def test_remaining_refusals_name_a3(case, why):
+    """The last A3 refusals (``why``, the message each case pinned before
+    its arm was ported) are gone: ``-mode fused`` runs test_4d on K1 and
+    tti in bfloat16 on K6 (the plain version on CPU tensors), bit-equal
+    to ``-mode torch``; the A3 arms they take still keep K4, K5 and K7
+    out (``a3_arms``)."""
+    import re
     fac = yask_tpu_torch.yk_factory()
-    ctx = _a3_ctx(fac, case)
-    ctx.apply_command_line_options(f"-g {8 if case == 'test_4d' else 16} "
-                                   "-mode fused")
-    with pytest.raises(YaskException, match=why):
+    ctxs = {}
+    for mode in ("fused", "torch"):
+        ctx = _a3_ctx(fac, case)
+        ctx.apply_command_line_options(
+            f"-g {8 if case == 'test_4d' else 16} -mode {mode} -wf_steps 2")
         ctx.prepare_solution()
-    # the torch path still runs it
-    ctx.get_settings().mode = "torch"
-    ctx.prepare_solution()
-    ctx.run_solution(0, 0)
+        import_interiors(ctx, seeded_interiors(ctx, 6))
+        ctx.run_solution(0, 2)
+        ctxs[mode] = ctx
+    ok, reason = cuda_emit.fused_applicable(ctxs["fused"]._program)
+    assert ok and not re.search(why, reason)
+    assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
+                                      abs_epsilon=0.0) == 0
+    assert ctxs["fused"].get_stats().get_tiling()["kernel"] == (
+        "fused_step" if case == "test_4d" else "stages_step")
+    assert cuda_emit.a3_arms(ctxs["fused"]._program) == (
+        ["4-D"] if case == "test_4d" else ["element size 2"])
 
 
 @pytest.mark.parametrize("case,kernel", [

@@ -52,6 +52,21 @@
 // strides), a var lacking a slot has stride 0 in it, and out_slab (when
 // the Spec prints it) says which slots a partial-dim output lacks, so
 // that only the points at index 0 of those slots store it.
+//
+// More than three domain dims (the reference's grid runs over every lead
+// dim, pallas_stencil.py:1442): the Spec prints NOUTER, the count of
+// outer dims, which take the slots 3, 4, ... past the three of the tile.
+// They fold into the grid as K7's member does: blockIdx.z = q * ceil(n0 /
+// T0) + slot-0 block, q the flat index of the block's outer cell, so
+// every block owns one index of each outer dim.  Each array carries a
+// stride per outer slot after its three (in_s, out_s), p.n holds the
+// outer extents after the three, and the point function sees the outer
+// indices in g[3 + j].  A read at an outer offset is an input of its own
+// whose interior pointer the wrapper shifts by that offset, so the
+// three-offset reads (rd.at(o0, o1, o2)) and the tiles stay as they are.
+// What bounds it: bytes, as K1 (test_4d moves 8 B per point per step);
+// an outer cell's tile re-reads its neighbours' planes from L2, not from
+// device memory.
 #pragma once
 
 #include <math.h>
@@ -121,6 +136,45 @@ struct Calc<bf16_t> {
 template <class S>
 using CalcOf = typename Calc<typename S::real_t>::type;
 
+// The outer dims a Spec folds into the grid: its NOUTER where it prints
+// one (more than three domain dims), else 0.
+template <class S, class = void>
+struct OuterOf {
+  static constexpr int N = 0;
+};
+template <class S>
+struct OuterOf<S, std::void_t<decltype(S::NOUTER)>> {
+  static constexpr int N = S::NOUTER;
+};
+
+// Index j of the outer cell q (the last outer dim varies fastest); n is
+// p.n, whose outer extents follow the three slots.
+template <class S>
+YT_HD inline int outer_idx(const int* n, int q, int j) {
+  constexpr int N = OuterOf<S>::N;
+  if constexpr (N == 1) {
+    (void)n; (void)j;
+    return q;
+  } else {
+    for (int i = N - 1; i > j; --i) q /= n[3 + i];
+    return q % n[3 + j];
+  }
+}
+
+// The number of outer cells (1 without outer dims).
+template <class S>
+YT_HD inline int outer_cells(const int* n) {
+  int c = 1;
+  for (int j = 0; j < OuterOf<S>::N; ++j) c *= n[3 + j];
+  return c;
+}
+
+// g[3 + j] = the outer indices of cell q.
+template <class S>
+YT_HD inline void fill_outer(int* g, const int* n, int q) {
+  for (int j = 0; j < OuterOf<S>::N; ++j) g[3 + j] = outer_idx<S>(n, q, j);
+}
+
 // The used slots output o's var lacks (a partial-dim written var): the
 // Spec's out_slab bitmask where it prints one, else 0.
 template <class S, class = void>
@@ -132,12 +186,20 @@ struct SlabOf<S, std::void_t<decltype(S::out_slab(0))>> {
   YT_HD static constexpr int get(int o) { return S::out_slab(o); }
 };
 
-// Does the point at interior (g0, g1, g2) store output o?  Every point,
-// except that a partial-dim output's slab is stored by the points at
-// index 0 of each slot its var lacks (every block computes the same slab).
+// Does the point at interior (g0, g1, g2) of outer cell q (of extents n)
+// store output o?  Every point, except that a partial-dim output's slab is
+// stored by the points at index 0 of each slot its var lacks (every block
+// computes the same slab).
 template <class S>
-YT_HD inline bool stores(int o, int g0, int g1, int g2) {
+YT_HD inline bool stores(int o, int g0, int g1, int g2, int q = 0,
+                         const int* n = nullptr) {
   const int m = SlabOf<S>::get(o);
+  if constexpr (OuterOf<S>::N > 0) {
+    for (int j = 0; j < OuterOf<S>::N; ++j)
+      if ((m >> (3 + j) & 1) && outer_idx<S>(n, q, j)) return false;
+  } else {
+    (void)q; (void)n;
+  }
   return !(((m & 1) && g0) || ((m & 2) && g1) || ((m & 4) && g2));
 }
 
@@ -180,21 +242,41 @@ YT_HD inline int i_mod(int a, int b) {
 }
 
 // ---- launch parameters -------------------------------------------------
-template <typename real_t, int NIN, int NOUT>
+// NO: the outer dims (slots 3, 4, ...), each with a stride per array and
+// an extent in n after the three slots.
+template <typename real_t, int NIN, int NOUT, int NO = 0>
 struct Params {
   const real_t* in[NIN > 0 ? NIN : 1];  // interior-origin pointers (member 0)
-  idx_t in_s[NIN > 0 ? NIN : 1][3];     // element strides per slot (0: dim absent)
+  // element strides per slot, outer slots after the three (0: dim absent)
+  idx_t in_s[NIN > 0 ? NIN : 1][3 + NO];
   idx_t in_ms[NIN > 0 ? NIN : 1];       // element stride between members
   real_t* out[NOUT];                    // interior-origin pointers (member 0)
-  idx_t out_s[NOUT][3];
+  idx_t out_s[NOUT][3 + NO];
   idx_t out_ms[NOUT];
-  int n[3];                             // interior extents (1: slot unused)
+  int n[3 + NO];                        // interior extents (1: slot unused)
   int t;                                // step index of the newest inputs
   int nm;                               // members (1 for K1)
 };
 
 template <class S>
-using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT>;
+using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT, OuterOf<S>::N>;
+
+// The element offset of an array's member m (K7: member stride ms), or of
+// outer cell m when the Spec has outer dims (strides s[3 + j]; K7 refuses
+// them); n is p.n.
+template <class S>
+YT_HD inline idx_t cell_base(const int* n, int m, idx_t ms, const idx_t* s) {
+  if constexpr (OuterOf<S>::N == 0) {
+    (void)n; (void)s;
+    return m * ms;
+  } else {
+    (void)ms;
+    idx_t off = 0;
+    for (int j = 0; j < OuterOf<S>::N; ++j)
+      off += idx_t(outer_idx<S>(n, m, j)) * s[3 + j];
+    return off;
+  }
+}
 
 // Inputs are never written during a launch (outputs are fresh tensors), so
 // on the device they go through the read-only data path (__ldg), which
@@ -203,8 +285,8 @@ template <class S>
 YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a, int m,
                                           idx_t c0, idx_t c1, idx_t c2) {
   const typename S::real_t* q =
-      p.in[a] + (m * p.in_ms[a] + c0 * p.in_s[a][0] + c1 * p.in_s[a][1]
-                 + c2 * p.in_s[a][2]);
+      p.in[a] + (cell_base<S>(p.n, m, p.in_ms[a], p.in_s[a])
+                 + c0 * p.in_s[a][0] + c1 * p.in_s[a][1] + c2 * p.in_s[a][2]);
 #ifdef __CUDA_ARCH__
   return __ldg(q);
 #else
@@ -252,45 +334,51 @@ template <class S>
 void fill_params(ParamsOf<S>& p, void* in_ptrs, void* in_strides,
                  void* out_ptrs, void* out_strides, void* sizes, int t) {
   typedef typename S::real_t real_t;
+  constexpr int NS = 3 + OuterOf<S>::N;  // slots, outer ones included
   void** ip = static_cast<void**>(in_ptrs);
   const idx_t* is = static_cast<const idx_t*>(in_strides);
   for (int a = 0; a < S::NIN; ++a) {
     p.in[a] = static_cast<const real_t*>(ip[a]);
-    for (int s = 0; s < 3; ++s) p.in_s[a][s] = is[3 * a + s];
+    for (int s = 0; s < NS; ++s) p.in_s[a][s] = is[NS * a + s];
   }
   void** op = static_cast<void**>(out_ptrs);
   const idx_t* os = static_cast<const idx_t*>(out_strides);
   for (int o = 0; o < S::NOUT; ++o) {
     p.out[o] = static_cast<real_t*>(op[o]);
-    for (int s = 0; s < 3; ++s) p.out_s[o][s] = os[3 * o + s];
+    for (int s = 0; s < NS; ++s) p.out_s[o][s] = os[NS * o + s];
   }
   const int* n = static_cast<const int*>(sizes);
-  for (int s = 0; s < 3; ++s) p.n[s] = n[s];
+  for (int s = 0; s < NS; ++s) p.n[s] = n[s];
   p.t = t;
   for (int a = 0; a < (S::NIN > 0 ? S::NIN : 1); ++a) p.in_ms[a] = 0;
   for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = 0;
   p.nm = 1;
 }
 
+// m: the member (K7) or the outer cell
 template <class S>
 YT_HD inline void store(const ParamsOf<S>& p, int m, int g0, int g1, int g2,
                         const CalcOf<S>* out) {
   for (int o = 0; o < S::NOUT; ++o)
-    if (stores<S>(o, g0, g1, g2))
-      p.out[o][m * p.out_ms[o] + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+    if (stores<S>(o, g0, g1, g2, m, p.n))
+      p.out[o][cell_base<S>(p.n, m, p.out_ms[o], p.out_s[o])
+               + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                + g2 * p.out_s[o][2]] =
           Calc<typename S::real_t>::store(out[o]);
 }
 
 // ---- host path: the same point function over every member's interior --
+// (or every outer cell's)
 template <class S>
 int host_step(const ParamsOf<S>& p) {
-  for (int m = 0; m < p.nm; ++m)
+  const int nq = OuterOf<S>::N > 0 ? outer_cells<S>(p.n) : p.nm;
+  for (int m = 0; m < nq; ++m)
     for (int g0 = 0; g0 < p.n[0]; ++g0)
       for (int g1 = 0; g1 < p.n[1]; ++g1)
         for (int g2 = 0; g2 < p.n[2]; ++g2) {
           const GlobalReader<S> rd{&p, m, g0, g1, g2};
-          const int g[3] = {g0, g1, g2};
+          int g[3 + OuterOf<S>::N] = {g0, g1, g2};
+          fill_outer<S>(g, p.n, m);
           CalcOf<S> out[S::NOUT];
           S::point(rd, g, p.n, p.t, out);
           store<S>(p, m, g0, g1, g2, out);
@@ -301,7 +389,8 @@ int host_step(const ParamsOf<S>& p) {
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
 // BATCH = false is K1 (one member, no member offsets); BATCH = true is K7,
-// whose blockIdx.z also selects the member.
+// whose blockIdx.z also selects the member.  With outer dims, K1's
+// blockIdx.z selects the outer cell the same way (m = q).
 template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::T1 * S::T2)
 fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
@@ -309,7 +398,7 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
   int m = 0, bz = blockIdx.z;
-  if constexpr (BATCH) {
+  if constexpr (BATCH || OuterOf<S>::N > 0) {
     const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
     m = bz / nb0;
     bz -= m * nb0;
@@ -367,7 +456,8 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
     const int g0 = b0 + l0;
     if (g0 >= p.n[0]) break;
     const TileReader<S> rd{&p, smem, m, l0, l1, l2, g0, g1, g2};
-    const int g[3] = {g0, g1, g2};
+    int g[3 + OuterOf<S>::N] = {g0, g1, g2};
+    fill_outer<S>(g, p.n, m);
     CalcOf<S> out[S::NOUT];
     S::point(rd, g, p.n, p.t, out);
     store<S>(p, m, g0, g1, g2, out);
@@ -382,7 +472,7 @@ int launch(const ParamsOf<S>& p, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const long long nb0 = (p.n[0] + S::T0 - 1) / S::T0;
-  const long long gz = BATCH ? nb0 * p.nm : nb0;
+  const long long gz = BATCH ? nb0 * p.nm : nb0 * outer_cells<S>(p.n);
   if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
   const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
@@ -646,6 +736,21 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 // The host path (no __CUDACC__) runs each sub-stage over its plain region
 // of the whole domain with global reads, keeping each computed tile in a
 // zeroed host buffer over the domain grown by its sub-stage's region.
+//
+// Outer dims (NOUTER): a block owns one outer cell q, as in K1.  What a
+// later stage reads at an outer offset, an earlier stage computes in an
+// outer copy of its sub-stage, one per offset of its region (sub_dw(K,
+// j)); a copy reads inputs that the wrapper shifted by its offset and
+// writes tiles of its own, and is computed only where its outer index
+// lies inside the plain region (oclip_lo/oclip_hi), else it holds 0.  A
+// staged input whose outer index lies past its allocation (outer_alo/
+// outer_ahi) is staged as 0.  The host path runs every outer cell in
+// turn, its buffers zeroed for each.
+//
+// Element size 2: the staged and computed tiles are bf16_t, as the
+// reference's VMEM tiles are in the program dtype (pallas_stencil.py:
+// 2264-2289); a computed value is stored rounded once, as yask_tpu
+// stores a stage's value or a scratch var.
 
 // Reads of one sub-stage point: staged inputs from their tile (others
 // from global memory) and earlier sub-stages' results from their computed
@@ -654,6 +759,7 @@ template <class S>
 struct StageReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
+  int q;           // the block's outer cell (0 without outer dims)
   int l0, l1, l2;  // point relative to the block origin (may lie in the
                    // expansion: < 0 or >= T)
   int g0, g1, g2;  // point in the interior (may lie past the domain)
@@ -668,7 +774,7 @@ struct StageReader {
                      + (l1 + S::halo_lo1(k) + o1)) * E2
                   + (l2 + S::halo_lo2(k) + o2)];
     } else {
-      return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, q, g0 + o0, g1 + o1, g2 + o2);
     }
   }
   template <int B>
@@ -687,10 +793,11 @@ template <class S>
 struct HostStageReader {
   const ParamsOf<S>* p;
   typename S::real_t* const* bufs;
+  int q;           // the outer cell
   int g0, g1, g2;
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
-    return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+    return global_at<S>(*p, A, q, g0 + o0, g1 + o1, g2 + o2);
   }
   template <int B>
   YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
@@ -703,30 +810,54 @@ struct HostStageReader {
   }
 };
 
+// g[3 + j] = the outer indices of sub-stage K's copy in cell q (the
+// cell's plus the copy's offset); returns whether they all lie inside
+// the copy's plain region.
 template <class S, int K>
-void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs) {
+YT_HD inline bool outer_copy(int* g, const int* n, int q) {
+  bool in = true;
+  if constexpr (OuterOf<S>::N > 0) {
+    for (int j = 0; j < OuterOf<S>::N; ++j) {
+      g[3 + j] = outer_idx<S>(n, q, j) + S::sub_dw(K, j);
+      in = in && g[3 + j] >= -S::oclip_lo(K, j)
+           && g[3 + j] < n[3 + j] + S::oclip_hi(K, j);
+    }
+  } else {
+    (void)g; (void)n; (void)q;
+  }
+  return in;
+}
+
+template <class S, int K>
+void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
+                int q) {
   typedef typename S::real_t real_t;
   constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
   const idx_t R1 = p.n[1] + e1 + S::sub_hi1(K);
   const idx_t R2 = p.n[2] + e2 + S::sub_hi2(K);
+  int g[3 + OuterOf<S>::N];
+  if (outer_copy<S, K>(g, p.n, q))
   for (int g0 = -S::clip_lo0(K); g0 < p.n[0] + S::clip_hi0(K); ++g0)
     for (int g1 = -S::clip_lo1(K); g1 < p.n[1] + S::clip_hi1(K); ++g1)
       for (int g2 = -S::clip_lo2(K); g2 < p.n[2] + S::clip_hi2(K); ++g2) {
-        const HostStageReader<S> rd{&p, bufs, g0, g1, g2};
-        const int g[3] = {g0, g1, g2};
+        const HostStageReader<S> rd{&p, bufs, q, g0, g1, g2};
+        g[0] = g0;
+        g[1] = g1;
+        g[2] = g2;
         CalcOf<S> v[S::MAXV];
         S::template stage<K>(rd, g, p.n, p.t, v);
         for (int j = 0; j < S::stage_nv(K); ++j) {
           const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
           const real_t w = Calc<real_t>::store(v[j]);
-          if (o >= 0 && stores<S>(o, g0, g1, g2))
-            p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+          if (o >= 0 && stores<S>(o, g0, g1, g2, q, p.n))
+            p.out[o][cell_base<S>(p.n, q, p.out_ms[o], p.out_s[o])
+                     + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                      + g2 * p.out_s[o][2]] = w;
           if (b >= 0)
             bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = w;
         }
       }
-  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs);
+  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs, q);
 }
 
 template <class S>
@@ -734,15 +865,17 @@ int host_stages(const ParamsOf<S>& p) {
   typedef typename S::real_t real_t;
   std::vector<std::vector<real_t>> store(S::NCMP);
   real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
-  for (int b = 0; b < S::NCMP; ++b) {
-    const int k = S::cmp_sub(b);
-    store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
-                        * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
-                        * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
-                    real_t(0.0f));
-    bufs[b] = store[b].data();
+  for (int q = 0; q < outer_cells<S>(p.n); ++q) {
+    for (int b = 0; b < S::NCMP; ++b) {
+      const int k = S::cmp_sub(b);
+      store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
+                          * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
+                          * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
+                      real_t(0.0f));
+      bufs[b] = store[b].data();
+    }
+    host_stage<S, 0>(p, bufs, q);
   }
-  host_stage<S, 0>(p, bufs);
   return 0;
 }
 
@@ -752,7 +885,7 @@ int host_stages(const ParamsOf<S>& p) {
 template <class S, int K>
 __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                                              typename S::real_t* smem,
-                                             int b0, int b1, int b2,
+                                             int q, int b0, int b1, int b2,
                                              int tid) {
   typedef typename S::real_t real_t;
   constexpr int NT = S::T1 * S::T2;
@@ -761,6 +894,10 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
   constexpr int R1 = S::T1 + e1 + S::sub_hi1(K);
   constexpr int R2 = S::T2 + e2 + S::sub_hi2(K);
   constexpr int cells = R0 * R1 * R2;
+  // the outer indices of this copy; a copy outside its plain region in an
+  // outer dim holds 0 everywhere
+  int g[3 + OuterOf<S>::N];
+  const bool in_outer = outer_copy<S, K>(g, p.n, q);
   for (int i = tid; i < cells; i += NT) {
     const int l2 = i % R2 - e2;
     const int r = i / R2;
@@ -773,11 +910,13 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                         && g1 >= -S::clip_lo1(K)
                         && g1 < p.n[1] + S::clip_hi1(K)
                         && g2 >= -S::clip_lo2(K)
-                        && g2 < p.n[2] + S::clip_hi2(K);
+                        && g2 < p.n[2] + S::clip_hi2(K) && in_outer;
     CalcOf<S> v[S::MAXV];
     if (inside) {
-      const StageReader<S> rd{&p, smem, l0, l1, l2, g0, g1, g2};
-      const int g[3] = {g0, g1, g2};
+      const StageReader<S> rd{&p, smem, q, l0, l1, l2, g0, g1, g2};
+      g[0] = g0;
+      g[1] = g1;
+      g[2] = g2;
       S::template stage<K>(rd, g, p.n, p.t, v);
     } else {
 #pragma unroll
@@ -791,8 +930,9 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
       if (j >= S::stage_nv(K)) break;
       const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
       const real_t w = Calc<real_t>::store(v[j]);
-      if (o >= 0 && own && stores<S>(o, g0, g1, g2))
-        p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+      if (o >= 0 && own && stores<S>(o, g0, g1, g2, q, p.n))
+        p.out[o][cell_base<S>(p.n, q, p.out_ms[o], p.out_s[o])
+                 + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                  + g2 * p.out_s[o][2]] = w;
       if (b >= 0)
         smem[S::cmp_offset(b) + ((l0 + e0) * R1 + (l1 + e1)) * R2
@@ -801,8 +941,25 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    device_stage<S, K + 1>(p, smem, b0, b1, b2, tid);
+    device_stage<S, K + 1>(p, smem, q, b0, b1, b2, tid);
   }
+}
+
+// Is staged input k's outer index inside its allocation in outer cell q?
+template <class S>
+__device__ __forceinline__ bool outer_alloc(const ParamsOf<S>& p, int k,
+                                            int q) {
+  bool in = true;
+  if constexpr (OuterOf<S>::N > 0) {
+    for (int j = 0; j < OuterOf<S>::N; ++j) {
+      const int c = outer_idx<S>(p.n, q, j);
+      in = in && c >= -S::outer_alo(k, j)
+           && c < p.n[3 + j] + S::outer_ahi(k, j);
+    }
+  } else {
+    (void)p; (void)k; (void)q;
+  }
+  return in;
 }
 
 template <class S>
@@ -811,7 +968,13 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  const int b0 = blockIdx.z * S::T0;
+  int q = 0, bz = blockIdx.z;
+  if constexpr (OuterOf<S>::N > 0) {
+    const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
+    q = bz / nb0;
+    bz -= q * nb0;
+  }
+  const int b0 = bz * S::T0;
   const int b1 = blockIdx.y * S::T1;
   const int b2 = blockIdx.x * S::T2;
   const int tid = threadIdx.y * S::T2 + threadIdx.x;
@@ -830,6 +993,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
     const int lo0 = -S::alloc_lo0(k), lim0 = p.n[0] + S::alloc_hi0(k);
     const int lo1 = -S::alloc_lo1(k), lim1 = p.n[1] + S::alloc_hi1(k);
     const int lo2 = -S::alloc_lo2(k), lim2 = p.n[2] + S::alloc_hi2(k);
+    const bool in_outer = outer_alloc<S>(p, k, q);
     real_t* dst = smem + S::tile_offset(k);
     for (int base = tid; base < cells; base += NT * U) {
       real_t v[U];
@@ -842,8 +1006,8 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 >= lo0 && c0 < lim0 && c1 >= lo1
-                && c1 < lim1 && c2 >= lo2 && c2 < lim2)
-                   ? global_at<S>(p, a, 0, c0, c1, c2) : real_t(0.0f);
+                && c1 < lim1 && c2 >= lo2 && c2 < lim2 && in_outer)
+                   ? global_at<S>(p, a, q, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -853,7 +1017,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   __syncthreads();
 
   // 2) the sub-stages in order, each over its region
-  device_stage<S, 0>(p, smem, b0, b1, b2, tid);
+  device_stage<S, 0>(p, smem, q, b0, b1, b2, tid);
 }
 
 template <class S>
@@ -863,7 +1027,8 @@ int launch_stages(const ParamsOf<S>& p, cudaStream_t stream) {
       fused_stages_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const long long gz = (p.n[0] + S::T0 - 1) / S::T0;
+  const long long gz =
+      (long long)((p.n[0] + S::T0 - 1) / S::T0) * outer_cells<S>(p.n);
   if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
   const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,

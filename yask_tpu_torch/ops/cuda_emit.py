@@ -46,9 +46,22 @@ point function computes in float, with the bfloat16 arithmetic that
 (``yt::to_f``) or from an op rounded once (``yt::rbf``); a scalar or an
 index that meets one is rounded to bfloat16 first; an op on indices and
 scalars alone gives float32 (kind ``F``, unrounded), which wins over
-bfloat16; a store rounds.  Solution dims map onto the last of three slots (``x, y,
-z`` → slots 0, 1, 2; a 2-D ``x, y`` → slots 1, 2), slot 2 being the
-contiguous minor dim.
+bfloat16; a store rounds.  K6 keeps its stage and scratch tiles in
+``real_t``, so at element size 2 each holds the value rounded once to
+bfloat16, as ``yask_tpu`` stores it.  Solution dims map onto the last of
+three slots (``x, y, z`` → slots 0, 1, 2; a 2-D ``x, y`` → slots 1, 2),
+slot 2 being the contiguous minor dim (:func:`slot_map`).
+
+More than three domain dims: the last three take the slots and each
+outer dim takes a slot of its own past them (``w, x, y, z`` → 3, 0, 1,
+2), folded into the grid (each block owns one index of every outer dim;
+``Spec::NOUTER`` counts them).  A read at an outer offset is an input of
+its own, the var's tensor at that offset (``KernelSpec.in_outer``), as a
+misc slice is.  K6 covers what a later stage reads at an outer offset by
+*outer copies* of a sub-stage: one copy per outer offset of its region
+(``sub_dw``), each a sub-stage over the slots with its inputs and its
+reads of earlier tiles shifted by that offset, its tiles its own; only
+the copy at offset 0 stores outputs.
 
 Misc dims: each (var, ring slot, misc indices) a point reads is an input
 of its own, the var's slice at those misc indices (its domain strides,
@@ -66,6 +79,7 @@ only the blocks holding index 0 of each missing slot store it
 from __future__ import annotations
 
 import hashlib
+import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
@@ -111,27 +125,21 @@ _IND = " " * 8   # statement indent inside Spec::point
 
 
 def fused_applicable(program) -> Tuple[bool, str]:
-    """Can the emitter print this solution?  1-3 domain dims; float32 and
-    float64, and bfloat16 (element size 2) for one stage without scratch
-    vars (K1 and its stream arm); misc dims and misc indices as values;
+    """Can the emitter print this solution?  One or more domain dims (past
+    three, the outer ones fold into the grid); float32, float64 and
+    bfloat16 (element size 2); misc dims and misc indices as values;
     written vars (scratch ones too) over a subset of the domain dims that
     keeps the minor dim, in solution order, as ``yask_tpu``'s
     ``pallas_applicable`` admits them.  Any number of stages; scratch
     vars and vars rewritten in a later stage run on K6 (:func:`emit`)."""
     ana = program.ana
     nd = len(ana.domain_dims)
-    if not 1 <= nd <= 3:
-        return False, (f"needs 1-3 domain dims, has {nd} (4-D emission is "
-                       "ROADMAP.md A3 (4-D))")
+    if nd < 1:
+        return False, "needs at least one domain dim"
     name = dtype_name(program.dtype)
     if name not in ("float32", "float64", "bfloat16"):
         return False, (f"dtype {name} (the kernel takes float32, float64 "
                        "and bfloat16)")
-    if name == "bfloat16" and (len(ana.stages) > 1 or has_scratch(program)):
-        return False, (f"element size 2 with {len(ana.stages)} stage(s)"
-                       f"{' and scratch vars' if has_scratch(program) else ''}"
-                       ": K6 in bfloat16 is ROADMAP.md A3 (element size 2 "
-                       "on K6)")
     minor = ana.domain_dims[-1]
     for v in program.soln.get_vars():
         if not v.is_written:
@@ -150,21 +158,36 @@ def fused_applicable(program) -> Tuple[bool, str]:
 
 
 def a3_arms(program) -> List[str]:
-    """The ROADMAP.md A3 arms this solution takes: misc-dim vars, written
-    vars lacking a domain dim, element size 2.  K4, K5 and K7 have not
-    been held against them: ``-trapezoid`` falls back (A12), ``-mode
-    shard_pallas`` and member batches refuse (A11, A9)."""
+    """The ROADMAP.md A3 arms this solution takes: more than three domain
+    dims, misc-dim vars, written vars lacking a domain dim, element size
+    2.  K4, K5 and K7 have not been held against them: ``-trapezoid``
+    falls back (A12), ``-mode shard_pallas`` and member batches refuse
+    (A11, A9)."""
     arms = []
     geoms = program.geoms
+    dims = list(program.ana.domain_dims)
+    if len(dims) > 3:
+        arms.append("4-D")
     if any(kind == "misc" for g in geoms.values() for _d, kind in g.axes):
         arms.append("misc-dim vars")
-    dims = list(program.ana.domain_dims)
     if any(g.is_written and list(g.domain_dims) != dims
            for g in geoms.values()):
         arms.append("partial-dim written vars")
     if is_bfloat16(program.dtype):
         arms.append("element size 2")
     return arms
+
+
+def slot_map(dims) -> Dict[str, int]:
+    """Solution dim → kernel slot: the last three dims take slots 0-2 (the
+    last of them slot 2, fewer dims the last slots), each dim before them
+    an outer slot 3, 4, ... in solution order."""
+    dims = list(dims)
+    no = max(len(dims) - 3, 0)
+    inner = dims[no:]
+    out = {d: 3 - len(inner) + i for i, d in enumerate(inner)}
+    out.update({d: 3 + j for j, d in enumerate(dims[:no])})
+    return out
 
 
 def has_scratch(program) -> bool:
@@ -312,6 +335,10 @@ class KernelSpec:
     #: output vars whose unwritten misc slices keep the evicted slot's
     #: values: the wrapper starts them from a copy of it
     base_outputs: List[str] = field(default_factory=list)
+    #: how many outer dims fold into the grid (more than 3 domain dims)
+    outer: int = 0
+    #: per input: its offset in each outer dim (empty when ``outer`` is 0)
+    in_outer: List[Tuple[int, ...]] = field(default_factory=list)
 
 
 def _hexf(v: float) -> str:
@@ -336,6 +363,10 @@ class _Printer:
         self.prog = program
         self.ana = program.ana
         self.slot_of = slot_of          # solution dim → slot
+        self.ns = max(3, len(slot_of))   # 3 + outer dims
+        #: the outer dims, in slot order (slot 3 + j)
+        self.outer = sorted((d for d, s_ in slot_of.items() if s_ >= 3),
+                            key=slot_of.get)
         # bfloat16 arithmetic (the module docstring)
         self.bf16 = is_bfloat16(program.dtype)
         self.ctypes = _C_TYPES_BF16 if self.bf16 else _C_TYPES
@@ -343,7 +374,8 @@ class _Printer:
         self.memo: Dict[tuple, Tuple[str, str]] = {}
         self.inputs: List[Tuple[str, int]] = []
         self.in_misc: List[Tuple] = []
-        self.in_index: Dict[Tuple[str, int, Tuple], int] = {}
+        self.in_outer: List[Tuple[int, ...]] = []
+        self.in_index: Dict[Tuple[str, int, Tuple, Tuple], int] = {}
         #: the current equation's LHS misc binding (misc indices as values)
         self.misc_env: Dict[str, int] = {}
         # (input index) → per-slot left/right reach of the tile: the read
@@ -358,44 +390,72 @@ class _Printer:
         # memory: its cells lie inside the plain version's region, hence
         # inside the allocation)
         self.tile_need: Dict[int, bool] = {}
-        self.sub = 0                    # the current sub-stage
+        self.sub = 0                    # the current sub-stage (copy)
+        self.base = 0                   # the sub-stage it copies
+        self.dw: Tuple[int, ...] = ()   # its offset per outer dim
         self.lo = [0, 0, 0]             # its region below the block
         self.hi = [0, 0, 0]             # and above it
         self.scratch = False
-        #: (slice, writing sub-stage) → computed tile
+        #: (slice, writing copy) → computed tile
         self.cmp_of: Dict[Tuple[Tuple, int], int] = {}
         self.cmp_geom: List[Tuple[List[int], List[int]]] = []
         #: slice → the sub-stages that write it, in order
         self.writers: Dict[Tuple, List[int]] = {}
+        #: (sub-stage, outer offsets) → its copy
+        self.copy_of: Dict[Tuple[int, Tuple[int, ...]], int] = {}
         self.nvals = 0
 
-    def begin_stage(self, sub: int, lo: List[int], hi: List[int],
-                    scratch: bool = False) -> None:
+    def begin_stage(self, sub: int, u: "_Sub") -> None:
+        """Start printing sub-stage (copy) ``sub``, ``u``."""
         self.lines = []
         self.memo = {}
         self.sub = sub
-        self.lo, self.hi = list(lo), list(hi)
-        self.scratch = scratch
+        self.base, self.dw = u.base, tuple(u.dw)
+        self.lo, self.hi = list(u.lo), list(u.hi)
+        self.scratch = u.scratch
 
     def earlier_writer(self, sk: Tuple):
         """The newest sub-stage before the current one that writes slice
         ``sk``, or None."""
-        w = [j for j in self.writers.get(sk, []) if j < self.sub]
+        w = [j for j in self.writers.get(sk, []) if j < self.base]
         return w[-1] if w else None
 
-    def input_of(self, var: str, ring_idx: int, misc: Tuple = ()) -> int:
-        key = (var, ring_idx, misc)
+    def writer_copy(self, sk: Tuple, offs: List[int]) -> int:
+        """The copy of the newest earlier writer of slice ``sk`` that a
+        read at ``offs`` (per slot) from the current copy reaches."""
+        w = self.earlier_writer(sk)
+        if w is None:
+            raise YaskException(
+                f"same-step read of '{sk[0]}' before a stage computed it")
+        dw = tuple(d + offs[3 + j] for j, d in enumerate(self.dw))
+        if (w, dw) not in self.copy_of:
+            raise YaskException(
+                f"same-step read of '{sk[0]}' at outer offsets {dw} reaches "
+                "past its stage's computed region")
+        return self.copy_of[(w, dw)]
+
+    def outer_key(self, var: str, offs: List[int]) -> Tuple[int, ...]:
+        """An input's offset per outer dim: the read's plus the current
+        copy's, 0 in a dim the var lacks."""
+        dd = self.prog.geoms[var].domain_dims
+        return tuple(offs[3 + j] + d if od in dd else 0
+                     for j, (od, d) in enumerate(zip(self.outer, self.dw)))
+
+    def input_of(self, var: str, ring_idx: int, misc: Tuple = (),
+                 outer: Tuple[int, ...] = ()) -> int:
+        key = (var, ring_idx, misc, outer)
         if key not in self.in_index:
             self.in_index[key] = len(self.inputs)
             self.inputs.append((var, ring_idx))
             self.in_misc.append(misc)
+            self.in_outer.append(outer)
             self.reach[self.in_index[key]] = [[0, 0] for _ in range(3)]
             self.raw[self.in_index[key]] = [[0, 0] for _ in range(3)]
             self.tile_need[self.in_index[key]] = False
         return self.in_index[key]
 
     def _note_reach(self, a: int, offs: List[int]) -> None:
-        for s_, o in enumerate(offs):
+        for s_, o in enumerate(offs[:3]):
             lo_hi = self.reach[a][s_]
             lo_hi[0] = max(lo_hi[0], self.lo[s_] - o)
             lo_hi[1] = max(lo_hi[1], self.hi[s_] + o)
@@ -411,12 +471,13 @@ class _Printer:
         earlier write of a scratch var), else the evicted slot's value (0
         for a scratch var), as the plain version's ``where`` takes it."""
         name, misc = sk
+        zero = [0] * self.ns
         if self.earlier_writer(sk) is not None:
-            return self._computed_read(sk, [0, 0, 0])[0]
+            return self._computed_read(sk, zero)[0]
         if self.prog.geoms[name].is_scratch:
-            return "real_t(0)"
-        a = self.input_of(name, 0, misc)
-        self._note_reach(a, [0, 0, 0])
+            return "0.0f" if self.bf16 else "real_t(0)"
+        a = self.input_of(name, 0, misc, self.outer_key(name, zero))
+        self._note_reach(a, zero)
         return self._wide(f"rd.template at<{a}>(0, 0, 0)")
 
     def _wide(self, text: str) -> str:
@@ -562,7 +623,7 @@ class _Printer:
         misc = _misc_key(p)
         g = self.prog.geoms[name]
         so = p.step_offset()
-        offs = [0, 0, 0]
+        offs = [0] * self.ns
         for d, o in p.domain_offsets().items():
             offs[self.slot_of[d]] = o
         if g.is_scratch:
@@ -580,7 +641,7 @@ class _Printer:
                     f"{g.alloc}")
         else:
             idx = 0
-        a = self.input_of(name, idx, misc)
+        a = self.input_of(name, idx, misc, self.outer_key(name, offs))
         self._note_reach(a, offs)
         return self._new("R", self._wide(
             f"rd.template at<{a}>({offs[0]}, {offs[1]}, {offs[2]})"))
@@ -590,13 +651,13 @@ class _Printer:
         a written var at +step_dir): the tile of the newest earlier
         sub-stage that writes it."""
         name = sk[0]
-        w = self.earlier_writer(sk)
-        if w is None or (sk, w) not in self.cmp_of:
+        w = self.writer_copy(sk, offs)
+        if (sk, w) not in self.cmp_of:
             raise YaskException(
                 f"same-step read of '{name}' before a stage computed it")
         b = self.cmp_of[(sk, w)]
         lo, hi = self.cmp_geom[b]
-        for s_, o in enumerate(offs):
+        for s_, o in enumerate(offs[:3]):
             if self.lo[s_] - o > lo[s_] or self.hi[s_] + o > hi[s_]:
                 raise YaskException(
                     f"same-step read of '{name}' at offset {o} reaches past "
@@ -630,7 +691,8 @@ def _stage_expansions(ana, slot_of) -> List[List[int]]:
                                         _misc_key(eq.lhs)), [])
                 if k not in w:
                     w.append(k)
-    expand = [[0, 0, 0] for _ in ana.stages]
+    ns = max(3, len(slot_of))
+    expand = [[0] * ns for _ in ana.stages]
     for j in reversed(range(len(ana.stages))):
         for part in ana.stages[j].parts:
             for eq in part.eqs:
@@ -680,7 +742,8 @@ def _table2(fn, rows, default="-1"):
 class _Sub:
     """One sub-stage of K6: the scratch eqs of a part that share a write
     halo, or every non-scratch part of a stage (independent of each other,
-    so one point function computes them together)."""
+    so one point function computes them together); past three domain
+    dims, one outer copy of it (``base``, ``dw``)."""
     stage: int
     scratch: bool
     eqs: list
@@ -688,6 +751,8 @@ class _Sub:
     hi: List[int]        # block and above it
     clip_lo: List[int]   # the plain version's region, [-clip_lo, n +
     clip_hi: List[int]   # clip_hi) per slot: cells outside hold 0
+    base: int = 0        # the sub-stage an outer copy copies
+    dw: Tuple[int, ...] = ()   # and its offset per outer dim
 
 
 def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
@@ -695,6 +760,7 @@ def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
     where the plain version computes it (``StepProgram._eval_part``): over
     the domain grown by its write halo (``ana.scratch_write_halo``),
     inside the stage's region grown by the same halo."""
+    ns = max(3, len(slot_of))
     subs: List[_Sub] = []
     for k, stage in enumerate(ana.stages):
         e = expand[k]
@@ -705,20 +771,34 @@ def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
                 continue
             groups: Dict[tuple, list] = {}
             for eq in part.eqs:
-                wl, wr = [0, 0, 0], [0, 0, 0]
+                wl, wr = [0] * ns, [0] * ns
                 for d, (l, r) in ana.scratch_write_halo.get(
                         eq.lhs.var_name(), {}).items():
                     wl[slot_of[d]], wr[slot_of[d]] = l, r
                 groups.setdefault((tuple(wl), tuple(wr)), []).append(eq)
             for (wl, wr), eqs in groups.items():
                 subs.append(_Sub(k, True, eqs,
-                                 [e[s_] + wl[s_] for s_ in range(3)],
-                                 [e[s_] + wr[s_] for s_ in range(3)],
+                                 [e[s_] + wl[s_] for s_ in range(ns)],
+                                 [e[s_] + wr[s_] for s_ in range(ns)],
                                  list(wl), list(wr)))
         if plain:
-            subs.append(_Sub(k, False, plain, list(e), list(e), [0, 0, 0],
-                             [0, 0, 0]))
+            subs.append(_Sub(k, False, plain, list(e), list(e), [0] * ns,
+                             [0] * ns))
     return subs
+
+
+def _outer_copies(subs: List[_Sub]) -> List[_Sub]:
+    """Each sub-stage once per offset of its region in the outer dims
+    (slots 3 and up), in order: a copy keeps the slots' region and takes
+    its offsets as ``dw`` (one copy, ``dw = ()``, up to three dims)."""
+    out: List[_Sub] = []
+    for i, u in enumerate(subs):
+        ranges = [range(-u.lo[s_], u.hi[s_] + 1)
+                  for s_ in range(3, len(u.lo))]
+        for dw in itertools.product(*ranges):
+            out.append(_Sub(u.stage, u.scratch, u.eqs, u.lo[:3], u.hi[:3],
+                            u.clip_lo, u.clip_hi, i, tuple(dw)))
+    return out
 
 
 @dataclass
@@ -752,8 +832,9 @@ def _print(program, pushed) -> _Printed:
     ana = program.ana
     geoms = program.geoms
     dims = list(ana.domain_dims)
-    slot_of = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
-    subs = _sub_stages(ana, slot_of, _stage_expansions(ana, slot_of))
+    slot_of = slot_map(dims)
+    bases = _sub_stages(ana, slot_of, _stage_expansions(ana, slot_of))
+    subs = _outer_copies(bases)
     single = len(subs) == 1     # K1's point function writes the outputs
     pr = _Printer(program, slot_of)
 
@@ -761,18 +842,21 @@ def _print(program, pushed) -> _Printed:
         return (p.var_name(), _misc_key(p))
 
     for i, sub in enumerate(subs):
+        pr.copy_of[(sub.base, sub.dw)] = i
+    for i, sub in enumerate(bases):
         for eq in sub.eqs:
             w = pr.writers.setdefault(key(eq.lhs), [])
             if i not in w:
                 w.append(i)
-    # which (var, writing sub-stage) pairs a later sub-stage reads: this
-    # step's value of a written var at +step_dir, or a scratch var, reads
-    # the newest earlier writer's tile; so does a conditional rewrite's
-    # base.  Each pair gets a tile of its own, so a rewrite never writes
-    # the tile its own points still read at offsets.
+    # which (var, writing copy) pairs a later sub-stage reads: this step's
+    # value of a written var at +step_dir, or a scratch var, reads the
+    # newest earlier writer's tile (its copy at the read's outer offset);
+    # so does a conditional rewrite's base.  Each pair gets a tile of its
+    # own, so a rewrite never writes the tile its own points still read at
+    # offsets.
     need = set()
     for i, sub in enumerate(subs):
-        pr.sub = i
+        pr.begin_stage(i, sub)
         for eq in sub.eqs:
             pv = PointVisitor()
             for e in [eq.rhs] + _masks(eq, sub.scratch):
@@ -781,15 +865,14 @@ def _print(program, pushed) -> _Printed:
                 g = geoms[p.var_name()]
                 if g.is_scratch or (g.has_step and g.is_written
                                     and p.step_offset() == ana.step_dir):
-                    w = pr.earlier_writer(key(p))
-                    if w is None:
-                        raise YaskException(
-                            f"same-step read of '{p.var_name()}' before a "
-                            "stage computed it")
-                    need.add((key(p), w))
-            w = pr.earlier_writer(key(eq.lhs))
-            if _masks(eq, sub.scratch) and w is not None:
-                need.add((key(eq.lhs), w))
+                    offs = [0] * pr.ns
+                    for d, o in p.domain_offsets().items():
+                        offs[slot_of[d]] = o
+                    need.add((key(p), pr.writer_copy(key(p), offs)))
+            if _masks(eq, sub.scratch) \
+                    and pr.earlier_writer(key(eq.lhs)) is not None:
+                need.add((key(eq.lhs),
+                          pr.writer_copy(key(eq.lhs), [0] * pr.ns)))
     computed: List[str] = []
     computed_sub: List[int] = []
     for i, sub in enumerate(subs):
@@ -805,7 +888,7 @@ def _print(program, pushed) -> _Printed:
     stage_lines: List[List[str]] = []
     stage_vars: List[List[Tuple]] = []
     for i, sub in enumerate(subs):
-        pr.begin_stage(i, sub.lo, sub.hi, sub.scratch)
+        pr.begin_stage(i, sub)
         # a misc index used as a value binds per equation: no CSE across
         # the sub-stage's equations (lowering.py's per-eq memo)
         misc_vals = any(uses_misc_index(eq.rhs, eq.cond, eq.step_cond)
@@ -851,7 +934,9 @@ def _print(program, pushed) -> _Printed:
                 raise YaskException(f"output '{sk[0]}' is never assigned")
         stage_lines.append(pr.lines)
         stage_vars.append(names)
-    last = {sk: w[-1] for sk, w in pr.writers.items()}
+    # the copy at outer offset 0 of each slice's last writer stores it
+    zero = tuple(0 for _ in pr.outer)
+    last = {sk: pr.copy_of[(w[-1], zero)] for sk, w in pr.writers.items()}
     return _Printed(pr, slot_of, outputs, slices, stage_lines, stage_vars,
                     computed, computed_sub, subs, last)
 
@@ -970,6 +1055,9 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     full = set(dims)
     esize = np.dtype(program.dtype).itemsize
     geoms = program.geoms
+    no = len(pr.outer)
+    # past three domain dims: the outer dims fold into the grid
+    outer_enum = f", NOUTER = {no}" if no else ""
     # misc slices and partial-dim outputs
     out_slices = [(outputs.index(n), m) for n, m in slices]
     base_outputs = []
@@ -1074,11 +1162,15 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         stem = hashlib.sha256(
             ("\n".join(body) + repr((tiled, halos, tile, real_t,
                                      len(pr.inputs), len(slices)))
-             + "\n".join(tabs) + stream_enum)
+             + "\n".join(tabs) + stream_enum + outer_enum)
             .encode()).hexdigest()[:12]
         name = f"fused_step_{stem}"
         stream_entry = (f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n"
                         if plan is not None else "")
+        # K7 and K5 take up to three domain dims (ROADMAP.md A9, A11)
+        more = ("" if no else
+                f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
+                f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K1, and of K7 over N members
 // (see ops/fused_stencil.py).
@@ -1087,7 +1179,7 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
 struct Spec {{
     typedef {real_t} real_t;
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
-           T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs}{stream_enum} }};
+           T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs}{stream_enum}{outer_enum} }};
 {chr(10).join(tabs)}
 
     template <class RD>
@@ -1099,9 +1191,7 @@ struct Spec {{
 }};
 
 YT_FUSED_STEP_ENTRY({name}, Spec)
-YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
-YT_FUSED_REGION_ENTRY({name}_region, Spec)
-{stream_entry}"""
+{more}{stream_entry}"""
         reach = {a: tuple(tuple(x) for x in pr.raw[a])
                  for a in range(len(pr.inputs))}
         return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
@@ -1110,7 +1200,8 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
                           push_reasons=push_reasons, reach=reach,
                           stream=plan, stream_cause=cause,
                           in_misc=list(pr.in_misc), out_slices=out_slices,
-                          base_outputs=base_outputs)
+                          base_outputs=base_outputs, outer=no,
+                          in_outer=list(pr.in_outer) if no else [])
 
     # ---- K6: several sub-stages per launch ------------------------------
     in_elems = offs
@@ -1135,6 +1226,20 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
                            "0"))
         tabs.append(_table(f"clip_hi{s_}", [u.clip_hi[s_] for u in subs],
                            "0"))
+    if no:
+        # outer copies: each one's offset and plain region per outer dim,
+        # and the block indices at which a staged input's outer offset
+        # stays inside its allocation (a tile past it holds 0)
+        big = 1 << 29
+        tabs.append(_table2("sub_dw", [u.dw for u in subs], "0"))
+        tabs.append(_table2("oclip_lo", [u.clip_lo[3:] for u in subs], "0"))
+        tabs.append(_table2("oclip_hi", [u.clip_hi[3:] for u in subs], "0"))
+        for fn, side, sign in (("outer_alo", 0, 1), ("outer_ahi", 1, -1)):
+            tabs.append(_table2(fn, [[
+                geoms[pr.inputs[a][0]].pads[od][side]
+                + sign * pr.in_outer[a][j]
+                if od in geoms[pr.inputs[a][0]].domain_dims else big
+                for j, od in enumerate(pr.outer)] for a in tiled], "0"))
     tabs.append(_table("cmp_offset", cmp_off, "0"))
     tabs.append(_table("cmp_sub", computed_sub, "0"))
     tabs.append(_table("stage_nv", [len(n) for n in stage_vars], "0"))
@@ -1154,7 +1259,7 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
            IN_ELEMS = {in_elems}, NSTAGES = {nst}, NCMP = {len(computed)},
-           MAXV = {maxv} }};
+           MAXV = {maxv}{outer_enum} }};
 {chr(10).join(tabs)}
 
     template <int K, class RD>
@@ -1184,7 +1289,8 @@ YT_FUSED_STAGES_ENTRY({name}, Spec)
                       scratch_stages=nscr,
                       sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs],
                       in_misc=list(pr.in_misc), out_slices=out_slices,
-                      base_outputs=base_outputs)
+                      base_outputs=base_outputs, outer=no,
+                      in_outer=list(pr.in_outer) if no else [])
 
 
 # ==== K4: the trapezoid/diamond two-phase tiling =========================
@@ -1539,8 +1645,8 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     block that does not divide the span or lies under the band floor,
     pads that do not hold the diamond windows, buffers that do not fit
     shared memory, and (ROADMAP.md A12) multi-stage solutions, scratch
-    vars and the A3 arms (misc dims, partial-dim writes, element size
-    2)."""
+    vars and the A3 arms (more than 3 domain dims, misc dims, partial-dim
+    writes, element size 2)."""
     from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
     if reasons is None:
         reasons = []

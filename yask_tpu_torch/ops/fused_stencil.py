@@ -86,13 +86,16 @@ wrapper with its own counter ``stream_step.launches``; the plain version
 is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
 arm and says why; ``-no-skew`` keeps K1.
 
-The misc, partial-dim and element-size-2 arms (ROADMAP.md A3) live in
-the emitted ``Spec`` and the headers; here a misc slice of an input or
-output is a table entry of its own (``_arg_tables``), a var whose misc
-slices are not all written starts from a copy of its evicted slot
-(:func:`copy_base`, counted in ``copy_base.launches``), and at element
+The A3 arms (ROADMAP.md A3: misc dims, partial-dim writes, element size
+2, more than three domain dims) live in the emitted ``Spec`` and the
+headers; here a misc slice of an input or output, and an input at an
+outer offset, is a table entry of its own (``_arg_tables``; the outer
+dims take slots past the three, each with its stride and extent), a var
+whose misc slices are not all written starts from a copy of its evicted
+slot (:func:`copy_base`, counted in ``copy_base.launches``), at element
 size 2 the stream arm checks the strides its pair copies need
-(:func:`check_pair_strides`).  K4, K5 (:func:`shard_step`) and K7
+(:func:`check_pair_strides`), and a grid whose outer cells pass CUDA's z
+limit raises (:func:`grid_z`).  K4, K5 (:func:`shard_step`) and K7
 (``batched_chunk`` on the card) refuse these arms.
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
@@ -151,55 +154,67 @@ def plain_chunk(program, state, t0: int, k: int):
     return state
 
 
-def _interior_ptr(t, g, misc=()) -> int:
+def _interior_ptr(t, g, misc=(), outer=()) -> int:
     """Address of a state tensor's interior origin (pads skipped), in
     the misc slice ``misc`` (``((dim, index), ...)``) of a var with misc
-    axes."""
+    axes, shifted by ``outer`` (``((dim, offset), ...)``) in outer dims."""
     off = 0
     for ax, (dn, kind) in enumerate(g.axes):
         if kind == "domain":
             off += g.origin[dn] * t.stride(ax)
     for dn, v in misc:
         off += (v - g.misc_lo[dn]) * t.stride(g.axis_of(dn))
+    for dn, o in outer:
+        if o:
+            off += o * t.stride(g.axis_of(dn))
     return t.data_ptr() + off * t.element_size()
 
 
 def _slot_strides(t, g, dims) -> List[int]:
     """Element strides of a state tensor per kernel slot (0 where the var
-    lacks the dim); the solution's dims occupy the last slots."""
-    out = [0, 0, 0]
-    for i, d in enumerate(dims):
+    lacks the dim): three slots, then one per outer dim
+    (``cuda_emit.slot_map``)."""
+    slot = cuda_emit.slot_map(dims)
+    out = [0] * max(3, len(slot))
+    for d in dims:
         if d in g.domain_dims:
-            out[3 - len(dims) + i] = t.stride(g.axis_of(d))
+            out[slot[d]] = t.stride(g.axis_of(d))
     return out
 
 
 def _arg_tables(program, spec, ins, outs):
     """The ctypes arguments both entry points share: interior-origin
     addresses and per-slot strides of the inputs and outputs, and the
-    interior sizes per slot.  A misc slice (``spec.in_misc``,
-    ``spec.out_slices``) is its tensor's own table entry."""
+    interior sizes per slot (outer slots after the three).  A misc slice
+    (``spec.in_misc``, ``spec.out_slices``) and an input at an outer
+    offset (``spec.in_outer``) are their tensor's own table entries."""
     dims = list(program.ana.domain_dims)
+    slot = cuda_emit.slot_map(dims)
+    ns = max(3, len(slot))
+    outer_dims = sorted((d for d in dims if slot[d] >= 3), key=slot.get)
 
-    def table(tensors, names, miscs):
-        ptrs = [_interior_ptr(a, program.geoms[n], m)
-                for a, n, m in zip(tensors, names, miscs)]
+    def table(tensors, names, miscs, outers):
+        ptrs = [_interior_ptr(a, program.geoms[n], m,
+                              tuple(zip(outer_dims, o)))
+                for a, n, m, o in zip(tensors, names, miscs, outers)]
         strides = [s for a, n in zip(tensors, names)
                    for s in _slot_strides(a, program.geoms[n], dims)]
         k = max(len(ptrs), 1)
         return ((ctypes.c_void_p * k)(*ptrs),
-                (ctypes.c_longlong * (3 * k))(*strides))
+                (ctypes.c_longlong * (ns * k))(*strides))
 
+    nin = len(spec.inputs)
     in_ptrs, in_s = table(ins, [n for n, _s in spec.inputs],
-                          spec.in_misc or [()] * len(spec.inputs))
+                          spec.in_misc or [()] * nin,
+                          spec.in_outer or [()] * nin)
     slices = spec.out_slices or [(i, ()) for i in range(len(outs))]
     out_ptrs, out_s = table([outs[i] for i, _m in slices],
                             [spec.outputs[i] for i, _m in slices],
-                            [m for _i, m in slices])
-    sizes = [1, 1, 1]
-    for i, d in enumerate(dims):
-        sizes[3 - len(dims) + i] = program.sizes[d]
-    return in_ptrs, in_s, out_ptrs, out_s, (ctypes.c_int * 3)(*sizes)
+                            [m for _i, m in slices], [()] * len(slices))
+    sizes = [1] * ns
+    for d in dims:
+        sizes[slot[d]] = program.sizes[d]
+    return in_ptrs, in_s, out_ptrs, out_s, (ctypes.c_int * ns)(*sizes)
 
 
 def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
@@ -236,8 +251,7 @@ def _region_table(program, box, off) -> List[int]:
     global extents, per kernel slot (unused slots: [0, 1), 0, 1)."""
     dims = list(program.ana.domain_dims)
     lo, hi, o, gn = [0, 0, 0], [1, 1, 1], [0, 0, 0], [1, 1, 1]
-    for i, d in enumerate(dims):
-        s = 3 - len(dims) + i
+    for d, s in cuda_emit.slot_map(dims).items():
         lo[s], hi[s] = (int(x) for x in box[d])
         o[s] = int(off.get(d, 0))
         gn[s] = int(program.global_last[d]) + 1
@@ -265,8 +279,8 @@ def _stream_table(program, spec, seg: int) -> List[int]:
     tab = [int(seg)]
     for name in spec.outputs:
         pads = [(0, 0)] * 3
-        for i, d in enumerate(dims):
-            pads[3 - len(dims) + i] = program.geoms[name].pads[d]
+        for d, s in cuda_emit.slot_map(dims).items():
+            pads[s] = program.geoms[name].pads[d]
         tab += [int(x) for lo_hi in pads for x in lo_hi]
     return tab
 
@@ -301,7 +315,7 @@ def check_box(program, spec, box) -> None:
         lo, hi = box[d]
         if hi <= lo:
             raise YaskException(f"K5: empty box {box} in dim '{d}'")
-    slot = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
+    slot = cuda_emit.slot_map(dims)
     arrays = [(n, spec.reach.get(a, ((0, 0),) * 3))
               for a, (n, _s) in enumerate(spec.inputs)]
     arrays += [(n, ((0, 0),) * 3) for n in spec.outputs]
@@ -381,6 +395,26 @@ def copy_base(kernel: "FusedKernel", state, dev):
 copy_base.launches = 0
 
 
+#: CUDA's limit on gridDim.y and gridDim.z: K7 fills z with members ×
+#: slot-0 blocks, K1 and K6 with outer cells × slot-0 blocks.
+MAX_GRID_Z = 65535
+
+
+def grid_z(program, spec) -> int:
+    """K1's and K6's gridDim.z: the slot-0 blocks times the cells of the
+    outer dims.  :func:`_launch` refuses a grid past :data:`MAX_GRID_Z`
+    with the count; the launch code's own check in ``fused_step.cuh``
+    (``cudaErrorInvalidConfiguration``) is a backstop behind it."""
+    slot = cuda_emit.slot_map(program.ana.domain_dims)
+    z = 1
+    for d, s_ in slot.items():
+        if s_ == 0:
+            z *= -(-program.sizes[d] // spec.tile[0])
+        elif s_ >= 3:
+            z *= program.sizes[d]
+    return z
+
+
 def _launch(kernel: "FusedKernel", state, t: int, what: str):
     """Launch one sub-step of the kernel's C entry point (K1's or K6's:
     they take the same arguments) on the current CUDA stream; returns the
@@ -389,6 +423,11 @@ def _launch(kernel: "FusedKernel", state, t: int, what: str):
     import torch
     prog = kernel.program
     spec = kernel.spec
+    z = grid_z(prog, spec) if spec.outer else 0
+    if z > MAX_GRID_Z:
+        raise YaskException(
+            f"{what}: {z} outer cells x slot-0 blocks pass the grid's z "
+            f"limit {MAX_GRID_Z}")
     ins, dev = _check_inputs(kernel, state)
     outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
@@ -465,9 +504,6 @@ def stream_step(kernel: "FusedKernel", state, t: int):
 
 
 stream_step.launches = 0
-
-#: CUDA's limit on gridDim.z, which K7 fills with members × slot-0 blocks.
-MAX_GRID_Z = 65535
 
 
 def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
@@ -689,7 +725,7 @@ class FusedKernel:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         bfn = rfn = None
-        if self.spec.stages == 1:
+        if self.spec.stages == 1 and not self.spec.outer:
             bfn = getattr(lib, self.spec.name + "_batched")
             bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
                                                     ctypes.c_int,

@@ -187,7 +187,32 @@ script exits 0 only when all of them passed.  Phases:
    (K6 with scratch sub-stages), 3 trials of 20, beside phase 9 (c)'s
    fp32 tti of the same run and seed: ms/step, points/s, the kernel's ms
    per launch against its bound, the plain version's time, one chunk
-   against it and the peak memory.
+   against it and the peak memory;
+12. K7 on every arm of the member batch (the reference vmaps whatever
+   ``build_pallas_chunk`` returns): K7 over K1's body (``batched_step``)
+   and over K6's (``batched_stages_step``), each block one member and
+   one outer cell, the batch built push-off as the reference's.  (a)
+   ``-mode fused -wf_steps 2 -ensemble 3`` through ``EnsembleRun`` at mid
+   width, 5 steps, the counters zeroed just before: tti r=2 (scratch),
+   awp (rewrite), ssg (stages), gaussian r=2 and test_misc_2d (misc),
+   partial_written (partial-dim), iso3dfd r=8 in bfloat16, test_4d and
+   four_d_stages (4-D); the expected launches and no other, every member
+   bit-equal to its solo ``-mode fused`` run, one K7 chunk against
+   ``plain_batched_chunk`` on the card (``field_epsilon`` 1e-4, 1e-2 at
+   element size 2), K7's ms per launch; (b) at full width, seeded on the
+   card in physical ranges, 2 warm-up steps and 3 trials of 20 steps
+   with the counters zeroed just before: tti r=2 fp32 at 8 x 256³,
+   iso3dfd r=8 bf16 at 8 x 256³, test_4d at 8 x 64⁴, gaussian r=2 at 4 x
+   4096²x3 and awp at 8 x 256³, each beside the solo row of the same
+   points from phases 9-11 (test_4d: half of 128⁴): ms/step, K7's ms per
+   launch against its bound (the solo bound times the members), the
+   plain version's time, one chunk against it and the peak memory; (c) a
+   ``StencilServer`` batch of 4 fused tti r=2 sessions at 128³, 10
+   steps: all ``ok`` and batched, 10 launches of ``batched_stages_step``
+   and no other, each member bit-identical to its solo run; (d) the RTM
+   pipeline's push arm in bfloat16: at 64³ K6 against its plain version
+   on the card and both against the numpy oracle at (3e-2, 3e-2), then
+   at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -242,6 +267,7 @@ def launch_counts() -> dict:
     return {"fused_step": fs.fused_step.launches,
             "stream_step": fs.stream_step.launches,
             "batched_step": fs.batched_step.launches,
+            "batched_stages_step": fs.batched_stages_step.launches,
             "stages_step": fs.stages_step.launches,
             "shard_step": fs.shard_step.launches,
             "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
@@ -252,7 +278,8 @@ def launch_counts() -> dict:
 def zero_launch_counts() -> None:
     from yask_tpu_torch.ops import fused_stencil as fs
     for w in (fs.fused_step, fs.stream_step, fs.batched_step,
-              fs.stages_step, fs.shard_step, fs.copy_base):
+              fs.batched_stages_step, fs.stages_step, fs.shard_step,
+              fs.copy_base):
         w.launches = 0
     fs.trapezoid_chunk.phase1_launches = 0
     fs.trapezoid_chunk.diamond_launches = 0
@@ -261,9 +288,11 @@ def zero_launch_counts() -> None:
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
     names = (("stream_step_kernel", "stream arm"), ("fused_region_kernel",
-             "K5"), ("fused_step_kernelI4SpecLb1", "K7"),
+             "K5"), ("fused_step_kernelI4SpecLb1", "K7 (K1 body)"),
              ("fused_step_kernelI4SpecLb0", "K1"),
-             ("fused_stages_kernel", "K6"), ("trapezoid_kernel", "K4 phase 1"),
+             ("fused_stages_kernelI4SpecLb1", "K7 (K6 body)"),
+             ("fused_stages_kernelI4SpecLb0", "K6"),
+             ("trapezoid_kernel", "K4 phase 1"),
              ("diamond_kernel", "K4 diamond"))
     out, cur = [], None
     for ln in log_text.splitlines():
@@ -758,12 +787,14 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
 
 
 def rtm_pipe(env, cli: str, fuse, g, radius: int = 2,
-             accumulate: bool = False):
+             accumulate: bool = False, dtype=None):
     """The RTM chain (``rtm_chain``) as a prepared ``SolutionPipeline``
-    over ``g = (x, y, z)``."""
+    over ``g = (x, y, z)``, in ``dtype`` (``lowering.BFLOAT16`` for
+    element size 2; float32 by default)."""
     from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
     pipe = SolutionPipeline(env, *rtm_chain(radius=radius,
-                                            accumulate=accumulate))
+                                            accumulate=accumulate),
+                            dtype=dtype)
     pipe.apply_command_line_options(
         f"-g_x {g[0]} -g_y {g[1]} -g_z {g[2]} {cli}")
     pipe.prepare(fuse=fuse)
@@ -811,15 +842,110 @@ def pipe_diff(a, b):
     return err, scale
 
 
+def rtm_full(env, full: int, name: str, cli: str, pushed: set,
+             dtype=None, warm: int = 2, trials: int = 3,
+             steps: int = 20) -> dict:
+    """The RTM pipeline at ``full``³ (phase 6 (c); phase 12 (d) in
+    bfloat16): ``fwd`` seeded as :func:`seed_chain`, ``warm`` steps, then
+    ``trials`` runs of ``steps`` with every counter zeroed just before
+    (K6 alone may launch); K6's ms per launch against its bound (each
+    input read once, each output written once), the plain version's time
+    and one step against it.  Returns the ``kernels`` entry."""
+    import numpy as np
+    import torch
+    from yask_tpu_torch.compiler.lowering import is_bfloat16
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
+    g = (full,) * 3
+    npts = g[0] * g[1] * g[2]
+    bf16 = dtype is not None and is_bfloat16(dtype)
+    dt, esize = ("bf16", 2) if bf16 else ("fp32", 4)
+    eps = BF16_FIELD_EPS if bf16 else FIELD_EPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g,
+                    dtype=dtype)
+    if pipe.pushed_vars() != pushed:
+        raise RuntimeError(f"rtm {dt} {name}: pushed {pipe.pushed_vars()}")
+    seed_chain(pipe, g, 7)
+    pipe.run(0, warm - 1)
+    t = warm
+    zero_launch_counts()
+    secs = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        pipe.run(t, t + steps - 1)      # ends in a synchronize
+        secs.append(time.perf_counter() - t0)
+        t += steps
+    moved = {k: v for k, v in launch_counts().items() if v}
+    launches = moved.get("stages_step", 0)
+    if moved != {"stages_step": trials * steps}:
+        raise RuntimeError(
+            f"rtm {dt} {name}: launches {moved} in the window, expected "
+            f"{trials * steps} of K6 alone")
+    peak = torch.cuda.max_memory_allocated()
+    secs.sort()
+    step_ms = secs[len(secs) // 2] / steps * 1e3
+    sv = pipe.get_var("smooth", "smooth")
+    ts = sv.get_last_valid_step_index()
+    out = sv.get_elements_in_slice([ts, 0, 0, 0], [ts] + [n - 1 for n in g])
+    if out.shape != g or not np.isfinite(out).all() \
+            or not np.abs(out).max() > 0:
+        raise RuntimeError(f"rtm {dt} {name}: smooth is not finite and "
+                           "nonzero")
+    del out
+    ctx = pipe.fused_ctx
+    kern, prog, state = ctx._fused, ctx._program, ctx._state
+    spec = kern.spec
+    ms = cuda_ms(lambda: stages_step(kern, state, t), 10)
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 3)
+    a = kern.chunk(dict(state), t, 1)
+    b = plain_chunk(prog, dict(state), t, 1)
+    err = max(float((a[n][-1].float() - b[n][-1].float()).abs().max())
+              for n in spec.outputs)
+    scale = max(float(b[n][-1].float().abs().max()) for n in spec.outputs)
+    del a, b
+    if not err <= eps * scale:
+        raise RuntimeError(f"rtm {dt} {name}: K6 and its plain version "
+                           f"disagree at {full}^3")
+    bytes_pt = esize * (len(spec.inputs) + len(spec.outputs))
+    bytes_ms = bytes_pt * npts / HBM_BYTES_PER_S * 1e3
+    flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
+    log(f"phase {12 if bf16 else 6}: rtm chain r=2 pure {full}^3 {dt} "
+        f"-mode fused -wf_steps 1"
+        f" ({name}, pushed {sorted(pushed)}): {trials} trials x {steps}"
+        f" steps: {step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f},"
+        f" max {secs[-1] / steps * 1e3:.3f}), "
+        f"{npts / step_ms * 1e3:.4e} points/s; stages_step launches in "
+        f"the window {launches}")
+    log(f"phase {12 if bf16 else 6}: {name}: stages_step {ms:.3f} "
+        f"ms/launch (CUDA events, "
+        f"zero-filled outputs included) against its bound "
+        f"{bound_ms:.3f} ms ({bound_by}: {bytes_pt} B/pt -> "
+        f"{bytes_ms:.3f} ms; {ctx._ana.counters.num_ops} FLOP/pt -> "
+        f"{flops_ms:.3f} ms); share {bound_ms / ms:.3f} per launch, "
+        f"{bound_ms / step_ms:.3f} per step; plain version "
+        f"{plain_ms:.3f} ms/step (not a yardstick); one step kernel vs "
+        f"plain max|d|={err:.3e} (field max {scale:.3e}); "
+        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB")
+    pipe.end()
+    del pipe, ctx, kern, prog, state
+    torch.cuda.empty_cache()
+    return {"name": "stages_step", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (push= arm)",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "step_ms": step_ms}
+
+
 def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
            full: int = 512) -> dict:
     """The pipeline path: the merged RTM chain through K6 (see the module
     docstring; the sizes are its grids); returns K6's entry of the
     ``kernels`` line."""
-    import numpy as np
-    import torch
-    from yask_tpu_torch.ops.fused_stencil import (fused_step, plain_chunk,
-                                                  stages_step)
+    from yask_tpu_torch.ops.fused_stencil import fused_step, stages_step
 
     # (a) K6 against its plain version (-mode torch runs StepProgram.step
     #     of the same merged program), ragged grid and the r=8 ladder
@@ -881,93 +1007,13 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
     del arms
 
     # (c) the path at full size, push and -push off
-    g = (full,) * 3
-    npts = g[0] * g[1] * g[2]
-    warm, trials, steps = 2, 3, 20
     entry = None
     for name, cli, pushed in (("push", "", {"img__img"}),
                               ("-push off", "-push off", set())):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g)
-        if pipe.pushed_vars() != pushed:
-            raise RuntimeError(f"phase 6: {name}: pushed "
-                               f"{pipe.pushed_vars()}")
-        seed_chain(pipe, g, 7)
-        pipe.run(0, warm - 1)
-        t = warm
-        zero_launch_counts()
-        secs = []
-        for _ in range(trials):
-            t0 = time.perf_counter()
-            pipe.run(t, t + steps - 1)      # ends in a synchronize
-            secs.append(time.perf_counter() - t0)
-            t += steps
-        moved = {k: v for k, v in launch_counts().items() if v}
-        launches = moved.get("stages_step", 0)
-        if moved != {"stages_step": trials * steps}:
-            raise RuntimeError(
-                f"phase 6: {name}: launches {moved} in the window, expected "
-                f"{trials * steps} of K6 alone")
-        peak = torch.cuda.max_memory_allocated()
-        secs.sort()
-        step_ms = secs[len(secs) // 2] / steps * 1e3
-        sv = pipe.get_var("smooth", "smooth")
-        ts = sv.get_last_valid_step_index()
-        out = sv.get_elements_in_slice([ts, 0, 0, 0],
-                                       [ts] + [n - 1 for n in g])
-        if out.shape != g or not np.isfinite(out).all() \
-                or not np.abs(out).max() > 0:
-            raise RuntimeError(f"phase 6: {name}: smooth is not finite "
-                               "and nonzero")
-        del out
-        ctx = pipe.fused_ctx
-        kern, prog, state = ctx._fused, ctx._program, ctx._state
-        spec = kern.spec
-        ms = cuda_ms(lambda: stages_step(kern, state, t), 10)
-        plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 3)
-        a = kern.chunk(dict(state), t, 1)
-        b = plain_chunk(prog, dict(state), t, 1)
-        err = max(float((a[n][-1] - b[n][-1]).abs().max())
-                  for n in spec.outputs)
-        scale = max(float(b[n][-1].abs().max()) for n in spec.outputs)
-        del a, b
-        if not err <= FIELD_EPS * scale:
-            raise RuntimeError(f"phase 6: {name}: K6 and its plain version "
-                               f"disagree at {full}^3")
-        bytes_pt = 4 * (len(spec.inputs) + len(spec.outputs))
-        bytes_ms = bytes_pt * npts / HBM_BYTES_PER_S * 1e3
-        flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
-        bound_ms = max(bytes_ms, flops_ms)
-        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-        log(f"phase 6: rtm chain r=2 pure {full}^3 fp32 -mode fused "
-            f"-wf_steps 1"
-            f" ({name}, pushed {sorted(pushed)}): {trials} trials x {steps}"
-            f" steps: {step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f},"
-            f" max {secs[-1] / steps * 1e3:.3f}), "
-            f"{npts / step_ms * 1e3:.4e} points/s; stages_step launches in "
-            f"the window {launches}")
-        log(f"phase 6: {name}: stages_step {ms:.3f} ms/launch (CUDA events, "
-            f"zero-filled outputs included) against its bound "
-            f"{bound_ms:.3f} ms ({bound_by}: {bytes_pt} B/pt -> "
-            f"{bytes_ms:.3f} ms; {ctx._ana.counters.num_ops} FLOP/pt -> "
-            f"{flops_ms:.3f} ms); share {bound_ms / ms:.3f} per launch, "
-            f"{bound_ms / step_ms:.3f} per step; plain version "
-            f"{plain_ms:.3f} ms/step (not a yardstick); one step kernel vs "
-            f"plain max|d|={err:.3e} (field max {scale:.3e}); "
-            f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB")
+        e = rtm_full(env, full, name, cli, pushed)
         if entry is None:
-            entry = {"name": "stages_step", "route": "cuda",
-                     "source": "yask_tpu_torch/csrc/fused_step.cuh",
-                     "replaces": "yask_tpu/ops/pallas_stencil.py:2312 "
-                                 "(push= arm)",
-                     "launches": launches,
-                     "max_abs_err": max(err, worst), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None}
-        pipe.end()
-        del pipe, ctx, kern, prog, state
-        torch.cuda.empty_cache()
+            entry = e
+            entry["max_abs_err"] = max(e["max_abs_err"], worst)
     return entry
 
 
@@ -1642,6 +1688,13 @@ WRITTEN_RANGES = {("swe2d", "h"): (0.5, 0.51)}
 def seed_physical(ctx, seed: int) -> None:
     """A numpy-seeded state in the ranges above, through the yk_var slice
     API (``numpy.random.default_rng(seed)``, float32 draws)."""
+    for name, vals, first, last in physical_slices(ctx, seed):
+        ctx.get_var(name).set_elements_in_slice(vals, first, last)
+
+
+def physical_slices(ctx, seed: int):
+    """:func:`seed_physical`'s state as ``(var, values, first, last)``
+    slices."""
     import numpy as np
     rng = np.random.default_rng(seed)
     written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
@@ -1661,7 +1714,7 @@ def seed_physical(ctx, seed: int) -> None:
                     ).astype(np.float32)
             first = ([t] if t is not None else []) + [0] * len(dd)
             last = ([t] if t is not None else []) + [n - 1 for n in sizes]
-            v.set_elements_in_slice(vals, first, last)
+            yield name, vals, first, last
 
 
 def ragged_sizes(tile) -> tuple:
@@ -2190,18 +2243,25 @@ def phase10b(fac, env, g: int = 24) -> None:
                                "mismatches against the oracle")
 
 
-def seed_device(ctx, seed: int) -> None:
+def seed_device(ctx, seed: int, physical: bool = False) -> None:
     """A seeded random interior state made on the card (a torch CUDA
     generator, bulk): written vars uniform in [0, 1), read-only ones
-    0.05 + 0.01 U."""
+    0.05 + 0.01 U; with ``physical``, in :func:`seed_physical`'s ranges
+    (read-only coefficients by :data:`COEFF_RANGES`, written vars in
+    [0, 0.01))."""
     import torch
     gen = torch.Generator(device=ctx._device).manual_seed(seed)
     written = {eq.lhs.var_name() for eq in ctx._soln.get_equations()}
     for name in sorted(ctx._state):
+        lo, hi = (WRITTEN_RANGES.get((ctx.get_name(), name), (0.0, 0.01))
+                  if name in written else
+                  COEFF_RANGES.get(name, (0.05, 0.06)))
         for slot in range(len(ctx._state[name])):
             shape = ctx._interior_shape(name)
             v = torch.rand(shape, generator=gen, device=ctx._device)
-            if name not in written:
+            if physical:
+                v = lo + (hi - lo) * v
+            elif name not in written:
                 v = 0.05 + 0.01 * v
             ctx._fill_interior(name, slot,
                                lambda xp, n, v=v: v.reshape(-1))
@@ -2601,30 +2661,415 @@ def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
     log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
     return entries
 
+# ---- phase 12: K7 on every arm of the member batch -----------------------
 
-def main() -> int:
+#: Phase 12's arms of a member batch: (arm, solution, radius, element
+#: bytes, mid-width sizes per slot (or per dim of a 4-D solution), the K7
+#: wrapper that runs it).  Phase 12 (a) runs each at its mid width.
+K7_CASES = (("scratch", "tti", 2, 4, (48, 48, 70), "batched_stages_step"),
+            ("rewrite", "awp", None, 4, (48, 48, 70),
+             "batched_stages_step"),
+            ("stages", "ssg", 2, 4, (48, 48, 70), "batched_stages_step"),
+            ("misc", "gaussian", 2, 4, (1, 512, 512),
+             "batched_stages_step"),
+            ("misc", "test_misc_2d", None, 4, (1, 512, 512),
+             "batched_step"),
+            ("partial-dim", "partial_written", None, 4, (48, 48, 70),
+             "batched_stages_step"),
+            ("element size 2", "iso3dfd", 8, 2, (48, 48, 70),
+             "batched_step"),
+            ("4-D", "test_4d", None, 4, (16, 16, 16, 16), "batched_step"),
+            ("4-D", "four_d_stages", None, 4, (16, 16, 16, 16),
+             "batched_stages_step"))
+#: Phase 12 (b)'s cells at full width: (arm, solution, radius, element
+#: bytes, members, sizes per member, the wrapper, the solo row's key): the
+#: members hold the points of the solo row of an earlier phase (test_4d:
+#: half of phase 11's 128^4).
+K7_FULL = (("scratch", "tti", 2, 4, 8, (256,) * 3, "batched_stages_step",
+            "tti"),
+           ("element size 2", "iso3dfd", 8, 2, 8, (256,) * 3,
+            "batched_step", "iso3dfd bf16"),
+           ("4-D", "test_4d", None, 4, 8, (64,) * 4, "batched_step",
+            "test_4d"),
+           ("misc", "gaussian", 2, 4, 4, (1, 4096, 4096),
+            "batched_stages_step", "gaussian"),
+           ("rewrite", "awp", None, 4, 8, (256,) * 3, "batched_stages_step",
+            "awp"))
+#: what K7 replaces: the reference's vmap of ``build_pallas_chunk``
+K7_REPLACES = ("yask_tpu/runtime/ensemble.py:234-345 (jax.vmap of "
+               "build_pallas_chunk :253-263, :334) -> "
+               "yask_tpu/ops/pallas_stencil.py:2312")
+
+
+def k7_specs(fac, env) -> dict:
+    """Phase 12's kernels, for phase 1's parallel build: each arm's
+    push-off source (K7's entry ``<name>_batched`` is in every emitted
+    source) and the bfloat16 RTM chain's (phase 12 (d))."""
+    from yask_tpu_torch.compiler.lowering import BFLOAT16
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for _arm, st, r, eb, sizes, _w in K7_CASES:
+        ctx = a3_ctx(fac, env, st, r, eb, tuple(min(n, 16) for n in sizes),
+                     "fused")
+        out[f"{st} r={r} {eb} B (K7)"] = fused_stencil.FusedKernel(
+            ctx._program).spec
+    pipe = rtm_pipe(env, "-mode fused -wf_steps 1", True, (16, 16, 16),
+                    dtype=BFLOAT16)
+    out["rtm r=2 pure bf16"] = pipe.fused_ctx._fused_spec_kernel().spec
+    pipe.end()
+    return out
+
+
+def member_batch(fac, env, st, r, eb, sizes, nm: int, seed, K: int = 2):
+    """A ``-mode fused -wf_steps K`` context of ``st`` and an
+    ``EnsembleRun`` of ``nm`` members, member i seeded by ``seed(c, i)``."""
+    ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused", K)
+    ens = ctx.new_ensemble(nm)
+    for i in range(nm):
+        with ens.member(i) as c:
+            seed(c, i)
+    return ctx, ens
+
+
+def k7_chunk_vs_plain(ctx, ens, t: int, k: int):
+    """One ``k``-step K7 chunk of the stacked members against
+    ``plain_batched_chunk`` on the card: (max |d|, cells whose bits
+    differ, field max)."""
+    from yask_tpu_torch.ops.fused_stencil import plain_batched_chunk
+    kern, prog, nm = ctx._batched_kernel(), ctx._program, ens.n
+    state = ens._stack_states()
+    a = kern.batched_chunk(dict(state), t, k, nm)
+    b = plain_batched_chunk(prog, dict(state), t, k, nm)
+    err, nbits, scale = 0.0, 0, 0.0
+    for n in kern.spec.outputs:
+        for x, y in zip(a[n][-k:], b[n][-k:]):
+            err = max(err, float((x.float() - y.float()).abs().max()))
+            nbits += int((x != y).sum())
+            scale = max(scale, float(y.float().abs().max()))
+    return err, nbits, scale
+
+
+def k7_bound(ctx, nm: int, live=None) -> tuple:
+    """K7's least time for ``nm`` members: a member's bound (phase 9's
+    live inputs where given, else :func:`a3_bound`'s arrays) times
+    ``nm``.  Returns (ms, "bytes"/"operations", bytes)."""
+    if live is None:
+        _ms, _by, nbytes = a3_bound(ctx)
+    else:
+        nbytes = io_bytes(ctx, live)
+    npts = 1
+    for d in ctx._ana.domain_dims:
+        npts *= ctx._program.sizes[d]
+    bytes_ms = nm * nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = nm * ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nm * nbytes)
+
+
+def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5) -> list:
+    """Phase 12 (a): each arm's member batch at mid width through
+    ``EnsembleRun`` (K = 2, ``steps`` steps, the counters zeroed just
+    before and read just after), each member against its solo ``-mode
+    fused`` run to the bit, one K7 chunk against ``plain_batched_chunk``
+    on the card, and K7's ms per launch at that width.  Returns the
+    ``kernels`` entries."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "false)", file=sys.stderr)
-        return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    from yask_tpu_torch import yk_factory
+    from yask_tpu_torch.ops import fused_stencil as fs
+    entries = []
+    for arm, st, r, eb, sizes, wrapper in K7_CASES:
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        ctx, ens = member_batch(fac, env, st, r, eb, sizes, nm,
+                                lambda c, i: seed_case(c, 100 + i))
+        zero_launch_counts()
+        ens.run(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        spec = ctx._batched_kernel().spec
+        want = {wrapper: steps}
+        if spec.base_outputs:
+            want["copy_base"] = len(spec.base_outputs) * steps
+        if got != want:
+            raise RuntimeError(f"phase 12: {st}: launches {got}, expected "
+                               f"{want}")
+        if ens.tiling["kernel"] != wrapper:
+            raise RuntimeError(f"phase 12: {st} ran {ens.tiling['kernel']}")
+        for i in range(nm):
+            solo = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2)
+            seed_case(solo, 100 + i)
+            solo.run_solution(0, steps - 1)
+            with ens.member(i) as c:
+                d, nbits = device_diff(c, solo, exact=True)
+                ok = finite(c)
+            if nbits or not ok:
+                raise RuntimeError(f"phase 12: {st} member {i}: {nbits} "
+                                   "cells differ from its solo run "
+                                   f"(max|d|={d:.3e}), finite {ok}")
+            del solo
+        err, nbits, scale = k7_chunk_vs_plain(ctx, ens, steps, 2)
+        state = ens._stack_states()
+        kern, prog = ctx._batched_kernel(), ctx._program
+        ms = cuda_ms(lambda: getattr(fs, wrapper)(kern, state, steps, nm), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_batched_chunk(
+            prog, state, steps, 1, nm), 2)
+        bound_ms, bound_by, nbytes = k7_bound(ctx, nm)
+        shape = "x".join(map(str, sizes[-len(ctx._ana.domain_dims):]))
+        log(f"phase 12: {arm} arm, {st} r={r} {eb} B, {nm} x {shape} "
+            f"K=2 {steps} steps: launches {got}; every member bit-equal to "
+            f"its solo -mode fused run; one 2-step {wrapper} chunk vs plain "
+            f"(plain_batched_chunk on the card): max|d|={err:.3e} (field "
+            f"max {scale:.3e}), {nbits} cells differ in their bits; "
+            f"{wrapper} {ms:.3f} ms/launch (CUDA events), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms; "
+            f"tile {list(spec.tile)}, {spec.stages} sub-stage(s) [{card}]")
+        if not err <= eps * scale:
+            raise RuntimeError(f"phase 12: {st}: K7 and its plain version "
+                               "disagree")
+        entries.append({
+            "name": f"{wrapper} ({arm} arm: {st} r={r} {eb} B, {nm} x "
+                    f"{shape}, mid width)",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": K7_REPLACES, "launches": got[wrapper],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "path": "phase 12 (a)"})
+        del ctx, ens, state, kern
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
+             trials: int = 3, steps: int = 20) -> list:
+    """Phase 12 (b): each cell of :data:`K7_FULL` through ``EnsembleRun``
+    (``-wf_steps 2``): ``warm`` steps, then ``trials`` runs of ``steps``
+    with every counter zeroed just before; ms/step (host clock around
+    ``run``, which stacks, launches, synchronizes and unstacks), K7's ms
+    per launch against its bound, the plain version's time, one chunk
+    against it, the peak memory, and the solo row of an earlier phase
+    (``solo``) beside it.  Returns the ``kernels`` entries."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    entries = []
+    for arm, st, r, eb, nm, sizes, wrapper, key in K7_FULL:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        live = live_inputs(fac, env, st, r) if st in ("tti", "awp") else None
+        t0 = time.perf_counter()
+        ctx, ens = member_batch(
+            fac, env, st, r, eb, sizes, nm,
+            lambda c, i: seed_device(c, 11 + i, physical=True))
+        torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+        npts = 1
+        for d in ctx._ana.domain_dims:
+            npts *= ctx._program.sizes[d]
+        ens.run(0, warm - 1)
+        t = warm
+        zero_launch_counts()
+        secs = []
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            ens.run(t, t + steps - 1)
+            secs.append(time.perf_counter() - t0)
+            t += steps
+        got = {k: v for k, v in launch_counts().items() if v}
+        kern, prog = ctx._batched_kernel(), ctx._program
+        want = {wrapper: trials * steps}
+        if kern.spec.base_outputs:
+            want["copy_base"] = len(kern.spec.base_outputs) * trials * steps
+        if got != want:
+            raise RuntimeError(f"phase 12: {st} {nm} members: launches "
+                               f"{got}, expected {want}")
+        for i in range(nm):
+            with ens.member(i) as c:
+                if not finite(c):
+                    raise RuntimeError(f"phase 12: {st} member {i} is not "
+                                       "finite")
+        secs.sort()
+        step_ms = secs[len(secs) // 2] / steps * 1e3
+        state = ens._stack_states()
+        ms = cuda_ms(lambda: getattr(fs, wrapper)(kern, state, t, nm), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_batched_chunk(
+            prog, state, t, 1, nm), 2)
+        del state
+        err, nbits, scale = k7_chunk_vs_plain(ctx, ens, t, 2)
+        peak = torch.cuda.max_memory_allocated()
+        bound_ms, bound_by, nbytes = k7_bound(ctx, nm, live)
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        shape = "x".join(map(str, sizes[-len(ctx._ana.domain_dims):]))
+        s_row = solo[key]
+        s_pts = s_row["points"]
+        log(f"phase 12: {arm} arm, {st} r={r} {eb} B, {nm} x {shape} "
+            f"-mode fused -wf_steps 2 -ensemble {nm}: seeded on the card in "
+            f"{seed_s:.1f} s; {trials} trials x {steps} steps: "
+            f"{step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f}, max "
+            f"{secs[-1] / steps * 1e3:.3f}; stacking and unstacking "
+            f"included), {nm * npts / step_ms * 1e3:.4e} points/s; "
+            f"launches {got}; {wrapper} {ms:.3f} ms/launch (CUDA events); "
+            f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / nm / npts:.1f} "
+            f"B/pt), share {bound_ms / ms:.3f} per launch, "
+            f"{bound_ms / step_ms:.3f} per step; plain version "
+            f"{plain_ms:.3f} ms/step (not a yardstick); one 2-step chunk "
+            f"vs plain: max|d|={err:.3e} (field max {scale:.3e}), {nbits} "
+            f"cells differ in their bits; torch.cuda.max_memory_allocated()"
+            f" = {peak / 2**30:.2f} GiB; solo row ({s_row['label']}, "
+            f"{s_pts} points) {s_row['ms']:.3f} ms/launch, "
+            f"{s_row['step_ms']:.3f} ms/step: the batch per point "
+            f"{(ms / (nm * npts)) / (s_row['ms'] / s_pts):.3f}x the solo "
+            f"launch [{card}]")
+        if not err <= eps * scale:
+            raise RuntimeError(f"phase 12: {st}: K7 and its plain version "
+                               "disagree at full width")
+        entries.append({
+            "name": f"{wrapper} ({arm} arm: {st} r={r} {eb} B, {nm} x "
+                    f"{shape})",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": K7_REPLACES, "launches": got[wrapper],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "path": "phase 12 (b)",
+            "step_ms": step_ms, "bytes_per_point": nbytes / nm / npts,
+            "peak_bytes": peak, "solo_ms": s_row["ms"],
+            "solo_step_ms": s_row["step_ms"], "solo_points": s_pts})
+        del ctx, ens, kern
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase12c(fac, env, card: str, g: int = 128, nses: int = 4,
+             steps: int = 10) -> None:
+    """Phase 12 (c): a ``StencilServer`` batch of ``nses`` fused tti r=2
+    sessions at ``g``³, seeded in physical ranges through
+    ``set_var_slice``: every response ok, batched at occupancy ``nses``,
+    K7 over K6's body launched once per step and nothing else, and each
+    member bit-identical to a solo ``-mode fused`` run from its seed."""
+    import tempfile
+    import numpy as np
+    from yask_tpu_torch.serve import StencilServer
+    from yask_tpu_torch.serve.scheduler import extract_outputs
+    tmp = tempfile.mkdtemp(prefix="yt_chip_smoke_")
+    srv = StencilServer(env, journal_path=os.path.join(tmp, "SERVE.jsonl"),
+                        window_secs=0.05, max_batch=nses)
+    try:
+        sids = [srv.open_session(stencil="tti", radius=2, g=g,
+                                 mode="fused", wf=2, bucket=False)
+                for _ in range(nses)]
+        for i, sid in enumerate(sids):
+            with srv.scheduler.session_ctx(sid) as c:
+                slices = list(physical_slices(c, 200 + i))
+            for name, vals, first, last in slices:
+                srv.set_var_slice(sid, name, vals, first, last)
+        zero_launch_counts()
+        handles = [srv.submit_run(sid, 0, steps - 1) for sid in sids]
+        resps = [srv.wait(h, timeout=600) for h in handles]
+        got = {k: v for k, v in launch_counts().items() if v}
+        for r in resps:
+            if not (r.ok and r.batched and r.batch == nses
+                    and not r.degraded):
+                raise RuntimeError(
+                    f"phase 12: served tti {r.rid}: status {r.status}, "
+                    f"batch {r.batch}, batched {r.batched}, degraded "
+                    f"{r.degraded}, error {r.error!r}")
+        if got != {"batched_stages_step": steps}:
+            raise RuntimeError(f"phase 12: served tti: launches {got}, "
+                               f"expected {steps} of batched_stages_step")
+        for i, r in enumerate(resps):
+            solo = fac.new_solution(env, stencil="tti", radius=2)
+            solo.apply_command_line_options(f"-g {g} -mode fused "
+                                            "-wf_steps 2")
+            solo.prepare_solution()
+            seed_physical(solo, 200 + i)
+            solo.run_solution(0, steps - 1)
+            want = extract_outputs(solo)
+            d = max(float(np.abs(want[n].astype(np.float64)
+                                 - r.outputs[n]).max()) for n in want)
+            if d != 0.0:
+                raise RuntimeError(f"phase 12: served tti member {i} is "
+                                   f"not bit-identical to its solo run "
+                                   f"(max|d|={d:.3e})")
+            del solo
+        log(f"phase 12: StencilServer, {nses} fused tti r=2 sessions at "
+            f"{g}^3, {steps} steps: all ok, batched at occupancy {nses}, "
+            f"none degraded; launches {got}; every member bit-identical to "
+            f"its solo -mode fused run [{card}]")
+    finally:
+        srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase12d(env, card: str, fp32: dict, mid: int = 64,
+             full: int = 512) -> dict:
+    """Phase 12 (d): the RTM pipeline's push arm in bfloat16 (K6 with the
+    image pushed in a bfloat16 tile): at ``mid``³ for 4 steps, the fused
+    pipeline on the card against its plain version on the card (within
+    an ulp of bfloat16 of the field) and both against the numpy oracle
+    (``-mode ref``) at (3e-2, 3e-2); then at ``full``³ as phase 6 (c),
+    beside phase 6's fp32 row (``fp32``).  Returns the ``kernels``
+    entry."""
+    from yask_tpu_torch.compiler.lowering import BFLOAT16
+    g = (mid,) * 3
+    pipes = {mode: rtm_pipe(env, f"-mode {mode} -wf_steps 1", True, g,
+                            dtype=BFLOAT16)
+             for mode in ("fused", "torch", "ref")}
+    if pipes["fused"].pushed_vars() != {"img__img"}:
+        raise RuntimeError(f"phase 12: bf16 rtm pushed "
+                           f"{pipes['fused'].pushed_vars()}")
+    for p in pipes.values():
+        seed_chain(p, g, 7)
+    zero_launch_counts()
+    pipes["fused"].run(0, 3)
+    got = {k: v for k, v in launch_counts().items() if v}
+    for mode in ("torch", "ref"):
+        pipes[mode].run(0, 3)
+    err, scale = pipe_diff(pipes["fused"], pipes["torch"])
+    bad = {m: pipes[m].compare(pipes["ref"], BF16_ORACLE_EPS,
+                               BF16_ORACLE_EPS) for m in ("fused", "torch")}
+    log(f"phase 12: rtm chain r=2 pure bf16 {mid}^3, 4 steps, image pushed: "
+        f"K6 vs plain on the card max|d|={err:.3e} (field max "
+        f"{scale:.3e}); against the numpy oracle at (3e-2, 3e-2): fused "
+        f"{bad['fused']}, plain {bad['torch']} mismatches; launches {got}")
+    if got != {"stages_step": 4}:
+        raise RuntimeError(f"phase 12: bf16 rtm launches {got}")
+    if not err <= BF16_FIELD_EPS * scale or any(bad.values()):
+        raise RuntimeError("phase 12: the bf16 push arm disagrees")
+    for p in pipes.values():
+        p.end()
+    del pipes
+    e = rtm_full(env, full, "push", "", {"img__img"}, dtype=BFLOAT16)
+    log(f"phase 12: rtm chain r=2 pure {full}^3 push: bf16 {e['ms']:.3f} "
+        f"ms/launch, {e['step_ms']:.3f} ms/step against fp32's "
+        f"{fp32['ms']:.3f}, {fp32['step_ms']:.3f} (phase 6 (c) of this run); "
+        f"bound {e['bound_ms']:.3f} against {fp32['bound_ms']:.3f} ms "
+        f"[{card}]")
+    e.update(name="stages_step (push arm, element size 2: rtm chain r=2 "
+                  f"{full}^3 bf16)",
+             replaces="yask_tpu/ops/pallas_stencil.py:2312 (push= arm, "
+                      "VMEM tiles in the program dtype :2264-2289)",
+             max_abs_err=max(e["max_abs_err"], err), path="phase 12 (d)",
+             fp32_ms=fp32["ms"], fp32_step_ms=fp32["step_ms"])
+    return e
+
+
+def phase12(fac, env, card: str, solo: dict, rtm32: dict) -> list:
+    """K7 on every arm of the member batch, the served batch of a K6
+    solution, and the bfloat16 push arm (see the module docstring).
+    Returns the ``kernels`` entries."""
+    import torch
+    t_phase = time.perf_counter()
+    entries = phase12a(fac, env, card)
+    torch.cuda.empty_cache()
+    entries += phase12b(fac, env, card, solo)
+    torch.cuda.empty_cache()
+    phase12c(fac, env, card)
+    torch.cuda.empty_cache()
+    entries.append(phase12d(env, card, rtm32))
+    log(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def phase1(fac, env, cases: dict) -> None:
+    """Build every kernel of the path, one ``nvcc`` per source, all
+    started together (``cases``: phase 2's solutions and radii)."""
     from yask_tpu_torch.ops import _build, fused_stencil
-
-    t_start = time.perf_counter()
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}")
-    card = card_line()
-    log(f"card: {card}")
-    fac = yk_factory()
-    env = fac.new_env()
-    dev_name = torch.cuda.get_device_name(0)
-
-    # ---- phase 1: build every kernel of the path ----------------------
     t0 = time.perf_counter()
-    cases = {"iso3dfd": 8, "3axis": 1}
     specs = {}
     for st, r in cases.items():
         ctx = make_ctx(fac, env, st, r, 64, "fused")
@@ -2649,6 +3094,7 @@ def main() -> int:
     specs.update(family_specs(fac, env))
     specs.update(a3_specs(fac, env))
     specs.update(a3b_specs(fac, env))
+    specs.update(k7_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -2658,19 +3104,42 @@ def main() -> int:
                    f"diamond_kernel per dim; passes "
                    f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
                    if s.trap else
-                   f"entries {s.name} (K1)"
-                   + ("" if s.outer else ", _batched (K7), _region (K5)")
+                   f"entries {s.name} (K1), _batched (K7)"
+                   + ("" if s.outer else ", _region (K5)")
                    + (f", _stream (stream arm: {s.stream.record()})"
                       if s.stream is not None else "")
                    if s.stages == 1 else
-                   f"entry {s.name} (K6, {s.stages} sub-stages, "
+                   f"entries {s.name} (K6, {s.stages} sub-stages, "
                    f"{s.scratch_stages} of scratch vars, pushed "
-                   f"{s.push_vars})")
+                   f"{s.push_vars}), _batched (K7)")
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "false)", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from yask_tpu_torch import yk_factory
+
+    t_start = time.perf_counter()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    card = card_line()
+    log(f"card: {card}")
+    fac = yk_factory()
+    env = fac.new_env()
+    dev_name = torch.cuda.get_device_name(0)
+
+    cases = {"iso3dfd": 8, "3axis": 1}
+    phase1(fac, env, cases)
 
     phase2(fac, env, cases)
     phase3(fac, env, cases)
@@ -2688,11 +3157,21 @@ def main() -> int:
     a3_arms = phase10(fac, env, card)
     torch.cuda.empty_cache()
     last_arms = phase11(fac, env, card, k6_arms[0])
+    torch.cuda.empty_cache()
+    # the solo rows of the same points beside phase 12 (b)'s member batches
+    solo = {key: dict(e, label=label, points=pts) for key, e, label, pts in (
+        ("tti", k6_arms[0], "phase 9 (c), K6, 512^3", 512 ** 3),
+        ("awp", k6_arms[1], "phase 9 (c), K6, 512^3", 512 ** 3),
+        ("iso3dfd bf16", a3_arms[3], "phase 10 (c), K1 -no-skew, 512^3",
+         512 ** 3),
+        ("test_4d", last_arms[0], "phase 11 (c), K1, 128^4", 128 ** 4),
+        ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
+    k7_arms = phase12(fac, env, card, solo, k6)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
-                      + k6_arms + a3_arms + last_arms}))
+                      + k6_arms + a3_arms + last_arms + k7_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

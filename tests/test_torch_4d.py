@@ -18,7 +18,11 @@ reads at an outer offset in outer copies of the earlier sub-stages
   version, from states whose read-only inputs carry nonzero pads, into
   NaN-filled outputs: bit-equal (``rtol=0, atol=0``); the pads stay NaN.
 * The paths that do not take the arm: ``-trapezoid`` falls back to K1
-  (A12), ``shard_pallas`` and ``-ensemble 2`` raise (A11, A9).
+  (A12) and ``shard_pallas`` raises (A11); a member batch (``-ensemble
+  2``, K7) takes it, each member bit-equal to its solo run.
+* K1 folds the outer cells into the grid's z cells: past CUDA's limit of
+  65535 the launch code walks them in several launches, which the
+  emulated device code runs at a cap of 2.
 """
 
 import importlib
@@ -35,6 +39,7 @@ from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_fused import host_kernel
 from test_torch_kernel_emulation import emulated_kernel
+from test_torch_ensemble import members_match_solo
 from test_torch_lowering import (mismatches, seeded_interiors, tpu_export,
                                  tpu_import)
 from test_torch_scratch import k6_launch, with_pads
@@ -254,9 +259,9 @@ def test_4d_trapezoid_falls_back_and_k5_k7_refuse():
                        "arms on K5\\)"):
         port_ctx("test_4d", "-g 8 -mode shard_pallas -nr_x 2",
                  env=fac.new_env(devices=["cpu"] * 2))
-    with pytest.raises(YaskException, match="4-D.*ROADMAP.md A9 \\(A3 "
-                       "arms on K7\\)"):
-        port_ctx("test_4d", "-g 8 -mode fused -ensemble 2")
+    # K7 takes the 4-D arm (ROADMAP.md A9 is done)
+    members_match_solo(lambda: port_ctx("test_4d", "-g 6 -mode fused "
+                                        "-wf_steps 2 -ensemble 2"))
 
 
 def test_transfer_round_trips_a_4d_interior():
@@ -285,24 +290,46 @@ def test_transfer_round_trips_a_4d_interior():
 
 def test_a_grid_past_the_z_limit_raises():
     """K1 folds the outer cells into gridDim.z: more than 65535 of them
-    times the slot-0 blocks raises before the launch."""
+    times the slot-0 blocks no longer raise (ROADMAP.md C15; the launch
+    code walks them in chunks): the wrapper's marshalling goes through,
+    and on CPU tensors the only refusal left is the device's."""
     import torch
     ctx = port_ctx("test_4d", "-g_w 70000 -g_x 2 -g_y 2 -g_z 2 "
                    "-mode fused")
     kern = fused_stencil.FusedKernel(ctx._program)
     assert fused_stencil.grid_z(ctx._program, kern.spec) == 70000
+    ins = [ctx._state[n][s] for n, s in kern.spec.inputs]
+    outs = fused_stencil.new_outputs(kern, "cpu")
+    tabs = fused_stencil._arg_tables(ctx._program, kern.spec, ins, outs)
+    assert list(tabs[-1]) == [2, 2, 2, 70000]
     kern.dtype = torch.float32
-    with pytest.raises(YaskException, match="grid's z limit 65535"):
+    with pytest.raises(YaskException, match="not a CUDA tensor"):
         fused_stencil.fused_step(kern, ctx._state, 0)
+
+
+def test_a_grid_past_the_z_limit_runs_in_chunks_when_emulated(tmp_path):
+    """The twin of the test above at a cap of 2 z cells per launch
+    (``YT_MAX_GRID_Z``): K1's and K6's device code over 3 outer cells x
+    2 slot-0 blocks, launched in three chunks, against the plain version
+    to the bit."""
+    for case, sizes in (("test_4d", "-g_w 3 -g_x 9 -g_y 11 -g_z 70"),
+                        ("four_d_stages", "-g_w 3 -g_x 5 -g_y 9 -g_z 70")):
+        ctx = port_ctx(case, f"{sizes} -mode fused")
+        with_pads(ctx, 23)
+        spec = cuda_emit.emit(ctx._program)
+        assert fused_stencil.grid_z(ctx._program, spec) > 2
+        (tmp_path / case).mkdir()
+        same_as_plain(ctx, spec, emulated_kernel(
+            spec, tmp_path / case, defines={"YT_MAX_GRID_Z": 2}))
 
 
 def test_emit_digest_covers_every_registered_solution(tmp_path):
     """``python -m yask_tpu_torch.ops.emit_digest`` (the tool that holds
     an emitter change's sources against the parent's): one entry per
     registered solution and element size; since the last A3 arms, every
-    solution emits at 2, 4 and 8 bytes (test_4d and bf16 tti among them)
-    save the empty ones (ROADMAP.md C14); a second run gives the same
-    digests."""
+    solution emits at 2, 4 and 8 bytes (test_4d and bf16 tti among them),
+    and the empty ones have no kernel (ROADMAP.md C14); a second run
+    gives the same digests."""
     import json
     from yask_tpu_torch.compiler.solution_base import \
         get_registered_solutions
@@ -312,9 +339,9 @@ def test_emit_digest_covers_every_registered_solution(tmp_path):
     got = json.loads(out.read_text())
     assert set(got) == {f"{n} {eb}" for n in get_registered_solutions()
                         for eb in emit_digest.ELEMENT_BYTES}
-    refused = {k.split()[0] for k, v in got.items()
-               if v.startswith("refused")}
-    assert refused <= {"test_empty", "test_empty_2d"}
+    assert not [k for k, v in got.items() if v.startswith("refused")]
+    assert {k.split()[0] for k, v in got.items() if v == "no kernel"} == \
+        {"test_empty", "test_empty_2d"}
     for k in ("test_4d 4", "test_4d 2", "tti 2", "awp 2"):
         assert re.fullmatch("[0-9a-f]{64}", got[k])
     assert emit_digest.digests(["test_4d", "tti"]) == {

@@ -33,6 +33,7 @@ from yask_tpu_torch.transfer import export_interiors, import_interiors
 from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_fused import host_kernel
+from test_torch_ensemble import members_match_solo
 from test_torch_kernel_emulation import emulated_kernel
 from test_torch_lowering import mismatches, seeded_interiors
 from test_torch_stencils import tpu_interiors
@@ -365,12 +366,10 @@ def test_bf16_refuses_k5_k7_and_falls_back_from_k4():
     with pytest.raises(YaskException, match="element size 2.*ROADMAP.md "
                        "A11 \\(A3 arms on K5\\)"):
         ctx.prepare_solution()
-    ctx = fac.new_solution(fac.new_env(device="cpu"),
-                           bf16_source("yask_tpu_torch", "iso3dfd", 2))
-    ctx.apply_command_line_options("-g 16 -mode fused -ensemble 2")
-    with pytest.raises(YaskException, match="element size 2.*ROADMAP.md "
-                       "A9 \\(A3 arms on K7\\)"):
-        ctx.prepare_solution()
+    # K7 takes element size 2 (ROADMAP.md A9 is done): each member of a
+    # batch bit-equal to its solo run
+    members_match_solo(lambda: port_ctx("iso3dfd", 2, "-g 16 -mode fused "
+                                        "-wf_steps 2 -ensemble 2"))
     ctx = port_ctx("iso3dfd", 2, "-g 24 -mode fused -wf_steps 4 -trapezoid")
     import_interiors(ctx, seeded_interiors(ctx, 3))
     ctx.run_solution(0, 3)

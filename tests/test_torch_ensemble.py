@@ -28,11 +28,11 @@ from yask_tpu_torch.runtime.ensemble import (BATCHED_MODES, TORCH_SEQUENTIAL,
                                              EnsembleRun, ensemble_feasible)
 from yask_tpu_torch.runtime.init_utils import init_solution_vars
 from yask_tpu_torch.serve.scheduler import extract_outputs
-from yask_tpu_torch.transfer import export_interiors
+from yask_tpu_torch.transfer import export_interiors, import_interiors
 from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_fused import host_kernel
-from test_torch_lowering import mismatches, tpu_export
+from test_torch_lowering import mismatches, seeded_interiors, tpu_export
 
 G = 16
 STEPS = 4   # two wf=2 chunks
@@ -66,6 +66,39 @@ def port_ensemble(mode, n=N):
         with ens.member(i) as c:
             seed_member(c, i)
     return ctx, ens
+
+
+def members_match_solo(make, n=2, steps=3, seed=40):
+    """A fused batch of ``n`` members of ``make()`` (a prepared ``-mode
+    fused`` context) from numpy-seeded interiors, against a solo run of
+    ``make()`` per member from the same interiors: each member's vars
+    bit-equal to its solo run's (a var the solo kernel pushes aside: the
+    batch materialises it, ROADMAP.md §C16), and its step counters those
+    of the solo run.  Returns the ensemble."""
+    ctx = make()
+    ens = ctx.new_ensemble(n)
+    seeds = []
+    for i in range(n):
+        with ens.member(i) as c:
+            seeds.append(seeded_interiors(c, seed + i))
+            import_interiors(c, seeds[i])
+    ens.run(0, steps - 1)
+    for i in range(n):
+        solo = make()
+        import_interiors(solo, seeds[i])
+        solo.run_solution(0, steps - 1)
+        spec = solo._fused_spec_kernel().spec
+        pushed = set(spec.push_vars) if spec is not None else set()
+        want = export_interiors(solo)
+        with ens.member(i) as c:
+            got = export_interiors(c)
+            assert (c._cur_step, c._steps_done) == (solo._cur_step,
+                                                     solo._steps_done)
+        assert set(got) == set(want)
+        for name in set(want) - pushed:
+            for a, b in zip(got[name], want[name]):
+                assert np.array_equal(a, b), (i, name)
+    return ens
 
 
 def state_of(run_state):
@@ -215,7 +248,12 @@ def test_k7_wrapper_takes_plain_version_only_for_cpu_tensors():
     kern.dtype = torch.float32
     with pytest.raises(YaskException, match="not a CUDA tensor"):
         fused_stencil.batched_step(kern, stacked, 0, N)
-    with pytest.raises(YaskException, match="z limit"):
+    # 70000 members x 4 slot-0 blocks pass CUDA's z limit: the launch code
+    # walks them in chunks (tests/test_torch_k7_emulation.py runs that
+    # code), so the wrapper's marshalling refuses nothing before it
+    z = fused_stencil.grid_z(ctx._program, kern.spec, members=70000)
+    assert z == 70000 * 2 > 65535
+    with pytest.raises(YaskException, match="not a CUDA tensor"):
         fused_stencil.batched_step(kern, stacked, 0, 70000)
     assert fused_stencil.batched_step.launches == k0
 

@@ -147,18 +147,21 @@ template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
 """
 
 
-#: The kernels each header declares and launches (K1/K7, K5 and K6 in
+#: The kernels each header declares and launches (K1/K7, K5 and K6/K7 in
 #: fused_step.cuh; K4's two in trapezoid.cuh; K1's stream arm in
 #: stream_step.cuh).
 KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2, "stream_step.cuh": 1}
 
 
-def emulated_kernel(spec, tmp_path, entry=None, edit=None):
+def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     """The emitted source built with g++ as device code (``__CUDACC__``
     and ``__CUDA_ARCH__`` defined) against the shim; returns its entry
-    (``spec.name``, K5's ``spec.name + "_region"`` or the stream arm's
-    ``spec.name + "_stream"``).  ``edit(file, text)`` may rewrite a
-    header first (a deliberately broken kernel)."""
+    (``spec.name``, K5's ``spec.name + "_region"``, K7's ``spec.name +
+    "_batched"`` or the stream arm's ``spec.name + "_stream"``).
+    ``edit(file, text)`` may rewrite a header first (a deliberately broken
+    kernel); ``defines`` are macros for the build (``{"YT_MAX_GRID_Z": 2}``
+    walks a launch's z cells, and the stream arm's y blocks, two at a
+    time)."""
     gxx = shutil.which("g++")
     assert gxx, "g++ is needed to emulate the kernels"
     for fn, nk in KERNELS.items():
@@ -181,12 +184,14 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None):
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-pthread", "-D__CUDACC__", "-D__CUDA_ARCH__=900",
                     "-Wno-unknown-pragmas", "-I", str(tmp_path), "-o",
-                    str(so), str(src)], check=True, capture_output=True,
-                   timeout=300)
+                    str(so), str(src)]
+                   + [f"-D{k}={v}" for k, v in (defines or {}).items()],
+                   check=True, capture_output=True, timeout=300)
     entry = entry or spec.name
     fn = getattr(ctypes.CDLL(str(so)), entry)
     fn.argtypes = (
         region_argtypes() if entry.endswith("_region") else
+        fused_stencil.batched_argtypes() if entry.endswith("_batched") else
         fused_stencil.stream_argtypes() if entry.endswith("_stream") else
         ([ctypes.c_int] if spec.trap else [])
         + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
@@ -453,6 +458,22 @@ def test_stream_device_code_matches_plain_when_emulated(stencil, radius, g,
     spec = ctx._fused_spec_kernel().spec
     fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream")
     got = stream_steps(fn, ctx, spec, seg, 2)
+    want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 2)
+    assert same(got, want)
+
+
+def test_stream_device_code_walks_its_grid_in_chunks_when_emulated(
+        tmp_path):
+    """ROADMAP.md C15: the launch code walks the stream arm's y and z
+    blocks ``YT_MAX_GRID_Z`` at a time (here 2: 3 segments x 2 row
+    blocks in four launches), the pads shared out over the whole grid:
+    the same bits as ``plain_chunk`` over two sub-steps."""
+    ctx = stream_ctx("cube", 1, (13, 20, 70))
+    spec = ctx._fused_spec_kernel().spec
+    assert -(-20 // spec.stream.tile[0]) == 2
+    fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream",
+                         defines={"YT_MAX_GRID_Z": 2})
+    got = stream_steps(fn, ctx, spec, 5, 2)
     want = fused_stencil.plain_chunk(ctx._program, ctx._state, 0, 2)
     assert same(got, want)
 

@@ -17,8 +17,8 @@ test_step_cond_1d).
   each misc slice an input or output of its own, misc indices as
   per-equation constants, a tile per (var, misc slice) and writer.
 * The paths that do not take the arm yet: the stream arm
-  (``skew_ineligible``), K4 (``trapezoid_fallback``, A12), K5 (A11) and
-  K7 (A9).
+  (``skew_ineligible``), K4 (``trapezoid_fallback``, A12) and K5 (A11);
+  a member batch (K7) takes it.
 """
 
 import numpy as np
@@ -32,6 +32,7 @@ from yask_tpu_torch.runtime.init_utils import init_solution_vars as port_init
 from yask_tpu_torch.transfer import export_interiors, import_interiors
 from yask_tpu_torch.utils.exceptions import YaskException
 
+from test_torch_ensemble import members_match_solo
 from test_torch_fused import host_kernel
 from test_torch_lowering import mismatches, seeded_interiors
 from test_torch_stencils import tpu_interiors
@@ -235,19 +236,12 @@ def test_k5_and_k7_refuse_the_misc_arm():
     with pytest.raises(YaskException,
                        match="misc-dim vars.*ROADMAP.md A11 \\(A3 arms"):
         ctx.prepare_solution()
-    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="gaussian",
-                           radius=2)
-    ctx.apply_command_line_options("-g 16 -mode fused -ensemble 2")
-    with pytest.raises(YaskException,
-                       match="misc-dim vars.*ROADMAP.md A9 \\(A3 arms"):
-        ctx.prepare_solution()
-    # K7's wrapper refuses a batch of them where it would launch
-    import torch
-    ctx = port_ctx("test_misc_2d", None, "-g 16 -mode fused")
-    kern = ctx._fused_spec_kernel()
-    kern._device_of = lambda _s: torch.device("cuda", 0)   # as on the card
-    with pytest.raises(YaskException, match="A9 \\(A3 arms on K7\\)"):
-        kern.batched_chunk(ctx._state, 0, 1, 1)
+    # K7 takes the misc arm (ROADMAP.md A9 is done): K6's (gaussian) and
+    # K1's (test_misc_2d, whose unwritten slices start from a copy of the
+    # evicted slot of each member) batches give each member its solo bits
+    for name, r in (("gaussian", 2), ("test_misc_2d", None)):
+        members_match_solo(lambda: port_ctx(name, r, "-g 16 -mode fused "
+                                            "-wf_steps 2 -ensemble 2"))
 
 
 @pytest.mark.parametrize("name,r", [("test_misc_2d", None),

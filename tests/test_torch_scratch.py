@@ -30,6 +30,7 @@ from yask_tpu_torch.runtime.init_utils import init_solution_vars as port_init
 from yask_tpu_torch.transfer import export_interiors, import_interiors
 from yask_tpu_torch.utils.exceptions import YaskException
 
+from test_torch_ensemble import members_match_solo
 from test_torch_fused import host_kernel
 from test_torch_lowering import mismatches, seeded_interiors
 from test_torch_stencils import tpu_interiors
@@ -259,17 +260,15 @@ def test_k5_and_k7_refuse_scratch_naming_their_items():
     ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
     with pytest.raises(YaskException, match="scratch.*ROADMAP.md A11"):
         ctx.prepare_solution()
-    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="tti",
-                           radius=2)
-    ctx.apply_command_line_options("-g 16 -mode fused -ensemble 2")
-    with pytest.raises(YaskException, match="scratch.*ROADMAP.md A9"):
-        ctx.prepare_solution()
+    # K7 takes the scratch arm (ROADMAP.md A9 is done)
+    members_match_solo(lambda: port_ctx("tti", 2, "-g 12 -mode fused "
+                                        "-wf_steps 2 -ensemble 2"))
 
 
 def test_served_sessions_of_a_scratch_solution_batch_on_the_cpu(tmp_path):
     """As multi-stage sessions: on the CPU a fused batch runs K7's plain
-    version over the members (on the card K7 refuses K6's solutions,
-    naming ROADMAP.md A9, and the request is rejected)."""
+    version over the members (on the card K7 over K6's body,
+    ``batched_stages_step``)."""
     from yask_tpu_torch.serve import StencilServer
     env = yask_tpu_torch.yk_factory().new_env(device="cpu")
     srv = StencilServer(env, journal_path=str(tmp_path / "SERVE.jsonl"),
@@ -319,8 +318,8 @@ def test_remaining_refusals_name_a3(case, why):
     """The last A3 refusals (``why``, the message each case pinned before
     its arm was ported) are gone: ``-mode fused`` runs test_4d on K1 and
     tti in bfloat16 on K6 (the plain version on CPU tensors), bit-equal
-    to ``-mode torch``; the A3 arms they take still keep K4, K5 and K7
-    out (``a3_arms``)."""
+    to ``-mode torch``; the A3 arms they take still keep K4 and K5 out
+    (``a3_arms``)."""
     import re
     fac = yask_tpu_torch.yk_factory()
     ctxs = {}

@@ -140,13 +140,10 @@ def test_var_api_round_trip_and_pads():
     ("-ckpt_every 2", "A10"), ("-watchdog_every 2", "A10"),
     ("-run_deadline 5", "A10"),
     # -trapezoid is carried (K4); what stays of A12 is K4 in a member batch
+    # (push in a member batch is carried: the batch runs unpushed, as the
+    # reference's does; tests/test_torch_k7_arms.py)
     pytest.param("-trapezoid -mode fused -ensemble 2", "A12",
-                 id="-trapezoid-A12"),
-    # push is carried (K6); what stays of A9 is push in a member batch
-    pytest.param("-push on -mode fused -ensemble 2", "A9",
-                 id="-push on-A9"),
-    pytest.param("-push force -mode fused -ensemble 2", "A9",
-                 id="-push force-A9")])
+                 id="-trapezoid-A12")])
 def test_settings_not_carried_raise_with_their_roadmap_item(opts, item):
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="3axis",

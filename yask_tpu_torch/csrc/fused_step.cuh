@@ -15,14 +15,23 @@
 // and the compile-time tables used below, then instantiates
 // YT_FUSED_STEP_ENTRY (K1) and YT_FUSED_BATCHED_ENTRY (K7).
 //
-// K7 is K1 with a member axis: every state array is a contiguous
-// (N, *shape) stack, each input and output carries a 64-bit member stride,
-// and the grid folds the member into blockIdx.z (z = member * ceil(n0/T0)
-// + slot-0 block).  A block stages and computes exactly what a K1 block
-// does, offset by its member, so each member gets the bits a solo K1
-// launch gives it.  It is bound by bytes as K1 is (N times K1's traffic);
-// its gain over N K1 launches is N-1 launch gaps and one grid that fills
-// the card when one member alone would not.
+// K7 is K1 (or K6, below) with a member axis: every state array is a
+// contiguous (N, *shape) stack, each input and output carries a 64-bit
+// member stride, and the grid folds the member into its z cells (z =
+// (member * outer cells + outer cell) * ceil(n0/T0) + slot-0 block).  A
+// block stages and computes exactly what a solo block does, offset by its
+// member, so each member gets the bits a solo launch gives it.  It is
+// bound by bytes as K1 and K6 are (N times their traffic); its gain over
+// N solo launches is N-1 launch gaps and one grid that fills the card when
+// one member alone would not.
+//
+// The z cells (members x outer cells x slot-0 blocks) may pass CUDA's
+// limit of 65535 on gridDim.z: the launch code walks them in launches of
+// at most YT_MAX_GRID_Z cells each, the z origin of each in the params
+// (p.z0).  Several launches rather than a grid-stride loop inside the
+// kernel, because a block's threads leave early past the ragged edge and
+// a loop would need a barrier between cells that those threads never
+// reach.
 //
 // Design (a first cut that is simple and right):
 //   * a block owns T0 x T1 x T2 interior points (slot 2 = the contiguous
@@ -86,6 +95,11 @@
 // takes the host bf16_t on the device path too.
 #if defined(__CUDACC__) && !defined(YT_HOST_BF16)
 #include <cuda_bf16.h>
+#endif
+// The most z cells one launch takes (CUDA's gridDim.z limit); the CPU
+// emulation sets it small to walk the chunks on a small grid.
+#ifndef YT_MAX_GRID_Z
+#define YT_MAX_GRID_Z 65535
 #endif
 
 namespace yt {
@@ -255,27 +269,34 @@ struct Params {
   idx_t out_ms[NOUT];
   int n[3 + NO];                        // interior extents (1: slot unused)
   int t;                                // step index of the newest inputs
-  int nm;                               // members (1 for K1)
+  int nm;                               // members (1 for a solo launch)
+  long long z0;                         // this launch's first z cell
 };
 
 template <class S>
 using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT, OuterOf<S>::N>;
 
-// The element offset of an array's member m (K7: member stride ms), or of
-// outer cell m when the Spec has outer dims (strides s[3 + j]; K7 refuses
-// them); n is p.n.
+// The element offset of member m (member stride ms) in outer cell q
+// (the array's strides s[3 + j] per outer dim); n is p.n.  The member
+// stride need not be the product of the outer extents and strides (a
+// stack may hold pads between its members).
 template <class S>
-YT_HD inline idx_t cell_base(const int* n, int m, idx_t ms, const idx_t* s) {
-  if constexpr (OuterOf<S>::N == 0) {
-    (void)n; (void)s;
-    return m * ms;
-  } else {
-    (void)ms;
-    idx_t off = 0;
+YT_HD inline idx_t cell_base(const int* n, int m, int q, idx_t ms,
+                             const idx_t* s) {
+  idx_t off = idx_t(m) * ms;
+  if constexpr (OuterOf<S>::N > 0) {
     for (int j = 0; j < OuterOf<S>::N; ++j)
-      off += idx_t(outer_idx<S>(n, m, j)) * s[3 + j];
-    return off;
+      off += idx_t(outer_idx<S>(n, q, j)) * s[3 + j];
+  } else {
+    (void)n; (void)q; (void)s;
   }
+  return off;
+}
+
+// Every z cell of a launch over p.nm members.
+template <class S>
+YT_HD inline long long z_cells(const int* n, int nm) {
+  return (long long)((n[0] + S::T0 - 1) / S::T0) * outer_cells<S>(n) * nm;
 }
 
 // Inputs are never written during a launch (outputs are fresh tensors), so
@@ -283,14 +304,15 @@ YT_HD inline idx_t cell_base(const int* n, int m, idx_t ms, const idx_t* s) {
 // also lets the compiler hoist a point's loads above earlier stores.
 template <class S>
 YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a, int m,
-                                          idx_t c0, idx_t c1, idx_t c2) {
-  const typename S::real_t* q =
-      p.in[a] + (cell_base<S>(p.n, m, p.in_ms[a], p.in_s[a])
+                                          int q, idx_t c0, idx_t c1,
+                                          idx_t c2) {
+  const typename S::real_t* r =
+      p.in[a] + (cell_base<S>(p.n, m, q, p.in_ms[a], p.in_s[a])
                  + c0 * p.in_s[a][0] + c1 * p.in_s[a][1] + c2 * p.in_s[a][2]);
 #ifdef __CUDA_ARCH__
-  return __ldg(q);
+  return __ldg(r);
 #else
-  return *q;
+  return *r;
 #endif
 }
 
@@ -298,11 +320,11 @@ YT_HD inline typename S::real_t global_at(const ParamsOf<S>& p, int a, int m,
 template <class S>
 struct GlobalReader {
   const ParamsOf<S>* p;
-  int m;           // member
+  int m, q;        // member, outer cell
   int g0, g1, g2;
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
-    return global_at<S>(*p, A, m, g0 + o0, g1 + o1, g2 + o2);
+    return global_at<S>(*p, A, m, q, g0 + o0, g1 + o1, g2 + o2);
   }
 };
 
@@ -311,7 +333,7 @@ template <class S>
 struct TileReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
-  int m;           // member
+  int m, q;        // member, outer cell
   int l0, l1, l2;  // point within the block's tile
   int g0, g1, g2;  // point in the interior
   template <int A>
@@ -325,7 +347,7 @@ struct TileReader {
                      + (l1 + S::halo_lo1(k) + o1)) * E2
                   + (l2 + S::halo_lo2(k) + o2)];
     } else {
-      return global_at<S>(*p, A, m, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, m, q, g0 + o0, g1 + o1, g2 + o2);
     }
   }
 };
@@ -353,56 +375,88 @@ void fill_params(ParamsOf<S>& p, void* in_ptrs, void* in_strides,
   for (int a = 0; a < (S::NIN > 0 ? S::NIN : 1); ++a) p.in_ms[a] = 0;
   for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = 0;
   p.nm = 1;
+  p.z0 = 0;
 }
 
-// m: the member (K7) or the outer cell
+// Sets the member strides (arrays of idx_t) and count of a batch (K7).
 template <class S>
-YT_HD inline void store(const ParamsOf<S>& p, int m, int g0, int g1, int g2,
-                        const CalcOf<S>* out) {
+void fill_members(ParamsOf<S>& p, void* in_mstrides, void* out_mstrides,
+                  int nm) {
+  const idx_t* ims = static_cast<const idx_t*>(in_mstrides);
+  const idx_t* oms = static_cast<const idx_t*>(out_mstrides);
+  for (int a = 0; a < S::NIN; ++a) p.in_ms[a] = ims[a];
+  for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = oms[o];
+  p.nm = nm;
+}
+
+// m: the member, q: the outer cell
+template <class S>
+YT_HD inline void store(const ParamsOf<S>& p, int m, int q, int g0, int g1,
+                        int g2, const CalcOf<S>* out) {
   for (int o = 0; o < S::NOUT; ++o)
-    if (stores<S>(o, g0, g1, g2, m, p.n))
-      p.out[o][cell_base<S>(p.n, m, p.out_ms[o], p.out_s[o])
+    if (stores<S>(o, g0, g1, g2, q, p.n))
+      p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                + g2 * p.out_s[o][2]] =
           Calc<typename S::real_t>::store(out[o]);
 }
 
 // ---- host path: the same point function over every member's interior --
-// (or every outer cell's)
+// (each outer cell's)
 template <class S>
 int host_step(const ParamsOf<S>& p) {
-  const int nq = OuterOf<S>::N > 0 ? outer_cells<S>(p.n) : p.nm;
-  for (int m = 0; m < nq; ++m)
-    for (int g0 = 0; g0 < p.n[0]; ++g0)
-      for (int g1 = 0; g1 < p.n[1]; ++g1)
-        for (int g2 = 0; g2 < p.n[2]; ++g2) {
-          const GlobalReader<S> rd{&p, m, g0, g1, g2};
-          int g[3 + OuterOf<S>::N] = {g0, g1, g2};
-          fill_outer<S>(g, p.n, m);
-          CalcOf<S> out[S::NOUT];
-          S::point(rd, g, p.n, p.t, out);
-          store<S>(p, m, g0, g1, g2, out);
-        }
+  for (int m = 0; m < p.nm; ++m)
+    for (int q = 0; q < outer_cells<S>(p.n); ++q)
+      for (int g0 = 0; g0 < p.n[0]; ++g0)
+        for (int g1 = 0; g1 < p.n[1]; ++g1)
+          for (int g2 = 0; g2 < p.n[2]; ++g2) {
+            const GlobalReader<S> rd{&p, m, q, g0, g1, g2};
+            int g[3 + OuterOf<S>::N] = {g0, g1, g2};
+            fill_outer<S>(g, p.n, q);
+            CalcOf<S> out[S::NOUT];
+            S::point(rd, g, p.n, p.t, out);
+            store<S>(p, m, q, g0, g1, g2, out);
+          }
   return 0;
 }
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
-// BATCH = false is K1 (one member, no member offsets); BATCH = true is K7,
-// whose blockIdx.z also selects the member.  With outer dims, K1's
-// blockIdx.z selects the outer cell the same way (m = q).
+// The member m, outer cell q and slot-0 block b of this block's z cell
+// z = p.z0 + blockIdx.z = (m * outer cells + q) * ceil(n0 / T0) + b.
+// BATCH = false is a solo launch (K1, K6): m is 0 at compile time, so no
+// member offset is computed, and without outer dims neither is q.
+template <class S, bool BATCH>
+__device__ __forceinline__ void split_z(const ParamsOf<S>& p, int& m,
+                                        int& q, int& b) {
+  const int z = int(p.z0) + int(blockIdx.z);
+  m = 0;
+  q = 0;
+  b = z;
+  if constexpr (BATCH || OuterOf<S>::N > 0) {
+    const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
+    const int r = z / nb0;
+    b = z - r * nb0;
+    if constexpr (BATCH) {
+      const int nq = outer_cells<S>(p.n);
+      m = r / nq;
+      q = r - m * nq;
+    } else {
+      q = r;
+    }
+  }
+}
+
+// K1 (BATCH = false) and K7 over K1's body (BATCH = true): the z cell
+// selects the member, the outer cell and the slot-0 block.
 template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::T1 * S::T2)
 fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  int m = 0, bz = blockIdx.z;
-  if constexpr (BATCH || OuterOf<S>::N > 0) {
-    const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
-    m = bz / nb0;
-    bz -= m * nb0;
-  }
+  int m, q, bz;
+  split_z<S, BATCH>(p, m, q, bz);
   const int b0 = bz * S::T0;
   const int b1 = blockIdx.y * S::T1;
   const int b2 = blockIdx.x * S::T2;
@@ -438,7 +492,7 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(p, a, m, c0, c1, c2) : real_t(0.0f);
+                   ? global_at<S>(p, a, m, q, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -455,30 +509,44 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
   for (int l0 = 0; l0 < S::T0; ++l0) {
     const int g0 = b0 + l0;
     if (g0 >= p.n[0]) break;
-    const TileReader<S> rd{&p, smem, m, l0, l1, l2, g0, g1, g2};
+    const TileReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2};
     int g[3 + OuterOf<S>::N] = {g0, g1, g2};
-    fill_outer<S>(g, p.n, m);
+    fill_outer<S>(g, p.n, q);
     CalcOf<S> out[S::NOUT];
     S::point(rd, g, p.n, p.t, out);
-    store<S>(p, m, g0, g1, g2, out);
+    store<S>(p, m, q, g0, g1, g2, out);
   }
 }
 
+// The z cells [0, gz) in launches of at most YT_MAX_GRID_Z each, with
+// their origin in p.z0; `kernel` launches one on `grid`.  A block finds
+// its z cell in 32 bits (split_z).
+template <class F>
+int launch_z(long long& z0, long long gz, dim3 grid, F kernel) {
+  if (gz > 0x7fffffffLL) return int(cudaErrorInvalidConfiguration);
+  for (z0 = 0; z0 < gz; z0 += YT_MAX_GRID_Z) {
+    grid.z = unsigned(gz - z0 < YT_MAX_GRID_Z ? gz - z0 : YT_MAX_GRID_Z);
+    kernel(grid);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return int(e);
+  }
+  return 0;
+}
+
 template <class S, bool BATCH>
-int launch(const ParamsOf<S>& p, cudaStream_t stream) {
+int launch(ParamsOf<S> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
       fused_step_kernel<S, BATCH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
-  const long long nb0 = (p.n[0] + S::T0 - 1) / S::T0;
-  const long long gz = BATCH ? nb0 * p.nm : nb0 * outer_cells<S>(p.n);
-  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
-  const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
-                  unsigned(gz));
-  fused_step_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
-  return int(cudaGetLastError());
+  return launch_z(p.z0, z_cells<S>(p.n, p.nm),
+                  dim3((p.n[2] + S::T2 - 1) / S::T2,
+                       (p.n[1] + S::T1 - 1) / S::T1),
+                  [&](dim3 grid) {
+    fused_step_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+  });
 }
 #endif
 
@@ -489,27 +557,6 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
 #ifdef __CUDACC__
   return launch<S, false>(p, static_cast<cudaStream_t>(stream));
-#else
-  (void)stream;
-  return host_step<S>(p);
-#endif
-}
-
-// K7: as run(), over `nm` members whose arrays sit `in_mstrides[a]` /
-// `out_mstrides[o]` elements apart (arrays of idx_t).
-template <class S>
-int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
-                void* out_ptrs, void* out_strides, void* out_mstrides,
-                void* sizes, int nm, int t, void* stream) {
-  ParamsOf<S> p;
-  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
-  const idx_t* ims = static_cast<const idx_t*>(in_mstrides);
-  const idx_t* oms = static_cast<const idx_t*>(out_mstrides);
-  for (int a = 0; a < S::NIN; ++a) p.in_ms[a] = ims[a];
-  for (int o = 0; o < S::NOUT; ++o) p.out_ms[o] = oms[o];
-  p.nm = nm;
-#ifdef __CUDACC__
-  return launch<S, true>(p, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
   return host_step<S>(p);
@@ -562,12 +609,12 @@ int host_region(const RegionParams<S>& p) {
         const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
         CalcOf<S> out[S::NOUT];
         if (in_global<S>(p, gg)) {
-          const GlobalReader<S> rd{&p.p, 0, g0, g1, g2};
+          const GlobalReader<S> rd{&p.p, 0, 0, g0, g1, g2};
           S::point(rd, gg, p.gn, p.p.t, out);
         } else {
           for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
         }
-        store<S>(p.p, 0, g0, g1, g2, out);
+        store<S>(p.p, 0, 0, g0, g1, g2, out);
       }
   return 0;
 }
@@ -580,7 +627,7 @@ fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
   const ParamsOf<S>& q = p.p;
-  const int b0 = p.lo[0] + int(blockIdx.z) * S::T0;
+  const int b0 = p.lo[0] + int(q.z0 + blockIdx.z) * S::T0;
   const int b1 = p.lo[1] + int(blockIdx.y) * S::T1;
   const int b2 = p.lo[2] + int(blockIdx.x) * S::T2;
   const int tid = threadIdx.y * S::T2 + threadIdx.x;
@@ -612,7 +659,7 @@ fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
         const int c1 = b1 - h1 + r % E1;
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(q, a, 0, c0, c1, c2) : real_t(0.0f);
+                   ? global_at<S>(q, a, 0, 0, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -633,30 +680,30 @@ fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
     const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
     CalcOf<S> out[S::NOUT];
     if (in_global<S>(p, gg)) {
-      const TileReader<S> rd{&q, smem, 0, l0, l1, l2, g0, g1, g2};
+      const TileReader<S> rd{&q, smem, 0, 0, l0, l1, l2, g0, g1, g2};
       S::point(rd, gg, p.gn, q.t, out);
     } else {
 #pragma unroll
       for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
     }
-    store<S>(q, 0, g0, g1, g2, out);
+    store<S>(q, 0, 0, g0, g1, g2, out);
   }
 }
 
 template <class S>
-int launch_region(const RegionParams<S>& p, cudaStream_t stream) {
+int launch_region(RegionParams<S> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
       fused_region_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const long long gz = (p.hi[0] - p.lo[0] + S::T0 - 1) / S::T0;
-  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
-  const dim3 grid((p.hi[2] - p.lo[2] + S::T2 - 1) / S::T2,
-                  (p.hi[1] - p.lo[1] + S::T1 - 1) / S::T1, unsigned(gz));
-  fused_region_kernel<S><<<grid, block, smem, stream>>>(p);
-  return int(cudaGetLastError());
+  return launch_z(p.p.z0, (p.hi[0] - p.lo[0] + S::T0 - 1) / S::T0,
+                  dim3((p.hi[2] - p.lo[2] + S::T2 - 1) / S::T2,
+                       (p.hi[1] - p.lo[1] + S::T1 - 1) / S::T1),
+                  [&](dim3 grid) {
+    fused_region_kernel<S><<<grid, block, smem, stream>>>(p);
+  });
 }
 #endif
 
@@ -747,6 +794,13 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 // outer_ahi) is staged as 0.  The host path runs every outer cell in
 // turn, its buffers zeroed for each.
 //
+// K7 over K6 (a member batch of a multi-stage, scratch or rewrite
+// solution): a block owns one member as well, which only offsets its
+// global reads and stores (the member stride); its tiles, and every
+// clip and allocation bound, are those of the outer cell and the block,
+// so shared memory does not grow with the members and each member gets
+// the bits of a solo launch.  The host path runs every member in turn.
+//
 // Element size 2: the staged and computed tiles are bf16_t, as the
 // reference's VMEM tiles are in the program dtype (pallas_stencil.py:
 // 2264-2289); a computed value is stored rounded once, as yask_tpu
@@ -759,6 +813,7 @@ template <class S>
 struct StageReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
+  int m;           // the block's member (0 in a solo launch)
   int q;           // the block's outer cell (0 without outer dims)
   int l0, l1, l2;  // point relative to the block origin (may lie in the
                    // expansion: < 0 or >= T)
@@ -774,7 +829,7 @@ struct StageReader {
                      + (l1 + S::halo_lo1(k) + o1)) * E2
                   + (l2 + S::halo_lo2(k) + o2)];
     } else {
-      return global_at<S>(*p, A, q, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, m, q, g0 + o0, g1 + o1, g2 + o2);
     }
   }
   template <int B>
@@ -793,11 +848,11 @@ template <class S>
 struct HostStageReader {
   const ParamsOf<S>* p;
   typename S::real_t* const* bufs;
-  int q;           // the outer cell
+  int m, q;        // the member, the outer cell
   int g0, g1, g2;
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
-    return global_at<S>(*p, A, q, g0 + o0, g1 + o1, g2 + o2);
+    return global_at<S>(*p, A, m, q, g0 + o0, g1 + o1, g2 + o2);
   }
   template <int B>
   YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
@@ -830,7 +885,7 @@ YT_HD inline bool outer_copy(int* g, const int* n, int q) {
 
 template <class S, int K>
 void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
-                int q) {
+                int m, int q) {
   typedef typename S::real_t real_t;
   constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
   const idx_t R1 = p.n[1] + e1 + S::sub_hi1(K);
@@ -840,7 +895,7 @@ void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
   for (int g0 = -S::clip_lo0(K); g0 < p.n[0] + S::clip_hi0(K); ++g0)
     for (int g1 = -S::clip_lo1(K); g1 < p.n[1] + S::clip_hi1(K); ++g1)
       for (int g2 = -S::clip_lo2(K); g2 < p.n[2] + S::clip_hi2(K); ++g2) {
-        const HostStageReader<S> rd{&p, bufs, q, g0, g1, g2};
+        const HostStageReader<S> rd{&p, bufs, m, q, g0, g1, g2};
         g[0] = g0;
         g[1] = g1;
         g[2] = g2;
@@ -850,14 +905,14 @@ void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
           const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
           const real_t w = Calc<real_t>::store(v[j]);
           if (o >= 0 && stores<S>(o, g0, g1, g2, q, p.n))
-            p.out[o][cell_base<S>(p.n, q, p.out_ms[o], p.out_s[o])
+            p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                      + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                      + g2 * p.out_s[o][2]] = w;
           if (b >= 0)
             bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = w;
         }
       }
-  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs, q);
+  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs, m, q);
 }
 
 template <class S>
@@ -865,17 +920,18 @@ int host_stages(const ParamsOf<S>& p) {
   typedef typename S::real_t real_t;
   std::vector<std::vector<real_t>> store(S::NCMP);
   real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
-  for (int q = 0; q < outer_cells<S>(p.n); ++q) {
-    for (int b = 0; b < S::NCMP; ++b) {
-      const int k = S::cmp_sub(b);
-      store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
-                          * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
-                          * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
-                      real_t(0.0f));
-      bufs[b] = store[b].data();
+  for (int m = 0; m < p.nm; ++m)
+    for (int q = 0; q < outer_cells<S>(p.n); ++q) {
+      for (int b = 0; b < S::NCMP; ++b) {
+        const int k = S::cmp_sub(b);
+        store[b].assign(size_t(p.n[0] + S::sub_lo0(k) + S::sub_hi0(k))
+                            * size_t(p.n[1] + S::sub_lo1(k) + S::sub_hi1(k))
+                            * size_t(p.n[2] + S::sub_lo2(k) + S::sub_hi2(k)),
+                        real_t(0.0f));
+        bufs[b] = store[b].data();
+      }
+      host_stage<S, 0>(p, bufs, m, q);
     }
-    host_stage<S, 0>(p, bufs, q);
-  }
   return 0;
 }
 
@@ -885,8 +941,8 @@ int host_stages(const ParamsOf<S>& p) {
 template <class S, int K>
 __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                                              typename S::real_t* smem,
-                                             int q, int b0, int b1, int b2,
-                                             int tid) {
+                                             int m, int q, int b0, int b1,
+                                             int b2, int tid) {
   typedef typename S::real_t real_t;
   constexpr int NT = S::T1 * S::T2;
   constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
@@ -913,7 +969,7 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
                         && g2 < p.n[2] + S::clip_hi2(K) && in_outer;
     CalcOf<S> v[S::MAXV];
     if (inside) {
-      const StageReader<S> rd{&p, smem, q, l0, l1, l2, g0, g1, g2};
+      const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2};
       g[0] = g0;
       g[1] = g1;
       g[2] = g2;
@@ -931,7 +987,7 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
       const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
       const real_t w = Calc<real_t>::store(v[j]);
       if (o >= 0 && own && stores<S>(o, g0, g1, g2, q, p.n))
-        p.out[o][cell_base<S>(p.n, q, p.out_ms[o], p.out_s[o])
+        p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                  + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                  + g2 * p.out_s[o][2]] = w;
       if (b >= 0)
@@ -941,7 +997,7 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    device_stage<S, K + 1>(p, smem, q, b0, b1, b2, tid);
+    device_stage<S, K + 1>(p, smem, m, q, b0, b1, b2, tid);
   }
 }
 
@@ -962,18 +1018,15 @@ __device__ __forceinline__ bool outer_alloc(const ParamsOf<S>& p, int k,
   return in;
 }
 
-template <class S>
+// K6 (BATCH = false) and K7 over K6's body (BATCH = true).
+template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::T1 * S::T2)
 fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  int q = 0, bz = blockIdx.z;
-  if constexpr (OuterOf<S>::N > 0) {
-    const int nb0 = (p.n[0] + S::T0 - 1) / S::T0;
-    q = bz / nb0;
-    bz -= q * nb0;
-  }
+  int m, q, bz;
+  split_z<S, BATCH>(p, m, q, bz);
   const int b0 = bz * S::T0;
   const int b1 = blockIdx.y * S::T1;
   const int b2 = blockIdx.x * S::T2;
@@ -1007,7 +1060,7 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
         const int c2 = b2 - h2 + e2;
         v[u] = (i < cells && c0 >= lo0 && c0 < lim0 && c1 >= lo1
                 && c1 < lim1 && c2 >= lo2 && c2 < lim2 && in_outer)
-                   ? global_at<S>(p, a, q, c0, c1, c2) : real_t(0.0f);
+                   ? global_at<S>(p, a, m, q, c0, c1, c2) : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -1017,24 +1070,23 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   __syncthreads();
 
   // 2) the sub-stages in order, each over its region
-  device_stage<S, 0>(p, smem, q, b0, b1, b2, tid);
+  device_stage<S, 0>(p, smem, m, q, b0, b1, b2, tid);
 }
 
-template <class S>
-int launch_stages(const ParamsOf<S>& p, cudaStream_t stream) {
+template <class S, bool BATCH>
+int launch_stages(ParamsOf<S> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stages_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fused_stages_kernel<S, BATCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
-  const long long gz =
-      (long long)((p.n[0] + S::T0 - 1) / S::T0) * outer_cells<S>(p.n);
-  if (gz > 65535) return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::T2, S::T1, 1);
-  const dim3 grid((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1,
-                  unsigned(gz));
-  fused_stages_kernel<S><<<grid, block, smem, stream>>>(p);
-  return int(cudaGetLastError());
+  return launch_z(p.z0, z_cells<S>(p.n, p.nm),
+                  dim3((p.n[2] + S::T2 - 1) / S::T2,
+                       (p.n[1] + S::T1 - 1) / S::T1),
+                  [&](dim3 grid) {
+    fused_stages_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+  });
 }
 #endif
 
@@ -1045,10 +1097,40 @@ int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
   ParamsOf<S> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
 #ifdef __CUDACC__
-  return launch_stages<S>(p, static_cast<cudaStream_t>(stream));
+  return launch_stages<S, false>(p, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
   return host_stages<S>(p);
+#endif
+}
+
+// Is S a K6 Spec (sub-stages)?
+template <class S, class = void>
+struct IsStages : std::false_type {};
+template <class S>
+struct IsStages<S, std::void_t<decltype(S::NSTAGES)>> : std::true_type {};
+
+// K7: as run() (K1's Spec) or run_stages() (K6's), over `nm` members
+// whose arrays sit `in_mstrides[a]` / `out_mstrides[o]` elements apart
+// (arrays of idx_t).
+template <class S>
+int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
+                void* out_ptrs, void* out_strides, void* out_mstrides,
+                void* sizes, int nm, int t, void* stream) {
+  ParamsOf<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  fill_members<S>(p, in_mstrides, out_mstrides, nm);
+#ifdef __CUDACC__
+  if constexpr (IsStages<S>::value)
+    return launch_stages<S, true>(p, static_cast<cudaStream_t>(stream));
+  else
+    return launch<S, true>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  if constexpr (IsStages<S>::value)
+    return host_stages<S>(p);
+  else
+    return host_step<S>(p);
 #endif
 }
 
@@ -1063,7 +1145,8 @@ int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
                       stream);                                               \
   }
 
-// The C entry point of K7 for the same Spec (member strides and count).
+// The C entry point of K7 for the same Spec, K1's or K6's (member
+// strides and count).
 #define YT_FUSED_BATCHED_ENTRY(NAME, S)                                      \
   extern "C" int NAME(void* in_ptrs, void* in_strides, void* in_mstrides,    \
                       void* out_ptrs, void* out_strides, void* out_mstrides, \

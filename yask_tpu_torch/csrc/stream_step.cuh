@@ -91,6 +91,9 @@ struct StreamParams {
   ParamsOf<S> p;                 // K1's tables
   int seg;                       // planes of slot 0 per segment (grid z)
   int pad[S::NOUT][3][2];        // each output's pads (lo, hi) per slot
+  // the whole grid's y and z extents, and this launch's first y and z
+  // block (the launch code walks y and z in chunks of YT_MAX_GRID_Z)
+  long long gy, gz, y0, z0;
 };
 
 // Pad slab j (0..5) of output o: slot 0 below and above the interior over
@@ -203,7 +206,7 @@ struct PlaneReader {
       if constexpr (sizeof(real_t) == 2) c += sh[k];
       return smem[c];
     } else {
-      return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, 0, 0, g0 + o0, g1 + o1, g2 + o2);
     }
   }
 };
@@ -312,11 +315,13 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
   constexpr int NK = S::NTILED > 0 ? S::NTILED : 1;
   constexpr int NJ = S::NPRE > 0 ? S::NPRE : 1;
   const int tid = threadIdx.y * S::ST2 + threadIdx.x;
-  const int b1 = blockIdx.y * S::ST1, b2 = blockIdx.x * S::ST2;
+  const int by = int(q.y0) + int(blockIdx.y);
+  const int bz = int(q.z0) + int(blockIdx.z);
+  const int b1 = by * S::ST1, b2 = blockIdx.x * S::ST2;
   const int l1 = threadIdx.y, l2 = threadIdx.x;
   const int g1 = b1 + l1, g2 = b2 + l2;
   const bool active = g1 < p.n[1] && g2 < p.n[2];
-  const int zs = blockIdx.z * q.seg;
+  const int zs = bz * q.seg;
   const int ze = zs + q.seg < p.n[0] ? zs + q.seg : p.n[0];
 
   if (zs < ze) {
@@ -350,7 +355,7 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         qv[i][j] = S::NPRE && active && (i == 0 || zs + i < ze)
-                       ? global_at<S>(p, S::pre_input(j), 0, zs + i, g1, g2)
+                       ? global_at<S>(p, S::pre_input(j), 0, 0, zs + i, g1, g2)
                        : real_t(0.0f);
     auto plane = [&](int z, real_t (&cur)[NJ], real_t (&ahead)[NJ]) {
       if (z + S::SP < ze)
@@ -359,7 +364,7 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         ahead[j] = S::NPRE && active && z + S::SQ - 1 < ze
-                       ? global_at<S>(p, S::pre_input(j), 0, z + S::SQ - 1,
+                       ? global_at<S>(p, S::pre_input(j), 0, 0, z + S::SQ - 1,
                                       g1, g2)
                        : real_t(0.0f);
       cp_async_wait<S::SP>();
@@ -369,7 +374,7 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
         const int g[3] = {z, g1, g2};
         CalcOf<S> out[S::NOUT];
         S::point(rd, g, p.n, p.t, out);
-        store<S>(p, 0, z, g1, g2, out);
+        store<S>(p, 0, 0, z, g1, g2, out);
       }
 #pragma unroll
       for (int k = 0; k < NK; ++k)
@@ -384,30 +389,36 @@ stream_step_kernel(const __grid_constant__ StreamParams<S> q) {
   }
 
   // 3) the pads: 0 into every output cell outside the interior, shared
-  //    out over every thread of the grid
-  const long long nb = (long long)gridDim.x * gridDim.y * gridDim.z;
-  const long long bid =
-      blockIdx.x + (long long)gridDim.x * (blockIdx.y + (long long)gridDim.y
-                                                            * blockIdx.z);
+  //    out over every thread of the whole grid (all its launches)
+  const long long nb = (long long)gridDim.x * q.gy * q.gz;
+  const long long bid = blockIdx.x + (long long)gridDim.x * (by + q.gy * bz);
   zero_pads<S>(q, bid * NT + tid, nb * NT);
 }
 
 template <class S>
-int launch_stream(const StreamParams<S>& p, cudaStream_t stream) {
+int launch_stream(StreamParams<S> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::STREAM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
       stream_step_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
   if (p.seg < 1) return int(cudaErrorInvalidConfiguration);
-  const long long gz = (p.p.n[0] + p.seg - 1) / p.seg;
-  const long long gy = (p.p.n[1] + S::ST1 - 1) / S::ST1;
-  if (gz > 65535 || gy > 65535) return int(cudaErrorInvalidConfiguration);
+  p.gz = (p.p.n[0] + p.seg - 1) / p.seg;
+  p.gy = (p.p.n[1] + S::ST1 - 1) / S::ST1;
   const dim3 block(S::ST2, S::ST1, 1);
-  const dim3 grid((p.p.n[2] + S::ST2 - 1) / S::ST2, unsigned(gy),
-                  unsigned(gz));
-  stream_step_kernel<S><<<grid, block, smem, stream>>>(p);
-  return int(cudaGetLastError());
+  // y in chunks of YT_MAX_GRID_Z, and z in each (launch_z)
+  for (p.y0 = 0; p.y0 < p.gy; p.y0 += YT_MAX_GRID_Z) {
+    const long long ny = p.gy - p.y0;
+    const int rc = launch_z(
+        p.z0, p.gz,
+        dim3((p.p.n[2] + S::ST2 - 1) / S::ST2,
+             unsigned(ny < YT_MAX_GRID_Z ? ny : YT_MAX_GRID_Z)),
+        [&](dim3 grid) {
+      stream_step_kernel<S><<<grid, block, smem, stream>>>(p);
+    });
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 #endif
 

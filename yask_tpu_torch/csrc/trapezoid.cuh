@@ -100,7 +100,7 @@ struct LevelReader {
                   + ((w0 + o0) * win<S, P>(1) + (w1 + o1)) * win<S, P>(2)
                   + (w2 + o2)];
     } else {
-      return global_at<S>(*p, A, 0, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, 0, 0, g0 + o0, g1 + o1, g2 + o2);
     }
   }
 };
@@ -132,7 +132,7 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
             && (S::trap_slot(0) || (c0 >= 0 && c0 < p.n[0]))
             && (S::trap_slot(1) || (c1 >= 0 && c1 < p.n[1]))
             && (S::trap_slot(2) || (c2 >= 0 && c2 < p.n[2]));
-        v[u] = in ? global_at<S>(p, a, 0, c0, c1, c2) : real_t(0);
+        v[u] = in ? global_at<S>(p, a, 0, 0, c0, c1, c2) : real_t(0);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)

@@ -12,8 +12,9 @@ into one ``Spec`` struct:
   distinct ``skey()``, which is the common-subexpression elimination their
   memos do.  Reads go through ``rd.template at<A>(o...)``; the tile
   machinery in ``csrc/fused_step.cuh`` supplies ``rd``.
-* several stages, or scratch vars (K6): ``Spec::stage<K>(rd, g, n, t,
-  out)``, one point function per sub-stage with the same CSE and typing.
+* several stages, or scratch vars (K6, and K7 over its members):
+  ``Spec::stage<K>(rd, g, n, t, out)``, one point function per sub-stage
+  with the same CSE and typing.
   A stage's scratch parts become sub-stages of their own (one per write
   halo), each computed over the stage's region grown by that halo, cells
   past the domain included, into a tile with no output; the stage's
@@ -160,9 +161,9 @@ def fused_applicable(program) -> Tuple[bool, str]:
 def a3_arms(program) -> List[str]:
     """The ROADMAP.md A3 arms this solution takes: more than three domain
     dims, misc-dim vars, written vars lacking a domain dim, element size
-    2.  K4, K5 and K7 have not been held against them: ``-trapezoid``
-    falls back (A12), ``-mode shard_pallas`` and member batches refuse
-    (A11, A9)."""
+    2.  K1, K6 and K7 (the member batch over either) take them; K4 and
+    K5 have not been held against them: ``-trapezoid`` falls back (A12)
+    and ``-mode shard_pallas`` refuses (A11)."""
     arms = []
     geoms = program.geoms
     dims = list(program.ana.domain_dims)
@@ -988,7 +989,10 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     if reasons is None:
         reasons = []
     if batched:
-        reasons.append({"code": "skew_not_ported", "kernel": "batched_step",
+        k6 = len(program.ana.stages) > 1 or has_scratch(program)
+        reasons.append({"code": "skew_not_ported",
+                        "kernel": ("batched_stages_step" if k6
+                                   else "batched_step"),
                         "cause": "K7 has no stream arm: ROADMAP.md A5"})
         return []
     if skew is False:
@@ -999,7 +1003,9 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     lead = dims[:-1]
     nst = len(program.ana.stages)
     cause = None   # (reason code, detail)
-    if nst > 1:
+    if not program.ana.eqs:
+        cause = ("skew_ineligible", "no equations: a step launches nothing")
+    elif nst > 1:
         cause = ("skew_ineligible", f"{nst}-stage solution: K6 carries it "
                  "(its stream arm is ROADMAP.md A5)")
     elif has_scratch(program):
@@ -1039,12 +1045,18 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
 
 def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
-    entries for one stage, K6's for several stages or scratch vars (one
-    sub-stage per scratch write halo of a part, and one for the rest of
-    each stage).  ``push`` is the :func:`resolve_push` request; the tile
-    is the first of ``ladder`` whose shared-memory tiles fit."""
+    entries for one stage, K6's (and K7's) for several stages or scratch
+    vars (one sub-stage per scratch write halo of a part, and one for the
+    rest of each stage).  ``push`` is the :func:`resolve_push` request;
+    the tile is the first of ``ladder`` whose shared-memory tiles fit.  A
+    program without equations has no kernel: a step of it changes
+    nothing, and this raises."""
     import numpy as np
     _check_applicable(program)
+    if not program.ana.eqs:
+        raise YaskException(
+            f"solution '{program.soln.get_name()}' has no equations: there "
+            "is no kernel to emit (its step changes nothing)")
     pushed, push_reasons = resolve_push(program, push)
     pt = _print(program, pushed)
     pr, slot_of, outputs, slices = pt.pr, pt.slot_of, pt.outputs, pt.slices
@@ -1167,10 +1179,10 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         name = f"fused_step_{stem}"
         stream_entry = (f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n"
                         if plan is not None else "")
-        # K7 and K5 take up to three domain dims (ROADMAP.md A9, A11)
-        more = ("" if no else
-                f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
-                f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
+        # K5 takes up to three domain dims (ROADMAP.md A11)
+        more = (f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
+                + ("" if no else
+                   f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n"))
         src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K1, and of K7 over N members
 // (see ops/fused_stencil.py).
@@ -1274,12 +1286,14 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     nscr = sum(u.scratch for u in subs)
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
-// ({len(program.ana.stages)} stage(s), {nscr} of scratch vars; see
-// ops/fused_stencil.py); pushed vars: {', '.join(pushed) or 'none'}.
+// ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), and of K7
+// over N members (see ops/fused_stencil.py); pushed vars:
+// {', '.join(pushed) or 'none'}.
 #include "fused_step.cuh"
 
 {struct}
 YT_FUSED_STAGES_ENTRY({name}, Spec)
+YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
 """
     return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                       outputs=outputs, tiled=tiled, tile=tile,

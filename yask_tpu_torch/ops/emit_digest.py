@@ -6,7 +6,8 @@ emitter refuses it.
 
 writes ``{"<solution> <bytes>": "<sha256>" or "refused: <reason>"}`` for
 the named solutions (all registered ones by default); "refused" also
-records an emitter that fails otherwise than by refusing.  Two checkouts'
+records an emitter that fails otherwise than by refusing, and a solution
+without equations, whose step launches nothing, is "no kernel".  Two checkouts'
 files compare an emitter change source by source: which sources it
 changed, which it left byte-identical, which it newly admits.  The
 module uses only ``create_solution``, ``get_registered_solutions`` and
@@ -25,8 +26,9 @@ ELEMENT_BYTES = (2, 4, 8)
 
 def digests(names: Optional[Iterable[str]] = None,
             element_bytes=ELEMENT_BYTES) -> Dict[str, str]:
-    """``{"<solution> <bytes>": digest or "refused: ..."}``, prepared on
-    the CPU at a small domain (the source does not depend on its size)."""
+    """``{"<solution> <bytes>": digest, "no kernel" or "refused: ..."}``,
+    prepared on the CPU at a small domain (the source does not depend on
+    its size)."""
     import yask_tpu_torch
     from yask_tpu_torch.compiler.solution_base import (
         create_solution, get_registered_solutions)
@@ -42,6 +44,9 @@ def digests(names: Optional[Iterable[str]] = None,
             g = 12 if len(ctx._ana.domain_dims) < 4 else 6
             ctx.apply_command_line_options(f"-g {g} -mode torch")
             ctx.prepare_solution()
+            if not ctx._program.ana.eqs:
+                out[f"{name} {eb}"] = "no kernel"
+                continue
             try:
                 source = cuda_emit.emit(ctx._program).source
             except Exception as e:  # a refusal, or a fault to record

@@ -33,14 +33,20 @@ integer launch counter ``fused_step.launches``.
 
 K7 on Hopper, the member-batched kernel: replaces the ``jax.vmap`` of
 ``build_pallas_chunk`` in ``EnsembleRun._batched_chunk_fn``
-(``yask_tpu/runtime/ensemble.py:234-345``).  The same emitted source
-carries a second C entry point (``<name>_batched``) that runs K1's tile
-machinery over N members of one contiguous (N, *shape) stack per ring
-slot: one launch per step for all members, the member folded into the
-grid's z.  Bound by bytes like K1 (N × 16 B/pt per iso3dfd r=8 step).
-:func:`batched_step` is its wrapper with its own counter
-``batched_step.launches``; :func:`plain_batched_chunk` (``plain_chunk`` on
-each member's view) is its plain version.
+(``yask_tpu/runtime/ensemble.py:234-345``), which vmaps whatever
+``build_pallas_chunk`` returns.  Every emitted source (K1's and K6's) carries a C
+entry point ``<name>_batched`` that runs the same tile machinery over N
+members of one contiguous (N, *shape) stack per ring slot: one launch per
+step for all members, the member folded into the grid's z cells beside
+the outer cells and the slot-0 blocks.  So K7 takes every arm K1 and K6
+take: several stages, scratch sub-stages, rewrites, misc slices,
+partial-dim writes, element size 2 and outer dims.  Bound by bytes like
+its body (N × 16 B/pt per iso3dfd r=8 step, N × 48 on tti r=2).
+:func:`batched_step` (K1's body) and :func:`batched_stages_step` (K6's)
+are its wrappers, each with its own counter; :func:`plain_batched_chunk`
+(``plain_chunk`` on each member's view) is their plain version.  A
+member batch never pushes, as the reference's vmapped chunk is built
+with ``push=False``: the context gives it a push-off kernel.
 
 K6 on Hopper, the multi-stage push-memory kernel: replaces the ``push=``
 arm of ``build_pallas_chunk`` and its stage loop (pallas_stencil.py:495-563,
@@ -56,7 +62,7 @@ input tensors (pallas_stencil.py:2335-2371).  Bound by bytes: the pure RTM
 chain moves 20 B per point per step with the image pushed.
 :func:`stages_step` is its wrapper with its own counter
 ``stages_step.launches``; the plain version is :func:`plain_chunk`, which
-evaluates every stage.  Multi-stage specs carry no K7 entry.
+evaluates every stage.
 
 K5 on Hopper, the per-shard region kernel of the ``shard_pallas`` path
 (``yask_tpu_torch/parallel/shard_step.py``): replaces the ``region=`` and
@@ -94,9 +100,9 @@ dims take slots past the three, each with its stride and extent), a var
 whose misc slices are not all written starts from a copy of its evicted
 slot (:func:`copy_base`, counted in ``copy_base.launches``), at element
 size 2 the stream arm checks the strides its pair copies need
-(:func:`check_pair_strides`), and a grid whose outer cells pass CUDA's z
-limit raises (:func:`grid_z`).  K4, K5 (:func:`shard_step`) and K7
-(``batched_chunk`` on the card) refuse these arms.
+(:func:`check_pair_strides`), and the launch code walks z cells past
+CUDA's limit in several launches (:func:`grid_z`).  K4 and K5
+(:func:`shard_step`) refuse these arms.
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's first kernel that advances K time levels
@@ -232,14 +238,17 @@ def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
                        stream) -> int:
     """Call an emitted kernel's K7 entry point on (N, *shape) stacks:
     member 0's tables (as :func:`call_entry` passes them), the member
-    strides, the member count, the step index and the stream."""
+    strides (one per table entry: a misc slice of an output takes its
+    tensor's), the member count, the step index and the stream."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
 
     def member_strides(tensors):
         return (ctypes.c_longlong * max(len(tensors), 1))(
             *[a.stride(0) for a in tensors])
-    in_ms, out_ms = member_strides(ins), member_strides(outs)
+    slices = spec.out_slices or [(i, ()) for i in range(len(outs))]
+    in_ms = member_strides(ins)
+    out_ms = member_strides([outs[i] for i, _m in slices])
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
               ctypes.addressof(out_s), ctypes.addressof(out_ms),
@@ -298,6 +307,13 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
               ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
+
+
+def batched_argtypes():
+    """K7's C signature: K1's tables with the member strides after each
+    array table, the member count, the step, the stream."""
+    return [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
 
 
 def stream_argtypes():
@@ -373,11 +389,13 @@ def _rotated(program, spec, state, outs):
     return new_state
 
 
-def copy_base(kernel: "FusedKernel", state, dev):
-    """The fresh zeroed output tensors of one sub-step, except that a var
-    some of whose misc slices no equation writes (``spec.base_outputs``)
-    starts from a device copy of its evicted slot, as the plain version's
-    new slot is the evicted one with the written slices replaced.  Counts
+def copy_base(kernel: "FusedKernel", state, dev, lead=()):
+    """The fresh zeroed output tensors of one sub-step (``lead +`` the
+    padded shape: ``(nm,)`` for a member batch's stacks), except that a
+    var some of whose misc slices no equation writes
+    (``spec.base_outputs``) starts from a device copy of its evicted slot
+    (of every member: slot 0 of the stack), as the plain version's new
+    slot is the evicted one with the written slices replaced.  Counts
     each copy in ``copy_base.launches``."""
     import torch
     prog = kernel.program
@@ -387,7 +405,7 @@ def copy_base(kernel: "FusedKernel", state, dev):
             outs.append(state[n][0].clone())
             copy_base.launches += 1
         else:
-            outs.append(torch.zeros(tuple(prog.geoms[n].shape),
+            outs.append(torch.zeros(tuple(lead) + tuple(prog.geoms[n].shape),
                                     dtype=kernel.dtype, device=dev))
     return outs
 
@@ -395,18 +413,14 @@ def copy_base(kernel: "FusedKernel", state, dev):
 copy_base.launches = 0
 
 
-#: CUDA's limit on gridDim.y and gridDim.z: K7 fills z with members ×
-#: slot-0 blocks, K1 and K6 with outer cells × slot-0 blocks.
-MAX_GRID_Z = 65535
-
-
-def grid_z(program, spec) -> int:
-    """K1's and K6's gridDim.z: the slot-0 blocks times the cells of the
-    outer dims.  :func:`_launch` refuses a grid past :data:`MAX_GRID_Z`
-    with the count; the launch code's own check in ``fused_step.cuh``
-    (``cudaErrorInvalidConfiguration``) is a backstop behind it."""
+def grid_z(program, spec, members: int = 1) -> int:
+    """The z cells of one sub-step of K1, K6 or K7: the slot-0 blocks
+    times the cells of the outer dims times the members.  Past CUDA's
+    gridDim.z limit of 65535 (``YT_MAX_GRID_Z`` in ``fused_step.cuh``)
+    the launch code splits them over several launches, each with its z
+    origin; the stream arm walks its y and z blocks alike."""
     slot = cuda_emit.slot_map(program.ana.domain_dims)
-    z = 1
+    z = members
     for d, s_ in slot.items():
         if s_ == 0:
             z *= -(-program.sizes[d] // spec.tile[0])
@@ -423,11 +437,6 @@ def _launch(kernel: "FusedKernel", state, t: int, what: str):
     import torch
     prog = kernel.program
     spec = kernel.spec
-    z = grid_z(prog, spec) if spec.outer else 0
-    if z > MAX_GRID_Z:
-        raise YaskException(
-            f"{what}: {z} outer cells x slot-0 blocks pass the grid's z "
-            f"limit {MAX_GRID_Z}")
     ins, dev = _check_inputs(kernel, state)
     outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
@@ -506,38 +515,52 @@ def stream_step(kernel: "FusedKernel", state, t: int):
 stream_step.launches = 0
 
 
-def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
-    """Launch one sub-step of K7 for ``nm`` members on the current CUDA
-    stream: ``state`` holds (nm, *shape) stacks per ring slot; returns
-    the new stacked state (rings rotated).  Counts each launch in
-    ``batched_step.launches``."""
+def _launch_batched(kernel: "FusedKernel", state, t: int, nm: int,
+                    what: str):
+    """Launch one sub-step of K7 (``<name>_batched``, over K1's or K6's
+    body) for ``nm`` members on the current CUDA stream: ``state`` holds
+    (nm, *shape) stacks per ring slot; returns the new stacked state
+    (rings rotated)."""
     import torch
     prog = kernel.program
     spec = kernel.spec
-    nb0 = -(-prog.sizes[prog.ana.domain_dims[0]] // spec.tile[0]) \
-        if len(prog.ana.domain_dims) == 3 else 1
-    if nm * nb0 > MAX_GRID_Z:
-        raise YaskException(
-            f"batched_step: {nm} members x {nb0} slot-0 blocks = "
-            f"{nm * nb0} passes the grid's z limit {MAX_GRID_Z}; use "
-            "fewer members per batch")
     ins, dev = _check_inputs(kernel, state, lead=(nm,))
-    outs = [torch.zeros((nm,) + tuple(prog.geoms[n].shape),
-                        dtype=kernel.dtype, device=dev)
-            for n in spec.outputs]
+    outs = copy_base(kernel, state, dev, lead=(nm,))
     with torch.cuda.device(dev):
         rc = call_batched_entry(kernel.batched_fn, prog, spec, ins, outs,
                                 nm, t,
                                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise YaskException(
-            f"batched_step kernel '{spec.name}_batched' launch failed: "
-            f"CUDA error {rc}")
-    batched_step.launches += 1
+            f"{what} kernel '{spec.name}_batched' launch failed: CUDA "
+            f"error {rc}")
     return _rotated(prog, spec, state, outs)
 
 
+def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
+    """Launch one sub-step of K7 over K1's body (a single-stage solution
+    without scratch vars) for ``nm`` members stacked as (nm, *shape);
+    returns the new stacked state.  Counts each launch in
+    ``batched_step.launches``."""
+    state = _launch_batched(kernel, state, t, nm, "batched_step")
+    batched_step.launches += 1
+    return state
+
+
 batched_step.launches = 0
+
+
+def batched_stages_step(kernel: "FusedKernel", state, t: int, nm: int):
+    """Launch one sub-step of K7 over K6's body (every stage and scratch
+    sub-stage) for ``nm`` members stacked as (nm, *shape); returns the
+    new stacked state.  Counts each launch in
+    ``batched_stages_step.launches``."""
+    state = _launch_batched(kernel, state, t, nm, "batched_stages_step")
+    batched_stages_step.launches += 1
+    return state
+
+
+batched_stages_step.launches = 0
 
 
 def _with_offset(program, off, device):
@@ -681,9 +704,11 @@ class FusedKernel:
     def __init__(self, program, push=False, skew=False,
                  max_skew_dims: int = 2):
         self.program = program
-        self.spec = cuda_emit.emit(program, push)
-        #: the ROADMAP.md A3 arms the solution takes (K5 and K7 refuse
-        #: them)
+        #: None for a program without equations: its step launches
+        #: nothing (ROADMAP.md C14)
+        self.spec = (cuda_emit.emit(program, push) if program.ana.eqs
+                     else None)
+        #: the ROADMAP.md A3 arms the solution takes (K5 refuses them)
         self.a3_arms = cuda_emit.a3_arms(program)
         self.skew_reasons: List[Dict] = []
         self.skew_dims = cuda_emit.skew_engaged_dims(
@@ -715,8 +740,11 @@ class FusedKernel:
 
     def build(self) -> float:
         """Build (nvcc at first use) and bind the entry points (K1, K7,
-        K5 and the stream arm for one stage, K6 for several); returns the
-        seconds it took.  Raises on a missing nvcc or a failed build."""
+        K5 and the stream arm for one stage, K6 and K7 for several);
+        returns the seconds it took.  Raises on a missing nvcc or a failed
+        build.  A program without equations builds nothing."""
+        if self.spec is None:
+            return 0.0
         if self.fn is not None:
             self.cache_hit = "memory"
             return 0.0
@@ -724,13 +752,11 @@ class FusedKernel:
         fn = getattr(lib, self.spec.name)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        bfn = rfn = None
+        bfn = getattr(lib, self.spec.name + "_batched")
+        bfn.argtypes = batched_argtypes()
+        bfn.restype = ctypes.c_int
+        rfn = None
         if self.spec.stages == 1 and not self.spec.outer:
-            bfn = getattr(lib, self.spec.name + "_batched")
-            bfn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
-                                                    ctypes.c_int,
-                                                    ctypes.c_void_p]
-            bfn.restype = ctypes.c_int
             rfn = getattr(lib, self.spec.name + "_region")
             rfn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
                                                     ctypes.c_void_p]
@@ -747,7 +773,10 @@ class FusedKernel:
 
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on
-        CUDA tensors; the plain version on CPU tensors; raises otherwise."""
+        CUDA tensors; the plain version on CPU tensors; raises otherwise.
+        A program without equations launches nothing."""
+        if self.spec is None:
+            return state
         dev = self._device_of(state)
         if dev.type == "cpu":
             return plain_chunk(self.program, state, t0, k)
@@ -765,29 +794,22 @@ class FusedKernel:
     def batched_chunk(self, state, t0: int, k: int, nm: int):
         """K7: advance ``nm`` members stacked as (nm, *shape) per ring
         slot by ``k`` steps from ``t0``: one launch per step for all
-        members on CUDA tensors; the plain version on CPU tensors;
-        raises otherwise."""
+        members on CUDA tensors (over K1's body, or K6's for several
+        sub-stages); the plain version on CPU tensors; raises otherwise.
+        A program without equations launches nothing."""
+        if self.spec is None:
+            return state
         dev = self._device_of(state)
         if dev.type == "cpu":
             return plain_batched_chunk(self.program, state, t0, k, nm)
         if dev.type != "cuda":
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
-        if self.spec.stages > 1:
-            raise YaskException(
-                f"fused kernel '{self.spec.name}': K7 takes single-stage "
-                f"solutions without scratch vars; this one runs "
-                f"{self.spec.stages} sub-stages on K6 (multi-stage and "
-                "scratch K7 are ROADMAP.md A9)")
-        if self.a3_arms:
-            raise YaskException(
-                f"fused kernel '{self.spec.name}': K7 has not been held "
-                f"against {' and '.join(self.a3_arms)} (ROADMAP.md A9 (A3 "
-                "arms on K7))")
         self.build()
+        step = batched_step if self.spec.stages == 1 else batched_stages_step
         dirn = self.program.ana.step_dir
         for i in range(k):
-            state = batched_step(self, state, t0 + i * dirn, nm)
+            state = step(self, state, t0 + i * dirn, nm)
         return state
 
     @staticmethod
@@ -810,6 +832,10 @@ class FusedKernel:
             reasons = []
             cuda_emit.skew_engaged_dims(self.program, reasons=reasons,
                                         spec=s, batched=True)
+        if s is None:
+            return {"kernel": None, "name": None, "fuse_steps": fuse_steps,
+                    "launches_per_step": 0, "stages": 0, "members": members,
+                    "skew_reasons": list(reasons)}
         out = {"kernel": "fused_step" if s.stages == 1 else "stages_step",
                "name": s.name, "fuse_steps": fuse_steps,
                "launches_per_step": 1, "stages": s.stages,
@@ -821,8 +847,9 @@ class FusedKernel:
                "pipeline_dmas": False, "skew": False, "skew_dims": [],
                "skew_reasons": list(reasons)}
         if members:
-            out.update(kernel="batched_step", name=s.name + "_batched",
-                       members=members)
+            out.update(kernel=("batched_step" if s.stages == 1
+                               else "batched_stages_step"),
+                       name=s.name + "_batched", members=members)
         elif self.skew_dims:
             rec = s.stream.record()
             out.update(rec)

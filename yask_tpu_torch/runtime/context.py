@@ -90,6 +90,7 @@ class StencilContext:
         self._mode = None
         self._device = None
         self._fused = None            # FusedKernel, built at first use
+        self._fused_batched = None    # K7's push-off FusedKernel, if any
         # the shard modes: the device mesh, the per-(mode, K, knobs)
         # CommPlans, and the per-shard layout (ShardLayout for shard_map/
         # sharded, ShardPallasPlan for shard_pallas), made at first run
@@ -350,11 +351,6 @@ class StencilContext:
             pending.append(f"-trapezoid with -ensemble {o.ensemble}: "
                            "ROADMAP.md A12 (batched K4)")
         self._push_arg()   # a bad -push value raises
-        if o.push_memory in ("on", "force") and o.ensemble > 1 \
-                and o.mode == "fused":
-            pending.append(f"-push {o.push_memory} with -ensemble "
-                           f"{o.ensemble}: ROADMAP.md A9 (K7 has no push "
-                           "arm: multi-stage K7)")
         if pending:
             raise YaskException(
                 "not ported yet: " + "; ".join(pending))
@@ -430,10 +426,6 @@ class StencilContext:
                     f"solution '{self.get_name()}' has {arms}: K5 has not "
                     "been held against them (ROADMAP.md A11 (A3 arms on "
                     "K5)); use -mode shard_map")
-            if arms and self._opts.ensemble > 1:
-                raise YaskException(
-                    f"not ported yet: {arms} with -ensemble "
-                    f"{self._opts.ensemble}: ROADMAP.md A9 (A3 arms on K7)")
         if mode == "shard_pallas" and len(self._ana.stages) > 1:
             raise YaskException(
                 f"solution '{self.get_name()}' has {len(self._ana.stages)} "
@@ -445,11 +437,6 @@ class StencilContext:
                 f"solution '{self.get_name()}' has scratch vars "
                 f"({', '.join(names)}): K5 has no scratch sub-stages "
                 "(ROADMAP.md A11 (scratch K5)); use -mode shard_map")
-        if mode == "fused" and self._opts.ensemble > 1 and has_scratch(prog):
-            raise YaskException(
-                f"not ported yet: scratch vars with -ensemble "
-                f"{self._opts.ensemble}: ROADMAP.md A9 (K7 has no scratch "
-                "sub-stages)")
         return prog
 
     def prepare_solution(self) -> None:
@@ -460,6 +447,7 @@ class StencilContext:
         self._ended = False
         self._program = self._plan_geometry()
         self._fused = None
+        self._fused_batched = None
         self._trap = None
         self._shard = None
         self._comm_plans.clear()
@@ -732,6 +720,27 @@ class StencilContext:
             self._last_cache_hit = "plain"
         return kern
 
+    def _batched_kernel(self):
+        """K7's kernel for this prepared solution's member batches: the
+        solo fused kernel where ``-push`` resolves to off, else a push-off
+        one (the reference's vmapped chunk is built with ``push=False``,
+        so a batch materialises the vars a solo run pushes, and a forced
+        push with nothing to push does not raise; ROADMAP.md §C16).
+        Built on a CUDA device, as :meth:`_fused_kernel`."""
+        if self._push_arg() is False:
+            kern = self._fused_spec_kernel()
+        else:
+            if self._fused_batched is None:
+                from yask_tpu_torch.ops.fused_stencil import FusedKernel
+                self._fused_batched = FusedKernel(self._program, False)
+            kern = self._fused_batched
+        if self._device.type == "cuda":
+            self._compile_secs += kern.build()
+            self._last_cache_hit = kern.cache_hit
+        else:
+            self._last_cache_hit = "plain"
+        return kern
+
     def comm_plan(self, K: Optional[int] = None):
         """The communication schedule (CommPlan) of the configured shard
         mode, derived once per (mode, K, knobs) and cached; the exchange
@@ -771,7 +780,8 @@ class StencilContext:
         if self._mode != "fused":
             return (self._mode,)
         kern = self._fused_spec_kernel()
-        return ("fused", max(self._opts.wf_steps, 1), kern.spec.name,
+        return ("fused", max(self._opts.wf_steps, 1),
+                kern.spec.name if kern.spec is not None else "",
                 tuple(kern.skew_dims), self._trapezoid_arg(),
                 self._push_arg(), self._pipeline_sig or "")
 
@@ -942,6 +952,7 @@ class StencilContext:
         self._state = None
         self._program = None
         self._fused = None
+        self._fused_batched = None
         self._trap = None
         self._shard = None
         self._ended = True

@@ -6,10 +6,17 @@ parameter-sweep and ensemble-seismic-shot regime) leave most of a card
 idle, and N separate runs pay N launches per step.  Here every ring slot
 of the members is stacked once per run into one contiguous (N, *shape)
 tensor, and ``-mode fused`` advances all members with one launch of K7
-per step (:func:`yask_tpu_torch.ops.fused_stencil.batched_step`, the
-member-batched fused kernel), then unstacks the members as contiguous
-views.  One prepared context serves every member: :class:`RunState` is
-what a member is.
+per step (the member-batched fused kernel:
+:func:`yask_tpu_torch.ops.fused_stencil.batched_step` over K1's body,
+``batched_stages_step`` over K6's), then unstacks the members as
+contiguous views.  K7 takes every arm of the reference's vmapped chunk:
+several stages, scratch sub-stages, rewrites, misc dims, partial-dim
+writes, element size 2 and more than three domain dims.  It never
+pushes: the reference builds its member batch with ``push=False``, so
+the context hands it a push-off kernel (``StencilContext._batched_kernel``)
+and a var a solo run pushes is materialised in a batch (ROADMAP.md §C16).
+``-trapezoid`` has no member batch (ROADMAP.md A12).  One prepared
+context serves every member: :class:`RunState` is what a member is.
 
 Feasibility is a mode property with one definition
 (:func:`ensemble_feasible`): the single-device modes (``torch``,
@@ -27,7 +34,8 @@ Per-member initial conditions and results ride the var APIs unchanged:
 
 Bit-identity contract: per member, a batched run gives the bits of that
 member run alone (``tests/test_torch_ensemble.py``): K7 stages and
-computes exactly what K1 does for one member, offset by the member.
+computes exactly what K1 or K6 does for one member, offset by the
+member (a var a solo run pushes aside).
 
 Masked sub-domain members (``sub_domains=``, serve-side shape
 bucketing): a member may occupy only the low-corner ``{dim: size}``
@@ -236,7 +244,7 @@ class EnsembleRun:
         (K = wf_steps) plus a remainder, one launch per step."""
         ctx = self._ctx
         batched = self._stack_states()
-        kern = ctx._fused_kernel()
+        kern = ctx._batched_kernel()
         K = max(ctx._opts.wf_steps, 1)
         dirn = ctx._ana.step_dir
         with self._members[0].run_timer:

@@ -223,15 +223,17 @@ class StencilServer:
 
     def prewarm(self, sid: str, steps: int) -> int:
         """Build the session's fused kernel (nvcc at first use) ahead of
-        the first request, under the ``serve.run`` guard.  Returns the
-        number of kernels touched: 1 for a fused session, 0 otherwise
-        (torch mode builds nothing).  ``steps`` is kept for parity."""
+        the first request, under the ``serve.run`` guard, and the member
+        batch's kernel where that is another (a push-off build).  Returns
+        1 for a fused session, 0 otherwise (torch mode builds nothing).
+        ``steps`` is kept for parity."""
         from yask_tpu_torch.resilience.guard import guarded_call
         sess = self.registry.session(sid)
         with self.scheduler.session_ctx(sid) as ctx:
             if sess.mode != "fused":
                 return 0
-            guarded_call(ctx._fused_kernel, site="serve.run")
+            guarded_call(lambda: (ctx._fused_kernel(),
+                                  ctx._batched_kernel()), site="serve.run")
             return 1
 
     # ------------------------------------------------------- metrics

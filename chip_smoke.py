@@ -212,7 +212,37 @@ script exits 0 only when all of them passed.  Phases:
    and no other, each member bit-identical to its solo run; (d) the RTM
    pipeline's push arm in bfloat16: at 64³ K6 against its plain version
    on the card and both against the numpy oracle at (3e-2, 3e-2), then
-   at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row.
+   at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row;
+13. K5 on every arm of the reference's shard_pallas: ``-mode
+   shard_pallas`` over ``new_env(devices=["cuda:0"] * n)``, K5 over K1's
+   body (one stage) or K6's (several stages, scratch sub-stages,
+   rewrites), with misc slices, partial-dim outputs, bfloat16 and outer
+   dims, each shard's box clipped at the global domain.  (a) At mid width
+   (48-96 per dim), 5 steps from one state seeded in a physical range
+   (``seed_case``), meshes with an inner face in every sharded dim: ssg
+   (K=1, K=2), tti r=2 (K=1 on x=2, K=2 on x=2 y=2), awp, swe2d,
+   test_scratch_3d, test_boundary_3d, gaussian r=2 and test_misc_2d (misc),
+   test_step_cond_1d, partial_written (x sharded, the dim its ``P``
+   lacks), iso3dfd r=2 in bfloat16, test_4d with ``w`` (outer) and with
+   ``x`` sharded, and ssg and tti with ``-overlap_x on -coalesce on``: each
+   against K5's plain version on the card (``field_epsilon``, 1e-2 at
+   element size 2), bit-equal (``compare_data(epsilon=0)``) to the
+   single-domain ``-mode fused`` run, the overlap runs to those without,
+   K5's launches as ``k5_launches`` says (and a copy of the evicted slot
+   per launch for test_misc_2d), one launch over shard 0's sub-step-0 box
+   timed against its bound and its plain version; (b) at full width on
+   2x2 shards, seeded on the card in physical ranges (``seed_device``),
+   a warm-up group, then 3 trials of 20 steps with every counter zeroed
+   just before (K5 alone launches): tti r=2 512³ fp32 and iso3dfd r=8 512³
+   bf16 at ``-wf_steps 2``, awp 256³ fp32 at ``-wf_steps 1`` (512³ would
+   not fit beside its twin): ms/step, K5's ms per launch over each
+   sub-step's box (grown, then the interior; CUDA events) against its
+   bound (the live inputs over the box's reach clipped to the global
+   domain, the outputs over the box: ``k5_bound``), the exchange's ms per
+   group, the step's bound (four shards' launches and the exchanged
+   slabs, ``exchange_bytes``) and share, one launch against its plain
+   version, the peak memory, and the state bit-equal to the
+   single-domain ``-mode fused`` twin's after the same steps.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -287,9 +317,11 @@ def zero_launch_counts() -> None:
 
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
-    names = (("stream_step_kernel", "stream arm"), ("fused_region_kernel",
-             "K5"), ("fused_step_kernelI4SpecLb1", "K7 (K1 body)"),
+    names = (("stream_step_kernel", "stream arm"),
+             ("fused_step_kernelI4SpecLb0ELb1E", "K5 (K1 body)"),
+             ("fused_step_kernelI4SpecLb1", "K7 (K1 body)"),
              ("fused_step_kernelI4SpecLb0", "K1"),
+             ("fused_stages_kernelI4SpecLb0ELb1E", "K5 (K6 body)"),
              ("fused_stages_kernelI4SpecLb1", "K7 (K6 body)"),
              ("fused_stages_kernelI4SpecLb0", "K6"),
              ("trapezoid_kernel", "K4 phase 1"),
@@ -1305,39 +1337,6 @@ def k5_launches(shards: int, n: int, K: int, overlap: bool,
     return total
 
 
-def box_bytes(kern, box, off) -> int:
-    """Bytes one K5 launch over ``box`` of the shard with global origin
-    ``off`` must move: each input read once over the box grown by its
-    reach and clipped to the global domain (outside it the pads hold
-    zeros that need no reading; inside it, past the shard's interior, lie
-    the cells exchanged from its neighbours), each output written once
-    over the box."""
-    import numpy as np
-    prog, spec = kern.program, kern.spec
-    dims = list(prog.ana.domain_dims)
-    slot = {d: 3 - len(dims) + i for i, d in enumerate(dims)}
-    esize = np.dtype(prog.dtype).itemsize
-
-    def cells(name, reach):
-        c = 1
-        for d in prog.geoms[name].domain_dims:
-            lo, hi = reach[slot[d]]
-            a = max(box[d][0] - lo, -off[d])
-            b = min(box[d][1] + hi, prog.global_last[d] + 1 - off[d])
-            c *= max(b - a, 0)
-        return c
-
-    def whole(name):
-        c = 1
-        for d in prog.geoms[name].domain_dims:
-            c *= box[d][1] - box[d][0]
-        return c
-    total = sum(cells(n, spec.reach[a])
-                for a, (n, _s) in enumerate(spec.inputs))
-    total += sum(whole(n) for n in spec.outputs)
-    return esize * total
-
-
 def phase8a(fac, dev: str = "cuda:0", cases=SHARD_CASES) -> float:
     """Phase 8 (a): the small cases (see the module docstring); returns
     the largest |Δ| against K5's plain version."""
@@ -1461,7 +1460,7 @@ def k5_launch_times(ctx, t: int, g: int, r: int, card: str):
     if not err <= FIELD_EPS * scale:
         raise RuntimeError("phase 8: K5 and its plain version disagree at "
                            f"{g}^3")
-    bounds = [box_bytes(kern, bx, off) / HBM_BYTES_PER_S * 1e3
+    bounds = [k5_bound(kern, bx, off)[2] / HBM_BYTES_PER_S * 1e3
               for bx in boxes]
     flops = [ctx._ana.counters.num_ops * (bx["x"][1] - bx["x"][0])
              * (bx["y"][1] - bx["y"][0]) * g / FP32_FLOP_PER_S * 1e3
@@ -1592,19 +1591,8 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
     del seed
     ctx, t = main_ctx, main_t
     err, plain_ms, k5_ms, bound_ms, bound_by, layout = k5
-    # bytes the exchange moves per group: every slab read and written once
-    xbytes = 0
-    for name in layout.names:
-        gm = ctx._shard.kernel.program.geoms[name]
-        if not gm.is_written:
-            continue
-        for dim in ("x", "y"):
-            cross = 1
-            for ax, (dn, _k) in enumerate(gm.axes):
-                if dn != dim:
-                    cross *= gm.shape[ax]
-            slabs = 2 * len(layout.mesh.neighbour_pairs(dim))
-            xbytes += min(K, gm.num_slots) * slabs * r * K * cross * 4
+    # the slabs one group's exchange moves (each read and written once)
+    xbytes = exchange_bytes(ctx._shard, K) // 2
     step_bound = (16 * npts + 2 * xbytes / K) / HBM_BYTES_PER_S * 1e3
     log(f"phase 8: exchange per group: {xbytes / 2**20:.1f} MiB of slabs "
         f"({K} newest pressure slots, {r * K}-wide); step bound "
@@ -3065,6 +3053,426 @@ def phase12(fac, env, card: str, solo: dict, rtm32: dict) -> list:
     return entries
 
 
+# ---- phase 13: K5 on every arm (shard_pallas over K1's and K6's bodies)
+
+X2 = (("x", 2),)
+X2Y2 = (("x", 2), ("y", 2))
+#: Phase 13 (a)'s cases: (label, stencil, radius, element bytes, sizes,
+#: K, ranks, options); the overlap cases are held to the bits of the case
+#: of the same solution and K without them.
+K5_CASES = (
+    ("ssg K=1", "ssg", None, 4, (64, 64, 64), 1, X2Y2, ""),
+    ("ssg K=2", "ssg", None, 4, (64, 64, 64), 2, X2Y2, ""),
+    ("tti r=2 K=1 x=2", "tti", 2, 4, (64, 64, 64), 1, X2, ""),
+    ("tti r=2 K=2", "tti", 2, 4, (64, 64, 64), 2, X2Y2, ""),
+    ("awp", "awp", None, 4, (64, 64, 64), 1, X2Y2, ""),
+    ("swe2d K=2 x=2", "swe2d", None, 4, (96, 96), 2, X2, ""),
+    ("test_scratch_3d", "test_scratch_3d", None, 4, (48, 48, 48), 1, X2Y2,
+     ""),
+    ("test_boundary_3d", "test_boundary_3d", None, 4, (48, 48, 48), 1,
+     X2Y2, ""),
+    ("gaussian r=2 K=2 x=2", "gaussian", 2, 4, (96, 96), 2, X2, ""),
+    ("test_misc_2d K=2 x=2", "test_misc_2d", None, 4, (96, 96), 2, X2, ""),
+    ("test_step_cond_1d x=2", "test_step_cond_1d", None, 4, (96,), 1, X2,
+     ""),
+    ("partial_written K=2 x=2", "partial_written", None, 4, (48, 48, 48), 2,
+     X2, ""),
+    ("iso3dfd r=2 bf16 K=2", "iso3dfd", 2, 2, (64, 64, 64), 2, X2Y2, ""),
+    ("test_4d K=2 w=2", "test_4d", None, 4, (48, 48, 48, 48), 2,
+     (("w", 2),), ""),
+    ("test_4d K=2 x=2", "test_4d", None, 4, (48, 48, 48, 48), 2, X2, ""),
+    ("ssg K=2 overlap on coalesce on", "ssg", None, 4, (64, 64, 64), 2,
+     X2Y2, "-overlap_x on -coalesce on"),
+    ("tti r=2 K=2 overlap on coalesce on", "tti", 2, 4, (64, 64, 64), 2,
+     X2Y2, "-overlap_x on -coalesce on"),
+)
+#: Phase 13 (b): (label, stencil, radius, element bytes, edge, K)
+K5_FULL = (("tti r=2 fp32", "tti", 2, 4, 512, 2),
+           ("iso3dfd r=8 bf16", "iso3dfd", 8, 2, 512, 2),
+           ("awp fp32", "awp", None, 4, 256, 1))
+
+
+def k5_ctx(fac, st, r, eb, sizes, K, ranks, cli="", mode="shard_pallas",
+           dev="cuda:0"):
+    """A prepared context of ``st`` over ``sizes``: ``-mode
+    shard_pallas`` on ``ranks`` shards of one card (one per shard in the
+    env's device list), or another mode on the card alone."""
+    S = 1
+    for _d, n in ranks:
+        S *= n
+    if mode != "shard_pallas":
+        S, ranks = 1, ()
+    nr = " ".join(f"-nr_{d} {n}" for d, n in ranks)
+    return a3_ctx(fac, fac.new_env(devices=[dev] * S), st, r, eb, sizes,
+                  mode, K, f"{nr} {cli}")
+
+
+def k5_specs(fac) -> dict:
+    """Phase 13's kernels (K5 over each case's shard program, whose pads
+    grow with K, and the single-domain twins), for phase 1's parallel
+    build."""
+    from yask_tpu_torch.ops import fused_stencil
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    out = {}
+    for label, st, r, eb, sizes, K, ranks, cli in K5_CASES:
+        small = tuple(max(16, 2 * 8 * K) for _ in sizes)
+        ctx = k5_ctx(fac, st, r, eb, small, K, ranks, cli)
+        out[f"K5 {label}"] = shard_pallas_plan(ctx).kernel.spec
+        one = k5_ctx(fac, st, r, eb, small, K, ranks, mode="fused")
+        out[f"{label} single domain"] = fused_stencil.FusedKernel(
+            one._program).spec
+    for label, st, r, eb, g, K in K5_FULL:
+        ctx = k5_ctx(fac, st, r, eb, (64, 64, 64), K, X2Y2)
+        out[f"K5 {label} full"] = shard_pallas_plan(ctx).kernel.spec
+    return out
+
+
+def k5_bound(kern, box, off, live=None) -> tuple:
+    """The least time of one K5 launch over ``box`` of the shard at
+    global origin ``off``: each input (a var's ring slot and misc slice;
+    with ``live``, only those (var, slot) whose values can reach an
+    output) read once over the box grown by its reach and clipped to the
+    global domain (past it the pads hold zeros that need no reading;
+    inside it, past the shard's interior, lie the cells exchanged from its
+    neighbours), each output slice written once over the box, against
+    3.35 TB/s, or its FLOPs at 67 TFLOP/s, whichever is larger.  Returns
+    (ms, "bytes"/"operations", bytes)."""
+    import numpy as np
+    from yask_tpu_torch.ops import cuda_emit
+    prog, spec = kern.program, kern.spec
+    dims = list(prog.ana.domain_dims)
+    slot = cuda_emit.slot_map(dims)
+    nouter = max(len(slot) - 3, 0)
+    esize = np.dtype(prog.dtype).itemsize
+    # an input read at an outer offset is the same array: one reach
+    arrays = {}
+    for a, (n, s_) in enumerate(spec.inputs):
+        if live is not None and (n, s_) not in live:
+            continue
+        key = (n, s_, spec.in_misc[a] if spec.in_misc else ())
+        reach = [list(x) for x in spec.reach[a]]
+        for o in (spec.in_outer[a] if spec.in_outer else [0] * nouter):
+            reach.append([max(-o, 0), max(o, 0)])
+        if key in arrays:
+            reach = [[max(u[0], v[0]), max(u[1], v[1])]
+                     for u, v in zip(arrays[key], reach)]
+        arrays[key] = reach
+
+    def cells(name, reach=None):
+        c = 1
+        for d in prog.geoms[name].domain_dims:
+            lo, hi = box[d]
+            if reach is not None:
+                rl, rh = reach[slot[d]]
+                lo = max(lo - rl, -off[d])
+                hi = min(hi + rh, prog.global_last[d] + 1 - off[d])
+            c *= max(hi - lo, 0)
+        return c
+    nslices = spec.out_slices or [(i, ()) for i in range(len(spec.outputs))]
+    nbytes = esize * (sum(cells(n, r_) for (n, _s, _m), r_ in arrays.items())
+                      + sum(cells(spec.outputs[i]) for i, _m in nslices))
+    npts = 1
+    for d in dims:
+        npts *= box[d][1] - box[d][0]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = prog.ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes)
+
+
+def exchange_bytes(sp, K: int) -> int:
+    """Bytes one group's exchange moves (``exchange_newest``): the
+    min(K, slots) newest slots of every written var, each ghost slab of
+    ``hK`` per sharded dim read and written once, over the padded
+    cross-section."""
+    import numpy as np
+    from yask_tpu_torch.parallel.shard_step import _widths_hK
+    layout = sp.layout
+    prog = sp.kernel.program
+    esize = np.dtype(prog.dtype).itemsize
+    total = 0
+    for name in layout.names:
+        g = prog.geoms[name]
+        if not g.is_written:
+            continue
+        for d, (lo, hi) in _widths_hK(sp, K, g).items():
+            cross = 1
+            for ax, (dn, _k) in enumerate(g.axes):
+                if dn != d:
+                    cross *= g.shape[ax]
+            pairs = len(layout.mesh.neighbour_pairs(d))
+            total += (min(K, g.num_slots) * pairs * (lo + hi) * cross
+                      * esize * 2)
+    return total
+
+
+def k5_time_launch(ctx, t: int, box, live=None):
+    """K5 over ``box`` of shard 0 from the shards resident in ``ctx`` at
+    step ``t``: (ms per launch with CUDA events, its bound, bound_by,
+    bytes, plain ms, max |Δ| against the plain version and the field's
+    max)."""
+    from yask_tpu_torch.ops.fused_stencil import (plain_shard_step,
+                                                  shard_step)
+    sp = ctx._shard
+    kern = sp.kernel
+    layout, shards = ctx._run.resident
+    off = layout.offsets[0]
+    st0 = shards[0]
+    ms = cuda_ms(lambda: shard_step(kern, st0, t, box, off), 5)
+    plain_ms = cuda_ms(lambda: plain_shard_step(kern, st0, t, box, off), 1)
+    a = shard_step(kern, dict(st0), t, box, off)
+    b = plain_shard_step(kern, dict(st0), t, box, off)
+    err, scale = 0.0, 0.0
+    for n in kern.spec.outputs:
+        err = max(err, float((a[n][-1].float() - b[n][-1].float()).abs()
+                             .max()))
+        scale = max(scale, float(b[n][-1].float().abs().max()))
+    del a, b, st0, shards
+    bound_ms, bound_by, nbytes = k5_bound(kern, box, off, live)
+    return ms, bound_ms, bound_by, nbytes, plain_ms, err, scale
+
+
+def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
+             dev: str = "cuda:0") -> list:
+    """Phase 13 (a): each arm at mid width against K5's plain version on
+    the card, the single-domain fused run to the bit, and its launch
+    counts; returns per arm (label, ms per launch, bound, plain ms,
+    max |Δ|)."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil
+    from yask_tpu_torch.ops.fused_stencil import (plain_shard_step,
+                                                  shard_step)
+    from yask_tpu_torch.parallel.shard_step import _full_box
+    arms, rows = {}, []
+    for label, st, r, eb, sizes, K, ranks, cli in cases:
+        S = 1
+        for _d, n in ranks:
+            S *= n
+        ctx = k5_ctx(fac, st, r, eb, sizes, K, ranks, cli, dev=dev)
+        plain = k5_ctx(fac, st, r, eb, sizes, K, ranks, cli, dev=dev)
+        one = k5_ctx(fac, st, r, eb, sizes, K, ranks, mode="fused",
+                     dev=dev)
+        for c in (ctx, plain, one):
+            seed_case(c, 13)
+        zero_launch_counts()
+        ctx.run_solution(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        fused_stencil.shard_step = plain_shard_step
+        try:
+            plain.run_solution(0, steps - 1)
+        finally:
+            fused_stencil.shard_step = shard_step
+        one.run_solution(0, steps - 1)
+        til = ctx.get_stats().get_tiling()
+        ov = til["overlap_exchange"]
+        want = {"shard_step": k5_launches(S, steps, K, ov, 2 * len(
+            til.get("overlap_core", {})))}
+        nb = len(ctx._shard.kernel.spec.base_outputs)
+        if nb:
+            want["copy_base"] = nb * S * steps
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        body = ("K6" if til["stages"] > 1 or til["scratch_stages"]
+                else "K1")
+        # one launch while the shards are resident (a read gathers them)
+        box = _full_box(ctx._shard, K, 0)
+        ms, bound_ms, bound_by, _nb, plain_ms, err, scale = \
+            k5_time_launch(ctx, steps, box)
+        d = max_abs_diff(ctx, plain)
+        bad_plain = ctx.compare_data(plain, field_epsilon=eps)
+        bad_one = ctx.compare_data(one, epsilon=0.0, abs_epsilon=0.0)
+        log(f"phase 13: {label} ({'x'.join(map(str, sizes))}, {eb} B, "
+            f"mesh {til['mesh']}, {S} shards on {dev}, K5 over {body}'s "
+            f"body, {til['stages']} sub-stages): {steps} steps: overlap "
+            f"{ov}; vs plain (plain_shard_step on the card) max|d|={d:.3e} "
+            f"mismatches={bad_plain} (field_epsilon={eps}); vs "
+            f"single-domain -mode fused compare_data(epsilon=0) = "
+            f"{bad_one}; launches {got} (expected {want}); finite "
+            f"{finite(ctx)}; one launch over shard 0's sub-step-0 box "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{plain_ms:.3f} ms, max|d|={err:.3e} (field max {scale:.3e}) "
+            f"[{card}]")
+        if bad_plain or bad_one or not finite(ctx) \
+                or not err <= eps * scale:
+            raise RuntimeError(f"phase 13: {label}: {bad_plain} mismatches "
+                               f"vs plain, {bad_one} vs single-domain")
+        if got != want:
+            raise RuntimeError(f"phase 13: {label}: launches {got}, "
+                               f"expected {want}")
+        if "overlap on" in cli and not ov:
+            raise RuntimeError(f"phase 13: {label}: the overlap did not "
+                               "engage")
+        arms[label] = ctx
+        rows.append((label, body, ms, bound_ms, bound_by, plain_ms,
+                     max(d, err), got["shard_step"]))
+        del plain, one
+        torch.cuda.empty_cache()
+    for a, b in (("ssg K=2", "ssg K=2 overlap on coalesce on"),
+                 ("tti r=2 K=2", "tti r=2 K=2 overlap on coalesce on")):
+        if a in arms and b in arms:
+            bad = arms[a].compare_data(arms[b], epsilon=0.0,
+                                       abs_epsilon=0.0)
+            log(f"phase 13: '{a}' vs '{b}': compare_data(epsilon=0) = "
+                f"{bad}")
+            if bad:
+                raise RuntimeError(f"phase 13: '{a}' and '{b}' differ")
+    return rows
+
+
+def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
+             trials: int = 3, steps: int = 20, dev: str = "cuda:0") -> dict:
+    """Phase 13 (b): one case at full width, ``-mode shard_pallas -nr_x 2
+    -nr_y 2 -wf_steps K`` on four shards of the card, from
+    :func:`seed_device`'s physical state, and its single-domain twin
+    (``-mode fused``) from the same state, bit-equal after the same
+    steps.  Returns the ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.parallel import shard_step as shard_mod
+    from yask_tpu_torch.parallel.shard_step import _full_box
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sizes = (g, g, g)
+    npts = g ** 3
+    ctx = k5_ctx(fac, st, r, eb, sizes, K, X2Y2, dev=dev)
+    seed_device(ctx, 11, physical=True)
+    ctx.run_solution(0, warm * K - 1)
+    t = warm * K
+    zero_launch_counts()
+    rates = []
+    for _ in range(trials):
+        ctx.clear_stats()
+        ctx.run_solution(t, t + steps - 1)
+        t += steps
+        rates.append(ctx.get_stats().get_pts_per_sec())
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    til = ctx.get_stats().get_tiling()
+    want = {"shard_step": trials * k5_launches(4, steps, K, False, 0)}
+    if til["overlap_exchange"] or got != want:
+        raise RuntimeError(f"phase 13: {label} at {g}^3: launches {got}, "
+                           f"expected {want} (overlap "
+                           f"{til['overlap_exchange']})")
+    peak = torch.cuda.max_memory_allocated()
+    rates.sort()
+    mid = rates[len(rates) // 2]
+    step_ms = npts / mid * 1e3
+    # outside the counted window: CUDA events around each exchange
+    marks = []
+    exchange_newest = shard_mod.exchange_newest
+
+    def timed(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        exchange_newest(*a, **kw)
+        e1.record()
+        marks.append((e0, e1))
+    shard_mod.exchange_newest = timed
+    try:
+        ctx.run_solution(t, t + steps - 1)
+    finally:
+        shard_mod.exchange_newest = exchange_newest
+    t += steps
+    torch.cuda.synchronize()
+    xch_ms = (sum(e0.elapsed_time(e1) for e0, e1 in marks) / len(marks)
+              if marks else 0.0)
+    sp = ctx._shard
+    live = None if st == "iso3dfd" else live_inputs(fac, fac.new_env(
+        devices=[dev]), st, r)
+    boxes = [_full_box(sp, K, s_) for s_ in range(K)]
+    timed_rows = [k5_time_launch(ctx, t, b, live) for b in boxes]
+    ms = [row[0] for row in timed_rows]
+    k5_ms = sum(ms) / len(ms)
+    bound_ms = sum(row[1] for row in timed_rows) / len(ms)
+    bound_by = timed_rows[0][2]
+    plain_ms = timed_rows[0][4]
+    err = max(row[5] for row in timed_rows)
+    scale = max(row[6] for row in timed_rows)
+    xbytes = exchange_bytes(sp, K)
+    # the step's bound: every shard's sub-steps over their boxes, and the
+    # exchange, per step
+    step_bytes = (4 * sum(row[3] for row in timed_rows) + xbytes) / K
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+    # the single-domain twin from the same seed, the same steps
+    del timed_rows
+    one = k5_ctx(fac, st, r, eb, sizes, K, X2Y2, mode="fused", dev=dev)
+    seed_device(one, 11, physical=True)
+    one.run_solution(0, t - 1)
+    d, bad = device_diff(ctx, one, exact=True)
+    ok_finite = finite(ctx)
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    n = g // 2
+    log(f"phase 13: {label} {g}^3 -mode shard_pallas -wf_steps {K} -nr_x 2 "
+        f"-nr_y 2 (4 shards of {n}x{n}x{g} on {dev}, K5 over "
+        f"{'K6' if til['stages'] > 1 or til['scratch_stages'] else 'K1'}'s "
+        f"body): {trials} trials x {steps} steps: {step_ms:.3f} ms/step "
+        f"(min {npts / rates[-1] * 1e3:.3f}, max "
+        f"{npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; K5 launches "
+        f"{got['shard_step']}; K5 per launch {', '.join(f'{m:.3f}' for m in ms)}"
+        f" ms over the sub-step boxes {[{k: list(v) for k, v in b.items()} for b in boxes]} "
+        f"(grown, then interior), bound {bound_ms:.4f} ms per launch "
+        f"({bound_by}; live inputs over each box's reach clipped to the "
+        f"global domain, outputs over the box), share "
+        f"{bound_ms / k5_ms:.3f}; exchange {xch_ms:.3f} ms per group "
+        f"({xbytes / 2**20:.1f} MiB read and written); step bound "
+        f"{step_bound:.3f} ms, share {step_bound / step_ms:.3f}; plain "
+        f"version {plain_ms:.3f} ms per launch (not a yardstick), one "
+        f"launch vs plain max|d|={err:.3e} (field max {scale:.3e}); vs "
+        f"the single-domain -mode fused twin after {t} steps: max|d|="
+        f"{d:.3e}, {bad} cells differ (epsilon 0); finite {ok_finite}; "
+        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
+        f"(the twin included) [{card}]")
+    if bad or not ok_finite or not err <= eps * scale:
+        raise RuntimeError(f"phase 13: {label} at {g}^3: {bad} cells differ "
+                           "from the single-domain twin, or K5 and its "
+                           "plain version disagree")
+    del one, ctx
+    return {"name": f"shard_step ({label} {g}^3, K5 over "
+                    f"{'K6' if til['stages'] > 1 or til['scratch_stages'] else 'K1'})",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
+                        "distributed=True arms with the stage loop "
+                        ":2058-2188; parallel/shard_step.py:1093)",
+            "launches": got["shard_step"], "max_abs_err": err, "ms": k5_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": f"launch over a {n}x{n}x{g} shard (mean of the "
+                   f"{K} sub-step boxes)",
+            "step_ms": step_ms, "step_bound_ms": step_bound,
+            "exchange_ms_per_group": xch_ms, "peak_bytes": peak}
+
+
+def phase13(fac, card: str) -> list:
+    """Phase 13 (see the module docstring); returns the ``kernels``
+    entries."""
+    import torch
+    t0 = time.perf_counter()
+    rows = phase13a(fac, card)
+    entries = []
+    for label, st, r, eb, g, K in K5_FULL:
+        entries.append(phase13b(fac, card, label, st, r, eb, g, K))
+        torch.cuda.empty_cache()
+    # the mid-width arms of (a), one entry per body
+    for body in ("K1", "K6"):
+        mine = [row for row in rows if row[1] == body]
+        entries.append({
+            "name": f"shard_step (phase 13 (a) arms on {body}'s body)",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
+                        "distributed=True arms; parallel/shard_step.py:1093)",
+            "launches": sum(row[7] for row in mine),
+            "max_abs_err": max(row[6] for row in mine),
+            "ms": sum(row[2] for row in mine),
+            "plain_ms": sum(row[5] for row in mine),
+            "bound_ms": sum(row[3] for row in mine),
+            "bound_by": "bytes" if all(row[4] == "bytes" for row in mine)
+            else "operations", "library_ms": None,
+            "per": "sum over the arms of one launch each over shard 0's "
+                   "sub-step-0 box: " + ", ".join(row[0] for row in mine)})
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> None:
     """Build every kernel of the path, one ``nvcc`` per source, all
     started together (``cases``: phase 2's solutions and radii)."""
@@ -3095,6 +3503,7 @@ def phase1(fac, env, cases: dict) -> None:
     specs.update(a3_specs(fac, env))
     specs.update(a3b_specs(fac, env))
     specs.update(k7_specs(fac, env))
+    specs.update(k5_specs(fac))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -3104,14 +3513,13 @@ def phase1(fac, env, cases: dict) -> None:
                    f"diamond_kernel per dim; passes "
                    f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
                    if s.trap else
-                   f"entries {s.name} (K1), _batched (K7)"
-                   + ("" if s.outer else ", _region (K5)")
+                   f"entries {s.name} (K1), _batched (K7), _region (K5)"
                    + (f", _stream (stream arm: {s.stream.record()})"
                       if s.stream is not None else "")
                    if s.stages == 1 else
                    f"entries {s.name} (K6, {s.stages} sub-stages, "
                    f"{s.scratch_stages} of scratch vars, pushed "
-                   f"{s.push_vars}), _batched (K7)")
+                   f"{s.push_vars}), _batched (K7), _region (K5)")
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
@@ -3167,11 +3575,14 @@ def main() -> int:
         ("test_4d", last_arms[0], "phase 11 (c), K1, 128^4", 128 ** 4),
         ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
     k7_arms = phase12(fac, env, card, solo, k6)
+    torch.cuda.empty_cache()
+    k5_arms = phase13(fac, card)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
-                      + k6_arms + a3_arms + last_arms + k7_arms}))
+                      + k6_arms + a3_arms + last_arms + k7_arms
+                      + k5_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -254,11 +254,11 @@ def test_4d_trapezoid_falls_back_and_k5_k7_refuse():
     fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
     assert fb and "4-D" in fb[0]["cause"] \
         and "A12 (A3 arms on K4)" in fb[0]["cause"]
-    fac = yask_tpu_torch.yk_factory()
-    with pytest.raises(YaskException, match="4-D.*ROADMAP.md A11 \\(A3 "
-                       "arms on K5\\)"):
-        port_ctx("test_4d", "-g 8 -mode shard_pallas -nr_x 2",
-                 env=fac.new_env(devices=["cpu"] * 2))
+    # what this test pinned before K5 took the A3 arms (the refusal "4-D
+    # ... ROADMAP.md A11 (A3 arms on K5)") is gone: shard_pallas runs
+    # test_4d with the outer dim w sharded, bit-equal to shard_map
+    from test_torch_k5_arms import shard_pallas_matches_shard_map
+    shard_pallas_matches_shard_map(lambda: "test_4d", "-g 8 -nr_w 2")
     # K7 takes the 4-D arm (ROADMAP.md A9 is done)
     members_match_solo(lambda: port_ctx("test_4d", "-g 6 -mode fused "
                                         "-wf_steps 2 -ensemble 2"))
@@ -299,7 +299,7 @@ def test_a_grid_past_the_z_limit_raises():
     kern = fused_stencil.FusedKernel(ctx._program)
     assert fused_stencil.grid_z(ctx._program, kern.spec) == 70000
     ins = [ctx._state[n][s] for n, s in kern.spec.inputs]
-    outs = fused_stencil.new_outputs(kern, "cpu")
+    outs = fused_stencil.copy_base(kern, ctx._state, "cpu")
     tabs = fused_stencil._arg_tables(ctx._program, kern.spec, ins, outs)
     assert list(tabs[-1]) == [2, 2, 2, 70000]
     kern.dtype = torch.float32

@@ -359,13 +359,16 @@ def test_bf16_on_k6_refuses_naming_its_item():
 
 
 def test_bf16_refuses_k5_k7_and_falls_back_from_k4():
-    fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 2),
-                           bf16_source("yask_tpu_torch", "iso3dfd", 2))
-    ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
-    with pytest.raises(YaskException, match="element size 2.*ROADMAP.md "
-                       "A11 \\(A3 arms on K5\\)"):
-        ctx.prepare_solution()
+    """What this test pinned before K5 took the A3 arms (the refusal
+    "element size 2 ... ROADMAP.md A11 (A3 arms on K5)") is gone:
+    shard_pallas runs iso3dfd in bfloat16, bit-equal to shard_map; K7
+    takes element size 2 and K4 still falls back."""
+    from test_torch_k5_arms import shard_pallas_matches_shard_map
+    outs = shard_pallas_matches_shard_map(
+        lambda: bf16_source("yask_tpu_torch", "iso3dfd", 2),
+        "-g 16 -nr_x 2 -wf_steps 2")
+    assert all(a.dtype == np.float32 for ring in outs["shard_pallas"].values()
+               for a in ring)
     # K7 takes element size 2 (ROADMAP.md A9 is done): each member of a
     # batch bit-equal to its solo run
     members_match_solo(lambda: port_ctx("iso3dfd", 2, "-g 16 -mode fused "

@@ -420,18 +420,29 @@ def test_forced_overlap_on_an_infeasible_geometry_raises():
 
 
 def test_shard_pallas_rejects_a_multi_stage_solution():
+    """What this test pinned before K5 took several stages (the refusal
+    "ROADMAP.md A11 (multi-stage K5)") is gone: shard_pallas runs the
+    two-stage chain (K5 over K6's body; its plain version here, each stage
+    over the box grown by what the later stage reads of it, across the
+    inner shard face of the 1-D domain's minor dim, so K=1), bit-equal to
+    shard_map's per-shard torch step and to the single-domain fused
+    run."""
     from test_torch_fused import _two_stage_chain
     fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 2),
-                           _two_stage_chain())
-    ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
-    with pytest.raises(YaskException, match=r"ROADMAP.md A11 \(multi-stage "
-                                            r"K5\)"):
+    outs = {}
+    for mode, nr in (("shard_pallas", "-nr_x 2"), ("shard_map", "-nr_x 2"),
+                     ("fused", "")):
+        ctx = fac.new_solution(
+            fac.new_env(devices=["cpu"] * (2 if nr else 1)),
+            _two_stage_chain())
+        ctx.apply_command_line_options(f"-g 16 -mode {mode} {nr}")
         ctx.prepare_solution()
-    # shard_map runs it: a torch step
-    ctx.apply_command_line_options("-mode shard_map")
-    ctx.prepare_solution()
-    ctx.run_solution(0, 1)
+        outs[mode] = run(ctx, seeded_interiors(ctx, 12), 5)
+        if mode == "shard_pallas":
+            til = ctx.get_stats().get_tiling()
+            assert til["kernel"] == "shard_step" and til["stages"] == 2
+    assert bit_equal(outs["shard_pallas"], outs["shard_map"])
+    assert bit_equal(outs["shard_pallas"], outs["fused"])
 
 
 def test_settings_env_and_rank_grid():

@@ -229,13 +229,16 @@ def test_misc_solutions_take_no_stream_arm_and_no_k4():
 
 
 def test_k5_and_k7_refuse_the_misc_arm():
-    fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 2),
-                           stencil="gaussian", radius=2)
-    ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
-    with pytest.raises(YaskException,
-                       match="misc-dim vars.*ROADMAP.md A11 \\(A3 arms"):
-        ctx.prepare_solution()
+    """What this test pinned before K5 took the A3 arms (the refusal
+    "misc-dim vars ... ROADMAP.md A11 (A3 arms on K5)") is gone:
+    shard_pallas runs gaussian (K6's body) and test_misc_2d (K1's, its
+    unwritten slices from a copy of the evicted slot), bit-equal to
+    shard_map."""
+    from test_torch_k5_arms import shard_pallas_matches_shard_map
+    from yask_tpu_torch.compiler.solution_base import create_solution
+    for name, r in (("gaussian", 2), ("test_misc_2d", None)):
+        shard_pallas_matches_shard_map(
+            lambda: create_solution(name, radius=r), "-g 24 -nr_x 2")
     # K7 takes the misc arm (ROADMAP.md A9 is done): K6's (gaussian) and
     # K1's (test_misc_2d, whose unwritten slices start from a copy of the
     # evicted slot of each member) batches give each member its solo bits

@@ -171,13 +171,14 @@ def test_partial_written_takes_no_stream_arm_and_no_k4():
 
 
 def test_partial_written_refuses_k5_and_k7():
-    fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 2),
-                           partial_written_cond())
-    ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
-    with pytest.raises(YaskException, match="partial-dim written vars.*"
-                       "ROADMAP.md A11 \\(A3 arms on K5\\)"):
-        ctx.prepare_solution()
+    """What this test pinned before K5 took the A3 arms (the refusal
+    "partial-dim written vars ... ROADMAP.md A11 (A3 arms on K5)") is
+    gone: shard_pallas runs the partial-dim solutions with x, the dim the
+    partial var lacks, sharded (every shard of the row computes the same
+    slab), bit-equal to shard_map."""
+    from test_torch_k5_arms import shard_pallas_matches_shard_map
+    for name in ("partial_written_cond", "partial_written"):
+        shard_pallas_matches_shard_map(SOLUTIONS[name], "-g 16 -nr_x 2")
     # K7 takes the partial-dim arm (ROADMAP.md A9 is done)
     for name in ("partial_written_cond", "partial_written"):
         members_match_solo(lambda: port_ctx(name, "-g 16 -mode fused "

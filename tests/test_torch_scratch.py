@@ -254,13 +254,14 @@ def test_trapezoid_falls_back_to_k6_for_scratch():
 
 
 def test_k5_and_k7_refuse_scratch_naming_their_items():
-    fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 2), stencil="tti",
-                           radius=2)
-    ctx.apply_command_line_options("-g 16 -mode shard_pallas -nr_x 2")
-    with pytest.raises(YaskException, match="scratch.*ROADMAP.md A11"):
-        ctx.prepare_solution()
-    # K7 takes the scratch arm (ROADMAP.md A9 is done)
+    """What this test pinned before K5 took scratch sub-stages (the
+    refusal "scratch ... ROADMAP.md A11") is gone: shard_pallas runs tti
+    (K5 over K6's body; its plain version on the CPU), bit-equal to
+    shard_map.  K7 takes the scratch arm too (ROADMAP.md A9 is done)."""
+    from test_torch_k5_arms import shard_pallas_matches_shard_map
+    from yask_tpu_torch.compiler.solution_base import create_solution
+    shard_pallas_matches_shard_map(lambda: create_solution("tti", radius=2),
+                                   "-g 16 -nr_x 2")
     members_match_solo(lambda: port_ctx("tti", 2, "-g 12 -mode fused "
                                         "-wf_steps 2 -ensemble 2"))
 
@@ -318,8 +319,8 @@ def test_remaining_refusals_name_a3(case, why):
     """The last A3 refusals (``why``, the message each case pinned before
     its arm was ported) are gone: ``-mode fused`` runs test_4d on K1 and
     tti in bfloat16 on K6 (the plain version on CPU tensors), bit-equal
-    to ``-mode torch``; the A3 arms they take still keep K4 and K5 out
-    (``a3_arms``)."""
+    to ``-mode torch``; the A3 arms they take still keep K4 out
+    (``a3_arms``; K5 takes them since ROADMAP.md A11's arms were ported)."""
     import re
     fac = yask_tpu_torch.yk_factory()
     ctxs = {}

@@ -2,8 +2,8 @@
 // chunk) and K7 (the same sub-step for N independent ensemble members in
 // one launch) for NVIDIA Hopper, sm_90a.
 //
-// (K5, one sub-step over a box of one shard, and K6, several stages per
-// launch, follow below with their own notes.)
+// (K6, several stages per launch, and K5, one sub-step over a box of one
+// shard on K1's or K6's body, follow below with their own notes.)
 //
 // K1 replaces the inner `kernel` of build_pallas_chunk
 // (yask_tpu/ops/pallas_stencil.py) for one sub-step; K7 replaces the
@@ -13,7 +13,8 @@
 // rotate the step rings between launches.  ops/cuda_emit.py prints, per
 // solution, a `Spec` struct holding the per-point update (`Spec::point`)
 // and the compile-time tables used below, then instantiates
-// YT_FUSED_STEP_ENTRY (K1) and YT_FUSED_BATCHED_ENTRY (K7).
+// YT_FUSED_STEP_ENTRY (K1), YT_FUSED_BATCHED_ENTRY (K7) and
+// YT_FUSED_REGION_ENTRY (K5).
 //
 // K7 is K1 (or K6, below) with a member axis: every state array is a
 // contiguous (N, *shape) stack, each input and output carries a 64-bit
@@ -203,18 +204,28 @@ struct SlabOf<S, std::void_t<decltype(S::out_slab(0))>> {
 // Does the point at interior (g0, g1, g2) of outer cell q (of extents n)
 // store output o?  Every point, except that a partial-dim output's slab is
 // stored by the points at index 0 of each slot its var lacks (every block
-// computes the same slab).
-template <class S>
+// computes the same slab).  K5 (REGION, g box indices) stores it at the
+// shard's index 0, box index -lo, which every shard holds inside the
+// global domain.
+template <class S, bool REGION = false>
 YT_HD inline bool stores(int o, int g0, int g1, int g2, int q = 0,
-                         const int* n = nullptr) {
+                         const int* n = nullptr, const int* lo = nullptr) {
   const int m = SlabOf<S>::get(o);
+  int z[3 + OuterOf<S>::N] = {};
+  if constexpr (REGION) {
+    for (int s = 0; s < 3 + OuterOf<S>::N; ++s) z[s] = lo[s];
+  } else {
+    (void)lo;
+  }
   if constexpr (OuterOf<S>::N > 0) {
     for (int j = 0; j < OuterOf<S>::N; ++j)
-      if ((m >> (3 + j) & 1) && outer_idx<S>(n, q, j)) return false;
+      if ((m >> (3 + j) & 1) && outer_idx<S>(n, q, j) + z[3 + j])
+        return false;
   } else {
     (void)q; (void)n;
   }
-  return !(((m & 1) && g0) || ((m & 2) && g1) || ((m & 4) && g2));
+  return !(((m & 1) && g0 + z[0]) || ((m & 2) && g1 + z[1])
+           || ((m & 4) && g2 + z[2]));
 }
 
 // ---- math, overloaded by type (the emitted code calls f_<name>) -------
@@ -275,6 +286,70 @@ struct Params {
 
 template <class S>
 using ParamsOf = Params<typename S::real_t, S::NIN, S::NOUT, OuterOf<S>::N>;
+
+// K5's launch (below): K1's or K6's tables with the pointers moved to the
+// box's cell 0 and p.n holding the box's extents, so the tile machinery
+// runs over the box as it runs over an interior; per slot (outer ones
+// included) the box's origin in the shard's interior, the shard's
+// interior extents, the box origin's global coordinate and the global
+// extents.
+template <class S>
+struct RegionParams : ParamsOf<S> {
+  int lo[3 + OuterOf<S>::N];
+  int sn[3 + OuterOf<S>::N];
+  int go[3 + OuterOf<S>::N];
+  int gn[3 + OuterOf<S>::N];
+};
+
+// A kernel's parameters: K5's (REGION) or the others'.
+template <class S, bool REGION>
+using ParamsArg =
+    typename std::conditional<REGION, RegionParams<S>, ParamsOf<S>>::type;
+
+// The point function's coordinates and extents: K1's and K6's are the
+// interior's; K5 adds the box's global origin to g (box indices) and
+// returns whether the point lies inside the global domain.
+template <class S, bool REGION>
+YT_HD inline bool to_global(const ParamsArg<S, REGION>& p, int* g) {
+  if constexpr (REGION) {
+    bool in = true;
+    for (int s = 0; s < 3 + OuterOf<S>::N; ++s) {
+      g[s] += p.go[s];
+      in = in && g[s] >= 0 && g[s] < p.gn[s];
+    }
+    return in;
+  } else {
+    (void)p; (void)g;
+    return true;
+  }
+}
+
+// The box's origin in the shard's interior in slot s (0 but in K5).
+template <class S, bool REGION>
+YT_HD inline int box_lo(const ParamsArg<S, REGION>& p, int s) {
+  if constexpr (REGION)
+    return p.lo[s];
+  else
+    return ((void)p, (void)s, 0);
+}
+
+// The extent of the array's interior in slot s: the shard's in K5 (p.n
+// holds the box's there).
+template <class S, bool REGION>
+YT_HD inline int alloc_n(const ParamsArg<S, REGION>& p, int s) {
+  if constexpr (REGION)
+    return p.sn[s];
+  else
+    return p.n[s];
+}
+
+template <class S, bool REGION>
+YT_HD inline const int* dom_of(const ParamsArg<S, REGION>& p) {
+  if constexpr (REGION)
+    return p.gn;
+  else
+    return p.n;
+}
 
 // The element offset of member m (member stride ms) in outer cell q
 // (the array's strides s[3 + j] per outer dim); n is p.n.  The member
@@ -390,32 +465,48 @@ void fill_members(ParamsOf<S>& p, void* in_mstrides, void* out_mstrides,
 }
 
 // m: the member, q: the outer cell
-template <class S>
-YT_HD inline void store(const ParamsOf<S>& p, int m, int q, int g0, int g1,
-                        int g2, const CalcOf<S>* out) {
+template <class S, bool REGION = false>
+YT_HD inline void store(const ParamsArg<S, REGION>& p, int m, int q, int g0,
+                        int g1, int g2, const CalcOf<S>* out) {
+  const int* lo = nullptr;
+  if constexpr (REGION) lo = p.lo;
   for (int o = 0; o < S::NOUT; ++o)
-    if (stores<S>(o, g0, g1, g2, q, p.n))
+    if (stores<S, REGION>(o, g0, g1, g2, q, p.n, lo))
       p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                + g2 * p.out_s[o][2]] =
           Calc<typename S::real_t>::store(out[o]);
 }
 
+// One point of K1's body: the point function at (g0, g1, g2) of outer
+// cell q, reading through rd; K5 (REGION) computes it at global
+// coordinates and 0 outside the global domain.
+template <class S, bool REGION, class RD>
+YT_HD inline void point_at(const ParamsArg<S, REGION>& p, const RD& rd,
+                           int q, int g0, int g1, int g2,
+                           CalcOf<S>* out) {
+  int g[3 + OuterOf<S>::N] = {g0, g1, g2};
+  fill_outer<S>(g, p.n, q);
+  if (to_global<S, REGION>(p, g)) {
+    S::point(rd, g, dom_of<S, REGION>(p), p.t, out);
+  } else {
+    for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
+  }
+}
+
 // ---- host path: the same point function over every member's interior --
-// (each outer cell's)
-template <class S>
-int host_step(const ParamsOf<S>& p) {
+// (each outer cell's; K5: the box's)
+template <class S, bool REGION = false>
+int host_step(const ParamsArg<S, REGION>& p) {
   for (int m = 0; m < p.nm; ++m)
     for (int q = 0; q < outer_cells<S>(p.n); ++q)
       for (int g0 = 0; g0 < p.n[0]; ++g0)
         for (int g1 = 0; g1 < p.n[1]; ++g1)
           for (int g2 = 0; g2 < p.n[2]; ++g2) {
             const GlobalReader<S> rd{&p, m, q, g0, g1, g2};
-            int g[3 + OuterOf<S>::N] = {g0, g1, g2};
-            fill_outer<S>(g, p.n, q);
             CalcOf<S> out[S::NOUT];
-            S::point(rd, g, p.n, p.t, out);
-            store<S>(p, m, q, g0, g1, g2, out);
+            point_at<S, REGION>(p, rd, q, g0, g1, g2, out);
+            store<S, REGION>(p, m, q, g0, g1, g2, out);
           }
   return 0;
 }
@@ -448,10 +539,11 @@ __device__ __forceinline__ void split_z(const ParamsOf<S>& p, int& m,
 }
 
 // K1 (BATCH = false) and K7 over K1's body (BATCH = true): the z cell
-// selects the member, the outer cell and the slot-0 block.
-template <class S, bool BATCH>
+// selects the member, the outer cell and the slot-0 block.  K5 over K1's
+// body (REGION = true, below) runs the same code over a box.
+template <class S, bool BATCH, bool REGION>
 __global__ void __launch_bounds__(S::T1 * S::T2)
-fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
+fused_step_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
@@ -510,11 +602,9 @@ fused_step_kernel(const __grid_constant__ ParamsOf<S> p) {
     const int g0 = b0 + l0;
     if (g0 >= p.n[0]) break;
     const TileReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2};
-    int g[3 + OuterOf<S>::N] = {g0, g1, g2};
-    fill_outer<S>(g, p.n, q);
     CalcOf<S> out[S::NOUT];
-    S::point(rd, g, p.n, p.t, out);
-    store<S>(p, m, q, g0, g1, g2, out);
+    point_at<S, REGION>(p, rd, q, g0, g1, g2, out);
+    store<S, REGION>(p, m, q, g0, g1, g2, out);
   }
 }
 
@@ -533,11 +623,11 @@ int launch_z(long long& z0, long long gz, dim3 grid, F kernel) {
   return 0;
 }
 
-template <class S, bool BATCH>
-int launch(ParamsOf<S> p, cudaStream_t stream) {
+template <class S, bool BATCH, bool REGION = false>
+int launch(ParamsArg<S, REGION> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_step_kernel<S, BATCH>,
+      fused_step_kernel<S, BATCH, REGION>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 block(S::T2, S::T1, 1);
@@ -545,7 +635,7 @@ int launch(ParamsOf<S> p, cudaStream_t stream) {
                   dim3((p.n[2] + S::T2 - 1) / S::T2,
                        (p.n[1] + S::T1 - 1) / S::T1),
                   [&](dim3 grid) {
-    fused_step_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+    fused_step_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
   });
 }
 #endif
@@ -560,175 +650,6 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
 #else
   (void)stream;
   return host_step<S>(p);
-#endif
-}
-
-// ==== K5: one sub-step over a box of one shard ==========================
-// Replaces the region= arm (pallas_stencil.py:736-780) and the
-// distributed=True arm (:781-811, the shard offsets added to the global
-// index base at :1948-1953) of build_pallas_chunk, which
-// parallel/shard_step.py's shard_pallas path runs per shard.  One launch
-// computes one sub-step of a single-stage solution over a compute box
-// [lo, hi) per slot in the shard's local interior coordinates: lo may be
-// negative and hi may pass n, reaching into the ghost pads by the
-// sub-step's expansion (the shard_pallas group grows the box by r per
-// later sub-step), or the box is a core or shell region inside [0, n).
-// The point function sees global coordinates: the shard's origin `off` is
-// added to every coordinate and the global extents `gn` drive the domain
-// conditions, so a cell outside the global domain is written as 0.
-// Outputs are fresh zeroed tensors; the wrapper (fused_stencil.shard_step)
-// keeps what the box writes in the ghosts for the later sub-steps of the
-// group.
-//
-// What bounds it on an H100: bytes, as K1 (the same 16 B/pt per iso3dfd
-// r=8 step over the box).  Design: K1's body with the box and the origin
-// as runtime parameters: the grid covers hi - lo, the staging limits come
-// from the box instead of [-halo, n + halo), and the point function is
-// K1's (`Spec::point`, built with --fmad=false), so a shard's cell gets
-// the bits a single-domain K1 launch gives it.
-template <class S>
-struct RegionParams {
-  ParamsOf<S> p;     // K1's tables (p.n: the shard's interior extents)
-  int lo[3], hi[3];  // the box, local interior coordinates
-  int off[3];        // the shard's global origin
-  int gn[3];         // the global domain extents
-};
-
-template <class S>
-YT_HD inline bool in_global(const RegionParams<S>& p, const int* gg) {
-  return gg[0] >= 0 && gg[0] < p.gn[0] && gg[1] >= 0 && gg[1] < p.gn[1]
-         && gg[2] >= 0 && gg[2] < p.gn[2];
-}
-
-// ---- host path: the box with global reads -------------------------------
-template <class S>
-int host_region(const RegionParams<S>& p) {
-  for (int g0 = p.lo[0]; g0 < p.hi[0]; ++g0)
-    for (int g1 = p.lo[1]; g1 < p.hi[1]; ++g1)
-      for (int g2 = p.lo[2]; g2 < p.hi[2]; ++g2) {
-        const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
-        CalcOf<S> out[S::NOUT];
-        if (in_global<S>(p, gg)) {
-          const GlobalReader<S> rd{&p.p, 0, 0, g0, g1, g2};
-          S::point(rd, gg, p.gn, p.p.t, out);
-        } else {
-          for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
-        }
-        store<S>(p.p, 0, 0, g0, g1, g2, out);
-      }
-  return 0;
-}
-
-#ifdef __CUDACC__
-template <class S>
-__global__ void __launch_bounds__(S::T1 * S::T2)
-fused_region_kernel(const __grid_constant__ RegionParams<S> p) {
-  typedef typename S::real_t real_t;
-  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
-  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  const ParamsOf<S>& q = p.p;
-  const int b0 = p.lo[0] + int(q.z0 + blockIdx.z) * S::T0;
-  const int b1 = p.lo[1] + int(blockIdx.y) * S::T1;
-  const int b2 = p.lo[2] + int(blockIdx.x) * S::T2;
-  const int tid = threadIdx.y * S::T2 + threadIdx.x;
-
-  // 1) stage each tiled input's halo tile as K1 does; cells past the
-  //    box's read reach (the ragged edge of the last blocks) hold 0.  The
-  //    wrapper checks that [lo - halo, hi + halo) lies inside the pads.
-  constexpr int NT = S::T1 * S::T2;
-  constexpr int U = 16;
-#pragma unroll
-  for (int k = 0; k < S::NTILED; ++k) {
-    const int a = S::tiled_input(k);
-    const int h0 = S::halo_lo0(k), h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
-    const int E1 = S::T1 + h1 + S::halo_hi1(k);
-    const int E2 = S::T2 + h2 + S::halo_hi2(k);
-    const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
-    const int lim0 = p.hi[0] + S::halo_hi0(k);
-    const int lim1 = p.hi[1] + S::halo_hi1(k);
-    const int lim2 = p.hi[2] + S::halo_hi2(k);
-    real_t* dst = smem + S::tile_offset(k);
-    for (int base = tid; base < cells; base += NT * U) {
-      real_t v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int i = base + u * NT;
-        const int e2 = i % E2;
-        const int r = i / E2;
-        const int c0 = b0 - h0 + r / E1;
-        const int c1 = b1 - h1 + r % E1;
-        const int c2 = b2 - h2 + e2;
-        v[u] = (i < cells && c0 < lim0 && c1 < lim1 && c2 < lim2)
-                   ? global_at<S>(q, a, 0, 0, c0, c1, c2) : real_t(0.0f);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (base + u * NT < cells) dst[base + u * NT] = v[u];
-    }
-  }
-  __syncthreads();
-
-  // 2) compute the box's cells: the point function at global coordinates,
-  //    0 outside the global domain
-  const int l1 = threadIdx.y, l2 = threadIdx.x;
-  const int g1 = b1 + l1, g2 = b2 + l2;
-  if (g1 >= p.hi[1] || g2 >= p.hi[2]) return;
-#pragma unroll
-  for (int l0 = 0; l0 < S::T0; ++l0) {
-    const int g0 = b0 + l0;
-    if (g0 >= p.hi[0]) break;
-    const int gg[3] = {g0 + p.off[0], g1 + p.off[1], g2 + p.off[2]};
-    CalcOf<S> out[S::NOUT];
-    if (in_global<S>(p, gg)) {
-      const TileReader<S> rd{&q, smem, 0, 0, l0, l1, l2, g0, g1, g2};
-      S::point(rd, gg, p.gn, q.t, out);
-    } else {
-#pragma unroll
-      for (int o = 0; o < S::NOUT; ++o) out[o] = CalcOf<S>(0);
-    }
-    store<S>(q, 0, 0, g0, g1, g2, out);
-  }
-}
-
-template <class S>
-int launch_region(RegionParams<S> p, cudaStream_t stream) {
-  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_region_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 block(S::T2, S::T1, 1);
-  return launch_z(p.p.z0, (p.hi[0] - p.lo[0] + S::T0 - 1) / S::T0,
-                  dim3((p.hi[2] - p.lo[2] + S::T2 - 1) / S::T2,
-                       (p.hi[1] - p.lo[1] + S::T1 - 1) / S::T1),
-                  [&](dim3 grid) {
-    fused_region_kernel<S><<<grid, block, smem, stream>>>(p);
-  });
-}
-#endif
-
-// K5: as run(), over the box `region` = int[12]: lo[3], hi[3], off[3],
-// gn[3] per slot.
-template <class S>
-int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
-               void* out_strides, void* sizes, void* region, int t,
-               void* stream) {
-  RegionParams<S> p;
-  fill_params<S>(p.p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
-  const int* r = static_cast<const int*>(region);
-  for (int s = 0; s < 3; ++s) {
-    p.lo[s] = r[s];
-    p.hi[s] = r[3 + s];
-    p.off[s] = r[6 + s];
-    p.gn[s] = r[9 + s];
-  }
-  for (int s = 0; s < 3; ++s)
-    if (p.hi[s] <= p.lo[s]) return 0;  // an empty box computes nothing
-#ifdef __CUDACC__
-  return launch_region<S>(p, static_cast<cudaStream_t>(stream));
-#else
-  (void)stream;
-  return host_region<S>(p);
 #endif
 }
 
@@ -866,45 +787,105 @@ struct HostStageReader {
 };
 
 // g[3 + j] = the outer indices of sub-stage K's copy in cell q (the
-// cell's plus the copy's offset); returns whether they all lie inside
-// the copy's plain region.
-template <class S, int K>
-YT_HD inline bool outer_copy(int* g, const int* n, int q) {
+// cell's plus the copy's offset; K5's are global); returns whether they
+// all lie inside the copy's plain region.
+template <class S, int K, bool REGION>
+YT_HD inline bool outer_copy(int* g, const ParamsArg<S, REGION>& p, int q) {
   bool in = true;
   if constexpr (OuterOf<S>::N > 0) {
+    const int* dn = dom_of<S, REGION>(p);
     for (int j = 0; j < OuterOf<S>::N; ++j) {
-      g[3 + j] = outer_idx<S>(n, q, j) + S::sub_dw(K, j);
+      g[3 + j] = outer_idx<S>(p.n, q, j) + S::sub_dw(K, j);
+      if constexpr (REGION) g[3 + j] += p.go[3 + j];
       in = in && g[3 + j] >= -S::oclip_lo(K, j)
-           && g[3 + j] < n[3 + j] + S::oclip_hi(K, j);
+           && g[3 + j] < dn[3 + j] + S::oclip_hi(K, j);
     }
   } else {
-    (void)g; (void)n; (void)q;
+    (void)g; (void)p; (void)q;
   }
   return in;
 }
 
+// Sub-stage K's clip and region per slot s < 3.
 template <class S, int K>
-void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
-                int m, int q) {
+YT_HD constexpr int clip_lo_of(int s) {
+  return s == 0 ? S::clip_lo0(K) : s == 1 ? S::clip_lo1(K) : S::clip_lo2(K);
+}
+template <class S, int K>
+YT_HD constexpr int clip_hi_of(int s) {
+  return s == 0 ? S::clip_hi0(K) : s == 1 ? S::clip_hi1(K) : S::clip_hi2(K);
+}
+template <class S, int K>
+YT_HD constexpr int sub_lo_of(int s) {
+  return s == 0 ? S::sub_lo0(K) : s == 1 ? S::sub_lo1(K) : S::sub_lo2(K);
+}
+template <class S, int K>
+YT_HD constexpr int sub_hi_of(int s) {
+  return s == 0 ? S::sub_hi0(K) : s == 1 ? S::sub_hi1(K) : S::sub_hi2(K);
+}
+
+// The plain version's region of sub-stage K in slot s < 3, [lo, hi):
+// the domain grown by the sub-stage's clip (a scratch var's write halo).
+// K5 clips at the global domain, not at the shard's (past an inner shard
+// face lie the neighbour's cells, which the sub-stage computes), in box
+// indices, and keeps to the box grown by the sub-stage's region (what
+// the later sub-stages read; past it the ragged last blocks would read
+// past the pads).
+template <class S, int K, bool REGION>
+YT_HD inline void plain_region(const ParamsArg<S, REGION>& p, int s, int& lo,
+                               int& hi) {
+  lo = -clip_lo_of<S, K>(s);
+  hi = p.n[s] + clip_hi_of<S, K>(s);
+  if constexpr (REGION) {
+    lo -= p.go[s];
+    hi = p.gn[s] + clip_hi_of<S, K>(s) - p.go[s];
+    if (lo < -sub_lo_of<S, K>(s)) lo = -sub_lo_of<S, K>(s);
+    if (hi > p.n[s] + sub_hi_of<S, K>(s)) hi = p.n[s] + sub_hi_of<S, K>(s);
+  }
+}
+
+// One sub-stage point: stage<K> at (g0, g1, g2) (g[3..]: the copy's outer
+// indices), at global coordinates in K5.
+template <class S, int K, bool REGION, class RD>
+YT_HD inline void stage_at(const ParamsArg<S, REGION>& p, const RD& rd,
+                           int* g, int g0, int g1, int g2,
+                           CalcOf<S>* v) {
+  g[0] = g0;
+  g[1] = g1;
+  g[2] = g2;
+  if constexpr (REGION)
+    for (int s = 0; s < 3; ++s) g[s] += p.go[s];
+  S::template stage<K>(rd, g, dom_of<S, REGION>(p), p.t, v);
+}
+
+template <class S, int K, bool REGION>
+void host_stage(const ParamsArg<S, REGION>& p,
+                typename S::real_t* const* bufs, int m, int q) {
   typedef typename S::real_t real_t;
   constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
   const idx_t R1 = p.n[1] + e1 + S::sub_hi1(K);
   const idx_t R2 = p.n[2] + e2 + S::sub_hi2(K);
+  const int* lo = nullptr;
+  if constexpr (REGION) lo = p.lo;
+  int plo[3], phi[3];
+  for (int s = 0; s < 3; ++s) plain_region<S, K, REGION>(p, s, plo[s], phi[s]);
   int g[3 + OuterOf<S>::N];
-  if (outer_copy<S, K>(g, p.n, q))
-  for (int g0 = -S::clip_lo0(K); g0 < p.n[0] + S::clip_hi0(K); ++g0)
-    for (int g1 = -S::clip_lo1(K); g1 < p.n[1] + S::clip_hi1(K); ++g1)
-      for (int g2 = -S::clip_lo2(K); g2 < p.n[2] + S::clip_hi2(K); ++g2) {
+  if (outer_copy<S, K, REGION>(g, p, q))
+  for (int g0 = plo[0]; g0 < phi[0]; ++g0)
+    for (int g1 = plo[1]; g1 < phi[1]; ++g1)
+      for (int g2 = plo[2]; g2 < phi[2]; ++g2) {
         const HostStageReader<S> rd{&p, bufs, m, q, g0, g1, g2};
-        g[0] = g0;
-        g[1] = g1;
-        g[2] = g2;
         CalcOf<S> v[S::MAXV];
-        S::template stage<K>(rd, g, p.n, p.t, v);
+        stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
+        // K5's plain region reaches past the box: only the box stores
+        const bool own = !REGION || (g0 >= 0 && g0 < p.n[0] && g1 >= 0
+                                     && g1 < p.n[1] && g2 >= 0
+                                     && g2 < p.n[2]);
         for (int j = 0; j < S::stage_nv(K); ++j) {
           const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
           const real_t w = Calc<real_t>::store(v[j]);
-          if (o >= 0 && stores<S>(o, g0, g1, g2, q, p.n))
+          if (o >= 0 && own
+              && stores<S, REGION>(o, g0, g1, g2, q, p.n, lo))
             p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                      + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                      + g2 * p.out_s[o][2]] = w;
@@ -912,11 +893,12 @@ void host_stage(const ParamsOf<S>& p, typename S::real_t* const* bufs,
             bufs[b][((g0 + e0) * R1 + (g1 + e1)) * R2 + (g2 + e2)] = w;
         }
       }
-  if constexpr (K + 1 < S::NSTAGES) host_stage<S, K + 1>(p, bufs, m, q);
+  if constexpr (K + 1 < S::NSTAGES)
+    host_stage<S, K + 1, REGION>(p, bufs, m, q);
 }
 
-template <class S>
-int host_stages(const ParamsOf<S>& p) {
+template <class S, bool REGION = false>
+int host_stages(const ParamsArg<S, REGION>& p) {
   typedef typename S::real_t real_t;
   std::vector<std::vector<real_t>> store(S::NCMP);
   real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
@@ -930,7 +912,7 @@ int host_stages(const ParamsOf<S>& p) {
                         real_t(0.0f));
         bufs[b] = store[b].data();
       }
-      host_stage<S, 0>(p, bufs, m, q);
+      host_stage<S, 0, REGION>(p, bufs, m, q);
     }
   return 0;
 }
@@ -938,8 +920,8 @@ int host_stages(const ParamsOf<S>& p) {
 #ifdef __CUDACC__
 // One sub-stage over its region: a loop of the block's threads over its
 // cells.
-template <class S, int K>
-__device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
+template <class S, int K, bool REGION>
+__device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                                              typename S::real_t* smem,
                                              int m, int q, int b0, int b1,
                                              int b2, int tid) {
@@ -950,10 +932,14 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
   constexpr int R1 = S::T1 + e1 + S::sub_hi1(K);
   constexpr int R2 = S::T2 + e2 + S::sub_hi2(K);
   constexpr int cells = R0 * R1 * R2;
+  const int* lo = nullptr;
+  if constexpr (REGION) lo = p.lo;
   // the outer indices of this copy; a copy outside its plain region in an
   // outer dim holds 0 everywhere
   int g[3 + OuterOf<S>::N];
-  const bool in_outer = outer_copy<S, K>(g, p.n, q);
+  const bool in_outer = outer_copy<S, K, REGION>(g, p, q);
+  int plo[3], phi[3];
+  for (int s = 0; s < 3; ++s) plain_region<S, K, REGION>(p, s, plo[s], phi[s]);
   for (int i = tid; i < cells; i += NT) {
     const int l2 = i % R2 - e2;
     const int r = i / R2;
@@ -962,18 +948,13 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
     const int g0 = b0 + l0, g1 = b1 + l1, g2 = b2 + l2;
     // the plain version's region: the domain, grown by a scratch var's
     // write halo
-    const bool inside = g0 >= -S::clip_lo0(K) && g0 < p.n[0] + S::clip_hi0(K)
-                        && g1 >= -S::clip_lo1(K)
-                        && g1 < p.n[1] + S::clip_hi1(K)
-                        && g2 >= -S::clip_lo2(K)
-                        && g2 < p.n[2] + S::clip_hi2(K) && in_outer;
+    const bool inside = g0 >= plo[0] && g0 < phi[0] && g1 >= plo[1]
+                        && g1 < phi[1] && g2 >= plo[2] && g2 < phi[2]
+                        && in_outer;
     CalcOf<S> v[S::MAXV];
     if (inside) {
       const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2};
-      g[0] = g0;
-      g[1] = g1;
-      g[2] = g2;
-      S::template stage<K>(rd, g, p.n, p.t, v);
+      stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
     } else {
 #pragma unroll
       for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
@@ -986,7 +967,7 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
       if (j >= S::stage_nv(K)) break;
       const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
       const real_t w = Calc<real_t>::store(v[j]);
-      if (o >= 0 && own && stores<S>(o, g0, g1, g2, q, p.n))
+      if (o >= 0 && own && stores<S, REGION>(o, g0, g1, g2, q, p.n, lo))
         p.out[o][cell_base<S>(p.n, m, q, p.out_ms[o], p.out_s[o])
                  + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                  + g2 * p.out_s[o][2]] = w;
@@ -997,20 +978,20 @@ __device__ __forceinline__ void device_stage(const ParamsOf<S>& p,
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    device_stage<S, K + 1>(p, smem, m, q, b0, b1, b2, tid);
+    device_stage<S, K + 1, REGION>(p, smem, m, q, b0, b1, b2, tid);
   }
 }
 
 // Is staged input k's outer index inside its allocation in outer cell q?
-template <class S>
-__device__ __forceinline__ bool outer_alloc(const ParamsOf<S>& p, int k,
-                                            int q) {
+template <class S, bool REGION>
+__device__ __forceinline__ bool outer_alloc(const ParamsArg<S, REGION>& p,
+                                            int k, int q) {
   bool in = true;
   if constexpr (OuterOf<S>::N > 0) {
     for (int j = 0; j < OuterOf<S>::N; ++j) {
-      const int c = outer_idx<S>(p.n, q, j);
+      const int c = outer_idx<S>(p.n, q, j) + box_lo<S, REGION>(p, 3 + j);
       in = in && c >= -S::outer_alo(k, j)
-           && c < p.n[3 + j] + S::outer_ahi(k, j);
+           && c < alloc_n<S, REGION>(p, 3 + j) + S::outer_ahi(k, j);
     }
   } else {
     (void)p; (void)k; (void)q;
@@ -1018,10 +999,11 @@ __device__ __forceinline__ bool outer_alloc(const ParamsOf<S>& p, int k,
   return in;
 }
 
-// K6 (BATCH = false) and K7 over K6's body (BATCH = true).
-template <class S, bool BATCH>
+// K6 (BATCH = false) and K7 over K6's body (BATCH = true); K5 over K6's
+// body (REGION = true, below) runs the same code over a box.
+template <class S, bool BATCH, bool REGION>
 __global__ void __launch_bounds__(S::T1 * S::T2)
-fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
+fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
@@ -1043,10 +1025,15 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
     const int E1 = S::T1 + h1 + S::halo_hi1(k);
     const int E2 = S::T2 + h2 + S::halo_hi2(k);
     const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
-    const int lo0 = -S::alloc_lo0(k), lim0 = p.n[0] + S::alloc_hi0(k);
-    const int lo1 = -S::alloc_lo1(k), lim1 = p.n[1] + S::alloc_hi1(k);
-    const int lo2 = -S::alloc_lo2(k), lim2 = p.n[2] + S::alloc_hi2(k);
-    const bool in_outer = outer_alloc<S>(p, k, q);
+    const int x0 = box_lo<S, REGION>(p, 0), x1 = box_lo<S, REGION>(p, 1),
+              x2 = box_lo<S, REGION>(p, 2);
+    const int lo0 = -S::alloc_lo0(k) - x0;
+    const int lim0 = alloc_n<S, REGION>(p, 0) + S::alloc_hi0(k) - x0;
+    const int lo1 = -S::alloc_lo1(k) - x1;
+    const int lim1 = alloc_n<S, REGION>(p, 1) + S::alloc_hi1(k) - x1;
+    const int lo2 = -S::alloc_lo2(k) - x2;
+    const int lim2 = alloc_n<S, REGION>(p, 2) + S::alloc_hi2(k) - x2;
+    const bool in_outer = outer_alloc<S, REGION>(p, k, q);
     real_t* dst = smem + S::tile_offset(k);
     for (int base = tid; base < cells; base += NT * U) {
       real_t v[U];
@@ -1070,14 +1057,14 @@ fused_stages_kernel(const __grid_constant__ ParamsOf<S> p) {
   __syncthreads();
 
   // 2) the sub-stages in order, each over its region
-  device_stage<S, 0>(p, smem, m, q, b0, b1, b2, tid);
+  device_stage<S, 0, REGION>(p, smem, m, q, b0, b1, b2, tid);
 }
 
-template <class S, bool BATCH>
-int launch_stages(ParamsOf<S> p, cudaStream_t stream) {
+template <class S, bool BATCH, bool REGION = false>
+int launch_stages(ParamsArg<S, REGION> p, cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_stages_kernel<S, BATCH>,
+      fused_stages_kernel<S, BATCH, REGION>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 block(S::T2, S::T1, 1);
@@ -1085,7 +1072,7 @@ int launch_stages(ParamsOf<S> p, cudaStream_t stream) {
                   dim3((p.n[2] + S::T2 - 1) / S::T2,
                        (p.n[1] + S::T1 - 1) / S::T1),
                   [&](dim3 grid) {
-    fused_stages_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+    fused_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
   });
 }
 #endif
@@ -1134,6 +1121,78 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
 #endif
 }
 
+// ==== K5: one sub-step over a box of one shard ==========================
+// Replaces the region= arm (pallas_stencil.py:736-780) and the
+// distributed=True arm (:781-811, the shard offsets added to the global
+// index base at :1948-1953) of build_pallas_chunk, which
+// parallel/shard_step.py's shard_pallas path runs per shard: the
+// distributed chunk takes every arm the single-domain one takes, so K5
+// runs over K1's body (one stage) or K6's (several stages, scratch
+// sub-stages, rewrites), with misc slices, partial-dim outputs, element
+// size 2 and outer dims alike.  One launch computes one sub-step over a
+// compute box [lo, hi) per slot (outer ones included) in the shard's
+// interior coordinates: lo may be negative and hi may pass n, reaching
+// into the ghost pads by the sub-step's expansion (the shard_pallas group
+// grows the box by the step's reach per later sub-step), or the box is a
+// core or shell region inside it.
+//
+// Design: the body's kernel instantiated with REGION = true, its
+// parameters K1's or K6's tables with every pointer moved to the box's
+// cell 0 and p.n set to the box's extents, so the grid, the staging, the
+// sub-stage regions and the stores run over the box as they run over an
+// interior.  What changes with REGION: the point function sees global
+// coordinates (the box's global origin added) and the global extents; a
+// point outside the global domain is 0; K6's plain region clips at the
+// global domain grown by a scratch var's write halo (past an inner shard
+// face the neighbour's cells are real domain cells), inside the box grown
+// by the sub-stage's region; a staged input's allocation bounds are the
+// shard's; a partial-dim output is stored at the shard's index 0 of the
+// dims it lacks, so every shard of a row of shards computes and stores
+// the same slab.  As the reference's distributed chunk, K5 never pushes.
+// Outputs are fresh zeroed tensors (or copies of the evicted slot for a
+// var whose misc slices are not all written); the wrapper
+// (fused_stencil.shard_step) keeps what the box writes in the ghosts for
+// the later sub-steps of the group.
+//
+// What bounds it on an H100: bytes, as its body (16 B/pt per iso3dfd r=8
+// step over the box, 48 on tti r=2); REGION costs the solo kernels
+// nothing, as it is a template parameter.
+template <class S>
+int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
+               void* out_strides, void* sizes, void* region, int t,
+               void* stream) {
+  constexpr int NS = 3 + OuterOf<S>::N;
+  RegionParams<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  const int* r = static_cast<const int*>(region);
+  for (int s = 0; s < NS; ++s)
+    if (r[NS + s] <= r[s]) return 0;  // an empty box computes nothing
+  for (int s = 0; s < NS; ++s) {
+    p.lo[s] = r[s];
+    p.sn[s] = p.n[s];
+    p.n[s] = r[NS + s] - r[s];
+    p.go[s] = r[s] + r[2 * NS + s];
+    p.gn[s] = r[3 * NS + s];
+  }
+  for (int a = 0; a < S::NIN; ++a)
+    for (int s = 0; s < NS; ++s) p.in[a] += p.lo[s] * p.in_s[a][s];
+  for (int o = 0; o < S::NOUT; ++o)
+    for (int s = 0; s < NS; ++s) p.out[o] += p.lo[s] * p.out_s[o][s];
+#ifdef __CUDACC__
+  if constexpr (IsStages<S>::value)
+    return launch_stages<S, false, true>(p,
+                                         static_cast<cudaStream_t>(stream));
+  else
+    return launch<S, false, true>(p, static_cast<cudaStream_t>(stream));
+#else
+  (void)stream;
+  if constexpr (IsStages<S>::value)
+    return host_stages<S, true>(p);
+  else
+    return host_step<S, true>(p);
+#endif
+}
+
 }  // namespace yt
 
 // The C entry point of one emitted kernel: pointers arrive as addresses of
@@ -1156,8 +1215,9 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
                               stream);                                       \
   }
 
-// The C entry point of K5 for the same Spec: K1's arguments, then the box,
-// origin and global extents (int[12]) before the step index.
+// The C entry point of K5 for the same Spec, K1's or K6's: K1's arguments,
+// then the box, the shard's origin and the global extents (int[4 * (3 +
+// NOUTER)]) before the step index.
 #define YT_FUSED_REGION_ENTRY(NAME, S)                                       \
   extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
                       void* out_strides, void* sizes, void* region, int t,   \

@@ -12,8 +12,8 @@ into one ``Spec`` struct:
   distinct ``skey()``, which is the common-subexpression elimination their
   memos do.  Reads go through ``rd.template at<A>(o...)``; the tile
   machinery in ``csrc/fused_step.cuh`` supplies ``rd``.
-* several stages, or scratch vars (K6, and K7 over its members):
-  ``Spec::stage<K>(rd, g, n, t, out)``, one point function per sub-stage
+* several stages, or scratch vars (K6, K7 over its members and K5 over a
+  shard's box): ``Spec::stage<K>(rd, g, n, t, out)``, one point function per sub-stage
   with the same CSE and typing.
   A stage's scratch parts become sub-stages of their own (one per write
   halo), each computed over the stage's region grown by that halo, cells
@@ -132,7 +132,9 @@ def fused_applicable(program) -> Tuple[bool, str]:
     written vars (scratch ones too) over a subset of the domain dims that
     keeps the minor dim, in solution order, as ``yask_tpu``'s
     ``pallas_applicable`` admits them.  Any number of stages; scratch
-    vars and vars rewritten in a later stage run on K6 (:func:`emit`)."""
+    vars and vars rewritten in a later stage run on K6 (:func:`emit`).
+    What this admits, ``-mode shard_pallas`` runs too: every emitted
+    source carries K5's entry over its body (``<name>_region``)."""
     ana = program.ana
     nd = len(ana.domain_dims)
     if nd < 1:
@@ -161,9 +163,9 @@ def fused_applicable(program) -> Tuple[bool, str]:
 def a3_arms(program) -> List[str]:
     """The ROADMAP.md A3 arms this solution takes: more than three domain
     dims, misc-dim vars, written vars lacking a domain dim, element size
-    2.  K1, K6 and K7 (the member batch over either) take them; K4 and
-    K5 have not been held against them: ``-trapezoid`` falls back (A12)
-    and ``-mode shard_pallas`` refuses (A11)."""
+    2.  K1, K6, K7 (the member batch over either) and K5 (the shard's box
+    over either) take them; K4 has not been held against them:
+    ``-trapezoid`` falls back (A12)."""
     arms = []
     geoms = program.geoms
     dims = list(program.ana.domain_dims)
@@ -312,8 +314,10 @@ class KernelSpec:
     #: K4 only: the trapezoid plan (K, trap_dims, block, the passes with
     #: their tiles, grids and shared memory, the diamond geometry)
     trap: Dict = field(default_factory=dict)
-    #: every input → per-slot (lo, hi) read offsets (K5's wrapper checks
-    #: that a box's reads stay inside the pads)
+    #: every input → per-slot (lo, hi) reach around the box a launch
+    #: computes: its read offsets, and for K6 the sub-stage regions grown
+    #: past the block (K5's wrapper checks that a box's reads stay inside
+    #: the pads)
     reach: Dict[int, Tuple[Tuple[int, int], ...]] = field(
         default_factory=dict)
     #: the stream arm's plan (``tile_planner.StreamPlan``; its entry is
@@ -1045,7 +1049,7 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
 
 def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
-    entries for one stage, K6's (and K7's) for several stages or scratch
+    entries for one stage, K6's (and K7's, K5's) for several stages or scratch
     vars (one sub-stage per scratch write halo of a part, and one for the
     rest of each stage).  ``push`` is the :func:`resolve_push` request;
     the tile is the first of ``ladder`` whose shared-memory tiles fit.  A
@@ -1179,10 +1183,8 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         name = f"fused_step_{stem}"
         stream_entry = (f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n"
                         if plan is not None else "")
-        # K5 takes up to three domain dims (ROADMAP.md A11)
         more = (f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
-                + ("" if no else
-                   f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n"))
+                f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K1, and of K7 over N members
 // (see ops/fused_stencil.py).
@@ -1286,21 +1288,25 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     nscr = sum(u.scratch for u in subs)
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
-// ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), and of K7
-// over N members (see ops/fused_stencil.py); pushed vars:
+// ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), of K7
+// over N members and of K5 over a shard's box (see ops/fused_stencil.py);
+// pushed vars:
 // {', '.join(pushed) or 'none'}.
 #include "fused_step.cuh"
 
 {struct}
 YT_FUSED_STAGES_ENTRY({name}, Spec)
 YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
+YT_FUSED_REGION_ENTRY({name}_region, Spec)
 """
     return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                       outputs=outputs, tiled=tiled, tile=tile,
                       smem_bytes=offs * esize, halos=halos, stages=nst,
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,
-                      scratch_stages=nscr,
+                      scratch_stages=nscr, reach={
+                          a: tuple(tuple(x) for x in pr.reach[a])
+                          for a in range(len(pr.inputs))},
                       sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs],
                       in_misc=list(pr.in_misc), out_slices=out_slices,
                       base_outputs=base_outputs, outer=no,

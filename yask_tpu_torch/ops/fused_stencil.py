@@ -67,18 +67,24 @@ evaluates every stage.
 K5 on Hopper, the per-shard region kernel of the ``shard_pallas`` path
 (``yask_tpu_torch/parallel/shard_step.py``): replaces the ``region=`` and
 ``distributed=True`` arms of ``build_pallas_chunk`` (pallas_stencil.py:
-736-811, :1948-1953).  The same emitted source carries a third C entry
-point (``<name>_region``) that computes one sub-step of a single-stage
-solution over a compute box of one shard, in its local coordinates, with
-the shard's global origin added to every coordinate the point function
-sees, and writes 0 where a cell lies outside the global domain.
+736-811, :1948-1953), which the reference builds with every arm of the
+single-domain chunk.  Every emitted source (K1's and K6's) carries a C
+entry point ``<name>_region`` that computes one sub-step over a compute
+box of one shard, in its local coordinates, on the source's body: K1's
+for a single-stage solution, K6's (every stage, scratch sub-stage and
+rewrite, push off as the reference's distributed chunk) otherwise, with
+misc slices, partial-dim outputs, element size 2 and outer dims alike.
+The point function sees global coordinates (the shard's origin added)
+and the global extents, a cell outside the global domain is 0, and a
+scratch sub-stage clips at the global domain grown by its write halo.
 :func:`shard_step` is its wrapper with its own counter
 ``shard_step.launches``; :func:`plain_shard_chunk` (the shard's
-``StepProgram`` evaluated over the box, masked to the box and the global
-domain; per sub-step :func:`plain_shard_step`) is its plain version.
-Bound by bytes as K1: each input read once over the box grown by its
-reach and clipped to the global domain, each output written once over
-the box.
+``StepProgram`` evaluated stage by stage, each stage over the box grown
+by the later stages' ghost widths, :func:`stage_boxes`, masked to the
+global domain; per sub-step :func:`plain_shard_step`) is its plain
+version.  Bound by bytes as its body: each input read once over the box
+grown by its reach and clipped to the global domain, each output written
+once over the box.
 
 K1's stream arm (``-skew``), the port's design for K2 and K3: the same
 emitted source carries a fourth C entry point (``<name>_stream``,
@@ -101,8 +107,8 @@ whose misc slices are not all written starts from a copy of its evicted
 slot (:func:`copy_base`, counted in ``copy_base.launches``), at element
 size 2 the stream arm checks the strides its pair copies need
 (:func:`check_pair_strides`), and the launch code walks z cells past
-CUDA's limit in several launches (:func:`grid_z`).  K4 and K5
-(:func:`shard_step`) refuse these arms.
+CUDA's limit in several launches (:func:`grid_z`).  K4 refuses these
+arms (its groups fall back to K1).
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's first kernel that advances K time levels
@@ -256,11 +262,13 @@ def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
 
 
 def _region_table(program, box, off) -> List[int]:
-    """K5's int[12]: the box's lo and hi, the shard's origin and the
-    global extents, per kernel slot (unused slots: [0, 1), 0, 1)."""
-    dims = list(program.ana.domain_dims)
-    lo, hi, o, gn = [0, 0, 0], [1, 1, 1], [0, 0, 0], [1, 1, 1]
-    for d, s in cuda_emit.slot_map(dims).items():
+    """K5's int[4·(3 + outer dims)]: the box's lo and hi, the shard's
+    origin and the global extents, per kernel slot (outer slots after the
+    three; unused slots: [0, 1), 0, 1)."""
+    slot = cuda_emit.slot_map(program.ana.domain_dims)
+    ns = max(3, len(slot))
+    lo, hi, o, gn = [0] * ns, [1] * ns, [0] * ns, [1] * ns
+    for d, s in slot.items():
         lo[s], hi[s] = (int(x) for x in box[d])
         o[s] = int(off.get(d, 0))
         gn[s] = int(program.global_last[d]) + 1
@@ -269,13 +277,15 @@ def _region_table(program, box, off) -> List[int]:
 
 def call_region_entry(fn, program, spec, ins, outs, box, off, t: int,
                       stream) -> int:
-    """Call an emitted kernel's K5 entry point: K1's tables, then the box
-    ``{dim: (lo, hi)}`` in local interior coordinates, the shard's global
-    origin ``{dim: offset}`` and the global extents (from ``program``'s
-    ``global_last``).  Returns its error code."""
+    """Call an emitted kernel's K5 entry point (over K1's body or K6's):
+    K1's tables, then the box ``{dim: (lo, hi)}`` in local interior
+    coordinates, the shard's global origin ``{dim: offset}`` and the
+    global extents (from ``program``'s ``global_last``).  Returns its
+    error code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
-    reg = (ctypes.c_int * 12)(*_region_table(program, box, off))
+    tab = _region_table(program, box, off)
+    reg = (ctypes.c_int * len(tab))(*tab)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
               ctypes.addressof(n3), ctypes.addressof(reg), int(t), stream)
@@ -316,6 +326,12 @@ def batched_argtypes():
                                     ctypes.c_void_p]
 
 
+def region_argtypes():
+    """K5's C signature: K1's tables, the box table, the step, the
+    stream."""
+    return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
 def stream_argtypes():
     """The stream entry's C signature: K1's tables, the segment and pad
     table, the step, the stream."""
@@ -323,18 +339,27 @@ def stream_argtypes():
 
 
 def check_box(program, spec, box) -> None:
-    """Raise unless every read of a sub-step over ``box`` (each input's
-    read offsets around it) and every write stays inside the padded
-    arrays, and the box is not empty."""
+    """Raise unless every read of a sub-step over ``box`` and every write
+    stays inside the padded arrays, and the box is not empty.  An input's
+    reach around the box is ``spec.reach`` (its read offsets, and K6's
+    sub-stage regions grown past the block: the whole step's reach, which
+    ``fused_step_radius`` must cover for the group's boxes to pass) and,
+    in an outer dim, its outer offset."""
     dims = list(program.ana.domain_dims)
     for d in dims:
         lo, hi = box[d]
         if hi <= lo:
             raise YaskException(f"K5: empty box {box} in dim '{d}'")
     slot = cuda_emit.slot_map(dims)
-    arrays = [(n, spec.reach.get(a, ((0, 0),) * 3))
-              for a, (n, _s) in enumerate(spec.inputs)]
-    arrays += [(n, ((0, 0),) * 3) for n in spec.outputs]
+    outer = sorted((d for d in dims if slot[d] >= 3), key=slot.get)
+
+    def reach_of(a):
+        r = list(spec.reach.get(a, ((0, 0),) * 3))
+        for o in (spec.in_outer[a] if spec.in_outer else [0] * len(outer)):
+            r.append((max(-o, 0), max(o, 0)))
+        return r
+    arrays = [(n, reach_of(a)) for a, (n, _s) in enumerate(spec.inputs)]
+    arrays += [(n, ((0, 0),) * max(3, len(slot))) for n in spec.outputs]
     for name, reach in arrays:
         g = program.geoms[name]
         for d in g.domain_dims:
@@ -398,6 +423,7 @@ def copy_base(kernel: "FusedKernel", state, dev, lead=()):
     slot is the evicted one with the written slices replaced.  Counts
     each copy in ``copy_base.launches``."""
     import torch
+    from yask_tpu_torch.compiler.lowering import torch_dtype
     prog = kernel.program
     outs = []
     for n in kernel.spec.outputs:
@@ -406,7 +432,8 @@ def copy_base(kernel: "FusedKernel", state, dev, lead=()):
             copy_base.launches += 1
         else:
             outs.append(torch.zeros(tuple(lead) + tuple(prog.geoms[n].shape),
-                                    dtype=kernel.dtype, device=dev))
+                                    dtype=torch_dtype(prog.dtype),
+                                    device=dev))
     return outs
 
 
@@ -582,16 +609,59 @@ def _box_idx(g, box):
                  if kind == "domain" else slice(None) for dn, kind in g.axes)
 
 
-def plain_shard_chunk(program, state, t: int, box):
+def stage_boxes(program, box) -> List[Dict]:
+    """Each stage's box in one sub-step over ``box``: ``box`` grown by the
+    sum of the later stages' ghost widths (each stage's widest read in
+    ``program.stage_reads``, a scratch part's write halo included), as the
+    reference's stage loop lets each stage consume its own width of the
+    block's margin (pallas_stencil.py:2058-2075).  Stage 0 then reads up
+    to ``fused_step_radius`` past ``box``.  This is the step's own
+    analysis, not the emitter's tighter per-read regions of K6."""
+    grow = {d: 0 for d in box}
+    out = []
+    for reads in reversed(program.stage_reads):
+        out.append({d: (lo - grow[d], hi + grow[d])
+                    for d, (lo, hi) in box.items()})
+        width = {d: max([max(w.get(d, (0, 0))) for w in reads.values()]
+                        + [0]) for d in grow}
+        grow = {d: grow[d] + width[d] for d in grow}
+    return out[::-1]
+
+
+def _zero_outside_global(program, name: str, a):
+    """Zero the cells of a padded tensor of var ``name`` (of a shard:
+    ``program.rank_offset``) that lie outside the global domain: what the
+    single-domain version's zero pads hold there."""
+    g = program.geoms[name]
+    for dn in g.domain_dims:
+        ax = g.axis_of(dn)
+        lo = g.origin[dn] - program.rank_offset[dn]
+        hi = lo + program.global_last[dn] + 1
+        if lo > 0:
+            a.narrow(ax, 0, min(lo, a.shape[ax])).zero_()
+        if hi < a.shape[ax]:
+            a.narrow(ax, max(hi, 0), a.shape[ax] - max(hi, 0)).zero_()
+    return a
+
+
+def plain_shard_chunk(program, state, t: int, box, base=()):
     """The plain version of K5: one sub-step from step ``t``, the shard's
     ``StepProgram`` (``rank_offset`` = the shard's global origin, global
-    sizes) evaluated over ``box``, into a fresh zeroed tensor that keeps
-    the box's cells inside the global domain; rings rotated."""
-    import torch
+    sizes) evaluated stage by stage, each stage over its box
+    (:func:`stage_boxes`) with the values it writes zeroed outside the
+    global domain (as the single-domain version's pads are, where a later
+    stage reads them), into a fresh zeroed tensor (for a var in ``base``,
+    whose misc slices are not all written, a copy of its evicted slot)
+    that keeps the box's cells inside the global domain; rings rotated."""
     computed: Dict = {}
     scratch: Dict = {}
-    for si in range(len(program.ana.stages)):
-        program.eval_stage(si, t, state, computed, scratch, over=box)
+    writes = [{eq.lhs.var_name() for part in stage.parts
+               if not part.is_scratch for eq in part.eqs}
+              for stage in program.ana.stages]
+    for si, sbox in enumerate(stage_boxes(program, box)):
+        program.eval_stage(si, t, state, computed, scratch, over=sbox)
+        for name in writes[si]:
+            _zero_outside_global(program, name, computed[name])
     inside = {}     # the box clipped to the global domain
     for d, (lo, hi) in box.items():
         o = program.rank_offset[d]
@@ -600,19 +670,10 @@ def plain_shard_chunk(program, state, t: int, box):
     outs = {}
     for name, val in computed.items():
         idx = _box_idx(program.geoms[name], inside)
-        outs[name] = torch.zeros_like(val)
+        outs[name] = (state[name][0].clone() if name in base
+                      else val.new_zeros(val.shape))
         outs[name][idx] = val[idx]
     return program.rotate(state, outs)
-
-
-def new_outputs(kernel: "FusedKernel", device):
-    """Fresh zeroed output tensors of one sub-step, one per output."""
-    import torch
-    from yask_tpu_torch.compiler.lowering import torch_dtype
-    prog = kernel.program
-    return [torch.zeros(tuple(prog.geoms[n].shape),
-                        dtype=torch_dtype(prog.dtype), device=device)
-            for n in kernel.spec.outputs]
 
 
 def plain_shard_step(kernel: "FusedKernel", state, t: int, box, off,
@@ -622,7 +683,8 @@ def plain_shard_step(kernel: "FusedKernel", state, t: int, box, off,
     fresh outputs or the box of ``outs``."""
     prog = kernel.program
     new = plain_shard_chunk(
-        _with_offset(prog, off, kernel._device_of(state)), state, t, box)
+        _with_offset(prog, off, kernel._device_of(state)), state, t, box,
+        kernel.spec.base_outputs)
     if outs is None:
         return new
     for name, o in zip(kernel.spec.outputs, outs):
@@ -635,24 +697,21 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     """K5: one sub-step of one shard over ``box`` (``{dim: (lo, hi)}``,
     the shard's local interior coordinates, reaching into its pads where
     the group needs it), the shard's global origin ``off``; returns the
-    shard's new state (rings rotated).  The outputs are fresh zeroed
-    tensors holding the box's cells, or the given ``outs``, of which only
-    the box is written (the core and the shells of an overlapped group
-    write disjoint boxes of one sub-step's outputs).  CPU tensors take
-    :func:`plain_shard_chunk`; CUDA tensors launch the kernel (counted in
-    ``shard_step.launches``) or raise."""
+    shard's new state (rings rotated).  It launches the ``_region`` entry
+    of the kernel's body: K1's for a single-stage solution, K6's (every
+    stage and scratch sub-stage) otherwise.  The outputs are fresh zeroed
+    tensors holding the box's cells (a var whose misc slices are not all
+    written starts from a copy of its evicted slot, :func:`copy_base`), or
+    the given ``outs``, of which only the box is written (the core and the
+    shells of an overlapped group write disjoint boxes of one sub-step's
+    outputs).  CPU tensors take :func:`plain_shard_chunk`; CUDA tensors
+    launch the kernel (counted in ``shard_step.launches``) or raise."""
     import torch
     prog = kernel.program
     spec = kernel.spec
+    if spec is None:    # no equations: nothing to compute (ROADMAP.md C14)
+        return state
     dev = kernel._device_of(state)
-    if spec.stages != 1:
-        raise YaskException(
-            f"K5 takes single-stage solutions; '{spec.name}' has "
-            f"{spec.stages} stages (ROADMAP.md A11 (multi-stage K5))")
-    if kernel.a3_arms:
-        raise YaskException(
-            f"K5 has not been held against {' and '.join(kernel.a3_arms)} "
-            "(ROADMAP.md A11 (A3 arms on K5))")
     check_box(prog, spec, box)
     if dev.type == "cpu":
         return plain_shard_step(kernel, state, t, box, off, outs)
@@ -662,7 +721,7 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     kernel.build()
     ins, dev = _check_inputs(kernel, state)
     if outs is None:
-        outs = new_outputs(kernel, dev)
+        outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
         rc = call_region_entry(kernel.region_fn, prog, spec, ins, outs, box,
                                off, t,
@@ -708,8 +767,6 @@ class FusedKernel:
         #: nothing (ROADMAP.md C14)
         self.spec = (cuda_emit.emit(program, push) if program.ana.eqs
                      else None)
-        #: the ROADMAP.md A3 arms the solution takes (K5 refuses them)
-        self.a3_arms = cuda_emit.a3_arms(program)
         self.skew_reasons: List[Dict] = []
         self.skew_dims = cuda_emit.skew_engaged_dims(
             program, skew, max_skew_dims, self.skew_reasons, self.spec)
@@ -740,7 +797,7 @@ class FusedKernel:
 
     def build(self) -> float:
         """Build (nvcc at first use) and bind the entry points (K1, K7,
-        K5 and the stream arm for one stage, K6 and K7 for several);
+        K5 and the stream arm for one stage, K6, K7 and K5 for several);
         returns the seconds it took.  Raises on a missing nvcc or a failed
         build.  A program without equations builds nothing."""
         if self.spec is None:
@@ -755,12 +812,9 @@ class FusedKernel:
         bfn = getattr(lib, self.spec.name + "_batched")
         bfn.argtypes = batched_argtypes()
         bfn.restype = ctypes.c_int
-        rfn = None
-        if self.spec.stages == 1 and not self.spec.outer:
-            rfn = getattr(lib, self.spec.name + "_region")
-            rfn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
-                                                    ctypes.c_void_p]
-            rfn.restype = ctypes.c_int
+        rfn = getattr(lib, self.spec.name + "_region")
+        rfn.argtypes = region_argtypes()
+        rfn.restype = ctypes.c_int
         if self.spec.stream is not None:
             sfn = getattr(lib, self.spec.name + "_stream")
             sfn.argtypes = stream_argtypes()

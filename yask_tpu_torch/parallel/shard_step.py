@@ -21,13 +21,19 @@ share a device, peer to peer between cards otherwise.
   refreshed before each stage that reads at an offset
   (``StepProgram.stage_reads``), optionally split into core and shells
   (:func:`_make_overlap_step`).
-* :func:`run_shard_pallas`: ghost pads of ``hK = radius × K``, one
-  exchange per group of K steps, then K sub-steps of K5
-  (``fused_stencil.shard_step``) per shard, sub-step ``s`` over the
-  interior grown by ``r·(K−1−s)`` in the sharded dims; with the overlap
-  engaged (:func:`overlap_decision`) every sub-step's core runs on the
+* :func:`run_shard_pallas`: ghost pads of ``hK = radius × K`` (``radius``
+  the whole step's reach, ``fused_step_radius``: every stage's read
+  widths summed), one exchange per group of K steps, then K sub-steps of
+  K5 (``fused_stencil.shard_step``: K1's body for one stage, K6's for
+  several stages or scratch vars, every A3 arm alike) per shard,
+  sub-step ``s`` over the interior grown by ``r·(K−1−s)`` in the sharded
+  dims (outer dims included); with the overlap engaged
+  (:func:`overlap_decision`) every sub-step's core runs on the
   pre-exchange state while the exchange copies on a second CUDA stream,
-  then the shell slabs (:func:`split_boxes`) run.
+  then the shell slabs (:func:`split_boxes`) run.  The exchange carries
+  every var the shard holds: misc axes ride along whole, a var lacking a
+  sharded dim has nothing to exchange in it (every shard of that row
+  computes the same values), and bfloat16 slabs are copied as they are.
 * the state: the global padded state of the context is scattered to the
   shards at a run's start and stays there between runs
   (``RunState.resident``); any host-visible access gathers it back one var
@@ -639,7 +645,8 @@ def run_shard_map(ctx, start: int, n: int) -> None:
 class ShardPallasPlan:
     """One shard_pallas configuration of a prepared context: the layout
     (pads grown by ``hK = radius × wf_steps``), K5's kernel over the local
-    program, and the tiling record of the last run."""
+    program (push off, as the reference builds its distributed chunk
+    without ``push=``), and the tiling record of the last run."""
 
     def __init__(self, ctx):
         from yask_tpu_torch.ops.fused_stencil import FusedKernel
@@ -653,7 +660,8 @@ class ShardPallasPlan:
         self.layout = ShardLayout(ctx, extra, ("shard_pallas", self.K))
         self.kernel = FusedKernel(ctx._csol.plan(
             opts.rank_domain_sizes, ops=self.layout.progs[0].ops,
-            extra_pad=extra, global_sizes=opts.global_domain_sizes))
+            extra_pad=extra, global_sizes=opts.global_domain_sizes),
+            push=False)
         self.tiling = None
 
 
@@ -833,8 +841,21 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
             "cause": "remainder group fuses a single step: run whole on "
                      "post-exchange state (no compute to hide its "
                      "exchange under)"})
+    spec = sp.kernel.spec
+    # a var whose unwritten misc slices start from a copy of its evicted
+    # slot cannot take the copy before the group's shells wrote that slot
+    base = spec.base_outputs if spec is not None else []
+    short = [n for n in base if sp.kernel.program.geoms[n].num_slots < K]
+    if ov and short:
+        reasons.append({
+            "code": "overlap_base_ring_short",
+            "cause": f"{', '.join(short)} start from a copy of the evicted "
+                     f"slot, which a {K}-step group writes before its "
+                     "shells ran: such a group runs whole on post-exchange "
+                     "state"})
     tiling = sp.kernel.tiling(K)
-    tiling.update(kernel="shard_step", name=sp.kernel.spec.name + "_region",
+    tiling.update(kernel="shard_step",
+                  name=spec.name + "_region" if spec is not None else None,
                   launches_per_step=layout.mesh.size, distributed=True,
                   mesh=dict(layout.mesh.shape),
                   overlap_exchange=bool(ov), overlap_reasons=list(reasons),
@@ -861,21 +882,22 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
         core never reads, so both states are the same tensors; the core
         and the shells of a sub-step write disjoint boxes of its
         outputs."""
-        from yask_tpu_torch.ops.fused_stencil import (_rotated, new_outputs,
+        from yask_tpu_torch.ops.fused_stencil import (_rotated, copy_base,
                                                       shard_step)
         with _side_streams(layout, side):
             exchange_newest(sp, st, K, plan)
-        if gk < 2:
+        kern = sp.kernel
+        if gk < 2 or any(len(st[0][n]) < gk for n in base):
             # a single-step group has no core compute to hide the
-            # exchange under: run it whole after the exchange
+            # exchange under, and a short ring of a base output (above):
+            # run it whole after the exchange
             _join_streams(side)
             return _chunk(sp, st, t, gk, dirn)
-        kern = sp.kernel
         chains = []
         for i, shard in enumerate(st):
             states, outs = [shard], []
             for _s in range(gk):
-                outs.append(new_outputs(kern, layout.devices[i]))
+                outs.append(copy_base(kern, states[-1], layout.devices[i]))
                 states.append(_rotated(kern.program, kern.spec, states[-1],
                                        outs[-1]))
             chains.append((states, outs))

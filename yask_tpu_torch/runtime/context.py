@@ -410,9 +410,10 @@ class StencilContext:
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
         if mode in ("fused", "shard_pallas"):
-            from yask_tpu_torch.ops.cuda_emit import (a3_arms,
-                                                      fused_applicable,
-                                                      has_scratch)
+            # K5 runs on the body K1 or K6 would (every arm of theirs);
+            # shard_pallas's own rejections are the reference's
+            # (check_shard_pallas at the first run, decomp's at prepare)
+            from yask_tpu_torch.ops.cuda_emit import fused_applicable
             ok, why = fused_applicable(prog)
             if not ok:
                 path, alt = (("fused kernel", "torch") if mode == "fused"
@@ -420,23 +421,6 @@ class StencilContext:
                 raise YaskException(
                     f"solution '{self.get_name()}' cannot use the {path}: "
                     f"{why}; use -mode {alt}")
-            arms = " and ".join(a3_arms(prog))
-            if arms and mode == "shard_pallas":
-                raise YaskException(
-                    f"solution '{self.get_name()}' has {arms}: K5 has not "
-                    "been held against them (ROADMAP.md A11 (A3 arms on "
-                    "K5)); use -mode shard_map")
-        if mode == "shard_pallas" and len(self._ana.stages) > 1:
-            raise YaskException(
-                f"solution '{self.get_name()}' has {len(self._ana.stages)} "
-                "stages: K5 takes single-stage solutions (ROADMAP.md A11 "
-                "(multi-stage K5)); use -mode shard_map")
-        if mode == "shard_pallas" and has_scratch(prog):
-            names = [n for n, g in prog.geoms.items() if g.is_scratch]
-            raise YaskException(
-                f"solution '{self.get_name()}' has scratch vars "
-                f"({', '.join(names)}): K5 has no scratch sub-stages "
-                "(ROADMAP.md A11 (scratch K5)); use -mode shard_map")
         return prog
 
     def prepare_solution(self) -> None:

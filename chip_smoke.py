@@ -242,7 +242,34 @@ script exits 0 only when all of them passed.  Phases:
    group, the step's bound (four shards' launches and the exchanged
    slabs, ``exchange_bytes``) and share, one launch against its plain
    version, the peak memory, and the state bit-equal to the
-   single-domain ``-mode fused`` twin's after the same steps.
+   single-domain ``-mode fused`` twin's after the same steps;
+14. K4 on the multi-stage, scratch, rewrite, misc and element-size-2 arms
+   (each level of a group runs K6's sub-stages; level buffers past shared
+   memory in a workspace of the card's resident blocks) and K4's member
+   batch (``<name>_trap_batched``, ``batched_trapezoid_chunk``), every
+   K4 request forced (``k4_ctx(force=True)``).  (a) At mid width, one
+   group of K = 2 each: ssg r=2 and r=4, tti r=2, awp, gaussian r=2 and
+   tti r=2 in bfloat16 at 64³ (gaussian 256²), and the RTM chain merged
+   by ``SolutionPipeline`` (``prepare(fuse=True)``) at 64³: one phase-1
+   launch and one diamond launch per trapezoid dim and nothing else, 0
+   mismatches against the plain version (``-mode torch``) at
+   ``field_epsilon`` (1e-2 at element size 2) and bit-equal
+   (``compare_data(epsilon=0)``) to the ``-no-trapezoid`` twin (K6, or
+   K1; ssg r=4's runs on the ladder's 1×1×16 rung, ROADMAP.md C17);
+   one group timed against its bound and its plain version.  (b) At full width, seeded on the card in physical ranges
+   (``seed_device``): tti r=2 512³ fp32 ``-wf_steps 2`` and iso3dfd r=2
+   512³ bf16 ``-wf_steps 4``, a warm-up group, then 3 trials of 5 groups
+   with the counters zeroed just before (K4 alone launches), each
+   bit-equal on the card to its ``-no-trapezoid`` twin (K6, K1) run from
+   the same seed: ms/step against the twin's, one group and each pass
+   per launch (CUDA events) against the bound (each K4 input read once,
+   each output level written once), the plain version's group, and what
+   the auto gate chooses.  (c) An ``EnsembleRun`` of 8 × 256³ iso3dfd r=2
+   at ``-wf_steps 4 -trapezoid``: 2 groups, K4's member batch alone, each
+   member bit-equal to its solo K4 run, the batched group against 8 solo
+   groups; then a ``StencilServer`` batch of 4 tti r=2 sessions at 128³
+   under ``-trapezoid``, all ok and batched, each bit-identical to its
+   solo K4 run.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -302,6 +329,10 @@ def launch_counts() -> dict:
             "shard_step": fs.shard_step.launches,
             "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
             "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches,
+            "batched_trapezoid_phase1":
+                fs.batched_trapezoid_chunk.phase1_launches,
+            "batched_trapezoid_diamond":
+                fs.batched_trapezoid_chunk.diamond_launches,
             "copy_base": fs.copy_base.launches}
 
 
@@ -311,8 +342,9 @@ def zero_launch_counts() -> None:
               fs.batched_stages_step, fs.stages_step, fs.shard_step,
               fs.copy_base):
         w.launches = 0
-    fs.trapezoid_chunk.phase1_launches = 0
-    fs.trapezoid_chunk.diamond_launches = 0
+    for w in (fs.trapezoid_chunk, fs.batched_trapezoid_chunk):
+        w.phase1_launches = 0
+        w.diamond_launches = 0
 
 
 def ptxas_summary(log_text: str) -> str:
@@ -324,7 +356,10 @@ def ptxas_summary(log_text: str) -> str:
              ("fused_stages_kernelI4SpecLb0ELb1E", "K5 (K6 body)"),
              ("fused_stages_kernelI4SpecLb1", "K7 (K6 body)"),
              ("fused_stages_kernelI4SpecLb0", "K6"),
+             ("trapezoid_kernelI4SpecLb1", "K4 phase 1 (member batch)"),
              ("trapezoid_kernel", "K4 phase 1"),
+             ("diamond_kernelI4SpecLi1ELb1", "K4 diamond (member batch)"),
+             ("diamond_kernelI4SpecLi2ELb1", "K4 diamond (member batch)"),
              ("diamond_kernel", "K4 diamond"))
     out, cur = [], None
     for ln in log_text.splitlines():
@@ -3473,6 +3508,501 @@ def phase13(fac, card: str) -> list:
     return entries
 
 
+
+# ---- phase 14: K4 on the multi-stage, scratch, rewrite, misc and bf16
+#      arms, and K4's member batch
+
+#: Phase 14 (a): (label, stencil, radius, element bytes, sizes).  ssg
+#: r=4's twin runs K6 on the ladder's 1×1×16 rung (ROADMAP.md C17).
+K4_MID = (("ssg r=2", "ssg", 2, 4, (64, 64, 64)),
+          ("ssg r=4", "ssg", 4, 4, (64, 64, 64)),
+          ("tti r=2", "tti", 2, 4, (64, 64, 64)),
+          ("awp", "awp", None, 4, (64, 64, 64)),
+          ("gaussian r=2", "gaussian", 2, 4, (256, 256)),
+          ("tti r=2 bf16", "tti", 2, 2, (64, 64, 64)))
+#: Phase 14 (b): (label, stencil, radius, element bytes, edge, K, twin arm)
+K4_FULL = (("tti r=2 fp32", "tti", 2, 4, 512, 2, "K6"),
+           ("iso3dfd r=2 bf16", "iso3dfd", 2, 2, 512, 4, "K1"))
+
+
+def k4_ctx(fac, env, st, r, eb, sizes, mode, K, cli="", force=False):
+    """:func:`a3_ctx` with K4's request forced (``force``)."""
+    from yask_tpu_torch.compiler.solution_base import create_solution
+    src = create_solution(st, radius=r)
+    src.get_soln().set_element_bytes(eb)
+    ctx = fac.new_solution(env, src)
+    if force:
+        ctx._trapezoid_arg = lambda: True
+    dims = list(ctx._ana.domain_dims)
+    sizes = sizes[len(sizes) - len(dims):]
+    g = " ".join(f"-g_{d} {n}" for d, n in zip(dims, sizes))
+    ctx.apply_command_line_options(f"{g} -mode {mode} -wf_steps {K} "
+                                   f"-no-skew {cli}")
+    ctx.prepare_solution()
+    return ctx
+
+
+def k4_specs(fac, env) -> dict:
+    """Phase 14's kernels (K4 per case and its twins), for phase 1's
+    parallel build.  A K4 source holds its plan, so each is emitted at the
+    size the phase runs it (a full-width context allocates its state on
+    the card for a moment)."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    out = {}
+    for label, st, r, eb, sizes in K4_MID:
+        ctx = k4_ctx(fac, env, st, r, eb, sizes, "fused", 2, "-trapezoid",
+                     force=True)
+        out[f"K4 {label}"] = ctx._trapezoid_kernel().spec
+        out[f"K6/K1 {label}"] = FusedKernel(ctx._program).spec
+        del ctx
+    pipe = rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid -no-skew",
+                    True, (64, 64, 64))
+    pipe.fused_ctx._trapezoid_arg = lambda: True
+    out["K4 rtm chain"] = pipe.fused_ctx._trapezoid_kernel().spec
+    out["K6 rtm chain"] = FusedKernel(pipe.fused_ctx._program).spec
+    pipe.end()
+    for label, st, r, eb, g, K, _arm in K4_FULL:
+        ctx = k4_ctx(fac, env, st, r, eb, (g, g, g), "fused", K,
+                     "-trapezoid", force=True)
+        out[f"K4 {label}"] = ctx._trapezoid_kernel().spec
+        out[f"twin {label}"] = FusedKernel(ctx._program).spec
+        del ctx
+    for st, r, g, K in (("iso3dfd", 2, 256, 4), ("tti", 2, 128, 2)):
+        ctx = k4_ctx(fac, env, st, r, 4, (g, g, g), "fused", K,
+                     "-trapezoid", force=True)
+        out[f"K4 {st} r={r} {g}^3 K={K}"] = ctx._trapezoid_kernel().spec
+        del ctx
+    return out
+
+
+def k4_bound(ctx, spec) -> tuple:
+    """The least time of one K4 group: each of its inputs read once and
+    each output (the newest levels of the group) written once over the
+    interior, or the group's FLOPs.  Returns (ms, "bytes"/"operations",
+    bytes)."""
+    import numpy as np
+    prog = ctx._program
+
+    def cells(name):
+        c = 1
+        for dn, kind in prog.geoms[name].axes:
+            c *= (prog.sizes[dn] if kind == "domain"
+                  else prog.geoms[name].misc_ext[dn])
+        return c
+    npts = 1
+    for d in ctx._ana.domain_dims:
+        npts *= prog.sizes[d]
+    nbytes = np.dtype(prog.dtype).itemsize * (
+        sum(cells(n) for n, _s in dict.fromkeys(spec.inputs))
+        + sum(cells(n) for n in spec.outputs))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = (ctx._ana.counters.num_ops * npts * spec.trap["K"]
+                / FP32_FLOP_PER_S * 1e3)
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes)
+
+
+def k4_group_vs_plain(kern, state, t: int):
+    """One K4 group against ``plain_chunk`` from the same state on the
+    card: (max |d|, cells whose bits differ, field max)."""
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk
+    K = kern.K
+    a = kern.chunk(dict(state), t, K)
+    b = plain_chunk(kern.program, dict(state), t, K)
+    err, nbits, scale = 0.0, 0, 0.0
+    for n in set(kern.spec.outputs):
+        k = kern.spec.outputs.count(n)
+        for x, y in zip(a[n][-k:], b[n][-k:]):
+            err = max(err, float((x.float() - y.float()).abs().max()))
+            nbits += int((x != y).sum())
+            scale = max(scale, float(y.float().abs().max()))
+    return err, nbits, scale
+
+
+def phase14a(fac, env, card: str, cases=K4_MID, rtm: int = 64) -> list:
+    """Phase 14 (a): each arm at mid width, one group of K = 2 forced on
+    K4 with the counters zeroed just before and read just after, against
+    its ``-no-trapezoid`` twin (K6 or K1) to the bit and its plain version
+    (``-mode torch``) at ``field_epsilon`` (1e-2 at element size 2); one
+    group timed (CUDA events) against its bound and the plain version's
+    group.  Returns one row per case."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk, trapezoid_chunk
+    rows = []
+
+    def timed(label, ctx, eb, got, twin_bad, diff):
+        kern, state = ctx._trapezoid_kernel(), ctx._state
+        t = ctx._cur_step
+        ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, 2), 3)
+        plain_ms = cuda_ms(lambda: plain_chunk(kern.program, state, t, 2),
+                           2)
+        err, nbits, scale = k4_group_vs_plain(kern, state, t)
+        bound_ms, bound_by, nbytes = k4_bound(ctx, kern.spec)
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        tr = kern.spec.trap
+        log(f"phase 14: {label}: K4 one group (K=2) vs plain on the card "
+            f"max|d|={diff[0]:.3e} mismatches={diff[1]} (field_epsilon="
+            f"{eps}); vs the -no-trapezoid twin compare_data(epsilon=0) = "
+            f"{twin_bad}; launches {got}; {tr['sub_stages']} sub-stages "
+            f"({tr['scratch_stages']} of scratch vars), {tr['buffers']} "
+            f"level buffers, workspace {tr['ws_block_bytes']} B per block, "
+            f"passes {[(p['tile'], p['smem_buffers'], p['ws_buffers']) for p in tr['passes']]}; "
+            f"{ms:.3f} ms/group (CUDA events) against its bound "
+            f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; "
+            f"plain {plain_ms:.3f} ms/group; a second group vs plain "
+            f"max|d|={err:.3e} ({nbits} cells differ in their bits, field "
+            f"max {scale:.3e}) [{card}]")
+        if not err <= eps * scale:
+            raise RuntimeError(f"phase 14: {label}: K4 and its plain "
+                               "version disagree")
+        rows.append((label, ms, plain_ms, bound_ms, bound_by,
+                     max(err, diff[0]), sum(got.values())))
+
+    for label, st, r, eb, sizes in cases:
+        ctxs = {"k4": k4_ctx(fac, env, st, r, eb, sizes, "fused", 2,
+                             "-trapezoid", force=True),
+                "plain": k4_ctx(fac, env, st, r, eb, sizes, "torch", 2),
+                "twin": k4_ctx(fac, env, st, r, eb, sizes, "fused", 2,
+                               "-no-trapezoid")}
+        misc = any(kind == "misc" for gm in ctxs["k4"]._program.geoms.values()
+                   for _d, kind in gm.axes)
+        for c in ctxs.values():
+            (seed_interiors if misc else seed_physical)(c, 7)
+        zero_launch_counts()
+        ctxs["k4"].run_solution(0, 1)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        ndia = len(ctxs["k4"]._trapezoid_kernel().spec.trap["trap_dims"])
+        nbase = len(ctxs["k4"]._trapezoid_kernel().spec.base_outputs)
+        want = {"trapezoid_phase1": 1, "trapezoid_diamond": ndia}
+        if nbase:
+            want["copy_base"] = nbase
+        if got != want:
+            raise RuntimeError(f"phase 14: {label}: launches {got}, "
+                               f"expected {want}")
+        for k in ("plain", "twin"):
+            ctxs[k].run_solution(0, 1)
+        twin_bad = ctxs["k4"].compare_data(ctxs["twin"], epsilon=0.0,
+                                           abs_epsilon=0.0)
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        diff = (max_abs_diff(ctxs["k4"], ctxs["plain"]),
+                ctxs["k4"].compare_data(ctxs["plain"], field_epsilon=eps))
+        if twin_bad or diff[1] or not finite(ctxs["k4"]):
+            raise RuntimeError(f"phase 14: {label}: K4 differs from its "
+                               f"twin ({twin_bad}) or its plain version "
+                               f"({diff[1]} mismatches)")
+        timed(label, ctxs["k4"], eb, got, twin_bad, diff)
+        del ctxs
+        torch.cuda.empty_cache()
+
+    # the RTM chain merged by SolutionPipeline, prepare(fuse=True)
+    g = (rtm,) * 3
+    pipes = {"k4": rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid "
+                                 "-no-skew", True, g),
+             "twin": rtm_pipe(env, "-mode fused -wf_steps 2 -no-trapezoid "
+                                   "-no-skew -push off", True, g),
+             "plain": rtm_pipe(env, "-mode torch -wf_steps 2", True, g)}
+    pipes["k4"].fused_ctx._trapezoid_arg = lambda: True
+    for p in pipes.values():
+        seed_chain(p, g, 7)
+    zero_launch_counts()
+    pipes["k4"].run(0, 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != {"trapezoid_phase1": 1, "trapezoid_diamond": 2}:
+        raise RuntimeError(f"phase 14: rtm chain: launches {got}")
+    pipes["twin"].run(0, 1)
+    pipes["plain"].run(0, 1)
+    twin_bad = pipes["k4"].compare(pipes["twin"])
+    err, scale = pipe_diff(pipes["k4"], pipes["plain"])
+    if twin_bad or not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 14: rtm chain: K4 vs K6 {twin_bad} "
+                           f"mismatches, vs plain max|d|={err:.3e}")
+    timed(f"rtm chain r=2 {rtm}^3 (3 stages)", pipes["k4"].fused_ctx, 4,
+          got, twin_bad, (err, 0))
+    for p in pipes.values():
+        p.end()
+    return rows
+
+
+def phase14b(fac, env, card: str, label, st, r, eb, g, K, arm,
+             warm: int = 1, trials: int = 3, steps: int = 0) -> dict:
+    """Phase 14 (b): ``st`` at ``g``³ under forced ``-trapezoid`` through
+    the user's entry points, seeded on the card in physical ranges
+    (:func:`seed_device`), and its ``-no-trapezoid`` twin from the same
+    seed: ``warm`` groups, then ``trials`` runs of ``steps`` steps with
+    the counters zeroed just before (K4 alone launches), the two states
+    bit-equal on the card after the same steps; ms per group and per
+    step against the twin's, each pass's ms per launch, the bound, the
+    plain version's group, and what the auto gate chooses.  Returns the
+    ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import (
+        call_trapezoid_entry, plain_chunk, trapezoid_chunk, trap_outputs)
+    steps = steps or 5 * K
+    npts = g ** 3
+    out = {}
+    ctxs = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for which, cli in (("K4", "-trapezoid"), (arm, "-no-trapezoid")):
+        torch.cuda.empty_cache()
+        ctx = k4_ctx(fac, env, st, r, eb, (g, g, g), "fused", K, cli,
+                     force=which == "K4")
+        seed_device(ctx, 11, physical=True)
+        ctx.run_solution(0, warm * K - 1)
+        t = warm * K
+        zero_launch_counts()
+        rates = []
+        for _ in range(trials):
+            ctx.clear_stats()
+            ctx.run_solution(t, t + steps - 1)
+            t += steps
+            rates.append(ctx.get_stats().get_pts_per_sec())
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        ngroups = trials * steps // K
+        want = ({"trapezoid_phase1": ngroups,
+                 "trapezoid_diamond": 2 * ngroups} if which == "K4" else
+                {"stages_step" if arm == "K6" else "fused_step":
+                 trials * steps})
+        if got != want:
+            raise RuntimeError(f"phase 14: {label} {which}: launches {got},"
+                               f" expected {want}")
+        if not finite(ctx):
+            raise RuntimeError(f"phase 14: {label} {which}: not finite")
+        rates.sort()
+        out[which] = (npts / rates[len(rates) // 2] * 1e3, got, t)
+        ctxs[which] = ctx
+    bad = device_diff(ctxs["K4"], ctxs[arm], exact=True)
+    step_ms, got, t = out["K4"]
+    twin_ms = out[arm][0]
+    if bad[1]:
+        raise RuntimeError(f"phase 14: {label}: K4 and {arm} differ in "
+                           f"{bad[1]} cells (max|d|={bad[0]:.3e})")
+    del ctxs[arm]
+    torch.cuda.empty_cache()
+    ctx = ctxs["K4"]
+    kern, prog, state = ctx._trapezoid_kernel(), ctx._program, ctx._state
+    spec = kern.spec
+    auto = []
+    cuda_emit.resolve_trapezoid(prog, K, None, reasons=auto)
+    ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, K), 3)
+    ins = [state[n][s] for n, s in spec.inputs]
+    outs = trap_outputs(kern, state, ins[0].device)
+    ws, nres = kern.workspace(ins[0].device, False)
+    stream = torch.cuda.current_stream().cuda_stream
+    pass_ms = [cuda_ms(lambda p=p: call_trapezoid_entry(
+        kern.fn, prog, spec, ins, outs, p, t, stream, ws, nres), 3)
+        for p in range(len(spec.trap["passes"]))]
+    del outs, ws
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, K), 1)
+    err, nbits, scale = k4_group_vs_plain(kern, state, t)
+    eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+    if not err <= eps * scale:
+        raise RuntimeError(f"phase 14: {label}: K4 and its plain version "
+                           "disagree")
+    bound_ms, bound_by, nbytes = k4_bound(ctx, spec)
+    tr = spec.trap
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 14: {label} {g}^3 -mode fused -wf_steps {K} -trapezoid "
+        f"(forced): {trials} trials x {steps} steps: {step_ms:.3f} ms/step "
+        f"against {arm}'s {twin_ms:.3f} (-no-trapezoid, same seed, "
+        f"bit-equal: {bad[1]} cells differ); launches {got}; one group "
+        f"{ms:.3f} ms (CUDA events; passes {[round(x, 3) for x in pass_ms]}"
+        f" ms/launch), bound {bound_ms:.3f} ms ({bound_by}: {nbytes / npts:.1f}"
+        f" B/pt per group), share {bound_ms / ms:.3f} per group, "
+        f"{bound_ms / K / step_ms:.3f} per step; {tr['sub_stages']} "
+        f"sub-stages, {tr['buffers']} level buffers, block {tr['block']}, "
+        f"passes {[(p['tile'], p['smem_buffers'], p['ws_buffers'], p['ws_block_bytes']) for p in tr['passes']]}, "
+        f"workspace of {nres} resident blocks; plain {plain_ms:.3f} "
+        f"ms/group (not a yardstick); a group vs plain max|d|={err:.3e} "
+        f"({nbits} cells differ in their bits); the auto gate: "
+        f"{[(x['code'], x.get('detail', x.get('cause', ''))) for x in auto[:1]]}; "
+        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
+        f"(both contexts) [{card}]")
+    del ctxs, ctx, kern, state, ins
+    torch.cuda.empty_cache()
+    return {"name": f"trapezoid_chunk ({label}, {g}^3, K={K})",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (trapezoid arm"
+                        " with the stage loop :2058-2188)",
+            "launches": got["trapezoid_phase1"] + got["trapezoid_diamond"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"group of {K} steps ({len(pass_ms)} launches)",
+            "step_ms": step_ms, "twin": arm, "twin_step_ms": twin_ms,
+            "pass_ms": pass_ms, "auto_gate": auto[:1]}
+
+
+def phase14c(fac, env, card: str, nm: int = 8, g: int = 256,
+             nses: int = 4, gs: int = 128) -> dict:
+    """Phase 14 (c): an ``EnsembleRun`` of ``nm`` members of iso3dfd r=2
+    at ``g``³, ``-wf_steps 4 -trapezoid`` (forced where the gate rejects
+    it), each member seeded on the card: 2 groups with the counters zeroed
+    just before (K4's member batch alone launches, once per pass and
+    group), each member bit-equal to its solo K4 run; the batched group
+    timed against ``nm`` solo groups and its bound; then a
+    ``StencilServer`` batch of ``nses`` fused tti r=2 sessions at ``gs``³
+    under ``-trapezoid`` (K4 forced on the profile's context): all ok and
+    batched, K4's member batch alone, each member bit-identical to its
+    solo run.  Returns the ``kernels`` entry."""
+    import tempfile
+    import numpy as np
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (
+        batched_trapezoid_chunk, plain_batched_chunk, trapezoid_chunk)
+    from yask_tpu_torch.serve import StencilServer
+    from yask_tpu_torch.serve.scheduler import extract_outputs
+    K, steps = 4, 8
+    ctx = k4_ctx(fac, env, "iso3dfd", 2, 4, (g, g, g), "fused", K,
+                 "-trapezoid")
+    how = "auto"
+    if ctx._trapezoid_kernel() is None:
+        ctx._trapezoid_arg = lambda: True
+        ctx._trap = None
+        how = "forced"
+    ens = ctx.new_ensemble(nm)
+    for i in range(nm):
+        with ens.member(i) as c:
+            seed_device(c, 300 + i)
+    zero_launch_counts()
+    ens.run(0, steps - 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    ng = steps // K
+    if got != {"batched_trapezoid_phase1": ng,
+               "batched_trapezoid_diamond": 2 * ng}:
+        raise RuntimeError(f"phase 14: ensemble: launches {got}")
+    solo = k4_ctx(fac, env, "iso3dfd", 2, 4, (g, g, g), "fused", K,
+                  "-trapezoid", force=True)
+    for i in range(nm):
+        seed_device(solo, 300 + i)
+        solo.run_solution(0, steps - 1)
+        with ens.member(i) as c:
+            bad = device_diff(c, solo, exact=True)
+        if bad[1]:
+            raise RuntimeError(f"phase 14: member {i} differs from its "
+                               f"solo K4 run in {bad[1]} cells")
+    kern = ctx._trapezoid_kernel()
+    st = ens._stack_states()
+    ms = cuda_ms(lambda: batched_trapezoid_chunk(kern, st, steps, K, nm), 3)
+    solo_ms = cuda_ms(lambda: trapezoid_chunk(kern, solo._state, steps, K),
+                      3)
+    plain_ms = cuda_ms(lambda: plain_batched_chunk(kern.program, st, steps,
+                                                   K, nm), 1)
+    a = kern.batched_chunk(dict(st), steps, K, nm)
+    b = plain_batched_chunk(kern.program, dict(st), steps, K, nm)
+    err = max(float((x - y).abs().max()) for n in set(kern.spec.outputs)
+              for x, y in zip(a[n][-2:], b[n][-2:]))
+    scale = max(float(y.abs().max()) for n in b for y in b[n])
+    del a, b, st
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 14: the member batch disagrees with "
+                           "its plain version")
+    bound_ms, bound_by, nbytes = k4_bound(ctx, kern.spec)
+    bound_ms *= nm
+    log(f"phase 14: EnsembleRun {nm} x iso3dfd r=2 {g}^3 -wf_steps {K} "
+        f"-trapezoid ({how}): {steps} steps, launches {got}; every member "
+        f"bit-equal to its solo K4 run; one batched group {ms:.3f} ms "
+        f"(CUDA events) against {nm} x {solo_ms:.3f} ms solo, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f}; plain "
+        f"{plain_ms:.3f} ms; vs plain max|d|={err:.3e} [{card}]")
+    del ctx, ens, solo, kern
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="yt_chip_smoke_")
+    srv = StencilServer(env, journal_path=os.path.join(tmp, "SERVE.jsonl"),
+                        window_secs=0.05, max_batch=nses)
+    sk = 4
+    try:
+        sids = [srv.open_session(stencil="tti", radius=2, g=gs,
+                                 mode="fused", wf=2, options="-trapezoid",
+                                 bucket=False) for _ in range(nses)]
+        with srv.scheduler.session_ctx(sids[0]) as c:
+            c._trapezoid_arg = lambda: True
+            c._trap = None
+        for i, sid in enumerate(sids):
+            with srv.scheduler.session_ctx(sid) as c:
+                slices = list(physical_slices(c, 400 + i))
+            for name, vals, first, last in slices:
+                srv.set_var_slice(sid, name, vals, first, last)
+        zero_launch_counts()
+        handles = [srv.submit_run(sid, 0, sk - 1) for sid in sids]
+        resps = [srv.wait(h, timeout=600) for h in handles]
+        sgot = {k: v for k, v in launch_counts().items() if v}
+        for r in resps:
+            if not (r.ok and r.batched and r.batch == nses
+                    and not r.degraded):
+                raise RuntimeError(
+                    f"phase 14: served tti {r.rid}: status {r.status}, "
+                    f"batch {r.batch}, batched {r.batched}, error "
+                    f"{r.error!r}")
+        if sgot != {"batched_trapezoid_phase1": sk // 2,
+                    "batched_trapezoid_diamond": sk}:
+            raise RuntimeError(f"phase 14: served tti: launches {sgot}")
+        alone = k4_ctx(fac, env, "tti", 2, 4, (gs, gs, gs), "fused", 2,
+                       "-trapezoid", force=True)
+        for i, r in enumerate(resps):
+            seed_physical(alone, 400 + i)
+            alone.run_solution(0, sk - 1)
+            want = extract_outputs(alone)
+            d = max(float(np.abs(want[n].astype(np.float64)
+                                 - r.outputs[n]).max()) for n in want)
+            if d != 0.0:
+                raise RuntimeError(f"phase 14: served tti member {i} is "
+                                   f"not bit-identical to its solo run "
+                                   f"(max|d|={d:.3e})")
+        log(f"phase 14: StencilServer, {nses} fused tti r=2 sessions at "
+            f"{gs}^3 -trapezoid (K4 forced), {sk} steps: all ok, batched "
+            f"at occupancy {nses}; launches {sgot}; every member "
+            f"bit-identical to its solo K4 run [{card}]")
+    finally:
+        srv.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"name": f"batched_trapezoid_chunk ({nm} x iso3dfd r=2 {g}^3, "
+                    f"K={K})", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+            "replaces": "yask_tpu/runtime/ensemble.py:253-263 (the vmapped "
+                        "trapezoid chunk of pallas_stencil.py:2312)",
+            "launches": got["batched_trapezoid_phase1"]
+            + got["batched_trapezoid_diamond"] + sum(sgot.values()),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"group of {K} steps of {nm} members (3 launches)",
+            "solo_ms": solo_ms, "trapezoid": how}
+
+
+def phase14(fac, env, card: str) -> list:
+    """Phase 14 (see the module docstring); returns the ``kernels``
+    entries."""
+    import torch
+    t0 = time.perf_counter()
+    rows = phase14a(fac, env, card)
+    entries = [{
+        "name": "trapezoid_chunk (phase 14 (a) arms: stages, scratch, "
+                "rewrite, misc, bf16)",
+        "route": "cuda", "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+        "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (trapezoid arm "
+                    "with the stage loop :2058-2188)",
+        "launches": sum(row[6] for row in rows),
+        "max_abs_err": max(row[5] for row in rows),
+        "ms": sum(row[1] for row in rows),
+        "plain_ms": sum(row[2] for row in rows),
+        "bound_ms": sum(row[3] for row in rows),
+        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
+        else "operations", "library_ms": None,
+        "per": "sum over the arms of one group each: "
+               + ", ".join(row[0] for row in rows)}]
+    torch.cuda.empty_cache()
+    for case in K4_FULL:
+        entries.append(phase14b(fac, env, card, *case))
+    entries.append(phase14c(fac, env, card))
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> None:
     """Build every kernel of the path, one ``nvcc`` per source, all
     started together (``cases``: phase 2's solutions and radii)."""
@@ -3504,14 +4034,18 @@ def phase1(fac, env, cases: dict) -> None:
     specs.update(a3b_specs(fac, env))
     specs.update(k7_specs(fac, env))
     specs.update(k5_specs(fac))
+    specs.update(k4_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
     build_secs = time.perf_counter() - t0
     for st, s in specs.items():
-        entries = (f"entry {s.name} (K4: trapezoid_kernel, then "
-                   f"diamond_kernel per dim; passes "
-                   f"{[(pp['tile'], pp['smem_bytes']) for pp in s.trap['passes']]})"
+        entries = (f"entries {s.name} (K4: trapezoid_kernel, then "
+                   f"diamond_kernel per dim; {s.trap['sub_stages']} "
+                   f"sub-stage(s) per level; passes (tile, smem B, workspace"
+                   f" B per block) "
+                   f"{[(pp['tile'], pp['smem_bytes'], pp['ws_block_bytes']) for pp in s.trap['passes']]})"
+                   ", _trap_batched (K7 over K4)"
                    if s.trap else
                    f"entries {s.name} (K1), _batched (K7), _region (K5)"
                    + (f", _stream (stream arm: {s.stream.record()})"
@@ -3577,12 +4111,14 @@ def main() -> int:
     k7_arms = phase12(fac, env, card, solo, k6)
     torch.cuda.empty_cache()
     k5_arms = phase13(fac, card)
+    torch.cuda.empty_cache()
+    k4_arms = phase14(fac, env, card)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
-                      + k5_arms}))
+                      + k5_arms + k4_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -253,7 +253,7 @@ def test_4d_trapezoid_falls_back_and_k5_k7_refuse():
     assert ctx._trapezoid_kernel() is None
     fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
     assert fb and "4-D" in fb[0]["cause"] \
-        and "A12 (A3 arms on K4)" in fb[0]["cause"]
+        and "A12 (4-D K4)" in fb[0]["cause"]
     # what this test pinned before K5 took the A3 arms (the refusal "4-D
     # ... ROADMAP.md A11 (A3 arms on K5)") is gone: shard_pallas runs
     # test_4d with the outer dim w sharded, bit-equal to shard_map

@@ -362,7 +362,9 @@ def test_bf16_refuses_k5_k7_and_falls_back_from_k4():
     """What this test pinned before K5 took the A3 arms (the refusal
     "element size 2 ... ROADMAP.md A11 (A3 arms on K5)") is gone:
     shard_pallas runs iso3dfd in bfloat16, bit-equal to shard_map; K7
-    takes element size 2 and K4 still falls back."""
+    takes element size 2; what it pinned of K4 (the fallback naming
+    ROADMAP.md A12 (A3 arms on K4)) is gone too: K4 runs in bfloat16,
+    bit-equal to the K1 path."""
     from test_torch_k5_arms import shard_pallas_matches_shard_map
     outs = shard_pallas_matches_shard_map(
         lambda: bf16_source("yask_tpu_torch", "iso3dfd", 2),
@@ -373,13 +375,18 @@ def test_bf16_refuses_k5_k7_and_falls_back_from_k4():
     # batch bit-equal to its solo run
     members_match_solo(lambda: port_ctx("iso3dfd", 2, "-g 16 -mode fused "
                                         "-wf_steps 2 -ensemble 2"))
-    ctx = port_ctx("iso3dfd", 2, "-g 24 -mode fused -wf_steps 4 -trapezoid")
-    import_interiors(ctx, seeded_interiors(ctx, 3))
-    ctx.run_solution(0, 3)
-    assert ctx._trapezoid_kernel() is None
-    fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert fb and "element size 2" in fb[0]["cause"] \
-        and "A12 (A3 arms on K4)" in fb[0]["cause"]
+    ctxs = {}
+    for cli in ("-trapezoid", "-no-trapezoid"):
+        ctx = port_ctx("iso3dfd", 2, "-g 24 -mode fused -wf_steps 4 " + cli)
+        if cli == "-trapezoid":
+            ctx._trapezoid_arg = lambda: True
+        import_interiors(ctx, seeded_interiors(ctx, 3))
+        ctx.run_solution(0, 3)
+        ctxs[cli] = ctx
+    spec = ctxs["-trapezoid"]._trapezoid_kernel().spec
+    assert "typedef yt::bf16_t real_t;" in spec.source
+    assert ctxs["-trapezoid"].compare_data(
+        ctxs["-no-trapezoid"], epsilon=0.0, abs_epsilon=0.0) == 0
 
 
 def test_transfer_carries_bf16_interiors_both_ways():

@@ -88,6 +88,20 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= int(sizeof(yt_smem_raw)) ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+// the resident-block query of K4's workspace passes: one SM holding one
+// block
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1;
+  return 0;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          int) {
+  *n = 1;
+  return 0;
+}
 // cp.async, deferred: a copy leaves its destination undefined (NaN) from
 // its issue until a wait_group of the issuing thread completes its group,
 // the weakest order the card guarantees.  A copy whose source or
@@ -193,8 +207,10 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
         region_argtypes() if entry.endswith("_region") else
         fused_stencil.batched_argtypes() if entry.endswith("_batched") else
         fused_stencil.stream_argtypes() if entry.endswith("_stream") else
-        ([ctypes.c_int] if spec.trap else [])
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        fused_stencil.trap_batched_argtypes()
+        if entry.endswith("_trap_batched") else
+        fused_stencil.trapezoid_argtypes() if spec.trap else
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 

@@ -214,18 +214,27 @@ def test_misc_index_outside_its_equation_raises():
 
 
 def test_misc_solutions_take_no_stream_arm_and_no_k4():
+    """The stream arm still leaves misc dims to K1 (A5).  What this test
+    pinned of K4 before it took the misc arm (the fallback naming
+    ROADMAP.md A12 (A3 arms on K4)) is gone: a forced request runs the
+    groups on K4, each misc slice an entry of its own, bit-equal to the
+    K1 path."""
     ctx = port_ctx("test_misc_2d", None,
-                   "-g 24 -mode fused -wf_steps 2 -trapezoid")
+                   "-g 24 -mode fused -wf_steps 2 -no-trapezoid")
     import_interiors(ctx, seeded_interiors(ctx, 3))
     ctx.run_solution(0, 1)
     til = ctx.get_stats().get_tiling()
     assert til["kernel"] == "fused_step" and til["skew_dims"] == []
     assert {r["code"] for r in til["skew_reasons"]} == {"skew_ineligible"}
-    fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert fb and "misc-dim vars" in fb[0]["cause"] \
-        and "ROADMAP.md A12 (A3 arms on K4)" in fb[0]["cause"]
-    with pytest.raises(YaskException, match="A12 \\(A3 arms on K4\\)"):
-        cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    k4 = port_ctx("test_misc_2d", None,
+                  "-g 24 -mode fused -wf_steps 2 -trapezoid")
+    k4._trapezoid_arg = lambda: True
+    import_interiors(k4, seeded_interiors(k4, 3))
+    k4.run_solution(0, 1)
+    spec = k4._trapezoid_kernel().spec
+    assert any(spec.in_misc) and spec.base_outputs == ["A"]
+    assert k4.get_stats().get_tiling()["trapezoid"] is True
+    assert k4.compare_data(ctx, epsilon=0.0, abs_epsilon=0.0) == 0
 
 
 def test_k5_and_k7_refuse_the_misc_arm():

@@ -154,17 +154,18 @@ def test_same_step_reads_of_a_partial_var_ride_its_tile():
 
 
 def test_partial_written_takes_no_stream_arm_and_no_k4():
-    """partial_written_cond is one stage: K4 falls back to K1 naming its
-    A12 item, a forced request raises; the stream arm is 3-D only."""
+    """partial_written_cond writes a var lacking a domain dim, which the
+    reference's trapezoid does not take (``skew_eligible_dims``): K4
+    records every dim ineligible and runs K1, a forced request raises the
+    reference's message; the stream arm is 3-D only."""
     ctx = port_ctx("partial_written_cond",
                    "-g 24 -mode fused -wf_steps 2 -trapezoid")
     import_interiors(ctx, seeded_interiors(ctx, 3))
     ctx.run_solution(0, 1)
     assert ctx._trapezoid_kernel() is None
-    fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert fb and "partial-dim written vars" in fb[0]["cause"] \
-        and "A12 (A3 arms on K4)" in fb[0]["cause"]
-    with pytest.raises(YaskException, match="A12 \\(A3 arms on K4\\)"):
+    assert {r["code"] for r in ctx._trap[1]} == {"trapezoid_ineligible"}
+    assert "partial-dim written vars" in ctx._trap[1][0]["detail"]
+    with pytest.raises(YaskException, match="all written vars spanning"):
         cuda_emit.resolve_trapezoid(ctx._program, 2, True)
     why = {r["code"] for r in ctx._fused_spec_kernel().skew_reasons}
     assert why == {"skew_ineligible"}

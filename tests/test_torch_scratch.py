@@ -242,15 +242,22 @@ def test_stream_arm_leaves_scratch_to_k6():
 
 
 def test_trapezoid_falls_back_to_k6_for_scratch():
-    ctx = port_ctx("tti", 2, "-g 16 -mode fused -wf_steps 2 -trapezoid")
-    import_interiors(ctx, seeded_interiors(ctx, 3))
-    ctx.run_solution(0, 1)
-    assert ctx._trapezoid_kernel() is None
-    codes = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert codes and "scratch" in codes[0]["cause"] \
-        and "A12" in codes[0]["cause"]
-    with pytest.raises(YaskException, match="scratch.*A12"):
-        cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    """What this test pinned before K4 took scratch vars (the fallback to
+    K6 naming ROADMAP.md A12) is gone: a forced request runs tti's groups
+    on K4, its scratch sub-stages inside each level, bit-equal to K6."""
+    ctxs = {}
+    for cli in ("-trapezoid", "-no-trapezoid"):
+        ctx = port_ctx("tti", 2, f"-g 20 -mode fused -wf_steps 2 {cli}")
+        if cli == "-trapezoid":
+            ctx._trapezoid_arg = lambda: True
+        import_interiors(ctx, seeded_interiors(ctx, 3))
+        ctx.run_solution(0, 3)
+        ctxs[cli] = ctx
+    spec = ctxs["-trapezoid"]._trapezoid_kernel().spec
+    assert spec.scratch_stages == 2 and spec.trap["scratch_stages"] == 2
+    assert ctxs["-no-trapezoid"]._trapezoid_kernel() is None
+    assert ctxs["-trapezoid"].compare_data(
+        ctxs["-no-trapezoid"], epsilon=0.0, abs_epsilon=0.0) == 0
 
 
 def test_k5_and_k7_refuse_scratch_naming_their_items():

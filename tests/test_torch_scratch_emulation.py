@@ -118,3 +118,22 @@ def test_emulation_fails_with_one_tile_for_a_rewrite(tmp_path):
     got, _h, _w = next(run_both(ctx, bad, emu, host, steps=1))
     assert not torch.equal(got[0][ctx._interior_idx("a")],
                            want[0][ctx._interior_idx("a")])
+
+
+def test_ssg_r4_runs_on_the_ladders_last_rungs_when_emulated(tmp_path):
+    """ROADMAP.md C17: ssg r=4's tiles fit no rung down to 1×1×32 (251084
+    B); the 1×1×16 rung (16 threads a block) takes them, and the emulated
+    K6 matches the g++ host path and the plain version to the bit, every
+    interior cell written and the pads untouched."""
+    import torch
+    ctx = port_ctx("ssg", 4, "-g_x 5 -g_y 4 -g_z 37 -mode fused")
+    with_pads(ctx, 21)
+    spec = cuda_emit.emit(ctx._program)
+    assert spec.tile == (1, 1, 16) and spec.smem_bytes <= cuda_emit.SMEM_LIMIT
+    emu = emulated_kernel(spec, build_dir(tmp_path, "emu"))
+    host = host_kernel(spec, tmp_path)
+    for got, host_out, want in run_both(ctx, spec, emu, host):
+        for n, a, b, w in zip(spec.outputs, got, host_out, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+            idx = ctx._interior_idx(n)
+            torch.testing.assert_close(a[idx], w[idx], rtol=0, atol=0)

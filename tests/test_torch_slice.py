@@ -138,12 +138,7 @@ def test_var_api_round_trip_and_pads():
                  id="-mode shard_pallas-A11"),
     ("-auto_tune", "A6"),
     ("-ckpt_every 2", "A10"), ("-watchdog_every 2", "A10"),
-    ("-run_deadline 5", "A10"),
-    # -trapezoid is carried (K4); what stays of A12 is K4 in a member batch
-    # (push in a member batch is carried: the batch runs unpushed, as the
-    # reference's does; tests/test_torch_k7_arms.py)
-    pytest.param("-trapezoid -mode fused -ensemble 2", "A12",
-                 id="-trapezoid-A12")])
+    ("-run_deadline 5", "A10")])
 def test_settings_not_carried_raise_with_their_roadmap_item(opts, item):
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="3axis",
@@ -151,6 +146,19 @@ def test_settings_not_carried_raise_with_their_roadmap_item(opts, item):
     ctx.apply_command_line_options(f"-g 8 {opts}")
     with pytest.raises(YaskException, match=f"ROADMAP.md {item}"):
         ctx.prepare_solution()
+
+
+def test_trapezoid_in_a_member_batch_is_carried():
+    """-trapezoid with -ensemble (K4's member batch) prepares and runs, as
+    push in a member batch does (the batch runs unpushed, as the
+    reference's does; tests/test_torch_k7_arms.py)."""
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="3axis",
+                           radius=1)
+    ctx.apply_command_line_options("-g 8 -trapezoid -mode fused -ensemble 2")
+    ctx.prepare_solution()
+    ens = ctx.new_ensemble(2)
+    ens.run(0, 1)
 
 
 def test_trace_dir_and_tuner_raise_with_their_roadmap_item():

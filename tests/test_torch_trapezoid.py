@@ -85,13 +85,16 @@ def tpu_ctx(stencil, radius, g, mode="pallas", K=2, trap=True):
 # ---------------------------------------------------------------------------
 
 PLANS = [("iso3dfd", 8, 2, 48), ("cube", 1, 4, 48), ("iso3dfd", 2, 3, 48),
-         ("iso3dfd", 2, 4, 48)]
+         ("iso3dfd", 2, 4, 48), ("ssg", 4, 2, 48), ("tti", 2, 2, 48),
+         ("awp", None, 2, 48), ("gaussian", 2, 2, 48)]
 
 
 @pytest.mark.parametrize("stencil,r,K,g", PLANS)
 def test_tileplan_unit8_matches_yask_tpu(stencil, r, K, g):
     """Exact: every geometry answer for the uniform, the two-dim and the
-    one-dim trapezoid plans, volumes at three blocks."""
+    one-dim trapezoid plans, volumes at three blocks, and the per-stage
+    widths and windows of the multi-stage ones (ssg, tti's scratch chain,
+    awp's four stages, gaussian's three)."""
     from yask_tpu.ops.tile_planner import TilePlan as TpuPlan
     mine = port_ctx(stencil, r, g, "torch", K)._program
     theirs = tpu_ctx(stencil, r, g, "jit", K, trap=False)._program
@@ -109,11 +112,17 @@ def test_tileplan_unit8_matches_yask_tpu(stencil, r, K, g):
             for lvl in range(1, K + 1):
                 assert a.cl(d, lvl) == b.cl(d, lvl)
                 assert a.write_shrink(d, lvl) == b.write_shrink(d, lvl)
+        assert a.stage_widths() == b.stage_widths()
         for blk in (8, 16, 24):
             block = {d: blk for d in lead}
             assert a.volumes(block) == b.volumes(block)
             for x, y in zip(a.dataflow(block), b.dataflow(block)):
                 assert (x["read"], x["write"]) == (y["read"], y["write"])
+            assert a.stage_flow(block) == b.stage_flow(block)
+            for lvl in a.stage_flow(block):
+                st = lvl["stages"]
+                for s0, s1 in zip(st, st[1:]):
+                    assert s1["read"] == s0["write"]
 
 
 @pytest.mark.parametrize("stencil,r,K,g", PLANS + [("iso3dfd", 2, 1, 16),
@@ -206,8 +215,7 @@ def host_trapezoid(spec, tmp_path):
                     CSRC, "-o", str(so), str(src)], check=True,
                    capture_output=True, timeout=300)
     fn = getattr(ctypes.CDLL(str(so)), spec.name)
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = fused_stencil.trapezoid_argtypes()
     fn.restype = ctypes.c_int
     return fn
 
@@ -217,7 +225,10 @@ def host_trapezoid(spec, tmp_path):
     ("cube", 1, (24, 24, 19), 4, ""), ("3axis", 1, (30, 18, 9), 2, ""),
     ("iso3dfd_sponge", 2, (24, 24, 13), 2, ""),
     ("wave2d", 8, (96, 37), 2, "-b_x 24"),
-    ("iso3dfd", 2, (48, 48, 21), 4, "-b_x 16 -b_y 48")])
+    ("iso3dfd", 2, (48, 48, 21), 4, "-b_x 16 -b_y 48"),
+    # several stages, the level buffers past shared memory in the
+    # workspace (the other new arms: tests/test_torch_k4_host.py)
+    ("ssg", None, (18, 18, 9), 2, "")])
 def test_k4_host_path_bit_equals_plain(stencil, r, g, K, cli, tmp_path):
     import torch
     ctx = port_ctx(stencil, r, g, "fused", K, f"-trapezoid {cli}",
@@ -365,15 +376,27 @@ def test_ineligible_and_off_record_their_codes():
 
 
 def test_r8_flagship_falls_back_in_auto_and_raises_forced():
-    """iso3dfd r=8 K=2: no phase-1 tile fits shared memory; auto records
-    why and runs K1, forced raises: no spilling kernel is built."""
+    """iso3dfd r=8 K=2: no phase-1 tile fits shared memory.  What this
+    test pinned before K4 had a workspace (auto fell back to K1, forced
+    raised) is gone: the level buffers past shared memory go to the
+    workspace, so the gate's choice stands (it engages: the port has no
+    skew variant to prefer, ROADMAP.md C7) and a forced request builds
+    the same plan, as the reference's forced request runs it.  K1 stays
+    the path of ``-no-trapezoid``."""
     ctx = port_ctx("iso3dfd", 8, 48, "fused", 2, "-trapezoid")
-    assert ctx._trapezoid_kernel() is None
-    assert set(codes(ctx._trap[1])) & {"trapezoid_gate_rejected",
-                                       "trapezoid_fallback"}
+    trap = ctx._trapezoid_kernel()
+    assert trap is not None
+    assert codes(ctx._trap[1]) == ["trapezoid_engaged"] * 2 \
+        + ["trapezoid_diamond"] * 2
+    p1 = trap.spec.trap["passes"][0]
+    assert p1["ws_buffers"] > 0 and p1["smem_bytes"] <= cuda_emit.SMEM_LIMIT
     ctx.run_solution(0, 2)
-    with pytest.raises(YaskException, match="shared memory"):
-        cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    assert ctx.get_stats().get_tiling()["ws_block_bytes"] > 0
+    forced = cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    assert forced.name == trap.spec.name
+    off = port_ctx("iso3dfd", 8, 48, "fused", 2, "-no-trapezoid")
+    off.run_solution(0, 2)
+    assert off.get_stats().get_tiling()["trapezoid"] is False
 
 
 def test_band_floor_falls_back_and_raises_when_forced():
@@ -412,35 +435,75 @@ def test_fallback_without_pads_and_raise_when_forced():
 
 
 def test_multi_stage_falls_back_naming_a12():
+    """What this test pinned before K4 took several stages (the fallback
+    naming ROADMAP.md A12 (multi-stage K4)) is gone: the merged RTM chain
+    runs its groups on K4, each level running K6's three stages, and
+    matches the K6 path (-no-trapezoid) to the bit; a forced request
+    builds the same plan."""
     from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
-    pipe = SolutionPipeline(yask_tpu_torch.yk_factory().new_env(
-        device="cpu"), *rtm_chain(radius=2, accumulate=False))
-    pipe.apply_command_line_options("-g 16 -mode fused -wf_steps 2 "
-                                    "-trapezoid")
-    pipe.prepare(fuse=True)
-    pipe.run(0, 3)
-    ctx = pipe.fused_ctx
-    assert ctx._trapezoid_kernel() is None
-    (rec,) = ctx._trap[1]
-    assert rec["code"] == "trapezoid_fallback"
-    assert "ROADMAP.md A12 (multi-stage K4)" in rec["cause"]
-    with pytest.raises(YaskException, match="multi-stage K4"):
-        cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    from test_torch_pipeline import observable, seed_chain
+    outs = {}
+    for cli in ("-trapezoid", "-no-trapezoid"):
+        pipe = SolutionPipeline(yask_tpu_torch.yk_factory().new_env(
+            device="cpu"), *rtm_chain(radius=2, accumulate=False))
+        pipe.apply_command_line_options(f"-g 16 -mode fused -wf_steps 2 "
+                                        f"{cli}")
+        pipe.prepare(fuse=True)
+        ctx = pipe.fused_ctx
+        if cli == "-trapezoid":
+            force(ctx)
+        seed_chain(pipe, (16, 16, 16))
+        pipe.run(0, 4)
+        outs[cli] = observable(pipe)
+        if cli == "-trapezoid":
+            spec = ctx._trapezoid_kernel().spec
+            assert spec.stages == 3 and spec.trap["sub_stages"] == 3
+            assert codes(ctx._trap[1]) == ["trapezoid_forced"] \
+                + ["trapezoid_diamond"] * 2
+            til = ctx.get_stats().get_tiling()
+            assert til["trapezoid"] is True and til["sub_stages"] == 3
+            assert cuda_emit.resolve_trapezoid(ctx._program, 2,
+                                               True).name == spec.name
+        else:
+            assert ctx._trapezoid_kernel() is None
+    assert mismatches(outs["-trapezoid"], outs["-no-trapezoid"],
+                      epsilon=0.0, abs_epsilon=0.0) == 0
 
 
 def test_batched_k4_raises_naming_a12(tmp_path):
-    ctx = port_ctx("iso3dfd", 2, 16, "fused", 2, "-trapezoid")
-    with pytest.raises(YaskException, match=r"A12 \(batched K4\)"):
-        ctx.new_ensemble(2)
+    """What this test pinned before K4 took member batches (the refusal
+    naming ROADMAP.md A12 (batched K4)) is gone: an ensemble under
+    -trapezoid runs each group on K4's member batch and every member is
+    bit-equal to its solo run; a served -trapezoid session batches."""
+    from test_torch_ensemble import members_match_solo
+    ens = members_match_solo(lambda: force(port_ctx(
+        "iso3dfd", 2, 16, "fused", 2, "-trapezoid")), n=3, steps=5)
+    assert ens.tiling["kernel"] == "batched_trapezoid_chunk"
     from yask_tpu_torch.serve import StencilServer
+    from yask_tpu_torch.serve.scheduler import extract_outputs
+    from test_torch_serve import assert_same, seed
     srv = StencilServer(yask_tpu_torch.yk_factory().new_env(device="cpu"),
                         journal_path=str(tmp_path / "SERVE.jsonl"),
-                        preflight=False)
+                        preflight=False, window_secs=0.05)
     try:
-        with pytest.raises(YaskException, match=r"A12 \(batched K4\)"):
-            srv.open_session(stencil="iso3dfd", radius=2, g=16,
-                             mode="fused", wf=2, options="-trapezoid",
-                             bucket=False)
+        sids = []
+        for i in range(2):
+            # iso3dfd r=2 K=4 at 48: the gate engages K4 on its own
+            sids.append(srv.open_session(stencil="iso3dfd", radius=2, g=48,
+                                         mode="fused", wf=4,
+                                         options="-trapezoid", bucket=False))
+            with srv.scheduler.session_ctx(sids[-1]) as ctx:
+                seed(ctx, i, 48)
+        rids = [srv.submit_run(sid, 0, 3) for sid in sids]
+        resp = [srv.wait(r) for r in rids]
+        assert all(r.status == "ok" and r.batched for r in resp)
+        for i, sid in enumerate(sids):
+            alone = port_ctx("iso3dfd", 2, 48, "fused", 4, "-trapezoid")
+            seed(alone, i, 48)
+            alone.run_solution(0, 3)
+            with srv.scheduler.session_ctx(sid) as ctx:
+                assert ctx._trapezoid_kernel() is not None
+                assert_same(extract_outputs(ctx), extract_outputs(alone))
     finally:
         srv.shutdown()
 

@@ -4,31 +4,36 @@
 // Replaces the trapezoid arm of build_pallas_chunk
 // (yask_tpu/ops/pallas_stencil.py: resolution :812-930, phase-1 write
 // windows :1740-1752, diamond sub-builds :1514-1553, band windows
-// :1725-1739, host stitch :2372-2416; the geometry is
-// yask_tpu/ops/tile_planner.py::TilePlan).  It is the port's first kernel
-// that advances K time levels inside one launch: every other kernel does
-// one step per launch.
+// :1725-1739, the stage loop inside each level :2058-2188, host stitch
+// :2372-2416; the geometry is yask_tpu/ops/tile_planner.py::TilePlan,
+// its per-stage windows TilePlan.stage_flow), and the member batch the
+// reference vmaps over it (yask_tpu/runtime/ensemble.py:253-263).  It is
+// the port's one kernel that advances K time levels inside one launch:
+// every other kernel does one step per launch.
 //
 // What bounds it on an H100: bytes, if the recompute stays cheap.  For
 // iso3dfd r=2 at K=4 a group reads p(t), p(t-1) and vel once and writes
 // the two newest levels: 20 B per point per 4 steps (5 B/pt/step) against
 // K1's 16 B/pt/step.  What the design does about it: the levels between
-// live only in shared memory.  The price is recompute, and in this first
-// cut it dominates: phase 1 recomputes the z margins (uniform, K·r per
-// side) and the diamonds recompute every band from level 0 with K·r
+// live only in the block's buffers.  The price is recompute, and in this
+// first cut it dominates: phase 1 recomputes the z margins (uniform, K·r
+// per side) and the diamonds recompute every band from level 0 with K·r
 // margins, 4.1x the useful cells at 512^3, so K4 runs at the rate its
 // cells are computed, not at its bound (PERF.md; ROADMAP.md A5 streams z).
+// A multi-stage or scratch solution (TTI, SSG, AWP, the RTM chain) needs
+// more buffers than shared memory holds at any tile the band floor
+// allows; the rest live in a workspace in device memory (below).
 //
 // Design (a first cut that is simple and right), one template for both
 // phases, instantiated per pass P (compile-time tables of the emitted
 // Spec, ops/cuda_emit.py::emit_trapezoid):
-//   * pass 0, trapezoid_kernel<S>: one block per output tile.  In a
-//     trapezoid dim (x and y of a 3-D solution) the tile stages one step
-//     radius r per side and level L is computed over the block shrunk by
-//     (L-1)·r per side; in a uniform dim (z, which the card must block too)
-//     it stages K·r per side and level L covers the block grown by
-//     (K-L)·r;
-//   * pass D >= 1, diamond_kernel<S, D>: the K-step kernel from the
+//   * pass 0, trapezoid_kernel<S, BATCH>: one output tile per block
+//     iteration.  In a trapezoid dim (x and y of a 3-D solution) the tile
+//     stages one fused step radius r per side and level L is computed over
+//     the block shrunk by (L-1)·r per side; in a uniform dim (z, which the
+//     card must block too) it stages K·r per side and level L covers the
+//     block grown by (K-L)·r;
+//   * pass D >= 1, diamond_kernel<S, D, BATCH>: the K-step kernel from the
 //     level-0 inputs whose grid walks every phase-1 tile boundary
 //     j·block[D], domain edges included, with band-wide tiles (2·cl(K))
 //     and K·r margins in D; level L writes [j·block - cl(L), j·block +
@@ -41,25 +46,58 @@
 //   * 1) stage: every input a level reads at a spatial offset (all ring
 //     slots of the written vars that the levels reach back to, and the
 //     read-only full-dim vars read at an offset) is copied into its
-//     shared-memory buffer over the tile's window.  Cells outside the
-//     domain are zero: in a trapezoid dim every window lies within
-//     trapezoid_pad_need of the domain (the block divides the span), whose
-//     pads the plan requires and which hold zero, so no bounds test there;
-//     in the other dims the cells outside the domain are set to 0;
-//   * 2) levels 1..K in order, each a loop of the block's threads over its
-//     region: a cell outside the domain is not computed and holds zero
-//     (the ghost-cell rule of K6), a cell inside runs Spec::point with
-//     reads mapped to level buffers (Spec::lvl_src); the result goes to
-//     the level's buffer and, inside the level's write window, to the
-//     output array of that level; __syncthreads between levels.  The
-//     levels of a written var live in a ring of its ring depth S buffers
-//     (level L replaces level L-S in place, each cell by the thread that
-//     reads it) when the oldest slot is read only at its own point, else
-//     S+1.
+//     buffer over the tile's window.  Cells outside the domain are zero:
+//     in a trapezoid dim every window lies within trapezoid_pad_need of
+//     the domain (the block divides the span), whose pads the plan
+//     requires and which hold zero, so no bounds test there; in the other
+//     dims the cells outside the domain are set to 0;
+//   * 2) levels 1..K in order; inside each, the sub-stages of K6
+//     (Spec::stage<Q>: a stage's scratch parts, one per write halo, then
+//     its other parts) in order, each a loop of the block's threads over
+//     its region: the level's region grown by what the later sub-stages
+//     read of it (sub_lo/sub_hi, K6's expansions, inside the level's
+//     TilePlan.stage_flow window), __syncthreads between sub-stages and
+//     between levels.  A cell outside the sub-stage's plain region (the
+//     domain, grown by a scratch var's write halo: clip_lo/clip_hi, K6's)
+//     is not computed and holds zero, the ghost-cell rule of K6; a cell
+//     inside runs the sub-stage's point function with reads mapped to
+//     level buffers (lvl_src: a ring slot of a written var at this level;
+//     cmp_buf: this level's value from an earlier sub-stage) or to global
+//     memory (lvl_in: an input, for a misc slice no equation writes the
+//     slot the level sees).  Each value, rounded once to real_t, goes to
+//     its buffer (st_buf) and, from the last sub-stage writing its slice
+//     and inside the level's write window, to the output of that level
+//     (st_out);
+//   * buffers: the levels of a written slice live in a ring of its ring
+//     depth S buffers (level L replaces level L-S in place, each cell by
+//     the thread that reads it) when the oldest slot is read only at its
+//     own point and only by the sub-stage that writes the slice, else
+//     S+1; a scratch var, and a slice a later sub-stage rewrites (AWP),
+//     get a buffer per writing sub-stage that a later one reads, as K6's
+//     tiles (a rewrite never writes what its neighbours still read);
+//   * where the buffers live: the first nsmem(P) in shared memory (as many
+//     as fit, the rings first), the rest in a workspace in device memory,
+//     nws(P) buffers per block.  A pass with a workspace runs a grid of at most
+//     the blocks the card holds at once (the wrapper's `nres`, from
+//     resident_blocks()), each walking tiles blockIdx.x, + gridDim.x, ...
+//     with its own slice of the workspace, so the workspace is bounded by
+//     the resident blocks, not by the grid; the walk is block-uniform, so
+//     every thread reaches every barrier.  A pass without one keeps one
+//     block per tile, its z cells (members x slot-0 tiles) walked in
+//     launches of at most YT_MAX_GRID_Z (launch_z);
+//   * BATCH = true (K7 over K4, a member batch): a tile belongs to one
+//     member, whose stride offsets its global reads and its stores only;
+//     its buffers and geometry are a solo tile's, so each member gets the
+//     bits of a solo group.  BATCH is a template parameter: the solo
+//     kernels compute no member offset.
+//
+// Element size 2: real_t (the buffers, as the reference's VMEM tiles) is
+// bf16_t; the point functions compute in float, one rounding per op, and
+// a stored value is rounded once (Calc), as K6 does.
 //
 // The same code runs on the host (no __CUDACC__) with one thread per
-// block, blocks in order and NaN-filled buffers: run_trapezoid's host path,
-// which the CPU tests build with g++.
+// block, tiles in order and NaN-filled buffers (the workspace ones too):
+// run_trapezoid's host path, which the CPU tests build with g++.
 #pragma once
 
 #include "fused_step.cuh"
@@ -74,6 +112,13 @@ namespace yt {
 #define YT_SYNC() ((void)0)
 #endif
 
+// K4's launch parameters: K1's, and the workspace (nws(P) buffers per
+// resident block of a pass whose buffers do not all fit shared memory).
+template <class S>
+struct TrapParams : ParamsOf<S> {
+  typename S::real_t* ws;
+};
+
 // Window extent (tile + margins) per slot, and elements per buffer.
 template <class S, int P>
 YT_HD constexpr int win(int s) {
@@ -84,31 +129,52 @@ YT_HD constexpr int buf_elems() {
   return win<S, P>(0) * win<S, P>(1) * win<S, P>(2);
 }
 
-// Reads of a point of level L: written vars and staged inputs from their
-// level buffers, the rest from global memory.
-template <class S, int P, int L>
+// Buffer b of pass P: the first nsmem(P) buffers live in shared memory,
+// the rest in the block's workspace.
+template <class S, int P>
+YT_HD inline typename S::real_t* buf_at(typename S::real_t* smem,
+                                        typename S::real_t* ws, int b) {
+  return b < S::nsmem(P) ? smem + b * buf_elems<S, P>()
+                         : ws + (b - S::nsmem(P)) * buf_elems<S, P>();
+}
+
+// Reads of a sub-stage point of level L: written vars and staged inputs
+// from their level buffers, this level's earlier values from the
+// buffers of their sub-stages, the rest from global memory (of member m
+// in a batch, BATCH; a solo tile's member is 0 at compile time).
+template <class S, int P, int L, bool BATCH>
 struct LevelReader {
   const ParamsOf<S>* p;
-  const typename S::real_t* smem;
+  typename S::real_t* smem;
+  typename S::real_t* ws;
+  int m;           // the member
   int w0, w1, w2;  // the point in window coordinates
-  int g0, g1, g2;  // the point in the interior
+  int g0, g1, g2;  // the point in the interior (may lie past the domain)
+  YT_HD int cell(int o0, int o1, int o2) const {
+    return ((w0 + o0) * win<S, P>(1) + (w1 + o1)) * win<S, P>(2) + (w2 + o2);
+  }
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int b = S::lvl_src(L, A);
     if constexpr (b >= 0) {
-      return smem[b * buf_elems<S, P>()
-                  + ((w0 + o0) * win<S, P>(1) + (w1 + o1)) * win<S, P>(2)
-                  + (w2 + o2)];
+      return buf_at<S, P>(smem, ws, b)[cell(o0, o1, o2)];
     } else {
-      return global_at<S>(*p, A, 0, 0, g0 + o0, g1 + o1, g2 + o2);
+      constexpr int a = S::lvl_in(L, A) >= 0 ? S::lvl_in(L, A) : A;
+      return global_at<S>(*p, a, BATCH ? m : 0, 0, g0 + o0, g1 + o1,
+                          g2 + o2);
     }
+  }
+  template <int B>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
+    return buf_at<S, P>(smem, ws, S::cmp_buf(L, B))[cell(o0, o1, o2)];
   }
 };
 
 // 1) stage the inputs over the window of the tile at origin b.
-template <class S, int P>
+template <class S, int P, bool BATCH>
 YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
-                        const int* b, int tid, int nt) {
+                        typename S::real_t* ws, const int* b, int m,
+                        int tid, int nt) {
   typedef typename S::real_t real_t;
   constexpr int W1 = win<S, P>(1), W2 = win<S, P>(2);
   constexpr int E = buf_elems<S, P>();
@@ -118,7 +184,7 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
 #pragma unroll
   for (int k = 0; k < S::NSTAGED; ++k) {
     const int a = S::staged_in(k);
-    real_t* dst = smem + S::staged_buf(k) * E;
+    real_t* dst = buf_at<S, P>(smem, ws, S::staged_buf(k));
     for (int base = tid; base < E; base += nt * U) {
       real_t v[U];
 #pragma unroll
@@ -132,7 +198,8 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
             && (S::trap_slot(0) || (c0 >= 0 && c0 < p.n[0]))
             && (S::trap_slot(1) || (c1 >= 0 && c1 < p.n[1]))
             && (S::trap_slot(2) || (c2 >= 0 && c2 < p.n[2]));
-        v[u] = in ? global_at<S>(p, a, 0, 0, c0, c1, c2) : real_t(0);
+        v[u] = in ? global_at<S>(p, a, BATCH ? m : 0, 0, c0, c1, c2)
+                  : real_t(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < U; ++u)
@@ -141,18 +208,55 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
   }
 }
 
-// 2) level L over its region, then the levels after it.
-template <class S, int P, int L>
-YT_HD void compute_level(const ParamsOf<S>& p, typename S::real_t* smem,
-                         const int* b, int tid, int nt) {
+// Value J.. of sub-stage Q's point at window cell c, rounded once: to its
+// buffer, and (wr: inside the level's write window and the domain) to its
+// output of level L.
+template <class S, int P, int L, int Q, int J, bool BATCH>
+YT_HD inline void store_vals(const ParamsOf<S>& p, typename S::real_t* smem,
+                             typename S::real_t* ws, const CalcOf<S>* v,
+                             int c, bool wr, int m, int g0, int g1, int g2) {
+  if constexpr (J < S::stage_nv(Q)) {
+    typedef typename S::real_t real_t;
+    constexpr int bb = S::st_buf(Q, J, L), o = S::st_out(Q, J, L);
+    const real_t x = Calc<real_t>::store(v[J]);
+    if constexpr (bb >= 0) buf_at<S, P>(smem, ws, bb)[c] = x;
+    if constexpr (o >= 0) {
+      if (wr)
+        p.out[o][cell_base<S>(p.n, BATCH ? m : 0, 0, p.out_ms[o],
+                              p.out_s[o])
+                 + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+                 + g2 * p.out_s[o][2]] = x;
+    }
+    store_vals<S, P, L, Q, J + 1, BATCH>(p, smem, ws, v, c, wr, m, g0, g1,
+                                         g2);
+  } else {
+    (void)p; (void)smem; (void)ws; (void)v; (void)c; (void)wr; (void)m;
+    (void)g0; (void)g1; (void)g2;
+  }
+}
+
+// 2) sub-stage Q of level L over its region, then the sub-stages and
+//    levels after it.
+template <class S, int P, int L, int Q, bool BATCH>
+YT_HD void compute_sub(const ParamsOf<S>& p, typename S::real_t* smem,
+                       typename S::real_t* ws, const int* b, int m, int tid,
+                       int nt) {
   typedef typename S::real_t real_t;
   constexpr int W1 = win<S, P>(1), W2 = win<S, P>(2);
-  constexpr int E = buf_elems<S, P>();
-  constexpr int lo0 = S::reg_lo(P, 0, L), lo1 = S::reg_lo(P, 1, L);
-  constexpr int lo2 = S::reg_lo(P, 2, L);
-  constexpr int R1 = S::reg_hi(P, 1, L) - lo1;
-  constexpr int R2 = S::reg_hi(P, 2, L) - lo2;
-  constexpr int cells = (S::reg_hi(P, 0, L) - lo0) * R1 * R2;
+  constexpr int lo0 = S::reg_lo(P, 0, L) - S::sub_lo(Q, 0);
+  constexpr int lo1 = S::reg_lo(P, 1, L) - S::sub_lo(Q, 1);
+  constexpr int lo2 = S::reg_lo(P, 2, L) - S::sub_lo(Q, 2);
+  constexpr int R1 = S::reg_hi(P, 1, L) + S::sub_hi(Q, 1) - lo1;
+  constexpr int R2 = S::reg_hi(P, 2, L) + S::sub_hi(Q, 2) - lo2;
+  constexpr int cells = (S::reg_hi(P, 0, L) + S::sub_hi(Q, 0) - lo0) * R1
+                        * R2;
+  constexpr int cl0 = S::clip_lo(Q, 0), cl1 = S::clip_lo(Q, 1);
+  constexpr int cl2 = S::clip_lo(Q, 2), ch0 = S::clip_hi(Q, 0);
+  constexpr int ch1 = S::clip_hi(Q, 1), ch2 = S::clip_hi(Q, 2);
+  constexpr int m0 = S::marg(P, 0), m1 = S::marg(P, 1), m2 = S::marg(P, 2);
+  constexpr int wl0 = S::wr_lo(P, 0, L), wh0 = S::wr_hi(P, 0, L);
+  constexpr int wl1 = S::wr_lo(P, 1, L), wh1 = S::wr_hi(P, 1, L);
+  constexpr int wl2 = S::wr_lo(P, 2, L), wh2 = S::wr_hi(P, 2, L);
   const int t = p.t + (L - 1) * S::STEP_DIR;
   for (int i = tid; i < cells; i += nt) {
     const int l2 = lo2 + i % R2;
@@ -160,140 +264,272 @@ YT_HD void compute_level(const ParamsOf<S>& p, typename S::real_t* smem,
     const int l1 = lo1 + r % R1;
     const int l0 = lo0 + r / R1;
     const int g0 = b[0] + l0, g1 = b[1] + l1, g2 = b[2] + l2;
-    const bool inside = g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
-                        && g2 >= 0 && g2 < p.n[2];
-    const int w0 = l0 + S::marg(P, 0), w1 = l1 + S::marg(P, 1);
-    const int w2 = l2 + S::marg(P, 2);
-    real_t v[S::NV];
+    // the plain version's region of the sub-stage: the domain, grown by a
+    // scratch var's write halo
+    const bool inside = g0 >= -cl0 && g0 < p.n[0] + ch0 && g1 >= -cl1
+                        && g1 < p.n[1] + ch1 && g2 >= -cl2
+                        && g2 < p.n[2] + ch2;
+    const int w0 = l0 + m0, w1 = l1 + m1, w2 = l2 + m2;
+    CalcOf<S> v[S::MAXV];
     if (inside) {
-      const LevelReader<S, P, L> rd{&p, smem, w0, w1, w2, g0, g1, g2};
+      const LevelReader<S, P, L, BATCH> rd{&p, smem, ws, m, w0, w1, w2,
+                                           g0, g1, g2};
       const int g[3] = {g0, g1, g2};
-      S::point(rd, g, p.n, t, v);
+      S::template stage<Q>(rd, g, p.n, t, v);
     } else {
 #pragma unroll
-      for (int j = 0; j < S::NV; ++j) v[j] = real_t(0);
+      for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
     }
     const int c = (w0 * W1 + w1) * W2 + w2;
-    const bool wr = inside && l0 >= S::wr_lo(P, 0, L)
-                    && l0 < S::wr_hi(P, 0, L) && l1 >= S::wr_lo(P, 1, L)
-                    && l1 < S::wr_hi(P, 1, L) && l2 >= S::wr_lo(P, 2, L)
-                    && l2 < S::wr_hi(P, 2, L);
-#pragma unroll
-    for (int j = 0; j < S::NV; ++j) {
-      const int ob = S::out_buf(j, L), o = S::out_of(j, L);
-      if (ob >= 0) smem[ob * E + c] = v[j];
-      if (wr && o >= 0)
-        p.out[o][g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
-                 + g2 * p.out_s[o][2]] = v[j];
-    }
+    const bool wr = g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
+                    && g2 >= 0 && g2 < p.n[2] && l0 >= wl0 && l0 < wh0
+                    && l1 >= wl1 && l1 < wh1 && l2 >= wl2 && l2 < wh2;
+    store_vals<S, P, L, Q, 0, BATCH>(p, smem, ws, v, c, wr, m, g0, g1, g2);
   }
-  if constexpr (L < S::K) {
+  if constexpr (Q + 1 < S::NSTAGES) {
     YT_SYNC();
-    compute_level<S, P, L + 1>(p, smem, b, tid, nt);
+    compute_sub<S, P, L, Q + 1, BATCH>(p, smem, ws, b, m, tid, nt);
+  } else if constexpr (L < S::K) {
+    YT_SYNC();
+    compute_sub<S, P, L + 1, 0, BATCH>(p, smem, ws, b, m, tid, nt);
   }
 }
 
-// One tile of pass P: its origin from the block index, stage, levels.
-template <class S, int P>
+// One tile of pass P (member m): its origin from the tile index, stage,
+// levels.
+template <class S, int P, bool BATCH>
 YT_HD void tile_pass(const ParamsOf<S>& p, typename S::real_t* smem,
-                     int bi0, int bi1, int bi2, int tid, int nt) {
+                     typename S::real_t* ws, int m, int bi0, int bi1,
+                     int bi2, int tid, int nt) {
   const int b[3] = {bi0 * S::stride(P, 0) + S::orig(P, 0),
                     bi1 * S::stride(P, 1) + S::orig(P, 1),
                     bi2 * S::stride(P, 2) + S::orig(P, 2)};
-  stage_inputs<S, P>(p, smem, b, tid, nt);
+  stage_inputs<S, P, BATCH>(p, smem, ws, b, m, tid, nt);
   YT_SYNC();
-  compute_level<S, P, 1>(p, smem, b, tid, nt);
+  compute_sub<S, P, 1, 0, BATCH>(p, smem, ws, b, m, tid, nt);
 }
 
-// Host path: the blocks of pass P in order, one thread each, buffers
-// filled with NaN before every block.
-template <class S, int P>
-int host_pass(const ParamsOf<S>& p) {
+// Host path: the tiles of pass P of every member in order, one thread
+// each, every buffer (the workspace ones too) filled with NaN before
+// every tile.
+template <class S, int P, bool BATCH>
+int host_pass(const TrapParams<S>& p) {
   typedef typename S::real_t real_t;
-  std::vector<real_t> smem(size_t(S::NBUF) * buf_elems<S, P>() + 1);
-  for (int b0 = 0; b0 < S::grid(P, 0); ++b0)
-    for (int b1 = 0; b1 < S::grid(P, 1); ++b1)
-      for (int b2 = 0; b2 < S::grid(P, 2); ++b2) {
-        for (auto& x : smem) x = real_t(NAN);
-        tile_pass<S, P>(p, smem.data(), b0, b1, b2, 0, 1);
-      }
+  std::vector<real_t> sm(size_t(S::nsmem(P)) * buf_elems<S, P>() + 1);
+  std::vector<real_t> ws(size_t(S::nws(P)) * buf_elems<S, P>() + 1);
+  for (int m = 0; m < p.nm; ++m)
+    for (int b0 = 0; b0 < S::grid(P, 0); ++b0)
+      for (int b1 = 0; b1 < S::grid(P, 1); ++b1)
+        for (int b2 = 0; b2 < S::grid(P, 2); ++b2) {
+          for (auto& x : sm) x = real_t(NAN);
+          for (auto& x : ws) x = real_t(NAN);
+          tile_pass<S, P, BATCH>(p, sm.data(), ws.data(), m, b0, b1, b2, 0,
+                                 1);
+        }
   return 0;
 }
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
-template <class S>
-__global__ void __launch_bounds__(S::NT)
-trapezoid_kernel(const __grid_constant__ ParamsOf<S> p) {
-  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
-  tile_pass<S, 0>(p, reinterpret_cast<typename S::real_t*>(yt_smem_raw),
-                  blockIdx.z, blockIdx.y, blockIdx.x, threadIdx.x, S::NT);
+// The tiles of one block: its own (z cell = member x slot-0 tiles, y and
+// x the other tiles) where the pass has no workspace, else tiles
+// blockIdx.x, + gridDim.x, ... of every member with the block's slice of
+// the workspace.
+template <class S, int P, bool BATCH>
+__device__ __forceinline__ void run_tiles(const TrapParams<S>& p,
+                                          typename S::real_t* smem) {
+  const int tid = threadIdx.x;
+  if constexpr (S::nws(P) == 0) {
+    const int z = int(p.z0) + int(blockIdx.z);
+    int m = 0, b0 = z;
+    if constexpr (BATCH) {
+      m = z / S::grid(P, 0);
+      b0 = z - m * S::grid(P, 0);
+    }
+    tile_pass<S, P, BATCH>(p, smem, nullptr, m, b0, blockIdx.y, blockIdx.x,
+                           tid, S::NT);
+  } else {
+    typename S::real_t* ws =
+        p.ws + size_t(blockIdx.x) * S::nws(P) * buf_elems<S, P>();
+    constexpr long long per = (long long)S::grid(P, 0) * S::grid(P, 1)
+                              * S::grid(P, 2);
+    const long long tiles = per * (BATCH ? p.nm : 1);
+    for (long long i = blockIdx.x; i < tiles; i += gridDim.x) {
+      if (i != (long long)blockIdx.x) __syncthreads();
+      const int m = BATCH ? int(i / per) : 0;
+      const int r = int(i - m * per);
+      const int b2 = r % S::grid(P, 2);
+      const int b1 = (r / S::grid(P, 2)) % S::grid(P, 1);
+      const int b0 = r / (S::grid(P, 2) * S::grid(P, 1));
+      tile_pass<S, P, BATCH>(p, smem, ws, m, b0, b1, b2, tid, S::NT);
+    }
+  }
 }
 
-template <class S, int D>
+template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::NT)
-diamond_kernel(const __grid_constant__ ParamsOf<S> p) {
+trapezoid_kernel(const __grid_constant__ TrapParams<S> p) {
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
-  tile_pass<S, D>(p, reinterpret_cast<typename S::real_t*>(yt_smem_raw),
-                  blockIdx.z, blockIdx.y, blockIdx.x, threadIdx.x, S::NT);
+  run_tiles<S, 0, BATCH>(p,
+                         reinterpret_cast<typename S::real_t*>(yt_smem_raw));
+}
+
+template <class S, int D, bool BATCH>
+__global__ void __launch_bounds__(S::NT)
+diamond_kernel(const __grid_constant__ TrapParams<S> p) {
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  run_tiles<S, D, BATCH>(p,
+                         reinterpret_cast<typename S::real_t*>(yt_smem_raw));
 }
 
 template <class S, int P>
-int launch_pass(const ParamsOf<S>& p, cudaStream_t stream) {
-  const int smem = int(sizeof(typename S::real_t)) * S::NBUF
-                   * buf_elems<S, P>();
-  const dim3 grid(S::grid(P, 2), S::grid(P, 1), S::grid(P, 0));
+constexpr int smem_bytes() {
+  return int(sizeof(typename S::real_t)) * S::nsmem(P) * buf_elems<S, P>();
+}
+
+// The blocks of pass P the card holds at once: its SMs times the blocks
+// one SM holds (threads, registers, shared memory).
+template <class S, int P, bool BATCH>
+int resident_blocks() {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -int(e);
+  if constexpr (P == 0) {
+    e = cudaFuncSetAttribute(trapezoid_kernel<S, BATCH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<S, P>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, trapezoid_kernel<S, BATCH>, S::NT, smem_bytes<S, P>());
+  } else {
+    e = cudaFuncSetAttribute(diamond_kernel<S, P, BATCH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<S, P>());
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, diamond_kernel<S, P, BATCH>, S::NT, smem_bytes<S, P>());
+  }
+  if (e != cudaSuccess) return -int(e);
+  return sms * (per > 0 ? per : 1);
+}
+
+template <class S, int P, bool BATCH>
+int launch_pass(TrapParams<S> p, long long nres, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<S, P>();
+  constexpr bool walk = S::nws(P) > 0;
+  const long long tiles = (long long)S::grid(P, 0) * S::grid(P, 1)
+                          * S::grid(P, 2) * p.nm;
+  if (walk && (p.ws == nullptr || nres < 1))
+    return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::NT, 1, 1);
+  const dim3 cols = walk ? dim3(unsigned(tiles < nres ? tiles : nres))
+                         : dim3(S::grid(P, 2), S::grid(P, 1));
+  const long long gz = walk ? 1 : (long long)S::grid(P, 0) * p.nm;
   if constexpr (P == 0) {
     cudaError_t e = cudaFuncSetAttribute(
-        trapezoid_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        trapezoid_kernel<S, BATCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return int(e);
-    trapezoid_kernel<S><<<grid, block, smem, stream>>>(p);
+    return launch_z(p.z0, gz, cols, [&](dim3 grid) {
+      trapezoid_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+    });
   } else {
     cudaError_t e = cudaFuncSetAttribute(
-        diamond_kernel<S, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        diamond_kernel<S, P, BATCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return int(e);
-    diamond_kernel<S, P><<<grid, block, smem, stream>>>(p);
+    return launch_z(p.z0, gz, cols, [&](dim3 grid) {
+      diamond_kernel<S, P, BATCH><<<grid, block, smem, stream>>>(p);
+    });
   }
-  return int(cudaGetLastError());
 }
 #endif
 
-template <class S, int P>
-int run_pass(const ParamsOf<S>& p, int pass, void* stream) {
+template <class S, bool BATCH, int P = 0>
+int run_pass(const TrapParams<S>& p, int pass, long long nres,
+             void* stream) {
   if (pass == P) {
 #ifdef __CUDACC__
-    return launch_pass<S, P>(p, static_cast<cudaStream_t>(stream));
+    return launch_pass<S, P, BATCH>(p, nres,
+                                    static_cast<cudaStream_t>(stream));
 #else
+    (void)nres;
     (void)stream;
-    return host_pass<S, P>(p);
+    return host_pass<S, P, BATCH>(p);
 #endif
   }
-  if constexpr (P + 1 < S::NPASS) return run_pass<S, P + 1>(p, pass, stream);
+  if constexpr (P + 1 < S::NPASS)
+    return run_pass<S, BATCH, P + 1>(p, pass, nres, stream);
+  return int(-1);
+}
+
+template <class S, bool BATCH, int P = 0>
+int resident(int pass) {
+  if (pass == P) {
+#ifdef __CUDACC__
+    return resident_blocks<S, P, BATCH>();
+#else
+    return 1;
+#endif
+  }
+  if constexpr (P + 1 < S::NPASS) return resident<S, BATCH, P + 1>(pass);
   return int(-1);
 }
 
 // K4: pass 0 (phase 1) or pass D (the diamonds of the D-th trapezoid dim)
-// of one K-step group; t is the step index of the newest inputs.
+// of one K-step group; t is the step index of the newest inputs, ws the
+// workspace of nres resident blocks (unused by a pass without one).
 template <class S>
 int run_trapezoid(int pass, void* in_ptrs, void* in_strides, void* out_ptrs,
-                  void* out_strides, void* sizes, int t, void* stream) {
-  ParamsOf<S> p;
+                  void* out_strides, void* sizes, int t, void* ws,
+                  long long nres, void* stream) {
+  TrapParams<S> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
-  return run_pass<S, 0>(p, pass, stream);
+  p.ws = static_cast<typename S::real_t*>(ws);
+  return run_pass<S, false>(p, pass, nres, stream);
+}
+
+// K7 over K4: the same pass for nm members whose arrays sit
+// in_mstrides[a] / out_mstrides[o] elements apart (arrays of idx_t).
+template <class S>
+int run_trapezoid_batched(int pass, void* in_ptrs, void* in_strides,
+                          void* in_mstrides, void* out_ptrs,
+                          void* out_strides, void* out_mstrides, void* sizes,
+                          int nm, int t, void* ws, long long nres,
+                          void* stream) {
+  TrapParams<S> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  fill_members<S>(p, in_mstrides, out_mstrides, nm);
+  p.ws = static_cast<typename S::real_t*>(ws);
+  return run_pass<S, true>(p, pass, nres, stream);
 }
 
 }  // namespace yt
 
-// The C entry point of one emitted K4 kernel: K1's arguments after the
-// pass index; returns cudaGetLastError() (0 on the host, -1 for a pass
-// the Spec does not have).
+// The C entry points of one emitted K4 kernel: the solo group (K1's
+// arguments after the pass index, then the workspace and its resident
+// blocks), the member batch (K7's arguments, likewise) and the resident
+// blocks of a pass (solo or batched); each returns cudaGetLastError() (0
+// on the host, -1 for a pass the Spec does not have).
 #define YT_TRAPEZOID_ENTRY(NAME, S)                                          \
   extern "C" int NAME(int pass, void* in_ptrs, void* in_strides,             \
                       void* out_ptrs, void* out_strides, void* sizes, int t, \
-                      void* stream) {                                        \
+                      void* ws, long long nres, void* stream) {              \
     return yt::run_trapezoid<S>(pass, in_ptrs, in_strides, out_ptrs,         \
-                                out_strides, sizes, t, stream);              \
+                                out_strides, sizes, t, ws, nres, stream);    \
+  }                                                                          \
+  extern "C" int NAME##_trap_batched(                                        \
+      int pass, void* in_ptrs, void* in_strides, void* in_mstrides,          \
+      void* out_ptrs, void* out_strides, void* out_mstrides, void* sizes,    \
+      int nm, int t, void* ws, long long nres, void* stream) {               \
+    return yt::run_trapezoid_batched<S>(pass, in_ptrs, in_strides,           \
+                                        in_mstrides, out_ptrs, out_strides,  \
+                                        out_mstrides, sizes, nm, t, ws,      \
+                                        nres, stream);                       \
+  }                                                                          \
+  extern "C" int NAME##_trap_resident(int pass, int batched) {               \
+    return batched ? yt::resident<S, true>(pass)                             \
+                   : yt::resident<S, false>(pass);                           \
   }

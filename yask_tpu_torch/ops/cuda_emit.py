@@ -114,9 +114,11 @@ SMEM_LIMIT = 232448
 #: Tile extents (points per block) tried in order until the shared-memory
 #: tiles (staged inputs, and K6's computed stage tiles) fit; slot 2 is the
 #: minor dim (one thread per point), slot 1 the other thread dim, slot 0
-#: the loop inside each thread.
+#: the loop inside each thread.  The last rungs (16 and 8 threads a block)
+#: are for wide halos that fit nothing larger (ssg r=4, iso3dfd r=16).
 _TILE_LADDER = ((8, 8, 64), (4, 8, 64), (2, 8, 64), (1, 8, 64),
-                (1, 4, 64), (1, 2, 64), (1, 1, 64), (1, 1, 32))
+                (1, 4, 64), (1, 2, 64), (1, 1, 64), (1, 1, 32), (1, 1, 16),
+                (1, 1, 8))
 
 _C_TYPES = {"R": "real_t", "I": "int", "i": "int", "d": "double",
             "B": "bool", "b": "bool"}
@@ -164,8 +166,9 @@ def a3_arms(program) -> List[str]:
     """The ROADMAP.md A3 arms this solution takes: more than three domain
     dims, misc-dim vars, written vars lacking a domain dim, element size
     2.  K1, K6, K7 (the member batch over either) and K5 (the shard's box
-    over either) take them; K4 has not been held against them:
-    ``-trapezoid`` falls back (A12)."""
+    over either) take them; K4 takes all but more than three domain dims
+    (ROADMAP.md A12 (4-D K4)), and partial-dim writes, which the
+    reference's trapezoid does not take either."""
     arms = []
     geoms = program.geoms
     dims = list(program.ana.domain_dims)
@@ -823,6 +826,20 @@ class _Printed:
     last_writer: Dict[Tuple, int]
 
 
+def _base_outputs(program, outputs, slices) -> List[str]:
+    """The output vars some of whose misc slices no equation writes: their
+    new level starts from a copy of the evicted ring slot."""
+    import numpy as np
+    out = []
+    for n in outputs:
+        g = program.geoms[n]
+        every = int(np.prod([g.misc_ext[d] for d, k in g.axes
+                             if k == "misc"]))
+        if sum(1 for m, _mk in slices if m == n) < every:
+            out.append(n)
+    return out
+
+
 def _check_applicable(program) -> None:
     ok, why = fused_applicable(program)
     if not ok:
@@ -1076,13 +1093,7 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     outer_enum = f", NOUTER = {no}" if no else ""
     # misc slices and partial-dim outputs
     out_slices = [(outputs.index(n), m) for n, m in slices]
-    base_outputs = []
-    for n in outputs:
-        g = geoms[n]
-        every = int(np.prod([g.misc_ext[d] for d, k in g.axes
-                             if k == "misc"]))
-        if sum(1 for m, _mk in slices if m == n) < every:
-            base_outputs.append(n)
+    base_outputs = _base_outputs(program, outputs, slices)
     slab = [sum(1 << s_ for d, s_ in slot_of.items()
                 if d not in geoms[n].domain_dims) for n, _m in slices]
     tiled = [a for a, (var, _s) in enumerate(pr.inputs)
@@ -1325,6 +1336,11 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
 TRAP_THREADS = 1024
 #: Minor-dim tile extents tried in order until the phase-1 buffers fit.
 _MINOR_LADDER = (64, 32, 16, 8, 4, 2, 1)
+#: The most bytes of level buffers one K4 block plans where they do not
+#: all fit shared memory (the rest go to its slice of a device-memory
+#: workspace): the minor tile shrinks down the ladder until they fit, but
+#: not under 8 (a thinner tile recomputes its K·r margins many times).
+WS_BLOCK_BYTES = 2 << 20
 
 
 def skew_eligible_dims(program, fuse_steps: int) -> List[str]:
@@ -1377,11 +1393,16 @@ def _tab(fn: str, args: Tuple[str, ...], mapping: Dict[tuple, int],
             f"{{ return {body + ' : ' if conds else ''}{default}; }}")
 
 
-def _pass_smem(nbuf: int, geo, esize: int) -> int:
+def _pass_cells(geo) -> int:
+    """Elements of one buffer of a pass: its window's cells."""
     cells = 1
     for s_ in range(3):
         cells *= geo[s_]["tile"] + 2 * geo[s_]["marg"]
-    return nbuf * cells * esize
+    return cells
+
+
+def _pass_smem(nbuf: int, geo, esize: int) -> int:
+    return nbuf * _pass_cells(geo) * esize
 
 
 def _uniform(T: int, r: int, K: int) -> Dict:
@@ -1393,21 +1414,26 @@ def _uniform(T: int, r: int, K: int) -> Dict:
 
 
 def emit_trapezoid(program, K: int, trap_dims: List[str],
-                   block: Dict[str, int]) -> KernelSpec:
+                   block: Dict[str, int],
+                   smem_limit: int = SMEM_LIMIT) -> KernelSpec:
     """Print ``program`` as K4's source for one K-step group: phase 1 over
     the lead ``block`` (trapezoid in ``trap_dims``) and one diamond pass
-    per trapezoid dim.  Raises when the state's pads do not hold the
-    diamond windows or the level buffers do not fit shared memory."""
+    per trapezoid dim, each level running K6's sub-stages (:func:`_print`)
+    over its buffers.  Buffers go to shared memory while they fit
+    ``smem_limit`` and to a device-memory workspace past it.  Raises for
+    more than three domain dims (ROADMAP.md A12 (4-D K4)) and when the
+    state's pads do not hold the diamond windows."""
     import numpy as np
+    import re
     from yask_tpu_torch.ops.tile_planner import TilePlan
     ana = program.ana
-    if len(ana.stages) != 1 or has_scratch(program):
-        raise YaskException(
-            "K4 takes single-stage solutions without scratch vars "
-            "(multi-stage and scratch K4 are ROADMAP.md A12)")
-    pt = _print(program, [])
-    pr, slot_of, outputs = pt.pr, pt.slot_of, pt.outputs
     dims = list(ana.domain_dims)
+    if len(dims) > 3:
+        raise YaskException(
+            f"{len(dims)}-D solution: the port's K4 tiles three dims "
+            "(ROADMAP.md A12 (4-D K4)); K1/K6 run the group")
+    pt = _print(program, [])
+    pr, slot_of, subs = pt.pr, pt.slot_of, pt.subs
     lead = dims[:-1]
     dim_of = {s_: d for d, s_ in slot_of.items()}
     geoms = program.geoms
@@ -1416,60 +1442,129 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     r = [rad.get(dim_of[s_], 0) if s_ in dim_of else 0 for s_ in range(3)]
     n = [program.sizes[dim_of[s_]] if s_ in dim_of else 1 for s_ in range(3)]
     esize = np.dtype(program.dtype).itemsize
+    last = pt.last_writer
 
-    # ---- level buffers: a ring per written var, one per staged read-only
+    def scratch(sk):
+        return geoms[sk[0]].is_scratch
+
+    # ---- inputs: the printed ones, then the ring slots only staging reads
     inputs = list(pr.inputs)
+    in_misc = list(pr.in_misc)
 
-    def in_idx(key):
-        if key not in inputs:
-            inputs.append(key)
-        return inputs.index(key)
+    def in_idx(v, s, misc):
+        for i, (key, m) in enumerate(zip(inputs, in_misc)):
+            if key == (v, s) and m == misc:
+                return i
+        inputs.append((v, s))
+        in_misc.append(misc)
+        return len(inputs) - 1
 
+    # per sub-stage, its reads of inputs: (input, offsets per slot), as
+    # printed
+    at_offs = [[(int(a), tuple(int(o) for o in offs)) for a, *offs in
+                re.findall(r"rd\.template at<(\d+)>\((-?\d+), (-?\d+), "
+                           r"(-?\d+)\)", "\n".join(lines))]
+               for lines in pt.stage_lines]
+    readers = {a: {k for k, reads in enumerate(at_offs)
+                   if any(b == a for b, _o in reads)}
+               for a in range(len(pr.inputs))}
+
+    # ---- level buffers: a ring per written slice, one per staged
+    #      read-only input, one per scratch or rewritten (slice, sub-stage)
+    #      that a later sub-stage reads
     nbuf, base, nb = 0, {}, {}
-    for w in outputs:
+    for sk in pt.slices:
+        w, misc = sk
         g = geoms[w]
         if not g.has_step:
             raise YaskException(f"written var '{w}' has no step ring")
-        if not any(v == w for v, _s in pr.inputs):
-            nb[w] = 0
-            continue
-        a0 = pr.in_index.get((w, 0, ()))
-        oldest_at_offset = a0 is not None and any(lo or hi
-                                                  for lo, hi in pr.raw[a0])
-        nb[w] = g.num_slots + (1 if oldest_at_offset else 0)
-        base[w] = nbuf
-        nbuf += nb[w]
+        ring_in = [a for a, (v, _s) in enumerate(pr.inputs)
+                   if v == w and pr.in_misc[a] == misc]
+        if ring_in:
+            inplace = all(not any(lo or hi for lo, hi in pr.raw[a])
+                          and readers[a] <= {last[sk]}
+                          for a in ring_in if pr.inputs[a][1] == 0)
+            nb[sk] = g.num_slots + (0 if inplace else 1)
+        else:
+            nb[sk] = 1 if (sk, last[sk]) in pr.cmp_of else 0
+        if nb[sk]:
+            base[sk] = nbuf
+            nbuf += nb[sk]
 
-    def buf(w, lev):
-        return base[w] + lev % nb[w]
+    def buf(sk, lev):
+        return base[sk] + lev % nb[sk]
 
     staged: Dict[int, int] = {}        # buffer → input index
     lvl_src: Dict[tuple, int] = {}
+    lvl_in: Dict[tuple, int] = {}
+    ring_lev: Dict[tuple, tuple] = {}  # (level, input) → (slice, its level)
     for a, (v, idx) in enumerate(pr.inputs):
-        g = geoms[v]
-        if g.is_written:
+        sk, g = (v, pr.in_misc[a]), geoms[v]
+        offs = any(lo or hi for lo, hi in pr.raw[a])
+        full = list(g.domain_dims) == dims
+        if nb.get(sk):
             for L in range(1, K + 1):
                 lev = L - g.num_slots + idx
-                lvl_src[(L, a)] = buf(v, lev)
+                lvl_src[(L, a)] = buf(sk, lev)
+                ring_lev[(L, a)] = (sk, lev)
                 if lev <= 0:
-                    staged[buf(v, lev)] = in_idx((v, g.num_slots - 1 + lev))
-        elif list(g.domain_dims) == dims \
-                and any(lo or hi for lo, hi in pr.raw[a]):
+                    staged[buf(sk, lev)] = in_idx(v, g.num_slots - 1 + lev,
+                                                  sk[1])
+        elif g.is_written:
+            # a misc slice no equation writes: level L reads, in global
+            # memory, the slot the plain version's copy of the evicted
+            # slot carries there
+            for L in range(1, K + 1):
+                ai = in_idx(v, (L - g.num_slots + idx - 1) % g.num_slots,
+                            sk[1])
+                if ai != a:
+                    lvl_in[(L, a)] = ai
+        elif offs and full:
             staged[nbuf] = a
             for L in range(1, K + 1):
                 lvl_src[(L, a)] = nbuf
             nbuf += 1
-    out_buf: Dict[tuple, int] = {}
-    out_of: Dict[tuple, int] = {}
+    extra: Dict[tuple, int] = {}
+    cmp_buf: Dict[tuple, int] = {}
+    for (sk, i), b_ in sorted(pr.cmp_of.items(), key=lambda kv: kv[1]):
+        for L in range(1, K + 1):
+            if not scratch(sk) and i == last[sk]:
+                cmp_buf[(L, b_)] = buf(sk, L)
+            else:
+                if (sk, i) not in extra:
+                    extra[(sk, i)] = nbuf
+                    nbuf += 1
+                cmp_buf[(L, b_)] = extra[(sk, i)]
+
+    # ---- outputs: per written var, a tensor per level of the group's
+    #      newest min(K, S); per tensor an entry per written slice
     k4_outputs: List[str] = []
-    for j, w in enumerate(outputs):
+    out_levels: List[int] = []
+    out_entries: List[Tuple[int, Tuple]] = []
+    out_of: Dict[tuple, int] = {}
+    for w in pt.outputs:
         nback = min(K, geoms[w].num_slots)
-        for s in range(nback):
-            out_of[(j, K - nback + s + 1)] = len(k4_outputs)
+        for L in range(K - nback + 1, K + 1):
+            ti = len(k4_outputs)
             k4_outputs.append(w)
-        if nb[w]:
+            out_levels.append(L)
+            for sk in pt.slices:
+                if sk[0] == w:
+                    out_of[(sk, L)] = len(out_entries)
+                    out_entries.append((ti, sk[1]))
+    base_outputs = _base_outputs(program, pt.outputs, pt.slices)
+    st_buf: Dict[tuple, int] = {}
+    st_out: Dict[tuple, int] = {}
+    for k, names in enumerate(pt.stage_vars):
+        for j, sk in enumerate(names):
             for L in range(1, K + 1):
-                out_buf[(j, L)] = buf(w, L)
+                if not scratch(sk) and k == last[sk]:
+                    if nb[sk]:
+                        st_buf[(k, j, L)] = buf(sk, L)
+                    if (sk, L) in out_of:
+                        st_out[(k, j, L)] = out_of[(sk, L)]
+                elif (sk, k) in extra:
+                    st_buf[(k, j, L)] = extra[(sk, k)]
 
     # ---- the pad contract: no bounds test in a trapezoid dim
     for d in trap_dims:
@@ -1482,7 +1577,9 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                     f"diamond windows need {need} per side (prepare with "
                     "-trapezoid plans them)")
 
-    # ---- phase 1
+    # ---- phase 1: the minor tile of the ladder whose buffers all fit
+    #      shared memory; past the smallest, a workspace: the largest
+    #      minor tile whose buffers fit WS_BLOCK_BYTES, but not under 8
     df = tp.dataflow(block)
     mL, _mR = tp.margins()
 
@@ -1504,16 +1601,14 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                 geo.append(_uniform(block[d] if d in lead else zt, r[s_], K))
         return geo
 
-    p1 = None
-    for zt in dict.fromkeys(min(z, n[2]) for z in _MINOR_LADDER):
-        p1 = phase1(zt)
-        if _pass_smem(nbuf, p1, esize) <= SMEM_LIMIT:
-            break
-    else:
-        raise YaskException(
-            f"the phase-1 level buffers ({nbuf} of them) do not fit "
-            f"{SMEM_LIMIT} bytes of shared memory at block {block} even "
-            "with a minor tile of 1")
+    zts = list(dict.fromkeys(min(z, n[2]) for z in _MINOR_LADDER))
+    p1 = next((g_ for g_ in map(phase1, zts)
+               if _pass_smem(nbuf, g_, esize) <= smem_limit), None)
+    if p1 is None:
+        zws = [z for z in zts if z >= min(8, n[2])]
+        p1 = next((g_ for g_ in map(phase1, zws)
+                   if _pass_smem(nbuf, g_, esize) <= WS_BLOCK_BYTES),
+                  phase1(zws[-1]))
     passes = [p1]
 
     # ---- one diamond pass per trapezoid dim, band-wide tiles centred on
@@ -1528,7 +1623,6 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
         half, band = dia["half"], dia["band"]
         nbounds = n[sD] // block[D] + 1
         cls = {L: tp.cl(D, L) for L in range(1, K + 1)}
-        tiles = [p1[s_]["tile"] for s_ in range(3)]
         later = {slot_of[d] for d in trap_dims[i_D + 1:]}
 
         def diamond(tiles):
@@ -1546,29 +1640,38 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                 geo.append(g_)
             return geo
 
-        geo = diamond(tiles)
-        while _pass_smem(nbuf, geo, esize) > SMEM_LIMIT:
-            # shrink the minor tile first, then the widest other uniform
-            # lead tile (to a divisor of the span in a trapezoid dim: no
-            # ragged tile there, which the pad contract relies on)
+        def shrink(tiles) -> bool:
+            # the minor tile first, down to 8, then the widest other
+            # uniform lead tile (to a divisor of the span in a trapezoid
+            # dim: no ragged tile there, which the pad contract relies on)
             if tiles[2] > 8 and sD != 2:
                 tiles[2] = max(t for t in _MINOR_LADDER if t < tiles[2])
+                return True
+            cand = [s_ for s_ in (0, 1) if s_ != sD and s_ not in later
+                    and tiles[s_] > 1]
+            if not cand:
+                return False
+            s_ = max(cand, key=lambda c: tiles[c])
+            if dim_of.get(s_) in trap_dims:
+                tiles[s_] = max(b for b in range(1, tiles[s_])
+                                if n[s_] % b == 0)
             else:
-                cand = [s_ for s_ in (0, 1) if s_ != sD and s_ not in later
-                        and tiles[s_] > 1]
-                if not cand:
-                    cand = [2] if tiles[2] > 1 and sD != 2 else []
-                if not cand:
-                    raise YaskException(
-                        f"the diamond pass in '{D}' does not fit {SMEM_LIMIT}"
-                        " bytes of shared memory")
-                s_ = max(cand, key=lambda c: tiles[c])
-                if dim_of.get(s_) in trap_dims:
-                    tiles[s_] = max(b for b in range(1, tiles[s_])
-                                    if n[s_] % b == 0)
-                else:
-                    tiles[s_] = max(1, tiles[s_] // 2)
+                tiles[s_] = max(1, tiles[s_] // 2)
+            return True
+
+        tiles = [p1[s_]["tile"] for s_ in range(3)]
+        geo = diamond(tiles)
+        while _pass_smem(nbuf, geo, esize) > smem_limit and shrink(tiles):
             geo = diamond(tiles)
+        if _pass_smem(nbuf, geo, esize) > smem_limit:
+            # a workspace: phase 1's tiles, the minor one shrunk towards
+            # WS_BLOCK_BYTES but not under 8
+            tiles = [p1[s_]["tile"] for s_ in range(3)]
+            geo = diamond(tiles)
+            while _pass_smem(nbuf, geo, esize) > WS_BLOCK_BYTES \
+                    and tiles[2] > 8 and sD != 2:
+                tiles[2] = max(t for t in _MINOR_LADDER if t < tiles[2])
+                geo = diamond(tiles)
         passes.append(geo)
         diamonds.append({"dim": D, "stride": block[D], "nbounds": nbounds,
                          "half": half, "band": band, "cls": cls})
@@ -1579,8 +1682,57 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                           if i and s_ == slot_of[diamonds[i - 1]["dim"]]
                           else -(-n[s_] // g_["tile"]))
 
+    # ---- the geometry holds: every sub-stage's region inside the window
+    #      (and, in phase 1's trapezoid dims, grown past the level's by no
+    #      more than its stage's TilePlan.stage_flow window is grown past
+    #      the final stage's, plus a scratch var's write halo),
+    #      every read of a staged level inside the window, every read of a
+    #      computed level inside the region its writer computed
+    flow = tp.stage_flow(block)
+    for i, geo in enumerate(passes):
+        def region(L, k, s_):
+            return (geo[s_]["reg"][L - 1][0] - subs[k].lo[s_],
+                    geo[s_]["reg"][L - 1][1] + subs[k].hi[s_])
+        for L in range(1, K + 1):
+            for k in range(len(subs)):
+                for s_ in range(3):
+                    lo, hi = region(L, k, s_)
+                    m_, T = geo[s_]["marg"], geo[s_]["tile"]
+                    ok = -m_ <= lo and hi <= T + m_
+                    d = dim_of.get(s_)
+                    if i == 0 and d in trap_dims:
+                        st = flow[L - 1]["stages"]
+                        fw = st[subs[k].stage]["write"][d]
+                        lw = st[-1]["write"][d]
+                        ok = ok and (subs[k].lo[s_] - subs[k].clip_lo[s_]
+                                     <= lw[0] - fw[0]
+                                     and subs[k].hi[s_] - subs[k].clip_hi[s_]
+                                     <= fw[1] - lw[1])
+                    for a, offs in at_offs[k]:
+                        if (L, a) in ring_lev and ring_lev[(L, a)][1] >= 1:
+                            sk, lev = ring_lev[(L, a)]
+                            wlo, whi = region(lev, last[sk], s_)
+                        elif (L, a) in lvl_src:
+                            wlo, whi = -m_, T + m_
+                        else:
+                            continue
+                        ok = ok and wlo <= lo + offs[s_] \
+                            and hi + offs[s_] <= whi
+                    if not ok:
+                        raise YaskException(
+                            f"K4 geometry: sub-stage {k} of level {L} in "
+                            f"pass {i}, slot {s_}: region [{lo}, {hi}) in "
+                            f"a window of {T} + 2·{m_}, or a read past "
+                            "what its level holds")
+
+    # ---- where the buffers live: the first ones that fit in shared
+    #      memory (the rings first), the rest in the block's workspace
+    nsmem = [min(nbuf, smem_limit // (_pass_cells(geo) * esize))
+             for geo in passes]
+
     # ---- the Spec
-    real_t = "float" if esize == 4 else "double"
+    real_t = {2: "yt::bf16_t", 4: "float", 8: "double"}[esize]
+    out_t = "float" if esize == 2 else "real_t"
     tabs = []
     for key in ("tile", "marg", "stride", "orig", "grid"):
         tabs.append(_tab(key, ("P", "s"), {
@@ -1592,11 +1744,22 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
             (i, s_, L): geo[s_][part][L - 1][k_]
             for i, geo in enumerate(passes) for s_ in range(3)
             for L in range(1, K + 1)}, 0))
+    for key in ("lo", "hi"):
+        tabs.append(_tab(f"sub_{key}", ("q", "s"), {
+            (k, s_): getattr(u, key)[s_] for k, u in enumerate(subs)
+            for s_ in range(3)}, 0))
+        tabs.append(_tab(f"clip_{key}", ("q", "s"), {
+            (k, s_): getattr(u, f"clip_{key}")[s_]
+            for k, u in enumerate(subs) for s_ in range(3)}, 0))
+    tabs.append(_tab("stage_nv", ("q",), {
+        (k,): len(v) for k, v in enumerate(pt.stage_vars)}, 0))
+    tabs.append(_tab("st_buf", ("q", "j", "L"), st_buf, -1))
+    tabs.append(_tab("st_out", ("q", "j", "L"), st_out, -1))
     tabs.append(_tab("trap_slot", ("s",), {(slot_of[d],): 1
                                            for d in trap_dims}, 0))
     tabs.append(_tab("lvl_src", ("L", "A"), lvl_src, -1))
-    tabs.append(_tab("out_buf", ("j", "L"), out_buf, -1))
-    tabs.append(_tab("out_of", ("j", "L"), out_of, -1))
+    tabs.append(_tab("lvl_in", ("L", "A"), lvl_in, -1))
+    tabs.append(_tab("cmp_buf", ("L", "B"), cmp_buf, -1))
     st_bufs = sorted(staged)
     tabs.append(_tab("staged_in", ("k",), {(k_,): staged[b]
                                            for k_, b in enumerate(st_bufs)},
@@ -1604,38 +1767,55 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     tabs.append(_tab("staged_buf", ("k",), {(k_,): b
                                             for k_, b in enumerate(st_bufs)},
                      -1))
-    body = pt.stage_lines[0]
+    tabs.append(_tab("nsmem", ("P",), {
+        (i,): ns for i, ns in enumerate(nsmem)}, 0))
+    tabs.append(_tab("nws", ("P",), {
+        (i,): nbuf - ns for i, ns in enumerate(nsmem)}, 0))
+    stages_src = "\n".join(
+        f"        if constexpr (Q == {k}) {{\n"
+        + "\n".join("    " + ln for ln in lines) + "\n        }"
+        for k, lines in enumerate(pt.stage_lines))
+    maxv = max(len(v) for v in pt.stage_vars)
     text = f"""struct Spec {{
     typedef {real_t} real_t;
-    enum {{ NIN = {len(inputs)}, NOUT = {len(k4_outputs)}, NV = {len(outputs)}, K = {K},
+    enum {{ NIN = {len(inputs)}, NOUT = {len(out_entries)}, K = {K},
            STEP_DIR = {ana.step_dir}, NPASS = {len(passes)}, NBUF = {nbuf},
-           NSTAGED = {len(staged)}, NT = {TRAP_THREADS} }};
+           NSTAGED = {len(staged)}, NT = {TRAP_THREADS},
+           NSTAGES = {len(subs)}, MAXV = {maxv} }};
 {chr(10).join(tabs)}
 
-    template <class RD>
-    YT_HD static inline void point(const RD& rd, const int* g, const int* n,
-                                   const int t, real_t* out) {{
-        (void)g; (void)n; (void)t;
-{chr(10).join(body)}
+    template <int Q, class RD>
+    YT_HD static inline void stage(const RD& rd, const int* g, const int* n,
+                                   const int t, {out_t}* out) {{
+        (void)rd; (void)g; (void)n; (void)t; (void)out;
+{stages_src}
     }}
 }};
 """
     name = "trapezoid_" + hashlib.sha256(text.encode()).hexdigest()[:12]
+    nscr = sum(u.scratch for u in subs)
     src = (f"// Emitted by yask_tpu_torch.ops.cuda_emit for solution\n"
            f"// '{program.soln.get_name()}': K4, one {K}-step group of the "
-           f"trapezoid/diamond\n// tiling over {', '.join(trap_dims)} "
-           f"(see ops/fused_stencil.py).\n#include \"trapezoid.cuh\"\n\n"
+           f"trapezoid/diamond\n// tiling over {', '.join(trap_dims)}, "
+           f"{len(subs)} sub-stage(s) per level ({nscr} of scratch vars),\n"
+           f"// solo and member-batched (see ops/fused_stencil.py).\n"
+           f"#include \"trapezoid.cuh\"\n\n"
            f"{text}\nYT_TRAPEZOID_ENTRY({name}, Spec)\n")
 
     def report(i, geo):
         cells = sum(np.prod([geo[s_]["reg"][L][1] - geo[s_]["reg"][L][0]
-                             for s_ in range(3)]) for L in range(K))
+                             + subs[k].lo[s_] + subs[k].hi[s_]
+                             for s_ in range(3)])
+                    for L in range(K) for k in range(len(subs)))
+        ns = nsmem[i]
+        e = _pass_cells(geo) * esize
         return {"pass": i,
                 "kernel": "trapezoid_kernel" if i == 0 else "diamond_kernel",
                 "dim": None if i == 0 else diamonds[i - 1]["dim"],
                 "tile": [geo[s_]["tile"] for s_ in range(3)],
                 "grid": [geo[s_]["grid"] for s_ in range(3)],
-                "smem_bytes": _pass_smem(nbuf, geo, esize),
+                "smem_bytes": ns * e, "smem_buffers": ns,
+                "ws_buffers": nbuf - ns, "ws_block_bytes": (nbuf - ns) * e,
                 "computed_cells": int(cells) * int(np.prod(
                     [geo[s_]["grid"] for s_ in range(3)]))}
     reports = [report(i, geo) for i, geo in enumerate(passes)]
@@ -1643,17 +1823,25 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
             "block": {**{d: block[d] for d in lead},
                       dims[-1]: p1[2]["tile"]},
             "passes": reports, "threads": TRAP_THREADS, "buffers": nbuf,
+            "sub_stages": len(subs), "scratch_stages": nscr,
+            "out_levels": out_levels,
+            "ws_block_bytes": max(p["ws_block_bytes"] for p in reports),
+            "stage_widths": tp.stage_widths(),
             "diamond": diamonds}
     return KernelSpec(name=name, source=src, inputs=inputs,
                       outputs=k4_outputs,
                       tiled=[staged[b] for b in st_bufs],
                       tile=tuple(p1[s_]["tile"] for s_ in range(3)),
-                      smem_bytes=reports[0]["smem_bytes"], trap=trap)
+                      smem_bytes=reports[0]["smem_bytes"], trap=trap,
+                      stages=len(subs), scratch_stages=nscr,
+                      in_misc=in_misc, out_slices=out_entries,
+                      base_outputs=base_outputs)
 
 
 def resolve_trapezoid(program, K: int, trapezoid=None,
                       block: Dict[str, int] = None,
-                      reasons: List[Dict] = None):
+                      reasons: List[Dict] = None,
+                      smem_limit: int = SMEM_LIMIT):
     """The trapezoid resolution of ``build_pallas_chunk``
     (pallas_stencil.py:812-930, :1415-1432) for one K-step group of
     ``program``: ``False`` = off, ``None`` = auto (the TilePlan gate),
@@ -1661,12 +1849,13 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     Returns K4's :class:`KernelSpec`, or None when the group runs on K1;
     appends the reason records (``trapezoid_forced``, ``_engaged``,
     ``_gate_rejected``, ``_ineligible``, ``_fallback``, ``_diamond``).
-    Auto falls back and forced raises where the plan is infeasible: a
-    block that does not divide the span or lies under the band floor,
-    pads that do not hold the diamond windows, buffers that do not fit
-    shared memory, and (ROADMAP.md A12) multi-stage solutions, scratch
-    vars and the A3 arms (more than 3 domain dims, misc dims, partial-dim
-    writes, element size 2)."""
+    Auto falls back and forced raises where the reference's does: no
+    eligible dim (K < 2, radius 0, a partial-dim written var), a block
+    that does not divide the span or lies under the band floor, pads that
+    do not hold the diamond windows; and (ROADMAP.md A12 (4-D K4)) more
+    than three domain dims.  K4 takes every other arm K6 takes: several
+    stages, scratch vars, rewrites, misc dims and element size 2; level
+    buffers past ``smem_limit`` go to a device-memory workspace."""
     from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
     if reasons is None:
         reasons = []
@@ -1687,19 +1876,10 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
                         "from_dims": list(dims)})
         return None
 
-    if len(ana.stages) > 1:
+    if len(ana.domain_dims) > 3:
         return infeasible(
-            f"{len(ana.stages)}-stage solution: the port's K4 takes one "
-            "stage (ROADMAP.md A12 (multi-stage K4))", elig)
-    if has_scratch(program):
-        return infeasible(
-            "scratch vars: the port's K4 has no scratch sub-stages "
-            "(ROADMAP.md A12 (scratch K4)); K6 runs the group", elig)
-    arms = a3_arms(program)
-    if arms:
-        return infeasible(
-            f"{' and '.join(arms)}: the port's K4 has not been held against "
-            "them (ROADMAP.md A12 (A3 arms on K4)); K1 runs the group", elig)
+            f"{len(ana.domain_dims)}-D solution: the port's K4 tiles three "
+            "dims (ROADMAP.md A12 (4-D K4)); K1/K6 run the group", elig)
     if forced:
         want = (list(elig) if trapezoid is True
                 else [d for d in lead if d in set(trapezoid)])
@@ -1760,7 +1940,7 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
             return infeasible(f"block {block[d]} < band floor {floor_b} "
                               f"in '{d}'", trap_dims)
     try:
-        spec = emit_trapezoid(program, K, trap_dims, block)
+        spec = emit_trapezoid(program, K, trap_dims, block, smem_limit)
     except YaskException as e:
         return infeasible(str(e), trap_dims)
     for dia in spec.trap["diamond"]:

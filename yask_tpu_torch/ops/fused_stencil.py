@@ -107,17 +107,22 @@ whose misc slices are not all written starts from a copy of its evicted
 slot (:func:`copy_base`, counted in ``copy_base.launches``), at element
 size 2 the stream arm checks the strides its pair copies need
 (:func:`check_pair_strides`), and the launch code walks z cells past
-CUDA's limit in several launches (:func:`grid_z`).  K4 refuses these
-arms (its groups fall back to K1).
+CUDA's limit in several launches (:func:`grid_z`).  K4 takes them all
+but more than three domain dims (ROADMAP.md A12 (4-D K4)).
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
-(``-trapezoid``): the port's first kernel that advances K time levels
-inside one launch.  :class:`TrapezoidKernel` holds the spec
-``cuda_emit.resolve_trapezoid`` returns; :func:`trapezoid_chunk` is its
-wrapper (one phase-1 launch, then one diamond launch per trapezoid dim,
-counted in ``trapezoid_chunk.phase1_launches`` and
-``trapezoid_chunk.diamond_launches``); its plain version is
-:func:`plain_chunk` over the K steps.
+(``-trapezoid``): the port's one kernel that advances K time levels
+inside one launch, each level running every stage and scratch sub-stage
+of K6, with misc slices and element size 2.  :class:`TrapezoidKernel`
+holds the spec ``cuda_emit.resolve_trapezoid`` returns;
+:func:`trapezoid_chunk` is its wrapper (one phase-1 launch, then one
+diamond launch per trapezoid dim, counted in
+``trapezoid_chunk.phase1_launches`` and
+``trapezoid_chunk.diamond_launches``), :func:`batched_trapezoid_chunk`
+its member batch (K7 over K4, its own counters); level buffers that do
+not fit shared memory live in a workspace of the card's resident blocks
+(:meth:`TrapezoidKernel.workspace`).  Its plain versions are
+:func:`plain_chunk` and :func:`plain_batched_chunk` over the K steps.
 """
 
 from __future__ import annotations
@@ -915,25 +920,133 @@ class FusedKernel:
 
 # ==== K4: the trapezoid/diamond two-phase tiling ==========================
 # Replaces the trapezoid arm of build_pallas_chunk (pallas_stencil.py:
-# :812-930 resolution, :1514-1553 diamond sub-builds, :2331-2416 host
-# stitch): one K-step group is one launch of phase 1 (trapezoid_kernel,
-# K levels per tile inside the launch) and one launch per trapezoid dim
-# of the diamonds (diamond_kernel), which write their bands straight into
-# phase 1's outputs.  Bound by bytes: iso3dfd r=2 at K=4 moves 5 B per
+# :812-930 resolution, :1514-1553 diamond sub-builds, :2058-2188 the stage
+# loop inside each level, :2331-2416 host stitch): one K-step group is one
+# launch of phase 1 (trapezoid_kernel, K levels per tile inside the
+# launch, every sub-stage of K6 inside each level) and one launch per
+# trapezoid dim of the diamonds (diamond_kernel), which write their bands
+# straight into phase 1's outputs; and the member batch the reference
+# vmaps over it (yask_tpu/runtime/ensemble.py:253-263), the same kernels
+# with BATCH = true.  Bound by bytes: iso3dfd r=2 at K=4 moves 5 B per
 # point per step (p(t), p(t-1), vel read once and two levels written per
 # group of 4) against K1's 16.  csrc/trapezoid.cuh has the design.
 
 
+def trapezoid_argtypes():
+    """K4's solo C signature: the pass, K1's tables, the step, the
+    workspace and its resident blocks, the stream."""
+    return [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+
+
+def trap_batched_argtypes():
+    """K4's member-batch C signature (``<name>_trap_batched``): the pass,
+    K7's tables, the member count, the step, the workspace and its
+    resident blocks, the stream."""
+    return [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def call_trapezoid_entry(fn, program, spec, ins, outs, pas: int, t: int,
-                         stream) -> int:
+                         stream, ws=None, nres: int = 0) -> int:
     """Call pass ``pas`` of an emitted K4 entry point (0 = phase 1,
     D = the diamonds of the D-th trapezoid dim): K1's arguments after the
-    pass index.  Returns its error code."""
+    pass index, then the workspace tensor ``ws`` of ``nres`` resident
+    blocks (None where no pass has one; the host path allocates its own).
+    Returns its error code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
     return fn(int(pas), ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
-              ctypes.addressof(n3), int(t), stream)
+              ctypes.addressof(n3), int(t), _ptr(ws), int(nres), stream)
+
+
+def call_trap_batched_entry(fn, program, spec, ins, outs, pas: int, nm: int,
+                            t: int, stream, ws=None, nres: int = 0) -> int:
+    """Call pass ``pas`` of K4's member-batch entry on (nm, *shape)
+    stacks: member 0's tables and the member strides, as
+    :func:`call_batched_entry` passes them, then the workspace."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
+        program, spec, [a[0] for a in ins], [o[0] for o in outs])
+
+    def member_strides(tensors):
+        return (ctypes.c_longlong * max(len(tensors), 1))(
+            *[a.stride(0) for a in tensors])
+    in_ms = member_strides(ins)
+    out_ms = member_strides([outs[i] for i, _m in spec.out_slices])
+    return fn(int(pas), ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
+              ctypes.addressof(out_s), ctypes.addressof(out_ms),
+              ctypes.addressof(n3), int(nm), int(t), _ptr(ws), int(nres),
+              stream)
+
+
+def trap_outputs(kernel: "TrapezoidKernel", state, dev, lead=()):
+    """The output tensors of one K4 group (``lead +`` the padded shape):
+    uninitialised, as the passes write every interior cell and the pads
+    are re-zeroed after, except that a var some of whose misc slices no
+    equation writes (``spec.base_outputs``) starts level L from a device
+    copy of ring slot (L − 1) mod S, which is what the plain version's
+    copies of the evicted slots carry there (counted in
+    ``copy_base.launches``)."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    outs = []
+    for n, L in zip(spec.outputs, spec.trap["out_levels"]):
+        if n in spec.base_outputs:
+            outs.append(state[n][(L - 1) % prog.geoms[n].num_slots].clone())
+            copy_base.launches += 1
+        else:
+            outs.append(torch.empty(tuple(lead) + tuple(prog.geoms[n].shape),
+                                    dtype=kernel.dtype, device=dev))
+    return outs
+
+
+def _trap_group(kernel: "TrapezoidKernel", state, t0: int, K: int, nm: int,
+                counter):
+    """One K-step group of K4, solo (``nm`` 0) or over ``nm`` stacked
+    members: every pass on the current CUDA stream into
+    :func:`trap_outputs`, pads re-zeroed, rings rotated; each launch
+    counted on ``counter``."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    if K != spec.trap["K"]:
+        raise YaskException(f"K4 kernel '{spec.name}' runs groups of "
+                            f"{spec.trap['K']} steps, not {K}")
+    lead = (nm,) if nm else ()
+    ins, dev = _check_inputs(kernel, state, lead=lead)
+    outs = trap_outputs(kernel, state, dev, lead)
+    with torch.cuda.device(dev):
+        ws, nres = kernel.workspace(dev, bool(nm))
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for pas, rep in enumerate(spec.trap["passes"]):
+            if nm:
+                rc = call_trap_batched_entry(kernel.batched_fn, prog, spec,
+                                             ins, outs, pas, nm, t0, stream,
+                                             ws, nres)
+            else:
+                rc = call_trapezoid_entry(kernel.fn, prog, spec, ins, outs,
+                                          pas, t0, stream, ws, nres)
+            if rc != 0:
+                raise YaskException(
+                    f"K4 kernel '{spec.name}' {rep['kernel']}"
+                    f"{' (member batch)' if nm else ''} launch failed: "
+                    f"CUDA error {rc}")
+            if pas == 0:
+                counter.phase1_launches += 1
+            else:
+                counter.diamond_launches += 1
+    for name, o in zip(spec.outputs, outs):
+        for m in (o if nm else [o]):
+            _zero_pads(prog, name, m)
+    return _rotated(prog, spec, state, outs)
 
 
 def trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int, K: int):
@@ -944,43 +1057,34 @@ def trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int, K: int):
     then the group's newest levels, pallas_stencil.py:2371).  Counts
     phase-1 launches in ``trapezoid_chunk.phase1_launches`` and diamond
     launches in ``trapezoid_chunk.diamond_launches``."""
-    import torch
-    prog = kernel.program
-    spec = kernel.spec
-    if K != spec.trap["K"]:
-        raise YaskException(f"K4 kernel '{spec.name}' runs groups of "
-                            f"{spec.trap['K']} steps, not {K}")
-    ins, dev = _check_inputs(kernel, state)
-    outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
-                        device=dev) for n in spec.outputs]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for pas, rep in enumerate(spec.trap["passes"]):
-            rc = call_trapezoid_entry(kernel.fn, prog, spec, ins, outs, pas,
-                                      t0, stream)
-            if rc != 0:
-                raise YaskException(
-                    f"K4 kernel '{spec.name}' {rep['kernel']} launch "
-                    f"failed: CUDA error {rc}")
-            if pas == 0:
-                trapezoid_chunk.phase1_launches += 1
-            else:
-                trapezoid_chunk.diamond_launches += 1
-    for name, o in zip(spec.outputs, outs):
-        _zero_pads(prog, name, o)
-    return _rotated(prog, spec, state, outs)
+    return _trap_group(kernel, state, t0, K, 0, trapezoid_chunk)
 
 
 trapezoid_chunk.phase1_launches = 0
 trapezoid_chunk.diamond_launches = 0
 
 
+def batched_trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int,
+                            K: int, nm: int):
+    """K7 over K4: one K-step group of ``nm`` members stacked as (nm,
+    *shape) per ring slot, each pass one launch for all members
+    (``<name>_trap_batched``); returns the new stacked state.  Counts in
+    ``batched_trapezoid_chunk.phase1_launches`` and ``.diamond_launches``.
+    As the reference's vmapped chunk, it never pushes."""
+    return _trap_group(kernel, state, t0, K, nm, batched_trapezoid_chunk)
+
+
+batched_trapezoid_chunk.phase1_launches = 0
+batched_trapezoid_chunk.diamond_launches = 0
+
+
 class TrapezoidKernel(FusedKernel):
     """K4 for one planned solution and group depth: the spec
     :func:`~yask_tpu_torch.ops.cuda_emit.resolve_trapezoid` returned and,
-    after :meth:`build`, the loaded library.  ``chunk`` is the wrapper:
-    CPU tensors take :func:`plain_chunk` over the K steps, CUDA tensors
-    launch the kernels."""
+    after :meth:`build`, the loaded library.  ``chunk`` (solo) and
+    ``batched_chunk`` (a member batch) are the wrappers: CPU tensors take
+    :func:`plain_chunk` / :func:`plain_batched_chunk` over the K steps,
+    CUDA tensors launch the kernels or raise."""
 
     def __init__(self, program, spec):
         self.program = program
@@ -988,6 +1092,8 @@ class TrapezoidKernel(FusedKernel):
         self.K = spec.trap["K"]
         self.fn = None
         self.batched_fn = None
+        self.resident_fn = None
+        self._resident: Dict[bool, int] = {}
         self.build_secs = 0.0
         self.dtype = None
         self.cache_hit = None
@@ -998,39 +1104,90 @@ class TrapezoidKernel(FusedKernel):
             return 0.0
         lib, secs = self._load()
         fn = getattr(lib, self.spec.name)
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = trapezoid_argtypes()
         fn.restype = ctypes.c_int
-        self.fn = fn
+        bfn = getattr(lib, self.spec.name + "_trap_batched")
+        bfn.argtypes = trap_batched_argtypes()
+        bfn.restype = ctypes.c_int
+        rfn = getattr(lib, self.spec.name + "_trap_resident")
+        rfn.argtypes = [ctypes.c_int, ctypes.c_int]
+        rfn.restype = ctypes.c_int
+        self.fn, self.batched_fn, self.resident_fn = fn, bfn, rfn
         return secs
 
-    def chunk(self, state, t0: int, k: int):
-        """Advance one group of K steps from ``t0``."""
+    def workspace(self, dev, batched: bool):
+        """The level-buffer workspace of a group: a tensor of the blocks
+        the card holds at once (the most over the passes that have one)
+        times the most buffer elements one of their blocks takes, and that
+        block count; (None, 0) where every buffer fits shared memory."""
+        import torch
+        passes = self.spec.trap["passes"]
+        per = max(p["ws_block_bytes"] for p in passes)
+        if not per:
+            return None, 0
+        if batched not in self._resident:
+            res = [self.resident_fn(i, int(batched))
+                   for i, p in enumerate(passes) if p["ws_buffers"]]
+            if min(res) < 1:
+                raise YaskException(
+                    f"K4 kernel '{self.spec.name}': the resident-block "
+                    f"query failed: CUDA error {-min(res)}")
+            self._resident[batched] = max(res)
+        nres = self._resident[batched]
+        esize = torch.empty((), dtype=self.dtype).element_size()
+        return (torch.empty(nres * per // esize, dtype=self.dtype,
+                            device=dev), nres)
+
+    def _ready(self, state, k: int):
+        """The state's device after the group-length and device checks;
+        builds on a CUDA device."""
         if k != self.K:
             raise YaskException(f"K4 advances groups of {self.K} steps, "
                                 f"not {k}")
         dev = self._device_of(state)
-        if dev.type == "cpu":
-            return plain_chunk(self.program, state, t0, k)
-        if dev.type != "cuda":
+        if dev.type not in ("cpu", "cuda"):
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
-        self.build()
+        if dev.type == "cuda":
+            self.build()
+        return dev
+
+    def chunk(self, state, t0: int, k: int):
+        """Advance one group of K steps from ``t0``."""
+        if self._ready(state, k).type == "cpu":
+            return plain_chunk(self.program, state, t0, k)
         return trapezoid_chunk(self, state, t0, k)
 
-    def tiling(self, fuse_steps: int) -> Dict[str, object]:
-        """The tiling the K-step groups run with."""
+    def batched_chunk(self, state, t0: int, k: int, nm: int):
+        """Advance ``nm`` members stacked as (nm, *shape) per ring slot by
+        one group of K steps from ``t0``."""
+        if self._ready(state, k).type == "cpu":
+            return plain_batched_chunk(self.program, state, t0, k, nm)
+        return batched_trapezoid_chunk(self, state, t0, k, nm)
+
+    def tiling(self, fuse_steps: int, members: int = 0) -> Dict[str, object]:
+        """The tiling the K-step groups run with (``members``: that of a
+        member batch of that many members)."""
         tr = self.spec.trap
-        return {"kernel": "trapezoid_chunk", "name": self.spec.name,
-                "fuse_steps": fuse_steps,
-                "launches_per_group": len(tr["passes"]),
-                "trapezoid": True, "trap_dims": list(tr["trap_dims"]),
-                "block": dict(tr["block"]),
-                "passes": [dict(p) for p in tr["passes"]],
-                "diamond": [{k: d[k] for k in ("dim", "stride", "nbounds",
-                                               "half", "band")}
-                            for d in tr["diamond"]],
-                "smem_bytes": self.spec.smem_bytes,
-                "threads": tr["threads"], "level_buffers": tr["buffers"],
-                "push": False, "push_vars": [], "pipeline_dmas": False,
-                "skew_dims": []}
+        out = {"kernel": "trapezoid_chunk", "name": self.spec.name,
+               "fuse_steps": fuse_steps,
+               "launches_per_group": len(tr["passes"]),
+               "trapezoid": True, "trap_dims": list(tr["trap_dims"]),
+               "block": dict(tr["block"]),
+               "passes": [dict(p) for p in tr["passes"]],
+               "diamond": [{k: d[k] for k in ("dim", "stride", "nbounds",
+                                              "half", "band")}
+                           for d in tr["diamond"]],
+               "smem_bytes": self.spec.smem_bytes,
+               "threads": tr["threads"], "level_buffers": tr["buffers"],
+               "sub_stages": tr["sub_stages"],
+               "scratch_stages": tr["scratch_stages"],
+               "stage_widths": [dict(w) for w in tr["stage_widths"]],
+               "ws_block_bytes": tr["ws_block_bytes"],
+               "push": False, "push_vars": [], "pipeline_dmas": False,
+               "skew_dims": []}
+        if members:
+            out.update(kernel="batched_trapezoid_chunk",
+                       name=self.spec.name + "_trap_batched",
+                       members=members)
+        return out

@@ -51,6 +51,8 @@ class TilePlan:
     * :meth:`diamond` — the fill-pass geometry of a trapezoid dim;
     * :meth:`halo` — the uniform fused halo radius×K;
     * :meth:`dataflow` — per-level read/write intervals of one tile;
+    * :meth:`stage_widths` / :meth:`stage_flow` — per-stage widths and
+      per-level, per-stage write/read windows of a multi-stage solution;
     * :meth:`volumes` — (useful, computed, fetched) cells per K-group for
       the profit gate.
     """
@@ -168,6 +170,53 @@ class TilePlan:
                 entry["read"][d] = (lo, hi)
             steps.append(entry)
         return steps
+
+    # -- multi-stage dataflow ------------------------------------------
+
+    def stage_widths(self) -> List[Dict[str, int]]:
+        """Per analysis stage, per lead dim: the widest one-side ghost
+        width the stage's reads consume (``program.stage_reads``, a
+        scratch part's write halo included).  Per dim they sum to
+        ``self.rad`` (``fused_step_radius``)."""
+        out = []
+        for reads in self.program.stage_reads:
+            w = {d: 0 for d in self.lead}
+            for vv in reads.values():
+                for d, (lo, hi) in vv.items():
+                    if d in w:
+                        w[d] = max(w[d], lo, hi)
+            out.append(w)
+        return out
+
+    def stage_flow(self, block: Dict[str, int]) -> List[Dict]:
+        """Per level, per analysis stage: the stage's write and read
+        intervals of one tile (tile-origin-relative, lead dims).  The
+        final stage writes the level's window (:meth:`dataflow`'s
+        ``write``); each earlier stage's window is grown per side by the
+        widths of the stages after it, so stage ``s``'s read interval is
+        stage ``s−1``'s write interval.  K4 computes each stage (and
+        scratch sub-stage) of a level inside these windows
+        (``cuda_emit.emit_trapezoid`` checks it)."""
+        sw = self.stage_widths()
+        tails: List[Dict[str, int]] = []
+        acc = {d: 0 for d in self.lead}
+        for w in reversed(sw):
+            tails.append(dict(acc))
+            acc = {d: acc[d] + w[d] for d in self.lead}
+        tails.reverse()
+        flow = []
+        for entry in self.dataflow(block):
+            stages = []
+            for si, w in enumerate(sw):
+                wr, rd = {}, {}
+                for d in self.lead:
+                    lo, hi = entry["write"][d]
+                    t = tails[si][d]
+                    wr[d] = (lo - t, hi + t)
+                    rd[d] = (lo - t - w[d], hi + t + w[d])
+                stages.append({"stage": si, "write": wr, "read": rd})
+            flow.append({"level": entry["level"], "stages": stages})
+        return flow
 
     # -- cost model ----------------------------------------------------
 

@@ -17,8 +17,9 @@ Execution modes (``-mode``):
   With ``-skew`` (on by default) a 3-D single-stage solution runs K1's
   stream arm instead (``stream_step``; ``-no-skew`` keeps K1).  With
   ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
-  instead (phase 1 and the diamond launches), the remainder on K1 or its
-  stream arm;
+  instead (phase 1 and the diamond launches, every stage of K6 inside
+  each level), the remainder on K1, its stream arm or K6; a member batch
+  likewise on K4's member batch;
 * ``ref`` — the eager numpy oracle (the reference's ``run_ref``);
 * ``shard_map``, ``sharded``, ``shard_pallas`` — the domain decomposed
   over the env's device list by ``-nr`` (:mod:`yask_tpu_torch.parallel`):
@@ -346,10 +347,6 @@ class StencilContext:
             pending.append("ckpt_every/watchdog_every/run_deadline: "
                            "ROADMAP.md A10 (checkpoint and supervised "
                            "runs)")
-        if self._trapezoid_arg() is not False and o.ensemble > 1 \
-                and o.mode == "fused":
-            pending.append(f"-trapezoid with -ensemble {o.ensemble}: "
-                           "ROADMAP.md A12 (batched K4)")
         self._push_arg()   # a bad -push value raises
         if pending:
             raise YaskException(
@@ -656,8 +653,9 @@ class StencilContext:
 
     def _trapezoid_kernel(self):
         """K4 for this prepared solution's groups of K = ``wf_steps``
-        steps, or None when they run on K1; resolved once per prepare,
-        with its reason records."""
+        steps (solo and member batches alike: it never pushes), or None
+        when they run on K1 or K6; resolved once per prepare, with its
+        reason records."""
         if self._trap is None:
             from yask_tpu_torch.ops.cuda_emit import resolve_trapezoid
             from yask_tpu_torch.ops.fused_stencil import TrapezoidKernel
@@ -675,6 +673,14 @@ class StencilContext:
             self._trap = (TrapezoidKernel(self._program, spec)
                           if spec is not None else None, reasons)
         return self._trap[0]
+
+    def _built_trapezoid_kernel(self):
+        """:meth:`_trapezoid_kernel`, built on a CUDA device (nvcc at first
+        use, counted as compile time)."""
+        trap = self._trapezoid_kernel()
+        if trap is not None and self._device.type == "cuda":
+            self._compile_secs += trap.build()
+        return trap
 
     def _skew_arg(self):
         """The stream-arm request (``FusedKernel(skew=)``): ``-skew`` =
@@ -710,7 +716,10 @@ class StencilContext:
         one (the reference's vmapped chunk is built with ``push=False``,
         so a batch materialises the vars a solo run pushes, and a forced
         push with nothing to push does not raise; ROADMAP.md §C16).
-        Built on a CUDA device, as :meth:`_fused_kernel`."""
+        Built on a CUDA device, as :meth:`_fused_kernel`.  Under
+        ``-trapezoid`` a batch's K-step groups run on K4's member batch
+        (:meth:`_trapezoid_kernel`, which never pushes) and only its
+        remainder steps on this one."""
         if self._push_arg() is False:
             kern = self._fused_spec_kernel()
         else:
@@ -763,11 +772,14 @@ class StencilContext:
                     self.comm_plan(K).key(), self._opts.overlap_exchange)
         if self._mode != "fused":
             return (self._mode,)
-        kern = self._fused_spec_kernel()
-        return ("fused", max(self._opts.wf_steps, 1),
-                kern.spec.name if kern.spec is not None else "",
-                tuple(kern.skew_dims), self._trapezoid_arg(),
-                self._push_arg(), self._pipeline_sig or "")
+        trap = self._trapezoid_kernel()
+        kern = self._fused_spec_kernel() if trap is None else None
+        name = (trap.spec.name if trap is not None else
+                kern.spec.name if kern.spec is not None else "")
+        return ("fused", max(self._opts.wf_steps, 1), name,
+                tuple(kern.skew_dims) if kern is not None else (),
+                self._trapezoid_arg(), self._push_arg(),
+                self._pipeline_sig or "")
 
     def _run_fused_steps(self, start: int, n: int) -> None:
         """⌊n/K⌋ chunks of K steps (K = wf_steps) plus a remainder chunk,
@@ -777,14 +789,13 @@ class StencilContext:
         through the fused kernel."""
         self._state_to_device()
         K = max(self._opts.wf_steps, 1)
-        trap = self._trapezoid_kernel()
-        if trap is not None and self._device.type == "cuda":
-            self._compile_secs += trap.build()
+        trap = self._built_trapezoid_kernel()
         chunks = self._chunks(n, K)
-        # K1 is emitted for the tiling report, built only where it runs
+        # K1/K6 is emitted and built only where it runs: K4 takes
+        # solutions whose K6 tiles do not fit shared memory (tti r=8,
+        # ROADMAP.md C17)
         kern = (self._fused_kernel()
-                if trap is None or any(k != K for k in chunks)
-                else self._fused_spec_kernel())
+                if trap is None or any(k != K for k in chunks) else None)
         dirn = self._ana.step_dir
         with self._run_timer:
             st, t = self._state, start
@@ -890,7 +901,8 @@ class StencilContext:
             hbm_peak *= self._mesh.num_cards()
             if self._mode == "shard_pallas" and self._shard is not None:
                 tiling = self._shard.tiling
-        if self._mode == "fused" and self._fused is not None:
+        if self._mode == "fused" and (self._fused is not None
+                                      or (self._trap and self._trap[0])):
             K = max(self._opts.wf_steps, 1)
             trap, reasons = self._trap or (None, [])
             tiling = (trap or self._fused).tiling(K)

@@ -15,7 +15,10 @@ writes, element size 2 and more than three domain dims.  It never
 pushes: the reference builds its member batch with ``push=False``, so
 the context hands it a push-off kernel (``StencilContext._batched_kernel``)
 and a var a solo run pushes is materialised in a batch (ROADMAP.md §C16).
-``-trapezoid`` has no member batch (ROADMAP.md A12).  One prepared
+Under ``-trapezoid`` each K-step group of a batch runs on K4's member
+batch (:func:`yask_tpu_torch.ops.fused_stencil.batched_trapezoid_chunk`,
+as the reference vmaps its trapezoid chunk) where the context's gate
+resolves K4, and the remainder steps on K7.  One prepared
 context serves every member: :class:`RunState` is what a member is.
 
 Feasibility is a mode property with one definition
@@ -101,9 +104,6 @@ def ensemble_feasible(ctx) -> Tuple[bool, str]:
     mode = ctx._mode or ctx._opts.mode
     if mode == "auto":
         mode = "torch"
-    if mode == "fused" and ctx._trapezoid_arg() is not False:
-        return False, ("-trapezoid in fused mode has no member-batched "
-                       "kernel: ROADMAP.md A12 (batched K4)")
     if mode in BATCHED_MODES:
         return True, ""
     if mode == "ref":
@@ -241,20 +241,27 @@ class EnsembleRun:
 
     def _run_batched(self, start: int, n: int) -> None:
         """K7 chunks over the stacked members: ⌊n/K⌋ chunks of K steps
-        (K = wf_steps) plus a remainder, one launch per step."""
+        (K = wf_steps) plus a remainder, one launch per step; where
+        ``-trapezoid`` resolved K4, each K-step group is one K4 member
+        batch (a launch per pass) and the remainder runs on K7."""
         ctx = self._ctx
         batched = self._stack_states()
-        kern = ctx._batched_kernel()
         K = max(ctx._opts.wf_steps, 1)
+        trap = ctx._built_trapezoid_kernel()
+        chunks = ctx._chunks(n, K)
+        # K7 is emitted and built only where it runs
+        kern = (ctx._batched_kernel()
+                if trap is None or any(k != K for k in chunks) else None)
         dirn = ctx._ana.step_dir
         with self._members[0].run_timer:
             st, t = batched, start
-            for k in ctx._chunks(n, K):
-                st = kern.batched_chunk(st, t, k, self.n)
+            for k in chunks:
+                st = (trap if trap is not None and k == K
+                      else kern).batched_chunk(st, t, k, self.n)
                 t += k * dirn
             ctx._sync()
         self._unstack_states(st)
-        self.tiling = kern.tiling(K, members=self.n)
+        self.tiling = (trap or kern).tiling(K, members=self.n)
 
     def _mask_member_state(self, i: int, masks) -> None:
         """Zero member ``i``'s state outside its sub-domain (``masks``

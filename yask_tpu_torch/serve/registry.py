@@ -53,11 +53,6 @@ class Profile:
             opts += " " + self.options
         ctx.apply_command_line_options(opts)
         ctx.get_settings().mode = mode
-        if mode == "fused" and ctx._trapezoid_arg() is not False:
-            raise YaskException(
-                "a served fused session with -trapezoid: requests batch "
-                "through K7, which has no K4 arm (ROADMAP.md A12 (batched "
-                "K4))")
         ctx.prepare_solution()
         return ctx
 

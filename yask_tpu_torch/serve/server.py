@@ -223,8 +223,9 @@ class StencilServer:
 
     def prewarm(self, sid: str, steps: int) -> int:
         """Build the session's fused kernel (nvcc at first use) ahead of
-        the first request, under the ``serve.run`` guard, and the member
-        batch's kernel where that is another (a push-off build).  Returns
+        the first request, under the ``serve.run`` guard, the member
+        batch's kernel where that is another (a push-off build), and K4
+        where ``-trapezoid`` resolves it.  Returns
         1 for a fused session, 0 otherwise (torch mode builds nothing).
         ``steps`` is kept for parity."""
         from yask_tpu_torch.resilience.guard import guarded_call
@@ -233,7 +234,9 @@ class StencilServer:
             if sess.mode != "fused":
                 return 0
             guarded_call(lambda: (ctx._fused_kernel(),
-                                  ctx._batched_kernel()), site="serve.run")
+                                  ctx._batched_kernel(),
+                                  ctx._built_trapezoid_kernel()),
+                         site="serve.run")
             return 1
 
     # ------------------------------------------------------- metrics

@@ -269,7 +269,32 @@ script exits 0 only when all of them passed.  Phases:
    member bit-equal to its solo K4 run, the batched group against 8 solo
    groups; then a ``StencilServer`` batch of 4 tti r=2 sessions at 128³
    under ``-trapezoid``, all ok and batched, each bit-identical to its
-   solo K4 run.
+   solo K4 run;
+15. the workspace arm of K1 and K6 (solutions whose tiles fit no rung of
+   the shared-memory ladder: the tiles past 227 KB in a device-memory
+   workspace of the card's resident blocks, which walk the tiles) and
+   K4's 4-D arm (the outer dims as uniform window dims).  (a) tti r=8 and
+   ssg r=8 at 512³ fp32, ``-mode fused -wf_steps 2``, seeded in physical
+   ranges: a warm-up, then 3 trials of 5 steps with the counters zeroed
+   just before (K6's wrapper alone launches), ms/step and per launch
+   against the bound (the live inputs read once, each output written
+   once), the workspace and the peak memory; against the plain version
+   at ``field_epsilon``: one launch at 512³ over nine boxes of 32³ (the
+   eight corners and the centre; a full-width plain step of tti r=8 does
+   not fit the card), and one 2-step chunk at 256³ seeded alike; (b) at
+   mid width, each bit-equal to its twin: a K7 batch of 3 tti r=8
+   members against each member's solo run, ssg r=8 under ``-mode
+   shard_pallas -nr_x 2 -nr_y 2`` against the single-domain run, tti r=8
+   in bfloat16 against the arm at another rung (and its plain version at
+   the bfloat16 tolerance); (c) test_4d at 128⁴ fp32 ``-wf_steps 2`` under forced
+   ``-trapezoid``: a warm-up group, then 3 trials of 5 groups (K4 alone
+   launches), bit-equal on the card to its ``-no-trapezoid`` twin (K1),
+   ms per group and per step against the bound (each K4 input read
+   once, each output level written once); (d) at mid width, one group
+   each, bit-equal to the ``-no-trapezoid`` twin and against the plain
+   version: four_d_stages, test_4d in bfloat16, and an ``EnsembleRun``
+   of 4 test_4d members under K4, each member bit-equal to its solo K4
+   run.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -1901,13 +1926,55 @@ def tile_kernel(program, push, tile):
     return kern
 
 
+def boxes_vs_plain(kern, state, t: int, edge: int = 32) -> tuple:
+    """One launch of ``kern`` over its whole state (one sub-step from step
+    ``t``) against the plain version over boxes of ``edge``³ interior
+    cells of the same inputs: the eight corners and the centre
+    (``plain_shard_chunk`` of the program at global origin 0, each stage
+    over the box grown by the later stages' ghost widths; a full-width
+    plain step of tti r=8 does not fit the card).  Returns (max |d|,
+    cells whose bits differ, the boxes' field max, boxes)."""
+    import itertools
+    from yask_tpu_torch.ops.fused_stencil import (
+        _box_idx, _with_offset, plain_shard_chunk)
+    prog, spec = kern.program, kern.spec
+    dims = list(prog.ana.domain_dims)
+    n = {d: prog.sizes[d] for d in dims}
+    boxes = [{d: (0, edge) if lo else (n[d] - edge, n[d])
+              for d, lo in zip(dims, c)}
+             for c in itertools.product((True, False), repeat=len(dims))]
+    boxes.append({d: (n[d] // 2 - edge // 2, n[d] // 2 + edge // 2)
+                  for d in dims})
+    dev = state[spec.outputs[0]][0].device
+    shifted = _with_offset(prog, {}, dev)
+    a = kern.chunk(dict(state), t, 1)
+    err, nbits, scale = 0.0, 0, 0.0
+    for box in boxes:
+        b = plain_shard_chunk(shifted, state, t, box, spec.base_outputs)
+        for name in spec.outputs:
+            idx = _box_idx(prog.geoms[name], box)
+            x, y = a[name][-1][idx], b[name][-1][idx]
+            err = max(err, float((x.float() - y.float()).abs().max()))
+            nbits += int((x != y).sum())
+            scale = max(scale, float(y.float().abs().max()))
+        del b
+    del a
+    return err, nbits, scale, len(boxes)
+
+
 def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
                 warm: int = 2, trials: int = 3, steps: int = 20,
-                eb: int = 4, sweep: bool = True) -> dict:
+                eb: int = 4, sweep: bool = True, seed=None,
+                plain_g: int = 0) -> dict:
     """Phase 9 (c), and phase 11 (c) at element size ``eb`` = 2: ``st``
     at ``g``³ ``-mode fused -wf_steps 2`` through the user's entry
-    points; with ``sweep``, K6 at the ladder's next smaller tiles too;
-    returns the arm's ``kernels`` entry."""
+    points, seeded by ``seed(ctx)`` (:func:`seed_physical` by default);
+    with ``sweep``, K6 at the ladder's next smaller tiles too; with
+    ``plain_g``, the plain version is timed and held against a 2-step
+    chunk on a context of ``plain_g``³ seeded alike (its full-width run
+    does not fit the card: tti r=8's memoized sub-expressions), and one
+    launch at ``g``³ is held against it over the corner and centre boxes
+    (:func:`boxes_vs_plain`).  Returns the arm's ``kernels`` entry."""
     import torch
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
     npts = g ** 3
@@ -1916,7 +1983,7 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ctx = a3_ctx(fac, env, st, r, eb, (g, g, g), "fused", 2)
-    seed_physical(ctx, 11)
+    (seed or (lambda c: seed_physical(c, 11)))(ctx)
     dt = "bf16" if eb == 2 else "fp32"
     what = f"{st} r={r} {g}^3 {dt} ({arm})"
     eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
@@ -1953,9 +2020,25 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     kern, state = ctx._fused, ctx._state
     ms = cuda_ms(lambda: stages_step(kern, state, t), 5)
     prog = ctx._program
-    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 2)
-    a = kern.chunk(dict(state), t, 2)
-    b = plain_chunk(prog, dict(state), t, 2)
+    pk, pstate, pprog, pt, pg = kern, state, prog, t, g
+    full_check = ""
+    if plain_g:
+        # the kernel at full width against the plain version over boxes
+        b_err, b_bits, b_scale, nbox = boxes_vs_plain(kern, state, t)
+        full_check = (f"one launch at {g}^3 vs plain over {nbox} boxes of "
+                      f"32^3 (the corners and the centre): max|d|="
+                      f"{b_err:.3e} (field max {b_scale:.3e}), {b_bits} "
+                      "cells differ in their bits; ")
+        if not b_err <= eps * b_scale:
+            raise RuntimeError(f"{what}: K6 at {g}^3 and its plain version "
+                               "disagree over the boxes")
+        small = a3_ctx(fac, env, st, r, eb, (plain_g,) * 3, "fused", 2)
+        (seed or (lambda c: seed_physical(c, 11)))(small)
+        pk, pstate, pprog, pt, pg = (small._fused_kernel(), small._state,
+                                     small._program, 0, plain_g)
+    plain_ms = cuda_ms(lambda: plain_chunk(pprog, pstate, pt, 1), 2)
+    a = pk.chunk(dict(pstate), pt, 2)
+    b = plain_chunk(pprog, dict(pstate), pt, 2)
     err, nbits, scale = 0.0, 0, 0.0
     for n in kern.spec.outputs:
         for x, y in zip(a[n][-2:], b[n][-2:]):
@@ -1995,14 +2078,17 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
         f"{bound_ms / ms:.3f} per launch, {bound_ms / step_ms:.3f} per step;"
         f" tiling: {til['stages']} sub-stages ({til['scratch_stages']} of "
         f"scratch vars), tile {til['tile']}, smem {til['smem_bytes']} B; "
+        + (f"workspace arm {til['workspace']}; " if "workspace" in til
+           else "") +
         f"per point of the block: {staged:.2f} staged input cells "
         f"({len(kern.spec.tiled)} inputs), computed cells per sub-stage "
         f"{[round(x, 2) for x in computed]}; live inputs {len(live)} of "
         f"{len(kern.spec.inputs)} (dead: "
         f"{sorted(set(kern.spec.inputs) - set(live))}); "
-        f"plain version {plain_ms:.3f} ms/step (not a yardstick); one "
-        f"2-step chunk vs plain: max|d|={err:.3e} (field max {scale:.3e}), "
-        f"{nbits} cells differ in their bits; "
+        f"plain version {plain_ms:.3f} ms/step at {pg}^3 (not a "
+        f"yardstick); one 2-step chunk vs plain at {pg}^3: max|d|="
+        f"{err:.3e} (field max {scale:.3e}), "
+        f"{nbits} cells differ in their bits; {full_check}"
         f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
         f"[{card}]")
     for v in rows:
@@ -2015,6 +2101,8 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
             f"same bits [{card}]")
     if not err <= eps * scale:
         raise RuntimeError(f"{what}: K6 and its plain version disagree")
+    if plain_g:
+        err = max(err, b_err)
     del ctx, kern, state
     torch.cuda.empty_cache()
     return {"name": f"stages_step ({arm})", "route": "cuda",
@@ -2023,6 +2111,7 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "per": f"launch, {st} r={r} {g}^3 {dt}",
+            "plain_per": f"step at {pg}^3",
             "step_ms": step_ms, "bytes_per_point": nbytes / npts,
             "state_bytes": state_bytes, "staged_cells_per_point": staged,
             "computed_cells_per_point": computed, "tile_sweep": rows}
@@ -2789,7 +2878,8 @@ def k7_bound(ctx, nm: int, live=None) -> tuple:
             "bytes" if bytes_ms >= flops_ms else "operations", nm * nbytes)
 
 
-def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5) -> list:
+def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5,
+             cases=None) -> list:
     """Phase 12 (a): each arm's member batch at mid width through
     ``EnsembleRun`` (K = 2, ``steps`` steps, the counters zeroed just
     before and read just after), each member against its solo ``-mode
@@ -2799,7 +2889,7 @@ def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5) -> list:
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     entries = []
-    for arm, st, r, eb, sizes, wrapper in K7_CASES:
+    for arm, st, r, eb, sizes, wrapper in cases or K7_CASES:
         eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
         ctx, ens = member_batch(fac, env, st, r, eb, sizes, nm,
                                 lambda c, i: seed_case(c, 100 + i))
@@ -3528,8 +3618,12 @@ K4_FULL = (("tti r=2 fp32", "tti", 2, 4, 512, 2, "K6"),
 def k4_ctx(fac, env, st, r, eb, sizes, mode, K, cli="", force=False):
     """:func:`a3_ctx` with K4's request forced (``force``)."""
     from yask_tpu_torch.compiler.solution_base import create_solution
-    src = create_solution(st, radius=r)
-    src.get_soln().set_element_bytes(eb)
+    if st.startswith("four_d_"):
+        src = four_d_stages(st)
+        src.set_element_bytes(eb)
+    else:
+        src = create_solution(st, radius=r)
+        src.get_soln().set_element_bytes(eb)
     ctx = fac.new_solution(env, src)
     if force:
         ctx._trapezoid_arg = lambda: True
@@ -3695,6 +3789,8 @@ def phase14a(fac, env, card: str, cases=K4_MID, rtm: int = 64) -> list:
         del ctxs
         torch.cuda.empty_cache()
 
+    if not rtm:
+        return rows
     # the RTM chain merged by SolutionPipeline, prepare(fuse=True)
     g = (rtm,) * 3
     pipes = {"k4": rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid "
@@ -3740,16 +3836,18 @@ def phase14b(fac, env, card: str, label, st, r, eb, g, K, arm,
     from yask_tpu_torch.ops import cuda_emit
     from yask_tpu_torch.ops.fused_stencil import (
         call_trapezoid_entry, plain_chunk, trapezoid_chunk, trap_outputs)
+    import math
     steps = steps or 5 * K
-    npts = g ** 3
     out = {}
     ctxs = {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for which, cli in (("K4", "-trapezoid"), (arm, "-no-trapezoid")):
         torch.cuda.empty_cache()
-        ctx = k4_ctx(fac, env, st, r, eb, (g, g, g), "fused", K, cli,
+        ctx = k4_ctx(fac, env, st, r, eb, (g,) * 4, "fused", K, cli,
                      force=which == "K4")
+        nd = len(ctx._ana.domain_dims)
+        npts = math.prod(ctx._program.sizes[d] for d in ctx._ana.domain_dims)
         seed_device(ctx, 11, physical=True)
         ctx.run_solution(0, warm * K - 1)
         t = warm * K
@@ -3806,7 +3904,7 @@ def phase14b(fac, env, card: str, label, st, r, eb, g, K, arm,
     bound_ms, bound_by, nbytes = k4_bound(ctx, spec)
     tr = spec.trap
     peak = torch.cuda.max_memory_allocated()
-    log(f"phase 14: {label} {g}^3 -mode fused -wf_steps {K} -trapezoid "
+    log(f"phase 14: {label} {g}^{nd} -mode fused -wf_steps {K} -trapezoid "
         f"(forced): {trials} trials x {steps} steps: {step_ms:.3f} ms/step "
         f"against {arm}'s {twin_ms:.3f} (-no-trapezoid, same seed, "
         f"bit-equal: {bad[1]} cells differ); launches {got}; one group "
@@ -3824,7 +3922,7 @@ def phase14b(fac, env, card: str, label, st, r, eb, g, K, arm,
         f"(both contexts) [{card}]")
     del ctxs, ctx, kern, state, ins
     torch.cuda.empty_cache()
-    return {"name": f"trapezoid_chunk ({label}, {g}^3, K={K})",
+    return {"name": f"trapezoid_chunk ({label}, {g}^{nd}, K={K})",
             "route": "cuda", "source": "yask_tpu_torch/csrc/trapezoid.cuh",
             "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (trapezoid arm"
                         " with the stage loop :2058-2188)",
@@ -4003,6 +4101,261 @@ def phase14(fac, env, card: str) -> list:
     return entries
 
 
+# ---- phase 15: the workspace arm (C17) and K4's 4-D arm ----------------
+
+#: Phase 15 (a): the workspace arm at full width, 512^3 fp32 ``-mode
+#: fused``, and how each is seeded: tti in physical ranges; ssg with its
+#: material vars at 0.05 + 0.01 U (its dt/h is the user's scaling of them:
+#: at the physical ranges' 1-2 its r=8 step grows the field ~150x per step)
+WS_FULL = (("tti", 8, lambda c: seed_physical(c, 11)),
+           ("ssg", 8, lambda c: seed_device(c, 11)))
+#: Phase 15 (b): the arm through K7 (3 members) and K5 (2x2 shards of one
+#: card), at mid width, each bit-equal to its solo or single-domain run
+WS_K7 = (("workspace", "tti", 8, 4, (48, 48, 70), "batched_stages_step"),)
+WS_K5 = (("ssg r=8 K=1 workspace", "ssg", 8, 4, (64, 64, 64), 1, X2Y2,
+          ""),)
+#: Phase 15 (b): tti r=8 in bfloat16 at mid width, and the ladder rung it
+#: is held to the bit against
+WS_BF16 = ("tti", 8, (48, 48, 70), (4, 8, 64))
+#: Phase 15 (c): 4-D K4 at full width (label, stencil, radius, element
+#: bytes, edge, K, twin arm); (d) at mid width (label, stencil, radius,
+#: element bytes, sizes) and the member batch (members, edge)
+K4_4D_FULL = ("test_4d fp32", "test_4d", None, 4, 128, 2, "K1")
+K4_4D_MID = (("four_d_stages", "four_d_stages", None, 4, (24, 32, 32, 33)),
+             ("test_4d bf16", "test_4d", None, 2, (24, 32, 32, 33)))
+K4_4D_BATCH = (4, 32)
+#: what the workspace arm replaces: K1's and K6's tiles (the reference's
+#: VMEM tiles of the scratch and multi-stage chunk)
+WS_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the chunk's VMEM "
+               "tiles of the stage loop :2058-2188 and scratch chains "
+               ":175-179, :2105-2147)")
+K4_4D_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (trapezoid arm on "
+                  "more than three domain dims: the grid over every lead "
+                  "dim :1442, resolution :812-930)")
+
+
+def ws_specs(fac, env) -> dict:
+    """Phase 15's kernels, for phase 1's parallel build (the K4 sources
+    hold their plan, so each is emitted at its size)."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    out = {}
+    for st, r, _seed in WS_FULL:
+        ctx = a3_ctx(fac, env, st, r, 4, (16, 16, 16), "fused")
+        out[f"workspace {st} r={r}"] = FusedKernel(ctx._program).spec
+    st, r, sizes, tile = WS_BF16
+    ctx = a3_ctx(fac, env, st, r, 2, sizes, "fused", 2)
+    out[f"workspace {st} r={r} bf16"] = FusedKernel(ctx._program).spec
+    out[f"workspace {st} r={r} bf16 {tile}"] = tile_kernel(
+        ctx._program, False, tile).spec
+    for label, st, r, eb, sizes, K, ranks, cli in WS_K5:
+        ctx = k5_ctx(fac, st, r, eb, sizes, K, ranks, cli)
+        out[f"K5 {label}"] = shard_pallas_plan(ctx).kernel.spec
+    label, st, r, eb, g, K, _arm = K4_4D_FULL
+    cases = [(label, st, r, eb, (g,) * 4, K)] + [
+        (lab, s_, r_, e_, sz, 2) for lab, s_, r_, e_, sz in K4_4D_MID]
+    nm, gb = K4_4D_BATCH
+    cases.append(("test_4d batch", "test_4d", None, 4, (gb,) * 4, 2))
+    for label, st, r, eb, sizes, K in cases:
+        ctx = k4_ctx(fac, env, st, r, eb, sizes, "fused", K, "-trapezoid",
+                     force=True)
+        out[f"K4 {label}"] = ctx._trapezoid_kernel().spec
+        out[f"K1/K6 {label}"] = FusedKernel(ctx._program).spec
+        del ctx
+    return out
+
+
+def phase15b_bf16(fac, env, card: str, steps: int = 5) -> dict:
+    """Phase 15 (b): tti r=8 in bfloat16 at mid width on the workspace
+    arm, ``steps`` steps with the counters zeroed just before; against
+    its plain version (``-mode torch``) at the bfloat16 field tolerance
+    and, to the bit, against the arm at another rung of the ladder (other
+    tiles, another walk); one launch timed against its bound."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
+    st, r, sizes, tile = WS_BF16
+    ctxs = {k: a3_ctx(fac, env, st, r, 2, sizes, m, 2)
+            for k, m in (("ws", "fused"), ("rung", "fused"),
+                         ("plain", "torch"))}
+    ctxs["rung"]._fused = tile_kernel(ctxs["rung"]._program, False, tile)
+    for c in ctxs.values():
+        seed_physical(c, 17)
+    zero_launch_counts()
+    ctxs["ws"].run_solution(0, steps - 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != {"stages_step": steps}:
+        raise RuntimeError(f"phase 15: tti r=8 bf16: launches {got}")
+    for k in ("rung", "plain"):
+        ctxs[k].run_solution(0, steps - 1)
+    rung_bad = ctxs["ws"].compare_data(ctxs["rung"], epsilon=0.0,
+                                       abs_epsilon=0.0)
+    d = max_abs_diff(ctxs["ws"], ctxs["plain"])
+    bad = ctxs["ws"].compare_data(ctxs["plain"],
+                                  field_epsilon=BF16_FIELD_EPS)
+    ctx = ctxs["ws"]
+    kern, state, prog = ctx._fused, ctx._state, ctx._program
+    spec = kern.spec
+    ms = cuda_ms(lambda: stages_step(kern, state, steps), 5)
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, steps, 1), 2)
+    bound_ms, bound_by, _nb = a3_bound(ctx)
+    til = ctx.get_stats().get_tiling()
+    log(f"phase 15: tti r=8 bf16 {'x'.join(map(str, sizes))} workspace arm "
+        f"(tile {list(spec.tile)}): {steps} steps, launches {got}; vs plain"
+        f" max|d|={d:.3e} mismatches={bad} (field_epsilon="
+        f"{BF16_FIELD_EPS}); vs the arm at tile {list(tile)} "
+        f"compare_data(epsilon=0) = {rung_bad}; {ms:.3f} ms/launch (CUDA "
+        f"events), bound {bound_ms:.4f} ms ({bound_by}), share "
+        f"{bound_ms / ms:.4f}; plain {plain_ms:.3f} ms; workspace "
+        f"{til['workspace']} [{card}]")
+    if bad or rung_bad or not finite(ctx):
+        raise RuntimeError(f"phase 15: tti r=8 bf16: {bad} mismatches vs "
+                           f"plain, {rung_bad} vs tile {list(tile)}")
+    del ctxs, ctx, kern, state
+    torch.cuda.empty_cache()
+    return {"name": "stages_step (workspace arm, element size 2: tti r=8 "
+                    f"bf16 {'x'.join(map(str, sizes))}, mid width)",
+            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": WS_REPLACES, "launches": got["stages_step"],
+            "max_abs_err": d, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "path": "phase 15 (b)"}
+
+
+def phase15d_batch(fac, env, card: str, groups: int = 2) -> dict:
+    """Phase 15 (d): an ``EnsembleRun`` of test_4d members at mid width
+    under forced ``-trapezoid`` (K = 2): ``groups`` groups with the
+    counters zeroed just before (K4's member batch alone launches, once
+    per pass and group), each member bit-equal to its solo K4 run; one
+    batched group timed against its solo group, its bound and its plain
+    version.  Returns the ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (
+        batched_trapezoid_chunk, plain_batched_chunk, trapezoid_chunk)
+    nm, g = K4_4D_BATCH
+    K, steps = 2, 2 * groups
+    sizes = (g,) * 4
+    ctx = k4_ctx(fac, env, "test_4d", None, 4, sizes, "fused", K,
+                 "-trapezoid", force=True)
+    ens = ctx.new_ensemble(nm)
+    for i in range(nm):
+        with ens.member(i) as c:
+            seed_device(c, 500 + i)
+    zero_launch_counts()
+    ens.run(0, steps - 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != {"batched_trapezoid_phase1": groups,
+               "batched_trapezoid_diamond": 2 * groups}:
+        raise RuntimeError(f"phase 15: test_4d batch: launches {got}")
+    solo = k4_ctx(fac, env, "test_4d", None, 4, sizes, "fused", K,
+                  "-trapezoid", force=True)
+    for i in range(nm):
+        seed_device(solo, 500 + i)
+        solo.run_solution(0, steps - 1)
+        with ens.member(i) as c:
+            bad = device_diff(c, solo, exact=True)
+        if bad[1]:
+            raise RuntimeError(f"phase 15: test_4d member {i} differs from "
+                               f"its solo K4 run in {bad[1]} cells")
+    kern = ctx._trapezoid_kernel()
+    st = ens._stack_states()
+    ms = cuda_ms(lambda: batched_trapezoid_chunk(kern, st, steps, K, nm), 3)
+    solo_ms = cuda_ms(lambda: trapezoid_chunk(kern, solo._state, steps, K),
+                      3)
+    plain_ms = cuda_ms(lambda: plain_batched_chunk(kern.program, st, steps,
+                                                   K, nm), 1)
+    a = kern.batched_chunk(dict(st), steps, K, nm)
+    b = plain_batched_chunk(kern.program, dict(st), steps, K, nm)
+    err = max(float((x - y).abs().max()) for n in set(kern.spec.outputs)
+              for x, y in zip(a[n][-K:], b[n][-K:]))
+    scale = max(float(y.abs().max()) for n in b for y in b[n])
+    del a, b, st
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 15: the test_4d member batch disagrees "
+                           "with its plain version")
+    bound_ms, bound_by, _nb = k4_bound(ctx, kern.spec)
+    bound_ms *= nm
+    log(f"phase 15: EnsembleRun {nm} x test_4d {g}^4 -wf_steps {K} "
+        f"-trapezoid (forced): {steps} steps, launches {got}; every member "
+        f"bit-equal to its solo K4 run; one batched group {ms:.3f} ms (CUDA"
+        f" events) against {nm} x {solo_ms:.3f} ms solo, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4f}; plain "
+        f"{plain_ms:.3f} ms; vs plain max|d|={err:.3e} [{card}]")
+    del ctx, ens, solo, kern
+    torch.cuda.empty_cache()
+    return {"name": f"batched_trapezoid_chunk (4-D: {nm} x test_4d {g}^4, "
+                    f"K={K})", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+            "replaces": "yask_tpu/runtime/ensemble.py:253-263 (the vmapped "
+                        "trapezoid chunk of pallas_stencil.py:2312)",
+            "launches": got["batched_trapezoid_phase1"]
+            + got["batched_trapezoid_diamond"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "per": f"group of {K} steps of {nm} members (3 launches)",
+            "solo_ms": solo_ms, "path": "phase 15 (d)"}
+
+
+def phase15(fac, env, card: str, full: int = 512,
+            dev: str = "cuda:0") -> list:
+    """Phase 15 (see the module docstring); returns the ``kernels``
+    entries."""
+    import torch
+    t0 = time.perf_counter()
+    entries = []
+    # (a) the workspace arm at full width
+    for st, r, seed in WS_FULL:
+        e = family_full(fac, env, card, st, r, "workspace arm, C17", full,
+                        warm=1, trials=3, steps=5, sweep=False, seed=seed,
+                        plain_g=full // 2)
+        e.update(replaces=WS_REPLACES, path=f"phase 15 (a), {st} r={r}")
+        entries.append(e)
+        torch.cuda.empty_cache()
+    # (b) through K7 and K5, and at element size 2, at mid width
+    entries += phase12a(fac, env, card, cases=WS_K7)
+    entries[-1]["path"] = "phase 15 (b)"
+    torch.cuda.empty_cache()
+    rows = phase13a(fac, card, cases=WS_K5, dev=dev)
+    for label, body, ms, bound_ms, bound_by, plain_ms, err, n in rows:
+        entries.append({
+            "name": f"shard_step (workspace arm over K6's body: {label}, "
+                    "2x2 shards of 64^3)", "route": "cuda",
+            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+            "replaces": "yask_tpu/ops/pallas_stencil.py:736-811 (region= "
+                        "and distributed=True arms, the stage loop "
+                        ":2058-2188)", "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "path": "phase 15 (b)"})
+    torch.cuda.empty_cache()
+    entries.append(phase15b_bf16(fac, env, card))
+    # (c) 4-D K4 at full width; (d) at mid width and a member batch
+    e = phase14b(fac, env, card, *K4_4D_FULL)
+    e.update(replaces=K4_4D_REPLACES, path="phase 15 (c)")
+    entries.append(e)
+    torch.cuda.empty_cache()
+    rows = phase14a(fac, env, card, cases=K4_4D_MID, rtm=0)
+    entries.append({
+        "name": "trapezoid_chunk (4-D at mid width: "
+                + ", ".join(row[0] for row in rows) + ")",
+        "route": "cuda", "source": "yask_tpu_torch/csrc/trapezoid.cuh",
+        "replaces": K4_4D_REPLACES,
+        "launches": sum(row[6] for row in rows),
+        "max_abs_err": max(row[5] for row in rows),
+        "ms": sum(row[1] for row in rows),
+        "plain_ms": sum(row[2] for row in rows),
+        "bound_ms": sum(row[3] for row in rows),
+        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
+        else "operations", "library_ms": None,
+        "per": "sum over the cases of one group each",
+        "path": "phase 15 (d)"})
+    torch.cuda.empty_cache()
+    entries.append(phase15d_batch(fac, env, card))
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> None:
     """Build every kernel of the path, one ``nvcc`` per source, all
     started together (``cases``: phase 2's solutions and radii)."""
@@ -4035,6 +4388,7 @@ def phase1(fac, env, cases: dict) -> None:
     specs.update(k7_specs(fac, env))
     specs.update(k5_specs(fac))
     specs.update(k4_specs(fac, env))
+    specs.update(ws_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -4050,10 +4404,13 @@ def phase1(fac, env, cases: dict) -> None:
                    f"entries {s.name} (K1), _batched (K7), _region (K5)"
                    + (f", _stream (stream arm: {s.stream.record()})"
                       if s.stream is not None else "")
-                   if s.stages == 1 else
+                   if s.stages == 1 and not s.workspace else
                    f"entries {s.name} (K6, {s.stages} sub-stages, "
                    f"{s.scratch_stages} of scratch vars, pushed "
-                   f"{s.push_vars}), _batched (K7), _region (K5)")
+                   f"{s.push_vars}), _batched (K7), _region (K5)"
+                   + (f", _resident (workspace arm: "
+                      f"{s.workspace['ws_block_bytes']} B per block)"
+                      if s.workspace else ""))
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
@@ -4113,12 +4470,14 @@ def main() -> int:
     k5_arms = phase13(fac, card)
     torch.cuda.empty_cache()
     k4_arms = phase14(fac, env, card)
+    torch.cuda.empty_cache()
+    ws_arms = phase15(fac, env, card)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
-                      + k5_arms + k4_arms}))
+                      + k5_arms + k4_arms + ws_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -247,13 +247,17 @@ def test_outer_copies_cover_the_reads_at_outer_offsets():
 
 
 def test_4d_trapezoid_falls_back_and_k5_k7_refuse():
+    # what this test pinned before K4 took the 4-D arm (the fallback "4-D
+    # ... ROADMAP.md A12 (4-D K4)") is gone: auto -trapezoid records the
+    # gate's decision and K4 runs where it engages
+    # (tests/test_torch_k4_4d.py holds K4's 4-D code)
     ctx = port_ctx("test_4d", "-g 8 -mode fused -wf_steps 2 -trapezoid")
     import_interiors(ctx, seeded_interiors(ctx, 3))
     ctx.run_solution(0, 3)
-    assert ctx._trapezoid_kernel() is None
-    fb = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert fb and "4-D" in fb[0]["cause"] \
-        and "A12 (4-D K4)" in fb[0]["cause"]
+    assert not [r for r in ctx._trap[1]
+                if r["code"] == "trapezoid_fallback"]
+    assert {r["code"] for r in ctx._trap[1]} & {"trapezoid_engaged",
+                                                "trapezoid_gate_rejected"}
     # what this test pinned before K5 took the A3 arms (the refusal "4-D
     # ... ROADMAP.md A11 (A3 arms on K5)") is gone: shard_pallas runs
     # test_4d with the outer dim w sharded, bit-equal to shard_map

@@ -195,16 +195,22 @@ def test_unwritten_misc_slices_start_from_the_evicted_slots():
 
 
 def test_4d_falls_back_and_raises_forced_naming_a12_4d_k4():
+    """4-D K4 is ported: no fallback and no refusal names it.  Auto
+    records the gate's codes (its decision, not a fallback); forced
+    resolves K4 with w a uniform window dim (tests/test_torch_k4_4d.py
+    holds its code)."""
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="test_4d")
-    ctx.apply_command_line_options("-g 8 -mode fused -wf_steps 2 "
+    ctx.apply_command_line_options("-g 24 -mode fused -wf_steps 2 "
                                    "-trapezoid")
     ctx.prepare_solution()
-    assert ctx._trapezoid_kernel() is None
-    (rec,) = [r for r in ctx._trap[1] if r["code"] == "trapezoid_fallback"]
-    assert "ROADMAP.md A12 (4-D K4)" in rec["cause"]
-    with pytest.raises(YaskException, match=r"A12 \(4-D K4\)"):
-        cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    ctx._trapezoid_kernel()
+    assert set(codes(ctx._trap[1])) <= {"trapezoid_engaged",
+                                        "trapezoid_gate_rejected",
+                                        "trapezoid_diamond"}
+    spec = cuda_emit.resolve_trapezoid(ctx._program, 2, True)
+    assert spec.trap["trap_dims"] == ["x", "y"] and spec.outer == 1
+    assert "NOUTER = 1" in spec.source
 
 
 @pytest.mark.parametrize("name", ["partial_written_cond"])
@@ -223,7 +229,7 @@ def test_removed_refusals_are_gone():
     text = "".join(p.read_text() for p in root.rglob("*.py"))
     text += "".join(p.read_text() for p in root.rglob("*.cuh"))
     for item in ("A12 (multi-stage K4)", "A12 (scratch K4)",
-                 "A12 (batched K4)", "A12 (A3 arms on K4)"):
+                 "A12 (batched K4)", "A12 (A3 arms on K4)", "A12 (4-D K4)"):
         assert item not in text
 
 

@@ -201,6 +201,29 @@ struct SlabOf<S, std::void_t<decltype(S::out_slab(0))>> {
   YT_HD static constexpr int get(int o) { return S::out_slab(o); }
 };
 
+// The workspace arm (a Spec that prints WS_ELEMS): the tiles that do not
+// fit shared memory live in the block's slice of WS_ELEMS elements of a
+// device-memory workspace, at tile offsets from SMEM_ELEMS on.
+template <class S, class = void>
+struct WsOf {
+  static constexpr bool value = false;
+};
+template <class S>
+struct WsOf<S, std::void_t<decltype(S::WS_ELEMS)>> {
+  static constexpr bool value = true;
+};
+
+// A tile's storage: shared memory, or past SMEM_ELEMS the workspace.
+template <class S, class T>
+YT_HD inline T* tile_at(T* smem, T* ws, int off) {
+  if constexpr (WsOf<S>::value) {
+    return off < S::SMEM_ELEMS ? smem + off : ws + (off - S::SMEM_ELEMS);
+  } else {
+    (void)ws;
+    return smem + off;
+  }
+}
+
 // Does the point at interior (g0, g1, g2) of outer cell q (of extents n)
 // store output o?  Every point, except that a partial-dim output's slab is
 // stored by the points at index 0 of each slot its var lacks (every block
@@ -301,10 +324,28 @@ struct RegionParams : ParamsOf<S> {
   int gn[3 + OuterOf<S>::N];
 };
 
-// A kernel's parameters: K5's (REGION) or the others'.
+// A kernel's parameters: K5's (REGION) or the others', and the workspace
+// of the workspace arm (WsOf).
+template <class S, bool REGION>
+using BodyParams =
+    typename std::conditional<REGION, RegionParams<S>, ParamsOf<S>>::type;
+template <class S, bool REGION>
+struct WsParams : BodyParams<S, REGION> {
+  typename S::real_t* ws;  // WS_ELEMS elements per resident block
+};
 template <class S, bool REGION>
 using ParamsArg =
-    typename std::conditional<REGION, RegionParams<S>, ParamsOf<S>>::type;
+    typename std::conditional<WsOf<S>::value, WsParams<S, REGION>,
+                              BodyParams<S, REGION>>::type;
+
+// Sets the workspace of the workspace arm (nothing for the others).
+template <class S, class P>
+void fill_ws(P& p, void* ws) {
+  if constexpr (WsOf<S>::value)
+    p.ws = static_cast<typename S::real_t*>(ws);
+  else
+    (void)p, (void)ws;
+}
 
 // The point function's coordinates and extents: K1's and K6's are the
 // interior's; K5 adds the box's global origin to g (box indices) and
@@ -513,14 +554,14 @@ int host_step(const ParamsArg<S, REGION>& p) {
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
-// The member m, outer cell q and slot-0 block b of this block's z cell
-// z = p.z0 + blockIdx.z = (m * outer cells + q) * ceil(n0 / T0) + b.
+// The member m, outer cell q and slot-0 block b of the z cell z (a
+// block's own, p.z0 + blockIdx.z, or one of its tile walk) = (m * outer
+// cells + q) * ceil(n0 / T0) + b.
 // BATCH = false is a solo launch (K1, K6): m is 0 at compile time, so no
 // member offset is computed, and without outer dims neither is q.
 template <class S, bool BATCH>
-__device__ __forceinline__ void split_z(const ParamsOf<S>& p, int& m,
+__device__ __forceinline__ void split_z(const ParamsOf<S>& p, int z, int& m,
                                         int& q, int& b) {
-  const int z = int(p.z0) + int(blockIdx.z);
   m = 0;
   q = 0;
   b = z;
@@ -548,7 +589,7 @@ fused_step_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
   int m, q, bz;
-  split_z<S, BATCH>(p, m, q, bz);
+  split_z<S, BATCH>(p, int(p.z0) + int(blockIdx.z), m, q, bz);
   const int b0 = bz * S::T0;
   const int b1 = blockIdx.y * S::T1;
   const int b2 = blockIdx.x * S::T2;
@@ -621,6 +662,39 @@ int launch_z(long long& z0, long long gz, dim3 grid, F kernel) {
     if (e != cudaSuccess) return int(e);
   }
   return 0;
+}
+
+// The workspace arms (K6's body here, K4's passes): a grid of at most the
+// card's resident blocks, each walking tiles blockIdx.x, + gridDim.x, ...
+// below `tiles` with its own slice of a device-memory workspace.  The walk
+// is block-uniform, so every thread meets every barrier, and a barrier
+// parts one tile's last reads from the next tile's staging.
+template <class F>
+__device__ __forceinline__ void walk_tiles(long long tiles, F tile) {
+  for (long long i = blockIdx.x; i < tiles; i += gridDim.x) {
+    if (i != (long long)blockIdx.x) __syncthreads();
+    tile(i);
+  }
+}
+
+// The blocks of `kernel` the card holds at once: its SMs times the blocks
+// one SM holds (threads, registers, `smem` bytes of dynamic shared memory,
+// which it sets); a negative CUDA error where a query fails.
+template <class K>
+int resident_of(K* kernel, int threads, int smem) {
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
+                                                      smem);
+  if (e != cudaSuccess) return -int(e);
+  return sms * (per > 0 ? per : 1);
 }
 
 template <class S, bool BATCH, bool REGION = false>
@@ -726,6 +800,22 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
 // reference's VMEM tiles are in the program dtype (pallas_stencil.py:
 // 2264-2289); a computed value is stored rounded once, as yask_tpu
 // stores a stage's value or a scratch var.
+//
+// The workspace arm (WsOf: the Spec prints WS_ELEMS), where the tiles fit
+// no rung of the emitter's shared-memory ladder (tti, ssg, fsg at r=8):
+// the tiles take shared memory in order while they fit and the rest live
+// in a device-memory workspace, WS_ELEMS elements per block, at tile
+// offsets from SMEM_ELEMS on (tile_at).  A launch runs at most the card's
+// resident blocks (stages_resident), each walking tiles blockIdx.x, +
+// gridDim.x, ... with its own slice, as K4's passes do; the walk is
+// block-uniform, so every thread meets every barrier, and a barrier
+// parts one tile's last reads from the next tile's staging.  A
+// single-stage solution past shared memory takes this body too (one
+// sub-stage over the block).  K7 and K5 run it as they run K6's body:
+// the member, the outer cell and the slot-0 block come from the walk's
+// z cell (split_z), the box offsets stay as they are.  What bounds it:
+// the workspace's traffic and the recompute (computed cells per useful
+// point: tti r=8 23.5 at 8x8x64), not the state's bytes.
 
 // Reads of one sub-stage point: staged inputs from their tile (others
 // from global memory) and earlier sub-stages' results from their computed
@@ -739,16 +829,16 @@ struct StageReader {
   int l0, l1, l2;  // point relative to the block origin (may lie in the
                    // expansion: < 0 or >= T)
   int g0, g1, g2;  // point in the interior (may lie past the domain)
+  const typename S::real_t* ws;  // the block's workspace slice (WsOf)
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
     if constexpr (k >= 0) {
       constexpr int E1 = S::T1 + S::halo_lo1(k) + S::halo_hi1(k);
       constexpr int E2 = S::T2 + S::halo_lo2(k) + S::halo_hi2(k);
-      return smem[S::tile_offset(k)
-                  + ((l0 + S::halo_lo0(k) + o0) * E1
-                     + (l1 + S::halo_lo1(k) + o1)) * E2
-                  + (l2 + S::halo_lo2(k) + o2)];
+      return tile_at<S>(smem, ws, S::tile_offset(k))[
+          ((l0 + S::halo_lo0(k) + o0) * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
+          + (l2 + S::halo_lo2(k) + o2)];
     } else {
       return global_at<S>(*p, A, m, q, g0 + o0, g1 + o1, g2 + o2);
     }
@@ -759,8 +849,8 @@ struct StageReader {
     constexpr int e0 = S::sub_lo0(k), e1 = S::sub_lo1(k), e2 = S::sub_lo2(k);
     constexpr int R1 = S::T1 + e1 + S::sub_hi1(k);
     constexpr int R2 = S::T2 + e2 + S::sub_hi2(k);
-    return smem[S::cmp_offset(B) + ((l0 + e0 + o0) * R1 + (l1 + e1 + o1)) * R2
-                + (l2 + e2 + o2)];
+    return tile_at<S>(smem, ws, S::cmp_offset(B))[
+        ((l0 + e0 + o0) * R1 + (l1 + e1 + o1)) * R2 + (l2 + e2 + o2)];
   }
 };
 
@@ -923,6 +1013,7 @@ int host_stages(const ParamsArg<S, REGION>& p) {
 template <class S, int K, bool REGION>
 __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                                              typename S::real_t* smem,
+                                             typename S::real_t* ws,
                                              int m, int q, int b0, int b1,
                                              int b2, int tid) {
   typedef typename S::real_t real_t;
@@ -953,7 +1044,7 @@ __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                         && in_outer;
     CalcOf<S> v[S::MAXV];
     if (inside) {
-      const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2};
+      const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2, ws};
       stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
     } else {
 #pragma unroll
@@ -972,13 +1063,13 @@ __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                  + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                  + g2 * p.out_s[o][2]] = w;
       if (b >= 0)
-        smem[S::cmp_offset(b) + ((l0 + e0) * R1 + (l1 + e1)) * R2
-             + (l2 + e2)] = w;
+        tile_at<S>(smem, ws, S::cmp_offset(b))[((l0 + e0) * R1 + (l1 + e1))
+                                               * R2 + (l2 + e2)] = w;
     }
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    device_stage<S, K + 1, REGION>(p, smem, m, q, b0, b1, b2, tid);
+    device_stage<S, K + 1, REGION>(p, smem, ws, m, q, b0, b1, b2, tid);
   }
 }
 
@@ -999,20 +1090,19 @@ __device__ __forceinline__ bool outer_alloc(const ParamsArg<S, REGION>& p,
   return in;
 }
 
-// K6 (BATCH = false) and K7 over K6's body (BATCH = true); K5 over K6's
-// body (REGION = true, below) runs the same code over a box.
+// One tile of K6's body: the block's own (z cell, y and x blocks), or one
+// of its tile walk with its workspace slice ws (the workspace arm).
 template <class S, bool BATCH, bool REGION>
-__global__ void __launch_bounds__(S::T1 * S::T2)
-fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
+__device__ __forceinline__ void stages_tile(const ParamsArg<S, REGION>& p,
+                                            typename S::real_t* smem,
+                                            typename S::real_t* ws, int z,
+                                            int by, int bx, int tid) {
   typedef typename S::real_t real_t;
-  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
-  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
   int m, q, bz;
-  split_z<S, BATCH>(p, m, q, bz);
+  split_z<S, BATCH>(p, z, m, q, bz);
   const int b0 = bz * S::T0;
-  const int b1 = blockIdx.y * S::T1;
-  const int b2 = blockIdx.x * S::T2;
-  const int tid = threadIdx.y * S::T2 + threadIdx.x;
+  const int b1 = by * S::T1;
+  const int b2 = bx * S::T2;
 
   // 1) stage each tiled input's halo tile (U loads in flight per thread,
   //    as K1); cells past the input's allocation hold 0
@@ -1034,7 +1124,7 @@ fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
     const int lo2 = -S::alloc_lo2(k) - x2;
     const int lim2 = alloc_n<S, REGION>(p, 2) + S::alloc_hi2(k) - x2;
     const bool in_outer = outer_alloc<S, REGION>(p, k, q);
-    real_t* dst = smem + S::tile_offset(k);
+    real_t* dst = tile_at<S>(smem, ws, S::tile_offset(k));
     for (int base = tid; base < cells; base += NT * U) {
       real_t v[U];
 #pragma unroll
@@ -1057,36 +1147,86 @@ fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
   __syncthreads();
 
   // 2) the sub-stages in order, each over its region
-  device_stage<S, 0, REGION>(p, smem, m, q, b0, b1, b2, tid);
+  device_stage<S, 0, REGION>(p, smem, ws, m, q, b0, b1, b2, tid);
+}
+
+// K6 (BATCH = false) and K7 over K6's body (BATCH = true); K5 over K6's
+// body (REGION = true, below) runs the same code over a box.  The
+// workspace arm (WsOf) runs a grid of at most the card's resident blocks,
+// each walking tiles blockIdx.x, + gridDim.x, ... (x blocks fastest, then
+// y, then z cells) with its own slice of the workspace; the walk is
+// block-uniform, so every thread meets every barrier.
+template <class S, bool BATCH, bool REGION>
+__global__ void __launch_bounds__(S::T1 * S::T2)
+fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
+  typedef typename S::real_t real_t;
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
+  const int tid = threadIdx.y * S::T2 + threadIdx.x;
+  if constexpr (WsOf<S>::value) {
+    real_t* ws = p.ws + (long long)blockIdx.x * S::WS_ELEMS;
+    const long long gx = (p.n[2] + S::T2 - 1) / S::T2;
+    const long long gy = (p.n[1] + S::T1 - 1) / S::T1;
+    walk_tiles(z_cells<S>(p.n, p.nm) * gy * gx, [&](long long i) {
+      const long long zy = i / gx;
+      stages_tile<S, BATCH, REGION>(p, smem, ws, int(zy / gy),
+                                    int(zy % gy), int(i % gx), tid);
+    });
+  } else {
+    stages_tile<S, BATCH, REGION>(p, smem, nullptr,
+                                  int(p.z0) + int(blockIdx.z), blockIdx.y,
+                                  blockIdx.x, tid);
+  }
 }
 
 template <class S, bool BATCH, bool REGION = false>
-int launch_stages(ParamsArg<S, REGION> p, cudaStream_t stream) {
+int launch_stages(ParamsArg<S, REGION> p, long long nres,
+                  cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
   cudaError_t e = cudaFuncSetAttribute(
       fused_stages_kernel<S, BATCH, REGION>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 block(S::T2, S::T1, 1);
-  return launch_z(p.z0, z_cells<S>(p.n, p.nm),
-                  dim3((p.n[2] + S::T2 - 1) / S::T2,
-                       (p.n[1] + S::T1 - 1) / S::T1),
-                  [&](dim3 grid) {
+  const long long gz = z_cells<S>(p.n, p.nm);
+  dim3 cols((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1);
+  long long walk = gz;  // z cells of the launches: one walk for the arm
+  if constexpr (WsOf<S>::value) {
+    const long long tiles = gz * cols.x * cols.y;
+    if (p.ws == nullptr || nres < 1) return int(cudaErrorInvalidConfiguration);
+    cols = dim3(unsigned(tiles < nres ? tiles : nres));
+    walk = tiles > 0 ? 1 : 0;
+  } else {
+    (void)nres;
+  }
+  return launch_z(p.z0, walk, cols, [&](dim3 grid) {
     fused_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
   });
 }
+
+// The blocks of K6's body (solo, BATCH or REGION) the card holds at once.
+template <class S, bool BATCH, bool REGION>
+int stages_resident() {
+  return resident_of(fused_stages_kernel<S, BATCH, REGION>, S::T1 * S::T2,
+                     int(sizeof(typename S::real_t)) * S::SMEM_ELEMS);
+}
 #endif
 
-// K6: as run(), every stage (and scratch sub-stage) of one sub-step.
+// K6: as run(), every stage (and scratch sub-stage) of one sub-step; the
+// workspace arm's ws holds nres resident blocks' slices (the host path
+// needs none).
 template <class S>
 int run_stages(void* in_ptrs, void* in_strides, void* out_ptrs,
-               void* out_strides, void* sizes, int t, void* stream) {
-  ParamsOf<S> p;
+               void* out_strides, void* sizes, int t, void* stream,
+               void* ws = nullptr, long long nres = 0) {
+  ParamsArg<S, false> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  fill_ws<S>(p, ws);
 #ifdef __CUDACC__
-  return launch_stages<S, false>(p, static_cast<cudaStream_t>(stream));
+  return launch_stages<S, false>(p, nres, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
+  (void)nres;
   return host_stages<S>(p);
 #endif
 }
@@ -1103,17 +1243,21 @@ struct IsStages<S, std::void_t<decltype(S::NSTAGES)>> : std::true_type {};
 template <class S>
 int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
                 void* out_ptrs, void* out_strides, void* out_mstrides,
-                void* sizes, int nm, int t, void* stream) {
-  ParamsOf<S> p;
+                void* sizes, int nm, int t, void* stream, void* ws = nullptr,
+                long long nres = 0) {
+  ParamsArg<S, false> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
   fill_members<S>(p, in_mstrides, out_mstrides, nm);
+  fill_ws<S>(p, ws);
 #ifdef __CUDACC__
   if constexpr (IsStages<S>::value)
-    return launch_stages<S, true>(p, static_cast<cudaStream_t>(stream));
+    return launch_stages<S, true>(p, nres,
+                                  static_cast<cudaStream_t>(stream));
   else
     return launch<S, true>(p, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
+  (void)nres;
   if constexpr (IsStages<S>::value)
     return host_stages<S>(p);
   else
@@ -1160,10 +1304,11 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
 template <class S>
 int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
                void* out_strides, void* sizes, void* region, int t,
-               void* stream) {
+               void* stream, void* ws = nullptr, long long nres = 0) {
   constexpr int NS = 3 + OuterOf<S>::N;
-  RegionParams<S> p;
+  ParamsArg<S, true> p;
   fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  fill_ws<S>(p, ws);
   const int* r = static_cast<const int*>(region);
   for (int s = 0; s < NS; ++s)
     if (r[NS + s] <= r[s]) return 0;  // an empty box computes nothing
@@ -1180,16 +1325,31 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
     for (int s = 0; s < NS; ++s) p.out[o] += p.lo[s] * p.out_s[o][s];
 #ifdef __CUDACC__
   if constexpr (IsStages<S>::value)
-    return launch_stages<S, false, true>(p,
+    return launch_stages<S, false, true>(p, nres,
                                          static_cast<cudaStream_t>(stream));
   else
     return launch<S, false, true>(p, static_cast<cudaStream_t>(stream));
 #else
   (void)stream;
+  (void)nres;
   if constexpr (IsStages<S>::value)
     return host_stages<S, true>(p);
   else
     return host_step<S, true>(p);
+#endif
+}
+
+// The resident blocks of the workspace arm's kernel for a launch of kind
+// 0 (solo), 1 (member batch) or 2 (a shard's box); 1 on the host.
+template <class S>
+int resident_stages(int kind) {
+#ifdef __CUDACC__
+  return kind == 1   ? stages_resident<S, true, false>()
+         : kind == 2 ? stages_resident<S, false, true>()
+                     : stages_resident<S, false, false>();
+#else
+  (void)kind;
+  return 1;
 #endif
 }
 
@@ -1232,4 +1392,34 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
                       void* out_strides, void* sizes, int t, void* stream) { \
     return yt::run_stages<S>(in_ptrs, in_strides, out_ptrs, out_strides,     \
                              sizes, t, stream);                              \
+  }
+
+// The C entry points of the workspace arm (a K6 Spec printing WS_ELEMS):
+// K6's, K7's and K5's arguments with the workspace (WS_ELEMS elements per
+// resident block) and its resident blocks before the stream, and the
+// resident blocks of a launch kind (resident_stages).
+#define YT_FUSED_WS_ENTRIES(NAME, S)                                         \
+  extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
+                      void* out_strides, void* sizes, int t, void* ws,       \
+                      long long nres, void* stream) {                        \
+    return yt::run_stages<S>(in_ptrs, in_strides, out_ptrs, out_strides,     \
+                             sizes, t, stream, ws, nres);                    \
+  }                                                                          \
+  extern "C" int NAME##_batched(                                             \
+      void* in_ptrs, void* in_strides, void* in_mstrides, void* out_ptrs,    \
+      void* out_strides, void* out_mstrides, void* sizes, int nm, int t,     \
+      void* ws, long long nres, void* stream) {                              \
+    return yt::run_batched<S>(in_ptrs, in_strides, in_mstrides, out_ptrs,    \
+                              out_strides, out_mstrides, sizes, nm, t,       \
+                              stream, ws, nres);                             \
+  }                                                                          \
+  extern "C" int NAME##_region(void* in_ptrs, void* in_strides,              \
+                               void* out_ptrs, void* out_strides,            \
+                               void* sizes, void* region, int t, void* ws,   \
+                               long long nres, void* stream) {               \
+    return yt::run_region<S>(in_ptrs, in_strides, out_ptrs, out_strides,     \
+                             sizes, region, t, stream, ws, nres);            \
+  }                                                                          \
+  extern "C" int NAME##_resident(int kind) {                                 \
+    return yt::resident_stages<S>(kind);                                     \
   }

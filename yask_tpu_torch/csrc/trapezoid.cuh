@@ -91,6 +91,16 @@
 //     bits of a solo group.  BATCH is a template parameter: the solo
 //     kernels compute no member offset.
 //
+// More than three domain dims (NOUTER): the outer dims (slots 3, ...) are
+// window dims of the geometry, uniform with K·r margins as the reference
+// blocks w in test_4d: a buffer spans every slot (the outer ones
+// outermost), the tile walk and the z cells take the outer tiles, each
+// sub-stage is computed once over its region in every slot (no outer
+// copies, which K6 needs), cells outside its plain region in an outer
+// dim hold 0, and a read at an outer offset reads the level buffer there
+// (in_dw: an input's outer offset; a computed read prints its own).
+// Inputs are staged as 0 past the domain in an outer dim, as in z.
+//
 // Element size 2: real_t (the buffers, as the reference's VMEM tiles) is
 // bf16_t; the point functions compute in float, one rounding per op, and
 // a stored value is rounded once (Calc), as K6 does.
@@ -119,6 +129,11 @@ struct TrapParams : ParamsOf<S> {
   typename S::real_t* ws;
 };
 
+// The slots of a window: the three of the tile, then the outer dims
+// (NOUTER, more than three domain dims), each uniform with K·r margins.
+template <class S>
+constexpr int NSLOT = 3 + OuterOf<S>::N;
+
 // Window extent (tile + margins) per slot, and elements per buffer.
 template <class S, int P>
 YT_HD constexpr int win(int s) {
@@ -126,7 +141,21 @@ YT_HD constexpr int win(int s) {
 }
 template <class S, int P>
 YT_HD constexpr int buf_elems() {
+  int e = 1;
+  for (int s = 0; s < NSLOT<S>; ++s) e *= win<S, P>(s);
+  return e;
+}
+// Elements of the three slots of a window, and the stride of outer slot
+// 3 + j in units of them (outer slots outermost, the last fastest).
+template <class S, int P>
+YT_HD constexpr int inner_elems() {
   return win<S, P>(0) * win<S, P>(1) * win<S, P>(2);
+}
+template <class S, int P>
+YT_HD constexpr int ostride(int j) {
+  int e = 1;
+  for (int i = j + 1; i < OuterOf<S>::N; ++i) e *= win<S, P>(3 + i);
+  return e;
 }
 
 // Buffer b of pass P: the first nsmem(P) buffers live in shared memory,
@@ -138,10 +167,52 @@ YT_HD inline typename S::real_t* buf_at(typename S::real_t* smem,
                          : ws + (b - S::nsmem(P)) * buf_elems<S, P>();
 }
 
+// A global read at interior (c0, c1, c2) of outer coordinates gq (input
+// a's pointer carries its outer offset) of member m.
+template <class S>
+YT_HD inline typename S::real_t global_at_q(const ParamsOf<S>& p, int a,
+                                            int m, const int* gq, idx_t c0,
+                                            idx_t c1, idx_t c2) {
+  idx_t off = idx_t(m) * p.in_ms[a];
+  for (int j = 0; j < OuterOf<S>::N; ++j)
+    off += idx_t(gq[j]) * p.in_s[a][3 + j];
+  (void)gq;
+  const typename S::real_t* r =
+      p.in[a] + (off + c0 * p.in_s[a][0] + c1 * p.in_s[a][1]
+                 + c2 * p.in_s[a][2]);
+#ifdef __CUDA_ARCH__
+  return __ldg(r);
+#else
+  return *r;
+#endif
+}
+
+// The window offset, in three-slot units, of input A's outer offset
+// (in_dw, printed for outer dims) and of a computed read's (ow).
+template <class S, int P, int A>
+YT_HD constexpr int in_outer_off() {
+  if constexpr (OuterOf<S>::N > 0) {
+    int o = 0;
+    for (int j = 0; j < OuterOf<S>::N; ++j)
+      o += S::in_dw(A, j) * ostride<S, P>(j);
+    return o;
+  } else {
+    return 0;
+  }
+}
+template <class S, int P, class... O>
+YT_HD inline int cmp_outer_off(O... ow) {
+  const int d[] = {0, int(ow)...};
+  int o = 0;
+  for (int j = 0; j < int(sizeof...(O)); ++j) o += d[1 + j] * ostride<S, P>(j);
+  return o;
+}
+
 // Reads of a sub-stage point of level L: written vars and staged inputs
 // from their level buffers, this level's earlier values from the
 // buffers of their sub-stages, the rest from global memory (of member m
-// in a batch, BATCH; a solo tile's member is 0 at compile time).
+// in a batch, BATCH; a solo tile's member is 0 at compile time).  wq is
+// the point's outer window index (flat), gq its outer coordinates.
 template <class S, int P, int L, bool BATCH>
 struct LevelReader {
   const ParamsOf<S>* p;
@@ -150,33 +221,40 @@ struct LevelReader {
   int m;           // the member
   int w0, w1, w2;  // the point in window coordinates
   int g0, g1, g2;  // the point in the interior (may lie past the domain)
+  int wq;          // its outer window index (0 without outer dims)
+  const int* gq;   // its outer coordinates
   YT_HD int cell(int o0, int o1, int o2) const {
-    return ((w0 + o0) * win<S, P>(1) + (w1 + o1)) * win<S, P>(2) + (w2 + o2);
+    return wq * inner_elems<S, P>()
+           + ((w0 + o0) * win<S, P>(1) + (w1 + o1)) * win<S, P>(2)
+           + (w2 + o2);
   }
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int b = S::lvl_src(L, A);
     if constexpr (b >= 0) {
-      return buf_at<S, P>(smem, ws, b)[cell(o0, o1, o2)];
+      return buf_at<S, P>(smem, ws, b)[
+          cell(o0, o1, o2) + in_outer_off<S, P, A>() * inner_elems<S, P>()];
     } else {
       constexpr int a = S::lvl_in(L, A) >= 0 ? S::lvl_in(L, A) : A;
-      return global_at<S>(*p, a, BATCH ? m : 0, 0, g0 + o0, g1 + o1,
-                          g2 + o2);
+      return global_at_q<S>(*p, a, BATCH ? m : 0, gq, g0 + o0, g1 + o1,
+                            g2 + o2);
     }
   }
-  template <int B>
-  YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
-    return buf_at<S, P>(smem, ws, S::cmp_buf(L, B))[cell(o0, o1, o2)];
+  template <int B, class... O>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2, O... ow) const {
+    return buf_at<S, P>(smem, ws, S::cmp_buf(L, B))[
+        cell(o0, o1, o2) + cmp_outer_off<S, P>(ow...) * inner_elems<S, P>()];
   }
 };
 
-// 1) stage the inputs over the window of the tile at origin b.
+// 1) stage the inputs over the window of the tile at origin b (per slot).
 template <class S, int P, bool BATCH>
 YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
                         typename S::real_t* ws, const int* b, int m,
                         int tid, int nt) {
   typedef typename S::real_t real_t;
-  constexpr int W1 = win<S, P>(1), W2 = win<S, P>(2);
+  constexpr int NO = OuterOf<S>::N;
+  constexpr int W0 = win<S, P>(0), W1 = win<S, P>(1), W2 = win<S, P>(2);
   constexpr int E = buf_elems<S, P>();
   // U independent loads in flight per thread before any store (K1's
   // staging lesson: one dependent load per cell is latency-bound)
@@ -191,14 +269,29 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
       for (int u = 0; u < U; ++u) {
         const int i = base + u * nt;
         const int c2 = b[2] - S::marg(P, 2) + i % W2;
-        const int r = i / W2;
+        int r = i / W2;
         const int c1 = b[1] - S::marg(P, 1) + r % W1;
-        const int c0 = b[0] - S::marg(P, 0) + r / W1;
-        const bool in = i < E
+        int c0;
+        int gq[NO > 0 ? NO : 1];
+        bool in_o = true;
+        if constexpr (NO == 0) {
+          c0 = b[0] - S::marg(P, 0) + r / W1;
+        } else {
+          r /= W1;
+          c0 = b[0] - S::marg(P, 0) + r % W0;
+          r /= W0;
+          for (int j = NO - 1; j >= 0; --j) {
+            const int W = win<S, P>(3 + j);
+            gq[j] = b[3 + j] - S::marg(P, 3 + j) + r % W;
+            r /= W;
+            in_o = in_o && gq[j] >= 0 && gq[j] < p.n[3 + j];
+          }
+        }
+        const bool in = i < E && in_o
             && (S::trap_slot(0) || (c0 >= 0 && c0 < p.n[0]))
             && (S::trap_slot(1) || (c1 >= 0 && c1 < p.n[1]))
             && (S::trap_slot(2) || (c2 >= 0 && c2 < p.n[2]));
-        v[u] = in ? global_at<S>(p, a, BATCH ? m : 0, 0, c0, c1, c2)
+        v[u] = in ? global_at_q<S>(p, a, BATCH ? m : 0, gq, c0, c1, c2)
                   : real_t(0.0f);
       }
 #pragma unroll
@@ -210,29 +303,53 @@ YT_HD void stage_inputs(const ParamsOf<S>& p, typename S::real_t* smem,
 
 // Value J.. of sub-stage Q's point at window cell c, rounded once: to its
 // buffer, and (wr: inside the level's write window and the domain) to its
-// output of level L.
+// output of level L (outer coordinates gq).
 template <class S, int P, int L, int Q, int J, bool BATCH>
 YT_HD inline void store_vals(const ParamsOf<S>& p, typename S::real_t* smem,
                              typename S::real_t* ws, const CalcOf<S>* v,
-                             int c, bool wr, int m, int g0, int g1, int g2) {
+                             int c, bool wr, int m, int g0, int g1, int g2,
+                             const int* gq) {
   if constexpr (J < S::stage_nv(Q)) {
     typedef typename S::real_t real_t;
     constexpr int bb = S::st_buf(Q, J, L), o = S::st_out(Q, J, L);
     const real_t x = Calc<real_t>::store(v[J]);
     if constexpr (bb >= 0) buf_at<S, P>(smem, ws, bb)[c] = x;
     if constexpr (o >= 0) {
-      if (wr)
-        p.out[o][cell_base<S>(p.n, BATCH ? m : 0, 0, p.out_ms[o],
-                              p.out_s[o])
-                 + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+      if (wr) {
+        idx_t off = cell_base<S>(p.n, BATCH ? m : 0, 0, p.out_ms[o],
+                                 p.out_s[o]);
+        if constexpr (OuterOf<S>::N > 0) {
+          off = idx_t(BATCH ? m : 0) * p.out_ms[o];
+          for (int j = 0; j < OuterOf<S>::N; ++j)
+            off += idx_t(gq[j]) * p.out_s[o][3 + j];
+        }
+        p.out[o][off + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                  + g2 * p.out_s[o][2]] = x;
+      }
     }
     store_vals<S, P, L, Q, J + 1, BATCH>(p, smem, ws, v, c, wr, m, g0, g1,
-                                         g2);
+                                         g2, gq);
   } else {
     (void)p; (void)smem; (void)ws; (void)v; (void)c; (void)wr; (void)m;
-    (void)g0; (void)g1; (void)g2;
+    (void)g0; (void)g1; (void)g2; (void)gq;
   }
+}
+
+// Sub-stage Q's region of level L in pass P, slot s: its lower end and
+// its extent (in tile coordinates), and its cells in the outer slots.
+template <class S, int P, int L, int Q>
+YT_HD constexpr int sub_reg_lo(int s) {
+  return S::reg_lo(P, s, L) - S::sub_lo(Q, s);
+}
+template <class S, int P, int L, int Q>
+YT_HD constexpr int sub_reg_n(int s) {
+  return S::reg_hi(P, s, L) + S::sub_hi(Q, s) - sub_reg_lo<S, P, L, Q>(s);
+}
+template <class S, int P, int L, int Q>
+YT_HD constexpr int sub_reg_outer() {
+  int c = 1;
+  for (int s = 3; s < NSLOT<S>; ++s) c *= sub_reg_n<S, P, L, Q>(s);
+  return c;
 }
 
 // 2) sub-stage Q of level L over its region, then the sub-stages and
@@ -241,15 +358,15 @@ template <class S, int P, int L, int Q, bool BATCH>
 YT_HD void compute_sub(const ParamsOf<S>& p, typename S::real_t* smem,
                        typename S::real_t* ws, const int* b, int m, int tid,
                        int nt) {
-  typedef typename S::real_t real_t;
+  constexpr int NO = OuterOf<S>::N;
   constexpr int W1 = win<S, P>(1), W2 = win<S, P>(2);
   constexpr int lo0 = S::reg_lo(P, 0, L) - S::sub_lo(Q, 0);
   constexpr int lo1 = S::reg_lo(P, 1, L) - S::sub_lo(Q, 1);
   constexpr int lo2 = S::reg_lo(P, 2, L) - S::sub_lo(Q, 2);
+  constexpr int R0 = S::reg_hi(P, 0, L) + S::sub_hi(Q, 0) - lo0;
   constexpr int R1 = S::reg_hi(P, 1, L) + S::sub_hi(Q, 1) - lo1;
   constexpr int R2 = S::reg_hi(P, 2, L) + S::sub_hi(Q, 2) - lo2;
-  constexpr int cells = (S::reg_hi(P, 0, L) + S::sub_hi(Q, 0) - lo0) * R1
-                        * R2;
+  constexpr int cells = R0 * R1 * R2 * sub_reg_outer<S, P, L, Q>();
   constexpr int cl0 = S::clip_lo(Q, 0), cl1 = S::clip_lo(Q, 1);
   constexpr int cl2 = S::clip_lo(Q, 2), ch0 = S::clip_hi(Q, 0);
   constexpr int ch1 = S::clip_hi(Q, 1), ch2 = S::clip_hi(Q, 2);
@@ -260,31 +377,59 @@ YT_HD void compute_sub(const ParamsOf<S>& p, typename S::real_t* smem,
   const int t = p.t + (L - 1) * S::STEP_DIR;
   for (int i = tid; i < cells; i += nt) {
     const int l2 = lo2 + i % R2;
-    const int r = i / R2;
+    int r = i / R2;
     const int l1 = lo1 + r % R1;
-    const int l0 = lo0 + r / R1;
+    int l0;
+    // outer slots: coordinates, window index, plain region and write
+    // window
+    int g[3 + NO];
+    int wq = 0;
+    bool in_o = true, wr_o = true;
+    if constexpr (NO == 0) {
+      l0 = lo0 + r / R1;
+      (void)R0;
+    } else {
+      r /= R1;
+      l0 = lo0 + r % R0;
+      r /= R0;
+      for (int j = NO - 1; j >= 0; --j) {
+        const int s = 3 + j;
+        const int R = sub_reg_n<S, P, L, Q>(s);
+        const int l = sub_reg_lo<S, P, L, Q>(s) + r % R;
+        r /= R;
+        g[s] = b[s] + l;
+        wq += (l + S::marg(P, s)) * ostride<S, P>(j);
+        in_o = in_o && g[s] >= -S::clip_lo(Q, s)
+               && g[s] < p.n[s] + S::clip_hi(Q, s);
+        wr_o = wr_o && g[s] >= 0 && g[s] < p.n[s]
+               && l >= S::wr_lo(P, s, L) && l < S::wr_hi(P, s, L);
+      }
+    }
     const int g0 = b[0] + l0, g1 = b[1] + l1, g2 = b[2] + l2;
     // the plain version's region of the sub-stage: the domain, grown by a
     // scratch var's write halo
-    const bool inside = g0 >= -cl0 && g0 < p.n[0] + ch0 && g1 >= -cl1
-                        && g1 < p.n[1] + ch1 && g2 >= -cl2
+    const bool inside = in_o && g0 >= -cl0 && g0 < p.n[0] + ch0
+                        && g1 >= -cl1 && g1 < p.n[1] + ch1 && g2 >= -cl2
                         && g2 < p.n[2] + ch2;
     const int w0 = l0 + m0, w1 = l1 + m1, w2 = l2 + m2;
     CalcOf<S> v[S::MAXV];
     if (inside) {
       const LevelReader<S, P, L, BATCH> rd{&p, smem, ws, m, w0, w1, w2,
-                                           g0, g1, g2};
-      const int g[3] = {g0, g1, g2};
+                                           g0, g1, g2, wq, g + 3};
+      g[0] = g0;
+      g[1] = g1;
+      g[2] = g2;
       S::template stage<Q>(rd, g, p.n, t, v);
     } else {
 #pragma unroll
       for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
     }
-    const int c = (w0 * W1 + w1) * W2 + w2;
-    const bool wr = g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
+    const int c = wq * inner_elems<S, P>() + (w0 * W1 + w1) * W2 + w2;
+    const bool wr = wr_o && g0 >= 0 && g0 < p.n[0] && g1 >= 0 && g1 < p.n[1]
                     && g2 >= 0 && g2 < p.n[2] && l0 >= wl0 && l0 < wh0
                     && l1 >= wl1 && l1 < wh1 && l2 >= wl2 && l2 < wh2;
-    store_vals<S, P, L, Q, 0, BATCH>(p, smem, ws, v, c, wr, m, g0, g1, g2);
+    store_vals<S, P, L, Q, 0, BATCH>(p, smem, ws, v, c, wr, m, g0, g1, g2,
+                                     g + 3);
   }
   if constexpr (Q + 1 < S::NSTAGES) {
     YT_SYNC();
@@ -295,15 +440,38 @@ YT_HD void compute_sub(const ParamsOf<S>& p, typename S::real_t* smem,
   }
 }
 
-// One tile of pass P (member m): its origin from the tile index, stage,
-// levels.
+// The tiles of pass P of one member, and tile i's index per slot (the
+// minor slot fastest, then slots 1 and 0, then the outer slots, the last
+// fastest).
+template <class S, int P>
+YT_HD constexpr long long tiles_per_member() {
+  long long c = 1;
+  for (int s = 0; s < NSLOT<S>; ++s) c *= S::grid(P, s);
+  return c;
+}
+template <class S, int P>
+YT_HD inline void tile_index(long long i, int* bi) {
+  bi[2] = int(i % S::grid(P, 2));
+  i /= S::grid(P, 2);
+  bi[1] = int(i % S::grid(P, 1));
+  i /= S::grid(P, 1);
+  bi[0] = int(i % S::grid(P, 0));
+  i /= S::grid(P, 0);
+  for (int j = OuterOf<S>::N - 1; j >= 0; --j) {
+    bi[3 + j] = int(i % S::grid(P, 3 + j));
+    i /= S::grid(P, 3 + j);
+  }
+}
+
+// One tile of pass P (member m, tile indices bi per slot): its origin,
+// stage, levels.
 template <class S, int P, bool BATCH>
 YT_HD void tile_pass(const ParamsOf<S>& p, typename S::real_t* smem,
-                     typename S::real_t* ws, int m, int bi0, int bi1,
-                     int bi2, int tid, int nt) {
-  const int b[3] = {bi0 * S::stride(P, 0) + S::orig(P, 0),
-                    bi1 * S::stride(P, 1) + S::orig(P, 1),
-                    bi2 * S::stride(P, 2) + S::orig(P, 2)};
+                     typename S::real_t* ws, int m, const int* bi, int tid,
+                     int nt) {
+  int b[NSLOT<S>];
+  for (int s = 0; s < NSLOT<S>; ++s)
+    b[s] = bi[s] * S::stride(P, s) + S::orig(P, s);
   stage_inputs<S, P, BATCH>(p, smem, ws, b, m, tid, nt);
   YT_SYNC();
   compute_sub<S, P, 1, 0, BATCH>(p, smem, ws, b, m, tid, nt);
@@ -318,14 +486,13 @@ int host_pass(const TrapParams<S>& p) {
   std::vector<real_t> sm(size_t(S::nsmem(P)) * buf_elems<S, P>() + 1);
   std::vector<real_t> ws(size_t(S::nws(P)) * buf_elems<S, P>() + 1);
   for (int m = 0; m < p.nm; ++m)
-    for (int b0 = 0; b0 < S::grid(P, 0); ++b0)
-      for (int b1 = 0; b1 < S::grid(P, 1); ++b1)
-        for (int b2 = 0; b2 < S::grid(P, 2); ++b2) {
-          for (auto& x : sm) x = real_t(NAN);
-          for (auto& x : ws) x = real_t(NAN);
-          tile_pass<S, P, BATCH>(p, sm.data(), ws.data(), m, b0, b1, b2, 0,
-                                 1);
-        }
+    for (long long i = 0; i < tiles_per_member<S, P>(); ++i) {
+      int bi[NSLOT<S>];
+      tile_index<S, P>(i, bi);
+      for (auto& x : sm) x = real_t(NAN);
+      for (auto& x : ws) x = real_t(NAN);
+      tile_pass<S, P, BATCH>(p, sm.data(), ws.data(), m, bi, 0, 1);
+    }
   return 0;
 }
 
@@ -339,30 +506,33 @@ template <class S, int P, bool BATCH>
 __device__ __forceinline__ void run_tiles(const TrapParams<S>& p,
                                           typename S::real_t* smem) {
   const int tid = threadIdx.x;
+  int bi[NSLOT<S>];
   if constexpr (S::nws(P) == 0) {
-    const int z = int(p.z0) + int(blockIdx.z);
-    int m = 0, b0 = z;
-    if constexpr (BATCH) {
-      m = z / S::grid(P, 0);
-      b0 = z - m * S::grid(P, 0);
+    int z = int(p.z0) + int(blockIdx.z);
+    int m = 0;
+    bi[2] = blockIdx.x;
+    bi[1] = blockIdx.y;
+    if constexpr (BATCH || OuterOf<S>::N > 0) {
+      bi[0] = z % S::grid(P, 0);
+      z /= S::grid(P, 0);
+      for (int j = OuterOf<S>::N - 1; j >= 0; --j) {
+        bi[3 + j] = z % S::grid(P, 3 + j);
+        z /= S::grid(P, 3 + j);
+      }
+      if constexpr (BATCH) m = z;
+    } else {
+      bi[0] = z;
     }
-    tile_pass<S, P, BATCH>(p, smem, nullptr, m, b0, blockIdx.y, blockIdx.x,
-                           tid, S::NT);
+    tile_pass<S, P, BATCH>(p, smem, nullptr, m, bi, tid, S::NT);
   } else {
     typename S::real_t* ws =
         p.ws + size_t(blockIdx.x) * S::nws(P) * buf_elems<S, P>();
-    constexpr long long per = (long long)S::grid(P, 0) * S::grid(P, 1)
-                              * S::grid(P, 2);
-    const long long tiles = per * (BATCH ? p.nm : 1);
-    for (long long i = blockIdx.x; i < tiles; i += gridDim.x) {
-      if (i != (long long)blockIdx.x) __syncthreads();
+    constexpr long long per = tiles_per_member<S, P>();
+    walk_tiles(per * (BATCH ? p.nm : 1), [&](long long i) {
       const int m = BATCH ? int(i / per) : 0;
-      const int r = int(i - m * per);
-      const int b2 = r % S::grid(P, 2);
-      const int b1 = (r / S::grid(P, 2)) % S::grid(P, 1);
-      const int b0 = r / (S::grid(P, 2) * S::grid(P, 1));
-      tile_pass<S, P, BATCH>(p, smem, ws, m, b0, b1, b2, tid, S::NT);
-    }
+      tile_index<S, P>(i - m * per, bi);
+      tile_pass<S, P, BATCH>(p, smem, ws, m, bi, tid, S::NT);
+    });
   }
 }
 
@@ -387,46 +557,28 @@ constexpr int smem_bytes() {
   return int(sizeof(typename S::real_t)) * S::nsmem(P) * buf_elems<S, P>();
 }
 
-// The blocks of pass P the card holds at once: its SMs times the blocks
-// one SM holds (threads, registers, shared memory).
+// The blocks of pass P the card holds at once.
 template <class S, int P, bool BATCH>
 int resident_blocks() {
-  int dev = 0, sms = 0, per = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -int(e);
-  if constexpr (P == 0) {
-    e = cudaFuncSetAttribute(trapezoid_kernel<S, BATCH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<S, P>());
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, trapezoid_kernel<S, BATCH>, S::NT, smem_bytes<S, P>());
-  } else {
-    e = cudaFuncSetAttribute(diamond_kernel<S, P, BATCH>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<S, P>());
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, diamond_kernel<S, P, BATCH>, S::NT, smem_bytes<S, P>());
-  }
-  if (e != cudaSuccess) return -int(e);
-  return sms * (per > 0 ? per : 1);
+  if constexpr (P == 0)
+    return resident_of(trapezoid_kernel<S, BATCH>, S::NT, smem_bytes<S, P>());
+  else
+    return resident_of(diamond_kernel<S, P, BATCH>, S::NT,
+                       smem_bytes<S, P>());
 }
 
 template <class S, int P, bool BATCH>
 int launch_pass(TrapParams<S> p, long long nres, cudaStream_t stream) {
   constexpr int smem = smem_bytes<S, P>();
   constexpr bool walk = S::nws(P) > 0;
-  const long long tiles = (long long)S::grid(P, 0) * S::grid(P, 1)
-                          * S::grid(P, 2) * p.nm;
+  const long long tiles = tiles_per_member<S, P>() * p.nm;
   if (walk && (p.ws == nullptr || nres < 1))
     return int(cudaErrorInvalidConfiguration);
   const dim3 block(S::NT, 1, 1);
   const dim3 cols = walk ? dim3(unsigned(tiles < nres ? tiles : nres))
                          : dim3(S::grid(P, 2), S::grid(P, 1));
-  const long long gz = walk ? 1 : (long long)S::grid(P, 0) * p.nm;
+  // the z cells: members x outer tiles x slot-0 tiles
+  const long long gz = walk ? 1 : tiles / (S::grid(P, 2) * S::grid(P, 1));
   if constexpr (P == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         trapezoid_kernel<S, BATCH>,

@@ -27,6 +27,10 @@ into one ``Spec`` struct:
   stages read of it (:func:`_stage_expansions`), so the input halos grow
   to match.  A *pushed* var (:func:`push_eligible_vars`) lives only in
   its shared-memory tile: no input, no output.
+* where the tiles fit no rung of the shared-memory ladder, the workspace
+  arm: K6's body (one sub-step or several) with the tiles past shared
+  memory in a device-memory workspace, one slice per resident block
+  (``KernelSpec.workspace``).
 * compile-time tables the machinery reads: which inputs ride shared memory
   (those of full-dim vars read at a spatial offset, or over an expanded
   region) and their halos, the tile extents, and for K6 the stage
@@ -120,6 +124,26 @@ _TILE_LADDER = ((8, 8, 64), (4, 8, 64), (2, 8, 64), (1, 8, 64),
                 (1, 4, 64), (1, 2, 64), (1, 1, 64), (1, 1, 32), (1, 1, 16),
                 (1, 1, 8))
 
+#: The caps on one block's slice of a device-memory workspace, where its
+#: tiles do not all fit shared memory; a launch holds one slice per
+#: resident block (132 at one per SM).  Both arms trade the slice for
+#: recompute, and each cap is the least that keeps its arm off thin
+#: tiles, so they differ:
+#:
+#: * K6's workspace arm (:func:`_workspace_plan`) takes the rung with the
+#:   fewest computed cells per useful point under
+#:   :data:`WS_STAGES_BLOCK_BYTES`.  4 MiB takes 8×8×64 for every
+#:   registered solution at r=8 (ssg 3.1 MB: 12.25 cells per point there,
+#:   107 at 1×4×64 under 2 MiB), about 0.4 GB in all.
+#: * K4 (:func:`emit_trapezoid`) shrinks its minor tile down
+#:   ``_MINOR_LADDER`` until the level buffers fit :data:`WS_BLOCK_BYTES`,
+#:   but not under 8 (a thinner tile recomputes its K·r margins many
+#:   times).  K4's plans on the card were measured under 2 MiB; at 4 MiB
+#:   ssg r=2, tti r=2 and awp take wider minor tiles in some passes, so
+#:   one cap for both would change kernels measured before.
+WS_STAGES_BLOCK_BYTES = 4 << 20
+WS_BLOCK_BYTES = 2 << 20
+
 _C_TYPES = {"R": "real_t", "I": "int", "i": "int", "d": "double",
             "B": "bool", "b": "bool"}
 #: element size 2: bfloat16 values (R) and float32 ones (F) in float
@@ -166,9 +190,8 @@ def a3_arms(program) -> List[str]:
     """The ROADMAP.md A3 arms this solution takes: more than three domain
     dims, misc-dim vars, written vars lacking a domain dim, element size
     2.  K1, K6, K7 (the member batch over either) and K5 (the shard's box
-    over either) take them; K4 takes all but more than three domain dims
-    (ROADMAP.md A12 (4-D K4)), and partial-dim writes, which the
-    reference's trapezoid does not take either."""
+    over either) take them; K4 takes all but partial-dim writes, which
+    the reference's trapezoid does not take either."""
     arms = []
     geoms = program.geoms
     dims = list(program.ana.domain_dims)
@@ -347,6 +370,10 @@ class KernelSpec:
     outer: int = 0
     #: per input: its offset in each outer dim (empty when ``outer`` is 0)
     in_outer: List[Tuple[int, ...]] = field(default_factory=list)
+    #: K6's workspace arm (:func:`_workspace_plan`; empty where every tile
+    #: fits shared memory): the tile, the shared-memory and workspace
+    #: elements per block, computed cells per useful point
+    workspace: Dict = field(default_factory=dict)
 
 
 def _hexf(v: float) -> str:
@@ -367,8 +394,12 @@ class _Printer:
     the sub-stages of a solution.  Written values are keyed by slice:
     (var, misc indices), ``(name, ())`` for a var without misc axes."""
 
-    def __init__(self, program, slot_of: Dict[str, int]):
+    def __init__(self, program, slot_of: Dict[str, int],
+                 copies: bool = True):
         self.prog = program
+        #: False (K4's levels): no outer copies; a read of a computed tile
+        #: at an outer offset prints the offset after the three
+        self.copies = copies
         self.ana = program.ana
         self.slot_of = slot_of          # solution dim → slot
         self.ns = max(3, len(slot_of))   # 3 + outer dims
@@ -435,6 +466,8 @@ class _Printer:
         if w is None:
             raise YaskException(
                 f"same-step read of '{sk[0]}' before a stage computed it")
+        if not self.copies:
+            return self.copy_of[(w, self.dw)]
         dw = tuple(d + offs[3 + j] for j, d in enumerate(self.dw))
         if (w, dw) not in self.copy_of:
             raise YaskException(
@@ -665,13 +698,16 @@ class _Printer:
                 f"same-step read of '{name}' before a stage computed it")
         b = self.cmp_of[(sk, w)]
         lo, hi = self.cmp_geom[b]
-        for s_, o in enumerate(offs[:3]):
+        # K4 (no copies): the outer slots' regions and offsets too
+        ns = 3 if self.copies else self.ns
+        for s_, o in enumerate(offs[:ns]):
             if self.lo[s_] - o > lo[s_] or self.hi[s_] + o > hi[s_]:
                 raise YaskException(
                     f"same-step read of '{name}' at offset {o} reaches past "
                     "its stage's computed region")
-        return (self._wide(f"rd.template cmp<{b}>({offs[0]}, {offs[1]}, "
-                           f"{offs[2]})"), "R")
+        return (self._wide(f"rd.template cmp<{b}>("
+                           + ", ".join(str(o) for o in offs[:ns]) + ")"),
+                "R")
 
 
 def _masks(eq, scratch: bool) -> list:
@@ -795,6 +831,14 @@ def _sub_stages(ana, slot_of, expand) -> List[_Sub]:
     return subs
 
 
+def _whole(subs: List[_Sub]) -> List[_Sub]:
+    """Each sub-stage once, over its region in every slot, the outer ones
+    included (K4's levels: an outer offset is a window offset there)."""
+    return [_Sub(u.stage, u.scratch, u.eqs, list(u.lo), list(u.hi),
+                 u.clip_lo, u.clip_hi, i, (0,) * (len(u.lo) - 3))
+            for i, u in enumerate(subs)]
+
+
 def _outer_copies(subs: List[_Sub]) -> List[_Sub]:
     """Each sub-stage once per offset of its region in the outer dims
     (slots 3 and up), in order: a copy keeps the slots' region and takes
@@ -848,17 +892,19 @@ def _check_applicable(program) -> None:
             f"kernel: {why}; use -mode torch")
 
 
-def _print(program, pushed) -> _Printed:
-    """Print every sub-stage's point function (see :func:`emit`)."""
+def _print(program, pushed, copies: bool = True) -> _Printed:
+    """Print every sub-stage's point function (see :func:`emit`); past
+    three domain dims in outer copies (K1, K6), or (``copies`` False, K4)
+    once each over its region in every slot."""
     _check_applicable(program)
     ana = program.ana
     geoms = program.geoms
     dims = list(ana.domain_dims)
     slot_of = slot_map(dims)
     bases = _sub_stages(ana, slot_of, _stage_expansions(ana, slot_of))
-    subs = _outer_copies(bases)
+    subs = _outer_copies(bases) if copies else _whole(bases)
     single = len(subs) == 1     # K1's point function writes the outputs
-    pr = _Printer(program, slot_of)
+    pr = _Printer(program, slot_of, copies)
 
     def key(p):
         return (p.var_name(), _misc_key(p))
@@ -1064,12 +1110,65 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     return [d0]
 
 
+def _place(sizes: List[int], limit: int) -> Tuple[List[int], int, int]:
+    """First fit, in order, of tiles of ``sizes`` elements into ``limit``
+    elements of shared memory: each tile's offset (a tile that does not
+    fit what is left goes to the workspace, at offsets from the shared
+    elements on), the shared elements and the workspace elements."""
+    where, sm, wsn = [], 0, 0
+    for c in sizes:
+        if sm + c <= limit:
+            where.append((True, sm))
+            sm += c
+        else:
+            where.append((False, wsn))
+            wsn += c
+    return [o if inside else sm + o for inside, o in where], sm, wsn
+
+
+def _workspace_plan(rungs, sizes_of, cells_of, esize: int) -> Dict:
+    """K6's workspace arm, where no rung fits :data:`SMEM_LIMIT`: the
+    tiles (staged inputs, then computed tiles) take shared memory in order
+    while they fit, the rest a workspace slice per resident block.  The
+    rung is the one with the fewest computed cells per useful point whose
+    slice fits :data:`WS_STAGES_BLOCK_BYTES` (the first such on a tie),
+    else the one with the smallest slice.  A slice is a whole number of
+    16-byte units, so every block's slice is aligned alike."""
+    best = None
+    for t3 in rungs:
+        offs, sm, wsn = _place(sizes_of(t3), SMEM_LIMIT // esize)
+        unit = 16 // esize
+        wsn = -(-wsn // unit) * unit
+        pts = t3[0] * t3[1] * t3[2]
+        row = {"code": "workspace_engaged", "tile": t3, "offsets": offs,
+               "smem_elems": sm, "ws_elems": wsn,
+               "smem_bytes": sm * esize, "ws_block_bytes": wsn * esize,
+               "cells_per_point": cells_of(t3) / pts}
+        over = wsn * esize > WS_STAGES_BLOCK_BYTES
+        key = (over, wsn if over else row["cells_per_point"])
+        if best is None or key < best[0]:
+            best = (key, row)
+    row = best[1]
+    row["detail"] = (f"no tile of the ladder fits {SMEM_LIMIT} bytes of "
+                     f"shared memory: tile {row['tile']}, "
+                     f"{row['smem_bytes']} B in shared memory and "
+                     f"{row['ws_block_bytes']} B per resident block in a "
+                     f"device-memory workspace, "
+                     f"{row['cells_per_point']:.2f} computed cells per "
+                     "useful point")
+    return row
+
+
 def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
     entries for one stage, K6's (and K7's, K5's) for several stages or scratch
     vars (one sub-stage per scratch write halo of a part, and one for the
     rest of each stage).  ``push`` is the :func:`resolve_push` request;
-    the tile is the first of ``ladder`` whose shared-memory tiles fit.  A
+    the tile is the first of ``ladder`` whose shared-memory tiles fit.
+    Where none fits, the workspace arm (:func:`_workspace_plan`): K6's
+    body, for one sub-step too, with the tiles past shared memory in a
+    device-memory workspace of the card's resident blocks, which walk the
+    tiles (``KernelSpec.workspace``; entries ``YT_FUSED_WS_ENTRIES``).  A
     program without equations has no kernel: a step of it changes
     nothing, and this raises."""
     import numpy as np
@@ -1120,16 +1219,21 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         if smem * esize <= SMEM_LIMIT:
             tile = t3
             break
+    ws = None
     if tile is None:
-        t3 = tuple(c if used[s_] else 1 for s_, c in enumerate(ladder[-1]))
-        smem = (sum(cells(t3, halos[a]) for a in tiled)
-                + sum(cmp_cells(t3, b) for b in range(len(computed))))
-        raise YaskException(
-            f"the shared-memory tiles of '{program.soln.get_name()}' "
-            f"({len(tiled)} staged inputs, {len(computed)} computed tiles: "
-            f"{smem * esize} bytes at the smallest tile {t3}) do not fit "
-            f"{SMEM_LIMIT} bytes; a streamed arm that would fit is "
-            "ROADMAP.md A5")
+        # the workspace arm: no rung fits shared memory
+        ws = _workspace_plan(
+            [tuple(c if used[s_] else 1 for s_, c in enumerate(cand))
+             for cand in ladder],
+            lambda t3: ([cells(t3, halos[a]) for a in tiled]
+                        + [cmp_cells(t3, b) for b in range(len(computed))]),
+            lambda t3: sum(cells(t3, list(zip(u.lo, u.hi))) for u in subs),
+            esize)
+        tile = ws["tile"]
+        ws["staged_in_ws"] = sum(1 for o in ws["offsets"][:len(tiled)]
+                                 if o >= ws["smem_elems"])
+        ws["computed_in_ws"] = sum(1 for o in ws["offsets"][len(tiled):]
+                                   if o >= ws["smem_elems"])
 
     real_t = {2: "yt::bf16_t", 4: "float", 8: "double"}[esize]
     # the point functions' results: float at bfloat16
@@ -1140,6 +1244,9 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
     for a in tiled:
         tile_off.append(offs)
         offs += cells(tile, halos[a])
+    if ws is not None:
+        tile_off = ws["offsets"][:len(tiled)]
+        offs = ws["smem_elems"]
     if any(slab):
         # a partial-dim output: the used slots it lacks (only the blocks
         # holding index 0 of each store its slab)
@@ -1155,7 +1262,7 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
                 + "".join(f"a == {a} ? {k} : " for k, a in enumerate(tiled))
                 + "-1; }")
 
-    if nst == 1:
+    if nst == 1 and ws is None:
         body = stage_lines[0]
         plan, cause = _stream_plan(program, tiled, halos, esize)
         stream_enum = ""
@@ -1228,12 +1335,18 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                           base_outputs=base_outputs, outer=no,
                           in_outer=list(pr.in_outer) if no else [])
 
-    # ---- K6: several sub-stages per launch ------------------------------
+    # ---- K6: several sub-stages per launch (and the workspace arm, one
+    #      sub-stage or several) ------------------------------------------
     in_elems = offs
     cmp_off = []
     for b in range(len(computed)):
         cmp_off.append(offs)
         offs += cmp_cells(tile, b)
+    ws_enum = ""
+    if ws is not None:
+        cmp_off = ws["offsets"][len(tiled):]
+        in_elems = offs = ws["smem_elems"]
+        ws_enum = f", WS_ELEMS = {ws['ws_elems']}"
     push_elems = sum(cmp_cells(tile, b) for b, n in enumerate(computed)
                      if n in pushed)
     # a staged input holds what its allocation holds, 0 past it: a scratch
@@ -1284,7 +1397,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
            IN_ELEMS = {in_elems}, NSTAGES = {nst}, NCMP = {len(computed)},
-           MAXV = {maxv}{outer_enum} }};
+           MAXV = {maxv}{outer_enum}{ws_enum} }};
 {chr(10).join(tabs)}
 
     template <int K, class RD>
@@ -1297,22 +1410,36 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 """
     name = "fused_stages_" + hashlib.sha256(struct.encode()).hexdigest()[:12]
     nscr = sum(u.scratch for u in subs)
+    if ws is None:
+        entries = (f"YT_FUSED_STAGES_ENTRY({name}, Spec)\n"
+                   f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
+                   f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
+        arm = ""
+    else:
+        entries = f"YT_FUSED_WS_ENTRIES({name}, Spec)\n"
+        arm = (f"\n// Workspace arm: {ws['ws_elems']} elements per resident "
+               "block past shared memory.")
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
 // ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), of K7
 // over N members and of K5 over a shard's box (see ops/fused_stencil.py);
 // pushed vars:
-// {', '.join(pushed) or 'none'}.
+// {', '.join(pushed) or 'none'}.{arm}
 #include "fused_step.cuh"
 
 {struct}
-YT_FUSED_STAGES_ENTRY({name}, Spec)
-YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)
-YT_FUSED_REGION_ENTRY({name}_region, Spec)
-"""
+{entries}"""
+    if ws is not None:
+        ws = {k: v for k, v in ws.items() if k != "offsets"}
     return KernelSpec(name=name, source=src, inputs=list(pr.inputs),
                       outputs=outputs, tiled=tiled, tile=tile,
                       smem_bytes=offs * esize, halos=halos, stages=nst,
+                      workspace=ws or {},
+                      stream_cause=(("skew_fallback", "the tiles do not fit "
+                                     f"{SMEM_LIMIT} bytes of shared memory "
+                                     "at any tile: the workspace arm has no "
+                                     "stream arm (ROADMAP.md A5)")
+                                    if ws is not None else None),
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,
                       scratch_stages=nscr, reach={
@@ -1336,11 +1463,6 @@ YT_FUSED_REGION_ENTRY({name}_region, Spec)
 TRAP_THREADS = 1024
 #: Minor-dim tile extents tried in order until the phase-1 buffers fit.
 _MINOR_LADDER = (64, 32, 16, 8, 4, 2, 1)
-#: The most bytes of level buffers one K4 block plans where they do not
-#: all fit shared memory (the rest go to its slice of a device-memory
-#: workspace): the minor tile shrinks down the ladder until they fit, but
-#: not under 8 (a thinner tile recomputes its K·r margins many times).
-WS_BLOCK_BYTES = 2 << 20
 
 
 def skew_eligible_dims(program, fuse_steps: int) -> List[str]:
@@ -1394,10 +1516,11 @@ def _tab(fn: str, args: Tuple[str, ...], mapping: Dict[tuple, int],
 
 
 def _pass_cells(geo) -> int:
-    """Elements of one buffer of a pass: its window's cells."""
+    """Elements of one buffer of a pass: its window's cells (every slot,
+    the outer ones included)."""
     cells = 1
-    for s_ in range(3):
-        cells *= geo[s_]["tile"] + 2 * geo[s_]["marg"]
+    for g_ in geo:
+        cells *= g_["tile"] + 2 * g_["marg"]
     return cells
 
 
@@ -1419,49 +1542,56 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     """Print ``program`` as K4's source for one K-step group: phase 1 over
     the lead ``block`` (trapezoid in ``trap_dims``) and one diamond pass
     per trapezoid dim, each level running K6's sub-stages (:func:`_print`)
-    over its buffers.  Buffers go to shared memory while they fit
-    ``smem_limit`` and to a device-memory workspace past it.  Raises for
-    more than three domain dims (ROADMAP.md A12 (4-D K4)) and when the
-    state's pads do not hold the diamond windows."""
+    over its buffers.  Past three domain dims the outer dims (slots 3,
+    ...) are window dims of the geometry, uniform with K·r margins: each
+    sub-stage is computed once over its region in every slot, and a read
+    at an outer offset reads the level buffer there.  Buffers go to shared
+    memory while they fit ``smem_limit`` and to a device-memory workspace
+    past it.  Raises when the state's pads do not hold the diamond
+    windows."""
     import numpy as np
     import re
     from yask_tpu_torch.ops.tile_planner import TilePlan
     ana = program.ana
     dims = list(ana.domain_dims)
-    if len(dims) > 3:
-        raise YaskException(
-            f"{len(dims)}-D solution: the port's K4 tiles three dims "
-            "(ROADMAP.md A12 (4-D K4)); K1/K6 run the group")
-    pt = _print(program, [])
+    pt = _print(program, [], copies=False)
     pr, slot_of, subs = pt.pr, pt.slot_of, pt.subs
+    ns = pr.ns                  # slots: the three, then the outer dims
+    no = ns - 3
     lead = dims[:-1]
     dim_of = {s_: d for d, s_ in slot_of.items()}
     geoms = program.geoms
     tp = TilePlan(program, K, trap_dims=trap_dims)
     rad = ana.fused_step_radius()
-    r = [rad.get(dim_of[s_], 0) if s_ in dim_of else 0 for s_ in range(3)]
-    n = [program.sizes[dim_of[s_]] if s_ in dim_of else 1 for s_ in range(3)]
+    r = [rad.get(dim_of[s_], 0) if s_ in dim_of else 0 for s_ in range(ns)]
+    n = [program.sizes[dim_of[s_]] if s_ in dim_of else 1
+         for s_ in range(ns)]
     esize = np.dtype(program.dtype).itemsize
     last = pt.last_writer
+    zero_o = (0,) * no
 
     def scratch(sk):
         return geoms[sk[0]].is_scratch
 
     # ---- inputs: the printed ones, then the ring slots only staging reads
+    #      (at outer offset 0)
     inputs = list(pr.inputs)
     in_misc = list(pr.in_misc)
+    in_outer = list(pr.in_outer) if no else [zero_o] * len(inputs)
 
-    def in_idx(v, s, misc):
-        for i, (key, m) in enumerate(zip(inputs, in_misc)):
-            if key == (v, s) and m == misc:
+    def in_idx(v, s, misc, outer=zero_o):
+        for i, (key, m, o) in enumerate(zip(inputs, in_misc, in_outer)):
+            if key == (v, s) and m == misc and o == outer:
                 return i
         inputs.append((v, s))
         in_misc.append(misc)
+        in_outer.append(outer)
         return len(inputs) - 1
 
-    # per sub-stage, its reads of inputs: (input, offsets per slot), as
-    # printed
-    at_offs = [[(int(a), tuple(int(o) for o in offs)) for a, *offs in
+    # per sub-stage, its reads of inputs: (input, offsets per slot, the
+    # input's outer offsets after the three), as printed
+    at_offs = [[(int(a), tuple(int(o) for o in offs) + in_outer[int(a)])
+                for a, *offs in
                 re.findall(r"rd\.template at<(\d+)>\((-?\d+), (-?\d+), "
                            r"(-?\d+)\)", "\n".join(lines))]
                for lines in pt.stage_lines]
@@ -1482,6 +1612,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                    if v == w and pr.in_misc[a] == misc]
         if ring_in:
             inplace = all(not any(lo or hi for lo, hi in pr.raw[a])
+                          and not any(in_outer[a])
                           and readers[a] <= {last[sk]}
                           for a in ring_in if pr.inputs[a][1] == 0)
             nb[sk] = g.num_slots + (0 if inplace else 1)
@@ -1498,6 +1629,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     lvl_src: Dict[tuple, int] = {}
     lvl_in: Dict[tuple, int] = {}
     ring_lev: Dict[tuple, tuple] = {}  # (level, input) → (slice, its level)
+    ro_buf: Dict[tuple, int] = {}      # read-only (var, slot, misc) → buffer
     for a, (v, idx) in enumerate(pr.inputs):
         sk, g = (v, pr.in_misc[a]), geoms[v]
         offs = any(lo or hi for lo, hi in pr.raw[a])
@@ -1516,14 +1648,19 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
             # slot carries there
             for L in range(1, K + 1):
                 ai = in_idx(v, (L - g.num_slots + idx - 1) % g.num_slots,
-                            sk[1])
+                            sk[1], in_outer[a])
                 if ai != a:
                     lvl_in[(L, a)] = ai
-        elif offs and full:
-            staged[nbuf] = a
+        elif full and (offs or any(in_outer[a])):
+            # one buffer per read-only slice, staged at outer offset 0; a
+            # read at an outer offset reads it there
+            key = (v, idx, pr.in_misc[a])
+            if key not in ro_buf:
+                ro_buf[key] = nbuf
+                staged[nbuf] = in_idx(v, idx, pr.in_misc[a])
+                nbuf += 1
             for L in range(1, K + 1):
-                lvl_src[(L, a)] = nbuf
-            nbuf += 1
+                lvl_src[(L, a)] = ro_buf[key]
     extra: Dict[tuple, int] = {}
     cmp_buf: Dict[tuple, int] = {}
     for (sk, i), b_ in sorted(pr.cmp_of.items(), key=lambda kv: kv[1]):
@@ -1585,7 +1722,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
 
     def phase1(zt):
         geo = []
-        for s_ in range(3):
+        for s_ in range(ns):
             d = dim_of.get(s_)
             if d is None:
                 geo.append(_uniform(1, 0, K))
@@ -1627,7 +1764,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
 
         def diamond(tiles):
             geo = []
-            for s_ in range(3):
+            for s_ in range(ns):
                 if s_ == sD:
                     g_ = _uniform(band, r[s_], K)
                     g_.update(stride=block[D], orig=-half,
@@ -1647,8 +1784,8 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
             if tiles[2] > 8 and sD != 2:
                 tiles[2] = max(t for t in _MINOR_LADDER if t < tiles[2])
                 return True
-            cand = [s_ for s_ in (0, 1) if s_ != sD and s_ not in later
-                    and tiles[s_] > 1]
+            cand = [s_ for s_ in [0, 1] + list(range(3, ns))
+                    if s_ != sD and s_ not in later and tiles[s_] > 1]
             if not cand:
                 return False
             s_ = max(cand, key=lambda c: tiles[c])
@@ -1659,14 +1796,14 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                 tiles[s_] = max(1, tiles[s_] // 2)
             return True
 
-        tiles = [p1[s_]["tile"] for s_ in range(3)]
+        tiles = [p1[s_]["tile"] for s_ in range(ns)]
         geo = diamond(tiles)
         while _pass_smem(nbuf, geo, esize) > smem_limit and shrink(tiles):
             geo = diamond(tiles)
         if _pass_smem(nbuf, geo, esize) > smem_limit:
             # a workspace: phase 1's tiles, the minor one shrunk towards
             # WS_BLOCK_BYTES but not under 8
-            tiles = [p1[s_]["tile"] for s_ in range(3)]
+            tiles = [p1[s_]["tile"] for s_ in range(ns)]
             geo = diamond(tiles)
             while _pass_smem(nbuf, geo, esize) > WS_BLOCK_BYTES \
                     and tiles[2] > 8 and sD != 2:
@@ -1676,7 +1813,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
         diamonds.append({"dim": D, "stride": block[D], "nbounds": nbounds,
                          "half": half, "band": band, "cls": cls})
     for i, geo in enumerate(passes):
-        for s_ in range(3):
+        for s_ in range(ns):
             g_ = geo[s_]
             g_["grid"] = (diamonds[i - 1]["nbounds"]
                           if i and s_ == slot_of[diamonds[i - 1]["dim"]]
@@ -1695,7 +1832,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                     geo[s_]["reg"][L - 1][1] + subs[k].hi[s_])
         for L in range(1, K + 1):
             for k in range(len(subs)):
-                for s_ in range(3):
+                for s_ in range(ns):
                     lo, hi = region(L, k, s_)
                     m_, T = geo[s_]["marg"], geo[s_]["tile"]
                     ok = -m_ <= lo and hi <= T + m_
@@ -1737,20 +1874,25 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     for key in ("tile", "marg", "stride", "orig", "grid"):
         tabs.append(_tab(key, ("P", "s"), {
             (i, s_): geo[s_][key] for i, geo in enumerate(passes)
-            for s_ in range(3)}, 0))
+            for s_ in range(ns)}, 0))
     for key, part, k_ in (("reg_lo", "reg", 0), ("reg_hi", "reg", 1),
                           ("wr_lo", "wr", 0), ("wr_hi", "wr", 1)):
         tabs.append(_tab(key, ("P", "s", "L"), {
             (i, s_, L): geo[s_][part][L - 1][k_]
-            for i, geo in enumerate(passes) for s_ in range(3)
+            for i, geo in enumerate(passes) for s_ in range(ns)
             for L in range(1, K + 1)}, 0))
     for key in ("lo", "hi"):
         tabs.append(_tab(f"sub_{key}", ("q", "s"), {
             (k, s_): getattr(u, key)[s_] for k, u in enumerate(subs)
-            for s_ in range(3)}, 0))
+            for s_ in range(ns)}, 0))
         tabs.append(_tab(f"clip_{key}", ("q", "s"), {
             (k, s_): getattr(u, f"clip_{key}")[s_]
-            for k, u in enumerate(subs) for s_ in range(3)}, 0))
+            for k, u in enumerate(subs) for s_ in range(ns)}, 0))
+    if no:
+        # each input's outer offsets: a read of a level buffer there
+        tabs.append(_tab("in_dw", ("A", "j"), {
+            (a, j): o for a, offs in enumerate(in_outer)
+            for j, o in enumerate(offs)}, 0))
     tabs.append(_tab("stage_nv", ("q",), {
         (k,): len(v) for k, v in enumerate(pt.stage_vars)}, 0))
     tabs.append(_tab("st_buf", ("q", "j", "L"), st_buf, -1))
@@ -1781,7 +1923,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     enum {{ NIN = {len(inputs)}, NOUT = {len(out_entries)}, K = {K},
            STEP_DIR = {ana.step_dir}, NPASS = {len(passes)}, NBUF = {nbuf},
            NSTAGED = {len(staged)}, NT = {TRAP_THREADS},
-           NSTAGES = {len(subs)}, MAXV = {maxv} }};
+           NSTAGES = {len(subs)}, MAXV = {maxv}{f', NOUTER = {no}' if no else ''} }};
 {chr(10).join(tabs)}
 
     template <int Q, class RD>
@@ -1805,19 +1947,19 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     def report(i, geo):
         cells = sum(np.prod([geo[s_]["reg"][L][1] - geo[s_]["reg"][L][0]
                              + subs[k].lo[s_] + subs[k].hi[s_]
-                             for s_ in range(3)])
+                             for s_ in range(ns)])
                     for L in range(K) for k in range(len(subs)))
-        ns = nsmem[i]
+        nsm = nsmem[i]
         e = _pass_cells(geo) * esize
         return {"pass": i,
                 "kernel": "trapezoid_kernel" if i == 0 else "diamond_kernel",
                 "dim": None if i == 0 else diamonds[i - 1]["dim"],
-                "tile": [geo[s_]["tile"] for s_ in range(3)],
-                "grid": [geo[s_]["grid"] for s_ in range(3)],
-                "smem_bytes": ns * e, "smem_buffers": ns,
-                "ws_buffers": nbuf - ns, "ws_block_bytes": (nbuf - ns) * e,
+                "tile": [geo[s_]["tile"] for s_ in range(ns)],
+                "grid": [geo[s_]["grid"] for s_ in range(ns)],
+                "smem_bytes": nsm * e, "smem_buffers": nsm,
+                "ws_buffers": nbuf - nsm, "ws_block_bytes": (nbuf - nsm) * e,
                 "computed_cells": int(cells) * int(np.prod(
-                    [geo[s_]["grid"] for s_ in range(3)]))}
+                    [geo[s_]["grid"] for s_ in range(ns)]))}
     reports = [report(i, geo) for i, geo in enumerate(passes)]
     trap = {"K": K, "trap_dims": list(trap_dims),
             "block": {**{d: block[d] for d in lead},
@@ -1835,7 +1977,8 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                       smem_bytes=reports[0]["smem_bytes"], trap=trap,
                       stages=len(subs), scratch_stages=nscr,
                       in_misc=in_misc, out_slices=out_entries,
-                      base_outputs=base_outputs)
+                      base_outputs=base_outputs, outer=no,
+                      in_outer=in_outer if no else [])
 
 
 def resolve_trapezoid(program, K: int, trapezoid=None,
@@ -1852,9 +1995,9 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     Auto falls back and forced raises where the reference's does: no
     eligible dim (K < 2, radius 0, a partial-dim written var), a block
     that does not divide the span or lies under the band floor, pads that
-    do not hold the diamond windows; and (ROADMAP.md A12 (4-D K4)) more
-    than three domain dims.  K4 takes every other arm K6 takes: several
-    stages, scratch vars, rewrites, misc dims and element size 2; level
+    do not hold the diamond windows.  K4 takes every arm K6 takes: several
+    stages, scratch vars, rewrites, misc dims, element size 2 and more
+    than three domain dims (the outer ones uniform window dims); level
     buffers past ``smem_limit`` go to a device-memory workspace."""
     from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
     if reasons is None:
@@ -1876,10 +2019,6 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
                         "from_dims": list(dims)})
         return None
 
-    if len(ana.domain_dims) > 3:
-        return infeasible(
-            f"{len(ana.domain_dims)}-D solution: the port's K4 tiles three "
-            "dims (ROADMAP.md A12 (4-D K4)); K1/K6 run the group", elig)
     if forced:
         want = (list(elig) if trapezoid is True
                 else [d for d in lead if d in set(trapezoid)])

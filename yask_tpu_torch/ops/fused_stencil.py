@@ -48,6 +48,16 @@ are its wrappers, each with its own counter; :func:`plain_batched_chunk`
 member batch never pushes, as the reference's vmapped chunk is built
 with ``push=False``: the context gives it a push-off kernel.
 
+K1's and K6's workspace arm: where the tiles fit no rung of the
+emitter's shared-memory ladder (tti, ssg and the fsg family at r=8), the
+emitted source is K6's body (one sub-stage or several) with the tiles
+past shared memory in a device-memory workspace, one slice of
+``spec.workspace["ws_elems"]`` elements per block the card holds at once
+(:meth:`FusedKernel.workspace`, the count from the ``<name>_resident``
+entry); a launch runs that many blocks, each walking tiles.  The same
+wrappers launch it (its entries take the workspace before the stream),
+and K7 and K5 take it as they take K6's body.
+
 K6 on Hopper, the multi-stage push-memory kernel: replaces the ``push=``
 arm of ``build_pallas_chunk`` and its stage loop (pallas_stencil.py:495-563,
 :995-1058, :1859-1871, :2058-2188), with its scratch arm (``_TileEval``'s
@@ -107,13 +117,14 @@ whose misc slices are not all written starts from a copy of its evicted
 slot (:func:`copy_base`, counted in ``copy_base.launches``), at element
 size 2 the stream arm checks the strides its pair copies need
 (:func:`check_pair_strides`), and the launch code walks z cells past
-CUDA's limit in several launches (:func:`grid_z`).  K4 takes them all
-but more than three domain dims (ROADMAP.md A12 (4-D K4)).
+CUDA's limit in several launches (:func:`grid_z`).  K4 takes them all,
+its outer dims as window dims of its geometry.
 
 K4 on Hopper, the trapezoid/diamond two-phase tiling of one K-step group
 (``-trapezoid``): the port's one kernel that advances K time levels
 inside one launch, each level running every stage and scratch sub-stage
-of K6, with misc slices and element size 2.  :class:`TrapezoidKernel`
+of K6, with misc slices, element size 2 and outer dims (more than three
+domain dims: uniform window dims with K·r margins).  :class:`TrapezoidKernel`
 holds the spec ``cuda_emit.resolve_trapezoid`` returns;
 :func:`trapezoid_chunk` is its wrapper (one phase-1 launch, then one
 diamond launch per trapezoid dim, counted in
@@ -234,23 +245,35 @@ def _arg_tables(program, spec, ins, outs):
     return in_ptrs, in_s, out_ptrs, out_s, (ctypes.c_int * ns)(*sizes)
 
 
-def call_entry(fn, program, spec, ins, outs, t: int, stream) -> int:
+def _ws_args(spec, ws, nres) -> tuple:
+    """The workspace arguments of the workspace arm's entries (the
+    workspace tensor, or None on the host path, and its resident blocks);
+    none for the other kernels."""
+    return (_ptr(ws), int(nres)) if spec.workspace else ()
+
+
+def call_entry(fn, program, spec, ins, outs, t: int, stream, ws=None,
+               nres: int = 0) -> int:
     """Call an emitted kernel's C entry point: interior-origin addresses
     and per-slot strides of the input and output tensors, the interior
-    sizes, the step index and the stream.  Returns its error code."""
+    sizes, the step index, for the workspace arm (``spec.workspace``) the
+    workspace ``ws`` of ``nres`` resident blocks, and the stream.
+    Returns its error code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
-              ctypes.addressof(n3), int(t), stream)
+              ctypes.addressof(n3), int(t), *_ws_args(spec, ws, nres),
+              stream)
 
 
 def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
-                       stream) -> int:
+                       stream, ws=None, nres: int = 0) -> int:
     """Call an emitted kernel's K7 entry point on (N, *shape) stacks:
     member 0's tables (as :func:`call_entry` passes them), the member
     strides (one per table entry: a misc slice of an output takes its
-    tensor's), the member count, the step index and the stream."""
+    tensor's), the member count, the step index, the workspace (as
+    :func:`call_entry`) and the stream."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
 
@@ -263,7 +286,8 @@ def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
               ctypes.addressof(out_s), ctypes.addressof(out_ms),
-              ctypes.addressof(n3), int(nm), int(t), stream)
+              ctypes.addressof(n3), int(nm), int(t),
+              *_ws_args(spec, ws, nres), stream)
 
 
 def _region_table(program, box, off) -> List[int]:
@@ -281,19 +305,21 @@ def _region_table(program, box, off) -> List[int]:
 
 
 def call_region_entry(fn, program, spec, ins, outs, box, off, t: int,
-                      stream) -> int:
+                      stream, ws=None, nres: int = 0) -> int:
     """Call an emitted kernel's K5 entry point (over K1's body or K6's):
     K1's tables, then the box ``{dim: (lo, hi)}`` in local interior
     coordinates, the shard's global origin ``{dim: offset}`` and the
-    global extents (from ``program``'s ``global_last``).  Returns its
-    error code."""
+    global extents (from ``program``'s ``global_last``), the step, the
+    workspace (as :func:`call_entry`) and the stream.  Returns its error
+    code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
     tab = _region_table(program, box, off)
     reg = (ctypes.c_int * len(tab))(*tab)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
-              ctypes.addressof(n3), ctypes.addressof(reg), int(t), stream)
+              ctypes.addressof(n3), ctypes.addressof(reg), int(t),
+              *_ws_args(spec, ws, nres), stream)
 
 
 def _stream_table(program, spec, seg: int) -> List[int]:
@@ -324,17 +350,31 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
               ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
 
 
-def batched_argtypes():
+#: the workspace arm's arguments before the stream: the workspace and
+#: its resident blocks
+_WS_ARGS = [ctypes.c_void_p, ctypes.c_longlong]
+
+
+def entry_argtypes(ws: bool = False):
+    """K1's and K6's C signature: the tables, the step, (the workspace
+    arm, ``ws``: the workspace and its resident blocks,) the stream."""
+    return ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+            + (_WS_ARGS if ws else []) + [ctypes.c_void_p])
+
+
+def batched_argtypes(ws: bool = False):
     """K7's C signature: K1's tables with the member strides after each
-    array table, the member count, the step, the stream."""
-    return [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_void_p]
-
-
-def region_argtypes():
-    """K5's C signature: K1's tables, the box table, the step, the
+    array table, the member count, the step, (the workspace,) the
     stream."""
-    return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    return ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int]
+            + (_WS_ARGS if ws else []) + [ctypes.c_void_p])
+
+
+def region_argtypes(ws: bool = False):
+    """K5's C signature: K1's tables, the box table, the step, (the
+    workspace,) the stream."""
+    return ([ctypes.c_void_p] * 6 + [ctypes.c_int]
+            + (_WS_ARGS if ws else []) + [ctypes.c_void_p])
 
 
 def stream_argtypes():
@@ -472,8 +512,9 @@ def _launch(kernel: "FusedKernel", state, t: int, what: str):
     ins, dev = _check_inputs(kernel, state)
     outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
+        ws, nres = kernel.workspace(dev, 0)
         rc = call_entry(kernel.fn, prog, spec, ins, outs, t,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        torch.cuda.current_stream(dev).cuda_stream, ws, nres)
     if rc != 0:
         raise YaskException(
             f"{what} kernel '{spec.name}' launch failed: CUDA error {rc}")
@@ -559,9 +600,11 @@ def _launch_batched(kernel: "FusedKernel", state, t: int, nm: int,
     ins, dev = _check_inputs(kernel, state, lead=(nm,))
     outs = copy_base(kernel, state, dev, lead=(nm,))
     with torch.cuda.device(dev):
+        ws, nres = kernel.workspace(dev, 1)
         rc = call_batched_entry(kernel.batched_fn, prog, spec, ins, outs,
                                 nm, t,
-                                torch.cuda.current_stream(dev).cuda_stream)
+                                torch.cuda.current_stream(dev).cuda_stream,
+                                ws, nres)
     if rc != 0:
         raise YaskException(
             f"{what} kernel '{spec.name}_batched' launch failed: CUDA "
@@ -657,24 +700,31 @@ def plain_shard_chunk(program, state, t: int, box, base=()):
     global domain (as the single-domain version's pads are, where a later
     stage reads them), into a fresh zeroed tensor (for a var in ``base``,
     whose misc slices are not all written, a copy of its evicted slot)
-    that keeps the box's cells inside the global domain; rings rotated."""
+    that keeps the box's cells inside the global domain; rings rotated.
+    A stage's box is clipped to the global domain: what it would write
+    past it is zeroed, and the pads past it may be narrower than the
+    growth (a box at a corner of a single domain)."""
     computed: Dict = {}
     scratch: Dict = {}
     writes = [{eq.lhs.var_name() for part in stage.parts
                if not part.is_scratch for eq in part.eqs}
               for stage in program.ana.stages]
+
+    def inside(b):     # ``b`` clipped to the global domain
+        out = {}
+        for d, (lo, hi) in b.items():
+            o = program.rank_offset[d]
+            a = max(lo, -o)
+            out[d] = (a, max(a, min(hi, program.global_last[d] + 1 - o)))
+        return out
     for si, sbox in enumerate(stage_boxes(program, box)):
-        program.eval_stage(si, t, state, computed, scratch, over=sbox)
+        program.eval_stage(si, t, state, computed, scratch,
+                           over=inside(sbox))
         for name in writes[si]:
             _zero_outside_global(program, name, computed[name])
-    inside = {}     # the box clipped to the global domain
-    for d, (lo, hi) in box.items():
-        o = program.rank_offset[d]
-        a = max(lo, -o)
-        inside[d] = (a, max(a, min(hi, program.global_last[d] + 1 - o)))
     outs = {}
     for name, val in computed.items():
-        idx = _box_idx(program.geoms[name], inside)
+        idx = _box_idx(program.geoms[name], inside(box))
         outs[name] = (state[name][0].clone() if name in base
                       else val.new_zeros(val.shape))
         outs[name][idx] = val[idx]
@@ -728,9 +778,11 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     if outs is None:
         outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
+        ws, nres = kernel.workspace(dev, 2)
         rc = call_region_entry(kernel.region_fn, prog, spec, ins, outs, box,
                                off, t,
-                               torch.cuda.current_stream(dev).cuda_stream)
+                               torch.cuda.current_stream(dev).cuda_stream,
+                               ws, nres)
     if rc != 0:
         raise YaskException(
             f"shard_step kernel '{spec.name}_region' launch failed: CUDA "
@@ -779,6 +831,10 @@ class FusedKernel:
         self.batched_fn = None
         self.region_fn = None
         self.stream_fn = None
+        #: the workspace arm's resident-block query and its answers per
+        #: launch kind (0 solo, 1 member batch, 2 a shard's box)
+        self.resident_fn = None
+        self._resident: Dict[int, int] = {}
         self.build_secs = 0.0
         self.dtype = None
         #: where the last build() found the library: "memory" (already
@@ -811,15 +867,20 @@ class FusedKernel:
             self.cache_hit = "memory"
             return 0.0
         lib, secs = self._load()
+        ws = bool(self.spec.workspace)
         fn = getattr(lib, self.spec.name)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = entry_argtypes(ws)
         fn.restype = ctypes.c_int
         bfn = getattr(lib, self.spec.name + "_batched")
-        bfn.argtypes = batched_argtypes()
+        bfn.argtypes = batched_argtypes(ws)
         bfn.restype = ctypes.c_int
         rfn = getattr(lib, self.spec.name + "_region")
-        rfn.argtypes = region_argtypes()
+        rfn.argtypes = region_argtypes(ws)
         rfn.restype = ctypes.c_int
+        if ws:
+            self.resident_fn = getattr(lib, self.spec.name + "_resident")
+            self.resident_fn.argtypes = [ctypes.c_int]
+            self.resident_fn.restype = ctypes.c_int
         if self.spec.stream is not None:
             sfn = getattr(lib, self.spec.name + "_stream")
             sfn.argtypes = stream_argtypes()
@@ -829,6 +890,32 @@ class FusedKernel:
         self.batched_fn = bfn
         self.region_fn = rfn
         return secs
+
+    def _workspace_of(self, dev, key, elems: int, query):
+        """A workspace of the resident blocks of launch ``key`` times
+        ``elems`` elements, and that block count.  The count is asked of
+        ``query()`` (the kernel's resident-block entry: the count, or a
+        negative CUDA error, which raises) once per key and card."""
+        import torch
+        if key not in self._resident:
+            n = query()
+            if n < 1:
+                raise YaskException(
+                    f"kernel '{self.spec.name}': the resident-block query "
+                    f"failed: CUDA error {-n}")
+            self._resident[key] = n
+        nres = self._resident[key]
+        return (torch.empty(nres * elems, dtype=self.dtype, device=dev),
+                nres)
+
+    def workspace(self, dev, kind: int):
+        """The workspace of one launch of the workspace arm of ``kind`` (0
+        solo, 1 member batch, 2 a shard's box): ``ws_elems`` per resident
+        block; (None, 0) for a kernel without one."""
+        if not self.spec.workspace:
+            return None, 0
+        return self._workspace_of(dev, kind, self.spec.workspace["ws_elems"],
+                                  lambda: self.resident_fn(int(kind)))
 
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on
@@ -905,6 +992,17 @@ class FusedKernel:
                "push_smem_bytes": s.push_smem_bytes,
                "pipeline_dmas": False, "skew": False, "skew_dims": [],
                "skew_reasons": list(reasons)}
+        if s.workspace:
+            # the workspace arm: its reason record, tile and bytes
+            w = s.workspace
+            out["workspace"] = {
+                "code": w["code"], "detail": w["detail"],
+                "tile": list(w["tile"]), "smem_bytes": w["smem_bytes"],
+                "ws_block_bytes": w["ws_block_bytes"],
+                "resident_blocks": dict(self._resident),
+                "cells_per_point": w["cells_per_point"],
+                "staged_in_ws": w["staged_in_ws"],
+                "computed_in_ws": w["computed_in_ws"]}
         if members:
             out.update(kernel=("batched_step" if s.stages == 1
                                else "batched_stages_step"),
@@ -1116,27 +1214,22 @@ class TrapezoidKernel(FusedKernel):
         return secs
 
     def workspace(self, dev, batched: bool):
-        """The level-buffer workspace of a group: a tensor of the blocks
-        the card holds at once (the most over the passes that have one)
-        times the most buffer elements one of their blocks takes, and that
-        block count; (None, 0) where every buffer fits shared memory."""
+        """The level-buffer workspace of a group: the blocks the card holds
+        at once (the most over the passes that have one) times the most
+        buffer elements one of their blocks takes, and that block count;
+        (None, 0) where every buffer fits shared memory."""
         import torch
         passes = self.spec.trap["passes"]
         per = max(p["ws_block_bytes"] for p in passes)
         if not per:
             return None, 0
-        if batched not in self._resident:
+
+        def query():
             res = [self.resident_fn(i, int(batched))
                    for i, p in enumerate(passes) if p["ws_buffers"]]
-            if min(res) < 1:
-                raise YaskException(
-                    f"K4 kernel '{self.spec.name}': the resident-block "
-                    f"query failed: CUDA error {-min(res)}")
-            self._resident[batched] = max(res)
-        nres = self._resident[batched]
+            return min(res) if min(res) < 1 else max(res)
         esize = torch.empty((), dtype=self.dtype).element_size()
-        return (torch.empty(nres * per // esize, dtype=self.dtype,
-                            device=dev), nres)
+        return self._workspace_of(dev, batched, per // esize, query)
 
     def _ready(self, state, k: int):
         """The state's device after the group-length and device checks;

@@ -448,15 +448,18 @@ def pipeline_plan(pipe: "SolutionPipeline") -> Dict:
         try:
             spec = emit(program, fctx._push_arg())
         except YaskException as e:
-            if "do not fit" in str(e):
-                reasons.append(
-                    {"code": "pipeline-smem-overflow", "ok": False,
-                     "msg": f"merged chain's shared-memory tiles: {e}",
-                     "smem_limit": SMEM_LIMIT})
-            else:
-                reasons.append({"code": "fused-plan-failed", "ok": False,
-                                "msg": f"merged chain has no fused "
-                                       f"kernel: {e}"})
+            reasons.append({"code": "fused-plan-failed", "ok": False,
+                            "msg": f"merged chain has no fused "
+                                   f"kernel: {e}"})
+            return plan
+        if spec.workspace:
+            # K6 would keep tiles in its device-memory workspace: the
+            # chain's intermediates would not stay on chip
+            reasons.append(
+                {"code": "pipeline-smem-overflow", "ok": False,
+                 "msg": f"merged chain's shared-memory tiles do not fit: "
+                        f"{spec.workspace['detail']}",
+                 "smem_limit": SMEM_LIMIT})
             return plan
         push_vars = list(spec.push_vars)
         plan["fused_kernel"] = {

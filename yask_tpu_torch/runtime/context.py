@@ -791,9 +791,8 @@ class StencilContext:
         K = max(self._opts.wf_steps, 1)
         trap = self._built_trapezoid_kernel()
         chunks = self._chunks(n, K)
-        # K1/K6 is emitted and built only where it runs: K4 takes
-        # solutions whose K6 tiles do not fit shared memory (tti r=8,
-        # ROADMAP.md C17)
+        # K1/K6 is emitted and built only where it runs: where K4 takes
+        # every group, no nvcc run for a kernel that never launches
         kern = (self._fused_kernel()
                 if trap is None or any(k != K for k in chunks) else None)
         dirn = self._ana.step_dir

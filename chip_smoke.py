@@ -294,7 +294,34 @@ script exits 0 only when all of them passed.  Phases:
    each, bit-equal to the ``-no-trapezoid`` twin and against the plain
    version: four_d_stages, test_4d in bfloat16, and an ``EnsembleRun``
    of 4 test_4d members under K4, each member bit-equal to its solo K4
-   run.
+   run;
+16. K6's flat arm (the 1-D and 2-D solutions on K6's body: wide tiles
+   served by fewer threads, the card's resident blocks walking them, the
+   next tile's staged inputs copied with ``cp.async`` while the current
+   one computes, every output cell written once); phase 10 (c)'s
+   gaussian (now held to its plain version's bits) and phase 12 (b)'s
+   gaussian batch run it too, the batch beside ``conv2d(groups=3)`` over
+   its member stack.  (a) One gaussian r=2 8192²x3 launch under
+   ``torch.profiler``, on the flat arm and on the 1x8x64 body it
+   replaces (the flat arm off): each kernel's device time against any
+   fill or copy in the launch, and the device's idle share (in phase 10
+   (c)'s gaussian entry of the ``kernels`` line, with (b)); (b) the flat
+   ladder's rungs (:data:`FLAT_SWEEP`) on the same launch, one trial of
+   10 each, each bit-equal to the plain version: ms, share, staged cells
+   per point; (c) swe2d at 8192² fp32 seeded in physical ranges, ``-wf_steps
+   2``, 3 trials of 20 steps with the counters zeroed just before: ms/step
+   and per launch against the bound from ``live_inputs`` (24 B/pt), one
+   chunk against the plain version; (d) gaussian in bfloat16 at 8192²x3,
+   one trial of 10 steps, bit-equal to its plain version, against 12 B/pt,
+   beside ``conv2d(groups=3)`` on the bfloat16 image; (e) at mid width
+   (2-D 3000x3000, 1-D 2100000 points: more tiles per launch than the
+   card's resident blocks, so they walk) every 1-D and 2-D K6 solution
+   and box at r=1 and r=3: solo against the plain version on
+   the card (to the bit, but box's division and test_func_1d's math
+   functions, which PyTorch rounds otherwise: 0 mismatches at
+   ``field_epsilon``, the cells whose bits differ counted), a K7 batch
+   of 3 (each member bit-equal to its solo run) and, 2-D, 2x2 K5 shards
+   (bit-equal to the single-domain run).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -381,6 +408,9 @@ def ptxas_summary(log_text: str) -> str:
              ("fused_stages_kernelI4SpecLb0ELb1E", "K5 (K6 body)"),
              ("fused_stages_kernelI4SpecLb1", "K7 (K6 body)"),
              ("fused_stages_kernelI4SpecLb0", "K6"),
+             ("flat_stages_kernelI4SpecLb0ELb1E", "K5 (flat arm)"),
+             ("flat_stages_kernelI4SpecLb1", "K7 (flat arm)"),
+             ("flat_stages_kernelI4SpecLb0", "K6 flat arm"),
              ("trapezoid_kernelI4SpecLb1", "K4 phase 1 (member batch)"),
              ("trapezoid_kernel", "K4 phase 1"),
              ("diamond_kernelI4SpecLi1ELb1", "K4 diamond (member batch)"),
@@ -449,6 +479,40 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def profile_launches(fn, reps: int = 10):
+    """``torch.profiler`` (CUPTI) over ``reps`` calls of ``fn()`` after a
+    warm one: the device milliseconds per call of each kernel (by name,
+    shortened), the span from the first kernel's start to the last one's
+    end per call, and the device's idle share of that span (its gaps
+    between kernels).  None where the profiler saw no device activity
+    (then time the parts with CUDA events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return None
+    per, busy, end = {}, 0.0, spans[0][0]
+    for s, t, name in spans:
+        key = name.split("(")[0].replace("void ", "")[:70]
+        per[key] = per.get(key, 0.0) + (t - s) / 1e3 / reps
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    span = (end - spans[0][0]) / 1e3
+    return {"kernels": per, "span_ms": span / reps,
+            "idle_share": 1.0 - busy / 1e3 / span if span > 0 else 0.0}
 
 
 def phase2(fac, env, cases, g: int = 64) -> None:
@@ -2412,21 +2476,24 @@ def a3_bound(ctx) -> tuple:
 
 def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
             K: int = 2, warm: int = 2, trials: int = 3, steps: int = 20,
-            cli: str = "") -> dict:
-    """Phase 10 (c) and phase 11 (c): one case at full width through the
-    user's entry points (``-mode fused -wf_steps K``): warm-up, then
-    ``trials`` runs of ``steps`` steps with every counter zeroed just
-    before; the arm's ms per launch against its bound, its plain
-    version's time and one chunk against it, from :func:`seed_device`'s
-    state.  Returns the ``kernels`` entry, with the context under
-    ``ctx``."""
+            cli: str = "", exact: bool = False, physical: bool = False,
+            live=None) -> dict:
+    """Phase 10 (c), phase 11 (c) and phase 16: one case at full width
+    through the user's entry points (``-mode fused -wf_steps K``):
+    warm-up, then ``trials`` runs of ``steps`` steps with every counter
+    zeroed just before; the arm's ms per launch against its bound (the
+    ``live`` inputs read once where given, else :func:`a3_bound`'s
+    arrays), its plain version's time and one chunk against it (with
+    ``exact``, to the bit), from :func:`seed_device`'s state (in physical
+    ranges with ``physical``).  Returns the ``kernels`` entry, with the
+    context under ``ctx``."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused", K, cli)
-    seed_device(ctx, 11)
+    seed_device(ctx, 11, physical=physical)
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
     npts = 1
@@ -2453,6 +2520,12 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
     step_ms = npts / mid * 1e3
     peak = torch.cuda.max_memory_allocated()
     bound_ms, bound_by, nbytes = a3_bound(ctx)
+    if live is not None:
+        nbytes = io_bytes(ctx, live)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, flops_ms)
+        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
     kern, prog, s0 = ctx._fused, ctx._program, dict(ctx._state)
     wrapper = getattr(fs, arm)
     ms = cuda_ms(lambda: wrapper(kern, s0, t), 5)
@@ -2480,9 +2553,9 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
         f"plain: max|d|={err:.3e} (field max {scale:.3e}), {nbits} cells "
         f"differ in their bits; torch.cuda.max_memory_allocated() = "
         f"{peak / 2**30:.2f} GiB [{card}]")
-    if not err <= eps * scale:
+    if not err <= eps * scale or (exact and nbits):
         raise RuntimeError(f"{label}: {arm} and its plain version "
-                           "disagree")
+                           f"disagree ({nbits} cells differ in their bits)")
     return {"name": f"{arm} ({label.split(': ')[0]})", "route": "cuda",
             "launches": got[arm], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2492,44 +2565,64 @@ def a3_full(fac, env, card: str, st, r, eb, sizes, arm: str, label: str,
             "peak_bytes": peak, "ctx": ctx}
 
 
-def gaussian_library(entry, card: str, r: int = 2) -> None:
-    """The one PyTorch call that computes the Gaussian filter's step
-    (off the port's path, a yardstick): ``conv2d(img, w, padding=r,
-    groups=3)`` with the weights ``w1[i] w1[j]`` and zero pads as the
-    ghost cells, in full float32 (cuDNN's TF32 off).  Its time is the
-    entry's ``library_ms``; its output is held against the kernel's."""
+#: The bfloat16 conv2d yardstick against the kernel, of the field's
+#: scale: the call may round its partial sums to bfloat16 (on the CPU it
+#: lands 4 bfloat16 ulps from the kernel, which rounds once), so it is
+#: held at the tests' bfloat16 tolerance, not BF16_FIELD_EPS.
+BF16_LIBRARY_EPS = 3e-2
+
+
+def gaussian_conv2d(src, r: int = 2):
+    """The one PyTorch call that computes the Gaussian filter's step (off
+    the port's path, a yardstick) on ``src`` (N, 3, H, W): ``conv2d(src,
+    w, padding=r, groups=3)`` with the weights ``w1[i] w1[j]`` (in
+    ``src``'s dtype) and zero pads as the ghost cells, in full float32
+    (cuDNN's TF32 off) or bfloat16.  Returns its ms (CUDA events) and its
+    output."""
     import math
     import torch
-    from yask_tpu_torch.ops import fused_stencil as fs
-    ctx = entry["ctx"]
-    src = ctx._state["img"][-1][ctx._interior_idx("img")].unsqueeze(0) \
-        .contiguous()
     sigma = max(r / 2.0, 0.5)
     w1 = [math.exp(-(i * i) / (2 * sigma * sigma)) for i in range(-r, r + 1)]
     w1 = [w / sum(w1) for w in w1]
     w = torch.tensor([[a * b for b in w1] for a in w1], dtype=torch.float32,
                      device=src.device).expand(3, 1, 2 * r + 1, 2 * r + 1) \
-        .contiguous()
+        .contiguous().to(src.dtype)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
             src, w, padding=r, groups=3), 5)
-        lib = torch.nn.functional.conv2d(src, w, padding=r, groups=3)[0]
+        lib = torch.nn.functional.conv2d(src, w, padding=r, groups=3)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    return lib_ms, lib
+
+
+def gaussian_library(entry, card: str, r: int = 2,
+                     phase: str = "phase 10") -> None:
+    """:func:`gaussian_conv2d` over the solo image of phase 10 (c) (in
+    float32) or phase 16 (d) (in bfloat16): its time is the entry's
+    ``library_ms``; its output is held against the kernel's within
+    ``FIELD_EPS`` (:data:`BF16_LIBRARY_EPS` in bfloat16) of the field."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    ctx = entry["ctx"]
+    src = ctx._state["img"][-1][ctx._interior_idx("img")].unsqueeze(0) \
+        .contiguous()
+    lib_ms, lib = gaussian_conv2d(src, r)
     t = ctx._cur_step
     out = fs.stages_step(ctx._fused, dict(ctx._state), t)["img"][-1]
-    mine = out[ctx._interior_idx("img")]
+    mine = out[ctx._interior_idx("img")].float()
     scale = float(mine.abs().max())
-    err = float((mine - lib).abs().max())
-    log(f"phase 10: gaussian r={r}: torch.nn.functional.conv2d(groups=3, "
-        f"padding={r}, TF32 off) {lib_ms:.3f} ms (CUDA events; the "
-        f"yardstick, off the port's path) against the kernel's "
+    err = float((mine - lib[0].float()).abs().max())
+    eps = BF16_LIBRARY_EPS if src.dtype == torch.bfloat16 else FIELD_EPS
+    log(f"{phase}: gaussian r={r} {src.dtype}: torch.nn.functional.conv2d("
+        f"groups=3, padding={r}, TF32 off) {lib_ms:.3f} ms (CUDA events; "
+        f"the yardstick, off the port's path) against the kernel's "
         f"{entry['ms']:.3f} ms/launch; kernel vs conv2d max|d|={err:.3e} "
-        f"(field max {scale:.3e}) [{card}]")
-    if not err <= FIELD_EPS * scale:
-        raise RuntimeError("phase 10: gaussian: the kernel and conv2d "
+        f"(field max {scale:.3e}, tolerance {eps} of it) [{card}]")
+    if not err <= eps * scale:
+        raise RuntimeError(f"{phase}: gaussian: the kernel and conv2d "
                            "disagree")
     entry["library_ms"] = lib_ms
 
@@ -2544,7 +2637,7 @@ def phase10(fac, env, card: str, image: int = 8192, full: int = 512,
     phase10b(fac, env)
     gauss = a3_full(fac, env, card, "gaussian", 2, 4, (1, image, image),
                     "stages_step", f"misc arm of K6: gaussian r=2 "
-                    f"{image}^2x3 fp32", K=1)
+                    f"{image}^2x3 fp32", K=1, exact=True)
     gaussian_library(gauss, card)
     gauss.update(source="yask_tpu_torch/csrc/fused_step.cuh",
                  replaces="yask_tpu/ops/pallas_stencil.py:199 (_TileEval "
@@ -2949,6 +3042,27 @@ def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5,
     return entries
 
 
+def k7_gaussian_library(ctx, ens, kern, t: int, card: str) -> float:
+    """:func:`gaussian_conv2d` over the member stack (N, 3, H, W) of
+    phase 12 (b)'s gaussian batch, held against one K7 launch from the
+    same state within ``FIELD_EPS`` of the field; returns its ms."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    state = ens._stack_states()
+    idx = (slice(None),) + ctx._interior_idx("img")
+    lib_ms, lib = gaussian_conv2d(state["img"][-1][idx].contiguous())
+    mine = fs.batched_stages_step(kern, dict(state), t, ens.n)["img"][-1][idx]
+    scale = float(mine.abs().max())
+    err = float((mine - lib).abs().max())
+    log(f"phase 12: gaussian r=2, {ens.n} members: torch.nn.functional."
+        f"conv2d(groups=3, padding=2, TF32 off) over the {tuple(lib.shape)} "
+        f"stack {lib_ms:.3f} ms (CUDA events; the yardstick, off the "
+        f"port's path); K7 vs conv2d max|d|={err:.3e} (field max "
+        f"{scale:.3e}) [{card}]")
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError("phase 12: gaussian: K7 and conv2d disagree")
+    return lib_ms
+
+
 def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
              trials: int = 3, steps: int = 20) -> list:
     """Phase 12 (b): each cell of :data:`K7_FULL` through ``EnsembleRun``
@@ -3031,6 +3145,9 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
         if not err <= eps * scale:
             raise RuntimeError(f"phase 12: {st}: K7 and its plain version "
                                "disagree at full width")
+        lib_ms = None
+        if st == "gaussian":
+            lib_ms = k7_gaussian_library(ctx, ens, kern, t, card)
         entries.append({
             "name": f"{wrapper} ({arm} arm: {st} r={r} {eb} B, {nm} x "
                     f"{shape})",
@@ -3038,7 +3155,7 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
             "replaces": K7_REPLACES, "launches": got[wrapper],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "path": "phase 12 (b)",
+            "library_ms": lib_ms, "path": "phase 12 (b)",
             "step_ms": step_ms, "bytes_per_point": nbytes / nm / npts,
             "peak_bytes": peak, "solo_ms": s_row["ms"],
             "solo_step_ms": s_row["step_ms"], "solo_points": s_pts})
@@ -4356,6 +4473,317 @@ def phase15(fac, env, card: str, full: int = 512,
     return entries
 
 
+# ---- phase 16: K6's flat arm (the 1-D and 2-D solutions on K6's body) --
+
+#: Phase 16 (b): the flat ladder's rungs swept on gaussian r=2 8192^2x3,
+#: (T1, T2, threads); the emitter's ladder (``cuda_emit._FLAT_LADDER``)
+#: keeps the rungs the registered solutions take, led by this sweep's.
+FLAT_SWEEP = ((32, 128, 512), (16, 128, 512), (64, 64, 512), (32, 64, 512),
+              (16, 256, 512), (32, 256, 512), (64, 128, 512),
+              (32, 128, 256), (16, 128, 256), (8, 256, 256))
+#: Phase 16 (e): every 1-D and 2-D solution K6 carries (and box at r=1
+#: and r=3), at mid width: 2-D over 3000 x 3000 (47 x 47 tiles of 64x64,
+#: a 2x2 shard's box 24 x 24), 1-D over 2100000 points (513 tiles of
+#: 4096), each launch's last tiles partial and more tiles than the card's
+#: resident blocks (2 a SM on the H100), so the blocks walk on the card
+FLAT_MID = (("box", 1), ("box", 3), ("gaussian", 2), ("swe2d", None),
+            ("test_boundary_2d", None), ("test_misc_value_2d", None),
+            ("test_scratch_2d", None), ("test_stages_2d", None),
+            ("test_boundary_1d", None), ("test_func_1d", None),
+            ("test_scratch_1d", None), ("test_scratch_boundary_1d", None),
+            ("test_scratch_stages_1d", None), ("test_stages_1d", None),
+            ("test_step_cond_1d", None))
+#: the cases whose plain version on the card rounds otherwise than the
+#: kernel (and the numpy oracle and the host build): box divides by a
+#: constant, which PyTorch's CUDA division takes as a multiply by the
+#: reciprocal (ROADMAP.md C5); test_func_1d's math functions are
+#: PyTorch's own.  The others must match it to the bit.
+FLAT_PLAIN_ROUNDING = ("box", "test_func_1d")
+FLAT_MID_SIZES = (1, 3000, 3000)
+FLAT_MID_1D = (1, 1, 2100000)
+FLAT_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the push=/stage "
+                 "loop :2058-2188 over 1-D and 2-D domains, with the "
+                 "input prefetch under the compute :1815-1854)")
+
+
+def flat_sizes(st: str) -> tuple:
+    return FLAT_MID_1D if st.endswith("_1d") else FLAT_MID_SIZES
+
+
+def flat_walk(flat: dict, sizes: tuple, st: str) -> str:
+    """Phase 16 (e)'s tiles per launch (solo, K7 over 3 members, and a 2x2
+    shard's box in 2-D) against the solo launch's resident blocks; raises
+    unless the smallest launch has more tiles than blocks, so every arm's
+    blocks walk (the prefetch, the walk index and the last empty group
+    run on the card)."""
+    t1, t2 = flat["tile"][1:]
+    nres = flat["resident_blocks"][0]
+
+    def tiles(n1, n2):
+        return -(-n1 // t1) * -(-n2 // t2)
+    solo = tiles(*sizes[1:])
+    box = solo if st.endswith("_1d") else tiles(-(-sizes[1] // 2),
+                                                -(-sizes[2] // 2))
+    if box <= nres:
+        raise RuntimeError(f"phase 16: {st}: {box} tiles per launch do not "
+                           f"pass the {nres} resident blocks")
+    return (f"tiles per launch: solo {solo}, K7 x3 {3 * solo}"
+            + ("" if st.endswith("_1d") else f", a 2x2 shard's box {box}")
+            + f", over {nres} resident blocks")
+
+
+def flat_kernel(program, rung):
+    """K6 for ``program`` on the flat arm at ``rung`` alone, built (where
+    the rung fits)."""
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    kern = FusedKernel(program)
+    kern.spec = cuda_emit.emit(program, flat_ladder=(rung,))
+    if kern.spec.flat:
+        kern.build()
+    return kern
+
+
+def flat_specs(fac, env) -> dict:
+    """Phase 16's kernels, for phase 1's parallel build: gaussian's at
+    every rung of the sweep and in bfloat16, every solution of (e) solo
+    (K7 runs the same source) and on 2x2 shards (2-D)."""
+    from yask_tpu_torch.ops import cuda_emit, fused_stencil
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    out = {}
+    g = a3_ctx(fac, env, "gaussian", 2, 4, (1, 16, 16), "fused")
+    for rung in FLAT_SWEEP:
+        spec = cuda_emit.emit(g._program, flat_ladder=(rung,))
+        if spec.flat:
+            out[f"gaussian rung {rung}"] = spec
+    for st, r in FLAT_MID:
+        ctx = a3_ctx(fac, env, st, r, 4, (1, 16, 16), "fused")
+        out[f"{st} r={r} 4 B"] = fused_stencil.FusedKernel(
+            ctx._program).spec
+        if not st.endswith("_1d"):
+            k5 = k5_ctx(fac, st, r, 4, (32, 32), 1, X2Y2)
+            out[f"K5 {st} r={r}"] = shard_pallas_plan(k5).kernel.spec
+    out["gaussian r=2 flat arm off"] = cuda_emit.emit(g._program,
+                                                      flat_ladder=())
+    ctx = a3_ctx(fac, env, "gaussian", 2, 2, (1, 16, 16), "fused")
+    out["gaussian r=2 2 B"] = fused_stencil.FusedKernel(ctx._program).spec
+    return out
+
+
+def phase16a(fac, env, card: str, image: int = 8192) -> tuple:
+    """Phase 16 (a): one gaussian r=2 launch at ``image``^2x3 under the
+    profiler, on the flat arm and on the 1x8x64 body it replaces (the
+    same source with the flat arm off, PR 14's kernel): each kernel's
+    device time against any fill or copy in the launch, and the device's
+    idle share.  Returns the context and the flat arm's profile."""
+    import json as _json
+    from yask_tpu_torch.ops import cuda_emit, fused_stencil as fs
+    ctx = a3_ctx(fac, env, "gaussian", 2, 4, (1, image, image), "fused", 1)
+    seed_device(ctx, 11)
+    ctx.run_solution(0, 1)
+    kern, s0, t = ctx._fused, dict(ctx._state), 2
+    old = fs.FusedKernel(ctx._program)
+    old.spec = cuda_emit.emit(ctx._program, flat_ladder=())
+    old.build()
+    flat = ctx.get_stats().get_tiling()["flat"]
+    prof = None
+    for label, k in (("the flat arm", kern),
+                     ("the 1x8x64 body (flat arm off)", old)):
+        p = profile_launches(lambda: fs.stages_step(k, s0, t), 10)
+        if p is None:
+            whole = cuda_ms(lambda: fs.stages_step(k, s0, t), 10)
+            log(f"phase 16: gaussian r=2 {image}^2x3 on {label}: the "
+                f"profiler saw no device time; stages_step {whole:.4f} "
+                "ms/launch (CUDA events)")
+        else:
+            log(f"phase 16: gaussian r=2 {image}^2x3, one stages_step launch "
+                f"on {label} under torch.profiler (10 launches): device ms "
+                f"per launch by kernel {_json.dumps(p['kernels'])}; span "
+                f"{p['span_ms']:.4f} ms per launch, idle share "
+                f"{p['idle_share']:.4f}; tile {list(k.spec.tile)} [{card}]")
+        prof = prof or p
+    log(f"phase 16: flat arm {_json.dumps(flat)}")
+    return ctx, prof
+
+
+def phase16b(ctx, card: str) -> list:
+    """Phase 16 (b): gaussian's launch at each rung of
+    :data:`FLAT_SWEEP` (one trial of 10 launches, CUDA events), each
+    bit-equal to the plain version and so to the others.  Returns
+    (rung, ms, staged cells per point) per rung that fits."""
+    import torch
+    from yask_tpu_torch.ops import cuda_emit, fused_stencil as fs
+    prog, s0, t = ctx._program, dict(ctx._state), ctx._cur_step
+    want = fs.plain_chunk(prog, dict(s0), t, 1)["img"][-1]
+    bound_ms, _by, _nb = a3_bound(ctx)
+    rows = []
+    for rung in FLAT_SWEEP:
+        kern = flat_kernel(prog, rung)
+        if not kern.spec.flat:
+            log(f"phase 16: rung {rung}: does not fit shared memory")
+            continue
+        ms = cuda_ms(lambda: fs.stages_step(kern, s0, t), 10)
+        got = fs.stages_step(kern, dict(s0), t)["img"][-1]
+        nbits = int((got != want).sum())
+        f = kern.spec.flat
+        log(f"phase 16: gaussian r=2 flat rung {rung}: {ms:.4f} ms/launch "
+            f"(CUDA events, 10 launches), share {bound_ms / ms:.3f} of "
+            f"{bound_ms:.3f} ms; {f['staged_cells_per_point']:.3f} staged "
+            f"cells per point and input, {f['smem_bytes']} B shared, "
+            f"{f['min_blocks']} block(s) per SM asked; {nbits} cells differ "
+            f"from the plain version [{card}]")
+        if nbits:
+            raise RuntimeError(f"phase 16: rung {rung} differs from the "
+                               "plain version")
+        rows.append((rung, ms, f["staged_cells_per_point"]))
+        del kern, got
+        torch.cuda.empty_cache()
+    best = min(rows, key=lambda row: row[1])
+    first = next(row for row in rows if row[0] == cuda_emit._FLAT_LADDER[0])
+    log(f"phase 16: the fastest rung {best[0]}, {best[1]:.4f} ms; the "
+        f"emitter's first rung {first[0]}, {first[1]:.4f} ms")
+    return rows
+
+
+def phase16e(fac, env, card: str, steps: int = 5,
+             dev: str = "cuda:0") -> list:
+    """Phase 16 (e): each solution of :data:`FLAT_MID` at mid width: solo
+    against its plain version on the card (to the bit, but
+    :data:`FLAT_PLAIN_ROUNDING`'s cases, held to 0 mismatches at
+    ``field_epsilon``), a K7 batch of 3 (each member bit-equal to its solo
+    run) and, 2-D, 2x2 K5 shards (bit-equal to the single-domain run).
+    Returns the ``kernels`` entries, one per body."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    nbits_all, solo_ms, solo_plain, solo_bound, n_solo, worst = 0, 0.0, \
+        0.0, 0.0, 0, 0.0
+    for st, r in FLAT_MID:
+        sizes = flat_sizes(st)
+        plain = a3_ctx(fac, env, st, r, 4, sizes, "torch", 2)
+        fused = a3_ctx(fac, env, st, r, 4, sizes, "fused", 2)
+        for c in (plain, fused):
+            seed_case(c, 5)
+        plain.run_solution(0, steps - 1)
+        zero_launch_counts()
+        fused.run_solution(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        d, nbits = device_diff(fused, plain, exact=True)
+        bad = fused.compare_data(plain, field_epsilon=FIELD_EPS)
+        flat = fused.get_stats().get_tiling()["flat"]
+        walk = flat_walk(flat, sizes, st)
+        kern, s0 = fused._fused, dict(fused._state)
+        ms = cuda_ms(lambda: fs.stages_step(kern, s0, steps), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(fused._program, s0, steps,
+                                                  1), 2)
+        bound_ms = a3_bound(fused)[0]
+        log(f"phase 16: {st} r={r} {'x'.join(map(str, sizes))} K=2 "
+            f"{steps} steps on the flat arm ({flat['tile']}, "
+            f"{flat['threads']} threads): vs plain (-mode torch on the "
+            f"card) max|d|={d:.3e}, {nbits} cells differ in their bits, "
+            f"mismatches={bad} (field_epsilon={FIELD_EPS}); launches {got}; "
+            f"{walk}; {ms:.4f} ms/launch, bound {bound_ms:.4f}, plain "
+            f"{plain_ms:.3f} [{card}]")
+        if bad or got != {"stages_step": steps} \
+                or flat["code"] != "flat_engaged" \
+                or (nbits and st not in FLAT_PLAIN_ROUNDING):
+            raise RuntimeError(f"phase 16: {st}: {bad} mismatches, {nbits} "
+                               f"cells differ, launches {got}, "
+                               f"{flat['code']}")
+        nbits_all += nbits
+        worst = max(worst, d)
+        solo_ms += ms
+        solo_plain += plain_ms
+        solo_bound += bound_ms
+        n_solo += steps
+        del plain, fused, kern, s0
+        torch.cuda.empty_cache()
+    entries = [{
+        "name": "stages_step (flat arm, K6 solo: every 1-D and 2-D solution "
+                "at mid width)", "route": "cuda",
+        "source": "yask_tpu_torch/csrc/fused_step.cuh",
+        "replaces": FLAT_REPLACES, "launches": n_solo, "max_abs_err": worst,
+        "ms": solo_ms, "plain_ms": solo_plain, "bound_ms": solo_bound,
+        "bound_by": "bytes", "library_ms": None,
+        "per": "sum over the cases of one launch each",
+        "cells_differing_from_plain": nbits_all, "path": "phase 16 (e)"}]
+    k7 = phase12a(fac, env, card, cases=[
+        ("flat", st, r, 4, flat_sizes(st), "batched_stages_step")
+        for st, r in FLAT_MID])
+    entries.append({
+        "name": "batched_stages_step (flat arm, K7: 3 members of every 1-D "
+                "and 2-D solution at mid width)", "route": "cuda",
+        "source": "yask_tpu_torch/csrc/fused_step.cuh",
+        "replaces": K7_REPLACES, "launches": sum(e["launches"] for e in k7),
+        "max_abs_err": max(e["max_abs_err"] for e in k7),
+        "ms": sum(e["ms"] for e in k7),
+        "plain_ms": sum(e["plain_ms"] for e in k7),
+        "bound_ms": sum(e["bound_ms"] for e in k7), "bound_by": "bytes",
+        "library_ms": None, "per": "sum over the cases of one launch each",
+        "path": "phase 16 (e)"})
+    torch.cuda.empty_cache()
+    rows = phase13a(fac, card, dev=dev, cases=[
+        (f"{st} r={r} flat", st, r, 4, flat_sizes(st)[1:], 1, X2Y2, "")
+        for st, r in FLAT_MID if not st.endswith("_1d")])
+    entries.append({
+        "name": "shard_step (flat arm, K5: every 2-D solution on 2x2 shards "
+                "at mid width)", "route": "cuda",
+        "source": "yask_tpu_torch/csrc/fused_step.cuh",
+        "replaces": "yask_tpu/ops/pallas_stencil.py:736-811 (region= and "
+                    "distributed=True arms, the stage loop :2058-2188)",
+        "launches": sum(row[7] for row in rows),
+        "max_abs_err": max(row[6] for row in rows),
+        "ms": sum(row[2] for row in rows),
+        "plain_ms": sum(row[5] for row in rows),
+        "bound_ms": sum(row[3] for row in rows), "bound_by": "bytes",
+        "library_ms": None,
+        "per": "sum over the cases of one launch over shard 0's box",
+        "path": "phase 16 (e)"})
+    return entries
+
+
+def phase16(fac, env, card: str, gauss: dict, image: int = 8192,
+            dev: str = "cuda:0") -> list:
+    """Phase 16 (see the module docstring); returns the ``kernels``
+    entries.  (a)'s profile and (b)'s sweep time gaussian's K6 launch, so
+    they go to ``gauss``, phase 10 (c)'s entry for that launch."""
+    import torch
+    t0 = time.perf_counter()
+    ctx, prof = phase16a(fac, env, card, image)
+    rows = phase16b(ctx, card)
+    del ctx
+    torch.cuda.empty_cache()
+    entries = []
+    live = live_inputs(fac, env, "swe2d", None)
+    e = a3_full(fac, env, card, "swe2d", None, 4, (1, image, image),
+                "stages_step", f"flat arm of K6 on swe2d: {image}^2 fp32",
+                physical=True, live=live)
+    e.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+             replaces=FLAT_REPLACES, path="phase 16 (c), swe2d",
+             live_inputs=[list(x) for x in live])
+    del e["ctx"]
+    entries.append(e)
+    torch.cuda.empty_cache()
+    e = a3_full(fac, env, card, "gaussian", 2, 2, (1, image, image),
+                "stages_step", "flat arm of K6 at element size 2: "
+                f"gaussian r=2 {image}^2x3 bf16", K=1, trials=1, steps=10,
+                exact=True)
+    gaussian_library(e, card, phase="phase 16 (d)")
+    e.update(source="yask_tpu_torch/csrc/fused_step.cuh",
+             replaces=FLAT_REPLACES, path="phase 16 (d), gaussian bf16")
+    del e["ctx"]
+    entries.append(e)
+    torch.cuda.empty_cache()
+    entries += phase16e(fac, env, card, dev=dev)
+    case = f"gaussian r=2 {image}^2x3 fp32, one stages_step launch"
+    gauss["sweep"] = {"case": f"{case} per rung, phase 16 (b)",
+                      "rows": [[list(rung), ms, c] for rung, ms, c in rows]}
+    if prof is not None:
+        gauss["profile"] = dict(prof, case=f"{case} on the flat arm under "
+                                "torch.profiler, phase 16 (a)")
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> None:
     """Build every kernel of the path, one ``nvcc`` per source, all
     started together (``cases``: phase 2's solutions and radii)."""
@@ -4389,6 +4817,7 @@ def phase1(fac, env, cases: dict) -> None:
     specs.update(k5_specs(fac))
     specs.update(k4_specs(fac, env))
     specs.update(ws_specs(fac, env))
+    specs.update(flat_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -4472,12 +4901,14 @@ def main() -> int:
     k4_arms = phase14(fac, env, card)
     torch.cuda.empty_cache()
     ws_arms = phase15(fac, env, card)
+    torch.cuda.empty_cache()
+    flat_arms = phase16(fac, env, card, a3_arms[0])
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
-                      + k5_arms + k4_arms + ws_arms}))
+                      + k5_arms + k4_arms + ws_arms + flat_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

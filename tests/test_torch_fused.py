@@ -144,12 +144,9 @@ def host_kernel(spec, tmp_path, entry=None):
                    capture_output=True, timeout=300)
     entry = entry or spec.name
     fn = getattr(ctypes.CDLL(str(so)), entry)
-    if entry.endswith("_batched"):
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                               ctypes.c_void_p]
+    fn.argtypes = (fused_stencil.batched_argtypes(spec.walks)
+                   if entry.endswith("_batched")
+                   else fused_stencil.entry_argtypes(spec.walks))
     fn.restype = ctypes.c_int
     return fn
 

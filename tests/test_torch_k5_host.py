@@ -120,6 +120,6 @@ def test_k5_host_entry_matches_plain_shard_step(arm, tmp_path):
     kern, off, boxes = shard_of(arm)
     assert kern.spec.stages == 1 or CASES[ARMS[arm][0]][6] == "stages"
     fn = host_kernel(kern.spec, tmp_path, entry=kern.spec.name + "_region")
-    fn.argtypes = fused_stencil.region_argtypes()
+    fn.argtypes = fused_stencil.region_argtypes(kern.spec.walks)
     k5_steps(fn, kern, off, group_boxes(kern, boxes),
              tol=PLAIN_TOL.get(arm, (0.0, 0.0)))

@@ -26,7 +26,7 @@ def emulated_pair(spec, tmp_path, **kw):
     """The solo and the batched entry of one emulated build."""
     fn_solo = emulated_kernel(spec, tmp_path, **kw)
     return fn_solo, bind(tmp_path / f"{spec.name}.so",
-                         spec.name + "_batched")
+                         spec.name + "_batched", spec.walks)
 
 
 @pytest.mark.parametrize("arm", list(RAGGED))

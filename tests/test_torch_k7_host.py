@@ -10,7 +10,7 @@ unwritten misc slices starts from a copy of every member's evicted slot,
 as ``copy_base`` makes it):
 
 * against ``plain_batched_chunk``: bit-equal over each member's interior,
-  the pads untouched; tti by rtol 1e-5 and atol 1e-6, since g++'s libm
+  the pads untouched (K6's flat arm writes them: zeros); tti by rtol 1e-5 and atol 1e-6, since g++'s libm
   ``sinf``/``cosf`` and PyTorch's vectorized CPU ``sin``/``cos`` differ by
   an ulp (as in tests/test_torch_scratch.py);
 * against the solo entry of the same build on each member's view:
@@ -57,13 +57,13 @@ def batch_of(arm: str, seed: int = 31):
     return ctx, ens._stack_states()
 
 
-def bind(so, entry: str):
-    """Another entry point of a built library (``so``: its path)."""
+def bind(so, entry: str, walks: bool = False):
+    """Another entry point of a built library (``so``: its path; ``walks``:
+    the workspace or flat arm's signature, ``KernelSpec.walks``)."""
     fn = getattr(ctypes.CDLL(str(so)), entry)
-    fn.argtypes = (fused_stencil.batched_argtypes()
+    fn.argtypes = (fused_stencil.batched_argtypes(walks)
                    if entry.endswith("_batched")
-                   else [ctypes.c_void_p] * 5 + [ctypes.c_int,
-                                                 ctypes.c_void_p])
+                   else fused_stencil.entry_argtypes(walks))
     fn.restype = ctypes.c_int
     return fn
 
@@ -97,7 +97,8 @@ def k7_steps(ctx, state, fn_batched, fn_solo, steps: int = 2,
              pad: int = 0, tol=(0.0, 0.0)) -> None:
     """``steps`` sub-steps of K7's entry from the plain version's states,
     each member's outputs held against ``plain_batched_chunk`` (interior,
-    ``tol``) and against the solo entry on its view (to the bit)."""
+    ``tol``) and against the solo entry on its view (to the bit); one
+    resident block walks every tile where the flat arm runs emulated."""
     import torch
     kern = ctx._fused_spec_kernel()
     prog, spec = kern.program, kern.spec
@@ -107,14 +108,14 @@ def k7_steps(ctx, state, fn_batched, fn_solo, steps: int = 2,
             ins = [padded(a, pad) for a in ins]
         outs = k7_outputs(kern, state, NM, pad)
         assert fused_stencil.call_batched_entry(
-            fn_batched, prog, spec, ins, outs, NM, t, None) == 0
+            fn_batched, prog, spec, ins, outs, NM, t, None, nres=1) == 0
         want = fused_stencil.plain_batched_chunk(prog, state, t, 1, NM)
         for i in range(NM):
             member = {n: [a[i] for a in ring] for n, ring in state.items()}
             solo = [o[i].clone() for o in k7_outputs(kern, state, NM)]
             assert fused_stencil.call_entry(
                 fn_solo, prog, spec, [member[n][s] for n, s in spec.inputs],
-                solo, t, None) == 0
+                solo, t, None, nres=1) == 0
             for n, o, s in zip(spec.outputs, outs, solo):
                 idx = ctx._interior_idx(n)
                 torch.testing.assert_close(o[i], s, rtol=0, atol=0,
@@ -122,7 +123,11 @@ def k7_steps(ctx, state, fn_batched, fn_solo, steps: int = 2,
                 torch.testing.assert_close(
                     o[i][idx], want[n][-1][i][idx], rtol=tol[0],
                     atol=tol[1])
-                if n not in spec.base_outputs:
+                if spec.flat and n not in spec.base_outputs:
+                    # the flat arm writes every cell, its pads with 0
+                    assert int((o[i] != 0).sum()) == \
+                        int((o[i][idx] != 0).sum())
+                elif n not in spec.base_outputs:
                     # every interior cell written, no pad cell
                     assert int(torch.isnan(o[i]).sum()) == \
                         o[i].numel() - o[i][idx].numel()
@@ -133,9 +138,11 @@ def k7_steps(ctx, state, fn_batched, fn_solo, steps: int = 2,
 def test_k7_host_entry_matches_plain_and_solo(arm, tmp_path):
     ctx, state = batch_of(arm)
     spec = ctx._fused_spec_kernel().spec
-    assert f"YT_FUSED_BATCHED_ENTRY({spec.name}_batched, Spec)" \
+    assert (f"YT_FUSED_WS_ENTRIES({spec.name}, Spec)" if spec.walks else
+            f"YT_FUSED_BATCHED_ENTRY({spec.name}_batched, Spec)") \
         in spec.source
     fn_solo = host_kernel(spec, tmp_path)
-    fn_batched = bind(tmp_path / f"{spec.name}.so", spec.name + "_batched")
+    fn_batched = bind(tmp_path / f"{spec.name}.so", spec.name + "_batched",
+                      spec.walks)
     k7_steps(ctx, state, fn_batched, fn_solo,
              tol=PLAIN_TOL.get(arm, (0.0, 0.0)))

@@ -88,8 +88,8 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= int(sizeof(yt_smem_raw)) ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
-// the resident-block query of K4's workspace passes: one SM holding one
-// block
+// the resident-block query of the workspace arms and K6's flat arm: one
+// SM holding one block
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
@@ -161,10 +161,10 @@ template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
 """
 
 
-#: The kernels each header declares and launches (K1/K7/K5 and K6/K7/K5
-#: in fused_step.cuh, K5 a compile-time arm of each body; K4's two in
-#: trapezoid.cuh; K1's stream arm in stream_step.cuh).
-KERNELS = {"fused_step.cuh": 2, "trapezoid.cuh": 2, "stream_step.cuh": 1}
+#: The kernels each header declares and launches (K1/K7/K5, K6/K7/K5 and
+#: K6's flat arm in fused_step.cuh, K5 a compile-time arm of each body;
+#: K4's two in trapezoid.cuh; K1's stream arm in stream_step.cuh).
+KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2, "stream_step.cuh": 1}
 
 
 def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
@@ -204,13 +204,15 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     entry = entry or spec.name
     fn = getattr(ctypes.CDLL(str(so)), entry)
     fn.argtypes = (
-        region_argtypes() if entry.endswith("_region") else
-        fused_stencil.batched_argtypes() if entry.endswith("_batched") else
+        fused_stencil.region_argtypes(spec.walks)
+        if entry.endswith("_region") else
+        fused_stencil.batched_argtypes(spec.walks)
+        if entry.endswith("_batched") else
         fused_stencil.stream_argtypes() if entry.endswith("_stream") else
         fused_stencil.trap_batched_argtypes()
         if entry.endswith("_trap_batched") else
         fused_stencil.trapezoid_argtypes() if spec.trap else
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+        fused_stencil.entry_argtypes(spec.walks))
     fn.restype = ctypes.c_int
     return fn
 

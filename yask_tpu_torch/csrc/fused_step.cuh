@@ -224,6 +224,21 @@ YT_HD inline T* tile_at(T* smem, T* ws, int off) {
   }
 }
 
+// K6's flat arm (a Spec that prints FLAT_NT: a solution that leaves slot
+// 0 unused): FLAT_NT threads serve a T1 x T2 tile, the staged inputs
+// double-buffered BUF_ELEMS elements apart.  NT is the body's thread
+// count: FLAT_NT there, T1 x T2 elsewhere.
+template <class S, class = void>
+struct FlatOf {
+  static constexpr bool value = false;
+  static constexpr int NT = S::T1 * S::T2;
+};
+template <class S>
+struct FlatOf<S, std::void_t<decltype(S::FLAT_NT)>> {
+  static constexpr bool value = true;
+  static constexpr int NT = S::FLAT_NT;
+};
+
 // Does the point at interior (g0, g1, g2) of outer cell q (of extents n)
 // store output o?  Every point, except that a partial-dim output's slab is
 // stored by the points at index 0 of each slot its var lacks (every block
@@ -554,6 +569,30 @@ int host_step(const ParamsArg<S, REGION>& p) {
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
+// The cp.async primitives (the stream arm's and K6's flat arm's).  A CUDA
+// runtime header that defines YT_CP_ASYNC_HOOKS supplies them instead (the
+// CPU emulation of these kernels does, to defer each copy to its wait).
+#ifndef YT_CP_ASYNC_HOOKS
+// Copy BYTES from global to shared memory, or fill them with zero when
+// !fill (src-size 0: nothing is read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(BYTES), "r"(fill ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+#endif
+
 // The member m, outer cell q and slot-0 block b of the z cell z (a
 // block's own, p.z0 + blockIdx.z, or one of its tile walk) = (m * outer
 // cells + q) * ceil(n0 / T0) + b.
@@ -816,6 +855,29 @@ int run(void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,
 // z cell (split_z), the box offsets stay as they are.  What bounds it:
 // the workspace's traffic and the recompute (computed cells per useful
 // point: tti r=8 23.5 at 8x8x64), not the state's bytes.
+//
+// The flat arm (FlatOf: the Spec prints FLAT_NT), for a solution that
+// leaves slot 0 unused (the 1-D and 2-D solutions K6 carries: gaussian,
+// box, the SWE, ...), solo, in member batches and on shards' boxes.  What
+// held the 1x8x64 tile there: one point per thread, 1.59 staged cells per
+// point at r=2, and a block that stages and then computes, so its load
+// latency overlaps nothing inside it (PERF.md has the times).  Design:
+//   * wide tiles (T1 x T2, e.g. 64x64) served by FLAT_NT threads, so a
+//     thread computes several points of each sub-stage (device_stage
+//     already strides its cells by the thread count) and a tile stages
+//     ~1.13 cells per point and input at r=2;
+//   * the card's resident blocks, each walking tiles (as the workspace
+//     arm does); the member and the box offsets ride the walk index;
+//   * the staged inputs in two buffers: tile n + 1's inputs are copied
+//     with cp.async (flat_fetch) while tile n computes (flat_stages_kernel);
+//     computed tiles stay single-buffered;
+//   * every output cell written once: interior cells by the sub-stages,
+//     pads by flat_pads, so the wrapper's outputs come from torch.empty
+//     (a partial-dim output and a var with unwritten misc slices keep the
+//     wrapper's zeroed tensor or copy; K5 keeps its allocation rules).
+// Where no rung of the emitter's flat ladder fits both buffers and the
+// computed tiles in 227 KB, the solution keeps the 1x8x64 ladder (and the
+// workspace arm).  The same Spec::stage<K>, the same bits.
 
 // Reads of one sub-stage point: staged inputs from their tile (others
 // from global memory) and earlier sub-stages' results from their computed
@@ -830,13 +892,16 @@ struct StageReader {
                    // expansion: < 0 or >= T)
   int g0, g1, g2;  // point in the interior (may lie past the domain)
   const typename S::real_t* ws;  // the block's workspace slice (WsOf)
+  int ib;          // the flat arm: its staged inputs' buffer (0 or BUF_ELEMS)
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
     if constexpr (k >= 0) {
       constexpr int E1 = S::T1 + S::halo_lo1(k) + S::halo_hi1(k);
       constexpr int E2 = S::T2 + S::halo_lo2(k) + S::halo_hi2(k);
-      return tile_at<S>(smem, ws, S::tile_offset(k))[
+      const typename S::real_t* tile = tile_at<S>(smem, ws, S::tile_offset(k));
+      if constexpr (FlatOf<S>::value) tile += ib;
+      return tile[
           ((l0 + S::halo_lo0(k) + o0) * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
           + (l2 + S::halo_lo2(k) + o2)];
     } else {
@@ -987,6 +1052,41 @@ void host_stage(const ParamsArg<S, REGION>& p,
     host_stage<S, K + 1, REGION>(p, bufs, m, q);
 }
 
+// The flat arm's solo and batch launches write every cell of their
+// outputs: 0 into the pad cells numbered first, first + stride, ... of
+// every output slice of every member (its pads per slot, out_pad), slot by
+// slot as the stream arm's zero_pads does.  A partial-dim output's tensor
+// comes zeroed from the wrapper.
+template <class S, class P>
+YT_HD inline void flat_pads(const P& p, long long first, long long stride) {
+  typedef typename S::real_t real_t;
+  for (int m = 0; m < p.nm; ++m)
+    for (int o = 0; o < S::NOUT; ++o) {
+      if (SlabOf<S>::get(o)) continue;
+      real_t* out = p.out[o] + cell_base<S>(p.n, m, 0, p.out_ms[o],
+                                             p.out_s[o]);
+      // slab j: slot j / 2 below (j even) or above the interior, the
+      // slots before it over the interior, those after it padded
+      for (int j = 0; j < 6; ++j) {
+        int lo[3], hi[3];
+        for (int u = 0; u < 3; ++u) {
+          const int plo = S::out_pad(o, 2 * u), phi = S::out_pad(o, 2 * u + 1);
+          lo[u] = u < j / 2 ? 0 : u > j / 2 || j % 2 == 0 ? -plo : p.n[u];
+          hi[u] = u < j / 2 ? p.n[u]
+                  : u > j / 2 || j % 2 == 1 ? p.n[u] + phi : 0;
+        }
+        const long long w1 = hi[1] - lo[1], w2 = hi[2] - lo[2];
+        const long long cells = (long long)(hi[0] - lo[0]) * w1 * w2;
+        for (long long i = first; i < cells; i += stride) {
+          const long long r = i / w2;
+          out[(lo[0] + r / w1) * p.out_s[o][0]
+              + (lo[1] + r % w1) * p.out_s[o][1]
+              + (lo[2] + i % w2) * p.out_s[o][2]] = real_t(0.0f);
+        }
+      }
+    }
+}
+
 template <class S, bool REGION = false>
 int host_stages(const ParamsArg<S, REGION>& p) {
   typedef typename S::real_t real_t;
@@ -1004,20 +1104,21 @@ int host_stages(const ParamsArg<S, REGION>& p) {
       }
       host_stage<S, 0, REGION>(p, bufs, m, q);
     }
+  if constexpr (FlatOf<S>::value && !REGION) flat_pads<S>(p, 0, 1);
   return 0;
 }
 
 #ifdef __CUDACC__
 // One sub-stage over its region: a loop of the block's threads over its
-// cells.
+// cells (ib: the flat arm's staged buffer).
 template <class S, int K, bool REGION>
 __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                                              typename S::real_t* smem,
                                              typename S::real_t* ws,
                                              int m, int q, int b0, int b1,
-                                             int b2, int tid) {
+                                             int b2, int tid, int ib = 0) {
   typedef typename S::real_t real_t;
-  constexpr int NT = S::T1 * S::T2;
+  constexpr int NT = FlatOf<S>::NT;
   constexpr int e0 = S::sub_lo0(K), e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
   constexpr int R0 = S::T0 + e0 + S::sub_hi0(K);
   constexpr int R1 = S::T1 + e1 + S::sub_hi1(K);
@@ -1044,7 +1145,8 @@ __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
                         && in_outer;
     CalcOf<S> v[S::MAXV];
     if (inside) {
-      const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2, ws};
+      const StageReader<S> rd{&p, smem, m, q, l0, l1, l2, g0, g1, g2, ws,
+                              ib};
       stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
     } else {
 #pragma unroll
@@ -1069,7 +1171,7 @@ __device__ __forceinline__ void device_stage(const ParamsArg<S, REGION>& p,
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    device_stage<S, K + 1, REGION>(p, smem, ws, m, q, b0, b1, b2, tid);
+    device_stage<S, K + 1, REGION>(p, smem, ws, m, q, b0, b1, b2, tid, ib);
   }
 }
 
@@ -1179,36 +1281,245 @@ fused_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
   }
 }
 
-template <class S, bool BATCH, bool REGION = false>
-int launch_stages(ParamsArg<S, REGION> p, long long nres,
-                  cudaStream_t stream) {
-  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_stages_kernel<S, BATCH, REGION>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 block(S::T2, S::T1, 1);
-  const long long gz = z_cells<S>(p.n, p.nm);
-  dim3 cols((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1);
-  long long walk = gz;  // z cells of the launches: one walk for the arm
-  if constexpr (WsOf<S>::value) {
-    const long long tiles = gz * cols.x * cols.y;
-    if (p.ws == nullptr || nres < 1) return int(cudaErrorInvalidConfiguration);
-    cols = dim3(unsigned(tiles < nres ? tiles : nres));
-    walk = tiles > 0 ? 1 : 0;
-  } else {
-    (void)nres;
+// The flat arm: issue the copies of tile i's staged inputs (i in the walk
+// of gy x gx tiles per z cell) into the staged buffer at buf; cells past
+// an input's allocation get 0 (the copy's src-size-0 form).  A halo row's
+// origin b2 - h2 need not be 16-byte aligned: 16-byte copies where the
+// rows' cells and their sources line up, 4-byte (8 at fp64) ones at the
+// rows' ends and where they do not.  At element size 2 each thread copies
+// a 4-byte pair of shared memory when its two cells come from one aligned
+// pair of global memory (or both hold 0); a pair at a tile's ends, or one
+// that is not such a pair, goes by plain loads and stores, which the
+// barrier before the tile's compute orders as it orders the copies.
+template <class S, bool BATCH, bool REGION>
+__device__ __forceinline__ void flat_fetch(const ParamsArg<S, REGION>& p,
+                                           typename S::real_t* buf,
+                                           long long i, long long gy,
+                                           long long gx, int tid) {
+  typedef typename S::real_t real_t;
+  constexpr int NT = S::FLAT_NT;
+  const long long zy = i / gx;
+  int m, q, bz;
+  split_z<S, BATCH>(p, int(zy / gy), m, q, bz);
+  const int b0 = bz * S::T0;
+  const int b1 = int(zy % gy) * S::T1;
+  const int b2 = int(i % gx) * S::T2;
+#pragma unroll
+  for (int k = 0; k < S::NTILED; ++k) {
+    const int a = S::tiled_input(k);
+    const int h0 = S::halo_lo0(k), h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
+    const int E1 = S::T1 + h1 + S::halo_hi1(k);
+    const int E2 = S::T2 + h2 + S::halo_hi2(k);
+    const int cells = (S::T0 + h0 + S::halo_hi0(k)) * E1 * E2;
+    const int x0 = box_lo<S, REGION>(p, 0), x1 = box_lo<S, REGION>(p, 1),
+              x2 = box_lo<S, REGION>(p, 2);
+    const int lo0 = -S::alloc_lo0(k) - x0;
+    const int lim0 = alloc_n<S, REGION>(p, 0) + S::alloc_hi0(k) - x0;
+    const int lo1 = -S::alloc_lo1(k) - x1;
+    const int lim1 = alloc_n<S, REGION>(p, 1) + S::alloc_hi1(k) - x1;
+    const int lo2 = -S::alloc_lo2(k) - x2;
+    const int lim2 = alloc_n<S, REGION>(p, 2) + S::alloc_hi2(k) - x2;
+    const bool in_outer = outer_alloc<S, REGION>(p, k, q);
+    const real_t* src = p.in[a] + cell_base<S>(p.n, m, q, p.in_ms[a],
+                                               p.in_s[a]);
+    real_t* dst = buf + S::tile_offset(k);
+    if constexpr (sizeof(real_t) != 2) {
+      // Where a row is a whole number of 16-byte units and every row's
+      // cells and their sources lie alike in them (a unit minor stride,
+      // row strides equal modulo the unit, the first cell's phases equal),
+      // a row goes in slots of V cells: a slot inside the read reach, or
+      // wholly past it (zeros), is one 16-byte copy, a slot across its
+      // edge goes cell by cell; index arithmetic per slot.  Elsewhere
+      // consecutive threads copy consecutive cells (rows of a ragged
+      // number of units lost more to their split end slots than the
+      // copies saved, on swe2d's 66-cell rows).
+      constexpr int V = 16 / int(sizeof(real_t));
+      const idx_t* st = p.in_s[a];
+      const real_t* src0 = src + ((b0 - h0) * st[0] + (b1 - h1) * st[1]
+                                  + (b2 - h2) * st[2]);
+      const bool lines_up =
+          E2 % V == 0 && st[2] == 1 && (E1 == 1 || (E2 - st[1]) % V == 0)
+          && !((reinterpret_cast<unsigned long long>(dst)
+                - reinterpret_cast<unsigned long long>(src0)) & 15);
+      if (lines_up) {
+        const int NV = E2 / V + 2;  // a row's slots, the lead one included
+        const unsigned long long zero16 =
+            reinterpret_cast<unsigned long long>(p.in[a]) & ~15ull;
+        for (int j = tid; j < cells / E2 * NV; j += NT) {
+          const int r = j / NV;
+          real_t* drow = dst + r * E2;
+          const int e = (j - r * NV) * V
+                        - int(reinterpret_cast<unsigned long long>(drow)
+                              / sizeof(real_t) % V);
+          if (e >= E2 || e + V <= 0) continue;
+          const int c0 = b0 - h0 + r / E1;
+          const int c1 = b1 - h1 + r % E1;
+          const int c2 = b2 - h2 + e;
+          const bool in_row = c0 >= lo0 && c0 < lim0 && c1 >= lo1
+                              && c1 < lim1 && in_outer;
+          const real_t* s = src + (c0 * st[0] + c1 * st[1] + c2);
+          const bool whole = e >= 0 && e + V <= E2;
+          if (whole && (!in_row || c2 >= lim2 || c2 + V <= lo2)) {
+            cp_async<16>(drow + e, reinterpret_cast<const real_t*>(zero16),
+                         false);
+          } else if (whole && c2 >= lo2 && c2 + V <= lim2) {
+            cp_async<16>(drow + e, s, true);
+          } else {
+            for (int u = 0; u < V; ++u) {
+              if (e + u < 0 || e + u >= E2) continue;
+              const bool ok = in_row && c2 + u >= lo2 && c2 + u < lim2;
+              cp_async<int(sizeof(real_t))>(drow + e + u,
+                                            ok ? s + u : p.in[a], ok);
+            }
+          }
+        }
+      } else {
+        for (int e = tid; e < cells; e += NT) {
+          const int r = e / E2;
+          const int c0 = b0 - h0 + r / E1;
+          const int c1 = b1 - h1 + r % E1;
+          const int c2 = b2 - h2 + e % E2;
+          const bool ok = c0 >= lo0 && c0 < lim0 && c1 >= lo1 && c1 < lim1
+                          && c2 >= lo2 && c2 < lim2 && in_outer;
+          cp_async<int(sizeof(real_t))>(
+              dst + e, ok ? src + (c0 * st[0] + c1 * st[1] + c2 * st[2])
+                          : p.in[a], ok);
+        }
+      }
+    } else {
+      // the source of cell e of the tile, nullptr where it holds 0
+      auto at = [&](int e) -> const real_t* {
+        const int r = e / E2;
+        const int c0 = b0 - h0 + r / E1;
+        const int c1 = b1 - h1 + r % E1;
+        const int c2 = b2 - h2 + e % E2;
+        return c0 >= lo0 && c0 < lim0 && c1 >= lo1 && c1 < lim1
+                       && c2 >= lo2 && c2 < lim2 && in_outer
+                   ? src + (c0 * p.in_s[a][0] + c1 * p.in_s[a][1]
+                            + c2 * p.in_s[a][2])
+                   : nullptr;
+      };
+      // pair j holds cells 2 j - lead and 2 j - lead + 1
+      const int lead = int((reinterpret_cast<unsigned long long>(dst) >> 1)
+                           & 1);
+      for (int j = tid; 2 * j < cells + lead; j += NT) {
+        const int e = 2 * j - lead;
+        const bool in0 = e >= 0, in1 = e + 1 < cells;
+        const real_t* s0 = in0 ? at(e) : nullptr;
+        const real_t* s1 = in1 ? at(e + 1) : nullptr;
+        const bool pair = in0 && in1
+            && (s0 ? s1 == s0 + 1
+                         && !(reinterpret_cast<unsigned long long>(s0) & 3)
+                   : s1 == nullptr);
+        if (pair) {
+          cp_async<4>(dst + e, s0 ? s0 : p.in[a], s0 != nullptr);
+        } else {
+          if (in0) dst[e] = s0 ? s0[0] : real_t(0.0f);
+          if (in1) dst[e + 1] = s1 ? s1[0] : real_t(0.0f);
+        }
+      }
+    }
   }
-  return launch_z(p.z0, walk, cols, [&](dim3 grid) {
-    fused_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
-  });
+}
+
+// K6's flat arm (FlatOf) and K7's and K5's over it: a grid of at most the
+// card's resident blocks, each walking tiles blockIdx.x, + gridDim.x, ...
+// (x blocks fastest, then y, then z cells).  While tile n computes from
+// one staged buffer, the copies of tile n + 1's staged inputs fill the
+// other.  Per tile: wait for this thread's copies, one barrier (every
+// thread's copies have landed, and every thread has finished tile n - 1,
+// whose buffer the next copies refill and whose computed tiles the next
+// sub-stages rewrite), issue tile n + 1's copies, then the sub-stages
+// with their barriers.  Computed tiles are single-buffered.  A block's
+// last tile issues an empty group.  Then the solo and batch launches
+// zero the outputs' pads (flat_pads), so every output cell is written
+// once.
+template <class S, bool BATCH, bool REGION>
+__global__ void __launch_bounds__(S::FLAT_NT, S::FLAT_MIN)
+flat_stages_kernel(const __grid_constant__ ParamsArg<S, REGION> p) {
+  typedef typename S::real_t real_t;
+  extern __shared__ __align__(16) unsigned char yt_smem_raw[];
+  real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
+  const int tid = threadIdx.x;
+  const long long gx = (p.n[2] + S::T2 - 1) / S::T2;
+  const long long gy = (p.n[1] + S::T1 - 1) / S::T1;
+  const long long tiles = z_cells<S>(p.n, p.nm) * gy * gx;
+  long long i = blockIdx.x;
+  if (i < tiles) flat_fetch<S, BATCH, REGION>(p, smem, i, gy, gx, tid);
+  cp_async_commit();
+  for (int ib = 0; i < tiles; i += gridDim.x, ib ^= S::BUF_ELEMS) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + gridDim.x < tiles)
+      flat_fetch<S, BATCH, REGION>(p, smem + (ib ^ S::BUF_ELEMS),
+                                   i + gridDim.x, gy, gx, tid);
+    cp_async_commit();
+    const long long zy = i / gx;
+    int m, q, bz;
+    split_z<S, BATCH>(p, int(zy / gy), m, q, bz);
+    device_stage<S, 0, REGION>(p, smem, nullptr, m, q, bz * S::T0,
+                               int(zy % gy) * S::T1, int(i % gx) * S::T2,
+                               tid, ib);
+  }
+  if constexpr (!REGION)
+    flat_pads<S>(p, (long long)blockIdx.x * S::FLAT_NT + tid,
+                 (long long)gridDim.x * S::FLAT_NT);
 }
 
 // The blocks of K6's body (solo, BATCH or REGION) the card holds at once.
 template <class S, bool BATCH, bool REGION>
 int stages_resident() {
-  return resident_of(fused_stages_kernel<S, BATCH, REGION>, S::T1 * S::T2,
-                     int(sizeof(typename S::real_t)) * S::SMEM_ELEMS);
+  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
+  if constexpr (FlatOf<S>::value)
+    return resident_of(flat_stages_kernel<S, BATCH, REGION>, S::FLAT_NT,
+                       smem);
+  else
+    return resident_of(fused_stages_kernel<S, BATCH, REGION>, S::T1 * S::T2,
+                       smem);
+}
+
+template <class S, bool BATCH, bool REGION = false>
+int launch_stages(ParamsArg<S, REGION> p, long long nres,
+                  cudaStream_t stream) {
+  const int smem = int(sizeof(typename S::real_t)) * S::SMEM_ELEMS;
+  if constexpr (FlatOf<S>::value) {
+    // the flat arm: at most nres blocks (the wrapper's count from
+    // stages_resident), each walking tiles
+    if (nres < 1) return int(cudaErrorInvalidConfiguration);
+    const cudaError_t e = cudaFuncSetAttribute(
+        flat_stages_kernel<S, BATCH, REGION>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return int(e);
+    const long long tiles = z_cells<S>(p.n, p.nm)
+                            * ((p.n[1] + S::T1 - 1) / S::T1)
+                            * ((p.n[2] + S::T2 - 1) / S::T2);
+    if (tiles < 1) return 0;
+    const dim3 grid(unsigned(tiles < nres ? tiles : nres));
+    const dim3 block(S::FLAT_NT, 1, 1);
+    flat_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
+    return int(cudaGetLastError());
+  } else {
+    cudaError_t e = cudaFuncSetAttribute(
+        fused_stages_kernel<S, BATCH, REGION>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return int(e);
+    const dim3 block(S::T2, S::T1, 1);
+    const long long gz = z_cells<S>(p.n, p.nm);
+    dim3 cols((p.n[2] + S::T2 - 1) / S::T2, (p.n[1] + S::T1 - 1) / S::T1);
+    long long walk = gz;  // z cells of the launches: one walk for the arm
+    if constexpr (WsOf<S>::value) {
+      const long long tiles = gz * cols.x * cols.y;
+      if (p.ws == nullptr || nres < 1)
+        return int(cudaErrorInvalidConfiguration);
+      cols = dim3(unsigned(tiles < nres ? tiles : nres));
+      walk = tiles > 0 ? 1 : 0;
+    } else {
+      (void)nres;
+    }
+    return launch_z(p.z0, walk, cols, [&](dim3 grid) {
+      fused_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
+    });
+  }
 }
 #endif
 
@@ -1339,8 +1650,9 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 #endif
 }
 
-// The resident blocks of the workspace arm's kernel for a launch of kind
-// 0 (solo), 1 (member batch) or 2 (a shard's box); 1 on the host.
+// The resident blocks of the workspace arm's or the flat arm's kernel for
+// a launch of kind 0 (solo), 1 (member batch) or 2 (a shard's box); 1 on
+// the host.
 template <class S>
 int resident_stages(int kind) {
 #ifdef __CUDACC__
@@ -1394,10 +1706,12 @@ int resident_stages(int kind) {
                              sizes, t, stream);                              \
   }
 
-// The C entry points of the workspace arm (a K6 Spec printing WS_ELEMS):
-// K6's, K7's and K5's arguments with the workspace (WS_ELEMS elements per
-// resident block) and its resident blocks before the stream, and the
-// resident blocks of a launch kind (resident_stages).
+// The C entry points of the arms whose blocks walk tiles, the workspace
+// arm (a K6 Spec printing WS_ELEMS) and the flat arm (FLAT_NT): K6's, K7's
+// and K5's arguments with the workspace (WS_ELEMS elements per resident
+// block; null on the flat arm) and the resident blocks before the stream,
+// and the resident blocks of a launch kind (resident_stages), which the
+// wrapper asks once and passes to every launch.
 #define YT_FUSED_WS_ENTRIES(NAME, S)                                         \
   extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
                       void* out_strides, void* sizes, int t, void* ws,       \

@@ -152,29 +152,7 @@ int host_stream(const StreamParams<S>& q) {
 
 #ifdef __CUDACC__
 // ---- device path -------------------------------------------------------
-// The cp.async primitives.  A CUDA runtime header that defines
-// YT_CP_ASYNC_HOOKS supplies them instead (the CPU emulation of this
-// kernel does, to defer each copy to its wait).
-#ifndef YT_CP_ASYNC_HOOKS
-// Copy BYTES from global to shared memory, or fill them with zero when
-// !fill (src-size 0: nothing is read).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool fill) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"(BYTES), "r"(fill ? BYTES : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-#endif
+// (the cp.async primitives are fused_step.cuh's)
 
 // Reads ring inputs from their rings, same-point inputs from the values
 // loaded one plane ahead, the rest from global memory.

@@ -31,6 +31,14 @@ into one ``Spec`` struct:
   arm: K6's body (one sub-step or several) with the tiles past shared
   memory in a device-memory workspace, one slice per resident block
   (``KernelSpec.workspace``).
+* K6's body on a solution that leaves slot 0 unused (1-D and 2-D), the
+  flat arm (``KernelSpec.flat``): a rung of :data:`_FLAT_LADDER` whose
+  wide tile is served by fewer threads (``FLAT_NT``), the staged inputs
+  in two buffers ``BUF_ELEMS`` apart (the next tile's copied while one
+  computes), each output slice's pads (``out_pad``), which its kernel
+  zeroes, and the workspace arm's entries (``KernelSpec.walks``: the
+  resident blocks passed in, no workspace); where no rung fits, the tile
+  ladder's plan with the reason (``flat_cause``).
 * compile-time tables the machinery reads: which inputs ride shared memory
   (those of full-dim vars read at a spatial offset, or over an expanded
   region) and their halos, the tile extents, and for K6 the stage
@@ -123,6 +131,25 @@ SMEM_LIMIT = 232448
 _TILE_LADDER = ((8, 8, 64), (4, 8, 64), (2, 8, 64), (1, 8, 64),
                 (1, 4, 64), (1, 2, 64), (1, 1, 64), (1, 1, 32), (1, 1, 16),
                 (1, 1, 8))
+
+#: K6's flat arm (:func:`_flat_plan`), for a solution that leaves slot 0
+#: unused (1-D and 2-D): (T1, T2, threads) tiles tried in order until two
+#: staged buffers and the computed tiles fit :data:`SMEM_LIMIT`; each
+#: thread computes T1·T2 / threads points of a sub-stage.  A 1-D solution
+#: takes T1·T2 points along its dim.  The rungs are those the registered
+#: solutions take at element sizes 2, 4 and 8: 64×64 (4096 points in
+#: 1-D), which phase 16 (b)'s sweep in ``chip_smoke.py`` (gaussian r=2
+#: 8192²×3 on the H100, PERF.md) finds level with the fastest rung it
+#: tried and which stages the fewest cells of the 4096-point tiles; 32×64
+#: where 64×64 passes 227 KB (swe2d in float32, test_stages_2d in
+#: float64), the sweep's next; 8×128 (swe2d in float64, not measured on
+#: the card).  Where none fits, the tile ladder's plan stays
+#: (``flat_cause``).
+_FLAT_LADDER = ((64, 64, 512), (32, 64, 512), (8, 128, 512))
+#: An SM's shared memory and the part each resident block reserves of it
+#: (Hopper: 228 KB, 1 KB), for the flat arm's blocks per SM.
+SM_SMEM = 233472
+BLOCK_RESERVED = 1024
 
 #: The caps on one block's slice of a device-memory workspace, where its
 #: tiles do not all fit shared memory; a launch holds one slice per
@@ -374,6 +401,21 @@ class KernelSpec:
     #: fits shared memory): the tile, the shared-memory and workspace
     #: elements per block, computed cells per useful point
     workspace: Dict = field(default_factory=dict)
+    #: K6's flat arm (:func:`_flat_plan`; empty where it does not run):
+    #: its reason record, tile, threads, points per thread, staged cells
+    #: per point, buffer and shared-memory bytes; ``flat_cause`` is the
+    #: reason code and detail where a 1-D or 2-D solution on K6's body
+    #: does not take it
+    flat: Dict = field(default_factory=dict)
+    flat_cause: Tuple[str, str] = None
+
+    @property
+    def walks(self) -> bool:
+        """The workspace arm or the flat arm: a launch runs at most the
+        card's resident blocks, each walking tiles, and the entries
+        (``YT_FUSED_WS_ENTRIES``) take a workspace (none on the flat arm)
+        and that block count before the stream."""
+        return bool(self.workspace or self.flat)
 
 
 def _hexf(v: float) -> str:
@@ -1159,12 +1201,53 @@ def _workspace_plan(rungs, sizes_of, cells_of, esize: int) -> Dict:
     return row
 
 
-def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
+def _flat_plan(rungs, two_d: bool, staged_of, computed_of, nstaged: int,
+               esize: int) -> Dict:
+    """K6's flat arm: the first rung ``(T1, T2, threads)`` whose two
+    staged buffers (each a whole number of 16-byte units, so both are
+    aligned alike) and computed tiles fit :data:`SMEM_LIMIT`, or {} where
+    none does.  A 1-D solution (``two_d`` False) takes T1·T2 points along
+    its dim.  The blocks per SM it asks the compiler for (``min_blocks``)
+    are those its shared memory and threads allow, at most two of 512
+    threads (64 registers a thread).  ``staged_cells_per_point`` is per
+    staged input (the mean over its ``nstaged``)."""
+    unit = 16 // esize
+    for t1, t2, nt in rungs:
+        t3 = (1, t1, t2) if two_d else (1, 1, t1 * t2)
+        staged = staged_of(t3)
+        buf = -(-staged // unit) * unit
+        smem = (2 * buf + computed_of(t3)) * esize
+        if smem > SMEM_LIMIT:
+            continue
+        pts = t1 * t2
+        per_in = staged / pts / max(nstaged, 1)
+        per_sm = max(1, min(SM_SMEM // (smem + BLOCK_RESERVED), 2048 // nt,
+                            65536 // (64 * nt)))
+        return {"code": "flat_engaged", "tile": t3, "threads": nt,
+                "points_per_thread": pts // nt, "buf_elems": buf,
+                "staged_cells_per_point": per_in,
+                "buffer_bytes": buf * esize, "smem_bytes": smem,
+                "min_blocks": per_sm,
+                "detail": (f"slot 0 unused: {'x'.join(map(str, t3[1:]))} "
+                           f"tiles by {nt} threads ({pts // nt} points a "
+                           f"thread), {per_in:.3f} staged cells per point "
+                           f"and input, two staged buffers of {buf * esize} "
+                           "B (cp.async fills one while a tile computes "
+                           f"from the other), {smem} B of shared memory, "
+                           "resident blocks walking the tiles")}
+    return {}
+
+
+def emit(program, push=False, ladder=_TILE_LADDER,
+         flat_ladder=_FLAT_LADDER) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
     entries for one stage, K6's (and K7's, K5's) for several stages or scratch
     vars (one sub-stage per scratch write halo of a part, and one for the
     rest of each stage).  ``push`` is the :func:`resolve_push` request;
-    the tile is the first of ``ladder`` whose shared-memory tiles fit.
+    the tile is the first of ``ladder`` whose shared-memory tiles fit, or
+    for K6's body on a 1-D or 2-D solution the first of ``flat_ladder``
+    whose two staged buffers and computed tiles fit (the flat arm,
+    :func:`_flat_plan`).
     Where none fits, the workspace arm (:func:`_workspace_plan`): K6's
     body, for one sub-step too, with the tiles past shared memory in a
     device-memory workspace of the card's resident blocks, which walk the
@@ -1212,7 +1295,22 @@ def emit(program, push=False, ladder=_TILE_LADDER) -> KernelSpec:
         return cells(t3, list(zip(sub.lo, sub.hi)))
 
     tile = None
-    for cand in ladder:
+    flat, flat_cause = {}, None
+    if not used[0] and nst > 1:
+        # K6's body on a solution that leaves slot 0 unused: the flat arm
+        flat = _flat_plan(
+            flat_ladder, used[1],
+            lambda t3: sum(cells(t3, halos[a]) for a in tiled),
+            lambda t3: sum(cmp_cells(t3, b) for b in range(len(computed))),
+            len(tiled), esize)
+        if flat:
+            tile = flat["tile"]
+        else:
+            flat_cause = ("flat_fallback", "no rung of the flat ladder fits "
+                          "two staged buffers and the computed tiles in "
+                          f"{SMEM_LIMIT} bytes of shared memory: the tile "
+                          "ladder's plan")
+    for cand in ladder if tile is None else ():
         t3 = tuple(c if used[s_] else 1 for s_, c in enumerate(cand))
         smem = (sum(cells(t3, halos[a]) for a in tiled)
                 + sum(cmp_cells(t3, b) for b in range(len(computed))))
@@ -1338,6 +1436,12 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     # ---- K6: several sub-stages per launch (and the workspace arm, one
     #      sub-stage or several) ------------------------------------------
     in_elems = offs
+    flat_enum = ""
+    if flat:
+        # two staged buffers, BUF_ELEMS apart, then the computed tiles
+        offs = 2 * flat["buf_elems"]
+        flat_enum = (f",\n           FLAT_NT = {flat['threads']}, FLAT_MIN = "
+                     f"{flat['min_blocks']}, BUF_ELEMS = {flat['buf_elems']}")
     cmp_off = []
     for b in range(len(computed)):
         cmp_off.append(offs)
@@ -1357,6 +1461,14 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
             tabs.append(_table(f"{fn}{s_}", [
                 program.geoms[pr.inputs[a][0]].pads[dim_of[s_]][side]
                 if s_ in dim_of else 0 for a in tiled], "0"))
+    if flat:
+        # each output slice's pads (lo, hi) per slot, which the flat arm's
+        # kernel zeroes
+        tabs.append(_table2("out_pad", [[
+            geoms[n].pads[dim_of[s_]][side]
+            if s_ in dim_of and dim_of[s_] in geoms[n].domain_dims else 0
+            for s_ in range(3) for side in (0, 1)] for n, _m in slices],
+            "0"))
     for s_ in range(3):
         tabs.append(_table(f"sub_lo{s_}", [u.lo[s_] for u in subs], "0"))
         tabs.append(_table(f"sub_hi{s_}", [u.hi[s_] for u in subs], "0"))
@@ -1397,7 +1509,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
            IN_ELEMS = {in_elems}, NSTAGES = {nst}, NCMP = {len(computed)},
-           MAXV = {maxv}{outer_enum}{ws_enum} }};
+           MAXV = {maxv}{outer_enum}{ws_enum}{flat_enum} }};
 {chr(10).join(tabs)}
 
     template <int K, class RD>
@@ -1410,14 +1522,17 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 """
     name = "fused_stages_" + hashlib.sha256(struct.encode()).hexdigest()[:12]
     nscr = sum(u.scratch for u in subs)
-    if ws is None:
+    if ws is None and not flat:
         entries = (f"YT_FUSED_STAGES_ENTRY({name}, Spec)\n"
                    f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
                    f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         arm = ""
     else:
         entries = f"YT_FUSED_WS_ENTRIES({name}, Spec)\n"
-        arm = (f"\n// Workspace arm: {ws['ws_elems']} elements per resident "
+        arm = (f"\n// Flat arm: {flat['threads']} threads a "
+               f"{'x'.join(map(str, tile[1:]))} tile, two staged buffers."
+               if flat else
+               f"\n// Workspace arm: {ws['ws_elems']} elements per resident "
                "block past shared memory.")
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
@@ -1448,7 +1563,8 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                       sub_regions=[(tuple(u.lo), tuple(u.hi)) for u in subs],
                       in_misc=list(pr.in_misc), out_slices=out_slices,
                       base_outputs=base_outputs, outer=no,
-                      in_outer=list(pr.in_outer) if no else [])
+                      in_outer=list(pr.in_outer) if no else [],
+                      flat=flat, flat_cause=flat_cause)
 
 
 # ==== K4: the trapezoid/diamond two-phase tiling =========================

@@ -58,6 +58,19 @@ entry); a launch runs that many blocks, each walking tiles.  The same
 wrappers launch it (its entries take the workspace before the stream),
 and K7 and K5 take it as they take K6's body.
 
+K6's flat arm: on a solution that leaves slot 0 unused (the 1-D and 2-D
+solutions K6 carries: gaussian, box, the SWE, ...), the emitted source is
+K6's body with wide tiles served by fewer threads, the card's resident
+blocks walking the tiles and the next tile's staged inputs copied with
+``cp.async`` while the current one computes.  Its solo and batch
+launches write every cell of their outputs (the pads with 0), so
+:func:`copy_base` hands them ``torch.empty`` outputs (a partial-dim
+output, whose slab the kernel stores, stays zeroed; K5 keeps its
+allocation rules).  The same wrappers launch it through the workspace
+arm's entries, with no workspace: :meth:`FusedKernel.workspace` asks the
+``<name>_resident`` entry once per launch kind and passes the count,
+which :meth:`FusedKernel.tiling` reports, to every launch.
+
 K6 on Hopper, the multi-stage push-memory kernel: replaces the ``push=``
 arm of ``build_pallas_chunk`` and its stage loop (pallas_stencil.py:495-563,
 :995-1058, :1859-1871, :2058-2188), with its scratch arm (``_TileEval``'s
@@ -246,18 +259,19 @@ def _arg_tables(program, spec, ins, outs):
 
 
 def _ws_args(spec, ws, nres) -> tuple:
-    """The workspace arguments of the workspace arm's entries (the
-    workspace tensor, or None on the host path, and its resident blocks);
-    none for the other kernels."""
-    return (_ptr(ws), int(nres)) if spec.workspace else ()
+    """The arguments of the workspace and flat arms' entries
+    (``spec.walks``): the workspace tensor (None on the flat arm and the
+    host path) and the resident blocks; none for the other kernels."""
+    return (_ptr(ws), int(nres)) if spec.walks else ()
 
 
 def call_entry(fn, program, spec, ins, outs, t: int, stream, ws=None,
                nres: int = 0) -> int:
     """Call an emitted kernel's C entry point: interior-origin addresses
     and per-slot strides of the input and output tensors, the interior
-    sizes, the step index, for the workspace arm (``spec.workspace``) the
-    workspace ``ws`` of ``nres`` resident blocks, and the stream.
+    sizes, the step index, for the workspace and flat arms
+    (``spec.walks``) the workspace ``ws`` and ``nres`` resident blocks,
+    and the stream.
     Returns its error code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
@@ -350,14 +364,15 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
               ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
 
 
-#: the workspace arm's arguments before the stream: the workspace and
-#: its resident blocks
+#: the workspace and flat arms' arguments before the stream
+#: (``KernelSpec.walks``): the workspace and the resident blocks
 _WS_ARGS = [ctypes.c_void_p, ctypes.c_longlong]
 
 
 def entry_argtypes(ws: bool = False):
     """K1's and K6's C signature: the tables, the step, (the workspace
-    arm, ``ws``: the workspace and its resident blocks,) the stream."""
+    and flat arms, ``ws``: the workspace and the resident blocks,) the
+    stream."""
     return ([ctypes.c_void_p] * 5 + [ctypes.c_int]
             + (_WS_ARGS if ws else []) + [ctypes.c_void_p])
 
@@ -459,25 +474,32 @@ def _rotated(program, spec, state, outs):
     return new_state
 
 
-def copy_base(kernel: "FusedKernel", state, dev, lead=()):
+def copy_base(kernel: "FusedKernel", state, dev, lead=(), empty=False):
     """The fresh zeroed output tensors of one sub-step (``lead +`` the
     padded shape: ``(nm,)`` for a member batch's stacks), except that a
     var some of whose misc slices no equation writes
     (``spec.base_outputs``) starts from a device copy of its evicted slot
     (of every member: slot 0 of the stack), as the plain version's new
     slot is the evicted one with the written slices replaced.  Counts
-    each copy in ``copy_base.launches``."""
+    each copy in ``copy_base.launches``.  With ``empty`` (the flat arm's
+    solo and batch launches, which write every cell of their outputs)
+    the others come from ``torch.empty``, but a partial-dim output, whose
+    slab the kernel writes and not its pads, stays zeroed."""
     import torch
     from yask_tpu_torch.compiler.lowering import torch_dtype
     prog = kernel.program
+    dims = list(prog.ana.domain_dims)
     outs = []
     for n in kernel.spec.outputs:
+        shape = tuple(lead) + tuple(prog.geoms[n].shape)
         if n in kernel.spec.base_outputs:
             outs.append(state[n][0].clone())
             copy_base.launches += 1
+        elif empty and list(prog.geoms[n].domain_dims) == dims:
+            outs.append(torch.empty(shape, dtype=torch_dtype(prog.dtype),
+                                    device=dev))
         else:
-            outs.append(torch.zeros(tuple(lead) + tuple(prog.geoms[n].shape),
-                                    dtype=torch_dtype(prog.dtype),
+            outs.append(torch.zeros(shape, dtype=torch_dtype(prog.dtype),
                                     device=dev))
     return outs
 
@@ -510,7 +532,7 @@ def _launch(kernel: "FusedKernel", state, t: int, what: str):
     prog = kernel.program
     spec = kernel.spec
     ins, dev = _check_inputs(kernel, state)
-    outs = copy_base(kernel, state, dev)
+    outs = copy_base(kernel, state, dev, empty=bool(spec.flat))
     with torch.cuda.device(dev):
         ws, nres = kernel.workspace(dev, 0)
         rc = call_entry(kernel.fn, prog, spec, ins, outs, t,
@@ -598,7 +620,7 @@ def _launch_batched(kernel: "FusedKernel", state, t: int, nm: int,
     prog = kernel.program
     spec = kernel.spec
     ins, dev = _check_inputs(kernel, state, lead=(nm,))
-    outs = copy_base(kernel, state, dev, lead=(nm,))
+    outs = copy_base(kernel, state, dev, lead=(nm,), empty=bool(spec.flat))
     with torch.cuda.device(dev):
         ws, nres = kernel.workspace(dev, 1)
         rc = call_batched_entry(kernel.batched_fn, prog, spec, ins, outs,
@@ -867,7 +889,7 @@ class FusedKernel:
             self.cache_hit = "memory"
             return 0.0
         lib, secs = self._load()
-        ws = bool(self.spec.workspace)
+        ws = self.spec.walks
         fn = getattr(lib, self.spec.name)
         fn.argtypes = entry_argtypes(ws)
         fn.restype = ctypes.c_int
@@ -891,12 +913,10 @@ class FusedKernel:
         self.region_fn = rfn
         return secs
 
-    def _workspace_of(self, dev, key, elems: int, query):
-        """A workspace of the resident blocks of launch ``key`` times
-        ``elems`` elements, and that block count.  The count is asked of
-        ``query()`` (the kernel's resident-block entry: the count, or a
-        negative CUDA error, which raises) once per key and card."""
-        import torch
+    def _resident_blocks(self, key, query) -> int:
+        """The resident blocks of launch ``key``, asked of ``query()`` (the
+        kernel's resident-block entry: the count, or a negative CUDA error,
+        which raises) once per key and card."""
         if key not in self._resident:
             n = query()
             if n < 1:
@@ -904,16 +924,26 @@ class FusedKernel:
                     f"kernel '{self.spec.name}': the resident-block query "
                     f"failed: CUDA error {-n}")
             self._resident[key] = n
-        nres = self._resident[key]
+        return self._resident[key]
+
+    def _workspace_of(self, dev, key, elems: int, query):
+        """A workspace of the resident blocks of launch ``key`` times
+        ``elems`` elements, and that block count."""
+        import torch
+        nres = self._resident_blocks(key, query)
         return (torch.empty(nres * elems, dtype=self.dtype, device=dev),
                 nres)
 
     def workspace(self, dev, kind: int):
         """The workspace of one launch of the workspace arm of ``kind`` (0
         solo, 1 member batch, 2 a shard's box): ``ws_elems`` per resident
-        block; (None, 0) for a kernel without one."""
+        block; (None, 0) for a kernel without one.  The flat arm has no
+        workspace: (None, its resident blocks), the grid of its launch,
+        which :meth:`tiling` reports."""
         if not self.spec.workspace:
-            return None, 0
+            return None, (self._resident_blocks(
+                kind, lambda: self.resident_fn(int(kind)))
+                if self.spec.flat else 0)
         return self._workspace_of(dev, kind, self.spec.workspace["ws_elems"],
                                   lambda: self.resident_fn(int(kind)))
 
@@ -1003,6 +1033,15 @@ class FusedKernel:
                 "cells_per_point": w["cells_per_point"],
                 "staged_in_ws": w["staged_in_ws"],
                 "computed_in_ws": w["computed_in_ws"]}
+        if s.flat:
+            # K6's flat arm: its reason record, tile, threads, staged cells
+            # per point, shared memory (both buffers) and, after a launch
+            # on the card, its resident blocks per launch kind
+            out["flat"] = dict(s.flat, tile=list(s.flat["tile"]),
+                               resident_blocks=dict(self._resident))
+        elif s.flat_cause:
+            out["flat"] = {"code": s.flat_cause[0],
+                           "detail": s.flat_cause[1]}
         if members:
             out.update(kernel=("batched_step" if s.stages == 1
                                else "batched_stages_step"),

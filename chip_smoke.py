@@ -47,23 +47,23 @@ script exits 0 only when all of them passed.  Phases:
    the aggregate rate, K7's time against its bound, and the share of a
    request spent in the per-chunk ``extract_snapshot`` host copies (from
    the span trace, ``YT_TRACE``);
-6. the pipeline path: the RTM chain (``rtm_chain``: forward step →
-   imaging condition → smoothing) merged by ``SolutionPipeline`` and run
-   ``-mode fused -wf_steps 1`` with ``prepare(fuse=True)``, one launch of
-   K6 (the multi-stage kernel, the image pushed: it never leaves shared
-   memory) per step.  (a) K6 against its plain version (``-mode torch``
-   on the same merged program) from one numpy-seeded state: the pure
-   (push) and accumulating chains at a ragged 67×45×131 and the pure r=8
-   chain at 64³ (the shared-memory ladder steps down), 4 steps, one
+6. the pipeline path: the RTM chain (``rtm_chain``: forward step → imaging
+   condition → smoothing) merged by ``SolutionPipeline`` and run ``-mode
+   fused -wf_steps 1 -no-skew`` with ``prepare(fuse=True)``, one launch of
+   K6's body (the multi-stage kernel, the image pushed: it never leaves
+   shared memory) per step; phase 17 (a) and (d) run K6's stream arm, the
+   default, on the same chains.  (a) K6 against its plain version (``-mode
+   torch`` on the same merged program) from one numpy-seeded state: the
+   pure (push) and accumulating chains at a ragged 67×45×131 and the pure
+   r=8 chain at 64³ (the shared-memory ladder steps down), 4 steps, one
    launch each; (b) the push and ``-push off`` fused arms against the
    host-chained arm (one K1 per stage under ``-no-skew``, bindings copied
    through the host) at 96³, ``compare == 0``; (c) the path at full size:
    r=2, 512³ fp32, ``fwd.pressure`` seeded in every ring slot from
-   ``RandomState(7)`` (and ``fwd.vel``), 2 warm-up steps, then 3 trials
-   of 20 steps with the counters zeroed just before (60 K6 launches and
-   no other), for
-   the push arm and the ``-push off`` arm, each against its bound (20
-   and 24 B per point), then ``end()``;
+   ``RandomState(7)`` (and ``fwd.vel``), 2 warm-up steps, then 3 trials of
+   20 steps with the counters zeroed just before (60 K6 launches and no
+   other), for the push arm and the ``-push off`` arm, each against its
+   bound (20 and 24 B per point), then ``end()``;
 7. the trapezoid path: ``-mode fused -wf_steps K -trapezoid``, where each
    group of K steps is one launch of K4's phase 1 (K levels per tile in
    one launch) plus one diamond launch per trapezoid dim, the remainder
@@ -121,10 +121,14 @@ script exits 0 only when all of them passed.  Phases:
    K ∈ {1, 2}, 5 steps, ``-mode fused`` against ``-mode torch`` on CUDA
    tensors from one state seeded in a physical range (``seed_physical``):
    0 mismatches at ``field_epsilon``, the cells whose bits differ
-   counted, finite states, 5 K6 launches and no other; (b) tti r=2 and
-   awp against the numpy oracle at 32³ for 2 steps; (c) tti r=2 (the
-   scratch arm) and awp (the rewrite arm) at 512³ fp32 ``-mode fused
-   -wf_steps 2``: 2 warm-up steps, then 3 trials of 20 steps with the
+   counted, finite states, 5 K6 launches and no other (K6's body,
+   ``-no-skew``: phase 17 (a) holds the stream arm to it); (b) tti r=2
+   and awp (on K6's stream arm, the default) against the numpy oracle at
+   32³ for 2 steps; (c) tti r=2 (the scratch arm) and awp (the rewrite
+   arm, K6's body under ``-no-skew``: phase 17 (b) runs the stream arm
+   from the same seed, and takes this run's final state's digest) at
+   512³ fp32 ``-mode fused -wf_steps 2``, seeded on the card in physical
+   ranges: 2 warm-up steps, then 3 trials of 20 steps with the
    counters zeroed just before (60 K6 launches and no other), ms/step,
    points/s, K6's ms per launch (CUDA events) against the bound from the
    program (each input whose values can reach an output read once, as
@@ -191,7 +195,9 @@ script exits 0 only when all of them passed.  Phases:
 12. K7 on every arm of the member batch (the reference vmaps whatever
    ``build_pallas_chunk`` returns): K7 over K1's body (``batched_step``)
    and over K6's (``batched_stages_step``), each block one member and
-   one outer cell, the batch built push-off as the reference's.  (a)
+   one outer cell, the batch built push-off as the reference's; every
+   batch of this phase runs ``-no-skew`` (K6's body: phase 17 (a) and
+   (c) run K7 over K6's stream arm).  (a)
    ``-mode fused -wf_steps 2 -ensemble 3`` through ``EnsembleRun`` at mid
    width, 5 steps, the counters zeroed just before: tti r=2 (scratch),
    awp (rewrite), ssg (stages), gaussian r=2 and test_misc_2d (misc),
@@ -321,7 +327,40 @@ script exits 0 only when all of them passed.  Phases:
    functions, which PyTorch rounds otherwise: 0 mismatches at
    ``field_epsilon``, the cells whose bits differ counted), a K7 batch
    of 3 (each member bit-equal to its solo run) and, 2-D, 2x2 K5 shards
-   (bit-equal to the single-domain run).
+   (bit-equal to the single-domain run);
+17. K6's stream arm (``csrc/stream_stages.cuh``: every sub-stage at its
+   lag walking slot 0, the card's resident blocks walking the columns,
+   segments and members, rings of staged and computed planes fed by
+   ``cp.async``, every output cell written once), solo (``stages_step``
+   launching ``<name>_stages_stream``, counted apart) and as K7's batch
+   (``batched_stages_step``, ``<name>_stages_stream_batched``), the
+   default of ``-mode fused`` on a 3-D solution of K6's body without
+   scratch vars.  (a) At mid width (67x45x131: several plane tiles per
+   slot, the last partial, several segments) every solution it takes,
+   and awp at element size 8, K = 2, 5 steps from one state seeded on
+   the card: the arm alone launches, bit-equal
+   (``compare_data(epsilon=0)``, every cell's bits) to its ``-no-skew``
+   twin (K6's body) and held to its plain version at ``field_epsilon``;
+   a K7 batch of 3 over the arm, each member bit-equal to its solo run,
+   one chunk of the batch held to ``plain_batched_chunk`` at
+   ``field_epsilon``; one launch of each arm, of the batch and of the
+   plain versions timed; the same for the RTM chains phase 6 (a) runs on
+   K6's body (:data:`SS_RTM`: pure with the image pushed, accumulating
+   and ``-push off`` at 67x45x131, pure r=8 at 64³, 4 steps each).
+   (b) awp at 512³ fp32 as phase 9 (c) runs it (3 trials of 20 steps,
+   the counters zeroed just before), from phase 9 (c)'s seed: ms per
+   launch and per step against the same bound, the final state's digest
+   equal to phase 9 (c)'s (the body's), 3 launches of the arm and 3 of
+   the body from one state under ``torch.profiler`` (each kernel's time
+   over the launches the window saw; the span and idle share only from a
+   window that saw all six, else null), ptxas's registers and spills,
+   and the arm at the other plane tiles of :data:`SS_SWEEP` (each the
+   same bits); (c) K7 over the arm, awp 8 x 256³, as phase 12 (b) runs
+   it, beside the solo arm and phase 12 (b)'s batch on the body; (d) the
+   RTM chain at 512³, its image pushed and ``-push off``, as phase 6 (c)
+   runs it, each beside phase 6 (c)'s body; (e) ssg and fsg at 512³ on
+   the arm and their ``-no-skew`` twins from one seed, bit-equal after
+   12 steps, one launch of each timed.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -378,6 +417,8 @@ def launch_counts() -> dict:
             "batched_step": fs.batched_step.launches,
             "batched_stages_step": fs.batched_stages_step.launches,
             "stages_step": fs.stages_step.launches,
+            "stages_stream": fs.stages_step.stream_launches,
+            "batched_stages_stream": fs.batched_stages_step.stream_launches,
             "shard_step": fs.shard_step.launches,
             "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
             "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches,
@@ -394,14 +435,54 @@ def zero_launch_counts() -> None:
               fs.batched_stages_step, fs.stages_step, fs.shard_step,
               fs.copy_base):
         w.launches = 0
+    for w in (fs.stages_step, fs.batched_stages_step):
+        w.stream_launches = 0
     for w in (fs.trapezoid_chunk, fs.batched_trapezoid_chunk):
         w.phase1_launches = 0
         w.diamond_launches = 0
 
 
+def stages_counter(kern, wrapper: str = "stages_step") -> str:
+    """The counter a launch of ``wrapper`` over ``kern`` bumps: where the
+    kernel's tiling (``FusedKernel.tiling``, of K7's batches for
+    ``batched_stages_step``) reports K6's stream arm (``stages_stream``),
+    the arm's (``stages_stream``, ``batched_stages_stream``), else the
+    wrapper's own."""
+    til = kern.tiling(1, 3 if wrapper == "batched_stages_step" else 0)
+    if wrapper in ("stages_step", "batched_stages_step") \
+            and "stages_stream" in til:
+        return wrapper.replace("_step", "_stream")
+    return wrapper
+
+
+def stages_source(kern, wrapper: str = "stages_step") -> str:
+    """The header of the kernel a launch of ``wrapper`` over ``kern``
+    runs, from the same tiling as :func:`stages_counter`."""
+    return (SS_SOURCE if stages_counter(kern, wrapper).endswith("_stream")
+            else "yask_tpu_torch/csrc/fused_step.cuh")
+
+
+def state_digest(ctx) -> list:
+    """Two sums over the bits of every ring slot of ``ctx``'s state (one
+    plain, one weighted by position), on the card: equal states give equal
+    digests, so two runs from one seed compare without a host copy."""
+    import torch
+    out = []
+    for name in sorted(ctx._state):
+        for a in ctx._state[name]:
+            b = a.contiguous().view(-1)
+            b = (b.view(torch.int32) if b.element_size() == 4
+                 else b.view(torch.int64)).to(torch.int64)
+            w = torch.arange(b.numel(), device=b.device) % 1021 + 1
+            out.append((int(b.sum()), int((b * w).sum())))
+    return out
+
+
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
-    names = (("stream_step_kernel", "stream arm"),
+    names = (("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
+             ("stream_stages_kernelI4SpecLb0", "K6 stream arm"),
+             ("stream_step_kernel", "stream arm"),
              ("fused_step_kernelI4SpecLb0ELb1E", "K5 (K1 body)"),
              ("fused_step_kernelI4SpecLb1", "K7 (K1 body)"),
              ("fused_step_kernelI4SpecLb0", "K1"),
@@ -481,38 +562,62 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def profile_launches(fn, reps: int = 10):
+def profile_launches(fn, reps: int = 10, expect=(), tries: int = 3):
     """``torch.profiler`` (CUPTI) over ``reps`` calls of ``fn()`` after a
-    warm one: the device milliseconds per call of each kernel (by name,
-    shortened), the span from the first kernel's start to the last one's
-    end per call, and the device's idle share of that span (its gaps
-    between kernels).  None where the profiler saw no device activity
-    (then time the parts with CUDA events)."""
+    warm one: each kernel's device milliseconds per launch (by name,
+    shortened; its device time over the launches of it the window saw),
+    those launches, and, where the window is whole, each kernel's device
+    milliseconds per call of ``fn``, the span from the first kernel's
+    start to the last one's end per call and the device's idle share of
+    that span (its gaps between kernels).  ``expect`` names (substrings
+    of kernel names) the kernels each call launches once: a window that
+    saw one of them fewer than ``reps`` times is taken again, up to
+    ``tries`` windows, and if none is whole, ``per_call_ms``,
+    ``span_ms`` and ``idle_share`` are None (a window in a long process
+    has missed launches).  None where the profiler saw no device activity
+    (then time the parts with CUDA events).  The events of every profiler
+    cycle are kept (``acc_events``, where this PyTorch has it)."""
+    import inspect
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    if not spans:
-        return None
-    per, busy, end = {}, 0.0, spans[0][0]
-    for s, t, name in spans:
-        key = name.split("(")[0].replace("void ", "")[:70]
-        per[key] = per.get(key, 0.0) + (t - s) / 1e3 / reps
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    span = (end - spans[0][0]) / 1e3
-    return {"kernels": per, "span_ms": span / reps,
-            "idle_share": 1.0 - busy / 1e3 / span if span > 0 else 0.0}
+    acc = ({"acc_events": True}
+           if "acc_events" in inspect.signature(profile).parameters else {})
+    for window in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], **acc) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+        if not spans:
+            return None
+        total, seen, busy, end = {}, {}, 0.0, spans[0][0]
+        for s, t, name in spans:
+            key = name.split("(")[0].replace("void ", "")[:70]
+            total[key] = total.get(key, 0.0) + (t - s) / 1e3
+            seen[key] = seen.get(key, 0) + 1
+            busy += max(0.0, t - max(s, end))
+            end = max(end, t)
+        whole = all(sum(n for k, n in seen.items() if x in k) == reps
+                    for x in expect)
+        if whole:
+            break
+    out = {"kernels": {k: v / seen[k] for k, v in total.items()},
+           "launches_seen": seen, "reps": reps, "windows": window,
+           "whole": whole, "per_call_ms": None, "span_ms": None,
+           "idle_share": None}
+    if whole:
+        span = (end - spans[0][0]) / 1e3
+        out.update(per_call_ms={k: v / reps for k, v in total.items()},
+                   span_ms=span / reps,
+                   idle_share=1.0 - busy / 1e3 / span if span > 0 else 0.0)
+    return out
 
 
 def phase2(fac, env, cases, g: int = 64) -> None:
@@ -1000,13 +1105,14 @@ def pipe_diff(a, b):
 
 def rtm_full(env, full: int, name: str, cli: str, pushed: set,
              dtype=None, warm: int = 2, trials: int = 3,
-             steps: int = 20) -> dict:
+             steps: int = 20, phase: str = None) -> dict:
     """The RTM pipeline at ``full``³ (phase 6 (c); phase 12 (d) in
     bfloat16): ``fwd`` seeded as :func:`seed_chain`, ``warm`` steps, then
     ``trials`` runs of ``steps`` with every counter zeroed just before
     (K6 alone may launch); K6's ms per launch against its bound (each
     input read once, each output written once), the plain version's time
-    and one step against it.  Returns the ``kernels`` entry."""
+    and one step against it; ``phase`` labels its lines (6, or 12 in
+    bfloat16, by default).  Returns the ``kernels`` entry."""
     import numpy as np
     import torch
     from yask_tpu_torch.compiler.lowering import is_bfloat16
@@ -1015,6 +1121,7 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
     npts = g[0] * g[1] * g[2]
     bf16 = dtype is not None and is_bfloat16(dtype)
     dt, esize = ("bf16", 2) if bf16 else ("fp32", 4)
+    phase = phase or ("12" if bf16 else "6")
     eps = BF16_FIELD_EPS if bf16 else FIELD_EPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1033,11 +1140,12 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
         secs.append(time.perf_counter() - t0)
         t += steps
     moved = {k: v for k, v in launch_counts().items() if v}
-    launches = moved.get("stages_step", 0)
-    if moved != {"stages_step": trials * steps}:
+    key = stages_counter(pipe.fused_ctx._fused)
+    launches = moved.get(key, 0)
+    if moved != {key: trials * steps}:
         raise RuntimeError(
             f"rtm {dt} {name}: launches {moved} in the window, expected "
-            f"{trials * steps} of K6 alone")
+            f"{trials * steps} of {key} alone")
     peak = torch.cuda.max_memory_allocated()
     secs.sort()
     step_ms = secs[len(secs) // 2] / steps * 1e3
@@ -1068,16 +1176,16 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
     flops_ms = ctx._ana.counters.num_ops * npts / FP32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
     bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-    log(f"phase {12 if bf16 else 6}: rtm chain r=2 pure {full}^3 {dt} "
+    log(f"phase {phase}: rtm chain r=2 pure {full}^3 {dt} "
         f"-mode fused -wf_steps 1"
         f" ({name}, pushed {sorted(pushed)}): {trials} trials x {steps}"
         f" steps: {step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f},"
         f" max {secs[-1] / steps * 1e3:.3f}), "
-        f"{npts / step_ms * 1e3:.4e} points/s; stages_step launches in "
+        f"{npts / step_ms * 1e3:.4e} points/s; {key} launches in "
         f"the window {launches}")
-    log(f"phase {12 if bf16 else 6}: {name}: stages_step {ms:.3f} "
+    log(f"phase {phase}: {name}: {key} {ms:.3f} "
         f"ms/launch (CUDA events, "
-        f"zero-filled outputs included) against its bound "
+        f"the outputs' allocation included) against its bound "
         f"{bound_ms:.3f} ms ({bound_by}: {bytes_pt} B/pt -> "
         f"{bytes_ms:.3f} ms; {ctx._ana.counters.num_ops} FLOP/pt -> "
         f"{flops_ms:.3f} ms); share {bound_ms / ms:.3f} per launch, "
@@ -1085,11 +1193,11 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
         f"{plain_ms:.3f} ms/step (not a yardstick); one step kernel vs "
         f"plain max|d|={err:.3e} (field max {scale:.3e}); "
         f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB")
+    source = stages_source(kern)
     pipe.end()
     del pipe, ctx, kern, prog, state
     torch.cuda.empty_cache()
-    return {"name": "stages_step", "route": "cuda",
-            "source": "yask_tpu_torch/csrc/fused_step.cuh",
+    return {"name": "stages_step", "route": "cuda", "source": source,
             "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (push= arm)",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1108,7 +1216,8 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
     worst = 0.0
     for acc, r, g in ((False, 2, ragged), (True, 2, ragged),
                       (False, 8, (ladder,) * 3)):
-        fused = rtm_pipe(env, "-mode fused -wf_steps 1", True, g, r, acc)
+        fused = rtm_pipe(env, "-mode fused -wf_steps 1 -no-skew", True, g,
+                         r, acc)
         plain = rtm_pipe(env, "-mode torch -wf_steps 1", True, g, r, acc)
         want = set() if acc else {"img__img"}
         if fused.pushed_vars() != want:
@@ -1138,9 +1247,10 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
 
     # (b) fused (push and no push) against host-chained (K1 per stage)
     g = (mid,) * 3
-    arms = {"push": rtm_pipe(env, "-mode fused -wf_steps 1", True, g),
-            "no push": rtm_pipe(env, "-mode fused -wf_steps 1 -push off",
-                                True, g),
+    arms = {"push": rtm_pipe(env, "-mode fused -wf_steps 1 -no-skew", True,
+                             g),
+            "no push": rtm_pipe(env, "-mode fused -wf_steps 1 -push off "
+                                "-no-skew", True, g),
             "chained": rtm_pipe(env, "-mode fused -wf_steps 1 -no-skew",
                                 False, g)}
     n1, n6 = fused_step.launches, stages_step.launches
@@ -1164,12 +1274,15 @@ def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
 
     # (c) the path at full size, push and -push off
     entry = None
-    for name, cli, pushed in (("push", "", {"img__img"}),
-                              ("-push off", "-push off", set())):
+    for name, cli, pushed in (("push", "-no-skew", {"img__img"}),
+                              ("-push off", "-push off -no-skew", set())):
         e = rtm_full(env, full, name, cli, pushed)
         if entry is None:
             entry = e
             entry["max_abs_err"] = max(e["max_abs_err"], worst)
+        else:
+            # beside phase 17 (d)'s -push off row on K6's stream arm
+            entry["push_off"] = {"ms": e["ms"], "step_ms": e["step_ms"]}
     return entry
 
 
@@ -1530,15 +1643,17 @@ def phase8a(fac, dev: str = "cuda:0", cases=SHARD_CASES) -> float:
     return worst
 
 
-def device_diff(a, b, exact=False):
+def device_diff(a, b, exact=False, skip=()):
     """Largest |Δ| and the mismatches over the interiors of two contexts'
-    common vars, computed on the card (no host copy of a 512³ state):
-    under ``compare_data``'s rule with ``field_epsilon``, or, with
-    ``exact``, every cell whose bits differ."""
+    common vars but ``skip``, computed on the card (no host copy of a
+    512³ state): under ``compare_data``'s rule with ``field_epsilon``, or,
+    with ``exact``, every cell whose bits differ."""
     import torch
     worst, bad = 0.0, 0
     sa, sb = a._state, b._state
     for name, ring in sa.items():
+        if name in skip:
+            continue
         for x, y in zip(ring[::-1], sb[name][::-1]):
             x = x[a._interior_idx(name)]
             y = y[b._interior_idx(name)]
@@ -1782,6 +1897,14 @@ FAMILY_CASES = (("tti", 2), ("tti", 4), ("awp", None), ("awp_abc", None),
                 ("test_boundary_3d", None))
 #: Phase 9 (c)'s solutions at 512³: K6's scratch arm and its rewrite arm.
 FULL_CASES = (("tti", 2), ("awp", None))
+
+
+def full_seed(ctx):
+    """The full-width state of :func:`family_full` (phases 9 (c), 11 (c),
+    15 (a) and 17 (b)), made on the card in physical ranges
+    (:func:`seed_device`): phase 17 (b)'s awp starts where phase 9 (c)'s
+    did."""
+    seed_device(ctx, 11, physical=True)
 #: Read-only coefficients in a physical range, uniform in [lo, hi): a
 #: positive slowness m, density and Lame parameters, attenuation and
 #: sponge factors, AWP's dt/h and the SWE's dt/dx and gravity (others:
@@ -1868,7 +1991,9 @@ def phase9a(fac, env, steps: int = 5) -> float:
         sizes = ragged_sizes(tile)
         del probe
         for K in (1, 2):
-            fused = a3_ctx(fac, env, st, r, 4, sizes, "fused", K)
+            # K6's body (phase 17 (a) holds the stream arm to it)
+            fused = a3_ctx(fac, env, st, r, 4, sizes, "fused", K,
+                           "-no-skew")
             plain = a3_ctx(fac, env, st, r, 4, sizes, "torch", K)
             for c in (fused, plain):
                 seed_physical(c, 5)
@@ -1990,6 +2115,19 @@ def tile_kernel(program, push, tile):
     return kern
 
 
+def stream_kernel(program, push, rung):
+    """K6's stream arm for ``program`` at plane tile ``rung`` (T1, T2,
+    threads) in place of its ladder's, emitted at the program's size (the
+    segment length follows it)."""
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    kern = FusedKernel(program, push)
+    kern.spec = cuda_emit.emit(program, push, stream_tiles=(rung,))
+    kern.skew_dims = cuda_emit.skew_engaged_dims(program, None, 2, [],
+                                                 kern.spec)
+    return kern
+
+
 def boxes_vs_plain(kern, state, t: int, edge: int = 32) -> tuple:
     """One launch of ``kern`` over its whole state (one sub-step from step
     ``t``) against the plain version over boxes of ``edge``³ interior
@@ -2029,25 +2167,35 @@ def boxes_vs_plain(kern, state, t: int, edge: int = 32) -> tuple:
 def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
                 warm: int = 2, trials: int = 3, steps: int = 20,
                 eb: int = 4, sweep: bool = True, seed=None,
-                plain_g: int = 0) -> dict:
+                plain_g: int = 0, cli: str = "", digest: bool = False,
+                profile: bool = False, stream_sweep=()) -> dict:
     """Phase 9 (c), and phase 11 (c) at element size ``eb`` = 2: ``st``
     at ``g``³ ``-mode fused -wf_steps 2`` through the user's entry
-    points, seeded by ``seed(ctx)`` (:func:`seed_physical` by default);
+    points, seeded by ``seed(ctx)`` (:func:`full_seed` by default);
     with ``sweep``, K6 at the ladder's next smaller tiles too; with
     ``plain_g``, the plain version is timed and held against a 2-step
     chunk on a context of ``plain_g``³ seeded alike (its full-width run
     does not fit the card: tti r=8's memoized sub-expressions), and one
     launch at ``g``³ is held against it over the corner and centre boxes
-    (:func:`boxes_vs_plain`).  Returns the arm's ``kernels`` entry."""
+    (:func:`boxes_vs_plain`).  ``cli`` is added to the context's options
+    (``-no-skew``: K6's body where its stream arm would engage); with
+    ``stream_sweep`` K6's stream arm at those (T1, T2, threads) plane
+    tiles too (:func:`stream_kernel`); with ``digest`` the entry holds the
+    final state's :func:`state_digest` under ``state_digest``, with
+    ``profile`` the device times of 3 launches under
+    :func:`profile_launches` (on K6's stream arm, of 3 of the arm and 3
+    of K6's body from the same state in one window) under ``profile``,
+    for the caller to take out.  Returns the arm's ``kernels`` entry."""
     import torch
+    from yask_tpu_torch.ops import fused_stencil
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
     npts = g ** 3
     live = live_inputs(fac, env, st, r)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    ctx = a3_ctx(fac, env, st, r, eb, (g, g, g), "fused", 2)
-    (seed or (lambda c: seed_physical(c, 11)))(ctx)
+    ctx = a3_ctx(fac, env, st, r, eb, (g, g, g), "fused", 2, cli)
+    (seed or full_seed)(ctx)
     dt = "bf16" if eb == 2 else "fp32"
     what = f"{st} r={r} {g}^3 {dt} ({arm})"
     eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
@@ -2066,9 +2214,10 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     torch.cuda.synchronize()
     got = {k: v for k, v in launch_counts().items() if v}
     til = ctx.get_stats().get_tiling()
-    if got != {"stages_step": trials * steps}:
+    key = stages_counter(ctx._fused)
+    if got != {key: trials * steps}:
         raise RuntimeError(f"{what}: launches {got}, expected "
-                           f"{trials * steps} of stages_step")
+                           f"{trials * steps} of {key}")
     if not finite(ctx):
         raise RuntimeError(f"{what}: the state is not finite")
     rates.sort()
@@ -2083,6 +2232,17 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
     kern, state = ctx._fused, ctx._state
     ms = cuda_ms(lambda: stages_step(kern, state, t), 5)
+    prof = None
+    if profile:
+        # the stream arm and the body it replaces in one profiler window
+        both = stages_counter(kern) == "stages_stream"
+        prof = profile_launches(
+            (lambda: (stages_step(kern, state, t),
+                      fused_stencil._launch(kern, state, t, "K6 body")))
+            if both else (lambda: stages_step(kern, state, t)), 3,
+            expect=(("stream_stages_kernel", "fused_stages_kernel")
+                    if both else ("_stages_kernel",)))
+    digest = state_digest(ctx) if digest else None
     prog = ctx._program
     pk, pstate, pprog, pt, pg = kern, state, prog, t, g
     full_check = ""
@@ -2097,7 +2257,7 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
             raise RuntimeError(f"{what}: K6 at {g}^3 and its plain version "
                                "disagree over the boxes")
         small = a3_ctx(fac, env, st, r, eb, (plain_g,) * 3, "fused", 2)
-        (seed or (lambda c: seed_physical(c, 11)))(small)
+        (seed or full_seed)(small)
         pk, pstate, pprog, pt, pg = (small._fused_kernel(), small._state,
                                      small._program, 0, plain_g)
     plain_ms = cuda_ms(lambda: plain_chunk(pprog, pstate, pt, 1), 2)
@@ -2111,6 +2271,10 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
             scale = max(scale, float(y.float().abs().max()))
     del b
     staged, computed = cells_per_point(kern.spec)
+    if "stages_stream" in til:
+        # K6's stream arm: its plane tile's staged and computed cells
+        staged = til["stages_stream"]["staged_per_point"]
+        computed = til["stages_stream"]["computed_per_point"]
     # the same sub-step at the ladder's smaller tiles: how the launch time
     # follows the staged and computed cells per point; each gives K6's bits
     rows = []
@@ -2130,13 +2294,30 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
                       "staged_cells_per_point": v_staged,
                       "computed_cells_per_point": v_computed})
         del var
+    for rung in stream_sweep:
+        var = stream_kernel(prog, ctx._push_arg(), rung)
+        c = var.chunk(dict(state), t, 2)
+        same = all(torch.equal(x, y) for n in kern.spec.outputs
+                   for x, y in zip(a[n][-2:], c[n][-2:]))
+        del c
+        if not same:
+            raise RuntimeError(f"{what}: the stream arm at {rung} gives "
+                               "other bits")
+        rec = var.spec.stages_stream.record()
+        rows.append({"tile": [1] + rec["plane_tile"],
+                     "threads": rec["threads"],
+                     "ms": cuda_ms(lambda: stages_step(var, state, t), 5),
+                     "smem_bytes": rec["smem_bytes"],
+                     "staged_cells_per_point": rec["staged_per_point"],
+                     "computed_cells_per_point": rec["computed_per_point"]})
+        del var
     del a
     log(f"{what} -mode fused -wf_steps 2: state {state_bytes / 2**30:.2f} GiB ({state_bytes} B, seeded in "
         f"{seed_s:.1f} s); {trials} trials x {steps} steps: "
         f"{step_ms:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, max "
         f"{npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; launches "
-        f"{got}; K6 {ms:.3f} ms/launch (CUDA events, the zero-filled "
-        f"outputs included); bound {bound_ms:.3f} ms ({bound_by}: "
+        f"{got}; K6 ({key}) {ms:.3f} ms/launch (CUDA events, the "
+        f"outputs' allocation included); bound {bound_ms:.3f} ms ({bound_by}: "
         f"{nbytes / npts:.0f} B/pt -> {bytes_ms:.3f} ms at 3.35 TB/s; "
         f"{ops_pp} FLOP/pt -> {flops_ms:.3f} ms at 67 TFLOP/s fp32), share "
         f"{bound_ms / ms:.3f} per launch, {bound_ms / step_ms:.3f} per step;"
@@ -2155,10 +2336,16 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
         f"{nbits} cells differ in their bits; {full_check}"
         f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
         f"[{card}]")
+    if profile:
+        log(f"{what}: 3 launches under torch.profiler: "
+            + (json.dumps(prof) if prof else "no device activity seen")
+            + f" [{card}]")
     for v in rows:
-        log(f"{what}: K6 at tile {v['tile']} "
+        log(f"{what}: K6 at tile {v['tile']}"
+            + (f" (stream arm, {v['threads']} threads)" if "threads" in v
+               else "") + " "
             f"({v['smem_bytes']} B): {v['ms']:.3f} ms/launch (CUDA events; "
-            f"{ms:.3f} at its own tile {list(kern.spec.tile)}), "
+            f"{ms:.3f} at its own tile {til['tile']}), "
             f"{v['staged_cells_per_point']:.2f} staged cells per point, "
             f"computed per sub-stage "
             f"{[round(x, 2) for x in v['computed_cells_per_point']]}; the "
@@ -2167,24 +2354,30 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
         raise RuntimeError(f"{what}: K6 and its plain version disagree")
     if plain_g:
         err = max(err, b_err)
+    source = stages_source(kern)
     del ctx, kern, state
     torch.cuda.empty_cache()
-    return {"name": f"stages_step ({arm})", "route": "cuda",
-            "source": "yask_tpu_torch/csrc/fused_step.cuh",
-            "launches": got["stages_step"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "per": f"launch, {st} r={r} {g}^3 {dt}",
-            "plain_per": f"step at {pg}^3",
-            "step_ms": step_ms, "bytes_per_point": nbytes / npts,
-            "state_bytes": state_bytes, "staged_cells_per_point": staged,
-            "computed_cells_per_point": computed, "tile_sweep": rows}
+    entry = {"name": f"stages_step ({arm})", "route": "cuda",
+             "source": source, "launches": got[key], "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None,
+             "per": f"launch, {st} r={r} {g}^3 {dt}",
+             "plain_per": f"step at {pg}^3",
+             "step_ms": step_ms, "bytes_per_point": nbytes / npts,
+             "state_bytes": state_bytes, "staged_cells_per_point": staged,
+             "computed_cells_per_point": computed, "tile_sweep": rows}
+    if digest is not None:
+        entry.update(state_digest=digest)
+    if profile:
+        entry.update(profile=prof)
+    return entry
 
 
 def phase9(fac, env, card: str, full: int = 512) -> list:
     """The families path (see the module docstring); returns the
-    ``kernels`` entries of K6's scratch arm (tti) and rewrite arm
-    (awp)."""
+    ``kernels`` entries of K6's scratch arm (tti) and rewrite arm (awp,
+    on K6's body under ``-no-skew``, seeded on the card; its entry holds
+    the final state's digest for phase 17 (b))."""
     t_phase = time.perf_counter()
     worst = phase9a(fac, env)
     phase9b(fac, env)
@@ -2193,7 +2386,9 @@ def phase9(fac, env, card: str, full: int = 512) -> list:
                             "read scratch :175-179, the stage loop's reset "
                             ":2003 and scratch writes :2105-2147)",
                    path="phase 9 (c), tti r=2")
-    rewrite = family_full(fac, env, card, "awp", None, "rewrite arm", full)
+    rewrite = family_full(fac, env, card, "awp", None,
+                          "rewrite arm, the -no-skew body", full,
+                          cli="-no-skew", digest=True)
     rewrite.update(replaces="yask_tpu/ops/pallas_stencil.py:2155 (the stage "
                             "loop's rewrite on the earlier stage's tile "
                             ":2155-2187)",
@@ -2443,15 +2638,16 @@ def seed_device(ctx, seed: int, physical: bool = False) -> None:
                                lambda xp, n, v=v: v.reshape(-1))
 
 
-def a3_bound(ctx) -> tuple:
+def a3_bound(ctx, spec=None) -> tuple:
     """The least time of one sub-step of ``ctx``'s kernel: each input (a
     var's ring slot and misc slice) read once and each output slice
     written once over the interior, against 3.35 TB/s, or its FLOPs at
     67 TFLOP/s fp32 (the kernel computes in float at every element
-    size), whichever is larger.  Returns (ms, "bytes"/"operations",
-    bytes)."""
+    size), whichever is larger; ``spec`` replaces the context's kernel
+    (K7's push-off batch of a pushing solution writes what it pushes).
+    Returns (ms, "bytes"/"operations", bytes)."""
     import numpy as np
-    prog, spec = ctx._program, ctx._fused_spec_kernel().spec
+    prog, spec = ctx._program, spec or ctx._fused_spec_kernel().spec
 
     def cells(name):
         c = 1
@@ -2925,10 +3121,12 @@ def k7_specs(fac, env) -> dict:
     return out
 
 
-def member_batch(fac, env, st, r, eb, sizes, nm: int, seed, K: int = 2):
-    """A ``-mode fused -wf_steps K`` context of ``st`` and an
-    ``EnsembleRun`` of ``nm`` members, member i seeded by ``seed(c, i)``."""
-    ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused", K)
+def member_batch(fac, env, st, r, eb, sizes, nm: int, seed, K: int = 2,
+                 cli: str = ""):
+    """A ``-mode fused -wf_steps K`` context of ``st`` (and ``cli``) and
+    an ``EnsembleRun`` of ``nm`` members, member i seeded by ``seed(c,
+    i)``."""
+    ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused", K, cli)
     ens = ctx.new_ensemble(nm)
     for i in range(nm):
         with ens.member(i) as c:
@@ -2954,12 +3152,13 @@ def k7_chunk_vs_plain(ctx, ens, t: int, k: int):
     return err, nbits, scale
 
 
-def k7_bound(ctx, nm: int, live=None) -> tuple:
+def k7_bound(ctx, nm: int, live=None, spec=None) -> tuple:
     """K7's least time for ``nm`` members: a member's bound (phase 9's
-    live inputs where given, else :func:`a3_bound`'s arrays) times
-    ``nm``.  Returns (ms, "bytes"/"operations", bytes)."""
+    live inputs where given, else :func:`a3_bound`'s arrays, of ``spec``
+    where given) times ``nm``.  Returns (ms, "bytes"/"operations",
+    bytes)."""
     if live is None:
-        _ms, _by, nbytes = a3_bound(ctx)
+        _ms, _by, nbytes = a3_bound(ctx, spec)
     else:
         nbytes = io_bytes(ctx, live)
     npts = 1
@@ -2972,25 +3171,28 @@ def k7_bound(ctx, nm: int, live=None) -> tuple:
 
 
 def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5,
-             cases=None) -> list:
+             cases=None, cli: str = "-no-skew") -> list:
     """Phase 12 (a): each arm's member batch at mid width through
     ``EnsembleRun`` (K = 2, ``steps`` steps, the counters zeroed just
     before and read just after), each member against its solo ``-mode
     fused`` run to the bit, one K7 chunk against ``plain_batched_chunk``
-    on the card, and K7's ms per launch at that width.  Returns the
-    ``kernels`` entries."""
+    on the card, and K7's ms per launch at that width.  The batches run
+    with ``cli`` (by default ``-no-skew``: K6's body, which phase 17 (a)
+    holds the stream arm's batches to), the solo runs with the defaults.
+    Returns the ``kernels`` entries."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     entries = []
     for arm, st, r, eb, sizes, wrapper in cases or K7_CASES:
         eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
         ctx, ens = member_batch(fac, env, st, r, eb, sizes, nm,
-                                lambda c, i: seed_case(c, 100 + i))
+                                lambda c, i: seed_case(c, 100 + i), cli=cli)
         zero_launch_counts()
         ens.run(0, steps - 1)
         got = {k: v for k, v in launch_counts().items() if v}
         spec = ctx._batched_kernel().spec
-        want = {wrapper: steps}
+        key = stages_counter(ctx._batched_kernel(), wrapper)
+        want = {key: steps}
         if spec.base_outputs:
             want["copy_base"] = len(spec.base_outputs) * steps
         if got != want:
@@ -3032,13 +3234,13 @@ def phase12a(fac, env, card: str, nm: int = 3, steps: int = 5,
         entries.append({
             "name": f"{wrapper} ({arm} arm: {st} r={r} {eb} B, {nm} x "
                     f"{shape}, mid width)",
-            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
-            "replaces": K7_REPLACES, "launches": got[wrapper],
+            "route": "cuda", "source": stages_source(kern, wrapper),
+            "replaces": K7_REPLACES, "launches": got[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "path": "phase 12 (a)"})
         del ctx, ens, state, kern
-        torch.cuda.empty_cache()
+        release()
     return entries
 
 
@@ -3064,25 +3266,28 @@ def k7_gaussian_library(ctx, ens, kern, t: int, card: str) -> float:
 
 
 def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
-             trials: int = 3, steps: int = 20) -> list:
+             trials: int = 3, steps: int = 20, cells=None,
+             cli: str = "-no-skew", phase: str = "12") -> list:
     """Phase 12 (b): each cell of :data:`K7_FULL` through ``EnsembleRun``
     (``-wf_steps 2``): ``warm`` steps, then ``trials`` runs of ``steps``
     with every counter zeroed just before; ms/step (host clock around
     ``run``, which stacks, launches, synchronizes and unstacks), K7's ms
     per launch against its bound, the plain version's time, one chunk
     against it, the peak memory, and the solo row of an earlier phase
-    (``solo``) beside it.  Returns the ``kernels`` entries."""
+    (``solo``) beside it.  ``cells`` replaces :data:`K7_FULL`; the
+    batches run with ``cli`` (by default ``-no-skew``: K6's body, phase 17
+    (c) runs the stream arm's).  Returns the ``kernels`` entries."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     entries = []
-    for arm, st, r, eb, nm, sizes, wrapper, key in K7_FULL:
+    for arm, st, r, eb, nm, sizes, wrapper, key in cells or K7_FULL:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         live = live_inputs(fac, env, st, r) if st in ("tti", "awp") else None
         t0 = time.perf_counter()
         ctx, ens = member_batch(
             fac, env, st, r, eb, sizes, nm,
-            lambda c, i: seed_device(c, 11 + i, physical=True))
+            lambda c, i: seed_device(c, 11 + i, physical=True), cli=cli)
         torch.cuda.synchronize()
         seed_s = time.perf_counter() - t0
         npts = 1
@@ -3099,7 +3304,8 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
             t += steps
         got = {k: v for k, v in launch_counts().items() if v}
         kern, prog = ctx._batched_kernel(), ctx._program
-        want = {wrapper: trials * steps}
+        counter = stages_counter(kern, wrapper)
+        want = {counter: trials * steps}
         if kern.spec.base_outputs:
             want["copy_base"] = len(kern.spec.base_outputs) * trials * steps
         if got != want:
@@ -3124,13 +3330,13 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
         shape = "x".join(map(str, sizes[-len(ctx._ana.domain_dims):]))
         s_row = solo[key]
         s_pts = s_row["points"]
-        log(f"phase 12: {arm} arm, {st} r={r} {eb} B, {nm} x {shape} "
+        log(f"phase {phase}: {arm} arm, {st} r={r} {eb} B, {nm} x {shape} "
             f"-mode fused -wf_steps 2 -ensemble {nm}: seeded on the card in "
             f"{seed_s:.1f} s; {trials} trials x {steps} steps: "
             f"{step_ms:.3f} ms/step (min {secs[0] / steps * 1e3:.3f}, max "
             f"{secs[-1] / steps * 1e3:.3f}; stacking and unstacking "
             f"included), {nm * npts / step_ms * 1e3:.4e} points/s; "
-            f"launches {got}; {wrapper} {ms:.3f} ms/launch (CUDA events); "
+            f"launches {got}; {counter} {ms:.3f} ms/launch (CUDA events); "
             f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / nm / npts:.1f} "
             f"B/pt), share {bound_ms / ms:.3f} per launch, "
             f"{bound_ms / step_ms:.3f} per step; plain version "
@@ -3151,8 +3357,8 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
         entries.append({
             "name": f"{wrapper} ({arm} arm: {st} r={r} {eb} B, {nm} x "
                     f"{shape})",
-            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
-            "replaces": K7_REPLACES, "launches": got[wrapper],
+            "route": "cuda", "source": stages_source(kern, wrapper),
+            "replaces": K7_REPLACES, "launches": got[counter],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "path": "phase 12 (b)",
@@ -3160,7 +3366,7 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
             "peak_bytes": peak, "solo_ms": s_row["ms"],
             "solo_step_ms": s_row["step_ms"], "solo_points": s_pts})
         del ctx, ens, kern
-        torch.cuda.empty_cache()
+        release()
     return entries
 
 
@@ -4221,10 +4427,11 @@ def phase14(fac, env, card: str) -> list:
 # ---- phase 15: the workspace arm (C17) and K4's 4-D arm ----------------
 
 #: Phase 15 (a): the workspace arm at full width, 512^3 fp32 ``-mode
-#: fused``, and how each is seeded: tti in physical ranges; ssg with its
+#: fused``, and how each is seeded: tti in physical ranges on the card
+#: (:func:`full_seed`, ``None``); ssg with its
 #: material vars at 0.05 + 0.01 U (its dt/h is the user's scaling of them:
 #: at the physical ranges' 1-2 its r=8 step grows the field ~150x per step)
-WS_FULL = (("tti", 8, lambda c: seed_physical(c, 11)),
+WS_FULL = (("tti", 8, None),
            ("ssg", 8, lambda c: seed_device(c, 11)))
 #: Phase 15 (b): the arm through K7 (3 members) and K5 (2x2 shards of one
 #: card), at mid width, each bit-equal to its solo or single-domain run
@@ -4589,16 +4796,19 @@ def phase16a(fac, env, card: str, image: int = 8192) -> tuple:
     prof = None
     for label, k in (("the flat arm", kern),
                      ("the 1x8x64 body (flat arm off)", old)):
-        p = profile_launches(lambda: fs.stages_step(k, s0, t), 10)
-        if p is None:
+        p = profile_launches(lambda: fs.stages_step(k, s0, t), 10,
+                             expect=("_stages_kernel",))
+        if p is None or not p["whole"]:
             whole = cuda_ms(lambda: fs.stages_step(k, s0, t), 10)
             log(f"phase 16: gaussian r=2 {image}^2x3 on {label}: the "
-                f"profiler saw no device time; stages_step {whole:.4f} "
-                "ms/launch (CUDA events)")
+                f"profiler saw no whole window ({_json.dumps(p)}); "
+                f"stages_step {whole:.4f} ms/launch (CUDA events)")
+            p = None
         else:
             log(f"phase 16: gaussian r=2 {image}^2x3, one stages_step launch "
                 f"on {label} under torch.profiler (10 launches): device ms "
-                f"per launch by kernel {_json.dumps(p['kernels'])}; span "
+                f"per stages_step launch by kernel "
+                f"{_json.dumps(p['per_call_ms'])}; span "
                 f"{p['span_ms']:.4f} ms per launch, idle share "
                 f"{p['idle_share']:.4f}; tile {list(k.spec.tile)} [{card}]")
         prof = prof or p
@@ -4784,21 +4994,458 @@ def phase16(fac, env, card: str, gauss: dict, image: int = 8192,
     return entries
 
 
-def phase1(fac, env, cases: dict) -> None:
+# ---- phase 17: K6's stream arm, solo and over member batches -----------
+
+#: Phase 17 (a): every solution K6's stream arm takes, (solution, radius,
+#: element bytes), at :data:`SS_MID_SIZES`: solo against its ``-no-skew``
+#: twin (K6's body) to the bit and against its plain version, and as a
+#: K7 batch of 3, each member against its solo run to the bit.
+SS_MID = tuple((st, None, 4) for st in (
+    "awp", "awp_abc", "awp_elastic", "awp_elastic_abc", "fsg", "fsg2",
+    "fsg_abc", "fsg2_abc", "fsg_merged", "fsg_merged_abc", "ssg", "ssg2",
+    "ssg_merged", "test_stages_3d", "test_boundary_3d")) + (("awp", None, 8),)
+#: (slot 0, 1, 2): several plane tiles per slot, the last one partial,
+#: and several segments of slot 0
+SS_MID_SIZES = (67, 45, 131)
+#: Phase 17 (a)'s RTM chains (``rtm_chain`` merged, ``-wf_steps 1``), each
+#: as phase 6 (a) and (c) run K6's body: (label, radius, accumulating,
+#: options, grid (x, y, z)); the arm takes all of them
+SS_RTM = (("pure, image pushed", 2, False, "", SS_MID_SIZES),
+          ("accumulating", 2, True, "", SS_MID_SIZES),
+          ("pure, -push off", 2, False, "-push off", SS_MID_SIZES),
+          ("pure, image pushed", 8, False, "", (64, 64, 64)))
+#: Phase 17 (b): the stream arm's other plane tiles (T1, T2, threads) on
+#: awp at 512^3
+SS_SWEEP = ((8, 64, 512), (8, 32, 256), (4, 64, 256))
+#: Phase 17 (e): the other families at 512^3, the arm beside its twin
+SS_PAIRS = ("ssg", "fsg")
+SS_SOURCE = "yask_tpu_torch/csrc/stream_stages.cuh"
+SS_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2058-2188 (the stage loop, "
+               "its rewrite :2155-2187) under the input prefetch "
+               ":1815-1854 and the carry along the stream dim :1955-2056")
+SS_K7_REPLACES = ("yask_tpu/runtime/ensemble.py:234-345 (jax.vmap of "
+                  "build_pallas_chunk) -> yask_tpu/ops/pallas_stencil.py:"
+                  "2155-2187 (the stage loop's rewrite, in the loop "
+                  ":2058-2188) under the prefetch :1815-1854 and the carry "
+                  ":1955-2056")
+
+
+def ss_specs(fac, env) -> dict:
+    """Phase 17's kernels, for phase 1's parallel build (the arm's
+    entries are in each admitted solution's K6 source)."""
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for st, r, eb in SS_MID:
+        ctx = a3_ctx(fac, env, st, r, eb, (16, 16, 16), "fused")
+        out[f"{st} r={r} {eb} B (K6 stream arm)"] = \
+            fused_stencil.FusedKernel(ctx._program).spec
+        if (st, eb) == ("awp", 4):
+            for rung in SS_SWEEP:
+                out[f"awp (K6 stream arm at {rung})"] = stream_kernel(
+                    ctx._program, False, rung).spec
+    return out
+
+
+def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
+             sizes=SS_MID_SIZES) -> list:
+    """Phase 17 (a): each solution of ``cases`` at ``sizes`` (K = 2,
+    ``steps`` steps, one seed made on the card): the stream arm (the
+    counters zeroed just before, read just after) bit-equal to its
+    ``-no-skew`` twin and held to its plain version at ``field_epsilon``;
+    a K7 batch of 3 over the arm, each member bit-equal to its solo run
+    and one 2-step chunk of the batch held to ``plain_batched_chunk`` at
+    ``field_epsilon``; one launch of each arm, of the batch and of the
+    plain versions timed; then the RTM chains of :data:`SS_RTM`
+    (:func:`phase17a_rtm`).  Returns the ``kernels`` entries of the two
+    arms at mid width, summed over the cases and the chains."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    solo = {"launches": 0, "ms": 0.0, "twin_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "err": 0.0}
+    k7 = {k: v for k, v in solo.items() if k != "twin_ms"}
+    for st, r, eb in cases:
+        what = f"phase 17 (a): {st} r={r} {eb} B {'x'.join(map(str, sizes))}"
+        ctxs = {k: a3_ctx(fac, env, st, r, eb, sizes, mode, 2, cli)
+                for k, mode, cli in (("stream", "fused", ""),
+                                     ("twin", "fused", "-no-skew"),
+                                     ("plain", "torch", ""))}
+        for c in ctxs.values():
+            seed_device(c, 17, physical=True)
+        zero_launch_counts()
+        ctxs["stream"].run_solution(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        ctxs["twin"].run_solution(0, steps - 1)
+        ctxs["plain"].run_solution(0, steps - 1)
+        arm, twin = ctxs["stream"], ctxs["twin"]
+        if got != {"stages_stream": steps}:
+            raise RuntimeError(f"{what}: launches {got}, expected {steps} "
+                               "of K6's stream arm")
+        twin_bad = arm.compare_data(twin, epsilon=0.0, abs_epsilon=0.0)
+        _d, twin_bits = device_diff(arm, twin, exact=True)
+        err, nbits = device_diff(arm, ctxs["plain"], exact=True)
+        bad = arm.compare_data(ctxs["plain"], field_epsilon=FIELD_EPS)
+        if twin_bad or twin_bits or bad or not finite(arm):
+            raise RuntimeError(f"{what}: {twin_bad} mismatches ({twin_bits} "
+                               f"cells' bits) against the -no-skew twin, "
+                               f"{bad} against the plain version, finite "
+                               f"{finite(arm)}")
+        kern, prog, state = arm._fused, arm._program, arm._state
+        ms = cuda_ms(lambda: fs.stages_step(kern, state, steps), 5)
+        twin_ms = cuda_ms(lambda: fs.stages_step(twin._fused, twin._state,
+                                                 steps), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(prog, state, steps, 1), 2)
+        bound_ms = a3_bound(arm)[0]
+        solo["launches"] += got["stages_stream"]
+        solo["err"] = max(solo["err"], err)
+        for k, v in (("ms", ms), ("twin_ms", twin_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+            solo[k] += v
+        # K7 over the arm: member 0 holds the stream run's seed
+        bctx, ens = member_batch(fac, env, st, r, eb, sizes, 3,
+                                 lambda c, i: seed_device(c, 17 + i,
+                                                          physical=True))
+        zero_launch_counts()
+        ens.run(0, steps - 1)
+        bgot = {k: v for k, v in launch_counts().items() if v}
+        if bgot != {"batched_stages_stream": steps} \
+                or ens.tiling["kernel"] != "batched_stages_step" \
+                or not ens.tiling["skew"]:
+            raise RuntimeError(f"{what}: K7 launches {bgot}, tiling "
+                               f"{ens.tiling['kernel']} skew "
+                               f"{ens.tiling['skew']}")
+        solos = [arm]
+        for i in (1, 2):
+            c = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2)
+            seed_device(c, 17 + i, physical=True)
+            c.run_solution(0, steps - 1)
+            solos.append(c)
+        for i, c0 in enumerate(solos):
+            with ens.member(i) as c:
+                _d, mb = device_diff(c, c0, exact=True)
+            if mb:
+                raise RuntimeError(f"{what}: K7 member {i}: {mb} cells "
+                                   "differ from its solo run")
+        # one 2-step K7 chunk of the stacked members against the plain
+        # version of the batch
+        err7, bits7, scale7 = k7_chunk_vs_plain(bctx, ens, steps, 2)
+        if not err7 <= FIELD_EPS * scale7:
+            raise RuntimeError(f"{what}: K7 over the arm and "
+                               "plain_batched_chunk disagree: max|d|="
+                               f"{err7:.3e} (field max {scale7:.3e})")
+        bkern, bstate = bctx._batched_kernel(), ens._stack_states()
+        bms = cuda_ms(lambda: fs.batched_stages_step(bkern, bstate, steps,
+                                                     3), 5)
+        bplain = cuda_ms(lambda: fs.plain_batched_chunk(
+            bctx._program, bstate, steps, 1, 3), 2)
+        k7["launches"] += bgot["batched_stages_stream"]
+        k7["err"] = max(k7["err"], err7)
+        for k, v in (("ms", bms), ("plain_ms", bplain),
+                     ("bound_ms", k7_bound(bctx, 3)[0])):
+            k7[k] += v
+        plan = kern.spec.stages_stream.record()
+        log(f"{what}: the stream arm (plane tile {plan['plane_tile']} by "
+            f"{plan['threads']} threads, lags {plan['lags']}, "
+            f"{plan['smem_bytes']} B, {plan['segments']} segment(s)) "
+            f"launches {got}, bit-equal to its -no-skew twin "
+            f"(compare_data(epsilon=0) = {twin_bad}, {twin_bits} cells' "
+            f"bits differ); vs plain max|d|={err:.3e}, {nbits} cells "
+            f"differ in their bits, mismatches={bad} (field_epsilon="
+            f"{FIELD_EPS}); K7 x3 launches {bgot}, each member bit-equal to"
+            f" its solo run, one 2-step chunk vs plain_batched_chunk "
+            f"max|d|={err7:.3e} (field max {scale7:.3e}), {bits7} cells "
+            f"differ in their bits; ms/launch: arm {ms:.3f}, twin "
+            f"{twin_ms:.3f}, K7 x3 {bms:.3f}, plain {plain_ms:.3f} (not a "
+            "yardstick) "
+            f"[{card}]")
+        del ctxs, arm, twin, kern, state, bctx, ens, bkern, bstate, solos
+        release()
+    phase17a_rtm(env, card, solo, k7)
+    n = len(cases) + len(SS_RTM)
+    log(f"phase 17 (a): {n} cases summed: the stream arm {solo['ms']:.3f} "
+        f"ms, its -no-skew twins {solo['twin_ms']:.3f} ms, K7 x3 "
+        f"{k7['ms']:.3f} ms [{card}]")
+    common = {"route": "cuda", "source": SS_SOURCE, "bound_by": "bytes",
+              "library_ms": None, "path": "phase 17 (a)"}
+    return [dict(common, name=f"stages_step (K6 stream arm: {n} cases at "
+                              "mid width, one launch each, summed)",
+                 replaces=SS_REPLACES, launches=solo["launches"],
+                 max_abs_err=solo["err"], ms=solo["ms"],
+                 plain_ms=solo["plain_ms"], bound_ms=solo["bound_ms"],
+                 twin_ms=solo["twin_ms"]),
+            dict(common, name=f"batched_stages_step (K7 over K6's stream "
+                              f"arm: {n} cases x 3 members at mid width, "
+                              "summed)",
+                 replaces=SS_K7_REPLACES, launches=k7["launches"],
+                 max_abs_err=k7["err"], ms=k7["ms"],
+                 plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"])]
+
+
+def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
+                 cases=SS_RTM, nm: int = 3) -> None:
+    """Phase 17 (a)'s RTM chains: each of ``cases`` through
+    ``SolutionPipeline`` (``prepare(fuse=True)``, ``-mode fused
+    -wf_steps 1``) from one state seeded on the card, ``steps`` steps:
+    the stream arm (the counters zeroed just before, read just after)
+    bit-equal to its ``-no-skew`` twin (``compare`` at epsilon 0 and
+    every cell's bits but the pushed image's, which neither writes) and
+    held to its plain version (``-mode torch`` on the merged program) at
+    ``field_epsilon``; a K7 batch of ``nm`` over the arm (push-off, as
+    every batch), each member bit-equal to its solo run and one chunk of
+    the batch held to ``plain_batched_chunk`` at ``field_epsilon``; one
+    launch of each timed.  Adds to phase 17 (a)'s sums ``solo`` and
+    ``k7``."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    for label, r, acc, cli, g in cases:
+        what = (f"phase 17 (a): rtm chain r={r} {label} "
+                f"{'x'.join(map(str, g))}")
+        pipes = {k: rtm_pipe(env, f"-mode {mode} -wf_steps 1 {cli} {more}",
+                             True, g, r, acc)
+                 for k, mode, more in (("stream", "fused", ""),
+                                       ("twin", "fused", "-no-skew"),
+                                       ("plain", "torch", ""))}
+        pushed = pipes["stream"].pushed_vars()
+        want = set() if acc or cli else {"img__img"}
+        if pushed != want or pipes["twin"].pushed_vars() != want:
+            raise RuntimeError(f"{what}: pushed {pushed}, expected {want}")
+        for p in pipes.values():
+            seed_device(p.fused_ctx, 17, physical=True)
+        zero_launch_counts()
+        pipes["stream"].run(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        pipes["twin"].run(0, steps - 1)
+        pipes["plain"].run(0, steps - 1)
+        if got != {"stages_stream": steps}:
+            raise RuntimeError(f"{what}: launches {got}, expected {steps} "
+                               "of K6's stream arm")
+        arm, twin = pipes["stream"].fused_ctx, pipes["twin"].fused_ctx
+        twin_bad = pipes["stream"].compare(pipes["twin"])
+        _d, twin_bits = device_diff(arm, twin, exact=True, skip=pushed)
+        err, scale = pipe_diff(pipes["stream"], pipes["plain"])
+        if twin_bad or twin_bits or not err <= FIELD_EPS * scale \
+                or not finite(arm):
+            raise RuntimeError(f"{what}: {twin_bad} mismatches ({twin_bits} "
+                               "cells' bits) against the -no-skew twin; vs "
+                               f"plain max|d|={err:.3e} (field max "
+                               f"{scale:.3e}); finite {finite(arm)}")
+        kern, prog, state = arm._fused, arm._program, arm._state
+        ms = cuda_ms(lambda: fs.stages_step(kern, state, steps), 5)
+        twin_ms = cuda_ms(lambda: fs.stages_step(twin._fused, twin._state,
+                                                 steps), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(prog, state, steps, 1), 2)
+        solo["launches"] += got["stages_stream"]
+        solo["err"] = max(solo["err"], err)
+        for k, v in (("ms", ms), ("twin_ms", twin_ms),
+                     ("plain_ms", plain_ms), ("bound_ms", a3_bound(arm)[0])):
+            solo[k] += v
+        # K7 over the arm: member i seeded as a solo run of seed 17 + i
+        bpipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g, r,
+                         acc)
+        bctx = bpipe.fused_ctx
+        ens = bctx.new_ensemble(nm)
+        for i in range(nm):
+            with ens.member(i) as c:
+                seed_device(c, 17 + i, physical=True)
+        zero_launch_counts()
+        ens.run(0, steps - 1)
+        bgot = {k: v for k, v in launch_counts().items() if v}
+        if bgot != {"batched_stages_stream": steps} \
+                or ens.tiling["kernel"] != "batched_stages_step" \
+                or not ens.tiling["skew"]:
+            raise RuntimeError(f"{what}: K7 launches {bgot}, tiling "
+                               f"{ens.tiling['kernel']} skew "
+                               f"{ens.tiling['skew']}")
+        for i in range(nm):
+            sp = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g, r,
+                          acc)
+            seed_device(sp.fused_ctx, 17 + i, physical=True)
+            sp.run(0, steps - 1)
+            with ens.member(i) as c:
+                _d, mb = device_diff(sp.fused_ctx, c, exact=True,
+                                     skip=pushed)
+            sp.end()
+            if mb:
+                raise RuntimeError(f"{what}: K7 member {i}: {mb} cells "
+                                   "differ from its solo run")
+        err7, bits7, scale7 = k7_chunk_vs_plain(bctx, ens, steps, 1)
+        if not err7 <= FIELD_EPS * scale7:
+            raise RuntimeError(f"{what}: K7 over the arm and "
+                               "plain_batched_chunk disagree: max|d|="
+                               f"{err7:.3e} (field max {scale7:.3e})")
+        bkern, bstate = bctx._batched_kernel(), ens._stack_states()
+        bms = cuda_ms(lambda: fs.batched_stages_step(bkern, bstate, steps,
+                                                     nm), 5)
+        bplain = cuda_ms(lambda: fs.plain_batched_chunk(
+            bctx._program, bstate, steps, 1, nm), 2)
+        k7["launches"] += bgot["batched_stages_stream"]
+        k7["err"] = max(k7["err"], err7)
+        for k, v in (("ms", bms), ("plain_ms", bplain),
+                     ("bound_ms", k7_bound(bctx, nm, spec=bkern.spec)[0])):
+            k7[k] += v
+        plan = kern.spec.stages_stream.record()
+        log(f"{what}: the stream arm (plane tile {plan['plane_tile']} by "
+            f"{plan['threads']} threads, lags {plan['lags']}, "
+            f"{plan['smem_bytes']} B, {plan['segments']} segment(s), pushed "
+            f"{sorted(pushed)}) launches {got}, bit-equal to its -no-skew "
+            f"twin (compare = {twin_bad}, {twin_bits} cells' bits differ); "
+            f"vs plain max|d|={err:.3e} (field max {scale:.3e}, "
+            f"field_epsilon={FIELD_EPS}); K7 x{nm} launches {bgot}, each "
+            f"member bit-equal to its solo run, one chunk vs "
+            f"plain_batched_chunk max|d|={err7:.3e} (field max "
+            f"{scale7:.3e}), {bits7} cells differ in their bits; ms/launch: "
+            f"arm {ms:.3f}, twin {twin_ms:.3f}, K7 x{nm} {bms:.3f}, plain "
+            f"{plain_ms:.3f} (not a yardstick) [{card}]")
+        for p in list(pipes.values()) + [bpipe]:
+            p.end()
+        del pipes, arm, twin, kern, prog, state, bpipe, bctx, ens, bkern
+        del bstate
+        release()
+
+
+def phase17e(fac, env, card: str, g: int = 512, warm: int = 2,
+             steps: int = 10) -> None:
+    """Phase 17 (e): each of :data:`SS_PAIRS` at ``g``³ on the arm and
+    its ``-no-skew`` twin from one seed made on the card: ``warm`` steps,
+    then ``steps`` with the counters zeroed just before (the arm's alone
+    launches), the two states bit-equal after, one launch of each
+    timed."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    for st in SS_PAIRS:
+        torch.cuda.empty_cache()
+        arm = a3_ctx(fac, env, st, None, 4, (g,) * 3, "fused", 2)
+        twin = a3_ctx(fac, env, st, None, 4, (g,) * 3, "fused", 2,
+                      "-no-skew")
+        for c in (arm, twin):
+            seed_device(c, 11, physical=True)
+            c.run_solution(0, warm - 1)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        arm.run_solution(warm, warm + steps - 1)
+        arm_step = (time.perf_counter() - t0) / steps * 1e3
+        got = {k: v for k, v in launch_counts().items() if v}
+        t0 = time.perf_counter()
+        twin.run_solution(warm, warm + steps - 1)
+        twin_step = (time.perf_counter() - t0) / steps * 1e3
+        _d, nbits = device_diff(arm, twin, exact=True)
+        t = warm + steps
+        ms = cuda_ms(lambda: fs.stages_step(arm._fused, arm._state, t), 5)
+        tms = cuda_ms(lambda: fs.stages_step(twin._fused, twin._state, t),
+                      5)
+        log(f"phase 17 (e): {st} {g}^3 fp32 -wf_steps 2: the stream arm "
+            f"{ms:.3f} ms/launch, {arm_step:.3f} ms/step; its -no-skew twin"
+            f" {tms:.3f} ms/launch, {twin_step:.3f} ms/step ({tms / ms:.2f}x"
+            f"); launches {got}; {nbits} cells differ in their bits after "
+            f"{warm + steps} steps [{card}]")
+        if got != {"stages_stream": steps} or nbits or not finite(arm):
+            raise RuntimeError(f"phase 17 (e): {st}: launches {got}, "
+                               f"{nbits} cells differ from the twin")
+        del arm, twin
+
+
+def phase17(fac, env, card: str, ptxas: dict, awp_body: dict,
+            awp_twin: dict, k7_body: dict, rtm_body: dict,
+            full: int = 512) -> list:
+    """K6's stream arm and K7's over it (see the module docstring):
+    ``awp_body`` is phase 9 (c)'s awp entry (K6's body, ``-no-skew``, from
+    :func:`full_seed`), ``awp_twin`` its final state's digest,
+    ``k7_body`` phase 12 (b)'s awp batch, ``rtm_body`` phase 6 (c)'s push
+    arm (its ``-push off`` row under ``push_off``), all of this run;
+    ``full`` is the edge of (b), (d) and (e), and twice (c)'s.  Returns
+    the ``kernels`` entries."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    t_phase = time.perf_counter()
+    entries = phase17a(fac, env, card)
+    torch.cuda.empty_cache()
+    # (b) awp at 512^3 on the arm, from phase 9 (c)'s seed
+    e = family_full(fac, env, card, "awp", None, "K6 stream arm", full,
+                    sweep=False, digest=True, profile=True,
+                    stream_sweep=SS_SWEEP)
+    digest, prof = e.pop("state_digest"), e.pop("profile")
+    name = FusedKernel(a3_ctx(fac, env, "awp", None, 4, (16, 16, 16),
+                              "fused")._program).spec.name
+    same = digest == awp_twin["state_digest"]
+    log(f"phase 17 (b): awp {full}^3 fp32: the stream arm {e['ms']:.3f} "
+        f"ms/launch, {e['step_ms']:.3f} ms/step, share "
+        f"{e['bound_ms'] / e['ms']:.3f} of {e['bound_ms']:.3f} ms; K6's "
+        f"body (-no-skew, phase 9 (c), the same seed and steps) "
+        f"{awp_body['ms']:.3f} ms/launch, {awp_body['step_ms']:.3f} "
+        f"ms/step: {awp_body['ms'] / e['ms']:.2f}x per launch; final "
+        f"states bit-equal: {same}; 3 launches of each from one state under"
+        f" torch.profiler (ms per launch by kernel): {json.dumps(prof)}; "
+        f"ptxas ({name}): {ptxas.get(name, 'not built in phase 1')} "
+        f"[{card}]")
+    if not same:
+        raise RuntimeError(f"phase 17 (b): awp at {full}^3: the stream arm "
+                           "and K6's body end in other states")
+    e.update(name=f"stages_step (K6 stream arm: awp {full}^3 fp32)",
+             replaces=SS_REPLACES, path="phase 17 (b)",
+             body_ms=awp_body["ms"], body_step_ms=awp_body["step_ms"],
+             profile=prof)
+    entries.append(e)
+    torch.cuda.empty_cache()
+    # (c) K7 over the arm, awp 8 x 256^3, beside the solo arm and the body
+    half = full // 2
+    solo = {"awp": dict(e, label=f"phase 17 (b), K6 stream arm, {full}^3",
+                        points=full ** 3)}
+    k7 = phase12b(fac, env, card, solo, cells=(
+        ("stream", "awp", None, 4, 8, (half,) * 3, "batched_stages_step",
+         "awp"),), cli="", phase="17 (c)")[0]
+    log(f"phase 17 (c): K7 over the stream arm, awp 8 x {half}^3: "
+        f"{k7['ms']:.3f} ms/launch, {k7['step_ms']:.3f} ms/step; over K6's "
+        f"body (phase 12 (b), -no-skew) {k7_body['ms']:.3f} ms/launch, "
+        f"{k7_body['step_ms']:.3f} ms/step: {k7_body['ms'] / k7['ms']:.2f}x"
+        f" [{card}]")
+    k7.update(name=f"batched_stages_step (K7 over K6's stream arm: awp 8 x "
+                   f"{half}^3 fp32)", replaces=SS_K7_REPLACES,
+              path="phase 17 (c)", body_ms=k7_body["ms"],
+              body_step_ms=k7_body["step_ms"])
+    entries.append(k7)
+    torch.cuda.empty_cache()
+    # (d) the RTM chain at 512^3, the image pushed and -push off, each
+    #     beside phase 6 (c)'s run of K6's body
+    for label, cli, pushed, body in (
+            ("image pushed", "", {"img__img"}, rtm_body),
+            ("-push off", "-push off", set(), rtm_body["push_off"])):
+        rtm = rtm_full(env, full, f"{label}, K6 stream arm", cli, pushed,
+                       phase="17 (d)")
+        log(f"phase 17 (d): rtm chain r=2 {full}^3, {label}: the stream arm "
+            f"{rtm['ms']:.3f} ms/launch, {rtm['step_ms']:.3f} ms/step; K6's "
+            f"body (phase 6 (c), -no-skew) {body['ms']:.3f} ms/launch, "
+            f"{body['step_ms']:.3f} ms/step: "
+            f"{body['ms'] / rtm['ms']:.3f}x [{card}]")
+        rtm.update(name=f"stages_step (K6 stream arm: rtm chain r=2 "
+                        f"{full}^3, {label})", replaces=SS_REPLACES,
+                   path="phase 17 (d)", body_ms=body["ms"],
+                   body_step_ms=body["step_ms"])
+        entries.append(rtm)
+        torch.cuda.empty_cache()
+    phase17e(fac, env, card, full)
+    log(f"phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+
+
+def phase1(fac, env, cases: dict) -> dict:
     """Build every kernel of the path, one ``nvcc`` per source, all
-    started together (``cases``: phase 2's solutions and radii)."""
+    started together (``cases``: phase 2's solutions and radii).  Returns
+    ptxas's registers and spills per kernel, by source name."""
     from yask_tpu_torch.ops import _build, fused_stencil
     t0 = time.perf_counter()
     specs = {}
     for st, r in cases.items():
         ctx = make_ctx(fac, env, st, r, 64, "fused")
         specs[st] = fused_stencil.FusedKernel(ctx._program).spec
-    # phase 6's: the merged RTM chains (K6) and the chained arm's stages
+    # phase 6's and 17 (a)'s: the merged RTM chains (K6; -push off is K7's
+    # batch of a pushing chain) and the chained arm's stages
     for label, r, acc, cli in (("rtm r=2 pure", 2, False, ""),
                                ("rtm r=2 pure -push off", 2, False,
                                 "-push off"),
                                ("rtm r=2 accumulating", 2, True, ""),
-                               ("rtm r=8 pure", 8, False, "")):
+                               ("rtm r=8 pure", 8, False, ""),
+                               ("rtm r=8 pure -push off", 8, False,
+                                "-push off")):
         pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True,
                         (16, 16, 16), r, acc)
         specs[label] = pipe.fused_ctx._fused_spec_kernel().spec
@@ -4818,6 +5465,7 @@ def phase1(fac, env, cases: dict) -> None:
     specs.update(k4_specs(fac, env))
     specs.update(ws_specs(fac, env))
     specs.update(flat_specs(fac, env))
+    specs.update(ss_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -4839,12 +5487,26 @@ def phase1(fac, env, cases: dict) -> None:
                    f"{s.push_vars}), _batched (K7), _region (K5)"
                    + (f", _resident (workspace arm: "
                       f"{s.workspace['ws_block_bytes']} B per block)"
-                      if s.workspace else ""))
+                      if s.workspace else "")
+                   + (f", _stages_stream and _stages_stream_batched (K6's "
+                      f"and K7's stream arm: "
+                      f"{s.stages_stream.record()})"
+                      if s.stages_stream is not None else ""))
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         "run(s) in parallel)")
+    return {name: ptxas_summary(text) for name, text in logs.items()}
+
+
+def release() -> None:
+    """Free what the last phase left: its contexts (some in reference
+    cycles, which only the collector frees) and the allocator's cache."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -4867,48 +5529,56 @@ def main() -> int:
     dev_name = torch.cuda.get_device_name(0)
 
     cases = {"iso3dfd": 8, "3axis": 1}
-    phase1(fac, env, cases)
+    ptxas = phase1(fac, env, cases)
 
     phase2(fac, env, cases)
     phase3(fac, env, cases)
     _step_ms, k1, k_stream = phase4(fac, env, card)
     k7 = phase5(fac, env, k1["step_ms"])
-    torch.cuda.empty_cache()
+    release()
     k6 = phase6(env)
-    torch.cuda.empty_cache()
+    release()
     k4 = phase7(fac, env, card)
-    torch.cuda.empty_cache()
+    release()
     k5 = phase8(fac, card, k1["step_ms"])
-    torch.cuda.empty_cache()
+    release()
     k6_arms = phase9(fac, env, card)
-    torch.cuda.empty_cache()
+    awp_twin = {"state_digest": k6_arms[1].pop("state_digest")}
+    release()
     a3_arms = phase10(fac, env, card)
-    torch.cuda.empty_cache()
+    release()
     last_arms = phase11(fac, env, card, k6_arms[0])
-    torch.cuda.empty_cache()
+    release()
     # the solo rows of the same points beside phase 12 (b)'s member batches
     solo = {key: dict(e, label=label, points=pts) for key, e, label, pts in (
         ("tti", k6_arms[0], "phase 9 (c), K6, 512^3", 512 ** 3),
-        ("awp", k6_arms[1], "phase 9 (c), K6, 512^3", 512 ** 3),
+        ("awp", k6_arms[1], "phase 9 (c), K6's body (-no-skew), 512^3",
+         512 ** 3),
         ("iso3dfd bf16", a3_arms[3], "phase 10 (c), K1 -no-skew, 512^3",
          512 ** 3),
         ("test_4d", last_arms[0], "phase 11 (c), K1, 128^4", 128 ** 4),
         ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
     k7_arms = phase12(fac, env, card, solo, k6)
-    torch.cuda.empty_cache()
+    release()
     k5_arms = phase13(fac, card)
-    torch.cuda.empty_cache()
+    release()
     k4_arms = phase14(fac, env, card)
-    torch.cuda.empty_cache()
+    release()
     ws_arms = phase15(fac, env, card)
-    torch.cuda.empty_cache()
+    release()
     flat_arms = phase16(fac, env, card, a3_arms[0])
+    release()
+    k7_awp = next(e for e in k7_arms if e.get("path") == "phase 12 (b)"
+                  and "rewrite arm: awp" in e["name"])
+    ss_arms = phase17(fac, env, card, ptxas, k6_arms[1], awp_twin, k7_awp,
+                      k6)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
-                      + k5_arms + k4_arms + ws_arms + flat_arms}))
+                      + k5_arms + k4_arms + ws_arms + flat_arms
+                      + ss_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -163,15 +163,19 @@ template <class F> void yt_emulate(dim3 grid, dim3 block, F kernel) {
 
 #: The kernels each header declares and launches (K1/K7/K5, K6/K7/K5 and
 #: K6's flat arm in fused_step.cuh, K5 a compile-time arm of each body;
-#: K4's two in trapezoid.cuh; K1's stream arm in stream_step.cuh).
-KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2, "stream_step.cuh": 1}
+#: K4's two in trapezoid.cuh; K1's stream arm in stream_step.cuh; K6's
+#: and K7's stream arm in stream_stages.cuh).
+KERNELS = {"fused_step.cuh": 3, "trapezoid.cuh": 2, "stream_step.cuh": 1,
+           "stream_stages.cuh": 1}
 
 
 def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     """The emitted source built with g++ as device code (``__CUDACC__``
     and ``__CUDA_ARCH__`` defined) against the shim; returns its entry
     (``spec.name``, K5's ``spec.name + "_region"``, K7's ``spec.name +
-    "_batched"`` or the stream arm's ``spec.name + "_stream"``).
+    "_batched"``, the stream arm's ``spec.name + "_stream"``, or
+    K6's stream arm's ``spec.name + "_stages_stream"`` and
+    ``"_stages_stream_batched"``).
     ``edit(file, text)`` may rewrite a header first (a deliberately broken
     kernel); ``defines`` are macros for the build (``{"YT_MAX_GRID_Z": 2}``
     walks a launch's z cells, and the stream arm's y blocks, two at a
@@ -204,6 +208,10 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     entry = entry or spec.name
     fn = getattr(ctypes.CDLL(str(so)), entry)
     fn.argtypes = (
+        fused_stencil.stages_stream_argtypes()
+        if entry.endswith("_stages_stream") else
+        fused_stencil.batched_stages_stream_argtypes()
+        if entry.endswith("_stages_stream_batched") else
         fused_stencil.region_argtypes(spec.walks)
         if entry.endswith("_region") else
         fused_stencil.batched_argtypes(spec.walks)

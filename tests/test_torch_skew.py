@@ -176,19 +176,31 @@ def test_skew_ineligible_without_slot0_reads_keeps_k1():
 
 
 def test_skew_multi_stage_keeps_k6():
+    """A multi-stage chain stays on K6's wrapper: under ``-skew`` it takes
+    K6's stream arm (``stages_step`` launching ``<name>_stages_stream``),
+    under ``-no-skew`` K6's body."""
     from yask_tpu_torch.ops.pipeline import SolutionPipeline, rtm_chain
-    pipe = SolutionPipeline(
-        yask_tpu_torch.yk_factory().new_env(device="cpu"),
-        *rtm_chain(radius=2, accumulate=False))
-    pipe.apply_command_line_options("-g 12 -mode fused -wf_steps 1 -skew")
-    pipe.prepare(fuse=True)
-    kern = pipe.fused_ctx._fused_spec_kernel()
-    assert kern.spec.stages > 1 and kern.skew_dims == []
+    kerns = {}
+    for cli in ("-skew", "-no-skew"):
+        pipe = SolutionPipeline(
+            yask_tpu_torch.yk_factory().new_env(device="cpu"),
+            *rtm_chain(radius=2, accumulate=False))
+        pipe.apply_command_line_options(f"-g 12 -mode fused -wf_steps 1 "
+                                        f"{cli}")
+        pipe.prepare(fuse=True)
+        kerns[cli] = pipe.fused_ctx._fused_spec_kernel()
+    kern = kerns["-skew"]
+    assert kern.spec.stages > 1 and kern.skew_dims == ["x"]
     til = kern.tiling(1)
     assert til["kernel"] == "stages_step"
-    assert codes(til["skew_reasons"]) == ["skew_ineligible"] * 2
-    assert "K6 carries it" in til["skew_reasons"][0]["detail"]
-    assert "ROADMAP.md A5" in til["skew_reasons"][0]["detail"]
+    assert til["name"] == kern.spec.name + "_stages_stream"
+    assert codes(til["skew_reasons"]) == ["skew_engaged", "skew_ineligible"]
+    assert til["skew_reasons"][0]["kernel"] == "stages_stream"
+    kern = kerns["-no-skew"]
+    assert kern.spec.stages > 1 and kern.skew_dims == []
+    til = kern.tiling(1)
+    assert til["kernel"] == "stages_step" and til["name"] == kern.spec.name
+    assert codes(til["skew_reasons"]) == ["skew_disabled"]
 
 
 def test_skew_ensemble_keeps_k7():

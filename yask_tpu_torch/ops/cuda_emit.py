@@ -46,7 +46,14 @@ into one ``Spec`` struct:
   a slot-0 offset also gets K1's stream arm (``csrc/stream_step.cuh``,
   entry ``<name>_stream``): its plane tile, prefetch depth and rings
   (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
-  into registers; :func:`skew_engaged_dims` says whether it runs.
+  into registers; :func:`skew_engaged_dims` says whether it runs.  A 3-D
+  solution on K6's body without scratch sub-stages, misc or partial-dim
+  outputs, at element size 4 or 8, outside the workspace arm, also gets
+  K6's stream arm (``csrc/stream_stages.cuh``, entries
+  ``<name>_stages_stream`` and ``_stages_stream_batched``): each
+  sub-stage's lag, each staged input's and computed tile's ring
+  (``tile_planner.stages_stream_plan``, over the slot-0 offsets each
+  sub-stage reads, :func:`_stages_stream_plan`) and the outputs' pads.
 
 Value types follow the plain version's (PyTorch's) promotion, so the
 kernel rounds where the tensors do: a tensor op with a Python scalar runs
@@ -408,6 +415,10 @@ class KernelSpec:
     #: does not take it
     flat: Dict = field(default_factory=dict)
     flat_cause: Tuple[str, str] = None
+    #: K6's stream arm (``tile_planner.StagesStreamPlan``; its entries are
+    #: ``name + "_stages_stream"`` and ``"_stages_stream_batched"``), or
+    #: None with ``stream_cause``
+    stages_stream: object = None
 
     @property
     def walks(self) -> bool:
@@ -471,6 +482,10 @@ class _Printer:
         # memory: its cells lie inside the plain version's region, hence
         # inside the allocation)
         self.tile_need: Dict[int, bool] = {}
+        # (input index, and computed tile) → {sub-stage: [min, max]} of
+        # its slot-0 read offsets (K6's stream arm sizes its rings by them)
+        self.reads0: Dict[int, Dict[int, List[int]]] = {}
+        self.cmp_reads0: Dict[int, Dict[int, List[int]]] = {}
         self.sub = 0                    # the current sub-stage (copy)
         self.base = 0                   # the sub-stage it copies
         self.dw: Tuple[int, ...] = ()   # its offset per outer dim
@@ -537,7 +552,12 @@ class _Printer:
             self.tile_need[self.in_index[key]] = False
         return self.in_index[key]
 
+    def _note_read0(self, table, key: int, o: int) -> None:
+        r = table.setdefault(key, {}).setdefault(self.sub, [o, o])
+        r[0], r[1] = min(r[0], o), max(r[1], o)
+
     def _note_reach(self, a: int, offs: List[int]) -> None:
+        self._note_read0(self.reads0, a, offs[0])
         for s_, o in enumerate(offs[:3]):
             lo_hi = self.reach[a][s_]
             lo_hi[0] = max(lo_hi[0], self.lo[s_] - o)
@@ -739,6 +759,7 @@ class _Printer:
             raise YaskException(
                 f"same-step read of '{name}' before a stage computed it")
         b = self.cmp_of[(sk, w)]
+        self._note_read0(self.cmp_reads0, b, offs[0])
         lo, hi = self.cmp_geom[b]
         # K4 (no copies): the outer slots' regions and offsets too
         ns = 3 if self.copies else self.ns
@@ -1080,29 +1101,81 @@ def _stream_plan(program, tiled, halos, esize):
     return plan, None
 
 
+def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
+                        tiles=None):
+    """K6's stream arm (``csrc/stream_stages.cuh``) for a solution on K6's
+    body, or None with the reason code and detail.  It takes a 3-D domain
+    without scratch sub-stages, written vars over every dim without misc
+    axes, element size 4 or 8, and rings that fit :data:`SMEM_LIMIT`
+    (``tile_planner.stages_stream_plan``: each sub-stage at its lag, each
+    ring sized by the slot-0 offsets its readers read at their lags);
+    ``tiles`` replaces the plan's ladder of plane tiles."""
+    from yask_tpu_torch.ops.tile_planner import (STAGES_STREAM_TILES,
+                                                 stages_stream_plan)
+    dims = list(program.ana.domain_dims)
+    if len(dims) != 3:
+        return None, ("skew_ineligible", f"{len(dims)}-D solution: K6's "
+                      "stream arm walks slot 0 of a 3-D domain (its other "
+                      "dims are ROADMAP.md A5)")
+    if any(u.scratch for u in pt.subs):
+        return None, ("skew_ineligible", "scratch vars: K6 computes them "
+                      "in sub-stages over regions grown by their write "
+                      "halos (a stream arm with scratch sub-stages is "
+                      "ROADMAP.md A5)")
+    arms = [a for a in a3_arms(program) if a != "element size 2"]
+    if arms:
+        return None, ("skew_ineligible", f"{' and '.join(arms)}: the "
+                      "stream arm writes every cell of whole output "
+                      "tensors (misc and partial-dim outputs in it are "
+                      "ROADMAP.md A5)")
+    if esize == 2:
+        return None, ("skew_ineligible", "element size 2: K6's stream arm "
+                      "copies 4- and 8-byte cells (its bfloat16 rings are "
+                      "ROADMAP.md A5)")
+    pr = pt.pr
+
+    def offsets(reads):
+        return {j: (-lo, hi) for j, (lo, hi) in reads.items()}
+    plan = stages_stream_plan(
+        {a: halos[a] for a in tiled},
+        {a: offsets(pr.reads0[a]) for a in tiled},
+        [(tuple(u.lo[:3]), tuple(u.hi[:3])) for u in pt.subs],
+        list(pt.computed_sub),
+        [offsets(pr.cmp_reads0[b]) for b in range(len(pt.computed))],
+        [program.sizes[d] for d in dims], esize, SMEM_LIMIT,
+        tiles or STAGES_STREAM_TILES)
+    if plan is None:
+        return None, ("skew_fallback", "the rings of K6's stream arm do "
+                      f"not fit {SMEM_LIMIT} bytes of shared memory even at "
+                      "the smallest plane tile (ROADMAP.md A5)")
+    return plan, None
+
+
 def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                       reasons: List[Dict] = None, spec: KernelSpec = None,
                       batched: bool = False) -> List[str]:
-    """The dims the stream arm of K1 walks for a ``skew`` request: the
-    port's counterpart of ``yask_tpu``'s ``skew_engaged_dims`` and of the
-    skew resolution of ``build_pallas_chunk`` (pallas_stencil.py:366-441,
+    """The dims the stream arms walk for a ``skew`` request: the port's
+    counterpart of ``yask_tpu``'s ``skew_engaged_dims`` and of the skew
+    resolution of ``build_pallas_chunk`` (pallas_stencil.py:366-441,
     :940-990), with its reason codes.  ``False`` = off
     (``skew_disabled``), ``None`` = auto (the ``-skew`` default: engaged
-    wherever the arm can run), ``True`` = forced (raises where it cannot).
+    wherever an arm can run), ``True`` = forced (raises where it cannot).
     The port streams one dim, slot 0 (the outermost domain dim), one level
-    per launch (ROADMAP.md C11); ``max_dims`` < 1 (``-skew_dims 0``)
-    leaves it out.  1-D and 2-D solutions, multi-stage ones and ones with
-    scratch vars (K6) and member batches (K7, ``batched``) keep their
-    kernels with a reason.
+    per launch (ROADMAP.md C11): K1's stream arm for a single-stage 3-D
+    solution (``spec.stream``), K6's (``spec.stages_stream``, kernel
+    ``stages_stream``) for a multi-stage one without scratch sub-stages,
+    solo or over member batches (K7, ``batched``); ``max_dims`` < 1
+    (``-skew_dims 0``) leaves it out.  K7 over K1's body keeps its kernel
+    (``skew_not_ported``), and the solutions neither arm takes keep theirs
+    with the emitter's reason (``spec.stream_cause``).
     Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``."""
     if reasons is None:
         reasons = []
-    if batched:
-        k6 = len(program.ana.stages) > 1 or has_scratch(program)
-        reasons.append({"code": "skew_not_ported",
-                        "kernel": ("batched_stages_step" if k6
-                                   else "batched_step"),
-                        "cause": "K7 has no stream arm: ROADMAP.md A5"})
+    k6 = len(program.ana.stages) > 1 or has_scratch(program)
+    if batched and not k6:
+        reasons.append({"code": "skew_not_ported", "kernel": "batched_step",
+                        "cause": "K7 over K1's body has no stream arm: "
+                                 "ROADMAP.md A5"})
         return []
     if skew is False:
         reasons.append({"code": "skew_disabled",
@@ -1110,17 +1183,9 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
         return []
     dims = list(program.ana.domain_dims)
     lead = dims[:-1]
-    nst = len(program.ana.stages)
     cause = None   # (reason code, detail)
     if not program.ana.eqs:
         cause = ("skew_ineligible", "no equations: a step launches nothing")
-    elif nst > 1:
-        cause = ("skew_ineligible", f"{nst}-stage solution: K6 carries it "
-                 "(its stream arm is ROADMAP.md A5)")
-    elif has_scratch(program):
-        cause = ("skew_ineligible", "scratch vars: K6 computes them in "
-                 "sub-stages (a stream arm with scratch sub-stages is "
-                 "ROADMAP.md A5)")
     elif max_dims < 1:
         cause = ("skew_ineligible",
                  f"outside the -skew_dims {max_dims} window")
@@ -1135,16 +1200,30 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
             reasons.append({"code": cause[0], "dim": d, "detail": cause[1]})
         return []
     d0 = dims[0]
-    rec = spec.stream.record()
-    reasons.append({"code": "skew_forced" if skew is True
-                    else "skew_engaged", "dim": d0,
-                    "detail": f"slot-0 stream, one level per launch: plane "
-                              f"tile {rec['plane_tile']}, prefetch "
-                              f"{rec['prefetch']}, rings "
-                              f"{rec['ring_depths']} planes, "
-                              f"{rec['smem_bytes']} B, "
-                              f"{rec['segments']} segment(s) of "
-                              f"{rec['segment_planes']} planes"})
+    code = "skew_forced" if skew is True else "skew_engaged"
+    if spec.stages_stream is not None:
+        rec = spec.stages_stream.record()
+        reasons.append({
+            "code": code, "dim": d0, "kernel": "stages_stream",
+            "detail": f"K6's slot-0 stream"
+                      f"{' over member batches' if batched else ''}, one "
+                      f"level per launch: plane tile {rec['plane_tile']} by "
+                      f"{rec['threads']} threads, prefetch "
+                      f"{rec['prefetch']}, sub-stage lags {rec['lags']}, "
+                      f"rings {rec['ring_depths']} planes (computed "
+                      f"{rec['computed_ring_depths']}), "
+                      f"{rec['smem_bytes']} B, {rec['segments']} "
+                      f"segment(s) of {rec['segment_planes']} planes"})
+    else:
+        rec = spec.stream.record()
+        reasons.append({"code": code, "dim": d0,
+                        "detail": f"slot-0 stream, one level per launch: "
+                                  f"plane tile {rec['plane_tile']}, "
+                                  f"prefetch {rec['prefetch']}, rings "
+                                  f"{rec['ring_depths']} planes, "
+                                  f"{rec['smem_bytes']} B, "
+                                  f"{rec['segments']} segment(s) of "
+                                  f"{rec['segment_planes']} planes"})
     for d in lead[1:]:
         reasons.append({"code": "skew_ineligible", "dim": d,
                         "detail": "the port streams slot 0 only "
@@ -1239,7 +1318,7 @@ def _flat_plan(rungs, two_d: bool, staged_of, computed_of, nstaged: int,
 
 
 def emit(program, push=False, ladder=_TILE_LADDER,
-         flat_ladder=_FLAT_LADDER) -> KernelSpec:
+         flat_ladder=_FLAT_LADDER, stream_tiles=None) -> KernelSpec:
     """Print ``program`` as a CUDA C++ kernel source: K1's (and K7's, K5's)
     entries for one stage, K6's (and K7's, K5's) for several stages or scratch
     vars (one sub-stage per scratch write halo of a part, and one for the
@@ -1247,7 +1326,9 @@ def emit(program, push=False, ladder=_TILE_LADDER,
     the tile is the first of ``ladder`` whose shared-memory tiles fit, or
     for K6's body on a 1-D or 2-D solution the first of ``flat_ladder``
     whose two staged buffers and computed tiles fit (the flat arm,
-    :func:`_flat_plan`).
+    :func:`_flat_plan`).  A 3-D solution on K6's body carries K6's stream
+    arm where it can run (:func:`_stages_stream_plan`; ``stream_tiles``
+    replaces its ladder of plane tiles).
     Where none fits, the workspace arm (:func:`_workspace_plan`): K6's
     body, for one sub-step too, with the tiles past shared memory in a
     device-memory workspace of the card's resident blocks, which walk the
@@ -1435,6 +1516,10 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 
     # ---- K6: several sub-stages per launch (and the workspace arm, one
     #      sub-stage or several) ------------------------------------------
+    ss, ss_cause = None, None
+    if ws is None:
+        ss, ss_cause = _stages_stream_plan(program, pt, tiled, halos, esize,
+                                           stream_tiles)
     in_elems = offs
     flat_enum = ""
     if flat:
@@ -1461,9 +1546,9 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
             tabs.append(_table(f"{fn}{s_}", [
                 program.geoms[pr.inputs[a][0]].pads[dim_of[s_]][side]
                 if s_ in dim_of else 0 for a in tiled], "0"))
-    if flat:
+    if flat or ss is not None:
         # each output slice's pads (lo, hi) per slot, which the flat arm's
-        # kernel zeroes
+        # kernel (and K6's stream arm) zeroes
         tabs.append(_table2("out_pad", [[
             geoms[n].pads[dim_of[s_]][side]
             if s_ in dim_of and dim_of[s_] in geoms[n].domain_dims else 0
@@ -1499,6 +1584,34 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     tabs.append(_table2("stage_cmp", [
         [pr.cmp_of.get((sk, i), -1) for sk in names]
         for i, names in enumerate(stage_vars)]))
+    ss_enum = ""
+    if ss is not None:
+        # K6's stream arm: each sub-stage's lag, each staged input's ring
+        # (its lowest and highest plane around the walk's, depth and
+        # offset), each computed tile's ring
+        tabs.append(_table("ss_lag", ss.lags, "0"))
+        rings, o = [], 0
+        for a in tiled:
+            rings.append(o)
+            o += ss.in_elems[a]
+        tabs.append(_table("ss_rlo", [ss.in_reach[a][0] for a in tiled],
+                           "0"))
+        tabs.append(_table("ss_rhi", [ss.in_reach[a][1] for a in tiled],
+                           "0"))
+        tabs.append(_table("ss_depth", [ss.in_depths[a] for a in tiled],
+                           "1"))
+        tabs.append(_table("ss_ring", rings, "0"))
+        rings = []
+        for c in ss.cmp_elems:
+            rings.append(o)
+            o += c
+        tabs.append(_table("ss_clo", ss.cmp_lo, "0"))
+        tabs.append(_table("ss_cdepth", ss.cmp_depths, "1"))
+        tabs.append(_table("ss_cring", rings, "0"))
+        ss_enum = (f",\n           SS_T1 = {ss.tile[0]}, SS_T2 = "
+                   f"{ss.tile[1]}, SS_NT = {ss.threads}, SS_MIN = "
+                   f"{ss.per_sm}, SS_P = {ss.prefetch}, SS_W = {ss.warm}, "
+                   f"SS_ELEMS = {o}")
     stages_src = "\n".join(
         f"        if constexpr (K == {k}) {{\n"
         + "\n".join("    " + ln for ln in lines) + "\n        }"
@@ -1509,7 +1622,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     enum {{ NIN = {len(pr.inputs)}, NOUT = {len(slices)}, NTILED = {len(tiled)},
            T0 = {tile[0]}, T1 = {tile[1]}, T2 = {tile[2]}, SMEM_ELEMS = {offs},
            IN_ELEMS = {in_elems}, NSTAGES = {nst}, NCMP = {len(computed)},
-           MAXV = {maxv}{outer_enum}{ws_enum}{flat_enum} }};
+           MAXV = {maxv}{outer_enum}{ws_enum}{flat_enum}{ss_enum} }};
 {chr(10).join(tabs)}
 
     template <int K, class RD>
@@ -1527,6 +1640,10 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                    f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
                    f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         arm = ""
+        if ss is not None:
+            entries += f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n"
+            arm = (f"\n// Stream arm: {ss.tile[0]}x{ss.tile[1]} plane tiles by "
+                   f"{ss.threads} threads, rings of {ss.smem_bytes} B.")
     else:
         entries = f"YT_FUSED_WS_ENTRIES({name}, Spec)\n"
         arm = (f"\n// Flat arm: {flat['threads']} threads a "
@@ -1540,7 +1657,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 // over N members and of K5 over a shard's box (see ops/fused_stencil.py);
 // pushed vars:
 // {', '.join(pushed) or 'none'}.{arm}
-#include "fused_step.cuh"
+#include "{'stream_stages.cuh' if ss is not None else 'fused_step.cuh'}"
 
 {struct}
 {entries}"""
@@ -1554,7 +1671,8 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                                      f"{SMEM_LIMIT} bytes of shared memory "
                                      "at any tile: the workspace arm has no "
                                      "stream arm (ROADMAP.md A5)")
-                                    if ws is not None else None),
+                                    if ws is not None else ss_cause),
+                      stages_stream=ss,
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,
                       scratch_stages=nscr, reach={

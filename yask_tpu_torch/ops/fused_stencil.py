@@ -121,6 +121,18 @@ wrapper with its own counter ``stream_step.launches``; the plain version
 is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
 arm and says why; ``-no-skew`` keeps K1.
 
+K6's stream arm (``-skew``, on a 3-D solution of K6's body without
+scratch vars, misc or partial-dim outputs, at element size 4 or 8): the
+source carries ``<name>_stages_stream`` and ``_stages_stream_batched``
+(``csrc/stream_stages.cuh``), which compute K6's and K7's sub-step with
+each block walking slot 0 of a plane tile, every sub-stage at its lag,
+through rings of staged input planes fed by ``cp.async`` and of
+computed planes.  :func:`stages_step` and :func:`batched_stages_step`
+launch them where :func:`cuda_emit.skew_engaged_dims` engages the arm,
+counted in their ``stream_launches``; the outputs come from
+``torch.empty``, and the card's resident blocks walk the work items
+(:meth:`FusedKernel.stream_resident`).  ``-no-skew`` keeps K6's body.
+
 The A3 arms (ROADMAP.md A3: misc dims, partial-dim writes, element size
 2, more than three domain dims) live in the emitted ``Spec`` and the
 headers; here a misc slice of an input or output, and an input at an
@@ -364,6 +376,43 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
               ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
 
 
+def call_stages_stream_entry(fn, program, spec, ins, outs, t: int, stream,
+                             seg: int = None, nres: int = 1) -> int:
+    """Call K6's stream entry (``<name>_stages_stream``): K6's tables,
+    the segment length (``seg``, the plan's by default), the step index,
+    ``nres`` blocks (the card's resident blocks; the host path ignores
+    it) and the stream.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3),
+              int(spec.stages_stream.seg if seg is None else seg), int(t),
+              int(nres), stream)
+
+
+def call_batched_stages_stream_entry(fn, program, spec, ins, outs, nm: int,
+                                     t: int, stream, seg: int = None,
+                                     nres: int = 1) -> int:
+    """Call K7's entry over K6's stream arm
+    (``<name>_stages_stream_batched``) on (N, *shape) stacks: member 0's
+    tables and the member strides (as :func:`call_batched_entry`), the
+    member count, the segment length, the step, ``nres`` blocks and the
+    stream."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
+        program, spec, [a[0] for a in ins], [o[0] for o in outs])
+    in_ms = (ctypes.c_longlong * max(len(ins), 1))(
+        *[a.stride(0) for a in ins])
+    out_ms = (ctypes.c_longlong * max(len(outs), 1))(
+        *[o.stride(0) for o in outs])
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
+              ctypes.addressof(out_s), ctypes.addressof(out_ms),
+              ctypes.addressof(n3), int(nm),
+              int(spec.stages_stream.seg if seg is None else seg), int(t),
+              int(nres), stream)
+
+
 #: the workspace and flat arms' arguments before the stream
 #: (``KernelSpec.walks``): the workspace and the resident blocks
 _WS_ARGS = [ctypes.c_void_p, ctypes.c_longlong]
@@ -396,6 +445,22 @@ def stream_argtypes():
     """The stream entry's C signature: K1's tables, the segment and pad
     table, the step, the stream."""
     return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def stages_stream_argtypes():
+    """K6's stream entry's C signature: K6's tables, the segment, the
+    step, the resident blocks, the stream."""
+    return ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_void_p])
+
+
+def batched_stages_stream_argtypes():
+    """K7's entry over K6's stream arm: K7's tables with the member
+    strides, the member count, the segment, the step, the resident
+    blocks, the stream."""
+    return ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_longlong,
+                                     ctypes.c_void_p])
 
 
 def check_box(program, spec, box) -> None:
@@ -558,13 +623,54 @@ fused_step.launches = 0
 def stages_step(kernel: "FusedKernel", state, t: int):
     """Launch one sub-step of K6 (every stage of a multi-stage solution,
     pushed vars kept in shared memory) on the current CUDA stream; returns
-    the new state.  Counts each launch in ``stages_step.launches``."""
+    the new state.  Counts each launch in ``stages_step.launches``; where
+    K6's stream arm is engaged (``kernel.skew_dims``) it launches
+    ``<name>_stages_stream`` instead (:func:`_launch_stages_stream`),
+    counted in ``stages_step.stream_launches``."""
+    if kernel.skew_dims:
+        state = _launch_stages_stream(kernel, state, t, None)
+        stages_step.stream_launches += 1
+        return state
     state = _launch(kernel, state, t, "stages_step")
     stages_step.launches += 1
     return state
 
 
 stages_step.launches = 0
+stages_step.stream_launches = 0
+
+
+def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
+    """Launch one sub-step of K6's stream arm (``nm`` None) or of K7 over
+    it for ``nm`` members stacked as (nm, *shape), on the current CUDA
+    stream, at most the card's resident blocks walking the work items;
+    returns the new state (rings rotated).  The kernel writes every cell
+    of its outputs, so they come from ``torch.empty``; it raises where the
+    kernel fails to launch."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    lead = () if nm is None else (nm,)
+    ins, dev = _check_inputs(kernel, state, lead=lead)
+    outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
+                        dtype=kernel.dtype, device=dev)
+            for n in spec.outputs]
+    with torch.cuda.device(dev):
+        nres = kernel.stream_resident(0 if nm is None else 1)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nm is None:
+            rc = call_stages_stream_entry(kernel.stages_stream_fn, prog, spec,
+                                          ins, outs, t, stream, nres=nres)
+        else:
+            rc = call_batched_stages_stream_entry(
+                kernel.batched_stages_stream_fn, prog, spec, ins, outs, nm,
+                t, stream, nres=nres)
+    if rc != 0:
+        entry = "_stages_stream" + ("" if nm is None else "_batched")
+        raise YaskException(
+            f"stages_step kernel '{spec.name}{entry}' launch failed: CUDA "
+            f"error {rc}")
+    return _rotated(prog, spec, state, outs)
 
 
 def check_pair_strides(program, spec, ins) -> None:
@@ -651,13 +757,20 @@ def batched_stages_step(kernel: "FusedKernel", state, t: int, nm: int):
     """Launch one sub-step of K7 over K6's body (every stage and scratch
     sub-stage) for ``nm`` members stacked as (nm, *shape); returns the
     new stacked state.  Counts each launch in
-    ``batched_stages_step.launches``."""
+    ``batched_stages_step.launches``; where K6's stream arm is engaged
+    (``kernel.skew_dims``) it launches ``<name>_stages_stream_batched``
+    instead, counted in ``batched_stages_step.stream_launches``."""
+    if kernel.skew_dims:
+        state = _launch_stages_stream(kernel, state, t, nm)
+        batched_stages_step.stream_launches += 1
+        return state
     state = _launch_batched(kernel, state, t, nm, "batched_stages_step")
     batched_stages_step.launches += 1
     return state
 
 
 batched_stages_step.launches = 0
+batched_stages_step.stream_launches = 0
 
 
 def _with_offset(program, off, device):
@@ -837,7 +950,9 @@ class FusedKernel:
     stream-arm request and ``max_skew_dims`` the ``-skew_dims`` window
     (:func:`~yask_tpu_torch.ops.cuda_emit.skew_engaged_dims`, whose
     reason records land in ``skew_reasons``): where it engages, ``chunk``
-    launches :func:`stream_step` in place of :func:`fused_step`."""
+    launches :func:`stream_step` in place of :func:`fused_step` (K1's
+    arm), or :func:`stages_step` and :func:`batched_stages_step` launch
+    K6's stream arm (``<name>_stages_stream``, ``_batched``)."""
 
     def __init__(self, program, push=False, skew=False,
                  max_skew_dims: int = 2):
@@ -847,12 +962,18 @@ class FusedKernel:
         self.spec = (cuda_emit.emit(program, push) if program.ana.eqs
                      else None)
         self.skew_reasons: List[Dict] = []
+        self._skew = (skew, max_skew_dims)
         self.skew_dims = cuda_emit.skew_engaged_dims(
             program, skew, max_skew_dims, self.skew_reasons, self.spec)
         self.fn = None
         self.batched_fn = None
         self.region_fn = None
         self.stream_fn = None
+        #: K6's stream arm: its solo and batch entries and their
+        #: resident-block query
+        self.stages_stream_fn = None
+        self.batched_stages_stream_fn = None
+        self.stream_resident_fn = None
         #: the workspace arm's resident-block query and its answers per
         #: launch kind (0 solo, 1 member batch, 2 a shard's box)
         self.resident_fn = None
@@ -908,6 +1029,18 @@ class FusedKernel:
             sfn.argtypes = stream_argtypes()
             sfn.restype = ctypes.c_int
             self.stream_fn = sfn
+        if self.spec.stages_stream is not None:
+            stem = self.spec.name + "_stages_stream"
+            self.stages_stream_fn = getattr(lib, stem)
+            self.stages_stream_fn.argtypes = stages_stream_argtypes()
+            self.batched_stages_stream_fn = getattr(lib, stem + "_batched")
+            self.batched_stages_stream_fn.argtypes = \
+                batched_stages_stream_argtypes()
+            self.stream_resident_fn = getattr(lib, stem + "_resident")
+            self.stream_resident_fn.argtypes = [ctypes.c_int]
+            for f in (self.stages_stream_fn, self.batched_stages_stream_fn,
+                      self.stream_resident_fn):
+                f.restype = ctypes.c_int
         self.fn = fn
         self.batched_fn = bfn
         self.region_fn = rfn
@@ -947,6 +1080,13 @@ class FusedKernel:
         return self._workspace_of(dev, kind, self.spec.workspace["ws_elems"],
                                   lambda: self.resident_fn(int(kind)))
 
+    def stream_resident(self, kind: int) -> int:
+        """The resident blocks of K6's stream arm for a launch of ``kind``
+        (0 solo, 1 member batch): the grid of its launches, asked of the
+        kernel once per kind and card."""
+        return self._resident_blocks(
+            ("stream", kind), lambda: self.stream_resident_fn(int(kind)))
+
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on
         CUDA tensors; the plain version on CPU tensors; raises otherwise.
@@ -960,8 +1100,8 @@ class FusedKernel:
             raise YaskException(
                 f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
         self.build()
-        step = (stream_step if self.skew_dims else
-                fused_step if self.spec.stages == 1 else stages_step)
+        step = (stages_step if self.spec.stages > 1 else
+                stream_step if self.skew_dims else fused_step)
         dirn = self.program.ana.step_dir
         for i in range(k):
             state = step(self, state, t0 + i * dirn)
@@ -1000,14 +1140,16 @@ class FusedKernel:
     def tiling(self, fuse_steps: int, members: int = 0) -> Dict[str, object]:
         """The tiling the kernel runs with (the port's ``chunk.tiling``):
         the arm, its tile and shared memory, and the skew decision; with
-        ``members``, that of K7's batches of that many members (K7 has no
-        stream arm)."""
+        ``members``, that of K7's batches of that many members (over K6's
+        stream arm where it engages, else over K1's or K6's body)."""
         s = self.spec
         reasons = self.skew_reasons
+        skew_dims = self.skew_dims
         if members:
             reasons = []
-            cuda_emit.skew_engaged_dims(self.program, reasons=reasons,
-                                        spec=s, batched=True)
+            skew_dims = cuda_emit.skew_engaged_dims(
+                self.program, *self._skew, reasons=reasons, spec=s,
+                batched=True)
         if s is None:
             return {"kernel": None, "name": None, "fuse_steps": fuse_steps,
                     "launches_per_step": 0, "stages": 0, "members": members,
@@ -1042,7 +1184,22 @@ class FusedKernel:
         elif s.flat_cause:
             out["flat"] = {"code": s.flat_cause[0],
                            "detail": s.flat_cause[1]}
-        if members:
+        if s.stages_stream is not None and skew_dims:
+            # K6's stream arm (solo or K7 over it): its plan and, after a
+            # launch on the card, its resident blocks per launch kind
+            rec = s.stages_stream.record()
+            out.update(
+                name=s.name + "_stages_stream" + ("_batched" if members
+                                                  else ""),
+                tile=[1] + rec["plane_tile"], smem_bytes=rec["smem_bytes"],
+                pipeline_dmas=True, skew=True,
+                skew_dims=list(skew_dims),
+                stages_stream=dict(rec, resident_blocks={
+                    k[1]: v for k, v in self._resident.items()
+                    if isinstance(k, tuple)}))
+            if members:
+                out.update(kernel="batched_stages_step", members=members)
+        elif members:
             out.update(kernel=("batched_step" if s.stages == 1
                                else "batched_stages_step"),
                        name=s.name + "_batched", members=members)

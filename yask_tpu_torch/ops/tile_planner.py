@@ -9,7 +9,9 @@ carry of K levels along ``lead[-1]``) has no counterpart here.  The port's
 answer to K2 and K3 on the card is the stream arm of K1, planned by
 :func:`stream_plan` at the end of this module (the counterpart of
 ``skew_plan_hints`` / ``skew_engaged_dims``, pallas_stencil.py:366-441):
-one level per launch, streamed along slot 0 (ROADMAP.md A4a, C11).
+one level per launch, streamed along slot 0 (ROADMAP.md A4a, C11); and
+K6's stream arm (several sub-stages, each at its lag along slot 0), by
+:func:`stages_stream_plan`.
 
 What changes for the card:
 
@@ -477,4 +479,153 @@ def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
             return StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
                               cols * segs, per_sm, register_queue(nt, per_sm),
                               staged)
+    return None
+
+
+# ==== K6's stream arm: every sub-stage walking slot 0 ====================
+# A block owns a T1 x T2 plane tile of (slot 1, slot 2) and walks a
+# segment of slot 0 in order, computing sub-stage K at plane z + lag(K),
+# lag(K) being how far above its own plane the later sub-stages read it
+# (the emitter's sub_hi0).  Each staged input has a ring of planes with
+# its in-plane halo, sized from the planes its readers need at their lags
+# (not from the slot-0 halo of the union, which the earlier sub-stages'
+# expansion inflates), the prefetch and one plane more (ring_depth); each
+# computed tile a ring of the planes its readers need at their lags.
+
+#: (T1, T2, threads) plane tiles of K6's stream arm, tried in order until
+#: the rings fit shared memory; a thread computes T1·T2 / threads points
+#: of a sub-stage that is not grown in-plane.  Slot 2 (T2) is the
+#: contiguous minor dim.  The rungs are those a registered solution takes
+#: (every one at element size 4 the first; at element size 8 fsg, fsg2,
+#: fsg_merged and awp_elastic 8x32, the other awp, fsg and ssg solutions
+#: 4x32) and those chip_smoke phase 17 (b) times on awp at 512³
+#: (PERF.md): 16x32 by 512 threads ran 1.59x faster than 8x32 by 256 (one
+#: block an SM either way), its spills at 128 registers a thread
+#: notwithstanding.  Where no rung fits, K6's body runs (skew_fallback).
+STAGES_STREAM_TILES = ((16, 32, 512), (8, 64, 512), (8, 32, 256),
+                       (4, 64, 256), (4, 32, 128))
+#: The least registers a thread of K6's stream arm may hold: the blocks
+#: per SM it asks the compiler for stop there (awp's stress sub-stage
+#: holds many values at once).
+STAGES_STREAM_MIN_REGS = 128
+
+
+@dataclass
+class StagesStreamPlan:
+    """K6's stream arm for one solution: its plane tile, threads and
+    prefetch, each sub-stage's lag, each ring's reach and depth (staged
+    inputs: planes ``z - lo .. z + hi`` around the walk's plane ``z``;
+    computed tiles: planes ``z - lo .. z + lag`` of their writer), its
+    shared memory, and the segments of slot 0 the resident blocks walk
+    (one work item per column, segment and member)."""
+    tile: Tuple[int, int]
+    threads: int
+    prefetch: int
+    lags: List[int]
+    warm: int                        # planes a segment walks before its first
+    in_reach: Dict[int, Tuple[int, int]]
+    in_depths: Dict[int, int]
+    in_elems: Dict[int, int]         # per ring, elements (16-byte units)
+    cmp_lo: List[int]
+    cmp_depths: List[int]
+    cmp_elems: List[int]
+    smem_bytes: int
+    seg: int
+    segments: int
+    columns: int
+    per_sm: int
+    staged_per_point: float          # staged cells per interior point
+    computed_per_point: List[float]  # per sub-stage, computed cells per
+                                     # interior point
+
+    def record(self) -> Dict[str, object]:
+        return {"plane_tile": list(self.tile), "threads": self.threads,
+                "prefetch": self.prefetch, "lags": list(self.lags),
+                "warm_planes": self.warm,
+                "ring_depths": dict(self.in_depths),
+                "ring_reach": {a: list(r) for a, r in self.in_reach.items()},
+                "computed_ring_depths": list(self.cmp_depths),
+                "smem_bytes": self.smem_bytes, "segment_planes": self.seg,
+                "segments": self.segments, "columns": self.columns,
+                "blocks_per_sm": self.per_sm,
+                "staged_per_point": round(self.staged_per_point, 4),
+                "computed_per_point": [round(c, 4)
+                                       for c in self.computed_per_point]}
+
+
+def _span(reads: Dict[int, Tuple[int, int]], lags: List[int]):
+    """(lo, hi) planes around the walk's plane z that the readers reach:
+    reader J reads offsets [-lo, hi] of its plane z + lags[J]."""
+    return (max(lo - lags[j] for j, (lo, hi) in reads.items()),
+            max(lags[j] + hi for j, (lo, hi) in reads.items()))
+
+
+def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
+                       in_reads: Dict[int, Dict[int, Tuple[int, int]]],
+                       sub_regions, cmp_subs: List[int],
+                       cmp_reads: List[Dict[int, Tuple[int, int]]], n,
+                       esize: int, smem_limit: Optional[int] = None,
+                       tiles=STAGES_STREAM_TILES,
+                       prefetch=STREAM_PREFETCH
+                       ) -> Optional[StagesStreamPlan]:
+    """Plan K6's stream arm: the first (plane tile, prefetch) of the
+    ladders whose rings fit ``smem_limit``, or None.
+
+    ``in_halos``: staged input → per-slot (lo, hi) halo (slots 1 and 2
+    give its rings' in-plane halo); ``in_reads``: staged input →
+    {sub-stage: (lo, hi)} of its slot-0 read offsets ([-lo, hi]);
+    ``sub_regions``: per sub-stage ((lo0, lo1, lo2), (hi0, hi1, hi2)), its
+    region around the block; ``cmp_subs``: per computed tile its writing
+    sub-stage, ``cmp_reads`` its readers' slot-0 offsets; ``n``: the
+    interior extents of slots 0, 1, 2.  A ring is a whole number of
+    16-byte units, so every ring starts aligned."""
+    if smem_limit is None:
+        from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
+    n0, n1, n2 = (int(x) for x in n)
+    lags = [hi[0] for _lo, hi in sub_regions]
+    warm = max(lo[0] + hi[0] for lo, hi in sub_regions)
+    in_reach = {a: _span(r, lags) for a, r in in_reads.items()}
+    cmp_lo = [_span(r, lags)[0] for r in cmp_reads]
+    cmp_depths = [lo + lags[k] + 1 for lo, k in zip(cmp_lo, cmp_subs)]
+    unit = 16 // esize
+    for t1, t2, nt in tiles:
+        for pf in prefetch:
+            depths = {a: ring_depth(lo, hi, pf)
+                      for a, (lo, hi) in in_reach.items()}
+            elems = {a: _ceil_to(depths[a]
+                                 * (t1 + in_halos[a][1][0] + in_halos[a][1][1])
+                                 * (t2 + in_halos[a][2][0]
+                                    + in_halos[a][2][1]), unit)
+                     for a in in_reach}
+            cells = []
+            for k, d in zip(cmp_subs, cmp_depths):
+                lo, hi = sub_regions[k]
+                cells.append(_ceil_to(d * (t1 + lo[1] + hi[1])
+                                      * (t2 + lo[2] + hi[2]), unit))
+            smem = (sum(elems.values()) + sum(cells)) * esize
+            if smem > smem_limit:
+                continue
+            per_sm = max(1, min(SM_THREADS // nt, SM_SMEM // (smem + 1024),
+                                SM_REGS // (nt * STAGES_STREAM_MIN_REGS)))
+            cols = -(-n1 // t1) * -(-n2 // t2)
+            best = None
+            for s in range(1, min(n0, 65535) + 1):
+                seg = -(-n0 // s)
+                segs = -(-n0 // seg)
+                waves = -(-cols * segs // (SMS * per_sm))
+                cost = waves * (seg + warm)
+                if best is None or cost < best[0]:
+                    best = (cost, segs, seg)
+            _cost, segs, seg = best
+            pts = t1 * t2 * n0
+            staged = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
+                         * (n0 + segs * (warm + sum(in_reach[a])))
+                         for a, h in in_halos.items() if a in in_reach) / pts
+            computed = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
+                        * (n0 + segs * (lo[0] + hi[0])) / pts
+                        for lo, hi in sub_regions]
+            return StagesStreamPlan(
+                (t1, t2), nt, pf, lags, warm, in_reach, depths, elems,
+                cmp_lo, cmp_depths, cells, smem, seg, segs, cols, per_sm,
+                staged, computed)
     return None

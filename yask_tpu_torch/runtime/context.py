@@ -15,7 +15,10 @@ Execution modes (``-mode``):
   :mod:`yask_tpu_torch.ops.fused_stencil`, one launch per step (the
   counterpart of ``pallas``); on CPU tensors its plain version runs.
   With ``-skew`` (on by default) a 3-D single-stage solution runs K1's
-  stream arm instead (``stream_step``; ``-no-skew`` keeps K1).  With
+  stream arm instead (``stream_step``; ``-no-skew`` keeps K1), and a 3-D
+  multi-stage one without scratch vars K6's stream arm, solo and in
+  member batches (``stages_step`` launches ``<name>_stages_stream``;
+  ``-no-skew`` keeps K6's body).  With
   ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
   instead (phase 1 and the diamond launches, every stage of K6 inside
   each level), the remainder on K1, its stream arm or K6; a member batch
@@ -715,7 +718,8 @@ class StencilContext:
         solo fused kernel where ``-push`` resolves to off, else a push-off
         one (the reference's vmapped chunk is built with ``push=False``,
         so a batch materialises the vars a solo run pushes, and a forced
-        push with nothing to push does not raise; ROADMAP.md §C16).
+        push with nothing to push does not raise; ROADMAP.md §C16), with
+        the session's ``-skew`` request (K6's stream arm over the batch).
         Built on a CUDA device, as :meth:`_fused_kernel`.  Under
         ``-trapezoid`` a batch's K-step groups run on K4's member batch
         (:meth:`_trapezoid_kernel`, which never pushes) and only its
@@ -725,7 +729,9 @@ class StencilContext:
         else:
             if self._fused_batched is None:
                 from yask_tpu_torch.ops.fused_stencil import FusedKernel
-                self._fused_batched = FusedKernel(self._program, False)
+                self._fused_batched = FusedKernel(self._program, False,
+                                                  self._skew_arg(),
+                                                  self._opts.skew_dims_max)
             kern = self._fused_batched
         if self._device.type == "cuda":
             self._compile_secs += kern.build()

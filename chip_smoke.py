@@ -125,8 +125,9 @@ script exits 0 only when all of them passed.  Phases:
    ``-no-skew``: phase 17 (a) holds the stream arm to it); (b) tti r=2
    and awp (on K6's stream arm, the default) against the numpy oracle at
    32³ for 2 steps; (c) tti r=2 (the scratch arm) and awp (the rewrite
-   arm, K6's body under ``-no-skew``: phase 17 (b) runs the stream arm
-   from the same seed, and takes this run's final state's digest) at
+   arm), both on K6's body under ``-no-skew`` (phases 18 (b) and 17 (b)
+   run the stream arm from the same seed, and take this run's final
+   state's digest) at
    512³ fp32 ``-mode fused -wf_steps 2``, seeded on the card in physical
    ranges: 2 warm-up steps, then 3 trials of 20 steps with the
    counters zeroed just before (60 K6 launches and no other), ms/step,
@@ -135,8 +136,9 @@ script exits 0 only when all of them passed.  Phases:
    ``live_inputs`` finds them, each output written once, or its FLOP
    count, whichever is larger), the staged and computed cells per point
    of K6's block, the plain version's time, one 2-step chunk against it
-   from the same state, and K6 at the ladder's next two smaller tiles
-   (ms per launch and cells per point; the same bits required);
+   from the same state, and tti's K6 at the ladder's next two smaller
+   tiles (ms per launch and cells per point; the same bits required;
+   awp's, 9.6 s of launches, is left out for the run's time);
 10. the misc, partial-dim and element-size-2 arms (ROADMAP.md A3): misc
    axes (each misc slice an input or output of its own, misc indices as
    per-equation constants, the unwritten slices of a var kept by a copy
@@ -214,8 +216,10 @@ script exits 0 only when all of them passed.  Phases:
    launch against its bound (the solo bound times the members), the
    plain version's time, one chunk against it and the peak memory; (c) a
    ``StencilServer`` batch of 4 fused tti r=2 sessions at 128³, 10
-   steps: all ``ok`` and batched, 10 launches of ``batched_stages_step``
-   and no other, each member bit-identical to its solo run; (d) the RTM
+   steps (the sessions take ``-skew``'s default): all ``ok`` and
+   batched, 10 launches of K7 over K6's stream arm
+   (``batched_stages_stream``) and no other, each member bit-identical
+   to its solo run; (d) the RTM
    pipeline's push arm in bfloat16: at 64³ K6 against its plain version
    on the card and both against the numpy oracle at (3e-2, 3e-2), then
    at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row;
@@ -280,8 +284,9 @@ script exits 0 only when all of them passed.  Phases:
    the shared-memory ladder: the tiles past 227 KB in a device-memory
    workspace of the card's resident blocks, which walk the tiles) and
    K4's 4-D arm (the outer dims as uniform window dims).  (a) tti r=8 and
-   ssg r=8 at 512³ fp32, ``-mode fused -wf_steps 2``, seeded in physical
-   ranges: a warm-up, then 3 trials of 5 steps with the counters zeroed
+   ssg r=8 at 512³ fp32, ``-mode fused -wf_steps 2 -no-skew`` (phase 18
+   (b) runs K6's stream arm from the same seed and steps and takes this
+   run's final states' digests), seeded in physical ranges: a warm-up, then 3 trials of 5 steps with the counters zeroed
    just before (K6's wrapper alone launches), ms/step and per launch
    against the bound (the live inputs read once, each output written
    once), the workspace and the peak memory; against the plain version
@@ -334,8 +339,9 @@ script exits 0 only when all of them passed.  Phases:
    ``cp.async``, every output cell written once), solo (``stages_step``
    launching ``<name>_stages_stream``, counted apart) and as K7's batch
    (``batched_stages_step``, ``<name>_stages_stream_batched``), the
-   default of ``-mode fused`` on a 3-D solution of K6's body without
-   scratch vars.  (a) At mid width (67x45x131: several plane tiles per
+   default of ``-mode fused`` on a 3-D solution of K6's body (phase 18
+   has those with scratch vars or rings past shared memory).  (a) At mid
+   width (67x45x131: several plane tiles per
    slot, the last partial, several segments) every solution it takes,
    and awp at element size 8, K = 2, 5 steps from one state seeded on
    the card: the arm alone launches, bit-equal
@@ -360,7 +366,30 @@ script exits 0 only when all of them passed.  Phases:
    RTM chain at 512³, its image pushed and ``-push off``, as phase 6 (c)
    runs it, each beside phase 6 (c)'s body; (e) ssg and fsg at 512³ on
    the arm and their ``-no-skew`` twins from one seed, bit-equal after
-   12 steps, one launch of each timed.
+   12 steps, one launch of each timed;
+18. K6's stream arm with scratch sub-stages (a scratch var a computed
+   ring, its planes past the domain computed from the pads) and with its
+   rings past shared memory (where no plane tile's fit: the computed
+   rings first in shared memory, the rest in a workspace slice per
+   resident block, the staged inputs left without a ring read from
+   their allocations), solo and as K7's batch.  (a) As phase 17 (a) at
+   67x45x131 (no RTM chains): tti at r=2, 4 and 8, test_scratch_3d, ssg
+   and fsg at r=8, each bit-equal to its ``-no-skew`` twin (K6's body,
+   the workspace arm at r=8) and held to its plain version, and as a K7
+   batch of 3, each member bit-equal to its solo run; (b) at 512³ fp32
+   on the arm, each from the seed and steps of its ``-no-skew`` twin, the
+   final states' digests equal: tti r=2 beside phase 9 (c)'s body, tti
+   r=4 beside its body run here (1 warm-up step and 1 step: the body's
+   1x1x32 rung takes seconds a launch), tti r=8 and ssg r=8 beside phase
+   15 (a)'s workspace arm (1 warm-up step, 3 trials of 5); r=4 and r=8
+   with the plain version at 256³ and one launch held to it over boxes:
+   ms per launch and per step against the bound, 3 launches of the arm
+   and 3 of the twin (the arm alone at r=4) under ``torch.profiler``;
+   (c) K7 over the
+   arm, tti r=2 8 x 256³, as phase 12 (b) runs it, beside the solo arm
+   and phase 12 (b)'s batch on the body; (d) tti r=2 and ssg r=8 with
+   the arm at the other plane tiles of :data:`SS18_SWEEP` (each the same
+   bits), in (b).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -574,8 +603,9 @@ def profile_launches(fn, reps: int = 10, expect=(), tries: int = 3):
     saw one of them fewer than ``reps`` times is taken again, up to
     ``tries`` windows, and if none is whole, ``per_call_ms``,
     ``span_ms`` and ``idle_share`` are None (a window in a long process
-    has missed launches).  None where the profiler saw no device activity
-    (then time the parts with CUDA events).  The events of every profiler
+    has missed launches; a window that saw no device activity at all is
+    taken again too).  None where no window saw device activity (then
+    time the parts with CUDA events).  The events of every profiler
     cycle are kept (``acc_events``, where this PyTorch has it)."""
     import inspect
     import torch
@@ -585,6 +615,7 @@ def profile_launches(fn, reps: int = 10, expect=(), tries: int = 3):
     torch.cuda.synchronize()
     acc = ({"acc_events": True}
            if "acc_events" in inspect.signature(profile).parameters else {})
+    out = None
     for window in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA], **acc) as prof:
@@ -596,7 +627,8 @@ def profile_launches(fn, reps: int = 10, expect=(), tries: int = 3):
                        if e.device_type == DeviceType.CUDA
                        and e.time_range.end > e.time_range.start)
         if not spans:
-            return None
+            # a window that saw no device activity at all: take it again
+            continue
         total, seen, busy, end = {}, {}, 0.0, spans[0][0]
         for s, t, name in spans:
             key = name.split("(")[0].replace("void ", "")[:70]
@@ -606,17 +638,17 @@ def profile_launches(fn, reps: int = 10, expect=(), tries: int = 3):
             end = max(end, t)
         whole = all(sum(n for k, n in seen.items() if x in k) == reps
                     for x in expect)
+        out = {"kernels": {k: v / seen[k] for k, v in total.items()},
+               "launches_seen": seen, "reps": reps, "windows": window,
+               "whole": whole, "per_call_ms": None, "span_ms": None,
+               "idle_share": None}
         if whole:
+            span = (end - spans[0][0]) / 1e3
+            out.update(per_call_ms={k: v / reps for k, v in total.items()},
+                       span_ms=span / reps,
+                       idle_share=(1.0 - busy / 1e3 / span if span > 0
+                                   else 0.0))
             break
-    out = {"kernels": {k: v / seen[k] for k, v in total.items()},
-           "launches_seen": seen, "reps": reps, "windows": window,
-           "whole": whole, "per_call_ms": None, "span_ms": None,
-           "idle_share": None}
-    if whole:
-        span = (end - spans[0][0]) / 1e3
-        out.update(per_call_ms={k: v / reps for k, v in total.items()},
-                   span_ms=span / reps,
-                   idle_share=1.0 - busy / 1e3 / span if span > 0 else 0.0)
     return out
 
 
@@ -2168,7 +2200,8 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
                 warm: int = 2, trials: int = 3, steps: int = 20,
                 eb: int = 4, sweep: bool = True, seed=None,
                 plain_g: int = 0, cli: str = "", digest: bool = False,
-                profile: bool = False, stream_sweep=()) -> dict:
+                profile: bool = False, stream_sweep=(), reps: int = 5,
+                profile_body: bool = True) -> dict:
     """Phase 9 (c), and phase 11 (c) at element size ``eb`` = 2: ``st``
     at ``g``³ ``-mode fused -wf_steps 2`` through the user's entry
     points, seeded by ``seed(ctx)`` (:func:`full_seed` by default);
@@ -2183,9 +2216,10 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     tiles too (:func:`stream_kernel`); with ``digest`` the entry holds the
     final state's :func:`state_digest` under ``state_digest``, with
     ``profile`` the device times of 3 launches under
-    :func:`profile_launches` (on K6's stream arm, of 3 of the arm and 3
-    of K6's body from the same state in one window) under ``profile``,
-    for the caller to take out.  Returns the arm's ``kernels`` entry."""
+    :func:`profile_launches` (on K6's stream arm, of 3 of the arm and,
+    with ``profile_body``, 3 of K6's body from the same state in one
+    window) under ``profile``, for the caller to take out; ``reps``
+    launches are timed.  Returns the arm's ``kernels`` entry."""
     import torch
     from yask_tpu_torch.ops import fused_stencil
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
@@ -2231,11 +2265,11 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
     bound_ms = max(bytes_ms, flops_ms)
     bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
     kern, state = ctx._fused, ctx._state
-    ms = cuda_ms(lambda: stages_step(kern, state, t), 5)
+    ms = cuda_ms(lambda: stages_step(kern, state, t), reps)
     prof = None
     if profile:
         # the stream arm and the body it replaces in one profiler window
-        both = stages_counter(kern) == "stages_stream"
+        both = stages_counter(kern) == "stages_stream" and profile_body
         prof = profile_launches(
             (lambda: (stages_step(kern, state, t),
                       fused_stencil._launch(kern, state, t, "K6 body")))
@@ -2256,7 +2290,8 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
         if not b_err <= eps * b_scale:
             raise RuntimeError(f"{what}: K6 at {g}^3 and its plain version "
                                "disagree over the boxes")
-        small = a3_ctx(fac, env, st, r, eb, (plain_g,) * 3, "fused", 2)
+        small = a3_ctx(fac, env, st, r, eb, (plain_g,) * 3, "fused", 2,
+                       cli)
         (seed or full_seed)(small)
         pk, pstate, pprog, pt, pg = (small._fused_kernel(), small._state,
                                      small._program, 0, plain_g)
@@ -2294,6 +2329,11 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
                       "staged_cells_per_point": v_staged,
                       "computed_cells_per_point": v_computed})
         del var
+    if stream_sweep and plain_g:
+        # ``a`` is the small context's chunk: the sweep's reference is
+        # the kernel's own at full width
+        del a
+        a = kern.chunk(dict(state), t, 2)
     for rung in stream_sweep:
         var = stream_kernel(prog, ctx._push_arg(), rung)
         c = var.chunk(dict(state), t, 2)
@@ -2375,20 +2415,24 @@ def family_full(fac, env, card: str, st: str, r, arm: str, g: int = 512,
 
 def phase9(fac, env, card: str, full: int = 512) -> list:
     """The families path (see the module docstring); returns the
-    ``kernels`` entries of K6's scratch arm (tti) and rewrite arm (awp,
-    on K6's body under ``-no-skew``, seeded on the card; its entry holds
-    the final state's digest for phase 17 (b))."""
+    ``kernels`` entries of K6's scratch arm (tti) and rewrite arm (awp),
+    both on K6's body under ``-no-skew``, seeded on the card; each entry
+    holds the final state's digest for phase 18 (b) and 17 (b)."""
     t_phase = time.perf_counter()
     worst = phase9a(fac, env)
     phase9b(fac, env)
-    scratch = family_full(fac, env, card, "tti", 2, "scratch arm", full)
+    scratch = family_full(fac, env, card, "tti", 2,
+                          "scratch arm, the -no-skew body", full,
+                          cli="-no-skew", digest=True)
     scratch.update(replaces="yask_tpu/ops/pallas_stencil.py:175 (_TileEval."
                             "read scratch :175-179, the stage loop's reset "
                             ":2003 and scratch writes :2105-2147)",
                    path="phase 9 (c), tti r=2")
+    # (awp's body at the ladder's smaller tiles, 2.7 and 6.9 s of
+    # launches, is left out for the run's time: PERF.md has its times)
     rewrite = family_full(fac, env, card, "awp", None,
                           "rewrite arm, the -no-skew body", full,
-                          cli="-no-skew", digest=True)
+                          cli="-no-skew", digest=True, sweep=False)
     rewrite.update(replaces="yask_tpu/ops/pallas_stencil.py:2155 (the stage "
                             "loop's rewrite on the earlier stage's tile "
                             ":2155-2187)",
@@ -3375,8 +3419,9 @@ def phase12c(fac, env, card: str, g: int = 128, nses: int = 4,
     """Phase 12 (c): a ``StencilServer`` batch of ``nses`` fused tti r=2
     sessions at ``g``³, seeded in physical ranges through
     ``set_var_slice``: every response ok, batched at occupancy ``nses``,
-    K7 over K6's body launched once per step and nothing else, and each
-    member bit-identical to a solo ``-mode fused`` run from its seed."""
+    K7 over K6's stream arm (``-skew``'s default) launched once per step
+    and nothing else, and each member bit-identical to a solo ``-mode
+    fused`` run from its seed."""
     import tempfile
     import numpy as np
     from yask_tpu_torch.serve import StencilServer
@@ -3404,9 +3449,12 @@ def phase12c(fac, env, card: str, g: int = 128, nses: int = 4,
                     f"phase 12: served tti {r.rid}: status {r.status}, "
                     f"batch {r.batch}, batched {r.batched}, degraded "
                     f"{r.degraded}, error {r.error!r}")
-        if got != {"batched_stages_step": steps}:
+        # the sessions take -skew's default: K7 over K6's stream arm
+        with srv.scheduler.session_ctx(sids[0]) as c:
+            key = stages_counter(c._batched_kernel(), "batched_stages_step")
+        if got != {key: steps}:
             raise RuntimeError(f"phase 12: served tti: launches {got}, "
-                               f"expected {steps} of batched_stages_step")
+                               f"expected {steps} of {key}")
         for i, r in enumerate(resps):
             solo = fac.new_solution(env, stencil="tti", radius=2)
             solo.apply_command_line_options(f"-g {g} -mode fused "
@@ -4628,11 +4676,13 @@ def phase15(fac, env, card: str, full: int = 512,
     import torch
     t0 = time.perf_counter()
     entries = []
-    # (a) the workspace arm at full width
+    # (a) the workspace arm at full width (the -no-skew body: phase 18
+    #     (b) runs the stream arm from the same seed and steps)
     for st, r, seed in WS_FULL:
-        e = family_full(fac, env, card, st, r, "workspace arm, C17", full,
+        e = family_full(fac, env, card, st, r,
+                        "workspace arm, C17, the -no-skew body", full,
                         warm=1, trials=3, steps=5, sweep=False, seed=seed,
-                        plain_g=full // 2)
+                        plain_g=full // 2, cli="-no-skew", digest=True)
         e.update(replaces=WS_REPLACES, path=f"phase 15 (a), {st} r={r}")
         entries.append(e)
         torch.cuda.empty_cache()
@@ -5047,7 +5097,8 @@ def ss_specs(fac, env) -> dict:
 
 
 def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
-             sizes=SS_MID_SIZES) -> list:
+             sizes=SS_MID_SIZES, rtm: bool = True, phase: str = "17 (a)",
+             what: str = "K6 stream arm") -> list:
     """Phase 17 (a): each solution of ``cases`` at ``sizes`` (K = 2,
     ``steps`` steps, one seed made on the card): the stream arm (the
     counters zeroed just before, read just after) bit-equal to its
@@ -5055,22 +5106,26 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
     a K7 batch of 3 over the arm, each member bit-equal to its solo run
     and one 2-step chunk of the batch held to ``plain_batched_chunk`` at
     ``field_epsilon``; one launch of each arm, of the batch and of the
-    plain versions timed; then the RTM chains of :data:`SS_RTM`
-    (:func:`phase17a_rtm`).  Returns the ``kernels`` entries of the two
-    arms at mid width, summed over the cases and the chains."""
+    plain versions timed; then, with ``rtm``, the RTM chains of
+    :data:`SS_RTM` (:func:`phase17a_rtm`).  Returns the ``kernels``
+    entries of the two arms at mid width (``what`` in their names, ``phase``
+    in their logs and paths), summed over the cases and the chains."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     solo = {"launches": 0, "ms": 0.0, "twin_ms": 0.0, "plain_ms": 0.0,
             "bound_ms": 0.0, "err": 0.0}
     k7 = {k: v for k, v in solo.items() if k != "twin_ms"}
-    for st, r, eb in cases:
-        what = f"phase 17 (a): {st} r={r} {eb} B {'x'.join(map(str, sizes))}"
+    for st, r, eb, *how in cases:
+        # (an optional fourth field: False seeds with small material vars)
+        phys = how[0] if how else True
+        case = (f"phase {phase}: {st} r={r} {eb} B "
+                f"{'x'.join(map(str, sizes))}")
         ctxs = {k: a3_ctx(fac, env, st, r, eb, sizes, mode, 2, cli)
                 for k, mode, cli in (("stream", "fused", ""),
                                      ("twin", "fused", "-no-skew"),
                                      ("plain", "torch", ""))}
         for c in ctxs.values():
-            seed_device(c, 17, physical=True)
+            seed_device(c, 17, physical=phys)
         zero_launch_counts()
         ctxs["stream"].run_solution(0, steps - 1)
         got = {k: v for k, v in launch_counts().items() if v}
@@ -5078,14 +5133,14 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
         ctxs["plain"].run_solution(0, steps - 1)
         arm, twin = ctxs["stream"], ctxs["twin"]
         if got != {"stages_stream": steps}:
-            raise RuntimeError(f"{what}: launches {got}, expected {steps} "
+            raise RuntimeError(f"{case}: launches {got}, expected {steps} "
                                "of K6's stream arm")
         twin_bad = arm.compare_data(twin, epsilon=0.0, abs_epsilon=0.0)
         _d, twin_bits = device_diff(arm, twin, exact=True)
         err, nbits = device_diff(arm, ctxs["plain"], exact=True)
         bad = arm.compare_data(ctxs["plain"], field_epsilon=FIELD_EPS)
         if twin_bad or twin_bits or bad or not finite(arm):
-            raise RuntimeError(f"{what}: {twin_bad} mismatches ({twin_bits} "
+            raise RuntimeError(f"{case}: {twin_bad} mismatches ({twin_bits} "
                                f"cells' bits) against the -no-skew twin, "
                                f"{bad} against the plain version, finite "
                                f"{finite(arm)}")
@@ -5103,33 +5158,33 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
         # K7 over the arm: member 0 holds the stream run's seed
         bctx, ens = member_batch(fac, env, st, r, eb, sizes, 3,
                                  lambda c, i: seed_device(c, 17 + i,
-                                                          physical=True))
+                                                          physical=phys))
         zero_launch_counts()
         ens.run(0, steps - 1)
         bgot = {k: v for k, v in launch_counts().items() if v}
         if bgot != {"batched_stages_stream": steps} \
                 or ens.tiling["kernel"] != "batched_stages_step" \
                 or not ens.tiling["skew"]:
-            raise RuntimeError(f"{what}: K7 launches {bgot}, tiling "
+            raise RuntimeError(f"{case}: K7 launches {bgot}, tiling "
                                f"{ens.tiling['kernel']} skew "
                                f"{ens.tiling['skew']}")
         solos = [arm]
         for i in (1, 2):
             c = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2)
-            seed_device(c, 17 + i, physical=True)
+            seed_device(c, 17 + i, physical=phys)
             c.run_solution(0, steps - 1)
             solos.append(c)
         for i, c0 in enumerate(solos):
             with ens.member(i) as c:
                 _d, mb = device_diff(c, c0, exact=True)
             if mb:
-                raise RuntimeError(f"{what}: K7 member {i}: {mb} cells "
+                raise RuntimeError(f"{case}: K7 member {i}: {mb} cells "
                                    "differ from its solo run")
         # one 2-step K7 chunk of the stacked members against the plain
         # version of the batch
         err7, bits7, scale7 = k7_chunk_vs_plain(bctx, ens, steps, 2)
         if not err7 <= FIELD_EPS * scale7:
-            raise RuntimeError(f"{what}: K7 over the arm and "
+            raise RuntimeError(f"{case}: K7 over the arm and "
                                "plain_batched_chunk disagree: max|d|="
                                f"{err7:.3e} (field max {scale7:.3e})")
         bkern, bstate = bctx._batched_kernel(), ens._stack_states()
@@ -5143,7 +5198,7 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
                      ("bound_ms", k7_bound(bctx, 3)[0])):
             k7[k] += v
         plan = kern.spec.stages_stream.record()
-        log(f"{what}: the stream arm (plane tile {plan['plane_tile']} by "
+        log(f"{case}: the stream arm (plane tile {plan['plane_tile']} by "
             f"{plan['threads']} threads, lags {plan['lags']}, "
             f"{plan['smem_bytes']} B, {plan['segments']} segment(s)) "
             f"launches {got}, bit-equal to its -no-skew twin "
@@ -5159,21 +5214,22 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
             f"[{card}]")
         del ctxs, arm, twin, kern, state, bctx, ens, bkern, bstate, solos
         release()
-    phase17a_rtm(env, card, solo, k7)
-    n = len(cases) + len(SS_RTM)
-    log(f"phase 17 (a): {n} cases summed: the stream arm {solo['ms']:.3f} "
+    if rtm:
+        phase17a_rtm(env, card, solo, k7)
+    n = len(cases) + (len(SS_RTM) if rtm else 0)
+    log(f"phase {phase}: {n} cases summed: the stream arm {solo['ms']:.3f} "
         f"ms, its -no-skew twins {solo['twin_ms']:.3f} ms, K7 x3 "
         f"{k7['ms']:.3f} ms [{card}]")
     common = {"route": "cuda", "source": SS_SOURCE, "bound_by": "bytes",
-              "library_ms": None, "path": "phase 17 (a)"}
-    return [dict(common, name=f"stages_step (K6 stream arm: {n} cases at "
+              "library_ms": None, "path": f"phase {phase}"}
+    return [dict(common, name=f"stages_step ({what}: {n} cases at "
                               "mid width, one launch each, summed)",
                  replaces=SS_REPLACES, launches=solo["launches"],
                  max_abs_err=solo["err"], ms=solo["ms"],
                  plain_ms=solo["plain_ms"], bound_ms=solo["bound_ms"],
                  twin_ms=solo["twin_ms"]),
-            dict(common, name=f"batched_stages_step (K7 over K6's stream "
-                              f"arm: {n} cases x 3 members at mid width, "
+            dict(common, name=f"batched_stages_step (K7 over the {what}: "
+                              f"{n} cases x 3 members at mid width, "
                               "summed)",
                  replaces=SS_K7_REPLACES, launches=k7["launches"],
                  max_abs_err=k7["err"], ms=k7["ms"],
@@ -5427,6 +5483,150 @@ def phase17(fac, env, card: str, ptxas: dict, awp_body: dict,
 
 
 
+# ---- phase 18: K6's stream arm with scratch sub-stages and rings past
+#      shared memory --------------------------------------------------------
+
+#: Phase 18 (a): the solutions the arm newly takes, at
+#: :data:`SS_MID_SIZES` (stencil, radius, element bytes, seeded in physical
+#: ranges): the scratch sub-stages (tti, test_scratch_3d) and the rings
+#: past shared memory (r=8; ssg and fsg with small material vars, as
+#: :data:`WS_FULL` seeds ssg)
+SS18_MID = (("tti", 2, 4, True), ("tti", 4, 4, True), ("tti", 8, 4, True),
+            ("test_scratch_3d", None, 4, True), ("ssg", 8, 4, False),
+            ("fsg", 8, 4, False))
+#: Phase 18 (d): two other plane tiles (T1, T2, threads) of the arm's
+#: ladder, swept on tti r=2 and ssg r=8 at 512^3 (both plans take 16x32;
+#: the ladder's two thinner rungs are slower still, PERF.md)
+SS18_SWEEP = ((8, 64, 512), (8, 32, 256))
+SS18_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2058-2188 (the stage "
+                 "loop) with its scratch chains (_TileEval.read scratch "
+                 ":175-179, the reset :2003, scratch writes :2105-2147) "
+                 "under the prefetch :1815-1854 and the carry :1955-2056")
+SS18_WS_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the chunk's VMEM "
+                    "tiles of the stage loop :2058-2188 and scratch chains "
+                    ":175-179, :2105-2147), streamed along slot 0 "
+                    "(:1955-2056)")
+
+
+def ss18_specs(fac, env) -> dict:
+    """Phase 18's kernels, for phase 1's parallel build: each solution's
+    K6 source (its stream arm's entries in it) and the swept plane
+    tiles'."""
+    from yask_tpu_torch.ops import fused_stencil
+    out = {}
+    for st, r, eb, _phys in SS18_MID:
+        ctx = a3_ctx(fac, env, st, r, eb, (16, 16, 16), "fused")
+        out[f"{st} r={r} {eb} B (K6 stream arm, phase 18)"] = \
+            fused_stencil.FusedKernel(ctx._program).spec
+        if (st, r) in (("tti", 2), ("ssg", 8)):
+            for rung in SS18_SWEEP:
+                out[f"{st} r={r} (K6 stream arm at {rung})"] = \
+                    stream_kernel(ctx._program, False, rung).spec
+    return out
+
+
+def phase18b(fac, env, card: str, twins: dict, full: int = 512) -> list:
+    """Phase 18 (b) and (d): tti r=2, r=4 and r=8 and ssg r=8 at
+    ``full``³ fp32 on the arm, each from the seed and steps of its
+    ``-no-skew`` twin (``twins``: phase 9 (c)'s tti r=2 and phase 15
+    (a)'s r=8 rows, with their final states' digests; tti r=4's twin runs
+    here, 2 launches, its body being the 1x1x32 rung), the final states
+    bit-equal, 3 launches of the arm and 3 of the twin (not tti r=4's)
+    under :func:`profile_launches`; tti r=2 and ssg r=8 with the
+    arm's other plane tiles (:data:`SS18_SWEEP`).  Returns the
+    ``kernels`` entries."""
+    import torch
+    entries = []
+    for st, r, how, twin in (
+            ("tti", 2, dict(stream_sweep=SS18_SWEEP), twins["tti2"]),
+            ("tti", 4, dict(warm=1, trials=1, steps=1, plain_g=full // 2),
+             None),
+            ("tti", 8, dict(warm=1, trials=3, steps=5, plain_g=full // 2),
+             twins["tti8"]),
+            ("ssg", 8, dict(warm=1, trials=3, steps=5, plain_g=full // 2,
+                            seed=WS_FULL[1][2], stream_sweep=SS18_SWEEP),
+             twins["ssg8"])):
+        kind = "scratch sub-stages" if st == "tti" and r < 8 \
+            else "rings past shared memory"
+        if twin is None:
+            # tti r=4's body takes the 1x1x32 rung (~5 s a launch at
+            # 512^3): 2 launches of the run, 1 timed
+            twin = family_full(fac, env, card, st, r, "the -no-skew body",
+                               full, sweep=False, cli="-no-skew",
+                               digest=True, reps=1, **how)
+            twin.update(name=f"stages_step (K6's scratch arm, the -no-skew "
+                             f"body: {st} r={r} {full}^3 fp32)",
+                        replaces=SS18_REPLACES, path="phase 18 (b), twin")
+            entries.append(twin)
+            torch.cuda.empty_cache()
+        e = family_full(fac, env, card, st, r, f"K6 stream arm, {kind}",
+                        full, sweep=False, digest=True, profile=True,
+                        profile_body=r != 4, **how)
+        digest, prof = e.pop("state_digest"), e.pop("profile")
+        same = digest == twin.pop("state_digest")
+        log(f"phase 18 (b): {st} r={r} {full}^3 fp32: the stream arm "
+            f"{e['ms']:.3f} ms/launch, {e['step_ms']:.3f} ms/step, share "
+            f"{e['bound_ms'] / e['ms']:.3f} of {e['bound_ms']:.3f} ms; its "
+            f"-no-skew twin ({twin['name']}, the same seed and steps) "
+            f"{twin['ms']:.3f} ms/launch, {twin['step_ms']:.3f} ms/step: "
+            f"{twin['ms'] / e['ms']:.2f}x per launch; final states "
+            f"bit-equal: {same}; 3 launches of each from one state under "
+            f"torch.profiler (ms per launch by kernel): {json.dumps(prof)} "
+            f"[{card}]")
+        if not same:
+            raise RuntimeError(f"phase 18 (b): {st} r={r} at {full}^3: the "
+                               "stream arm and its -no-skew twin end in "
+                               "other states")
+        e.update(name=f"stages_step (K6 stream arm, {kind}: {st} r={r} "
+                      f"{full}^3 fp32)",
+                 replaces=SS18_REPLACES if r < 8 else SS18_WS_REPLACES,
+                 path="phase 18 (b)", body_ms=twin["ms"],
+                 body_step_ms=twin["step_ms"], profile=prof)
+        entries.append(e)
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase18(fac, env, card: str, twins: dict, k7_body: dict,
+            full: int = 512) -> list:
+    """K6's stream arm with scratch sub-stages and rings past shared
+    memory (see the module docstring): (a) :data:`SS18_MID` through
+    :func:`phase17a`; (b) and (d) :func:`phase18b` (``twins``: the
+    ``-no-skew`` rows of phases 9 (c) and 15 (a)); (c) K7 over the arm,
+    tti r=2 8 x (``full`` / 2)³, beside the solo arm and ``k7_body``
+    (phase 12 (b)'s tti batch on K6's body).  Returns the ``kernels``
+    entries."""
+    import torch
+    t_phase = time.perf_counter()
+    entries = phase17a(fac, env, card, cases=SS18_MID, rtm=False,
+                       phase="18 (a)",
+                       what="K6 stream arm, scratch sub-stages and rings "
+                            "past shared memory")
+    torch.cuda.empty_cache()
+    rows = phase18b(fac, env, card, twins, full)
+    entries += rows
+    half = full // 2
+    solo = next(e for e in rows if "tti r=2" in e["name"]
+                and "stream arm" in e["name"])
+    k7 = phase12b(fac, env, card, {"tti": dict(
+        solo, label=f"phase 18 (b), K6 stream arm, {full}^3",
+        points=full ** 3)}, cells=(
+        ("stream", "tti", 2, 4, 8, (half,) * 3, "batched_stages_step",
+         "tti"),), cli="", phase="18 (c)")[0]
+    log(f"phase 18 (c): K7 over the stream arm, tti r=2 8 x {half}^3: "
+        f"{k7['ms']:.3f} ms/launch, {k7['step_ms']:.3f} ms/step; over K6's "
+        f"body (phase 12 (b), -no-skew) {k7_body['ms']:.3f} ms/launch, "
+        f"{k7_body['step_ms']:.3f} ms/step: {k7_body['ms'] / k7['ms']:.2f}x"
+        f" [{card}]")
+    k7.update(name=f"batched_stages_step (K7 over K6's stream arm, scratch "
+                   f"sub-stages: tti r=2 8 x {half}^3 fp32)",
+              replaces=SS_K7_REPLACES, path="phase 18 (c)",
+              body_ms=k7_body["ms"], body_step_ms=k7_body["step_ms"])
+    entries.append(k7)
+    log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> dict:
     """Build every kernel of the path, one ``nvcc`` per source, all
     started together (``cases``: phase 2's solutions and radii).  Returns
@@ -5466,6 +5666,7 @@ def phase1(fac, env, cases: dict) -> dict:
     specs.update(ws_specs(fac, env))
     specs.update(flat_specs(fac, env))
     specs.update(ss_specs(fac, env))
+    specs.update(ss18_specs(fac, env))
     _paths, logs = _build.build_many(
         list({s.name: s.source for s in specs.values()}.items()),
         ptxas_info=True)
@@ -5544,6 +5745,9 @@ def main() -> int:
     release()
     k6_arms = phase9(fac, env, card)
     awp_twin = {"state_digest": k6_arms[1].pop("state_digest")}
+    # phase 18 (b)'s twins: phase 9 (c)'s tti and phase 15 (a)'s r=8 rows
+    twins = {"tti2": dict(k6_arms[0],
+                          state_digest=k6_arms[0].pop("state_digest"))}
     release()
     a3_arms = phase10(fac, env, card)
     release()
@@ -5565,6 +5769,8 @@ def main() -> int:
     k4_arms = phase14(fac, env, card)
     release()
     ws_arms = phase15(fac, env, card)
+    for key, e in zip(("tti8", "ssg8"), ws_arms):
+        twins[key] = dict(e, state_digest=e.pop("state_digest"))
     release()
     flat_arms = phase16(fac, env, card, a3_arms[0])
     release()
@@ -5572,13 +5778,17 @@ def main() -> int:
                   and "rewrite arm: awp" in e["name"])
     ss_arms = phase17(fac, env, card, ptxas, k6_arms[1], awp_twin, k7_awp,
                       k6)
+    release()
+    k7_tti = next(e for e in k7_arms if e.get("path") == "phase 12 (b)"
+                  and "scratch arm: tti" in e["name"])
+    ss18_arms = phase18(fac, env, card, twins, k7_tti)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
-                      + ss_arms}))
+                      + ss_arms + ss18_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -28,7 +28,6 @@ from yask_tpu.runtime.init_utils import init_solution_vars as tpu_init
 from yask_tpu_torch.ops import cuda_emit, fused_stencil
 from yask_tpu_torch.runtime.init_utils import init_solution_vars as port_init
 from yask_tpu_torch.transfer import export_interiors, import_interiors
-from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_ensemble import members_match_solo
 from test_torch_fused import host_kernel
@@ -197,13 +196,15 @@ def test_tti_tiles_fit_the_ladder(r, tile, smem):
 def test_ladder_raises_with_a_reason_when_nothing_fits():
     """Where no rung fits shared memory (tti r=8) the emitter no longer
     raises: it takes the workspace arm and gives its reason, and the
-    solution runs (tests/test_torch_workspace.py holds the arm's code)."""
+    solution runs (tests/test_torch_workspace.py holds the arm's code);
+    K6's stream arm places its rings past shared memory there
+    (tests/test_torch_stream_placement.py)."""
     ctx = port_ctx("tti", 8, "-g 12 -mode fused")
     spec = cuda_emit.emit(ctx._program)
     w = spec.workspace
     assert w["code"] == "workspace_engaged"
     assert "no tile of the ladder fits" in w["detail"]
-    assert spec.stream_cause[0] == "skew_fallback"
+    assert spec.stream_cause is None and spec.stages_stream.placed
     ctx.run_solution(0, 0)
     assert ctx.get_stats().get_tiling()["workspace"]["code"] == \
         "workspace_engaged"
@@ -240,17 +241,25 @@ def test_each_rewriting_stage_gets_its_own_tile():
 
 
 def test_stream_arm_leaves_scratch_to_k6():
+    """What this test pinned before K6's stream arm took scratch
+    sub-stages (its refusal naming ROADMAP.md A5) is gone: tti's scratch
+    sub-stages run on the arm, each at its lag (the trig scratch and the
+    rotated derivatives two planes ahead of the update), and ``-no-skew``
+    leaves them to K6's body."""
     ctx = port_ctx("tti", 2, "-g 12 -mode fused -wf_steps 2")
     import_interiors(ctx, seeded_interiors(ctx, 3))
     ctx.run_solution(0, 1)
     til = ctx.get_stats().get_tiling()
-    assert til["kernel"] == "stages_step" and til["skew_dims"] == []
+    assert til["kernel"] == "stages_step" and til["skew_dims"] == ["x"]
     assert til["scratch_stages"] == 2
-    why = {r["code"]: r["detail"] for r in til["skew_reasons"]}
-    assert "scratch" in why["skew_ineligible"] \
-        and "ROADMAP.md A5" in why["skew_ineligible"]
-    with pytest.raises(YaskException, match="scratch.*A5"):
-        cuda_emit.skew_engaged_dims(ctx._program, skew=True)
+    assert til["stages_stream"]["lags"] == [2, 2, 0]
+    why = {r["code"]: r for r in til["skew_reasons"]}
+    assert why["skew_engaged"]["kernel"] == "stages_stream"
+    assert cuda_emit.skew_engaged_dims(ctx._program, skew=True) == ["x"]
+    off = port_ctx("tti", 2, "-g 12 -mode fused -wf_steps 2 -no-skew")
+    til = off._fused_spec_kernel().tiling(2)
+    assert til["skew_dims"] == [] and "stages_stream" not in til
+    assert [r["code"] for r in til["skew_reasons"]] == ["skew_disabled"]
 
 
 def test_trapezoid_falls_back_to_k6_for_scratch():

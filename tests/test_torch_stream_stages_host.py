@@ -12,7 +12,9 @@ and the plain version it runs on CPU tensors.
 * awp, ssg and fsg under ``-mode fused`` (the plain version on the CPU)
   against ``yask_tpu`` at ``field_epsilon=1e-4`` (the reference's
   staggered sums, as tests/test_torch_scratch.py has it), each run's
-  ``get_tiling()`` reporting the arm."""
+  ``get_tiling()`` reporting the arm; tti at r=2, 4 and 8,
+  test_scratch_3d and ssg r=8 against ``jit`` and ``pallas``
+  (interpret mode) alike."""
 
 import ctypes
 import shutil
@@ -38,7 +40,8 @@ from test_torch_stencils import tpu_interiors
 ENGAGED = ["awp", "awp_abc", "awp_elastic", "awp_elastic_abc", "fsg",
            "fsg2", "fsg_abc", "fsg2_abc", "fsg_merged", "fsg_merged_abc",
            "ssg", "ssg2", "ssg_merged", "test_boundary_3d", "test_stages_3d"]
-#: and those with scratch vars, which keep K6's body at every size
+#: and those with scratch vars, which it takes too (their scratch
+#: sub-stages computed rings)
 SCRATCH = ["test_scratch_3d", "tti"]
 
 
@@ -97,8 +100,7 @@ def test_gate_codes_of_every_3d_k6_solution(name, eb):
     ctx.prepare_solution()
     kern = ctx._fused_spec_kernel()
     assert kern.spec.stages > 1
-    want = ("skew_engaged" if name in ENGAGED and eb != 2
-            else "skew_ineligible")
+    want = "skew_engaged" if eb != 2 else "skew_ineligible"
     assert codes(kern.skew_reasons)[0] == want
     if want == "skew_engaged":
         assert kern.skew_dims == ["x"]
@@ -108,9 +110,7 @@ def test_gate_codes_of_every_3d_k6_solution(name, eb):
         assert kern.spec.stages_stream.smem_bytes <= cuda_emit.SMEM_LIMIT
     else:
         why = kern.skew_reasons[0]["detail"]
-        assert "ROADMAP.md A5" in why
-        assert ("scratch" in why) if name in SCRATCH else \
-            ("element size 2" in why)
+        assert "ROADMAP.md A5" in why and "element size 2" in why
         assert kern.spec.stages_stream is None
         assert "YT_STAGES_STREAM_ENTRIES" not in kern.spec.source
         with pytest.raises(YaskException, match="infeasible.*A5"):
@@ -152,11 +152,28 @@ def test_every_rung_but_one_is_taken_at_element_size_8():
 
 
 def test_workspace_arm_falls_back():
+    """The workspace arm's solutions (ssg r=8) take the stream arm, its
+    rings placed past shared memory; it falls back only where the
+    computed rings alone exceed shared memory and the workspace a block
+    may take (``SMEM_LIMIT`` and ``WS_STAGES_BLOCK_BYTES``, both lowered
+    here), with their size."""
     ctx = port_ctx("ssg", 8, "-g 12 -mode fused")
     kern = ctx._fused_spec_kernel()
-    assert kern.spec.workspace and kern.skew_dims == []
-    assert codes(kern.skew_reasons) == ["skew_fallback"] * 2
-    assert "ROADMAP.md A5" in kern.skew_reasons[0]["detail"]
+    assert kern.spec.workspace and kern.skew_dims == ["x"]
+    assert codes(kern.skew_reasons) == ["skew_engaged", "skew_ineligible"]
+    assert "rings past shared memory" in kern.skew_reasons[0]["detail"]
+    assert kern.spec.stages_stream.placed
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cuda_emit, "SMEM_LIMIT", 16384)
+        m.setattr(cuda_emit, "WS_STAGES_BLOCK_BYTES", 1024)
+        spec = cuda_emit.emit(ctx._program)
+        reasons = []
+        assert cuda_emit.skew_engaged_dims(ctx._program, reasons=reasons,
+                                           spec=spec) == []
+    assert spec.workspace and spec.stages_stream is None
+    assert codes(reasons) == ["skew_fallback"] * 2
+    why = reasons[0]["detail"]
+    assert "ROADMAP.md A5" in why and "1024 bytes of workspace" in why
 
 
 def test_no_skew_keeps_fused_stages_kernel(monkeypatch):
@@ -283,28 +300,48 @@ def test_host_path_of_the_entries_matches_plain(name, tmp_path):
                for n, o in zip(spec.outputs, outs2) for i in (0, 1))
 
 
-@pytest.mark.parametrize("name", ["awp", "ssg", "fsg"])
-def test_fused_matches_yask_tpu_and_reports_the_arm(name):
+#: (solution, radius, the reference's modes, the plan's plane tile at
+#: g = 20): the arm's solutions with scratch sub-stages and those whose
+#: rings lie past shared memory (r=8) also against ``yask_tpu``'s pallas
+#: in interpret mode
+CROSS = [("awp", None, ("jit",), [16, 32]), ("ssg", None, ("jit",), [16, 32]),
+         ("fsg", None, ("jit",), [16, 32]),
+         ("tti", 2, ("jit", "pallas"), [16, 32]),
+         ("tti", 4, ("jit", "pallas"), [8, 32]),
+         ("tti", 8, ("jit", "pallas"), [16, 32]),
+         ("test_scratch_3d", None, ("jit", "pallas"), [16, 32]),
+         ("ssg", 8, ("jit", "pallas"), [16, 32])]
+
+
+@pytest.mark.parametrize("name,r,modes,tile", CROSS, ids=[
+    n if r is None and n != "test_scratch_3d" else f"{n}-{r}"
+    for n, r, _m, _t in CROSS])
+def test_fused_matches_yask_tpu_and_reports_the_arm(name, r, modes, tile):
     """On CPU tensors ``-mode fused`` runs the plain version, which matches
-    the reference's ``jit`` from the shared ``init_solution_vars`` law;
-    the tiling reports the arm the card would run, and no kernel
-    launches."""
-    mine = port_ctx(name, None, "-g 20 -mode fused -wf_steps 2")
+    the reference's ``jit`` (and ``pallas``, interpret mode) from the
+    shared ``init_solution_vars`` law; the tiling reports the arm the
+    card would run, and no kernel launches."""
+    mine = port_ctx(name, r, "-g 20 -mode fused -wf_steps 2")
     port_init(mine)
-    tfac = yask_tpu.yk_factory()
-    theirs = tfac.new_solution(tfac.new_env(), stencil=name)
-    theirs.apply_command_line_options("-g 20")
-    theirs.get_settings().mode = "jit"
-    theirs.prepare_solution()
-    tpu_init(theirs)
     n0 = fused_stencil.stages_step.stream_launches
     mine.run_solution(0, 3)
-    theirs.run_solution(0, 3)
     assert fused_stencil.stages_step.stream_launches == n0
-    assert mismatches(export_interiors(mine), tpu_interiors(theirs),
-                      field_epsilon=1e-4) == 0
+    for mode in modes:
+        tfac = yask_tpu.yk_factory()
+        theirs = tfac.new_solution(tfac.new_env(), stencil=name, radius=r)
+        theirs.apply_command_line_options("-g 20")
+        theirs.get_settings().mode = mode
+        theirs.get_settings().wf_steps = 2
+        theirs.prepare_solution()
+        tpu_init(theirs)
+        theirs.run_solution(0, 3)
+        assert mismatches(export_interiors(mine), tpu_interiors(theirs),
+                          field_epsilon=1e-4) == 0, mode
     til = mine.get_stats().get_tiling()
     assert til["kernel"] == "stages_step" and til["skew"] is True
     assert til["skew_dims"] == ["x"]
     assert til["name"].endswith("_stages_stream")
-    assert til["stages_stream"]["plane_tile"] == [16, 32]
+    assert til["stages_stream"]["plane_tile"] == tile
+    assert ("workspace" in set(til["stages_stream"]["computed_ring_places"])
+            or "global" in set(til["stages_stream"]["ring_places"].values())
+            ) == (r == 8)

@@ -129,7 +129,10 @@ def test_r8_solutions_past_shared_memory_emit_and_prepare(name):
     til = ctx.get_stats().get_tiling()
     assert til["workspace"]["tile"] == list(kern.spec.tile)
     assert til["workspace"]["cells_per_point"] == w["cells_per_point"]
-    assert til["skew_dims"] == []
+    # K6's stream arm takes them too, its rings placed past shared memory
+    # (the workspace arm is their -no-skew body)
+    assert til["skew_dims"] == ["x"] and kern.spec.stages_stream.placed
+    assert "YT_STAGES_STREAM_ENTRIES(" in kern.spec.source
 
 
 def test_workspace_tile_has_the_fewest_cells_under_the_cap():

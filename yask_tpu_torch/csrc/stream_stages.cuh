@@ -52,7 +52,26 @@
 //     parted by barriers;
 //   * every output cell is written exactly once: interior cells by the
 //     last sub-stage that writes them, pads by a grid-stride pass
-//     (flat_pads), so the wrapper takes torch.empty.
+//     (flat_pads), so the wrapper takes torch.empty;
+//   * a scratch var is a computed ring with no output, its sub-stage at
+//     its lag like any other; its planes past the domain are computed
+//     from the pads out to its write halo (plain_region's clip), the
+//     first segment's from -clip_lo0 on, the last one's up to n0 +
+//     clip_hi0 - 1, and cells past the clip hold 0;
+//   * where no plane tile's rings fit shared memory (r = 8: tti, ssg,
+//     fsg), they are placed past it (the Spec prints SS_WS_ELEMS and
+//     ss_glob, tile_planner._place_rings): the computed rings first, in
+//     shared memory while they fit and past it in the block's slice of a
+//     device-memory workspace (cring_at, the workspace arm's tile_at
+//     rule), written by one sub-stage and read by the next across the
+//     barrier that parts them; then the staged inputs' rings by their
+//     readers' reads per byte.  A staged input left without a ring is read
+//     from its own allocation, which is its ring: nothing is copied.  Every
+//     cell a sub-stage computes lies in its plain region, whose reads stay
+//     inside the allocation (the pads cover each clip plus its read
+//     offsets), so those reads need no guard, as K6's body reads its
+//     other inputs.  The wrapper keeps the resident blocks' slices within
+//     the card's 50 MB L2.
 //
 // The same Spec compiles on the host (no __CUDACC__): host_stages_stream()
 // runs K6's host loop (host_stages) and zeroes the pads, which is how the
@@ -65,9 +84,45 @@ namespace yt {
 
 template <class S>
 struct StagesStreamParams {
-  ParamsOf<S> p;  // K6's tables (K7's member strides and count)
-  int seg;        // planes of slot 0 per segment
+  ParamsArg<S, false> p;  // K6's tables (K7's member strides and count)
+  int seg;                // planes of slot 0 per segment
+  typename S::real_t* ws;  // SS_WS_ELEMS elements per block (SsPlaceOf)
 };
+
+// Rings past shared memory (a Spec that prints SS_WS_ELEMS): staged input
+// k has no ring where ss_glob(k), and a computed ring at or past SS_ELEMS
+// lives in the block's workspace slice.
+template <class S, class = void>
+struct SsPlaceOf {
+  static constexpr bool value = false;
+  YT_HD static constexpr bool global(int) { return false; }
+};
+template <class S>
+struct SsPlaceOf<S, std::void_t<decltype(S::SS_WS_ELEMS)>> {
+  static constexpr bool value = true;
+  YT_HD static constexpr bool global(int k) { return S::ss_glob(k) != 0; }
+};
+
+// The elements of a block's workspace slice (0 without one).
+template <class S>
+YT_HD constexpr int ss_ws_elems() {
+  if constexpr (SsPlaceOf<S>::value)
+    return S::SS_WS_ELEMS;
+  else
+    return 0;
+}
+
+// A computed ring's storage: shared memory, or past SS_ELEMS the block's
+// workspace slice.
+template <class S, class T>
+YT_HD inline T* cring_at(T* smem, T* ws, int off) {
+  if constexpr (SsPlaceOf<S>::value) {
+    return off < S::SS_ELEMS ? smem + off : ws + (off - S::SS_ELEMS);
+  } else {
+    (void)ws;
+    return smem + off;
+  }
+}
 
 // Rows and row length of staged input k's ring planes, and of computed
 // tile b's (the in-plane region of its writing sub-stage).
@@ -100,8 +155,8 @@ YT_HD inline int ring_slot(int D, int it, int d) {
 
 // ---- host path: K6's host loop, then the pads ----------------------------
 template <class S>
-int host_stages_stream(const ParamsOf<S>& p) {
-  host_stages<S>(p);
+int host_stages_stream(const ParamsArg<S, false>& p) {
+  host_stages<S, false>(p);
   flat_pads<S>(p, 0, 1);
   return 0;
 }
@@ -112,11 +167,13 @@ int host_stages_stream(const ParamsOf<S>& p) {
 
 // Reads of sub-stage K at plane z + ss_lag(K) (walk step it = z minus the
 // segment's first walk plane): staged inputs from their rings, others
-// from global memory, earlier sub-stages' results from their rings.
+// (and ring-less staged inputs) from global memory, earlier sub-stages'
+// results from their rings.
 template <class S, int K>
 struct StreamStageReader {
   const ParamsOf<S>* p;
   const typename S::real_t* smem;
+  const typename S::real_t* ws;  // the block's workspace slice
   int it;
   int m;           // the member (0 in a solo launch)
   int l1, l2;      // point relative to the plane tile (may lie in the
@@ -125,7 +182,7 @@ struct StreamStageReader {
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
-    if constexpr (k >= 0) {
+    if constexpr (k >= 0 && !SsPlaceOf<S>::global(k)) {
       constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
       const int s = ring_slot(S::ss_depth(k), it,
                               S::ss_rlo(k) + S::ss_lag(K) + o0);
@@ -142,8 +199,9 @@ struct StreamStageReader {
     constexpr int C1 = cring_e1<S>(B), C2 = cring_e2<S>(B);
     const int s = ring_slot(S::ss_cdepth(B), it,
                             S::ss_clo(B) + S::ss_lag(K) + o0);
-    return smem[S::ss_cring(B) + (s * C1 + (l1 + S::sub_lo1(W) + o1)) * C2
-                + (l2 + S::sub_lo2(W) + o2)];
+    return cring_at<S>(smem, ws, S::ss_cring(B))[
+        (s * C1 + (l1 + S::sub_lo1(W) + o1)) * C2
+        + (l2 + S::sub_lo2(W) + o2)];
   }
 };
 
@@ -213,7 +271,8 @@ __device__ __forceinline__ void ring_fetch(const ParamsOf<S>& p,
 // Planes zz - ss_rlo(k) .. zz + ss_rhi(k) of every ring input k (the
 // planes walk plane zz reads; first) or plane zz + ss_rhi(k) alone (the
 // newest one it reads), into their slots; z0 is the segment's first walk
-// plane, whose lowest plane takes slot 0.
+// plane, whose lowest plane takes slot 0.  A ring-less input copies
+// nothing.
 template <class S, bool BATCH, int k = 0>
 __device__ __forceinline__ void ring_fetch_planes(const ParamsOf<S>& p,
                                                   typename S::real_t* smem,
@@ -222,9 +281,10 @@ __device__ __forceinline__ void ring_fetch_planes(const ParamsOf<S>& p,
                                                   int tid) {
   if constexpr (k < S::NTILED) {
     constexpr int D = S::ss_depth(k), lo = S::ss_rlo(k), hi = S::ss_rhi(k);
-    for (int c = first ? zz - lo : zz + hi; c <= zz + hi; ++c)
-      ring_fetch<S, k, BATCH>(p, smem, m, c, (c - (z0 - lo)) % D, b1, b2,
-                              tid);
+    if constexpr (!SsPlaceOf<S>::global(k))
+      for (int c = first ? zz - lo : zz + hi; c <= zz + hi; ++c)
+        ring_fetch<S, k, BATCH>(p, smem, m, c, (c - (z0 - lo)) % D, b1, b2,
+                                tid);
     ring_fetch_planes<S, BATCH, k + 1>(p, smem, m, z0, zz, first, b1, b2,
                                        tid);
   }
@@ -236,8 +296,9 @@ __device__ __forceinline__ void ring_fetch_planes(const ParamsOf<S>& p,
 // Results go to its computed rings and, for the tile's own points of
 // the segment [zs, ze), to the outputs it is the last writer of.
 template <class S, int K, bool BATCH>
-__device__ __forceinline__ void stream_sub(const ParamsOf<S>& p,
-                                           typename S::real_t* smem, int m,
+__device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
+                                           typename S::real_t* smem,
+                                           typename S::real_t* ws, int m,
                                            int it, int z, int zs, int ze,
                                            int b1, int b2, int tid) {
   typedef typename S::real_t real_t;
@@ -259,7 +320,7 @@ __device__ __forceinline__ void stream_sub(const ParamsOf<S>& p,
       CalcOf<S> v[S::MAXV];
       if (in0 && g1 >= plo[1] && g1 < phi[1] && g2 >= plo[2]
           && g2 < phi[2]) {
-        const StreamStageReader<S, K> rd{&p, smem, it, m, l1, l2,
+        const StreamStageReader<S, K> rd{&p, smem, ws, it, m, l1, l2,
                                          g0, g1, g2};
         int g[3];
         stage_at<S, K, false>(p, rd, g, g0, g1, g2, v);
@@ -279,16 +340,17 @@ __device__ __forceinline__ void stream_sub(const ParamsOf<S>& p,
                    + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
                    + g2 * p.out_s[o][2]] = w;
         if (b >= 0)
-          smem[S::ss_cring(b)
-               + (ring_slot(S::ss_cdepth(b), it, S::ss_clo(b) + L)
-                  * cring_e1<S>(b) + r) * cring_e2<S>(b)
-               + (i - r * R2)] = w;
+          cring_at<S>(smem, ws, S::ss_cring(b))[
+              (ring_slot(S::ss_cdepth(b), it, S::ss_clo(b) + L)
+               * cring_e1<S>(b) + r) * cring_e2<S>(b)
+              + (i - r * R2)] = w;
       }
     }
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    stream_sub<S, K + 1, BATCH>(p, smem, m, it, z, zs, ze, b1, b2, tid);
+    stream_sub<S, K + 1, BATCH>(p, smem, ws, m, it, z, zs, ze, b1, b2,
+                                tid);
   }
 }
 
@@ -297,8 +359,9 @@ __device__ __forceinline__ void stream_sub(const ParamsOf<S>& p,
 // widest slot-0 reach starts) on, one barrier before each plane's
 // sub-stages.
 template <class S, bool BATCH>
-__device__ __forceinline__ void stream_item(const ParamsOf<S>& p,
-                                            typename S::real_t* smem, int m,
+__device__ __forceinline__ void stream_item(const ParamsArg<S, false>& p,
+                                            typename S::real_t* smem,
+                                            typename S::real_t* ws, int m,
                                             int zs, int ze, int b1, int b2,
                                             int tid) {
   const int z0 = zs - S::SS_W;
@@ -322,7 +385,8 @@ __device__ __forceinline__ void stream_item(const ParamsOf<S>& p,
     cp_async_commit();
     cp_async_wait<S::SS_P>();
     __syncthreads();
-    stream_sub<S, 0, BATCH>(p, smem, m, z - z0, z, zs, ze, b1, b2, tid);
+    stream_sub<S, 0, BATCH>(p, smem, ws, m, z - z0, z, zs, ze, b1, b2,
+                            tid);
   }
   cp_async_wait<0>();
 }
@@ -330,15 +394,18 @@ __device__ __forceinline__ void stream_item(const ParamsOf<S>& p,
 // K6's stream arm (BATCH = false) and K7's over it (BATCH = true): a grid
 // of at most the card's resident blocks, each walking the work items
 // blockIdx.x, + gridDim.x, ... (x columns fastest, then y columns, then
-// segments, then members); a barrier parts one item's last reads from
-// the next one's prologue.  Then every output's pads get 0 (flat_pads).
+// segments, then members) with its own workspace slice (SsPlaceOf); a
+// barrier parts one item's last reads from the next one's prologue.  Then
+// every output's pads get 0 (flat_pads).
 template <class S, bool BATCH>
 __global__ void __launch_bounds__(S::SS_NT, S::SS_MIN)
 stream_stages_kernel(const __grid_constant__ StagesStreamParams<S> q) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  const ParamsOf<S>& p = q.p;
+  const ParamsArg<S, false>& p = q.p;
+  real_t* ws = q.ws ? q.ws + (long long)blockIdx.x * ss_ws_elems<S>()
+                    : nullptr;
   const int tid = threadIdx.x;
   const long long gx = (p.n[2] + S::SS_T2 - 1) / S::SS_T2;
   const long long gy = (p.n[1] + S::SS_T1 - 1) / S::SS_T1;
@@ -349,7 +416,7 @@ stream_stages_kernel(const __grid_constant__ StagesStreamParams<S> q) {
     const long long yz = i / gx, sm = yz / gy;
     const int zs = int(sm % gs) * q.seg;
     const int ze = zs + q.seg < p.n[0] ? zs + q.seg : p.n[0];
-    stream_item<S, BATCH>(p, smem, BATCH ? int(sm / gs) : 0, zs, ze,
+    stream_item<S, BATCH>(p, smem, ws, BATCH ? int(sm / gs) : 0, zs, ze,
                           int(yz % gy) * S::SS_T1, int(i % gx) * S::SS_T2,
                           tid);
   }
@@ -367,7 +434,9 @@ template <class S, bool BATCH>
 int launch_stages_stream(StagesStreamParams<S> p, long long nres,
                          cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SS_ELEMS;
-  if (nres < 1 || p.seg < 1) return int(cudaErrorInvalidConfiguration);
+  // a launch with computed rings past shared memory needs its workspace
+  if (nres < 1 || p.seg < 1 || (ss_ws_elems<S>() > 0 && !p.ws))
+    return int(cudaErrorInvalidConfiguration);
   const cudaError_t e = cudaFuncSetAttribute(
       stream_stages_kernel<S, BATCH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -385,16 +454,19 @@ int launch_stages_stream(StagesStreamParams<S> p, long long nres,
 
 // K6's stream arm over nm members (BATCH; K7) or one: K7's arguments
 // (member strides null for a solo launch), the segment length, the step,
-// the resident blocks (the grid; the host path ignores it) and the stream.
+// the workspace (nres slices of SS_WS_ELEMS elements where rings lie past
+// shared memory, else null), the resident blocks (the grid; the host
+// path ignores both) and the stream.
 template <class S, bool BATCH>
 int run_stages_stream(void* in_ptrs, void* in_strides, void* in_mstrides,
                       void* out_ptrs, void* out_strides, void* out_mstrides,
-                      void* sizes, int nm, int seg, int t, long long nres,
-                      void* stream) {
-  StagesStreamParams<S> q;
+                      void* sizes, int nm, int seg, int t, void* ws,
+                      long long nres, void* stream) {
+  StagesStreamParams<S> q{};
   fill_params<S>(q.p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
   if (BATCH) fill_members<S>(q.p, in_mstrides, out_mstrides, nm);
   q.seg = seg;
+  q.ws = static_cast<typename S::real_t*>(ws);
 #ifdef __CUDACC__
   return launch_stages_stream<S, BATCH>(q, nres,
                                         static_cast<cudaStream_t>(stream));
@@ -422,25 +494,27 @@ int resident_stages_stream(int kind) {
 
 // The C entry points of K6's stream arm for a K6 Spec that prints SS_T1:
 // solo (K6's arguments), member batch (K7's), each with the segment length
-// before the step and the resident blocks before the stream, and the
-// resident blocks of a launch kind, which the wrapper asks once.
+// before the step and the workspace and resident blocks before the
+// stream, and the resident blocks of a launch kind, which the wrapper asks
+// once.
 #define YT_STAGES_STREAM_ENTRIES(NAME, S)                                    \
   extern "C" int NAME##_stages_stream(void* in_ptrs, void* in_strides,       \
                                       void* out_ptrs, void* out_strides,     \
-                                      void* sizes, int seg, int t,           \
+                                      void* sizes, int seg, int t, void* ws, \
                                       long long nres, void* stream) {        \
     return yt::run_stages_stream<S, false>(in_ptrs, in_strides, nullptr,     \
                                            out_ptrs, out_strides, nullptr,   \
-                                           sizes, 1, seg, t, nres, stream);  \
+                                           sizes, 1, seg, t, ws, nres,       \
+                                           stream);                          \
   }                                                                          \
   extern "C" int NAME##_stages_stream_batched(                               \
       void* in_ptrs, void* in_strides, void* in_mstrides, void* out_ptrs,    \
       void* out_strides, void* out_mstrides, void* sizes, int nm, int seg,   \
-      int t, long long nres, void* stream) {                                 \
+      int t, void* ws, long long nres, void* stream) {                       \
     return yt::run_stages_stream<S, true>(in_ptrs, in_strides, in_mstrides,  \
                                           out_ptrs, out_strides,             \
                                           out_mstrides, sizes, nm, seg, t,   \
-                                          nres, stream);                     \
+                                          ws, nres, stream);                 \
   }                                                                          \
   extern "C" int NAME##_stages_stream_resident(int kind) {                   \
     return yt::resident_stages_stream<S>(kind);                              \

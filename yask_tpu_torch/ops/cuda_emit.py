@@ -47,13 +47,16 @@ into one ``Spec`` struct:
   entry ``<name>_stream``): its plane tile, prefetch depth and rings
   (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
   into registers; :func:`skew_engaged_dims` says whether it runs.  A 3-D
-  solution on K6's body without scratch sub-stages, misc or partial-dim
-  outputs, at element size 4 or 8, outside the workspace arm, also gets
-  K6's stream arm (``csrc/stream_stages.cuh``, entries
-  ``<name>_stages_stream`` and ``_stages_stream_batched``): each
-  sub-stage's lag, each staged input's and computed tile's ring
-  (``tile_planner.stages_stream_plan``, over the slot-0 offsets each
-  sub-stage reads, :func:`_stages_stream_plan`) and the outputs' pads.
+  solution on K6's body without misc or partial-dim outputs, at element
+  size 4 or 8, also gets K6's stream arm (``csrc/stream_stages.cuh``,
+  entries ``<name>_stages_stream`` and ``_stages_stream_batched``): each
+  sub-stage's lag (scratch sub-stages included), each staged input's and
+  computed tile's ring (``tile_planner.stages_stream_plan``, over the
+  slot-0 offsets each sub-stage reads, :func:`_stages_stream_plan`) and
+  the outputs' pads; where no plane tile's rings fit shared memory (the
+  workspace arm's solutions), the rings' placement (``ss_glob``,
+  ``SS_WS_ELEMS``: ring-less staged inputs, computed rings in a
+  workspace).
 
 Value types follow the plain version's (PyTorch's) promotion, so the
 kernel rounds where the tensors do: a tensor op with a Python scalar runs
@@ -486,6 +489,10 @@ class _Printer:
         # its slot-0 read offsets (K6's stream arm sizes its rings by them)
         self.reads0: Dict[int, Dict[int, List[int]]] = {}
         self.cmp_reads0: Dict[int, Dict[int, List[int]]] = {}
+        # and {sub-stage: its distinct read offsets} (the weights of the
+        # stream arm's rings past shared memory)
+        self.offs3: Dict[int, Dict[int, set]] = {}
+        self.cmp_offs3: Dict[int, Dict[int, set]] = {}
         self.sub = 0                    # the current sub-stage (copy)
         self.base = 0                   # the sub-stage it copies
         self.dw: Tuple[int, ...] = ()   # its offset per outer dim
@@ -558,6 +565,8 @@ class _Printer:
 
     def _note_reach(self, a: int, offs: List[int]) -> None:
         self._note_read0(self.reads0, a, offs[0])
+        self.offs3.setdefault(a, {}).setdefault(self.sub, set()).add(
+            tuple(offs[:3]))
         for s_, o in enumerate(offs[:3]):
             lo_hi = self.reach[a][s_]
             lo_hi[0] = max(lo_hi[0], self.lo[s_] - o)
@@ -760,6 +769,8 @@ class _Printer:
                 f"same-step read of '{name}' before a stage computed it")
         b = self.cmp_of[(sk, w)]
         self._note_read0(self.cmp_reads0, b, offs[0])
+        self.cmp_offs3.setdefault(b, {}).setdefault(self.sub, set()).add(
+            tuple(offs[:3]))
         lo, hi = self.cmp_geom[b]
         # K4 (no copies): the outer slots' regions and offsets too
         ns = 3 if self.copies else self.ns
@@ -1105,11 +1116,14 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
                         tiles=None):
     """K6's stream arm (``csrc/stream_stages.cuh``) for a solution on K6's
     body, or None with the reason code and detail.  It takes a 3-D domain
-    without scratch sub-stages, written vars over every dim without misc
-    axes, element size 4 or 8, and rings that fit :data:`SMEM_LIMIT`
+    (scratch sub-stages included: a scratch var is a computed ring), written
+    vars over every dim without misc axes, and element size 4 or 8
     (``tile_planner.stages_stream_plan``: each sub-stage at its lag, each
-    ring sized by the slot-0 offsets its readers read at their lags);
-    ``tiles`` replaces the plan's ladder of plane tiles."""
+    ring sized by the slot-0 offsets its readers read at their lags; where
+    no plane tile's rings fit :data:`SMEM_LIMIT`, the rings placed past
+    it, the computed ones that do not fit in a workspace slice of at most
+    :data:`WS_STAGES_BLOCK_BYTES` per block); ``tiles`` replaces the plan's
+    ladder of plane tiles."""
     from yask_tpu_torch.ops.tile_planner import (STAGES_STREAM_TILES,
                                                  stages_stream_plan)
     dims = list(program.ana.domain_dims)
@@ -1117,11 +1131,6 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
         return None, ("skew_ineligible", f"{len(dims)}-D solution: K6's "
                       "stream arm walks slot 0 of a 3-D domain (its other "
                       "dims are ROADMAP.md A5)")
-    if any(u.scratch for u in pt.subs):
-        return None, ("skew_ineligible", "scratch vars: K6 computes them "
-                      "in sub-stages over regions grown by their write "
-                      "halos (a stream arm with scratch sub-stages is "
-                      "ROADMAP.md A5)")
     arms = [a for a in a3_arms(program) if a != "element size 2"]
     if arms:
         return None, ("skew_ineligible", f"{' and '.join(arms)}: the "
@@ -1143,12 +1152,32 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
         list(pt.computed_sub),
         [offsets(pr.cmp_reads0[b]) for b in range(len(pt.computed))],
         [program.sizes[d] for d in dims], esize, SMEM_LIMIT,
-        tiles or STAGES_STREAM_TILES)
+        tiles or STAGES_STREAM_TILES,
+        in_nreads={a: {j: len(o) for j, o in pr.offs3[a].items()}
+                   for a in tiled},
+        cmp_nreads=[{j: len(o) for j, o in pr.cmp_offs3[b].items()}
+                    for b in range(len(pt.computed))],
+        ws_limit=WS_STAGES_BLOCK_BYTES)
     if plan is None:
-        return None, ("skew_fallback", "the rings of K6's stream arm do "
-                      f"not fit {SMEM_LIMIT} bytes of shared memory even at "
-                      "the smallest plane tile (ROADMAP.md A5)")
+        return None, ("skew_fallback", "the computed rings of K6's stream "
+                      f"arm exceed {SMEM_LIMIT} bytes of shared memory and "
+                      f"{WS_STAGES_BLOCK_BYTES} bytes of workspace per block "
+                      "at every plane tile (ROADMAP.md A5)")
     return plan, None
+
+
+def _placement(rec) -> str:
+    """The reason detail's account of rings past shared memory (K6's
+    stream arm's record), or "" where every ring fits it."""
+    glob = [a for a, p in rec["ring_places"].items() if p == "global"]
+    ws = [b for b, p in enumerate(rec["computed_ring_places"])
+          if p == "workspace"]
+    if not glob and not ws:
+        return ""
+    return (f"; rings past shared memory: staged input(s) {glob} read from "
+            f"their allocations, computed ring(s) {ws} in a workspace of "
+            f"{rec['ws_block_bytes']} B per block, at most "
+            f"{rec['ws_blocks']} blocks ({rec['ws_total_bytes']} B)")
 
 
 def skew_engaged_dims(program, skew=None, max_dims: int = 2,
@@ -1163,8 +1192,9 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     The port streams one dim, slot 0 (the outermost domain dim), one level
     per launch (ROADMAP.md C11): K1's stream arm for a single-stage 3-D
     solution (``spec.stream``), K6's (``spec.stages_stream``, kernel
-    ``stages_stream``) for a multi-stage one without scratch sub-stages,
-    solo or over member batches (K7, ``batched``); ``max_dims`` < 1
+    ``stages_stream``) for a multi-stage or scratch one, its rings past
+    shared memory where they fit no plane tile, solo or over member
+    batches (K7, ``batched``); ``max_dims`` < 1
     (``-skew_dims 0``) leaves it out.  K7 over K1's body keeps its kernel
     (``skew_not_ported``), and the solutions neither arm takes keep theirs
     with the emitter's reason (``spec.stream_cause``).
@@ -1213,7 +1243,10 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                       f"rings {rec['ring_depths']} planes (computed "
                       f"{rec['computed_ring_depths']}), "
                       f"{rec['smem_bytes']} B, {rec['segments']} "
-                      f"segment(s) of {rec['segment_planes']} planes"})
+                      f"segment(s) of {rec['segment_planes']} planes, "
+                      f"{rec['staged_per_point']} staged and "
+                      f"{rec['computed_per_point']} computed cells per "
+                      f"point{_placement(rec)}"})
     else:
         rec = spec.stream.record()
         reasons.append({"code": code, "dim": d0,
@@ -1326,9 +1359,10 @@ def emit(program, push=False, ladder=_TILE_LADDER,
     the tile is the first of ``ladder`` whose shared-memory tiles fit, or
     for K6's body on a 1-D or 2-D solution the first of ``flat_ladder``
     whose two staged buffers and computed tiles fit (the flat arm,
-    :func:`_flat_plan`).  A 3-D solution on K6's body carries K6's stream
-    arm where it can run (:func:`_stages_stream_plan`; ``stream_tiles``
-    replaces its ladder of plane tiles).
+    :func:`_flat_plan`).  A 3-D solution on K6's body, on the workspace
+    arm too, carries K6's stream arm where it can run
+    (:func:`_stages_stream_plan`; ``stream_tiles`` replaces its ladder of
+    plane tiles).
     Where none fits, the workspace arm (:func:`_workspace_plan`): K6's
     body, for one sub-step too, with the tiles past shared memory in a
     device-memory workspace of the card's resident blocks, which walk the
@@ -1516,10 +1550,16 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 
     # ---- K6: several sub-stages per launch (and the workspace arm, one
     #      sub-stage or several) ------------------------------------------
-    ss, ss_cause = None, None
-    if ws is None:
+    if nst > 1:
         ss, ss_cause = _stages_stream_plan(program, pt, tiled, halos, esize,
                                            stream_tiles)
+    else:
+        # one stage past shared memory: K1's stream arm keeps its rings
+        # in shared memory
+        ss, ss_cause = None, ("skew_fallback", "the tiles do not fit "
+                              f"{SMEM_LIMIT} bytes of shared memory at any "
+                              "tile: the workspace arm has no stream arm "
+                              "(ROADMAP.md A5)")
     in_elems = offs
     flat_enum = ""
     if flat:
@@ -1589,29 +1629,30 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
         # K6's stream arm: each sub-stage's lag, each staged input's ring
         # (its lowest and highest plane around the walk's, depth and
         # offset), each computed tile's ring
+        # (rings past shared memory: a ring-less staged input's ring
+        # offset is 0 and ss_glob 1; a computed ring at or past SS_ELEMS
+        # lies in the block's workspace slice of SS_WS_ELEMS elements)
         tabs.append(_table("ss_lag", ss.lags, "0"))
-        rings, o = [], 0
-        for a in tiled:
-            rings.append(o)
-            o += ss.in_elems[a]
         tabs.append(_table("ss_rlo", [ss.in_reach[a][0] for a in tiled],
                            "0"))
         tabs.append(_table("ss_rhi", [ss.in_reach[a][1] for a in tiled],
                            "0"))
         tabs.append(_table("ss_depth", [ss.in_depths[a] for a in tiled],
                            "1"))
-        tabs.append(_table("ss_ring", rings, "0"))
-        rings = []
-        for c in ss.cmp_elems:
-            rings.append(o)
-            o += c
+        tabs.append(_table("ss_ring", [ss.in_offsets.get(a, 0)
+                                       for a in tiled], "0"))
+        if ss.placed:
+            tabs.append(_table("ss_glob", [int(ss.in_place[a] == "global")
+                                           for a in tiled], "0"))
         tabs.append(_table("ss_clo", ss.cmp_lo, "0"))
         tabs.append(_table("ss_cdepth", ss.cmp_depths, "1"))
-        tabs.append(_table("ss_cring", rings, "0"))
+        tabs.append(_table("ss_cring", ss.cmp_offsets, "0"))
         ss_enum = (f",\n           SS_T1 = {ss.tile[0]}, SS_T2 = "
                    f"{ss.tile[1]}, SS_NT = {ss.threads}, SS_MIN = "
                    f"{ss.per_sm}, SS_P = {ss.prefetch}, SS_W = {ss.warm}, "
-                   f"SS_ELEMS = {o}")
+                   f"SS_ELEMS = {ss.smem_elems}")
+        if ss.placed:
+            ss_enum += f", SS_WS_ELEMS = {ss.ws_elems}"
     stages_src = "\n".join(
         f"        if constexpr (K == {k}) {{\n"
         + "\n".join("    " + ln for ln in lines) + "\n        }"
@@ -1642,6 +1683,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
         arm = ""
         if ss is not None:
             entries += f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n"
+        if ss is not None and not ss.placed:
             arm = (f"\n// Stream arm: {ss.tile[0]}x{ss.tile[1]} plane tiles by "
                    f"{ss.threads} threads, rings of {ss.smem_bytes} B.")
     else:
@@ -1651,6 +1693,14 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                if flat else
                f"\n// Workspace arm: {ws['ws_elems']} elements per resident "
                "block past shared memory.")
+        if ss is not None:
+            entries += f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n"
+    if ss is not None and ss.placed:
+        arm += (f"\n// Stream arm: {ss.tile[0]}x{ss.tile[1]} plane tiles by "
+                f"{ss.threads} threads, rings of {ss.smem_bytes} B in shared "
+                f"memory, {ss.ws_elems} elements per resident block in a "
+                f"workspace, {sum(p == 'global' for p in ss.in_place.values())}"
+                " staged input(s) read from their allocations.")
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
 // ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), of K7
@@ -1667,11 +1717,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                       outputs=outputs, tiled=tiled, tile=tile,
                       smem_bytes=offs * esize, halos=halos, stages=nst,
                       workspace=ws or {},
-                      stream_cause=(("skew_fallback", "the tiles do not fit "
-                                     f"{SMEM_LIMIT} bytes of shared memory "
-                                     "at any tile: the workspace arm has no "
-                                     "stream arm (ROADMAP.md A5)")
-                                    if ws is not None else ss_cause),
+                      stream_cause=ss_cause,
                       stages_stream=ss,
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,

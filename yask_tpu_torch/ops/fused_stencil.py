@@ -121,17 +121,23 @@ wrapper with its own counter ``stream_step.launches``; the plain version
 is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
 arm and says why; ``-no-skew`` keeps K1.
 
-K6's stream arm (``-skew``, on a 3-D solution of K6's body without
-scratch vars, misc or partial-dim outputs, at element size 4 or 8): the
-source carries ``<name>_stages_stream`` and ``_stages_stream_batched``
-(``csrc/stream_stages.cuh``), which compute K6's and K7's sub-step with
-each block walking slot 0 of a plane tile, every sub-stage at its lag,
-through rings of staged input planes fed by ``cp.async`` and of
-computed planes.  :func:`stages_step` and :func:`batched_stages_step`
-launch them where :func:`cuda_emit.skew_engaged_dims` engages the arm,
-counted in their ``stream_launches``; the outputs come from
-``torch.empty``, and the card's resident blocks walk the work items
-(:meth:`FusedKernel.stream_resident`).  ``-no-skew`` keeps K6's body.
+K6's stream arm (``-skew``, on a 3-D solution of K6's body without misc
+or partial-dim outputs, at element size 4 or 8, scratch vars included):
+the source carries ``<name>_stages_stream`` and
+``_stages_stream_batched`` (``csrc/stream_stages.cuh``), which compute
+K6's and K7's sub-step with each block walking slot 0 of a plane tile,
+every sub-stage at its lag, through rings of staged input planes fed by
+``cp.async`` and of computed planes.  :func:`stages_step` and
+:func:`batched_stages_step` launch them where
+:func:`cuda_emit.skew_engaged_dims` engages the arm, counted in their
+``stream_launches``; the outputs come from ``torch.empty``, and the
+card's resident blocks walk the work items
+(:meth:`FusedKernel.stream_resident`).  Where the rings fit no plane
+tile's shared memory (the workspace arm's solutions), the computed rings
+past it live in a workspace slice per resident block
+(:meth:`FusedKernel.stream_workspace`, at most as many blocks as keep the
+slices within the card's L2) and the staged inputs without a ring are
+read from their own allocations.  ``-no-skew`` keeps K6's body.
 
 The A3 arms (ROADMAP.md A3: misc dims, partial-dim writes, element size
 2, more than three domain dims) live in the emitted ``Spec`` and the
@@ -377,28 +383,31 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
 
 
 def call_stages_stream_entry(fn, program, spec, ins, outs, t: int, stream,
-                             seg: int = None, nres: int = 1) -> int:
+                             seg: int = None, nres: int = 1,
+                             ws=None) -> int:
     """Call K6's stream entry (``<name>_stages_stream``): K6's tables,
     the segment length (``seg``, the plan's by default), the step index,
-    ``nres`` blocks (the card's resident blocks; the host path ignores
-    it) and the stream.  Returns its error code."""
+    the workspace ``ws`` of ``nres`` slices where rings lie past shared
+    memory (None elsewhere), ``nres`` blocks (the card's resident blocks;
+    the host path ignores both) and the stream.  Returns its error
+    code."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
                                                      outs)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
               ctypes.addressof(n3),
               int(spec.stages_stream.seg if seg is None else seg), int(t),
-              int(nres), stream)
+              _ptr(ws), int(nres), stream)
 
 
 def call_batched_stages_stream_entry(fn, program, spec, ins, outs, nm: int,
                                      t: int, stream, seg: int = None,
-                                     nres: int = 1) -> int:
+                                     nres: int = 1, ws=None) -> int:
     """Call K7's entry over K6's stream arm
     (``<name>_stages_stream_batched``) on (N, *shape) stacks: member 0's
     tables and the member strides (as :func:`call_batched_entry`), the
-    member count, the segment length, the step, ``nres`` blocks and the
-    stream."""
+    member count, the segment length, the step, the workspace (as
+    :func:`call_stages_stream_entry`), ``nres`` blocks and the stream."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
     in_ms = (ctypes.c_longlong * max(len(ins), 1))(
@@ -410,7 +419,7 @@ def call_batched_stages_stream_entry(fn, program, spec, ins, outs, nm: int,
               ctypes.addressof(out_s), ctypes.addressof(out_ms),
               ctypes.addressof(n3), int(nm),
               int(spec.stages_stream.seg if seg is None else seg), int(t),
-              int(nres), stream)
+              _ptr(ws), int(nres), stream)
 
 
 #: the workspace and flat arms' arguments before the stream
@@ -449,18 +458,18 @@ def stream_argtypes():
 
 def stages_stream_argtypes():
     """K6's stream entry's C signature: K6's tables, the segment, the
-    step, the resident blocks, the stream."""
-    return ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_longlong, ctypes.c_void_p])
+    step, the workspace, the resident blocks, the stream."""
+    return ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+            + _WS_ARGS + [ctypes.c_void_p])
 
 
 def batched_stages_stream_argtypes():
     """K7's entry over K6's stream arm: K7's tables with the member
-    strides, the member count, the segment, the step, the resident
-    blocks, the stream."""
+    strides, the member count, the segment, the step, the workspace, the
+    resident blocks, the stream."""
     return ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_void_p])
+                                     ctypes.c_int] + _WS_ARGS
+            + [ctypes.c_void_p])
 
 
 def check_box(program, spec, box) -> None:
@@ -643,10 +652,11 @@ stages_step.stream_launches = 0
 def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
     """Launch one sub-step of K6's stream arm (``nm`` None) or of K7 over
     it for ``nm`` members stacked as (nm, *shape), on the current CUDA
-    stream, at most the card's resident blocks walking the work items;
-    returns the new state (rings rotated).  The kernel writes every cell
-    of its outputs, so they come from ``torch.empty``; it raises where the
-    kernel fails to launch."""
+    stream, at most the card's resident blocks walking the work items
+    (each with its workspace slice where rings lie past shared memory,
+    :meth:`FusedKernel.stream_workspace`); returns the new state (rings
+    rotated).  The kernel writes every cell of its outputs, so they come
+    from ``torch.empty``; it raises where the kernel fails to launch."""
     import torch
     prog = kernel.program
     spec = kernel.spec
@@ -656,15 +666,16 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
                         dtype=kernel.dtype, device=dev)
             for n in spec.outputs]
     with torch.cuda.device(dev):
-        nres = kernel.stream_resident(0 if nm is None else 1)
+        ws, nres = kernel.stream_workspace(dev, 0 if nm is None else 1)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if nm is None:
             rc = call_stages_stream_entry(kernel.stages_stream_fn, prog, spec,
-                                          ins, outs, t, stream, nres=nres)
+                                          ins, outs, t, stream, nres=nres,
+                                          ws=ws)
         else:
             rc = call_batched_stages_stream_entry(
                 kernel.batched_stages_stream_fn, prog, spec, ins, outs, nm,
-                t, stream, nres=nres)
+                t, stream, nres=nres, ws=ws)
     if rc != 0:
         entry = "_stages_stream" + ("" if nm is None else "_batched")
         raise YaskException(
@@ -1083,9 +1094,27 @@ class FusedKernel:
     def stream_resident(self, kind: int) -> int:
         """The resident blocks of K6's stream arm for a launch of ``kind``
         (0 solo, 1 member batch): the grid of its launches, asked of the
-        kernel once per kind and card."""
-        return self._resident_blocks(
-            ("stream", kind), lambda: self.stream_resident_fn(int(kind)))
+        kernel once per kind and card; where rings lie past shared memory
+        at most the plan's ``ws_blocks``, so that the blocks' workspace
+        slices stay within the card's L2."""
+        cap = self.spec.stages_stream.ws_blocks
+
+        def query():
+            n = self.stream_resident_fn(int(kind))
+            return min(n, cap) if cap else n
+        return self._resident_blocks(("stream", kind), query)
+
+    def stream_workspace(self, dev, kind: int):
+        """The workspace of one launch of K6's stream arm of ``kind`` and
+        its resident blocks: ``ws_elems`` per block where rings lie past
+        shared memory, else None."""
+        import torch
+        elems = self.spec.stages_stream.ws_elems
+        nres = self.stream_resident(kind)
+        if not elems:
+            return None, nres
+        return (torch.empty(nres * elems, dtype=self.dtype, device=dev),
+                nres)
 
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on

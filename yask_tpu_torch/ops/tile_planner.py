@@ -31,7 +31,7 @@ What changes for the card:
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 
@@ -510,6 +510,12 @@ STAGES_STREAM_TILES = ((16, 32, 512), (8, 64, 512), (8, 32, 256),
 STAGES_STREAM_MIN_REGS = 128
 
 
+#: The card's L2 cache (H100 SXM, 50 MB): where computed rings live past
+#: shared memory, the resident blocks of a launch stay at most as many as
+#: keep every block's workspace slice within it.
+L2_BYTES = 50 << 20
+
+
 @dataclass
 class StagesStreamPlan:
     """K6's stream arm for one solution: its plane tile, threads and
@@ -517,7 +523,15 @@ class StagesStreamPlan:
     inputs: planes ``z - lo .. z + hi`` around the walk's plane ``z``;
     computed tiles: planes ``z - lo .. z + lag`` of their writer), its
     shared memory, and the segments of slot 0 the resident blocks walk
-    (one work item per column, segment and member)."""
+    (one work item per column, segment and member).
+
+    Where no rung's rings fit shared memory, they are placed past it
+    (:func:`_place_rings`): ``in_place`` gives each staged input "smem"
+    (a ring) or "global" (read from its own allocation), ``cmp_place``
+    each computed ring "smem" or "workspace" (a slice of ``ws_elems``
+    elements per resident block, at most ``ws_blocks`` blocks); a ring's
+    offset (``in_offsets``, ``cmp_offsets``) at or past ``smem_elems``
+    lies in the slice at the offset less ``smem_elems``."""
     tile: Tuple[int, int]
     threads: int
     prefetch: int
@@ -537,8 +551,26 @@ class StagesStreamPlan:
     staged_per_point: float          # staged cells per interior point
     computed_per_point: List[float]  # per sub-stage, computed cells per
                                      # interior point
+    in_place: Dict[int, str] = field(default_factory=dict)
+    cmp_place: List[str] = field(default_factory=list)
+    in_offsets: Dict[int, int] = field(default_factory=dict)
+    cmp_offsets: List[int] = field(default_factory=list)
+    smem_elems: int = 0
+    ws_elems: int = 0
+    ws_blocks: int = 0               # the L2 cap on resident blocks (0: none)
+    #: estimated bytes per interior point read or written outside shared
+    #: memory (ring-less inputs' reads, workspace rings' writes and reads)
+    outside_per_point: float = 0.0
+    esize: int = 4
+
+    @property
+    def placed(self) -> bool:
+        """Some ring lies outside shared memory."""
+        return ("global" in self.in_place.values()
+                or "workspace" in self.cmp_place)
 
     def record(self) -> Dict[str, object]:
+        esize = self.esize
         return {"plane_tile": list(self.tile), "threads": self.threads,
                 "prefetch": self.prefetch, "lags": list(self.lags),
                 "warm_planes": self.warm,
@@ -550,7 +582,13 @@ class StagesStreamPlan:
                 "blocks_per_sm": self.per_sm,
                 "staged_per_point": round(self.staged_per_point, 4),
                 "computed_per_point": [round(c, 4)
-                                       for c in self.computed_per_point]}
+                                       for c in self.computed_per_point],
+                "ring_places": dict(self.in_place),
+                "computed_ring_places": list(self.cmp_place),
+                "ws_block_bytes": self.ws_elems * esize,
+                "ws_blocks": self.ws_blocks,
+                "ws_total_bytes": self.ws_elems * esize * self.ws_blocks,
+                "outside_bytes_per_point": round(self.outside_per_point, 4)}
 
 
 def _span(reads: Dict[int, Tuple[int, int]], lags: List[int]):
@@ -560,16 +598,50 @@ def _span(reads: Dict[int, Tuple[int, int]], lags: List[int]):
             max(lags[j] + hi for j, (lo, hi) in reads.items()))
 
 
+def _place_rings(in_elems: Dict[int, int], cmp_elems: List[int],
+                 in_weight: Dict[int, float], limit: int):
+    """Rings past shared memory: the computed rings first (they have no
+    other home), then the staged inputs' by ``in_weight`` (their readers'
+    reads per element, most first), each taking shared memory by first
+    fit while it fits.  Returns (input -> offset or None for a ring-less
+    input, computed ring offsets, shared elements, workspace elements);
+    a computed ring that does not fit lies at the shared elements plus
+    its offset in the workspace slice."""
+    sm, wsn, cmp_at = 0, 0, []
+    for c in cmp_elems:
+        if sm + c <= limit:
+            cmp_at.append((True, sm))
+            sm += c
+        else:
+            cmp_at.append((False, wsn))
+            wsn += c
+    in_off: Dict[int, Optional[int]] = {}
+    for a in sorted(in_elems, key=lambda a: (-in_weight[a], a)):
+        if sm + in_elems[a] <= limit:
+            in_off[a] = sm
+            sm += in_elems[a]
+        else:
+            in_off[a] = None
+    return ({a: in_off[a] for a in sorted(in_off)},
+            [o if inside else sm + o for inside, o in cmp_at], sm, wsn)
+
+
 def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
                        in_reads: Dict[int, Dict[int, Tuple[int, int]]],
                        sub_regions, cmp_subs: List[int],
                        cmp_reads: List[Dict[int, Tuple[int, int]]], n,
                        esize: int, smem_limit: Optional[int] = None,
                        tiles=STAGES_STREAM_TILES,
-                       prefetch=STREAM_PREFETCH
+                       prefetch=STREAM_PREFETCH, *,
+                       in_nreads: Dict[int, Dict[int, int]],
+                       cmp_nreads: List[Dict[int, int]], ws_limit: int
                        ) -> Optional[StagesStreamPlan]:
     """Plan K6's stream arm: the first (plane tile, prefetch) of the
-    ladders whose rings fit ``smem_limit``, or None.
+    ladders whose rings fit ``smem_limit``; where none does, the rung
+    whose rings placed past shared memory (:func:`_place_rings`) read and
+    write the fewest estimated bytes per point outside it, among those
+    whose workspace slice (the computed rings past shared memory) fits
+    ``ws_limit`` bytes; None where none does.
 
     ``in_halos``: staged input → per-slot (lo, hi) halo (slots 1 and 2
     give its rings' in-plane halo); ``in_reads``: staged input →
@@ -577,7 +649,9 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     ``sub_regions``: per sub-stage ((lo0, lo1, lo2), (hi0, hi1, hi2)), its
     region around the block; ``cmp_subs``: per computed tile its writing
     sub-stage, ``cmp_reads`` its readers' slot-0 offsets; ``n``: the
-    interior extents of slots 0, 1, 2.  A ring is a whole number of
+    interior extents of slots 0, 1, 2; ``in_nreads`` and ``cmp_nreads``:
+    per staged input and computed tile, {sub-stage: distinct offsets it
+    reads} (the placement's weights).  A ring is a whole number of
     16-byte units, so every ring starts aligned."""
     if smem_limit is None:
         from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
@@ -588,44 +662,95 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     cmp_lo = [_span(r, lags)[0] for r in cmp_reads]
     cmp_depths = [lo + lags[k] + 1 for lo, k in zip(cmp_lo, cmp_subs)]
     unit = 16 // esize
+
+    def rings(t1, t2, pf):
+        depths = {a: ring_depth(lo, hi, pf)
+                  for a, (lo, hi) in in_reach.items()}
+        elems = {a: _ceil_to(depths[a]
+                             * (t1 + in_halos[a][1][0] + in_halos[a][1][1])
+                             * (t2 + in_halos[a][2][0] + in_halos[a][2][1]),
+                             unit)
+                 for a in in_reach}
+        cells = []
+        for k, d in zip(cmp_subs, cmp_depths):
+            lo, hi = sub_regions[k]
+            cells.append(_ceil_to(d * (t1 + lo[1] + hi[1])
+                                  * (t2 + lo[2] + hi[2]), unit))
+        return depths, elems, cells
+
+    def plan(t1, t2, nt, pf, depths, elems, cells, placed=None):
+        if placed is None:
+            o, in_off, cmp_off = 0, {}, []
+            for a in in_reach:
+                in_off[a] = o
+                o += elems[a]
+            for c in cells:
+                cmp_off.append(o)
+                o += c
+            sm, wsn, outside = o, 0, 0.0
+        else:
+            in_off, cmp_off, sm, wsn, outside = placed
+        wsn = _ceil_to(wsn, unit)
+        smem = sm * esize
+        per_sm = max(1, min(SM_THREADS // nt, SM_SMEM // (smem + 1024),
+                            SM_REGS // (nt * STAGES_STREAM_MIN_REGS)))
+        cap = max(1, L2_BYTES // (wsn * esize)) if wsn else 0
+        blocks = min(SMS * per_sm, cap) if cap else SMS * per_sm
+        cols = -(-n1 // t1) * -(-n2 // t2)
+        best = None
+        for s in range(1, min(n0, 65535) + 1):
+            seg = -(-n0 // s)
+            segs = -(-n0 // seg)
+            waves = -(-cols * segs // blocks)
+            cost = waves * (seg + warm)
+            if best is None or cost < best[0]:
+                best = (cost, segs, seg)
+        _cost, segs, seg = best
+        pts = t1 * t2 * n0
+        staged = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
+                     * (n0 + segs * (warm + sum(in_reach[a])))
+                     for a, h in in_halos.items()
+                     if a in in_reach and in_off.get(a) is not None) / pts
+        computed = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
+                    * (n0 + segs * (lo[0] + hi[0])) / pts
+                    for lo, hi in sub_regions]
+        return StagesStreamPlan(
+            (t1, t2), nt, pf, lags, warm, in_reach, depths, elems,
+            cmp_lo, cmp_depths, cells, smem, seg, segs, cols, per_sm,
+            staged, computed,
+            {a: "smem" if in_off[a] is not None else "global"
+             for a in in_reach},
+            ["smem" if o < sm else "workspace" for o in cmp_off],
+            {a: o for a, o in in_off.items() if o is not None}, cmp_off,
+            sm, wsn, cap, outside, esize)
+
     for t1, t2, nt in tiles:
         for pf in prefetch:
-            depths = {a: ring_depth(lo, hi, pf)
-                      for a, (lo, hi) in in_reach.items()}
-            elems = {a: _ceil_to(depths[a]
-                                 * (t1 + in_halos[a][1][0] + in_halos[a][1][1])
-                                 * (t2 + in_halos[a][2][0]
-                                    + in_halos[a][2][1]), unit)
+            depths, elems, cells = rings(t1, t2, pf)
+            if (sum(elems.values()) + sum(cells)) * esize <= smem_limit:
+                return plan(t1, t2, nt, pf, depths, elems, cells)
+    # no rung fits: the rings past shared memory
+    best = None
+    for t1, t2, nt in tiles:
+        for pf in prefetch:
+            depths, elems, cells = rings(t1, t2, pf)
+            # computed cells per plane-tile point of each sub-stage
+            per = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2]) / (t1 * t2)
+                   for lo, hi in sub_regions]
+            reads = {a: sum(c * per[j] for j, c in in_nreads[a].items())
                      for a in in_reach}
-            cells = []
-            for k, d in zip(cmp_subs, cmp_depths):
-                lo, hi = sub_regions[k]
-                cells.append(_ceil_to(d * (t1 + lo[1] + hi[1])
-                                      * (t2 + lo[2] + hi[2]), unit))
-            smem = (sum(elems.values()) + sum(cells)) * esize
-            if smem > smem_limit:
+            in_off, cmp_off, sm, wsn = _place_rings(
+                elems, cells,
+                {a: reads[a] / elems[a] for a in in_reach},
+                smem_limit // esize)
+            if _ceil_to(wsn, unit) * esize > ws_limit:
                 continue
-            per_sm = max(1, min(SM_THREADS // nt, SM_SMEM // (smem + 1024),
-                                SM_REGS // (nt * STAGES_STREAM_MIN_REGS)))
-            cols = -(-n1 // t1) * -(-n2 // t2)
-            best = None
-            for s in range(1, min(n0, 65535) + 1):
-                seg = -(-n0 // s)
-                segs = -(-n0 // seg)
-                waves = -(-cols * segs // (SMS * per_sm))
-                cost = waves * (seg + warm)
-                if best is None or cost < best[0]:
-                    best = (cost, segs, seg)
-            _cost, segs, seg = best
-            pts = t1 * t2 * n0
-            staged = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
-                         * (n0 + segs * (warm + sum(in_reach[a])))
-                         for a, h in in_halos.items() if a in in_reach) / pts
-            computed = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
-                        * (n0 + segs * (lo[0] + hi[0])) / pts
-                        for lo, hi in sub_regions]
-            return StagesStreamPlan(
-                (t1, t2), nt, pf, lags, warm, in_reach, depths, elems,
-                cmp_lo, cmp_depths, cells, smem, seg, segs, cols, per_sm,
-                staged, computed)
-    return None
+            outside = sum(reads[a] for a, o in in_off.items() if o is None)
+            outside += sum(per[k] + sum(c * per[j] for j, c in r.items())
+                           for k, r, o in zip(cmp_subs, cmp_nreads, cmp_off)
+                           if o >= sm)
+            outside *= esize
+            if best is None or outside < best[0]:
+                best = (outside, (t1, t2, nt, pf, depths, elems, cells,
+                                  (in_off, cmp_off, sm, wsn, outside)))
+    return None if best is None else plan(*best[1])

@@ -224,10 +224,11 @@ script exits 0 only when all of them passed.  Phases:
    on the card and both against the numpy oracle at (3e-2, 3e-2), then
    at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row;
 13. K5 on every arm of the reference's shard_pallas: ``-mode
-   shard_pallas`` over ``new_env(devices=["cuda:0"] * n)``, K5 over K1's
-   body (one stage) or K6's (several stages, scratch sub-stages,
-   rewrites), with misc slices, partial-dim outputs, bfloat16 and outer
-   dims, each shard's box clipped at the global domain.  (a) At mid width
+   shard_pallas -no-skew`` over ``new_env(devices=["cuda:0"] * n)``, K5
+   over K1's body (one stage) or K6's (several stages, scratch
+   sub-stages, rewrites), with misc slices, partial-dim outputs, bfloat16
+   and outer dims, each shard's box clipped at the global domain (phase
+   19 runs the 3-D K6 cases on K6's stream arm, the default).  (a) At mid width
    (48-96 per dim), 5 steps from one state seeded in a physical range
    (``seed_case``), meshes with an inner face in every sharded dim: ssg
    (K=1, K=2), tti r=2 (K=1 on x=2, K=2 on x=2 y=2), awp, swe2d,
@@ -252,7 +253,8 @@ script exits 0 only when all of them passed.  Phases:
    group, the step's bound (four shards' launches and the exchanged
    slabs, ``exchange_bytes``) and share, one launch against its plain
    version, the peak memory, and the state bit-equal to the
-   single-domain ``-mode fused`` twin's after the same steps;
+   single-domain ``-mode fused`` twin's after the same steps (and the
+   final shards' digest, which phase 19 (b) and (c) are held to);
 14. K4 on the multi-stage, scratch, rewrite, misc and element-size-2 arms
    (each level of a group runs K6's sub-stages; level buffers past shared
    memory in a workspace of the card's resident blocks) and K4's member
@@ -286,8 +288,9 @@ script exits 0 only when all of them passed.  Phases:
    K4's 4-D arm (the outer dims as uniform window dims).  (a) tti r=8 and
    ssg r=8 at 512³ fp32, ``-mode fused -wf_steps 2 -no-skew`` (phase 18
    (b) runs K6's stream arm from the same seed and steps and takes this
-   run's final states' digests), seeded in physical ranges: a warm-up, then 3 trials of 5 steps with the counters zeroed
-   just before (K6's wrapper alone launches), ms/step and per launch
+   run's final states' digests), seeded in physical ranges: a warm-up,
+   then one trial of 5 steps with the counters zeroed just before (K6's
+   wrapper alone launches), ms/step and per launch
    against the bound (the live inputs read once, each output written
    once), the workspace and the peak memory; against the plain version
    at ``field_epsilon``: one launch at 512³ over nine boxes of 32³ (the
@@ -381,7 +384,7 @@ script exits 0 only when all of them passed.  Phases:
    final states' digests equal: tti r=2 beside phase 9 (c)'s body, tti
    r=4 beside its body run here (1 warm-up step and 1 step: the body's
    1x1x32 rung takes seconds a launch), tti r=8 and ssg r=8 beside phase
-   15 (a)'s workspace arm (1 warm-up step, 3 trials of 5); r=4 and r=8
+   15 (a)'s workspace arm (1 warm-up step, one trial of 5); r=4 and r=8
    with the plain version at 256³ and one launch held to it over boxes:
    ms per launch and per step against the bound, 3 launches of the arm
    and 3 of the twin (the arm alone at r=4) under ``torch.profiler``;
@@ -389,7 +392,26 @@ script exits 0 only when all of them passed.  Phases:
    arm, tti r=2 8 x 256³, as phase 12 (b) runs it, beside the solo arm
    and phase 12 (b)'s batch on the body; (d) tti r=2 and ssg r=8 with
    the arm at the other plane tiles of :data:`SS18_SWEEP` (each the same
-   bits), in (b).
+   bits), in (b);
+19. K5 over K6's stream arm (``shard_step`` launching
+   ``<name>_stages_stream_region``, counted in its ``stream_launches``:
+   the walk over each shard's box at the box's segment length, the plain
+   region clipped at the global domain, the box's cells stored and no
+   pad written), the default of ``-mode shard_pallas`` on a 3-D K6
+   solution.  (a) Phase 13 (a)'s 3-D K6 cases (ssg K=1 and K=2, tti r=2
+   K=1 x=2 and K=2, awp, test_scratch_3d, test_boundary_3d, ssg and tti
+   with ``-overlap_x on -coalesce on``) and phase 15 (b)'s ssg r=8 on
+   2x2 shards of 64³ (rings past shared memory): the arm alone launches,
+   each bit-equal to its ``-no-skew`` twin (K5's body) and to the
+   single-domain run, held to K5's plain version, one launch of the arm
+   and of the twin timed; (b) tti r=2 512³ ``-wf_steps 2`` and awp 256³
+   ``-wf_steps 1`` on 2x2 shards as phase 13 (b) runs them, from its
+   seed and steps, the final shards bit-equal to phase 13 (b)'s body:
+   ms per launch over the grown and the interior box, ms/step, the share
+   of ``k5_bound``, each box's segments, 3 launches of the arm and 3 of
+   the body under ``torch.profiler`` (kernels, fills, idle share); (c)
+   tti r=2 512³ with ``-overlap_x on`` on the arm and on the body, each
+   bit-equal to (b)'s.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -449,6 +471,7 @@ def launch_counts() -> dict:
             "stages_stream": fs.stages_step.stream_launches,
             "batched_stages_stream": fs.batched_stages_step.stream_launches,
             "shard_step": fs.shard_step.launches,
+            "shard_step_stream": fs.shard_step.stream_launches,
             "trapezoid_phase1": fs.trapezoid_chunk.phase1_launches,
             "trapezoid_diamond": fs.trapezoid_chunk.diamond_launches,
             "batched_trapezoid_phase1":
@@ -464,7 +487,7 @@ def zero_launch_counts() -> None:
               fs.batched_stages_step, fs.stages_step, fs.shard_step,
               fs.copy_base):
         w.launches = 0
-    for w in (fs.stages_step, fs.batched_stages_step):
+    for w in (fs.stages_step, fs.batched_stages_step, fs.shard_step):
         w.stream_launches = 0
     for w in (fs.trapezoid_chunk, fs.batched_trapezoid_chunk):
         w.phase1_launches = 0
@@ -495,21 +518,24 @@ def state_digest(ctx) -> list:
     """Two sums over the bits of every ring slot of ``ctx``'s state (one
     plain, one weighted by position), on the card: equal states give equal
     digests, so two runs from one seed compare without a host copy."""
+    return [bits_digest(a) for name in sorted(ctx._state)
+            for a in ctx._state[name]]
+
+
+def bits_digest(a) -> tuple:
+    """:func:`state_digest`'s two sums over the bits of one tensor."""
     import torch
-    out = []
-    for name in sorted(ctx._state):
-        for a in ctx._state[name]:
-            b = a.contiguous().view(-1)
-            b = (b.view(torch.int32) if b.element_size() == 4
-                 else b.view(torch.int64)).to(torch.int64)
-            w = torch.arange(b.numel(), device=b.device) % 1021 + 1
-            out.append((int(b.sum()), int((b * w).sum())))
-    return out
+    b = a.contiguous().view(-1)
+    b = b.view({2: torch.int16, 4: torch.int32,
+                8: torch.int64}[b.element_size()]).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device) % 1021 + 1
+    return int(b.sum()), int((b * w).sum())
 
 
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
     names = (("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
+             ("stream_stages_kernelI4SpecLb0ELb1E", "K5 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0", "K6 stream arm"),
              ("stream_step_kernel", "stream arm"),
              ("fused_step_kernelI4SpecLb0ELb1E", "K5 (K1 body)"),
@@ -3729,27 +3755,36 @@ def k5_time_launch(ctx, t: int, box, live=None):
 
 
 def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
-             dev: str = "cuda:0") -> list:
-    """Phase 13 (a): each arm at mid width against K5's plain version on
-    the card, the single-domain fused run to the bit, and its launch
-    counts; returns per arm (label, ms per launch, bound, plain ms,
-    max |Δ|)."""
+             dev: str = "cuda:0", stream: bool = False,
+             phase: str = "13") -> list:
+    """Phase 13 (a): each arm at mid width on K5's body (``-no-skew``)
+    against K5's plain version on the card, the single-domain fused run to
+    the bit, and its launch counts; returns per arm (label, body, ms per
+    launch, bound, bound_by, plain ms, max |Δ|, launches, the -no-skew
+    twin's ms per launch or None).  With ``stream`` (phase 19 (a)) each
+    case runs K6's stream arm over its boxes (``-skew``, the default),
+    bit-equal to its ``-no-skew`` twin (K5's body) too."""
     import torch
     from yask_tpu_torch.ops import fused_stencil
     from yask_tpu_torch.ops.fused_stencil import (plain_shard_step,
                                                   shard_step)
     from yask_tpu_torch.parallel.shard_step import _full_box
     arms, rows = {}, []
+    counter = "shard_step_stream" if stream else "shard_step"
     for label, st, r, eb, sizes, K, ranks, cli in cases:
         S = 1
         for _d, n in ranks:
             S *= n
-        ctx = k5_ctx(fac, st, r, eb, sizes, K, ranks, cli, dev=dev)
-        plain = k5_ctx(fac, st, r, eb, sizes, K, ranks, cli, dev=dev)
+        arm = cli if stream else f"{cli} -no-skew"
+        ctx = k5_ctx(fac, st, r, eb, sizes, K, ranks, arm, dev=dev)
+        plain = k5_ctx(fac, st, r, eb, sizes, K, ranks, arm, dev=dev)
         one = k5_ctx(fac, st, r, eb, sizes, K, ranks, mode="fused",
                      dev=dev)
-        for c in (ctx, plain, one):
-            seed_case(c, 13)
+        twin = (k5_ctx(fac, st, r, eb, sizes, K, ranks, f"{cli} -no-skew",
+                       dev=dev) if stream else None)
+        for c in (ctx, plain, one, twin):
+            if c is not None:
+                seed_case(c, 13)
         zero_launch_counts()
         ctx.run_solution(0, steps - 1)
         got = {k: v for k, v in launch_counts().items() if v}
@@ -3761,7 +3796,7 @@ def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
         one.run_solution(0, steps - 1)
         til = ctx.get_stats().get_tiling()
         ov = til["overlap_exchange"]
-        want = {"shard_step": k5_launches(S, steps, K, ov, 2 * len(
+        want = {counter: k5_launches(S, steps, K, ov, 2 * len(
             til.get("overlap_core", {})))}
         nb = len(ctx._shard.kernel.spec.base_outputs)
         if nb:
@@ -3773,62 +3808,92 @@ def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
         box = _full_box(ctx._shard, K, 0)
         ms, bound_ms, bound_by, _nb, plain_ms, err, scale = \
             k5_time_launch(ctx, steps, box)
+        twin_ms, bad_twin = None, 0
+        if stream:
+            twin.run_solution(0, steps - 1)
+            twin_ms = k5_time_launch(twin, steps, box)[0]
+            bad_twin = ctx.compare_data(twin, epsilon=0.0, abs_epsilon=0.0)
         d = max_abs_diff(ctx, plain)
         bad_plain = ctx.compare_data(plain, field_epsilon=eps)
         bad_one = ctx.compare_data(one, epsilon=0.0, abs_epsilon=0.0)
-        log(f"phase 13: {label} ({'x'.join(map(str, sizes))}, {eb} B, "
-            f"mesh {til['mesh']}, {S} shards on {dev}, K5 over {body}'s "
-            f"body, {til['stages']} sub-stages): {steps} steps: overlap "
+        segs = [b["segment_planes"]
+                for b in til.get("stages_stream", {}).get("box_segments", [])]
+        what = (f"K5 over K6's stream arm ({til['name']}, segments {segs})"
+                if til["skew"] else f"K5 over {body}'s body")
+        log(f"phase {phase}: {label} ({'x'.join(map(str, sizes))}, {eb} B, "
+            f"mesh {til['mesh']}, {S} shards on {dev}, {what}, "
+            f"{til['stages']} sub-stages): {steps} steps: overlap "
             f"{ov}; vs plain (plain_shard_step on the card) max|d|={d:.3e} "
             f"mismatches={bad_plain} (field_epsilon={eps}); vs "
             f"single-domain -mode fused compare_data(epsilon=0) = "
-            f"{bad_one}; launches {got} (expected {want}); finite "
+            f"{bad_one}"
+            + (f"; vs the -no-skew twin (K5's body) compare_data(epsilon=0)"
+               f" = {bad_twin}" if stream else "")
+            + f"; launches {got} (expected {want}); finite "
             f"{finite(ctx)}; one launch over shard 0's sub-step-0 box "
-            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{ms:.4f} ms"
+            + (f" (the twin's {twin_ms:.4f} ms)" if stream else "")
+            + f", bound {bound_ms:.4f} ms ({bound_by}), plain "
             f"{plain_ms:.3f} ms, max|d|={err:.3e} (field max {scale:.3e}) "
             f"[{card}]")
-        if bad_plain or bad_one or not finite(ctx) \
+        if bad_plain or bad_one or bad_twin or not finite(ctx) \
                 or not err <= eps * scale:
-            raise RuntimeError(f"phase 13: {label}: {bad_plain} mismatches "
-                               f"vs plain, {bad_one} vs single-domain")
+            raise RuntimeError(f"phase {phase}: {label}: {bad_plain} "
+                               f"mismatches vs plain, {bad_one} vs "
+                               f"single-domain, {bad_twin} vs the twin")
         if got != want:
-            raise RuntimeError(f"phase 13: {label}: launches {got}, "
+            raise RuntimeError(f"phase {phase}: {label}: launches {got}, "
                                f"expected {want}")
         if "overlap on" in cli and not ov:
-            raise RuntimeError(f"phase 13: {label}: the overlap did not "
-                               "engage")
+            raise RuntimeError(f"phase {phase}: {label}: the overlap did "
+                               "not engage")
+        if bool(til["skew"]) != stream:
+            raise RuntimeError(f"phase {phase}: {label}: K6's stream arm "
+                               f"{'did not engage' if stream else 'engaged'}"
+                               f": {til['skew_reasons']}")
         arms[label] = ctx
         rows.append((label, body, ms, bound_ms, bound_by, plain_ms,
-                     max(d, err), got["shard_step"]))
-        del plain, one
+                     max(d, err), got[counter], twin_ms))
+        del plain, one, twin
         torch.cuda.empty_cache()
     for a, b in (("ssg K=2", "ssg K=2 overlap on coalesce on"),
                  ("tti r=2 K=2", "tti r=2 K=2 overlap on coalesce on")):
         if a in arms and b in arms:
             bad = arms[a].compare_data(arms[b], epsilon=0.0,
                                        abs_epsilon=0.0)
-            log(f"phase 13: '{a}' vs '{b}': compare_data(epsilon=0) = "
+            log(f"phase {phase}: '{a}' vs '{b}': compare_data(epsilon=0) = "
                 f"{bad}")
             if bad:
-                raise RuntimeError(f"phase 13: '{a}' and '{b}' differ")
+                raise RuntimeError(f"phase {phase}: '{a}' and '{b}' differ")
     return rows
 
 
 def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
-             trials: int = 3, steps: int = 20, dev: str = "cuda:0") -> dict:
+             trials: int = 3, steps: int = 20, dev: str = "cuda:0",
+             stream: bool = False, twin: dict = None, cli: str = "",
+             phase: str = "13", profile: bool = False) -> dict:
     """Phase 13 (b): one case at full width, ``-mode shard_pallas -nr_x 2
-    -nr_y 2 -wf_steps K`` on four shards of the card, from
-    :func:`seed_device`'s physical state, and its single-domain twin
-    (``-mode fused``) from the same state, bit-equal after the same
-    steps.  Returns the ``kernels`` entry."""
+    -nr_y 2 -wf_steps K`` (and ``cli``) on four shards of the card, on
+    K5's body (``-no-skew``), from :func:`seed_device`'s physical state,
+    and its single-domain twin (``-mode fused``) from the same state,
+    bit-equal after the same steps.  With ``stream`` (phase 19) K6's
+    stream arm over each box instead.  With ``twin`` (an entry of a run
+    from the same seed and steps) no single-domain run: the final
+    shards' digest (:func:`shard_digest`, in the entry as
+    ``state_digest``) must equal the twin's.  With ``profile``, 3
+    launches of the arm and 3 of K5's body from one state under
+    ``torch.profiler``.  Returns the ``kernels`` entry."""
     import torch
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel, shard_step
     from yask_tpu_torch.parallel import shard_step as shard_mod
     from yask_tpu_torch.parallel.shard_step import _full_box
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     sizes = (g, g, g)
     npts = g ** 3
-    ctx = k5_ctx(fac, st, r, eb, sizes, K, X2Y2, dev=dev)
+    counter = "shard_step_stream" if stream else "shard_step"
+    ctx = k5_ctx(fac, st, r, eb, sizes, K, X2Y2,
+                 cli if stream else f"{cli} -no-skew", dev=dev)
     seed_device(ctx, 11, physical=True)
     ctx.run_solution(0, warm * K - 1)
     t = warm * K
@@ -3842,11 +3907,14 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     torch.cuda.synchronize()
     got = {k: v for k, v in launch_counts().items() if v}
     til = ctx.get_stats().get_tiling()
-    want = {"shard_step": trials * k5_launches(4, steps, K, False, 0)}
-    if til["overlap_exchange"] or got != want:
-        raise RuntimeError(f"phase 13: {label} at {g}^3: launches {got}, "
-                           f"expected {want} (overlap "
-                           f"{til['overlap_exchange']})")
+    ov = til["overlap_exchange"]
+    want = {counter: trials * k5_launches(4, steps, K, ov, 2 * len(
+        til.get("overlap_core", {})))}
+    if ov != ("-overlap_x on" in cli) or got != want \
+            or bool(til["skew"]) != stream:
+        raise RuntimeError(f"phase {phase}: {label} at {g}^3: launches "
+                           f"{got}, expected {want} (overlap {ov}, the "
+                           f"stream arm {til['skew']})")
     peak = torch.cuda.max_memory_allocated()
     rates.sort()
     mid = rates[len(rates) // 2]
@@ -3871,11 +3939,26 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     torch.cuda.synchronize()
     xch_ms = (sum(e0.elapsed_time(e1) for e0, e1 in marks) / len(marks)
               if marks else 0.0)
+    digest = shard_digest(ctx)
     sp = ctx._shard
     live = None if st == "iso3dfd" else live_inputs(fac, fac.new_env(
         devices=[dev]), st, r)
     boxes = [_full_box(sp, K, s_) for s_ in range(K)]
     timed_rows = [k5_time_launch(ctx, t, b, live) for b in boxes]
+    prof = None
+    if profile:
+        # 3 launches of the arm and 3 of K5's body (the -no-skew kernel
+        # of the same source) over the grown box, from one state
+        kern = sp.kernel
+        body_kern = FusedKernel(kern.program, skew=False, region=True)
+        body_kern.build()
+        layout, shards = ctx._run.resident
+        st0, off = shards[0], layout.offsets[0]
+        prof = profile_launches(
+            lambda: (shard_step(kern, st0, t, boxes[0], off),
+                     shard_step(body_kern, st0, t, boxes[0], off)), 3,
+            expect=("stream_stages_kernel", "fused_stages_kernel"))
+        del st0, shards, body_kern
     ms = [row[0] for row in timed_rows]
     k5_ms = sum(ms) / len(ms)
     bound_ms = sum(row[1] for row in timed_rows) / len(ms)
@@ -3889,22 +3972,37 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     step_bytes = (4 * sum(row[3] for row in timed_rows) + xbytes) / K
     step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
     eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
-    # the single-domain twin from the same seed, the same steps
     del timed_rows
-    one = k5_ctx(fac, st, r, eb, sizes, K, X2Y2, mode="fused", dev=dev)
-    seed_device(one, 11, physical=True)
-    one.run_solution(0, t - 1)
-    d, bad = device_diff(ctx, one, exact=True)
+    if twin is not None:
+        # a run from the same seed and steps: its digest
+        d, bad = None, int(digest != twin["state_digest"])
+        vs = (f"{twin['what']} after the same {t} steps: final shards "
+              f"bit-equal {not bad}")
+    else:
+        # the single-domain twin from the same seed, the same steps
+        one = k5_ctx(fac, st, r, eb, sizes, K, X2Y2, mode="fused", dev=dev)
+        seed_device(one, 11, physical=True)
+        one.run_solution(0, t - 1)
+        d, bad = device_diff(ctx, one, exact=True)
+        del one
+        vs = (f"the single-domain -mode fused twin after {t} steps: "
+              f"max|d|={d:.3e}, {bad} cells differ (epsilon 0)")
     ok_finite = finite(ctx)
     peak = max(peak, torch.cuda.max_memory_allocated())
     n = g // 2
-    log(f"phase 13: {label} {g}^3 -mode shard_pallas -wf_steps {K} -nr_x 2 "
-        f"-nr_y 2 (4 shards of {n}x{n}x{g} on {dev}, K5 over "
-        f"{'K6' if til['stages'] > 1 or til['scratch_stages'] else 'K1'}'s "
-        f"body): {trials} trials x {steps} steps: {step_ms:.3f} ms/step "
+    body = "K6" if til["stages"] > 1 or til["scratch_stages"] else "K1"
+    segs = til.get("stages_stream", {}).get("box_segments", [])
+    what = (f"K5 over K6's stream arm, segments per box "
+            f"{[b['segment_planes'] for b in segs]} on "
+            f"{segs[0]['blocks']} blocks" if stream
+            else f"K5 over {body}'s body")
+    opts = f"-wf_steps {K} -nr_x 2 -nr_y 2" + (f" {cli}" if cli else "")
+    log(f"phase {phase}: {label} {g}^3 -mode shard_pallas {opts} (4 shards "
+        f"of {n}x{n}x{g} on {dev}, "
+        f"{what}): {trials} trials x {steps} steps: {step_ms:.3f} ms/step "
         f"(min {npts / rates[-1] * 1e3:.3f}, max "
         f"{npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; K5 launches "
-        f"{got['shard_step']}; K5 per launch {', '.join(f'{m:.3f}' for m in ms)}"
+        f"{got[counter]}; K5 per launch {', '.join(f'{m:.3f}' for m in ms)}"
         f" ms over the sub-step boxes {[{k: list(v) for k, v in b.items()} for b in boxes]} "
         f"(grown, then interior), bound {bound_ms:.4f} ms per launch "
         f"({bound_by}; live inputs over each box's reach clipped to the "
@@ -3914,28 +4012,44 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
         f"{step_bound:.3f} ms, share {step_bound / step_ms:.3f}; plain "
         f"version {plain_ms:.3f} ms per launch (not a yardstick), one "
         f"launch vs plain max|d|={err:.3e} (field max {scale:.3e}); vs "
-        f"the single-domain -mode fused twin after {t} steps: max|d|="
-        f"{d:.3e}, {bad} cells differ (epsilon 0); finite {ok_finite}; "
-        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB "
-        f"(the twin included) [{card}]")
+        f"{vs}; finite {ok_finite}; "
+        + (f"3 launches of the arm and 3 of the body under torch.profiler "
+           f"(ms per launch by kernel): {json.dumps(prof)}; "
+           if profile else "")
+        + f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB"
+        + ("" if twin is not None else " (the twin included)")
+        + f" [{card}]")
     if bad or not ok_finite or not err <= eps * scale:
-        raise RuntimeError(f"phase 13: {label} at {g}^3: {bad} cells differ "
-                           "from the single-domain twin, or K5 and its "
-                           "plain version disagree")
-    del one, ctx
-    return {"name": f"shard_step ({label} {g}^3, K5 over "
-                    f"{'K6' if til['stages'] > 1 or til['scratch_stages'] else 'K1'})",
-            "route": "cuda", "source": "yask_tpu_torch/csrc/fused_step.cuh",
+        raise RuntimeError(f"phase {phase}: {label} at {g}^3: {bad} cells "
+                           "differ from the twin, or K5 and its plain "
+                           "version disagree")
+    del ctx
+    return {"name": f"shard_step ({label} {g}^3{' ' + cli if cli else ''}, "
+                    "K5 over "
+                    + ("K6's stream arm" if stream else body) + ")",
+            "route": "cuda",
+            "source": SS_SOURCE if stream
+            else "yask_tpu_torch/csrc/fused_step.cuh",
             "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
                         "distributed=True arms with the stage loop "
                         ":2058-2188; parallel/shard_step.py:1093)",
-            "launches": got["shard_step"], "max_abs_err": err, "ms": k5_ms,
+            "launches": got[counter], "max_abs_err": err, "ms": k5_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "per": f"launch over a {n}x{n}x{g} shard (mean of the "
                    f"{K} sub-step boxes)",
             "step_ms": step_ms, "step_bound_ms": step_bound,
-            "exchange_ms_per_group": xch_ms, "peak_bytes": peak}
+            "exchange_ms_per_group": xch_ms, "peak_bytes": peak,
+            "box_ms": ms, "state_digest": digest, "profile": prof,
+            "box_segments": (til["stages_stream"]["box_segments"]
+                             if stream else None)}
+
+
+def shard_digest(ctx) -> list:
+    """:func:`state_digest` over the shards resident in ``ctx`` (every
+    ring slot of every shard, pads included), without gathering them."""
+    return [bits_digest(a) for shard in ctx._run.resident[1]
+            for name in sorted(shard) for a in shard[name]]
 
 
 def phase13(fac, card: str) -> list:
@@ -3944,9 +4058,17 @@ def phase13(fac, card: str) -> list:
     import torch
     t0 = time.perf_counter()
     rows = phase13a(fac, card)
-    entries = []
+    entries, twins = [], {}
     for label, st, r, eb, g, K in K5_FULL:
-        entries.append(phase13b(fac, card, label, st, r, eb, g, K))
+        e = phase13b(fac, card, label, st, r, eb, g, K)
+        twins[label] = {"state_digest": e.pop("state_digest"),
+                        "ms": e["ms"], "step_ms": e["step_ms"],
+                        "box_ms": e["box_ms"],
+                        "what": f"phase 13 (b)'s {label} {g}^3 on K5's body "
+                                "(-no-skew)"}
+        for k in ("profile", "box_segments", "box_ms"):
+            e.pop(k)
+        entries.append(e)
         torch.cuda.empty_cache()
     # the mid-width arms of (a), one entry per body
     for body in ("K1", "K6"):
@@ -3966,7 +4088,7 @@ def phase13(fac, card: str) -> list:
             "per": "sum over the arms of one launch each over shard 0's "
                    "sub-step-0 box: " + ", ".join(row[0] for row in mine)})
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
-    return entries
+    return entries, twins
 
 
 
@@ -4681,7 +4803,7 @@ def phase15(fac, env, card: str, full: int = 512,
     for st, r, seed in WS_FULL:
         e = family_full(fac, env, card, st, r,
                         "workspace arm, C17, the -no-skew body", full,
-                        warm=1, trials=3, steps=5, sweep=False, seed=seed,
+                        warm=1, trials=1, steps=5, sweep=False, seed=seed,
                         plain_g=full // 2, cli="-no-skew", digest=True)
         e.update(replaces=WS_REPLACES, path=f"phase 15 (a), {st} r={r}")
         entries.append(e)
@@ -4691,7 +4813,7 @@ def phase15(fac, env, card: str, full: int = 512,
     entries[-1]["path"] = "phase 15 (b)"
     torch.cuda.empty_cache()
     rows = phase13a(fac, card, cases=WS_K5, dev=dev)
-    for label, body, ms, bound_ms, bound_by, plain_ms, err, n in rows:
+    for label, body, ms, bound_ms, bound_by, plain_ms, err, n, _t in rows:
         entries.append({
             "name": f"shard_step (workspace arm over K6's body: {label}, "
                     "2x2 shards of 64^3)", "route": "cuda",
@@ -5541,9 +5663,9 @@ def phase18b(fac, env, card: str, twins: dict, full: int = 512) -> list:
             ("tti", 2, dict(stream_sweep=SS18_SWEEP), twins["tti2"]),
             ("tti", 4, dict(warm=1, trials=1, steps=1, plain_g=full // 2),
              None),
-            ("tti", 8, dict(warm=1, trials=3, steps=5, plain_g=full // 2),
+            ("tti", 8, dict(warm=1, trials=1, steps=5, plain_g=full // 2),
              twins["tti8"]),
-            ("ssg", 8, dict(warm=1, trials=3, steps=5, plain_g=full // 2,
+            ("ssg", 8, dict(warm=1, trials=1, steps=5, plain_g=full // 2,
                             seed=WS_FULL[1][2], stream_sweep=SS18_SWEEP),
              twins["ssg8"])):
         kind = "scratch sub-stages" if st == "tti" and r < 8 \
@@ -5624,6 +5746,87 @@ def phase18(fac, env, card: str, twins: dict, k7_body: dict,
               body_ms=k7_body["ms"], body_step_ms=k7_body["step_ms"])
     entries.append(k7)
     log(f"phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# ---- phase 19: K5 over K6's stream arm (the region arm) -----------------
+
+#: Phase 19 (a): phase 13 (a)'s 3-D cases on K6's body, all of which the
+#: arm takes, and phase 15 (b)'s ssg r=8 on 2x2 shards (rings past shared
+#: memory)
+K5SS_MID = tuple(c for c in K5_CASES if c[1] in (
+    "ssg", "tti", "awp", "test_scratch_3d", "test_boundary_3d")) + WS_K5
+#: Phase 19 (b): phase 13 (b)'s cells on K6's body
+K5SS_FULL = tuple(c for c in K5_FULL if c[1] != "iso3dfd")
+K5SS_REPLACES = ("yask_tpu/ops/pallas_stencil.py:736-811, :1948-1953 "
+                 "(region= and distributed=True arms) over the stage loop "
+                 ":2058-2188, streamed along slot 0 (:1955-2056); "
+                 "parallel/shard_step.py:1093-1160")
+
+
+def phase19(fac, card: str, twins: dict) -> list:
+    """K5 over K6's stream arm (see the module docstring): (a)
+    :data:`K5SS_MID` through :func:`phase13a` with ``stream``; (b) and
+    (c) :data:`K5SS_FULL` and tti with ``-overlap_x on`` through
+    :func:`phase13b`, each from the seed and steps of phase 13 (b)'s
+    ``-no-skew`` run (``twins``), the final shards bit-equal to it.
+    Returns the ``kernels`` entries."""
+    import torch
+    t0 = time.perf_counter()
+    rows = phase13a(fac, card, cases=K5SS_MID, stream=True, phase="19 (a)")
+    entries = [{
+        "name": "shard_step (K5 over K6's stream arm, phase 19 (a): "
+                "phase 13 (a)'s 3-D K6 cases and phase 15 (b)'s ssg r=8 "
+                "at mid width)", "route": "cuda", "source": SS_SOURCE,
+        "replaces": K5SS_REPLACES,
+        "launches": sum(row[7] for row in rows),
+        "max_abs_err": max(row[6] for row in rows),
+        "ms": sum(row[2] for row in rows),
+        "plain_ms": sum(row[5] for row in rows),
+        "bound_ms": sum(row[3] for row in rows),
+        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
+        else "operations", "library_ms": None,
+        "body_ms": sum(row[8] for row in rows),
+        "per": "sum over the cases of one launch each over shard 0's "
+               "sub-step-0 box: " + ", ".join(row[0] for row in rows),
+        "path": "phase 19 (a)"}]
+    torch.cuda.empty_cache()
+    for label, st, r, eb, g, K in K5SS_FULL:
+        twin = twins[label]
+        e = phase13b(fac, card, label, st, r, eb, g, K, stream=True,
+                     twin=twin, phase="19 (b)", profile=True)
+        e.pop("state_digest")
+        log(f"phase 19 (b): {label} {g}^3 on 2x2 shards: K5 over K6's "
+            f"stream arm {', '.join(f'{m:.3f}' for m in e['box_ms'])} ms "
+            f"per launch over the sub-step boxes, {e['step_ms']:.3f} "
+            f"ms/step, share {e['bound_ms'] / e['ms']:.3f} of "
+            f"{e['bound_ms']:.4f} ms; K5's body (phase 13 (b), -no-skew) "
+            f"{', '.join(f'{m:.3f}' for m in twin['box_ms'])} ms per "
+            f"launch, {twin['step_ms']:.3f} ms/step: "
+            f"{twin['ms'] / e['ms']:.2f}x per launch [{card}]")
+        e.update(path="phase 19 (b)", replaces=K5SS_REPLACES,
+                 body_ms=twin["ms"], body_step_ms=twin["step_ms"])
+        entries.append(e)
+        torch.cuda.empty_cache()
+    # (c) tti with the overlap on, both arms, from the same seed and steps
+    label, st, r, eb, g, K = K5SS_FULL[0]
+    pair = []
+    for stream in (True, False):
+        e = phase13b(fac, card, label, st, r, eb, g, K, stream=stream,
+                     twin=twins[label], cli="-overlap_x on",
+                     phase="19 (c)")
+        e.pop("state_digest")
+        e.update(path="phase 19 (c)",
+                 replaces=K5SS_REPLACES if stream else e["replaces"])
+        pair.append(e)
+        torch.cuda.empty_cache()
+    log(f"phase 19 (c): {label} {g}^3 -overlap_x on: K5 over K6's stream "
+        f"arm {pair[0]['step_ms']:.3f} ms/step, over K5's body "
+        f"{pair[1]['step_ms']:.3f} ms/step; without the overlap "
+        f"{entries[1]['step_ms']:.3f} and {twins[label]['step_ms']:.3f} "
+        f"[{card}]")
+    entries += pair
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -5764,7 +5967,7 @@ def main() -> int:
         ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
     k7_arms = phase12(fac, env, card, solo, k6)
     release()
-    k5_arms = phase13(fac, card)
+    k5_arms, k5_twins = phase13(fac, card)
     release()
     k4_arms = phase14(fac, env, card)
     release()
@@ -5782,13 +5985,15 @@ def main() -> int:
     k7_tti = next(e for e in k7_arms if e.get("path") == "phase 12 (b)"
                   and "scratch arm: tti" in e["name"])
     ss18_arms = phase18(fac, env, card, twins, k7_tti)
+    release()
+    k5_ss_arms = phase19(fac, card, k5_twins)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
-                      + ss_arms + ss18_arms}))
+                      + ss_arms + ss18_arms + k5_ss_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -76,7 +76,27 @@ inline void __syncthreads() {
   yt_hand_off();
   yt_turn[yt_tid]->acquire();
 }
-template <class T> T __ldg(const T* p) { return *p; }
+// Reads past an allocation: a test may surround its inputs with margins
+// whose 4-byte words hold YT_STRAY (a NaN no arithmetic makes); every
+// load (__ldg) and every filling cp.async that reads such a word counts in
+// yt_stray_reads(), so a kernel that reads past an allocation shows even
+// where it never uses what it read.
+#include <atomic>
+#include <cstdint>
+#define YT_STRAY 0x7FBADBADu
+inline std::atomic<long long> yt_strays{0};
+inline void yt_note_reads(const void* src, int bytes) {
+  for (int i = 0; i + 4 <= bytes; i += 4) {
+    std::uint32_t w;
+    std::memcpy(&w, static_cast<const char*>(src) + i, 4);
+    if (w == YT_STRAY) ++yt_strays;
+  }
+}
+extern "C" long long yt_stray_reads() { return yt_strays.exchange(0); }
+template <class T> T __ldg(const T* p) {
+  yt_note_reads(p, int(sizeof(T)));
+  return *p;
+}
 // bfloat16: the headers' own host bf16_t (no cuda_bf16.h here)
 #define YT_HOST_BF16
 typedef int cudaError_t;
@@ -115,6 +135,7 @@ inline thread_local std::vector<YtCopy> yt_open;
 inline thread_local std::deque<std::vector<YtCopy>> yt_groups;
 template <int B> void cp_async(void* dst, const void* src, bool fill) {
   std::memset(dst, 0xFF, B);
+  if (fill) yt_note_reads(src, B);
   if (reinterpret_cast<std::uintptr_t>(dst) % B
       || (fill && reinterpret_cast<std::uintptr_t>(src) % B))
     return;
@@ -175,7 +196,8 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     (``spec.name``, K5's ``spec.name + "_region"``, K7's ``spec.name +
     "_batched"``, the stream arm's ``spec.name + "_stream"``, or
     K6's stream arm's ``spec.name + "_stages_stream"`` and
-    ``"_stages_stream_batched"``).
+    ``"_stages_stream_batched"``, and K5's over it,
+    ``"_stages_stream_region"``).
     ``edit(file, text)`` may rewrite a header first (a deliberately broken
     kernel); ``defines`` are macros for the build (``{"YT_MAX_GRID_Z": 2}``
     walks a launch's z cells, and the stream arm's y blocks, two at a
@@ -210,6 +232,8 @@ def emulated_kernel(spec, tmp_path, entry=None, edit=None, defines=None):
     fn.argtypes = (
         fused_stencil.stages_stream_argtypes()
         if entry.endswith("_stages_stream") else
+        fused_stencil.region_stages_stream_argtypes()
+        if entry.endswith("_stages_stream_region") else
         fused_stencil.batched_stages_stream_argtypes()
         if entry.endswith("_stages_stream_batched") else
         fused_stencil.region_argtypes(spec.walks)

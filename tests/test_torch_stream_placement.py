@@ -22,6 +22,7 @@ import pytest
 
 import yask_tpu_torch
 from yask_tpu_torch.ops import cuda_emit, fused_stencil, tile_planner
+from yask_tpu_torch.parallel.shard_step import _full_box, shard_pallas_plan
 
 from test_torch_kernel_emulation import emulated_kernel
 from test_torch_scratch import port_ctx, with_pads
@@ -150,6 +151,50 @@ def test_reads_of_staged_inputs_stay_inside_their_allocations(name, r):
                     lo, hi = g.pads[d]
                     assert u.clip_lo[s_] - o[s_] <= lo, (a, j, o, d)
                     assert u.clip_hi[s_] + o[s_] <= hi, (a, j, o, d)
+
+
+@pytest.mark.parametrize("name,r",
+                         [(n, None) for n in ENGAGED + SCRATCH] + PLACED)
+def test_k5_reads_of_staged_inputs_stay_inside_the_shards_allocation(name,
+                                                                     r):
+    """K5 over the arm: on 2x2 shards of a group of 2 steps, every read
+    of a staged input by a cell of a sub-stage's plain region over a
+    sub-step's box (``plain_region<S, K, true>``: the global domain grown
+    by its clip, in box coordinates, kept to the box grown by the
+    sub-stage's region) lies inside the shard's allocation, on every
+    shard, so an input read without a ring needs no guard there either."""
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4), stencil=name,
+                           radius=r)
+    ctx.apply_command_line_options(
+        "-g_x 64 -g_y 64 -g_z 12 -mode shard_pallas -wf_steps 2 -nr_x 2 "
+        "-nr_y 2")
+    ctx.prepare_solution()
+    sp = shard_pallas_plan(ctx)
+    kern = sp.kernel
+    assert kern.skew_dims == ["x"]
+    prog = kern.program
+    spec = kern.spec
+    pt = cuda_emit._print(prog, [])
+    dims = list(prog.ana.domain_dims)
+    for off in sp.layout.offsets:
+        for s_ in range(2):
+            box = _full_box(sp, 2, s_)
+            for a in spec.tiled:
+                g = prog.geoms[spec.inputs[a][0]]
+                for j, offs in pt.pr.offs3[a].items():
+                    u = pt.subs[j]
+                    for q, d in enumerate(dims):
+                        blo, bhi = box[d]
+                        go = blo + off.get(d, 0)
+                        lo = max(-u.clip_lo[q] - go, -u.lo[q])
+                        hi = min(prog.global_last[d] + 1 + u.clip_hi[q] - go,
+                                 bhi - blo + u.hi[q])
+                        plo, phi = g.pads[d]
+                        for o in offs if lo < hi else ():
+                            assert blo + lo + o[q] >= -plo, (a, j, o, d)
+                            assert blo + hi - 1 + o[q] \
+                                <= prog.sizes[d] - 1 + phi, (a, j, o, d)
 
 
 def placed_spec(ctx, name, monkeypatch):

@@ -119,7 +119,7 @@ def test_emulation_fails_when_scratch_past_the_domain_is_zeroed(tmp_path):
     def domain_only(fn, text):
         if fn != "stream_stages.cuh":
             return text
-        text, n = re.subn(r"plain_region<S, K, false>\(p, s, plo\[s\], "
+        text, n = re.subn(r"plain_region<S, K, REGION>\(p, s, plo\[s\], "
                           r"phi\[s\]\);",
                           "{ plo[s] = 0; phi[s] = p.n[s]; }", text)
         assert n == 1

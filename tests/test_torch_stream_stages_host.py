@@ -30,8 +30,11 @@ from yask_tpu_torch.runtime.init_utils import init_solution_vars as port_init
 from yask_tpu_torch.transfer import export_interiors, import_interiors
 from yask_tpu_torch.utils.exceptions import YaskException
 
+from test_torch_4d import four_d_stages
+from test_torch_bf16 import bf16_source
 from test_torch_kernel_emulation import CSRC
 from test_torch_lowering import mismatches, seeded_interiors
+from test_torch_partial import SOLUTIONS as PARTIAL
 from test_torch_scratch import port_ctx, with_pads
 from test_torch_stencils import tpu_interiors
 
@@ -217,21 +220,33 @@ def test_no_skew_keeps_fused_stages_kernel(monkeypatch):
             fused_stencil.batched_stages_step.stream_launches) == (1, 1)
 
 
-def test_k5_and_k7_over_k1_keep_their_reasons():
-    """K5 has no stream arm (its reason as before), nor has K7 over K1's
-    body; K7 over K6's body takes the arm where the solo run does."""
+def shard_awp(cli=""):
+    """awp under ``-mode shard_pallas`` on 2x2 CPU shards, one step run
+    (K5's plain version)."""
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4), stencil="awp")
     ctx.apply_command_line_options(
-        "-g 16 -mode shard_pallas -wf_steps 1 -nr_x 2 -nr_y 2")
+        f"-g 16 -mode shard_pallas -wf_steps 1 -nr_x 2 -nr_y 2 {cli}")
     ctx.prepare_solution()
     import_interiors(ctx, seeded_interiors(ctx, 2))
     ctx.run_solution(0, 0)
+    return ctx
+
+
+def test_k5_and_k7_over_k1_keep_their_reasons():
+    """K5 over K6's body takes K6's stream arm over its boxes (its reason
+    names ``stages_stream_region``, the record each box's segments); K7
+    over K1's body keeps its kernel; K7 over K6's body takes the arm where
+    the solo run does."""
+    ctx = shard_awp()
     til = ctx.get_stats().get_tiling()
-    assert til["kernel"] == "shard_step" and til["skew"] is False
-    assert til["skew_reasons"] == [{
-        "code": "skew_not_ported",
-        "cause": "K5 has no stream arm inside shards: ROADMAP.md A5"}]
+    kern = ctx._shard.kernel
+    assert til["kernel"] == "shard_step" and til["skew"] is True
+    assert til["name"] == kern.spec.name + "_stages_stream_region"
+    assert codes(til["skew_reasons"])[0] == "skew_engaged"
+    assert til["skew_reasons"][0]["kernel"] == "stages_stream_region"
+    assert til["stages_stream"]["box_segments"] == [
+        kern.region_segment({"x": (0, 8), "y": (0, 8), "z": (0, 16)})]
     iso = port_ctx("iso3dfd", 2, "-g 16 -mode fused")
     til = iso._fused_spec_kernel().tiling(1, members=3)
     assert til["kernel"] == "batched_step" and til["skew"] is False
@@ -241,6 +256,59 @@ def test_k5_and_k7_over_k1_keep_their_reasons():
     assert til["kernel"] == "batched_stages_step" and til["skew"] is True
     assert til["name"].endswith("_stages_stream_batched")
     assert codes(til["skew_reasons"])[0] == "skew_engaged"
+
+
+def test_no_skew_keeps_k5_over_k6s_body():
+    """``-no-skew`` under ``shard_pallas`` keeps K5 over K6's body
+    (``<name>_region``), with ``skew_disabled``; both arms come from one
+    source."""
+    ctx = shard_awp("-no-skew")
+    til = ctx.get_stats().get_tiling()
+    kern = ctx._shard.kernel
+    assert kern.skew_dims == [] and kern.region
+    assert til["kernel"] == "shard_step" and til["skew"] is False
+    assert til["name"] == kern.spec.name + "_region"
+    assert codes(til["skew_reasons"]) == ["skew_disabled"]
+    assert "stages_stream" not in til
+    assert kern.spec.source == shard_awp()._shard.kernel.spec.source
+
+
+#: K6 solutions whose shards keep K5's body: the source, the sizes and
+#: mesh, and the emitter's reason (element size 2, 4-D, misc on a 2-D
+#: domain, a partial-dim output)
+K5_REFUSED = {
+    "tti-bf16": (lambda: bf16_source("yask_tpu_torch", "tti", 2),
+                 "-g_x 32 -g_y 32 -g_z 16 -nr_x 2 -nr_y 2", "element size 2"),
+    "four_d_stages": (lambda: four_d_stages("yask_tpu_torch"),
+                      "-g_w 8 -g_x 5 -g_y 9 -g_z 16 -nr_w 2", "4-D solution"),
+    "gaussian": (lambda: "gaussian", "-g 32 -nr_x 2 -nr_y 2", "2-D solution"),
+    "partial_written": (lambda: PARTIAL["partial_written"]("yask_tpu_torch"),
+                        "-g_x 32 -g_y 16 -g_z 16 -nr_x 2 -nr_y 2",
+                        "partial-dim")}
+
+
+@pytest.mark.parametrize("case", list(K5_REFUSED))
+def test_k5_keeps_its_body_with_the_emitters_reason(case):
+    """Where K6's stream arm refuses a solution, its shards keep K5 over
+    K6's body (``<name>_region``) and the tiling gives the emitter's
+    reason, as the single-domain run does."""
+    src, cli, words = K5_REFUSED[case]
+    fac = yask_tpu_torch.yk_factory()
+    n = 2 if "-nr_w" in cli else 4
+    env = fac.new_env(devices=["cpu"] * n)
+    s = src()
+    ctx = (fac.new_solution(env, stencil=s, radius=2) if isinstance(s, str)
+           else fac.new_solution(env, s))
+    ctx.apply_command_line_options(f"{cli} -mode shard_pallas -wf_steps 1")
+    ctx.prepare_solution()
+    import_interiors(ctx, seeded_interiors(ctx, 4))
+    ctx.run_solution(0, 0)
+    til = ctx.get_stats().get_tiling()
+    kern = ctx._shard.kernel
+    assert kern.spec.stages > 1 and kern.skew_dims == []
+    assert til["skew"] is False and til["name"] == kern.spec.name + "_region"
+    assert set(codes(til["skew_reasons"])) == {"skew_ineligible"}
+    assert words in til["skew_reasons"][0]["detail"]
 
 
 def test_member_batch_takes_the_sessions_skew_request():

@@ -1612,17 +1612,17 @@ int run_batched(void* in_ptrs, void* in_strides, void* in_mstrides,
 // What bounds it on an H100: bytes, as its body (16 B/pt per iso3dfd r=8
 // step over the box, 48 on tti r=2); REGION costs the solo kernels
 // nothing, as it is a template parameter.
+//
+// set_region reads the box table (int[4 * (3 + NOUTER)]: lo, hi, the
+// shard's origin and the global extents per slot) into p, which K6's
+// stream arm over a box (stream_stages.cuh) shares; false for an empty
+// box.
 template <class S>
-int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
-               void* out_strides, void* sizes, void* region, int t,
-               void* stream, void* ws = nullptr, long long nres = 0) {
+bool set_region(ParamsArg<S, true>& p, const void* region) {
   constexpr int NS = 3 + OuterOf<S>::N;
-  ParamsArg<S, true> p;
-  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
-  fill_ws<S>(p, ws);
   const int* r = static_cast<const int*>(region);
   for (int s = 0; s < NS; ++s)
-    if (r[NS + s] <= r[s]) return 0;  // an empty box computes nothing
+    if (r[NS + s] <= r[s]) return false;
   for (int s = 0; s < NS; ++s) {
     p.lo[s] = r[s];
     p.sn[s] = p.n[s];
@@ -1634,6 +1634,17 @@ int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
     for (int s = 0; s < NS; ++s) p.in[a] += p.lo[s] * p.in_s[a][s];
   for (int o = 0; o < S::NOUT; ++o)
     for (int s = 0; s < NS; ++s) p.out[o] += p.lo[s] * p.out_s[o][s];
+  return true;
+}
+
+template <class S>
+int run_region(void* in_ptrs, void* in_strides, void* out_ptrs,
+               void* out_strides, void* sizes, void* region, int t,
+               void* stream, void* ws = nullptr, long long nres = 0) {
+  ParamsArg<S, true> p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  fill_ws<S>(p, ws);
+  if (!set_region<S>(p, region)) return 0;  // an empty box: nothing
 #ifdef __CUDACC__
   if constexpr (IsStages<S>::value)
     return launch_stages<S, false, true>(p, nres,

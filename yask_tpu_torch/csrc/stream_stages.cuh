@@ -3,13 +3,16 @@
 // multi-stage solution, each block walking slot 0 through rings of staged
 // input planes and computed planes.
 //
-// It computes what K6 (fused_stages_kernel<S, false>) and K7 over it
-// (fused_stages_kernel<S, true>) compute, with the same Spec::stage<K>, so
-// with --fmad=false it gives the same bits.  It replaces the stage loop of
+// It computes what K6 (fused_stages_kernel<S, false>), K7 over it
+// (fused_stages_kernel<S, true>) and K5 over it (fused_stages_kernel<S,
+// false, true>) compute, with the same Spec::stage<K>, so with
+// --fmad=false it gives the same bits.  It replaces the stage loop of
 // build_pallas_chunk (yask_tpu/ops/pallas_stencil.py:2058-2188, with its
 // rewrite arm :2155-2187) under the input prefetch (:1815-1854) and the
 // carry of staged planes along the stream dim (:1955-2056), as K1's stream
-// arm (stream_step.cuh) does for one stage.
+// arm (stream_step.cuh) does for one stage; with REGION, its region= and
+// distributed=True arms (:736-811, :1948-1953; yask_tpu/parallel/
+// shard_step.py:1093-1160) over one shard's box.
 //
 // What bounds it on an H100: bytes.  awp moves 112 B per point per step
 // (its live inputs read once, its outputs written once): 4.49 ms at 512^3
@@ -53,6 +56,14 @@
 //   * every output cell is written exactly once: interior cells by the
 //     last sub-stage that writes them, pads by a grid-stride pass
 //     (flat_pads), so the wrapper takes torch.empty;
+//   * K5 (REGION): the walk runs over a shard's box (p.n its extents, the
+//     pointers at its cell 0, as run_region moves them for the body), at
+//     global coordinates; each sub-stage's plain region is clipped at the
+//     global domain, not at the shard's (past an inner face lie the
+//     neighbour's cells), and kept to the box grown by its region; a ring
+//     copy gets 0 past the shard's allocation, not past the box; only the
+//     box's own cells are stored and no pad is written, so the core and
+//     the shells of an overlapped group share one set of outputs;
 //   * a scratch var is a computed ring with no output, its sub-stage at
 //     its lag like any other; its planes past the domain are computed
 //     from the pads out to its write halo (plain_region's clip), the
@@ -82,10 +93,11 @@
 
 namespace yt {
 
-template <class S>
+template <class S, bool REGION = false>
 struct StagesStreamParams {
-  ParamsArg<S, false> p;  // K6's tables (K7's member strides and count)
-  int seg;                // planes of slot 0 per segment
+  // K6's tables (K7's member strides and count; K5's box, REGION)
+  ParamsArg<S, REGION> p;
+  int seg;                 // planes of slot 0 per segment
   typename S::real_t* ws;  // SS_WS_ELEMS elements per block (SsPlaceOf)
 };
 
@@ -208,9 +220,11 @@ struct StreamStageReader {
 // Issue the copies of plane c of staged input k (member m) into its ring
 // slot `slot`: cells past the input's allocation get 0.  16-byte copies
 // where every row lines up with its source (see the notes above), else
-// one cell per copy.
-template <class S, int k, bool BATCH>
-__device__ __forceinline__ void ring_fetch(const ParamsOf<S>& p,
+// one cell per copy.  K5 (REGION) walks the box: a box-relative plane,
+// row or cell c lies at c + p.lo of the shard, whose allocation (its
+// interior p.sn and the pads) bounds the copies, not the box.
+template <class S, int k, bool BATCH, bool REGION>
+__device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
                                            typename S::real_t* smem, int m,
                                            int c, int slot, int b1, int b2,
                                            int tid) {
@@ -221,9 +235,14 @@ __device__ __forceinline__ void ring_fetch(const ParamsOf<S>& p,
   constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
   constexpr int V = 16 / int(sizeof(real_t));
   real_t* dst = smem + S::ss_ring(k) + slot * (E1 * E2);
-  const bool in0 = c >= -S::alloc_lo0(k) && c < p.n[0] + S::alloc_hi0(k);
-  const int lo1 = -S::alloc_lo1(k), lim1 = p.n[1] + S::alloc_hi1(k);
-  const int lo2 = -S::alloc_lo2(k), lim2 = p.n[2] + S::alloc_hi2(k);
+  const int x0 = box_lo<S, REGION>(p, 0), x1 = box_lo<S, REGION>(p, 1),
+            x2 = box_lo<S, REGION>(p, 2);
+  const bool in0 = c >= -S::alloc_lo0(k) - x0
+                   && c < alloc_n<S, REGION>(p, 0) + S::alloc_hi0(k) - x0;
+  const int lo1 = -S::alloc_lo1(k) - x1;
+  const int lim1 = alloc_n<S, REGION>(p, 1) + S::alloc_hi1(k) - x1;
+  const int lo2 = -S::alloc_lo2(k) - x2;
+  const int lim2 = alloc_n<S, REGION>(p, 2) + S::alloc_hi2(k) - x2;
   const idx_t* st = p.in_s[a];
   const real_t* src = p.in[a] + cell_base<S>(p.n, m, 0, p.in_ms[a], st)
                       + c * st[0];
@@ -273,20 +292,18 @@ __device__ __forceinline__ void ring_fetch(const ParamsOf<S>& p,
 // newest one it reads), into their slots; z0 is the segment's first walk
 // plane, whose lowest plane takes slot 0.  A ring-less input copies
 // nothing.
-template <class S, bool BATCH, int k = 0>
-__device__ __forceinline__ void ring_fetch_planes(const ParamsOf<S>& p,
-                                                  typename S::real_t* smem,
-                                                  int m, int z0, int zz,
-                                                  bool first, int b1, int b2,
-                                                  int tid) {
+template <class S, bool BATCH, bool REGION, int k = 0>
+__device__ __forceinline__ void ring_fetch_planes(
+    const ParamsArg<S, REGION>& p, typename S::real_t* smem, int m, int z0,
+    int zz, bool first, int b1, int b2, int tid) {
   if constexpr (k < S::NTILED) {
     constexpr int D = S::ss_depth(k), lo = S::ss_rlo(k), hi = S::ss_rhi(k);
     if constexpr (!SsPlaceOf<S>::global(k))
       for (int c = first ? zz - lo : zz + hi; c <= zz + hi; ++c)
-        ring_fetch<S, k, BATCH>(p, smem, m, c, (c - (z0 - lo)) % D, b1, b2,
-                                tid);
-    ring_fetch_planes<S, BATCH, k + 1>(p, smem, m, z0, zz, first, b1, b2,
-                                       tid);
+        ring_fetch<S, k, BATCH, REGION>(p, smem, m, c, (c - (z0 - lo)) % D,
+                                        b1, b2, tid);
+    ring_fetch_planes<S, BATCH, REGION, k + 1>(p, smem, m, z0, zz, first, b1,
+                                               b2, tid);
   }
 }
 
@@ -294,9 +311,12 @@ __device__ __forceinline__ void ring_fetch_planes(const ParamsOf<S>& p,
 // plane z + ss_lag(K) over the plane tile grown by its in-plane region,
 // from the segment's first plane it must compute (zs - sub_lo0(K)) on.
 // Results go to its computed rings and, for the tile's own points of
-// the segment [zs, ze), to the outputs it is the last writer of.
-template <class S, int K, bool BATCH>
-__device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
+// the segment [zs, ze), to the outputs it is the last writer of.  K5
+// (REGION) computes at global coordinates, its plain region clipped at
+// the global domain and kept to the box grown by the sub-stage's region
+// (plain_region), and stores the box's own cells.
+template <class S, int K, bool BATCH, bool REGION>
+__device__ __forceinline__ void stream_sub(const ParamsArg<S, REGION>& p,
                                            typename S::real_t* smem,
                                            typename S::real_t* ws, int m,
                                            int it, int z, int zs, int ze,
@@ -310,7 +330,7 @@ __device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
     constexpr int R2 = S::SS_T2 + e2 + S::sub_hi2(K);
     int plo[3], phi[3];
     for (int s = 0; s < 3; ++s)
-      plain_region<S, K, false>(p, s, plo[s], phi[s]);
+      plain_region<S, K, REGION>(p, s, plo[s], phi[s]);
     const bool in0 = g0 >= plo[0] && g0 < phi[0];
     const bool own0 = g0 >= zs && g0 < ze;
     for (int i = tid; i < R1 * R2; i += S::SS_NT) {
@@ -323,7 +343,7 @@ __device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
         const StreamStageReader<S, K> rd{&p, smem, ws, it, m, l1, l2,
                                          g0, g1, g2};
         int g[3];
-        stage_at<S, K, false>(p, rd, g, g0, g1, g2, v);
+        stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
       } else {
 #pragma unroll
         for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
@@ -349,8 +369,8 @@ __device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
-    stream_sub<S, K + 1, BATCH>(p, smem, ws, m, it, z, zs, ze, b1, b2,
-                                tid);
+    stream_sub<S, K + 1, BATCH, REGION>(p, smem, ws, m, it, z, zs, ze, b1,
+                                        b2, tid);
   }
 }
 
@@ -358,8 +378,8 @@ __device__ __forceinline__ void stream_sub(const ParamsArg<S, false>& p,
 // slot 0, walked from plane zs - SS_W (where the sub-stage with the
 // widest slot-0 reach starts) on, one barrier before each plane's
 // sub-stages.
-template <class S, bool BATCH>
-__device__ __forceinline__ void stream_item(const ParamsArg<S, false>& p,
+template <class S, bool BATCH, bool REGION>
+__device__ __forceinline__ void stream_item(const ParamsArg<S, REGION>& p,
                                             typename S::real_t* smem,
                                             typename S::real_t* ws, int m,
                                             int zs, int ze, int b1, int b2,
@@ -369,41 +389,43 @@ __device__ __forceinline__ void stream_item(const ParamsArg<S, false>& p,
   // newest plane of each of the next SS_P - 1 walk planes (a group each;
   // a plane no walk plane of the segment reads is skipped, its group
   // left empty)
-  ring_fetch_planes<S, BATCH>(p, smem, m, z0, z0, true, b1, b2, tid);
+  ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z0, true, b1, b2, tid);
   cp_async_commit();
 #pragma unroll
   for (int j = 1; j < S::SS_P; ++j) {
     if (z0 + j < ze)
-      ring_fetch_planes<S, BATCH>(p, smem, m, z0, z0 + j, false, b1, b2,
-                                  tid);
+      ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z0 + j, false, b1,
+                                          b2, tid);
     cp_async_commit();
   }
   for (int z = z0; z < ze; ++z) {
     if (z + S::SS_P < ze)
-      ring_fetch_planes<S, BATCH>(p, smem, m, z0, z + S::SS_P, false, b1,
-                                  b2, tid);
+      ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z + S::SS_P, false,
+                                          b1, b2, tid);
     cp_async_commit();
     cp_async_wait<S::SS_P>();
     __syncthreads();
-    stream_sub<S, 0, BATCH>(p, smem, ws, m, z - z0, z, zs, ze, b1, b2,
-                            tid);
+    stream_sub<S, 0, BATCH, REGION>(p, smem, ws, m, z - z0, z, zs, ze, b1,
+                                    b2, tid);
   }
   cp_async_wait<0>();
 }
 
-// K6's stream arm (BATCH = false) and K7's over it (BATCH = true): a grid
-// of at most the card's resident blocks, each walking the work items
+// K6's stream arm (BATCH = false), K7's over it (BATCH = true) and K5's
+// (REGION = true: the walk over a shard's box, BATCH false): a grid of at
+// most the card's resident blocks, each walking the work items
 // blockIdx.x, + gridDim.x, ... (x columns fastest, then y columns, then
 // segments, then members) with its own workspace slice (SsPlaceOf); a
 // barrier parts one item's last reads from the next one's prologue.  Then
-// every output's pads get 0 (flat_pads).
-template <class S, bool BATCH>
+// every output's pads get 0 (flat_pads), but in K5, whose outputs keep
+// what the wrapper gave them outside the box.
+template <class S, bool BATCH, bool REGION>
 __global__ void __launch_bounds__(S::SS_NT, S::SS_MIN)
-stream_stages_kernel(const __grid_constant__ StagesStreamParams<S> q) {
+stream_stages_kernel(const __grid_constant__ StagesStreamParams<S, REGION> q) {
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
-  const ParamsArg<S, false>& p = q.p;
+  const ParamsArg<S, REGION>& p = q.p;
   real_t* ws = q.ws ? q.ws + (long long)blockIdx.x * ss_ws_elems<S>()
                     : nullptr;
   const int tid = threadIdx.x;
@@ -416,29 +438,30 @@ stream_stages_kernel(const __grid_constant__ StagesStreamParams<S> q) {
     const long long yz = i / gx, sm = yz / gy;
     const int zs = int(sm % gs) * q.seg;
     const int ze = zs + q.seg < p.n[0] ? zs + q.seg : p.n[0];
-    stream_item<S, BATCH>(p, smem, ws, BATCH ? int(sm / gs) : 0, zs, ze,
-                          int(yz % gy) * S::SS_T1, int(i % gx) * S::SS_T2,
-                          tid);
+    stream_item<S, BATCH, REGION>(p, smem, ws, BATCH ? int(sm / gs) : 0, zs,
+                                  ze, int(yz % gy) * S::SS_T1,
+                                  int(i % gx) * S::SS_T2, tid);
   }
-  flat_pads<S>(p, (long long)blockIdx.x * S::SS_NT + tid,
-               (long long)gridDim.x * S::SS_NT);
+  if constexpr (!REGION)
+    flat_pads<S>(p, (long long)blockIdx.x * S::SS_NT + tid,
+                 (long long)gridDim.x * S::SS_NT);
 }
 
-template <class S, bool BATCH>
+template <class S, bool BATCH, bool REGION>
 int stages_stream_resident() {
-  return resident_of(stream_stages_kernel<S, BATCH>, S::SS_NT,
+  return resident_of(stream_stages_kernel<S, BATCH, REGION>, S::SS_NT,
                      int(sizeof(typename S::real_t)) * S::SS_ELEMS);
 }
 
-template <class S, bool BATCH>
-int launch_stages_stream(StagesStreamParams<S> p, long long nres,
+template <class S, bool BATCH, bool REGION>
+int launch_stages_stream(StagesStreamParams<S, REGION> p, long long nres,
                          cudaStream_t stream) {
   const int smem = int(sizeof(typename S::real_t)) * S::SS_ELEMS;
   // a launch with computed rings past shared memory needs its workspace
   if (nres < 1 || p.seg < 1 || (ss_ws_elems<S>() > 0 && !p.ws))
     return int(cudaErrorInvalidConfiguration);
   const cudaError_t e = cudaFuncSetAttribute(
-      stream_stages_kernel<S, BATCH>,
+      stream_stages_kernel<S, BATCH, REGION>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const long long items = (long long)((p.p.n[2] + S::SS_T2 - 1) / S::SS_T2)
@@ -447,7 +470,7 @@ int launch_stages_stream(StagesStreamParams<S> p, long long nres,
   if (items < 1) return 0;
   const dim3 grid(unsigned(items < nres ? items : nres));
   const dim3 block(S::SS_NT, 1, 1);
-  stream_stages_kernel<S, BATCH><<<grid, block, smem, stream>>>(p);
+  stream_stages_kernel<S, BATCH, REGION><<<grid, block, smem, stream>>>(p);
   return int(cudaGetLastError());
 }
 #endif
@@ -468,8 +491,8 @@ int run_stages_stream(void* in_ptrs, void* in_strides, void* in_mstrides,
   q.seg = seg;
   q.ws = static_cast<typename S::real_t*>(ws);
 #ifdef __CUDACC__
-  return launch_stages_stream<S, BATCH>(q, nres,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_stages_stream<S, BATCH, false>(
+      q, nres, static_cast<cudaStream_t>(stream));
 #else
   (void)nres;
   (void)stream;
@@ -477,13 +500,40 @@ int run_stages_stream(void* in_ptrs, void* in_strides, void* in_mstrides,
 #endif
 }
 
-// The resident blocks of a launch of kind 0 (solo) or 1 (member batch);
-// 1 on the host.
+// K5's stream arm: one sub-step of a shard over the box (run_region's
+// table, set_region), K6's tables moved to the box's cell 0 and p.n
+// holding the box's extents, as run_region does for the body; the
+// segment length is the box's (the wrapper's).  The outputs are the
+// wrapper's: the kernel stores the box's cells and nothing else.
+template <class S>
+int run_stages_stream_region(void* in_ptrs, void* in_strides, void* out_ptrs,
+                             void* out_strides, void* sizes, void* region,
+                             int seg, int t, void* ws, long long nres,
+                             void* stream) {
+  StagesStreamParams<S, true> q{};
+  ParamsArg<S, true>& p = q.p;
+  fill_params<S>(p, in_ptrs, in_strides, out_ptrs, out_strides, sizes, t);
+  if (!set_region<S>(p, region)) return 0;  // an empty box: nothing
+  q.seg = seg;
+  q.ws = static_cast<typename S::real_t*>(ws);
+#ifdef __CUDACC__
+  return launch_stages_stream<S, false, true>(
+      q, nres, static_cast<cudaStream_t>(stream));
+#else
+  (void)nres;
+  (void)stream;
+  return host_stages<S, true>(p);
+#endif
+}
+
+// The resident blocks of a launch of kind 0 (solo), 1 (member batch) or
+// 2 (a shard's box); 1 on the host.
 template <class S>
 int resident_stages_stream(int kind) {
 #ifdef __CUDACC__
-  return kind == 1 ? stages_stream_resident<S, true>()
-                   : stages_stream_resident<S, false>();
+  return kind == 1   ? stages_stream_resident<S, true, false>()
+         : kind == 2 ? stages_stream_resident<S, false, true>()
+                     : stages_stream_resident<S, false, false>();
 #else
   (void)kind;
   return 1;
@@ -493,10 +543,10 @@ int resident_stages_stream(int kind) {
 }  // namespace yt
 
 // The C entry points of K6's stream arm for a K6 Spec that prints SS_T1:
-// solo (K6's arguments), member batch (K7's), each with the segment length
-// before the step and the workspace and resident blocks before the
-// stream, and the resident blocks of a launch kind, which the wrapper asks
-// once.
+// solo (K6's arguments), member batch (K7's), a shard's box (K5's: K6's
+// arguments and the box table), each with the segment length before the
+// step and the workspace and resident blocks before the stream, and the
+// resident blocks of a launch kind, which the wrapper asks once.
 #define YT_STAGES_STREAM_ENTRIES(NAME, S)                                    \
   extern "C" int NAME##_stages_stream(void* in_ptrs, void* in_strides,       \
                                       void* out_ptrs, void* out_strides,     \
@@ -515,6 +565,14 @@ int resident_stages_stream(int kind) {
                                           out_ptrs, out_strides,             \
                                           out_mstrides, sizes, nm, seg, t,   \
                                           ws, nres, stream);                 \
+  }                                                                          \
+  extern "C" int NAME##_stages_stream_region(                                \
+      void* in_ptrs, void* in_strides, void* out_ptrs, void* out_strides,    \
+      void* sizes, void* region, int seg, int t, void* ws, long long nres,   \
+      void* stream) {                                                        \
+    return yt::run_stages_stream_region<S>(in_ptrs, in_strides, out_ptrs,    \
+                                           out_strides, sizes, region, seg,  \
+                                           t, ws, nres, stream);             \
   }                                                                          \
   extern "C" int NAME##_stages_stream_resident(int kind) {                   \
     return yt::resident_stages_stream<S>(kind);                              \

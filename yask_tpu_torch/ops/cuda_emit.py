@@ -1182,7 +1182,8 @@ def _placement(rec) -> str:
 
 def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                       reasons: List[Dict] = None, spec: KernelSpec = None,
-                      batched: bool = False) -> List[str]:
+                      batched: bool = False, region: bool = False
+                      ) -> List[str]:
     """The dims the stream arms walk for a ``skew`` request: the port's
     counterpart of ``yask_tpu``'s ``skew_engaged_dims`` and of the skew
     resolution of ``build_pallas_chunk`` (pallas_stencil.py:366-441,
@@ -1193,11 +1194,12 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     per launch (ROADMAP.md C11): K1's stream arm for a single-stage 3-D
     solution (``spec.stream``), K6's (``spec.stages_stream``, kernel
     ``stages_stream``) for a multi-stage or scratch one, its rings past
-    shared memory where they fit no plane tile, solo or over member
-    batches (K7, ``batched``); ``max_dims`` < 1
-    (``-skew_dims 0``) leaves it out.  K7 over K1's body keeps its kernel
-    (``skew_not_ported``), and the solutions neither arm takes keep theirs
-    with the emitter's reason (``spec.stream_cause``).
+    shared memory where they fit no plane tile, solo, over member
+    batches (K7, ``batched``) or over a shard's box (K5, ``region``,
+    kernel ``stages_stream_region``); ``max_dims`` < 1
+    (``-skew_dims 0``) leaves it out.  K7 and K5 over K1's body keep
+    their kernel (``skew_not_ported``), and the solutions neither arm
+    takes keep theirs with the emitter's reason (``spec.stream_cause``).
     Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``."""
     if reasons is None:
         reasons = []
@@ -1206,6 +1208,10 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
         reasons.append({"code": "skew_not_ported", "kernel": "batched_step",
                         "cause": "K7 over K1's body has no stream arm: "
                                  "ROADMAP.md A5"})
+        return []
+    if region and not k6:
+        reasons.append({"code": "skew_not_ported", "kernel": "shard_step",
+                        "cause": "K5 over K1's stream arm: ROADMAP.md A5"})
         return []
     if skew is False:
         reasons.append({"code": "skew_disabled",
@@ -1233,10 +1239,12 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     code = "skew_forced" if skew is True else "skew_engaged"
     if spec.stages_stream is not None:
         rec = spec.stages_stream.record()
+        over = (" over member batches" if batched
+                else " over a shard's box" if region else "")
         reasons.append({
-            "code": code, "dim": d0, "kernel": "stages_stream",
-            "detail": f"K6's slot-0 stream"
-                      f"{' over member batches' if batched else ''}, one "
+            "code": code, "dim": d0,
+            "kernel": "stages_stream_region" if region else "stages_stream",
+            "detail": f"K6's slot-0 stream{over}, one "
                       f"level per launch: plane tile {rec['plane_tile']} by "
                       f"{rec['threads']} threads, prefetch "
                       f"{rec['prefetch']}, sub-stage lags {rec['lags']}, "

@@ -139,6 +139,20 @@ past it live in a workspace slice per resident block
 slices within the card's L2) and the staged inputs without a ring are
 read from their own allocations.  ``-no-skew`` keeps K6's body.
 
+K5 over K6's stream arm (``-skew`` under ``-mode shard_pallas``): the
+source's ``<name>_stages_stream_region`` entry walks one shard's box
+(K5's box table after K6's tables, :func:`call_region_stages_stream_entry`)
+at global coordinates, each sub-stage's plain region clipped at the
+global domain and kept to the box grown by its region, the ring copies
+bounded by the shard's allocation, only the box's cells stored and no
+pad written, so it keeps :func:`copy_base`'s outputs and the shared
+outputs of an overlapped group's core and shells.  :func:`shard_step`
+launches it where a kernel built with ``region=True`` engages the arm,
+at each box's segment length (:meth:`FusedKernel.region_segment`: the
+plan's rule at the box's extents), counted in
+``shard_step.stream_launches``; its plain version is
+:func:`plain_shard_step`.  K5 over K1's body keeps its kernel.
+
 The A3 arms (ROADMAP.md A3: misc dims, partial-dim writes, element size
 2, more than three domain dims) live in the emitted ``Spec`` and the
 headers; here a misc slice of an input or output, and an input at an
@@ -400,6 +414,26 @@ def call_stages_stream_entry(fn, program, spec, ins, outs, t: int, stream,
               _ptr(ws), int(nres), stream)
 
 
+def call_region_stages_stream_entry(fn, program, spec, ins, outs, box, off,
+                                    t: int, stream, seg: int, nres: int = 1,
+                                    ws=None) -> int:
+    """Call K5's entry over K6's stream arm
+    (``<name>_stages_stream_region``): K6's tables, K5's box table (the
+    box ``{dim: (lo, hi)}`` in local interior coordinates, the shard's
+    global origin ``off`` and the global extents, as
+    :func:`call_region_entry` passes them), the box's segment length
+    ``seg``, the step, the workspace (as :func:`call_stages_stream_entry`),
+    ``nres`` blocks and the stream.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    tab = _region_table(program, box, off)
+    reg = (ctypes.c_int * len(tab))(*tab)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), ctypes.addressof(reg), int(seg), int(t),
+              _ptr(ws), int(nres), stream)
+
+
 def call_batched_stages_stream_entry(fn, program, spec, ins, outs, nm: int,
                                      t: int, stream, seg: int = None,
                                      nres: int = 1, ws=None) -> int:
@@ -460,6 +494,13 @@ def stages_stream_argtypes():
     """K6's stream entry's C signature: K6's tables, the segment, the
     step, the workspace, the resident blocks, the stream."""
     return ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+            + _WS_ARGS + [ctypes.c_void_p])
+
+
+def region_stages_stream_argtypes():
+    """K5's entry over K6's stream arm: K6's tables, the box table, the
+    segment, the step, the workspace, the resident blocks, the stream."""
+    return ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int]
             + _WS_ARGS + [ctypes.c_void_p])
 
 
@@ -900,13 +941,18 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     the group needs it), the shard's global origin ``off``; returns the
     shard's new state (rings rotated).  It launches the ``_region`` entry
     of the kernel's body: K1's for a single-stage solution, K6's (every
-    stage and scratch sub-stage) otherwise.  The outputs are fresh zeroed
-    tensors holding the box's cells (a var whose misc slices are not all
-    written starts from a copy of its evicted slot, :func:`copy_base`), or
-    the given ``outs``, of which only the box is written (the core and the
-    shells of an overlapped group write disjoint boxes of one sub-step's
-    outputs).  CPU tensors take :func:`plain_shard_chunk`; CUDA tensors
-    launch the kernel (counted in ``shard_step.launches``) or raise."""
+    stage and scratch sub-stage) otherwise; where K6's stream arm is
+    engaged (``kernel.skew_dims``, a kernel built with ``region=True``)
+    its ``_stages_stream_region`` entry instead, at the box's segment
+    length (:meth:`FusedKernel.region_segment`).  The outputs are fresh
+    zeroed tensors holding the box's cells (a var whose misc slices are
+    not all written starts from a copy of its evicted slot,
+    :func:`copy_base`), or the given ``outs``, of which only the box is
+    written (the core and the shells of an overlapped group write
+    disjoint boxes of one sub-step's outputs).  CPU tensors take
+    :func:`plain_shard_chunk`; CUDA tensors launch the kernel (counted in
+    ``shard_step.launches``, the stream arm in
+    ``shard_step.stream_launches``) or raise."""
     import torch
     prog = kernel.program
     spec = kernel.spec
@@ -924,20 +970,32 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     if outs is None:
         outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
-        ws, nres = kernel.workspace(dev, 2)
-        rc = call_region_entry(kernel.region_fn, prog, spec, ins, outs, box,
-                               off, t,
-                               torch.cuda.current_stream(dev).cuda_stream,
-                               ws, nres)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kernel.skew_dims:
+            entry = "_stages_stream_region"
+            ws, nres = kernel.stream_workspace(dev, 2)
+            rc = call_region_stages_stream_entry(
+                kernel.region_stages_stream_fn, prog, spec, ins, outs, box,
+                off, t, stream,
+                kernel.region_segment(box, nres)["segment_planes"], nres, ws)
+        else:
+            entry = "_region"
+            ws, nres = kernel.workspace(dev, 2)
+            rc = call_region_entry(kernel.region_fn, prog, spec, ins, outs,
+                                   box, off, t, stream, ws, nres)
     if rc != 0:
         raise YaskException(
-            f"shard_step kernel '{spec.name}_region' launch failed: CUDA "
+            f"shard_step kernel '{spec.name}{entry}' launch failed: CUDA "
             f"error {rc}")
-    shard_step.launches += 1
+    if kernel.skew_dims:
+        shard_step.stream_launches += 1
+    else:
+        shard_step.launches += 1
     return _rotated(prog, spec, state, outs)
 
 
 shard_step.launches = 0
+shard_step.stream_launches = 0
 
 
 def plain_batched_chunk(program, state, t0: int, k: int, nm: int):
@@ -963,10 +1021,13 @@ class FusedKernel:
     reason records land in ``skew_reasons``): where it engages, ``chunk``
     launches :func:`stream_step` in place of :func:`fused_step` (K1's
     arm), or :func:`stages_step` and :func:`batched_stages_step` launch
-    K6's stream arm (``<name>_stages_stream``, ``_batched``)."""
+    K6's stream arm (``<name>_stages_stream``, ``_batched``).  ``region``
+    makes K5's kernel of a shard's program: the request then selects
+    K5's arm, and :func:`shard_step` launches K6's stream arm over the
+    box (``<name>_stages_stream_region``) where it engages."""
 
     def __init__(self, program, push=False, skew=False,
-                 max_skew_dims: int = 2):
+                 max_skew_dims: int = 2, region: bool = False):
         self.program = program
         #: None for a program without equations: its step launches
         #: nothing (ROADMAP.md C14)
@@ -974,17 +1035,23 @@ class FusedKernel:
                      else None)
         self.skew_reasons: List[Dict] = []
         self._skew = (skew, max_skew_dims)
+        self.region = region
         self.skew_dims = cuda_emit.skew_engaged_dims(
-            program, skew, max_skew_dims, self.skew_reasons, self.spec)
+            program, skew, max_skew_dims, self.skew_reasons, self.spec,
+            region=region)
         self.fn = None
         self.batched_fn = None
         self.region_fn = None
         self.stream_fn = None
-        #: K6's stream arm: its solo and batch entries and their
+        #: K6's stream arm: its solo, batch and box entries and their
         #: resident-block query
         self.stages_stream_fn = None
         self.batched_stages_stream_fn = None
+        self.region_stages_stream_fn = None
         self.stream_resident_fn = None
+        #: K5's stream arm: each box's segments, per (box extents,
+        #: resident blocks)
+        self._region_segs: Dict[tuple, Dict] = {}
         #: the workspace arm's resident-block query and its answers per
         #: launch kind (0 solo, 1 member batch, 2 a shard's box)
         self.resident_fn = None
@@ -1047,10 +1114,13 @@ class FusedKernel:
             self.batched_stages_stream_fn = getattr(lib, stem + "_batched")
             self.batched_stages_stream_fn.argtypes = \
                 batched_stages_stream_argtypes()
+            self.region_stages_stream_fn = getattr(lib, stem + "_region")
+            self.region_stages_stream_fn.argtypes = \
+                region_stages_stream_argtypes()
             self.stream_resident_fn = getattr(lib, stem + "_resident")
             self.stream_resident_fn.argtypes = [ctypes.c_int]
             for f in (self.stages_stream_fn, self.batched_stages_stream_fn,
-                      self.stream_resident_fn):
+                      self.region_stages_stream_fn, self.stream_resident_fn):
                 f.restype = ctypes.c_int
         self.fn = fn
         self.batched_fn = bfn
@@ -1093,10 +1163,10 @@ class FusedKernel:
 
     def stream_resident(self, kind: int) -> int:
         """The resident blocks of K6's stream arm for a launch of ``kind``
-        (0 solo, 1 member batch): the grid of its launches, asked of the
-        kernel once per kind and card; where rings lie past shared memory
-        at most the plan's ``ws_blocks``, so that the blocks' workspace
-        slices stay within the card's L2."""
+        (0 solo, 1 member batch, 2 a shard's box): the grid of its
+        launches, asked of the kernel once per kind and card; where rings
+        lie past shared memory at most the plan's ``ws_blocks``, so that
+        the blocks' workspace slices stay within the card's L2."""
         cap = self.spec.stages_stream.ws_blocks
 
         def query():
@@ -1115,6 +1185,31 @@ class FusedKernel:
             return None, nres
         return (torch.empty(nres * elems, dtype=self.dtype, device=dev),
                 nres)
+
+    def region_segment(self, box, nres: int = 0) -> Dict[str, object]:
+        """K5's stream arm over ``box``: the plan's segment rule
+        (:func:`~yask_tpu_torch.ops.tile_planner.stream_segments`) at the
+        box's extents, on ``nres`` resident blocks (0: those the card
+        answered for a box, else the plan's estimate).  Returns the box,
+        its segment length, segments, columns and blocks."""
+        from yask_tpu_torch.ops import tile_planner
+        plan = self.spec.stages_stream
+        dims = list(self.program.ana.domain_dims)
+        n = tuple(int(box[d][1]) - int(box[d][0]) for d in dims)
+        if not nres:
+            nres = self._resident.get(("stream", 2)) or min(
+                tile_planner.SMS * plan.per_sm,
+                plan.ws_blocks or tile_planner.SMS * plan.per_sm)
+        key = (n, nres)
+        if key not in self._region_segs:
+            cols = -(-n[1] // plan.tile[0]) * -(-n[2] // plan.tile[1])
+            seg, segs = tile_planner.stream_segments(n[0], cols, nres,
+                                                     plan.warm)
+            self._region_segs[key] = {"segment_planes": seg,
+                                      "segments": segs, "columns": cols,
+                                      "blocks": nres}
+        return dict(self._region_segs[key],
+                    box=[[int(x) for x in box[d]] for d in dims])
 
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on
@@ -1218,8 +1313,9 @@ class FusedKernel:
             # launch on the card, its resident blocks per launch kind
             rec = s.stages_stream.record()
             out.update(
-                name=s.name + "_stages_stream" + ("_batched" if members
-                                                  else ""),
+                name=s.name + "_stages_stream" + (
+                    "_batched" if members else
+                    "_region" if self.region else ""),
                 tile=[1] + rec["plane_tile"], smem_bytes=rec["smem_bytes"],
                 pipeline_dmas=True, skew=True,
                 skew_dims=list(skew_dims),

@@ -626,6 +626,24 @@ def _place_rings(in_elems: Dict[int, int], cmp_elems: List[int],
             [o if inside else sm + o for inside, o in cmp_at], sm, wsn)
 
 
+def stream_segments(n0: int, cols: int, blocks: int, warm: int
+                    ) -> Tuple[int, int]:
+    """The segment length of slot 0 (``n0`` planes) for K6's stream arm
+    and the segments it makes: of ``cols`` columns on ``blocks`` resident
+    blocks, the split whose waves of work items times each item's walk
+    (its planes and the ``warm`` planes before them) are the fewest, the
+    fewest segments on a tie.  The plan applies it at the domain's
+    extents, K5's wrapper at each box's."""
+    best = None
+    for s in range(1, min(n0, 65535) + 1):
+        seg = -(-n0 // s)
+        segs = -(-n0 // seg)
+        cost = -(-cols * segs // blocks) * (seg + warm)
+        if best is None or cost < best[0]:
+            best = (cost, seg, segs)
+    return best[1], best[2]
+
+
 def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
                        in_reads: Dict[int, Dict[int, Tuple[int, int]]],
                        sub_regions, cmp_subs: List[int],
@@ -697,15 +715,7 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
         cap = max(1, L2_BYTES // (wsn * esize)) if wsn else 0
         blocks = min(SMS * per_sm, cap) if cap else SMS * per_sm
         cols = -(-n1 // t1) * -(-n2 // t2)
-        best = None
-        for s in range(1, min(n0, 65535) + 1):
-            seg = -(-n0 // s)
-            segs = -(-n0 // seg)
-            waves = -(-cols * segs // blocks)
-            cost = waves * (seg + warm)
-            if best is None or cost < best[0]:
-                best = (cost, segs, seg)
-        _cost, segs, seg = best
+        seg, segs = stream_segments(n0, cols, blocks, warm)
         pts = t1 * t2 * n0
         staged = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
                      * (n0 + segs * (warm + sum(in_reach[a])))

@@ -646,7 +646,9 @@ class ShardPallasPlan:
     """One shard_pallas configuration of a prepared context: the layout
     (pads grown by ``hK = radius × wf_steps``), K5's kernel over the local
     program (push off, as the reference builds its distributed chunk
-    without ``push=``), and the tiling record of the last run."""
+    without ``push=``; the session's ``-skew`` and ``-skew_dims`` select
+    K6's stream arm over each box where it engages), and the tiling
+    record of the last run."""
 
     def __init__(self, ctx):
         from yask_tpu_torch.ops.fused_stencil import FusedKernel
@@ -661,7 +663,8 @@ class ShardPallasPlan:
         self.kernel = FusedKernel(ctx._csol.plan(
             opts.rank_domain_sizes, ops=self.layout.progs[0].ops,
             extra_pad=extra, global_sizes=opts.global_domain_sizes),
-            push=False)
+            push=False, skew=ctx._skew_arg(),
+            max_skew_dims=opts.skew_dims_max, region=True)
         self.tiling = None
 
 
@@ -855,14 +858,12 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
                      "state"})
     tiling = sp.kernel.tiling(K)
     tiling.update(kernel="shard_step",
-                  name=spec.name + "_region" if spec is not None else None,
                   launches_per_step=layout.mesh.size, distributed=True,
                   mesh=dict(layout.mesh.shape),
                   overlap_exchange=bool(ov), overlap_reasons=list(reasons),
-                  comm=plan.record(), skew=False,
-                  skew_reasons=[{"code": "skew_not_ported",
-                                 "cause": "K5 has no stream arm inside "
-                                          "shards: ROADMAP.md A5"}])
+                  comm=plan.record())
+    if not tiling.get("skew"):
+        tiling["name"] = spec.name + "_region" if spec is not None else None
     if ov:
         tiling["overlap_core"] = {d: list(v) for d, v in core.items()}
     sp.tiling = tiling
@@ -930,3 +931,15 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
             t += gk * dirn
         _sync(layout)
     ctx._run.resident = (layout, shards)
+    if tiling.get("skew"):
+        # K5's stream arm: the segment length of each box a group walks,
+        # on the card's resident blocks once a launch has asked them
+        boxes = []
+        for gk in sorted({K, rem} - {0}):
+            for s_ in range(gk):
+                boxes.append(_full_box(sp, gk, s_))
+                if ov and gk > 1:
+                    cbox, shells = split_boxes(sp, core, gk, s_)
+                    boxes += [cbox] + shells
+        tiling["stages_stream"]["box_segments"] = [
+            sp.kernel.region_segment(b) for b in boxes]

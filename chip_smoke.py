@@ -259,7 +259,8 @@ script exits 0 only when all of them passed.  Phases:
    (each level of a group runs K6's sub-stages; level buffers past shared
    memory in a workspace of the card's resident blocks) and K4's member
    batch (``<name>_trap_batched``, ``batched_trapezoid_chunk``), every
-   K4 request forced (``k4_ctx(force=True)``).  (a) At mid width, one
+   K4 request forced (``k4_ctx(force=True)``) and under ``-no-skew`` (the
+   two-phase passes; phase 20 runs the default, K4's stream arm).  (a) At mid width, one
    group of K = 2 each: ssg r=2 and r=4, tti r=2, awp, gaussian r=2 and
    tti r=2 in bfloat16 at 64³ (gaussian 256²), and the RTM chain merged
    by ``SolutionPipeline`` (``prepare(fuse=True)``) at 64³: one phase-1
@@ -411,7 +412,34 @@ script exits 0 only when all of them passed.  Phases:
    of ``k5_bound``, each box's segments, 3 launches of the arm and 3 of
    the body under ``torch.profiler`` (kernels, fills, idle share); (c)
    tti r=2 512³ with ``-overlap_x on`` on the arm and on the body, each
-   bit-equal to (b)'s.
+   bit-equal to (b)'s;
+20. K4's stream arm (``trapezoid_chunk`` launching ``<name>_trap_stream``,
+   counted in its ``stream_launches``: one launch per K-step group, K6's
+   stream arm over the K levels' sub-stages, each level lagged along slot
+   0 by what the later levels read of it, every output cell written
+   once), the default of ``-trapezoid`` on a 3-D solution K6's stream arm
+   takes; phases 7, 14 and 15 hold the two-phase passes under
+   ``-no-skew``.  (a) Phase 14 (a)'s 3-D fp32 cases (ssg r=2 and r=4, tti
+   r=2, awp at 64³) and the RTM chain at 64³, one group of K = 2 each,
+   the arm alone launching once, bit-equal (``compare_data(epsilon=0)``)
+   to its ``-no-skew`` twin (the two-phase passes) and held to its plain
+   version at ``field_epsilon``, one group of each arm timed, the plan
+   and ptxas's registers and spills; (b) iso3dfd r=2 512³ K=4 and tti r=2
+   512³ K=2, each beside its twin from one seed on the card: a warm-up
+   group, then 3 trials of 3 groups with the counters zeroed just before
+   (one launch a group, or three passes), the final states bit-equal; ms
+   per group and per step, one group by CUDA events against the bound
+   (each input read once, each output level written once) and the
+   twin's, the plain version's group and one group against it,
+   ``torch.profiler`` over 3 groups (kernels, fills, idle share), the
+   plan and ptxas's report; for iso3dfd the arm at the plane tiles of
+   :data:`K4S_SWEEP` (the same bits), K1's stream arm (``-no-trapezoid``)
+   from the same seed (bit-equal, ms per step) and what the auto gate
+   chooses; (c) an ``EnsembleRun`` of 8 × iso3dfd r=2 256³ K=4: 2 groups,
+   K7 over the arm alone (``_trap_stream_batched``, one launch a group),
+   each member bit-equal to its solo run, the batched group against 8
+   solo groups and against the two-phase batch on the same stack (the
+   same bits).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -478,6 +506,9 @@ def launch_counts() -> dict:
                 fs.batched_trapezoid_chunk.phase1_launches,
             "batched_trapezoid_diamond":
                 fs.batched_trapezoid_chunk.diamond_launches,
+            "trapezoid_stream": fs.trapezoid_chunk.stream_launches,
+            "batched_trapezoid_stream":
+                fs.batched_trapezoid_chunk.stream_launches,
             "copy_base": fs.copy_base.launches}
 
 
@@ -492,6 +523,7 @@ def zero_launch_counts() -> None:
     for w in (fs.trapezoid_chunk, fs.batched_trapezoid_chunk):
         w.phase1_launches = 0
         w.diamond_launches = 0
+        w.stream_launches = 0
 
 
 def stages_counter(kern, wrapper: str = "stages_step") -> str:
@@ -534,7 +566,9 @@ def bits_digest(a) -> tuple:
 
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
-    names = (("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
+    names = (("stream_stages_kernelI8TrapSpecLb1", "K7 over K4's stream arm"),
+             ("stream_stages_kernelI8TrapSpecLb0", "K4 stream arm"),
+             ("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0ELb1E", "K5 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0", "K6 stream arm"),
              ("stream_step_kernel", "stream arm"),
@@ -4509,7 +4543,8 @@ def phase14c(fac, env, card: str, nm: int = 8, g: int = 256,
     sk = 4
     try:
         sids = [srv.open_session(stencil="tti", radius=2, g=gs,
-                                 mode="fused", wf=2, options="-trapezoid",
+                                 mode="fused", wf=2,
+                                 options="-trapezoid -no-skew",
                                  bucket=False) for _ in range(nses)]
         with srv.scheduler.session_ctx(sids[0]) as c:
             c._trapezoid_arg = lambda: True
@@ -5830,13 +5865,465 @@ def phase19(fac, card: str, twins: dict) -> list:
     return entries
 
 
-def phase1(fac, env, cases: dict) -> dict:
-    """Build every kernel of the path, one ``nvcc`` per source, all
-    started together (``cases``: phase 2's solutions and radii).  Returns
-    ptxas's registers and spills per kernel, by source name."""
-    from yask_tpu_torch.ops import _build, fused_stencil
+# ---- phase 20: K4's stream arm (one launch per K-step group) ----------
+
+#: Phase 20 (a): K4_MID's 3-D fp32 cases (the stream arm's), one group of
+#: K = 2 each beside its ``-no-skew`` twin (the two-phase passes), and the
+#: RTM chain at 64³
+K4S_MID = tuple(c for c in K4_MID if c[3] == 4 and len(c[4]) == 3)
+#: Phase 20 (b): (label, stencil, radius, edge, K) at full width, each
+#: beside its ``-no-skew`` twin from one seed: phase 7 (b)'s and phase 14
+#: (b)'s shapes
+K4S_FULL = (("iso3dfd r=2", "iso3dfd", 2, 512, 4),
+            ("tti r=2", "tti", 2, 512, 2))
+#: Phase 20 (b)'s plane-tile sweep on iso3dfd (T1, T2, threads): the
+#: planner's rung (16x32 by 512) and this one
+K4S_SWEEP = ((32, 32, 1024),)
+#: Phase 20 (c): K7 over the arm, members x edge (phase 14 (c)'s shape)
+K4S_BATCH = (8, 256)
+K4S_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the trapezoid arm "
+                ":812-930, :2058-2188, :2372-2416; the K levels lagged "
+                "along slot 0 as its skewed-wavefront carry :306-441, "
+                ":1955-2056)")
+K4S_K7_REPLACES = ("yask_tpu/runtime/ensemble.py:253-263 (the vmapped "
+                   "trapezoid chunk of pallas_stencil.py:2312)")
+
+
+def k4s_specs(fac, env) -> dict:
+    """Phase 20's K4 stream-arm sources (every case, and iso3dfd at the
+    rungs of :data:`K4S_SWEEP`), for phase 1's parallel build; their
+    ``-no-skew`` twins are phases 7 and 14's."""
+    from yask_tpu_torch.ops import cuda_emit
+    out = {}
+    for label, st, r, _eb, sizes in K4S_MID:
+        ctx = k4_ctx(fac, env, st, r, 4, sizes, "fused", 2,
+                     "-trapezoid -skew", force=True)
+        out[f"K4 stream {label}"] = ctx._trapezoid_kernel().spec
+        del ctx
+    pipe = rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid", True,
+                    (64, 64, 64))
+    pipe.fused_ctx._trapezoid_arg = lambda: True
+    out["K4 stream rtm chain"] = pipe.fused_ctx._trapezoid_kernel().spec
+    pipe.end()
+    for label, st, r, g, K in K4S_FULL:
+        ctx = k4_ctx(fac, env, st, r, 4, (g, g, g), "fused", K,
+                     "-trapezoid -skew", force=True)
+        out[f"K4 stream {label} {g}^3 K={K}"] = \
+            ctx._trapezoid_kernel().spec
+        if st == "iso3dfd":
+            for rung in K4S_SWEEP:
+                out[f"K4 stream {label} rung {rung}"] = \
+                    cuda_emit.resolve_trapezoid(
+                        ctx._program, K, True, skew=True,
+                        stream_tiles=(rung,))
+        del ctx
+    return out
+
+
+def k4s_plan(spec) -> str:
+    """The stream arm's plan as phase 20 prints it."""
+    from yask_tpu_torch.ops.cuda_emit import trap_stream_cells
+    rec, tr = spec.stages_stream.record(), spec.trap
+    return (f"plane tile {rec['plane_tile']} by {rec['threads']} threads, "
+            f"lags per level {tr['level_lags']}, rings "
+            f"{rec['ring_depths']} (computed {rec['computed_ring_depths']}),"
+            f" {rec['smem_bytes']} B, places "
+            f"{sorted(set(rec['ring_places'].values()))}/"
+            f"{sorted(set(rec['computed_ring_places']))}, "
+            f"{rec['segments']} segment(s) of {rec['segment_planes']} "
+            f"planes, {rec['staged_per_point']} staged cells per point, "
+            f"computed {trap_stream_cells(spec)[1]}x the useful")
+
+
+def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
+             rtm: int = 64) -> list:
+    """Phase 20 (a): each case forced on K4 under ``-skew`` (the stream
+    arm) and under ``-no-skew`` (its two-phase twin), one group of K = 2
+    from one seed with the counters zeroed just before each: the arm
+    launches once and nothing else, the twin its three passes; the two
+    bit-equal (``compare_data(epsilon=0)``) and the arm held to its plain
+    version at ``field_epsilon``; one group of each timed.  Returns one
+    row per case."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import plain_chunk, trapezoid_chunk
+    rows = []
+
+    def timed(label, ctx, twin_ctx, got, diff):
+        kern, state, t = ctx._trapezoid_kernel(), ctx._state, ctx._cur_step
+        ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, 2), 3)
+        tk = twin_ctx._trapezoid_kernel()
+        twin_ms = cuda_ms(lambda: trapezoid_chunk(tk, twin_ctx._state, t, 2),
+                          3)
+        plain_ms = cuda_ms(lambda: plain_chunk(kern.program, state, t, 2),
+                           2)
+        err, nbits, scale = k4_group_vs_plain(kern, state, t)
+        bound_ms, bound_by, _nb = k4_bound(ctx, kern.spec)
+        log(f"phase 20 (a): {label}: K4's stream arm, one group (K=2): "
+            f"launches {got}; bit-equal to its -no-skew twin (the two-phase "
+            f"passes, compare_data(epsilon=0) = {diff[2]}); vs plain max|d|="
+            f"{diff[0]:.3e} mismatches={diff[1]}; {ms:.3f} ms/group (CUDA "
+            f"events) against the twin's {twin_ms:.3f} ({twin_ms / ms:.2f}x)"
+            f", bound {bound_ms:.4f} ms ({bound_by}), share "
+            f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms/group; a second "
+            f"group vs plain max|d|={err:.3e} ({nbits} cells differ in "
+            f"their bits); {k4s_plan(kern.spec)}; ptxas "
+            f"{ptxas.get(kern.spec.name, 'not built by phase 1')} [{card}]")
+        if not err <= FIELD_EPS * scale:
+            raise RuntimeError(f"phase 20 (a): {label}: K4's stream arm and "
+                               "its plain version disagree")
+        rows.append((label, ms, plain_ms, bound_ms, bound_by,
+                     max(err, diff[0]), sum(got.values()), twin_ms))
+
+    for label, st, r, _eb, sizes in cases:
+        ctxs = {"k4s": k4_ctx(fac, env, st, r, 4, sizes, "fused", 2,
+                              "-trapezoid -skew", force=True),
+                "twin": k4_ctx(fac, env, st, r, 4, sizes, "fused", 2,
+                               "-trapezoid", force=True),
+                "plain": k4_ctx(fac, env, st, r, 4, sizes, "torch", 2)}
+        for c in ctxs.values():
+            seed_physical(c, 7)
+        counts = {}
+        for k, want in (("k4s", {"trapezoid_stream": 1}),
+                        ("twin", {"trapezoid_phase1": 1,
+                                  "trapezoid_diamond": 2})):
+            zero_launch_counts()
+            ctxs[k].run_solution(0, 1)
+            torch.cuda.synchronize()
+            counts[k] = {n: v for n, v in launch_counts().items() if v}
+            if counts[k] != want:
+                raise RuntimeError(f"phase 20 (a): {label} {k}: launches "
+                                   f"{counts[k]}, expected {want}")
+        ctxs["plain"].run_solution(0, 1)
+        twin_bad = ctxs["k4s"].compare_data(ctxs["twin"], epsilon=0.0,
+                                            abs_epsilon=0.0)
+        diff = (max_abs_diff(ctxs["k4s"], ctxs["plain"]),
+                ctxs["k4s"].compare_data(ctxs["plain"],
+                                         field_epsilon=FIELD_EPS), twin_bad)
+        if twin_bad or diff[1] or not finite(ctxs["k4s"]):
+            raise RuntimeError(f"phase 20 (a): {label}: the stream arm "
+                               f"differs from its twin ({twin_bad}) or its "
+                               f"plain version ({diff[1]} mismatches)")
+        timed(label, ctxs["k4s"], ctxs["twin"], counts["k4s"], diff)
+        del ctxs
+        torch.cuda.empty_cache()
+
+    # the RTM chain merged by SolutionPipeline, prepare(fuse=True)
+    g = (rtm,) * 3
+    pipes = {"k4s": rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid", True,
+                             g),
+             "twin": rtm_pipe(env, "-mode fused -wf_steps 2 -trapezoid "
+                                   "-no-skew", True, g),
+             "plain": rtm_pipe(env, "-mode torch -wf_steps 2", True, g)}
+    for k in ("k4s", "twin"):
+        pipes[k].fused_ctx._trapezoid_arg = lambda: True
+    for p in pipes.values():
+        seed_chain(p, g, 7)
+    zero_launch_counts()
+    pipes["k4s"].run(0, 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != {"trapezoid_stream": 1}:
+        raise RuntimeError(f"phase 20 (a): rtm chain: launches {got}")
+    pipes["twin"].run(0, 1)
+    pipes["plain"].run(0, 1)
+    twin_bad = pipes["k4s"].compare(pipes["twin"])
+    err, scale = pipe_diff(pipes["k4s"], pipes["plain"])
+    if twin_bad or not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 20 (a): rtm chain: the stream arm vs its "
+                           f"twin {twin_bad} mismatches, vs plain "
+                           f"max|d|={err:.3e}")
+    timed(f"rtm chain r=2 {rtm}^3 (3 stages)", pipes["k4s"].fused_ctx,
+          pipes["twin"].fused_ctx, got, (err, 0, twin_bad))
+    for p in pipes.values():
+        p.end()
+    return rows
+
+
+def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
+             warm: int = 1, trials: int = 3, groups: int = 3,
+             sweep=()) -> dict:
+    """Phase 20 (b): ``st`` at ``g``³ under forced ``-trapezoid`` with
+    ``-skew`` (K4's stream arm) and with ``-no-skew`` (the two-phase
+    passes) from one seed on the card: ``warm`` groups, then ``trials``
+    runs of ``groups`` groups with the counters zeroed just before (one
+    stream launch a group, or three passes), the final states bit-equal;
+    ms per group and per step, one group by CUDA events against the
+    bound, the plain version's group, one group against it, a profile
+    of the arm's launches, ptxas's report, the rungs of ``sweep`` (each
+    the arm's bits), and for iso3dfd what the auto gate chooses beside
+    K1's stream arm (``-no-trapezoid``) from the same seed.  Returns the
+    ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import (
+        TrapezoidKernel, plain_chunk, trapezoid_chunk)
+    npts = g ** 3
+    steps = groups * K
+    out, ctxs = {}, {}
+    torch.cuda.empty_cache()
+    arms = [("stream", "-trapezoid -skew", True),
+            ("two-phase", "-trapezoid", True)]
+    if st == "iso3dfd":
+        arms.append(("K1 stream arm", "-no-trapezoid -skew", False))
+    for which, cli, force in arms:
+        torch.cuda.empty_cache()
+        ctx = k4_ctx(fac, env, st, r, 4, (g, g, g), "fused", K, cli,
+                     force=force)
+        seed_device(ctx, 11, physical=True)
+        ctx.run_solution(0, warm * K - 1)
+        t = warm * K
+        zero_launch_counts()
+        rates = []
+        for _ in range(trials):
+            ctx.clear_stats()
+            ctx.run_solution(t, t + steps - 1)
+            t += steps
+            rates.append(ctx.get_stats().get_pts_per_sec())
+        torch.cuda.synchronize()
+        got = {k: v for k, v in launch_counts().items() if v}
+        ng = trials * groups
+        want = ({"trapezoid_stream": ng} if which == "stream" else
+                {"trapezoid_phase1": ng, "trapezoid_diamond": 2 * ng}
+                if which == "two-phase" else
+                {"stream_step": trials * steps})
+        if got != want:
+            raise RuntimeError(f"phase 20 (b): {label} {which}: launches "
+                               f"{got}, expected {want}")
+        if not finite(ctx):
+            raise RuntimeError(f"phase 20 (b): {label} {which}: not finite")
+        til = ctx.get_stats().get_tiling()
+        if which == "stream" and not (til.get("arm") == "trap_stream"
+                                      and til["launches_per_group"] == 1):
+            raise RuntimeError(f"phase 20 (b): {label}: get_tiling() does "
+                               f"not name K4's stream arm: {til}")
+        rates.sort()
+        out[which] = (npts / rates[len(rates) // 2] * 1e3, got,
+                      til["name"])
+        ctxs[which] = ctx
+    bad = device_diff(ctxs["stream"], ctxs["two-phase"], exact=True)
+    if bad[1]:
+        raise RuntimeError(f"phase 20 (b): {label}: the stream arm and its "
+                           f"twin differ in {bad[1]} cells")
+    ctx = ctxs["stream"]
+    kern, prog, state = ctx._trapezoid_kernel(), ctx._program, ctx._state
+    tk = ctxs["two-phase"]._trapezoid_kernel()
+    spec = kern.spec
+    t = warm * K + trials * steps
+    ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, K), 5)
+    twin_ms = cuda_ms(lambda: trapezoid_chunk(tk, ctxs["two-phase"]._state,
+                                              t, K), 3)
+    k1 = ""
+    if "K1 stream arm" in ctxs:
+        k1bad = device_diff(ctx, ctxs["K1 stream arm"], exact=True)
+        k1 = (f"; K1's stream arm (-no-trapezoid, same seed) "
+              f"{out['K1 stream arm'][0]:.3f} ms/step, launches "
+              f"{out['K1 stream arm'][1]}, bit-equal: {k1bad[1]} cells "
+              "differ")
+        if k1bad[1]:
+            raise RuntimeError(f"phase 20 (b): {label}: the stream arm "
+                               "differs from K1's")
+        del ctxs["K1 stream arm"]
+    del ctxs["two-phase"]
+    torch.cuda.empty_cache()
+    prof = profile_launches(lambda: trapezoid_chunk(kern, state, t, K), 3,
+                            expect=("stream_stages_kernel",))
+    plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, K), 1)
+    err, nbits, scale = k4_group_vs_plain(kern, state, t)
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 20 (b): {label}: the stream arm and its "
+                           "plain version disagree")
+    bound_ms, bound_by, nbytes = k4_bound(ctx, spec)
+    rungs = []
+    base = kern.chunk(dict(state), t, K)
+    for rung in sweep:
+        rs = cuda_emit.resolve_trapezoid(prog, K, True, skew=True,
+                                         stream_tiles=(rung,))
+        rk = TrapezoidKernel(prog, rs)
+        rk.build()
+        rms = cuda_ms(lambda: trapezoid_chunk(rk, state, t, K), 3)
+        got = rk.chunk(dict(state), t, K)
+        nb = sum(int((x != y).sum()) for n in set(spec.outputs)
+                 for x, y in zip(got[n], base[n]))
+        if nb:
+            raise RuntimeError(f"phase 20 (b): {label} at rung {rung}: "
+                               f"{nb} cells differ from the planner's rung")
+        rungs.append({"rung": list(rung), "ms": rms,
+                      "computed_per_point": cuda_emit.trap_stream_cells(
+                          rs)[1],
+                      "smem_bytes": rs.stages_stream.smem_bytes,
+                      "ptxas": ptxas.get(rs.name, "")})
+        del rk, got
+    del base
+    auto = []
+    if st == "iso3dfd":
+        cuda_emit.resolve_trapezoid(prog, K, None, reasons=auto, skew=None)
+    step_ms = out["stream"][0]
+    twin_step = out["two-phase"][0]
+    log(f"phase 20 (b): {label} {g}^3 -mode fused -wf_steps {K} -trapezoid "
+        f"(forced), K4's stream arm: {trials} trials x {groups} groups: "
+        f"{step_ms:.3f} ms/step ({step_ms * K:.3f} per group), launches "
+        f"{out['stream'][1]}, get_tiling() naming {out['stream'][2]}; its "
+        f"-no-skew twin (the two-phase passes, same "
+        f"seed) {twin_step:.3f} ms/step, launches {out['two-phase'][1]}, "
+        f"bit-equal ({bad[1]} cells differ); one group {ms:.3f} ms (CUDA "
+        f"events) against the twin's {twin_ms:.3f} ({twin_ms / ms:.2f}x), "
+        f"bound {bound_ms:.3f} ms ({bound_by}: {nbytes / npts:.1f} B/pt per "
+        f"group), share {bound_ms / ms:.3f}; plain {plain_ms:.3f} ms/group "
+        f"(not a yardstick); a group vs plain max|d|={err:.3e} ({nbits} "
+        f"cells differ in their bits){k1}; {k4s_plan(spec)}; ptxas "
+        f"{ptxas.get(spec.name, 'not built by phase 1')}; profile {prof}; "
+        f"rungs {rungs}; the auto gate: "
+        f"{[(x['code'], x.get('kernel', '')) for x in auto]} [{card}]")
+    entry = {"name": f"trapezoid_chunk, K4's stream arm ({label} {g}^3, "
+                     f"K={K})", "route": "cuda", "source": SS_SOURCE,
+             "replaces": K4S_REPLACES,
+             "launches": out["stream"][1]["trapezoid_stream"],
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "per": f"group of {K} steps (one launch)", "step_ms": step_ms,
+             "twin": "two-phase K4 (-no-skew)", "twin_ms": twin_ms,
+             "twin_step_ms": twin_step, "rungs": rungs,
+             "idle_share": prof["idle_share"] if prof else None,
+             "path": "phase 20 (b)"}
+    if "K1 stream arm" in out:
+        entry["k1_stream_step_ms"] = out["K1 stream arm"][0]
+        entry["auto_gate"] = [x["code"] for x in auto]
+    del ctxs, ctx, kern, state
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase20c(fac, env, card: str, nm: int = 8, g: int = 256,
+             K: int = 4, groups: int = 2) -> dict:
+    """Phase 20 (c): an ``EnsembleRun`` of ``nm`` members of iso3dfd r=2
+    at ``g``³ under forced ``-trapezoid`` (``-skew``), each seeded on the
+    card: ``groups`` groups with the counters zeroed just before (one
+    launch of ``_trap_stream_batched`` a group and nothing else), each
+    member bit-equal to its solo run on the arm; the batched group timed
+    against ``nm`` solo groups and the two-phase batch (``-no-skew``) on
+    the same stack, bit-equal to it.  Returns the ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import (
+        batched_trapezoid_chunk, plain_batched_chunk, trapezoid_chunk)
+    steps = groups * K
+    ctx = k4_ctx(fac, env, "iso3dfd", 2, 4, (g, g, g), "fused", K,
+                 "-trapezoid -skew", force=True)
+    ens = ctx.new_ensemble(nm)
+    for i in range(nm):
+        with ens.member(i) as c:
+            seed_device(c, 300 + i)
+    zero_launch_counts()
+    ens.run(0, steps - 1)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != {"batched_trapezoid_stream": groups}:
+        raise RuntimeError(f"phase 20 (c): ensemble: launches {got}")
+    solo = k4_ctx(fac, env, "iso3dfd", 2, 4, (g, g, g), "fused", K,
+                  "-trapezoid -skew", force=True)
+    for i in range(nm):
+        seed_device(solo, 300 + i)
+        solo.run_solution(0, steps - 1)
+        with ens.member(i) as c:
+            bad = device_diff(c, solo, exact=True)
+        if bad[1]:
+            raise RuntimeError(f"phase 20 (c): member {i} differs from its "
+                               f"solo run in {bad[1]} cells")
+    kern = ctx._trapezoid_kernel()
+    twin = k4_ctx(fac, env, "iso3dfd", 2, 4, (g, g, g), "fused", K,
+                  "-trapezoid", force=True)._trapezoid_kernel()
+    twin.build()
+    st = ens._stack_states()
+    ms = cuda_ms(lambda: batched_trapezoid_chunk(kern, st, steps, K, nm), 3)
+    twin_ms = cuda_ms(lambda: batched_trapezoid_chunk(twin, st, steps, K,
+                                                      nm), 3)
+    solo_ms = cuda_ms(lambda: trapezoid_chunk(kern, solo._state, steps, K),
+                      3)
+    plain_ms = cuda_ms(lambda: plain_batched_chunk(kern.program, st, steps,
+                                                   K, nm), 1)
+    a = kern.batched_chunk(dict(st), steps, K, nm)
+    b = twin.batched_chunk(dict(st), steps, K, nm)
+    nbits = sum(int((x != y).sum()) for n in set(kern.spec.outputs)
+                for x, y in zip(a[n], b[n]))
+    del b
+    c = plain_batched_chunk(kern.program, dict(st), steps, K, nm)
+    err = max(float((x - y).abs().max()) for n in set(kern.spec.outputs)
+              for x, y in zip(a[n][-2:], c[n][-2:]))
+    scale = max(float(y.abs().max()) for n in c for y in c[n])
+    del a, c, st
+    if nbits or not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 20 (c): the batch differs from the "
+                           f"two-phase batch ({nbits} cells) or its plain "
+                           f"version (max|d|={err:.3e})")
+    bound_ms, bound_by, _nb = k4_bound(ctx, kern.spec)
+    bound_ms *= nm
+    log(f"phase 20 (c): EnsembleRun {nm} x iso3dfd r=2 {g}^3 -wf_steps {K} "
+        f"-trapezoid (forced, K4's stream arm): {steps} steps, launches "
+        f"{got}; every member bit-equal to its solo run; one batched group "
+        f"{ms:.3f} ms (CUDA events) against {nm} x {solo_ms:.3f} ms solo "
+        f"({ms / (nm * solo_ms):.3f}x per point) and the two-phase batch's "
+        f"{twin_ms:.3f} ({twin_ms / ms:.2f}x; bit-equal, {nbits} cells "
+        f"differ); bound {bound_ms:.3f} ms ({bound_by}), share "
+        f"{bound_ms / ms:.3f}; plain {plain_ms:.3f} ms; vs plain max|d|="
+        f"{err:.3e} [{card}]")
+    del ctx, ens, solo, kern, twin
+    torch.cuda.empty_cache()
+    return {"name": f"batched_trapezoid_chunk, K7 over K4's stream arm ({nm} "
+                    f"x iso3dfd r=2 {g}^3, K={K})", "route": "cuda",
+            "source": SS_SOURCE, "replaces": K4S_K7_REPLACES,
+            "launches": got["batched_trapezoid_stream"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "per": f"group of {K} steps of {nm} members (one launch)",
+            "solo_ms": solo_ms, "twin_ms": twin_ms, "path": "phase 20 (c)"}
+
+
+def phase20(fac, env, card: str, ptxas: dict) -> list:
+    """K4's stream arm (see the module docstring).  Returns the
+    ``kernels`` entries."""
+    import torch
     t0 = time.perf_counter()
-    specs = {}
+    rows = phase20a(fac, env, card, ptxas)
+    entries = [{
+        "name": "trapezoid_chunk, K4's stream arm (phase 20 (a): "
+                "stages, scratch, rewrite, the RTM chain)",
+        "route": "cuda", "source": SS_SOURCE, "replaces": K4S_REPLACES,
+        "launches": sum(row[6] for row in rows),
+        "max_abs_err": max(row[5] for row in rows),
+        "ms": sum(row[1] for row in rows),
+        "plain_ms": sum(row[2] for row in rows),
+        "bound_ms": sum(row[3] for row in rows),
+        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
+        else "operations", "library_ms": None,
+        "twin_ms": sum(row[7] for row in rows),
+        "per": "sum over the cases of one group each: "
+               + ", ".join(row[0] for row in rows), "path": "phase 20 (a)"}]
+    torch.cuda.empty_cache()
+    for label, st, r, g, K in K4S_FULL:
+        entries.append(phase20b(fac, env, card, ptxas, label, st, r, g, K,
+                                sweep=K4S_SWEEP if st == "iso3dfd" else ()))
+    entries.append(phase20c(fac, env, card, *K4S_BATCH))
+    log(f"phase 20 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+def phase1(fac, env, cases: dict) -> dict:
+    """Build every kernel of the path, one ``nvcc`` per source, each group
+    of sources started as soon as it is emitted, so the compilers run
+    while the later groups' contexts are made (``cases``: phase 2's
+    solutions and radii).  Returns ptxas's registers and spills per
+    kernel, by source name."""
+    from yask_tpu_torch.ops import _build, cuda_emit, fused_stencil
+    t0 = time.perf_counter()
+    specs, procs, started = {}, [], set()
+
+    def start(more: dict) -> None:
+        """Add ``more`` to the specs and start the sources not started."""
+        specs.update(more)
+        new = {s.name: s.source for s in more.values()
+               if s.name not in started}
+        started.update(new)
+        procs.extend(_build.start_builds(list(new.items()),
+                                         ptxas_info=True))
     for st, r in cases.items():
         ctx = make_ctx(fac, env, st, r, 64, "fused")
         specs[st] = fused_stencil.FusedKernel(ctx._program).spec
@@ -5858,24 +6345,22 @@ def phase1(fac, env, cases: dict) -> dict:
         specs[f"rtm stage {s}"] = \
             chained.stage_ctx(s)._fused_spec_kernel().spec
     chained.end()
-    specs.update(trap_specs(fac, env))
-    specs.update(shard_specs(fac))
-    specs.update(family_specs(fac, env))
-    specs.update(a3_specs(fac, env))
-    specs.update(a3b_specs(fac, env))
-    specs.update(k7_specs(fac, env))
-    specs.update(k5_specs(fac))
-    specs.update(k4_specs(fac, env))
-    specs.update(ws_specs(fac, env))
-    specs.update(flat_specs(fac, env))
-    specs.update(ss_specs(fac, env))
-    specs.update(ss18_specs(fac, env))
-    _paths, logs = _build.build_many(
-        list({s.name: s.source for s in specs.values()}.items()),
-        ptxas_info=True)
+    start(dict(specs))
+    for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
+                  k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
+                  k4s_specs):
+        start(group(fac, env))
+    start(shard_specs(fac))
+    start(k5_specs(fac))
+    emit_secs = time.perf_counter() - t0
+    logs = _build.wait_builds(procs)
     build_secs = time.perf_counter() - t0
     for st, s in specs.items():
-        entries = (f"entries {s.name} (K4: trapezoid_kernel, then "
+        entries = (f"entries {s.name}_trap_stream and _trap_stream_batched "
+                   f"(K4's stream arm and K7 over it: "
+                   f"{cuda_emit.trap_stream_detail(s)})"
+                   if s.trap.get("arm") == "stream" else
+                   f"entries {s.name} (K4: trapezoid_kernel, then "
                    f"diamond_kernel per dim; {s.trap['sub_stages']} "
                    f"sub-stage(s) per level; passes (tile, smem B, workspace"
                    f" B per block) "
@@ -5900,7 +6385,8 @@ def phase1(fac, env, cases: dict) -> dict:
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
-        "run(s) in parallel)")
+        f"run(s) in parallel, started as their sources were emitted over "
+        f"the first {emit_secs:.1f} s)")
     return {name: ptxas_summary(text) for name, text in logs.items()}
 
 
@@ -5935,15 +6421,26 @@ def main() -> int:
     cases = {"iso3dfd": 8, "3axis": 1}
     ptxas = phase1(fac, env, cases)
 
+    t = time.perf_counter()
+
+    def took(phase: str) -> None:
+        nonlocal t
+        log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
     phase2(fac, env, cases)
     phase3(fac, env, cases)
+    took("2 and 3")
     _step_ms, k1, k_stream = phase4(fac, env, card)
+    took("4")
     k7 = phase5(fac, env, k1["step_ms"])
     release()
+    took("5")
     k6 = phase6(env)
     release()
+    took("6")
     k4 = phase7(fac, env, card)
     release()
+    took("7")
     k5 = phase8(fac, card, k1["step_ms"])
     release()
     k6_arms = phase9(fac, env, card)
@@ -5987,13 +6484,16 @@ def main() -> int:
     ss18_arms = phase18(fac, env, card, twins, k7_tti)
     release()
     k5_ss_arms = phase19(fac, card, k5_twins)
+    release()
+    k4_stream_arms = phase20(fac, env, card, ptxas)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [k1, k_stream, k4, k5, k6, k7]
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
-                      + ss_arms + ss18_arms + k5_ss_arms}))
+                      + ss_arms + ss18_arms + k5_ss_arms
+                      + k4_stream_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -68,7 +68,8 @@ def test_k4_arms_match_yask_tpu_interpret(tpu_forced_trapezoid, stencil, r,
                                           g, K, steps):
     """Each with a remainder step on K6 or K1 (ssg r=4's K6 on the tile
     ladder's 1×1×16 rung, ROADMAP.md C17)."""
-    mine = port_ctx(stencil, r, g, "fused", K, "-trapezoid", forced=True)
+    mine = port_ctx(stencil, r, g, "fused", K, "-trapezoid -no-skew",
+                    forced=True)
     theirs = tpu_ctx(stencil, r, g, "pallas", K)
     if mine._program.geoms and any(
             kind == "misc" for gm in mine._program.geoms.values()
@@ -135,7 +136,8 @@ def test_bf16_k4_matches_yask_tpu_interpret(tpu_forced_trapezoid):
 
 
 def test_tti_plan_holds_scratch_buffers_and_a_workspace():
-    ctx = port_ctx("tti", 2, 48, "fused", 2, "-trapezoid", forced=True)
+    ctx = port_ctx("tti", 2, 48, "fused", 2, "-trapezoid -no-skew",
+                   forced=True)
     spec = ctx._trapezoid_kernel().spec
     assert spec.scratch_stages == 2 and spec.stages == 3
     tr = spec.trap
@@ -241,7 +243,8 @@ def test_removed_refusals_are_gone():
 @pytest.mark.parametrize("stencil,r,g", [("iso3dfd", 2, 32), ("tti", 2, 20)])
 def test_member_batch_under_trapezoid_matches_solo(stencil, r, g):
     def make():
-        ctx = port_ctx(stencil, r, g, "fused", 2, "-trapezoid", forced=True)
+        ctx = port_ctx(stencil, r, g, "fused", 2, "-trapezoid -no-skew",
+                       forced=True)
         assert ctx._trapezoid_kernel() is not None
         return ctx
     ens = members_match_solo(make, n=2, steps=5)

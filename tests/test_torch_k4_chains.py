@@ -38,7 +38,8 @@ def test_rtm_chain_k4_matches_yask_tpu_interpret(tpu_forced_trapezoid):
     request on the merged context before the first run (its pads were
     planned by ``-trapezoid``)."""
     g, steps = (32, 32, 14), 5
-    mine = port_pipe("-mode fused -wf_steps 2 -trapezoid", fuse=True, g=g)
+    mine = port_pipe("-mode fused -wf_steps 2 -trapezoid -no-skew", fuse=True,
+                     g=g)
     ctx = mine.fused_ctx
     ctx._trapezoid_arg = lambda: True
     theirs = tpu_pipe("-mode pallas -wf_steps 2 -trapezoid", fuse=True, g=g)

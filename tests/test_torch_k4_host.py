@@ -44,7 +44,7 @@ def k4_ctx(name, r, sizes, K, eb=4, cli=""):
     dims = " ".join(f"-g_{d} {n}"
                     for d, n in zip(ctx.get_domain_dim_names(), sizes))
     ctx.apply_command_line_options(f"{dims} -mode fused -wf_steps {K} "
-                                   f"-trapezoid {cli}")
+                                   f"-trapezoid -no-skew {cli}")
     ctx.prepare_solution()
     import_interiors(ctx, seeded_physical(ctx, 13))
     return ctx
@@ -214,7 +214,7 @@ def test_oldest_slot_read_by_a_later_stage_takes_s_plus_1_buffers(
                            oldest_read_by_a_later_stage())
     ctx._trapezoid_arg = lambda: True
     ctx.apply_command_line_options("-g_x 12 -g_y 12 -g_z 9 -mode fused "
-                                   "-wf_steps 3 -trapezoid")
+                                   "-wf_steps 3 -trapezoid -no-skew")
     ctx.prepare_solution()
     import_interiors(ctx, seeded_physical(ctx, 5))
     prog = ctx._program

@@ -317,7 +317,7 @@ def trap_ctx(stencil, radius, g, K):
     ctx._trapezoid_arg = lambda: True
     ctx.apply_command_line_options(
         f"-g_x {g[0]} -g_y {g[1]} -g_z {g[2]} -mode fused -wf_steps {K} "
-        "-trapezoid")
+        "-trapezoid -no-skew")
     ctx.prepare_solution()
     import_interiors(ctx, seeded_interiors(ctx, 9))
     return ctx

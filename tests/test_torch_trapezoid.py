@@ -182,7 +182,8 @@ def tpu_forced_trapezoid(monkeypatch):
     ("wave2d", 2, 32, 2, 5)])          # 2-D: a single lead dim
 def test_trapezoid_e2e_matches_yask_tpu_interpret(tpu_forced_trapezoid,
                                                   stencil, r, g, K, steps):
-    mine = port_ctx(stencil, r, g, "fused", K, "-trapezoid", forced=True)
+    mine = port_ctx(stencil, r, g, "fused", K, "-trapezoid -no-skew",
+                    forced=True)
     theirs = tpu_ctx(stencil, r, g, "pallas", K)
     state = seeded_interiors(mine, 3)
     import_interiors(mine, state)
@@ -231,7 +232,7 @@ def host_trapezoid(spec, tmp_path):
     ("ssg", None, (18, 18, 9), 2, "")])
 def test_k4_host_path_bit_equals_plain(stencil, r, g, K, cli, tmp_path):
     import torch
-    ctx = port_ctx(stencil, r, g, "fused", K, f"-trapezoid {cli}",
+    ctx = port_ctx(stencil, r, g, "fused", K, f"-trapezoid -no-skew {cli}",
                    forced=True)
     import_interiors(ctx, seeded_interiors(ctx, 13))
     prog = ctx._program
@@ -345,7 +346,7 @@ def codes(reasons):
 def test_auto_gate_records_its_numbers_and_engages():
     """iso3dfd r=2 K=4: the per-variant-block gate engages; the numbers
     are in the record; pads are planned for the diamond windows."""
-    ctx = port_ctx("iso3dfd", 2, 48, "fused", 4, "-trapezoid")
+    ctx = port_ctx("iso3dfd", 2, 48, "fused", 4, "-trapezoid -no-skew")
     need = cuda_emit.trapezoid_pad_need(2, 4)
     assert min(ctx._program.geoms["pressure"].pads["x"]) >= need
     trap = ctx._trapezoid_kernel()
@@ -383,7 +384,7 @@ def test_r8_flagship_falls_back_in_auto_and_raises_forced():
     skew variant to prefer, ROADMAP.md C7) and a forced request builds
     the same plan, as the reference's forced request runs it.  K1 stays
     the path of ``-no-trapezoid``."""
-    ctx = port_ctx("iso3dfd", 8, 48, "fused", 2, "-trapezoid")
+    ctx = port_ctx("iso3dfd", 8, 48, "fused", 2, "-trapezoid -no-skew")
     trap = ctx._trapezoid_kernel()
     assert trap is not None
     assert codes(ctx._trap[1]) == ["trapezoid_engaged"] * 2 \
@@ -447,7 +448,7 @@ def test_multi_stage_falls_back_naming_a12():
         pipe = SolutionPipeline(yask_tpu_torch.yk_factory().new_env(
             device="cpu"), *rtm_chain(radius=2, accumulate=False))
         pipe.apply_command_line_options(f"-g 16 -mode fused -wf_steps 2 "
-                                        f"{cli}")
+                                        f"-no-skew {cli}")
         pipe.prepare(fuse=True)
         ctx = pipe.fused_ctx
         if cli == "-trapezoid":

@@ -84,6 +84,16 @@
 //     other inputs.  The wrapper keeps the resident blocks' slices within
 //     the card's 50 MB L2.
 //
+// K4's stream arm is this kernel over a K-level Spec (ops/cuda_emit.py::
+// emit_trap_stream's TrapSpec, entries YT_TRAP_STREAM_ENTRIES below): the
+// sub-stages of all K levels of a group, level L's reads of earlier
+// levels mapped to their computed rings, each level lagged along slot 0
+// by what the later levels read of it and grown in-plane alike, each
+// output level stored by its level's last writer, one launch a group.
+// It replaces the two-phase passes of trapezoid.cuh (their -no-skew
+// twin) and is what the reference's skewed-wavefront carry of K levels
+// does on the TPU (yask_tpu/ops/pallas_stencil.py:306-441, :1955-2056).
+//
 // The same Spec compiles on the host (no __CUDACC__): host_stages_stream()
 // runs K6's host loop (host_stages) and zeroes the pads, which is how the
 // CPU tests check the entry's arithmetic with g++.
@@ -540,7 +550,49 @@ int resident_stages_stream(int kind) {
 #endif
 }
 
+// The resident blocks of a solo (batched 0) or member-batch launch, for a
+// Spec without K5's box arm (K4's stream arm); 1 on the host.
+template <class S>
+int resident_trap_stream(int batched) {
+#ifdef __CUDACC__
+  return batched ? stages_stream_resident<S, true, false>()
+                 : stages_stream_resident<S, false, false>();
+#else
+  (void)batched;
+  return 1;
+#endif
+}
+
 }  // namespace yt
+
+// The C entry points of K4's stream arm (a TrapSpec of
+// ops/cuda_emit.py::emit_trap_stream: one K-step group, its K levels' sub-
+// stages lagged along slot 0): solo and member batch with the arguments
+// of K6's stream entries below (t is the group's first step: each level's
+// point functions add their own offset), and the resident blocks of a
+// launch (batched 0 or 1).
+#define YT_TRAP_STREAM_ENTRIES(NAME, S)                                      \
+  extern "C" int NAME##_trap_stream(void* in_ptrs, void* in_strides,         \
+                                    void* out_ptrs, void* out_strides,       \
+                                    void* sizes, int seg, int t, void* ws,   \
+                                    long long nres, void* stream) {          \
+    return yt::run_stages_stream<S, false>(in_ptrs, in_strides, nullptr,     \
+                                           out_ptrs, out_strides, nullptr,   \
+                                           sizes, 1, seg, t, ws, nres,       \
+                                           stream);                          \
+  }                                                                          \
+  extern "C" int NAME##_trap_stream_batched(                                 \
+      void* in_ptrs, void* in_strides, void* in_mstrides, void* out_ptrs,    \
+      void* out_strides, void* out_mstrides, void* sizes, int nm, int seg,   \
+      int t, void* ws, long long nres, void* stream) {                       \
+    return yt::run_stages_stream<S, true>(in_ptrs, in_strides, in_mstrides,  \
+                                          out_ptrs, out_strides,             \
+                                          out_mstrides, sizes, nm, seg, t,   \
+                                          ws, nres, stream);                 \
+  }                                                                          \
+  extern "C" int NAME##_trap_stream_resident(int batched) {                  \
+    return yt::resident_trap_stream<S>(batched);                             \
+  }
 
 // The C entry points of K6's stream arm for a K6 Spec that prints SS_T1:
 // solo (K6's arguments), member batch (K7's), a shard's box (K5's: K6's

@@ -24,6 +24,14 @@
 // more buffers than shared memory holds at any tile the band floor
 // allows; the rest live in a workspace in device memory (below).
 //
+// Under -skew (the default) the 3-D solutions K6's stream arm takes run
+// K4's stream arm instead: one launch per group, stream_stages.cuh over
+// the K levels' sub-stages lagged along slot 0 (ops/cuda_emit.py::
+// emit_trap_stream, entries YT_TRAP_STREAM_ENTRIES).  These two-phase
+// passes are its -no-skew twin and the kernel of the solutions it does
+// not take (element size 2, more than three domain dims, 1-D and 2-D,
+// misc and partial-dim outputs).
+//
 // Design (a first cut that is simple and right), one template for both
 // phases, instantiated per pass P (compile-time tables of the emitted
 // Spec, ops/cuda_emit.py::emit_trapezoid):

@@ -69,12 +69,20 @@ def build_many(kernels: Sequence[Tuple[str, str]], ptxas_info: bool = False
     all started together.  Returns the library paths and, per compiled
     name, nvcc's output (``-Xptxas -v`` register/shared-memory/spill
     report when ``ptxas_info``)."""
+    return ([library_path(name, source) for name, source in kernels],
+            wait_builds(start_builds(kernels, ptxas_info)))
+
+
+def start_builds(kernels: Sequence[Tuple[str, str]],
+                 ptxas_info: bool = False) -> List[tuple]:
+    """Start one ``nvcc`` for every ``(name, source)`` not built yet (each
+    name once) and return the running builds, for :func:`wait_builds`,
+    so that a caller can go on while they compile."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     flags = tuple(NVCC_FLAGS) + (("-Xptxas", "-v") if ptxas_info else ())
-    paths, procs = [], []
-    for name, source in kernels:
+    procs = []
+    for name, source in dict(kernels).items():
         so = library_path(name, source)
-        paths.append(so)
         if os.path.exists(so):
             continue
         cu = so[:-3] + ".cu"
@@ -85,6 +93,12 @@ def build_many(kernels: Sequence[Tuple[str, str]], ptxas_info: bool = False
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+    return procs
+
+
+def wait_builds(procs: List[tuple]) -> Dict[str, str]:
+    """Wait for the builds :func:`start_builds` started; returns nvcc's
+    output per compiled name and raises if any failed."""
     logs: Dict[str, str] = {}
     failed = []
     for name, so, tmp, proc in procs:
@@ -96,7 +110,7 @@ def build_many(kernels: Sequence[Tuple[str, str]], ptxas_info: bool = False
         os.replace(tmp, so)
     if failed:
         raise YaskException("kernel build failed:\n" + "\n".join(failed))
-    return paths, logs
+    return logs
 
 
 def build_and_load(name: str, source: str) -> Tuple[ctypes.CDLL, float]:

@@ -57,6 +57,11 @@ into one ``Spec`` struct:
   workspace arm's solutions), the rings' placement (``ss_glob``,
   ``SS_WS_ELEMS``: ring-less staged inputs, computed rings in a
   workspace).
+* K4, one K-step group of ``-trapezoid`` (:func:`resolve_trapezoid`):
+  the two-phase passes (:func:`emit_trapezoid`, ``csrc/trapezoid.cuh``)
+  or, under ``-skew`` on what K6's stream arm takes, K4's stream arm
+  (:func:`emit_trap_stream`): a ``TrapSpec`` of the K levels' sub-stages
+  that ``csrc/stream_stages.cuh`` runs in one launch.
 
 Value types follow the plain version's (PyTorch's) promotion, so the
 kernel rounds where the tensors do: a tensor op with a Python scalar runs
@@ -103,6 +108,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
@@ -1838,7 +1844,6 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     past it.  Raises when the state's pads do not hold the diamond
     windows."""
     import numpy as np
-    import re
     from yask_tpu_torch.ops.tile_planner import TilePlan
     ana = program.ana
     dims = list(ana.domain_dims)
@@ -1879,9 +1884,7 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
     # per sub-stage, its reads of inputs: (input, offsets per slot, the
     # input's outer offsets after the three), as printed
     at_offs = [[(int(a), tuple(int(o) for o in offs) + in_outer[int(a)])
-                for a, *offs in
-                re.findall(r"rd\.template at<(\d+)>\((-?\d+), (-?\d+), "
-                           r"(-?\d+)\)", "\n".join(lines))]
+                for a, *offs in _AT_READ.findall("\n".join(lines))]
                for lines in pt.stage_lines]
     readers = {a: {k for k, reads in enumerate(at_offs)
                    if any(b == a for b, _o in reads)}
@@ -2269,10 +2272,354 @@ def emit_trapezoid(program, K: int, trap_dims: List[str],
                       in_outer=in_outer if no else [])
 
 
+_AT_READ = re.compile(r"rd\.template at<(\d+)>\((-?\d+), (-?\d+), (-?\d+)\)")
+_CMP_READ = re.compile(r"rd\.template cmp<(\d+)>\(")
+
+
+def emit_trap_stream(program, K: int, trap_dims: List[str],
+                     block: Dict[str, int], smem_limit: int = SMEM_LIMIT,
+                     stream_tiles=None):
+    """K4's stream arm: one K-step group as one launch of K6's stream arm
+    (``csrc/stream_stages.cuh``) over the sub-stages of all K levels.
+    Returns (K4's :class:`KernelSpec`, None), or (None, (reason code,
+    detail)) where the arm does not take the solution: it takes what
+    :func:`_stages_stream_plan` takes (a 3-D domain, written vars over
+    every dim without misc axes, element size 4 or 8).
+
+    The levels are K copies of the solution's sub-stages (:func:`_print`
+    without copies).  At level L a read of ring slot ``idx`` of a written
+    var (level L − S + idx, S its slots) reads the computed ring of that
+    level where it is ≥ 1, else the group's input of that slot; a read of
+    this step's value (``cmp``) reads this level's ring.  Each level's
+    regions are the solution's grown by what the later levels read of it
+    (``_stage_expansions``' rule across levels, one growth per level), so
+    level L runs its sub-stages at a lag of about (K − L)·r planes along
+    slot 0 and over its plane tile grown by about (K − L)·r in slots 1 and
+    2; the plan (``tile_planner.stages_stream_plan``) sizes each ring by
+    its readers at their lags.  Each written var's newest min(K, S)
+    levels are the outputs, in the order :func:`emit_trapezoid` gives
+    them, each stored by its level's last writer."""
+    import numpy as np
+    from yask_tpu_torch.ops.tile_planner import (STAGES_STREAM_TILES,
+                                                 TilePlan, stages_stream_plan)
+    ana = program.ana
+    dims = list(ana.domain_dims)
+    esize = np.dtype(program.dtype).itemsize
+    if len(dims) != 3:
+        return None, ("skew_ineligible", f"{len(dims)}-D solution: K4's "
+                      "stream arm walks slot 0 of a 3-D domain (ROADMAP.md "
+                      "A5)")
+    arms = [a for a in a3_arms(program) if a != "element size 2"]
+    if arms:
+        return None, ("skew_ineligible", f"{' and '.join(arms)}: K4's "
+                      "stream arm writes every cell of whole output tensors "
+                      "(ROADMAP.md A5)")
+    if esize == 2:
+        return None, ("skew_ineligible", "element size 2: K4's stream arm "
+                      "is K6's, which copies 4- and 8-byte cells "
+                      "(ROADMAP.md A5)")
+    geoms = program.geoms
+    pt = _print(program, [], copies=False)
+    pr, subs, slices, last = pt.pr, pt.subs, pt.slices, pt.last_writer
+    nsub = len(subs)
+    inputs = list(pr.inputs)
+
+    def in_idx(v, s):
+        if (v, s) not in inputs:
+            inputs.append((v, s))
+        return inputs.index((v, s))
+
+    # per input of a written var: its slice, the var's slots, its slot
+    ring = {}
+    for a, (v, idx) in enumerate(pr.inputs):
+        g = geoms[v]
+        if g.is_written:
+            if not g.has_step:
+                return None, ("skew_ineligible", f"written var '{v}' has "
+                              "no step ring")
+            ring[a] = ((v, pr.in_misc[a]), g.num_slots, idx)
+
+    def src(L, a):
+        """What level L's read of input ``a`` reads: ("in", input) or
+        ("x", level, slice), that level's computed ring."""
+        if a not in ring:
+            return ("in", a)
+        sk, S, idx = ring[a]
+        lev = L - S + idx
+        return ("x", lev, sk) if lev >= 1 else ("in", in_idx(sk[0],
+                                                              S - 1 + lev))
+
+    def q_of(L, k):
+        return (L - 1) * nsub + k
+
+    # each level's growth below and above the solution's regions, from the
+    # last level (none) down
+    grow = {K: ([0] * 3, [0] * 3)}
+    for L in range(K - 1, 0, -1):
+        lo, hi = [0] * 3, [0] * 3
+        for Lr in range(L + 1, K + 1):
+            for a, per in pr.offs3.items():
+                for k, offs in per.items():
+                    s_ = src(Lr, a)
+                    if s_[0] != "x" or s_[1] != L:
+                        continue
+                    w = last[s_[2]]
+                    for d in range(3):
+                        lo[d] = max(lo[d], grow[Lr][0][d] + subs[k].lo[d]
+                                    - min(o[d] for o in offs) - subs[w].lo[d])
+                        hi[d] = max(hi[d], grow[Lr][1][d] + subs[k].hi[d]
+                                    + max(o[d] for o in offs) - subs[w].hi[d])
+        grow[L] = (lo, hi)
+    reg = [([subs[k].lo[d] + grow[L][0][d] for d in range(3)],
+            [subs[k].hi[d] + grow[L][1][d] for d in range(3)])
+           for L in range(1, K + 1) for k in range(nsub)]
+
+    # computed rings: per level the solution's tiles, then each written
+    # slice a later level reads (its level's own tile where it has one)
+    cross = sorted({(s_[1], s_[2]) for Lr in range(2, K + 1)
+                    for a in pr.offs3 for s_ in [src(Lr, a)]
+                    if s_[0] == "x"}, key=lambda x: (x[0], slices.index(x[1])))
+    tiles, names, ring_of = [], [], {}
+    for L in range(1, K + 1):
+        for b, w in enumerate(pt.computed_sub):
+            ring_of[("in", L, b)] = len(tiles)
+            tiles.append(q_of(L, w))
+            names.append(pt.computed[b])
+        for lev, sk in cross:
+            if lev != L:
+                continue
+            if (sk, last[sk]) in pr.cmp_of:
+                ring_of[("x", L, sk)] = ring_of[("in", L,
+                                                 pr.cmp_of[(sk, last[sk])])]
+            else:
+                ring_of[("x", L, sk)] = len(tiles)
+                tiles.append(q_of(L, last[sk]))
+                names.append(sk[0])
+
+    # every read of a K-level sub-stage: inputs and computed rings, each
+    # inside what its writer computes
+    in_rd: Dict[int, Dict[int, set]] = {}
+    cmp_rd: Dict[int, Dict[int, set]] = {}
+    for L in range(1, K + 1):
+        for a, per in pr.offs3.items():
+            for k, offs in per.items():
+                s_ = src(L, a)
+                if s_[0] == "in":
+                    in_rd.setdefault(s_[1], {}).setdefault(
+                        q_of(L, k), set()).update(offs)
+                else:
+                    cmp_rd.setdefault(ring_of[s_], {}).setdefault(
+                        q_of(L, k), set()).update(offs)
+        for b, per in pr.cmp_offs3.items():
+            for k, offs in per.items():
+                cmp_rd.setdefault(ring_of[("in", L, b)], {}).setdefault(
+                    q_of(L, k), set()).update(offs)
+    for t_, per in cmp_rd.items():
+        wlo, whi = reg[tiles[t_]]
+        for q, offs in per.items():
+            for o in offs:
+                for d in range(3):
+                    if reg[q][0][d] - o[d] > wlo[d] \
+                            or reg[q][1][d] + o[d] > whi[d]:
+                        raise YaskException(
+                            f"K4 stream arm: sub-stage {q} reads ring "
+                            f"{t_} at {o} past what sub-stage {tiles[t_]} "
+                            "computes")
+
+    # the inputs' reach around the plane tile and which take a ring
+    reach, raw, need = {}, {}, {}
+    for a, per in in_rd.items():
+        reach[a] = [[0, 0] for _ in range(3)]
+        raw[a] = [[0, 0] for _ in range(3)]
+        need[a] = False
+        for q, offs in per.items():
+            lo, hi = reg[q]
+            for o in offs:
+                for d in range(3):
+                    reach[a][d][0] = max(reach[a][d][0], lo[d] - o[d])
+                    reach[a][d][1] = max(reach[a][d][1], hi[d] + o[d])
+                    raw[a][d][0] = max(raw[a][d][0], -o[d])
+                    raw[a][d][1] = max(raw[a][d][1], o[d])
+                    if o[d] or (not subs[q % nsub].scratch
+                                and (lo[d] or hi[d])):
+                        need[a] = True
+    tiled = [a for a in sorted(in_rd)
+             if list(geoms[inputs[a][0]].domain_dims) == dims and need[a]]
+    halos = {a: tuple(tuple(x) for x in reach[a]) for a in tiled}
+
+    def offsets(per):
+        return {q: (-min(o[0] for o in offs), max(o[0] for o in offs))
+                for q, offs in per.items()}
+    plan = stages_stream_plan(
+        halos, {a: offsets(in_rd[a]) for a in tiled},
+        [(tuple(lo), tuple(hi)) for lo, hi in reg], tiles,
+        [offsets(cmp_rd[t_]) for t_ in range(len(tiles))],
+        [program.sizes[d] for d in dims], esize, smem_limit,
+        stream_tiles or STAGES_STREAM_TILES,
+        in_nreads={a: {q: len(o) for q, o in in_rd[a].items()}
+                   for a in tiled},
+        cmp_nreads=[{q: len(o) for q, o in cmp_rd[t_].items()}
+                    for t_ in range(len(tiles))],
+        ws_limit=WS_STAGES_BLOCK_BYTES, by_cells=True)
+    if plan is None:
+        return None, ("skew_fallback", "the computed rings of K4's stream "
+                      f"arm exceed {smem_limit} bytes of shared memory and "
+                      f"{WS_STAGES_BLOCK_BYTES} bytes of workspace per block "
+                      "at every plane tile (ROADMAP.md A5)")
+
+    # the outputs: per written var a tensor per level of the group's newest
+    # min(K, S), as emit_trapezoid lists them
+    k4_outputs, out_levels, out_of = [], [], {}
+    for w in pt.outputs:
+        nback = min(K, geoms[w].num_slots)
+        for L in range(K - nback + 1, K + 1):
+            for sk in slices:
+                if sk[0] == w:
+                    out_of[(sk, L)] = len(k4_outputs)
+            k4_outputs.append(w)
+            out_levels.append(L)
+
+    def scratch(sk):
+        return geoms[sk[0]].is_scratch
+
+    stage_out, stage_cmp, bodies = [], [], []
+    for L in range(1, K + 1):
+        for k, vals in enumerate(pt.stage_vars):
+            stage_out.append([out_of.get((sk, L), -1)
+                              if not scratch(sk) and k == last[sk] else -1
+                              for sk in vals])
+            stage_cmp.append([
+                ring_of[("in", L, pr.cmp_of[(sk, k)])]
+                if (sk, k) in pr.cmp_of else
+                ring_of.get(("x", L, sk), -1)
+                if not scratch(sk) and k == last[sk] else -1
+                for sk in vals])
+
+            def at(m, L=L):
+                s_ = src(L, int(m.group(1)))
+                offs = ", ".join(m.group(i) for i in (2, 3, 4))
+                if s_[0] == "in":
+                    return f"rd.template at<{s_[1]}>({offs})"
+                return f"rd.template cmp<{ring_of[s_]}>({offs})"
+
+            # this level's rings first, then the inputs (some of which
+            # become earlier levels' rings)
+            lines = [_AT_READ.sub(at, _CMP_READ.sub(
+                lambda m, L=L: "rd.template cmp<"
+                f"{ring_of[('in', L, int(m.group(1)))]}>(", ln))
+                for ln in pt.stage_lines[k]]
+            bodies.append([f"{_IND}const int t = t0 + "
+                           f"({(L - 1) * ana.step_dir});", f"{_IND}(void)t;"]
+                          + lines)
+
+    dim_of = {s_: d for d, s_ in pt.slot_of.items()}
+    tabs = [_table("tiled_input", tiled),
+            "    YT_HD static constexpr int tile_of(int a) { return "
+            + "".join(f"a == {a} ? {k} : " for k, a in enumerate(tiled))
+            + "-1; }"]
+    for s_ in range(3):
+        tabs.append(_table(f"halo_lo{s_}", [halos[a][s_][0] for a in tiled],
+                           "0"))
+        tabs.append(_table(f"halo_hi{s_}", [halos[a][s_][1] for a in tiled],
+                           "0"))
+    for s_ in range(3):
+        for side, fn in ((0, "alloc_lo"), (1, "alloc_hi")):
+            tabs.append(_table(f"{fn}{s_}", [
+                geoms[inputs[a][0]].pads[dim_of[s_]][side] for a in tiled],
+                "0"))
+    tabs.append(_table2("out_pad", [[
+        geoms[n].pads[dim_of[s_]][side] for s_ in range(3)
+        for side in (0, 1)] for n in k4_outputs], "0"))
+    for s_ in range(3):
+        tabs.append(_table(f"sub_lo{s_}", [lo[s_] for lo, _hi in reg], "0"))
+        tabs.append(_table(f"sub_hi{s_}", [hi[s_] for _lo, hi in reg], "0"))
+        tabs.append(_table(f"clip_lo{s_}", [subs[q % nsub].clip_lo[s_]
+                                            for q in range(len(reg))], "0"))
+        tabs.append(_table(f"clip_hi{s_}", [subs[q % nsub].clip_hi[s_]
+                                            for q in range(len(reg))], "0"))
+    tabs.append(_table("cmp_sub", tiles, "0"))
+    tabs.append(_table("stage_nv", [len(v) for v in stage_out], "0"))
+    tabs.append(_table2("stage_out", stage_out))
+    tabs.append(_table2("stage_cmp", stage_cmp))
+    tabs.append(_table("ss_lag", plan.lags, "0"))
+    tabs.append(_table("ss_rlo", [plan.in_reach[a][0] for a in tiled], "0"))
+    tabs.append(_table("ss_rhi", [plan.in_reach[a][1] for a in tiled], "0"))
+    tabs.append(_table("ss_depth", [plan.in_depths[a] for a in tiled], "1"))
+    tabs.append(_table("ss_ring", [plan.in_offsets.get(a, 0) for a in tiled],
+                       "0"))
+    if plan.placed:
+        tabs.append(_table("ss_glob", [int(plan.in_place[a] == "global")
+                                       for a in tiled], "0"))
+    tabs.append(_table("ss_clo", plan.cmp_lo, "0"))
+    tabs.append(_table("ss_cdepth", plan.cmp_depths, "1"))
+    tabs.append(_table("ss_cring", plan.cmp_offsets, "0"))
+    ws_enum = f", SS_WS_ELEMS = {plan.ws_elems}" if plan.placed else ""
+    stages_src = "\n".join(
+        f"        if constexpr (Q == {q}) {{\n"
+        + "\n".join("    " + ln for ln in lines) + "\n        }"
+        for q, lines in enumerate(bodies))
+    real_t = {4: "float", 8: "double"}[esize]
+    text = f"""struct TrapSpec {{
+    typedef {real_t} real_t;
+    enum {{ NIN = {len(inputs)}, NOUT = {len(k4_outputs)}, NTILED = {len(tiled)},
+           LEVELS = {K}, NSTAGES = {len(reg)}, NCMP = {len(tiles)},
+           MAXV = {max(len(v) for v in pt.stage_vars)},
+           T0 = 1, T1 = {plan.tile[0]}, T2 = {plan.tile[1]},
+           SS_T1 = {plan.tile[0]}, SS_T2 = {plan.tile[1]}, SS_NT = {plan.threads}, SS_MIN = {plan.per_sm}, SS_P = {plan.prefetch}, SS_W = {plan.warm}, SS_ELEMS = {plan.smem_elems}{ws_enum} }};
+{chr(10).join(tabs)}
+
+    template <int Q, class RD>
+    YT_HD static inline void stage(const RD& rd, const int* g, const int* n,
+                                   const int t0, real_t* out) {{
+        (void)rd; (void)g; (void)n; (void)t0; (void)out;
+{stages_src}
+    }}
+}};
+"""
+    name = "trap_stream_" + hashlib.sha256(text.encode()).hexdigest()[:12]
+    nscr = sum(u.scratch for u in subs)
+    place = ""
+    if plan.placed:
+        place = (f"\n// Rings past shared memory: {plan.ws_elems} elements per "
+                 "resident block in a workspace, "
+                 f"{sum(p == 'global' for p in plan.in_place.values())} "
+                 "staged input(s) read from their allocations.")
+    src = (f"// Emitted by yask_tpu_torch.ops.cuda_emit for solution\n"
+           f"// '{program.soln.get_name()}': K4's stream arm, one {K}-step "
+           f"group per launch, the\n// {K} levels' {nsub} sub-stage(s) each "
+           f"({nscr} of scratch vars) lagged along slot 0,\n// "
+           f"{plan.tile[0]}x{plan.tile[1]} plane tiles by {plan.threads} "
+           f"threads, solo and member-batched\n// (see "
+           f"ops/fused_stencil.py).{place}\n"
+           f"#include \"stream_stages.cuh\"\n\n"
+           f"{text}\nYT_TRAP_STREAM_ENTRIES({name}, TrapSpec)\n")
+    lags = [plan.lags[q_of(L, 0):q_of(L, nsub)] for L in range(1, K + 1)]
+    trap = {"K": K, "trap_dims": list(trap_dims), "arm": "stream",
+            "block": {d: block[d] for d in dims[:-1]},
+            "threads": plan.threads, "sub_stages": nsub,
+            "scratch_stages": nscr, "out_levels": out_levels,
+            "level_lags": lags,
+            "level_growth": [grow[L] for L in range(1, K + 1)],
+            "stage_widths": TilePlan(program, K,
+                                     trap_dims=trap_dims).stage_widths()}
+    return KernelSpec(
+        name=name, source=src, inputs=inputs, outputs=k4_outputs,
+        tiled=tiled, tile=(1,) + tuple(plan.tile),
+        smem_bytes=plan.smem_bytes, halos=halos, stages=nsub,
+        computed=names, scratch_stages=nscr, trap=trap,
+        reach={a: tuple(tuple(x) for x in raw.get(a, [[0, 0]] * 3))
+               for a in range(len(inputs))},
+        sub_regions=[(tuple(lo), tuple(hi)) for lo, hi in reg],
+        in_misc=[()] * len(inputs),
+        out_slices=[(i, ()) for i in range(len(k4_outputs))],
+        stages_stream=plan), None
+
+
 def resolve_trapezoid(program, K: int, trapezoid=None,
                       block: Dict[str, int] = None,
                       reasons: List[Dict] = None,
-                      smem_limit: int = SMEM_LIMIT):
+                      smem_limit: int = SMEM_LIMIT, skew=False,
+                      stream_tiles=None):
     """The trapezoid resolution of ``build_pallas_chunk``
     (pallas_stencil.py:812-930, :1415-1432) for one K-step group of
     ``program``: ``False`` = off, ``None`` = auto (the TilePlan gate),
@@ -2286,7 +2633,17 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     do not hold the diamond windows.  K4 takes every arm K6 takes: several
     stages, scratch vars, rewrites, misc dims, element size 2 and more
     than three domain dims (the outer ones uniform window dims); level
-    buffers past ``smem_limit`` go to a device-memory workspace."""
+    buffers past ``smem_limit`` go to a device-memory workspace.
+
+    ``skew`` is the stream-arm request (``-skew``: None, auto, the
+    context's default; False, ``-no-skew``; True, forced, raising where it
+    cannot run).  Where it is not False and :func:`emit_trap_stream`
+    takes the solution, the group is one launch of K4's stream arm (its
+    spec's ``trap["arm"]`` is ``"stream"``, reason ``trapezoid_stream``
+    with the plan; ``stream_tiles`` replaces its ladder of plane tiles,
+    and rings past ``smem_limit`` go past shared memory); elsewhere the
+    two-phase passes, each ``trapezoid_diamond`` record naming why the
+    stream arm does not run (``stream_cause``)."""
     from yask_tpu_torch.ops.tile_planner import TilePlan, plan_blocks
     if reasons is None:
         reasons = []
@@ -2366,6 +2723,18 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
         if block[d] < floor_b:
             return infeasible(f"block {block[d]} < band floor {floor_b} "
                               f"in '{d}'", trap_dims)
+    cause = ("skew_disabled", "skew=False requested (-no-skew)")
+    if skew is not False:
+        spec, cause = emit_trap_stream(program, K, trap_dims, block,
+                                       smem_limit, stream_tiles)
+        if spec is not None:
+            reasons.append({"code": "trapezoid_stream",
+                            "kernel": "trap_stream",
+                            "detail": trap_stream_detail(spec)})
+            return spec
+        if skew is True:
+            raise YaskException(f"K4's stream arm (skew) infeasible: "
+                                f"{cause[1]}")
     try:
         spec = emit_trapezoid(program, K, trap_dims, block, smem_limit)
     except YaskException as e:
@@ -2373,5 +2742,35 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
     for dia in spec.trap["diamond"]:
         reasons.append({"code": "trapezoid_diamond", "dim": dia["dim"],
                         "band": dia["band"], "nbounds": dia["nbounds"],
-                        "stride": dia["stride"]})
+                        "stride": dia["stride"],
+                        "stream_cause": f"{cause[0]}: {cause[1]}"})
     return spec
+
+
+def trap_stream_detail(spec: KernelSpec) -> str:
+    """The ``trapezoid_stream`` reason's account of K4's stream arm: one
+    launch per group, the plane tile and threads, each level's lags, the
+    rings (depths and where they lie), the staged and computed cells per
+    useful point, the segments."""
+    rec = spec.stages_stream.record()
+    tr = spec.trap
+    per_level, mean = trap_stream_cells(spec)
+    return (f"one launch per {tr['K']}-step group: K6's stream arm over the "
+            f"{tr['K']} levels' {tr['sub_stages']} sub-stage(s) each, plane "
+            f"tile {rec['plane_tile']} by {rec['threads']} threads, prefetch "
+            f"{rec['prefetch']}, lags per level {tr['level_lags']}, rings "
+            f"{rec['ring_depths']} planes (computed "
+            f"{rec['computed_ring_depths']}), {rec['smem_bytes']} B, "
+            f"{rec['segments']} segment(s) of {rec['segment_planes']} planes, "
+            f"{rec['staged_per_point']} staged cells per point, computed "
+            f"cells per point per level {per_level} ({mean} x the useful)"
+            f"{_placement(rec)}")
+
+
+def trap_stream_cells(spec: KernelSpec):
+    """K4's stream arm's computed cells per useful point: per level (the
+    mean over its sub-stages) and over the group."""
+    pts = spec.stages_stream.computed_per_point
+    ns, K = spec.trap["sub_stages"], spec.trap["K"]
+    return ([round(sum(pts[i * ns:(i + 1) * ns]) / ns, 4) for i in range(K)],
+            round(sum(pts) / (K * ns), 4))

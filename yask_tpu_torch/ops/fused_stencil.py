@@ -179,6 +179,22 @@ its member batch (K7 over K4, its own counters); level buffers that do
 not fit shared memory live in a workspace of the card's resident blocks
 (:meth:`TrapezoidKernel.workspace`).  Its plain versions are
 :func:`plain_chunk` and :func:`plain_batched_chunk` over the K steps.
+
+K4's stream arm (``-trapezoid`` with ``-skew``, the default, on a 3-D
+solution K6's stream arm takes): where ``cuda_emit.resolve_trapezoid``
+returns a spec of ``cuda_emit.emit_trap_stream`` (``trap["arm"]`` is
+``"stream"``, :attr:`TrapezoidKernel.stream`), one K-step group is one
+launch of ``<name>_trap_stream`` (K7: ``_trap_stream_batched``), K6's
+stream arm over the sub-stages of all K levels, each level lagged along
+slot 0 by what the later levels read of it; :func:`trapezoid_chunk` and
+:func:`batched_trapezoid_chunk` count it in their ``stream_launches``.
+The entries take K6's stream-arm arguments
+(:func:`call_stages_stream_entry`, :func:`call_batched_stages_stream_entry`),
+the card's resident blocks walk the work items, and the outputs come from
+``torch.empty`` (the kernel writes every cell, pads included).  Bound by
+bytes as the two-phase passes (iso3dfd r=2 at K=4: 5 B per point per
+step); the levels' in-plane growth is the recompute it pays instead of
+the diamonds.  ``-no-skew`` keeps the two-phase passes.
 """
 
 from __future__ import annotations
@@ -1468,33 +1484,81 @@ def _trap_group(kernel: "TrapezoidKernel", state, t0: int, K: int, nm: int,
     return _rotated(prog, spec, state, outs)
 
 
+def _trap_stream_group(kernel: "TrapezoidKernel", state, t0: int, K: int,
+                       nm: int, counter):
+    """One K-step group of K4's stream arm, solo (``nm`` 0) or over ``nm``
+    stacked members: one launch of ``<name>_trap_stream`` (or
+    ``_trap_stream_batched``) on the current CUDA stream, at most the
+    card's resident blocks walking the work items, into ``torch.empty``
+    outputs (the kernel writes every cell, pads included); rings rotated;
+    the launch counted in ``counter.stream_launches``.  Raises where the
+    kernel fails to launch."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    if K != spec.trap["K"]:
+        raise YaskException(f"K4 kernel '{spec.name}' runs groups of "
+                            f"{spec.trap['K']} steps, not {K}")
+    lead = (nm,) if nm else ()
+    ins, dev = _check_inputs(kernel, state, lead=lead)
+    outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
+                        dtype=kernel.dtype, device=dev)
+            for n in spec.outputs]
+    with torch.cuda.device(dev):
+        ws, nres = kernel.stream_workspace(dev, 1 if nm else 0)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nm:
+            rc = call_batched_stages_stream_entry(
+                kernel.batched_fn, prog, spec, ins, outs, nm, t0, stream,
+                nres=nres, ws=ws)
+        else:
+            rc = call_stages_stream_entry(kernel.fn, prog, spec, ins, outs,
+                                          t0, stream, nres=nres, ws=ws)
+    if rc != 0:
+        raise YaskException(
+            f"K4 kernel '{spec.name}_trap_stream"
+            f"{'_batched' if nm else ''}' launch failed: CUDA error {rc}")
+    counter.stream_launches += 1
+    return _rotated(prog, spec, state, outs)
+
+
 def trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int, K: int):
     """K4: one K-step group from step ``t0`` on the current CUDA stream —
-    phase 1, then the diamonds of each trapezoid dim, into fresh output
-    tensors whose pad bands are then re-zeroed (pallas_stencil.py:
-    2347-2367); returns the new state (each ring: its surviving slots,
-    then the group's newest levels, pallas_stencil.py:2371).  Counts
-    phase-1 launches in ``trapezoid_chunk.phase1_launches`` and diamond
-    launches in ``trapezoid_chunk.diamond_launches``."""
+    on the stream arm (``kernel.stream``) one launch, counted in
+    ``trapezoid_chunk.stream_launches``; else phase 1, then the diamonds
+    of each trapezoid dim, into fresh output tensors whose pad bands are
+    then re-zeroed (pallas_stencil.py:2347-2367), counted in
+    ``trapezoid_chunk.phase1_launches`` and ``.diamond_launches``.
+    Returns the new state (each ring: its surviving slots, then the
+    group's newest levels, pallas_stencil.py:2371)."""
+    if kernel.stream:
+        return _trap_stream_group(kernel, state, t0, K, 0, trapezoid_chunk)
     return _trap_group(kernel, state, t0, K, 0, trapezoid_chunk)
 
 
 trapezoid_chunk.phase1_launches = 0
 trapezoid_chunk.diamond_launches = 0
+trapezoid_chunk.stream_launches = 0
 
 
 def batched_trapezoid_chunk(kernel: "TrapezoidKernel", state, t0: int,
                             K: int, nm: int):
     """K7 over K4: one K-step group of ``nm`` members stacked as (nm,
-    *shape) per ring slot, each pass one launch for all members
-    (``<name>_trap_batched``); returns the new stacked state.  Counts in
-    ``batched_trapezoid_chunk.phase1_launches`` and ``.diamond_launches``.
-    As the reference's vmapped chunk, it never pushes."""
+    *shape) per ring slot: on the stream arm one launch of
+    ``<name>_trap_stream_batched`` (the member a work-item coordinate),
+    counted in ``batched_trapezoid_chunk.stream_launches``; else each pass
+    one launch for all members (``<name>_trap_batched``), counted in
+    ``.phase1_launches`` and ``.diamond_launches``.  Returns the new
+    stacked state.  As the reference's vmapped chunk, it never pushes."""
+    if kernel.stream:
+        return _trap_stream_group(kernel, state, t0, K, nm,
+                                  batched_trapezoid_chunk)
     return _trap_group(kernel, state, t0, K, nm, batched_trapezoid_chunk)
 
 
 batched_trapezoid_chunk.phase1_launches = 0
 batched_trapezoid_chunk.diamond_launches = 0
+batched_trapezoid_chunk.stream_launches = 0
 
 
 class TrapezoidKernel(FusedKernel):
@@ -1503,16 +1567,21 @@ class TrapezoidKernel(FusedKernel):
     after :meth:`build`, the loaded library.  ``chunk`` (solo) and
     ``batched_chunk`` (a member batch) are the wrappers: CPU tensors take
     :func:`plain_chunk` / :func:`plain_batched_chunk` over the K steps,
-    CUDA tensors launch the kernels or raise."""
+    CUDA tensors launch the kernels or raise.  ``stream`` says which arm
+    the spec is: K4's stream arm (``cuda_emit.emit_trap_stream``, one
+    launch per group; ``fn``/``batched_fn`` are ``<name>_trap_stream`` and
+    ``_trap_stream_batched``) or the two-phase passes."""
 
     def __init__(self, program, spec):
         self.program = program
         self.spec = spec
         self.K = spec.trap["K"]
+        self.stream = spec.trap.get("arm") == "stream"
         self.fn = None
         self.batched_fn = None
         self.resident_fn = None
-        self._resident: Dict[bool, int] = {}
+        self.stream_resident_fn = None
+        self._resident: Dict[object, int] = {}
         self.build_secs = 0.0
         self.dtype = None
         self.cache_hit = None
@@ -1522,6 +1591,16 @@ class TrapezoidKernel(FusedKernel):
             self.cache_hit = "memory"
             return 0.0
         lib, secs = self._load()
+        if self.stream:
+            stem = self.spec.name + "_trap_stream"
+            fn, bfn = getattr(lib, stem), getattr(lib, stem + "_batched")
+            fn.argtypes = stages_stream_argtypes()
+            bfn.argtypes = batched_stages_stream_argtypes()
+            rfn = getattr(lib, stem + "_resident")
+            rfn.argtypes = [ctypes.c_int]
+            fn.restype = bfn.restype = rfn.restype = ctypes.c_int
+            self.fn, self.batched_fn, self.stream_resident_fn = fn, bfn, rfn
+            return secs
         fn = getattr(lib, self.spec.name)
         fn.argtypes = trapezoid_argtypes()
         fn.restype = ctypes.c_int
@@ -1583,6 +1662,8 @@ class TrapezoidKernel(FusedKernel):
         """The tiling the K-step groups run with (``members``: that of a
         member batch of that many members)."""
         tr = self.spec.trap
+        if self.stream:
+            return self._stream_tiling(fuse_steps, members)
         out = {"kernel": "trapezoid_chunk", "name": self.spec.name,
                "fuse_steps": fuse_steps,
                "launches_per_group": len(tr["passes"]),
@@ -1603,5 +1684,39 @@ class TrapezoidKernel(FusedKernel):
         if members:
             out.update(kernel="batched_trapezoid_chunk",
                        name=self.spec.name + "_trap_batched",
+                       members=members)
+        return out
+
+    def _stream_tiling(self, fuse_steps: int, members: int) -> Dict[str, object]:
+        """The stream arm's tiling: one launch per group, the plane tile
+        and threads, each level's lags, the rings (depths and where they
+        lie), staged and computed cells per useful point, the segments
+        and, after a launch on the card, the resident blocks per launch
+        kind."""
+        tr = self.spec.trap
+        rec = self.spec.stages_stream.record()
+        per_level, mean = cuda_emit.trap_stream_cells(self.spec)
+        out = {"kernel": "trapezoid_chunk", "arm": "trap_stream",
+               "name": self.spec.name + "_trap_stream",
+               "fuse_steps": fuse_steps, "launches_per_group": 1,
+               "trapezoid": True, "trap_dims": list(tr["trap_dims"]),
+               "block": dict(tr["block"]),
+               "tile": [1] + rec["plane_tile"],
+               "smem_bytes": rec["smem_bytes"], "threads": tr["threads"],
+               "sub_stages": tr["sub_stages"],
+               "scratch_stages": tr["scratch_stages"],
+               "stage_widths": [dict(w) for w in tr["stage_widths"]],
+               "level_lags": [list(x) for x in tr["level_lags"]],
+               "computed_per_point_per_level": per_level,
+               "computed_per_useful_point": mean,
+               "trap_stream": dict(rec, resident_blocks={
+                   k[1]: v for k, v in self._resident.items()
+                   if isinstance(k, tuple)}),
+               "push": False, "push_vars": [], "pipeline_dmas": True,
+               "skew": True,
+               "skew_dims": [self.program.ana.domain_dims[0]]}
+        if members:
+            out.update(kernel="batched_trapezoid_chunk",
+                       name=self.spec.name + "_trap_stream_batched",
                        members=members)
         return out

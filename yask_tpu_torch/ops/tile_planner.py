@@ -11,7 +11,8 @@ answer to K2 and K3 on the card is the stream arm of K1, planned by
 ``skew_plan_hints`` / ``skew_engaged_dims``, pallas_stencil.py:366-441):
 one level per launch, streamed along slot 0 (ROADMAP.md A4a, C11); and
 K6's stream arm (several sub-stages, each at its lag along slot 0), by
-:func:`stages_stream_plan`.
+:func:`stages_stream_plan`, which also plans K4's stream arm (the K
+levels of a group as the sub-stages of one launch, ``by_cells``).
 
 What changes for the card:
 
@@ -652,7 +653,8 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
                        tiles=STAGES_STREAM_TILES,
                        prefetch=STREAM_PREFETCH, *,
                        in_nreads: Dict[int, Dict[int, int]],
-                       cmp_nreads: List[Dict[int, int]], ws_limit: int
+                       cmp_nreads: List[Dict[int, int]], ws_limit: int,
+                       by_cells: bool = False
                        ) -> Optional[StagesStreamPlan]:
     """Plan K6's stream arm: the first (plane tile, prefetch) of the
     ladders whose rings fit ``smem_limit``; where none does, the rung
@@ -660,6 +662,16 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     write the fewest estimated bytes per point outside it, among those
     whose workspace slice (the computed rings past shared memory) fits
     ``ws_limit`` bytes; None where none does.
+
+    ``by_cells`` (K4's stream arm, whose levels grow each plane tile by
+    what the later levels read): every rung, its rings in shared memory
+    at the first prefetch that fits, else placed as above, and the one
+    with the fewest computed cells per useful point taken (then the
+    fewest bytes outside shared memory, then the ladder's order).  On the
+    card (an H100 at 700 W) the four rungs' times on tti r=2 K=2 and three on
+    iso3dfd r=2 K=4 at 512³ fell in the order of their computed cells,
+    while the fewest bytes outside shared memory took tti's 4×32 rung of
+    128 threads, 3.7× slower than its 16×32.
 
     ``in_halos``: staged input → per-slot (lo, hi) halo (slots 1 and 2
     give its rings' in-plane halo); ``in_reads``: staged input →
@@ -734,14 +746,21 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
             {a: o for a, o in in_off.items() if o is not None}, cmp_off,
             sm, wsn, cap, outside, esize)
 
+    fits = {}
     for t1, t2, nt in tiles:
         for pf in prefetch:
             depths, elems, cells = rings(t1, t2, pf)
             if (sum(elems.values()) + sum(cells)) * esize <= smem_limit:
-                return plan(t1, t2, nt, pf, depths, elems, cells)
-    # no rung fits: the rings past shared memory
+                if not by_cells:
+                    return plan(t1, t2, nt, pf, depths, elems, cells)
+                fits[(t1, t2, nt)] = plan(t1, t2, nt, pf, depths, elems,
+                                          cells)
+                break
+    # rungs whose rings do not fit: past shared memory
     best = None
     for t1, t2, nt in tiles:
+        if by_cells and (t1, t2, nt) in fits:
+            continue
         for pf in prefetch:
             depths, elems, cells = rings(t1, t2, pf)
             # computed cells per plane-tile point of each sub-stage
@@ -763,4 +782,20 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
             if best is None or outside < best[0]:
                 best = (outside, (t1, t2, nt, pf, depths, elems, cells,
                                   (in_off, cmp_off, sm, wsn, outside)))
+        if by_cells and best is not None and best[1][:3] == (t1, t2, nt):
+            fits[(t1, t2, nt)] = plan(*best[1])
+            best = None
+    if by_cells:
+        order = {rung: i for i, rung in enumerate(tiles)}
+
+        def inplane(p):
+            """Computed cells per useful point in the plane tile (the
+            segments' slot-0 warm-up left out: the rung does not depend
+            on the domain's size)."""
+            t1, t2 = p.tile
+            return sum((t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
+                       for lo, hi in sub_regions) / (t1 * t2
+                                                     * len(sub_regions))
+        return min(fits.values(), default=None, key=lambda p: (
+            inplane(p), p.outside_per_point, order[(*p.tile, p.threads)]))
     return None if best is None else plan(*best[1])

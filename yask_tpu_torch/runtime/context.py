@@ -20,9 +20,11 @@ Execution modes (``-mode``):
   member batches (``stages_step`` launches ``<name>_stages_stream``;
   ``-no-skew`` keeps K6's body).  With
   ``-trapezoid`` each group of K = ``wf_steps`` steps may run on K4
-  instead (phase 1 and the diamond launches, every stage of K6 inside
-  each level), the remainder on K1, its stream arm or K6; a member batch
-  likewise on K4's member batch;
+  instead (under ``-skew``, on a 3-D solution K6's stream arm takes, one
+  launch of K4's stream arm, the K levels lagged along slot 0; else, and
+  under ``-no-skew``, phase 1 and the diamond launches, every stage of K6
+  inside each level), the remainder on K1, its stream arm or K6; a member
+  batch likewise on K4's member batch;
 * ``ref`` — the eager numpy oracle (the reference's ``run_ref``);
 * ``shard_map``, ``sharded``, ``shard_pallas`` — the domain decomposed
   over the env's device list by ``-nr`` (:mod:`yask_tpu_torch.parallel`):
@@ -658,7 +660,9 @@ class StencilContext:
         """K4 for this prepared solution's groups of K = ``wf_steps``
         steps (solo and member batches alike: it never pushes), or None
         when they run on K1 or K6; resolved once per prepare, with its
-        reason records."""
+        reason records.  Under ``-skew`` (the default) a group the stream
+        arm takes is one launch of K4's stream arm, under ``-no-skew`` the
+        two-phase passes."""
         if self._trap is None:
             from yask_tpu_torch.ops.cuda_emit import resolve_trapezoid
             from yask_tpu_torch.ops.fused_stencil import TrapezoidKernel
@@ -672,7 +676,8 @@ class StencilContext:
                          if any(bs[d] > 0 for d in lead) else None)
                 spec = resolve_trapezoid(self._program,
                                          max(self._opts.wf_steps, 1), arg,
-                                         block=block, reasons=reasons)
+                                         block=block, reasons=reasons,
+                                         skew=self._skew_arg())
             self._trap = (TrapezoidKernel(self._program, spec)
                           if spec is not None else None, reasons)
         return self._trap[0]

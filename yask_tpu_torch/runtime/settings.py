@@ -190,16 +190,21 @@ class KernelSettings:
             "yet: ROADMAP.md A10).", self, "run_deadline_secs")
         parser.add_bool_option(
             "trapezoid", "Trapezoid/diamond temporal tiling of -mode fused "
-            "(K4: K steps per phase-1 launch plus the diamond fill "
-            "launches), engaged where the TilePlan gate picks it; pads are "
-            "planned for it.  The gate costs the reference's TPU variants "
-            "and does not predict the card's speed: K4 is today about 3x "
-            "slower than K1 (ROADMAP.md C7).", self, "trapezoid_tiling")
+            "(K4: under -skew, on a 3-D solution K6's stream arm takes, "
+            "one streamed launch per group of K steps; else K steps per "
+            "phase-1 launch plus the diamond fill launches), engaged where "
+            "the TilePlan gate picks it; pads are planned for it.  The gate "
+            "costs the reference's TPU variants and does not predict the "
+            "card's speed: on iso3dfd r=2 K=4 K4 is today about 1.6x "
+            "slower per step than K1's stream arm (ROADMAP.md C7).", self,
+            "trapezoid_tiling")
         parser.add_bool_option(
             "skew", "K1's stream arm on -mode fused (auto-on where it can "
             "run: each block walks slot 0 through a ring of planes carried "
             "from plane to plane, the next planes fetched under the "
-            "current one's compute; the reference's skewed wavefront).",
+            "current one's compute; the reference's skewed wavefront), "
+            "K6's, and under -trapezoid K4's (the K levels of a group "
+            "lagged along slot 0 in one launch).",
             self, "skew_wavefront")
         parser.add_int_option(
             "skew_dims", "Max grid dims the skew may engage (the port "

@@ -189,7 +189,8 @@ script exits 0 only when all of them passed.  Phases:
    points with 2 warm-up steps and the counters zeroed just before the
    trials: test_4d at 128⁴ fp32 ``-wf_steps 2`` (K1; the stream arm
    ``skew_ineligible``), 3 trials of 20 steps; four_d_stages at 128⁴ fp32
-   (K6), one trial of 10; tti r=2 at 512³ in bfloat16 ``-wf_steps 2``
+   (K6's body under ``-no-skew``, as in (a) and (b): the twin of phase
+   21), one trial of 10; tti r=2 at 512³ in bfloat16 ``-wf_steps 2``
    (K6 with scratch sub-stages), 3 trials of 20, beside phase 9 (c)'s
    fp32 tti of the same run and seed: ms/step, points/s, the kernel's ms
    per launch against its bound, the plain version's time, one chunk
@@ -439,7 +440,28 @@ script exits 0 only when all of them passed.  Phases:
    K7 over the arm alone (``_trap_stream_batched``, one launch a group),
    each member bit-equal to its solo run, the batched group against 8
    solo groups and against the two-phase batch on the same stack (the
-   same bits).
+   same bits);
+21. the stream arm past three domain dims (a window of every outer dim
+   a work item, each sub-stage once over its region in every slot, a read
+   at an outer offset from the ring there): K6's (``stages_step``
+   launching ``<name>_stages_stream``, the ``StreamSpec`` beside the
+   body), K7's over it and K4's 4-D groups (``<name>_trap_stream``), the
+   defaults under ``-skew``; phases 11, 12 and 15 hold the bodies and the
+   two-phase passes under ``-no-skew``.  (a) At mid width from one seed:
+   four_d_stages (21x40x36x70) and five_d (6x7x40x20x70, two outer dims),
+   5 steps each, the arm alone launching, bit-equal to its ``-no-skew``
+   twin (K6's body with its outer copies) and held to its plain version;
+   K7 over it with 3 members, each bit-equal to its solo run; test_4d and
+   four_d_stages under forced ``-trapezoid`` K=2, one group, bit-equal to
+   the two-phase twin, and K7 over K4's arm on test_4d with 3 members;
+   one launch of each timed beside its twin; (b) test_4d at 128⁴
+   ``-trapezoid`` K=2 (a warm-up group, one trial of 3 groups) and
+   four_d_stages at 128⁴ (a warm-up step, one trial of 10), each beside
+   its twin from one seed, the final states bit-equal: ms per group or
+   launch against the bound and the twin's, the plain version's, one
+   launch against it, ``torch.profiler`` (kernels, fills, idle share),
+   the plan, ptxas's report and the rungs of :data:`S4_SWEEP` (narrower
+   outer windows; the same bits).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -461,8 +483,12 @@ FP32_FLOP_PER_S = 67e12
 FIELD_EPS = 1e-4
 
 
+#: when the script started (each log line carries the seconds since)
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -566,7 +592,10 @@ def bits_digest(a) -> tuple:
 
 def ptxas_summary(log_text: str) -> str:
     """Registers and spills per kernel from nvcc's ``-Xptxas -v``."""
-    names = (("stream_stages_kernelI8TrapSpecLb1", "K7 over K4's stream arm"),
+    names = (("stream_stages_kernelI10StreamSpecLb1",
+              "K7 over K6's 4-D stream arm"),
+             ("stream_stages_kernelI10StreamSpecLb0", "K6 4-D stream arm"),
+             ("stream_stages_kernelI8TrapSpecLb1", "K7 over K4's stream arm"),
              ("stream_stages_kernelI8TrapSpecLb0", "K4 stream arm"),
              ("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0ELb1E", "K5 stream arm (K6 body)"),
@@ -2587,14 +2616,42 @@ def four_d_stages(name: str = "four_d_stages"):
     return soln
 
 
+def five_d(name: str = "five_d"):
+    """Phase 21's 5-D solution on K6 in the port's DSL (the one
+    ``tests/test_torch_4d.py`` holds against ``yask_tpu``): two outer dims
+    (v, w), a scratch var and a second stage read at offsets in both."""
+    from yask_tpu_torch.compiler.solution import yc_factory
+    soln = yc_factory().new_solution(name)
+    t = soln.new_step_index("t")
+    v, w, x, y, z = (soln.new_domain_index(d) for d in "vwxyz")
+    a = soln.new_var("a", [t, v, w, x, y, z])
+    b = soln.new_var("b", [t, v, w, x, y, z])
+    s = soln.new_scratch_var("s", [v, w, x, y, z])
+    s(v, w, x, y, z).EQUALS(a(t, v, w, x, y, z)
+                            + a(t, v - 1, w + 1, x, y, z) * 0.5)
+    a(t + 1, v, w, x, y, z).EQUALS(
+        a(t, v, w, x, y, z) * 0.25 + s(v + 1, w, x, y, z) * 0.25
+        + s(v, w - 1, x, y + 1, z) * 0.125).IF_DOMAIN(v > 0)
+    b(t + 1, v, w, x, y, z).EQUALS(b(t, v, w, x, y, z) * 0.5
+                                   + a(t + 1, v - 1, w + 1, x, y, z) * 0.2)
+    return soln
+
+
+def dsl_solution(stencil: str):
+    """The solutions this script builds with the port's DSL."""
+    return (five_d(stencil) if stencil.startswith("five_d")
+            else four_d_stages(stencil) if stencil.startswith("four_d_")
+            else partial_solution(stencil))
+
+
 def a3_ctx(fac, env, stencil, radius, eb, sizes, mode, K=1, cli=""):
     """A context of ``stencil`` over ``sizes`` (per slot 0-2, fewer dims
     taking the last slots; or one per domain dim in solution order) at
     element size ``eb``, ``-mode mode -wf_steps K``."""
     from yask_tpu_torch.compiler.solution_base import create_solution
-    if stencil.startswith(("partial_", "scratch_partial", "four_d_")):
-        src = (four_d_stages(stencil) if stencil.startswith("four_d_")
-               else partial_solution(stencil))
+    if stencil.startswith(("partial_", "scratch_partial", "four_d_",
+                           "five_d")):
+        src = dsl_solution(stencil)
         src.set_element_bytes(eb)
     else:
         src = create_solution(stencil, radius=radius)
@@ -3012,6 +3069,9 @@ A3B_CASES = (("test_4d", None, 4, "fused_step"),
              ("gaussian", 2, 2, "stages_step"))
 #: the outer dim's extent in phase 11 (a)'s ragged 4-D grids
 OUTER_RAGGED = 5
+#: Phase 11 runs four_d_stages on K6's body (``-no-skew``): the twin that
+#: phase 21 holds K6's 4-D stream arm (the default) to
+A3B_CLI = {"four_d_stages": "-no-skew"}
 
 
 def a3b_sizes(fac, env, st, r, eb) -> tuple:
@@ -3058,7 +3118,8 @@ def phase11a(fac, env, steps: int = 5) -> dict:
         eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
         for K in (1, 2):
             plain = a3_ctx(fac, env, st, r, eb, sizes, "torch", K)
-            fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", K)
+            fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", K,
+                           A3B_CLI.get(st, ""))
             for c in (plain, fused):
                 seed_case(c, 5)
             plain.run_solution(0, steps - 1)
@@ -3096,7 +3157,8 @@ def phase11b(fac, env, g: int = 24, g4: int = 12) -> None:
                  else (g, g, g + 1))
         eps = ((BF16_ORACLE_EPS, BF16_ORACLE_EPS) if eb == 2
                else (1e-4, 1e-7))
-        fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2)
+        fused = a3_ctx(fac, env, st, r, eb, sizes, "fused", 2,
+                       A3B_CLI.get(st, ""))
         ref = a3_ctx(fac, env, st, r, eb, sizes, "ref")
         for c in (fused, ref):
             seed_case(c, 9)
@@ -3141,7 +3203,8 @@ def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
     torch.cuda.empty_cache()
     k6 = a3_full(fac, env, card, "four_d_stages", None, 4, (full4,) * 4,
                  "stages_step", f"4-D arm of K6: four_d_stages {full4}^4 "
-                 "fp32", trials=1, steps=10)
+                 "fp32 (-no-skew, K6's body)", trials=1, steps=10,
+                 cli=A3B_CLI["four_d_stages"])
     k6.update(source="yask_tpu_torch/csrc/fused_step.cuh",
               replaces="yask_tpu/ops/pallas_stencil.py:1442 (the grid over "
                        "every lead dim) with the stage loop :2058-2188",
@@ -4145,8 +4208,8 @@ K4_FULL = (("tti r=2 fp32", "tti", 2, 4, 512, 2, "K6"),
 def k4_ctx(fac, env, st, r, eb, sizes, mode, K, cli="", force=False):
     """:func:`a3_ctx` with K4's request forced (``force``)."""
     from yask_tpu_torch.compiler.solution_base import create_solution
-    if st.startswith("four_d_"):
-        src = four_d_stages(st)
+    if st.startswith(("four_d_", "five_d")):
+        src = dsl_solution(st)
         src.set_element_bytes(eb)
     else:
         src = create_solution(st, radius=r)
@@ -4892,9 +4955,11 @@ def phase15(fac, env, card: str, full: int = 512,
 #: Phase 16 (b): the flat ladder's rungs swept on gaussian r=2 8192^2x3,
 #: (T1, T2, threads); the emitter's ladder (``cuda_emit._FLAT_LADDER``)
 #: keeps the rungs the registered solutions take, led by this sweep's.
-FLAT_SWEEP = ((32, 128, 512), (16, 128, 512), (64, 64, 512), (32, 64, 512),
-              (16, 256, 512), (32, 256, 512), (64, 128, 512),
-              (32, 128, 256), (16, 128, 256), (8, 256, 256))
+#: The ladder came from a sweep of ten rungs (PERF.md's flat arm row);
+#: this sweep keeps the ladder's first two, the fastest of the ten and a
+#: 256-thread one, to hold the script's time.
+FLAT_SWEEP = ((32, 128, 512), (64, 64, 512), (32, 64, 512),
+              (16, 128, 256))
 #: Phase 16 (e): every 1-D and 2-D solution K6 carries (and box at r=1
 #: and r=3), at mid width: 2-D over 3000 x 3000 (47 x 47 tiles of 64x64,
 #: a 2x2 shard's box 24 x 24), 1-D over 2100000 points (513 tiles of
@@ -6306,6 +6371,479 @@ def phase20(fac, env, card: str, ptxas: dict) -> list:
     return entries
 
 
+# ---- phase 21: the stream arm past three domain dims (K6, K7, K4) ------
+
+#: Phase 21 (a): K6's stream arm at mid width on the 4-D and 5-D K6
+#: solutions, solo and under K7: (label, solution, sizes per dim); the
+#: outer dims split into windows, the last one partial
+S4_MID = (("four_d_stages", "four_d_stages", (21, 40, 36, 70)),
+          ("five_d", "five_d", (6, 7, 40, 20, 70)))
+#: and K4's stream arm at K = 2 on a 4-D K1 and a 4-D K6 solution
+S4_K4_MID = (("test_4d", "test_4d", (21, 40, 36, 70)),
+             ("four_d_stages", "four_d_stages", (21, 40, 36, 70)))
+#: the members of phase 21 (a)'s batches
+S4_NM = 3
+#: Phase 21 (b): (label, solution, edge, K, groups or steps) at full width
+S4_FULL = (("test_4d", "test_4d", 128, 2, 3),
+           ("four_d_stages", "four_d_stages", 128, 1, 10))
+#: Phase 21 (b)'s rung sweep beside the planner's (T1, T2, threads, outer
+#: windows): a narrower outer window keeps more rings in shared memory
+S4_SWEEP = ((16, 32, 512, (8,)), (16, 32, 512, (4,)))
+S4_REPLACES = ("yask_tpu/ops/pallas_stencil.py:1442 (the grid over every "
+               "lead dim) with the stage loop :2058-2188, streamed along "
+               "slot 0 (:1815-1854, :1955-2056)")
+S4_K7_REPLACES = ("yask_tpu/runtime/ensemble.py:234-345 (jax.vmap of "
+                  "build_pallas_chunk) over the 4-D stage loop "
+                  "pallas_stencil.py:1442, :2058-2188")
+S4_K4_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the trapezoid arm "
+                  ":812-930 over every lead dim :1442; the K levels lagged "
+                  "along slot 0 as its skewed-wavefront carry :306-441, "
+                  ":1955-2056)")
+
+
+def s4_specs(fac, env) -> dict:
+    """Phase 21's sources (K6's 4-D sources carry the body and the stream
+    arm's ``StreamSpec``; K4's stream arm and its two-phase twin per case;
+    the full-width ones and the rungs of :data:`S4_SWEEP`, whose plans
+    follow the size), for phase 1's parallel build."""
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    out = {}
+    for label, st, sizes in S4_MID:
+        ctx = a3_ctx(fac, env, st, None, 4, sizes, "fused")
+        out[f"K6 4-D {label}"] = FusedKernel(ctx._program).spec
+        del ctx
+    for label, st, sizes in S4_K4_MID:
+        for arm, cli in (("stream", "-trapezoid -skew"),
+                         ("two-phase", "-trapezoid")):
+            ctx = k4_ctx(fac, env, st, None, 4, sizes, "fused", 2, cli,
+                         force=True)
+            out[f"K4 4-D {arm} {label}"] = ctx._trapezoid_kernel().spec
+            del ctx
+    for label, st, g, K, _n in S4_FULL:
+        if K > 1:
+            ctx = k4_ctx(fac, env, st, None, 4, (g,) * 4, "fused", K,
+                         "-trapezoid", force=True)
+            out[f"K4 4-D two-phase {label} {g}^4"] = \
+                ctx._trapezoid_kernel().spec
+            del ctx
+            ctx = k4_ctx(fac, env, st, None, 4, (g,) * 4, "fused", K,
+                         "-trapezoid -skew", force=True)
+            out[f"K4 4-D stream {label} {g}^4"] = \
+                ctx._trapezoid_kernel().spec
+            for rung in S4_SWEEP:
+                out[f"K4 4-D stream {label} rung {rung}"] = \
+                    cuda_emit.resolve_trapezoid(ctx._program, K, True,
+                                                skew=True,
+                                                stream_tiles=(rung,))
+        else:
+            ctx = a3_ctx(fac, env, st, None, 4, (g,) * 4, "fused")
+            out[f"K6 4-D {label} {g}^4"] = FusedKernel(ctx._program).spec
+            for rung in S4_SWEEP:
+                out[f"K6 4-D {label} rung {rung}"] = cuda_emit.emit(
+                    ctx._program, stream_tiles=(rung,))
+        del ctx
+    return out
+
+
+def s4_plan(plan) -> str:
+    """The 4-D stream arm's plan as phase 21 prints it."""
+    rec = plan.record()
+    return (f"outer window {rec.get('outer_window')}, plane tile "
+            f"{rec['plane_tile']} by {rec['threads']} threads, lags "
+            f"{rec['lags']}, rings {rec['ring_depths']} (computed "
+            f"{rec['computed_ring_depths']}), {rec['smem_bytes']} B, places "
+            f"{rec['ring_places']}/{rec['computed_ring_places']}, workspace "
+            f"{rec['ws_block_bytes']} B per block, {rec['segments']} "
+            f"segment(s) of {rec['segment_planes']} planes, "
+            f"{rec['columns']} columns, computed cells per point "
+            f"{rec['computed_per_point']}")
+
+
+def s4_counts(run, want: dict, what: str) -> dict:
+    """Zero every counter, ``run()``, read the counters: exactly
+    ``want``, else raise."""
+    import torch
+    zero_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    if got != want:
+        raise RuntimeError(f"phase 21: {what}: launches {got}, expected "
+                           f"{want}")
+    return got
+
+
+def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
+             nm: int = S4_NM) -> list:
+    """Phase 21 (a): at mid width, from one seed, K6's 4-D (5-D) stream
+    arm (the default ``-skew``) beside its ``-no-skew`` twin (K6's body
+    with its outer copies) for ``steps`` steps, K7 over it (``nm``
+    members, each bit-equal to its solo run), and K4's 4-D stream arm
+    (forced ``-trapezoid``, K = 2, one group) beside its two-phase twin,
+    and K7 over it; each with the counters zeroed just before and read
+    just after (the expected launches and no others), bit-equal to its
+    twin and held to its plain version; one launch of each timed.
+    Returns rows (label, ms, plain ms, bound ms, bound by, max |d|,
+    launches, twin ms, kind)."""
+    import torch
+    from yask_tpu_torch.ops import fused_stencil as fs
+    rows = []
+    for label, st, sizes in S4_MID:
+        ctxs = {"arm": a3_ctx(fac, env, st, None, 4, sizes, "fused"),
+                "twin": a3_ctx(fac, env, st, None, 4, sizes, "fused", 1,
+                               "-no-skew"),
+                "plain": a3_ctx(fac, env, st, None, 4, sizes, "torch")}
+        for c in ctxs.values():
+            seed_case(c, 7)
+        got = s4_counts(lambda: ctxs["arm"].run_solution(0, steps - 1),
+                        {"stages_stream": steps}, f"{label} solo")
+        s4_counts(lambda: ctxs["twin"].run_solution(0, steps - 1),
+                  {"stages_step": steps}, f"{label} twin")
+        ctxs["plain"].run_solution(0, steps - 1)
+        _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
+        d = max_abs_diff(ctxs["arm"], ctxs["plain"])
+        bad = ctxs["arm"].compare_data(ctxs["plain"],
+                                       field_epsilon=FIELD_EPS)
+        if twin_bits or bad or not finite(ctxs["arm"]):
+            raise RuntimeError(f"phase 21 (a): {label}: the stream arm "
+                               f"differs from its twin in {twin_bits} cells "
+                               f"or from its plain version ({bad} "
+                               "mismatches)")
+        kern, tk = ctxs["arm"]._fused, ctxs["twin"]._fused
+        s0, s1 = dict(ctxs["arm"]._state), dict(ctxs["twin"]._state)
+        ms = cuda_ms(lambda: fs.stages_step(kern, s0, steps), 3)
+        twin_ms = cuda_ms(lambda: fs.stages_step(tk, s1, steps), 3)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, steps,
+                                                  1), 2)
+        bound_ms, bound_by, _nb = a3_bound(ctxs["arm"])
+        log(f"phase 21 (a): {label} {'x'.join(map(str, sizes))} K6's stream "
+            f"arm, {steps} steps: launches {got}; bit-equal to its -no-skew "
+            f"twin (K6's body, {tk.spec.stages} sub-stages with the outer "
+            f"copies; {twin_bits} cells differ); vs plain max|d|={d:.3e} "
+            f"mismatches={bad}; {ms:.3f} ms/launch (CUDA events) against "
+            f"the twin's {twin_ms:.3f} ({twin_ms / ms:.2f}x), bound "
+            f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.3f} ms; "
+            f"{s4_plan(kern.spec.stages_stream)}; ptxas "
+            f"{ptxas.get(kern.spec.name, 'not built by phase 1')} [{card}]")
+        rows.append((label, ms, plain_ms, bound_ms, bound_by, d, steps,
+                     twin_ms, "K6"))
+        del ctxs
+        # K7 over it: nm members, each bit-equal to its solo run
+        ctx, ens = member_batch(fac, env, st, None, 4, sizes, nm,
+                                lambda c, i: seed_case(c, 100 + i), K=1)
+        got = s4_counts(lambda: ens.run(0, steps - 1),
+                        {"batched_stages_stream": steps}, f"{label} K7")
+        solo = a3_ctx(fac, env, st, None, 4, sizes, "fused")
+        for i in range(nm):
+            seed_case(solo, 100 + i)
+            solo.run_solution(0, steps - 1)
+            with ens.member(i) as c:
+                _d, nb = device_diff(c, solo, exact=True)
+            if nb:
+                raise RuntimeError(f"phase 21 (a): {label} K7: member {i} "
+                                   f"differs from its solo run in {nb} "
+                                   "cells")
+        bk = ctx._batched_kernel()
+        stack = ens._stack_states()
+        ms7 = cuda_ms(lambda: fs.batched_stages_step(bk, stack, steps, nm), 3)
+        err7, nbits7, scale7 = k7_chunk_vs_plain(ctx, ens, steps, 1)
+        plain7 = cuda_ms(lambda: fs.plain_batched_chunk(bk.program, stack,
+                                                        steps, 1, nm), 1)
+        b7, by7, _nb = k7_bound(ctx, nm)
+        if not err7 <= FIELD_EPS * scale7:
+            raise RuntimeError(f"phase 21 (a): {label} K7: the batch and its "
+                               "plain version disagree")
+        log(f"phase 21 (a): {label} K7 over K6's stream arm, {nm} members: "
+            f"launches {got}; every member bit-equal to its solo run; "
+            f"{ms7:.3f} ms/launch against {nm} x {ms:.3f} solo "
+            f"({ms7 / (nm * ms):.3f}x per point); vs plain_batched_chunk "
+            f"max|d|={err7:.3e} ({nbits7} cells differ in their bits); "
+            f"bound {b7:.4f} ms ({by7}); plain {plain7:.3f} ms [{card}]")
+        rows.append((f"{label} K7 x{nm}", ms7, plain7, b7, by7, err7, steps,
+                     None, "K7"))
+        del ctx, ens, solo, stack
+        torch.cuda.empty_cache()
+
+    for label, st, sizes in S4_K4_MID:
+        ctxs = {"arm": k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+                              "-trapezoid -skew", force=True),
+                "twin": k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+                               "-trapezoid", force=True),
+                "plain": k4_ctx(fac, env, st, None, 4, sizes, "torch", 2)}
+        for c in ctxs.values():
+            seed_case(c, 7)
+        got = s4_counts(lambda: ctxs["arm"].run_solution(0, 1),
+                        {"trapezoid_stream": 1}, f"{label} K4")
+        s4_counts(lambda: ctxs["twin"].run_solution(0, 1),
+                  {"trapezoid_phase1": 1, "trapezoid_diamond": 2},
+                  f"{label} K4 twin")
+        ctxs["plain"].run_solution(0, 1)
+        _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
+        d = max_abs_diff(ctxs["arm"], ctxs["plain"])
+        bad = ctxs["arm"].compare_data(ctxs["plain"],
+                                       field_epsilon=FIELD_EPS)
+        if twin_bits or bad or not finite(ctxs["arm"]):
+            raise RuntimeError(f"phase 21 (a): {label} K4: the stream arm "
+                               f"differs from its twin in {twin_bits} cells "
+                               f"or from its plain version ({bad} "
+                               "mismatches)")
+        kern = ctxs["arm"]._trapezoid_kernel()
+        tk = ctxs["twin"]._trapezoid_kernel()
+        s0, s1 = dict(ctxs["arm"]._state), dict(ctxs["twin"]._state)
+        ms = cuda_ms(lambda: fs.trapezoid_chunk(kern, s0, 2, 2), 3)
+        twin_ms = cuda_ms(lambda: fs.trapezoid_chunk(tk, s1, 2, 2), 3)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, 2, 2),
+                           2)
+        bound_ms, bound_by, _nb = k4_bound(ctxs["arm"], kern.spec)
+        log(f"phase 21 (a): {label} {'x'.join(map(str, sizes))} K4's stream "
+            f"arm, one group (K=2): launches {got}; bit-equal to its "
+            f"-no-skew twin (the two-phase passes; {twin_bits} cells "
+            f"differ); vs plain max|d|={d:.3e} mismatches={bad}; {ms:.3f} "
+            f"ms/group (CUDA events) against the twin's {twin_ms:.3f} "
+            f"({twin_ms / ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.3f} ms; {s4_plan(kern.spec.stages_stream)}; "
+            f"ptxas {ptxas.get(kern.spec.name, 'not built by phase 1')} "
+            f"[{card}]")
+        rows.append((f"{label} K4 K=2", ms, plain_ms, bound_ms, bound_by, d,
+                     1, twin_ms, "K4"))
+        del ctxs
+        if st != "test_4d":
+            continue
+        # K7 over K4's 4-D stream arm: one launch a group
+        ctx = k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+                     "-trapezoid -skew", force=True)
+        ens = ctx.new_ensemble(nm)
+        for i in range(nm):
+            with ens.member(i) as c:
+                seed_case(c, 200 + i)
+        got = s4_counts(lambda: ens.run(0, 1),
+                        {"batched_trapezoid_stream": 1}, f"{label} K7/K4")
+        solo = k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+                      "-trapezoid -skew", force=True)
+        for i in range(nm):
+            seed_case(solo, 200 + i)
+            solo.run_solution(0, 1)
+            with ens.member(i) as c:
+                _d, nb = device_diff(c, solo, exact=True)
+            if nb:
+                raise RuntimeError(f"phase 21 (a): {label} K7 over K4: "
+                                   f"member {i} differs from its solo run "
+                                   f"in {nb} cells")
+        bk = ctx._trapezoid_kernel()
+        stack = ens._stack_states()
+        ms7 = cuda_ms(lambda: fs.batched_trapezoid_chunk(bk, stack, 2, 2,
+                                                         nm), 3)
+        a = bk.batched_chunk(dict(stack), 2, 2, nm)
+        b = fs.plain_batched_chunk(bk.program, dict(stack), 2, 2, nm)
+        err7 = max(float((x - y).abs().max()) for n in set(bk.spec.outputs)
+                   for x, y in zip(a[n][-2:], b[n][-2:]))
+        scale7 = max(float(y.abs().max()) for n in b for y in b[n])
+        del a, b
+        plain7 = cuda_ms(lambda: fs.plain_batched_chunk(bk.program, stack, 2,
+                                                        2, nm), 1)
+        b7, by7, _nb = k4_bound(ctx, bk.spec)
+        if not err7 <= FIELD_EPS * scale7:
+            raise RuntimeError(f"phase 21 (a): {label} K7 over K4: the batch "
+                               "and its plain version disagree")
+        log(f"phase 21 (a): {label} K7 over K4's stream arm, {nm} members, "
+            f"one group (K=2): launches {got}; every member bit-equal to its "
+            f"solo run; {ms7:.3f} ms/group against {nm} x {ms:.3f} solo "
+            f"({ms7 / (nm * ms):.3f}x per point); vs plain max|d|="
+            f"{err7:.3e}; bound {nm * b7:.4f} ms ({by7}); plain "
+            f"{plain7:.3f} ms [{card}]")
+        rows.append((f"{label} K7 x{nm} over K4", ms7, plain7, nm * b7, by7,
+                     err7, 1, None, "K7/K4"))
+        del ctx, ens, solo, stack
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase21b(fac, env, card: str, ptxas: dict, label, st, g, K, n,
+             warm: int = 1) -> dict:
+    """Phase 21 (b): ``st`` at ``g``⁴ on the stream arm (K4's under forced
+    ``-trapezoid`` with ``-skew`` where ``K`` > 1, ``n`` groups; K6's under
+    ``-mode fused`` where ``K`` is 1, ``n`` steps) beside its ``-no-skew``
+    twin from one seed (:func:`seed_device`), one trial with the counters
+    zeroed just before (the expected launches and nothing else), the final
+    states bit-equal; one launch of each by CUDA events against the bound,
+    the plain version, one launch against it, a profile of the arm's
+    launches, the rungs of :data:`S4_SWEEP` (each the arm's bits) and
+    ptxas's report.  Returns the ``kernels`` entry."""
+    import torch
+    from yask_tpu_torch.ops import cuda_emit
+    from yask_tpu_torch.ops import fused_stencil as fs
+    npts = g ** 4
+    trap = K > 1
+    steps = n * K
+    ctxs, per = {}, {}
+    for which, cli in (("arm", "-trapezoid -skew" if trap else ""),
+                       ("twin", "-trapezoid" if trap else "-no-skew")):
+        torch.cuda.empty_cache()
+        ctx = (k4_ctx(fac, env, st, None, 4, (g,) * 4, "fused", K, cli,
+                      force=True) if trap else
+               a3_ctx(fac, env, st, None, 4, (g,) * 4, "fused", K, cli))
+        seed_device(ctx, 11, physical=True)
+        ctx.run_solution(0, warm * K - 1)
+        t = warm * K
+        want = ({"trapezoid_stream": n} if trap and which == "arm" else
+                {"trapezoid_phase1": n, "trapezoid_diamond": 2 * n} if trap
+                else {"stages_stream": n} if which == "arm"
+                else {"stages_step": n})
+        ctx.clear_stats()
+        got = s4_counts(lambda: ctx.run_solution(t, t + steps - 1), want,
+                        f"{label} {g}^4 {which}")
+        if not finite(ctx):
+            raise RuntimeError(f"phase 21 (b): {label} {which}: not finite")
+        per[which] = (npts / ctx.get_stats().get_pts_per_sec() * 1e3, got,
+                      ctx.get_stats().get_tiling())
+        ctxs[which] = ctx
+    _d, nbits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
+    if nbits:
+        raise RuntimeError(f"phase 21 (b): {label}: the stream arm and its "
+                           f"twin differ in {nbits} cells")
+    t = warm * K + steps
+    arm, twin = ctxs["arm"], ctxs["twin"]
+    if trap:
+        kern, tk = arm._trapezoid_kernel(), twin._trapezoid_kernel()
+
+        def launch(k, s):
+            return fs.trapezoid_chunk(k, s, t, K)
+        plan = kern.spec.stages_stream
+    else:
+        kern, tk = arm._fused, twin._fused
+
+        def launch(k, s):
+            return fs.stages_step(k, s, t)
+        plan = kern.spec.stages_stream
+    s0, s1 = dict(arm._state), dict(twin._state)
+    ms = cuda_ms(lambda: launch(kern, s0), 3)
+    twin_ms = cuda_ms(lambda: launch(tk, s1), 2)
+    del ctxs["twin"], twin, s1, tk
+    torch.cuda.empty_cache()
+    prof = profile_launches(lambda: launch(kern, s0), 3,
+                            expect=("stream_stages_kernel",))
+    plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, t, K), 1)
+    if trap:
+        err, nb, scale = k4_group_vs_plain(kern, s0, t)
+        bound_ms, bound_by, nbytes = k4_bound(arm, kern.spec)
+    else:
+        a = kern.chunk(dict(s0), t, 1)
+        b = fs.plain_chunk(kern.program, dict(s0), t, 1)
+        err, nb, scale = 0.0, 0, 0.0
+        for nme in kern.spec.outputs:
+            x, y = a[nme][-1], b[nme][-1]
+            err = max(err, float((x - y).abs().max()))
+            nb += int((x != y).sum())
+            scale = max(scale, float(y.abs().max()))
+        del a, b
+        bound_ms, bound_by, nbytes = a3_bound(arm)
+    if not err <= FIELD_EPS * scale:
+        raise RuntimeError(f"phase 21 (b): {label}: the stream arm and its "
+                           "plain version disagree")
+    rungs = []
+    base = launch(kern, dict(s0))
+    for rung in S4_SWEEP:
+        if trap:
+            rs = cuda_emit.resolve_trapezoid(kern.program, K, True, skew=True,
+                                             stream_tiles=(rung,))
+            rk = fs.TrapezoidKernel(kern.program, rs)
+        else:
+            rk = stream_kernel(kern.program, False, rung)
+            rs = rk.spec
+        rk.build()
+        rms = cuda_ms(lambda: launch(rk, s0), 2)
+        got = launch(rk, dict(s0))
+        bad = sum(int((x != y).sum()) for nme in set(kern.spec.outputs)
+                  for x, y in zip(got[nme], base[nme]))
+        if bad:
+            raise RuntimeError(f"phase 21 (b): {label} at rung {rung}: {bad} "
+                               "cells differ from the planner's rung")
+        rp = rs.stages_stream.record()
+        rungs.append({"rung": [*rung[:3], list(rung[3])], "ms": rms,
+                      "computed_per_point": rp["computed_per_point"],
+                      "smem_bytes": rp["smem_bytes"],
+                      "places": [rp["ring_places"],
+                                 rp["computed_ring_places"]],
+                      "ptxas": ptxas.get(rs.name, "")})
+        del rk, got
+    del base
+    what = "group" if trap else "launch"
+    arm_step = per["arm"][0]
+    twin_step = per["twin"][0]
+    old = {"test_4d": 79.331, "four_d_stages": 73.458}.get(st)
+    log(f"phase 21 (b): {label} {g}^4 -mode fused -wf_steps {K}"
+        f"{' -trapezoid (forced)' if trap else ''}, the stream arm: one "
+        f"trial of {steps} steps: {arm_step:.3f} ms/step, launches "
+        f"{per['arm'][1]}, get_tiling() {per['arm'][2].get('name')}; its "
+        f"-no-skew twin ({'the two-phase passes' if trap else 'K6 body'}, "
+        f"same seed) {twin_step:.3f} ms/step, launches {per['twin'][1]}, "
+        f"bit-equal ({nbits} cells differ); one {what} {ms:.3f} ms (CUDA "
+        f"events) against the twin's {twin_ms:.3f} ({twin_ms / ms:.2f}x; "
+        f"PERF.md's twin rows {old}), bound {bound_ms:.3f} ms ({bound_by}: "
+        f"{nbytes / npts:.1f} B/pt), share {bound_ms / ms:.3f}; plain "
+        f"{plain_ms:.3f} ms (not a yardstick); one {what} vs plain max|d|="
+        f"{err:.3e} ({nb} cells differ in their bits); {s4_plan(plan)}; "
+        f"ptxas {ptxas.get(kern.spec.name, 'not built by phase 1')}; "
+        f"profile {prof}; rungs {rungs} [{card}]")
+    entry = {"name": (f"trapezoid_chunk, K4's 4-D stream arm ({label} "
+                      f"{g}^4, K={K})" if trap else
+                      f"stages_step, K6's 4-D stream arm ({label} {g}^4)"),
+             "route": "cuda", "source": SS_SOURCE,
+             "replaces": S4_K4_REPLACES if trap else S4_REPLACES,
+             "launches": sum(per["arm"][1].values()), "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None,
+             "per": (f"group of {K} steps (one launch)" if trap
+                     else "launch (one sub-step)"),
+             "step_ms": arm_step, "twin": ("two-phase K4 (-no-skew)" if trap
+                                           else "K6's body (-no-skew)"),
+             "twin_ms": twin_ms, "twin_step_ms": twin_step, "rungs": rungs,
+             "outer_window": list(plan.outer_tile),
+             "idle_share": prof["idle_share"] if prof else None,
+             "path": "phase 21 (b)"}
+    del ctxs, arm, kern, s0
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase21(fac, env, card: str, ptxas: dict) -> list:
+    """The stream arm past three domain dims (see the module docstring).
+    Returns the ``kernels`` entries."""
+    import torch
+    t0 = time.perf_counter()
+    rows = phase21a(fac, env, card, ptxas)
+    entries = []
+    for kind, name, rep in (
+            ("K6", "stages_step, K6's 4-D stream arm", S4_REPLACES),
+            ("K7", "batched_stages_step, K7 over K6's 4-D stream arm",
+             S4_K7_REPLACES),
+            ("K4", "trapezoid_chunk, K4's 4-D stream arm", S4_K4_REPLACES),
+            ("K7/K4", "batched_trapezoid_chunk, K7 over K4's 4-D stream "
+                      "arm", S4_K4_REPLACES)):
+        rs = [row for row in rows if row[8] == kind]
+        twins = [row[7] for row in rs if row[7] is not None]
+        entries.append({
+            "name": f"{name} (phase 21 (a), mid width)", "route": "cuda",
+            "source": SS_SOURCE, "replaces": rep,
+            "launches": sum(row[6] for row in rs),
+            "max_abs_err": max(row[5] for row in rs),
+            "ms": sum(row[1] for row in rs),
+            "plain_ms": sum(row[2] for row in rs),
+            "bound_ms": sum(row[3] for row in rs),
+            "bound_by": "bytes" if all(row[4] == "bytes" for row in rs)
+            else "operations", "library_ms": None,
+            "twin_ms": sum(twins) if twins else None,
+            "per": "sum over the cases of one launch each: "
+                   + ", ".join(row[0] for row in rs),
+            "path": "phase 21 (a)"})
+    torch.cuda.empty_cache()
+    for label, st, g, K, n in S4_FULL:
+        entries.append(phase21b(fac, env, card, ptxas, label, st, g, K, n))
+    log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> dict:
     """Build every kernel of the path, one ``nvcc`` per source, each group
     of sources started as soon as it is emitted, so the compilers run
@@ -6317,13 +6855,13 @@ def phase1(fac, env, cases: dict) -> dict:
     specs, procs, started = {}, [], set()
 
     def start(more: dict) -> None:
-        """Add ``more`` to the specs and start the sources not started."""
+        """Add ``more`` to the specs and start the sources not started
+        (two solutions' sources may share a name and differ in their
+        header comment: each is its own library)."""
         specs.update(more)
-        new = {s.name: s.source for s in more.values()
-               if s.name not in started}
+        new = {(s.name, s.source) for s in more.values()} - started
         started.update(new)
-        procs.extend(_build.start_builds(list(new.items()),
-                                         ptxas_info=True))
+        procs.extend(_build.start_builds(sorted(new), ptxas_info=True))
     for st, r in cases.items():
         ctx = make_ctx(fac, env, st, r, 64, "fused")
         specs[st] = fused_stencil.FusedKernel(ctx._program).spec
@@ -6348,7 +6886,7 @@ def phase1(fac, env, cases: dict) -> dict:
     start(dict(specs))
     for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
                   k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
-                  k4s_specs):
+                  k4s_specs, s4_specs):
         start(group(fac, env))
     start(shard_specs(fac))
     start(k5_specs(fac))
@@ -6486,6 +7024,8 @@ def main() -> int:
     k5_ss_arms = phase19(fac, card, k5_twins)
     release()
     k4_stream_arms = phase20(fac, env, card, ptxas)
+    release()
+    s4_arms = phase21(fac, env, card, ptxas)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -6493,7 +7033,7 @@ def main() -> int:
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
                       + ss_arms + ss18_arms + k5_ss_arms
-                      + k4_stream_arms}))
+                      + k4_stream_arms + s4_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

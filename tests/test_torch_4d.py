@@ -20,6 +20,9 @@ reads at an outer offset in outer copies of the earlier sub-stages
 * The paths that do not take the arm: ``-trapezoid`` falls back to K1
   (A12) and ``shard_pallas`` raises (A11); a member batch (``-ensemble
   2``, K7) takes it, each member bit-equal to its solo run.
+* Under ``-skew`` (the default) K6's stream arm takes four_d_stages and
+  five_d (tests/test_torch_stream_4d_emulation.py holds its code); K1's
+  4-D solutions keep K1 with ``skew_ineligible``.
 * K1 folds the outer cells into the grid's z cells: past CUDA's limit of
   65535 the launch code walks them in several launches, which the
   emulated device code runs at a cap of 2.
@@ -158,8 +161,17 @@ def test_fused_4d_matches_yask_tpu_jit(case, K):
     assert til["kernel"] == ("fused_step" if case in ("test_4d",
                                                       "four_d_partial")
                              else "stages_step")
-    # the stream arm walks slot 0 of a 3-D domain: K1 keeps 4-D
-    assert {r["code"] for r in til["skew_reasons"]} == {"skew_ineligible"}
+    codes = {r["code"] for r in til["skew_reasons"]}
+    if case in ("test_4d", "four_d_partial"):
+        # K1's stream arm walks slot 0 of a 3-D domain: K1 keeps 4-D
+        assert codes == {"skew_ineligible"}
+        assert "4-D solution" in til["skew_reasons"][0]["detail"]
+    else:
+        # K6's stream arm takes the outer dims as windows of its work
+        # items, streaming slot 0 (x)
+        assert codes == {"skew_engaged", "skew_ineligible"}
+        assert til["skew_dims"] == ["x"]
+        assert til["stages_stream"]["outer_window"]
 
 
 def launches(fn, ctx, spec, steps=2):

@@ -16,13 +16,15 @@ copies), and a read at an outer offset reads the level buffer there.
 * The same group against two steps of the ``-no-trapezoid`` path's own
   code (K1's or K6's g++ host path): to the bit.
 * test_4d at element size 2, and a member batch of two
-  (``<name>_trap_batched``) against each member's solo group: to the
-  bit.
+  (``<name>_trap_batched``) against each member's solo group, under
+  ``-no-skew`` (the two-phase passes): to the bit.
 * Auto ``-trapezoid`` records the gate's codes, against ``yask_tpu``'s
   gate on test_4d at 12⁴, 16⁴ and 24⁴ (the same decision but at 12⁴,
   where the reference's TPU band floor rejects), and a forced run on the
   CPU against ``yask_tpu``'s forced trapezoid (interpret mode) on
-  test_4d: ``compare_data``'s rule with ``field_epsilon=1e-4``.
+  test_4d: ``compare_data``'s rule with ``field_epsilon=1e-4``; its
+  groups resolve to K4's stream arm (the default ``-skew``; on CPU
+  tensors its plain version runs).
 """
 
 import math
@@ -52,7 +54,7 @@ SIZES = {"test_4d": (6, 16, 16, 4), "four_d_stages": (7, 16, 16, 9)}
 BLOCK = {"w": 3, "x": 8, "y": 8}
 
 
-def k4d_ctx(case, sizes=None, eb=4, forced=True, seed=13):
+def k4d_ctx(case, sizes=None, eb=4, forced=True, seed=13, cli=""):
     fac = yask_tpu_torch.yk_factory()
     src, kw = source("yask_tpu_torch", case)
     if src is None:
@@ -67,7 +69,7 @@ def k4d_ctx(case, sizes=None, eb=4, forced=True, seed=13):
     dims = " ".join(f"-g_{d} {n}" for d, n in
                     zip("wxyz", sizes or SIZES[case]))
     ctx.apply_command_line_options(f"{dims} -mode fused -wf_steps {K} "
-                                   "-trapezoid")
+                                   f"-trapezoid {cli}")
     ctx.prepare_solution()
     import_interiors(ctx, seeded_physical(ctx, seed))
     return ctx
@@ -126,7 +128,7 @@ def test_k4_4d_bit_equals_the_no_trapezoid_path(case, tmp_path):
 
 def test_k4_4d_bf16_matches_plain(tmp_path):
     import torch
-    ctx = k4d_ctx("test_4d", eb=2)
+    ctx = k4d_ctx("test_4d", eb=2, cli="-no-skew")
     prog = ctx._program
     spec = ctx._trapezoid_kernel().spec
     assert "typedef yt::bf16_t real_t;" in spec.source
@@ -141,7 +143,8 @@ def test_k4_4d_bf16_matches_plain(tmp_path):
 def test_k4_4d_member_batch_matches_solo(tmp_path):
     import torch
     nm = 2
-    ctxs = [k4d_ctx("test_4d", seed=30 + i) for i in range(nm)]
+    ctxs = [k4d_ctx("test_4d", seed=30 + i, cli="-no-skew")
+            for i in range(nm)]
     prog = ctxs[0]._program
     spec = ctxs[0]._trapezoid_kernel().spec
     fn, bfn = build(spec, tmp_path)
@@ -241,5 +244,9 @@ def test_k4_4d_matches_yask_tpu_forced_trapezoid(tpu_forced_trapezoid):
     til, ttil = mine.get_stats().get_tiling(), theirs.get_stats().get_tiling()
     assert til["trapezoid"] is ttil["trapezoid"] is True
     assert til["trap_dims"] == ttil["trap_dims"] == ["x", "y"]
-    assert til["block"]["w"] == mine._trapezoid_kernel().spec.trap[
-        "passes"][0]["tile"][3]
+    # the group runs K4's stream arm (the default -skew): w a window of its
+    # work items, slot 0 (x) streamed
+    spec = mine._trapezoid_kernel().spec
+    assert til["arm"] == "trap_stream" and spec.trap["arm"] == "stream"
+    assert til["trap_stream"]["outer_window"] == list(
+        spec.stages_stream.outer_tile)

@@ -8,11 +8,11 @@ host path and its wrapper, on the CPU.
   K=2 (the scratch sub-stages' and the velocities' lags within a level
   on top of the level's).
 * The reason records: under ``-trapezoid`` with ``-skew`` (the default) a
-  3-D fp32 solution runs the stream arm (``trapezoid_stream``, one launch
-  per group in ``get_tiling()``); element size 2, 4-D, 2-D and
-  ``-no-skew`` keep the two-phase passes, each ``trapezoid_diamond``
-  record naming why (``stream_cause``); a forced stream request where the
-  arm does not run raises.
+  3-D or 4-D fp32 solution runs the stream arm (``trapezoid_stream``, one
+  launch per group in ``get_tiling()``); element size 2 (3-D and 4-D),
+  2-D and ``-no-skew`` keep the two-phase passes, each
+  ``trapezoid_diamond`` record naming why (``stream_cause``); a forced
+  stream request where the arm does not run raises.
 * The emitted K1/K6 sources (``emit_digest``) of the solutions the arm
   takes stay byte-identical to ``tests/emit_digests.json``.
 * The ``_trap_stream`` entries built by g++ for the host (K6's host loop
@@ -103,7 +103,7 @@ def test_3d_fp32_runs_the_stream_arm_and_reports_it():
 
 @pytest.mark.parametrize("name,r,sizes,eb,cli,cause", [
     ("iso3dfd", 2, (32, 32, 32), 2, "-skew", "element size 2"),
-    ("test_4d", None, (12, 12, 12, 12), 4, "-skew", "4-D solution"),
+    ("test_4d", None, (12, 12, 12, 12), 2, "-skew", "element size 2"),
     ("wave2d", 2, (32, 32), 4, "-skew", "2-D solution"),
     ("iso3dfd", 2, (32, 32, 32), 4, "", "skew_disabled")])
 def test_the_two_phase_passes_keep_the_refusals(name, r, sizes, eb, cli,
@@ -120,6 +120,25 @@ def test_the_two_phase_passes_keep_the_refusals(name, r, sizes, eb, cli,
     if eb == 2:
         with pytest.raises(YaskException, match="stream arm"):
             cuda_emit.resolve_trapezoid(ctx._program, 2, True, skew=True)
+
+
+def test_4d_fp32_runs_the_stream_arm_and_reports_it():
+    """test_4d at 12⁴ under a forced ``-trapezoid`` with ``-skew``: K4's
+    stream arm (``_trap_stream``, one launch per group), the outer dim w
+    a window of its work items, slot 0 (x) streamed."""
+    ctx = k4_ctx("test_4d", None, (12, 12, 12, 12), 2, cli="-skew")
+    kern = ctx._trapezoid_kernel()
+    assert kern.stream and kern.spec.trap["arm"] == "stream"
+    assert kern.spec.outer == 1 and kern.spec.stages_stream.outer_tile
+    assert codes(ctx._trap[1]) == ["trapezoid_forced", "trapezoid_stream"]
+    assert "outer window" in ctx._trap[1][-1]["detail"]
+    ctx.run_solution(0, 1)
+    til = ctx.get_stats().get_tiling()
+    assert til["arm"] == "trap_stream" and til["launches_per_group"] == 1
+    assert til["name"] == kern.spec.name + "_trap_stream"
+    assert til["skew_dims"] == ["x"]
+    assert til["trap_stream"]["outer_window"] == list(
+        kern.spec.stages_stream.outer_tile)
 
 
 def test_emitted_k1_and_k6_sources_are_unchanged():

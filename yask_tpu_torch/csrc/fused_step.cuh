@@ -1052,6 +1052,50 @@ void host_stage(const ParamsArg<S, REGION>& p,
     host_stage<S, K + 1, REGION>(p, bufs, m, q);
 }
 
+// Every output cell outside the interior gets 0, the outer slots' pads
+// included (the pad pass of a Spec with outer dims): the cells numbered
+// first, first + stride, ... of slab j = 2u (below) or 2u + 1 (above)
+// slot u, the slots before u over the interior, those after it padded;
+// the minor slot varies fastest, then slots 1, 0, then the outer slots
+// from the last.
+template <class S, class P>
+YT_HD inline void outer_pads(const P& p, long long first, long long stride) {
+  typedef typename S::real_t real_t;
+  constexpr int NS = 3 + OuterOf<S>::N;
+  int order[NS];
+  order[0] = 2;
+  order[1] = 1;
+  order[2] = 0;
+  for (int u = 3; u < NS; ++u) order[u] = NS + 2 - u;
+  for (int m = 0; m < p.nm; ++m)
+    for (int o = 0; o < S::NOUT; ++o) {
+      real_t* out = p.out[o] + idx_t(m) * p.out_ms[o];
+      for (int j = 0; j < 2 * NS; ++j) {
+        const int u0 = j / 2;
+        int lo[NS], hi[NS];
+        long long cells = 1;
+        for (int u = 0; u < NS; ++u) {
+          const int plo = S::out_pad(o, 2 * u), phi = S::out_pad(o, 2 * u + 1);
+          lo[u] = u < u0 ? 0 : u > u0 || j % 2 == 0 ? -plo : p.n[u];
+          hi[u] = u < u0 ? p.n[u]
+                  : u > u0 || j % 2 == 1 ? p.n[u] + phi : 0;
+          cells *= hi[u] - lo[u];
+        }
+        for (long long i = first; i < cells; i += stride) {
+          long long r = i;
+          idx_t off = 0;
+          for (int v = 0; v < NS; ++v) {
+            const int u = order[v];
+            const long long w = hi[u] - lo[u];
+            off += idx_t(lo[u] + r % w) * p.out_s[o][u];
+            r /= w;
+          }
+          out[off] = real_t(0.0f);
+        }
+      }
+    }
+}
+
 // The flat arm's solo and batch launches write every cell of their
 // outputs: 0 into the pad cells numbered first, first + stride, ... of
 // every output slice of every member (its pads per slot, out_pad), slot by
@@ -1060,6 +1104,11 @@ void host_stage(const ParamsArg<S, REGION>& p,
 template <class S, class P>
 YT_HD inline void flat_pads(const P& p, long long first, long long stride) {
   typedef typename S::real_t real_t;
+  if constexpr (OuterOf<S>::N > 0) {
+    // the stream arm past three domain dims: every slot's pads
+    outer_pads<S>(p, first, stride);
+    return;
+  }
   for (int m = 0; m < p.nm; ++m)
     for (int o = 0; o < S::NOUT; ++o) {
       if (SlabOf<S>::get(o)) continue;

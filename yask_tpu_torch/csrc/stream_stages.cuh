@@ -1,7 +1,8 @@
 // stream_stages.cuh — the stream arm of K6 (and of K7 over K6's body) for
-// NVIDIA Hopper, sm_90a: every sub-stage of one sub-step of a 3-D
-// multi-stage solution, each block walking slot 0 through rings of staged
-// input planes and computed planes.
+// NVIDIA Hopper, sm_90a: every sub-stage of one sub-step of a multi-stage
+// solution of three domain dims or more (the outer ones windows of the
+// work items), each block walking slot 0 through rings of staged input
+// planes and computed planes.
 //
 // It computes what K6 (fused_stages_kernel<S, false>), K7 over it
 // (fused_stages_kernel<S, true>) and K5 over it (fused_stages_kernel<S,
@@ -94,9 +95,29 @@
 // twin) and is what the reference's skewed-wavefront carry of K levels
 // does on the TPU (yask_tpu/ops/pallas_stencil.py:306-441, :1955-2056).
 //
+// More than three domain dims (a Spec that prints NOUTER, emitted without
+// outer copies: ops/cuda_emit.py::emit_trap_stream, for K4's groups and,
+// with one level, for K6's and K7's 4-D sub-steps).  The walk stays on
+// slot 0; a "plane" is a box over a window of ss_wo(j) indices of every
+// outer dim j times the plane tile, and a work item is one window of
+// every outer dim times one column times one segment (times one member).
+// Each sub-stage is computed once over its region in every slot, the
+// outer ones included (sub_olo/sub_ohi(K, j): what the later sub-stages
+// read of it at outer offsets), inside its plain region there
+// (oclip_lo/oclip_hi); the point function sees the global outer indices
+// in g[3 + j].  A staged ring holds the window grown by its readers'
+// outer reach (halo_olo/halo_ohi(k, j)) and serves every read of its var
+// and ring slot: a read at an outer offset in_dw(A, j) reads the ring
+// there (it is neither a ring of its own nor an outer copy), cells past
+// the allocation in an outer dim (alloc_olo/alloc_ohi) hold 0; a computed
+// ring holds its writer's region in the outer dims as well.  The pad pass
+// (flat_pads, over outer_pads) covers the outer slots' pads.  K5 over it
+// is not emitted.
+//
 // The same Spec compiles on the host (no __CUDACC__): host_stages_stream()
-// runs K6's host loop (host_stages) and zeroes the pads, which is how the
-// CPU tests check the entry's arithmetic with g++.
+// runs K6's host loop (host_stages; with outer dims host_stages_outer,
+// each sub-stage once over its plain region in every slot) and zeroes the
+// pads, which is how the CPU tests check the entry's arithmetic with g++.
 #pragma once
 
 #include "fused_step.cuh"
@@ -175,10 +196,194 @@ YT_HD inline int ring_slot(int D, int it, int d) {
   return s;
 }
 
+// ---- outer dims (NOUTER) --------------------------------------------------
+// NO1: an array length for NOUTER values (1 without outer dims).
+template <class S>
+YT_HD constexpr int no1() {
+  return OuterOf<S>::N > 0 ? OuterOf<S>::N : 1;
+}
+
+// One work item's window: its first index in every outer dim.
+template <class S>
+struct OuterWin {
+  int w0[no1<S>()];
+};
+
+// The extent in outer dim j of staged ring k's box (the window grown by
+// its readers' outer reach), and of sub-stage K's region (the window
+// grown by its outer region); the cells of each box over the outer dims
+// (1 without outer dims).
+template <class S>
+YT_HD constexpr int ring_oext(int k, int j) {
+  return S::ss_wo(j) + S::halo_olo(k, j) + S::halo_ohi(k, j);
+}
+template <class S>
+YT_HD constexpr int sub_oext(int K, int j) {
+  return S::ss_wo(j) + S::sub_olo(K, j) + S::sub_ohi(K, j);
+}
+template <class S>
+YT_HD constexpr int ring_o(int k) {
+  int c = 1;
+  if constexpr (OuterOf<S>::N > 0)
+    for (int j = 0; j < OuterOf<S>::N; ++j) c *= ring_oext<S>(k, j);
+  (void)k;
+  return c;
+}
+template <class S>
+YT_HD constexpr int sub_o(int K) {
+  int c = 1;
+  if constexpr (OuterOf<S>::N > 0)
+    for (int j = 0; j < OuterOf<S>::N; ++j) c *= sub_oext<S>(K, j);
+  (void)K;
+  return c;
+}
+
+// Input a at global outer indices gw (its pointer already at its own
+// outer offset), member m, interior cell (c0, c1, c2).
+template <class S>
+YT_HD inline typename S::real_t global_at_w(const ParamsOf<S>& p, int a,
+                                            int m, const int* gw, idx_t c0,
+                                            idx_t c1, idx_t c2) {
+  idx_t off = idx_t(m) * p.in_ms[a] + c0 * p.in_s[a][0]
+              + c1 * p.in_s[a][1] + c2 * p.in_s[a][2];
+  for (int j = 0; j < OuterOf<S>::N; ++j)
+    off += idx_t(gw[j]) * p.in_s[a][3 + j];
+#ifdef __CUDA_ARCH__
+  return __ldg(p.in[a] + off);
+#else
+  return p.in[a][off];
+#endif
+}
+
+// Output o's element offset at member m, outer indices gw and interior
+// cell (g0, g1, g2).
+template <class S, class P>
+YT_HD inline idx_t out_at_w(const P& p, int o, int m, const int* gw, int g0,
+                            int g1, int g2) {
+  idx_t off = idx_t(m) * p.out_ms[o] + idx_t(g0) * p.out_s[o][0]
+              + idx_t(g1) * p.out_s[o][1] + idx_t(g2) * p.out_s[o][2];
+  for (int j = 0; j < OuterOf<S>::N; ++j)
+    off += idx_t(gw[j]) * p.out_s[o][3 + j];
+  return off;
+}
+
+// Sub-stage K's region below and above the block in slot s of any kind
+// (the outer ones past the three).
+template <class S>
+YT_HD constexpr int sub_lo_any(int K, int s) {
+  if constexpr (OuterOf<S>::N > 0)
+    if (s >= 3) return S::sub_olo(K, s - 3);
+  return s == 0 ? S::sub_lo0(K) : s == 1 ? S::sub_lo1(K) : S::sub_lo2(K);
+}
+template <class S>
+YT_HD constexpr int sub_hi_any(int K, int s) {
+  if constexpr (OuterOf<S>::N > 0)
+    if (s >= 3) return S::sub_ohi(K, s - 3);
+  return s == 0 ? S::sub_hi0(K) : s == 1 ? S::sub_hi1(K) : S::sub_hi2(K);
+}
+
 // ---- host path: K6's host loop, then the pads ----------------------------
+// The host path's reader with outer dims: global inputs at the point's
+// outer indices, whole-domain computed buffers over every slot.
+template <class S>
+struct HostOuterReader {
+  const ParamsOf<S>* p;
+  typename S::real_t* const* bufs;
+  int m;
+  int g0, g1, g2;
+  const int* gw;
+  template <int A>
+  YT_HD typename S::real_t at(int o0, int o1, int o2) const {
+    return global_at_w<S>(*p, A, m, gw, g0 + o0, g1 + o1, g2 + o2);
+  }
+  template <int B, class... Os>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2, Os... oo) const {
+    constexpr int W = S::cmp_sub(B);
+    constexpr int NS = 3 + OuterOf<S>::N;
+    const int off[NS] = {o0, o1, o2, int(oo)...};
+    const int g[3] = {g0, g1, g2};
+    idx_t c = 0;
+    for (int s = 0; s < NS; ++s) {
+      const int ext = p->n[s] + sub_lo_any<S>(W, s) + sub_hi_any<S>(W, s);
+      const int x = (s < 3 ? g[s] : gw[s - 3]) + sub_lo_any<S>(W, s) + off[s];
+      c = c * ext + x;
+    }
+    return bufs[B][c];
+  }
+};
+
+// Sub-stage K (then the later ones) over its plain region in every slot
+// (the domain grown by its clip), reading through HostOuterReader, into
+// the interior cells of the outputs it is the last writer of and its
+// computed buffers.
+template <class S, int K>
+void host_stage_outer(const ParamsOf<S>& p, typename S::real_t* const* bufs,
+                      int m) {
+  typedef typename S::real_t real_t;
+  constexpr int NS = 3 + OuterOf<S>::N;
+  int lo[NS], hi[NS], g[NS];
+  long long cells = 1;
+  for (int s = 0; s < NS; ++s) {
+    const int cl = s < 3 ? clip_lo_of<S, K>(s) : S::oclip_lo(K, s - 3);
+    const int ch = s < 3 ? clip_hi_of<S, K>(s) : S::oclip_hi(K, s - 3);
+    lo[s] = -cl;
+    hi[s] = p.n[s] + ch;
+    cells *= hi[s] - lo[s];
+  }
+  for (long long i = 0; i < cells; ++i) {
+    long long r = i;
+    for (int s = NS - 1; s >= 0; --s) {
+      const long long w = hi[s] - lo[s];
+      g[s] = lo[s] + int(r % w);
+      r /= w;
+    }
+    const HostOuterReader<S> rd{&p, bufs, m, g[0], g[1], g[2], g + 3};
+    CalcOf<S> v[S::MAXV];
+    S::template stage<K>(rd, g, p.n, p.t, v);
+    bool own = true;
+    for (int s = 0; s < NS; ++s) own = own && g[s] >= 0 && g[s] < p.n[s];
+    for (int j = 0; j < S::stage_nv(K); ++j) {
+      const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
+      const real_t w = Calc<real_t>::store(v[j]);
+      if (o >= 0 && own)
+        p.out[o][out_at_w<S>(p, o, m, g + 3, g[0], g[1], g[2])] = w;
+      if (b >= 0) {
+        idx_t c = 0;
+        for (int s = 0; s < NS; ++s)
+          c = c * (p.n[s] + sub_lo_any<S>(K, s) + sub_hi_any<S>(K, s))
+              + g[s] + sub_lo_any<S>(K, s);
+        bufs[b][c] = w;
+      }
+    }
+  }
+  if constexpr (K + 1 < S::NSTAGES) host_stage_outer<S, K + 1>(p, bufs, m);
+}
+
+template <class S>
+void host_stages_outer(const ParamsOf<S>& p) {
+  typedef typename S::real_t real_t;
+  constexpr int NS = 3 + OuterOf<S>::N;
+  std::vector<std::vector<real_t>> store(S::NCMP);
+  real_t* bufs[S::NCMP > 0 ? S::NCMP : 1] = {nullptr};
+  for (int m = 0; m < p.nm; ++m) {
+    for (int b = 0; b < S::NCMP; ++b) {
+      size_t c = 1;
+      for (int s = 0; s < NS; ++s)
+        c *= size_t(p.n[s] + sub_lo_any<S>(S::cmp_sub(b), s)
+                    + sub_hi_any<S>(S::cmp_sub(b), s));
+      store[b].assign(c, real_t(0.0f));
+      bufs[b] = store[b].data();
+    }
+    host_stage_outer<S, 0>(p, bufs, m);
+  }
+}
+
 template <class S>
 int host_stages_stream(const ParamsArg<S, false>& p) {
-  host_stages<S, false>(p);
+  if constexpr (OuterOf<S>::N > 0)
+    host_stages_outer<S>(p);
+  else
+    host_stages<S, false>(p);
   flat_pads<S>(p, 0, 1);
   return 0;
 }
@@ -201,6 +406,10 @@ struct StreamStageReader {
   int l1, l2;      // point relative to the plane tile (may lie in the
                    // sub-stage's in-plane expansion)
   int g0, g1, g2;  // point in the interior
+  // outer dims: the point relative to the window (may lie in the
+  // sub-stage's outer expansion) and its global outer indices
+  int lw[no1<S>()];
+  int gw[no1<S>()];
   template <int A>
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
@@ -208,22 +417,48 @@ struct StreamStageReader {
       constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
       const int s = ring_slot(S::ss_depth(k), it,
                               S::ss_rlo(k) + S::ss_lag(K) + o0);
-      return smem[S::ss_ring(k)
-                  + (s * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
-                  + (l2 + S::halo_lo2(k) + o2)];
+      if constexpr (OuterOf<S>::N > 0) {
+        // the ring's box cell at the read's outer offset
+        int oc = 0;
+        for (int j = 0; j < OuterOf<S>::N; ++j)
+          oc = oc * ring_oext<S>(k, j) + lw[j] + S::halo_olo(k, j)
+               + S::in_dw(A, j);
+        return smem[S::ss_ring(k)
+                    + ((s * ring_o<S>(k) + oc) * E1
+                       + (l1 + S::halo_lo1(k) + o1)) * E2
+                    + (l2 + S::halo_lo2(k) + o2)];
+      } else {
+        return smem[S::ss_ring(k)
+                    + (s * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
+                    + (l2 + S::halo_lo2(k) + o2)];
+      }
+    } else if constexpr (OuterOf<S>::N > 0) {
+      return global_at_w<S>(*p, A, m, gw, g0 + o0, g1 + o1, g2 + o2);
     } else {
       return global_at<S>(*p, A, m, 0, g0 + o0, g1 + o1, g2 + o2);
     }
   }
-  template <int B>
-  YT_HD typename S::real_t cmp(int o0, int o1, int o2) const {
+  // a read of computed ring B; with outer dims its outer offsets follow
+  // the three
+  template <int B, class... Os>
+  YT_HD typename S::real_t cmp(int o0, int o1, int o2, Os... oo) const {
     constexpr int W = S::cmp_sub(B);
     constexpr int C1 = cring_e1<S>(B), C2 = cring_e2<S>(B);
     const int s = ring_slot(S::ss_cdepth(B), it,
                             S::ss_clo(B) + S::ss_lag(K) + o0);
-    return cring_at<S>(smem, ws, S::ss_cring(B))[
-        (s * C1 + (l1 + S::sub_lo1(W) + o1)) * C2
-        + (l2 + S::sub_lo2(W) + o2)];
+    if constexpr (OuterOf<S>::N > 0) {
+      const int od[sizeof...(Os) + 1] = {int(oo)..., 0};
+      int oc = 0;
+      for (int j = 0; j < OuterOf<S>::N; ++j)
+        oc = oc * sub_oext<S>(W, j) + lw[j] + S::sub_olo(W, j) + od[j];
+      return cring_at<S>(smem, ws, S::ss_cring(B))[
+          ((s * sub_o<S>(W) + oc) * C1 + (l1 + S::sub_lo1(W) + o1)) * C2
+          + (l2 + S::sub_lo2(W) + o2)];
+    } else {
+      return cring_at<S>(smem, ws, S::ss_cring(B))[
+          (s * C1 + (l1 + S::sub_lo1(W) + o1)) * C2
+          + (l2 + S::sub_lo2(W) + o2)];
+    }
   }
 };
 
@@ -232,19 +467,40 @@ struct StreamStageReader {
 // where every row lines up with its source (see the notes above), else
 // one cell per copy.  K5 (REGION) walks the box: a box-relative plane,
 // row or cell c lies at c + p.lo of the shard, whose allocation (its
-// interior p.sn and the pads) bounds the copies, not the box.
+// interior p.sn and the pads) bounds the copies, not the box.  With outer
+// dims a plane is the box over the window win grown by the ring's outer
+// halo: its rows are (outer cell, slot-1 row) pairs, each bounded by the
+// allocation in the outer dims too.
+template <class S>
+__device__ __forceinline__ bool outer_row(const ParamsOf<S>& p, int k, int a,
+                                          const OuterWin<S>& win, int oc,
+                                          idx_t& off) {
+  bool in = true;
+  off = 0;
+  for (int j = OuterOf<S>::N - 1; j >= 0; --j) {
+    const int e = ring_oext<S>(k, j);
+    const int c = win.w0[j] - S::halo_olo(k, j) + oc % e;
+    oc /= e;
+    in = in && c >= -S::alloc_olo(k, j) && c < p.n[3 + j] + S::alloc_ohi(k, j);
+    off += idx_t(c) * p.in_s[a][3 + j];
+  }
+  return in;
+}
+
 template <class S, int k, bool BATCH, bool REGION>
 __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
                                            typename S::real_t* smem, int m,
                                            int c, int slot, int b1, int b2,
-                                           int tid) {
+                                           int tid, const OuterWin<S>& win) {
   typedef typename S::real_t real_t;
   constexpr int NT = S::SS_NT;
   constexpr int a = S::tiled_input(k);
   constexpr int h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
   constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
   constexpr int V = 16 / int(sizeof(real_t));
-  real_t* dst = smem + S::ss_ring(k) + slot * (E1 * E2);
+  constexpr int NO = OuterOf<S>::N;
+  constexpr int O = ring_o<S>(k);  // outer cells of a plane (1 in 3-D)
+  real_t* dst = smem + S::ss_ring(k) + slot * (O * E1 * E2);
   const int x0 = box_lo<S, REGION>(p, 0), x1 = box_lo<S, REGION>(p, 1),
             x2 = box_lo<S, REGION>(p, 2);
   const bool in0 = c >= -S::alloc_lo0(k) - x0
@@ -263,17 +519,26 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
         && (!BATCH || p.in_ms[a] % V == 0)
         && !((reinterpret_cast<unsigned long long>(dst)
               - reinterpret_cast<unsigned long long>(src0)) & 15);
-    if (lines_up) {
+    bool outer_up = true;
+    for (int j = 0; j < NO; ++j) outer_up = outer_up && st[3 + j] % V == 0;
+    if (lines_up && outer_up) {
       constexpr int NV = E2 / V;  // a row's 16-byte slots
       const real_t* zero16 = reinterpret_cast<const real_t*>(
           reinterpret_cast<unsigned long long>(p.in[a]) & ~15ull);
-      for (int j = tid; j < E1 * NV; j += NT) {
-        const int r = j / NV;
-        const int e = (j - r * NV) * V;
+      for (int j = tid; j < O * E1 * NV; j += NT) {
+        const int rr = j / NV;  // the row: outer cell, then slot-1 row
+        const int e = (j - rr * NV) * V;
+        int r = rr;
+        bool rin = in0;
+        idx_t ooff = 0;
+        if constexpr (NO > 0) {
+          r = rr % E1;
+          rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
+        }
         const int c1 = b1 - h1 + r, c2 = b2 - h2 + e;
-        real_t* d = dst + r * E2 + e;
-        const bool row = in0 && c1 >= lo1 && c1 < lim1;
-        const real_t* s = src + c1 * st[1] + c2;
+        real_t* d = dst + rr * E2 + e;
+        const bool row = rin && c1 >= lo1 && c1 < lim1;
+        const real_t* s = src + ooff + c1 * st[1] + c2;
         if (!row || c2 >= lim2 || c2 + V <= lo2) {
           cp_async<16>(d, zero16, false);
         } else if (c2 >= lo2 && c2 + V <= lim2) {
@@ -288,12 +553,19 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
       return;
     }
   }
-  for (int i = tid; i < E1 * E2; i += NT) {
-    const int r = i / E2;
-    const int c1 = b1 - h1 + r, c2 = b2 - h2 + (i - r * E2);
-    const bool ok = in0 && c1 >= lo1 && c1 < lim1 && c2 >= lo2 && c2 < lim2;
+  for (int i = tid; i < O * E1 * E2; i += NT) {
+    const int rr = i / E2;
+    int r = rr;
+    bool rin = in0;
+    idx_t ooff = 0;
+    if constexpr (NO > 0) {
+      r = rr % E1;
+      rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
+    }
+    const int c1 = b1 - h1 + r, c2 = b2 - h2 + (i - rr * E2);
+    const bool ok = rin && c1 >= lo1 && c1 < lim1 && c2 >= lo2 && c2 < lim2;
     cp_async<int(sizeof(real_t))>(
-        dst + i, ok ? src + c1 * st[1] + c2 * st[2] : p.in[a], ok);
+        dst + i, ok ? src + ooff + c1 * st[1] + c2 * st[2] : p.in[a], ok);
   }
 }
 
@@ -305,15 +577,15 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
 template <class S, bool BATCH, bool REGION, int k = 0>
 __device__ __forceinline__ void ring_fetch_planes(
     const ParamsArg<S, REGION>& p, typename S::real_t* smem, int m, int z0,
-    int zz, bool first, int b1, int b2, int tid) {
+    int zz, bool first, int b1, int b2, int tid, const OuterWin<S>& win) {
   if constexpr (k < S::NTILED) {
     constexpr int D = S::ss_depth(k), lo = S::ss_rlo(k), hi = S::ss_rhi(k);
     if constexpr (!SsPlaceOf<S>::global(k))
       for (int c = first ? zz - lo : zz + hi; c <= zz + hi; ++c)
         ring_fetch<S, k, BATCH, REGION>(p, smem, m, c, (c - (z0 - lo)) % D,
-                                        b1, b2, tid);
+                                        b1, b2, tid, win);
     ring_fetch_planes<S, BATCH, REGION, k + 1>(p, smem, m, z0, zz, first, b1,
-                                               b2, tid);
+                                               b2, tid, win);
   }
 }
 
@@ -324,63 +596,93 @@ __device__ __forceinline__ void ring_fetch_planes(
 // the segment [zs, ze), to the outputs it is the last writer of.  K5
 // (REGION) computes at global coordinates, its plain region clipped at
 // the global domain and kept to the box grown by the sub-stage's region
-// (plain_region), and stores the box's own cells.
+// (plain_region), and stores the box's own cells.  With outer dims it
+// computes the window grown by its outer region (sub_o cells a row of
+// the plane), inside its plain region in the outer dims too, and stores
+// the window's own cells inside the domain.
 template <class S, int K, bool BATCH, bool REGION>
 __device__ __forceinline__ void stream_sub(const ParamsArg<S, REGION>& p,
                                            typename S::real_t* smem,
                                            typename S::real_t* ws, int m,
                                            int it, int z, int zs, int ze,
-                                           int b1, int b2, int tid) {
+                                           int b1, int b2, int tid,
+                                           const OuterWin<S>& win) {
   typedef typename S::real_t real_t;
+  constexpr int NO = OuterOf<S>::N;
   constexpr int L = S::ss_lag(K);
   const int g0 = z + L;
   if (g0 >= zs - S::sub_lo0(K)) {
     constexpr int e1 = S::sub_lo1(K), e2 = S::sub_lo2(K);
     constexpr int R1 = S::SS_T1 + e1 + S::sub_hi1(K);
     constexpr int R2 = S::SS_T2 + e2 + S::sub_hi2(K);
+    constexpr int RO = sub_o<S>(K);  // outer cells of a row (1 in 3-D)
     int plo[3], phi[3];
     for (int s = 0; s < 3; ++s)
       plain_region<S, K, REGION>(p, s, plo[s], phi[s]);
     const bool in0 = g0 >= plo[0] && g0 < phi[0];
     const bool own0 = g0 >= zs && g0 < ze;
-    for (int i = tid; i < R1 * R2; i += S::SS_NT) {
-      const int r = i / R2;
-      const int l1 = r - e1, l2 = i - r * R2 - e2;
+    for (int i = tid; i < RO * R1 * R2; i += S::SS_NT) {
+      const int rr = i / R2;  // outer cell, then slot-1 row
+      int r = rr;
+      StreamStageReader<S, K> rd{&p, smem, ws, it, m, 0, 0, g0, 0, 0};
+      bool inO = true, ownO = true;
+      if constexpr (NO > 0) {
+        r = rr % R1;
+        int oc = rr / R1;
+        for (int j = NO - 1; j >= 0; --j) {
+          const int e = sub_oext<S>(K, j);
+          rd.lw[j] = oc % e - S::sub_olo(K, j);
+          oc /= e;
+          rd.gw[j] = win.w0[j] + rd.lw[j];
+          inO = inO && rd.gw[j] >= -S::oclip_lo(K, j)
+                && rd.gw[j] < p.n[3 + j] + S::oclip_hi(K, j);
+          ownO = ownO && rd.lw[j] >= 0 && rd.lw[j] < S::ss_wo(j)
+                 && rd.gw[j] < p.n[3 + j];
+        }
+      }
+      const int l1 = r - e1, l2 = i - rr * R2 - e2;
       const int g1 = b1 + l1, g2 = b2 + l2;
+      rd.l1 = l1;
+      rd.l2 = l2;
+      rd.g1 = g1;
+      rd.g2 = g2;
       CalcOf<S> v[S::MAXV];
-      if (in0 && g1 >= plo[1] && g1 < phi[1] && g2 >= plo[2]
+      if (in0 && inO && g1 >= plo[1] && g1 < phi[1] && g2 >= plo[2]
           && g2 < phi[2]) {
-        const StreamStageReader<S, K> rd{&p, smem, ws, it, m, l1, l2,
-                                         g0, g1, g2};
-        int g[3];
+        int g[3 + NO];
+        for (int j = 0; j < NO; ++j) g[3 + j] = rd.gw[j];
         stage_at<S, K, REGION>(p, rd, g, g0, g1, g2, v);
       } else {
 #pragma unroll
         for (int j = 0; j < S::MAXV; ++j) v[j] = CalcOf<S>(0);
       }
-      const bool own = own0 && l1 >= 0 && l1 < S::SS_T1 && l2 >= 0
+      const bool own = own0 && ownO && l1 >= 0 && l1 < S::SS_T1 && l2 >= 0
                        && l2 < S::SS_T2 && g1 < p.n[1] && g2 < p.n[2];
 #pragma unroll
       for (int j = 0; j < S::MAXV; ++j) {
         if (j >= S::stage_nv(K)) break;
         const int o = S::stage_out(K, j), b = S::stage_cmp(K, j);
         const real_t w = Calc<real_t>::store(v[j]);
-        if (o >= 0 && own)
-          p.out[o][cell_base<S>(p.n, m, 0, p.out_ms[o], p.out_s[o])
-                   + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
-                   + g2 * p.out_s[o][2]] = w;
+        if (o >= 0 && own) {
+          if constexpr (NO > 0)
+            p.out[o][out_at_w<S>(p, o, m, rd.gw, g0, g1, g2)] = w;
+          else
+            p.out[o][cell_base<S>(p.n, m, 0, p.out_ms[o], p.out_s[o])
+                     + g0 * p.out_s[o][0] + g1 * p.out_s[o][1]
+                     + g2 * p.out_s[o][2]] = w;
+        }
         if (b >= 0)
           cring_at<S>(smem, ws, S::ss_cring(b))[
-              (ring_slot(S::ss_cdepth(b), it, S::ss_clo(b) + L)
-               * cring_e1<S>(b) + r) * cring_e2<S>(b)
-              + (i - r * R2)] = w;
+              (ring_slot(S::ss_cdepth(b), it, S::ss_clo(b) + L) * RO
+               * cring_e1<S>(b) + rr) * cring_e2<S>(b)
+              + (i - rr * R2)] = w;
       }
     }
   }
   if constexpr (K + 1 < S::NSTAGES) {
     __syncthreads();
     stream_sub<S, K + 1, BATCH, REGION>(p, smem, ws, m, it, z, zs, ze, b1,
-                                        b2, tid);
+                                        b2, tid, win);
   }
 }
 
@@ -393,45 +695,61 @@ __device__ __forceinline__ void stream_item(const ParamsArg<S, REGION>& p,
                                             typename S::real_t* smem,
                                             typename S::real_t* ws, int m,
                                             int zs, int ze, int b1, int b2,
-                                            int tid) {
+                                            int tid, const OuterWin<S>& win) {
   const int z0 = zs - S::SS_W;
   // the prologue: the planes walk plane z0 reads (one group), then the
   // newest plane of each of the next SS_P - 1 walk planes (a group each;
   // a plane no walk plane of the segment reads is skipped, its group
   // left empty)
-  ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z0, true, b1, b2, tid);
+  ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z0, true, b1, b2, tid,
+                                      win);
   cp_async_commit();
 #pragma unroll
   for (int j = 1; j < S::SS_P; ++j) {
     if (z0 + j < ze)
       ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z0 + j, false, b1,
-                                          b2, tid);
+                                          b2, tid, win);
     cp_async_commit();
   }
   for (int z = z0; z < ze; ++z) {
     if (z + S::SS_P < ze)
       ring_fetch_planes<S, BATCH, REGION>(p, smem, m, z0, z + S::SS_P, false,
-                                          b1, b2, tid);
+                                          b1, b2, tid, win);
     cp_async_commit();
     cp_async_wait<S::SS_P>();
     __syncthreads();
     stream_sub<S, 0, BATCH, REGION>(p, smem, ws, m, z - z0, z, zs, ze, b1,
-                                    b2, tid);
+                                    b2, tid, win);
   }
   cp_async_wait<0>();
+}
+
+// The outer windows of a launch: ceil(n / ss_wo) per outer dim, their
+// product (1 without outer dims).
+template <class S>
+YT_HD inline long long outer_windows(const int* n) {
+  long long c = 1;
+  if constexpr (OuterOf<S>::N > 0)
+    for (int j = 0; j < OuterOf<S>::N; ++j)
+      c *= (n[3 + j] + S::ss_wo(j) - 1) / S::ss_wo(j);
+  (void)n;
+  return c;
 }
 
 // K6's stream arm (BATCH = false), K7's over it (BATCH = true) and K5's
 // (REGION = true: the walk over a shard's box, BATCH false): a grid of at
 // most the card's resident blocks, each walking the work items
 // blockIdx.x, + gridDim.x, ... (x columns fastest, then y columns, then
-// segments, then members) with its own workspace slice (SsPlaceOf); a
-// barrier parts one item's last reads from the next one's prologue.  Then
-// every output's pads get 0 (flat_pads), but in K5, whose outputs keep
-// what the wrapper gave them outside the box.
+// outer windows (the last outer dim fastest), then segments, then
+// members) with its own workspace slice (SsPlaceOf); a barrier parts one
+// item's last reads from the next one's prologue.  Then every output's
+// pads get 0 (flat_pads, which takes the outer slots' pads too), but in
+// K5, whose outputs keep what the wrapper gave them outside the box.
 template <class S, bool BATCH, bool REGION>
 __global__ void __launch_bounds__(S::SS_NT, S::SS_MIN)
 stream_stages_kernel(const __grid_constant__ StagesStreamParams<S, REGION> q) {
+  static_assert(!REGION || OuterOf<S>::N == 0,
+                "K5 over the stream arm takes three domain dims");
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
@@ -442,15 +760,27 @@ stream_stages_kernel(const __grid_constant__ StagesStreamParams<S, REGION> q) {
   const long long gx = (p.n[2] + S::SS_T2 - 1) / S::SS_T2;
   const long long gy = (p.n[1] + S::SS_T1 - 1) / S::SS_T1;
   const long long gs = (p.n[0] + q.seg - 1) / q.seg;
-  const long long items = gx * gy * gs * (BATCH ? p.nm : 1);
+  const long long gw = outer_windows<S>(p.n);
+  const long long items = gx * gy * gw * gs * (BATCH ? p.nm : 1);
   for (long long i = blockIdx.x; i < items; i += gridDim.x) {
     if (i != (long long)blockIdx.x) __syncthreads();
-    const long long yz = i / gx, sm = yz / gy;
+    const long long yz = i / gx;
+    long long sm = yz / gy;
+    OuterWin<S> win{};
+    if constexpr (OuterOf<S>::N > 0) {
+      long long ow = sm % gw;
+      sm /= gw;
+      for (int j = OuterOf<S>::N - 1; j >= 0; --j) {
+        const long long nw = (p.n[3 + j] + S::ss_wo(j) - 1) / S::ss_wo(j);
+        win.w0[j] = int(ow % nw) * S::ss_wo(j);
+        ow /= nw;
+      }
+    }
     const int zs = int(sm % gs) * q.seg;
     const int ze = zs + q.seg < p.n[0] ? zs + q.seg : p.n[0];
     stream_item<S, BATCH, REGION>(p, smem, ws, BATCH ? int(sm / gs) : 0, zs,
                                   ze, int(yz % gy) * S::SS_T1,
-                                  int(i % gx) * S::SS_T2, tid);
+                                  int(i % gx) * S::SS_T2, tid, win);
   }
   if constexpr (!REGION)
     flat_pads<S>(p, (long long)blockIdx.x * S::SS_NT + tid,
@@ -476,6 +806,7 @@ int launch_stages_stream(StagesStreamParams<S, REGION> p, long long nres,
   if (e != cudaSuccess) return int(e);
   const long long items = (long long)((p.p.n[2] + S::SS_T2 - 1) / S::SS_T2)
                           * ((p.p.n[1] + S::SS_T1 - 1) / S::SS_T1)
+                          * outer_windows<S>(p.p.n)
                           * ((p.p.n[0] + p.seg - 1) / p.seg) * p.p.nm;
   if (items < 1) return 0;
   const dim3 grid(unsigned(items < nres ? items : nres));
@@ -592,6 +923,34 @@ int resident_trap_stream(int batched) {
   }                                                                          \
   extern "C" int NAME##_trap_stream_resident(int batched) {                  \
     return yt::resident_trap_stream<S>(batched);                             \
+  }
+
+// The C entry points of K6's stream arm for a Spec with outer dims
+// (ops/cuda_emit.py::emit prints it beside K6's body for a 4-D solution):
+// solo and member batch with the arguments of YT_STAGES_STREAM_ENTRIES,
+// and the resident blocks of a solo (kind 0) or member-batch (kind 1)
+// launch.  K5 over it is not emitted.
+#define YT_STAGES_STREAM_OUTER_ENTRIES(NAME, S)                              \
+  extern "C" int NAME##_stages_stream(void* in_ptrs, void* in_strides,       \
+                                      void* out_ptrs, void* out_strides,     \
+                                      void* sizes, int seg, int t, void* ws, \
+                                      long long nres, void* stream) {        \
+    return yt::run_stages_stream<S, false>(in_ptrs, in_strides, nullptr,     \
+                                           out_ptrs, out_strides, nullptr,   \
+                                           sizes, 1, seg, t, ws, nres,       \
+                                           stream);                          \
+  }                                                                          \
+  extern "C" int NAME##_stages_stream_batched(                               \
+      void* in_ptrs, void* in_strides, void* in_mstrides, void* out_ptrs,    \
+      void* out_strides, void* out_mstrides, void* sizes, int nm, int seg,   \
+      int t, void* ws, long long nres, void* stream) {                       \
+    return yt::run_stages_stream<S, true>(in_ptrs, in_strides, in_mstrides,  \
+                                          out_ptrs, out_strides,             \
+                                          out_mstrides, sizes, nm, seg, t,   \
+                                          ws, nres, stream);                 \
+  }                                                                          \
+  extern "C" int NAME##_stages_stream_resident(int kind) {                   \
+    return yt::resident_trap_stream<S>(kind == 1);                           \
   }
 
 // The C entry points of K6's stream arm for a K6 Spec that prints SS_T1:

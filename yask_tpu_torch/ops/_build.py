@@ -76,15 +76,19 @@ def build_many(kernels: Sequence[Tuple[str, str]], ptxas_info: bool = False
 def start_builds(kernels: Sequence[Tuple[str, str]],
                  ptxas_info: bool = False) -> List[tuple]:
     """Start one ``nvcc`` for every ``(name, source)`` not built yet (each
-    name once) and return the running builds, for :func:`wait_builds`,
-    so that a caller can go on while they compile."""
+    library once: two sources may share a name, their kernels' struct,
+    and differ in their comments) and return the running builds, for
+    :func:`wait_builds`, so that a caller can go on while they
+    compile."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     flags = tuple(NVCC_FLAGS) + (("-Xptxas", "-v") if ptxas_info else ())
     procs = []
-    for name, source in dict(kernels).items():
+    started = set()
+    for name, source in kernels:
         so = library_path(name, source)
-        if os.path.exists(so):
+        if os.path.exists(so) or so in started:
             continue
+        started.add(so)
         cu = so[:-3] + ".cu"
         with open(cu, "w") as f:
             f.write(source)

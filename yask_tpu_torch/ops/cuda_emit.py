@@ -56,7 +56,11 @@ into one ``Spec`` struct:
   the outputs' pads; where no plane tile's rings fit shared memory (the
   workspace arm's solutions), the rings' placement (``ss_glob``,
   ``SS_WS_ELEMS``: ring-less staged inputs, computed rings in a
-  workspace).
+  workspace).  Past three domain dims the stream arm is a struct of its
+  own beside the body, ``StreamSpec`` (one level of
+  :func:`emit_trap_stream`: each sub-stage once, the outer dims windows
+  of the work items; ``KernelSpec.stream_spec``, entries
+  ``YT_STAGES_STREAM_OUTER_ENTRIES``).
 * K4, one K-step group of ``-trapezoid`` (:func:`resolve_trapezoid`):
   the two-phase passes (:func:`emit_trapezoid`, ``csrc/trapezoid.cuh``)
   or, under ``-skew`` on what K6's stream arm takes, K4's stream arm
@@ -85,11 +89,14 @@ outer dim takes a slot of its own past them (``w, x, y, z`` → 3, 0, 1,
 2), folded into the grid (each block owns one index of every outer dim;
 ``Spec::NOUTER`` counts them).  A read at an outer offset is an input of
 its own, the var's tensor at that offset (``KernelSpec.in_outer``), as a
-misc slice is.  K6 covers what a later stage reads at an outer offset by
-*outer copies* of a sub-stage: one copy per outer offset of its region
-(``sub_dw``), each a sub-stage over the slots with its inputs and its
-reads of earlier tiles shifted by that offset, its tiles its own; only
-the copy at offset 0 stores outputs.
+misc slice is.  K6's body covers what a later stage reads at an outer
+offset by *outer copies* of a sub-stage: one copy per outer offset of its
+region (``sub_dw``), each a sub-stage over the slots with its inputs and
+its reads of earlier tiles shifted by that offset, its tiles its own;
+only the copy at offset 0 stores outputs.  The stream arms (K6's and
+K4's) print each sub-stage once instead, its region reaching into the
+outer slots, a read at an outer offset reading the var's one ring there
+(``tile_of`` maps every such input to it, ``in_dw`` gives the offset).
 
 Misc dims: each (var, ring slot, misc indices) a point reads is an input
 of its own, the var's slice at those misc indices (its domain strides,
@@ -428,6 +435,11 @@ class KernelSpec:
     #: ``name + "_stages_stream"`` and ``"_stages_stream_batched"``), or
     #: None with ``stream_cause``
     stages_stream: object = None
+    #: past three domain dims: K6's stream arm's own spec (the struct
+    #: ``StreamSpec`` printed beside the body in the same source, each
+    #: sub-stage once without outer copies: its inputs, outputs and plan),
+    #: which the stream arm's launches marshal by; None elsewhere
+    stream_spec: object = None
 
     @property
     def walks(self) -> bool:
@@ -499,6 +511,9 @@ class _Printer:
         # stream arm's rings past shared memory)
         self.offs3: Dict[int, Dict[int, set]] = {}
         self.cmp_offs3: Dict[int, Dict[int, set]] = {}
+        # and of computed tiles, as printed (K4's levels: the outer slots'
+        # offsets after the three)
+        self.cmp_offs: Dict[int, Dict[int, set]] = {}
         self.sub = 0                    # the current sub-stage (copy)
         self.base = 0                   # the sub-stage it copies
         self.dw: Tuple[int, ...] = ()   # its offset per outer dim
@@ -780,6 +795,8 @@ class _Printer:
         lo, hi = self.cmp_geom[b]
         # K4 (no copies): the outer slots' regions and offsets too
         ns = 3 if self.copies else self.ns
+        self.cmp_offs.setdefault(b, {}).setdefault(self.sub, set()).add(
+            tuple(offs[:ns]))
         for s_, o in enumerate(offs[:ns]):
             if self.lo[s_] - o > lo[s_] or self.hi[s_] + o > hi[s_]:
                 raise YaskException(
@@ -1172,6 +1189,21 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
     return plan, None
 
 
+def _outer_stream(program, pushed, tiles=None):
+    """K6's stream arm past three domain dims: the sub-step's sub-stages
+    once each over their regions in every slot (no outer copies), the
+    outer dims windows of the work items, as one level of
+    :func:`emit_trap_stream` (struct ``StreamSpec``).  Returns (its
+    :class:`KernelSpec`, None) or (None, the reason code and detail: that
+    function's refusals, or pushed vars)."""
+    if pushed:
+        return None, ("skew_ineligible", f"pushed var(s) {pushed} past three "
+                      "domain dims: K6's 4-D stream arm keeps every written "
+                      "var's output (ROADMAP.md A5)")
+    return emit_trap_stream(program, 1, [], {}, SMEM_LIMIT, tiles,
+                            struct="StreamSpec")
+
+
 def _placement(rec) -> str:
     """The reason detail's account of rings past shared memory (K6's
     stream arm's record), or "" where every ring fits it."""
@@ -1241,12 +1273,25 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
         for d in lead or dims:
             reasons.append({"code": cause[0], "dim": d, "detail": cause[1]})
         return []
-    d0 = dims[0]
+    if region and spec.outer:
+        cause = ("skew_ineligible", f"{len(dims)}-D solution: K5 over K6's "
+                 "stream arm walks a 3-D box (its outer dims are ROADMAP.md "
+                 "A5)")
+        if skew is True:
+            raise YaskException(f"stream arm (skew) infeasible: {cause[1]}")
+        for d in lead:
+            reasons.append({"code": cause[0], "dim": d, "detail": cause[1]})
+        return []
+    # the walk's dim: slot 0 (past three dims the first of the last three)
+    d0 = dims[spec.outer]
     code = "skew_forced" if skew is True else "skew_engaged"
     if spec.stages_stream is not None:
         rec = spec.stages_stream.record()
         over = (" over member batches" if batched
                 else " over a shard's box" if region else "")
+        if "outer_window" in rec:
+            over += (f", outer window {rec['outer_window']} in "
+                     f"{', '.join(dims[:spec.outer])}")
         reasons.append({
             "code": code, "dim": d0,
             "kernel": "stages_stream_region" if region else "stages_stream",
@@ -1271,10 +1316,14 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                                   f"{rec['smem_bytes']} B, "
                                   f"{rec['segments']} segment(s) of "
                                   f"{rec['segment_planes']} planes"})
-    for d in lead[1:]:
-        reasons.append({"code": "skew_ineligible", "dim": d,
-                        "detail": "the port streams slot 0 only "
-                                  "(ROADMAP.md C11)"})
+    for d in lead:
+        if d != d0:
+            reasons.append({"code": "skew_ineligible", "dim": d,
+                            "detail": "the port streams slot 0 only "
+                                      "(ROADMAP.md C11)"
+                                      + ("; an outer dim is a window of its "
+                                         "work items" if d in
+                                         dims[:spec.outer] else "")})
     return [d0]
 
 
@@ -1564,7 +1613,13 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
 
     # ---- K6: several sub-stages per launch (and the workspace arm, one
     #      sub-stage or several) ------------------------------------------
-    if nst > 1:
+    sspec = None
+    if nst > 1 and no:
+        # past three domain dims: the stream arm's own struct, each
+        # sub-stage once (the body's outer copies are its -no-skew twin)
+        sspec, ss_cause = _outer_stream(program, pushed, stream_tiles)
+        ss = sspec.stages_stream if sspec is not None else None
+    elif nst > 1:
         ss, ss_cause = _stages_stream_plan(program, pt, tiled, halos, esize,
                                            stream_tiles)
     else:
@@ -1600,7 +1655,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
             tabs.append(_table(f"{fn}{s_}", [
                 program.geoms[pr.inputs[a][0]].pads[dim_of[s_]][side]
                 if s_ in dim_of else 0 for a in tiled], "0"))
-    if flat or ss is not None:
+    if flat or (ss is not None and not no):
         # each output slice's pads (lo, hi) per slot, which the flat arm's
         # kernel (and K6's stream arm) zeroes
         tabs.append(_table2("out_pad", [[
@@ -1639,7 +1694,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
         [pr.cmp_of.get((sk, i), -1) for sk in names]
         for i, names in enumerate(stage_vars)]))
     ss_enum = ""
-    if ss is not None:
+    if ss is not None and not no:
         # K6's stream arm: each sub-stage's lag, each staged input's ring
         # (its lowest and highest plane around the walk's, depth and
         # offset), each computed tile's ring
@@ -1688,15 +1743,21 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
     }}
 }};
 """
+    if sspec is not None:
+        # past three domain dims the stream arm's struct follows the body's
+        struct += "\n" + sspec.source
     name = "fused_stages_" + hashlib.sha256(struct.encode()).hexdigest()[:12]
     nscr = sum(u.scratch for u in subs)
+    stream_entries = (f"YT_STAGES_STREAM_OUTER_ENTRIES({name}, StreamSpec)\n"
+                      if sspec is not None else
+                      f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n")
     if ws is None and not flat:
         entries = (f"YT_FUSED_STAGES_ENTRY({name}, Spec)\n"
                    f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
                    f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         arm = ""
         if ss is not None:
-            entries += f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n"
+            entries += stream_entries
         if ss is not None and not ss.placed:
             arm = (f"\n// Stream arm: {ss.tile[0]}x{ss.tile[1]} plane tiles by "
                    f"{ss.threads} threads, rings of {ss.smem_bytes} B.")
@@ -1708,13 +1769,17 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                f"\n// Workspace arm: {ws['ws_elems']} elements per resident "
                "block past shared memory.")
         if ss is not None:
-            entries += f"YT_STAGES_STREAM_ENTRIES({name}, Spec)\n"
+            entries += stream_entries
     if ss is not None and ss.placed:
         arm += (f"\n// Stream arm: {ss.tile[0]}x{ss.tile[1]} plane tiles by "
                 f"{ss.threads} threads, rings of {ss.smem_bytes} B in shared "
                 f"memory, {ss.ws_elems} elements per resident block in a "
                 f"workspace, {sum(p == 'global' for p in ss.in_place.values())}"
                 " staged input(s) read from their allocations.")
+    if sspec is not None:
+        arm += (f"\n// Stream arm's outer windows: "
+                f"{'x'.join(map(str, ss.outer_tile))} in "
+                f"{', '.join(dims[:no])}, each sub-stage once (StreamSpec).")
     src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution
 // '{program.soln.get_name()}': one sub-step of K6, {nst} sub-stages per launch
 // ({len(program.ana.stages)} stage(s), {nscr} of scratch vars), of K7
@@ -1732,7 +1797,7 @@ YT_FUSED_STEP_ENTRY({name}, Spec)
                       smem_bytes=offs * esize, halos=halos, stages=nst,
                       workspace=ws or {},
                       stream_cause=ss_cause,
-                      stages_stream=ss,
+                      stages_stream=ss, stream_spec=sspec,
                       push_vars=list(pushed), push_reasons=push_reasons,
                       computed=computed, push_smem_bytes=push_elems * esize,
                       scratch_stages=nscr, reach={
@@ -2278,13 +2343,13 @@ _CMP_READ = re.compile(r"rd\.template cmp<(\d+)>\(")
 
 def emit_trap_stream(program, K: int, trap_dims: List[str],
                      block: Dict[str, int], smem_limit: int = SMEM_LIMIT,
-                     stream_tiles=None):
+                     stream_tiles=None, struct: str = "TrapSpec"):
     """K4's stream arm: one K-step group as one launch of K6's stream arm
     (``csrc/stream_stages.cuh``) over the sub-stages of all K levels.
     Returns (K4's :class:`KernelSpec`, None), or (None, (reason code,
     detail)) where the arm does not take the solution: it takes what
-    :func:`_stages_stream_plan` takes (a 3-D domain, written vars over
-    every dim without misc axes, element size 4 or 8).
+    :func:`_stages_stream_plan` takes (written vars over every dim without
+    misc axes, element size 4 or 8), on three domain dims or more.
 
     The levels are K copies of the solution's sub-stages (:func:`_print`
     without copies).  At level L a read of ring slot ``idx`` of a written
@@ -2298,36 +2363,56 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     2; the plan (``tile_planner.stages_stream_plan``) sizes each ring by
     its readers at their lags.  Each written var's newest min(K, S)
     levels are the outputs, in the order :func:`emit_trapezoid` gives
-    them, each stored by its level's last writer."""
+    them, each stored by its level's last writer.
+
+    Past three domain dims the outer slots are window dims: every region
+    and growth reaches into them too, a read at an outer offset of a
+    staged var reads its ring (one per var and ring slot, ``tile_of``
+    mapping each of its inputs there, ``in_dw`` the offset), a read of an
+    earlier level's value at an outer offset reads that level's ring
+    there, and the plan picks the outer window with the plane tile.
+    ``struct`` names the emitted struct: "TrapSpec" (K4), or
+    "StreamSpec" for K6's and K7's 4-D stream arm (:func:`emit`, K = 1:
+    the sub-step's sub-stages once, no ``trap`` record)."""
     import numpy as np
     from yask_tpu_torch.ops.tile_planner import (STAGES_STREAM_TILES,
                                                  TilePlan, stages_stream_plan)
     ana = program.ana
     dims = list(ana.domain_dims)
     esize = np.dtype(program.dtype).itemsize
-    if len(dims) != 3:
-        return None, ("skew_ineligible", f"{len(dims)}-D solution: K4's "
-                      "stream arm walks slot 0 of a 3-D domain (ROADMAP.md "
-                      "A5)")
-    arms = [a for a in a3_arms(program) if a != "element size 2"]
+    arm = "K4's stream arm" if struct == "TrapSpec" else "K6's stream arm"
+    if len(dims) < 3:
+        return None, ("skew_ineligible", f"{len(dims)}-D solution: {arm} "
+                      "walks slot 0 of a 3-D domain (ROADMAP.md A5)")
+    arms = [a for a in a3_arms(program) if a not in ("element size 2",
+                                                     "4-D")]
     if arms:
-        return None, ("skew_ineligible", f"{' and '.join(arms)}: K4's "
-                      "stream arm writes every cell of whole output tensors "
+        return None, ("skew_ineligible", f"{' and '.join(arms)}: {arm} "
+                      "writes every cell of whole output tensors "
                       "(ROADMAP.md A5)")
     if esize == 2:
-        return None, ("skew_ineligible", "element size 2: K4's stream arm "
-                      "is K6's, which copies 4- and 8-byte cells "
-                      "(ROADMAP.md A5)")
+        return None, ("skew_ineligible", f"element size 2: {arm} "
+                      + ("is K6's, which copies" if struct == "TrapSpec"
+                         else "copies")
+                      + " 4- and 8-byte cells (ROADMAP.md A5)")
     geoms = program.geoms
     pt = _print(program, [], copies=False)
     pr, subs, slices, last = pt.pr, pt.subs, pt.slices, pt.last_writer
+    ns = pr.ns                  # slots: the three, then the outer dims
+    no = ns - 3
+    zero_o = (0,) * no
     nsub = len(subs)
     inputs = list(pr.inputs)
+    in_outer = list(pr.in_outer) if no else [()] * len(inputs)
 
-    def in_idx(v, s):
-        if (v, s) not in inputs:
-            inputs.append((v, s))
-        return inputs.index((v, s))
+    def in_idx(v, s, outer=()):
+        outer = tuple(outer) if no else ()
+        for i, (key, o) in enumerate(zip(inputs, in_outer)):
+            if key == (v, s) and o == outer:
+                return i
+        inputs.append((v, s))
+        in_outer.append(outer)
+        return len(inputs) - 1
 
     # per input of a written var: its slice, the var's slots, its slot
     ring = {}
@@ -2346,32 +2431,38 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
             return ("in", a)
         sk, S, idx = ring[a]
         lev = L - S + idx
-        return ("x", lev, sk) if lev >= 1 else ("in", in_idx(sk[0],
-                                                              S - 1 + lev))
+        return ("x", lev, sk) if lev >= 1 else ("in", in_idx(
+            sk[0], S - 1 + lev, in_outer[a]))
 
     def q_of(L, k):
         return (L - 1) * nsub + k
 
+    # every read's offsets per slot: an input's outer offset follows the
+    # three (its reads all share it), a computed read's as printed
+    in_offs = {a: {k: {tuple(o) + tuple(in_outer[a]) for o in offs}
+                   for k, offs in per.items()}
+               for a, per in pr.offs3.items()}
+
     # each level's growth below and above the solution's regions, from the
     # last level (none) down
-    grow = {K: ([0] * 3, [0] * 3)}
+    grow = {K: ([0] * ns, [0] * ns)}
     for L in range(K - 1, 0, -1):
-        lo, hi = [0] * 3, [0] * 3
+        lo, hi = [0] * ns, [0] * ns
         for Lr in range(L + 1, K + 1):
-            for a, per in pr.offs3.items():
+            for a, per in in_offs.items():
                 for k, offs in per.items():
                     s_ = src(Lr, a)
                     if s_[0] != "x" or s_[1] != L:
                         continue
                     w = last[s_[2]]
-                    for d in range(3):
+                    for d in range(ns):
                         lo[d] = max(lo[d], grow[Lr][0][d] + subs[k].lo[d]
                                     - min(o[d] for o in offs) - subs[w].lo[d])
                         hi[d] = max(hi[d], grow[Lr][1][d] + subs[k].hi[d]
                                     + max(o[d] for o in offs) - subs[w].hi[d])
         grow[L] = (lo, hi)
-    reg = [([subs[k].lo[d] + grow[L][0][d] for d in range(3)],
-            [subs[k].hi[d] + grow[L][1][d] for d in range(3)])
+    reg = [([subs[k].lo[d] + grow[L][0][d] for d in range(ns)],
+            [subs[k].hi[d] + grow[L][1][d] for d in range(ns)])
            for L in range(1, K + 1) for k in range(nsub)]
 
     # computed rings: per level the solution's tiles, then each written
@@ -2401,7 +2492,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     in_rd: Dict[int, Dict[int, set]] = {}
     cmp_rd: Dict[int, Dict[int, set]] = {}
     for L in range(1, K + 1):
-        for a, per in pr.offs3.items():
+        for a, per in in_offs.items():
             for k, offs in per.items():
                 s_ = src(L, a)
                 if s_[0] == "in":
@@ -2410,7 +2501,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
                 else:
                     cmp_rd.setdefault(ring_of[s_], {}).setdefault(
                         q_of(L, k), set()).update(offs)
-        for b, per in pr.cmp_offs3.items():
+        for b, per in pr.cmp_offs.items():
             for k, offs in per.items():
                 cmp_rd.setdefault(ring_of[("in", L, b)], {}).setdefault(
                     q_of(L, k), set()).update(offs)
@@ -2418,7 +2509,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
         wlo, whi = reg[tiles[t_]]
         for q, offs in per.items():
             for o in offs:
-                for d in range(3):
+                for d in range(ns):
                     if reg[q][0][d] - o[d] > wlo[d] \
                             or reg[q][1][d] + o[d] > whi[d]:
                         raise YaskException(
@@ -2426,44 +2517,70 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
                             f"{t_} at {o} past what sub-stage {tiles[t_]} "
                             "computes")
 
-    # the inputs' reach around the plane tile and which take a ring
+    # the inputs' reach around the plane tile (and the outer windows) and
+    # which take a ring
     reach, raw, need = {}, {}, {}
     for a, per in in_rd.items():
-        reach[a] = [[0, 0] for _ in range(3)]
+        reach[a] = [[0, 0] for _ in range(ns)]
         raw[a] = [[0, 0] for _ in range(3)]
         need[a] = False
         for q, offs in per.items():
             lo, hi = reg[q]
             for o in offs:
-                for d in range(3):
+                for d in range(ns):
                     reach[a][d][0] = max(reach[a][d][0], lo[d] - o[d])
                     reach[a][d][1] = max(reach[a][d][1], hi[d] + o[d])
-                    raw[a][d][0] = max(raw[a][d][0], -o[d])
-                    raw[a][d][1] = max(raw[a][d][1], o[d])
+                    if d < 3:
+                        raw[a][d][0] = max(raw[a][d][0], -o[d])
+                        raw[a][d][1] = max(raw[a][d][1], o[d])
                     if o[d] or (not subs[q % nsub].scratch
                                 and (lo[d] or hi[d])):
                         need[a] = True
-    tiled = [a for a in sorted(in_rd)
-             if list(geoms[inputs[a][0]].domain_dims) == dims and need[a]]
-    halos = {a: tuple(tuple(x) for x in reach[a]) for a in tiled}
+    # a ring per staged (var, ring slot): past three dims every input of
+    # it (one per outer offset) reads that ring, which is fetched through
+    # the input at outer offset 0
+    groups: Dict[tuple, List[int]] = {}
+    for a in sorted(in_rd):
+        if list(geoms[inputs[a][0]].domain_dims) == dims:
+            groups.setdefault(inputs[a], []).append(a)
+    members: Dict[int, List[int]] = {}
+    for key, ms in groups.items():
+        if any(need[a] for a in ms):
+            members[in_idx(key[0], key[1], zero_o) if no else ms[0]] = ms
+    tiled = sorted(members)
+    halos = {r: tuple(tuple(max(reach[a][d][i] for a in ms) for i in (0, 1))
+                      for d in range(3)) for r, ms in members.items()}
+    ohalos = {r: [tuple(max(reach[a][3 + j][i] for a in ms) for i in (0, 1))
+                  for j in range(no)] for r, ms in members.items()}
 
     def offsets(per):
         return {q: (-min(o[0] for o in offs), max(o[0] for o in offs))
                 for q, offs in per.items()}
+
+    def merged(ms):
+        """The slot-0 read offsets of a ring's inputs, per reader."""
+        out: Dict[int, Tuple[int, int]] = {}
+        for a in ms:
+            for q, (lo, hi) in offsets(in_rd[a]).items():
+                o = out.get(q, (lo, hi))
+                out[q] = (max(o[0], lo), max(o[1], hi))
+        return out
     plan = stages_stream_plan(
-        halos, {a: offsets(in_rd[a]) for a in tiled},
+        halos, {r: merged(members[r]) for r in tiled},
         [(tuple(lo), tuple(hi)) for lo, hi in reg], tiles,
         [offsets(cmp_rd[t_]) for t_ in range(len(tiles))],
-        [program.sizes[d] for d in dims], esize, smem_limit,
+        [program.sizes[d] for d in dims[no:]], esize, smem_limit,
         stream_tiles or STAGES_STREAM_TILES,
-        in_nreads={a: {q: len(o) for q, o in in_rd[a].items()}
-                   for a in tiled},
+        in_nreads={r: {q: sum(len(in_rd[a].get(q, ())) for a in members[r])
+                       for q in set().union(*(in_rd[a] for a in members[r]))}
+                   for r in tiled},
         cmp_nreads=[{q: len(o) for q, o in cmp_rd[t_].items()}
                     for t_ in range(len(tiles))],
-        ws_limit=WS_STAGES_BLOCK_BYTES, by_cells=True)
+        ws_limit=WS_STAGES_BLOCK_BYTES, by_cells=True,
+        outer_n=[program.sizes[d] for d in dims[:no]], in_ohalos=ohalos)
     if plan is None:
-        return None, ("skew_fallback", "the computed rings of K4's stream "
-                      f"arm exceed {smem_limit} bytes of shared memory and "
+        return None, ("skew_fallback", f"the computed rings of {arm} "
+                      f"exceed {smem_limit} bytes of shared memory and "
                       f"{WS_STAGES_BLOCK_BYTES} bytes of workspace per block "
                       "at every plane tile (ROADMAP.md A5)")
 
@@ -2496,10 +2613,13 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
                 for sk in vals])
 
             def at(m, L=L):
-                s_ = src(L, int(m.group(1)))
+                a = int(m.group(1))
+                s_ = src(L, a)
                 offs = ", ".join(m.group(i) for i in (2, 3, 4))
                 if s_[0] == "in":
                     return f"rd.template at<{s_[1]}>({offs})"
+                # an earlier level's ring, at the input's outer offset
+                offs += "".join(f", {o}" for o in in_outer[a])
                 return f"rd.template cmp<{ring_of[s_]}>({offs})"
 
             # this level's rings first, then the inputs (some of which
@@ -2515,7 +2635,8 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     dim_of = {s_: d for d, s_ in pt.slot_of.items()}
     tabs = [_table("tiled_input", tiled),
             "    YT_HD static constexpr int tile_of(int a) { return "
-            + "".join(f"a == {a} ? {k} : " for k, a in enumerate(tiled))
+            + "".join(f"a == {a} ? {k} : " for k, r in enumerate(tiled)
+                      for a in sorted(set(members[r]) | {r}))
             + "-1; }"]
     for s_ in range(3):
         tabs.append(_table(f"halo_lo{s_}", [halos[a][s_][0] for a in tiled],
@@ -2528,7 +2649,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
                 geoms[inputs[a][0]].pads[dim_of[s_]][side] for a in tiled],
                 "0"))
     tabs.append(_table2("out_pad", [[
-        geoms[n].pads[dim_of[s_]][side] for s_ in range(3)
+        geoms[n].pads[dim_of[s_]][side] for s_ in range(ns)
         for side in (0, 1)] for n in k4_outputs], "0"))
     for s_ in range(3):
         tabs.append(_table(f"sub_lo{s_}", [lo[s_] for lo, _hi in reg], "0"))
@@ -2537,6 +2658,26 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
                                             for q in range(len(reg))], "0"))
         tabs.append(_table(f"clip_hi{s_}", [subs[q % nsub].clip_hi[s_]
                                             for q in range(len(reg))], "0"))
+    if no:
+        # the outer dims: the window per dim, each sub-stage's region and
+        # clip there, each ring's outer halo and its var's pads, each
+        # input's outer offset (a read of its ring there)
+        tabs.append(_table("ss_wo", list(plan.outer_tile), "1"))
+        tabs.append(_table2("sub_olo", [lo[3:] for lo, _hi in reg], "0"))
+        tabs.append(_table2("sub_ohi", [hi[3:] for _lo, hi in reg], "0"))
+        tabs.append(_table2("oclip_lo", [subs[q % nsub].clip_lo[3:]
+                                         for q in range(len(reg))], "0"))
+        tabs.append(_table2("oclip_hi", [subs[q % nsub].clip_hi[3:]
+                                         for q in range(len(reg))], "0"))
+        tabs.append(_table2("halo_olo", [[lo for lo, _hi in ohalos[a]]
+                                         for a in tiled], "0"))
+        tabs.append(_table2("halo_ohi", [[hi for _lo, hi in ohalos[a]]
+                                         for a in tiled], "0"))
+        for side, fn in ((0, "alloc_olo"), (1, "alloc_ohi")):
+            tabs.append(_table2(fn, [[geoms[inputs[a][0]].pads[dim_of[3 + j]]
+                                      [side] for j in range(no)]
+                                     for a in tiled], "0"))
+        tabs.append(_table2("in_dw", [list(o) for o in in_outer], "0"))
     tabs.append(_table("cmp_sub", tiles, "0"))
     tabs.append(_table("stage_nv", [len(v) for v in stage_out], "0"))
     tabs.append(_table2("stage_out", stage_out))
@@ -2554,12 +2695,14 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     tabs.append(_table("ss_cdepth", plan.cmp_depths, "1"))
     tabs.append(_table("ss_cring", plan.cmp_offsets, "0"))
     ws_enum = f", SS_WS_ELEMS = {plan.ws_elems}" if plan.placed else ""
+    if no:
+        ws_enum += f", NOUTER = {no}"
     stages_src = "\n".join(
         f"        if constexpr (Q == {q}) {{\n"
         + "\n".join("    " + ln for ln in lines) + "\n        }"
         for q, lines in enumerate(bodies))
     real_t = {4: "float", 8: "double"}[esize]
-    text = f"""struct TrapSpec {{
+    text = f"""struct {struct} {{
     typedef {real_t} real_t;
     enum {{ NIN = {len(inputs)}, NOUT = {len(k4_outputs)}, NTILED = {len(tiled)},
            LEVELS = {K}, NSTAGES = {len(reg)}, NCMP = {len(tiles)},
@@ -2576,14 +2719,31 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     }}
 }};
 """
-    name = "trap_stream_" + hashlib.sha256(text.encode()).hexdigest()[:12]
     nscr = sum(u.scratch for u in subs)
+    common = dict(
+        inputs=inputs, outputs=k4_outputs, tiled=tiled,
+        tile=(1,) + tuple(plan.tile), smem_bytes=plan.smem_bytes,
+        halos=halos, stages=nsub, computed=names, scratch_stages=nscr,
+        reach={a: tuple(tuple(x) for x in raw.get(a, [[0, 0]] * 3))
+               for a in range(len(inputs))},
+        sub_regions=[(tuple(lo), tuple(hi)) for lo, hi in reg],
+        in_misc=[()] * len(inputs),
+        out_slices=[(i, ()) for i in range(len(k4_outputs))],
+        stages_stream=plan, outer=no,
+        in_outer=list(in_outer) if no else [])
+    if struct != "TrapSpec":
+        return KernelSpec(name=struct, source=text, **common), None
+    name = "trap_stream_" + hashlib.sha256(text.encode()).hexdigest()[:12]
     place = ""
     if plan.placed:
         place = (f"\n// Rings past shared memory: {plan.ws_elems} elements per "
                  "resident block in a workspace, "
                  f"{sum(p == 'global' for p in plan.in_place.values())} "
                  "staged input(s) read from their allocations.")
+    if no:
+        place += ("\n// Outer windows of "
+                  f"{'x'.join(map(str, plan.outer_tile))} in "
+                  f"{', '.join(dims[:no])}.")
     src = (f"// Emitted by yask_tpu_torch.ops.cuda_emit for solution\n"
            f"// '{program.soln.get_name()}': K4's stream arm, one {K}-step "
            f"group per launch, the\n// {K} levels' {nsub} sub-stage(s) each "
@@ -2602,17 +2762,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
             "level_growth": [grow[L] for L in range(1, K + 1)],
             "stage_widths": TilePlan(program, K,
                                      trap_dims=trap_dims).stage_widths()}
-    return KernelSpec(
-        name=name, source=src, inputs=inputs, outputs=k4_outputs,
-        tiled=tiled, tile=(1,) + tuple(plan.tile),
-        smem_bytes=plan.smem_bytes, halos=halos, stages=nsub,
-        computed=names, scratch_stages=nscr, trap=trap,
-        reach={a: tuple(tuple(x) for x in raw.get(a, [[0, 0]] * 3))
-               for a in range(len(inputs))},
-        sub_regions=[(tuple(lo), tuple(hi)) for lo, hi in reg],
-        in_misc=[()] * len(inputs),
-        out_slices=[(i, ()) for i in range(len(k4_outputs))],
-        stages_stream=plan), None
+    return KernelSpec(name=name, source=src, trap=trap, **common), None
 
 
 def resolve_trapezoid(program, K: int, trapezoid=None,
@@ -2749,15 +2899,19 @@ def resolve_trapezoid(program, K: int, trapezoid=None,
 
 def trap_stream_detail(spec: KernelSpec) -> str:
     """The ``trapezoid_stream`` reason's account of K4's stream arm: one
-    launch per group, the plane tile and threads, each level's lags, the
+    launch per group, the plane tile (and outer window past three domain
+    dims) and threads, each level's lags, the
     rings (depths and where they lie), the staged and computed cells per
     useful point, the segments."""
     rec = spec.stages_stream.record()
     tr = spec.trap
     per_level, mean = trap_stream_cells(spec)
+    outer = (f", outer window {rec['outer_window']}"
+             if "outer_window" in rec else "")
     return (f"one launch per {tr['K']}-step group: K6's stream arm over the "
             f"{tr['K']} levels' {tr['sub_stages']} sub-stage(s) each, plane "
-            f"tile {rec['plane_tile']} by {rec['threads']} threads, prefetch "
+            f"tile {rec['plane_tile']}{outer} by {rec['threads']} threads, "
+            "prefetch "
             f"{rec['prefetch']}, lags per level {tr['level_lags']}, rings "
             f"{rec['ring_depths']} planes (computed "
             f"{rec['computed_ring_depths']}), {rec['smem_bytes']} B, "

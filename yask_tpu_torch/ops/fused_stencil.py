@@ -180,8 +180,8 @@ not fit shared memory live in a workspace of the card's resident blocks
 (:meth:`TrapezoidKernel.workspace`).  Its plain versions are
 :func:`plain_chunk` and :func:`plain_batched_chunk` over the K steps.
 
-K4's stream arm (``-trapezoid`` with ``-skew``, the default, on a 3-D
-solution K6's stream arm takes): where ``cuda_emit.resolve_trapezoid``
+K4's stream arm (``-trapezoid`` with ``-skew``, the default, on a
+solution of three domain dims or more that K6's stream arm takes): where ``cuda_emit.resolve_trapezoid``
 returns a spec of ``cuda_emit.emit_trap_stream`` (``trap["arm"]`` is
 ``"stream"``, :attr:`TrapezoidKernel.stream`), one K-step group is one
 launch of ``<name>_trap_stream`` (K7: ``_trap_stream_batched``), K6's
@@ -195,6 +195,12 @@ the card's resident blocks walk the work items, and the outputs come from
 bytes as the two-phase passes (iso3dfd r=2 at K=4: 5 B per point per
 step); the levels' in-plane growth is the recompute it pays instead of
 the diamonds.  ``-no-skew`` keeps the two-phase passes.
+
+Past three domain dims K6's stream arm is its own struct beside the body
+in the same source (``spec.stream_spec``: each sub-stage once, the outer
+dims windows of the work items), so :func:`stages_step` and
+:func:`batched_stages_step` marshal its launches by that spec's inputs
+and outputs; K5 over it is not emitted (the box keeps K6's body).
 """
 
 from __future__ import annotations
@@ -563,15 +569,16 @@ def check_box(program, spec, box) -> None:
                     f"in dim '{d}' passes its pads {g.pads[d]}")
 
 
-def _check_inputs(kernel: "FusedKernel", state, lead=()):
+def _check_inputs(kernel: "FusedKernel", state, lead=(), spec=None):
     """The kernel's input tensors from ``state``, checked: CUDA, one
     device, the kernel's dtype, shape ``lead + padded shape``,
-    contiguous.  Returns (tensors, device)."""
+    contiguous.  ``spec`` lists them (the kernel's by default).  Returns
+    (tensors, device)."""
     import torch
     prog = kernel.program
     dev = None
     ins = []
-    for name, slot in kernel.spec.inputs:
+    for name, slot in (spec or kernel.spec).inputs:
         a = state[name][slot]
         want = tuple(lead) + tuple(prog.geoms[name].shape)
         if not isinstance(a, torch.Tensor) or a.device.type != "cuda":
@@ -713,12 +720,14 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
     (each with its workspace slice where rings lie past shared memory,
     :meth:`FusedKernel.stream_workspace`); returns the new state (rings
     rotated).  The kernel writes every cell of its outputs, so they come
-    from ``torch.empty``; it raises where the kernel fails to launch."""
+    from ``torch.empty``; it raises where the kernel fails to launch.
+    Past three domain dims the arm's own spec (``spec.stream_spec``)
+    gives its inputs and outputs."""
     import torch
     prog = kernel.program
-    spec = kernel.spec
+    spec = kernel.spec.stream_spec or kernel.spec
     lead = () if nm is None else (nm,)
-    ins, dev = _check_inputs(kernel, state, lead=lead)
+    ins, dev = _check_inputs(kernel, state, lead=lead, spec=spec)
     outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
                         dtype=kernel.dtype, device=dev)
             for n in spec.outputs]
@@ -736,8 +745,8 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
     if rc != 0:
         entry = "_stages_stream" + ("" if nm is None else "_batched")
         raise YaskException(
-            f"stages_step kernel '{spec.name}{entry}' launch failed: CUDA "
-            f"error {rc}")
+            f"stages_step kernel '{kernel.spec.name}{entry}' launch failed: "
+            f"CUDA error {rc}")
     return _rotated(prog, spec, state, outs)
 
 
@@ -1130,14 +1139,17 @@ class FusedKernel:
             self.batched_stages_stream_fn = getattr(lib, stem + "_batched")
             self.batched_stages_stream_fn.argtypes = \
                 batched_stages_stream_argtypes()
-            self.region_stages_stream_fn = getattr(lib, stem + "_region")
-            self.region_stages_stream_fn.argtypes = \
-                region_stages_stream_argtypes()
+            if not self.spec.outer:
+                # K5 over the stream arm (three domain dims only)
+                self.region_stages_stream_fn = getattr(lib, stem + "_region")
+                self.region_stages_stream_fn.argtypes = \
+                    region_stages_stream_argtypes()
             self.stream_resident_fn = getattr(lib, stem + "_resident")
             self.stream_resident_fn.argtypes = [ctypes.c_int]
             for f in (self.stages_stream_fn, self.batched_stages_stream_fn,
                       self.region_stages_stream_fn, self.stream_resident_fn):
-                f.restype = ctypes.c_int
+                if f is not None:
+                    f.restype = ctypes.c_int
         self.fn = fn
         self.batched_fn = bfn
         self.region_fn = rfn
@@ -1714,7 +1726,8 @@ class TrapezoidKernel(FusedKernel):
                    if isinstance(k, tuple)}),
                "push": False, "push_vars": [], "pipeline_dmas": True,
                "skew": True,
-               "skew_dims": [self.program.ana.domain_dims[0]]}
+               "skew_dims": [self.program.ana.domain_dims[
+                   self.spec.outer]]}
         if members:
             out.update(kernel="batched_trapezoid_chunk",
                        name=self.spec.name + "_trap_stream_batched",

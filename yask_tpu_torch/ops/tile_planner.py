@@ -32,6 +32,8 @@ What changes for the card:
 
 from __future__ import annotations
 
+import itertools
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -509,6 +511,12 @@ STAGES_STREAM_TILES = ((16, 32, 512), (8, 64, 512), (8, 32, 256),
 #: per SM it asks the compiler for stop there (awp's stress sub-stage
 #: holds many values at once).
 STAGES_STREAM_MIN_REGS = 128
+#: Past three domain dims, the window widths tried in each outer dim (a
+#: rung is the outer windows with a plane tile of
+#: :data:`STAGES_STREAM_TILES`), capped at the dim's extent: a wider
+#: window recomputes less of what the later sub-stages (K4: levels) read
+#: at outer offsets, a narrower one keeps the rings in shared memory.
+STAGES_STREAM_OUTER = (1, 2, 4, 8, 16)
 
 
 #: The card's L2 cache (H100 SXM, 50 MB): where computed rings live past
@@ -563,6 +571,11 @@ class StagesStreamPlan:
     #: memory (ring-less inputs' reads, workspace rings' writes and reads)
     outside_per_point: float = 0.0
     esize: int = 4
+    #: past three domain dims: the window width in each outer dim (a work
+    #: item's box), and each staged ring's outer halo ((lo, hi) per outer
+    #: dim); empty in 3-D
+    outer_tile: Tuple[int, ...] = ()
+    in_ohalos: Dict[int, List[Tuple[int, int]]] = field(default_factory=dict)
 
     @property
     def placed(self) -> bool:
@@ -589,7 +602,9 @@ class StagesStreamPlan:
                 "ws_block_bytes": self.ws_elems * esize,
                 "ws_blocks": self.ws_blocks,
                 "ws_total_bytes": self.ws_elems * esize * self.ws_blocks,
-                "outside_bytes_per_point": round(self.outside_per_point, 4)}
+                "outside_bytes_per_point": round(self.outside_per_point, 4),
+                **({"outer_window": list(self.outer_tile)}
+                   if self.outer_tile else {})}
 
 
 def _span(reads: Dict[int, Tuple[int, int]], lags: List[int]):
@@ -654,7 +669,8 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
                        prefetch=STREAM_PREFETCH, *,
                        in_nreads: Dict[int, Dict[int, int]],
                        cmp_nreads: List[Dict[int, int]], ws_limit: int,
-                       by_cells: bool = False
+                       by_cells: bool = False, outer_n=(),
+                       in_ohalos: Dict[int, List[Tuple[int, int]]] = None
                        ) -> Optional[StagesStreamPlan]:
     """Plan K6's stream arm: the first (plane tile, prefetch) of the
     ladders whose rings fit ``smem_limit``; where none does, the rung
@@ -682,10 +698,20 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     interior extents of slots 0, 1, 2; ``in_nreads`` and ``cmp_nreads``:
     per staged input and computed tile, {sub-stage: distinct offsets it
     reads} (the placement's weights).  A ring is a whole number of
-    16-byte units, so every ring starts aligned."""
+    16-byte units, so every ring starts aligned.
+
+    Past three domain dims (``outer_n``: the outer dims' extents; the
+    sub-stage regions then reach into them past the three slots, and
+    ``in_ohalos`` gives each staged input's outer halo), a rung is a
+    window width per outer dim from :data:`STAGES_STREAM_OUTER` (capped
+    at its extent) with a plane tile (a rung ``(T1, T2, threads, windows)`` of
+    ``tiles`` names its windows): a ring plane and a sub-stage's rows span
+    the window grown by their outer reach, the columns the windows too,
+    and the rung is taken as ``by_cells`` takes it."""
     if smem_limit is None:
         from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
     n0, n1, n2 = (int(x) for x in n)
+    no = len(outer_n)
     lags = [hi[0] for _lo, hi in sub_regions]
     warm = max(lo[0] + hi[0] for lo, hi in sub_regions)
     in_reach = {a: _span(r, lags) for a, r in in_reads.items()}
@@ -693,22 +719,36 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     cmp_depths = [lo + lags[k] + 1 for lo, k in zip(cmp_lo, cmp_subs)]
     unit = 16 // esize
 
-    def rings(t1, t2, pf):
+    def ofac(wo, lo_hi):
+        """Cells of a box over the outer windows ``wo`` grown by
+        ``lo_hi`` ((lo, hi) per outer dim)."""
+        c = 1
+        for w, (lo, hi) in zip(wo, lo_hi):
+            c *= w + lo + hi
+        return c
+
+    def sub_o(wo, k):
+        lo, hi = sub_regions[k]
+        return ofac(wo, list(zip(lo[3:], hi[3:])))
+
+    def rings(t1, t2, pf, wo=()):
         depths = {a: ring_depth(lo, hi, pf)
                   for a, (lo, hi) in in_reach.items()}
         elems = {a: _ceil_to(depths[a]
                              * (t1 + in_halos[a][1][0] + in_halos[a][1][1])
-                             * (t2 + in_halos[a][2][0] + in_halos[a][2][1]),
+                             * (t2 + in_halos[a][2][0] + in_halos[a][2][1])
+                             * (ofac(wo, in_ohalos[a]) if no else 1),
                              unit)
                  for a in in_reach}
         cells = []
         for k, d in zip(cmp_subs, cmp_depths):
             lo, hi = sub_regions[k]
             cells.append(_ceil_to(d * (t1 + lo[1] + hi[1])
-                                  * (t2 + lo[2] + hi[2]), unit))
+                                  * (t2 + lo[2] + hi[2])
+                                  * (sub_o(wo, k) if no else 1), unit))
         return depths, elems, cells
 
-    def plan(t1, t2, nt, pf, depths, elems, cells, placed=None):
+    def plan(t1, t2, nt, pf, depths, elems, cells, placed=None, wo=()):
         if placed is None:
             o, in_off, cmp_off = 0, {}, []
             for a in in_reach:
@@ -727,13 +767,19 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
         cap = max(1, L2_BYTES // (wsn * esize)) if wsn else 0
         blocks = min(SMS * per_sm, cap) if cap else SMS * per_sm
         cols = -(-n1 // t1) * -(-n2 // t2)
+        wpts = 1        # a window's points in the outer dims
+        for w, ne in zip(wo, outer_n):
+            cols *= -(-int(ne) // w)
+            wpts *= w
         seg, segs = stream_segments(n0, cols, blocks, warm)
-        pts = t1 * t2 * n0
+        pts = t1 * t2 * n0 * wpts
         staged = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
+                     * (ofac(wo, in_ohalos[a]) if no else 1)
                      * (n0 + segs * (warm + sum(in_reach[a])))
                      for a, h in in_halos.items()
                      if a in in_reach and in_off.get(a) is not None) / pts
         computed = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
+                    * (ofac(wo, list(zip(lo[3:], hi[3:]))) if no else 1)
                     * (n0 + segs * (lo[0] + hi[0])) / pts
                     for lo, hi in sub_regions]
         return StagesStreamPlan(
@@ -744,28 +790,38 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
              for a in in_reach},
             ["smem" if o < sm else "workspace" for o in cmp_off],
             {a: o for a, o in in_off.items() if o is not None}, cmp_off,
-            sm, wsn, cap, outside, esize)
+            sm, wsn, cap, outside, esize, tuple(wo),
+            {a: [tuple(x) for x in in_ohalos[a]] for a in in_reach}
+            if no else {})
 
+    # the rungs: past three dims every combination of outer windows with
+    # each plane tile, or the windows a rung names as its fourth entry
+    wos = list(itertools.product(*[
+        list(dict.fromkeys(min(w, int(ne)) for w in STAGES_STREAM_OUTER))
+        for ne in outer_n]))
+    tiles = [(*rung[:3], wo) for rung in tiles
+             for wo in ([tuple(rung[3])] if len(rung) > 3 else wos)]
     fits = {}
-    for t1, t2, nt in tiles:
+    for t1, t2, nt, wo in tiles:
         for pf in prefetch:
-            depths, elems, cells = rings(t1, t2, pf)
+            depths, elems, cells = rings(t1, t2, pf, wo)
             if (sum(elems.values()) + sum(cells)) * esize <= smem_limit:
                 if not by_cells:
                     return plan(t1, t2, nt, pf, depths, elems, cells)
-                fits[(t1, t2, nt)] = plan(t1, t2, nt, pf, depths, elems,
-                                          cells)
+                fits[(t1, t2, nt, wo)] = plan(t1, t2, nt, pf, depths, elems,
+                                              cells, wo=wo)
                 break
     # rungs whose rings do not fit: past shared memory
     best = None
-    for t1, t2, nt in tiles:
-        if by_cells and (t1, t2, nt) in fits:
+    for t1, t2, nt, wo in tiles:
+        if by_cells and (t1, t2, nt, wo) in fits:
             continue
         for pf in prefetch:
-            depths, elems, cells = rings(t1, t2, pf)
+            depths, elems, cells = rings(t1, t2, pf, wo)
             # computed cells per plane-tile point of each sub-stage
             per = [(t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2]) / (t1 * t2)
-                   for lo, hi in sub_regions]
+                   * ((sub_o(wo, k) / math.prod(wo)) if no else 1)
+                   for k, (lo, hi) in enumerate(sub_regions)]
             reads = {a: sum(c * per[j] for j, c in in_nreads[a].items())
                      for a in in_reach}
             in_off, cmp_off, sm, wsn = _place_rings(
@@ -781,21 +837,25 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
             outside *= esize
             if best is None or outside < best[0]:
                 best = (outside, (t1, t2, nt, pf, depths, elems, cells,
-                                  (in_off, cmp_off, sm, wsn, outside)))
-        if by_cells and best is not None and best[1][:3] == (t1, t2, nt):
-            fits[(t1, t2, nt)] = plan(*best[1])
+                                  (in_off, cmp_off, sm, wsn, outside), wo))
+        if by_cells and best is not None \
+                and (*best[1][:3], best[1][-1]) == (t1, t2, nt, wo):
+            fits[(t1, t2, nt, wo)] = plan(*best[1])
             best = None
     if by_cells:
         order = {rung: i for i, rung in enumerate(tiles)}
 
         def inplane(p):
-            """Computed cells per useful point in the plane tile (the
-            segments' slot-0 warm-up left out: the rung does not depend
-            on the domain's size)."""
+            """Computed cells per useful point in the plane tile (and the
+            outer windows; the segments' slot-0 warm-up left out: the rung
+            does not depend on the domain's size)."""
             t1, t2 = p.tile
+            wo = p.outer_tile
             return sum((t1 + lo[1] + hi[1]) * (t2 + lo[2] + hi[2])
-                       for lo, hi in sub_regions) / (t1 * t2
-                                                     * len(sub_regions))
+                       * (ofac(wo, list(zip(lo[3:], hi[3:]))) if no else 1)
+                       for lo, hi in sub_regions) / (
+                           t1 * t2 * math.prod(wo) * len(sub_regions))
         return min(fits.values(), default=None, key=lambda p: (
-            inplane(p), p.outside_per_point, order[(*p.tile, p.threads)]))
+            inplane(p), p.outside_per_point,
+            order[(*p.tile, p.threads, p.outer_tile)]))
     return None if best is None else plan(*best[1])

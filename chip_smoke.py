@@ -178,8 +178,10 @@ script exits 0 only when all of them passed.  Phases:
    test_4d (K1), ``four_d_stages`` (K6: a scratch var read at outer
    offsets, a domain condition on the outer dim, a second stage reading
    the first at outer offsets; built with the port's DSL) and, at element
-   size 2, tti r=2 (scratch), ssg (2 stages), awp (4 stages, rewrites) and
-   gaussian r=2 (misc): K ∈ {1, 2}, 5 steps, ``-mode fused`` against
+   size 2, tti r=2 (scratch), ssg (2 stages), awp (4 stages, rewrites;
+   these three on K6's body under ``-no-skew``, phase 22 runs the
+   default, K6's stream arm) and gaussian r=2 (misc): K ∈ {1, 2}, 5
+   steps, ``-mode fused`` against
    ``-mode torch`` on CUDA tensors from one state seeded in a physical
    range, 0 mismatches at ``field_epsilon`` 1e-4 (1e-2 at element size
    2), the cells whose bits differ counted, the expected launches and no
@@ -191,7 +193,9 @@ script exits 0 only when all of them passed.  Phases:
    ``skew_ineligible``), 3 trials of 20 steps; four_d_stages at 128⁴ fp32
    (K6's body under ``-no-skew``, as in (a) and (b): the twin of phase
    21), one trial of 10; tti r=2 at 512³ in bfloat16 ``-wf_steps 2``
-   (K6 with scratch sub-stages), 3 trials of 20, beside phase 9 (c)'s
+   (K6's body with scratch sub-stages under ``-no-skew``, the twin of
+   phase 22 (b), which takes its final state's digest), 3 trials of 20,
+   beside phase 9 (c)'s
    fp32 tti of the same run and seed: ms/step, points/s, the kernel's ms
    per launch against its bound, the plain version's time, one chunk
    against it and the peak memory;
@@ -221,7 +225,9 @@ script exits 0 only when all of them passed.  Phases:
    batched, 10 launches of K7 over K6's stream arm
    (``batched_stages_stream``) and no other, each member bit-identical
    to its solo run; (d) the RTM
-   pipeline's push arm in bfloat16: at 64³ K6 against its plain version
+   pipeline's push arm in bfloat16 on K6's body (``-no-skew``: the twin
+   of phase 22 (b), which takes its final state's digest): at 64³ K6
+   against its plain version
    on the card and both against the numpy oracle at (3e-2, 3e-2), then
    at 512³ as phase 6 (c) (10 B/pt), beside phase 6's fp32 row;
 13. K5 on every arm of the reference's shard_pallas: ``-mode
@@ -301,8 +307,8 @@ script exits 0 only when all of them passed.  Phases:
    mid width, each bit-equal to its twin: a K7 batch of 3 tti r=8
    members against each member's solo run, ssg r=8 under ``-mode
    shard_pallas -nr_x 2 -nr_y 2`` against the single-domain run, tti r=8
-   in bfloat16 against the arm at another rung (and its plain version at
-   the bfloat16 tolerance); (c) test_4d at 128⁴ fp32 ``-wf_steps 2`` under forced
+   in bfloat16 (``-no-skew``) against the arm at another rung (and its
+   plain version at the bfloat16 tolerance); (c) test_4d at 128⁴ fp32 ``-wf_steps 2`` under forced
    ``-trapezoid``: a warm-up group, then 3 trials of 5 groups (K4 alone
    launches), bit-equal on the card to its ``-no-trapezoid`` twin (K1),
    ms per group and per step against the bound (each K4 input read
@@ -330,7 +336,7 @@ script exits 0 only when all of them passed.  Phases:
    chunk against the plain version; (d) gaussian in bfloat16 at 8192²x3,
    one trial of 10 steps, bit-equal to its plain version, against 12 B/pt,
    beside ``conv2d(groups=3)`` on the bfloat16 image; (e) at mid width
-   (2-D 3000x3000, 1-D 2100000 points: more tiles per launch than the
+   (2-D 2100x2100, 1-D 2100000 points: more tiles per launch than the
    card's resident blocks, so they walk) every 1-D and 2-D K6 solution
    and box at r=1 and r=3: solo against the plain version on
    the card (to the bit, but box's division and test_func_1d's math
@@ -461,7 +467,28 @@ script exits 0 only when all of them passed.  Phases:
    launch against the bound and the twin's, the plain version's, one
    launch against it, ``torch.profiler`` (kernels, fills, idle share),
    the plan, ptxas's report and the rungs of :data:`S4_SWEEP` (narrower
-   outer windows; the same bits).
+   outer windows; the same bits);
+22. K6's stream arm at element size 2: its staged rings of bfloat16
+   filled with aligned 4-byte pairs, each row from the pair holding its
+   first cell, the default under ``-skew`` of every solution it takes at
+   element size 4, K7, K5 and K4 over it included; phases 11, 12 and 15
+   hold K6's body and phase 14 the two-phase passes under ``-no-skew``.
+   (a) At mid width from one seed, each beside its ``-no-skew`` twin,
+   bit-equal, the arm alone launching: tti r=2, awp, ssg and tti r=8 at
+   67x45x131 solo and as K7 x3 (each member bit-equal to its solo run),
+   the RTM chain with its image pushed and under ``-push off``; K5 over
+   the arm on 2x2 shards of 64³ (tti r=2 K=2, awp); K4's stream arm, one
+   group of K=2 (iso3dfd r=2, tti r=2 at 64³); the 4-D arms
+   (four_d_stages on K6's and K7 x3, test_4d on K4's and K7 x3 over it,
+   21x40x36x70); each held to its plain version within an ulp of
+   bfloat16, one launch of each timed; (b) tti r=2 and the RTM chain
+   (image pushed) at 512³, each from the seed and steps of its twin
+   (phase 11 (c), phase 12 (d)), the final states bit-equal: ms per
+   launch and per step against the bound and the twin's, ptxas's report,
+   ``torch.profiler`` over 3 launches (tti: 3 of the arm and 3 of the
+   body); (c) iso3dfd r=2 512³ K=4 on K4's stream arm beside its
+   two-phase twin and K1's bfloat16 stream arm from one seed, as phase
+   20 (b) runs it.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -1226,14 +1253,18 @@ def pipe_diff(a, b):
 
 def rtm_full(env, full: int, name: str, cli: str, pushed: set,
              dtype=None, warm: int = 2, trials: int = 3,
-             steps: int = 20, phase: str = None) -> dict:
+             steps: int = 20, phase: str = None, digest: bool = False,
+             profile: bool = False) -> dict:
     """The RTM pipeline at ``full``³ (phase 6 (c); phase 12 (d) in
     bfloat16): ``fwd`` seeded as :func:`seed_chain`, ``warm`` steps, then
     ``trials`` runs of ``steps`` with every counter zeroed just before
     (K6 alone may launch); K6's ms per launch against its bound (each
     input read once, each output written once), the plain version's time
     and one step against it; ``phase`` labels its lines (6, or 12 in
-    bfloat16, by default).  Returns the ``kernels`` entry."""
+    bfloat16, by default).  With ``digest`` the entry holds the merged
+    context's final state's :func:`state_digest` under ``state_digest``,
+    with ``profile`` 3 launches under :func:`profile_launches` under
+    ``profile``.  Returns the ``kernels`` entry."""
     import numpy as np
     import torch
     from yask_tpu_torch.compiler.lowering import is_bfloat16
@@ -1281,7 +1312,11 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
     ctx = pipe.fused_ctx
     kern, prog, state = ctx._fused, ctx._program, ctx._state
     spec = kern.spec
+    dig = state_digest(ctx) if digest else None
     ms = cuda_ms(lambda: stages_step(kern, state, t), 10)
+    prof = (profile_launches(lambda: stages_step(kern, state, t), 3,
+                             expect=("_stages_kernel",))
+            if profile else None)
     plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, 1), 3)
     a = kern.chunk(dict(state), t, 1)
     b = plain_chunk(prog, dict(state), t, 1)
@@ -1313,16 +1348,23 @@ def rtm_full(env, full: int, name: str, cli: str, pushed: set,
         f"{bound_ms / step_ms:.3f} per step; plain version "
         f"{plain_ms:.3f} ms/step (not a yardstick); one step kernel vs "
         f"plain max|d|={err:.3e} (field max {scale:.3e}); "
-        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB")
+        f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB"
+        + (f"; 3 launches under torch.profiler: {json.dumps(prof)}"
+           if profile else ""))
     source = stages_source(kern)
     pipe.end()
     del pipe, ctx, kern, prog, state
     torch.cuda.empty_cache()
-    return {"name": "stages_step", "route": "cuda", "source": source,
-            "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (push= arm)",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "step_ms": step_ms}
+    entry = {"name": "stages_step", "route": "cuda", "source": source,
+             "replaces": "yask_tpu/ops/pallas_stencil.py:2312 (push= arm)",
+             "launches": launches, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None, "step_ms": step_ms}
+    if digest:
+        entry["state_digest"] = dig
+    if profile:
+        entry["profile"] = prof
+    return entry
 
 
 def phase6(env, ragged=(67, 45, 131), ladder: int = 64, mid: int = 96,
@@ -2681,13 +2723,21 @@ def seed_interiors(ctx, seed: int) -> None:
 
 
 def a3_specs(fac, env) -> dict:
-    """Phase 10's kernels, for phase 1's parallel build."""
-    from yask_tpu_torch.ops import fused_stencil
+    """Phase 10's kernels, for phase 1's parallel build.  At element size
+    2 a source follows the parity of the minor extent (the context pads
+    it to even), so those cases are emitted at phase 10 (a)'s ragged
+    sizes too."""
+    from yask_tpu_torch.ops import cuda_emit, fused_stencil
     out = {}
     for st, r, eb, _arm, _ks in A3_CASES:
         ctx = a3_ctx(fac, env, st, r, eb, (16, 16, 70), "fused")
         out[f"{st} r={r} {eb} B"] = fused_stencil.FusedKernel(
             ctx._program).spec
+        if eb == 2:
+            sizes = ragged_sizes(cuda_emit.emit(ctx._program).tile)
+            ctx = a3_ctx(fac, env, st, r, eb, sizes, "fused")
+            out[f"{st} r={r} {eb} B ragged"] = fused_stencil.FusedKernel(
+                ctx._program).spec
     return out
 
 
@@ -3069,9 +3119,11 @@ A3B_CASES = (("test_4d", None, 4, "fused_step"),
              ("gaussian", 2, 2, "stages_step"))
 #: the outer dim's extent in phase 11 (a)'s ragged 4-D grids
 OUTER_RAGGED = 5
-#: Phase 11 runs four_d_stages on K6's body (``-no-skew``): the twin that
-#: phase 21 holds K6's 4-D stream arm (the default) to
-A3B_CLI = {"four_d_stages": "-no-skew"}
+#: Phase 11 runs four_d_stages and the bfloat16 3-D solutions on K6's body
+#: (``-no-skew``): the twins that phases 21 and 22 hold K6's stream arm
+#: (the default) to
+A3B_CLI = {"four_d_stages": "-no-skew", "tti": "-no-skew",
+           "ssg": "-no-skew", "awp": "-no-skew"}
 
 
 def a3b_sizes(fac, env, st, r, eb) -> tuple:
@@ -3087,13 +3139,20 @@ def a3b_sizes(fac, env, st, r, eb) -> tuple:
 
 def a3b_specs(fac, env) -> dict:
     """Phase 11's kernels, for phase 1's parallel build (the sources do
-    not depend on the domain size)."""
+    not depend on the domain size, but at element size 2 on the parity
+    of the minor extent, which the context pads to even: those cases are
+    emitted at phase 11 (a)'s ragged sizes too)."""
     from yask_tpu_torch.ops import fused_stencil
     out = {}
     for st, r, eb, _arm in A3B_CASES:
         ctx = a3_ctx(fac, env, st, r, eb, (4, 16, 16, 70), "fused")
         out[f"{st} r={r} {eb} B"] = fused_stencil.FusedKernel(
             ctx._program).spec
+        if eb == 2:
+            ctx = a3_ctx(fac, env, st, r, eb, a3b_sizes(fac, env, st, r, eb),
+                         "fused")
+            out[f"{st} r={r} {eb} B ragged"] = fused_stencil.FusedKernel(
+                ctx._program).spec
     return out
 
 
@@ -3179,7 +3238,8 @@ def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
     """The 4-D arms of K1 and K6 and K6 at element size 2 (see the module
     docstring); ``tti32`` is phase 9 (c)'s fp32 tti entry from the same
     run, the yardstick of the bf16 one.  Returns the ``kernels``
-    entries."""
+    entries, the bf16 one holding its final state's digest under
+    ``state_digest`` (phase 22 (b)'s twin) for the caller to take out."""
     import torch
     t_phase = time.perf_counter()
     worst = phase11a(fac, env)
@@ -3211,8 +3271,9 @@ def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
               path="phase 11 (c), four_d_stages (one trial of 10 steps)")
     del k6["ctx"]
     torch.cuda.empty_cache()
-    bf = family_full(fac, env, card, "tti", 2, "element size 2", full,
-                     eb=2, sweep=False)
+    bf = family_full(fac, env, card, "tti", 2, "element size 2, the "
+                     "-no-skew body", full, eb=2, sweep=False,
+                     cli=A3B_CLI["tti"], digest=True)
     log(f"phase 11: tti r=2 {full}^3: bf16 {bf['ms']:.3f} ms/launch, "
         f"{bf['step_ms']:.3f} ms/step against fp32's {tti32['ms']:.3f} "
         f"ms/launch, {tti32['step_ms']:.3f} ms/step (phase 9 (c) of this "
@@ -3604,8 +3665,10 @@ def phase12c(fac, env, card: str, g: int = 128, nses: int = 4,
 
 def phase12d(env, card: str, fp32: dict, mid: int = 64,
              full: int = 512) -> dict:
-    """Phase 12 (d): the RTM pipeline's push arm in bfloat16 (K6 with the
-    image pushed in a bfloat16 tile): at ``mid``³ for 4 steps, the fused
+    """Phase 12 (d): the RTM pipeline's push arm in bfloat16 (K6's body,
+    ``-no-skew``, with the image pushed in a bfloat16 tile: the twin of
+    phase 22 (b), its entry holding its final state's digest under
+    ``state_digest``): at ``mid``³ for 4 steps, the fused
     pipeline on the card against its plain version on the card (within
     an ulp of bfloat16 of the field) and both against the numpy oracle
     (``-mode ref``) at (3e-2, 3e-2); then at ``full``³ as phase 6 (c),
@@ -3613,8 +3676,9 @@ def phase12d(env, card: str, fp32: dict, mid: int = 64,
     entry."""
     from yask_tpu_torch.compiler.lowering import BFLOAT16
     g = (mid,) * 3
-    pipes = {mode: rtm_pipe(env, f"-mode {mode} -wf_steps 1", True, g,
-                            dtype=BFLOAT16)
+    pipes = {mode: rtm_pipe(env, f"-mode {mode} -wf_steps 1"
+                            + (" -no-skew" if mode == "fused" else ""),
+                            True, g, dtype=BFLOAT16)
              for mode in ("fused", "torch", "ref")}
     if pipes["fused"].pushed_vars() != {"img__img"}:
         raise RuntimeError(f"phase 12: bf16 rtm pushed "
@@ -3640,7 +3704,8 @@ def phase12d(env, card: str, fp32: dict, mid: int = 64,
     for p in pipes.values():
         p.end()
     del pipes
-    e = rtm_full(env, full, "push", "", {"img__img"}, dtype=BFLOAT16)
+    e = rtm_full(env, full, "push, the -no-skew body", "-no-skew",
+                 {"img__img"}, dtype=BFLOAT16, digest=True)
     log(f"phase 12: rtm chain r=2 pure {full}^3 push: bf16 {e['ms']:.3f} "
         f"ms/launch, {e['step_ms']:.3f} ms/step against fp32's "
         f"{fp32['ms']:.3f}, {fp32['step_ms']:.3f} (phase 6 (c) of this run); "
@@ -4766,9 +4831,12 @@ def phase15b_bf16(fac, env, card: str, steps: int = 5) -> dict:
     import torch
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, stages_step
     st, r, sizes, tile = WS_BF16
-    ctxs = {k: a3_ctx(fac, env, st, r, 2, sizes, m, 2)
-            for k, m in (("ws", "fused"), ("rung", "fused"),
-                         ("plain", "torch"))}
+    # the workspace arm is K6's body: -no-skew (at element size 2 the
+    # default is K6's stream arm, phase 22)
+    ctxs = {k: a3_ctx(fac, env, st, r, 2, sizes, m, 2, cli)
+            for k, m, cli in (("ws", "fused", "-no-skew"),
+                              ("rung", "fused", "-no-skew"),
+                              ("plain", "torch", ""))}
     ctxs["rung"]._fused = tile_kernel(ctxs["rung"]._program, False, tile)
     for c in ctxs.values():
         seed_physical(c, 17)
@@ -4961,10 +5029,11 @@ def phase15(fac, env, card: str, full: int = 512,
 FLAT_SWEEP = ((32, 128, 512), (64, 64, 512), (32, 64, 512),
               (16, 128, 256))
 #: Phase 16 (e): every 1-D and 2-D solution K6 carries (and box at r=1
-#: and r=3), at mid width: 2-D over 3000 x 3000 (47 x 47 tiles of 64x64,
-#: a 2x2 shard's box 24 x 24), 1-D over 2100000 points (513 tiles of
-#: 4096), each launch's last tiles partial and more tiles than the card's
-#: resident blocks (2 a SM on the H100), so the blocks walk on the card
+#: and r=3), at mid width: 2-D over 2100 x 2100 (33 x 33 tiles of 64x64,
+#: a 2x2 shard's box 17 x 17; 3000 x 3000 until the script's time called
+#: for less), 1-D over 2100000 points (513 tiles of 4096), each launch's
+#: last tiles partial and more tiles than the card's resident blocks (2 a
+#: SM on the H100), so the blocks walk on the card
 FLAT_MID = (("box", 1), ("box", 3), ("gaussian", 2), ("swe2d", None),
             ("test_boundary_2d", None), ("test_misc_value_2d", None),
             ("test_scratch_2d", None), ("test_stages_2d", None),
@@ -4978,7 +5047,7 @@ FLAT_MID = (("box", 1), ("box", 3), ("gaussian", 2), ("swe2d", None),
 #: reciprocal (ROADMAP.md C5); test_func_1d's math functions are
 #: PyTorch's own.  The others must match it to the bit.
 FLAT_PLAIN_ROUNDING = ("box", "test_func_1d")
-FLAT_MID_SIZES = (1, 3000, 3000)
+FLAT_MID_SIZES = (1, 2100, 2100)
 FLAT_MID_1D = (1, 1, 2100000)
 FLAT_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the push=/stage "
                  "loop :2058-2188 over 1-D and 2-D domains, with the "
@@ -5319,17 +5388,19 @@ def ss_specs(fac, env) -> dict:
 
 
 def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
-             sizes=SS_MID_SIZES, rtm: bool = True, phase: str = "17 (a)",
-             what: str = "K6 stream arm") -> list:
+             sizes=SS_MID_SIZES, rtm=SS_RTM, phase: str = "17 (a)",
+             what: str = "K6 stream arm", rtm_dtype=None) -> list:
     """Phase 17 (a): each solution of ``cases`` at ``sizes`` (K = 2,
     ``steps`` steps, one seed made on the card): the stream arm (the
     counters zeroed just before, read just after) bit-equal to its
     ``-no-skew`` twin and held to its plain version at ``field_epsilon``;
     a K7 batch of 3 over the arm, each member bit-equal to its solo run
     and one 2-step chunk of the batch held to ``plain_batched_chunk`` at
-    ``field_epsilon``; one launch of each arm, of the batch and of the
-    plain versions timed; then, with ``rtm``, the RTM chains of
-    :data:`SS_RTM` (:func:`phase17a_rtm`).  Returns the ``kernels``
+    ``field_epsilon`` (an ulp of bfloat16, :data:`BF16_FIELD_EPS`, at
+    element size 2); one launch of each arm, of the batch and of the
+    plain versions timed; then the RTM chains of ``rtm``
+    (:data:`SS_RTM`'s shape; none where false) in ``rtm_dtype``
+    (:func:`phase17a_rtm`).  Returns the ``kernels``
     entries of the two arms at mid width (``what`` in their names, ``phase``
     in their logs and paths), summed over the cases and the chains."""
     import torch
@@ -5340,6 +5411,7 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
     for st, r, eb, *how in cases:
         # (an optional fourth field: False seeds with small material vars)
         phys = how[0] if how else True
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
         case = (f"phase {phase}: {st} r={r} {eb} B "
                 f"{'x'.join(map(str, sizes))}")
         ctxs = {k: a3_ctx(fac, env, st, r, eb, sizes, mode, 2, cli)
@@ -5360,7 +5432,7 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
         twin_bad = arm.compare_data(twin, epsilon=0.0, abs_epsilon=0.0)
         _d, twin_bits = device_diff(arm, twin, exact=True)
         err, nbits = device_diff(arm, ctxs["plain"], exact=True)
-        bad = arm.compare_data(ctxs["plain"], field_epsilon=FIELD_EPS)
+        bad = arm.compare_data(ctxs["plain"], field_epsilon=eps)
         if twin_bad or twin_bits or bad or not finite(arm):
             raise RuntimeError(f"{case}: {twin_bad} mismatches ({twin_bits} "
                                f"cells' bits) against the -no-skew twin, "
@@ -5405,7 +5477,7 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
         # one 2-step K7 chunk of the stacked members against the plain
         # version of the batch
         err7, bits7, scale7 = k7_chunk_vs_plain(bctx, ens, steps, 2)
-        if not err7 <= FIELD_EPS * scale7:
+        if not err7 <= eps * scale7:
             raise RuntimeError(f"{case}: K7 over the arm and "
                                "plain_batched_chunk disagree: max|d|="
                                f"{err7:.3e} (field max {scale7:.3e})")
@@ -5427,7 +5499,7 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
             f"(compare_data(epsilon=0) = {twin_bad}, {twin_bits} cells' "
             f"bits differ); vs plain max|d|={err:.3e}, {nbits} cells "
             f"differ in their bits, mismatches={bad} (field_epsilon="
-            f"{FIELD_EPS}); K7 x3 launches {bgot}, each member bit-equal to"
+            f"{eps}); K7 x3 launches {bgot}, each member bit-equal to"
             f" its solo run, one 2-step chunk vs plain_batched_chunk "
             f"max|d|={err7:.3e} (field max {scale7:.3e}), {bits7} cells "
             f"differ in their bits; ms/launch: arm {ms:.3f}, twin "
@@ -5437,8 +5509,9 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
         del ctxs, arm, twin, kern, state, bctx, ens, bkern, bstate, solos
         release()
     if rtm:
-        phase17a_rtm(env, card, solo, k7)
-    n = len(cases) + (len(SS_RTM) if rtm else 0)
+        phase17a_rtm(env, card, solo, k7, cases=rtm, dtype=rtm_dtype,
+                     phase=phase)
+    n = len(cases) + len(rtm or ())
     log(f"phase {phase}: {n} cases summed: the stream arm {solo['ms']:.3f} "
         f"ms, its -no-skew twins {solo['twin_ms']:.3f} ms, K7 x3 "
         f"{k7['ms']:.3f} ms [{card}]")
@@ -5459,7 +5532,8 @@ def phase17a(fac, env, card: str, steps: int = 5, cases=SS_MID,
 
 
 def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
-                 cases=SS_RTM, nm: int = 3) -> None:
+                 cases=SS_RTM, nm: int = 3, dtype=None,
+                 phase: str = "17 (a)") -> None:
     """Phase 17 (a)'s RTM chains: each of ``cases`` through
     ``SolutionPipeline`` (``prepare(fuse=True)``, ``-mode fused
     -wf_steps 1``) from one state seeded on the card, ``steps`` steps:
@@ -5470,14 +5544,18 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
     ``field_epsilon``; a K7 batch of ``nm`` over the arm (push-off, as
     every batch), each member bit-equal to its solo run and one chunk of
     the batch held to ``plain_batched_chunk`` at ``field_epsilon``; one
-    launch of each timed.  Adds to phase 17 (a)'s sums ``solo`` and
-    ``k7``."""
+    launch of each timed; in ``dtype`` (``lowering.BFLOAT16``: the
+    bfloat16 field tolerance), ``phase`` labelling the lines.  Adds to
+    the phase's sums ``solo`` and ``k7``."""
+    from yask_tpu_torch.compiler.lowering import is_bfloat16
     from yask_tpu_torch.ops import fused_stencil as fs
+    eps = (BF16_FIELD_EPS if dtype is not None and is_bfloat16(dtype)
+           else FIELD_EPS)
     for label, r, acc, cli, g in cases:
-        what = (f"phase 17 (a): rtm chain r={r} {label} "
+        what = (f"phase {phase}: rtm chain r={r} {label} "
                 f"{'x'.join(map(str, g))}")
         pipes = {k: rtm_pipe(env, f"-mode {mode} -wf_steps 1 {cli} {more}",
-                             True, g, r, acc)
+                             True, g, r, acc, dtype)
                  for k, mode, more in (("stream", "fused", ""),
                                        ("twin", "fused", "-no-skew"),
                                        ("plain", "torch", ""))}
@@ -5499,7 +5577,7 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
         twin_bad = pipes["stream"].compare(pipes["twin"])
         _d, twin_bits = device_diff(arm, twin, exact=True, skip=pushed)
         err, scale = pipe_diff(pipes["stream"], pipes["plain"])
-        if twin_bad or twin_bits or not err <= FIELD_EPS * scale \
+        if twin_bad or twin_bits or not err <= eps * scale \
                 or not finite(arm):
             raise RuntimeError(f"{what}: {twin_bad} mismatches ({twin_bits} "
                                "cells' bits) against the -no-skew twin; vs "
@@ -5517,7 +5595,7 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
             solo[k] += v
         # K7 over the arm: member i seeded as a solo run of seed 17 + i
         bpipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g, r,
-                         acc)
+                         acc, dtype)
         bctx = bpipe.fused_ctx
         ens = bctx.new_ensemble(nm)
         for i in range(nm):
@@ -5534,7 +5612,7 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
                                f"{ens.tiling['skew']}")
         for i in range(nm):
             sp = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True, g, r,
-                          acc)
+                          acc, dtype)
             seed_device(sp.fused_ctx, 17 + i, physical=True)
             sp.run(0, steps - 1)
             with ens.member(i) as c:
@@ -5545,7 +5623,7 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
                 raise RuntimeError(f"{what}: K7 member {i}: {mb} cells "
                                    "differ from its solo run")
         err7, bits7, scale7 = k7_chunk_vs_plain(bctx, ens, steps, 1)
-        if not err7 <= FIELD_EPS * scale7:
+        if not err7 <= eps * scale7:
             raise RuntimeError(f"{what}: K7 over the arm and "
                                "plain_batched_chunk disagree: max|d|="
                                f"{err7:.3e} (field max {scale7:.3e})")
@@ -5566,7 +5644,7 @@ def phase17a_rtm(env, card: str, solo: dict, k7: dict, steps: int = 4,
             f"{sorted(pushed)}) launches {got}, bit-equal to its -no-skew "
             f"twin (compare = {twin_bad}, {twin_bits} cells' bits differ); "
             f"vs plain max|d|={err:.3e} (field max {scale:.3e}, "
-            f"field_epsilon={FIELD_EPS}); K7 x{nm} launches {bgot}, each "
+            f"field_epsilon={eps}); K7 x{nm} launches {bgot}, each "
             f"member bit-equal to its solo run, one chunk vs "
             f"plain_batched_chunk max|d|={err7:.3e} (field max "
             f"{scale7:.3e}), {bits7} cells differ in their bits; ms/launch: "
@@ -5874,22 +5952,11 @@ def phase19(fac, card: str, twins: dict) -> list:
     import torch
     t0 = time.perf_counter()
     rows = phase13a(fac, card, cases=K5SS_MID, stream=True, phase="19 (a)")
-    entries = [{
-        "name": "shard_step (K5 over K6's stream arm, phase 19 (a): "
-                "phase 13 (a)'s 3-D K6 cases and phase 15 (b)'s ssg r=8 "
-                "at mid width)", "route": "cuda", "source": SS_SOURCE,
-        "replaces": K5SS_REPLACES,
-        "launches": sum(row[7] for row in rows),
-        "max_abs_err": max(row[6] for row in rows),
-        "ms": sum(row[2] for row in rows),
-        "plain_ms": sum(row[5] for row in rows),
-        "bound_ms": sum(row[3] for row in rows),
-        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
-        else "operations", "library_ms": None,
-        "body_ms": sum(row[8] for row in rows),
-        "per": "sum over the cases of one launch each over shard 0's "
-               "sub-step-0 box: " + ", ".join(row[0] for row in rows),
-        "path": "phase 19 (a)"}]
+    entries = [summed(rows, "shard_step (K5 over K6's stream arm, phase 19 "
+                            "(a): phase 13 (a)'s 3-D K6 cases and phase 15 "
+                            "(b)'s ssg r=8 at mid width, one launch each "
+                            "over shard 0's sub-step-0 box)", K5SS_REPLACES,
+                      "phase 19 (a)", **K5_COLUMNS)]
     torch.cuda.empty_cache()
     for label, st, r, eb, g, K in K5SS_FULL:
         twin = twins[label]
@@ -6001,19 +6068,21 @@ def k4s_plan(spec) -> str:
 
 
 def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
-             rtm: int = 64) -> list:
+             rtm: int = 64, phase: str = "20 (a)") -> list:
     """Phase 20 (a): each case forced on K4 under ``-skew`` (the stream
-    arm) and under ``-no-skew`` (its two-phase twin), one group of K = 2
-    from one seed with the counters zeroed just before each: the arm
-    launches once and nothing else, the twin its three passes; the two
-    bit-equal (``compare_data(epsilon=0)``) and the arm held to its plain
-    version at ``field_epsilon``; one group of each timed.  Returns one
-    row per case."""
+    arm) and under ``-no-skew`` (its two-phase twin), at its element
+    size, one group of K = 2 from one seed with the counters zeroed just
+    before each: the arm launches once and nothing else, the twin its
+    three passes; the two bit-equal (``compare_data(epsilon=0)``) and the
+    arm held to its plain version at ``field_epsilon`` (an ulp of
+    bfloat16 at element size 2); one group of each timed; then, where
+    ``rtm`` is nonzero, the RTM chain at ``rtm``³.  ``phase`` labels the
+    lines.  Returns one row per case."""
     import torch
     from yask_tpu_torch.ops.fused_stencil import plain_chunk, trapezoid_chunk
     rows = []
 
-    def timed(label, ctx, twin_ctx, got, diff):
+    def timed(label, ctx, twin_ctx, got, diff, eps=FIELD_EPS):
         kern, state, t = ctx._trapezoid_kernel(), ctx._state, ctx._cur_step
         ms = cuda_ms(lambda: trapezoid_chunk(kern, state, t, 2), 3)
         tk = twin_ctx._trapezoid_kernel()
@@ -6023,7 +6092,7 @@ def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
                            2)
         err, nbits, scale = k4_group_vs_plain(kern, state, t)
         bound_ms, bound_by, _nb = k4_bound(ctx, kern.spec)
-        log(f"phase 20 (a): {label}: K4's stream arm, one group (K=2): "
+        log(f"phase {phase}: {label}: K4's stream arm, one group (K=2): "
             f"launches {got}; bit-equal to its -no-skew twin (the two-phase "
             f"passes, compare_data(epsilon=0) = {diff[2]}); vs plain max|d|="
             f"{diff[0]:.3e} mismatches={diff[1]}; {ms:.3f} ms/group (CUDA "
@@ -6033,18 +6102,19 @@ def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
             f"group vs plain max|d|={err:.3e} ({nbits} cells differ in "
             f"their bits); {k4s_plan(kern.spec)}; ptxas "
             f"{ptxas.get(kern.spec.name, 'not built by phase 1')} [{card}]")
-        if not err <= FIELD_EPS * scale:
-            raise RuntimeError(f"phase 20 (a): {label}: K4's stream arm and "
-                               "its plain version disagree")
+        if not err <= eps * scale:
+            raise RuntimeError(f"phase {phase}: {label}: K4's stream arm "
+                               "and its plain version disagree")
         rows.append((label, ms, plain_ms, bound_ms, bound_by,
                      max(err, diff[0]), sum(got.values()), twin_ms))
 
-    for label, st, r, _eb, sizes in cases:
-        ctxs = {"k4s": k4_ctx(fac, env, st, r, 4, sizes, "fused", 2,
+    for label, st, r, eb, sizes in cases:
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        ctxs = {"k4s": k4_ctx(fac, env, st, r, eb, sizes, "fused", 2,
                               "-trapezoid -skew", force=True),
-                "twin": k4_ctx(fac, env, st, r, 4, sizes, "fused", 2,
+                "twin": k4_ctx(fac, env, st, r, eb, sizes, "fused", 2,
                                "-trapezoid", force=True),
-                "plain": k4_ctx(fac, env, st, r, 4, sizes, "torch", 2)}
+                "plain": k4_ctx(fac, env, st, r, eb, sizes, "torch", 2)}
         for c in ctxs.values():
             seed_physical(c, 7)
         counts = {}
@@ -6056,21 +6126,23 @@ def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
             torch.cuda.synchronize()
             counts[k] = {n: v for n, v in launch_counts().items() if v}
             if counts[k] != want:
-                raise RuntimeError(f"phase 20 (a): {label} {k}: launches "
+                raise RuntimeError(f"phase {phase}: {label} {k}: launches "
                                    f"{counts[k]}, expected {want}")
         ctxs["plain"].run_solution(0, 1)
         twin_bad = ctxs["k4s"].compare_data(ctxs["twin"], epsilon=0.0,
                                             abs_epsilon=0.0)
         diff = (max_abs_diff(ctxs["k4s"], ctxs["plain"]),
-                ctxs["k4s"].compare_data(ctxs["plain"],
-                                         field_epsilon=FIELD_EPS), twin_bad)
+                ctxs["k4s"].compare_data(ctxs["plain"], field_epsilon=eps),
+                twin_bad)
         if twin_bad or diff[1] or not finite(ctxs["k4s"]):
-            raise RuntimeError(f"phase 20 (a): {label}: the stream arm "
+            raise RuntimeError(f"phase {phase}: {label}: the stream arm "
                                f"differs from its twin ({twin_bad}) or its "
                                f"plain version ({diff[1]} mismatches)")
-        timed(label, ctxs["k4s"], ctxs["twin"], counts["k4s"], diff)
+        timed(label, ctxs["k4s"], ctxs["twin"], counts["k4s"], diff, eps)
         del ctxs
         torch.cuda.empty_cache()
+    if not rtm:
+        return rows
 
     # the RTM chain merged by SolutionPipeline, prepare(fuse=True)
     g = (rtm,) * 3
@@ -6106,7 +6178,7 @@ def phase20a(fac, env, card: str, ptxas: dict, cases=K4S_MID,
 
 def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
              warm: int = 1, trials: int = 3, groups: int = 3,
-             sweep=()) -> dict:
+             sweep=(), eb: int = 4, phase: str = "20 (b)") -> dict:
     """Phase 20 (b): ``st`` at ``g``³ under forced ``-trapezoid`` with
     ``-skew`` (K4's stream arm) and with ``-no-skew`` (the two-phase
     passes) from one seed on the card: ``warm`` groups, then ``trials``
@@ -6116,8 +6188,9 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
     bound, the plain version's group, one group against it, a profile
     of the arm's launches, ptxas's report, the rungs of ``sweep`` (each
     the arm's bits), and for iso3dfd what the auto gate chooses beside
-    K1's stream arm (``-no-trapezoid``) from the same seed.  Returns the
-    ``kernels`` entry."""
+    K1's stream arm (``-no-trapezoid``) from the same seed; at element
+    size ``eb``, ``phase`` labelling the lines.  Returns the ``kernels``
+    entry."""
     import torch
     from yask_tpu_torch.ops import cuda_emit
     from yask_tpu_torch.ops.fused_stencil import (
@@ -6132,7 +6205,7 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
         arms.append(("K1 stream arm", "-no-trapezoid -skew", False))
     for which, cli, force in arms:
         torch.cuda.empty_cache()
-        ctx = k4_ctx(fac, env, st, r, 4, (g, g, g), "fused", K, cli,
+        ctx = k4_ctx(fac, env, st, r, eb, (g, g, g), "fused", K, cli,
                      force=force)
         seed_device(ctx, 11, physical=True)
         ctx.run_solution(0, warm * K - 1)
@@ -6152,22 +6225,23 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
                 if which == "two-phase" else
                 {"stream_step": trials * steps})
         if got != want:
-            raise RuntimeError(f"phase 20 (b): {label} {which}: launches "
+            raise RuntimeError(f"phase {phase}: {label} {which}: launches "
                                f"{got}, expected {want}")
         if not finite(ctx):
-            raise RuntimeError(f"phase 20 (b): {label} {which}: not finite")
+            raise RuntimeError(f"phase {phase}: {label} {which}: not "
+                               "finite")
         til = ctx.get_stats().get_tiling()
         if which == "stream" and not (til.get("arm") == "trap_stream"
                                       and til["launches_per_group"] == 1):
-            raise RuntimeError(f"phase 20 (b): {label}: get_tiling() does "
-                               f"not name K4's stream arm: {til}")
+            raise RuntimeError(f"phase {phase}: {label}: get_tiling() "
+                               f"does not name K4's stream arm: {til}")
         rates.sort()
         out[which] = (npts / rates[len(rates) // 2] * 1e3, got,
                       til["name"])
         ctxs[which] = ctx
     bad = device_diff(ctxs["stream"], ctxs["two-phase"], exact=True)
     if bad[1]:
-        raise RuntimeError(f"phase 20 (b): {label}: the stream arm and its "
+        raise RuntimeError(f"phase {phase}: {label}: the stream arm and its "
                            f"twin differ in {bad[1]} cells")
     ctx = ctxs["stream"]
     kern, prog, state = ctx._trapezoid_kernel(), ctx._program, ctx._state
@@ -6185,7 +6259,7 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
               f"{out['K1 stream arm'][1]}, bit-equal: {k1bad[1]} cells "
               "differ")
         if k1bad[1]:
-            raise RuntimeError(f"phase 20 (b): {label}: the stream arm "
+            raise RuntimeError(f"phase {phase}: {label}: the stream arm "
                                "differs from K1's")
         del ctxs["K1 stream arm"]
     del ctxs["two-phase"]
@@ -6194,8 +6268,8 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
                             expect=("stream_stages_kernel",))
     plain_ms = cuda_ms(lambda: plain_chunk(prog, state, t, K), 1)
     err, nbits, scale = k4_group_vs_plain(kern, state, t)
-    if not err <= FIELD_EPS * scale:
-        raise RuntimeError(f"phase 20 (b): {label}: the stream arm and its "
+    if not err <= (BF16_FIELD_EPS if eb == 2 else FIELD_EPS) * scale:
+        raise RuntimeError(f"phase {phase}: {label}: the stream arm and its "
                            "plain version disagree")
     bound_ms, bound_by, nbytes = k4_bound(ctx, spec)
     rungs = []
@@ -6210,7 +6284,7 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
         nb = sum(int((x != y).sum()) for n in set(spec.outputs)
                  for x, y in zip(got[n], base[n]))
         if nb:
-            raise RuntimeError(f"phase 20 (b): {label} at rung {rung}: "
+            raise RuntimeError(f"phase {phase}: {label} at rung {rung}: "
                                f"{nb} cells differ from the planner's rung")
         rungs.append({"rung": list(rung), "ms": rms,
                       "computed_per_point": cuda_emit.trap_stream_cells(
@@ -6224,7 +6298,7 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
         cuda_emit.resolve_trapezoid(prog, K, None, reasons=auto, skew=None)
     step_ms = out["stream"][0]
     twin_step = out["two-phase"][0]
-    log(f"phase 20 (b): {label} {g}^3 -mode fused -wf_steps {K} -trapezoid "
+    log(f"phase {phase}: {label} {g}^3 -mode fused -wf_steps {K} -trapezoid "
         f"(forced), K4's stream arm: {trials} trials x {groups} groups: "
         f"{step_ms:.3f} ms/step ({step_ms * K:.3f} per group), launches "
         f"{out['stream'][1]}, get_tiling() naming {out['stream'][2]}; its "
@@ -6249,7 +6323,7 @@ def phase20b(fac, env, card: str, ptxas: dict, label, st, r, g, K,
              "twin": "two-phase K4 (-no-skew)", "twin_ms": twin_ms,
              "twin_step_ms": twin_step, "rungs": rungs,
              "idle_share": prof["idle_share"] if prof else None,
-             "path": "phase 20 (b)"}
+             "path": f"phase {phase}"}
     if "K1 stream arm" in out:
         entry["k1_stream_step_ms"] = out["K1 stream arm"][0]
         entry["auto_gate"] = [x["code"] for x in auto]
@@ -6342,26 +6416,38 @@ def phase20c(fac, env, card: str, nm: int = 8, g: int = 256,
             "solo_ms": solo_ms, "twin_ms": twin_ms, "path": "phase 20 (c)"}
 
 
+def summed(rows, name: str, replaces: str, path: str, ms=1, plain=2,
+           bound=3, by=4, err=5, launches=6, twin=7) -> dict:
+    """A ``kernels`` entry summing a phase's mid-width rows (each one
+    launch of a case): the columns of each quantity in the rows."""
+    twins = [row[twin] for row in rows if row[twin] is not None]
+    return {"name": name, "route": "cuda", "source": SS_SOURCE,
+            "replaces": replaces,
+            "launches": sum(row[launches] for row in rows),
+            "max_abs_err": max(row[err] for row in rows),
+            "ms": sum(row[ms] for row in rows),
+            "plain_ms": sum(row[plain] for row in rows),
+            "bound_ms": sum(row[bound] for row in rows),
+            "bound_by": "bytes" if all(row[by] == "bytes" for row in rows)
+            else "operations", "library_ms": None,
+            "twin_ms": sum(twins) if twins else None,
+            "per": "sum over the cases of one launch each: "
+                   + ", ".join(row[0] for row in rows), "path": path}
+
+
+#: the columns of :func:`phase13a`'s rows for :func:`summed`
+K5_COLUMNS = dict(ms=2, plain=5, bound=3, by=4, err=6, launches=7, twin=8)
+
+
 def phase20(fac, env, card: str, ptxas: dict) -> list:
     """K4's stream arm (see the module docstring).  Returns the
     ``kernels`` entries."""
     import torch
     t0 = time.perf_counter()
     rows = phase20a(fac, env, card, ptxas)
-    entries = [{
-        "name": "trapezoid_chunk, K4's stream arm (phase 20 (a): "
-                "stages, scratch, rewrite, the RTM chain)",
-        "route": "cuda", "source": SS_SOURCE, "replaces": K4S_REPLACES,
-        "launches": sum(row[6] for row in rows),
-        "max_abs_err": max(row[5] for row in rows),
-        "ms": sum(row[1] for row in rows),
-        "plain_ms": sum(row[2] for row in rows),
-        "bound_ms": sum(row[3] for row in rows),
-        "bound_by": "bytes" if all(row[4] == "bytes" for row in rows)
-        else "operations", "library_ms": None,
-        "twin_ms": sum(row[7] for row in rows),
-        "per": "sum over the cases of one group each: "
-               + ", ".join(row[0] for row in rows), "path": "phase 20 (a)"}]
+    entries = [summed(rows, "trapezoid_chunk, K4's stream arm (phase 20 "
+                            "(a): stages, scratch, rewrite, the RTM chain)",
+                      K4S_REPLACES, "phase 20 (a)")]
     torch.cuda.empty_cache()
     for label, st, r, g, K in K4S_FULL:
         entries.append(phase20b(fac, env, card, ptxas, label, st, r, g, K,
@@ -6399,6 +6485,13 @@ S4_K4_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2312 (the trapezoid arm "
                   ":812-930 over every lead dim :1442; the K levels lagged "
                   "along slot 0 as its skewed-wavefront carry :306-441, "
                   ":1955-2056)")
+#: phase 21 (a)'s row kinds: (kind, the entry's name, what it replaces)
+S4_KINDS = (("K6", "stages_step, K6's 4-D stream arm", S4_REPLACES),
+            ("K7", "batched_stages_step, K7 over K6's 4-D stream arm",
+             S4_K7_REPLACES),
+            ("K4", "trapezoid_chunk, K4's 4-D stream arm", S4_K4_REPLACES),
+            ("K7/K4", "batched_trapezoid_chunk, K7 over K4's 4-D stream "
+                      "arm", S4_K4_REPLACES))
 
 
 def s4_specs(fac, env) -> dict:
@@ -6475,7 +6568,8 @@ def s4_counts(run, want: dict, what: str) -> dict:
 
 
 def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
-             nm: int = S4_NM) -> list:
+             nm: int = S4_NM, mid=S4_MID, k4_mid=S4_K4_MID, eb: int = 4,
+             phase: str = "21 (a)") -> list:
     """Phase 21 (a): at mid width, from one seed, K6's 4-D (5-D) stream
     arm (the default ``-skew``) beside its ``-no-skew`` twin (K6's body
     with its outer copies) for ``steps`` steps, K7 over it (``nm``
@@ -6483,17 +6577,20 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
     (forced ``-trapezoid``, K = 2, one group) beside its two-phase twin,
     and K7 over it; each with the counters zeroed just before and read
     just after (the expected launches and no others), bit-equal to its
-    twin and held to its plain version; one launch of each timed.
-    Returns rows (label, ms, plain ms, bound ms, bound by, max |d|,
-    launches, twin ms, kind)."""
+    twin and held to its plain version; one launch of each timed.  The
+    cases are ``mid`` (K6) and ``k4_mid`` (K4) at element size ``eb`` (an
+    ulp of bfloat16 the plain version's tolerance at 2), ``phase``
+    labelling the lines.  Returns rows (label, ms, plain ms, bound ms,
+    bound by, max |d|, launches, twin ms, kind)."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     rows = []
-    for label, st, sizes in S4_MID:
-        ctxs = {"arm": a3_ctx(fac, env, st, None, 4, sizes, "fused"),
-                "twin": a3_ctx(fac, env, st, None, 4, sizes, "fused", 1,
+    eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+    for label, st, sizes in mid:
+        ctxs = {"arm": a3_ctx(fac, env, st, None, eb, sizes, "fused"),
+                "twin": a3_ctx(fac, env, st, None, eb, sizes, "fused", 1,
                                "-no-skew"),
-                "plain": a3_ctx(fac, env, st, None, 4, sizes, "torch")}
+                "plain": a3_ctx(fac, env, st, None, eb, sizes, "torch")}
         for c in ctxs.values():
             seed_case(c, 7)
         got = s4_counts(lambda: ctxs["arm"].run_solution(0, steps - 1),
@@ -6504,9 +6601,9 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
         d = max_abs_diff(ctxs["arm"], ctxs["plain"])
         bad = ctxs["arm"].compare_data(ctxs["plain"],
-                                       field_epsilon=FIELD_EPS)
+                                       field_epsilon=eps)
         if twin_bits or bad or not finite(ctxs["arm"]):
-            raise RuntimeError(f"phase 21 (a): {label}: the stream arm "
+            raise RuntimeError(f"phase {phase}: {label}: the stream arm "
                                f"differs from its twin in {twin_bits} cells "
                                f"or from its plain version ({bad} "
                                "mismatches)")
@@ -6517,7 +6614,7 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, steps,
                                                   1), 2)
         bound_ms, bound_by, _nb = a3_bound(ctxs["arm"])
-        log(f"phase 21 (a): {label} {'x'.join(map(str, sizes))} K6's stream "
+        log(f"phase {phase}: {label} {'x'.join(map(str, sizes))} K6's stream "
             f"arm, {steps} steps: launches {got}; bit-equal to its -no-skew "
             f"twin (K6's body, {tk.spec.stages} sub-stages with the outer "
             f"copies; {twin_bits} cells differ); vs plain max|d|={d:.3e} "
@@ -6530,18 +6627,18 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
                      twin_ms, "K6"))
         del ctxs
         # K7 over it: nm members, each bit-equal to its solo run
-        ctx, ens = member_batch(fac, env, st, None, 4, sizes, nm,
+        ctx, ens = member_batch(fac, env, st, None, eb, sizes, nm,
                                 lambda c, i: seed_case(c, 100 + i), K=1)
         got = s4_counts(lambda: ens.run(0, steps - 1),
                         {"batched_stages_stream": steps}, f"{label} K7")
-        solo = a3_ctx(fac, env, st, None, 4, sizes, "fused")
+        solo = a3_ctx(fac, env, st, None, eb, sizes, "fused")
         for i in range(nm):
             seed_case(solo, 100 + i)
             solo.run_solution(0, steps - 1)
             with ens.member(i) as c:
                 _d, nb = device_diff(c, solo, exact=True)
             if nb:
-                raise RuntimeError(f"phase 21 (a): {label} K7: member {i} "
+                raise RuntimeError(f"phase {phase}: {label} K7: member {i} "
                                    f"differs from its solo run in {nb} "
                                    "cells")
         bk = ctx._batched_kernel()
@@ -6551,10 +6648,10 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         plain7 = cuda_ms(lambda: fs.plain_batched_chunk(bk.program, stack,
                                                         steps, 1, nm), 1)
         b7, by7, _nb = k7_bound(ctx, nm)
-        if not err7 <= FIELD_EPS * scale7:
-            raise RuntimeError(f"phase 21 (a): {label} K7: the batch and its "
+        if not err7 <= eps * scale7:
+            raise RuntimeError(f"phase {phase}: {label} K7: the batch and its "
                                "plain version disagree")
-        log(f"phase 21 (a): {label} K7 over K6's stream arm, {nm} members: "
+        log(f"phase {phase}: {label} K7 over K6's stream arm, {nm} members: "
             f"launches {got}; every member bit-equal to its solo run; "
             f"{ms7:.3f} ms/launch against {nm} x {ms:.3f} solo "
             f"({ms7 / (nm * ms):.3f}x per point); vs plain_batched_chunk "
@@ -6565,12 +6662,12 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         del ctx, ens, solo, stack
         torch.cuda.empty_cache()
 
-    for label, st, sizes in S4_K4_MID:
-        ctxs = {"arm": k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+    for label, st, sizes in k4_mid:
+        ctxs = {"arm": k4_ctx(fac, env, st, None, eb, sizes, "fused", 2,
                               "-trapezoid -skew", force=True),
-                "twin": k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+                "twin": k4_ctx(fac, env, st, None, eb, sizes, "fused", 2,
                                "-trapezoid", force=True),
-                "plain": k4_ctx(fac, env, st, None, 4, sizes, "torch", 2)}
+                "plain": k4_ctx(fac, env, st, None, eb, sizes, "torch", 2)}
         for c in ctxs.values():
             seed_case(c, 7)
         got = s4_counts(lambda: ctxs["arm"].run_solution(0, 1),
@@ -6582,9 +6679,9 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
         d = max_abs_diff(ctxs["arm"], ctxs["plain"])
         bad = ctxs["arm"].compare_data(ctxs["plain"],
-                                       field_epsilon=FIELD_EPS)
+                                       field_epsilon=eps)
         if twin_bits or bad or not finite(ctxs["arm"]):
-            raise RuntimeError(f"phase 21 (a): {label} K4: the stream arm "
+            raise RuntimeError(f"phase {phase}: {label} K4: the stream arm "
                                f"differs from its twin in {twin_bits} cells "
                                f"or from its plain version ({bad} "
                                "mismatches)")
@@ -6596,7 +6693,7 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, 2, 2),
                            2)
         bound_ms, bound_by, _nb = k4_bound(ctxs["arm"], kern.spec)
-        log(f"phase 21 (a): {label} {'x'.join(map(str, sizes))} K4's stream "
+        log(f"phase {phase}: {label} {'x'.join(map(str, sizes))} K4's stream "
             f"arm, one group (K=2): launches {got}; bit-equal to its "
             f"-no-skew twin (the two-phase passes; {twin_bits} cells "
             f"differ); vs plain max|d|={d:.3e} mismatches={bad}; {ms:.3f} "
@@ -6611,7 +6708,7 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         if st != "test_4d":
             continue
         # K7 over K4's 4-D stream arm: one launch a group
-        ctx = k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+        ctx = k4_ctx(fac, env, st, None, eb, sizes, "fused", 2,
                      "-trapezoid -skew", force=True)
         ens = ctx.new_ensemble(nm)
         for i in range(nm):
@@ -6619,7 +6716,7 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
                 seed_case(c, 200 + i)
         got = s4_counts(lambda: ens.run(0, 1),
                         {"batched_trapezoid_stream": 1}, f"{label} K7/K4")
-        solo = k4_ctx(fac, env, st, None, 4, sizes, "fused", 2,
+        solo = k4_ctx(fac, env, st, None, eb, sizes, "fused", 2,
                       "-trapezoid -skew", force=True)
         for i in range(nm):
             seed_case(solo, 200 + i)
@@ -6627,7 +6724,7 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
             with ens.member(i) as c:
                 _d, nb = device_diff(c, solo, exact=True)
             if nb:
-                raise RuntimeError(f"phase 21 (a): {label} K7 over K4: "
+                raise RuntimeError(f"phase {phase}: {label} K7 over K4: "
                                    f"member {i} differs from its solo run "
                                    f"in {nb} cells")
         bk = ctx._trapezoid_kernel()
@@ -6643,10 +6740,10 @@ def phase21a(fac, env, card: str, ptxas: dict, steps: int = 5,
         plain7 = cuda_ms(lambda: fs.plain_batched_chunk(bk.program, stack, 2,
                                                         2, nm), 1)
         b7, by7, _nb = k4_bound(ctx, bk.spec)
-        if not err7 <= FIELD_EPS * scale7:
-            raise RuntimeError(f"phase 21 (a): {label} K7 over K4: the batch "
+        if not err7 <= eps * scale7:
+            raise RuntimeError(f"phase {phase}: {label} K7 over K4: the batch "
                                "and its plain version disagree")
-        log(f"phase 21 (a): {label} K7 over K4's stream arm, {nm} members, "
+        log(f"phase {phase}: {label} K7 over K4's stream arm, {nm} members, "
             f"one group (K=2): launches {got}; every member bit-equal to its "
             f"solo run; {ms7:.3f} ms/group against {nm} x {ms:.3f} solo "
             f"({ms7 / (nm * ms):.3f}x per point); vs plain max|d|="
@@ -6813,34 +6910,206 @@ def phase21(fac, env, card: str, ptxas: dict) -> list:
     import torch
     t0 = time.perf_counter()
     rows = phase21a(fac, env, card, ptxas)
-    entries = []
-    for kind, name, rep in (
-            ("K6", "stages_step, K6's 4-D stream arm", S4_REPLACES),
-            ("K7", "batched_stages_step, K7 over K6's 4-D stream arm",
-             S4_K7_REPLACES),
-            ("K4", "trapezoid_chunk, K4's 4-D stream arm", S4_K4_REPLACES),
-            ("K7/K4", "batched_trapezoid_chunk, K7 over K4's 4-D stream "
-                      "arm", S4_K4_REPLACES)):
-        rs = [row for row in rows if row[8] == kind]
-        twins = [row[7] for row in rs if row[7] is not None]
-        entries.append({
-            "name": f"{name} (phase 21 (a), mid width)", "route": "cuda",
-            "source": SS_SOURCE, "replaces": rep,
-            "launches": sum(row[6] for row in rs),
-            "max_abs_err": max(row[5] for row in rs),
-            "ms": sum(row[1] for row in rs),
-            "plain_ms": sum(row[2] for row in rs),
-            "bound_ms": sum(row[3] for row in rs),
-            "bound_by": "bytes" if all(row[4] == "bytes" for row in rs)
-            else "operations", "library_ms": None,
-            "twin_ms": sum(twins) if twins else None,
-            "per": "sum over the cases of one launch each: "
-                   + ", ".join(row[0] for row in rs),
-            "path": "phase 21 (a)"})
+    entries = [summed([row for row in rows if row[8] == kind],
+                      f"{name} (phase 21 (a), mid width)", rep,
+                      "phase 21 (a)") for kind, name, rep in S4_KINDS]
     torch.cuda.empty_cache()
     for label, st, g, K, n in S4_FULL:
         entries.append(phase21b(fac, env, card, ptxas, label, st, g, K, n))
     log(f"phase 21 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+# ---- phase 22: K6's stream arm at element size 2 (bfloat16 rings) -------
+
+#: Phase 22 (a): the solutions of the CPU tests in bfloat16 at
+#: :data:`SS_MID_SIZES`, solo on K6's stream arm beside its ``-no-skew``
+#: twin and as a K7 batch of 3 (:func:`phase17a`): tti r=2 (scratch
+#: sub-stages), awp (rewrites), ssg, tti r=8 (staged inputs read from
+#: their allocations)
+SS22_MID = (("tti", 2, 2), ("awp", None, 2), ("ssg", None, 2),
+            ("tti", 8, 2))
+#: the RTM chains in bfloat16: the image pushed and ``-push off``
+SS22_RTM = (("pure, image pushed", 2, False, "", SS_MID_SIZES),
+            ("pure, -push off", 2, False, "-push off", SS_MID_SIZES))
+#: K5 over the arm on 2x2 shards (:data:`K5_CASES`' shape)
+K5SS22_MID = (("tti r=2 bf16 K=2", "tti", 2, 2, (64, 64, 64), 2, X2Y2, ""),
+              ("awp bf16", "awp", None, 2, (64, 64, 64), 1, X2Y2, ""))
+#: K4's stream arm, one group of K = 2 (:data:`K4S_MID`'s shape)
+K4S22_MID = (("iso3dfd r=2 bf16", "iso3dfd", 2, 2, (64, 64, 64)),
+             ("tti r=2 bf16", "tti", 2, 2, (64, 64, 64)))
+#: past three dims: K6's 4-D arm and K4's (:data:`S4_MID`'s shapes)
+S422_MID = (("four_d_stages bf16", "four_d_stages", (21, 40, 36, 70)),)
+S422_K4_MID = (("test_4d bf16", "test_4d", (21, 40, 36, 70)),)
+#: Phase 22 (c): K4's stream arm at full width (label, stencil, radius,
+#: edge, K): phase 14 (b)'s bfloat16 cell
+K4S22_FULL = ("iso3dfd r=2 bf16", "iso3dfd", 2, 512, 4)
+SS22_REPLACES = ("yask_tpu/ops/pallas_stencil.py:2058-2188 (the stage "
+                 "loop) with its VMEM tiles in the program dtype "
+                 ":2264-2289, under the prefetch :1815-1854 and the carry "
+                 ":1955-2056")
+
+
+def s22_specs(fac, env) -> dict:
+    """Phase 22's sources, for phase 1's parallel build: each bfloat16 K6
+    solution's (its body and stream arm in one source), the RTM chains'
+    (and their K7 batches'), K5's over the shards, K4's stream arm and
+    its two-phase twin per case, at full width and past three dims, and
+    K1's stream arm beside (c)."""
+    from yask_tpu_torch.compiler.lowering import BFLOAT16
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    # at element size 2 a source follows the parity of the minor extent
+    # (the context pads it to even): each is emitted at its run's sizes
+    out = {}
+    for st, r, eb in SS22_MID:
+        ctx = a3_ctx(fac, env, st, r, eb, SS_MID_SIZES, "fused")
+        out[f"{st} r={r} bf16 (phase 22)"] = FusedKernel(ctx._program).spec
+    for label, r, acc, cli, g in SS22_RTM:
+        for gg in (g, (16, 16, 16)):
+            pipe = rtm_pipe(env, f"-mode fused -wf_steps 1 {cli}", True,
+                            gg, r, acc, BFLOAT16)
+            out[f"rtm r={r} {label} bf16 {gg}"] = \
+                pipe.fused_ctx._fused_spec_kernel().spec
+            out[f"rtm r={r} {label} bf16 {gg} (K7)"] = \
+                pipe.fused_ctx._batched_kernel().spec
+            pipe.end()
+    for label, st, r, eb, sizes, K, ranks, cli in K5SS22_MID:
+        small = tuple(max(16, 2 * 8 * K) for _ in sizes)
+        ctx = k5_ctx(fac, st, r, eb, small, K, ranks, cli)
+        out[f"K5 {label}"] = shard_pallas_plan(ctx).kernel.spec
+    flabel, fst, fr, g, fK = K4S22_FULL
+    for label, st, r, eb, sizes, K in (
+            [c + (2,) for c in K4S22_MID]
+            + [(flabel, fst, fr, 2, (g, g, g), fK)]
+            + [(lab, s_, None, 2, sz, 2) for lab, s_, sz in S422_K4_MID]):
+        for arm, cli in (("stream", "-trapezoid -skew"),
+                         ("two-phase", "-trapezoid")):
+            ctx = k4_ctx(fac, env, st, r, eb, sizes, "fused", K, cli,
+                         force=True)
+            out[f"K4 {arm} {label} {'x'.join(map(str, sizes))} K={K}"] = \
+                ctx._trapezoid_kernel().spec
+            del ctx
+    ctx = k4_ctx(fac, env, fst, fr, 2, (g, g, g), "fused", fK,
+                 "-no-trapezoid -skew")
+    out[f"K1 {flabel} {g}^3"] = FusedKernel(ctx._program).spec
+    del ctx
+    for label, st, sizes in S422_MID:
+        ctx = a3_ctx(fac, env, st, None, 2, sizes, "fused")
+        out[f"K6 4-D {label}"] = FusedKernel(ctx._program).spec
+    return out
+
+
+def phase22(fac, env, card: str, ptxas: dict, twins: dict,
+            full: int = 512) -> list:
+    """K6's stream arm at element size 2 (see the module docstring): (a)
+    at mid width the bfloat16 solutions of the CPU tests solo and as K7
+    x3 (:func:`phase17a`, the RTM chains included), K5 over the arm on
+    2x2 shards (:func:`phase13a`), K4's stream arm at K = 2
+    (:func:`phase20a`) and the 4-D arms (:func:`phase21a`), each beside
+    its ``-no-skew`` twin from one seed, bit-equal; (b) tti r=2 and the
+    RTM chain (image pushed) at ``full``³ from the seeds and steps of
+    their ``-no-skew`` twins (``twins``: phase 11 (c)'s and phase 12
+    (d)'s rows on K6's body, with their final states' digests), the final
+    states bit-equal, ptxas's report and a profile window of each; (c)
+    iso3dfd r=2 at ``full``³ K = 4 on K4's stream arm beside its
+    two-phase twin and K1's stream arm (:func:`phase20b`).  Returns the
+    ``kernels`` entries."""
+    import torch
+    from yask_tpu_torch.compiler.lowering import BFLOAT16
+    t0 = time.perf_counter()
+    what = "K6 stream arm, element size 2"
+    entries = phase17a(fac, env, card, cases=SS22_MID, rtm=SS22_RTM,
+                       rtm_dtype=BFLOAT16, phase="22 (a)", what=what)
+    entries[0].update(replaces=SS22_REPLACES)
+    torch.cuda.empty_cache()
+    rows = phase13a(fac, card, cases=K5SS22_MID, stream=True,
+                    phase="22 (a)")
+    entries.append(summed(
+        rows, "shard_step (K5 over K6's stream arm, element size 2, phase "
+        "22 (a): 2x2 shards at mid width)", K5SS_REPLACES, "phase 22 (a)",
+        **K5_COLUMNS))
+    torch.cuda.empty_cache()
+    rows = phase20a(fac, env, card, ptxas, cases=K4S22_MID, rtm=0,
+                    phase="22 (a)")
+    entries.append(summed(
+        rows, "trapezoid_chunk (K4's stream arm, element size 2, phase 22 "
+        "(a): one group of K=2 each)", K4S_REPLACES, "phase 22 (a)"))
+    torch.cuda.empty_cache()
+    rows = phase21a(fac, env, card, ptxas, mid=S422_MID,
+                    k4_mid=S422_K4_MID, eb=2, phase="22 (a)")
+    entries += [summed([row for row in rows if row[8] == kind],
+                       f"{name} (element size 2, phase 22 (a))", rep,
+                       "phase 22 (a)") for kind, name, rep in S4_KINDS]
+    log(f"phase 22 (a) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (b) tti r=2 and the RTM chain at full width, beside their twins
+    probe = a3_ctx(fac, env, "tti", 2, 2, (16, 16, 16), "fused")
+    tti_name = probe._fused_spec_kernel().spec.name
+    del probe
+    e = family_full(fac, env, card, "tti", 2, what, full, eb=2, sweep=False,
+                    digest=True, profile=True)
+    digest, prof = e.pop("state_digest"), e.pop("profile")
+    twin = twins["tti"]
+    same = digest == twin["state_digest"]
+    log(f"phase 22 (b): tti r=2 {full}^3 bf16: the stream arm "
+        f"{e['ms']:.3f} ms/launch, {e['step_ms']:.3f} ms/step, share "
+        f"{e['bound_ms'] / e['ms']:.3f} of {e['bound_ms']:.3f} ms; its "
+        f"-no-skew twin (phase 11 (c), K6's body, the same seed and steps) "
+        f"{twin['ms']:.3f} ms/launch, {twin['step_ms']:.3f} ms/step: "
+        f"{twin['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
+        f"{same}; ptxas {ptxas.get(tti_name, 'not built by phase 1')}; 3 "
+        f"launches of each from one state under torch.profiler: "
+        f"{json.dumps(prof)} [{card}]")
+    if not same:
+        raise RuntimeError(f"phase 22 (b): tti r=2 bf16 at {full}^3: the "
+                           "stream arm and its -no-skew twin end in other "
+                           "states")
+    e.update(name=f"stages_step ({what}: tti r=2 {full}^3 bf16)",
+             replaces=SS22_REPLACES, path="phase 22 (b)",
+             body_ms=twin["ms"], body_step_ms=twin["step_ms"],
+             profile=prof, ptxas=ptxas.get(tti_name))
+    entries.append(e)
+    torch.cuda.empty_cache()
+    pipe = rtm_pipe(env, "-mode fused -wf_steps 1", True, (16, 16, 16),
+                    dtype=BFLOAT16)
+    rtm_name = pipe.fused_ctx._fused_spec_kernel().spec.name
+    pipe.end()
+    e = rtm_full(env, full, "push, the stream arm", "", {"img__img"},
+                 dtype=BFLOAT16, phase="22 (b)", digest=True, profile=True)
+    twin = twins["rtm"]
+    same = e.pop("state_digest") == twin["state_digest"]
+    log(f"phase 22 (b): rtm chain r=2 pure {full}^3 bf16, image pushed: "
+        f"the stream arm {e['ms']:.3f} ms/launch, {e['step_ms']:.3f} "
+        f"ms/step, share {e['bound_ms'] / e['ms']:.3f} of "
+        f"{e['bound_ms']:.3f} ms; its -no-skew twin (phase 12 (d), K6's "
+        f"body) {twin['ms']:.3f} ms/launch, {twin['step_ms']:.3f} ms/step: "
+        f"{twin['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
+        f"{same}; ptxas {ptxas.get(rtm_name, 'not built by phase 1')} "
+        f"[{card}]")
+    if not same:
+        raise RuntimeError(f"phase 22 (b): the bf16 rtm chain at {full}^3: "
+                           "the stream arm and its -no-skew twin end in "
+                           "other states")
+    e.update(name=f"stages_step ({what}, the push arm: rtm chain r=2 "
+                  f"{full}^3 bf16)",
+             replaces="yask_tpu/ops/pallas_stencil.py:2312 (push= arm, "
+                      "VMEM tiles in the program dtype :2264-2289) under "
+                      "the prefetch :1815-1854 and the carry :1955-2056",
+             path="phase 22 (b)", body_ms=twin["ms"],
+             body_step_ms=twin["step_ms"], ptxas=ptxas.get(rtm_name))
+    entries.append(e)
+    torch.cuda.empty_cache()
+
+    # (c) K4's stream arm at full width in bfloat16
+    label, st, r, _g, K = K4S22_FULL
+    e = phase20b(fac, env, card, ptxas, label, st, r, full, K, eb=2,
+                 phase="22 (c)")
+    e.update(name=f"trapezoid_chunk, K4's stream arm, element size 2 "
+                  f"({label} {full}^3, K={K})")
+    entries.append(e)
+    log(f"phase 22 took {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -6886,7 +7155,7 @@ def phase1(fac, env, cases: dict) -> dict:
     start(dict(specs))
     for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
                   k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
-                  k4s_specs, s4_specs):
+                  k4s_specs, s4_specs, s22_specs):
         start(group(fac, env))
     start(shard_specs(fac))
     start(k5_specs(fac))
@@ -6990,6 +7259,9 @@ def main() -> int:
     a3_arms = phase10(fac, env, card)
     release()
     last_arms = phase11(fac, env, card, k6_arms[0])
+    # phase 22 (b)'s twins: phase 11 (c)'s tti bf16 and phase 12 (d)'s rows
+    bf16_twins = {"tti": dict(
+        last_arms[2], state_digest=last_arms[2].pop("state_digest"))}
     release()
     # the solo rows of the same points beside phase 12 (b)'s member batches
     solo = {key: dict(e, label=label, points=pts) for key, e, label, pts in (
@@ -7001,6 +7273,9 @@ def main() -> int:
         ("test_4d", last_arms[0], "phase 11 (c), K1, 128^4", 128 ** 4),
         ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
     k7_arms = phase12(fac, env, card, solo, k6)
+    rtm_bf16 = next(e for e in k7_arms if e.get("path") == "phase 12 (d)")
+    bf16_twins["rtm"] = dict(rtm_bf16,
+                             state_digest=rtm_bf16.pop("state_digest"))
     release()
     k5_arms, k5_twins = phase13(fac, card)
     release()
@@ -7026,6 +7301,8 @@ def main() -> int:
     k4_stream_arms = phase20(fac, env, card, ptxas)
     release()
     s4_arms = phase21(fac, env, card, ptxas)
+    release()
+    bf16_arms = phase22(fac, env, card, ptxas, bf16_twins)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -7033,7 +7310,7 @@ def main() -> int:
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
                       + ss_arms + ss18_arms + k5_ss_arms
-                      + k4_stream_arms + s4_arms}))
+                      + k4_stream_arms + s4_arms + bf16_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

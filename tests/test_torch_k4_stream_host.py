@@ -8,11 +8,13 @@ host path and its wrapper, on the CPU.
   K=2 (the scratch sub-stages' and the velocities' lags within a level
   on top of the level's).
 * The reason records: under ``-trapezoid`` with ``-skew`` (the default) a
-  3-D or 4-D fp32 solution runs the stream arm (``trapezoid_stream``, one
-  launch per group in ``get_tiling()``); element size 2 (3-D and 4-D),
-  2-D and ``-no-skew`` keep the two-phase passes, each
+  3-D or 4-D solution runs the stream arm at element sizes 4 and 2
+  (``trapezoid_stream``, one launch per group in ``get_tiling()``; at 2
+  its rings of bfloat16 pairs); 2-D and ``-no-skew`` (at element sizes 4
+  and 2, 3-D and 4-D) keep the two-phase passes, each
   ``trapezoid_diamond`` record naming why (``stream_cause``); a forced
-  stream request where the arm does not run raises.
+  stream request where the arm does not run raises, and at element size
+  2 returns the arm's spec.
 * The emitted K1/K6 sources (``emit_digest``) of the solutions the arm
   takes stay byte-identical to ``tests/emit_digests.json``.
 * The ``_trap_stream`` entries built by g++ for the host (K6's host loop
@@ -102,8 +104,8 @@ def test_3d_fp32_runs_the_stream_arm_and_reports_it():
 
 
 @pytest.mark.parametrize("name,r,sizes,eb,cli,cause", [
-    ("iso3dfd", 2, (32, 32, 32), 2, "-skew", "element size 2"),
-    ("test_4d", None, (12, 12, 12, 12), 2, "-skew", "element size 2"),
+    ("iso3dfd", 2, (32, 32, 32), 2, "", "skew_disabled"),
+    ("test_4d", None, (12, 12, 12, 12), 2, "", "skew_disabled"),
     ("wave2d", 2, (32, 32), 4, "-skew", "2-D solution"),
     ("iso3dfd", 2, (32, 32, 32), 4, "", "skew_disabled")])
 def test_the_two_phase_passes_keep_the_refusals(name, r, sizes, eb, cli,
@@ -118,8 +120,32 @@ def test_the_two_phase_passes_keep_the_refusals(name, r, sizes, eb, cli,
     til = ctx.get_stats().get_tiling()
     assert til["launches_per_group"] == len(kern.spec.trap["passes"])
     if eb == 2:
-        with pytest.raises(YaskException, match="stream arm"):
-            cuda_emit.resolve_trapezoid(ctx._program, 2, True, skew=True)
+        # the arm takes element size 2: forced, it resolves
+        spec = cuda_emit.resolve_trapezoid(ctx._program, 2, True, skew=True)
+        assert spec.trap["arm"] == "stream"
+        assert "typedef yt::bf16_t real_t;" in spec.source
+
+
+@pytest.mark.parametrize("name,r,sizes", [
+    ("iso3dfd", 2, (32, 32, 32)), ("test_4d", None, (12, 12, 12, 12))])
+def test_bf16_runs_the_stream_arm_and_reports_it(name, r, sizes):
+    """At element size 2 under ``-skew`` K4's groups run the stream arm,
+    3-D and 4-D (its rings filled with 4-byte pairs), with no
+    element-size reason; on CPU tensors its plain version runs and the
+    arm launches nothing."""
+    ctx = k4_ctx(name, r, sizes, 2, 2, "-skew")
+    kern = ctx._trapezoid_kernel()
+    assert kern.stream and kern.spec.trap["arm"] == "stream"
+    assert kern.spec.stages_stream.esize == 2
+    assert "typedef yt::bf16_t real_t;" in kern.spec.source
+    assert codes(ctx._trap[1]) == ["trapezoid_forced", "trapezoid_stream"]
+    assert not any("element size 2" in str(x) for x in ctx._trap[1])
+    c0 = fused_stencil.trapezoid_chunk.stream_launches
+    ctx.run_solution(0, 1)
+    assert fused_stencil.trapezoid_chunk.stream_launches == c0
+    til = ctx.get_stats().get_tiling()
+    assert til["arm"] == "trap_stream" and til["launches_per_group"] == 1
+    assert til["name"] == kern.spec.name + "_trap_stream"
 
 
 def test_4d_fp32_runs_the_stream_arm_and_reports_it():

@@ -97,8 +97,9 @@ def test_r8_plans_place_their_rings_past_shared_memory(name, r, eb):
 def test_scratch_solutions_engage_solo_and_batched(name, r, eb):
     """The scratch solutions the arm newly takes engage it at element
     sizes 4 and 8, solo and over member batches (tti r=4's rings at 8
-    bytes partly past shared memory); at element size 2 they keep K6's
-    body with its reason."""
+    bytes partly past shared memory), and at element size 2 too, solo
+    and batched, with no element-size reason (its rings of bfloat16
+    pairs)."""
     ctx = ctx_of(name, r, eb)
     spec = ctx._fused_spec_kernel().spec
     assert spec.scratch_stages > 0
@@ -111,10 +112,52 @@ def test_scratch_solutions_engage_solo_and_batched(name, r, eb):
         assert reasons[0]["kernel"] == "stages_stream"
     assert spec.stages_stream.smem_bytes <= cuda_emit.SMEM_LIMIT
     bf = ctx_of(name, r, 2)
-    reasons = []
-    assert cuda_emit.skew_engaged_dims(bf._program, reasons=reasons) == []
-    assert reasons[0]["code"] == "skew_ineligible"
-    assert "element size 2" in reasons[0]["detail"]
+    for batched in (False, True):
+        reasons = []
+        assert cuda_emit.skew_engaged_dims(bf._program, reasons=reasons,
+                                           batched=batched) == ["x"]
+        assert reasons[0]["code"] == "skew_engaged"
+        assert reasons[0]["kernel"] == "stages_stream"
+        assert not any("element size 2" in x.get("detail", "")
+                       for x in reasons)
+
+
+#: at element size 2, per r=8 solution: (the plane tile, whether some
+#: staged input is read from its allocation, whether a computed ring lies
+#: in a workspace); tti, ssg and fsg keep every computed ring in shared
+#: memory, test_scratch_3d and test_stages_3d every ring
+R8_AT_2 = {"tti": ((16, 32), True, False), "ssg": ((16, 32), True, False),
+           "fsg": ((16, 32), True, False),
+           "test_scratch_3d": ((8, 32), False, False),
+           "test_stages_3d": ((8, 32), False, False)}
+
+
+@pytest.mark.parametrize("name", list(R8_AT_2))
+def test_r8_rings_at_element_size_2(name):
+    """bfloat16 rings are half the bytes: at r=8 the computed rings that
+    went to a workspace at element size 4 fit shared memory at 2, and
+    test_scratch_3d's and test_stages_3d's rings all fit it (at 8x32 by
+    256 threads); where some ring stays past it the plan is placed, its
+    workspace empty."""
+    spec4 = ctx_of(name, 8, 4)._fused_spec_kernel().spec.stages_stream
+    kern = ctx_of(name, 8, 2)._fused_spec_kernel()
+    plan = kern.spec.stages_stream
+    assert kern.skew_dims == ["x"] and plan.esize == 2
+    tile, glob, ws = R8_AT_2[name]
+    assert plan.tile == tile
+    assert ("global" in plan.in_place.values()) == glob
+    assert ("workspace" in plan.cmp_place) == ws == (plan.ws_elems > 0)
+    assert plan.placed == (glob or ws)
+    assert spec4.placed
+    assert ("workspace" in spec4.cmp_place) == (name != "test_stages_3d")
+    assert plan.smem_bytes <= cuda_emit.SMEM_LIMIT
+    # a staged ring's row at element size 2: the pair shift's cell more,
+    # rounded up to even
+    for a, elems in plan.in_elems.items():
+        halo = kern.spec.halos[a]
+        row = tile_planner.stream_row(tile[1] + sum(halo[2]), 2)
+        assert elems == -(-(plan.in_depths[a] * (tile[0] + sum(halo[1]))
+                            * row) // 8) * 8
 
 
 def test_the_rung_with_the_fewest_bytes_outside_shared_memory():

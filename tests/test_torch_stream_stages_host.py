@@ -4,8 +4,9 @@ and the plain version it runs on CPU tensors.
 * awp's plan (each sub-stage's lag, each ring's depth) against the values
   worked out by hand from awp's reads.
 * The gate's reason code for every registered 3-D solution on K6's body
-  at element sizes 2, 4 and 8, for the workspace arm, for K7 over K1's
-  body and for K5; ``-no-skew`` keeps ``fused_stages_kernel``.
+  at element sizes 2, 4 and 8 (at 2 its rings of bfloat16 pairs), for
+  the workspace arm, for K7 over K1's body and for K5; ``-no-skew`` keeps
+  ``fused_stages_kernel``.
 * The emitted entries built by g++ (the host path: K6's host loop and the
   pads) against the plain version, solo and over a member batch, into
   NaN-filled outputs: bit-equal.
@@ -28,7 +29,6 @@ from yask_tpu.runtime.init_utils import init_solution_vars as tpu_init
 from yask_tpu_torch.ops import cuda_emit, fused_stencil, tile_planner
 from yask_tpu_torch.runtime.init_utils import init_solution_vars as port_init
 from yask_tpu_torch.transfer import export_interiors, import_interiors
-from yask_tpu_torch.utils.exceptions import YaskException
 
 from test_torch_4d import four_d_stages
 from test_torch_bf16 import bf16_source
@@ -39,7 +39,7 @@ from test_torch_scratch import port_ctx, with_pads
 from test_torch_stencils import tpu_interiors
 
 #: the registered 3-D solutions on K6's body the arm takes at element
-#: sizes 4 and 8
+#: sizes 2, 4 and 8
 ENGAGED = ["awp", "awp_abc", "awp_elastic", "awp_elastic_abc", "fsg",
            "fsg2", "fsg_abc", "fsg2_abc", "fsg_merged", "fsg_merged_abc",
            "ssg", "ssg2", "ssg_merged", "test_boundary_3d", "test_stages_3d"]
@@ -103,21 +103,18 @@ def test_gate_codes_of_every_3d_k6_solution(name, eb):
     ctx.prepare_solution()
     kern = ctx._fused_spec_kernel()
     assert kern.spec.stages > 1
-    want = "skew_engaged" if eb != 2 else "skew_ineligible"
-    assert codes(kern.skew_reasons)[0] == want
-    if want == "skew_engaged":
-        assert kern.skew_dims == ["x"]
-        assert kern.skew_reasons[0]["kernel"] == "stages_stream"
-        assert kern.spec.stages_stream is not None
-        assert kern.spec.smem_bytes <= cuda_emit.SMEM_LIMIT
-        assert kern.spec.stages_stream.smem_bytes <= cuda_emit.SMEM_LIMIT
-    else:
-        why = kern.skew_reasons[0]["detail"]
-        assert "ROADMAP.md A5" in why and "element size 2" in why
-        assert kern.spec.stages_stream is None
-        assert "YT_STAGES_STREAM_ENTRIES" not in kern.spec.source
-        with pytest.raises(YaskException, match="infeasible.*A5"):
-            cuda_emit.skew_engaged_dims(ctx._program, skew=True)
+    # every element size engages the arm, element size 2 with its
+    # bfloat16 pair rings
+    assert codes(kern.skew_reasons)[0] == "skew_engaged"
+    assert not any("element size 2" in r.get("detail", "")
+                   for r in kern.skew_reasons)
+    assert kern.skew_dims == ["x"]
+    assert kern.skew_reasons[0]["kernel"] == "stages_stream"
+    assert kern.spec.stages_stream is not None
+    assert kern.spec.smem_bytes <= cuda_emit.SMEM_LIMIT
+    assert kern.spec.stages_stream.smem_bytes <= cuda_emit.SMEM_LIMIT
+    assert "YT_STAGES_STREAM_ENTRIES" in kern.spec.source
+    assert cuda_emit.skew_engaged_dims(ctx._program, skew=True) == ["x"]
 
 
 #: the plane tile each admitted solution's rings fit at element size 8
@@ -274,11 +271,9 @@ def test_no_skew_keeps_k5_over_k6s_body():
 
 
 #: K6 solutions whose shards keep K5's body: the source, the sizes and
-#: mesh, and the emitter's reason (element size 2, 4-D, misc on a 2-D
-#: domain, a partial-dim output)
+#: mesh, and the emitter's reason (4-D, misc on a 2-D domain, a
+#: partial-dim output)
 K5_REFUSED = {
-    "tti-bf16": (lambda: bf16_source("yask_tpu_torch", "tti", 2),
-                 "-g_x 32 -g_y 32 -g_z 16 -nr_x 2 -nr_y 2", "element size 2"),
     "four_d_stages": (lambda: four_d_stages("yask_tpu_torch"),
                       "-g_w 8 -g_x 5 -g_y 9 -g_z 16 -nr_w 2", "4-D solution"),
     "gaussian": (lambda: "gaussian", "-g 32 -nr_x 2 -nr_y 2", "2-D solution"),
@@ -309,6 +304,33 @@ def test_k5_keeps_its_body_with_the_emitters_reason(case):
     assert til["skew"] is False and til["name"] == kern.spec.name + "_region"
     assert set(codes(til["skew_reasons"])) == {"skew_ineligible"}
     assert words in til["skew_reasons"][0]["detail"]
+
+
+def test_k5_over_bf16_tti_takes_the_stream_arm():
+    """tti r=2 at element size 2 on 2x2 shards: its shards run K5 over
+    K6's stream arm (``<name>_stages_stream_region``, its rings of
+    bfloat16 pairs), with no element-size reason, where they kept K5's
+    body before the arm took element size 2; on CPU tensors K5's plain
+    version runs and the arm launches nothing."""
+    fac = yask_tpu_torch.yk_factory()
+    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4),
+                           bf16_source("yask_tpu_torch", "tti", 2))
+    ctx.apply_command_line_options("-g_x 32 -g_y 32 -g_z 16 -nr_x 2 "
+                                   "-nr_y 2 -mode shard_pallas -wf_steps 1")
+    ctx.prepare_solution()
+    import_interiors(ctx, seeded_interiors(ctx, 4))
+    n0 = fused_stencil.shard_step.stream_launches
+    ctx.run_solution(0, 0)
+    assert fused_stencil.shard_step.stream_launches == n0
+    til = ctx.get_stats().get_tiling()
+    kern = ctx._shard.kernel
+    assert kern.spec.stages > 1 and kern.skew_dims == ["x"]
+    assert til["skew"] is True
+    assert til["name"] == kern.spec.name + "_stages_stream_region"
+    assert codes(til["skew_reasons"])[0] == "skew_engaged"
+    assert til["skew_reasons"][0]["kernel"] == "stages_stream_region"
+    assert not any("element size 2" in r.get("detail", "")
+                   for r in til["skew_reasons"])
 
 
 def test_member_batch_takes_the_sessions_skew_request():

@@ -47,6 +47,20 @@
 //     input's allocation gets 0 (the src-size-0 form).  Inputs read only
 //     at the point of a sub-stage that is not grown come from global
 //     memory;
+//   * at element size 2 (bfloat16) cp.async cannot copy one element: the
+//     rings are filled with aligned 4-byte pairs, as K1's stream arm fills
+//     its own (stream_step.cuh).  A ring row starts at the pair that holds
+//     the row's first cell, one element early where that cell is the
+//     second of its pair (ring_shift), and holds ring_row(k) elements.
+//     The strides are even (the wrapper checks) and so is SS_T2, so the
+//     shift is the same for every row, plane, block, member and outer
+//     window of a launch; the reads add it.  A pair inside the
+//     allocation's reach, or wholly past it, is one copy (16-byte slots
+//     of 8 cells where the rows line up); a pair across its edge goes by
+//     plain loads and stores, which the barrier before the plane's
+//     compute orders as it orders the copies.  Computed rings and
+//     workspace slices hold bfloat16 values each rounded once
+//     (Calc<bf16_t>::store), as the body's stage tiles do;
 //   * a computed tile a later sub-stage reads (a var and its writing
 //     sub-stage: a rewrite keeps its own tile, a conditional rewrite reads
 //     its base from the earlier one, a pushed var is a tile with no
@@ -177,6 +191,30 @@ template <class S>
 YT_HD constexpr int ring_e2(int k) {
   return S::SS_T2 + S::halo_lo2(k) + S::halo_hi2(k);
 }
+// Elements of a row of staged input k's ring: ring_e2, or at element size
+// 2 one more rounded up to even, so that the row can start at the 4-byte
+// pair holding its first cell (tile_planner.stream_row).
+template <class S>
+YT_HD constexpr int ring_row(int k) {
+  return sizeof(typename S::real_t) == 2 ? (ring_e2<S>(k) + 2) & ~1
+                                         : ring_e2<S>(k);
+}
+
+// At element size 2: 1 where the first cell of staged ring k's rows (cell
+// b2 - halo_lo2(k) of its input, b2 even) is the second of its 4-byte
+// pair, else 0.  The input's strides are even, so this holds for every
+// row, plane, block and member alike; the fetch starts each row one cell
+// early by it and every read of the ring adds it.
+template <class S>
+YT_HD inline int ring_shift(const ParamsOf<S>& p, int k) {
+  if constexpr (sizeof(typename S::real_t) == 2)
+    return int(((reinterpret_cast<unsigned long long>(
+                     p.in[S::tiled_input(k)]) >> 1)
+                + S::halo_lo2(k)) & 1);
+  else
+    return ((void)p, (void)k, 0);
+}
+
 template <class S>
 YT_HD constexpr int cring_e1(int b) {
   return S::SS_T1 + S::sub_lo1(S::cmp_sub(b)) + S::sub_hi1(S::cmp_sub(b));
@@ -414,9 +452,11 @@ struct StreamStageReader {
   YT_HD typename S::real_t at(int o0, int o1, int o2) const {
     constexpr int k = S::tile_of(A);
     if constexpr (k >= 0 && !SsPlaceOf<S>::global(k)) {
-      constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
+      constexpr int E1 = ring_e1<S>(k), R2 = ring_row<S>(k);
       const int s = ring_slot(S::ss_depth(k), it,
                               S::ss_rlo(k) + S::ss_lag(K) + o0);
+      // the cell in its ring row (past the pair shift at element size 2)
+      const int c2 = l2 + S::halo_lo2(k) + o2 + ring_shift<S>(*p, k);
       if constexpr (OuterOf<S>::N > 0) {
         // the ring's box cell at the read's outer offset
         int oc = 0;
@@ -425,12 +465,11 @@ struct StreamStageReader {
                + S::in_dw(A, j);
         return smem[S::ss_ring(k)
                     + ((s * ring_o<S>(k) + oc) * E1
-                       + (l1 + S::halo_lo1(k) + o1)) * E2
-                    + (l2 + S::halo_lo2(k) + o2)];
+                       + (l1 + S::halo_lo1(k) + o1)) * R2
+                    + c2];
       } else {
         return smem[S::ss_ring(k)
-                    + (s * E1 + (l1 + S::halo_lo1(k) + o1)) * E2
-                    + (l2 + S::halo_lo2(k) + o2)];
+                    + (s * E1 + (l1 + S::halo_lo1(k) + o1)) * R2 + c2];
       }
     } else if constexpr (OuterOf<S>::N > 0) {
       return global_at_w<S>(*p, A, m, gw, g0 + o0, g1 + o1, g2 + o2);
@@ -465,12 +504,13 @@ struct StreamStageReader {
 // Issue the copies of plane c of staged input k (member m) into its ring
 // slot `slot`: cells past the input's allocation get 0.  16-byte copies
 // where every row lines up with its source (see the notes above), else
-// one cell per copy.  K5 (REGION) walks the box: a box-relative plane,
-// row or cell c lies at c + p.lo of the shard, whose allocation (its
-// interior p.sn and the pads) bounds the copies, not the box.  With outer
-// dims a plane is the box over the window win grown by the ring's outer
-// halo: its rows are (outer cell, slot-1 row) pairs, each bounded by the
-// allocation in the outer dims too.
+// one cell per copy, or at element size 2 one 4-byte pair, each row from
+// the pair that holds its first cell (ring_shift).  K5 (REGION) walks the
+// box: a box-relative plane, row or cell c lies at c + p.lo of the shard,
+// whose allocation (its interior p.sn and the pads) bounds the copies, not
+// the box.  With outer dims a plane is the box over the window win grown
+// by the ring's outer halo: its rows are (outer cell, slot-1 row) pairs,
+// each bounded by the allocation in the outer dims too.
 template <class S>
 __device__ __forceinline__ bool outer_row(const ParamsOf<S>& p, int k, int a,
                                           const OuterWin<S>& win, int oc,
@@ -496,11 +536,11 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
   constexpr int NT = S::SS_NT;
   constexpr int a = S::tiled_input(k);
   constexpr int h1 = S::halo_lo1(k), h2 = S::halo_lo2(k);
-  constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k);
+  constexpr int E1 = ring_e1<S>(k), E2 = ring_e2<S>(k), R2 = ring_row<S>(k);
   constexpr int V = 16 / int(sizeof(real_t));
   constexpr int NO = OuterOf<S>::N;
   constexpr int O = ring_o<S>(k);  // outer cells of a plane (1 in 3-D)
-  real_t* dst = smem + S::ss_ring(k) + slot * (O * E1 * E2);
+  real_t* dst = smem + S::ss_ring(k) + slot * (O * E1 * R2);
   const int x0 = box_lo<S, REGION>(p, 0), x1 = box_lo<S, REGION>(p, 1),
             x2 = box_lo<S, REGION>(p, 2);
   const bool in0 = c >= -S::alloc_lo0(k) - x0
@@ -512,8 +552,28 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
   const idx_t* st = p.in_s[a];
   const real_t* src = p.in[a] + cell_base<S>(p.n, m, 0, p.in_ms[a], st)
                       + c * st[0];
-  if constexpr (E2 % V == 0) {
-    const real_t* src0 = src + (b1 - h1) * st[1] + (b2 - h2);
+  const real_t* zero16 = reinterpret_cast<const real_t*>(
+      reinterpret_cast<unsigned long long>(p.in[a]) & ~15ull);
+  // the cell a ring row starts at: b2 - h2, at element size 2 the first
+  // of the pair that holds it
+  const int r2 = b2 - h2 - ring_shift<S>(p, k);
+  // element size 2: cells c2 and c2 + 1 of a row (row: the row lies in
+  // the allocation) from s to d; a pair whose cells lie both inside the
+  // allocation's reach, or both past it, is one copy, one across its edge
+  // goes by plain loads and stores
+  auto pair = [&](real_t* d, const real_t* s, bool row, int c2) {
+    const bool ok0 = row && c2 >= lo2 && c2 < lim2;
+    const bool ok1 = row && c2 + 1 >= lo2 && c2 + 1 < lim2;
+    if (ok0 == ok1) {
+      cp_async<4>(d, ok0 ? s : zero16, ok0);
+    } else {
+      d[0] = ok0 ? s[0] : real_t(0.0f);
+      d[1] = ok1 ? s[1] : real_t(0.0f);
+    }
+  };
+  (void)pair;
+  if constexpr (R2 % V == 0) {
+    const real_t* src0 = src + (b1 - h1) * st[1] + r2;
     const bool lines_up =
         st[2] == 1 && st[1] % V == 0 && st[0] % V == 0
         && (!BATCH || p.in_ms[a] % V == 0)
@@ -522,9 +582,7 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
     bool outer_up = true;
     for (int j = 0; j < NO; ++j) outer_up = outer_up && st[3 + j] % V == 0;
     if (lines_up && outer_up) {
-      constexpr int NV = E2 / V;  // a row's 16-byte slots
-      const real_t* zero16 = reinterpret_cast<const real_t*>(
-          reinterpret_cast<unsigned long long>(p.in[a]) & ~15ull);
+      constexpr int NV = R2 / V;  // a row's 16-byte slots
       for (int j = tid; j < O * E1 * NV; j += NT) {
         const int rr = j / NV;  // the row: outer cell, then slot-1 row
         const int e = (j - rr * NV) * V;
@@ -535,14 +593,16 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
           r = rr % E1;
           rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
         }
-        const int c1 = b1 - h1 + r, c2 = b2 - h2 + e;
-        real_t* d = dst + rr * E2 + e;
+        const int c1 = b1 - h1 + r, c2 = r2 + e;
+        real_t* d = dst + rr * R2 + e;
         const bool row = rin && c1 >= lo1 && c1 < lim1;
         const real_t* s = src + ooff + c1 * st[1] + c2;
         if (!row || c2 >= lim2 || c2 + V <= lo2) {
           cp_async<16>(d, zero16, false);
         } else if (c2 >= lo2 && c2 + V <= lim2) {
           cp_async<16>(d, s, true);
+        } else if constexpr (sizeof(real_t) == 2) {
+          for (int u = 0; u < V; u += 2) pair(d + u, s + u, row, c2 + u);
         } else {
           for (int u = 0; u < V; ++u) {
             const bool ok = c2 + u >= lo2 && c2 + u < lim2;
@@ -553,19 +613,37 @@ __device__ __forceinline__ void ring_fetch(const ParamsArg<S, REGION>& p,
       return;
     }
   }
-  for (int i = tid; i < O * E1 * E2; i += NT) {
-    const int rr = i / E2;
-    int r = rr;
-    bool rin = in0;
-    idx_t ooff = 0;
-    if constexpr (NO > 0) {
-      r = rr % E1;
-      rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
+  if constexpr (sizeof(real_t) == 2) {
+    constexpr int NP = R2 / 2;  // a row's pairs
+    for (int i = tid; i < O * E1 * NP; i += NT) {
+      const int rr = i / NP;
+      int r = rr;
+      bool rin = in0;
+      idx_t ooff = 0;
+      if constexpr (NO > 0) {
+        r = rr % E1;
+        rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
+      }
+      const int c1 = b1 - h1 + r, c2 = r2 + 2 * (i - rr * NP);
+      pair(dst + 2 * i, src + ooff + c1 * st[1] + c2,
+           rin && c1 >= lo1 && c1 < lim1, c2);
     }
-    const int c1 = b1 - h1 + r, c2 = b2 - h2 + (i - rr * E2);
-    const bool ok = rin && c1 >= lo1 && c1 < lim1 && c2 >= lo2 && c2 < lim2;
-    cp_async<int(sizeof(real_t))>(
-        dst + i, ok ? src + ooff + c1 * st[1] + c2 * st[2] : p.in[a], ok);
+  } else {
+    for (int i = tid; i < O * E1 * E2; i += NT) {
+      const int rr = i / E2;
+      int r = rr;
+      bool rin = in0;
+      idx_t ooff = 0;
+      if constexpr (NO > 0) {
+        r = rr % E1;
+        rin = rin && outer_row<S>(p, k, a, win, rr / E1, ooff);
+      }
+      const int c1 = b1 - h1 + r, c2 = b2 - h2 + (i - rr * E2);
+      const bool ok = rin && c1 >= lo1 && c1 < lim1 && c2 >= lo2
+                      && c2 < lim2;
+      cp_async<int(sizeof(real_t))>(
+          dst + i, ok ? src + ooff + c1 * st[1] + c2 * st[2] : p.in[a], ok);
+    }
   }
 }
 
@@ -750,6 +828,8 @@ __global__ void __launch_bounds__(S::SS_NT, S::SS_MIN)
 stream_stages_kernel(const __grid_constant__ StagesStreamParams<S, REGION> q) {
   static_assert(!REGION || OuterOf<S>::N == 0,
                 "K5 over the stream arm takes three domain dims");
+  static_assert(sizeof(typename S::real_t) != 2 || S::SS_T2 % 2 == 0,
+                "bfloat16 rings take an even plane tile in slot 2");
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);

@@ -1140,7 +1140,9 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
     """K6's stream arm (``csrc/stream_stages.cuh``) for a solution on K6's
     body, or None with the reason code and detail.  It takes a 3-D domain
     (scratch sub-stages included: a scratch var is a computed ring), written
-    vars over every dim without misc axes, and element size 4 or 8
+    vars over every dim without misc axes, at element size 2, 4 or 8 (at 2
+    its staged rings are filled with 4-byte pairs, each row from the pair
+    holding its first cell)
     (``tile_planner.stages_stream_plan``: each sub-stage at its lag, each
     ring sized by the slot-0 offsets its readers read at their lags; where
     no plane tile's rings fit :data:`SMEM_LIMIT`, the rings placed past
@@ -1159,10 +1161,6 @@ def _stages_stream_plan(program, pt: "_Printed", tiled, halos, esize,
         return None, ("skew_ineligible", f"{' and '.join(arms)}: the "
                       "stream arm writes every cell of whole output "
                       "tensors (misc and partial-dim outputs in it are "
-                      "ROADMAP.md A5)")
-    if esize == 2:
-        return None, ("skew_ineligible", "element size 2: K6's stream arm "
-                      "copies 4- and 8-byte cells (its bfloat16 rings are "
                       "ROADMAP.md A5)")
     pr = pt.pr
 
@@ -2349,7 +2347,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
     Returns (K4's :class:`KernelSpec`, None), or (None, (reason code,
     detail)) where the arm does not take the solution: it takes what
     :func:`_stages_stream_plan` takes (written vars over every dim without
-    misc axes, element size 4 or 8), on three domain dims or more.
+    misc axes, element size 2, 4 or 8), on three domain dims or more.
 
     The levels are K copies of the solution's sub-stages (:func:`_print`
     without copies).  At level L a read of ring slot ``idx`` of a written
@@ -2390,11 +2388,6 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
         return None, ("skew_ineligible", f"{' and '.join(arms)}: {arm} "
                       "writes every cell of whole output tensors "
                       "(ROADMAP.md A5)")
-    if esize == 2:
-        return None, ("skew_ineligible", f"element size 2: {arm} "
-                      + ("is K6's, which copies" if struct == "TrapSpec"
-                         else "copies")
-                      + " 4- and 8-byte cells (ROADMAP.md A5)")
     geoms = program.geoms
     pt = _print(program, [], copies=False)
     pr, subs, slices, last = pt.pr, pt.subs, pt.slices, pt.last_writer
@@ -2701,7 +2694,9 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
         f"        if constexpr (Q == {q}) {{\n"
         + "\n".join("    " + ln for ln in lines) + "\n        }"
         for q, lines in enumerate(bodies))
-    real_t = {4: "float", 8: "double"}[esize]
+    real_t = {2: "yt::bf16_t", 4: "float", 8: "double"}[esize]
+    # the point functions' results: float at bfloat16
+    out_t = "float" if esize == 2 else "real_t"
     text = f"""struct {struct} {{
     typedef {real_t} real_t;
     enum {{ NIN = {len(inputs)}, NOUT = {len(k4_outputs)}, NTILED = {len(tiled)},
@@ -2713,7 +2708,7 @@ def emit_trap_stream(program, K: int, trap_dims: List[str],
 
     template <int Q, class RD>
     YT_HD static inline void stage(const RD& rd, const int* g, const int* n,
-                                   const int t0, real_t* out) {{
+                                   const int t0, {out_t}* out) {{
         (void)rd; (void)g; (void)n; (void)t0; (void)out;
 {stages_src}
     }}

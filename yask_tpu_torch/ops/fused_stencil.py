@@ -122,7 +122,9 @@ is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
 arm and says why; ``-no-skew`` keeps K1.
 
 K6's stream arm (``-skew``, on a 3-D solution of K6's body without misc
-or partial-dim outputs, at element size 4 or 8, scratch vars included):
+or partial-dim outputs, at element size 2, 4 or 8, scratch vars
+included; at 2 its rings are filled with 4-byte pairs, so its wrappers
+check the strides as :func:`stream_step` does, :func:`check_pair_strides`):
 the source carries ``<name>_stages_stream`` and
 ``_stages_stream_batched`` (``csrc/stream_stages.cuh``), which compute
 K6's and K7's sub-step with each block walking slot 0 of a plane tile,
@@ -728,6 +730,8 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
     spec = kernel.spec.stream_spec or kernel.spec
     lead = () if nm is None else (nm,)
     ins, dev = _check_inputs(kernel, state, lead=lead, spec=spec)
+    if kernel.dtype == torch.bfloat16:
+        check_pair_strides(prog, spec, ins, len(lead), "stages_step")
     outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
                         dtype=kernel.dtype, device=dev)
             for n in spec.outputs]
@@ -750,20 +754,30 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
     return _rotated(prog, spec, state, outs)
 
 
-def check_pair_strides(program, spec, ins) -> None:
-    """Raise unless each input the stream arm stages has a unit minor
-    stride and even row and plane strides: at element size 2 it fills its
-    rings with 4-byte pairs, aligned alike in every row of a block (the
-    context plans an even padded minor extent at element size 2)."""
+def check_pair_strides(program, spec, ins, lead: int = 0,
+                       what: str = "stream_step") -> None:
+    """Raise unless each input a stream arm stages has a unit minor
+    stride and even row and plane strides (and even outer-dim strides,
+    and an even member stride over the ``lead`` stacked dims of a member
+    batch): at element size 2 it fills its rings with 4-byte pairs,
+    aligned alike in every row, plane, member and outer window of a
+    launch (the context plans an even padded minor extent at element size
+    2).  ``what`` names the kernel in the message."""
     dims = list(program.ana.domain_dims)
     for a in spec.tiled:
         name = spec.inputs[a][0]
-        s0, s1, s2 = _slot_strides(ins[a], program.geoms[name], dims)
-        if s2 != 1 or s1 % 2 or s0 % 2:
+        s0, s1, s2, *outer = _slot_strides(ins[a][(0,) * lead],
+                                           program.geoms[name], dims)
+        members = [ins[a].stride(i) for i in range(lead)]
+        if s2 != 1 or s1 % 2 or s0 % 2 or any(x % 2 for x in outer) \
+                or any(x % 2 for x in members):
             raise YaskException(
-                f"stream_step at element size 2: staged input '{name}' has "
-                f"slot strides ({s0}, {s1}, {s2}); the pair copies need a "
-                "unit minor stride and even row and plane strides")
+                f"{what} at element size 2: staged input '{name}' has "
+                f"slot strides ({s0}, {s1}, {s2}"
+                + "".join(f", {x}" for x in outer) + ")"
+                + (f", member stride {members[0]}" if members else "")
+                + "; the pair copies need a unit minor stride and even row "
+                "and plane strides (and even outer and member strides)")
 
 
 def stream_step(kernel: "FusedKernel", state, t: int):
@@ -992,6 +1006,8 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
             f"fused kernel: state on '{dev}' (CUDA or CPU tensors)")
     kernel.build()
     ins, dev = _check_inputs(kernel, state)
+    if kernel.skew_dims and kernel.dtype == torch.bfloat16:
+        check_pair_strides(prog, spec, ins, what="shard_step")
     if outs is None:
         outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
@@ -1513,6 +1529,8 @@ def _trap_stream_group(kernel: "TrapezoidKernel", state, t0: int, K: int,
                             f"{spec.trap['K']} steps, not {K}")
     lead = (nm,) if nm else ()
     ins, dev = _check_inputs(kernel, state, lead=lead)
+    if kernel.dtype == torch.bfloat16:
+        check_pair_strides(prog, spec, ins, len(lead), "trapezoid_chunk")
     outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
                         dtype=kernel.dtype, device=dev)
             for n in spec.outputs]

@@ -698,7 +698,10 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     interior extents of slots 0, 1, 2; ``in_nreads`` and ``cmp_nreads``:
     per staged input and computed tile, {sub-stage: distinct offsets it
     reads} (the placement's weights).  A ring is a whole number of
-    16-byte units, so every ring starts aligned.
+    16-byte units, so every ring starts aligned, and so is a workspace
+    slice.  At element size 2 a staged ring's row holds
+    :func:`stream_row` elements: it starts at the 4-byte pair that holds
+    its first cell (the kernel fills it pair by pair).
 
     Past three domain dims (``outer_n``: the outer dims' extents; the
     sub-stage regions then reach into them past the three slots, and
@@ -734,9 +737,12 @@ def stages_stream_plan(in_halos: Dict[int, Tuple[Tuple[int, int], ...]],
     def rings(t1, t2, pf, wo=()):
         depths = {a: ring_depth(lo, hi, pf)
                   for a, (lo, hi) in in_reach.items()}
+        # a staged ring's rows: at 2 bytes from the pair holding the
+        # row's first cell (stream_row)
         elems = {a: _ceil_to(depths[a]
                              * (t1 + in_halos[a][1][0] + in_halos[a][1][1])
-                             * (t2 + in_halos[a][2][0] + in_halos[a][2][1])
+                             * stream_row(t2 + in_halos[a][2][0]
+                                          + in_halos[a][2][1], esize)
                              * (ofac(wo, in_ohalos[a]) if no else 1),
                              unit)
                  for a in in_reach}

@@ -302,9 +302,11 @@ class ShardLayout:
     the mesh, each shard's global origin and device, the local sizes and
     one program per shard (``rank_offset`` = its origin, ``global_sizes``
     set, ops on its device).  ``key`` names the pad geometry, so a
-    resident state is reused only by a run of the same layout."""
+    resident state is reused only by a run of the same layout;
+    ``pad_multiple`` rounds each shard's padded extent per dim, as the
+    context's plan does."""
 
-    def __init__(self, ctx, extra_pad, key):
+    def __init__(self, ctx, extra_pad, key, pad_multiple=None):
         from yask_tpu_torch.compiler.lowering import TorchOps
         opts = ctx._opts
         dims = ctx._ana.domain_dims
@@ -324,7 +326,8 @@ class ShardLayout:
             self.devices.append(dev)
             self.progs.append(ctx._csol.plan(
                 self.lsizes, ops=TorchOps(dev), extra_pad=extra_pad,
-                rank_offset=off, global_sizes=self.gsizes))
+                rank_offset=off, global_sizes=self.gsizes,
+                pad_multiple=pad_multiple))
         self.names = [k for k, g in ctx._program.geoms.items()
                       if not g.is_scratch]
 
@@ -651,6 +654,7 @@ class ShardPallasPlan:
     record of the last run."""
 
     def __init__(self, ctx):
+        from yask_tpu_torch.compiler.lowering import is_bfloat16
         from yask_tpu_torch.ops.fused_stencil import FusedKernel
         opts = ctx._opts
         dims = ctx._ana.domain_dims
@@ -659,10 +663,16 @@ class ShardPallasPlan:
         self.rad = {d: rad.get(d, 0) for d in dims}
         hK = {d: self.rad[d] * self.K for d in dims}
         extra = {d: (hK[d], hK[d]) for d in dims}
-        self.layout = ShardLayout(ctx, extra, ("shard_pallas", self.K))
+        # at element size 2 an even padded minor extent per shard: K6's
+        # stream arm over a box fills its rings with aligned bfloat16
+        # pairs (fused_stencil.check_pair_strides)
+        mult = ({dims[-1]: 2} if is_bfloat16(ctx._csol.dtype) else None)
+        self.layout = ShardLayout(ctx, extra, ("shard_pallas", self.K),
+                                  mult)
         self.kernel = FusedKernel(ctx._csol.plan(
             opts.rank_domain_sizes, ops=self.layout.progs[0].ops,
-            extra_pad=extra, global_sizes=opts.global_domain_sizes),
+            extra_pad=extra, global_sizes=opts.global_domain_sizes,
+            pad_multiple=mult),
             push=False, skew=ctx._skew_arg(),
             max_skew_dims=opts.skew_dims_max, region=True)
         self.tiling = None

@@ -38,7 +38,9 @@ script exits 0 only when all of them passed.  Phases:
    seeded through ``set_var_slice``; one warm-up request per session,
    then 8 requests of 20 steps submitted before waiting, which the
    scheduler batches into one ``EnsembleRun``: one launch of K7 (the
-   member-batched kernel) per step.  Every response must be ``ok`` at
+   member-batched kernel, over K1's stream arm under ``-skew``, the
+   default: ``<name>_stream_batched``, counted in
+   ``batched_step_stream``) per step.  Every response must be ``ok`` at
    occupancy 8, batched, not degraded; K7 must launch exactly 20 times
    in that window; two members must be bit-identical to solo ``-mode
    fused`` contexts from the same seeds; one batched chunk must agree
@@ -87,7 +89,10 @@ script exits 0 only when all of them passed.  Phases:
    eight) shards on ``cuda:0`` (``new_env(devices=["cuda:0"] * 4)``), each
    shard with tensors of its own: one exchange of ghost slabs between the
    shards' tensors per group of K steps, then K sub-steps of K5 (the
-   per-shard region kernel) per shard.  (a) Small cases: iso3dfd r=8 at
+   per-shard region kernel, over K1's stream arm under ``-skew``, the
+   default: ``<name>_stream_region``, counted in ``shard_step_stream``;
+   phase 13 runs K5 over the bodies under ``-no-skew``) per shard.  (a)
+   Small cases: iso3dfd r=8 at
    96³ on x=2·y=2 with K=1 and K=2 (overlap off, on, and on with
    ``-coalesce on``), iso3dfd_sponge r=2 on x=4 at K=2 (overlap auto,
    which declines on one card, ``-coalesce off``) and cube r=1 on x=2·y=2·z=2 at K=1 (8 shards, the
@@ -488,7 +493,24 @@ script exits 0 only when all of them passed.  Phases:
    ``torch.profiler`` over 3 launches (tti: 3 of the arm and 3 of the
    body); (c) iso3dfd r=2 512³ K=4 on K4's stream arm beside its
    two-phase twin and K1's bfloat16 stream arm from one seed, as phase
-   20 (b) runs it.
+   20 (b) runs it;
+23. K7 and K5 over K1's stream arm (``stream_step_kernel<S, true,
+   false>`` and ``<S, false, true>``: the member a coordinate of the grid
+   beside the segments; the walk over one shard's box), the default under
+   ``-skew`` of every 3-D single-stage solution the solo arm takes;
+   phases 12 and 13 hold K7 and K5 over K1's body under ``-no-skew``.
+   (a) At mid width from one seed, each beside its ``-no-skew`` twin,
+   bit-equal, the arm alone launching: phase 8 (a)'s iso3dfd r=8 cases
+   (96³ on 2x2 shards, K=1 and K=2 with the overlap off, on, and on with
+   ``-coalesce on``) as phase 13 (a) runs them, and K7 x3 of iso3dfd r=2
+   and r=8, fp32 and bf16, at 67x45x130; each held to its plain version,
+   one launch of each timed beside its twin's; (b) at full width, each
+   from the seed and steps of its ``-no-skew`` twin (fp32: run here;
+   bf16: phase 13 (b)'s and phase 12 (b)'s rows), the final states
+   bit-equal: iso3dfd r=8 512³ on 2x2 shards K=2, fp32 and bf16 (ms per
+   launch over the grown and the interior box, per step, against the
+   bounds), and K7 over 8 x iso3dfd r=8 256³, fp32 and bf16; each with
+   ptxas's report and ``torch.profiler`` over 3 launches of the arm alone.
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -539,6 +561,26 @@ def make_ctx(fac, env, stencil, radius, g, mode, wf=1, cli=""):
 #: The two arms of K1: the stream arm (``-skew``, the default) and K1's
 #: 3-D tiles (``-no-skew``), with the counter each launch bumps.
 ARMS = (("stream_step", "-skew"), ("fused_step", "-no-skew"))
+#: K1's stream arm's header (and K7's and K5's over it)
+K1S_SOURCE = "yask_tpu_torch/csrc/stream_step.cuh"
+#: the kernel (a substring of its name under ``torch.profiler``) a launch
+#: counted in each counter runs
+PROFILE_NAMES = {"batched_step_stream": "stream_step_kernel",
+                 "shard_step_stream": "stream_step_kernel",
+                 "batched_stages_stream": "stream_stages_kernel",
+                 "batched_step": "fused_step_kernel",
+                 "batched_stages_step": "fused_stages_kernel"}
+#: what K7 and K5 over K1's stream arm replace: the reference's vmapped
+#: chunk and its region= and distributed=True arms, each with the skewed
+#: carry along slot 0 and the prefetch
+K1S_K7_REPLACES = ("yask_tpu/runtime/ensemble.py:234-345 (jax.vmap of "
+                   "build_pallas_chunk :253-263) -> yask_tpu/ops/"
+                   "pallas_stencil.py:2312 with the skewed carry :306-441, "
+                   ":1955-2056 and the prefetch :1668-1854")
+K1S_K5_REPLACES = ("yask_tpu/ops/pallas_stencil.py:736-811, :1948-1953 "
+                   "(region= and distributed=True arms; parallel/"
+                   "shard_step.py:1017, :1093-1160) with the skewed carry "
+                   ":306-441, :1955-2056 and the prefetch :1668-1854")
 
 
 def launch_counts() -> dict:
@@ -547,6 +589,7 @@ def launch_counts() -> dict:
     return {"fused_step": fs.fused_step.launches,
             "stream_step": fs.stream_step.launches,
             "batched_step": fs.batched_step.launches,
+            "batched_step_stream": fs.batched_step.stream_launches,
             "batched_stages_step": fs.batched_stages_step.launches,
             "stages_step": fs.stages_step.launches,
             "stages_stream": fs.stages_step.stream_launches,
@@ -571,7 +614,8 @@ def zero_launch_counts() -> None:
               fs.batched_stages_step, fs.stages_step, fs.shard_step,
               fs.copy_base):
         w.launches = 0
-    for w in (fs.stages_step, fs.batched_stages_step, fs.shard_step):
+    for w in (fs.stages_step, fs.batched_stages_step, fs.shard_step,
+              fs.batched_step):
         w.stream_launches = 0
     for w in (fs.trapezoid_chunk, fs.batched_trapezoid_chunk):
         w.phase1_launches = 0
@@ -582,20 +626,25 @@ def zero_launch_counts() -> None:
 def stages_counter(kern, wrapper: str = "stages_step") -> str:
     """The counter a launch of ``wrapper`` over ``kern`` bumps: where the
     kernel's tiling (``FusedKernel.tiling``, of K7's batches for
-    ``batched_stages_step``) reports K6's stream arm (``stages_stream``),
-    the arm's (``stages_stream``, ``batched_stages_stream``), else the
-    wrapper's own."""
-    til = kern.tiling(1, 3 if wrapper == "batched_stages_step" else 0)
+    ``batched_stages_step`` and ``batched_step``) reports K6's stream arm
+    (``stages_stream``), the arm's (``stages_stream``,
+    ``batched_stages_stream``); where it reports K7 over K1's stream arm,
+    ``batched_step_stream``; else the wrapper's own."""
+    til = kern.tiling(1, 3 if wrapper.startswith("batched_") else 0)
     if wrapper in ("stages_step", "batched_stages_step") \
             and "stages_stream" in til:
         return wrapper.replace("_step", "_stream")
+    if wrapper == "batched_step" and til["skew"]:
+        return "batched_step_stream"
     return wrapper
 
 
 def stages_source(kern, wrapper: str = "stages_step") -> str:
     """The header of the kernel a launch of ``wrapper`` over ``kern``
     runs, from the same tiling as :func:`stages_counter`."""
-    return (SS_SOURCE if stages_counter(kern, wrapper).endswith("_stream")
+    counter = stages_counter(kern, wrapper)
+    return (K1S_SOURCE if counter == "batched_step_stream"
+            else SS_SOURCE if counter.endswith("_stream")
             else "yask_tpu_torch/csrc/fused_step.cuh")
 
 
@@ -627,6 +676,8 @@ def ptxas_summary(log_text: str) -> str:
              ("stream_stages_kernelI4SpecLb1", "K7 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0ELb1E", "K5 stream arm (K6 body)"),
              ("stream_stages_kernelI4SpecLb0", "K6 stream arm"),
+             ("stream_step_kernelI4SpecLb1", "K7 over K1's stream arm"),
+             ("stream_step_kernelI4SpecLb0ELb1", "K5 over K1's stream arm"),
              ("stream_step_kernel", "stream arm"),
              ("fused_step_kernelI4SpecLb0ELb1E", "K5 (K1 body)"),
              ("fused_step_kernelI4SpecLb1", "K7 (K1 body)"),
@@ -1061,7 +1112,7 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
         resps = [srv.wait(h, timeout=600) for h in handles]
         wall = time.perf_counter() - t0
         moved = {k: v for k, v in launch_counts().items() if v}
-        k7_launches = moved.pop("batched_step", 0)
+        k7_launches = moved.pop("batched_step_stream", 0)
         for r in resps:
             if not (r.ok and r.batch == nses and r.batched
                     and not r.degraded):
@@ -1071,11 +1122,13 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
                     f"{r.degraded}, error {r.error!r}")
         if k7_launches != steps or moved:
             raise RuntimeError(
-                f"phase 5: {k7_launches} K7 launches and {moved} others in "
-                f"the served window, expected {steps} and none")
+                f"phase 5: {k7_launches} launches of K7 over K1's stream "
+                f"arm and {moved} others in the served window, expected "
+                f"{steps} and none")
         log(f"phase 5: {nses} requests of {steps} steps: all ok at "
             f"occupancy {nses}, batched, none degraded; batched_step "
-            f"launches {k7_launches}, no other kernel launched")
+            f"launches of K7 over K1's stream arm ({k7_launches}, "
+            f"batched_step_stream), no other kernel launched")
 
         spans = read_spans(trace_path)[span0:]
 
@@ -1152,10 +1205,13 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
             / FP32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-        log(f"phase 5: batched_step {ms:.3f} ms/launch over {nses} x {g}^3 "
-            f"(zero-filled outputs included) against its bound "
-            f"{bound_ms:.3f} ms ({bound_by}); share {bound_ms / ms:.3f}; "
-            f"plain version {plain_ms:.3f} ms/step (not a yardstick)")
+        seg = kern.batch_segment(nses)
+        log(f"phase 5: batched_step (K7 over K1's stream arm, "
+            f"{seg['segments']} segment(s) of {seg['segment_planes']} "
+            f"planes per member, {seg['blocks']} blocks) {ms:.3f} ms/launch "
+            f"over {nses} x {g}^3 against its bound {bound_ms:.3f} ms "
+            f"({bound_by}); share {bound_ms / ms:.3f}; plain version "
+            f"{plain_ms:.3f} ms/step (not a yardstick)")
         del state
 
         # run_resident against per-request dispatch, from one snapshot
@@ -1186,13 +1242,12 @@ def phase5(fac, env, phase4_step_ms: float, g: int = 256) -> dict:
         os.environ.pop("YT_TRACE", None)
         os.environ.pop("YT_TRACE_EVENTS", None)
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"name": "batched_step", "route": "cuda",
-            "source": "yask_tpu_torch/csrc/fused_step.cuh",
-            "replaces": "yask_tpu/runtime/ensemble.py:234-345 → "
-                        "yask_tpu/ops/pallas_stencil.py:2312",
+    return {"name": f"batched_step (K7 over K1's stream arm: the served "
+                    f"path, {nses} x iso3dfd r=8 {g}^3)", "route": "cuda",
+            "source": K1S_SOURCE, "replaces": K1S_K7_REPLACES,
             "launches": k7_launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "path": "phase 5"}
 
 
 def rtm_pipe(env, cli: str, fuse, g, radius: int = 2,
@@ -1757,9 +1812,11 @@ def phase8a(fac, dev: str = "cuda:0", cases=SHARD_CASES) -> float:
         k1 = shard_ctx(fac, [dev], st, r, g, "fused", K)
         for c in (ctx, plain, k1):
             seed_random(c, 7)
-        n0 = fused_stencil.shard_step.launches
+        zero_launch_counts()
         ctx.run_solution(0, nsteps - 1)
-        got = fused_stencil.shard_step.launches - n0
+        moved = {k: v for k, v in launch_counts().items() if v}
+        # K5 over K1's stream arm under -skew, the default
+        got = moved.pop("shard_step_stream", 0)
         fused_stencil.shard_step = plain_shard_step
         try:
             plain.run_solution(0, nsteps - 1)
@@ -1780,14 +1837,17 @@ def phase8a(fac, dev: str = "cuda:0", cases=SHARD_CASES) -> float:
             f"{til['comm']['order']} coalesce {til['comm']['coalesce']}; "
             f"vs plain (plain_shard_step on the card) max|d|={d:.3e} "
             f"mismatches={bad_plain} (field_epsilon={FIELD_EPS}); vs "
-            f"single-domain K1 compare_data(epsilon=0) = {bad_k1}; K5 "
-            f"launches {got} (expected {want})")
+            f"single-domain K1 compare_data(epsilon=0) = {bad_k1}; "
+            f"launches of K5 over K1's stream arm ({til['name']}) {got} "
+            f"(expected {want}), others {moved}")
         if bad_plain or bad_k1:
             raise RuntimeError(f"phase 8: {label}: {bad_plain} mismatches "
                                f"vs plain, {bad_k1} vs K1")
-        if got != want:
-            raise RuntimeError(f"phase 8: {label}: {got} K5 launches, "
-                               f"expected {want}")
+        if got != want or moved or not til["skew"]:
+            raise RuntimeError(f"phase 8: {label}: {got} launches of K5 over "
+                               f"K1's stream arm and {moved} others, "
+                               f"expected {want} and none: "
+                               f"{til['skew_reasons']}")
         if "overlap on" in label and not ov:
             raise RuntimeError(f"phase 8: {label}: the overlap did not "
                                "engage")
@@ -1931,9 +1991,10 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
         ov = til["overlap_exchange"]
         want = trials * k5_launches(4, steps, K, ov, 2 * len(til.get(
             "overlap_core", {})))
-        if got != {"shard_step": want}:
+        if got != {"shard_step_stream": want}:
             raise RuntimeError(f"phase 8: {arm} at {g}^3: launches {got}, "
-                               f"expected {want} K5 and no other")
+                               f"expected {want} of K5 over K1's stream arm "
+                               "and no other")
         if (arm == "overlap on") is not ov or (
                 arm == "coalesce on") is not til["comm"]["coalesce"]:
             raise RuntimeError(f"phase 8: {arm} at {g}^3: overlap {ov}, "
@@ -1968,8 +2029,9 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
             f"-wf_steps {K} -nr_x 2 -nr_y 2 {cli} (4 shards of {n}x{n}x{g} "
             f"on {dev}): {trials} trials x {steps} steps: "
             f"{step_ms[arm]:.3f} ms/step (min {npts / rates[-1] * 1e3:.3f}, "
-            f"max {npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; K5 "
-            f"launches {got['shard_step']}; overlap {ov}: "
+            f"max {npts / rates[0] * 1e3:.3f}), {mid:.4e} points/s; "
+            f"launches of K5 over K1's stream arm "
+            f"{got['shard_step_stream']}; overlap {ov}: "
             f"{til['overlap_reasons']}; "
             f"comm {til['comm']['order']} coalesce "
             f"{til['comm']['coalesce']} ({til['comm']['reasons'][-1]}); "
@@ -1979,7 +2041,7 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
             f"{peak / 2**30:.2f} GiB{still} [{card}]")
         if arm == "auto":
             main_ctx, main_t = ctx, t
-            launches = got["shard_step"]
+            launches = got["shard_step_stream"]
             k5 = k5_launch_times(ctx, t, g, r, card)
             continue
         # the same steps from the same state: the same bits
@@ -2030,11 +2092,10 @@ def phase8(fac, card: str, k1_step_ms: float, full: int = 512,
     if bad:
         raise RuntimeError("phase 8: shard_pallas and shard_map disagree")
     del sm, ctx, main_ctx, layout
-    return {"name": "shard_step", "route": "cuda",
-            "source": "yask_tpu_torch/csrc/fused_step.cuh",
-            "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
-                        "distributed=True arms: :736-811, :1948-1953; "
-                        "parallel/shard_step.py:1017)",
+    return {"name": "shard_step (K5 over K1's stream arm: the distributed "
+                    f"path, iso3dfd r={r} {g}^3 on 2x2 shards)",
+            "route": "cuda", "source": K1S_SOURCE,
+            "replaces": K1S_K5_REPLACES, "path": "phase 8",
             "launches": launches, "max_abs_err": max(err, worst),
             "ms": k5_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
@@ -3495,7 +3556,8 @@ def k7_gaussian_library(ctx, ens, kern, t: int, card: str) -> float:
 
 def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
              trials: int = 3, steps: int = 20, cells=None,
-             cli: str = "-no-skew", phase: str = "12") -> list:
+             cli: str = "-no-skew", phase: str = "12",
+             digest: bool = False, profile: bool = False) -> list:
     """Phase 12 (b): each cell of :data:`K7_FULL` through ``EnsembleRun``
     (``-wf_steps 2``): ``warm`` steps, then ``trials`` runs of ``steps``
     with every counter zeroed just before; ms/step (host clock around
@@ -3503,8 +3565,11 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
     per launch against its bound, the plain version's time, one chunk
     against it, the peak memory, and the solo row of an earlier phase
     (``solo``) beside it.  ``cells`` replaces :data:`K7_FULL`; the
-    batches run with ``cli`` (by default ``-no-skew``: K6's body, phase 17
-    (c) runs the stream arm's).  Returns the ``kernels`` entries."""
+    batches run with ``cli`` (by default ``-no-skew``: the bodies, phases
+    17 (c) and 23 (b) run the stream arms').  With ``digest`` each entry
+    holds the members' states after the trials (``state_digest``, before
+    any timed launch); with ``profile``, 3 launches under
+    ``torch.profiler``.  Returns the ``kernels`` entries."""
     import torch
     from yask_tpu_torch.ops import fused_stencil as fs
     entries = []
@@ -3534,6 +3599,12 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
         kern, prog = ctx._batched_kernel(), ctx._program
         counter = stages_counter(kern, wrapper)
         want = {counter: trials * steps}
+        digests = None
+        if digest:
+            digests = []
+            for i in range(nm):
+                with ens.member(i) as c:
+                    digests += state_digest(c)
         if kern.spec.base_outputs:
             want["copy_base"] = len(kern.spec.base_outputs) * trials * steps
         if got != want:
@@ -3550,6 +3621,11 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
         ms = cuda_ms(lambda: getattr(fs, wrapper)(kern, state, t, nm), 5)
         plain_ms = cuda_ms(lambda: fs.plain_batched_chunk(
             prog, state, t, 1, nm), 2)
+        prof = None
+        if profile:
+            prof = profile_launches(
+                lambda: getattr(fs, wrapper)(kern, state, t, nm), 3,
+                expect=(PROFILE_NAMES[counter],))
         del state
         err, nbits, scale = k7_chunk_vs_plain(ctx, ens, t, 2)
         peak = torch.cuda.max_memory_allocated()
@@ -3592,7 +3668,9 @@ def phase12b(fac, env, card: str, solo: dict, warm: int = 2,
             "library_ms": lib_ms, "path": "phase 12 (b)",
             "step_ms": step_ms, "bytes_per_point": nbytes / nm / npts,
             "peak_bytes": peak, "solo_ms": s_row["ms"],
-            "solo_step_ms": s_row["step_ms"], "solo_points": s_pts})
+            "solo_step_ms": s_row["step_ms"], "solo_points": s_pts,
+            **({"state_digest": digests} if digest else {}),
+            **({"profile": prof} if profile else {})})
         del ctx, ens, kern
         release()
     return entries
@@ -3728,7 +3806,9 @@ def phase12(fac, env, card: str, solo: dict, rtm32: dict) -> list:
     t_phase = time.perf_counter()
     entries = phase12a(fac, env, card)
     torch.cuda.empty_cache()
-    entries += phase12b(fac, env, card, solo)
+    # each cell's final state's digest: phase 23 (b)'s twin of the bf16
+    # iso3dfd batch (main pops them)
+    entries += phase12b(fac, env, card, solo, digest=True)
     torch.cuda.empty_cache()
     phase12c(fac, env, card)
     torch.cuda.empty_cache()
@@ -3978,10 +4058,10 @@ def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
         d = max_abs_diff(ctx, plain)
         bad_plain = ctx.compare_data(plain, field_epsilon=eps)
         bad_one = ctx.compare_data(one, epsilon=0.0, abs_epsilon=0.0)
-        segs = [b["segment_planes"]
-                for b in til.get("stages_stream", {}).get("box_segments", [])]
-        what = (f"K5 over K6's stream arm ({til['name']}, segments {segs})"
-                if til["skew"] else f"K5 over {body}'s body")
+        rec = til.get("stages_stream") or til.get("stream") or {}
+        segs = [b["segment_planes"] for b in rec.get("box_segments", [])]
+        what = (f"K5 over {body}'s stream arm ({til['name']}, segments "
+                f"{segs})" if til["skew"] else f"K5 over {body}'s body")
         log(f"phase {phase}: {label} ({'x'.join(map(str, sizes))}, {eb} B, "
             f"mesh {til['mesh']}, {S} shards on {dev}, {what}, "
             f"{til['stages']} sub-stages): {steps} steps: overlap "
@@ -4019,7 +4099,11 @@ def phase13a(fac, card: str, steps: int = 5, cases=K5_CASES,
         del plain, one, twin
         torch.cuda.empty_cache()
     for a, b in (("ssg K=2", "ssg K=2 overlap on coalesce on"),
-                 ("tti r=2 K=2", "tti r=2 K=2 overlap on coalesce on")):
+                 ("tti r=2 K=2", "tti r=2 K=2 overlap on coalesce on"),
+                 ("iso3dfd r=8 K=2 overlap off",
+                  "iso3dfd r=8 K=2 overlap on"),
+                 ("iso3dfd r=8 K=2 overlap on",
+                  "iso3dfd r=8 K=2 overlap on coalesce on")):
         if a in arms and b in arms:
             bad = arms[a].compare_data(arms[b], epsilon=0.0,
                                        abs_epsilon=0.0)
@@ -4108,19 +4192,29 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     boxes = [_full_box(sp, K, s_) for s_ in range(K)]
     timed_rows = [k5_time_launch(ctx, t, b, live) for b in boxes]
     prof = None
+    body = "K6" if til["stages"] > 1 or til["scratch_stages"] else "K1"
     if profile:
-        # 3 launches of the arm and 3 of K5's body (the -no-skew kernel
-        # of the same source) over the grown box, from one state
         kern = sp.kernel
-        body_kern = FusedKernel(kern.program, skew=False, region=True)
-        body_kern.build()
         layout, shards = ctx._run.resident
         st0, off = shards[0], layout.offsets[0]
-        prof = profile_launches(
-            lambda: (shard_step(kern, st0, t, boxes[0], off),
-                     shard_step(body_kern, st0, t, boxes[0], off)), 3,
-            expect=("stream_stages_kernel", "fused_stages_kernel"))
-        del st0, shards, body_kern
+        if body == "K1":
+            # 3 launches of K5 over K1's stream arm alone over the grown
+            # box (its -no-skew twin ran in a run of its own)
+            prof = profile_launches(
+                lambda: shard_step(kern, st0, t, boxes[0], off), 3,
+                expect=("stream_step_kernel",))
+        else:
+            # 3 launches of the arm and 3 of K5's body (the -no-skew
+            # kernel of the same source) over the grown box, from one
+            # state
+            body_kern = FusedKernel(kern.program, skew=False, region=True)
+            body_kern.build()
+            prof = profile_launches(
+                lambda: (shard_step(kern, st0, t, boxes[0], off),
+                         shard_step(body_kern, st0, t, boxes[0], off)), 3,
+                expect=("stream_stages_kernel", "fused_stages_kernel"))
+            del body_kern
+        del st0, shards
     ms = [row[0] for row in timed_rows]
     k5_ms = sum(ms) / len(ms)
     bound_ms = sum(row[1] for row in timed_rows) / len(ms)
@@ -4152,11 +4246,11 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     ok_finite = finite(ctx)
     peak = max(peak, torch.cuda.max_memory_allocated())
     n = g // 2
-    body = "K6" if til["stages"] > 1 or til["scratch_stages"] else "K1"
-    segs = til.get("stages_stream", {}).get("box_segments", [])
-    what = (f"K5 over K6's stream arm, segments per box "
+    rec = til.get("stages_stream") or til.get("stream") or {}
+    segs = rec.get("box_segments", [])
+    what = (f"K5 over {body}'s stream arm, segments per box "
             f"{[b['segment_planes'] for b in segs]} on "
-            f"{segs[0]['blocks']} blocks" if stream
+            f"{[b['blocks'] for b in segs]} blocks" if stream
             else f"K5 over {body}'s body")
     opts = f"-wf_steps {K} -nr_x 2 -nr_y 2" + (f" {cli}" if cli else "")
     log(f"phase {phase}: {label} {g}^3 -mode shard_pallas {opts} (4 shards "
@@ -4175,8 +4269,9 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
         f"version {plain_ms:.3f} ms per launch (not a yardstick), one "
         f"launch vs plain max|d|={err:.3e} (field max {scale:.3e}); vs "
         f"{vs}; finite {ok_finite}; "
-        + (f"3 launches of the arm and 3 of the body under torch.profiler "
-           f"(ms per launch by kernel): {json.dumps(prof)}; "
+        + (f"3 launches of the arm"
+           f"{' and 3 of the body' if body == 'K6' else ''} under "
+           f"torch.profiler (ms per launch by kernel): {json.dumps(prof)}; "
            if profile else "")
         + f"torch.cuda.max_memory_allocated() = {peak / 2**30:.2f} GiB"
         + ("" if twin is not None else " (the twin included)")
@@ -4188,10 +4283,10 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
     del ctx
     return {"name": f"shard_step ({label} {g}^3{' ' + cli if cli else ''}, "
                     "K5 over "
-                    + ("K6's stream arm" if stream else body) + ")",
+                    + (f"{body}'s stream arm" if stream else body) + ")",
             "route": "cuda",
-            "source": SS_SOURCE if stream
-            else "yask_tpu_torch/csrc/fused_step.cuh",
+            "source": ((SS_SOURCE if body == "K6" else K1S_SOURCE)
+                       if stream else "yask_tpu_torch/csrc/fused_step.cuh"),
             "replaces": "yask_tpu/ops/pallas_stencil.py:736 (region= and "
                         "distributed=True arms with the stage loop "
                         ":2058-2188; parallel/shard_step.py:1093)",
@@ -4203,8 +4298,7 @@ def phase13b(fac, card: str, label, st, r, eb, g, K, warm: int = 1,
             "step_ms": step_ms, "step_bound_ms": step_bound,
             "exchange_ms_per_group": xch_ms, "peak_bytes": peak,
             "box_ms": ms, "state_digest": digest, "profile": prof,
-            "box_segments": (til["stages_stream"]["box_segments"]
-                             if stream else None)}
+            "box_segments": segs if stream else None}
 
 
 def shard_digest(ctx) -> list:
@@ -6417,11 +6511,13 @@ def phase20c(fac, env, card: str, nm: int = 8, g: int = 256,
 
 
 def summed(rows, name: str, replaces: str, path: str, ms=1, plain=2,
-           bound=3, by=4, err=5, launches=6, twin=7) -> dict:
+           bound=3, by=4, err=5, launches=6, twin=7,
+           source: str = None) -> dict:
     """A ``kernels`` entry summing a phase's mid-width rows (each one
-    launch of a case): the columns of each quantity in the rows."""
+    launch of a case): the columns of each quantity in the rows;
+    ``source`` the kernel's header (K6's stream arm's by default)."""
     twins = [row[twin] for row in rows if row[twin] is not None]
-    return {"name": name, "route": "cuda", "source": SS_SOURCE,
+    return {"name": name, "route": "cuda", "source": source or SS_SOURCE,
             "replaces": replaces,
             "launches": sum(row[launches] for row in rows),
             "max_abs_err": max(row[err] for row in rows),
@@ -7113,6 +7209,220 @@ def phase22(fac, env, card: str, ptxas: dict, twins: dict,
     return entries
 
 
+# ---- phase 23: K7 and K5 over K1's stream arm ---------------------------
+
+#: Phase 23 (a): K5 over the arm at mid width, phase 8 (a)'s iso3dfd r=8
+#: cases (96³ on 2x2 shards, K=1 and K=2 with the overlap off, on and on
+#: with the packed exchange) in phase 13 (a)'s shape
+K1S_K5_MID = tuple((label, st, r, 4, (g,) * 3, K, ranks, cli)
+                   for label, st, r, g, ranks, K, cli in SHARD_CASES
+                   if st == "iso3dfd")
+#: and K7 x3 over it: (label, radius, element bytes, sizes), slot 0 and
+#: slot 1 ragged against the plane tiles
+K1S_K7_MID = (("iso3dfd r=2 fp32", 2, 4, (67, 45, 130)),
+              ("iso3dfd r=8 fp32", 8, 4, (67, 45, 130)),
+              ("iso3dfd r=2 bf16", 2, 2, (67, 45, 130)),
+              ("iso3dfd r=8 bf16", 8, 2, (67, 45, 130)))
+#: Phase 23 (b): K5 at full width (phase 8 (b)'s fp32 cell, phase 13
+#: (b)'s bf16 one): (label, stencil, radius, element bytes, edge, K)
+K1S_K5_FULL = (("iso3dfd r=8 fp32", "iso3dfd", 8, 4, 512, 2),
+               ("iso3dfd r=8 bf16", "iso3dfd", 8, 2, 512, 2))
+#: and K7 (phase 5's 8 x 256³ in fp32, phase 12 (b)'s bf16 cell), as
+#: :data:`K7_FULL` lists its cells
+K1S_K7_FULL = (("element size 4", "iso3dfd", 8, 4, 8, (256,) * 3,
+                "batched_step", "iso3dfd"),
+               ("element size 2", "iso3dfd", 8, 2, 8, (256,) * 3,
+                "batched_step", "iso3dfd bf16"))
+
+
+def k1s_specs(fac, env) -> dict:
+    """Phase 23's sources not built for an earlier phase, for phase 1's
+    parallel build: (a)'s K7 cells at their sizes (at element size 2 a
+    source may follow its minor extent's parity)."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    out = {}
+    for label, r, eb, sizes in K1S_K7_MID:
+        ctx = a3_ctx(fac, env, "iso3dfd", r, eb, sizes, "fused")
+        out[f"{label} (phase 23)"] = FusedKernel(ctx._program).spec
+        del ctx
+    return out
+
+
+def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
+                steps: int = 5) -> list:
+    """Phase 23 (a)'s member batches: each case as K7 x ``nm`` over K1's
+    stream arm (``-skew``, the default) and its ``-no-skew`` twin (K7 over
+    K1's body) from one seed, ``steps`` steps at K = 2 with the counters
+    zeroed just before (the arm alone launches), every member bit-equal
+    to the twin's, one 2-step chunk held to ``plain_batched_chunk`` on the
+    card, one launch of each timed.  Returns rows for :func:`summed`
+    (label, ms, plain ms, bound, bound_by, max |d|, launches, twin ms)."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    rows = []
+    for label, r, eb, sizes in cases:
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        ctx, ens = member_batch(fac, env, "iso3dfd", r, eb, sizes, nm,
+                                lambda c, i: seed_case(c, 100 + i))
+        twin, tens = member_batch(fac, env, "iso3dfd", r, eb, sizes, nm,
+                                  lambda c, i: seed_case(c, 100 + i),
+                                  cli="-no-skew")
+        zero_launch_counts()
+        ens.run(0, steps - 1)
+        got = {k: v for k, v in launch_counts().items() if v}
+        tens.run(0, steps - 1)
+        til = ens.tiling
+        if got != {"batched_step_stream": steps} or not til["skew"] \
+                or not til["name"].endswith("_stream_batched"):
+            raise RuntimeError(f"phase 23 (a): K7 {label}: launches {got}, "
+                               f"tiling {til['name']} {til['skew_reasons']}")
+        nbad = 0
+        for i in range(nm):
+            with ens.member(i) as c, tens.member(i) as c2:
+                nbad += device_diff(c, c2, exact=True)[1]
+                ok = finite(c)
+            if not ok:
+                raise RuntimeError(f"phase 23 (a): K7 {label}: member {i} is "
+                                   "not finite")
+        err, nbits, scale = k7_chunk_vs_plain(ctx, ens, steps, 2)
+        state = ens._stack_states()
+        kern, tkern = ctx._batched_kernel(), twin._batched_kernel()
+        ms = cuda_ms(lambda: fs.batched_step(kern, state, steps, nm), 5)
+        twin_ms = cuda_ms(lambda: fs.batched_step(tkern, state, steps, nm),
+                          5)
+        plain_ms = cuda_ms(lambda: fs.plain_batched_chunk(
+            ctx._program, state, steps, 1, nm), 2)
+        del state
+        bound_ms, bound_by, _nb = k7_bound(ctx, nm)
+        seg = kern.batch_segment(nm)
+        log(f"phase 23 (a): K7 over K1's stream arm, {label}, {nm} x "
+            f"{'x'.join(map(str, sizes))} K=2 {steps} steps: launches {got} "
+            f"({til['name']}, {seg['segments']} segment(s) of "
+            f"{seg['segment_planes']} planes); vs the -no-skew twin (K7 over "
+            f"K1's body, the same seeds) {nbad} cells differ (epsilon 0); "
+            f"one 2-step chunk vs plain (plain_batched_chunk on the card) "
+            f"max|d|={err:.3e} (field max {scale:.3e}), {nbits} cells "
+            f"differ in their bits; {ms:.4f} ms/launch, the twin's "
+            f"{twin_ms:.4f}, bound {bound_ms:.4f} ms ({bound_by}), plain "
+            f"{plain_ms:.3f} ms [{card}]")
+        if nbad or not err <= eps * scale:
+            raise RuntimeError(f"phase 23 (a): K7 {label}: {nbad} cells "
+                               "differ from the twin, or the batch and its "
+                               "plain version disagree")
+        rows.append((label, ms, plain_ms, bound_ms, bound_by, err,
+                     got["batched_step_stream"], twin_ms))
+        del ctx, ens, twin, tens, kern, tkern
+        release()
+    return rows
+
+
+def phase23(fac, env, card: str, ptxas: dict, twins: dict) -> list:
+    """K7 and K5 over K1's stream arm (see the module docstring): (a) at
+    mid width :data:`K1S_K5_MID` through :func:`phase13a` with ``stream``
+    and :data:`K1S_K7_MID` through :func:`phase23a_k7`, each beside its
+    ``-no-skew`` twin from one seed, bit-equal; (b) at full width
+    :data:`K1S_K5_FULL` through :func:`phase13b` and :data:`K1S_K7_FULL`
+    through :func:`phase12b`, each from the seed and steps of its
+    ``-no-skew`` twin, the final states bit-equal: the fp32 twins run
+    here, the bf16 ones are phase 13 (b)'s and phase 12 (b)'s (``twins``:
+    ``"k5 bf16"`` and ``"k7 bf16"``, with their digests; ``"solo"``: the
+    solo rows phase 12 (b) puts beside a batch).  Returns the ``kernels``
+    entries."""
+    import torch
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    from yask_tpu_torch.parallel.shard_step import shard_pallas_plan
+    t0 = time.perf_counter()
+    entries = []
+    rows = phase13a(fac, card, cases=K1S_K5_MID, stream=True,
+                    phase="23 (a)")
+    entries.append(summed(
+        rows, "shard_step (K5 over K1's stream arm, phase 23 (a): iso3dfd "
+        "r=8 96^3 on 2x2 shards, K=1 and K=2 with the overlap off, on and "
+        "on with the packed exchange, one launch each over shard 0's "
+        "sub-step-0 box)", K1S_K5_REPLACES, "phase 23 (a)",
+        source=K1S_SOURCE, **K5_COLUMNS))
+    torch.cuda.empty_cache()
+    rows = phase23a_k7(fac, env, card)
+    entries.append(summed(
+        rows, "batched_step (K7 over K1's stream arm, phase 23 (a): 3 "
+        "members of iso3dfd r=2 and r=8, fp32 and bf16, at 67x45x130)",
+        K1S_K7_REPLACES, "phase 23 (a)", source=K1S_SOURCE))
+    log(f"phase 23 (a) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (b) K5 at full width beside its -no-skew twin
+    for label, st, r, eb, g, K in K1S_K5_FULL:
+        if eb == 2:
+            twin = twins["k5 bf16"]
+        else:
+            twin = phase13b(fac, card, label, st, r, eb, g, K,
+                            phase="23 (b)")
+            twin = {"state_digest": twin["state_digest"], "ms": twin["ms"],
+                    "step_ms": twin["step_ms"], "box_ms": twin["box_ms"],
+                    "what": f"its -no-skew twin ({label} {g}^3 on K5's "
+                            "body, phase 23 (b))"}
+            torch.cuda.empty_cache()
+        e = phase13b(fac, card, label, st, r, eb, g, K, stream=True,
+                     twin=twin, phase="23 (b)", profile=True)
+        e.pop("state_digest")
+        name = shard_pallas_plan(k5_ctx(fac, st, r, eb, (64, 64, 64), K,
+                                        X2Y2)).kernel.spec.name
+        log(f"phase 23 (b): {label} {g}^3 on 2x2 shards: K5 over K1's "
+            f"stream arm {', '.join(f'{m:.3f}' for m in e['box_ms'])} ms "
+            f"per launch over the grown and the interior box (segments "
+            f"{[b['segment_planes'] for b in e['box_segments']]}), "
+            f"{e['step_ms']:.3f} ms/step, share {e['bound_ms'] / e['ms']:.3f}"
+            f" of {e['bound_ms']:.4f} ms; its -no-skew twin (K5 over K1's "
+            f"body) {', '.join(f'{m:.3f}' for m in twin['box_ms'])} ms per "
+            f"launch, {twin['step_ms']:.3f} ms/step: "
+            f"{twin['ms'] / e['ms']:.2f}x per launch; final shards bit-equal;"
+            f" ptxas ({name}): {ptxas.get(name, 'not built by phase 1')} "
+            f"[{card}]")
+        e.update(name=f"shard_step (K5 over K1's stream arm: {label} "
+                      f"{g}^3 on 2x2 shards, K={K})",
+                 replaces=K1S_K5_REPLACES, path="phase 23 (b)",
+                 body_ms=twin["ms"], body_step_ms=twin["step_ms"],
+                 ptxas=ptxas.get(name))
+        entries.append(e)
+        torch.cuda.empty_cache()
+
+    # (b) K7 at full width beside its -no-skew twin
+    for cell in K1S_K7_FULL:
+        eb = cell[3]
+        if eb == 2:
+            twin = twins["k7 bf16"]
+        else:
+            twin = phase12b(fac, env, card, twins["solo"], cells=(cell,),
+                            cli="-no-skew", phase="23 (b)", digest=True)[0]
+            torch.cuda.empty_cache()
+        e = phase12b(fac, env, card, twins["solo"], cells=(cell,), cli="",
+                     phase="23 (b)", digest=True, profile=True)[0]
+        same = e.pop("state_digest") == twin["state_digest"]
+        name = FusedKernel(a3_ctx(fac, env, "iso3dfd", 8, eb, (16, 16, 16),
+                                  "fused")._program).spec.name
+        nm, shape = cell[4], "x".join(map(str, cell[5]))
+        log(f"phase 23 (b): iso3dfd r=8 {eb} B, {nm} x {shape}: K7 over K1's "
+            f"stream arm {e['ms']:.3f} ms/launch, {e['step_ms']:.3f} "
+            f"ms/step, share {e['bound_ms'] / e['ms']:.3f} of "
+            f"{e['bound_ms']:.3f} ms; its -no-skew twin (K7 over K1's body, "
+            f"the same seeds and steps) {twin['ms']:.3f} ms/launch, "
+            f"{twin['step_ms']:.3f} ms/step: {twin['ms'] / e['ms']:.2f}x "
+            f"per launch; final states bit-equal: {same}; ptxas ({name}): "
+            f"{ptxas.get(name, 'not built by phase 1')} [{card}]")
+        if not same:
+            raise RuntimeError(f"phase 23 (b): K7 iso3dfd r=8 {eb} B: the "
+                               "stream arm and its -no-skew twin end in "
+                               "other states")
+        e.update(name=f"batched_step (K7 over K1's stream arm: {nm} x "
+                      f"iso3dfd r=8 {shape}, {eb} B)",
+                 replaces=K1S_K7_REPLACES, path="phase 23 (b)",
+                 body_ms=twin["ms"], body_step_ms=twin["step_ms"],
+                 ptxas=ptxas.get(name))
+        entries.append(e)
+        torch.cuda.empty_cache()
+    log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> dict:
     """Build every kernel of the path, one ``nvcc`` per source, each group
     of sources started as soon as it is emitted, so the compilers run
@@ -7155,7 +7465,7 @@ def phase1(fac, env, cases: dict) -> dict:
     start(dict(specs))
     for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
                   k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
-                  k4s_specs, s4_specs, s22_specs):
+                  k4s_specs, s4_specs, s22_specs, k1s_specs):
         start(group(fac, env))
     start(shard_specs(fac))
     start(k5_specs(fac))
@@ -7175,7 +7485,9 @@ def phase1(fac, env, cases: dict) -> dict:
                    ", _trap_batched (K7 over K4)"
                    if s.trap else
                    f"entries {s.name} (K1), _batched (K7), _region (K5)"
-                   + (f", _stream (stream arm: {s.stream.record()})"
+                   + (f", _stream, _stream_batched and _stream_region (the "
+                      f"stream arm, K7 and K5 over it: "
+                      f"{s.stream.record()})"
                       if s.stream is not None else "")
                    if s.stages == 1 and not s.workspace else
                    f"entries {s.name} (K6, {s.stages} sub-stages, "
@@ -7276,8 +7588,21 @@ def main() -> int:
     rtm_bf16 = next(e for e in k7_arms if e.get("path") == "phase 12 (d)")
     bf16_twins["rtm"] = dict(rtm_bf16,
                              state_digest=rtm_bf16.pop("state_digest"))
+    # phase 23 (b)'s twins: phase 12 (b)'s and phase 13 (b)'s bf16
+    # iso3dfd rows (K7 and K5 over K1's body), and the solo rows beside
+    # the batches
+    k1s_twins = {"solo": {
+        "iso3dfd": dict(k_stream, label="phase 4, K1's stream arm, 512^3",
+                        points=512 ** 3),
+        "iso3dfd bf16": solo["iso3dfd bf16"]}}
+    for e in k7_arms:
+        if e.get("path") == "phase 12 (b)":
+            digest = e.pop("state_digest")
+            if "element size 2 arm: iso3dfd" in e["name"]:
+                k1s_twins["k7 bf16"] = dict(e, state_digest=digest)
     release()
     k5_arms, k5_twins = phase13(fac, card)
+    k1s_twins["k5 bf16"] = k5_twins["iso3dfd r=8 bf16"]
     release()
     k4_arms = phase14(fac, env, card)
     release()
@@ -7303,6 +7628,8 @@ def main() -> int:
     s4_arms = phase21(fac, env, card, ptxas)
     release()
     bf16_arms = phase22(fac, env, card, ptxas, bf16_twins)
+    release()
+    k1s_arms = phase23(fac, env, card, ptxas, k1s_twins)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -7310,7 +7637,8 @@ def main() -> int:
                       + k6_arms + a3_arms + last_arms + k7_arms
                       + k5_arms + k4_arms + ws_arms + flat_arms
                       + ss_arms + ss18_arms + k5_ss_arms
-                      + k4_stream_arms + s4_arms + bf16_arms}))
+                      + k4_stream_arms + s4_arms + bf16_arms
+                      + k1s_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

@@ -186,29 +186,44 @@ def test_auto_mode_with_ranks_resolves_to_sharded_and_keeps_shards():
 # ---------------------------------------------------------------------------
 
 PALLAS = [
-    # stencil, r, g, ranks, K, steps
-    ("iso3dfd", 2, 32, [("x", 2), ("y", 2)], 2, 5),
-    ("iso3dfd_sponge", 2, (32, 12, 16), [("x", 4)], 2, 3),
-    ("wave2d", 2, (32, 16), [("x", 2)], 2, 3),
+    # stencil, r, g, ranks, K, steps, options
+    ("iso3dfd", 2, 32, [("x", 2), ("y", 2)], 2, 5, "-skew"),
+    ("iso3dfd_sponge", 2, (32, 12, 16), [("x", 4)], 2, 3, ""),
+    ("wave2d", 2, (32, 16), [("x", 2)], 2, 3, ""),
 ]
 
 
-@pytest.mark.parametrize("stencil,r,g,ranks,K,steps", PALLAS,
+@pytest.mark.parametrize("stencil,r,g,ranks,K,steps,cli", PALLAS,
                          ids=[p[0] for p in PALLAS])
 def test_shard_pallas_matches_yask_tpu_and_single_domain_fused(
-        stencil, r, g, ranks, K, steps):
+        stencil, r, g, ranks, K, steps, cli):
     """5 steps at K=2 run a remainder group.  The port's shard_pallas
     (K5's plain version on CPU tensors) is bit-equal to its own
     single-domain ``-mode fused`` (K1's plain version) at the same K, and
-    within C2 of yask_tpu's shard_pallas in interpret mode."""
-    ctx = port_ctx(stencil, r, g, "shard_pallas", K, ranks)
+    within C2 of yask_tpu's shard_pallas in interpret mode.  Under
+    ``-skew`` (the default) a 3-D solution's boxes run K1's stream arm
+    (``_stream_region``); a 2-D one keeps the body with its reason
+    (tests/test_torch_skew.py holds ``-no-skew`` to K1's body)."""
+    ctx = port_ctx(stencil, r, g, "shard_pallas", K, ranks, cli)
     state = seeded_interiors(ctx, 7)
     n0 = fused_stencil.shard_step.launches
+    s0 = fused_stencil.shard_step.stream_launches
     mine = run(ctx, state, steps)
     assert fused_stencil.shard_step.launches == n0   # plain on the CPU
+    assert fused_stencil.shard_step.stream_launches == s0
     til = ctx.get_stats().get_tiling()
-    assert til["distributed"] and til["skew"] is False
-    assert "ROADMAP.md A5" in til["skew_reasons"][0]["cause"]
+    kern = ctx._shard.kernel
+    three_d = len(ctx._ana.domain_dims) == 3
+    assert til["distributed"] and til["skew"] is three_d
+    code = til["skew_reasons"][0]["code"]
+    if three_d:
+        assert til["name"] == kern.spec.name + "_stream_region"
+        assert code == "skew_engaged"
+        assert til["skew_reasons"][0]["kernel"] == "stream_region"
+        assert til["stream"]["box_segments"]
+    else:
+        assert til["name"] == kern.spec.name + "_region"
+        assert code == "skew_ineligible"
     assert til["comm"]["mesh"] == {d: n for d, n in ranks}
     fused = run(port_ctx(stencil, r, g, "fused", K), state, steps)
     assert bit_equal(mine, fused)

@@ -39,11 +39,12 @@ STEPS = 4   # two wf=2 chunks
 N = 3
 
 
-def port_ctx(mode, g=G, wf=2):
+def port_ctx(mode, g=G, wf=2, cli=""):
     fac = yask_tpu_torch.yk_factory()
     ctx = fac.new_solution(fac.new_env(device="cpu"), stencil="iso3dfd",
                            radius=2)
-    ctx.apply_command_line_options(f"-g {g} -mode {mode} -wf_steps {wf}")
+    ctx.apply_command_line_options(
+        f"-g {g} -mode {mode} -wf_steps {wf} {cli}")
     ctx.prepare_solution()
     return ctx
 
@@ -58,8 +59,8 @@ def seed_member(ctx, i, g=G):
         arr, [0, 0, 0, 0], [0, g - 1, g - 1, g - 1])
 
 
-def port_ensemble(mode, n=N):
-    ctx = port_ctx(mode)
+def port_ensemble(mode, n=N, cli=""):
+    ctx = port_ctx(mode, cli=cli)
     seed_member(ctx, 0)
     ens = ctx.new_ensemble(n)
     for i in range(1, n):
@@ -129,11 +130,21 @@ def test_port_members_bit_identical_to_port_solo(mode):
             assert c._cur_step == STEPS and c._steps_done == STEPS
 
 
-@pytest.mark.parametrize("port_mode,tpu_mode", [("torch", "jit"),
-                                                ("fused", "pallas")])
-def test_port_members_agree_with_yask_tpu_ensemble(port_mode, tpu_mode):
-    _ctx, ens = port_ensemble(port_mode)
+@pytest.mark.parametrize("port_mode,tpu_mode,cli", [
+    ("torch", "jit", ""), ("fused", "pallas", "-skew")],
+    ids=["torch-jit", "fused-pallas"])
+def test_port_members_agree_with_yask_tpu_ensemble(port_mode, tpu_mode,
+                                                   cli):
+    """With ``-skew`` the batch runs K7 over K1's stream arm
+    (``_stream_batched``; its plain version here)."""
+    ctx, ens = port_ensemble(port_mode, cli=cli)
     ens.run(0, STEPS - 1)
+    if cli:
+        til = ens.tiling
+        assert til["kernel"] == "batched_step" and til["skew"] is True
+        assert til["name"] == \
+            ctx._fused_spec_kernel().spec.name + "_stream_batched"
+        assert til["skew_reasons"][0]["kernel"] == "stream_batched"
     fac = yask_tpu.yk_factory()
     tctx = fac.new_solution(fac.new_env(), stencil="iso3dfd", radius=2)
     tctx.apply_command_line_options(f"-g {G} -wf_steps 2")

@@ -7,8 +7,10 @@ slot 0 through a ring of staged planes (``csrc/stream_step.cuh``).  It
 mirrors ``tests/test_skew.py`` where that applies:
 
 * the knob: ``-skew`` selects the arm, ``-no-skew`` keeps K1
-  (``test_skew_off_knob``); 2-D, multi-stage, ensemble and shard runs
-  keep their kernels and say why (``test_skew_engages_*``);
+  (``test_skew_off_knob``); 2-D and multi-stage runs keep their kernels
+  and say why (``test_skew_engages_*``); ensemble and shard runs take K7
+  and K5 over the arm (``_stream_batched``, ``_stream_region``) and keep
+  K1's body under ``-no-skew``;
 * the port's ``-mode fused -skew`` (on the CPU the wrapper takes its plain
   version, ``plain_chunk``) against yask_tpu's ``-mode pallas -skew`` in
   interpret mode, as ``tests/test_torch_fused.py`` runs it, on the same
@@ -204,35 +206,65 @@ def test_skew_multi_stage_keeps_k6():
 
 
 def test_skew_ensemble_keeps_k7():
-    """A member batch runs K7 (its plain version here), whatever the
-    solo arm; the ensemble's tiling says K7 has no stream arm."""
-    ctx = port_ctx("iso3dfd", 2, 12, 2, "-skew")
-    assert ctx._fused_spec_kernel().skew_dims == ["x"]
-    ens = ctx.new_ensemble(3)
-    for i in range(3):
-        with ens.member(i):
-            import_interiors(ctx, seeded_interiors(ctx, 10 + i))
-    ens.run(0, 2)
-    til = ens.tiling
-    assert til["kernel"] == "batched_step" and til["members"] == 3
-    assert til["skew"] is False and til["skew_dims"] == []
-    assert codes(til["skew_reasons"]) == ["skew_not_ported"]
-    assert "ROADMAP.md A5" in til["skew_reasons"][0]["cause"]
-    assert "plane_tile" not in til
+    """A member batch runs K7 (its plain version here) over the arm the
+    solo run takes: under ``-skew`` K7 over K1's stream arm, its tiling
+    naming ``_stream_batched`` and the batch's segments; under
+    ``-no-skew`` K7 over K1's body."""
+    for cli, skew in (("-skew", True), ("-no-skew", False)):
+        ctx = port_ctx("iso3dfd", 2, 12, 2, cli)
+        kern = ctx._fused_spec_kernel()
+        assert kern.skew_dims == (["x"] if skew else [])
+        ens = ctx.new_ensemble(3)
+        for i in range(3):
+            with ens.member(i):
+                import_interiors(ctx, seeded_interiors(ctx, 10 + i))
+        ens.run(0, 2)
+        til = ens.tiling
+        assert til["kernel"] == "batched_step" and til["members"] == 3
+        assert til["skew"] is skew
+        if skew:
+            assert til["skew_dims"] == ["x"]
+            assert til["name"] == kern.spec.name + "_stream_batched"
+            assert codes(til["skew_reasons"]) == ["skew_engaged",
+                                                  "skew_ineligible"]
+            assert til["skew_reasons"][0]["kernel"] == "stream_batched"
+            assert til["segment_planes"] == \
+                kern.batch_segment(3)["segment_planes"]
+            assert "plane_tile" in til
+        else:
+            assert til["skew_dims"] == []
+            assert til["name"] == kern.spec.name + "_batched"
+            assert codes(til["skew_reasons"]) == ["skew_disabled"]
+            assert "plane_tile" not in til
 
 
 def test_skew_shard_keeps_k5():
+    """K5 over a single-stage solution runs over K1's stream arm under
+    ``-skew`` (``_stream_region``, each box's segments in the record) and
+    over K1's body under ``-no-skew``."""
     fac = yask_tpu_torch.yk_factory()
-    ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4),
-                           stencil="iso3dfd", radius=2)
-    ctx.apply_command_line_options(
-        "-g 16 -mode shard_pallas -wf_steps 2 -nr_x 2 -nr_y 2 -skew")
-    ctx.prepare_solution()
-    run_seeded(ctx, 2)
-    til = ctx.get_stats().get_tiling()
-    assert til["kernel"] == "shard_step" and til["skew"] is False
-    assert codes(til["skew_reasons"]) == ["skew_not_ported"]
-    assert "ROADMAP.md A5" in til["skew_reasons"][0]["cause"]
+    for cli, skew in (("-skew", True), ("-no-skew", False)):
+        ctx = fac.new_solution(fac.new_env(devices=["cpu"] * 4),
+                               stencil="iso3dfd", radius=2)
+        ctx.apply_command_line_options(
+            f"-g 16 -mode shard_pallas -wf_steps 2 -nr_x 2 -nr_y 2 {cli}")
+        ctx.prepare_solution()
+        run_seeded(ctx, 2)
+        til = ctx.get_stats().get_tiling()
+        kern = ctx._shard.kernel
+        assert til["kernel"] == "shard_step" and til["skew"] is skew
+        if skew:
+            assert til["name"] == kern.spec.name + "_stream_region"
+            assert codes(til["skew_reasons"])[0] == "skew_engaged"
+            assert til["skew_reasons"][0]["kernel"] == "stream_region"
+            assert til["stream"]["box_segments"] == [
+                kern.region_segment({"x": (-2, 10), "y": (-2, 10),
+                                     "z": (0, 16)}),
+                kern.region_segment({"x": (0, 8), "y": (0, 8),
+                                     "z": (0, 16)})]
+        else:
+            assert til["name"] == kern.spec.name + "_region"
+            assert codes(til["skew_reasons"]) == ["skew_disabled"]
 
 
 def test_skew_falls_back_where_the_rings_do_not_fit(monkeypatch):

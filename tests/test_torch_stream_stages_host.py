@@ -5,7 +5,7 @@ and the plain version it runs on CPU tensors.
   worked out by hand from awp's reads.
 * The gate's reason code for every registered 3-D solution on K6's body
   at element sizes 2, 4 and 8 (at 2 its rings of bfloat16 pairs), for
-  the workspace arm, for K7 over K1's body and for K5; ``-no-skew`` keeps
+  the workspace arm, for K7 over K1's stream arm and for K5; ``-no-skew`` keeps
   ``fused_stages_kernel``.
 * The emitted entries built by g++ (the host path: K6's host loop and the
   pads) against the plain version, solo and over a member batch, into
@@ -233,8 +233,9 @@ def shard_awp(cli=""):
 def test_k5_and_k7_over_k1_keep_their_reasons():
     """K5 over K6's body takes K6's stream arm over its boxes (its reason
     names ``stages_stream_region``, the record each box's segments); K7
-    over K1's body keeps its kernel; K7 over K6's body takes the arm where
-    the solo run does."""
+    over K1's body takes K1's stream arm (``stream_batched``) and keeps
+    its body under ``-no-skew``; K7 over K6's body takes the arm where the
+    solo run does."""
     ctx = shard_awp()
     til = ctx.get_stats().get_tiling()
     kern = ctx._shard.kernel
@@ -246,8 +247,14 @@ def test_k5_and_k7_over_k1_keep_their_reasons():
         kern.region_segment({"x": (0, 8), "y": (0, 8), "z": (0, 16)})]
     iso = port_ctx("iso3dfd", 2, "-g 16 -mode fused")
     til = iso._fused_spec_kernel().tiling(1, members=3)
+    assert til["kernel"] == "batched_step" and til["skew"] is True
+    assert til["name"].endswith("_stream_batched")
+    assert codes(til["skew_reasons"])[0] == "skew_engaged"
+    assert til["skew_reasons"][0]["kernel"] == "stream_batched"
+    iso = port_ctx("iso3dfd", 2, "-g 16 -mode fused -no-skew")
+    til = iso._fused_spec_kernel().tiling(1, members=3)
     assert til["kernel"] == "batched_step" and til["skew"] is False
-    assert codes(til["skew_reasons"]) == ["skew_not_ported"]
+    assert codes(til["skew_reasons"]) == ["skew_disabled"]
     awp = port_ctx("awp", None, "-g 16 -mode fused")
     til = awp._fused_spec_kernel().tiling(1, members=3)
     assert til["kernel"] == "batched_stages_step" and til["skew"] is True

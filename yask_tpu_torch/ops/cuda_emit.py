@@ -44,7 +44,8 @@ into one ``Spec`` struct:
   region) and their halos, the tile extents, and for K6 the stage
   expansions and the computed tiles.  A single-stage 3-D solution read at
   a slot-0 offset also gets K1's stream arm (``csrc/stream_step.cuh``,
-  entry ``<name>_stream``): its plane tile, prefetch depth and rings
+  entry ``<name>_stream``, and ``_stream_batched`` and ``_stream_region``
+  for K7 and K5 over it): its plane tile, prefetch depth and rings
   (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
   into registers; :func:`skew_engaged_dims` says whether it runs.  A 3-D
   solution on K6's body without misc or partial-dim outputs, at element
@@ -1218,8 +1219,8 @@ def _placement(rec) -> str:
 
 def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                       reasons: List[Dict] = None, spec: KernelSpec = None,
-                      batched: bool = False, region: bool = False
-                      ) -> List[str]:
+                      batched: bool = False, region: bool = False,
+                      members: int = 0) -> List[str]:
     """The dims the stream arms walk for a ``skew`` request: the port's
     counterpart of ``yask_tpu``'s ``skew_engaged_dims`` and of the skew
     resolution of ``build_pallas_chunk`` (pallas_stencil.py:366-441,
@@ -1228,27 +1229,19 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     wherever an arm can run), ``True`` = forced (raises where it cannot).
     The port streams one dim, slot 0 (the outermost domain dim), one level
     per launch (ROADMAP.md C11): K1's stream arm for a single-stage 3-D
-    solution (``spec.stream``), K6's (``spec.stages_stream``, kernel
-    ``stages_stream``) for a multi-stage or scratch one, its rings past
-    shared memory where they fit no plane tile, solo, over member
-    batches (K7, ``batched``) or over a shard's box (K5, ``region``,
-    kernel ``stages_stream_region``); ``max_dims`` < 1
-    (``-skew_dims 0``) leaves it out.  K7 and K5 over K1's body keep
-    their kernel (``skew_not_ported``), and the solutions neither arm
-    takes keep theirs with the emitter's reason (``spec.stream_cause``).
-    Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``."""
+    solution (``spec.stream``; kernel ``stream_batched`` over member
+    batches, ``stream_region`` over a shard's box), K6's
+    (``spec.stages_stream``, kernel ``stages_stream``) for a multi-stage
+    or scratch one, its rings past shared memory where they fit no plane
+    tile, solo, over member batches (K7, ``batched``) or over a shard's
+    box (K5, ``region``, kernel ``stages_stream_region``); ``max_dims`` <
+    1 (``-skew_dims 0``) leaves it out.  The solutions neither arm takes
+    keep their kernel with the emitter's reason (``spec.stream_cause``; a
+    4-D single-stage solution keeps K1's body, :func:`_stream_plan`).
+    Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``, and
+    ``members`` a batch's members (K1's arm: its segment in the detail)."""
     if reasons is None:
         reasons = []
-    k6 = len(program.ana.stages) > 1 or has_scratch(program)
-    if batched and not k6:
-        reasons.append({"code": "skew_not_ported", "kernel": "batched_step",
-                        "cause": "K7 over K1's body has no stream arm: "
-                                 "ROADMAP.md A5"})
-        return []
-    if region and not k6:
-        reasons.append({"code": "skew_not_ported", "kernel": "shard_step",
-                        "cause": "K5 over K1's stream arm: ROADMAP.md A5"})
-        return []
     if skew is False:
         reasons.append({"code": "skew_disabled",
                         "detail": "skew=False requested (-no-skew)"})
@@ -1306,14 +1299,28 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
                       f"point{_placement(rec)}"})
     else:
         rec = spec.stream.record()
-        reasons.append({"code": code, "dim": d0,
-                        "detail": f"slot-0 stream, one level per launch: "
-                                  f"plane tile {rec['plane_tile']}, "
-                                  f"prefetch {rec['prefetch']}, rings "
-                                  f"{rec['ring_depths']} planes, "
-                                  f"{rec['smem_bytes']} B, "
-                                  f"{rec['segments']} segment(s) of "
-                                  f"{rec['segment_planes']} planes"})
+        seg, segs, where = rec["segment_planes"], rec["segments"], ""
+        if batched and members:
+            # the batch's members' columns in the waves
+            seg, segs = spec.stream.segments_of(
+                program.sizes[d0], spec.stream.blocks
+                // spec.stream.segments * members)
+            where = f" for {members} members"
+        elif region:
+            where = " at the shard's interior (each box at its own extents)"
+        over = (" over member batches" if batched
+                else " over a shard's box" if region else "")
+        row = {"code": code, "dim": d0,
+               "detail": f"slot-0 stream{over}, one level per launch: "
+                         f"plane tile {rec['plane_tile']} by "
+                         f"{rec['plane_tile'][0] * rec['plane_tile'][1]} "
+                         f"threads, prefetch {rec['prefetch']}, rings "
+                         f"{rec['ring_depths']} planes, "
+                         f"{rec['smem_bytes']} B, {segs} segment(s) of "
+                         f"{seg} planes" + where}
+        if batched or region:
+            row["kernel"] = "stream_batched" if batched else "stream_region"
+        reasons.append(row)
     for d in lead:
         if d != d0:
             reasons.append({"code": "skew_ineligible", "dim": d,

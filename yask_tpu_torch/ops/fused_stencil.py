@@ -119,7 +119,18 @@ compute (K2's prefetch).  It writes every cell of its outputs, pads
 included, so they come from ``torch.empty``.  :func:`stream_step` is its
 wrapper with its own counter ``stream_step.launches``; the plain version
 is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
-arm and says why; ``-no-skew`` keeps K1.
+arm and says why; ``-no-skew`` keeps K1.  K7 and K5 over it: the source's
+``<name>_stream_batched`` (the member a coordinate of the grid beside the
+segments, :func:`call_batched_stream_entry`) and ``<name>_stream_region``
+(the walk over a shard's box, :func:`call_region_stream_entry`), which
+:func:`batched_step` and :func:`shard_step` launch where the arm engages
+(the batch at its members' segment length,
+:meth:`FusedKernel.batch_segment`; each box at its own,
+:meth:`FusedKernel.region_segment`), counted in their
+``stream_launches``.  The batch's outputs come from ``torch.empty`` (its
+pad pass zeroes every member's pads); the box's keep what
+:func:`copy_base` or the caller gave them outside the box.  Their plain
+versions are :func:`plain_batched_chunk` and :func:`plain_shard_step`.
 
 K6's stream arm (``-skew``, on a 3-D solution of K6's body without misc
 or partial-dim outputs, at element size 2, 4 or 8, scratch vars
@@ -153,7 +164,7 @@ launches it where a kernel built with ``region=True`` engages the arm,
 at each box's segment length (:meth:`FusedKernel.region_segment`: the
 plan's rule at the box's extents), counted in
 ``shard_step.stream_launches``; its plain version is
-:func:`plain_shard_step`.  K5 over K1's body keeps its kernel.
+:func:`plain_shard_step`.  ``-no-skew`` keeps K5 over the bodies.
 
 The A3 arms (ROADMAP.md A3: misc dims, partial-dim writes, element size
 2, more than three domain dims) live in the emitted ``Spec`` and the
@@ -337,6 +348,13 @@ def call_entry(fn, program, spec, ins, outs, t: int, stream, ws=None,
               stream)
 
 
+def _member_strides(tensors):
+    """The member stride (dim 0) of each (N, *shape) stack, as the K7
+    entries take them."""
+    return (ctypes.c_longlong * max(len(tensors), 1))(
+        *[a.stride(0) for a in tensors])
+
+
 def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
                        stream, ws=None, nres: int = 0) -> int:
     """Call an emitted kernel's K7 entry point on (N, *shape) stacks:
@@ -346,13 +364,9 @@ def call_batched_entry(fn, program, spec, ins, outs, nm: int, t: int,
     :func:`call_entry`) and the stream."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
-
-    def member_strides(tensors):
-        return (ctypes.c_longlong * max(len(tensors), 1))(
-            *[a.stride(0) for a in tensors])
     slices = spec.out_slices or [(i, ()) for i in range(len(outs))]
-    in_ms = member_strides(ins)
-    out_ms = member_strides([outs[i] for i, _m in slices])
+    in_ms = _member_strides(ins)
+    out_ms = _member_strides([outs[i] for i, _m in slices])
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
               ctypes.addressof(out_s), ctypes.addressof(out_ms),
@@ -420,6 +434,44 @@ def call_stream_entry(fn, program, spec, ins, outs, t: int, stream,
               ctypes.addressof(n3), ctypes.addressof(geo), int(t), stream)
 
 
+def call_batched_stream_entry(fn, program, spec, ins, outs, nm: int,
+                              t: int, stream, seg: int) -> int:
+    """Call K7's entry over K1's stream arm (``<name>_stream_batched``) on
+    (N, *shape) stacks: member 0's tables and the member strides (as
+    :func:`call_batched_entry`), the segment length ``seg`` and the
+    outputs' pads (as :func:`call_stream_entry`), the member count, the
+    step and the stream.  Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
+        program, spec, [a[0] for a in ins], [o[0] for o in outs])
+    in_ms, out_ms = _member_strides(ins), _member_strides(outs)
+    tab = _stream_table(program, spec, seg)
+    geo = (ctypes.c_int * len(tab))(*tab)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
+              ctypes.addressof(out_s), ctypes.addressof(out_ms),
+              ctypes.addressof(n3), ctypes.addressof(geo), int(nm), int(t),
+              stream)
+
+
+def call_region_stream_entry(fn, program, spec, ins, outs, box, off, t: int,
+                             stream, seg: int) -> int:
+    """Call K5's entry over K1's stream arm (``<name>_stream_region``):
+    K1's tables, K5's box table (as :func:`call_region_entry` passes it),
+    the segment and pad table with the box's segment length ``seg`` (as
+    :func:`call_stream_entry` passes it), the step and the stream.
+    Returns its error code."""
+    in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(program, spec, ins,
+                                                     outs)
+    tab = _region_table(program, box, off)
+    reg = (ctypes.c_int * len(tab))(*tab)
+    tab = _stream_table(program, spec, seg)
+    geo = (ctypes.c_int * len(tab))(*tab)
+    return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
+              ctypes.addressof(out_ptrs), ctypes.addressof(out_s),
+              ctypes.addressof(n3), ctypes.addressof(reg),
+              ctypes.addressof(geo), int(t), stream)
+
+
 def call_stages_stream_entry(fn, program, spec, ins, outs, t: int, stream,
                              seg: int = None, nres: int = 1,
                              ws=None) -> int:
@@ -468,10 +520,7 @@ def call_batched_stages_stream_entry(fn, program, spec, ins, outs, nm: int,
     :func:`call_stages_stream_entry`), ``nres`` blocks and the stream."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
-    in_ms = (ctypes.c_longlong * max(len(ins), 1))(
-        *[a.stride(0) for a in ins])
-    out_ms = (ctypes.c_longlong * max(len(outs), 1))(
-        *[o.stride(0) for o in outs])
+    in_ms, out_ms = _member_strides(ins), _member_strides(outs)
     return fn(ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
               ctypes.addressof(out_s), ctypes.addressof(out_ms),
@@ -512,6 +561,20 @@ def stream_argtypes():
     """The stream entry's C signature: K1's tables, the segment and pad
     table, the step, the stream."""
     return [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+
+
+def batched_stream_argtypes():
+    """K7's entry over K1's stream arm: K7's tables with the member
+    strides, the segment and pad table, the member count, the step, the
+    stream."""
+    return [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
+
+
+def region_stream_argtypes():
+    """K5's entry over K1's stream arm: K1's tables, the box table, the
+    segment and pad table, the step, the stream."""
+    return [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
 
 
 def stages_stream_argtypes():
@@ -780,28 +843,48 @@ def check_pair_strides(program, spec, ins, lead: int = 0,
                 "and plane strides (and even outer and member strides)")
 
 
+def _launch_stream(kernel: "FusedKernel", state, t: int, nm, what: str):
+    """Launch one sub-step of K1's stream arm (``nm`` None) or of K7 over
+    it for ``nm`` members stacked as (nm, *shape) (at the batch's segment
+    length, :meth:`FusedKernel.batch_segment`) on the current CUDA stream;
+    returns the new state (rings rotated).  The kernel writes every cell
+    of its outputs (every member's pads), so they come from
+    ``torch.empty``; it raises where the kernel fails to launch."""
+    import torch
+    prog = kernel.program
+    spec = kernel.spec
+    lead = () if nm is None else (nm,)
+    ins, dev = _check_inputs(kernel, state, lead=lead)
+    if kernel.dtype == torch.bfloat16:
+        check_pair_strides(prog, spec, ins, len(lead), what)
+    outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
+                        dtype=kernel.dtype, device=dev)
+            for n in spec.outputs]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if nm is None:
+            rc = call_stream_entry(kernel.stream_fn, prog, spec, ins, outs,
+                                   t, stream)
+        else:
+            rc = call_batched_stream_entry(
+                kernel.batched_stream_fn, prog, spec, ins, outs, nm, t,
+                stream, kernel.batch_segment(nm)["segment_planes"])
+    if rc != 0:
+        entry = "_stream" + ("" if nm is None else "_batched")
+        raise YaskException(
+            f"{what} kernel '{spec.name}{entry}' launch failed: CUDA error "
+            f"{rc}")
+    return _rotated(prog, spec, state, outs)
+
+
 def stream_step(kernel: "FusedKernel", state, t: int):
     """Launch one sub-step of K1's stream arm on the current CUDA stream;
     returns the new state (rings rotated).  The kernel writes every cell
     of its outputs, so they come from ``torch.empty``.  Counts each launch
     in ``stream_step.launches``."""
-    import torch
-    prog = kernel.program
-    spec = kernel.spec
-    ins, dev = _check_inputs(kernel, state)
-    if kernel.dtype == torch.bfloat16:
-        check_pair_strides(prog, spec, ins)
-    outs = [torch.empty(tuple(prog.geoms[n].shape), dtype=kernel.dtype,
-                        device=dev) for n in spec.outputs]
-    with torch.cuda.device(dev):
-        rc = call_stream_entry(kernel.stream_fn, prog, spec, ins, outs, t,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise YaskException(
-            f"stream_step kernel '{spec.name}_stream' launch failed: CUDA "
-            f"error {rc}")
+    state = _launch_stream(kernel, state, t, None, "stream_step")
     stream_step.launches += 1
-    return _rotated(prog, spec, state, outs)
+    return state
 
 
 stream_step.launches = 0
@@ -835,13 +918,20 @@ def batched_step(kernel: "FusedKernel", state, t: int, nm: int):
     """Launch one sub-step of K7 over K1's body (a single-stage solution
     without scratch vars) for ``nm`` members stacked as (nm, *shape);
     returns the new stacked state.  Counts each launch in
-    ``batched_step.launches``."""
+    ``batched_step.launches``; where K1's stream arm is engaged
+    (``kernel.skew_dims``) it launches ``<name>_stream_batched`` instead
+    (:func:`_launch_stream`), counted in ``batched_step.stream_launches``."""
+    if kernel.skew_dims:
+        state = _launch_stream(kernel, state, t, nm, "batched_step")
+        batched_step.stream_launches += 1
+        return state
     state = _launch_batched(kernel, state, t, nm, "batched_step")
     batched_step.launches += 1
     return state
 
 
 batched_step.launches = 0
+batched_step.stream_launches = 0
 
 
 def batched_stages_step(kernel: "FusedKernel", state, t: int, nm: int):
@@ -980,10 +1070,11 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     the group needs it), the shard's global origin ``off``; returns the
     shard's new state (rings rotated).  It launches the ``_region`` entry
     of the kernel's body: K1's for a single-stage solution, K6's (every
-    stage and scratch sub-stage) otherwise; where K6's stream arm is
+    stage and scratch sub-stage) otherwise; where a stream arm is
     engaged (``kernel.skew_dims``, a kernel built with ``region=True``)
-    its ``_stages_stream_region`` entry instead, at the box's segment
-    length (:meth:`FusedKernel.region_segment`).  The outputs are fresh
+    its box entry instead (K1's ``_stream_region``, K6's
+    ``_stages_stream_region``), at the box's segment length
+    (:meth:`FusedKernel.region_segment`).  The outputs are fresh
     zeroed tensors holding the box's cells (a var whose misc slices are
     not all written starts from a copy of its evicted slot,
     :func:`copy_base`), or the given ``outs``, of which only the box is
@@ -1012,7 +1103,12 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
         outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel.skew_dims:
+        if kernel.skew_dims and spec.stream is not None:
+            entry = "_stream_region"
+            rc = call_region_stream_entry(
+                kernel.stream_region_fn, prog, spec, ins, outs, box, off, t,
+                stream, kernel.region_segment(box)["segment_planes"])
+        elif kernel.skew_dims:
             entry = "_stages_stream_region"
             ws, nres = kernel.stream_workspace(dev, 2)
             rc = call_region_stages_stream_entry(
@@ -1060,12 +1156,15 @@ class FusedKernel:
     stream-arm request and ``max_skew_dims`` the ``-skew_dims`` window
     (:func:`~yask_tpu_torch.ops.cuda_emit.skew_engaged_dims`, whose
     reason records land in ``skew_reasons``): where it engages, ``chunk``
-    launches :func:`stream_step` in place of :func:`fused_step` (K1's
-    arm), or :func:`stages_step` and :func:`batched_stages_step` launch
-    K6's stream arm (``<name>_stages_stream``, ``_batched``).  ``region``
-    makes K5's kernel of a shard's program: the request then selects
-    K5's arm, and :func:`shard_step` launches K6's stream arm over the
-    box (``<name>_stages_stream_region``) where it engages."""
+    launches :func:`stream_step` in place of :func:`fused_step` and
+    :func:`batched_step` K7 over it (K1's arm: ``<name>_stream``,
+    ``_stream_batched``), or :func:`stages_step` and
+    :func:`batched_stages_step` launch K6's stream arm
+    (``<name>_stages_stream``, ``_batched``).  ``region`` makes K5's
+    kernel of a shard's program: the request then selects K5's arm, and
+    :func:`shard_step` launches the stream arm over the box
+    (``<name>_stream_region``, ``<name>_stages_stream_region``) where it
+    engages."""
 
     def __init__(self, program, push=False, skew=False,
                  max_skew_dims: int = 2, region: bool = False):
@@ -1083,7 +1182,10 @@ class FusedKernel:
         self.fn = None
         self.batched_fn = None
         self.region_fn = None
+        #: K1's stream arm: its solo, batch and box entries
         self.stream_fn = None
+        self.batched_stream_fn = None
+        self.stream_region_fn = None
         #: K6's stream arm: its solo, batch and box entries and their
         #: resident-block query
         self.stages_stream_fn = None
@@ -1091,8 +1193,9 @@ class FusedKernel:
         self.region_stages_stream_fn = None
         self.stream_resident_fn = None
         #: K5's stream arm: each box's segments, per (box extents,
-        #: resident blocks)
+        #: resident blocks); K7's over K1's: per member count
         self._region_segs: Dict[tuple, Dict] = {}
+        self._batch_segs: Dict[int, Dict] = {}
         #: the workspace arm's resident-block query and its answers per
         #: launch kind (0 solo, 1 member batch, 2 a shard's box)
         self.resident_fn = None
@@ -1144,10 +1247,17 @@ class FusedKernel:
             self.resident_fn.argtypes = [ctypes.c_int]
             self.resident_fn.restype = ctypes.c_int
         if self.spec.stream is not None:
-            sfn = getattr(lib, self.spec.name + "_stream")
-            sfn.argtypes = stream_argtypes()
-            sfn.restype = ctypes.c_int
-            self.stream_fn = sfn
+            stem = self.spec.name + "_stream"
+            for attr, entry, argtypes in (
+                    ("stream_fn", stem, stream_argtypes()),
+                    ("batched_stream_fn", stem + "_batched",
+                     batched_stream_argtypes()),
+                    ("stream_region_fn", stem + "_region",
+                     region_stream_argtypes())):
+                f = getattr(lib, entry)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                setattr(self, attr, f)
         if self.spec.stages_stream is not None:
             stem = self.spec.name + "_stages_stream"
             self.stages_stream_fn = getattr(lib, stem)
@@ -1233,27 +1343,52 @@ class FusedKernel:
     def region_segment(self, box, nres: int = 0) -> Dict[str, object]:
         """K5's stream arm over ``box``: the plan's segment rule
         (:func:`~yask_tpu_torch.ops.tile_planner.stream_segments`) at the
-        box's extents, on ``nres`` resident blocks (0: those the card
-        answered for a box, else the plan's estimate).  Returns the box,
-        its segment length, segments, columns and blocks."""
+        box's extents; K6's on ``nres`` resident blocks (0: those the card
+        answered for a box, else the plan's estimate), K1's on its grid's
+        waves (``StreamPlan.segments_of``).  Returns the box, its segment
+        length, segments, columns and blocks (K1's: the grid's)."""
         from yask_tpu_torch.ops import tile_planner
-        plan = self.spec.stages_stream
+        k1 = self.spec.stream
+        plan = k1 or self.spec.stages_stream
         dims = list(self.program.ana.domain_dims)
         n = tuple(int(box[d][1]) - int(box[d][0]) for d in dims)
-        if not nres:
+        if k1 is not None:
+            nres = 0
+        elif not nres:
             nres = self._resident.get(("stream", 2)) or min(
                 tile_planner.SMS * plan.per_sm,
                 plan.ws_blocks or tile_planner.SMS * plan.per_sm)
         key = (n, nres)
         if key not in self._region_segs:
             cols = -(-n[1] // plan.tile[0]) * -(-n[2] // plan.tile[1])
-            seg, segs = tile_planner.stream_segments(n[0], cols, nres,
-                                                     plan.warm)
+            if k1 is not None:
+                seg, segs = k1.segments_of(n[0], cols)
+                blocks = cols * segs
+            else:
+                seg, segs = tile_planner.stream_segments(n[0], cols, nres,
+                                                         plan.warm)
+                blocks = nres
             self._region_segs[key] = {"segment_planes": seg,
                                       "segments": segs, "columns": cols,
-                                      "blocks": nres}
+                                      "blocks": blocks}
         return dict(self._region_segs[key],
                     box=[[int(x) for x in box[d]] for d in dims])
+
+    def batch_segment(self, members: int) -> Dict[str, object]:
+        """K7 over K1's stream arm for ``members`` members: the plan's
+        segment rule with the members' columns in the waves
+        (``StreamPlan.segments_of``).  Returns the members, the segment
+        length, segments per member, columns per member and the grid's
+        blocks."""
+        if members not in self._batch_segs:
+            plan = self.spec.stream
+            cols = plan.blocks // plan.segments
+            n0 = self.program.sizes[self.program.ana.domain_dims[0]]
+            seg, segs = plan.segments_of(n0, cols * members)
+            self._batch_segs[members] = {
+                "members": members, "segment_planes": seg, "segments": segs,
+                "columns": cols, "blocks": cols * segs * members}
+        return dict(self._batch_segs[members])
 
     def chunk(self, state, t0: int, k: int):
         """Advance ``k`` steps from ``t0``: one kernel launch per step on
@@ -1317,7 +1452,7 @@ class FusedKernel:
             reasons = []
             skew_dims = cuda_emit.skew_engaged_dims(
                 self.program, *self._skew, reasons=reasons, spec=s,
-                batched=True)
+                batched=True, members=members)
         if s is None:
             return {"kernel": None, "name": None, "fuse_steps": fuse_steps,
                     "launches_per_step": 0, "stages": 0, "members": members,
@@ -1368,16 +1503,27 @@ class FusedKernel:
                     if isinstance(k, tuple)}))
             if members:
                 out.update(kernel="batched_stages_step", members=members)
+        elif s.stream is not None and skew_dims:
+            # K1's stream arm (solo, K7 over it at the batch's segment, K5
+            # over it): its plan, also under "stream"
+            rec = s.stream.record()
+            if members:
+                b = self.batch_segment(members)
+                rec.update(segment_planes=b["segment_planes"],
+                           segments=b["segments"], blocks=b["blocks"])
+            out.update(rec)
+            out.update(kernel="batched_step" if members else "stream_step",
+                       name=s.name + "_stream" + (
+                           "_batched" if members else
+                           "_region" if self.region else ""),
+                       tile=[1] + rec["plane_tile"], pipeline_dmas=True,
+                       skew=True, skew_dims=list(skew_dims), stream=rec)
+            if members:
+                out["members"] = members
         elif members:
             out.update(kernel=("batched_step" if s.stages == 1
                                else "batched_stages_step"),
                        name=s.name + "_batched", members=members)
-        elif self.skew_dims:
-            rec = s.stream.record()
-            out.update(rec)
-            out.update(kernel="stream_step", name=s.name + "_stream",
-                       tile=[1] + rec["plane_tile"], pipeline_dmas=True,
-                       skew=True, skew_dims=list(self.skew_dims))
         return out
 
 
@@ -1436,12 +1582,8 @@ def call_trap_batched_entry(fn, program, spec, ins, outs, pas: int, nm: int,
     :func:`call_batched_entry` passes them, then the workspace."""
     in_ptrs, in_s, out_ptrs, out_s, n3 = _arg_tables(
         program, spec, [a[0] for a in ins], [o[0] for o in outs])
-
-    def member_strides(tensors):
-        return (ctypes.c_longlong * max(len(tensors), 1))(
-            *[a.stride(0) for a in tensors])
-    in_ms = member_strides(ins)
-    out_ms = member_strides([outs[i] for i, _m in spec.out_slices])
+    in_ms = _member_strides(ins)
+    out_ms = _member_strides([outs[i] for i, _m in spec.out_slices])
     return fn(int(pas), ctypes.addressof(in_ptrs), ctypes.addressof(in_s),
               ctypes.addressof(in_ms), ctypes.addressof(out_ptrs),
               ctypes.addressof(out_s), ctypes.addressof(out_ms),

@@ -431,6 +431,16 @@ class StreamPlan:
     #: per ring, cells staged per interior point: the in-plane halo and
     #: the h0 planes each segment stages again
     staged_per_point: Dict[int, float]
+    #: planes each segment stages again (the widest ring's h0_lo + h0_hi)
+    h0: int = 0
+
+    def segments_of(self, n0: int, cols: int) -> Tuple[int, int]:
+        """The segment length and segments of a walk of ``n0`` planes over
+        ``cols`` columns (times the members of a batch): the plan's rule,
+        :func:`stream_segments` on the card's resident blocks of this
+        plane tile.  The plan takes it at the domain's extents, K7's
+        wrapper with the batch's columns, K5's at each box's."""
+        return stream_segments(n0, cols, SMS * self.per_sm, self.h0)
 
     def record(self) -> Dict[str, object]:
         return {"plane_tile": list(self.tile), "prefetch": self.prefetch,
@@ -467,21 +477,13 @@ def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
                                 SM_SMEM // (cells * esize + 1024)))
             cols = -(-n1 // t1) * -(-n2 // t2)
             h0 = max((h[0][0] + h[0][1] for h in halos.values()), default=0)
-            best = None
-            for s in range(1, min(n0, 65535) + 1):
-                seg = -(-n0 // s)
-                segs = -(-n0 // seg)
-                waves = -(-cols * segs // (SMS * per_sm))
-                cost = waves * (seg + h0)
-                if best is None or cost < best[0]:
-                    best = (cost, segs, seg)
-            _cost, segs, seg = best
+            seg, segs = stream_segments(n0, cols, SMS * per_sm, h0)
             staged = {a: (t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
                       * (n0 + segs * (h[0][0] + h[0][1])) / (nt * n0)
                       for a, h in halos.items()}
             return StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
                               cols * segs, per_sm, register_queue(nt, per_sm),
-                              staged)
+                              staged, h0)
     return None
 
 
@@ -644,12 +646,14 @@ def _place_rings(in_elems: Dict[int, int], cmp_elems: List[int],
 
 def stream_segments(n0: int, cols: int, blocks: int, warm: int
                     ) -> Tuple[int, int]:
-    """The segment length of slot 0 (``n0`` planes) for K6's stream arm
-    and the segments it makes: of ``cols`` columns on ``blocks`` resident
-    blocks, the split whose waves of work items times each item's walk
-    (its planes and the ``warm`` planes before them) are the fewest, the
-    fewest segments on a tie.  The plan applies it at the domain's
-    extents, K5's wrapper at each box's."""
+    """The segment length of slot 0 (``n0`` planes) for a stream arm
+    (K1's and K6's) and the segments it makes: of ``cols`` columns (times
+    the members of a batch) on ``blocks`` resident blocks, the split whose
+    waves of work items times each item's walk (its planes and the
+    ``warm`` planes before them: K6's warm-up, K1's re-staged h0) are the
+    fewest, the fewest segments on a tie.  The plans apply it at the
+    domain's extents, the wrappers at a batch's members and each box's
+    extents."""
     best = None
     for s in range(1, min(n0, 65535) + 1):
         seg = -(-n0 // s)

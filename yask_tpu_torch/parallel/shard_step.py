@@ -42,8 +42,10 @@ share a device, peer to peer between cards otherwise.
 
 Not carried: the halo-time calibration (``timed_median``,
 ``_calibrate_halo_frac``, ``_build_exchange_only``; ``-measure_halo``
-raises, ROADMAP.md A11) and the skewed wavefront inside shards (K5 has
-no stream arm: ROADMAP.md A5).
+raises, ROADMAP.md A11).  The skewed wavefront inside shards is K5 over
+the stream arms (K1's for a single-stage solution, K6's otherwise), one
+level per launch, each box walked along slot 0 (``-skew``, the default;
+ROADMAP.md C11).
 """
 
 from __future__ import annotations
@@ -650,7 +652,8 @@ class ShardPallasPlan:
     (pads grown by ``hK = radius × wf_steps``), K5's kernel over the local
     program (push off, as the reference builds its distributed chunk
     without ``push=``; the session's ``-skew`` and ``-skew_dims`` select
-    K6's stream arm over each box where it engages), and the tiling
+    a stream arm over each box where it engages: K1's for a single-stage
+    solution, K6's otherwise), and the tiling
     record of the last run."""
 
     def __init__(self, ctx):
@@ -663,8 +666,8 @@ class ShardPallasPlan:
         self.rad = {d: rad.get(d, 0) for d in dims}
         hK = {d: self.rad[d] * self.K for d in dims}
         extra = {d: (hK[d], hK[d]) for d in dims}
-        # at element size 2 an even padded minor extent per shard: K6's
-        # stream arm over a box fills its rings with aligned bfloat16
+        # at element size 2 an even padded minor extent per shard: the
+        # stream arms over a box fill their rings with aligned bfloat16
         # pairs (fused_stencil.check_pair_strides)
         mult = ({dims[-1]: 2} if is_bfloat16(ctx._csol.dtype) else None)
         self.layout = ShardLayout(ctx, extra, ("shard_pallas", self.K),
@@ -951,5 +954,5 @@ def run_shard_pallas(ctx, start: int, n: int) -> None:
                 if ov and gk > 1:
                     cbox, shells = split_boxes(sp, core, gk, s_)
                     boxes += [cbox] + shells
-        tiling["stages_stream"]["box_segments"] = [
-            sp.kernel.region_segment(b) for b in boxes]
+        (tiling.get("stages_stream") or tiling["stream"])[
+            "box_segments"] = [sp.kernel.region_segment(b) for b in boxes]

@@ -15,7 +15,9 @@ Execution modes (``-mode``):
   :mod:`yask_tpu_torch.ops.fused_stencil`, one launch per step (the
   counterpart of ``pallas``); on CPU tensors its plain version runs.
   With ``-skew`` (on by default) a 3-D single-stage solution runs K1's
-  stream arm instead (``stream_step``; ``-no-skew`` keeps K1), and a 3-D
+  stream arm instead (``stream_step``, and in member batches and on
+  shards' boxes ``<name>_stream_batched`` and ``_stream_region``;
+  ``-no-skew`` keeps K1), and a 3-D
   multi-stage one without scratch vars K6's stream arm, solo and in
   member batches (``stages_step`` launches ``<name>_stages_stream``;
   ``-no-skew`` keeps K6's body).  With

@@ -8,7 +8,9 @@ of the members is stacked once per run into one contiguous (N, *shape)
 tensor, and ``-mode fused`` advances all members with one launch of K7
 per step (the member-batched fused kernel:
 :func:`yask_tpu_torch.ops.fused_stencil.batched_step` over K1's body,
-``batched_stages_step`` over K6's), then unstacks the members as
+``batched_stages_step`` over K6's; under ``-skew``, the default, over
+their stream arms where the solo run takes one), then unstacks the
+members as
 contiguous views.  K7 takes every arm of the reference's vmapped chunk:
 several stages, scratch sub-stages, rewrites, misc dims, partial-dim
 writes, element size 2 and more than three domain dims.  It never

@@ -180,7 +180,8 @@ script exits 0 only when all of them passed.  Phases:
    stage reads at outer offsets) and K6 at element size 2 (its staged,
    stage and scratch tiles in bfloat16).  (a) On small ragged grids (three
    tile boundaries per slot and a partial last tile; 5 in the outer dim)
-   test_4d (K1), ``four_d_stages`` (K6: a scratch var read at outer
+   test_4d (K1's body under ``-no-skew``, phase 24 runs the default,
+   K1's stream arm), ``four_d_stages`` (K6: a scratch var read at outer
    offsets, a domain condition on the outer dim, a second stage reading
    the first at outer offsets; built with the port's DSL) and, at element
    size 2, tti r=2 (scratch), ssg (2 stages), awp (4 stages, rewrites;
@@ -194,8 +195,9 @@ script exits 0 only when all of them passed.  Phases:
    12⁴) for 2 steps (``compare_data``'s defaults, (3e-2, 3e-2) at
    element size 2); (c) at full width, each through the user's entry
    points with 2 warm-up steps and the counters zeroed just before the
-   trials: test_4d at 128⁴ fp32 ``-wf_steps 2`` (K1; the stream arm
-   ``skew_ineligible``), 3 trials of 20 steps; four_d_stages at 128⁴ fp32
+   trials: test_4d at 128⁴ fp32 ``-wf_steps 2`` (K1's body under
+   ``-no-skew``: the twin of phase 24 (b), which takes its final state's
+   digest), 3 trials of 20 steps; four_d_stages at 128⁴ fp32
    (K6's body under ``-no-skew``, as in (a) and (b): the twin of phase
    21), one trial of 10; tti r=2 at 512³ in bfloat16 ``-wf_steps 2``
    (K6's body with scratch sub-stages under ``-no-skew``, the twin of
@@ -208,8 +210,9 @@ script exits 0 only when all of them passed.  Phases:
    ``build_pallas_chunk`` returns): K7 over K1's body (``batched_step``)
    and over K6's (``batched_stages_step``), each block one member and
    one outer cell, the batch built push-off as the reference's; every
-   batch of this phase runs ``-no-skew`` (K6's body: phase 17 (a) and
-   (c) run K7 over K6's stream arm).  (a)
+   batch of this phase runs ``-no-skew`` (the bodies: phases 17 (a) and
+   (c), 23 and 24 run K7 over K6's and K1's stream arms; phase 24 (b)
+   takes the final state's digest of (b)'s test_4d cell).  (a)
    ``-mode fused -wf_steps 2 -ensemble 3`` through ``EnsembleRun`` at mid
    width, 5 steps, the counters zeroed just before: tti r=2 (scratch),
    awp (rewrite), ssg (stages), gaussian r=2 and test_misc_2d (misc),
@@ -510,7 +513,27 @@ script exits 0 only when all of them passed.  Phases:
    bit-equal: iso3dfd r=8 512³ on 2x2 shards K=2, fp32 and bf16 (ms per
    launch over the grown and the interior box, per step, against the
    bounds), and K7 over 8 x iso3dfd r=8 256³, fp32 and bf16; each with
-   ptxas's report and ``torch.profiler`` over 3 launches of the arm alone.
+   ptxas's report and ``torch.profiler`` over 3 launches of the arm alone;
+24. K1's stream arm past three domain dims (``stream_step_kernel<S,
+   BATCH, false>`` with ``NOUTER``: each outer cell a coordinate of the
+   work items beside the segments and the member, each read at an outer
+   offset an input with a ring of its own, the pad pass over every
+   slot's pads), solo (``stream_step``) and as K7's batch
+   (``batched_step``, ``<name>_stream_batched``), the default under
+   ``-skew`` of a single-stage solution with outer dims; phases 11 and
+   12 hold K1's and K7's bodies under ``-no-skew``.  (a) At mid width
+   (:data:`S24_MID`: test_4d fp32 and bf16 at 5x67x45x130) from one
+   seed, each beside its ``-no-skew`` twin, bit-equal, the arm alone
+   launching: solo, held to its plain version, and K7 x3, each member
+   bit-equal to the twin's; one launch of each timed beside its twin's;
+   (b) test_4d at 128⁴, fp32 (3 trials of 20 steps, from phase 11 (c)'s
+   seed, its final state's digest equal to phase 11 (c)'s) and bf16 (one
+   trial of 10, beside its twin run here), and K7 over 8 x 64⁴ fp32 (from
+   phase 12 (b)'s seeds, the final states' digests equal): ms per launch
+   and per step against the bound and the twin's, ptxas's registers and
+   spills, ``torch.profiler`` over 3 launches of the arm and 3 of the
+   twin (kernels, fills, idle share), and the fp32 arm at the plane
+   tiles of :data:`S24_SWEEP` (each the same bits).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -3180,11 +3203,11 @@ A3B_CASES = (("test_4d", None, 4, "fused_step"),
              ("gaussian", 2, 2, "stages_step"))
 #: the outer dim's extent in phase 11 (a)'s ragged 4-D grids
 OUTER_RAGGED = 5
-#: Phase 11 runs four_d_stages and the bfloat16 3-D solutions on K6's body
-#: (``-no-skew``): the twins that phases 21 and 22 hold K6's stream arm
-#: (the default) to
-A3B_CLI = {"four_d_stages": "-no-skew", "tti": "-no-skew",
-           "ssg": "-no-skew", "awp": "-no-skew"}
+#: Phase 11 runs test_4d on K1's body, four_d_stages and the bfloat16 3-D
+#: solutions on K6's body (``-no-skew``): the twins that phases 24, 21 and
+#: 22 hold K1's and K6's stream arms (the default) to
+A3B_CLI = {"test_4d": "-no-skew", "four_d_stages": "-no-skew",
+           "tti": "-no-skew", "ssg": "-no-skew", "awp": "-no-skew"}
 
 
 def a3b_sizes(fac, env, st, r, eb) -> tuple:
@@ -3299,23 +3322,27 @@ def phase11(fac, env, card: str, tti32: dict, full4: int = 128,
     """The 4-D arms of K1 and K6 and K6 at element size 2 (see the module
     docstring); ``tti32`` is phase 9 (c)'s fp32 tti entry from the same
     run, the yardstick of the bf16 one.  Returns the ``kernels``
-    entries, the bf16 one holding its final state's digest under
-    ``state_digest`` (phase 22 (b)'s twin) for the caller to take out."""
+    entries, test_4d's and the bf16 one holding their final states'
+    digests under ``state_digest`` (phase 24 (b)'s and phase 22 (b)'s
+    twins) for the caller to take out."""
     import torch
     t_phase = time.perf_counter()
     worst = phase11a(fac, env)
     phase11b(fac, env)
     k1 = a3_full(fac, env, card, "test_4d", None, 4, (full4,) * 4,
-                 "fused_step", f"4-D arm of K1: test_4d {full4}^4 fp32")
+                 "fused_step", f"4-D arm of K1: test_4d {full4}^4 fp32 "
+                 "(-no-skew, K1's body)", cli=A3B_CLI["test_4d"])
     til = k1["ctx"].get_stats().get_tiling()
     log(f"phase 11: test_4d {full4}^4: tiling {til['kernel']}, tile "
         f"{til['tile']}, smem {til['smem_bytes']} B; the stream arm: "
         f"{sorted({x['code'] for x in til['skew_reasons']})} "
         f"({til['skew_reasons'][0]['detail']})")
     if til["kernel"] != "fused_step" or any(
-            x["code"] != "skew_ineligible" for x in til["skew_reasons"]):
-        raise RuntimeError("phase 11: test_4d did not run on K1 with the "
-                           "stream arm ineligible")
+            x["code"] != "skew_disabled" for x in til["skew_reasons"]):
+        raise RuntimeError("phase 11: test_4d did not run on K1's body "
+                           "under -no-skew")
+    # its final state's digest: phase 24 (b)'s twin (main pops it)
+    k1["state_digest"] = state_digest(k1["ctx"])
     k1.update(source="yask_tpu_torch/csrc/fused_step.cuh",
               replaces="yask_tpu/ops/pallas_stencil.py:1442 (the grid over "
                        "every lead dim; test_4d in tests/test_pallas.py:"
@@ -7249,8 +7276,10 @@ def k1s_specs(fac, env) -> dict:
 
 
 def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
-                steps: int = 5) -> list:
-    """Phase 23 (a)'s member batches: each case as K7 x ``nm`` over K1's
+                steps: int = 5, st: str = "iso3dfd",
+                phase: str = "23 (a)") -> list:
+    """Phase 23 (a)'s member batches (phase 24 (a)'s of test_4d, ``st``):
+    each case as K7 x ``nm`` over K1's
     stream arm (``-skew``, the default) and its ``-no-skew`` twin (K7 over
     K1's body) from one seed, ``steps`` steps at K = 2 with the counters
     zeroed just before (the arm alone launches), every member bit-equal
@@ -7261,9 +7290,9 @@ def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
     rows = []
     for label, r, eb, sizes in cases:
         eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
-        ctx, ens = member_batch(fac, env, "iso3dfd", r, eb, sizes, nm,
+        ctx, ens = member_batch(fac, env, st, r, eb, sizes, nm,
                                 lambda c, i: seed_case(c, 100 + i))
-        twin, tens = member_batch(fac, env, "iso3dfd", r, eb, sizes, nm,
+        twin, tens = member_batch(fac, env, st, r, eb, sizes, nm,
                                   lambda c, i: seed_case(c, 100 + i),
                                   cli="-no-skew")
         zero_launch_counts()
@@ -7273,7 +7302,7 @@ def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
         til = ens.tiling
         if got != {"batched_step_stream": steps} or not til["skew"] \
                 or not til["name"].endswith("_stream_batched"):
-            raise RuntimeError(f"phase 23 (a): K7 {label}: launches {got}, "
+            raise RuntimeError(f"phase {phase}: K7 {label}: launches {got}, "
                                f"tiling {til['name']} {til['skew_reasons']}")
         nbad = 0
         for i in range(nm):
@@ -7281,7 +7310,7 @@ def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
                 nbad += device_diff(c, c2, exact=True)[1]
                 ok = finite(c)
             if not ok:
-                raise RuntimeError(f"phase 23 (a): K7 {label}: member {i} is "
+                raise RuntimeError(f"phase {phase}: K7 {label}: member {i} is "
                                    "not finite")
         err, nbits, scale = k7_chunk_vs_plain(ctx, ens, steps, 2)
         state = ens._stack_states()
@@ -7294,7 +7323,7 @@ def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
         del state
         bound_ms, bound_by, _nb = k7_bound(ctx, nm)
         seg = kern.batch_segment(nm)
-        log(f"phase 23 (a): K7 over K1's stream arm, {label}, {nm} x "
+        log(f"phase {phase}: K7 over K1's stream arm, {label}, {nm} x "
             f"{'x'.join(map(str, sizes))} K=2 {steps} steps: launches {got} "
             f"({til['name']}, {seg['segments']} segment(s) of "
             f"{seg['segment_planes']} planes); vs the -no-skew twin (K7 over "
@@ -7305,7 +7334,7 @@ def phase23a_k7(fac, env, card: str, cases=K1S_K7_MID, nm: int = 3,
             f"{twin_ms:.4f}, bound {bound_ms:.4f} ms ({bound_by}), plain "
             f"{plain_ms:.3f} ms [{card}]")
         if nbad or not err <= eps * scale:
-            raise RuntimeError(f"phase 23 (a): K7 {label}: {nbad} cells "
+            raise RuntimeError(f"phase {phase}: K7 {label}: {nbad} cells "
                                "differ from the twin, or the batch and its "
                                "plain version disagree")
         rows.append((label, ms, plain_ms, bound_ms, bound_by, err,
@@ -7423,6 +7452,282 @@ def phase23(fac, env, card: str, ptxas: dict, twins: dict) -> list:
     return entries
 
 
+# ---- phase 24: K1's stream arm past three domain dims --------------------
+
+#: Phase 24 (a): test_4d at mid width, (label, element bytes, sizes w, x,
+#: y, z): 5 outer cells, slot 0 and both plane slots ragged against the
+#: 16x64 plane tile, solo and as K7 x3
+S24_MID = (("test_4d fp32", 4, (5, 67, 45, 130)),
+           ("test_4d bf16", 2, (5, 67, 45, 130)))
+#: Phase 24 (b): test_4d at 128⁴ solo, fp32 (phase 11 (c)'s run, its
+#: -no-skew twin) and bf16 (one trial of 10 steps, its twin run here),
+#: and K7 over 8 x 64⁴ fp32 (phase 12 (b)'s 4-D cell, its twin)
+S24_FULL = 128
+S24_K7 = next(c for c in K7_FULL if c[1] == "test_4d")
+#: the plane tiles of tile_planner.STREAM_TILES the 128⁴ fp32 run is also
+#: timed at (each the same bits; the plan takes 16x32 by 3 blocks an SM,
+#: 40 registers a thread), a third entry the least registers a thread
+#: keeps in place of tile_planner.STREAM_OUTER_MIN_REGS: 16x64 by two
+#: blocks at 32 registers (the 3-D arm's rule), by one at 64, and 8x64 by
+#: three at 40; few, as each is a source phase 1 builds
+S24_SWEEP = ((16, 64, 32), (16, 64), (8, 64))
+#: what the arm replaces: the reference's grid over every lead dim under
+#: K2's prefetch and K3's slot-0 carry (and its vmap, K7)
+S24_REPLACES = ("yask_tpu/ops/pallas_stencil.py:1442 (the grid over every "
+                "lead dim; test_4d in tests/test_pallas.py:135) with the "
+                "skewed carry :306-441, :1955-2056 and the prefetch "
+                ":1668-1854")
+S24_K7_REPLACES = K1S_K7_REPLACES + " (over every lead dim :1442)"
+
+
+def k1_stream_kernel(program, rung):
+    """K1's stream arm for ``program`` at plane tile ``rung`` (T1, T2) in
+    place of ``tile_planner.STREAM_TILES`` (and, with a third entry, that
+    many registers a thread at least in place of
+    ``tile_planner.STREAM_OUTER_MIN_REGS``: the blocks per SM follow),
+    emitted at the program's size (the segment length follows it)."""
+    from yask_tpu_torch.ops import cuda_emit, tile_planner
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    kern = FusedKernel(program)
+    orig = tile_planner.STREAM_TILES, tile_planner.STREAM_OUTER_MIN_REGS
+    tile_planner.STREAM_TILES = (tuple(rung[:2]),)
+    tile_planner.STREAM_OUTER_MIN_REGS = (rung[2] if len(rung) > 2
+                                          else orig[1])
+    try:
+        kern.spec = cuda_emit.emit(program)
+    finally:
+        tile_planner.STREAM_TILES, tile_planner.STREAM_OUTER_MIN_REGS = orig
+    kern.skew_dims = cuda_emit.skew_engaged_dims(program, None, 2, [],
+                                                 kern.spec)
+    return kern
+
+
+def s24_specs(fac, env) -> dict:
+    """Phase 24's sources, for phase 1's parallel build: test_4d at each
+    element size at the phase's sizes (at element size 2 a source follows
+    its minor extent's parity), and the 128⁴ fp32 source at each rung of
+    :data:`S24_SWEEP`."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    out = {}
+    for label, eb, sizes in S24_MID:
+        ctx = a3_ctx(fac, env, "test_4d", None, eb, sizes, "torch")
+        out[f"{label} (phase 24)"] = FusedKernel(ctx._program).spec
+    ctx = a3_ctx(fac, env, "test_4d", None, 4, (S24_FULL,) * 4, "torch")
+    for rung in S24_SWEEP:
+        out[f"test_4d at {rung} (phase 24)"] = k1_stream_kernel(
+            ctx._program, rung).spec
+    del ctx
+    return out
+
+
+def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5) -> list:
+    """Phase 24 (a): each case on K1's stream arm (``-skew``, the
+    default) beside its ``-no-skew`` twin (K1's body) and its plain
+    version (``-mode torch``) from one seed, ``steps`` steps at K = 2 with
+    the counters zeroed just before (the arm alone launches): bit-equal
+    to the twin, held to the plain version, one launch of each timed.
+    Returns rows for :func:`summed` (label, ms, plain ms, bound, bound_by,
+    max |d|, launches, twin ms)."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    rows = []
+    for label, eb, sizes in cases:
+        eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
+        ctxs = {"arm": a3_ctx(fac, env, "test_4d", None, eb, sizes, "fused",
+                              2),
+                "twin": a3_ctx(fac, env, "test_4d", None, eb, sizes,
+                               "fused", 2, "-no-skew"),
+                "plain": a3_ctx(fac, env, "test_4d", None, eb, sizes,
+                                "torch", 2)}
+        for c in ctxs.values():
+            seed_case(c, 7)
+        got = {}
+        for key, want in (("arm", "stream_step"), ("twin", "fused_step")):
+            zero_launch_counts()
+            ctxs[key].run_solution(0, steps - 1)
+            got[key] = {k: v for k, v in launch_counts().items() if v}
+            if got[key] != {want: steps}:
+                raise RuntimeError(f"phase 24 (a): {label} {key}: launches "
+                                   f"{got[key]}, expected {steps} of {want}")
+        ctxs["plain"].run_solution(0, steps - 1)
+        til = ctxs["arm"].get_stats().get_tiling()
+        if not til["name"].endswith("_stream") or not til["skew"]:
+            raise RuntimeError(f"phase 24 (a): {label} ran {til['name']}")
+        _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
+        d = max_abs_diff(ctxs["arm"], ctxs["plain"])
+        bad = ctxs["arm"].compare_data(ctxs["plain"], field_epsilon=eps)
+        if twin_bits or bad or not finite(ctxs["arm"]):
+            raise RuntimeError(f"phase 24 (a): {label}: the stream arm "
+                               f"differs from its twin in {twin_bits} cells "
+                               f"or from its plain version ({bad} "
+                               "mismatches)")
+        kern, tk = ctxs["arm"]._fused, ctxs["twin"]._fused
+        s0 = dict(ctxs["arm"]._state)
+        ms = cuda_ms(lambda: fs.stream_step(kern, s0, steps), 5)
+        twin_ms = cuda_ms(lambda: fs.fused_step(tk, s0, steps), 5)
+        plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, steps,
+                                                  1), 2)
+        bound_ms, bound_by, _nb = a3_bound(ctxs["arm"])
+        log(f"phase 24 (a): {label} {'x'.join(map(str, sizes))} K1's 4-D "
+            f"stream arm, K=2 {steps} steps: launches {got['arm']} "
+            f"({til['name']}, {til['stream']['outer_cells']} outer cells, "
+            f"{til['stream']['segments']} segment(s) of "
+            f"{til['stream']['segment_planes']} planes); bit-equal to its "
+            f"-no-skew twin (K1's body; {twin_bits} cells differ); vs plain "
+            f"max|d|={d:.3e} mismatches={bad} (field_epsilon={eps}); "
+            f"{ms:.4f} ms/launch against the twin's {twin_ms:.4f} "
+            f"({twin_ms / ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.3f} ms [{card}]")
+        rows.append((label, ms, plain_ms, bound_ms, bound_by, d, steps,
+                     twin_ms))
+        del ctxs, kern, tk, s0
+        release()
+    return rows
+
+
+def phase24b_solo(fac, env, card: str, ptxas: dict, eb: int, twin: dict,
+                  trials: int, steps: int, sweep=()) -> dict:
+    """Phase 24 (b)'s solo run: test_4d at :data:`S24_FULL`⁴ and element
+    size ``eb`` on K1's stream arm through :func:`a3_full` (its seed,
+    ``trials`` x ``steps`` steps), its final state's digest held to its
+    ``-no-skew`` twin's (``twin``: its ``state_digest``, ``ms`` and
+    ``step_ms``), ptxas's report, 3 launches of the arm and 3 of the
+    twin's body under ``torch.profiler``, and the arm at the plane tiles
+    of ``sweep`` (each the same bits as the planned one).  Returns the
+    ``kernels`` entry."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    g = S24_FULL
+    label = (f"K1's 4-D stream arm: test_4d {g}^4 "
+             f"{'bf16' if eb == 2 else 'fp32'}")
+    e = a3_full(fac, env, card, "test_4d", None, eb, (g,) * 4, "stream_step",
+                label, trials=trials, steps=steps)
+    ctx = e.pop("ctx")
+    same = state_digest(ctx) == twin["state_digest"]
+    kern = ctx._fused
+    til = ctx.get_stats().get_tiling()
+    t = 2 + trials * steps   # a3_full's warm-up and trials
+    s0 = dict(ctx._state)
+    body = fs.FusedKernel(ctx._program)
+    body.build()
+    prof = profile_launches(lambda: fs.stream_step(kern, s0, t), 3,
+                            expect=("stream_step_kernel",))
+    prof_twin = profile_launches(lambda: fs.fused_step(body, s0, t), 3,
+                                 expect=("fused_step_kernel",))
+    rungs = []
+    if sweep:
+        ref = fs.stream_step(kern, dict(s0), t)
+        out = kern.spec.outputs[0]
+        for rung in sweep:
+            rk = k1_stream_kernel(ctx._program, rung)
+            rk.build()
+            got = fs.stream_step(rk, dict(s0), t)
+            nbits = int((got[out][-1] != ref[out][-1]).sum())
+            rms = cuda_ms(lambda: fs.stream_step(rk, s0, t), 5)
+            rec = rk.spec.stream.record()
+            rungs.append({"plane_tile": list(rung[:2]), "ms": rms,
+                          "segment_planes": rec["segment_planes"],
+                          "blocks_per_sm": rec["blocks_per_sm"],
+                          "staged_per_point": rec["staged_per_point"],
+                          "smem_bytes": rec["smem_bytes"],
+                          "ptxas": ptxas.get(rk.spec.name),
+                          "bits_differ": nbits})
+            del got, rk
+            if nbits:
+                raise RuntimeError(f"phase 24 (b): test_4d at {rung}: "
+                                   f"{nbits} cells differ from the planned "
+                                   "rung")
+        del ref
+    name = kern.spec.name
+    log(f"phase 24 (b): {label}: {e['ms']:.3f} ms/launch, "
+        f"{e['step_ms']:.3f} ms/step, share {e['bound_ms'] / e['ms']:.3f} of "
+        f"{e['bound_ms']:.4f} ms; its -no-skew twin (K1's body, the same seed and steps) "
+        f"{twin['ms']:.3f} ms/launch, {twin['step_ms']:.3f} ms/step: "
+        f"{twin['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
+        f"{same}; plan {til['stream']}; profile (arm) {prof}; profile "
+        f"(twin) {prof_twin}; rungs {rungs}; ptxas ({name}): "
+        f"{ptxas.get(name, 'not built by phase 1')} [{card}]")
+    if not same:
+        raise RuntimeError(f"phase 24 (b): {label}: the stream arm and its "
+                           "-no-skew twin end in other states")
+    e.update(name=f"stream_step ({label})", source=K1S_SOURCE,
+             replaces=S24_REPLACES, path="phase 24 (b)",
+             body_ms=twin["ms"], body_step_ms=twin["step_ms"],
+             ptxas=ptxas.get(name), profile=prof, twin_profile=prof_twin,
+             plan=til["stream"], **({"sweep": rungs} if sweep else {}))
+    del ctx, kern, body, s0
+    release()
+    return e
+
+
+def phase24(fac, env, card: str, ptxas: dict, twins: dict) -> list:
+    """K1's stream arm past three domain dims (see the module docstring):
+    (a) :data:`S24_MID` solo through :func:`phase24a` and as K7 x3
+    through :func:`phase23a_k7`, each beside its ``-no-skew`` twin from
+    one seed, bit-equal; (b) test_4d at :data:`S24_FULL`⁴ solo in fp32
+    (``twins["solo"]``: phase 11 (c)'s run, with its digest) and bf16 (its
+    twin run here) and :data:`S24_K7` through :func:`phase12b` (its twin
+    ``twins["k7"]``, phase 12 (b)'s 4-D cell), each from its twin's seed
+    and steps, the final states bit-equal.  Returns the ``kernels``
+    entries."""
+    import torch
+    t0 = time.perf_counter()
+    entries = []
+    rows = phase24a(fac, env, card)
+    mid = "x".join(map(str, S24_MID[0][2]))
+    entries.append(summed(
+        rows, "stream_step (K1's stream arm past three domain dims, phase "
+        f"24 (a): test_4d fp32 and bf16 at {mid})", S24_REPLACES,
+        "phase 24 (a)", source=K1S_SOURCE))
+    rows = phase23a_k7(fac, env, card,
+                       cases=tuple((label, None, eb, sizes)
+                                   for label, eb, sizes in S24_MID),
+                       st="test_4d", phase="24 (a)")
+    entries.append(summed(
+        rows, "batched_step (K7 over K1's 4-D stream arm, phase 24 (a): 3 "
+        f"members of test_4d fp32 and bf16 at {mid})",
+        S24_K7_REPLACES, "phase 24 (a)", source=K1S_SOURCE))
+    log(f"phase 24 (a) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # (b) solo at full width, fp32 beside phase 11 (c)'s twin
+    entries.append(phase24b_solo(fac, env, card, ptxas, 4, twins["solo"],
+                                 3, 20, sweep=S24_SWEEP))
+    # bf16: its -no-skew twin here, one trial of 10 steps
+    g = S24_FULL
+    tw = a3_full(fac, env, card, "test_4d", None, 2, (g,) * 4, "fused_step",
+                 f"K1's body: test_4d {g}^4 bf16 (-no-skew, phase 24 (b)'s "
+                 "twin)", trials=1, steps=10, cli="-no-skew")
+    tw["state_digest"] = state_digest(tw.pop("ctx"))
+    release()
+    entries.append(phase24b_solo(fac, env, card, ptxas, 2, tw, 1, 10))
+    # K7 over the arm beside phase 12 (b)'s 4-D cell
+    twin = twins["k7"]
+    e = phase12b(fac, env, card, {"test_4d": entries[2] | {
+        "label": "phase 24 (b), K1's 4-D stream arm, 128^4",
+        "points": g ** 4}}, cells=(S24_K7,), cli="", phase="24 (b)",
+        digest=True, profile=True)[0]
+    same = e.pop("state_digest") == twin["state_digest"]
+    nm, shape = S24_K7[4], "x".join(map(str, S24_K7[5]))
+    log(f"phase 24 (b): test_4d fp32, {nm} x {shape}: K7 over K1's 4-D "
+        f"stream arm {e['ms']:.3f} ms/launch, {e['step_ms']:.3f} ms/step, "
+        f"share {e['bound_ms'] / e['ms']:.3f} of {e['bound_ms']:.4f} ms; its "
+        f"-no-skew twin (K7 over K1's body, the same seeds and steps) "
+        f"{twin['ms']:.3f} ms/launch, {twin['step_ms']:.3f} ms/step: "
+        f"{twin['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
+        f"{same}; profile {e.get('profile')} [{card}]")
+    if not same:
+        raise RuntimeError("phase 24 (b): K7 test_4d: the stream arm and its "
+                           "-no-skew twin end in other states")
+    e.update(name=f"batched_step (K7 over K1's 4-D stream arm: {nm} x "
+                  f"test_4d {shape} fp32)",
+             replaces=S24_K7_REPLACES, path="phase 24 (b)",
+             body_ms=twin["ms"], body_step_ms=twin["step_ms"],
+             ptxas=entries[2]["ptxas"])
+    entries.append(e)
+    torch.cuda.empty_cache()
+    log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def phase1(fac, env, cases: dict) -> dict:
     """Build every kernel of the path, one ``nvcc`` per source, each group
     of sources started as soon as it is emitted, so the compilers run
@@ -7465,7 +7770,7 @@ def phase1(fac, env, cases: dict) -> dict:
     start(dict(specs))
     for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
                   k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
-                  k4s_specs, s4_specs, s22_specs, k1s_specs):
+                  k4s_specs, s4_specs, s22_specs, k1s_specs, s24_specs):
         start(group(fac, env))
     start(shard_specs(fac))
     start(k5_specs(fac))
@@ -7485,7 +7790,10 @@ def phase1(fac, env, cases: dict) -> dict:
                    ", _trap_batched (K7 over K4)"
                    if s.trap else
                    f"entries {s.name} (K1), _batched (K7), _region (K5)"
-                   + (f", _stream, _stream_batched and _stream_region (the "
+                   + (f", _stream and _stream_batched (the 4-D stream arm "
+                      f"and K7 over it: {s.stream.record()})"
+                      if s.stream is not None and s.outer else
+                      f", _stream, _stream_batched and _stream_region (the "
                       f"stream arm, K7 and K5 over it: "
                       f"{s.stream.record()})"
                       if s.stream is not None else "")
@@ -7574,6 +7882,9 @@ def main() -> int:
     # phase 22 (b)'s twins: phase 11 (c)'s tti bf16 and phase 12 (d)'s rows
     bf16_twins = {"tti": dict(
         last_arms[2], state_digest=last_arms[2].pop("state_digest"))}
+    # phase 24 (b)'s: phase 11 (c)'s test_4d and phase 12 (b)'s 4-D rows
+    s24_twins = {"solo": dict(
+        last_arms[0], state_digest=last_arms[0].pop("state_digest"))}
     release()
     # the solo rows of the same points beside phase 12 (b)'s member batches
     solo = {key: dict(e, label=label, points=pts) for key, e, label, pts in (
@@ -7582,7 +7893,8 @@ def main() -> int:
          512 ** 3),
         ("iso3dfd bf16", a3_arms[3], "phase 10 (c), K1 -no-skew, 512^3",
          512 ** 3),
-        ("test_4d", last_arms[0], "phase 11 (c), K1, 128^4", 128 ** 4),
+        ("test_4d", last_arms[0], "phase 11 (c), K1's body (-no-skew), "
+         "128^4", 128 ** 4),
         ("gaussian", a3_arms[0], "phase 10 (c), K6, 8192^2", 8192 ** 2))}
     k7_arms = phase12(fac, env, card, solo, k6)
     rtm_bf16 = next(e for e in k7_arms if e.get("path") == "phase 12 (d)")
@@ -7600,6 +7912,8 @@ def main() -> int:
             digest = e.pop("state_digest")
             if "element size 2 arm: iso3dfd" in e["name"]:
                 k1s_twins["k7 bf16"] = dict(e, state_digest=digest)
+            if "4-D arm: test_4d" in e["name"]:
+                s24_twins["k7"] = dict(e, state_digest=digest)
     release()
     k5_arms, k5_twins = phase13(fac, card)
     k1s_twins["k5 bf16"] = k5_twins["iso3dfd r=8 bf16"]
@@ -7630,6 +7944,8 @@ def main() -> int:
     bf16_arms = phase22(fac, env, card, ptxas, bf16_twins)
     release()
     k1s_arms = phase23(fac, env, card, ptxas, k1s_twins)
+    release()
+    s24_arms = phase24(fac, env, card, ptxas, s24_twins)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -7638,7 +7954,7 @@ def main() -> int:
                       + k5_arms + k4_arms + ws_arms + flat_arms
                       + ss_arms + ss18_arms + k5_ss_arms
                       + k4_stream_arms + s4_arms + bf16_arms
-                      + k1s_arms}))
+                      + k1s_arms + s24_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

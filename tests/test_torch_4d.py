@@ -21,8 +21,10 @@ reads at an outer offset in outer copies of the earlier sub-stages
   (A12) and ``shard_pallas`` raises (A11); a member batch (``-ensemble
   2``, K7) takes it, each member bit-equal to its solo run.
 * Under ``-skew`` (the default) K6's stream arm takes four_d_stages and
-  five_d (tests/test_torch_stream_4d_emulation.py holds its code); K1's
-  4-D solutions keep K1 with ``skew_ineligible``.
+  five_d (tests/test_torch_stream_4d_emulation.py holds its code) and
+  K1's stream arm takes test_4d, solo and as a 3-member ``EnsembleRun``
+  against ``yask_tpu``'s (tests/test_torch_stream_k1_4d_*.py hold its
+  code); four_d_partial keeps K1 with its partial-dim reason.
 * K1 folds the outer cells into the grid's z cells: past CUDA's limit of
   65535 the launch code walks them in several launches, which the
   emulated device code runs at a cap of 2.
@@ -158,20 +160,60 @@ def test_fused_4d_matches_yask_tpu_jit(case, K):
     assert mismatches(export_interiors(mine), tpu_export(theirs),
                       field_epsilon=1e-4) == 0
     til = mine.get_stats().get_tiling()
-    assert til["kernel"] == ("fused_step" if case in ("test_4d",
-                                                      "four_d_partial")
-                             else "stages_step")
+    assert til["kernel"] == {"test_4d": "stream_step",
+                             "four_d_partial": "fused_step"}.get(
+                                 case, "stages_step")
     codes = {r["code"] for r in til["skew_reasons"]}
-    if case in ("test_4d", "four_d_partial"):
-        # K1's stream arm walks slot 0 of a 3-D domain: K1 keeps 4-D
+    if case == "four_d_partial":
+        # the stream arm writes whole outputs: the partial-dim one keeps K1
         assert codes == {"skew_ineligible"}
-        assert "4-D solution" in til["skew_reasons"][0]["detail"]
+        assert "partial-dim" in til["skew_reasons"][0]["detail"]
+    elif case == "test_4d":
+        # K1's stream arm walks slot 0 (x), each outer cell (w) a
+        # coordinate of its work items
+        assert codes == {"skew_engaged", "skew_ineligible"}
+        assert til["skew_dims"] == ["x"]
+        assert til["name"] == mine._fused_spec_kernel().spec.name + "_stream"
+        assert til["stream"]["outer_cells"] == 4
+        assert til["stream"]["segment_planes"] >= 1
     else:
         # K6's stream arm takes the outer dims as windows of its work
         # items, streaming slot 0 (x)
         assert codes == {"skew_engaged", "skew_ineligible"}
         assert til["skew_dims"] == ["x"]
         assert til["stages_stream"]["outer_window"]
+
+
+def test_fused_4d_ensemble_matches_yask_tpu_ensemble():
+    """A 3-member test_4d ``EnsembleRun`` under ``-mode fused`` (K7 over
+    K1's stream arm, ``_stream_batched``; its plain version here) against
+    ``yask_tpu``'s jit ensemble from the same numpy-seeded members:
+    ``field_epsilon=1e-4``, 0 mismatches per member."""
+    from yask_tpu.runtime.ensemble import EnsembleRun as TpuEnsembleRun
+    cli = f"{SIZES['test_4d']} -wf_steps 2"
+    mine = port_ctx("test_4d", f"{cli} -mode fused")
+    ens = mine.new_ensemble(3)
+    tfac = yask_tpu.yk_factory()
+    theirs = tfac.new_solution(tfac.new_env(), stencil="test_4d")
+    theirs.apply_command_line_options(cli)
+    theirs.get_settings().mode = "jit"
+    theirs.prepare_solution()
+    tens = TpuEnsembleRun(theirs, 3)
+    for i in range(3):
+        with ens.member(i) as c, tens.member(i) as tc:
+            state = seeded_interiors(c, 30 + i)
+            import_interiors(c, state)
+            tpu_import(tc, state)
+    ens.run(0, 2)
+    tens.run(0, 2)
+    til = ens.tiling
+    assert til["kernel"] == "batched_step" and til["skew"] is True
+    assert til["name"] == \
+        mine._fused_spec_kernel().spec.name + "_stream_batched"
+    for i in range(3):
+        with ens.member(i) as c, tens.member(i) as tc:
+            assert mismatches(export_interiors(c), tpu_export(tc),
+                              field_epsilon=1e-4) == 0, i
 
 
 def launches(fn, ctx, spec, steps=2):
@@ -380,9 +422,9 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["test_4d", "four_d_stages"])
 def test_4d_kernels_match_plain_on_card(cuda_device, case):
-    """K1 (test_4d) and K6 (four_d_stages) at 4-D against the plain
-    version on CUDA tensors from one seeded state, K = 2, 4 steps:
-    0 mismatches at field_epsilon 1e-4, one launch per step."""
+    """K1's stream arm (test_4d) and K6's (four_d_stages) at 4-D against
+    the plain version on CUDA tensors from one seeded state, K = 2, 4
+    steps: 0 mismatches at field_epsilon 1e-4, one launch per step."""
     fac = yask_tpu_torch.yk_factory()
     env = fac.new_env()
     ctxs = {}
@@ -392,11 +434,12 @@ def test_4d_kernels_match_plain_on_card(cuda_device, case):
     state = seeded_interiors(ctxs["torch"], 6)
     for ctx in ctxs.values():
         import_interiors(ctx, state)
-    counter = (fused_stencil.fused_step if case == "test_4d"
-               else fused_stencil.stages_step)
-    n0 = counter.launches
+    def counter():
+        return (fused_stencil.stream_step.launches if case == "test_4d"
+                else fused_stencil.stages_step.stream_launches)
+    n0 = counter()
     for ctx in ctxs.values():
         ctx.run_solution(0, 3)
-    assert counter.launches - n0 == 4
+    assert counter() - n0 == 4
     assert ctxs["fused"].compare_data(ctxs["torch"],
                                       field_epsilon=1e-4) == 0

@@ -345,8 +345,9 @@ def _a3_ctx(fac, case):
                  "K6\\)")])
 def test_remaining_refusals_name_a3(case, why):
     """The last A3 refusals (``why``, the message each case pinned before
-    its arm was ported) are gone: ``-mode fused`` runs test_4d on K1 and
-    tti in bfloat16 on K6 (the plain version on CPU tensors), bit-equal
+    its arm was ported) are gone: ``-mode fused`` runs test_4d on K1's
+    stream arm and tti in bfloat16 on K6 (the plain version on CPU
+    tensors), bit-equal
     to ``-mode torch``; the A3 arms they take still keep K4 out
     (``a3_arms``; K5 takes them since ROADMAP.md A11's arms were ported)."""
     import re
@@ -365,7 +366,7 @@ def test_remaining_refusals_name_a3(case, why):
     assert ctxs["fused"].compare_data(ctxs["torch"], epsilon=0.0,
                                       abs_epsilon=0.0) == 0
     assert ctxs["fused"].get_stats().get_tiling()["kernel"] == (
-        "fused_step" if case == "test_4d" else "stages_step")
+        "stream_step" if case == "test_4d" else "stages_step")
     assert cuda_emit.a3_arms(ctxs["fused"]._program) == (
         ["4-D"] if case == "test_4d" else ["element size 2"])
 

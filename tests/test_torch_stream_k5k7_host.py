@@ -9,8 +9,9 @@ a coordinate of the grid beside the segments) and K5 over it
 * Under ``-skew`` (the default) a member batch and a shard's box of every
   3-D single-stage solution the solo arm takes engage the arm
   (``skew_engaged``, kernels ``stream_batched`` and ``stream_region``) at
-  element sizes 4 and 2; ``-no-skew`` keeps K1's body, and a 4-D
-  single-stage solution keeps it with its existing reason.
+  element sizes 4 and 2; ``-no-skew`` keeps K1's body, and K5 over a
+  4-D box keeps it with its reason (tests/test_torch_stream_k1_4d_*.py
+  hold K7 over the arm past three dims).
 * The segment rule is the plan's (``tile_planner.stream_segments``) at
   the extents walked: the box's, and the batch's columns times its
   members.
@@ -305,21 +306,26 @@ def test_batches_and_boxes_take_the_arm_the_solo_run_takes(name, r, eb):
 
 
 def test_a_4d_single_stage_solution_keeps_k1s_body():
-    """test_4d (single-stage, 4-D): K7 and K5 keep K1's body with the
-    emitter's reason, not a stream arm."""
+    """test_4d (single-stage, 4-D): what this test pinned before K1's
+    stream arm took outer dims (K7 kept K1's body with the emitter's "4-D
+    solution" reason) is gone: K7 runs over the arm
+    (``_stream_batched``); K5 over a 4-D box keeps K1's body, its reason
+    naming K1's stream arm."""
     fac = yask_tpu_torch.yk_factory()
     ctx = new_ctx(fac.new_env(device="cpu"), "test_4d", None, 4,
                   "-g 8 -mode fused")
     kern = ctx._fused_spec_kernel()
     til = kern.tiling(1, members=3)
-    assert til["name"] == kern.spec.name + "_batched" and not til["skew"]
-    assert set(codes(til["skew_reasons"])) == {"skew_ineligible"}
-    assert "4-D solution" in til["skew_reasons"][0]["detail"]
+    assert til["name"] == kern.spec.name + "_stream_batched" and til["skew"]
+    assert codes(til["skew_reasons"])[0] == "skew_engaged"
+    assert til["skew_reasons"][0]["kernel"] == "stream_batched"
     shard = new_ctx(fac.new_env(devices=["cpu"] * 2), "test_4d", None, 4,
                     "-g 8 -mode shard_pallas -nr_x 2")
     k5 = shard_pallas_plan(shard).kernel
     assert k5.skew_dims == []
     assert set(codes(k5.skew_reasons)) == {"skew_ineligible"}
+    assert "4-D solution" in k5.skew_reasons[0]["detail"]
+    assert "K1's" in k5.skew_reasons[0]["detail"]
 
 
 def test_segments_follow_the_extents_walked():

@@ -1057,9 +1057,12 @@ void host_stage(const ParamsArg<S, REGION>& p,
 // first, first + stride, ... of slab j = 2u (below) or 2u + 1 (above)
 // slot u, the slots before u over the interior, those after it padded;
 // the minor slot varies fastest, then slots 1, 0, then the outer slots
-// from the last.
-template <class S, class P>
-YT_HD inline void outer_pads(const P& p, long long first, long long stride) {
+// from the last.  pad(o, 2u + side) is output o's pad below (side 0) or
+// above slot u: the Spec's out_pad (K6) or the launch's table (K1's
+// stream arm).
+template <class S, class P, class PAD>
+YT_HD inline void outer_pads(const P& p, const PAD& pad, long long first,
+                             long long stride) {
   typedef typename S::real_t real_t;
   constexpr int NS = 3 + OuterOf<S>::N;
   int order[NS];
@@ -1075,7 +1078,7 @@ YT_HD inline void outer_pads(const P& p, long long first, long long stride) {
         int lo[NS], hi[NS];
         long long cells = 1;
         for (int u = 0; u < NS; ++u) {
-          const int plo = S::out_pad(o, 2 * u), phi = S::out_pad(o, 2 * u + 1);
+          const int plo = pad(o, 2 * u), phi = pad(o, 2 * u + 1);
           lo[u] = u < u0 ? 0 : u > u0 || j % 2 == 0 ? -plo : p.n[u];
           hi[u] = u < u0 ? p.n[u]
                   : u > u0 || j % 2 == 1 ? p.n[u] + phi : 0;
@@ -1106,7 +1109,8 @@ YT_HD inline void flat_pads(const P& p, long long first, long long stride) {
   typedef typename S::real_t real_t;
   if constexpr (OuterOf<S>::N > 0) {
     // the stream arm past three domain dims: every slot's pads
-    outer_pads<S>(p, first, stride);
+    outer_pads<S>(p, [](int o, int k) { return S::out_pad(o, k); }, first,
+                  stride);
     return;
   }
   for (int m = 0; m < p.nm; ++m)

@@ -1,6 +1,6 @@
 // stream_step.cuh — the stream arm of K1 for NVIDIA Hopper, sm_90a: one
-// sub-step of a single-stage 3-D solution, each block walking slot 0
-// through a ring of staged planes.
+// sub-step of a single-stage solution of three domain dims or more, each
+// block walking slot 0 through a ring of staged planes.
 //
 // It computes what K1 (fused_step_kernel<S, false>) computes, with the
 // same Spec::point, so with --fmad=false it gives the same bits.  It is
@@ -89,6 +89,24 @@
 // origin at an odd minor index moves the alignment by one element); the
 // strides stay even, so it is still the same for every row and plane.
 //
+// Past three domain dims (a Spec that prints NOUTER: the grid over every
+// lead dim, pallas_stencil.py:1442, under K2's prefetch and K3's carry;
+// K7's batches of such solutions too): the outer cells are a coordinate
+// of the work items beside the segments and the member, as K1's body
+// folds them into its grid (split_z): z cell = (member x outer cells +
+// outer cell) x segments + segment.  The body's rule for reads at outer
+// offsets holds: each is an input of its own whose pointer the wrapper
+// moves by its offset, staged into a ring of its own (KernelSpec.in_outer)
+// or, read at the point alone, loaded into the register queue; a block
+// adds its outer cell's offset to every read and store, and the point
+// function sees the outer indices in g[3 + j].  test_4d stages 2 inputs
+// at 8 planes a ring and 16x32 tiles: about 1.5 cells per input and point
+// at 128^4 against K1's body's 5.1 in all (8x8x64 tiles), where K6's
+// outer-window box (StreamSpec) would stage 17.2.  The plan keeps 40
+// registers a thread (tile_planner.STREAM_OUTER_MIN_REGS): at 32 these
+// builds spill.  The pad pass zeroes every slot's pads, the outer slots'
+// included (outer_pads).  K5's box walk stays 3-D (REGION asserts it).
+//
 // The same Spec compiles on the host (no __CUDACC__): host_stream() runs
 // host_step() (over every member, or the box at global coordinates) and
 // zeroes the pads, which is how the CPU tests check the entries'
@@ -122,7 +140,8 @@ struct StreamParams {
   // K1's tables (K7's member strides and count; K5's box, REGION)
   ParamsArg<S, REGION> p;
   int seg;                       // planes of slot 0 per segment (grid z)
-  int pad[S::NOUT][3][2];        // each output's pads (lo, hi) per slot
+  // each output's pads (lo, hi) per slot, the outer slots after the three
+  int pad[S::NOUT][3 + OuterOf<S>::N][2];
   // the whole grid's y and z extents, and this launch's first y and z
   // block (the launch code walks y and z in chunks of YT_MAX_GRID_Z)
   long long gy, gz, y0, z0;
@@ -153,10 +172,16 @@ YT_HD inline void pad_slab(const Q& q, int o, int j, int* lo, int* hi) {
 }
 
 // Zero the pad cells numbered first, first + stride, ... of every output
-// (of every member: BATCH).
+// (of every member: BATCH; past three domain dims every slot's pads, the
+// outer ones included, of every outer cell: outer_pads).
 template <class S, bool BATCH = false, class Q>
 YT_HD inline void zero_pads(const Q& q, long long first, long long stride) {
   typedef typename S::real_t real_t;
+  if constexpr (OuterOf<S>::N > 0) {
+    outer_pads<S>(q.p, [&](int o, int k) { return q.pad[o][k / 2][k % 2]; },
+                  first, stride);
+    return;
+  }
   for (int m = 0; m < (BATCH ? q.p.nm : 1); ++m)
     for (int o = 0; o < S::NOUT; ++o)
       for (int j = 0; j < 6; ++j) {
@@ -198,6 +223,7 @@ struct PlaneReader {
   const int* sh;   // per ring input: its rows' pair shift (element size 2)
   const typename S::real_t* pre;  // per same-point input: its value here
   int m;           // the member (0 in a solo launch)
+  int oc;          // the outer cell (0 without outer dims)
   int l1, l2;      // point within the block's plane tile
   int g0, g1, g2;  // point in the interior (the box: K5)
   template <int A>
@@ -219,19 +245,19 @@ struct PlaneReader {
       if constexpr (sizeof(real_t) == 2) c += sh[k];
       return smem[c];
     } else {
-      return global_at<S>(*p, A, m, 0, g0 + o0, g1 + o1, g2 + o2);
+      return global_at<S>(*p, A, m, oc, g0 + o0, g1 + o1, g2 + o2);
     }
   }
 };
 
-// Issue the copies of plane c of ring input k (member m) into its ring
-// slot (c - zs + h0_lo) mod depth; cells past the domain's read reach
-// (K5: the box's) get 0.
+// Issue the copies of plane c of ring input k (member m, outer cell oc)
+// into its ring slot (c - zs + h0_lo) mod depth; cells past the domain's
+// read reach (K5: the box's) get 0.
 template <class S, int k, bool BATCH>
 __device__ __forceinline__ void fetch_plane(const ParamsOf<S>& p,
                                             typename S::real_t* smem, int m,
-                                            int c, int zs, int b1, int b2,
-                                            int tid) {
+                                            int oc, int c, int zs, int b1,
+                                            int b2, int tid) {
   typedef typename S::real_t real_t;
   constexpr int NT = S::ST1 * S::ST2;
   constexpr int a = S::tiled_input(k);
@@ -246,6 +272,7 @@ __device__ __forceinline__ void fetch_plane(const ParamsOf<S>& p,
   const int lim1 = p.n[1] + S::halo_hi1(k);
   const int lim2 = p.n[2] + S::halo_hi2(k);
   const real_t* base = p.in[a] + (BATCH ? idx_t(m) * p.in_ms[a] : 0)
+                       + cell_base<S>(p.n, 0, oc, 0, p.in_s[a])
                        + c * p.in_s[a][0];
   if constexpr (sizeof(real_t) != 2) {
     for (int i = tid; i < E1 * E2; i += NT) {
@@ -283,11 +310,12 @@ __device__ __forceinline__ void fetch_plane(const ParamsOf<S>& p,
 template <class S, bool BATCH, int k = 0>
 __device__ __forceinline__ void fetch_first(const ParamsOf<S>& p,
                                             typename S::real_t* smem, int m,
-                                            int zs, int b1, int b2, int tid) {
+                                            int oc, int zs, int b1, int b2,
+                                            int tid) {
   if constexpr (k < S::NTILED) {
     for (int c = zs - S::halo_lo0(k); c <= zs + S::halo_hi0(k); ++c)
-      fetch_plane<S, k, BATCH>(p, smem, m, c, zs, b1, b2, tid);
-    fetch_first<S, BATCH, k + 1>(p, smem, m, zs, b1, b2, tid);
+      fetch_plane<S, k, BATCH>(p, smem, m, oc, c, zs, b1, b2, tid);
+    fetch_first<S, BATCH, k + 1>(p, smem, m, oc, zs, b1, b2, tid);
   }
 }
 
@@ -296,12 +324,12 @@ __device__ __forceinline__ void fetch_first(const ParamsOf<S>& p,
 template <class S, bool BATCH, int k = 0>
 __device__ __forceinline__ void fetch_ahead(const ParamsOf<S>& p,
                                             typename S::real_t* smem, int m,
-                                            int j, int zs, int b1, int b2,
-                                            int tid) {
+                                            int oc, int j, int zs, int b1,
+                                            int b2, int tid) {
   if constexpr (k < S::NTILED) {
-    fetch_plane<S, k, BATCH>(p, smem, m, zs + j + S::halo_hi0(k), zs, b1,
-                             b2, tid);
-    fetch_ahead<S, BATCH, k + 1>(p, smem, m, j, zs, b1, b2, tid);
+    fetch_plane<S, k, BATCH>(p, smem, m, oc, zs + j + S::halo_hi0(k), zs,
+                             b1, b2, tid);
+    fetch_ahead<S, BATCH, k + 1>(p, smem, m, oc, j, zs, b1, b2, tid);
   }
 }
 
@@ -321,12 +349,14 @@ __device__ __forceinline__ void queue_planes(F& plane, T (&qv)[Q], int z,
 
 // SMIN blocks fit an SM by threads and shared memory: the registers are
 // capped so that they fit too.  K1's arm (BATCH and REGION false), K7's
-// over it (BATCH: the z cell is member x segments + segment) and K5's
-// (REGION: the walk over a shard's box, no pad pass).
+// over it (BATCH: the z cell is (member x outer cells + outer cell) x
+// segments + segment) and K5's (REGION: the walk over a shard's 3-D box,
+// no pad pass).
 template <class S, bool BATCH, bool REGION>
 __global__ void __launch_bounds__(S::ST1 * S::ST2, S::SMIN)
 stream_step_kernel(const __grid_constant__ StreamParams<S, REGION> q) {
   static_assert(!(BATCH && REGION), "K5 walks one shard's box");
+  static_assert(!(REGION && OuterOf<S>::N > 0), "K5 walks a 3-D box");
   typedef typename S::real_t real_t;
   extern __shared__ __align__(16) unsigned char yt_smem_raw[];
   real_t* smem = reinterpret_cast<real_t*>(yt_smem_raw);
@@ -337,12 +367,19 @@ stream_step_kernel(const __grid_constant__ StreamParams<S, REGION> q) {
   const int tid = threadIdx.y * S::ST2 + threadIdx.x;
   const int by = int(q.y0) + int(blockIdx.y);
   const int bz = int(q.z0) + int(blockIdx.z);
-  // the member and the segment of the z cell
-  int m = 0, sg = bz;
-  if constexpr (BATCH) {
+  // the member, the outer cell and the segment of the z cell
+  int m = 0, oc = 0, sg = bz;
+  if constexpr (BATCH || OuterOf<S>::N > 0) {
     const int segs = (p.n[0] + q.seg - 1) / q.seg;
-    m = bz / segs;
-    sg = bz - m * segs;
+    const int r = bz / segs;
+    sg = bz - r * segs;
+    if constexpr (BATCH) {
+      const int nq = outer_cells<S>(p.n);
+      m = r / nq;
+      oc = r - m * nq;
+    } else {
+      oc = r;
+    }
   }
   const int b1 = by * S::ST1, b2 = blockIdx.x * S::ST2;
   const int l1 = threadIdx.y, l2 = threadIdx.x;
@@ -356,11 +393,12 @@ stream_step_kernel(const __grid_constant__ StreamParams<S, REGION> q) {
     //    newest plane of each of the next SP - 1 output planes (a group
     //    each); a plane no output plane of the segment reads is skipped,
     //    its group left empty
-    fetch_first<S, BATCH>(p, smem, m, zs, b1, b2, tid);
+    fetch_first<S, BATCH>(p, smem, m, oc, zs, b1, b2, tid);
     cp_async_commit();
 #pragma unroll
     for (int j = 1; j < S::SP; ++j) {
-      if (zs + j < ze) fetch_ahead<S, BATCH>(p, smem, m, j, zs, b1, b2, tid);
+      if (zs + j < ze)
+        fetch_ahead<S, BATCH>(p, smem, m, oc, j, zs, b1, b2, tid);
       cp_async_commit();
     }
     // 2) the walk, one barrier per output plane z: fetch plane z + h0_hi +
@@ -382,26 +420,28 @@ stream_step_kernel(const __grid_constant__ StreamParams<S, REGION> q) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         qv[i][j] = S::NPRE && active && (i == 0 || zs + i < ze)
-                       ? global_at<S>(p, S::pre_input(j), m, 0, zs + i, g1,
-                                      g2)
+                       ? global_at<S>(p, S::pre_input(j), m, oc, zs + i,
+                                      g1, g2)
                        : real_t(0.0f);
     auto plane = [&](int z, real_t (&cur)[NJ], real_t (&ahead)[NJ]) {
       if (z + S::SP < ze)
-        fetch_ahead<S, BATCH>(p, smem, m, z - zs + S::SP, zs, b1, b2, tid);
+        fetch_ahead<S, BATCH>(p, smem, m, oc, z - zs + S::SP, zs, b1, b2,
+                              tid);
       cp_async_commit();
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
         ahead[j] = S::NPRE && active && z + S::SQ - 1 < ze
-                       ? global_at<S>(p, S::pre_input(j), m, 0,
+                       ? global_at<S>(p, S::pre_input(j), m, oc,
                                       z + S::SQ - 1, g1, g2)
                        : real_t(0.0f);
       cp_async_wait<S::SP>();
       __syncthreads();
       if (active) {
-        const PlaneReader<S> rd{&p, smem, zb, sh, cur, m, l1, l2, z, g1, g2};
+        const PlaneReader<S> rd{&p, smem, zb, sh, cur, m, oc,
+                                l1, l2, z, g1, g2};
         CalcOf<S> out[S::NOUT];
-        point_at<S, REGION>(p, rd, 0, z, g1, g2, out);
-        store<S, REGION>(p, m, 0, z, g1, g2, out);
+        point_at<S, REGION>(p, rd, oc, z, g1, g2, out);
+        store<S, REGION>(p, m, oc, z, g1, g2, out);
       }
 #pragma unroll
       for (int k = 0; k < NK; ++k)
@@ -416,8 +456,9 @@ stream_step_kernel(const __grid_constant__ StreamParams<S, REGION> q) {
   }
 
   // 3) the pads: 0 into every output cell outside the interior (of every
-  //    member), shared out over every thread of the whole grid (all its
-  //    launches); K5's outputs keep what lies outside the box
+  //    member; every slot's, the outer ones included), shared out over
+  //    every thread of the whole grid (all its launches); K5's outputs
+  //    keep what lies outside the box
   if constexpr (!REGION) {
     const long long nb = (long long)gridDim.x * q.gy * q.gz;
     const long long bid = blockIdx.x
@@ -434,8 +475,9 @@ int launch_stream(StreamParams<S, REGION> p, cudaStream_t stream) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   if (p.seg < 1) return int(cudaErrorInvalidConfiguration);
-  // z cells: the segments (of every member)
-  p.gz = (long long)((p.p.n[0] + p.seg - 1) / p.seg) * (BATCH ? p.p.nm : 1);
+  // z cells: the segments (of every outer cell, of every member)
+  p.gz = (long long)((p.p.n[0] + p.seg - 1) / p.seg)
+         * outer_cells<S>(p.p.n) * (BATCH ? p.p.nm : 1);
   p.gy = (p.p.n[1] + S::ST1 - 1) / S::ST1;
   const dim3 block(S::ST2, S::ST1, 1);
   // y in chunks of YT_MAX_GRID_Z, and z in each (launch_z)
@@ -455,14 +497,17 @@ int launch_stream(StreamParams<S, REGION> p, cudaStream_t stream) {
 #endif
 
 // The segment length and each output's pads (lo, hi) per slot from `geom`
-// = int[1 + 6 NOUT].  (Q: a StreamParams.)
+// = int[1 + 2 NS NOUT], NS the slots (3 + the outer dims).  (Q: a
+// StreamParams.)
 template <class S, class Q>
 void fill_geom(Q& q, const void* geom) {
+  constexpr int NS = 3 + OuterOf<S>::N;
   const int* gm = static_cast<const int*>(geom);
   q.seg = gm[0];
   for (int o = 0; o < S::NOUT; ++o)
-    for (int s = 0; s < 3; ++s)
-      for (int e = 0; e < 2; ++e) q.pad[o][s][e] = gm[1 + 6 * o + 2 * s + e];
+    for (int s = 0; s < NS; ++s)
+      for (int e = 0; e < 2; ++e)
+        q.pad[o][s][e] = gm[1 + 2 * NS * o + 2 * s + e];
 }
 
 // The stream arm: K1's arguments, then `geom` (fill_geom).
@@ -526,8 +571,9 @@ int run_stream_region(void* in_ptrs, void* in_strides, void* out_ptrs,
 // arguments, then the segment and pad table before the step index), K7
 // over it (K7's arguments with the segment and pad table before the
 // member count) and K5 over it (K5's arguments with the segment and pad
-// table, the box's segment length, before the step index).
-#define YT_FUSED_STREAM_ENTRY(NAME, S)                                       \
+// table, the box's segment length, before the step index).  A Spec past
+// three domain dims has the first two alone (YT_FUSED_STREAM_OUTER_ENTRY).
+#define YT_FUSED_STREAM_OUTER_ENTRY(NAME, S)                                 \
   extern "C" int NAME(void* in_ptrs, void* in_strides, void* out_ptrs,       \
                       void* out_strides, void* sizes, void* geom, int t,     \
                       void* stream) {                                        \
@@ -541,7 +587,9 @@ int run_stream_region(void* in_ptrs, void* in_strides, void* out_ptrs,
     return yt::run_stream_batched<S>(in_ptrs, in_strides, in_mstrides,       \
                                      out_ptrs, out_strides, out_mstrides,    \
                                      sizes, geom, nm, t, stream);            \
-  }                                                                          \
+  }
+#define YT_FUSED_STREAM_ENTRY(NAME, S)                                       \
+  YT_FUSED_STREAM_OUTER_ENTRY(NAME, S)                                       \
   extern "C" int NAME##_region(void* in_ptrs, void* in_strides,              \
                                void* out_ptrs, void* out_strides,            \
                                void* sizes, void* region, void* geom, int t, \

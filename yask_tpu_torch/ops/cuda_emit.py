@@ -47,7 +47,11 @@ into one ``Spec`` struct:
   entry ``<name>_stream``, and ``_stream_batched`` and ``_stream_region``
   for K7 and K5 over it): its plane tile, prefetch depth and rings
   (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
-  into registers; :func:`skew_engaged_dims` says whether it runs.  A 3-D
+  into registers; :func:`skew_engaged_dims` says whether it runs.  Past
+  three domain dims the same arm takes a single-stage solution, each
+  outer cell a coordinate of its work items and each input read at an
+  outer offset a ring of its own, the pad pass over every slot's pads
+  (entries ``YT_FUSED_STREAM_OUTER_ENTRY``: solo and K7, no K5).  A 3-D
   solution on K6's body without misc or partial-dim outputs, at element
   size 4 or 8, also gets K6's stream arm (``csrc/stream_stages.cuh``,
   entries ``<name>_stages_stream`` and ``_stages_stream_batched``): each
@@ -116,6 +120,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import math
 import re
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
@@ -1109,16 +1114,19 @@ def _print(program, pushed, copies: bool = True) -> _Printed:
 
 def _stream_plan(program, tiled, halos, esize):
     """The stream arm's plan for a single-stage solution, or None with
-    the reason code and detail.  It takes 3 domain dims, written vars over
-    all of them without misc axes, and a staged input (K1's ``tiled``)
-    read at a slot-0 offset; its rings hold K1's staged inputs with their
-    halos and must fit :data:`SMEM_LIMIT`."""
+    the reason code and detail.  It takes 3 domain dims or more (past
+    three, each outer cell a coordinate of the work items, as K1's body
+    folds them into its grid), written vars over all of them without misc
+    axes, and a staged input (K1's ``tiled``) read at a slot-0 offset; its
+    rings hold K1's staged inputs with their halos (an input read at an
+    outer offset is one of its own) and must fit :data:`SMEM_LIMIT`."""
     from yask_tpu_torch.ops.tile_planner import stream_plan
     dims = list(program.ana.domain_dims)
-    if len(dims) != 3:
+    if len(dims) < 3:
         return None, ("skew_ineligible", f"{len(dims)}-D solution: the "
                       "stream arm walks slot 0 of a 3-D domain")
-    arms = [a for a in a3_arms(program) if a != "element size 2"]
+    arms = [a for a in a3_arms(program) if a not in ("element size 2",
+                                                     "4-D")]
     if arms:
         return None, ("skew_ineligible", f"{' and '.join(arms)}: the "
                       "stream arm writes every cell of whole output "
@@ -1127,8 +1135,11 @@ def _stream_plan(program, tiled, halos, esize):
     if not any(halos[a][0][0] or halos[a][0][1] for a in tiled):
         return None, ("skew_ineligible", "no staged input is read at a "
                       "slot-0 offset: there are no planes to carry")
+    outer = (math.prod(program.sizes[d] for d in dims[:-3])
+             if len(dims) > 3 else 0)
     plan = stream_plan({a: halos[a] for a in tiled},
-                       [program.sizes[d] for d in dims], esize, SMEM_LIMIT)
+                       [program.sizes[d] for d in dims[-3:]], esize,
+                       SMEM_LIMIT, outer)
     if plan is None:
         return None, ("skew_fallback", f"the plane rings do not fit "
                       f"{SMEM_LIMIT} bytes of shared memory even at the "
@@ -1229,15 +1240,16 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
     wherever an arm can run), ``True`` = forced (raises where it cannot).
     The port streams one dim, slot 0 (the outermost domain dim), one level
     per launch (ROADMAP.md C11): K1's stream arm for a single-stage 3-D
-    solution (``spec.stream``; kernel ``stream_batched`` over member
-    batches, ``stream_region`` over a shard's box), K6's
+    solution, and past three dims with each outer cell a coordinate of
+    its work items (``spec.stream``; kernel ``stream_batched`` over
+    member batches, ``stream_region`` over a shard's 3-D box), K6's
     (``spec.stages_stream``, kernel ``stages_stream``) for a multi-stage
     or scratch one, its rings past shared memory where they fit no plane
     tile, solo, over member batches (K7, ``batched``) or over a shard's
     box (K5, ``region``, kernel ``stages_stream_region``); ``max_dims`` <
     1 (``-skew_dims 0``) leaves it out.  The solutions neither arm takes
-    keep their kernel with the emitter's reason (``spec.stream_cause``; a
-    4-D single-stage solution keeps K1's body, :func:`_stream_plan`).
+    keep their kernel with the emitter's reason (``spec.stream_cause``,
+    :func:`_stream_plan`); K5 over a 4-D box keeps its body.
     Returns ``[slot-0 dim]`` or ``[]``; ``spec`` is ``emit(program)``, and
     ``members`` a batch's members (K1's arm: its segment in the detail)."""
     if reasons is None:
@@ -1265,9 +1277,9 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
             reasons.append({"code": cause[0], "dim": d, "detail": cause[1]})
         return []
     if region and spec.outer:
-        cause = ("skew_ineligible", f"{len(dims)}-D solution: K5 over K6's "
-                 "stream arm walks a 3-D box (its outer dims are ROADMAP.md "
-                 "A5)")
+        cause = ("skew_ineligible", f"{len(dims)}-D solution: K5 over K1's "
+                 "and K6's stream arms walks a 3-D box (its outer dims are "
+                 "ROADMAP.md A5)")
         if skew is True:
             raise YaskException(f"stream arm (skew) infeasible: {cause[1]}")
         for d in lead:
@@ -1310,6 +1322,10 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
             where = " at the shard's interior (each box at its own extents)"
         over = (" over member batches" if batched
                 else " over a shard's box" if region else "")
+        if spec.outer:
+            over += (f", {rec['outer_cells']} outer cell(s) in "
+                     f"{', '.join(dims[:spec.outer])} as work-item "
+                     "coordinates")
         row = {"code": code, "dim": d0,
                "detail": f"slot-0 stream{over}, one level per launch: "
                          f"plane tile {rec['plane_tile']} by "
@@ -1326,9 +1342,13 @@ def skew_engaged_dims(program, skew=None, max_dims: int = 2,
             reasons.append({"code": "skew_ineligible", "dim": d,
                             "detail": "the port streams slot 0 only "
                                       "(ROADMAP.md C11)"
-                                      + ("; an outer dim is a window of its "
-                                         "work items" if d in
-                                         dims[:spec.outer] else "")})
+                                      + (("; an outer dim is a window of "
+                                          "its work items"
+                                          if spec.stages_stream is not None
+                                          else "; an outer dim is a "
+                                          "coordinate of its work items")
+                                         if d in dims[:spec.outer]
+                                         else "")})
     return [d0]
 
 
@@ -1580,8 +1600,10 @@ def emit(program, push=False, ladder=_TILE_LADDER,
              + "\n".join(tabs) + stream_enum + outer_enum)
             .encode()).hexdigest()[:12]
         name = f"fused_step_{stem}"
-        stream_entry = (f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n"
-                        if plan is not None else "")
+        stream_entry = ("" if plan is None else
+                        f"YT_FUSED_STREAM_OUTER_ENTRY({name}_stream, Spec)\n"
+                        if no else
+                        f"YT_FUSED_STREAM_ENTRY({name}_stream, Spec)\n")
         more = (f"YT_FUSED_BATCHED_ENTRY({name}_batched, Spec)\n"
                 f"YT_FUSED_REGION_ENTRY({name}_region, Spec)\n")
         src = f"""// Emitted by yask_tpu_torch.ops.cuda_emit for solution

@@ -131,6 +131,10 @@ segments, :func:`call_batched_stream_entry`) and ``<name>_stream_region``
 pad pass zeroes every member's pads); the box's keep what
 :func:`copy_base` or the caller gave them outside the box.  Their plain
 versions are :func:`plain_batched_chunk` and :func:`plain_shard_step`.
+Past three domain dims the arm and K7 over it take a single-stage
+solution too: each outer cell is a coordinate of the work items, each
+input read at an outer offset its own table entry (as on K1's body), and
+the pad pass covers every slot's pads; K5 keeps its body there.
 
 K6's stream arm (``-skew``, on a 3-D solution of K6's body without misc
 or partial-dim outputs, at element size 2, 4 or 8, scratch vars
@@ -407,13 +411,15 @@ def call_region_entry(fn, program, spec, ins, outs, box, off, t: int,
 
 
 def _stream_table(program, spec, seg: int) -> List[int]:
-    """The stream entry's int[1 + 6·NOUT]: the segment length, then each
-    output's pads (lo, hi) per kernel slot."""
+    """The stream entry's int[1 + 2·NS·NOUT]: the segment length, then each
+    output's pads (lo, hi) per kernel slot (NS slots: three, then one per
+    outer dim)."""
     dims = list(program.ana.domain_dims)
+    slot = cuda_emit.slot_map(dims)
     tab = [int(seg)]
     for name in spec.outputs:
-        pads = [(0, 0)] * 3
-        for d, s in cuda_emit.slot_map(dims).items():
+        pads = [(0, 0)] * max(3, len(slot))
+        for d, s in slot.items():
             pads[s] = program.geoms[name].pads[d]
         tab += [int(x) for lo_hi in pads for x in lo_hi]
     return tab
@@ -1248,12 +1254,14 @@ class FusedKernel:
             self.resident_fn.restype = ctypes.c_int
         if self.spec.stream is not None:
             stem = self.spec.name + "_stream"
-            for attr, entry, argtypes in (
-                    ("stream_fn", stem, stream_argtypes()),
-                    ("batched_stream_fn", stem + "_batched",
-                     batched_stream_argtypes()),
-                    ("stream_region_fn", stem + "_region",
-                     region_stream_argtypes())):
+            entries = [("stream_fn", stem, stream_argtypes()),
+                       ("batched_stream_fn", stem + "_batched",
+                        batched_stream_argtypes())]
+            if not self.spec.outer:
+                # K5 over the arm (three domain dims only)
+                entries.append(("stream_region_fn", stem + "_region",
+                                region_stream_argtypes()))
+            for attr, entry, argtypes in entries:
                 f = getattr(lib, entry)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
@@ -1377,13 +1385,15 @@ class FusedKernel:
     def batch_segment(self, members: int) -> Dict[str, object]:
         """K7 over K1's stream arm for ``members`` members: the plan's
         segment rule with the members' columns in the waves
-        (``StreamPlan.segments_of``).  Returns the members, the segment
+        (``StreamPlan.segments_of``; past three domain dims a member's
+        columns count its outer cells).  Returns the members, the segment
         length, segments per member, columns per member and the grid's
         blocks."""
         if members not in self._batch_segs:
             plan = self.spec.stream
             cols = plan.blocks // plan.segments
-            n0 = self.program.sizes[self.program.ana.domain_dims[0]]
+            dims = self.program.ana.domain_dims
+            n0 = self.program.sizes[dims[self.spec.outer]]
             seg, segs = plan.segments_of(n0, cols * members)
             self._batch_segs[members] = {
                 "members": members, "segment_planes": seg, "segments": segs,

@@ -433,10 +433,14 @@ class StreamPlan:
     staged_per_point: Dict[int, float]
     #: planes each segment stages again (the widest ring's h0_lo + h0_hi)
     h0: int = 0
+    #: past three domain dims: the outer cells, each a coordinate of the
+    #: work items beside the columns and segments (0 in 3-D)
+    outer_cells: int = 0
 
     def segments_of(self, n0: int, cols: int) -> Tuple[int, int]:
         """The segment length and segments of a walk of ``n0`` planes over
-        ``cols`` columns (times the members of a batch): the plan's rule,
+        ``cols`` columns (times the outer cells and the members of a
+        batch): the plan's rule,
         :func:`stream_segments` on the card's resident blocks of this
         plane tile.  The plan takes it at the domain's extents, K7's
         wrapper with the batch's columns, K5's at each box's."""
@@ -449,20 +453,42 @@ class StreamPlan:
                 "segments": self.segments, "blocks": self.blocks,
                 "blocks_per_sm": self.per_sm, "register_queue": self.queue,
                 "staged_per_point": {a: round(v, 4) for a, v in
-                                     self.staged_per_point.items()}}
+                                     self.staged_per_point.items()},
+                **({"outer_cells": self.outer_cells}
+                   if self.outer_cells else {})}
+
+
+#: Past three domain dims, the least 32-bit registers a thread of K1's
+#: stream arm keeps (the blocks per SM stop there), and the resident
+#: threads an SM should hold: at 32 registers (two 1024-thread blocks an
+#: SM) test_4d's builds spill 68 B and more a thread and its launch at
+#: 128⁴ ran 1.2x slower than at 64 (chip_smoke phase 24 (b)'s sweep,
+#: PERF.md); one such block an SM leaves the barriers unhidden.
+STREAM_OUTER_MIN_REGS = 40
+STREAM_OUTER_THREADS = 1536
 
 
 def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
-                smem_limit: Optional[int] = None) -> Optional[StreamPlan]:
+                smem_limit: Optional[int] = None,
+                outer: int = 0) -> Optional[StreamPlan]:
     """Plan the stream arm for the staged inputs' ``halos`` (input ->
     per-slot (lo, hi)) over interior extents ``n`` (slots 0, 1, 2): the
     first (plane tile, prefetch) of the ladder whose rings fit
     ``smem_limit`` (``cuda_emit.SMEM_LIMIT``), or None.  The segment
     length minimises the planes the busiest SM walks, waves of resident
-    blocks times the segment's planes with its re-staged h0 planes."""
+    blocks times the segment's planes with its re-staged h0 planes.
+    Past three domain dims ``outer`` is the outer cells, each a work-item
+    coordinate: the columns the waves count are the plane's times them;
+    a thread keeps :data:`STREAM_OUTER_MIN_REGS` registers, and of the
+    plane tiles (each at its deepest prefetch that fits) that keep
+    :data:`STREAM_OUTER_THREADS` threads resident the plan takes the one
+    staging the fewest in-plane cells per point (the first on a tie), or
+    the one with the most resident threads where none does: the choice
+    does not depend on ``n``, so neither does the source."""
     if smem_limit is None:
         from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
     n0, n1, n2 = (int(x) for x in n)
+    cands = []
     for t1, t2 in STREAM_TILES:
         for pf in STREAM_PREFETCH:
             depths = {a: ring_depth(h[0][0], h[0][1], pf)
@@ -475,16 +501,28 @@ def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
             nt = t1 * t2
             per_sm = max(1, min(SM_THREADS // nt,
                                 SM_SMEM // (cells * esize + 1024)))
-            cols = -(-n1 // t1) * -(-n2 // t2)
+            if outer:
+                per_sm = max(1, min(per_sm, SM_REGS
+                                    // (nt * STREAM_OUTER_MIN_REGS)))
+            cols = -(-n1 // t1) * -(-n2 // t2) * max(outer, 1)
             h0 = max((h[0][0] + h[0][1] for h in halos.values()), default=0)
             seg, segs = stream_segments(n0, cols, SMS * per_sm, h0)
             staged = {a: (t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
                       * (n0 + segs * (h[0][0] + h[0][1])) / (nt * n0)
                       for a, h in halos.items()}
-            return StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
+            plan = StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
                               cols * segs, per_sm, register_queue(nt, per_sm),
-                              staged, h0)
-    return None
+                              staged, h0, outer)
+            if not outer:
+                return plan
+            inplane = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
+                          for h in halos.values()) / nt
+            cands.append((nt * per_sm, inplane, plan))
+            break
+    full = [c for c in cands if c[0] >= STREAM_OUTER_THREADS]
+    if full:
+        return min(full, key=lambda c: c[1])[2]
+    return max(cands, key=lambda c: c[0])[2] if cands else None
 
 
 # ==== K6's stream arm: every sub-stage walking slot 0 ====================

@@ -149,8 +149,9 @@ script exits 0 only when all of them passed.  Phases:
    per-equation constants, the unwritten slices of a var kept by a copy
    of its evicted slot, ``copy_base``), written vars lacking a domain dim
    (stride 0, the slab stored by the blocks at index 0), and bfloat16
-   storage (computed in float, each op rounded once; the stream arm fills
-   its rings with aligned pairs).  (a) On small ragged grids (three tile
+   storage (computed in float, each op rounded once; K1's stream arm
+   computes lane pairs in packed bfloat16x2 over 16-byte ring units,
+   phase 25).  (a) On small ragged grids (three tile
    boundaries per slot, a partial last tile) box r=1 and gaussian r=2 (3
    channels, K6), test_misc_2d (K1), test_misc_value_2d and
    test_step_cond_1d (K6), the partial-dim solutions of
@@ -529,11 +530,28 @@ script exits 0 only when all of them passed.  Phases:
    (b) test_4d at 128⁴, fp32 (3 trials of 20 steps, from phase 11 (c)'s
    seed, its final state's digest equal to phase 11 (c)'s) and bf16 (one
    trial of 10, beside its twin run here), and K7 over 8 x 64⁴ fp32 (from
-   phase 12 (b)'s seeds, the final states' digests equal): ms per launch
-   and per step against the bound and the twin's, ptxas's registers and
-   spills, ``torch.profiler`` over 3 launches of the arm and 3 of the
-   twin (kernels, fills, idle share), and the fp32 arm at the plane
-   tiles of :data:`S24_SWEEP` (each the same bits).
+   phase 12 (b)'s seeds, the final states' digests equal) and bf16
+   (:data:`S24_K7_BF16`, one trial of 10 beside its twin run here): ms
+   per launch and per step against the bound and the twin's, ptxas's
+   registers and spills, ``torch.profiler`` over 3 launches of the arm
+   (and of the solo twins), and the arm at the rungs of
+   :data:`S24_SWEEP` (fp32) and :data:`S24_BF16_SWEEP` (each the same
+   bits);
+25. K1's stream arm at element size 2 as lane pairs (a thread computes
+   two adjacent minor-dim points in packed bfloat16x2 arithmetic over
+   ring rows of 16-byte units; solo, K7, K5 and past three dims), the
+   default under ``-skew`` in bfloat16.  (a) At mid width from one seed,
+   each beside its ``-no-skew`` twin, bit-equal, the arm alone
+   launching, held to its plain version, one launch of each timed
+   beside its twin's: :data:`P25_MID` (iso3dfd r=2 and r=8 and 3axis
+   r=1 at 67x45x131) solo and as K7 x3, :data:`P25_K5` (the same on 2x2
+   shards of 96³ at K=1 and K=2), :data:`P25_4D` (test_4d at
+   5x67x45x131) solo and as K7 x3; (b) iso3dfd r=8 bf16 512³ at the
+   planned rung and at :data:`P25_SWEEP`'s, one launch of each from one
+   state bit-equal to the plan's, with ptxas's report and the SASS of
+   the walk per point per plane (phase 1 reads it from every
+   pair-flavour library, :func:`sass_loop_counts`; phases 10 (c), 23 (b)
+   and 24 (b) print it beside their bf16 rows with a profile).
 
 It prints the measurements, the card line, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Nothing of JAX or of
@@ -3119,7 +3137,7 @@ def gaussian_library(entry, card: str, r: int = 2,
 
 
 def phase10(fac, env, card: str, image: int = 8192, full: int = 512,
-            misc: int = 2048) -> list:
+            misc: int = 2048, ptxas=None) -> list:
     """The misc, partial-dim and element-size-2 arms (see the module
     docstring); returns their ``kernels`` entries."""
     import torch
@@ -3150,6 +3168,19 @@ def phase10(fac, env, card: str, image: int = 8192, full: int = 512,
     if nbits:
         raise RuntimeError("phase 10: at element size 2 the stream arm and "
                            f"K1 differ at {full}^3")
+    # the pair flavour's registers, SASS and profile (3 launches)
+    from yask_tpu_torch.ops import fused_stencil as fs
+    skern = stream["ctx"]._fused
+    s0 = dict(stream["ctx"]._state)
+    prof = profile_launches(lambda: fs.stream_step(skern, s0, 62), 3,
+                            expect=("stream_step_kernel",))
+    name = skern.spec.name
+    log(f"phase 10 (c): iso3dfd r=8 {full}^3 bf16 on the stream arm: "
+        f"{pair_line(skern.spec)}; ptxas ({name}): "
+        f"{(ptxas or {}).get(name, 'not built by phase 1')}; profile {prof}")
+    stream.update(ptxas=(ptxas or {}).get(name), profile=prof,
+                  sass=SASS.get(name))
+    del skern, s0
     for e, src, rep in ((stream, "stream_step.cuh", "yask_tpu/ops/"
                          "pallas_stencil.py:734 (tpu_tile_dims in the "
                          "program dtype :346, :734; VMEM in dtype "
@@ -7404,13 +7435,13 @@ def phase23(fac, env, card: str, ptxas: dict, twins: dict) -> list:
             f"body) {', '.join(f'{m:.3f}' for m in twin['box_ms'])} ms per "
             f"launch, {twin['step_ms']:.3f} ms/step: "
             f"{twin['ms'] / e['ms']:.2f}x per launch; final shards bit-equal;"
-            f" ptxas ({name}): {ptxas.get(name, 'not built by phase 1')} "
-            f"[{card}]")
+            f" ptxas ({name}): {ptxas.get(name, 'not built by phase 1')}; "
+            f"SASS {SASS.get(name, {}).get('K5')} [{card}]")
         e.update(name=f"shard_step (K5 over K1's stream arm: {label} "
                       f"{g}^3 on 2x2 shards, K={K})",
                  replaces=K1S_K5_REPLACES, path="phase 23 (b)",
                  body_ms=twin["ms"], body_step_ms=twin["step_ms"],
-                 ptxas=ptxas.get(name))
+                 ptxas=ptxas.get(name), sass=SASS.get(name, {}).get("K5"))
         entries.append(e)
         torch.cuda.empty_cache()
 
@@ -7436,7 +7467,9 @@ def phase23(fac, env, card: str, ptxas: dict, twins: dict) -> list:
             f"the same seeds and steps) {twin['ms']:.3f} ms/launch, "
             f"{twin['step_ms']:.3f} ms/step: {twin['ms'] / e['ms']:.2f}x "
             f"per launch; final states bit-equal: {same}; ptxas ({name}): "
-            f"{ptxas.get(name, 'not built by phase 1')} [{card}]")
+            f"{ptxas.get(name, 'not built by phase 1')}; SASS "
+            f"{SASS.get(name, {}).get('K7')}; profile {e.get('profile')} "
+            f"[{card}]")
         if not same:
             raise RuntimeError(f"phase 23 (b): K7 iso3dfd r=8 {eb} B: the "
                                "stream arm and its -no-skew twin end in "
@@ -7445,7 +7478,7 @@ def phase23(fac, env, card: str, ptxas: dict, twins: dict) -> list:
                       f"iso3dfd r=8 {shape}, {eb} B)",
                  replaces=K1S_K7_REPLACES, path="phase 23 (b)",
                  body_ms=twin["ms"], body_step_ms=twin["step_ms"],
-                 ptxas=ptxas.get(name))
+                 ptxas=ptxas.get(name), sass=SASS.get(name, {}).get("K7"))
         entries.append(e)
         torch.cuda.empty_cache()
     log(f"phase 23 took {time.perf_counter() - t0:.1f} s")
@@ -7471,6 +7504,16 @@ S24_K7 = next(c for c in K7_FULL if c[1] == "test_4d")
 #: blocks at 32 registers (the 3-D arm's rule), by one at 64, and 8x64 by
 #: three at 40; few, as each is a source phase 1 builds
 S24_SWEEP = ((16, 64, 32), (16, 64), (8, 64))
+#: the 128⁴ bf16 run's rungs (T1, T2, least registers a thread; each the
+#: same bits; the plan takes 16x32 by 4 blocks of 256 at 64 registers,
+#: tile_planner.STREAM_PAIR_MIN_REGS and STREAM_PAIR_OUTER_BLOCK): 32x32
+#: by 3 blocks of 512 at 40 (the 4-D rule of element sizes 4 and 8),
+#: 16x32 by 5 at 48, and 32x32 and 16x64 by 2 blocks of 512 at 64
+S24_BF16_SWEEP = ((32, 32, 40), (16, 32, 48), (32, 32, 64), (16, 64, 64))
+#: K7 over the arm at element size 2: 8 x 64⁴ bf16 beside its -no-skew
+#: twin from one seed, one trial of 10 steps each
+S24_K7_BF16 = ("4-D bf16", "test_4d", None, 2, 8, (64,) * 4, "batched_step",
+               "test_4d bf16")
 #: what the arm replaces: the reference's grid over every lead dim under
 #: K2's prefetch and K3's slot-0 carry (and its vmap, K7)
 S24_REPLACES = ("yask_tpu/ops/pallas_stencil.py:1442 (the grid over every "
@@ -7484,19 +7527,24 @@ def k1_stream_kernel(program, rung):
     """K1's stream arm for ``program`` at plane tile ``rung`` (T1, T2) in
     place of ``tile_planner.STREAM_TILES`` (and, with a third entry, that
     many registers a thread at least in place of
-    ``tile_planner.STREAM_OUTER_MIN_REGS``: the blocks per SM follow),
-    emitted at the program's size (the segment length follows it)."""
-    from yask_tpu_torch.ops import cuda_emit, tile_planner
+    ``tile_planner.STREAM_OUTER_MIN_REGS`` and ``STREAM_PAIR_MIN_REGS``:
+    the blocks per SM follow), emitted at the program's size (the segment
+    length follows it).  The rung is taken whatever its threads
+    (``STREAM_PAIR_OUTER_BLOCK`` does not apply)."""
+    from yask_tpu_torch.ops import cuda_emit, tile_planner as tp
     from yask_tpu_torch.ops.fused_stencil import FusedKernel
     kern = FusedKernel(program)
-    orig = tile_planner.STREAM_TILES, tile_planner.STREAM_OUTER_MIN_REGS
-    tile_planner.STREAM_TILES = (tuple(rung[:2]),)
-    tile_planner.STREAM_OUTER_MIN_REGS = (rung[2] if len(rung) > 2
-                                          else orig[1])
+    orig = (tp.STREAM_TILES, tp.STREAM_OUTER_MIN_REGS,
+            tp.STREAM_PAIR_MIN_REGS, tp.STREAM_PAIR_OUTER_BLOCK)
+    tp.STREAM_TILES = (tuple(rung[:2]),)
+    tp.STREAM_PAIR_OUTER_BLOCK = tp.SM_THREADS
+    if len(rung) > 2:
+        tp.STREAM_OUTER_MIN_REGS = tp.STREAM_PAIR_MIN_REGS = rung[2]
     try:
         kern.spec = cuda_emit.emit(program)
     finally:
-        tile_planner.STREAM_TILES, tile_planner.STREAM_OUTER_MIN_REGS = orig
+        (tp.STREAM_TILES, tp.STREAM_OUTER_MIN_REGS, tp.STREAM_PAIR_MIN_REGS,
+         tp.STREAM_PAIR_OUTER_BLOCK) = orig
     kern.skew_dims = cuda_emit.skew_engaged_dims(program, None, 2, [],
                                                  kern.spec)
     return kern
@@ -7504,24 +7552,27 @@ def k1_stream_kernel(program, rung):
 
 def s24_specs(fac, env) -> dict:
     """Phase 24's sources, for phase 1's parallel build: test_4d at each
-    element size at the phase's sizes (at element size 2 a source follows
-    its minor extent's parity), and the 128⁴ fp32 source at each rung of
-    :data:`S24_SWEEP`."""
+    element size at the phase's sizes, and the 128⁴ fp32 and bf16 sources
+    at each rung of :data:`S24_SWEEP` and :data:`S24_BF16_SWEEP`."""
     from yask_tpu_torch.ops.fused_stencil import FusedKernel
     out = {}
     for label, eb, sizes in S24_MID:
         ctx = a3_ctx(fac, env, "test_4d", None, eb, sizes, "torch")
         out[f"{label} (phase 24)"] = FusedKernel(ctx._program).spec
-    ctx = a3_ctx(fac, env, "test_4d", None, 4, (S24_FULL,) * 4, "torch")
-    for rung in S24_SWEEP:
-        out[f"test_4d at {rung} (phase 24)"] = k1_stream_kernel(
-            ctx._program, rung).spec
-    del ctx
+    for eb, sweep in ((4, S24_SWEEP), (2, S24_BF16_SWEEP)):
+        ctx = a3_ctx(fac, env, "test_4d", None, eb, (S24_FULL,) * 4,
+                     "torch")
+        for rung in sweep:
+            out[f"test_4d {eb} B at {rung} (phase 24)"] = k1_stream_kernel(
+                ctx._program, rung).spec
+        del ctx
     return out
 
 
-def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5) -> list:
-    """Phase 24 (a): each case on K1's stream arm (``-skew``, the
+def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5,
+             st: str = "test_4d", r=None, phase: str = "24 (a)") -> list:
+    """Phase 24 (a) (phase 25 (a)'s solo rows, ``st`` at radius ``r``):
+    each case on K1's stream arm (``-skew``, the
     default) beside its ``-no-skew`` twin (K1's body) and its plain
     version (``-mode torch``) from one seed, ``steps`` steps at K = 2 with
     the counters zeroed just before (the arm alone launches): bit-equal
@@ -7532,12 +7583,10 @@ def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5) -> list:
     rows = []
     for label, eb, sizes in cases:
         eps = BF16_FIELD_EPS if eb == 2 else FIELD_EPS
-        ctxs = {"arm": a3_ctx(fac, env, "test_4d", None, eb, sizes, "fused",
-                              2),
-                "twin": a3_ctx(fac, env, "test_4d", None, eb, sizes,
-                               "fused", 2, "-no-skew"),
-                "plain": a3_ctx(fac, env, "test_4d", None, eb, sizes,
-                                "torch", 2)}
+        ctxs = {"arm": a3_ctx(fac, env, st, r, eb, sizes, "fused", 2),
+                "twin": a3_ctx(fac, env, st, r, eb, sizes, "fused", 2,
+                               "-no-skew"),
+                "plain": a3_ctx(fac, env, st, r, eb, sizes, "torch", 2)}
         for c in ctxs.values():
             seed_case(c, 7)
         got = {}
@@ -7546,17 +7595,17 @@ def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5) -> list:
             ctxs[key].run_solution(0, steps - 1)
             got[key] = {k: v for k, v in launch_counts().items() if v}
             if got[key] != {want: steps}:
-                raise RuntimeError(f"phase 24 (a): {label} {key}: launches "
+                raise RuntimeError(f"phase {phase}: {label} {key}: launches "
                                    f"{got[key]}, expected {steps} of {want}")
         ctxs["plain"].run_solution(0, steps - 1)
         til = ctxs["arm"].get_stats().get_tiling()
         if not til["name"].endswith("_stream") or not til["skew"]:
-            raise RuntimeError(f"phase 24 (a): {label} ran {til['name']}")
+            raise RuntimeError(f"phase {phase}: {label} ran {til['name']}")
         _d, twin_bits = device_diff(ctxs["arm"], ctxs["twin"], exact=True)
         d = max_abs_diff(ctxs["arm"], ctxs["plain"])
         bad = ctxs["arm"].compare_data(ctxs["plain"], field_epsilon=eps)
         if twin_bits or bad or not finite(ctxs["arm"]):
-            raise RuntimeError(f"phase 24 (a): {label}: the stream arm "
+            raise RuntimeError(f"phase {phase}: {label}: the stream arm "
                                f"differs from its twin in {twin_bits} cells "
                                f"or from its plain version ({bad} "
                                "mismatches)")
@@ -7567,9 +7616,10 @@ def phase24a(fac, env, card: str, cases=S24_MID, steps: int = 5) -> list:
         plain_ms = cuda_ms(lambda: fs.plain_chunk(kern.program, s0, steps,
                                                   1), 2)
         bound_ms, bound_by, _nb = a3_bound(ctxs["arm"])
-        log(f"phase 24 (a): {label} {'x'.join(map(str, sizes))} K1's 4-D "
+        log(f"phase {phase}: {label} {'x'.join(map(str, sizes))} K1's "
             f"stream arm, K=2 {steps} steps: launches {got['arm']} "
-            f"({til['name']}, {til['stream']['outer_cells']} outer cells, "
+            f"({til['name']}, {til['stream'].get('outer_cells', 0)} outer "
+            f"cells, {til['stream'].get('pairs')}, "
             f"{til['stream']['segments']} segment(s) of "
             f"{til['stream']['segment_planes']} planes); bit-equal to its "
             f"-no-skew twin (K1's body; {twin_bits} cells differ); vs plain "
@@ -7644,7 +7694,8 @@ def phase24b_solo(fac, env, card: str, ptxas: dict, eb: int, twin: dict,
         f"{twin['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
         f"{same}; plan {til['stream']}; profile (arm) {prof}; profile "
         f"(twin) {prof_twin}; rungs {rungs}; ptxas ({name}): "
-        f"{ptxas.get(name, 'not built by phase 1')} [{card}]")
+        f"{ptxas.get(name, 'not built by phase 1')}; SASS "
+        f"{SASS.get(name, {}).get('solo')} [{card}]")
     if not same:
         raise RuntimeError(f"phase 24 (b): {label}: the stream arm and its "
                            "-no-skew twin end in other states")
@@ -7652,7 +7703,8 @@ def phase24b_solo(fac, env, card: str, ptxas: dict, eb: int, twin: dict,
              replaces=S24_REPLACES, path="phase 24 (b)",
              body_ms=twin["ms"], body_step_ms=twin["step_ms"],
              ptxas=ptxas.get(name), profile=prof, twin_profile=prof_twin,
-             plan=til["stream"], **({"sweep": rungs} if sweep else {}))
+             plan=til["stream"], sass=SASS.get(name, {}).get("solo"),
+             library=name, **({"sweep": rungs} if sweep else {}))
     del ctx, kern, body, s0
     release()
     return e
@@ -7664,10 +7716,10 @@ def phase24(fac, env, card: str, ptxas: dict, twins: dict) -> list:
     through :func:`phase23a_k7`, each beside its ``-no-skew`` twin from
     one seed, bit-equal; (b) test_4d at :data:`S24_FULL`⁴ solo in fp32
     (``twins["solo"]``: phase 11 (c)'s run, with its digest) and bf16 (its
-    twin run here) and :data:`S24_K7` through :func:`phase12b` (its twin
-    ``twins["k7"]``, phase 12 (b)'s 4-D cell), each from its twin's seed
-    and steps, the final states bit-equal.  Returns the ``kernels``
-    entries."""
+    twin run here), :data:`S24_K7` through :func:`phase12b` (its twin
+    ``twins["k7"]``, phase 12 (b)'s 4-D cell) and :data:`S24_K7_BF16`
+    (its twin run here), each from its twin's seed and steps, the final
+    states bit-equal.  Returns the ``kernels`` entries."""
     import torch
     t0 = time.perf_counter()
     entries = []
@@ -7698,7 +7750,8 @@ def phase24(fac, env, card: str, ptxas: dict, twins: dict) -> list:
                  "twin)", trials=1, steps=10, cli="-no-skew")
     tw["state_digest"] = state_digest(tw.pop("ctx"))
     release()
-    entries.append(phase24b_solo(fac, env, card, ptxas, 2, tw, 1, 10))
+    entries.append(phase24b_solo(fac, env, card, ptxas, 2, tw, 1, 10,
+                                 sweep=S24_BF16_SWEEP))
     # K7 over the arm beside phase 12 (b)'s 4-D cell
     twin = twins["k7"]
     e = phase12b(fac, env, card, {"test_4d": entries[2] | {
@@ -7724,7 +7777,313 @@ def phase24(fac, env, card: str, ptxas: dict, twins: dict) -> list:
              ptxas=entries[2]["ptxas"])
     entries.append(e)
     torch.cuda.empty_cache()
+    # K7 over the arm at element size 2 beside its -no-skew twin
+    solo = {S24_K7_BF16[7]: entries[3] | {
+        "label": "phase 24 (b), K1's 4-D stream arm, 128^4 bf16",
+        "points": g ** 4}}
+    tw = phase12b(fac, env, card, solo, trials=1, steps=10,
+                  cells=(S24_K7_BF16,), phase="24 (b)", digest=True)[0]
+    e = phase12b(fac, env, card, solo, trials=1, steps=10,
+                 cells=(S24_K7_BF16,), cli="", phase="24 (b)", digest=True,
+                 profile=True)[0]
+    same = e.pop("state_digest") == tw.pop("state_digest")
+    nm, shape = S24_K7_BF16[4], "x".join(map(str, S24_K7_BF16[5]))
+    k7_sass = SASS.get(entries[3]["library"], {}).get("K7")
+    log(f"phase 24 (b): test_4d bf16, {nm} x {shape}: K7 over K1's 4-D "
+        f"stream arm {e['ms']:.3f} ms/launch, {e['step_ms']:.3f} ms/step, "
+        f"share {e['bound_ms'] / e['ms']:.3f} of {e['bound_ms']:.4f} ms; its "
+        f"-no-skew twin (K7 over K1's body, the same seeds and steps) "
+        f"{tw['ms']:.3f} ms/launch, {tw['step_ms']:.3f} ms/step: "
+        f"{tw['ms'] / e['ms']:.2f}x per launch; final states bit-equal: "
+        f"{same}; ptxas {entries[3]['ptxas']}; SASS {k7_sass}; profile "
+        f"{e.get('profile')} [{card}]")
+    if not same:
+        raise RuntimeError("phase 24 (b): K7 test_4d bf16: the stream arm "
+                           "and its -no-skew twin end in other states")
+    e.update(name=f"batched_step (K7 over K1's 4-D stream arm: {nm} x "
+                  f"test_4d {shape} bf16)",
+             replaces=S24_K7_REPLACES, path="phase 24 (b)",
+             body_ms=tw["ms"], body_step_ms=tw["step_ms"],
+             ptxas=entries[3]["ptxas"], sass=k7_sass)
+    entries.append(e)
+    torch.cuda.empty_cache()
     log(f"phase 24 took {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+# ---- phase 25: K1's stream arm at element size 2 as lane pairs -----------
+
+#: Phase 25 (a): the pair flavour at mid width, slot 0 and both plane slots
+#: ragged against the plane tile, the minor extent odd: (label, stencil,
+#: radius, sizes) solo and as K7 x3; K5 on 2x2 shards of 96³ at K=1 and
+#: K=2 (3axis r=1 grows its boxes by one: they start at odd x and y);
+#: test_4d at 5x67x45x131
+P25_MID = (("iso3dfd r=2 bf16", "iso3dfd", 2, (67, 45, 131)),
+           ("iso3dfd r=8 bf16", "iso3dfd", 8, (67, 45, 131)),
+           ("3axis r=1 bf16", "3axis", 1, (67, 45, 131)))
+P25_K5 = tuple((f"{st} r={r} bf16 K={K}", st, r, 2, (96,) * 3, K, X2Y2, "")
+               for st, r in (("iso3dfd", 2), ("iso3dfd", 8), ("3axis", 1))
+               for K in (1, 2))
+P25_4D = (("test_4d bf16", 2, (5, 67, 45, 131)),)
+#: Phase 25 (b): iso3dfd r=8 bf16 512³ at the plan (16x64 by 512 threads,
+#: two blocks an SM by their rings, 64 registers a thread) and at these
+#: (T1, T2[, the blocks an SM the launch bounds ask for]): 32x64 by 1024
+#: threads (one block an SM, 64 registers), and 16x64 built for three
+#: blocks an SM (at most 40 registers a thread; the rings let two stay)
+P25_SWEEP = ((32, 64), (16, 64, 3))
+#: the kernel's mangled name holds these per launch kind
+SASS_KEYS = {"solo": "stream_step_kernelI4SpecLb0ELb0E",
+             "K7": "stream_step_kernelI4SpecLb1ELb0E",
+             "K5": "stream_step_kernelI4SpecLb0ELb1E"}
+#: per source name, per launch kind: the SASS classes of K1's stream arm
+#: at element size 2 (:func:`sass_loop_counts`), which phase 1 reads from
+#: the built libraries
+SASS = {}
+P25_REPLACES = ("yask_tpu/ops/pallas_stencil.py:1668-1854 and :306-441, "
+                ":1955-2056 (K2's prefetch and K3's slot-0 carry) with the "
+                "VMEM tiles in the program dtype :2264-2289")
+
+_SASS_OP = None
+
+
+def sass_loop_counts(so_path: str, key: str) -> dict:
+    """The SASS of the walk's loop (the widest backward branch over a
+    barrier) of the
+    kernel whose mangled name holds ``key`` in library ``so_path``
+    (``cuobjdump -sass``), by class: the whole kernel's and the loop's
+    static counts (:func:`per_point_plane` divides the loop's by its
+    planes and points).  None where ``cuobjdump`` is missing or no such
+    kernel is in the library."""
+    import re
+    global _SASS_OP
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    if _SASS_OP is None:
+        _SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                              r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    funcs = re.split(r"\n\s*Function : ", text)
+    body = next((f for f in funcs[1:] if key in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    ins, labels, pending = [], {}, []
+    for ln in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", ln)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        m = _SASS_OP.search(ln)
+        if m:
+            a = int(m.group(1), 16)
+            for lb in pending:
+                labels[lb] = a
+            pending = []
+            ins.append((a, m.group(2), m.group(3)))
+    best = None
+    bars = [a for a, op, _x in ins if op.startswith("BAR")]
+    for a, op, args in ins:
+        if not op.startswith("BRA"):
+            continue
+        t = re.search(r"\.L_x_\d+", args)
+        h = re.search(r"0x([0-9a-f]+)", args)
+        tgt = (labels.get(t.group(0)) if t else
+               int(h.group(1), 16) if h else None)
+        # the walk: the widest backward branch over a barrier
+        if tgt is not None and tgt <= a \
+                and any(tgt <= b <= a for b in bars) \
+                and (best is None or a - tgt > best[1] - best[0]):
+            best = (tgt, a)
+    classes = (("LDS", ("LDS",)), ("LDGSTS", ("LDGSTS",)),
+               ("LDG", ("LDG.",)), ("STG", ("STG",)), ("STS", ("STS",)),
+               ("F2F/F2FP/PRMT", ("F2F", "PRMT")), ("SHF", ("SHF",)),
+               ("IMAD.U32", ("IMAD.U32",)),
+               ("FADD/FMUL/FFMA", ("FADD", "FMUL", "FFMA")),
+               ("HADD2/HMUL2/HFMA2", ("HADD2", "HMUL2", "HFMA2")),
+               ("BAR", ("BAR",)))
+
+    def count(rows):
+        c = {name: sum(1 for _a, op, _x in rows
+                       if op.startswith(prefixes) or op == prefixes[0])
+             for name, prefixes in classes}
+        c["all"] = len(rows)
+        return c
+    whole = count(ins)
+    if best is None:
+        return {"kernel": whole, "loop": None}
+    loop = count([r for r in ins if best[0] <= r[0] <= best[1]])
+    return {"kernel": whole, "loop": loop}
+
+
+def per_point_plane(counts: dict, points: int) -> dict:
+    """:func:`sass_loop_counts`'s loop, per point per plane: one barrier
+    a plane, so the loop's planes are its ``BAR`` instructions, and at
+    element size 2 a thread computes ``points`` (2) points; static
+    counts, the branches not taken included."""
+    loop = (counts or {}).get("loop")
+    if not loop or not loop["BAR"]:
+        return None
+    return {k: round(v / (loop["BAR"] * points), 2) for k, v in loop.items()
+            if k != "BAR"} | {"planes_in_loop": loop["BAR"]}
+
+
+def pair_sass(spec) -> None:
+    """Read the SASS of K1's stream arm of ``spec`` (its solo, K7 and K5
+    kernels) from its built library into :data:`SASS`."""
+    from yask_tpu_torch.ops import _build
+    so = _build.library_path(spec.name, spec.source)
+    pts = 2 if "point2(" in spec.source else 1
+    out = {}
+    for kind, key in SASS_KEYS.items():
+        c = sass_loop_counts(so, key)
+        if c is not None:
+            out[kind] = {"per_point_plane": per_point_plane(c, pts),
+                         "kernel": c["kernel"]}
+    SASS[spec.name] = out
+
+
+def p25_specs(fac, env) -> dict:
+    """Phase 25's sources for phase 1's parallel build: the mid-width
+    cases (the same sources as at full width: at element size 2 the
+    context pads the minor extent to 8 cells whatever its parity) and
+    iso3dfd r=8 bf16 512³ at each rung of :data:`P25_SWEEP`."""
+    from yask_tpu_torch.ops.fused_stencil import FusedKernel
+    out = {}
+    for label, st, r, sizes in P25_MID:
+        ctx = a3_ctx(fac, env, st, r, 2, sizes, "torch")
+        out[f"{label} (phase 25)"] = FusedKernel(ctx._program).spec
+    ctx = a3_ctx(fac, env, "iso3dfd", 8, 2, (512,) * 3, "torch")
+    for rung in P25_SWEEP:
+        out[f"iso3dfd r=8 bf16 at {rung} (phase 25)"] = k1_pair_rung(
+            ctx._program, rung).spec
+    del ctx
+    return out
+
+
+def k1_pair_rung(program, rung):
+    """K1's stream arm for ``program`` at plane tile ``rung`` (T1, T2)
+    (:func:`k1_stream_kernel`); a third entry asks the launch bounds for
+    that many blocks an SM in place of the plan's (the registers a
+    thread follow; the blocks resident and the segments stay the plan's),
+    the source renamed so that its library and records are its own."""
+    import hashlib
+    kern = k1_stream_kernel(program, rung[:2])
+    if len(rung) > 2:
+        spec = kern.spec
+        src = spec.source.replace(f"SMIN = {spec.stream.per_sm} }}",
+                                  f"SMIN = {rung[2]} }}")
+        assert src != spec.source
+        name = spec.name + "_" + hashlib.sha256(src.encode()).hexdigest()[:6]
+        spec.source = src.replace(spec.name, name)
+        spec.name = name
+    return kern
+
+
+def pair_line(spec) -> str:
+    """The pair flavour's plan and SASS of ``spec``'s stream arm, for a
+    phase's log line."""
+    rec = spec.stream.record() if spec.stream is not None else {}
+    sass = {k: v["per_point_plane"]
+            for k, v in SASS.get(spec.name, {}).items()}
+    return (f"pairs {rec.get('pairs')}, plane tile {rec.get('plane_tile')}, "
+            f"blocks per SM {rec.get('blocks_per_sm')}, register queue "
+            f"{rec.get('register_queue')}; SASS per point per plane {sass}")
+
+
+def phase25b(fac, env, card: str, ptxas: dict, g: int = 512,
+             warm: int = 2) -> dict:
+    """Phase 25 (b): iso3dfd r=8 bf16 at ``g``³ on the planned rung and
+    on each of :data:`P25_SWEEP`: from one seeded state after ``warm``
+    steps, one launch of each bit-equal to the planned rung's, 10
+    launches of each timed (CUDA events), with ptxas's report and the
+    SASS per point per plane.  Returns the sweep's record."""
+    from yask_tpu_torch.ops import fused_stencil as fs
+    ctx = a3_ctx(fac, env, "iso3dfd", 8, 2, (g,) * 3, "fused", 1)
+    seed_device(ctx, 11)
+    ctx.run_solution(0, warm - 1)
+    kern = ctx._fused
+    s0 = dict(ctx._state)
+    out = kern.spec.outputs[0]
+    ref = fs.stream_step(kern, dict(s0), warm)[out][-1]
+    rungs = [{"plane_tile": list(kern.spec.stream.tile), "plan": True,
+              "ms": cuda_ms(lambda: fs.stream_step(kern, s0, warm), 10),
+              "blocks_per_sm": kern.spec.stream.per_sm,
+              "ptxas": ptxas.get(kern.spec.name),
+              "sass": SASS.get(kern.spec.name, {}).get("solo"),
+              "bits_differ": 0}]
+    for rung in P25_SWEEP:
+        rk = k1_pair_rung(ctx._program, rung)
+        rk.build()
+        got = fs.stream_step(rk, dict(s0), warm)[out][-1]
+        nbits = int((got != ref).sum())
+        rungs.append({"plane_tile": list(rung[:2]),
+                      "launch_bounds_blocks": rung[2] if len(rung) > 2
+                      else None,
+                      "ms": cuda_ms(lambda: fs.stream_step(rk, s0, warm),
+                                    10),
+                      "blocks_per_sm": rk.spec.stream.per_sm,
+                      "ptxas": ptxas.get(rk.spec.name),
+                      "sass": SASS.get(rk.spec.name, {}).get("solo"),
+                      "bits_differ": nbits})
+        del got, rk
+        if nbits:
+            raise RuntimeError(f"phase 25 (b): iso3dfd r=8 bf16 at {rung}: "
+                               f"{nbits} cells differ from the planned rung")
+    log(f"phase 25 (b): iso3dfd r=8 bf16 {g}^3, one launch per rung from "
+        f"one state: {rungs} [{card}]")
+    del ctx, kern, s0, ref
+    release()
+    return {"sweep": rungs}
+
+
+def phase25(fac, env, card: str, ptxas: dict, dev: str = "cuda:0",
+            full: int = 512) -> list:
+    """K1's stream arm at element size 2 as lane pairs (see the module
+    docstring): (a) :data:`P25_MID` solo through :func:`phase24a` and as
+    K7 x3 through :func:`phase23a_k7`, :data:`P25_K5` through
+    :func:`phase13a` (``stream``), :data:`P25_4D` solo and as K7 x3, each
+    beside its ``-no-skew`` twin from one seed, bit-equal, held to its
+    plain version, one launch of each timed beside its twin's; (b) the
+    sweep (:func:`phase25b`).  Returns the ``kernels`` entries."""
+    import torch
+    t0 = time.perf_counter()
+    entries = []
+    rows, k7 = [], []
+    for label, st, r, sizes in P25_MID:
+        rows += phase24a(fac, env, card, cases=((label, 2, sizes),),
+                         st=st, r=r, phase="25 (a)")
+        k7 += phase23a_k7(fac, env, card, cases=((label, r, 2, sizes),),
+                          st=st, phase="25 (a)")
+    rows += phase24a(fac, env, card, cases=P25_4D, phase="25 (a)")
+    k7 += phase23a_k7(fac, env, card,
+                      cases=tuple((label, None, eb, sizes)
+                                  for label, eb, sizes in P25_4D),
+                      st="test_4d", phase="25 (a)")
+    mid = "x".join(map(str, P25_MID[0][3]))
+    entries.append(summed(
+        rows, "stream_step (K1's stream arm at element size 2, lane pairs, "
+        f"phase 25 (a): iso3dfd r=2 and r=8 and 3axis r=1 bf16 at {mid}, "
+        "test_4d bf16 at 5x67x45x131)", P25_REPLACES, "phase 25 (a)",
+        source=K1S_SOURCE))
+    entries.append(summed(
+        k7, "batched_step (K7 over K1's stream arm at element size 2, lane "
+        f"pairs, phase 25 (a): 3 members of the same cases)",
+        K1S_K7_REPLACES, "phase 25 (a)", source=K1S_SOURCE))
+    torch.cuda.empty_cache()
+    rows = phase13a(fac, card, cases=P25_K5, stream=True, phase="25 (a)",
+                    dev=dev)
+    entries.append(summed(
+        rows, "shard_step (K5 over K1's stream arm at element size 2, lane "
+        "pairs, phase 25 (a): iso3dfd r=2 and r=8 and 3axis r=1 bf16 96^3 "
+        "on 2x2 shards, K=1 and K=2, one launch each over shard 0's "
+        "sub-step-0 box)", K1S_K5_REPLACES, "phase 25 (a)",
+        source=K1S_SOURCE, **K5_COLUMNS))
+    log(f"phase 25 (a) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    sweep = phase25b(fac, env, card, ptxas, g=full)
+    entries[0].update(sweep)
+    log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
     return entries
 
 
@@ -7770,7 +8129,8 @@ def phase1(fac, env, cases: dict) -> dict:
     start(dict(specs))
     for group in (trap_specs, family_specs, a3_specs, a3b_specs, k7_specs,
                   k4_specs, ws_specs, flat_specs, ss_specs, ss18_specs,
-                  k4s_specs, s4_specs, s22_specs, k1s_specs, s24_specs):
+                  k4s_specs, s4_specs, s22_specs, k1s_specs, s24_specs,
+                  p25_specs):
         start(group(fac, env))
     start(shard_specs(fac))
     start(k5_specs(fac))
@@ -7811,6 +8171,13 @@ def phase1(fac, env, cases: dict) -> dict:
         log(f"phase 1: built {s.name} ({st}): {entries}, tile "
             f"{list(s.tile)}, smem {s.smem_bytes} B; ptxas: "
             f"{ptxas_summary(logs.get(s.name, ''))}")
+    # the SASS of K1's stream arm at element size 2 (the pair flavour)
+    for s in {s.name: s for s in specs.values()
+              if s.stream is not None and "point2(" in s.source}.values():
+        pair_sass(s)
+        log(f"phase 1: SASS of {s.name}'s stream arm per point per plane "
+            f"(solo, K7, K5): "
+            f"{ {k: v['per_point_plane'] for k, v in SASS[s.name].items()} }")
     log(f"phase 1: kernel build {build_secs:.1f} s ({len(logs)} nvcc "
         f"run(s) in parallel, started as their sources were emitted over "
         f"the first {emit_secs:.1f} s)")
@@ -7876,7 +8243,7 @@ def main() -> int:
     twins = {"tti2": dict(k6_arms[0],
                           state_digest=k6_arms[0].pop("state_digest"))}
     release()
-    a3_arms = phase10(fac, env, card)
+    a3_arms = phase10(fac, env, card, ptxas=ptxas)
     release()
     last_arms = phase11(fac, env, card, k6_arms[0])
     # phase 22 (b)'s twins: phase 11 (c)'s tti bf16 and phase 12 (d)'s rows
@@ -7946,6 +8313,8 @@ def main() -> int:
     k1s_arms = phase23(fac, env, card, ptxas, k1s_twins)
     release()
     s24_arms = phase24(fac, env, card, ptxas, s24_twins)
+    release()
+    p25_arms = phase25(fac, env, card, ptxas)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s")
 
@@ -7954,7 +8323,7 @@ def main() -> int:
                       + k5_arms + k4_arms + ws_arms + flat_arms
                       + ss_arms + ss18_arms + k5_ss_arms
                       + k4_stream_arms + s4_arms + bf16_arms
-                      + k1s_arms + s24_arms}))
+                      + k1s_arms + s24_arms + p25_arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,

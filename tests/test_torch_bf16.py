@@ -13,8 +13,10 @@ element-size-2 arm of K1 and of its stream arm.
   entry and the stream arm's, and a solution whose constants round
   differently in float and in bfloat16 (they round to bfloat16 first).
 * The stream arm's device code emulated on the CPU (see
-  tests/test_torch_kernel_emulation.py): its rings filled with aligned
-  pairs, at both pair shifts, against the plain version to the bit.
+  tests/test_torch_kernel_emulation.py): two points a thread, its rings
+  filled with 16-byte units from the unit holding each row's first cell,
+  at row shifts 0 and 1, against the plain version to the bit
+  (tests/test_torch_pair_emulation.py covers all 8 shifts).
 """
 
 import importlib
@@ -275,9 +277,9 @@ def emulated_stream_steps(ctx, fn, seg=4, steps=2):
 @pytest.mark.parametrize("cli,shift", [("", 0), ("-mp_z 1", 1)])
 def test_stream_arm_pairs_match_plain_when_emulated(cli, shift, tmp_path):
     """The stream arm's device code at element size 2 (threads, NaN-filled
-    shared memory, deferred cp.async), its rings filled with 4-byte
-    pairs: from the pair that holds each row's first cell, which is the
-    second of its pair when the pads put the interior at an odd element
+    shared memory, deferred cp.async), its rings filled with 16-byte
+    units from the unit that holds each row's first cell, which is one
+    cell into its unit when the pads put the interior at an odd element
     (z pad 3 with a halo of 2)."""
     ctx = stream_bf16(2, cli)
     g = ctx._program.geoms["pressure"]
@@ -289,8 +291,8 @@ def test_stream_arm_pairs_match_plain_when_emulated(cli, shift, tmp_path):
 
 def test_stream_emulation_fails_with_the_wrong_pair_shift(tmp_path):
     """Taking every row as starting at the row's first cell where that
-    cell is the second of its pair misaligns every 4-byte copy, which
-    faults on the card (the emulation never completes it)."""
+    cell lies one cell into its 16-byte unit misaligns every 16-byte
+    copy, which faults on the card (the emulation never completes it)."""
     ctx = stream_bf16(2, "-mp_z 1")
     spec = ctx._fused_spec_kernel().spec
 
@@ -298,7 +300,7 @@ def test_stream_emulation_fails_with_the_wrong_pair_shift(tmp_path):
         if name != "stream_step.cuh":
             return text
         old = ("return int((reinterpret_cast<unsigned long long>(p.in[a] "
-               "+ x) >> 1) & 1);")
+               "+ x) >> 1) & 7);")
         assert old in text
         return text.replace(old, "return 0;")
     fn = emulated_kernel(spec, tmp_path, entry=spec.name + "_stream",

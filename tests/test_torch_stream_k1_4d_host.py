@@ -268,17 +268,30 @@ def test_the_4d_plan_keeps_40_registers_and_three_quarters_of_an_sm():
     ``STREAM_OUTER_MIN_REGS`` registers (two 1024-thread blocks an SM
     would leave 32), and of the rungs that keep ``STREAM_OUTER_THREADS``
     threads resident the plan takes the one staging the fewest in-plane
-    cells per point, at every size: test_4d's 16x32 tiles, 3 blocks an SM
-    (1,536 threads), at element sizes 4 and 2, where 3-D keeps the
-    ladder's first fit; at 8 no rung keeps 1,536 (shared memory), and the
-    most resident threads win."""
-    for eb, tile, per_sm in ((4, (16, 32), 3), (2, (16, 32), 3),
-                             (8, (16, 64), 1)):
+    cells per point, at every size: test_4d's 16x32 tiles at element size
+    4, 3 blocks an SM (1,536 threads), where 3-D keeps the ladder's first
+    fit; at 8 no rung keeps 1,536 (shared memory), and the most resident
+    threads win.  At 2 (two points a thread) a thread keeps
+    ``STREAM_PAIR_MIN_REGS`` (64) in blocks of at most
+    ``STREAM_PAIR_OUTER_BLOCK`` (256) threads, so 1,024 threads stay:
+    16x32 tiles of 256 threads, 4 blocks an SM, with a register queue of
+    2."""
+    for eb, tile, per_sm, queue in ((4, (16, 32), 3, 2),
+                                    (2, (16, 32), 4, 2),
+                                    (8, (16, 64), 1, 3)):
         for g in ("-g 128", "-g_w 3 -g_x 10 -g_y 6 -g_z 40"):
             plan = ctx_4d(eb, f"{g} -mode fused")._fused_spec_kernel() \
                 .spec.stream
             assert (plan.tile, plan.per_sm) == (tile, per_sm), (eb, g)
-            regs = tile_planner.SM_REGS // (tile[0] * tile[1] * per_sm)
+            assert plan.queue == queue, (eb, g)
+            nt = tile_planner.stream_threads(*tile, eb)
+            regs = tile_planner.thread_registers(nt, per_sm)
+            if eb == 4:
+                assert nt * per_sm == tile_planner.STREAM_OUTER_THREADS
+            if eb == 2:
+                assert regs == tile_planner.STREAM_PAIR_MIN_REGS == 64
+                assert nt == tile_planner.STREAM_PAIR_OUTER_BLOCK
+                assert plan.record()["pairs"]["registers"] == regs
             assert regs >= tile_planner.STREAM_OUTER_MIN_REGS
     halos = {1: ((1, 3), (3, 2), (2, 1)), 2: ((1, 3), (3, 2), (2, 1))}
     three_d = tile_planner.stream_plan(halos, (128, 128, 128), 4)

@@ -47,7 +47,11 @@ into one ``Spec`` struct:
   entry ``<name>_stream``, and ``_stream_batched`` and ``_stream_region``
   for K7 and K5 over it): its plane tile, prefetch depth and rings
   (``tile_planner.stream_plan``) and the same-point inputs it loads ahead
-  into registers; :func:`skew_engaged_dims` says whether it runs.  Past
+  into registers; :func:`skew_engaged_dims` says whether it runs.  At
+  element size 2 the Spec also prints the arm's pair flavour,
+  ``Spec::point2(rd, g, n, t, out)``, two adjacent minor-dim points from
+  the same walk (:class:`_PairPrinter`): +, - and x of bfloat16 values
+  packed, everything else per lane.  Past
   three domain dims the same arm takes a single-stage solution, each
   outer cell a coordinate of its work items and each input read at an
   outer offset a ring of its own, the pad pass over every slot's pads
@@ -279,6 +283,18 @@ def has_scratch(program) -> bool:
     """Does the solution hold scratch vars (so that K6 runs it, even with
     one stage)?"""
     return any(g.is_scratch for g in program.geoms.values())
+
+
+def bf16_minor_multiple(ana) -> int:
+    """The multiple a var's padded minor extent is planned to at element
+    size 2: 8 for a single-stage solution without scratch parts (K1's
+    stream arm fills its rings from 16-byte units, so its staged inputs'
+    strides are multiples of 8 cells), 2 elsewhere (K6's and K4's stream
+    arms copy aligned 4-byte pairs; their sources, which hold the pads,
+    keep their plans)."""
+    one = len(ana.stages) == 1 and not any(
+        part.is_scratch for part in ana.stages[0].parts)
+    return 8 if one else 2
 
 
 def push_eligible_vars(program) -> Dict[str, str]:
@@ -1112,6 +1128,209 @@ def _print(program, pushed, copies: bool = True) -> _Printed:
                     computed, computed_sub, subs, last)
 
 
+# ---- the pair flavour of K1's point function (element size 2) -----------
+#: element size 2, two lanes a thread: bfloat16 values (R) are packed
+#: pairs; float32 (F), index (I) and boolean tensor (B) values are arrays
+#: of the two lanes' values
+_C_TYPES_PAIR = dict(_C_TYPES_BF16, R="yt::bf2")
+_PACKED = {"+": "yt::add2", "-": "yt::sub2", "*": "yt::mul2"}
+_HEX = re.compile(r"^\(-?0x[0-9a-f]\.[0-9a-f]+p[+-]\d+\)$")
+
+
+def bf16_bits(v: float) -> int:
+    """The bfloat16 bits of a double rounded to float, then to bfloat16,
+    each to nearest even (``yt::rbf((float)(v))``)."""
+    import numpy as np
+    u = int(np.array(v, np.float64).astype(np.float32).view(np.uint32))
+    if (u & 0x7fffffff) > 0x7f800000:
+        return 0x7fc0
+    return ((u + 0x7fff + ((u >> 16) & 1)) >> 16) & 0xffff
+
+
+class _PairPrinter(_Printer):
+    """K1's point function at element size 2 for two adjacent minor-dim
+    points (``Spec::point2``, the stream arm's; lane 1 at minor index
+    ``g[2] + 1``), from the same walk, inputs and typing as
+    :class:`_Printer`: ``+``, ``-``, ``*`` and negation of bfloat16
+    values run packed (``yt::add2``, ``yt::sub2``, ``yt::mul2``,
+    ``yt::neg2``: ``add.rn.bf16x2`` and its kin on the card, which round
+    the exact result once, as an op computed in float and rounded once
+    does for bfloat16 operands); a scalar or an index meeting a bfloat16
+    value is the pair of its bfloat16 rounding.  Everything else runs per
+    lane in float, rounded per lane (``yt::pack``) where it gives a
+    bfloat16 value: division, ``%``, functions, float32 values, indices,
+    comparisons and the masks of conditional writes."""
+
+    def __init__(self, pr: _Printer):
+        self.__dict__.update(pr.__dict__)
+        self.ctypes = _C_TYPES_PAIR
+        self.nvals = 0
+
+    def _wide(self, text: str) -> str:
+        return text     # a read is a pair already
+
+    def _new_lanes(self, kind: str, lanes) -> Tuple[str, str]:
+        name = f"v{self.nvals}"
+        self.nvals += 1
+        self.lines.append(f"{_IND}const {self.ctypes[kind]} {name}[2] = "
+                          f"{{{lanes[0]}, {lanes[1]}}};")
+        return name, kind
+
+    @staticmethod
+    def _lane(x, l: int) -> str:
+        """Value ``x`` in lane ``l``, in its own kind (a pair's lane
+        widened to float)."""
+        text, k = x
+        if k == "R":
+            return f"yt::lane{l}({text})"
+        if k in "IFB":
+            if text.startswith("g["):
+                return "(g[2] + 1)" if l and text == "g[2]" else text
+            return f"{text}[{l}]"
+        return text
+
+    def _lcast(self, x, kind: str, l: int) -> str:
+        """:meth:`_Printer._cast` in lane ``l``."""
+        k = x[1]
+        text = self._lane(x, l)
+        if k == kind or (k in "Ii" and kind in "Ii") \
+                or (k in "RF" and kind in "RF"):
+            return text
+        if kind == "R" and _HEX.match(text):
+            bits = bf16_bits(float.fromhex(text[1:-1]))
+            return f"yt::bf_float({bits:#06x})"
+        if kind == "R":
+            return f"yt::rbf((float)({text}))"
+        return f"({_C_TYPES_BF16[kind]})({text})"
+
+    def _pair(self, x) -> str:
+        """``x`` as a bfloat16 pair: a scalar or an index rounded to
+        bfloat16 first, a float32 value rounded once per lane."""
+        text, k = x
+        if k == "R":
+            return text
+        if k in "dib":
+            if _HEX.match(text):
+                bits = bf16_bits(float.fromhex(text[1:-1]))
+                return f"yt::bf2_bits({bits:#06x})"
+            return f"yt::pack((float)({text}), (float)({text}))"
+        return "yt::pack(" + ", ".join(
+            self._lane(x, l) if k == "F" else f"(float)({self._lane(x, l)})"
+            for l in (0, 1)) + ")"
+
+    def _cast(self, x, kind: str) -> str:
+        return self._pair(x) if kind == "R" else _Printer._cast(self, x, kind)
+
+    def _arith(self, op: str, a, b) -> Tuple[str, str]:
+        k = self._kind_bf16((a[1], b[1]), op)
+        if k == "R" and op in _PACKED:
+            return self._new("R", f"{_PACKED[op]}({self._pair(a)}, "
+                                  f"{self._pair(b)})")
+        lanes = []
+        for l in (0, 1):
+            x, y = self._lcast(a, k, l), self._lcast(b, k, l)
+            if op == "%":
+                fn = "yt::i_mod" if k in "Ii" else "yt::f_mod"
+                lanes.append(f"{fn}({x}, {y})")
+            else:
+                lanes.append(f"{x} {op} {y}")
+        if k == "R":
+            return self._new("R", f"yt::pack({lanes[0]}, {lanes[1]})")
+        if k in "IF":
+            return self._new_lanes(k, lanes)
+        return _Printer._arith(self, op, a, b)   # scalars alone
+
+    def ev(self, e: Expr) -> Tuple[str, str]:
+        key = e.skey()
+        if key in self.memo:
+            return self.memo[key]
+        ev = self.ev
+        if isinstance(e, NegExpr):
+            a = ev(e.arg)
+            if a[1] == "R":
+                r = self._new("R", f"yt::neg2({a[0]})")
+            elif a[1] in "IFB":
+                r = self._new_lanes(a[1], [f"-({self._lane(a, l)})"
+                                           for l in (0, 1)])
+            else:
+                r = self._new(a[1], f"-({a[0]})")
+        elif isinstance(e, FuncExpr):
+            args = [ev(a) for a in e.args]
+            kinds = [a[1] for a in args]
+            if all(k_ in "di" for k_ in kinds):
+                return super().ev(e)
+            k = self._kind_bf16(kinds + ["d"], "f")
+            lanes = [f"yt::f_{e.name}(" + ", ".join(
+                self._lcast(a, k, l) for a in args) + ")" for l in (0, 1)]
+            r = (self._new("R", f"yt::pack({lanes[0]}, {lanes[1]})")
+                 if k == "R" else self._new_lanes(k, lanes))
+        elif isinstance(e, CompExpr):
+            a, b = ev(e.lhs), ev(e.rhs)
+            if not any(k_ in "RIF" for k_ in (a[1], b[1])):
+                return super().ev(e)
+            k = self._kind_bf16((a[1], b[1]), "cmp")
+            r = self._new_lanes("B", [
+                f"{self._lcast(a, k, l)} {e.op} {self._lcast(b, k, l)}"
+                for l in (0, 1)])
+        elif isinstance(e, (AndExpr, OrExpr)):
+            a, b = ev(e.lhs), ev(e.rhs)
+            if "B" not in (a[1], b[1]):
+                return super().ev(e)
+            op = "&&" if isinstance(e, AndExpr) else "||"
+            r = self._new_lanes("B", [
+                f"{self._lane(a, l)} {op} {self._lane(b, l)}"
+                for l in (0, 1)])
+        elif isinstance(e, NotExpr):
+            a = ev(e.arg)
+            if a[1] != "B":
+                return super().ev(e)
+            r = self._new_lanes("B", [f"!({self._lane(a, l)})"
+                                      for l in (0, 1)])
+        else:
+            return super().ev(e)
+        self.memo[key] = r
+        return r
+
+
+def _print_pairs(pt: _Printed) -> List[str]:
+    """The statements of ``Spec::point2`` (:class:`_PairPrinter`) for a
+    single-stage solution printed as ``pt``: its equations walked again in
+    the order :func:`_print` walks them, onto the same inputs and
+    outputs."""
+    pp = _PairPrinter(pt.pr)
+    (sub,) = pt.subs
+    ninputs = len(pp.inputs)
+    pp.begin_stage(0, sub)
+    misc_vals = any(uses_misc_index(eq.rhs, eq.cond, eq.step_cond)
+                    for eq in sub.eqs)
+    for eq in sub.eqs:
+        sk = (eq.lhs.var_name(), _misc_key(eq.lhs))
+        pp.misc_env = eq.lhs.misc_vals()
+        if misc_vals:
+            pp.memo = {}
+        j = pt.slices.index(sk)
+        val = pp.ev(eq.rhs)
+        sels = [pp.ev(c) for c in _masks(eq, sub.scratch)]
+        v = pp._pair(val)
+        if not sels:
+            pp.lines.append(f"{_IND}out[{j}] = {v};")
+            continue
+        if not any(ln.startswith(f"{_IND}out[{j}] = ") for ln in pp.lines):
+            pp.lines.insert(0, f"{_IND}out[{j}] = {pp.base_read(sk)};")
+        if all(c[1] == "b" for c in sels):
+            cond = " && ".join(c[0] for c in sels)
+            pp.lines.append(f"{_IND}if ({cond}) out[{j}] = {v};")
+        else:
+            cond = [" && ".join(pp._lane(c, l) for c in sels)
+                    for l in (0, 1)]
+            pp.lines.append(f"{_IND}out[{j}] = yt::select2({cond[0]}, "
+                            f"{cond[1]}, {v}, out[{j}]);")
+    if len(pp.inputs) != ninputs:   # pragma: no cover
+        raise YaskException("the pair flavour read an input the point "
+                            "function does not")
+    return pp.lines
+
+
 def _stream_plan(program, tiled, halos, esize):
     """The stream arm's plan for a single-stage solution, or None with
     the reason code and detail.  It takes 3 domain dims or more (past
@@ -1567,16 +1786,16 @@ def emit(program, push=False, ladder=_TILE_LADDER,
         body = stage_lines[0]
         plan, cause = _stream_plan(program, tiled, halos, esize)
         stream_enum = ""
+        pairs = ""
         if plan is not None:
             # a ring per staged input: K1's tables give its halos
-            from yask_tpu_torch.ops.tile_planner import stream_row
+            from yask_tpu_torch.ops.tile_planner import PAIR_TAIL, ring_elems
             ring_off, o = [], 0
             for a in tiled:
                 ring_off.append(o)
-                o += plan.depths[a] * ((plan.tile[0] + sum(halos[a][1]))
-                                       * stream_row(plan.tile[1]
-                                                    + sum(halos[a][2]),
-                                                    esize))
+                o += ring_elems(halos[a], plan.depths[a], *plan.tile, esize)
+            if esize == 2:
+                o += PAIR_TAIL
             tabs.append(_table("ring_depth", [plan.depths[a] for a in tiled],
                                "1"))
             tabs.append(_table("ring_offset", ring_off, "0"))
@@ -1594,8 +1813,18 @@ def emit(program, push=False, ladder=_TILE_LADDER,
                            f"{plan.tile[1]}, SP = {plan.prefetch}, "
                            f"STREAM_ELEMS = {o}, NPRE = {len(pre)}, "
                            f"SQ = {plan.queue}, SMIN = {plan.per_sm}")
+            if esize == 2:
+                # the stream arm's two points a thread (the pair flavour)
+                pairs = f"""
+
+    template <class RD>
+    YT_HD static inline void point2(const RD& rd, const int* g, const int* n,
+                                    const int t, yt::bf2* out) {{
+        (void)g; (void)n; (void)t;
+{chr(10).join(_print_pairs(pt))}
+    }}"""
         stem = hashlib.sha256(
-            ("\n".join(body) + repr((tiled, halos, tile, real_t,
+            ("\n".join(body) + pairs + repr((tiled, halos, tile, real_t,
                                      len(pr.inputs), len(slices)))
              + "\n".join(tabs) + stream_enum + outer_enum)
             .encode()).hexdigest()[:12]
@@ -1622,7 +1851,7 @@ struct Spec {{
                                    const int t, {out_t}* out) {{
         (void)g; (void)n; (void)t;
 {chr(10).join(body)}
-    }}
+    }}{pairs}
 }};
 
 YT_FUSED_STEP_ENTRY({name}, Spec)

@@ -116,10 +116,14 @@ walking slot 0 through a ring of staged planes: the planes already staged
 are carried to the next output plane (K3's carry, one level), and
 ``cp.async`` fetches the plane ``P`` ahead under the current plane's
 compute (K2's prefetch).  It writes every cell of its outputs, pads
-included, so they come from ``torch.empty``.  :func:`stream_step` is its
-wrapper with its own counter ``stream_step.launches``; the plain version
-is :func:`plain_chunk`.  :func:`cuda_emit.skew_engaged_dims` selects the
-arm and says why; ``-no-skew`` keeps K1.  K7 and K5 over it: the source's
+included, so they come from ``torch.empty``.  At element size 2 a
+thread computes two adjacent minor-dim points in packed bfloat16x2
+arithmetic over rings of 16-byte rows, so the staged inputs' strides
+must be multiples of 8 cells (:func:`check_pair_strides` with
+:data:`PAIR_UNIT`; the context pads the minor extent to match).
+:func:`stream_step` is its wrapper with its own counter
+``stream_step.launches``; the plain version is :func:`plain_chunk`.
+:func:`cuda_emit.skew_engaged_dims` selects the arm and says why; ``-no-skew`` keeps K1.  K7 and K5 over it: the source's
 ``<name>_stream_batched`` (the member a coordinate of the grid beside the
 segments, :func:`call_batched_stream_entry`) and ``<name>_stream_region``
 (the walk over a shard's box, :func:`call_region_stream_entry`), which
@@ -824,29 +828,42 @@ def _launch_stages_stream(kernel: "FusedKernel", state, t: int, nm):
 
 
 def check_pair_strides(program, spec, ins, lead: int = 0,
-                       what: str = "stream_step") -> None:
+                       what: str = "stream_step", unit: int = 2) -> None:
     """Raise unless each input a stream arm stages has a unit minor
-    stride and even row and plane strides (and even outer-dim strides,
-    and an even member stride over the ``lead`` stacked dims of a member
-    batch): at element size 2 it fills its rings with 4-byte pairs,
-    aligned alike in every row, plane, member and outer window of a
-    launch (the context plans an even padded minor extent at element size
-    2).  ``what`` names the kernel in the message."""
+    stride and row and plane strides that are multiples of ``unit``
+    (and such outer-dim strides, and such a member stride over the
+    ``lead`` stacked dims of a member batch): at element size 2 K6's
+    stream arms fill their rings with 4-byte pairs (``unit`` 2), K1's
+    with 16-byte units (``unit`` 8, :data:`PAIR_UNIT`), aligned alike in
+    every row, plane, member and outer window of a launch (the context
+    plans the padded minor extent at element size 2 to match).  ``what``
+    names the kernel in the message."""
     dims = list(program.ana.domain_dims)
     for a in spec.tiled:
         name = spec.inputs[a][0]
         s0, s1, s2, *outer = _slot_strides(ins[a][(0,) * lead],
                                            program.geoms[name], dims)
         members = [ins[a].stride(i) for i in range(lead)]
-        if s2 != 1 or s1 % 2 or s0 % 2 or any(x % 2 for x in outer) \
-                or any(x % 2 for x in members):
+        if s2 != 1 or s1 % unit or s0 % unit \
+                or any(x % unit for x in outer) \
+                or any(x % unit for x in members):
+            need = ("the pair copies need a unit minor stride and even "
+                    "row and plane strides (and even outer and member "
+                    "strides)" if unit == 2 else
+                    "the 16-byte unit copies need a unit minor stride and "
+                    "row and plane strides (and outer and member strides) "
+                    f"that are multiples of {unit}")
             raise YaskException(
                 f"{what} at element size 2: staged input '{name}' has "
                 f"slot strides ({s0}, {s1}, {s2}"
                 + "".join(f", {x}" for x in outer) + ")"
                 + (f", member stride {members[0]}" if members else "")
-                + "; the pair copies need a unit minor stride and even row "
-                "and plane strides (and even outer and member strides)")
+                + f"; {need}")
+
+
+#: Elements of a 16-byte unit at element size 2: K1's stream arm fills its
+#: rings unit by unit, so its staged inputs' strides are multiples of it.
+PAIR_UNIT = 8
 
 
 def _launch_stream(kernel: "FusedKernel", state, t: int, nm, what: str):
@@ -862,7 +879,7 @@ def _launch_stream(kernel: "FusedKernel", state, t: int, nm, what: str):
     lead = () if nm is None else (nm,)
     ins, dev = _check_inputs(kernel, state, lead=lead)
     if kernel.dtype == torch.bfloat16:
-        check_pair_strides(prog, spec, ins, len(lead), what)
+        check_pair_strides(prog, spec, ins, len(lead), what, PAIR_UNIT)
     outs = [torch.empty(lead + tuple(prog.geoms[n].shape),
                         dtype=kernel.dtype, device=dev)
             for n in spec.outputs]
@@ -1104,7 +1121,8 @@ def shard_step(kernel: "FusedKernel", state, t: int, box, off, outs=None):
     kernel.build()
     ins, dev = _check_inputs(kernel, state)
     if kernel.skew_dims and kernel.dtype == torch.bfloat16:
-        check_pair_strides(prog, spec, ins, what="shard_step")
+        check_pair_strides(prog, spec, ins, what="shard_step",
+                           unit=PAIR_UNIT if spec.stream is not None else 2)
     if outs is None:
         outs = copy_base(kernel, state, dev)
     with torch.cuda.device(dev):

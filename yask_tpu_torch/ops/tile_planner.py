@@ -399,11 +399,61 @@ def ring_depth(h0_lo: int, h0_hi: int, prefetch: int) -> int:
 
 def stream_row(e2: int, esize: int) -> int:
     """Elements of one ring row in shared memory for a plane row of
-    ``e2`` cells: ``e2`` at 4 and 8 bytes; at 2 bytes one more, rounded up
-    to even, so that the row can start at the 4-byte-aligned pair holding
-    its first cell (``cp.async`` copies 4, 8 or 16 bytes, so a bfloat16
-    ring is filled pair by pair)."""
+    ``e2`` cells: ``e2`` at 4 and 8 bytes; at 2 bytes (K6's stream arm,
+    csrc ``ring_row``) one more, rounded up to even, so that the row can
+    start at the 4-byte-aligned pair holding its first cell (K6 fills a
+    bfloat16 ring pair by pair).  K1's stream arm takes :func:`pair_row`
+    at 2 bytes."""
     return (e2 + 2) & ~1 if esize == 2 else e2
+
+
+def pair_row(e2: int) -> int:
+    """Elements of one ring row of K1's stream arm at element size 2 for a
+    plane row of ``e2`` cells: a whole number of 16-byte units (8
+    elements) that holds the row from the unit holding its first cell, at
+    any of that unit's 8 cells: ``e2 + 7`` rounded up to 8 (csrc
+    ``pair_row``).  The rows are
+    filled with 16-byte ``cp.async`` copies, and the walk computes two
+    minor-dim points a thread in packed bfloat16x2 arithmetic."""
+    return (e2 + 14) & ~7
+
+
+#: Elements past K1's last ring at element size 2: a pair read at a row's
+#: last cells also loads the 32-bit word after them (the pair's position
+#: parity is known at run time only), at most two cells past the row.
+PAIR_TAIL = 8
+
+
+def ring_elems(halo: Tuple[Tuple[int, int], ...], depth: int, t1: int,
+               t2: int, esize: int) -> int:
+    """Elements of one ring of K1's stream arm at plane tile ``t1 x t2``
+    for an input of per-slot ``halo``: ``depth`` planes of rows of
+    :func:`stream_row` elements (at element size 2 :func:`pair_row`)."""
+    e2 = t2 + halo[2][0] + halo[2][1]
+    return depth * (t1 + halo[1][0] + halo[1][1]) * (
+        pair_row(e2) if esize == 2 else stream_row(e2, esize))
+
+
+def ring_cells(halos: Dict[int, Tuple[Tuple[int, int], ...]],
+               depths: Dict[int, int], t1: int, t2: int, esize: int) -> int:
+    """Elements of all of K1's stream rings (:func:`ring_elems`), at
+    element size 2 with :data:`PAIR_TAIL` more."""
+    return (sum(ring_elems(h, depths[a], t1, t2, esize)
+                for a, h in halos.items())
+            + (PAIR_TAIL if esize == 2 else 0))
+
+
+def stream_threads(t1: int, t2: int, esize: int) -> int:
+    """Threads of a block of K1's stream arm at plane tile ``t1 x t2``:
+    one a point, at element size 2 one a pair of minor-dim points."""
+    return t1 * t2 // 2 if esize == 2 else t1 * t2
+
+
+def thread_registers(threads: int, per_sm: int) -> int:
+    """The 32-bit registers a thread may hold where the launch bounds ask
+    for ``per_sm`` blocks of ``threads`` an SM: ptxas allocates them 8 at
+    a time, at most 255."""
+    return min((SM_REGS // (threads * per_sm)) & ~7, 255)
 
 
 def register_queue(threads: int, per_sm: int) -> int:
@@ -411,7 +461,7 @@ def register_queue(threads: int, per_sm: int) -> int:
     planes z .. z + depth - 1, loaded depth - 1 planes ahead.  3 where a
     thread may hold 64 registers (one 1024-thread block per SM), else 2
     (a deeper queue spills at 32)."""
-    return 3 if SM_REGS // (threads * per_sm) >= 64 else 2
+    return 3 if thread_registers(threads, per_sm) >= 64 else 2
 
 
 @dataclass
@@ -436,6 +486,9 @@ class StreamPlan:
     #: past three domain dims: the outer cells, each a coordinate of the
     #: work items beside the columns and segments (0 in 3-D)
     outer_cells: int = 0
+    #: the element size (2: two minor-dim points a thread in packed
+    #: bfloat16x2 arithmetic, rings of 16-byte rows)
+    esize: int = 4
 
     def segments_of(self, n0: int, cols: int) -> Tuple[int, int]:
         """The segment length and segments of a walk of ``n0`` planes over
@@ -455,7 +508,20 @@ class StreamPlan:
                 "staged_per_point": {a: round(v, 4) for a, v in
                                      self.staged_per_point.items()},
                 **({"outer_cells": self.outer_cells}
-                   if self.outer_cells else {})}
+                   if self.outer_cells else {}),
+                **({"pairs": self.pairs()} if self.esize == 2 else {})}
+
+    def pairs(self) -> Dict[str, object]:
+        """At element size 2, the pair flavour: two minor-dim points a
+        thread in packed bfloat16x2 arithmetic, its threads a block and
+        the registers a thread may hold at the plan's blocks per SM
+        (:func:`thread_registers`), and the rings' rows of whole 16-byte
+        units."""
+        nt = stream_threads(*self.tile, 2)
+        return {"flavour": "bfloat16x2", "points_per_thread": 2,
+                "threads": nt,
+                "registers": thread_registers(nt, self.per_sm),
+                "row_unit_bytes": 16}
 
 
 #: Past three domain dims, the least 32-bit registers a thread of K1's
@@ -466,6 +532,21 @@ class StreamPlan:
 #: PERF.md); one such block an SM leaves the barriers unhidden.
 STREAM_OUTER_MIN_REGS = 40
 STREAM_OUTER_THREADS = 1536
+#: At element size 2 (two points a thread, more values live at once) the
+#: least registers a thread keeps, in 3-D and past three domain dims: at
+#: 40, iso3dfd r=2's K5 build spilled 8 B a thread, iso3dfd r=8 built for
+#: 40 ran 1.753 ms a launch at 512³ against 1.674 at 64, and test_4d's
+#: builds spilled 60 B (solo) and 244 B (K7) a thread (chip_smoke phases
+#: 1, 24 (b) and 25 (b), PERF.md).  Past three dims the register queue
+#: stays 2 (:data:`STREAM_PAIR_OUTER_QUEUE`): a deeper one holds one more
+#: value a same-point input, and K7's 4-D build has none to spare; and a
+#: block holds at most :data:`STREAM_PAIR_OUTER_BLOCK` threads: test_4d
+#: bf16 at 128⁴ ran 3.015 ms a launch by 4 blocks of 256 (16x32) against
+#: 3.305 by 2 of 512 (32x32), each at 64 registers without spills (a
+#: plane's barrier stalls a quarter of an SM's threads, not half).
+STREAM_PAIR_MIN_REGS = 64
+STREAM_PAIR_OUTER_QUEUE = 2
+STREAM_PAIR_OUTER_BLOCK = 256
 
 
 def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
@@ -479,47 +560,56 @@ def stream_plan(halos: Dict[int, Tuple[Tuple[int, int], ...]], n, esize: int,
     blocks times the segment's planes with its re-staged h0 planes.
     Past three domain dims ``outer`` is the outer cells, each a work-item
     coordinate: the columns the waves count are the plane's times them;
-    a thread keeps :data:`STREAM_OUTER_MIN_REGS` registers, and of the
+    a thread keeps :data:`STREAM_OUTER_MIN_REGS` registers (at element
+    size 2 :data:`STREAM_PAIR_MIN_REGS`), and of the
     plane tiles (each at its deepest prefetch that fits) that keep
     :data:`STREAM_OUTER_THREADS` threads resident the plan takes the one
     staging the fewest in-plane cells per point (the first on a tie), or
     the one with the most resident threads where none does: the choice
-    does not depend on ``n``, so neither does the source."""
+    does not depend on ``n``, so neither does the source.  At element
+    size 2 a thread computes two minor-dim points (:func:`stream_threads`)
+    and keeps :data:`STREAM_PAIR_MIN_REGS` registers (past three dims
+    with a register queue of :data:`STREAM_PAIR_OUTER_QUEUE`, in blocks
+    of at most :data:`STREAM_PAIR_OUTER_BLOCK` threads), and the rings'
+    rows are whole 16-byte units (:func:`pair_row`)."""
     if smem_limit is None:
         from yask_tpu_torch.ops.cuda_emit import SMEM_LIMIT as smem_limit
     n0, n1, n2 = (int(x) for x in n)
+    floor = STREAM_PAIR_MIN_REGS if esize == 2 else STREAM_OUTER_MIN_REGS
     cands = []
     for t1, t2 in STREAM_TILES:
         for pf in STREAM_PREFETCH:
             depths = {a: ring_depth(h[0][0], h[0][1], pf)
                       for a, h in halos.items()}
-            cells = sum(depths[a] * (t1 + h[1][0] + h[1][1])
-                        * stream_row(t2 + h[2][0] + h[2][1], esize)
-                        for a, h in halos.items())
+            cells = ring_cells(halos, depths, t1, t2, esize)
             if cells * esize > smem_limit:
                 continue
-            nt = t1 * t2
+            nt = stream_threads(t1, t2, esize)
+            if outer and esize == 2 and nt > STREAM_PAIR_OUTER_BLOCK:
+                break
             per_sm = max(1, min(SM_THREADS // nt,
                                 SM_SMEM // (cells * esize + 1024)))
-            if outer:
-                per_sm = max(1, min(per_sm, SM_REGS
-                                    // (nt * STREAM_OUTER_MIN_REGS)))
+            if outer or esize == 2:
+                per_sm = max(1, min(per_sm, SM_REGS // (nt * floor)))
             cols = -(-n1 // t1) * -(-n2 // t2) * max(outer, 1)
             h0 = max((h[0][0] + h[0][1] for h in halos.values()), default=0)
             seg, segs = stream_segments(n0, cols, SMS * per_sm, h0)
             staged = {a: (t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
-                      * (n0 + segs * (h[0][0] + h[0][1])) / (nt * n0)
+                      * (n0 + segs * (h[0][0] + h[0][1])) / (t1 * t2 * n0)
                       for a, h in halos.items()}
+            queue = (STREAM_PAIR_OUTER_QUEUE if outer and esize == 2
+                     else register_queue(nt, per_sm))
             plan = StreamPlan((t1, t2), pf, depths, cells * esize, seg, segs,
-                              cols * segs, per_sm, register_queue(nt, per_sm),
-                              staged, h0, outer)
+                              cols * segs, per_sm, queue, staged, h0, outer,
+                              esize)
             if not outer:
                 return plan
             inplane = sum((t1 + h[1][0] + h[1][1]) * (t2 + h[2][0] + h[2][1])
-                          for h in halos.values()) / nt
+                          for h in halos.values()) / (t1 * t2)
             cands.append((nt * per_sm, inplane, plan))
             break
-    full = [c for c in cands if c[0] >= STREAM_OUTER_THREADS]
+    full = [c for c in cands
+            if c[0] >= min(STREAM_OUTER_THREADS, SM_REGS // floor)]
     if full:
         return min(full, key=lambda c: c[1])[2]
     return max(cands, key=lambda c: c[0])[2] if cands else None

@@ -666,10 +666,13 @@ class ShardPallasPlan:
         self.rad = {d: rad.get(d, 0) for d in dims}
         hK = {d: self.rad[d] * self.K for d in dims}
         extra = {d: (hK[d], hK[d]) for d in dims}
-        # at element size 2 an even padded minor extent per shard: the
-        # stream arms over a box fill their rings with aligned bfloat16
-        # pairs (fused_stencil.check_pair_strides)
-        mult = ({dims[-1]: 2} if is_bfloat16(ctx._csol.dtype) else None)
+        # at element size 2 the padded minor extent per shard the
+        # context plans: the stream arms over a box fill their rings with
+        # aligned bfloat16 pairs, K1's with 16-byte units
+        # (fused_stencil.check_pair_strides)
+        from yask_tpu_torch.ops.cuda_emit import bf16_minor_multiple
+        mult = ({dims[-1]: bf16_minor_multiple(ctx._ana)}
+                if is_bfloat16(ctx._csol.dtype) else None)
         self.layout = ShardLayout(ctx, extra, ("shard_pallas", self.K),
                                   mult)
         self.kernel = FusedKernel(ctx._csol.plan(

@@ -408,9 +408,11 @@ class StencilContext:
         self._plan_kwargs = dict(extra_pad=extra)
         from yask_tpu_torch.compiler.lowering import is_bfloat16
         if is_bfloat16(self._csol.dtype) and mode not in SHARD_MODES:
-            # an even padded minor extent: the stream arm fills its rings
-            # with aligned bfloat16 pairs (fused_stencil.check_pair_strides)
-            self._plan_kwargs["pad_multiple"] = {self._ana.domain_dims[-1]: 2}
+            # the stream arms fill their rings with aligned bfloat16 pairs,
+            # K1's with 16-byte units (fused_stencil.check_pair_strides)
+            from yask_tpu_torch.ops.cuda_emit import bf16_minor_multiple
+            self._plan_kwargs["pad_multiple"] = {
+                self._ana.domain_dims[-1]: bf16_minor_multiple(self._ana)}
         prog = self._csol.plan(self._opts.global_domain_sizes,
                                ops=self._ops(mode), **self._plan_kwargs)
         if mode in ("fused", "shard_pallas"):
